@@ -1,0 +1,506 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``paddle_tpu_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py                 # every phase, one card
+    python3 chip_smoke.py --only build,k1,k2
+
+Phases, in order; any failure exits non-zero:
+
+1. card: name and power limit (nvidia-smi), TF32 switched off for
+   float32 products and convolutions;
+2. build: every ``paddle_tpu_torch/csrc/*.cu`` compiled by nvcc for
+   sm_90a (one process per source, all at once), with ptxas's report;
+3. k1: the paged-decode kernel against its plain version at Llama-2-7B
+   decode shapes (and at Llama-2-70B's GQA head layout), bf16 and f32,
+   with its time beside the plain version's, one SDPA call over the
+   gathered frame (a yardstick the port never calls) and its bound;
+4. k2: the ragged-prefill kernel likewise, on 512-row chunks with
+   prefix offsets, an idle slot and a chunk ending mid-page;
+5. parity: a llama_tiny-shaped float32 model served on the card (the
+   kernels) and on the CPU (the plain versions) from the same weights
+   must emit equal greedy tokens, with both kernels launched;
+6. serve: Llama-2-7B in bf16 (random weights from a seed, full width
+   and depth) serves 8 requests through ``ContinuousBatchingServer``;
+   the launch counters are zeroed just before and read just after, and
+   must equal decode ticks x layers (K1) and prefill launches x layers
+   (K2).
+
+The last two lines of standard output are the per-kernel JSON record
+and ``{"ok": true, "device": {...}}``. Without a CUDA card, or without
+the ``paddle_tpu_torch`` package beside this file, it exits non-zero and
+prints no result.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PHASES = ("build", "k1", "k2", "parity", "serve")
+
+# NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
+# outside the tensor cores). The SXM part is the default.
+CARD_PEAKS = {
+    "H100 SXM": (3.35e12, 989e12, 67e12),
+    "H100 PCIe": (2.0e12, 756e12, 51e12),
+    "H100 NVL": (3.9e12, 835e12, 60e12),
+}
+
+# bf16 holds 8 significant bits: the kernels accumulate in f32 and round
+# once at the output, so against the plain version evaluated in f32 on
+# the same bf16 inputs the error is the output's rounding, <= 2^-8 of
+# |out| (outputs here are below ~3), with room for summation order.
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def peaks(name):
+    key = "H100 PCIe" if "PCIe" in name else \
+        "H100 NVL" if "NVL" in name else "H100 SXM"
+    return key, CARD_PEAKS[key]
+
+
+def cuda_ms(fn, torch, iters=20, warmup=3, flush=None):
+    """Median milliseconds of ``fn`` over CUDA events, the L2 cache
+    flushed before every timed launch (the main path finds it cold)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        if flush is not None:
+            flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def paged_case(torch, S, nh, kvh, hd, pg, maxp, dtype, gen):
+    """Pool, block tables (distinct random pages per slot) and q."""
+    P = S * maxp + 1
+    dev = "cuda"
+    kp = torch.randn((P, pg, kvh, hd), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((P, pg, kvh, hd), generator=gen, device=dev).to(dtype)
+    perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+    bt = perm[:S * maxp].reshape(S, maxp).to(torch.int32).contiguous()
+    return kp, vp, bt
+
+
+def gathered(torch, kp, vp, bt, rep):
+    """K/V gathered through the block table into the contiguous
+    [S, heads, T, hd] frame SDPA takes (heads repeated for GQA)."""
+    S, maxp = bt.shape
+    _, pg, kvh, hd = kp.shape
+    k = kp[bt.long()].reshape(S, maxp * pg, kvh, hd)
+    v = vp[bt.long()].reshape(S, maxp * pg, kvh, hd)
+    k = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+    v = v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+    return k, v
+
+
+def phase_k1(torch, peak, flush, record):
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    S, pg, maxp, hd = 8, 16, 128, 128
+    T = maxp * pg
+    # empty slot, 1 token, page-unaligned, full table, parked (T + 1),
+    # and three mid-length slots
+    lens = [0, 1, 17, T, T + 1, 700, 1500, 333]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bw, pk_bf16, pk_f32 = peak
+    for nh, kvh, tag in ((32, 32, "7b"), (64, 8, "70b-gqa")):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            kp, vp, bt = paged_case(torch, S, nh, kvh, hd, pg, maxp, dtype,
+                                    gen)
+            q = torch.randn((S, nh, hd), generator=gen,
+                            device="cuda").to(dtype)
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            scale = hd ** -0.5
+            out = pa.paged_attention(q, kp, vp, bt, lengths, scale)
+            torch.cuda.synchronize()
+            ref = pa._ref_paged_attention(q.float(), kp.float(), vp.float(),
+                                          bt, lengths, scale)
+            err = (out.float() - ref).abs().max().item()
+            ok = err <= TOL[dname] and torch.isfinite(out).all().item()
+            log(f"k1 {tag} {dname}: max_abs_err {err:.3e} "
+                f"(tol {TOL[dname]:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"k1 {tag} {dname} disagrees with its "
+                                 f"plain version")
+            if tag != "7b" or dtype != torch.bfloat16:
+                continue
+            # the main path's shape and type: time it
+            ms = cuda_ms(lambda: pa.paged_attention(q, kp, vp, bt, lengths,
+                                                    scale), torch,
+                         flush=flush)
+            plain_ms = cuda_ms(lambda: pa._ref_paged_attention(
+                q, kp, vp, bt, lengths, scale), torch, iters=5,
+                flush=flush)
+            k, v = gathered(torch, kp, vp, bt, nh // kvh)
+            mask = (torch.arange(T, device="cuda")[None]
+                    < lengths[:, None])[:, None, None, :]
+            qq = q[:, :, None, :]
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qq, k, v, attn_mask=mask, scale=scale), torch, flush=flush)
+            elt = q.element_size()
+            toks = sum(min(n, T) for n in lens)
+            nbytes = (2 * q.numel() * elt + 2 * toks * kvh * hd * elt
+                      + sum(-(-min(n, T) // pg) for n in lens) * 4 + 4 * S)
+            flops = 4 * toks * nh * hd
+            b_bytes, b_ops = nbytes / bw * 1e3, flops / pk_bf16 * 1e3
+            record["paged_attention"].update(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=max(b_bytes, b_ops),
+                bound_by="bytes" if b_bytes >= b_ops else "operations")
+            log(f"k1 7b bf16 timing: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                f"{max(b_bytes, b_ops):.4f} ms ({nbytes} bytes, {flops} "
+                f"flops)")
+
+
+def phase_k2(torch, peak, flush, record):
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import ragged_prefill as rp
+    S, C, pg, maxp, hd = 8, 512, 16, 128, 128
+    T = maxp * pg
+    # cold, prefix hits (page-aligned and mid-page), an idle slot (the
+    # scheduler's t0 = T sentinel, last = -1), chunks ending mid-page
+    t0s = [0, 256, 1000, T, 37, 512, 1200, 1536]
+    takes = [512, 512, 300, 0, 512, 200, 512, 500]
+    lasts = [t + n - 1 if n else -1 for t, n in zip(t0s, takes)]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bw, pk_bf16, pk_f32 = peak
+    for nh, kvh, tag in ((32, 32, "7b"), (64, 8, "70b-gqa")):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            kp, vp, bt = paged_case(torch, S, nh, kvh, hd, pg, maxp, dtype,
+                                    gen)
+            q = torch.randn((S, C, nh, hd), generator=gen,
+                            device="cuda").to(dtype)
+            t0 = torch.tensor(t0s, dtype=torch.int32, device="cuda")
+            last = torch.tensor(lasts, dtype=torch.int32, device="cuda")
+            scale = hd ** -0.5
+            out = rp.ragged_prefill_attention(q, kp, vp, bt, t0, last, scale)
+            torch.cuda.synchronize()
+            ref = rp._ref_ragged_prefill(q.float(), kp.float(), vp.float(),
+                                         bt, t0, last, scale)
+            err = 0.0
+            for s, n in enumerate(takes):          # live rows only
+                if n:
+                    err = max(err, (out[s, :n].float() - ref[s, :n])
+                              .abs().max().item())
+            idle_zero = out[3].abs().max().item() == 0.0
+            ok = err <= TOL[dname] and idle_zero \
+                and torch.isfinite(out).all().item()
+            log(f"k2 {tag} {dname}: max_abs_err {err:.3e} (tol "
+                f"{TOL[dname]:.0e}), idle slot zero {idle_zero} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"k2 {tag} {dname} disagrees with its "
+                                 f"plain version")
+            del ref
+            if tag != "7b" or dtype != torch.bfloat16:
+                continue
+            ms = cuda_ms(lambda: rp.ragged_prefill_attention(
+                q, kp, vp, bt, t0, last, scale), torch, flush=flush)
+            plain_ms = cuda_ms(lambda: rp._ref_ragged_prefill(
+                q, kp, vp, bt, t0, last, scale), torch, iters=5,
+                flush=flush)
+            k, v = gathered(torch, kp, vp, bt, nh // kvh)
+            pos = torch.arange(T, device="cuda")
+            row = t0.long()[:, None] + torch.arange(C, device="cuda")[None]
+            mask = (pos[None, None] <= row[:, :, None])[:, None]
+            qq = q.transpose(1, 2)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qq, k, v, attn_mask=mask, scale=scale), torch, flush=flush)
+            elt = q.element_size()
+            vis = sum(sum(t + c + 1 for c in range(n))
+                      for t, n in zip(t0s, takes))
+            flops = 4 * vis * nh * hd
+            kv_toks = sum(t + n for t, n in zip(t0s, takes) if n)
+            nbytes = (sum(takes) * nh * hd * elt + q.numel() * elt
+                      + 2 * kv_toks * kvh * hd * elt + 12 * S
+                      + sum(-(-(t + n) // pg) for t, n in zip(t0s, takes)
+                            if n) * 4)
+            b_bytes, b_ops = nbytes / bw * 1e3, flops / pk_bf16 * 1e3
+            record["ragged_prefill"].update(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=max(b_bytes, b_ops),
+                bound_by="bytes" if b_bytes >= b_ops else "operations")
+            log(f"k2 7b bf16 timing: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                f"{max(b_bytes, b_ops):.4f} ms ({nbytes} bytes, {flops} "
+                f"flops)")
+
+
+def serve_wave(srv, prompts, n_new):
+    rids = [srv.submit(p, max_new_tokens=n_new) for p in prompts]
+    out = srv.run()
+    return [out[r] for r in rids]
+
+
+def phase_parity(torch, np):
+    from paddle_tpu_torch.inference import ContinuousBatchingServer
+    from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny,
+                                         load_jax_params)
+    from paddle_tpu_torch.ops.kernels.paged_attention import \
+        paged_attention
+    from paddle_tpu_torch.ops.kernels.ragged_prefill import \
+        ragged_prefill_attention
+    cfg = llama_tiny()
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=3)
+    gpu = LlamaForCausalLM(cfg, device="cuda")
+    load_jax_params(gpu, {n: p.numpy() for n, p in cpu.named_parameters()})
+    rng = np.random.default_rng(5)
+    wave1 = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+             for n in (1, 7, 8, 13, 17, 30)]
+    wave2 = [np.concatenate([wave1[5][:16],
+                             rng.integers(0, cfg.vocab_size, (n,))
+                             .astype(np.int32)]) for n in (3, 9)]
+    outs = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        paged_attention.launches = ragged_prefill_attention.launches = 0
+        srv = ContinuousBatchingServer(model, max_slots=3, max_cache_len=64,
+                                       cache_backend="paged", page_size=8,
+                                       prefill_tokens_per_tick=5)
+        toks = serve_wave(srv, wave1, 7) + serve_wave(srv, wave2, 7)
+        bal = srv.pool_balance()
+        outs[name] = (toks, bal, srv.stats["prefix_auto_hits"],
+                      paged_attention.launches,
+                      ragged_prefill_attention.launches)
+    (t_cpu, b_cpu, hit_cpu, _, _), (t_gpu, b_gpu, hit_gpu, k1, k2) = \
+        outs["cpu"], outs["cuda"]
+    same = all(np.array_equal(a, b) for a, b in zip(t_cpu, t_gpu))
+    log(f"parity: tokens equal {same}, prefix hits cpu {hit_cpu} cuda "
+        f"{hit_gpu}, live pages cpu {b_cpu[1]} cuda {b_gpu[1]}, cuda "
+        f"launches k1 {k1} k2 {k2}")
+    if not (same and k1 > 0 and k2 > 0 and hit_gpu > 0
+            and b_cpu[1] == 0 and b_gpu[1] == 0):
+        raise SystemExit("parity: the card and the CPU disagree")
+
+
+def phase_serve(torch, np, card, record):
+    from paddle_tpu_torch.inference import ContinuousBatchingServer
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+    from paddle_tpu_torch.ops.kernels.paged_attention import \
+        paged_attention
+    from paddle_tpu_torch.ops.kernels.ragged_prefill import \
+        ragged_prefill_attention
+    cfg = llama2_7b()
+    t_init = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=0)
+    torch.cuda.synchronize()
+    log(f"serve: Llama-2-7B bf16 weights from seed 0 in "
+        f"{time.perf_counter() - t_init:.1f} s, "
+        f"{sum(p.numel() for p in model.parameters())} parameters")
+    # prefill_tokens_per_tick=512: long prompts stream in as 512-row
+    # chunks between decode ticks
+    srv = ContinuousBatchingServer(model, max_slots=8, max_cache_len=2048,
+                                   page_size=16, cache_backend="paged",
+                                   prefill_tokens_per_tick=512)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, 1025, size=8)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+               for n in lens]
+    n_new = 32
+    # warm-up request (cuBLAS handles, the allocator); its prompt shares
+    # no page with the wave
+    srv.submit(rng.integers(0, cfg.vocab_size, (40,)).astype(np.int32),
+               max_new_tokens=2)
+    srv.run()
+    first_at = {}
+
+    def on_token(rid, toks):
+        first_at.setdefault(rid, time.perf_counter())
+
+    paged_attention.launches = ragged_prefill_attention.launches = 0
+    s0 = dict(srv.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    submitted = {srv.submit(p, max_new_tokens=n_new, on_token=on_token):
+                 time.perf_counter() for p in prompts}
+    tick_ms, decode_only_ms = [], []
+    while srv.queue_depth() or srv.in_flight():
+        before = srv.stats["prefill_launches"]
+        ts = time.perf_counter()
+        srv.step()
+        dt = (time.perf_counter() - ts) * 1e3
+        tick_ms.append(dt)
+        if srv.stats["prefill_launches"] == before:
+            decode_only_ms.append(dt)
+    out = srv.run()
+    wall = time.perf_counter() - t0
+    k1, k2 = paged_attention.launches, ragged_prefill_attention.launches
+    decode_ticks = srv.stats["decode_ticks"] - s0["decode_ticks"]
+    prefill_launches = srv.stats["prefill_launches"] \
+        - s0["prefill_launches"]
+    bad = srv.stats["nonfinite_logit_rows"]
+    bal = srv.pool_balance()
+    toks = [out[r] for r in submitted]
+    ok_tokens = all(len(t) == n_new and t.min() >= 0
+                    and t.max() < cfg.vocab_size for t in toks)
+    ttft = sorted((first_at[r] - submitted[r]) * 1e3 for r in submitted)
+    decode_only_ms.sort()
+    med_decode = decode_only_ms[len(decode_only_ms) // 2] \
+        if decode_only_ms else float("nan")
+    log(f"serve: prompts {lens.tolist()}, {n_new} new tokens each, "
+        f"{len(tick_ms)} ticks ({decode_ticks} decode, {prefill_launches} "
+        f"prefill launches), k1 launches {k1}, k2 launches {k2}, "
+        f"non-finite live logit rows {bad}, pool {tuple(bal)}")
+    log(f"serve metrics [{card}]: wall {wall:.3f} s, "
+        f"{len(toks) * n_new / wall:.1f} tok/s, median decode-only tick "
+        f"{med_decode:.2f} ms, TTFT median "
+        f"{ttft[len(ttft) // 2]:.1f} ms max {ttft[-1]:.1f} ms")
+    L = cfg.num_layers
+    checks = {"32 in-vocabulary tokens each": ok_tokens,
+              "no non-finite live logits": bad == 0,
+              "pool drained (live == 0)": bal[1] == 0,
+              "k1 == decode ticks x layers": k1 == decode_ticks * L > 0,
+              "k2 == prefill launches x layers":
+                  k2 == prefill_launches * L > 0}
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"serve: check failed: {name}")
+    record["paged_attention"]["launches"] = k1
+    record["ragged_prefill"]["launches"] = k2
+    profile_decode(torch, np, srv, cfg, card)
+
+
+def profile_decode(torch, np, srv, cfg, card):
+    """Where a steady decode tick's time goes: 8 live slots, 5 ticks
+    under torch.profiler, device time by kernel and the device's busy
+    share of the wall time. Informational: it checks nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(7)
+    admitted = srv.stats["admissions"] + 8
+    for _ in range(8):
+        srv.submit(rng.integers(0, cfg.vocab_size, (128,)).astype(np.int32),
+                   max_new_tokens=24)
+    while srv.stats["admissions"] < admitted:
+        srv.step()
+    srv.step()                           # first all-decode tick: warm
+    n = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            srv.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [(e.key, e.self_device_time_total / 1e3 / n, e.count // n)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    kernels.sort(key=lambda k: -k[1])
+    busy = sum(k[1] for k in kernels)
+    if not kernels:
+        log("profile: the profiler recorded no device time (not measured)")
+    else:
+        log(f"profile [{card}]: decode tick {wall_ms:.2f} ms wall, device "
+            f"busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%), "
+            f"{sum(k[2] for k in kernels)} kernel launches per tick")
+        for name, ms, count in kernels[:10]:
+            log(f"  {ms:8.3f} ms/tick  {count:5d}x  {name[:90]}")
+    srv.run()
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)}")
+    args = ap.parse_args()
+    phases = [p for p in args.only.split(",") if p]
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+    if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
+        print("chip_smoke.py: the paddle_tpu_torch package is not beside "
+              "this script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device is available",
+              file=sys.stderr)
+        return 2
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    key, peak = peaks(name)
+    log(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}; bounds use "
+        f"the {key} data-sheet figures ({peak[0] / 1e12} TB/s, "
+        f"{peak[1] / 1e12:.0f} TFLOP/s bf16)")
+
+    from paddle_tpu_torch.ops.kernels import _build
+    t_build = time.perf_counter()
+    secs = _build.build_all()
+    log(f"build: {time.perf_counter() - t_build:.1f} s wall, per source "
+        f"{ {k: round(v, 1) for k, v in secs.items()} }")
+    for stem, info in _build.build_log().items():
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas {stem}: {line.strip()}")
+
+    record = {
+        "paged_attention": {
+            "name": "paged_attention", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas/paged_attention.py:124",
+            "launches": None, "max_abs_err": None, "ms": None,
+            "plain_ms": None, "bound_ms": None, "bound_by": None,
+            "library_ms": None},
+        "ragged_prefill": {
+            "name": "ragged_prefill", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/ragged_prefill.cu",
+            "replaces": "paddle_tpu/ops/pallas/ragged_prefill.py:144",
+            "launches": None, "max_abs_err": None, "ms": None,
+            "plain_ms": None, "bound_ms": None, "bound_by": None,
+            "library_ms": None},
+    }
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
+    if "k1" in phases:
+        phase_k1(torch, peak, flush, record)
+    if "k2" in phases:
+        phase_k2(torch, peak, flush, record)
+    del flush
+    if "parity" in phases:
+        phase_parity(torch, np)
+    if "serve" in phases:
+        torch.cuda.empty_cache()
+        phase_serve(torch, np, card, record)
+    log(json.dumps({"kernels": list(record.values())}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

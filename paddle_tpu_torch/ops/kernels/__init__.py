@@ -1,0 +1,4 @@
+"""Hand-written CUDA kernels for Hopper (``csrc/*.cu``, built at first
+use by ``_build``), each with its plain PyTorch version and a launch
+counter on its wrapper: ``paged_attention.paged_attention`` and
+``ragged_prefill.ragged_prefill_attention``."""
