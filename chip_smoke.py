@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``paddle_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                 # every phase, one card
-    python3 chip_smoke.py --only build,k1,k2
+    python3 chip_smoke.py --only build,k1,k2,k3
 
 Phases, in order; any failure exits non-zero:
 
@@ -12,18 +12,28 @@ Phases, in order; any failure exits non-zero:
    sm_90a (one process per source, all at once), with ptxas's report;
 3. k1: the paged-decode kernel against its plain version at Llama-2-7B
    decode shapes (and at Llama-2-70B's GQA head layout), bf16 and f32,
-   with its time beside the plain version's, one SDPA call over the
+   within TOL and VEC_RTOL (below), with its time beside the plain version's, one SDPA call over the
    gathered frame (a yardstick the port never calls) and its bound;
 4. k2: the ragged-prefill kernel likewise, on 512-row chunks with
    prefix offsets, an idle slot and a chunk ending mid-page;
-5. parity: a llama_tiny-shaped float32 model served on the card (the
-   kernels) and on the CPU (the plain versions) from the same weights
-   must emit equal greedy tokens, with both kernels launched;
-6. serve: Llama-2-7B in bf16 (random weights from a seed, full width
-   and depth) serves 8 requests through ``ContinuousBatchingServer``;
-   the launch counters are zeroed just before and read just after, and
-   must equal decode ticks x layers (K1) and prefill launches x layers
-   (K2).
+5. k3: the fused-tick kernel likewise, on an admission tick (512-row
+   chunks at prefix offsets, two decode rows, an idle slot, a chunk
+   ending mid-page) and a decode-only tick (C = 1, K1's lengths, timed
+   beside K1), plus a poison check: every page the schedule does not
+   list filled with NaN must leave the live rows bit for bit unchanged;
+6. parity: a llama_tiny-shaped float32 model served on the card (the
+   kernels) and on the CPU (the plain versions) from the same weights,
+   on split ticks and on fused ticks, must emit equal greedy tokens:
+   card == CPU on each, and fused == split; split runs launch K1 and K2
+   only, fused runs K3 only;
+7. serve: Llama-2-7B in bf16 (random weights from a seed, full width
+   and depth) serves 8 requests through ``ContinuousBatchingServer``,
+   on split and on fused ticks in the order split, fused, fused, split
+   (a new server over the same model each time, the last one freed
+   first); the launch counters are zeroed just before each wave and
+   read just after, and must equal decode ticks x layers (K1) and
+   prefill launches x layers (K2) on a split wave, fused launches x
+   layers (K3) on a fused wave.
 
 The last two lines of standard output are the per-kernel JSON record
 and ``{"ok": true, "device": {...}}``. Without a CUDA card, or without
@@ -38,7 +48,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "k1", "k2", "parity", "serve")
+PHASES = ("build", "k1", "k2", "k3", "parity", "serve")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
 # outside the tensor cores). The SXM part is the default.
@@ -53,10 +63,34 @@ CARD_PEAKS = {
 # the same bf16 inputs the error is the output's rounding, <= 2^-8 of
 # |out| (outputs here are below ~3), with room for summation order.
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# An absolute bound sized for outputs of ~3 is loose for long-context
+# rows, whose outputs average over ~1000 keys and shrink to ~0.05–0.1:
+# a kernel that dropped some of their keys could pass it. So each output
+# vector (one row under one query head) is also held to its own scale:
+# its largest error over the head dims over its largest |value|. The
+# kernels' own share is ~2^-8 in bf16 (output rounding, and K3's bf16
+# probabilities in P V) and ~1e-5 in f32.
+VEC_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def agreement(pairs, dname):
+    """Largest absolute error and largest vector-relative error (see
+    VEC_RTOL) of kernel outputs against their plain versions, over
+    (out, ref) pairs of rows [..., hd] the caller reads; and whether
+    both are within tolerance. A vector whose plain value is all zero
+    must come out all zero."""
+    abs_err = rel_err = 0.0
+    for out, ref in pairs:
+        d = (out.float() - ref).abs().amax(-1)
+        abs_err = max(abs_err, d.max().item())
+        rel_err = max(rel_err, (d / ref.abs().amax(-1).clamp_min(1e-30))
+                      .max().item())
+    return abs_err, rel_err, (abs_err <= TOL[dname]
+                              and rel_err <= VEC_RTOL[dname])
 
 
 def card_line():
@@ -140,10 +174,11 @@ def phase_k1(torch, peak, flush, record):
             torch.cuda.synchronize()
             ref = pa._ref_paged_attention(q.float(), kp.float(), vp.float(),
                                           bt, lengths, scale)
-            err = (out.float() - ref).abs().max().item()
-            ok = err <= TOL[dname] and torch.isfinite(out).all().item()
-            log(f"k1 {tag} {dname}: max_abs_err {err:.3e} "
-                f"(tol {TOL[dname]:.0e}) {'ok' if ok else 'FAIL'}")
+            err, rel, close = agreement([(out, ref)], dname)
+            ok = close and torch.isfinite(out).all().item()
+            log(f"k1 {tag} {dname}: max_abs_err {err:.3e} (tol "
+                f"{TOL[dname]:.0e}), max vector-relative error {rel:.3e} "
+                f"(tol {VEC_RTOL[dname]:.0e}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"k1 {tag} {dname} disagrees with its "
                                  f"plain version")
@@ -204,16 +239,14 @@ def phase_k2(torch, peak, flush, record):
             torch.cuda.synchronize()
             ref = rp._ref_ragged_prefill(q.float(), kp.float(), vp.float(),
                                          bt, t0, last, scale)
-            err = 0.0
-            for s, n in enumerate(takes):          # live rows only
-                if n:
-                    err = max(err, (out[s, :n].float() - ref[s, :n])
-                              .abs().max().item())
+            err, rel, close = agreement(     # live rows only
+                [(out[s, :n], ref[s, :n]) for s, n in enumerate(takes)
+                 if n], dname)
             idle_zero = out[3].abs().max().item() == 0.0
-            ok = err <= TOL[dname] and idle_zero \
-                and torch.isfinite(out).all().item()
+            ok = close and idle_zero and torch.isfinite(out).all().item()
             log(f"k2 {tag} {dname}: max_abs_err {err:.3e} (tol "
-                f"{TOL[dname]:.0e}), idle slot zero {idle_zero} "
+                f"{TOL[dname]:.0e}), max vector-relative error {rel:.3e} "
+                f"(tol {VEC_RTOL[dname]:.0e}), idle slot zero {idle_zero} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"k2 {tag} {dname} disagrees with its "
@@ -253,20 +286,177 @@ def phase_k2(torch, peak, flush, record):
                 f"flops)")
 
 
+def k3_ticks(T):
+    """(name, C, [(t0, take, dec) per slot]) of the two ticks K3 is held
+    at: an admission tick (cold and prefix-offset chunks, two decode
+    rows, an idle slot at the scheduler's t0 = T sentinel, chunks ending
+    mid-page) and a decode-only tick at K1's lengths (clamped to
+    [1, T]: a decode row has at least itself to attend to)."""
+    admit = [(0, 512, 0), (256, 512, 0), (1000, 300, 0), (T, 0, 0),
+             (700, 1, 1), (512, 200, 0), (1500, 1, 1), (1536, 500, 0)]
+    decode = [(max(1, min(n, T)) - 1, 1, 1)
+              for n in (0, 1, 17, T, T + 1, 700, 1500, 333)]
+    return (("admit", 512, admit), ("decode", 1, decode))
+
+
+def phase_k3(torch, peak, flush, record):
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import fused_tick as ft
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    S, pg, maxp, hd = 8, 16, 128, 128
+    T = maxp * pg
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for tick, C, slots in k3_ticks(T):
+        t0_l = [t for t, _, _ in slots]
+        last_l = [t + n - 1 if n else -1 for t, n, _ in slots]
+        dec_l = [d for _, _, d in slots]
+        rows = [1 if d else n for _, n, d in slots]    # live rows compared
+        live_pages = max(x // pg + 1 for x in last_l if x >= 0)
+        W = min(maxp, 1 << (live_pages - 1).bit_length())
+        ss_np, sp_np, n_live = ft.build_schedule(last_l, pg, n_slots=S)
+        dev = "cuda"
+        t0 = torch.tensor(t0_l, dtype=torch.int32, device=dev)
+        last = torch.tensor(last_l, dtype=torch.int32, device=dev)
+        dec = torch.tensor(dec_l, dtype=torch.int32, device=dev)
+        ss = torch.from_numpy(ss_np).to(dev)
+        sp = torch.from_numpy(sp_np).to(dev)
+        for nh, kvh, tag in ((32, 32, "7b"), (64, 8, "70b-gqa")):
+            for dtype in (torch.bfloat16, torch.float32):
+                dname = str(dtype).split(".")[1]
+                kp, vp, bt = paged_case(torch, S, nh, kvh, hd, pg, maxp,
+                                        dtype, gen)
+                bt_live = bt[:, :W].contiguous()
+                q = torch.randn((S, C, nh, hd), generator=gen,
+                                device=dev).to(dtype)
+                scale = hd ** -0.5
+                args = (bt_live, t0, last, dec, ss, sp, scale)
+                out = ft.fused_tick_attention(q, kp, vp, *args)
+                torch.cuda.synchronize()
+                ref = ft._ref_fused_tick(q.float(), kp.float(), vp.float(),
+                                         bt_live, t0, last, dec, scale)
+                err, rel, close = agreement(
+                    [(out[s, :n], ref[s, :n]) for s, n in enumerate(rows)
+                     if n], dname)
+                del ref
+                idle_zero = all(out[s].abs().max().item() == 0.0
+                                for s, n in enumerate(rows) if not n)
+                # poison: every page the schedule does not list -> NaN
+                listed = torch.zeros(kp.shape[0], dtype=torch.bool,
+                                     device=dev)
+                live = ss < S
+                listed[bt_live[ss[live].long(), sp[live].long()].long()] = \
+                    True
+                kpn, vpn = kp.clone(), vp.clone()
+                kpn[~listed] = float("nan")
+                vpn[~listed] = float("nan")
+                out2 = ft.fused_tick_attention(q, kpn, vpn, *args)
+                torch.cuda.synchronize()
+                same = all(torch.equal(out[s, :n], out2[s, :n])
+                           for s, n in enumerate(rows) if n)
+                del kpn, vpn, out2
+                ok = close and idle_zero and same \
+                    and torch.isfinite(out).all().item()
+                log(f"k3 {tick} {tag} {dname}: C={C} W={W} G={len(ss_np)} "
+                    f"({n_live} live pages), max_abs_err {err:.3e} (tol "
+                    f"{TOL[dname]:.0e}), max vector-relative error "
+                    f"{rel:.3e} (tol {VEC_RTOL[dname]:.0e}), idle slot "
+                    f"zero {idle_zero}, "
+                    f"unlisted pages NaN-poisoned: live rows bitwise "
+                    f"equal {same} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"k3 {tick} {tag} {dname} disagrees "
+                                     f"with its plain version")
+                if tag == "7b" and dtype == torch.bfloat16:
+                    k3_time(torch, F, ft, pa, tick, q, kp, vp, bt, args,
+                            slots, n_live, peak, flush, record, err)
+
+
+def k3_time(torch, F, ft, pa, tick, q, kp, vp, bt, args, slots, n_live,
+            peak, flush, record, err):
+    """K3's time at the main path's shape beside its plain version, one
+    SDPA call over the gathered masked frame (a yardstick the port never
+    calls) and its bound; on the decode-only tick, K1 at the same
+    lengths too."""
+    bw, pk_bf16, _ = peak
+    bt_live, t0, last, dec, ss, sp, scale = args
+    S, C, nh, hd = q.shape
+    _, pg, kvh, _ = kp.shape
+    ms = cuda_ms(lambda: ft.fused_tick_attention(q, kp, vp, *args), torch,
+                 flush=flush)
+    plain_ms = cuda_ms(lambda: ft._ref_fused_tick(
+        q, kp, vp, bt_live, t0, last, dec, scale), torch, iters=5,
+        flush=flush)
+    k, v = gathered(torch, kp, vp, bt_live, nh // kvh)
+    Tl = k.shape[2]
+    pos = torch.arange(Tl, device="cuda")
+    row = t0.long()[:, None] + torch.arange(C, device="cuda")[None]
+    mask = (pos[None, None] <= row[:, :, None])[:, None]
+    qq = q.transpose(1, 2)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qq, k, v, attn_mask=mask, scale=scale), torch, flush=flush)
+    del k, v, mask
+    elt = q.element_size()
+    vis = sum(t + 1 if d else sum(t + c + 1 for c in range(n))
+              for t, n, d in slots if n)
+    flops = 4 * vis * nh * hd
+    # q: the live rows only (rows past a take, and rows 1.. of a decode
+    # slot, need not be read); out: every row, as the contract writes
+    # them (finite values past a take, zeros for an idle slot); K/V: the
+    # scheduled pages; int32: their block-table and schedule entries, t0
+    # and last
+    live_rows = sum(1 if d else n for _, n, d in slots)
+    nbytes = (live_rows * nh * hd * elt + q.numel() * elt
+              + 2 * n_live * pg * kvh * hd * elt + 4 * (3 * n_live + 2 * S))
+    b_bytes, b_ops = nbytes / bw * 1e3, flops / pk_bf16 * 1e3
+    bound = max(b_bytes, b_ops)
+    by = "bytes" if b_bytes >= b_ops else "operations"
+    extra = ""
+    if tick == "admit":
+        record["fused_tick"].update(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bound, bound_by=by)
+    else:
+        lengths = (t0 + 1).to(torch.int32)
+        qd = q[:, 0].contiguous()
+        k1_ms = cuda_ms(lambda: pa.paged_attention(qd, kp, vp, bt, lengths,
+                                                   scale), torch,
+                        flush=flush)
+        extra = f", K1 at the same lengths {k1_ms:.4f} ms"
+    log(f"k3 {tick} 7b bf16 timing: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({by}; {nbytes} bytes, {flops} flops){extra}")
+
+
 def serve_wave(srv, prompts, n_new):
     rids = [srv.submit(p, max_new_tokens=n_new) for p in prompts]
     out = srv.run()
     return [out[r] for r in rids]
 
 
-def phase_parity(torch, np):
-    from paddle_tpu_torch.inference import ContinuousBatchingServer
-    from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny,
-                                         load_jax_params)
+def counters():
+    """The kernels' launch counters: {name: wrapper}."""
+    from paddle_tpu_torch.ops.kernels.fused_tick import fused_tick_attention
     from paddle_tpu_torch.ops.kernels.paged_attention import \
         paged_attention
     from paddle_tpu_torch.ops.kernels.ragged_prefill import \
         ragged_prefill_attention
+    return {"k1": paged_attention, "k2": ragged_prefill_attention,
+            "k3": fused_tick_attention}
+
+
+def zero_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def phase_parity(torch, np):
+    from paddle_tpu_torch.inference import ContinuousBatchingServer
+    from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny,
+                                         load_jax_params)
     cfg = llama_tiny()
     cpu = LlamaForCausalLM(cfg, device="cpu", seed=3)
     gpu = LlamaForCausalLM(cfg, device="cuda")
@@ -278,34 +468,83 @@ def phase_parity(torch, np):
                              rng.integers(0, cfg.vocab_size, (n,))
                              .astype(np.int32)]) for n in (3, 9)]
     outs = {}
-    for name, model in (("cpu", cpu), ("cuda", gpu)):
-        paged_attention.launches = ragged_prefill_attention.launches = 0
-        srv = ContinuousBatchingServer(model, max_slots=3, max_cache_len=64,
-                                       cache_backend="paged", page_size=8,
-                                       prefill_tokens_per_tick=5)
-        toks = serve_wave(srv, wave1, 7) + serve_wave(srv, wave2, 7)
-        bal = srv.pool_balance()
-        outs[name] = (toks, bal, srv.stats["prefix_auto_hits"],
-                      paged_attention.launches,
-                      ragged_prefill_attention.launches)
-    (t_cpu, b_cpu, hit_cpu, _, _), (t_gpu, b_gpu, hit_gpu, k1, k2) = \
-        outs["cpu"], outs["cuda"]
-    same = all(np.array_equal(a, b) for a, b in zip(t_cpu, t_gpu))
-    log(f"parity: tokens equal {same}, prefix hits cpu {hit_cpu} cuda "
-        f"{hit_gpu}, live pages cpu {b_cpu[1]} cuda {b_gpu[1]}, cuda "
-        f"launches k1 {k1} k2 {k2}")
-    if not (same and k1 > 0 and k2 > 0 and hit_gpu > 0
-            and b_cpu[1] == 0 and b_gpu[1] == 0):
-        raise SystemExit("parity: the card and the CPU disagree")
+    for mode in ("split", "fused"):
+        for name, model in (("cpu", cpu), ("cuda", gpu)):
+            zero_counts()
+            srv = ContinuousBatchingServer(model, max_slots=3,
+                                           max_cache_len=64,
+                                           cache_backend="paged",
+                                           page_size=8,
+                                           prefill_tokens_per_tick=5,
+                                           serving_mode=mode)
+            toks = serve_wave(srv, wave1, 7) + serve_wave(srv, wave2, 7)
+            outs[mode, name] = (toks, srv.pool_balance()[1],
+                                srv.stats["prefix_auto_hits"], read_counts())
+    ref = outs["split", "cpu"][0]
+    good = True
+    for (mode, name), (toks, live, hits, n) in outs.items():
+        same = all(np.array_equal(a, b) for a, b in zip(toks, ref))
+        want = {"split": ("k1", "k2"), "fused": ("k3",)}[mode]
+        launched = all(n[k] > 0 for k in want) if name == "cuda" \
+            else not any(n.values())
+        others = not any(v for k, v in n.items() if k not in want)
+        log(f"parity {mode} {name}: tokens equal to the CPU split run "
+            f"{same}, prefix hits {hits}, live pages {live}, launches {n}")
+        good &= same and launched and others and hits > 0 and live == 0
+    if not good:
+        raise SystemExit("parity: the card and the CPU, or the fused and "
+                         "split ticks, disagree")
+
+
+def serve_timed(torch, np, srv, prompts, n_new, warm):
+    """One wave through ``srv`` tick by tick: a warm-up request first
+    (cuBLAS handles, the allocator; its prompt shares no page with the
+    wave), then the launch counters zeroed, the wave driven, the counters
+    read. Returns the tokens, the counts and the end-to-end metrics."""
+    srv.submit(warm, max_new_tokens=2)
+    srv.run()
+    first_at = {}
+
+    def on_token(rid, toks):
+        first_at.setdefault(rid, time.perf_counter())
+
+    zero_counts()
+    s0 = dict(srv.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    submitted = {srv.submit(p, max_new_tokens=n_new, on_token=on_token):
+                 time.perf_counter() for p in prompts}
+    ticks, decode_only_ms = 0, []
+    while srv.queue_depth() or srv.in_flight():
+        before = srv.stats["prefill_tokens"]
+        ts = time.perf_counter()
+        srv.step()
+        dt = (time.perf_counter() - ts) * 1e3
+        ticks += 1
+        if srv.stats["prefill_tokens"] == before:
+            decode_only_ms.append(dt)
+    out = srv.run()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    d = {k: srv.stats[k] - s0[k] for k in ("decode_ticks",
+                                            "prefill_launches",
+                                            "fused_launches")}
+    ttft = sorted((first_at[r] - submitted[r]) * 1e3 for r in submitted)
+    decode_only_ms.sort()
+    return {"tokens": [out[r] for r in submitted], "counts": counts,
+            "ticks": ticks, "wall": wall,
+            "tok_s": len(prompts) * n_new / wall,
+            "decode_ms": decode_only_ms[len(decode_only_ms) // 2]
+            if decode_only_ms else float("nan"),
+            "ttft_med": ttft[len(ttft) // 2], "ttft_max": ttft[-1],
+            "bad": srv.stats["nonfinite_logit_rows"],
+            "pool": tuple(srv.pool_balance()), **d}
 
 
 def phase_serve(torch, np, card, record):
+    import gc
     from paddle_tpu_torch.inference import ContinuousBatchingServer
     from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
-    from paddle_tpu_torch.ops.kernels.paged_attention import \
-        paged_attention
-    from paddle_tpu_torch.ops.kernels.ragged_prefill import \
-        ragged_prefill_attention
     cfg = llama2_7b()
     t_init = time.perf_counter()
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
@@ -314,80 +553,85 @@ def phase_serve(torch, np, card, record):
     log(f"serve: Llama-2-7B bf16 weights from seed 0 in "
         f"{time.perf_counter() - t_init:.1f} s, "
         f"{sum(p.numel() for p in model.parameters())} parameters")
-    # prefill_tokens_per_tick=512: long prompts stream in as 512-row
-    # chunks between decode ticks
-    srv = ContinuousBatchingServer(model, max_slots=8, max_cache_len=2048,
-                                   page_size=16, cache_backend="paged",
-                                   prefill_tokens_per_tick=512)
     rng = np.random.default_rng(0)
     lens = rng.integers(128, 1025, size=8)
     prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
                for n in lens]
+    warm = rng.integers(0, cfg.vocab_size, (40,)).astype(np.int32)
     n_new = 32
-    # warm-up request (cuBLAS handles, the allocator); its prompt shares
-    # no page with the wave
-    srv.submit(rng.integers(0, cfg.vocab_size, (40,)).astype(np.int32),
-               max_new_tokens=2)
-    srv.run()
-    first_at = {}
-
-    def on_token(rid, toks):
-        first_at.setdefault(rid, time.perf_counter())
-
-    paged_attention.launches = ragged_prefill_attention.launches = 0
-    s0 = dict(srv.stats)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    submitted = {srv.submit(p, max_new_tokens=n_new, on_token=on_token):
-                 time.perf_counter() for p in prompts}
-    tick_ms, decode_only_ms = [], []
-    while srv.queue_depth() or srv.in_flight():
-        before = srv.stats["prefill_launches"]
-        ts = time.perf_counter()
-        srv.step()
-        dt = (time.perf_counter() - ts) * 1e3
-        tick_ms.append(dt)
-        if srv.stats["prefill_launches"] == before:
-            decode_only_ms.append(dt)
-    out = srv.run()
-    wall = time.perf_counter() - t0
-    k1, k2 = paged_attention.launches, ragged_prefill_attention.launches
-    decode_ticks = srv.stats["decode_ticks"] - s0["decode_ticks"]
-    prefill_launches = srv.stats["prefill_launches"] \
-        - s0["prefill_launches"]
-    bad = srv.stats["nonfinite_logit_rows"]
-    bal = srv.pool_balance()
-    toks = [out[r] for r in submitted]
-    ok_tokens = all(len(t) == n_new and t.min() >= 0
-                    and t.max() < cfg.vocab_size for t in toks)
-    ttft = sorted((first_at[r] - submitted[r]) * 1e3 for r in submitted)
-    decode_only_ms.sort()
-    med_decode = decode_only_ms[len(decode_only_ms) // 2] \
-        if decode_only_ms else float("nan")
-    log(f"serve: prompts {lens.tolist()}, {n_new} new tokens each, "
-        f"{len(tick_ms)} ticks ({decode_ticks} decode, {prefill_launches} "
-        f"prefill launches), k1 launches {k1}, k2 launches {k2}, "
-        f"non-finite live logit rows {bad}, pool {tuple(bal)}")
-    log(f"serve metrics [{card}]: wall {wall:.3f} s, "
-        f"{len(toks) * n_new / wall:.1f} tok/s, median decode-only tick "
-        f"{med_decode:.2f} ms, TTFT median "
-        f"{ttft[len(ttft) // 2]:.1f} ms max {ttft[-1]:.1f} ms")
     L = cfg.num_layers
-    checks = {"32 in-vocabulary tokens each": ok_tokens,
-              "no non-finite live logits": bad == 0,
-              "pool drained (live == 0)": bal[1] == 0,
-              "k1 == decode ticks x layers": k1 == decode_ticks * L > 0,
-              "k2 == prefill launches x layers":
-                  k2 == prefill_launches * L > 0}
-    for name, good in checks.items():
-        if not good:
-            raise SystemExit(f"serve: check failed: {name}")
-    record["paged_attention"]["launches"] = k1
-    record["ragged_prefill"]["launches"] = k2
-    profile_decode(torch, np, srv, cfg, card)
+    log(f"serve: prompts {lens.tolist()}, {n_new} new tokens each")
+
+    def server(mode):
+        # prefill_tokens_per_tick=512: long prompts stream in as 512-row
+        # chunks between (split) or beside (fused) decode rows
+        return ContinuousBatchingServer(model, max_slots=8,
+                                        max_cache_len=2048, page_size=16,
+                                        cache_backend="paged",
+                                        prefill_tokens_per_tick=512,
+                                        serving_mode=mode)
+
+    def release():
+        # the last server went out of scope: return its pool to the card
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # split, fused, fused, split: the tick is host-bound and drifts from
+    # wave to wave, so each mode's two waves bracket the other's. The
+    # profiled ticks come after every timed wave and cannot disturb it.
+    res = {"split": [], "fused": []}
+    for mode in ("split", "fused", "fused", "split"):
+        r = serve_timed(torch, np, server(mode), prompts, n_new, warm)
+        release()
+        res[mode].append(r)
+        c = r["counts"]
+        log(f"serve {mode}: {r['ticks']} ticks ({r['decode_ticks']} "
+            f"decode, {r['prefill_launches']} prefill launches, "
+            f"{r['fused_launches']} fused launches), launches {c}, "
+            f"non-finite live logit rows {r['bad']}, pool {r['pool']}")
+        log(f"serve metrics {mode} [{card}]: wall {r['wall']:.3f} s, "
+            f"{r['tok_s']:.1f} tok/s, median decode-only tick "
+            f"{r['decode_ms']:.2f} ms, TTFT median {r['ttft_med']:.1f} ms "
+            f"max {r['ttft_max']:.1f} ms")
+        if mode == "split":
+            launch_checks = {
+                "k1 == decode ticks x layers":
+                    c["k1"] == r["decode_ticks"] * L > 0,
+                "k2 == prefill launches x layers":
+                    c["k2"] == r["prefill_launches"] * L > 0,
+                "no k3 launch": c["k3"] == 0}
+        else:
+            launch_checks = {
+                "k3 == fused launches x layers":
+                    c["k3"] == r["fused_launches"] * L > 0,
+                "no k1 or k2 launch": c["k1"] == c["k2"] == 0}
+        checks = {"32 in-vocabulary tokens each":
+                      all(len(t) == n_new and t.min() >= 0
+                          and t.max() < cfg.vocab_size for t in r["tokens"]),
+                  "no non-finite live logits": r["bad"] == 0,
+                  "pool drained (live == 0)": r["pool"][1] == 0,
+                  **launch_checks}
+        for name, good in checks.items():
+            if not good:
+                raise SystemExit(f"serve {mode}: check failed: {name}")
+    for mode, runs in res.items():
+        log(f"serve summary {mode} [{card}]: tok/s "
+            f"{[round(r['tok_s'], 1) for r in runs]}, median decode-only "
+            f"tick {[round(r['decode_ms'], 2) for r in runs]} ms, TTFT "
+            f"median {[round(r['ttft_med'], 1) for r in runs]} ms")
+    record["paged_attention"]["launches"] = res["split"][0]["counts"]["k1"]
+    record["ragged_prefill"]["launches"] = res["split"][0]["counts"]["k2"]
+    record["fused_tick"]["launches"] = res["fused"][0]["counts"]["k3"]
+    agree = sum(int((a == b).sum()) for a, b in
+                zip(res["split"][0]["tokens"], res["fused"][0]["tokens"]))
+    log(f"serve: split and fused agree on {agree} of {8 * n_new} tokens "
+        f"(informational: bf16 near-ties on random weights may flip)")
+    for mode in ("split", "fused"):
+        profile_decode(torch, np, server(mode), cfg, card, mode)
+        release()
 
 
-def profile_decode(torch, np, srv, cfg, card):
+def profile_decode(torch, np, srv, cfg, card, mode):
     """Where a steady decode tick's time goes: 8 live slots, 5 ticks
     under torch.profiler, device time by kernel and the device's busy
     share of the wall time. Informational: it checks nothing."""
@@ -418,8 +662,8 @@ def profile_decode(torch, np, srv, cfg, card):
     if not kernels:
         log("profile: the profiler recorded no device time (not measured)")
     else:
-        log(f"profile [{card}]: decode tick {wall_ms:.2f} ms wall, device "
-            f"busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%), "
+        log(f"profile {mode} [{card}]: decode tick {wall_ms:.2f} ms wall, "
+            f"device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%), "
             f"{sum(k[2] for k in kernels)} kernel launches per tick")
         for name, ms, count in kernels[:10]:
             log(f"  {ms:8.3f} ms/tick  {count:5d}x  {name[:90]}")
@@ -483,12 +727,21 @@ def main():
             "launches": None, "max_abs_err": None, "ms": None,
             "plain_ms": None, "bound_ms": None, "bound_by": None,
             "library_ms": None},
+        "fused_tick": {
+            "name": "fused_tick", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/fused_tick.cu",
+            "replaces": "paddle_tpu/ops/pallas/fused_tick.py:215",
+            "launches": None, "max_abs_err": None, "ms": None,
+            "plain_ms": None, "bound_ms": None, "bound_by": None,
+            "library_ms": None},
     }
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
     if "k1" in phases:
         phase_k1(torch, peak, flush, record)
     if "k2" in phases:
         phase_k2(torch, peak, flush, record)
+    if "k3" in phases:
+        phase_k3(torch, peak, flush, record)
     del flush
     if "parity" in phases:
         phase_parity(torch, np)

@@ -1,0 +1,159 @@
+// Device code shared by the port's attention kernels: K1
+// (paged_attention.cu), K2 (ragged_prefill.cu) and K3 (fused_tick.cu).
+//
+// - element helpers: f32 loads and stores of f32/bf16, 16-byte row loads,
+//   warp sums;
+// - decode_attend: one query row per kv head's GQA group over paged K/V
+//   (K1's design). K1 runs it over a slot's block table; K3's C == 1
+//   kernel runs it over the slot's run of the page schedule. The caller
+//   says where key j lies in the pool.
+//
+// _build.py hashes this header into every kernel library's name, so an
+// edit here rebuilds all of them.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace pt_attn {
+
+constexpr int kMaxRep = 8;          // largest GQA ratio (Llama-2-70B)
+constexpr float kNegInf = -1e30f;   // the TPU kernels' mask value
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// 16 bytes of a pool row as floats
+__device__ __forceinline__ void load16(const float* p, float* x) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* x) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One block of WARPS warps attends the rep query vectors of kv head g
+// (q and o point at the first of them, rep * HD contiguous elements)
+// over keys 0 .. n_keys - 1. key_row(j) gives key j's row in the pool
+// (page * pg + offset in the page), or a negative value to skip it; the
+// block never reads a row it was not given.
+//
+// The warps take the keys round-robin; in a warp each lane holds HD / 32
+// dims of q, the K and V rows and the accumulator, the dot product is a
+// warp shuffle reduction and the online softmax state (m, l, acc) of
+// every query vector lives in registers. At the end the warps' partial
+// states merge through shared memory. No key at all writes zeros (the
+// l == 0 guard of the TPU kernels).
+template <typename T, int HD, int WARPS, typename KeyRow>
+__device__ __forceinline__ void decode_attend(
+    const T* __restrict__ q, const T* __restrict__ kp,
+    const T* __restrict__ vp, T* __restrict__ o, int rep, int kvh, int g,
+    int n_keys, KeyRow key_row, float scale) {
+  constexpr int EPL = (HD + 31) / 32;   // dims per lane
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int d0 = lane * EPL;
+  const bool has = d0 < HD;             // hd = 16: lanes 16..31 hold none
+
+  float qr[kMaxRep][EPL], acc[kMaxRep][EPL], m[kMaxRep], l[kMaxRep];
+#pragma unroll
+  for (int r = 0; r < kMaxRep; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) {
+      acc[r][e] = 0.f;
+      qr[r][e] = (r < rep && has) ? to_f32(q[r * HD + d0 + e]) : 0.f;
+    }
+  }
+
+#pragma unroll 2
+  for (int j = warp; j < n_keys; j += WARPS) {
+    const long long row = key_row(j);
+    if (row < 0) continue;   // warp-uniform: the shuffles stay converged
+    const long long base = (row * kvh + g) * HD + d0;
+    float kr[EPL], vr[EPL];
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) {
+      kr[e] = has ? to_f32(kp[base + e]) : 0.f;
+      vr[e] = has ? to_f32(vp[base + e]) : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < kMaxRep; ++r) {
+      if (r < rep) {
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) dot += qr[r][e] * kr[e];
+        const float sc = warp_sum(dot) * scale;
+        const float m_new = fmaxf(m[r], sc);
+        const float corr = expf(m[r] - m_new);
+        const float p = expf(sc - m_new);
+        l[r] = l[r] * corr + p;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[r][e] = acc[r][e] * corr + p * vr[e];
+        m[r] = m_new;
+      }
+    }
+  }
+
+  // merge the warps' partial softmax states
+  __shared__ float sm_m[WARPS][kMaxRep];
+  __shared__ float sm_l[WARPS][kMaxRep];
+  __shared__ float sm_acc[WARPS][kMaxRep][HD];
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < kMaxRep; ++r) {
+      sm_m[warp][r] = m[r];
+      sm_l[warp][r] = l[r];
+    }
+  }
+  if (has) {
+#pragma unroll
+    for (int r = 0; r < kMaxRep; ++r) {
+      if (r < rep) {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) sm_acc[warp][r][d0 + e] = acc[r][e];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rep * HD; i += WARPS * 32) {
+    const int r = i / HD;
+    const int d = i % HD;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm_m[w][r]);
+    float lsum = 0.f, acc_d = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float c = expf(sm_m[w][r] - mx);
+      lsum += sm_l[w][r] * c;
+      acc_d += sm_acc[w][r][d] * c;
+    }
+    store(o + i, lsum == 0.f ? 0.f : acc_d / lsum);
+  }
+}
+
+}  // namespace pt_attn

@@ -27,7 +27,9 @@
 //   each lane holds hd/32 dims of q, the K row and the accumulator, the
 //   dot product is a warp shuffle reduction, and the online softmax
 //   state (m, l, acc) of every query head lives in registers; at the
-//   end the warps' partial states are merged through shared memory;
+//   end the warps' partial states are merged through shared memory
+//   (decode_attend in attention_common.cuh, which K3's C == 1 kernel
+//   runs too; here key j lies at block_tables[s][j / pg]);
 // - the page loop stops at min(ceil(len / pg), maxp): the loop bound is
 //   the early exit, and a length past the table (parked slots carry
 //   max_cache_len + 1) is clamped so block_tables is never read out of
@@ -37,27 +39,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attention_common.cuh"
+
 namespace {
+
+using namespace pt_attn;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxRep = 8;          // largest GQA ratio (Llama-2-70B)
-constexpr float kNegInf = -1e30f;   // the TPU kernel's mask value
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -65,103 +54,22 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     const T* __restrict__ vp, const int* __restrict__ bt,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     int nh, int kvh, int pg, int maxp, float scale) {
-  constexpr int EPL = (HD + 31) / 32;   // dims per lane
   const int s = blockIdx.x;
   const int g = blockIdx.y;
   const int rep = nh / kvh;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int d0 = lane * EPL;
-  const bool has = d0 < HD;             // hd = 16: lanes 16..31 hold none
-
   // tokens to visit: the slot's length, clamped to the table's span
   const long long span = static_cast<long long>(maxp) * pg;
   long long len = lengths[s];
   if (len < 0) len = 0;
   const int n_tok = static_cast<int>(len < span ? len : span);
-
-  float qr[kMaxRep][EPL], acc[kMaxRep][EPL], m[kMaxRep], l[kMaxRep];
-#pragma unroll
-  for (int r = 0; r < kMaxRep; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      acc[r][e] = 0.f;
-      qr[r][e] = (r < rep && has)
-          ? to_f32(q[(static_cast<long long>(s) * nh + g * rep + r) * HD
-                     + d0 + e])
-          : 0.f;
-    }
-  }
-
   const int* row_bt = bt + static_cast<long long>(s) * maxp;
-#pragma unroll 2
-  for (int j = warp; j < n_tok; j += kWarps) {
-    const long long page = row_bt[j / pg];
-    const long long base =
-        ((page * pg + j % pg) * kvh + g) * HD + d0;
-    float kr[EPL], vr[EPL];
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      kr[e] = has ? to_f32(kp[base + e]) : 0.f;
-      vr[e] = has ? to_f32(vp[base + e]) : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < kMaxRep; ++r) {
-      if (r < rep) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) dot += qr[r][e] * kr[e];
-        const float sc = warp_sum(dot) * scale;
-        const float m_new = fmaxf(m[r], sc);
-        const float corr = expf(m[r] - m_new);
-        const float p = expf(sc - m_new);
-        l[r] = l[r] * corr + p;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[r][e] = acc[r][e] * corr + p * vr[e];
-        m[r] = m_new;
-      }
-    }
-  }
-
-  // merge the warps' partial softmax states
-  __shared__ float sm_m[kWarps][kMaxRep];
-  __shared__ float sm_l[kWarps][kMaxRep];
-  __shared__ float sm_acc[kWarps][kMaxRep][HD];
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < kMaxRep; ++r) {
-      sm_m[warp][r] = m[r];
-      sm_l[warp][r] = l[r];
-    }
-  }
-  if (has) {
-#pragma unroll
-    for (int r = 0; r < kMaxRep; ++r) {
-      if (r < rep) {
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) sm_acc[warp][r][d0 + e] = acc[r][e];
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < rep * HD; i += kThreads) {
-    const int r = i / HD;
-    const int d = i % HD;
-    float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][r]);
-    float lsum = 0.f, o = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(sm_m[w][r] - mx);
-      lsum += sm_l[w][r] * c;
-      o += sm_acc[w][r][d] * c;
-    }
-    store(out + (static_cast<long long>(s) * nh + g * rep + r) * HD + d,
-          lsum == 0.f ? 0.f : o / lsum);
-  }
+  const long long at = (static_cast<long long>(s) * nh + g * rep) * HD;
+  decode_attend<T, HD, kWarps>(
+      q + at, kp, vp, out + at, rep, kvh, g, n_tok,
+      [=](int j) {
+        return static_cast<long long>(row_bt[j / pg]) * pg + j % pg;
+      },
+      scale);
 }
 
 template <typename T>
@@ -204,7 +112,7 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pages,
                                       int maxp, int dtype, float sm_scale,
                                       void* stream) {
   if (S <= 0) return cudaSuccess;
-  if (kvh <= 0 || nh % kvh != 0 || nh / kvh > kMaxRep || pg <= 0 ||
+  if (kvh <= 0 || nh % kvh != 0 || nh / kvh > pt_attn::kMaxRep || pg <= 0 ||
       maxp <= 0)
     return cudaErrorInvalidValue;
   const int* bt = static_cast<const int*>(block_tables);

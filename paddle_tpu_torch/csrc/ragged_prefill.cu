@@ -40,23 +40,17 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attention_common.cuh"
+
 namespace {
+
+using namespace pt_attn;
 
 constexpr int kThreads = 128;
 constexpr int kRows = 32;             // query rows per block
 constexpr int kTpr = kThreads / kRows;  // threads per query row (4)
 constexpr int kKeys = 16;             // key positions per shared tile
 constexpr int kKpt = kKeys / kTpr;    // scores per thread per tile (4)
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // reduce over the kTpr consecutive lanes that share one query row
 __device__ __forceinline__ float row_max(float v) {

@@ -1,29 +1,36 @@
 """Continuous-batching decode server over the paged KV pool.
 
 Port of ``paddle_tpu/inference/continuous_batching.py`` cut down to its
-default paged path: ``cache_backend="paged"``, ragged prefill, split
+paged path: ``cache_backend="paged"``, ragged prefill, split or fused
 ticks, ``admission="reserve"``, automatic prefix caching and greedy
 decoding. A fixed pool of decode slots steps as one batched decode step
 every tick; finished slots are refilled from the queue without stopping
 the others. Admissions only reserve pages: every tick runs the next
-prompt chunk of ALL mid-prefill slots as one ragged-prefill launch
-straight into pool pages, under a per-tick token budget
-(``prefill_tokens_per_tick``), so long prompts stream in across ticks
-while live slots keep decoding.
+prompt chunk of ALL mid-prefill slots straight into pool pages, under a
+per-tick token budget (``prefill_tokens_per_tick``), so long prompts
+stream in across ticks while live slots keep decoding.
 
-Host/device split: the device runs the ragged-prefill and decode steps
-(``models.generation``; the paged-attention and ragged-prefill kernels
-on a CUDA model); the host assigns slots, owns the page allocator and
-the radix prefix cache (``kv_cache``, ``prefix_cache``), harvests
-finished rows and swaps new prompts in.
+``serving_mode="split"`` (the default) runs a tick as one ragged-prefill
+launch for the admission wave, then the s=1 decode step for live slots,
+with the slot-state pushes between them. ``serving_mode="fused"`` runs
+the whole tick as one pass over the layers: prefill chunks and decode
+rows packed into one fused-tick launch per layer whose page schedule
+covers only live pages, the tick's small host arrays riding in with one
+host-to-device copy — the tick's dispatch profile is ``{"fused": 1}``.
+
+Host/device split: the device runs the steps (``models.generation``; the
+paged-attention, ragged-prefill and fused-tick kernels on a CUDA model);
+the host assigns slots, owns the page allocator and the radix prefix
+cache (``kv_cache``, ``prefix_cache``), harvests finished rows and swaps
+new prompts in.
 
 The JAX server's other modes are not ported yet. Asking for one raises
 ``NotImplementedError`` naming its ROADMAP item (Queue 1): sampling
-(item 1), the dense backend and dense prefill (item 2), the fused tick
-and ``tick_block > 1`` (item 3), optimistic admission and preemption
-(item 4), telemetry, flight recorder, goodput ledger, cost catalog,
-journeys, fault injection and the supervised serve loop (item 5), the
-mesh and the host KV tier (item 6), int8 weights and caches (item 8).
+(item 4), the dense backend and dense prefill (item 5), ``tick_block >
+1`` (item 6), optimistic admission and preemption (item 7), telemetry,
+flight recorder, goodput ledger, cost catalog, journeys, fault injection
+and the supervised serve loop (item 8), the mesh and the host KV tier
+(item 9), int8 weights and caches (item 10).
 """
 import threading
 import time as _time_mod
@@ -31,6 +38,7 @@ import time as _time_mod
 import numpy as np
 import torch
 
+from ..ops.kernels.fused_tick import build_schedule
 from ..reliability.errors import (CallbackError, DeadlineExceeded,
                                   QueueFullError, ReliabilityError,
                                   RequestCancelled, ServerClosed)
@@ -102,8 +110,11 @@ class ContinuousBatchingServer:
 
     The constructor keeps the JAX server's argument names and defaults;
     ``cache_backend="paged"`` must be given (the dense default is not
-    ported). With ``auto_prefix_cache=True`` every finished request
-    donates its full prompt pages into a radix tree, every admission
+    ported). ``serving_mode="fused"`` runs each tick as one fused-tick
+    pass (prefill chunks and decode rows in one kernel launch per
+    layer) in place of the split prefill launch and decode step; the
+    tokens are the same. With ``auto_prefix_cache=True`` every finished
+    request donates its full prompt pages into a radix tree, every admission
     reuses the longest cached page-aligned prefix and prefills only the
     remainder, and unpinned cached pages are evicted LRU when the
     allocator runs short. ``submit(deadline_s=...)`` bounds a request's
@@ -140,24 +151,46 @@ class ContinuousBatchingServer:
         if admission not in ("reserve", "optimistic"):
             raise ValueError(f"admission must be 'reserve' or "
                              f"'optimistic', got {admission!r}")
-        if serving_mode not in (None, "split", "fused"):
+        if serving_mode is None:
+            serving_mode = "split"
+        if serving_mode not in ("split", "fused"):
             raise ValueError(f"serving_mode must be 'split' or "
                              f"'fused', got {serving_mode!r}")
         if shed_policy not in ("reject", "evict_oldest"):
             raise ValueError(f"shed_policy must be 'reject' or "
                              f"'evict_oldest', got {shed_policy!r}")
+        if serving_mode == "fused":
+            if cache_backend != "paged":
+                raise ValueError(
+                    "serving_mode='fused' needs cache_backend='paged' "
+                    "(the fused tick writes straight into pool pages "
+                    "through a live-page schedule)")
+            if prefill_mode == "dense":
+                raise ValueError(
+                    "serving_mode='fused' needs prefill_mode='ragged' "
+                    "(the fused launch packs the ragged scheduler's "
+                    "prompt chunks)")
+            if mesh is not None:
+                raise _not_ported("serving_mode='fused' with mesh=", 9,
+                                  "the fleet")
+            if int(tick_block) != 1:
+                raise NotImplementedError(
+                    "serving_mode='fused' runs ONE decode row per slot "
+                    "per launch; tick_block > 1 needs multi-token rows "
+                    "per slot, the verify shape of speculative decoding "
+                    "(ROADMAP, Queue 1 item 12: remaining inference "
+                    "modules); use tick_block=1 or serving_mode='split'")
         if do_sample:
-            raise _not_ported("do_sample=True", 1,
+            raise _not_ported("do_sample=True", 4,
                               "a sampler bit-compatible with jax.random")
         if cache_backend == "dense" or prefill_mode == "dense":
             raise _not_ported("the dense cache backend and dense prefill",
-                              2, "the dense backend")
-        if serving_mode == "fused":
-            raise _not_ported("serving_mode='fused'", 3, "the fused tick")
+                              5, "the dense backend")
         if int(tick_block) != 1:
-            raise _not_ported("tick_block > 1", 3, "the fused tick")
+            raise _not_ported("tick_block > 1", 6,
+                              "block decode on the split tick")
         if admission == "optimistic":
-            raise _not_ported("admission='optimistic'", 4,
+            raise _not_ported("admission='optimistic'", 7,
                               "optimistic admission and preemption")
         for name, value in (("telemetry", telemetry),
                             ("recorder", recorder), ("ledger", ledger),
@@ -166,12 +199,12 @@ class ContinuousBatchingServer:
                             ("retry_policy", retry_policy),
                             ("breaker", breaker)):
             if value is not None:
-                raise _not_ported(f"{name}=", 5,
+                raise _not_ported(f"{name}=", 8,
                                   "telemetry and reliability")
         if mesh is not None:
-            raise _not_ported("mesh=", 6, "the fleet")
+            raise _not_ported("mesh=", 9, "the fleet")
         if host_tier is not None or host_tier_bytes is not None:
-            raise _not_ported("host_tier=", 6, "the fleet")
+            raise _not_ported("host_tier=", 9, "the fleet")
         # Greedy decoding reads no seed and no sampling parameter,
         # ``prefill_chunk`` sizes the dense prefill only (ragged
         # admission chunks by the per-tick token budget) and ``role`` is
@@ -192,8 +225,10 @@ class ContinuousBatchingServer:
         if num_pages is None:     # worst case: every slot maxed out
             num_pages = self.max_slots * pages_per_slot + 1
         self.page_size = page_size
+        self.serving_mode = serving_mode
+        self._fused = serving_mode == "fused"
         (self._init_caches, self._embed_fn, self._step_fn, self._head_fn,
-         _, self._ragged_fn) = model._decode_bundle(
+         _, self._ragged_fn, self._fused_fn) = model._decode_bundle(
             self.max_cache_len, weight_dtype, mesh, cache_dtype,
             cache_backend="paged", page_size=page_size,
             num_pages=int(num_pages))
@@ -233,10 +268,12 @@ class ContinuousBatchingServer:
                       "prefix_auto_hits": 0, "prefix_auto_hit_tokens": 0,
                       "admissions": 0, "prefill_dispatches": 0,
                       "tick_dispatches": 0,
-                      # launches of the two device programs, and rows
-                      # of live slots whose logits held a NaN or an Inf
+                      # launches of the device programs (split ticks:
+                      # ragged prefill and decode; fused ticks: the
+                      # fused tick), and rows of emitting slots whose
+                      # logits held a NaN or an Inf
                       "prefill_launches": 0, "decode_ticks": 0,
-                      "nonfinite_logit_rows": 0}
+                      "fused_launches": 0, "nonfinite_logit_rows": 0}
         self._clock = clock if clock is not None else MonotonicClock()
         self._tick_disp = {}      # this tick's {op: dispatches}
         self._failures = {}       # rid -> exception, for wait()
@@ -254,7 +291,7 @@ class ContinuousBatchingServer:
 
     def register_prefix(self, prefix_ids):
         raise _not_ported("register_prefix (it prefills through the dense "
-                          "bundle)", 2, "the dense backend")
+                          "bundle)", 5, "the dense backend")
 
     # ------------------------------------------------------------ queue
     def submit(self, input_ids, max_new_tokens=32, seed=None,
@@ -273,7 +310,7 @@ class ContinuousBatchingServer:
         under optimistic admission and is ignored here, as in the JAX
         server's reserve mode."""
         if journey is not None:
-            raise _not_ported("submit(journey=)", 5,
+            raise _not_ported("submit(journey=)", 8,
                               "telemetry and reliability")
         if torch.is_tensor(input_ids):
             input_ids = input_ids.detach().cpu().numpy()
@@ -483,21 +520,24 @@ class ContinuousBatchingServer:
         st.fill_pos = st.filled = n_pre
         self._slots[slot] = st
         self._prefill_fifo.append(slot)
-        # park the slot's decode write position past the block table:
-        # until activation, its wasted decode-step writes null-redirect
-        # (zeroed) instead of landing in the pages being prefilled
-        self._pending_t[slot] = self.max_cache_len
+        if not self._fused:
+            # park the slot's decode write position past the block
+            # table: until activation, its wasted decode-step writes
+            # null-redirect (zeroed) instead of landing in the pages
+            # being prefilled. (Fused ticks keep no device-resident slot
+            # state: mid-prefill slots ride the launch as real prefill
+            # rows, idle ones are skipped by the kernel.)
+            self._pending_t[slot] = self.max_cache_len
 
-    def _prefill_tick(self):
-        """Run one batched ragged prefill launch: the next chunk of
-        every mid-prefill slot, oldest admission first, bounded by the
-        per-tick token budget. The chunk width C is padded up a
-        power-of-two ladder, at least 2 (a 1-row chunk would take the
-        decode path of the layer)."""
+    def _chunk_plan(self):
+        """The next prompt chunk of every mid-prefill slot, oldest
+        admission first, under what is left of the tick's token budget:
+        ``[(slot, start, take)]``, with the budget charged, and the chunk
+        width C — the longest take padded up a power-of-two ladder, at
+        least 2 (a 1-row chunk would take the decode path of a split
+        layer)."""
         budget = self._prefill_budget - self._prefill_used
-        if not self._prefill_fifo or budget <= 0:
-            return
-        plan = []                        # (slot, start, take)
+        plan = []
         used = 0
         for slot in self._prefill_fifo:
             if used >= budget:
@@ -506,10 +546,25 @@ class ContinuousBatchingServer:
             take = min(st.prompt_len - st.fill_pos, budget - used)
             plan.append((slot, st.fill_pos, take))
             used += take
+        self._prefill_used += used
+        C = max(2, 1 << (max(t for _, _, t in plan) - 1).bit_length()) \
+            if plan else 0
+        return plan, C
+
+    def _advance(self, plan):
+        """The planned chunks are written: move each slot's fill
+        position."""
+        for slot, start, take in plan:
+            st = self._slots[slot]
+            st.fill_pos = st.filled = start + take
+            self.stats["prefill_tokens"] += take
+
+    def _prefill_tick(self):
+        """Run one batched ragged prefill launch: the next chunk of
+        every mid-prefill slot (``_chunk_plan``)."""
+        plan, C = self._chunk_plan()
         if not plan:
             return
-        self._prefill_used += used
-        C = max(2, 1 << (max(t for _, _, t in plan) - 1).bit_length())
         S = self.max_slots
         toks = np.zeros((S, C), np.int32)
         t0 = np.full((S,), self.max_cache_len, np.int32)  # idle sentinel
@@ -529,10 +584,7 @@ class ContinuousBatchingServer:
             self._caches, torch.from_numpy(out_idx).to(dev))
         self._count_dispatches(1, op="prefill")
         self.stats["prefill_launches"] += 1
-        for slot, start, take in plan:
-            st = self._slots[slot]
-            st.fill_pos = st.filled = start + take
-            self.stats["prefill_tokens"] += take
+        self._advance(plan)
         if done:
             firsts = self._pick(logits[torch.tensor(done, device=dev)])
             for slot, first in zip(done, firsts):
@@ -633,7 +685,112 @@ class ContinuousBatchingServer:
         finally:
             self.stats["tick_dispatches"] += sum(self._tick_disp.values())
 
+    def _activate_fused(self, slot, first):
+        """A slot's prompt completed inside the fused launch, which also
+        gave its first token: flip it into the decode phase. No device
+        state to push: the next tick's launch carries the token."""
+        st = self._slots[slot]
+        self._active[slot] = True
+        self._prefill_fifo.remove(slot)
+        st.emitted.append(first)
+        st.stream(self._deferred_cbs)
+        self.stats["admissions"] += 1
+
+    def _fused_inputs(self, tokens, t0, last, dec, out_idx, bt_live, ss,
+                      sp):
+        """The tick's small int32 host arrays packed into one buffer and
+        moved to the device in ONE copy; returns device views of it in
+        argument order."""
+        parts = (tokens, t0, last, dec, out_idx, bt_live, ss, sp)
+        buf = torch.from_numpy(np.concatenate(
+            [a.reshape(-1) for a in parts])).to(self.device)
+        views, at = [], 0
+        for a in parts:
+            views.append(buf[at:at + a.size].view(a.shape))
+            at += a.size
+        return views
+
+    def _step_fused(self):
+        """One fused serving tick (``serving_mode="fused"``): admit
+        (reservations only), pack every slot's work — the next prompt
+        chunk of each mid-prefill slot under the per-tick token budget,
+        the single decode row of each live slot — and run it as one
+        fused-tick entry call over a page schedule covering only live
+        pages. The tick's dispatch profile is ``{"fused": 1}``."""
+        self._prefill_used = 0
+        self._expire_locked()
+        self._admit(run_prefill=False)     # reserve; chunks ride the launch
+        # harvest BEFORE packing: a slot whose budget is spent (or that
+        # emitted eos at activation) must not decode further
+        self._harvest()
+        S = self.max_slots
+        pg = self.page_size
+        plan, C = self._chunk_plan()
+        dec_slots = [s for s in range(S) if self._active[s]]
+        if not plan and not dec_slots:
+            return 0
+        C = max(C, 1)          # a decode-only tick packs one row per slot
+        tokens = np.zeros((S, C), np.int32)
+        t0 = np.full((S,), self.max_cache_len, np.int32)   # idle sentinel
+        last = np.full((S,), -1, np.int32)
+        dec = np.zeros((S,), np.int32)
+        out_idx = np.zeros((S,), np.int32)
+        done = []
+        for slot, start, take in plan:
+            st = self._slots[slot]
+            tokens[slot, :take] = st.ids[start:start + take]
+            t0[slot] = start
+            last[slot] = start + take - 1
+            if start + take == st.prompt_len:
+                out_idx[slot] = take - 1
+                done.append(slot)
+        for slot in dec_slots:
+            st = self._slots[slot]
+            t = st.prompt_len + len(st.emitted) - 1
+            tokens[slot, 0] = st.emitted[-1]
+            t0[slot] = last[slot] = t
+            dec[slot] = 1
+        # the live block-table slice (a power-of-two width capped at the
+        # table) and the schedule of live pages: the launch reads pages
+        # up to the live frontier only, whatever the configured width
+        live_pages = max(int(x) // pg + 1 for x in last if x >= 0)
+        W = min(self._kv.pages_per_slot,
+                max(1, 1 << (live_pages - 1).bit_length()))
+        bt_live = np.ascontiguousarray(self._kv.block_table[:, :W])
+        ss, sp, _ = build_schedule(last, pg, n_slots=S)
+        self._kv.dirty = False     # the slice is the device's view
+        args = self._fused_inputs(tokens, t0, last, dec, out_idx, bt_live,
+                                  ss, sp)
+        logits, self._caches = self._fused_fn(*args[:4], self._caches,
+                                              *args[4:])
+        nxt = torch.argmax(logits, -1).to(torch.int32)
+        bad = (~torch.isfinite(logits).all(-1)).to(torch.int32)
+        host = torch.stack([nxt, bad]).cpu().numpy()   # syncs the tick
+        emitting = done + dec_slots
+        self.stats["nonfinite_logit_rows"] += int(host[1][emitting].sum())
+        self.stats["fused_launches"] += 1
+        if plan:
+            # the launch carries this tick's admission-path prefill work:
+            # it IS the admission dispatch
+            self._count_dispatches(1, op="fused")
+        else:
+            self._tick_dispatch("fused")
+        self._advance(plan)
+        for slot in done:
+            self._activate_fused(slot, int(host[0][slot]))
+        for slot in dec_slots:
+            st = self._slots[slot]
+            st.emitted.append(int(host[0][slot]))
+            st.stream(self._deferred_cbs)
+        self._harvest()
+        # end-of-tick admissions reserve only: their chunks ride the
+        # NEXT tick's launch (the token budget is per tick)
+        self._admit(run_prefill=False)
+        return int(self._active.sum())
+
     def _step_inner(self):
+        if self._fused:
+            return self._step_fused()
         self._prefill_used = 0       # per-tick prefill token budget
         self._expire_locked()
         self._admit()

@@ -7,7 +7,9 @@ a paged KV cache: one global K/V page pool per layer
 block tables (``[slots, pages_per_slot]`` int32). Decode steps (one
 token per slot) run the paged-attention kernel; ragged prefill chunks
 (several slots' prompt chunks in one call) run the ragged-prefill
-kernel. Both kernels take their plain PyTorch version on CPU tensors.
+kernel; a fused tick (every slot's prefill chunk and decode row in one
+call, over the live slice of the block tables) runs the fused-tick
+kernel. Each kernel takes its plain PyTorch version on CPU tensors.
 
 Where the JAX package returns new cache arrays, the port writes pool
 pages IN PLACE (``index_put_`` on the layer's pool view): the pool is
@@ -15,15 +17,16 @@ the largest tensor of a serving process, and a copy per layer per step
 would double it. The step functions still return the cache dict so
 call sites read like the JAX ones.
 
-The dense cache backend, int8 weights and caches, the mesh and the
-fused-tick entry point are not ported yet; asking for them raises
-``NotImplementedError`` naming the ROADMAP item.
+The dense cache backend, int8 weights and caches and the mesh are not
+ported yet; asking for them raises ``NotImplementedError`` naming the
+ROADMAP item.
 """
 import math
 
 import torch
 import torch.nn.functional as F
 
+from ..ops.kernels.fused_tick import fused_tick_attention
 from ..ops.kernels.paged_attention import paged_attention
 from ..ops.kernels.ragged_prefill import ragged_prefill_attention
 from ..ops.rope import apply_rotary, precompute_freqs
@@ -60,11 +63,11 @@ def _check_paged_config(max_cache_len, page_size, num_pages, cache_dtype,
     length."""
     if cache_dtype == "int8":
         raise NotImplementedError(
-            "cache_dtype='int8' is not ported (ROADMAP, Queue 1 item 8: "
+            "cache_dtype='int8' is not ported (ROADMAP, Queue 1 item 10: "
             "quantized serving)")
     if mesh is not None:
         raise NotImplementedError(
-            "mesh serving is not ported (ROADMAP, Queue 1 item 6: the "
+            "mesh serving is not ported (ROADMAP, Queue 1 item 9: the "
             "fleet)")
     if not page_size or int(page_size) < 1:
         raise ValueError("paged backend needs page_size >= 1")
@@ -163,12 +166,27 @@ def _paged_prefill_attend(q, k_pool, v_pool, bt, t, scale):
                                     sm_scale=scale)
 
 
-def _rope_gqa_attn(blk, xx, k_pool, v_pool, t, pos, dims, tables, eps, bt):
+def _fused_attend(q, k_pool, v_pool, bt, t, last, dec, ss, sp, scale):
+    """Fused-tick attention through the LIVE block-table slice ``bt``:
+    q [B, C, nh, hd] packed row groups (a prefill chunk, a single decode
+    row, or idle garbage per slot) at per-slot offsets ``t``, over the
+    page schedule ``(ss, sp)`` that lists only live pages. Idle slots
+    (``last < 0``) read as zeros."""
+    return fused_tick_attention(q, k_pool, v_pool, bt, t, last, dec, ss, sp,
+                                sm_scale=scale)
+
+
+def _rope_gqa_attn(blk, xx, k_pool, v_pool, t, pos, dims, tables, eps, bt,
+                   fused=None):
     """Llama attention sublayer for one layer of a paged step:
     pre-RMSNorm, rope at absolute positions, K/V written into the
     layer's pool pages, paged attention (s == 1: decode kernel; s > 1:
-    ragged prefill kernel), output projection and residual. Returns
-    (xx, h2) with h2 the post-attention norm for the FFN."""
+    ragged prefill kernel), output projection and residual. ``fused``
+    (a ``(last, dec, ss, sp)`` tuple) switches to the fused tick:
+    ``bt`` is then the live block-table slice, rows past ``last``
+    null-redirect zeroed on write, and attention runs the fused-tick
+    kernel over the page schedule ``(ss, sp)``. Returns (xx, h2) with
+    h2 the post-attention norm for the FFN."""
     b, s, nh, kvh, hd, scale = dims
     cos, sin = tables
     h = _rms(xx, blk["ln1"], eps)
@@ -177,7 +195,13 @@ def _rope_gqa_attn(blk, xx, k_pool, v_pool, t, pos, dims, tables, eps, bt):
     v = (h @ blk["wv"]).reshape(b, s, kvh, hd)
     q = apply_rotary(q, cos, sin, position_ids=pos)
     k = apply_rotary(k, cos, sin, position_ids=pos)
-    if s > 1:
+    if fused is not None:
+        last, dec, ss, sp = fused
+        _page_write_seq(k_pool, k, bt, t, last=last)
+        _page_write_seq(v_pool, v, bt, t, last=last)
+        att = _fused_attend(q, k_pool, v_pool, bt, t, last, dec, ss, sp,
+                            scale)
+    elif s > 1:
         _page_write_seq(k_pool, k, bt, t)
         _page_write_seq(v_pool, v, bt, t)
         att = _paged_prefill_attend(q, k_pool, v_pool, bt, t, scale)
@@ -210,21 +234,53 @@ def _make_ragged_prefill_fn(step_fn, head_fn, embed_tokens):
     return ragged_prefill
 
 
+def _make_fused_tick_fn(fused_step, head_fn, embed_tokens):
+    """The paged bundle's fused-tick entry point: one whole serving tick
+    — every slot's prefill chunk at its prefix offset AND every live
+    slot's s=1 decode row — as one pass over the layers, with one
+    fused-tick kernel launch per layer.
+
+    Signature: ``(tokens [S, C], t0 [S], last [S], dec [S], caches,
+    out_idx [S], bt_live [S, W], sched_slot [G], sched_page [G]) ->
+    (logits [S, V], caches)``. Per slot: a prefill chunk carries
+    ``t0 = fill position``, ``last = t0 + take - 1``; a decode row
+    carries its token in column 0 with ``t0 = last = t`` (the write
+    position) and ``dec = 1``; an idle slot carries ``last = -1`` (its
+    writes null-redirect zeroed, the kernel skips it). ``out_idx`` picks
+    the logits row: the last prompt token of a completing prefill, row 0
+    for decode. ``bt_live`` is the block tables sliced to the live page
+    frontier and ``(sched_slot, sched_page)`` the live-page schedule
+    (``ops.kernels.fused_tick.build_schedule``)."""
+    @torch.no_grad()
+    def fused_tick(tokens, t0, last, dec, caches, out_idx, bt_live,
+                   sched_slot, sched_page):
+        S = tokens.shape[0]
+        x = embed_tokens(tokens, t0)
+        out, caches = fused_step(x, caches, t0, last, dec, bt_live,
+                                 sched_slot, sched_page)
+        rows = out[torch.arange(S, device=out.device),
+                   out_idx.long()][:, None]                 # [S, 1, H]
+        return head_fn(rows)[:, -1], caches
+
+    return fused_tick
+
+
 def _make_llama_decode_fns(model, max_cache_len, weight_dtype=None,
                            mesh=None, cache_dtype=None,
                            cache_backend="dense", page_size=None,
                            num_pages=None):
-    """(init_caches, embed_fn, step_fn, head_fn, ragged_fn) for a paged
+    """(init_caches, embed_fn, step_fn, head_fn, ragged_fn, fused_fn)
+    for a paged
     ``LlamaForCausalLM``: GQA-aware (kv heads cached unrepeated), rope at
     absolute positions, the layer scan a Python loop over layers. The
     functions read the model's parameters in place (no stacked copy)."""
     if cache_backend != "paged":
         raise NotImplementedError(
-            "cache_backend='dense' is not ported (ROADMAP, Queue 1 item 2: "
+            "cache_backend='dense' is not ported (ROADMAP, Queue 1 item 5: "
             "the dense backend); use cache_backend='paged'")
     if weight_dtype == "int8":
         raise NotImplementedError(
-            "weight_dtype='int8' is not ported (ROADMAP, Queue 1 item 8: "
+            "weight_dtype='int8' is not ported (ROADMAP, Queue 1 item 10: "
             "quantized serving)")
     _check_paged_config(max_cache_len, page_size, num_pages, cache_dtype,
                         mesh)
@@ -259,19 +315,25 @@ def _make_llama_decode_fns(model, max_cache_len, weight_dtype=None,
     def embed_fn(tok, t):
         return table[tok.long()][:, None, :]
 
-    @torch.no_grad()
-    def step_fn(x, caches, t):
+    def _run_layers(x, caches, t, bt, fused=None):
         b, s = x.shape[0], x.shape[1]
         t = _per_slot(t, b, x.device)
         pos = _positions(t, b, s)                          # [B, s]
-        bt = caches["bt"]
         dims = (b, s, nh, kvh, hd, scale)
         for blk, k_pool, v_pool in zip(blocks, caches["pool"]["k"],
                                        caches["pool"]["v"]):
             x, h2 = _rope_gqa_attn(blk, x, k_pool, v_pool, t, pos, dims,
-                                   tables, eps, bt)
+                                   tables, eps, bt, fused=fused)
             x = x + (F.silu(h2 @ blk["wg"]) * (h2 @ blk["wu"])) @ blk["wd"]
         return x, caches
+
+    @torch.no_grad()
+    def step_fn(x, caches, t):
+        return _run_layers(x, caches, t, caches["bt"])
+
+    @torch.no_grad()
+    def fused_step(x, caches, t, last, dec, bt_live, ss, sp):
+        return _run_layers(x, caches, t, bt_live, fused=(last, dec, ss, sp))
 
     @torch.no_grad()
     def head_fn(out):
@@ -281,7 +343,8 @@ def _make_llama_decode_fns(model, max_cache_len, weight_dtype=None,
         return table[tokens.long()]
 
     ragged = _make_ragged_prefill_fn(step_fn, head_fn, embed_tokens)
-    return init_caches, embed_fn, step_fn, head_fn, ragged
+    fused = _make_fused_tick_fn(fused_step, head_fn, embed_tokens)
+    return init_caches, embed_fn, step_fn, head_fn, ragged, fused
 
 
 class GenerationMixin:
@@ -291,19 +354,19 @@ class GenerationMixin:
                        cache_dtype=None, cache_backend="dense",
                        page_size=None, num_pages=None):
         """``(init_caches, embed_fn, step_fn, head_fn, step_fn,
-        ragged_fn)`` — the JAX package's paged bundle layout, with the
-        jitted step in element 4 (here the same eager ``step_fn``) and
-        the ragged-prefill entry in element 5. The JAX bundle's seventh
-        element, the fused-tick entry, is not ported (ROADMAP, Queue 1
-        item 3); nor are the dense backend, int8 and the mesh."""
+        ragged_fn, fused_fn)`` — the JAX package's paged bundle layout:
+        the jitted step in element 4 (here the same eager ``step_fn``),
+        the ragged-prefill entry in element 5 and the fused-tick entry
+        in element 6 (``_make_fused_tick_fn``). The dense backend, int8
+        and the mesh are not ported."""
         from .llama import LlamaForCausalLM
         if not isinstance(self, LlamaForCausalLM):
             raise NotImplementedError(
                 f"the paged decode bundle is ported for LlamaForCausalLM "
-                f"only, not {type(self).__name__} (ROADMAP, Queue 1 item 9: "
+                f"only, not {type(self).__name__} (ROADMAP, Queue 1 item 11: "
                 f"other paged families)")
-        init, embed, step, head, ragged = _make_llama_decode_fns(
+        init, embed, step, head, ragged, fused = _make_llama_decode_fns(
             self, max_cache_len, weight_dtype, mesh, cache_dtype,
             cache_backend=cache_backend, page_size=page_size,
             num_pages=num_pages)
-        return init, embed, step, head, step, ragged
+        return init, embed, step, head, step, ragged, fused

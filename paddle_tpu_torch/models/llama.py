@@ -9,7 +9,7 @@ and its Linear weights as ``[in, out]``, used as ``x @ w`` — so
 for name. Serving runs through the paged decode bundle
 (``models.generation``); the full-sequence ``forward()`` rides the
 flash-attention and RMSNorm kernels in the JAX package and comes with
-the training slice (ROADMAP, Queue 1 item 7).
+the training slice (ROADMAP, Queue 1 item 1).
 """
 import math
 from dataclasses import dataclass
@@ -116,7 +116,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         if cfg.tensor_parallel:
             raise NotImplementedError(
                 "tensor_parallel serving is not ported yet (ROADMAP, "
-                "Queue 1 item 6: the fleet)")
+                "Queue 1 item 9: the fleet)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
@@ -142,7 +142,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         raise NotImplementedError(
             "the full-sequence forward rides the flash-attention and "
             "RMSNorm kernels, which come with the training slice (ROADMAP, "
-            "Queue 1 item 7); serve through inference."
+            "Queue 1 item 1); serve through inference."
             "ContinuousBatchingServer")
 
 

@@ -9,11 +9,11 @@ with a C interface builds in seconds; one that includes PyTorch's
 headers takes minutes).
 
 Libraries land in ``build/paddle_tpu_torch/`` at the repository root,
-named by a hash of the source and the flags, so an edited kernel is
-rebuilt and an unchanged one is reused. All missing libraries are built
-together, one ``nvcc`` process per source started at once. A missing
-``nvcc`` or a failed build raises with nvcc's output; nothing here
-falls back to anything.
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited kernel or header is rebuilt and an unchanged one
+is reused. All missing libraries are built together, one ``nvcc``
+process per source started at once. A missing ``nvcc`` or a failed
+build raises with nvcc's output; nothing here falls back to anything.
 
 Nothing is compiled or loaded at import time: the CPU tests import
 every module of the port on a machine with no CUDA toolkit.
@@ -60,6 +60,8 @@ def _nvcc():
 
 def _target(src):
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 

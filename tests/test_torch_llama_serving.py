@@ -17,6 +17,8 @@ both packages.
   paged server over mixed prompt lengths, a per-tick token budget that
   straddles chunks across ticks, and an automatic prefix hit on a
   second wave; ``pool_balance()`` ends with ``live == 0`` on both;
+- the fused tick on the same squeezed pool (``tests/test_torch_fused_tick.py``
+  holds the rest of ``serving_mode="fused"``);
 - refusals: the JAX server's options that are not ported raise
   ``NotImplementedError`` naming the ROADMAP, and entry points refuse
   to run without a CUDA device unless given ``device="cpu"``.
@@ -253,6 +255,24 @@ def test_server_matches_jax_on_a_pool_that_evicts():
     assert ts.pool_balance()[1] == 0
 
 
+def test_fused_server_matches_jax_on_a_pool_that_evicts():
+    """The same squeezed pool through the port's fused tick: tokens,
+    prefix hits and the final pool equal the JAX paged server's."""
+    jm, tm = _models()
+    waves = _waves()
+    js = _server(JaxServer, jm, num_pages=6)
+    ts = _server(ContinuousBatchingServer, tm, num_pages=6,
+                 serving_mode="fused")
+    want, got = _serve(js, waves), _serve(ts, waves)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    for k in ("admissions", "prefill_tokens", "prefix_auto_hits",
+              "prefix_auto_hit_tokens"):
+        assert ts.stats[k] == js.stats[k], k
+    assert tuple(ts.pool_balance()) == tuple(js.pool_balance())
+    assert ts.pool_balance()[1] == 0 and ts.stats["fused_launches"] > 0
+
+
 def test_serve_thread_wait_cancel_and_limits():
     _, tm = _models()
     wave1, _ = _waves()
@@ -328,7 +348,7 @@ def pt_errors():
 
 @pytest.mark.parametrize("kw", [
     {"do_sample": True}, {"cache_backend": "dense"},
-    {"prefill_mode": "dense"}, {"serving_mode": "fused"},
+    {"prefill_mode": "dense"},
     {"tick_block": 2}, {"admission": "optimistic"}, {"mesh": object()},
     {"telemetry": True}, {"recorder": True}, {"ledger": True},
     {"costs": True}, {"journeys": True}, {"host_tier": True},
