@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --only build,k1,k2,k3
+    python3 chip_smoke.py --only build,k4,k5,train_parity,train
 
 Phases, in order; any failure exits non-zero:
 
@@ -21,19 +22,41 @@ Phases, in order; any failure exits non-zero:
    ending mid-page) and a decode-only tick (C = 1, K1's lengths, timed
    beside K1), plus a poison check: every page the schedule does not
    list filled with NaN must leave the live rows bit for bit unchanged;
-6. parity: a llama_tiny-shaped float32 model served on the card (the
+6. k4: the flash-attention forward (K4a) and backward (K4b: dq, then
+   dk + dv) against their plain versions, bf16 and f32, at llama_350m's
+   training shape (B = 8, S = 1024, 16 heads of 64, causal), at
+   Llama-2-7B's (B = 1, S = 4096, 32 heads of 128, causal), non-causal,
+   and at S = 1000 (a tail tile): o, lse, dq, dk, dv within TOL and
+   VEC_RTOL; two backward runs bitwise equal; times beside the plain
+   version, one SDPA call (a yardstick the port never calls) and the
+   bound;
+7. k5: RMSNorm forward (K5a) and backward (K5b) likewise, at 8192 x 1024
+   (llama_350m) and 4096 x 4096 (Llama-2-7B) rows x d, beside
+   torch.nn.functional.rms_norm;
+8. parity: a llama_tiny-shaped float32 model served on the card (the
    kernels) and on the CPU (the plain versions) from the same weights,
    on split ticks and on fused ticks, must emit equal greedy tokens:
    card == CPU on each, and fused == split; split runs launch K1 and K2
    only, fused runs K3 only;
-7. serve: Llama-2-7B in bf16 (random weights from a seed, full width
+9. train_parity: llama_tiny in float32 trained 3 steps (``train_step_fn``
+   + ``AdamW``) on the card and on the CPU from one set of weights:
+   per-step losses, step-1 gradients and the trained weights agree, and
+   every step launches K4 forward, dq and dk + dv once per layer and K5
+   forward and backward 2 x layers + 1 times;
+10. serve: Llama-2-7B in bf16 (random weights from a seed, full width
    and depth) serves 8 requests through ``ContinuousBatchingServer``,
    on split and on fused ticks in the order split, fused, fused, split
    (a new server over the same model each time, the last one freed
    first); the launch counters are zeroed just before each wave and
    read just after, and must equal decode ticks x layers (K1) and
    prefill launches x layers (K2) on a split wave, fused launches x
-   layers (K3) on a fused wave.
+   layers (K3) on a fused wave;
+11. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
+   f32 moments, one fixed 8 x 1024 batch from seed 0: 2 warm-up steps,
+   then 10 timed with the counters zeroed just before and read just
+   after (K4: 10 x layers each, K5: 10 x (2 x layers + 1) each); the
+   loss must fall and stay finite, gradients finite; step time,
+   tokens/s, peak memory and a profile of one step.
 
 The last two lines of standard output are the per-kernel JSON record
 and ``{"ok": true, "device": {...}}``. Without a CUDA card, or without
@@ -48,7 +71,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "k1", "k2", "k3", "parity", "serve")
+PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "parity", "train_parity",
+          "serve", "train")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
 # outside the tensor cores). The SXM part is the default.
@@ -77,18 +101,23 @@ def log(*a):
     print(*a, flush=True)
 
 
-def agreement(pairs, dname):
+def agreement(pairs, dname, floor=0.0):
     """Largest absolute error and largest vector-relative error (see
     VEC_RTOL) of kernel outputs against their plain versions, over
     (out, ref) pairs of rows [..., hd] the caller reads; and whether
     both are within tolerance. A vector whose plain value is all zero
-    must come out all zero."""
+    must come out all zero — unless ``floor`` > 0: then each vector's
+    scale is at least ``floor`` times the largest |value| of its tensor.
+    Gradients need that: a vector that is zero in exact arithmetic (dq
+    of causal row 0, which sees one key) is rounding noise on both
+    sides."""
     abs_err = rel_err = 0.0
     for out, ref in pairs:
         d = (out.float() - ref).abs().amax(-1)
         abs_err = max(abs_err, d.max().item())
-        rel_err = max(rel_err, (d / ref.abs().amax(-1).clamp_min(1e-30))
-                      .max().item())
+        scale = ref.abs().amax(-1).clamp_min(
+            max(1e-30, floor * ref.abs().max().item()))
+        rel_err = max(rel_err, (d / scale).max().item())
     return abs_err, rel_err, (abs_err <= TOL[dname]
                               and rel_err <= VEC_RTOL[dname])
 
@@ -128,6 +157,14 @@ def cuda_ms(fn, torch, iters=20, warmup=3, flush=None):
     return times[len(times) // 2]
 
 
+def bound(nbytes, flops, peak):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate
+    and bf16 tensor-core operations over their peak."""
+    bw, pk_bf16, _ = peak
+    b_bytes, b_ops = nbytes / bw * 1e3, flops / pk_bf16 * 1e3
+    return max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else "operations"
+
+
 def paged_case(torch, S, nh, kvh, hd, pg, maxp, dtype, gen):
     """Pool, block tables (distinct random pages per slot) and q."""
     P = S * maxp + 1
@@ -160,7 +197,6 @@ def phase_k1(torch, peak, flush, record):
     # and three mid-length slots
     lens = [0, 1, 17, T, T + 1, 700, 1500, 333]
     gen = torch.Generator(device="cuda").manual_seed(1)
-    bw, pk_bf16, pk_f32 = peak
     for nh, kvh, tag in ((32, 32, "7b"), (64, 8, "70b-gqa")):
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
@@ -202,15 +238,13 @@ def phase_k1(torch, peak, flush, record):
             nbytes = (2 * q.numel() * elt + 2 * toks * kvh * hd * elt
                       + sum(-(-min(n, T) // pg) for n in lens) * 4 + 4 * S)
             flops = 4 * toks * nh * hd
-            b_bytes, b_ops = nbytes / bw * 1e3, flops / pk_bf16 * 1e3
+            bound_ms, by = bound(nbytes, flops, peak)
             record["paged_attention"].update(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=max(b_bytes, b_ops),
-                bound_by="bytes" if b_bytes >= b_ops else "operations")
+                bound_ms=bound_ms, bound_by=by)
             log(f"k1 7b bf16 timing: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-                f"{max(b_bytes, b_ops):.4f} ms ({nbytes} bytes, {flops} "
-                f"flops)")
+                f"{bound_ms:.4f} ms ({nbytes} bytes, {flops} flops)")
 
 
 def phase_k2(torch, peak, flush, record):
@@ -224,7 +258,6 @@ def phase_k2(torch, peak, flush, record):
     takes = [512, 512, 300, 0, 512, 200, 512, 500]
     lasts = [t + n - 1 if n else -1 for t, n in zip(t0s, takes)]
     gen = torch.Generator(device="cuda").manual_seed(2)
-    bw, pk_bf16, pk_f32 = peak
     for nh, kvh, tag in ((32, 32, "7b"), (64, 8, "70b-gqa")):
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
@@ -275,15 +308,13 @@ def phase_k2(torch, peak, flush, record):
                       + 2 * kv_toks * kvh * hd * elt + 12 * S
                       + sum(-(-(t + n) // pg) for t, n in zip(t0s, takes)
                             if n) * 4)
-            b_bytes, b_ops = nbytes / bw * 1e3, flops / pk_bf16 * 1e3
+            bound_ms, by = bound(nbytes, flops, peak)
             record["ragged_prefill"].update(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=max(b_bytes, b_ops),
-                bound_by="bytes" if b_bytes >= b_ops else "operations")
+                bound_ms=bound_ms, bound_by=by)
             log(f"k2 7b bf16 timing: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-                f"{max(b_bytes, b_ops):.4f} ms ({nbytes} bytes, {flops} "
-                f"flops)")
+                f"{bound_ms:.4f} ms ({nbytes} bytes, {flops} flops)")
 
 
 def k3_ticks(T):
@@ -377,7 +408,6 @@ def k3_time(torch, F, ft, pa, tick, q, kp, vp, bt, args, slots, n_live,
     SDPA call over the gathered masked frame (a yardstick the port never
     calls) and its bound; on the decode-only tick, K1 at the same
     lengths too."""
-    bw, pk_bf16, _ = peak
     bt_live, t0, last, dec, ss, sp, scale = args
     S, C, nh, hd = q.shape
     _, pg, kvh, _ = kp.shape
@@ -407,14 +437,12 @@ def k3_time(torch, F, ft, pa, tick, q, kp, vp, bt, args, slots, n_live,
     live_rows = sum(1 if d else n for _, n, d in slots)
     nbytes = (live_rows * nh * hd * elt + q.numel() * elt
               + 2 * n_live * pg * kvh * hd * elt + 4 * (3 * n_live + 2 * S))
-    b_bytes, b_ops = nbytes / bw * 1e3, flops / pk_bf16 * 1e3
-    bound = max(b_bytes, b_ops)
-    by = "bytes" if b_bytes >= b_ops else "operations"
+    bound_ms, by = bound(nbytes, flops, peak)
     extra = ""
     if tick == "admit":
         record["fused_tick"].update(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=bound, bound_by=by)
+            bound_ms=bound_ms, bound_by=by)
     else:
         lengths = (t0 + 1).to(torch.int32)
         qd = q[:, 0].contiguous()
@@ -423,8 +451,194 @@ def k3_time(torch, F, ft, pa, tick, q, kp, vp, bt, args, slots, n_live,
                         flush=flush)
         extra = f", K1 at the same lengths {k1_ms:.4f} ms"
     log(f"k3 {tick} 7b bf16 timing: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({by}; {nbytes} bytes, {flops} flops){extra}")
+
+
+# (tag, B, S, heads, head_dim, causal): llama_350m's training shape (the
+# main path), Llama-2-7B's, a non-causal case and a tail tile (S = 1000)
+K4_CASES = (("350m", 8, 1024, 16, 64, True), ("7b", 1, 4096, 32, 128, True),
+            ("noncausal", 4, 512, 16, 64, False),
+            ("tail", 2, 1000, 8, 128, True))
+
+
+def phase_k4(torch, peak, flush, record):
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for tag, B, S, H, D, causal in K4_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            # v and do at half scale: o and the gradients stay below ~3,
+            # the size TOL is set for (bf16 output rounding <= 2^-9 |x|)
+            q, k = (torch.randn((B * H, S, D), generator=gen, device="cuda")
+                    .to(dtype) for _ in range(2))
+            v, do = (torch.randn((B * H, S, D), generator=gen, device="cuda")
+                     .mul(0.5).to(dtype) for _ in range(2))
+            scale = D ** -0.5
+            o, lse = fa.flash_fwd(q, k, v, scale, causal)
+            dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, scale, causal)
+            dq2, dk2, dv2 = fa.flash_bwd(q, k, v, o, lse, do, scale, causal)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in
+                       ((dq, dq2), (dk, dk2), (dv, dv2)))
+            del dq2, dk2, dv2
+            f32 = [t.float() for t in (q, k, v, do)]
+            ro, rlse = fa._ref_with_lse(f32[0], f32[1], f32[2], scale, causal)
+            # the backward's plain version on the very inputs the kernel
+            # got: the kernel's own o and lse
+            ref_g = fa._ref_bwd(f32[0], f32[1], f32[2], o.float(), lse,
+                                f32[3], scale, causal)
+            del f32
+            pairs = [(o, ro), (lse, rlse)] + list(zip((dq, dk, dv), ref_g))
+            errs = [agreement([pr], dname, floor=1e-2) for pr in pairs]
+            del ro, rlse, ref_g, pairs
+            rel = max(e[1] for e in errs)
+            ok = all(e[2] for e in errs) and same and all(
+                torch.isfinite(t).all().item() for t in (o, lse, dq, dk, dv))
+            log(f"k4 {tag} {dname}: B={B} S={S} H={H} hd={D} causal={causal}"
+                f", max_abs_err o/lse/dq/dk/dv "
+                f"{'/'.join(f'{e[0]:.2e}' for e in errs)} (tol "
+                f"{TOL[dname]:.0e}), max vector-relative error {rel:.3e} "
+                f"(tol {VEC_RTOL[dname]:.0e}), backward bitwise repeatable "
+                f"{same} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"k4 {tag} {dname} disagrees with its plain "
+                                 f"version")
+            if tag == "350m" and dtype == torch.bfloat16:
+                k4_time(torch, F, fa, (q, k, v, o, lse, do), (B, S, H, D),
+                        scale, peak, flush, record, errs)
+            del q, k, v, do, o, lse, dq, dk, dv
+            torch.cuda.empty_cache()
+
+
+def k4_time(torch, F, fa, tensors, shape, scale, peak, flush, record,
+            errs):
+    """K4a and K4b at the main path's shape and type beside their plain
+    versions and one SDPA call (forward; its backward through autograd
+    on a kept graph), and their bounds; also forward + backward."""
+    q, k, v, o, lse, do = tensors
+    B, S, H, D = shape
+    ms_f = cuda_ms(lambda: fa.flash_fwd(q, k, v, scale, True), torch,
+                   flush=flush)
+    ms_b = cuda_ms(lambda: fa.flash_bwd(q, k, v, o, lse, do, scale, True),
+                   torch, flush=flush)
+    ms_fb = cuda_ms(lambda: fa.flash_bwd(
+        q, k, v, *fa.flash_fwd(q, k, v, scale, True), do, scale, True),
+        torch, flush=flush)
+    plain_f = cuda_ms(lambda: fa._ref_with_lse(q, k, v, scale, True), torch,
+                      iters=5, flush=flush)
+    plain_b = cuda_ms(lambda: fa._ref_bwd(q, k, v, o, lse, do, scale, True),
+                      torch, iters=5, flush=flush)
+    plain_fb = cuda_ms(lambda: fa._ref_bwd(
+        q, k, v, *fa._ref_with_lse(q, k, v, scale, True), do, scale, True),
+        torch, iters=5, flush=flush)
+    qs, ks, vs = (t.reshape(B, H, S, D).detach().requires_grad_()
+                  for t in (q, k, v))
+    dos = do.reshape(B, H, S, D)
+    lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, scale=scale), torch, flush=flush)
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                         scale=scale)
+    lib_b = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dos,
+                                                retain_graph=True), torch,
+                    flush=flush)
+
+    def sdpa_fb():
+        o_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                            scale=scale)
+        return torch.autograd.grad(o_, (qs, ks, vs), dos)
+
+    lib_fb = cuda_ms(sdpa_fb, torch, flush=flush)
+    del out
+    elt = q.element_size()
+    n = B * H * S * D * elt
+    flops_f = 2 * B * H * S * S * D          # causal: half of 4 B H S^2 D
+    bound_f, by_f = bound(4 * n + 4 * B * H * S, flops_f, peak)
+    bound_b, by_b = bound(8 * n + 4 * B * H * S, 2.5 * flops_f, peak)
+    bound_fb, _ = bound(9 * n + 4 * B * H * S, 3.5 * flops_f, peak)
+    record["flash_attention_fwd"].update(
+        max_abs_err=max(errs[0][0], errs[1][0]), ms=ms_f, plain_ms=plain_f,
+        library_ms=lib_f, bound_ms=bound_f, bound_by=by_f)
+    record["flash_attention_bwd"].update(
+        max_abs_err=max(e[0] for e in errs[2:]), ms=ms_b, plain_ms=plain_b,
+        library_ms=lib_b, bound_ms=bound_b, bound_by=by_b)
+    for what, ms, plain, lib, bnd in (
+            ("forward", ms_f, plain_f, lib_f, bound_f),
+            ("backward", ms_b, plain_b, lib_b, bound_b),
+            ("forward+backward", ms_fb, plain_fb, lib_fb, bound_fb)):
+        log(f"k4 350m bf16 {what} timing: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms")
+
+
+def phase_k5(torch, peak, flush, record):
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import rms_norm as rn
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    eps = 1e-5
+    for tag, rows, d in (("350m", 8192, 1024), ("7b", 4096, 4096)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            x = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+            # the output is x / rms(x) * w whatever the scale of x: w ~
+            # 0.5 keeps it below ~3, the size TOL is set for; g at
+            # rows^-1/2 keeps dw, a sum over every row, near 1
+            w = (0.5 + 0.05 * torch.randn((d,), generator=gen, device="cuda")
+                 ).to(dtype)
+            g = (torch.randn((rows, d), generator=gen, device="cuda")
+                 * rows ** -0.5).to(dtype)
+            out = rn.rms_norm_fwd(x, w, eps)
+            dx, dw = rn.rms_norm_bwd(x, w, g, eps)
+            dx2, dw2 = rn.rms_norm_bwd(x, w, g, eps)
+            torch.cuda.synchronize()
+            same = torch.equal(dx, dx2) and torch.equal(dw, dw2)
+            ro = rn._ref_fwd(x.float(), w.float(), eps)
+            rdx, rdw = rn._ref_bwd(x.float(), w.float(), g.float(), eps)
+            errs = [agreement([pr], dname, floor=1e-2) for pr in
+                    ((out, ro), (dx, rdx), (dw[None], rdw[None]))]
+            rel = max(e[1] for e in errs)
+            ok = all(e[2] for e in errs) and same and all(
+                torch.isfinite(t).all().item() for t in (out, dx, dw))
+            log(f"k5 {tag} {dname}: {rows} x {d}, max_abs_err out/dx/dw "
+                f"{'/'.join(f'{e[0]:.2e}' for e in errs)} (tol "
+                f"{TOL[dname]:.0e}), max vector-relative error {rel:.3e} "
+                f"(tol {VEC_RTOL[dname]:.0e}), backward bitwise repeatable "
+                f"{same} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"k5 {tag} {dname} disagrees with its plain "
+                                 f"version")
+            if tag != "350m" or dtype != torch.bfloat16:
+                continue
+            ms_f = cuda_ms(lambda: rn.rms_norm_fwd(x, w, eps), torch,
+                           flush=flush)
+            ms_b = cuda_ms(lambda: rn.rms_norm_bwd(x, w, g, eps), torch,
+                           flush=flush)
+            plain_f = cuda_ms(lambda: rn._ref_fwd(x, w, eps), torch,
+                              flush=flush)
+            plain_b = cuda_ms(lambda: rn._ref_bwd(x, w, g, eps), torch,
+                              flush=flush)
+            xs, ws = x.detach().requires_grad_(), w.detach().requires_grad_()
+            lib_f = cuda_ms(lambda: F.rms_norm(xs, (d,), ws, eps), torch,
+                            flush=flush)
+            y = F.rms_norm(xs, (d,), ws, eps)
+            lib_b = cuda_ms(lambda: torch.autograd.grad(
+                y, (xs, ws), g, retain_graph=True), torch, flush=flush)
+            elt = x.element_size()
+            bound_f, by_f = bound((2 * rows * d + d) * elt, 0, peak)
+            bound_b, by_b = bound((3 * rows * d + 2 * d) * elt, 0, peak)
+            record["rms_norm_fwd"].update(
+                max_abs_err=errs[0][0], ms=ms_f, plain_ms=plain_f,
+                library_ms=lib_f, bound_ms=bound_f, bound_by=by_f)
+            record["rms_norm_bwd"].update(
+                max_abs_err=max(errs[1][0], errs[2][0]), ms=ms_b,
+                plain_ms=plain_b, library_ms=lib_b, bound_ms=bound_b,
+                bound_by=by_b)
+            for what, ms, plain, lib, bnd in (
+                    ("forward", ms_f, plain_f, lib_f, bound_f),
+                    ("backward", ms_b, plain_b, lib_b, bound_b)):
+                log(f"k5 350m bf16 {what} timing: kernel {ms:.4f} ms, plain "
+                    f"{plain:.4f} ms, F.rms_norm {lib:.4f} ms, bound "
+                    f"{bnd:.4f} ms")
 
 
 def serve_wave(srv, prompts, n_new):
@@ -434,33 +648,41 @@ def serve_wave(srv, prompts, n_new):
 
 
 def counters():
-    """The kernels' launch counters: {name: wrapper}."""
+    """The kernels' launch counters: {name: (wrapper, attribute)}."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import rms_norm as rn
     from paddle_tpu_torch.ops.kernels.fused_tick import fused_tick_attention
     from paddle_tpu_torch.ops.kernels.paged_attention import \
         paged_attention
     from paddle_tpu_torch.ops.kernels.ragged_prefill import \
         ragged_prefill_attention
-    return {"k1": paged_attention, "k2": ragged_prefill_attention,
-            "k3": fused_tick_attention}
+    return {"k1": (paged_attention, "launches"),
+            "k2": (ragged_prefill_attention, "launches"),
+            "k3": (fused_tick_attention, "launches"),
+            "k4_fwd": (fa.flash_fwd, "launches"),
+            "k4_dq": (fa.flash_bwd, "dq_launches"),
+            "k4_dkv": (fa.flash_bwd, "dkv_launches"),
+            "k5_fwd": (rn.rms_norm_fwd, "launches"),
+            "k5_bwd": (rn.rms_norm_bwd, "launches")}
 
 
 def zero_counts():
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {k: fn.launches for k, fn in counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
 
 
 def phase_parity(torch, np):
     from paddle_tpu_torch.inference import ContinuousBatchingServer
-    from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny,
-                                         load_jax_params)
+    from paddle_tpu_torch.models import (LlamaForCausalLM, export_params,
+                                         llama_tiny, load_jax_params)
     cfg = llama_tiny()
     cpu = LlamaForCausalLM(cfg, device="cpu", seed=3)
     gpu = LlamaForCausalLM(cfg, device="cuda")
-    load_jax_params(gpu, {n: p.numpy() for n, p in cpu.named_parameters()})
+    load_jax_params(gpu, export_params(cpu))
     rng = np.random.default_rng(5)
     wave1 = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
              for n in (1, 7, 8, 13, 17, 30)]
@@ -670,6 +892,173 @@ def profile_decode(torch, np, srv, cfg, card, mode):
     srv.run()
 
 
+def per_step_counts(L, steps=1):
+    """The launches a train step of an L-layer Llama makes: K4's three
+    kernels once per layer, K5 forward and backward at both norms of
+    every layer and the final norm."""
+    return {"k4_fwd": steps * L, "k4_dq": steps * L, "k4_dkv": steps * L,
+            "k5_fwd": steps * (2 * L + 1), "k5_bwd": steps * (2 * L + 1)}
+
+
+def phase_train_parity(torch, np):
+    from paddle_tpu_torch.jit import train_step_fn
+    from paddle_tpu_torch.models import (LlamaForCausalLM, export_params,
+                                         llama_tiny, load_jax_params)
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = llama_tiny()
+    lr = 1e-3
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=4)
+    gpu = LlamaForCausalLM(cfg, device="cuda")
+    load_jax_params(gpu, export_params(cpu))
+    ids = np.random.default_rng(6).integers(0, cfg.vocab_size, (4, 64))
+    want = per_step_counts(cfg.num_layers)
+    res = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        t = torch.as_tensor(ids, device=model.device)
+        batch = {"inputs": (t,), "labels": (t,)}
+        opt = AdamW(learning_rate=lr, parameters=model.named_parameters())
+        step = train_step_fn(model, model.loss, opt)
+        # step 1 by hand, to read its gradients; steps 2 and 3 through
+        # train_step_fn; the counters zeroed before and read after each
+        zero_counts()
+        loss = model.loss(model(t), t)
+        loss.backward()
+        grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        losses, counts = [loss.item()], [read_counts()]
+        for _ in range(2):
+            zero_counts()
+            losses.append(step(batch).item())
+            counts.append(read_counts())
+        res[name] = (losses, grads, export_params(model), counts)
+    (l_cpu, g_cpu, p_cpu, c_cpu), (l_gpu, g_gpu, p_gpu, c_gpu) = \
+        res["cpu"], res["cuda"]
+    # f32 on both sides (TF32 off): another summation order in cuBLAS
+    # and the kernels; Adam's first steps move a weight by ~lr * sign(g),
+    # so trained weights are held to a fiftieth of lr
+    loss_err = max(abs(a - b) for a, b in zip(l_cpu, l_gpu))
+    grad_ok = all(torch.allclose(g_gpu[n], g_cpu[n], rtol=1e-4, atol=1e-5)
+                  for n in g_cpu)
+    grad_err = max((g_gpu[n] - g_cpu[n]).abs().max().item() for n in g_cpu)
+    w_err = max(np.abs(p_gpu[n] - p_cpu[n]).max() for n in p_cpu)
+    counted = all({k: c[k] for k in want} == want for c in c_gpu)
+    quiet = not any(v for c in c_cpu for v in c.values()) and \
+        not any(c[k] for c in c_gpu for k in ("k1", "k2", "k3"))
+    log(f"train_parity llama_tiny f32: losses cpu "
+        f"{[round(x, 6) for x in l_cpu]} card {[round(x, 6) for x in l_gpu]}"
+        f" (max diff {loss_err:.2e}, tol 1e-5), step-1 gradients max diff "
+        f"{grad_err:.2e} (atol 1e-5, rtol 1e-4) {grad_ok}, trained weights "
+        f"max diff {w_err:.2e} (tol {0.02 * lr:.0e}), launches per step "
+        f"{c_gpu}")
+    if not (loss_err <= 1e-5 and grad_ok and w_err <= 0.02 * lr and counted
+            and quiet and l_gpu[2] < l_gpu[0]):
+        raise SystemExit("train_parity: the card and the CPU disagree, or "
+                         "a step did not launch each kernel as counted")
+
+
+def phase_train(torch, np, card, peak, record):
+    import gc
+    from paddle_tpu_torch.jit import train_step_fn
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_350m
+    from paddle_tpu_torch.optimizer import AdamW
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama_350m()
+    L = cfg.num_layers
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters())
+    B, S = 8, 1024
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)), device="cuda")
+    batch = {"inputs": (ids,), "labels": (ids,)}
+    step = train_step_fn(model, model.loss, opt)
+    log(f"train: llama_350m bf16, {L} layers, {n_params} parameters, "
+        f"AdamW(1e-4) f32 moments, batch {B} x {S} from seed 0")
+
+    # two warm-up steps by hand: every gradient must be finite
+    losses, grads_finite = [], True
+    for _ in range(2):
+        loss = model.loss(model(ids), ids)
+        loss.backward()
+        grads_finite &= all(torch.isfinite(p.grad).all().item()
+                            for p in model.parameters())
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 10
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        losses.append(step(batch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [x.item() for x in losses]
+    finite = all(np.isfinite(losses)) and all(
+        torch.isfinite(p).all().item() for p in model.parameters())
+    want = per_step_counts(L, n)
+    step_ms = wall / n * 1e3
+    tok_s = B * S * n / wall
+    flops = 6 * n_params * B * S + 3 * 2 * B * cfg.num_heads * S * S \
+        * cfg.head_dim * L
+    log(f"train losses: {[round(x, 4) for x in losses]}")
+    log(f"train metrics [{card}]: {step_ms:.1f} ms per step, {tok_s:.0f} "
+        f"tokens/s, peak memory {peak_gb:.2f} GiB, "
+        f"{flops / (wall / n) / 1e12:.1f} model TFLOP/s "
+        f"({100 * flops / (wall / n) / peak[1]:.1f}% of the bf16 peak)")
+    log(f"train launches over {n} steps: {counts}")
+    checks = {"loss falls": losses[-1] < losses[0],
+              "losses and weights finite": finite,
+              "warm-up gradients finite": grads_finite,
+              "launches == steps x per-step counts":
+                  {k: counts[k] for k in want} == want,
+              "no serving kernel": counts["k1"] == counts["k2"]
+                  == counts["k3"] == 0}
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"train: check failed: {name}")
+    record["flash_attention_fwd"]["launches"] = counts["k4_fwd"]
+    record["flash_attention_bwd"]["launches"] = counts["k4_dq"]
+    record["rms_norm_fwd"]["launches"] = counts["k5_fwd"]
+    record["rms_norm_bwd"]["launches"] = counts["k5_bwd"]
+    profile_train(torch, step, batch, card)
+
+
+def profile_train(torch, step, batch, card):
+    """Where a train step's time goes: one step under torch.profiler,
+    device time by kernel and the device's busy share of the wall time.
+    Informational: it checks nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    kernels.sort(key=lambda k: -k[1])
+    busy = sum(k[1] for k in kernels)
+    if not kernels:
+        log("profile train: the profiler recorded no device time (not "
+            "measured)")
+        return
+    log(f"profile train [{card}]: one step {wall_ms:.1f} ms wall (under the "
+        f"profiler), device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%),"
+        f" {sum(k[2] for k in kernels)} kernel launches")
+    for name, ms, count in kernels[:12]:
+        log(f"  {ms:8.3f} ms/step  {count:5d}x  {name[:90]}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -735,6 +1124,20 @@ def main():
             "plain_ms": None, "bound_ms": None, "bound_by": None,
             "library_ms": None},
     }
+    for kname, src, tpu in (
+            ("flash_attention_fwd", "flash_attention.cu",
+             "flash_attention.py:98"),
+            ("flash_attention_bwd", "flash_attention.cu",
+             "flash_attention.py:248"),
+            ("rms_norm_fwd", "rms_norm.cu", "rms_norm.py:42"),
+            ("rms_norm_bwd", "rms_norm.cu", "rms_norm.py:91")):
+        record[kname] = {
+            "name": kname, "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{src}",
+            "replaces": f"paddle_tpu/ops/pallas/{tpu}",
+            "launches": None, "max_abs_err": None, "ms": None,
+            "plain_ms": None, "bound_ms": None, "bound_by": None,
+            "library_ms": None}
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
     if "k1" in phases:
         phase_k1(torch, peak, flush, record)
@@ -742,12 +1145,20 @@ def main():
         phase_k2(torch, peak, flush, record)
     if "k3" in phases:
         phase_k3(torch, peak, flush, record)
+    if "k4" in phases:
+        phase_k4(torch, peak, flush, record)
+    if "k5" in phases:
+        phase_k5(torch, peak, flush, record)
     del flush
     if "parity" in phases:
         phase_parity(torch, np)
+    if "train_parity" in phases:
+        phase_train_parity(torch, np)
     if "serve" in phases:
         torch.cuda.empty_cache()
         phase_serve(torch, np, card, record)
+    if "train" in phases:
+        phase_train(torch, np, card, peak, record)
     log(json.dumps({"kernels": list(record.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

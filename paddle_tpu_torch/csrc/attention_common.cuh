@@ -1,8 +1,11 @@
-// Device code shared by the port's attention kernels: K1
-// (paged_attention.cu), K2 (ragged_prefill.cu) and K3 (fused_tick.cu).
+// Device code shared by the port's kernels: K1 (paged_attention.cu), K2
+// (ragged_prefill.cu), K3 (fused_tick.cu), K4 (flash_attention.cu) and K5
+// (rms_norm.cu).
 //
 // - element helpers: f32 loads and stores of f32/bf16, 16-byte row loads,
-//   warp sums;
+//   warp sums and sums or maxima over a few neighbouring lanes;
+// - mma.sync m16n8k16 bf16 fragment helpers (K3's and K4's tensor-core
+//   tiles);
 // - decode_attend: one query row per kv head's GQA group over paged K/V
 //   (K1's design). K1 runs it over a slot's block table; K3's C == 1
 //   kernel runs it over the slot's run of the page schedule. The caller
@@ -14,6 +17,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace pt_attn {
 
@@ -52,6 +57,59 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// reduce over the N consecutive lanes (N a power of two, at most 32) that
+// share one row of a tile
+template <int N>
+__device__ __forceinline__ float lanes_max(float v) {
+#pragma unroll
+  for (int o = N / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+template <int N>
+__device__ __forceinline__ float lanes_sum(float v) {
+#pragma unroll
+  for (int o = N / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ------------------------------------------------ mma.sync m16n8k16 bf16
+//
+// Fragments of a warp's 16 x 8 x 16 product, lane = 4 * g + t: A (16 x 16,
+// row-major) a0 = A[g][2t, 2t+1], a1 = A[g+8][2t, 2t+1], a2 = A[g][2t+8,
+// 2t+9], a3 = A[g+8][2t+8, 2t+9]; B (16 x 8, by column) b0 = B[2t, 2t+1][g],
+// b1 = B[2t+8, 2t+9][g]; C (16 x 8) c0, c1 = C[g][2t, 2t+1], c2, c3 =
+// C[g+8][2t, 2t+1]. The C fragments of two neighbouring n-tiles are the A
+// fragment of one k-step of the next product (scores -> P V).
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// reduce over the 4 lanes that hold one fragment row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // One block of WARPS warps attends the rep query vectors of kv head g

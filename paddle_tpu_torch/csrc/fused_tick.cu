@@ -241,20 +241,6 @@ constexpr size_t rows_smem_bytes() {
                           kVecs * (kKeys + 1));
 }
 
-// reduce over the kGroup consecutive lanes that share kVpt vectors
-__device__ __forceinline__ float group_max(float v) {
-#pragma unroll
-  for (int o = kGroup / 2; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = kGroup / 2; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 template <typename T, int HD>
 __global__ void __launch_bounds__(kRowThreads)
 fused_rows_kernel(const T* __restrict__ q, const T* __restrict__ kp,
@@ -358,7 +344,7 @@ fused_rows_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         sc[i][j] = ok[j] ? sc[i][j] * scale : kNegInf;
         mx = fmaxf(mx, sc[i][j]);
       }
-      mx = group_max(mx);
+      mx = lanes_max<kGroup>(mx);
       const float m_new = fmaxf(m[i], mx);
       const float corr = expf(m[i] - m_new);
       float psum = 0.f;
@@ -368,7 +354,7 @@ fused_rows_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         psum += p;
         s_p[(tr * kVpt + i) * (kKeys + 1) + tk + kGroup * j] = p;
       }
-      l[i] = l[i] * corr + group_sum(psum);
+      l[i] = l[i] * corr + lanes_sum<kGroup>(psum);
       m[i] = m_new;
 #pragma unroll
       for (int c = 0; c < DPT; ++c) acc[i][c] *= corr;
@@ -412,35 +398,8 @@ fused_rows_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 // the whole walk, and keeps its scores, the online softmax state of its
 // fragment rows and a 16 x hd accumulator in registers. The
 // probabilities are rounded to bf16 for P V, as the plain version rounds
-// them to q's type.
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// reduce over the 4 lanes that hold one fragment row
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
+// them to q's type. The fragment helpers (mma_bf16, pack_bf16, ld32,
+// quad_max, quad_sum) are in attention_common.cuh.
 
 template <int HD>
 __global__ void __launch_bounds__(kRowThreads)

@@ -1,15 +1,16 @@
-"""Copy a JAX-package model's parameters into the port's model.
+"""Copy a JAX-package model's parameters into the port's model, and
+back out.
 
 The port keeps the JAX module's parameter names and layouts (Linear
 weights ``[in, out]``), so the bridge is a checked, name-for-name copy.
-It takes plain numpy arrays — the caller exports them on the JAX side,
-e.g. ``{n: p.numpy() for n, p in jax_model.named_parameters()}`` — and
-never imports the JAX package itself.
+It takes and gives plain numpy arrays — the caller exports them on the
+JAX side, e.g. ``{n: p.numpy() for n, p in jax_model.named_parameters()}``
+— and never imports the JAX package itself.
 """
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "export_params"]
 
 
 @torch.no_grad()
@@ -37,3 +38,18 @@ def load_jax_params(model, arrays):
         src = torch.from_numpy(np.array(a))        # a writable copy
         p.copy_(src.to(device=p.device, dtype=p.dtype))
     return model
+
+
+@torch.no_grad()
+def export_params(model):
+    """``{name: np.ndarray}`` of ``model``'s parameters on the host, the
+    inverse of ``load_jax_params`` (so trained weights can be compared
+    name for name). bf16 parameters come out as float32 (numpy has no
+    bfloat16; the widening is exact)."""
+    out = {}
+    for name, p in model.named_parameters():
+        t = p.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[name] = t.numpy().copy()
+    return out

@@ -273,7 +273,9 @@ def _make_llama_decode_fns(model, max_cache_len, weight_dtype=None,
     for a paged
     ``LlamaForCausalLM``: GQA-aware (kv heads cached unrepeated), rope at
     absolute positions, the layer scan a Python loop over layers. The
-    functions read the model's parameters in place (no stacked copy)."""
+    functions read the model's parameters in place (no stacked copy) and
+    run under ``torch.no_grad``: the parameters are trainable, serving
+    builds no graph."""
     if cache_backend != "paged":
         raise NotImplementedError(
             "cache_backend='dense' is not ported (ROADMAP, Queue 1 item 5: "
@@ -312,6 +314,7 @@ def _make_llama_decode_fns(model, max_cache_len, weight_dtype=None,
                               max_cache_len // page_size, kvh, hd, dtype,
                               device)
 
+    @torch.no_grad()
     def embed_fn(tok, t):
         return table[tok.long()][:, None, :]
 
@@ -339,6 +342,7 @@ def _make_llama_decode_fns(model, max_cache_len, weight_dtype=None,
     def head_fn(out):
         return (_rms(out, norm, eps) @ head).float()
 
+    @torch.no_grad()
     def embed_tokens(tokens, t0):
         return table[tokens.long()]
 

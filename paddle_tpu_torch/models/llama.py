@@ -1,15 +1,14 @@
-"""Llama-2 family (RMSNorm pre-norm, RoPE, SwiGLU, GQA) for serving.
+"""Llama-2 family (RMSNorm pre-norm, RoPE, SwiGLU, GQA).
 
-Port of ``paddle_tpu/models/llama.py``'s configuration and parameter
-layout. ``LlamaForCausalLM`` holds its parameters under the JAX
-module's names (``model.embed_tokens.weight``,
+Port of ``paddle_tpu/models/llama.py``. ``LlamaForCausalLM`` holds its
+parameters under the JAX module's names (``model.embed_tokens.weight``,
 ``model.layers.{i}.self_attn.q_proj.weight``, ..., ``lm_head.weight``)
 and its Linear weights as ``[in, out]``, used as ``x @ w`` — so
 ``models.bridge.load_jax_params`` copies one model into the other name
-for name. Serving runs through the paged decode bundle
-(``models.generation``); the full-sequence ``forward()`` rides the
-flash-attention and RMSNorm kernels in the JAX package and comes with
-the training slice (ROADMAP, Queue 1 item 1).
+for name, and ``export_params`` back. The full-sequence ``forward()``
+(training) runs the JAX module's forwards on the flash-attention (K4)
+and RMSNorm (K5) kernels through ``nn.functional``; serving runs through
+the paged decode bundle (``models.generation``) under ``torch.no_grad``.
 """
 import math
 from dataclasses import dataclass
@@ -18,6 +17,8 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..nn import functional as F
+from ..ops.rope import apply_rotary, precompute_freqs
 from .generation import GenerationMixin
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "llama2_7b", "llama2_70b",
@@ -48,29 +49,54 @@ class LlamaConfig:
 
 
 class _Weight(nn.Module):
-    """One named ``weight`` parameter (a Linear's ``[in, out]`` matrix,
-    a norm's scale or the embedding table). Serving needs no autograd,
-    so parameters are created with ``requires_grad=False``."""
+    """One named, trainable ``weight`` parameter (a Linear's ``[in,
+    out]`` matrix, a norm's scale or the embedding table). Serving reads
+    the parameters under ``torch.no_grad`` and builds no graph."""
 
     def __init__(self, shape, dtype, device):
         super().__init__()
         self.weight = nn.Parameter(
-            torch.empty(shape, dtype=dtype, device=device),
-            requires_grad=False)
+            torch.empty(shape, dtype=dtype, device=device))
 
 
 class _Attention(nn.Module):
-    def __init__(self, cfg, dtype, device):
+    """``LlamaAttention``: q/k/v projections, rope at rows 0..S-1 (or
+    ``position_ids``), kv heads repeated for GQA before the kernel,
+    causal SDPA (K4) and the output projection."""
+
+    def __init__(self, cfg, dtype, device, rope):
         super().__init__()
         h, hd = cfg.hidden_size, cfg.head_dim
         q_out, kv_out = cfg.num_heads * hd, cfg.num_kv_heads * hd
+        self.cfg = cfg
         self.q_proj = _Weight((h, q_out), dtype, device)
         self.k_proj = _Weight((h, kv_out), dtype, device)
         self.v_proj = _Weight((h, kv_out), dtype, device)
         self.o_proj = _Weight((q_out, h), dtype, device)
+        # f32 tables shared by every layer: the JAX module's rope buffers
+        # are not parameters, and model.astype leaves them in f32
+        self.register_buffer("rope_cos", rope[0], persistent=False)
+        self.register_buffer("rope_sin", rope[1], persistent=False)
+
+    def forward(self, x, position_ids=None):
+        cfg = self.cfg
+        b, s = x.shape[0], x.shape[1]
+        nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = F.linear(x, self.q_proj.weight).reshape(b, s, nh, hd)
+        k = F.linear(x, self.k_proj.weight).reshape(b, s, kvh, hd)
+        v = F.linear(x, self.v_proj.weight).reshape(b, s, kvh, hd)
+        q = apply_rotary(q, self.rope_cos, self.rope_sin, position_ids)
+        k = apply_rotary(k, self.rope_cos, self.rope_sin, position_ids)
+        if kvh != nh:
+            k = k.repeat_interleave(nh // kvh, dim=2)
+            v = v.repeat_interleave(nh // kvh, dim=2)
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return F.linear(out.reshape(b, s, nh * hd), self.o_proj.weight)
 
 
 class _MLP(nn.Module):
+    """``LlamaMLP``: SwiGLU."""
+
     def __init__(self, cfg, dtype, device):
         super().__init__()
         h, m = cfg.hidden_size, cfg.intermediate_size
@@ -78,29 +104,57 @@ class _MLP(nn.Module):
         self.up_proj = _Weight((h, m), dtype, device)
         self.down_proj = _Weight((m, h), dtype, device)
 
+    def forward(self, x):
+        return F.linear(F.silu(F.linear(x, self.gate_proj.weight))
+                        * F.linear(x, self.up_proj.weight),
+                        self.down_proj.weight)
+
 
 class _Block(nn.Module):
-    def __init__(self, cfg, dtype, device):
+    """``LlamaBlock``: pre-norm attention and MLP, each with a residual
+    (RMSNorm through K5)."""
+
+    def __init__(self, cfg, dtype, device, rope):
         super().__init__()
+        self.eps = cfg.rms_eps
         self.input_layernorm = _Weight((cfg.hidden_size,), dtype, device)
-        self.self_attn = _Attention(cfg, dtype, device)
+        self.self_attn = _Attention(cfg, dtype, device, rope)
         self.post_attention_layernorm = _Weight((cfg.hidden_size,), dtype,
                                                 device)
         self.mlp = _MLP(cfg, dtype, device)
 
+    def forward(self, x, position_ids=None):
+        x = x + self.self_attn(
+            F.rms_norm(x, self.input_layernorm.weight, self.eps),
+            position_ids)
+        return x + self.mlp(
+            F.rms_norm(x, self.post_attention_layernorm.weight, self.eps))
+
 
 class _Model(nn.Module):
+    """``LlamaModel``: embedding, the blocks, the final RMSNorm."""
+
     def __init__(self, cfg, dtype, device):
         super().__init__()
+        self.eps = cfg.rms_eps
+        rope = precompute_freqs(cfg.head_dim, cfg.max_seq_len,
+                                cfg.rope_theta, device=device)
         self.embed_tokens = _Weight((cfg.vocab_size, cfg.hidden_size),
                                     dtype, device)
-        self.layers = nn.ModuleList([_Block(cfg, dtype, device)
+        self.layers = nn.ModuleList([_Block(cfg, dtype, device, rope)
                                      for _ in range(cfg.num_layers)])
         self.norm = _Weight((cfg.hidden_size,), dtype, device)
 
+    def forward(self, input_ids, position_ids=None):
+        x = F.embedding(input_ids, self.embed_tokens.weight)
+        for blk in self.layers:
+            x = blk(x, position_ids)
+        return F.rms_norm(x, self.norm.weight, self.eps)
+
 
 class LlamaForCausalLM(nn.Module, GenerationMixin):
-    """Llama causal LM for paged serving.
+    """Llama causal LM: ``forward``/``loss`` for training, the paged
+    decode bundle for serving.
 
     ``device=None`` means the CUDA card (raises without one; pass
     ``device="cpu"`` for the plain PyTorch versions). ``dtype`` defaults
@@ -138,12 +192,28 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
                 bound = 1.0 / math.sqrt(p.shape[0])
                 p.uniform_(-bound, bound, generator=gen)
 
-    def forward(self, input_ids, position_ids=None):
+    def forward(self, input_ids, position_ids=None, return_hidden=False):
+        """Logits ``[B, S, vocab]`` in the model's dtype for ``input_ids``
+        ``[B, S]`` (a tensor or an array; moved to the model's device),
+        or the final hidden states with ``return_hidden=True``."""
+        ids = torch.as_tensor(input_ids, device=self.device)
+        if position_ids is not None:
+            position_ids = torch.as_tensor(position_ids, device=self.device)
+        h = self.model(ids, position_ids)
+        if return_hidden:
+            return h
+        return F.linear(h, self.lm_head.weight)
+
+    def loss(self, logits, labels):
+        """Mean next-token cross-entropy in f32: position t predicts
+        ``labels[:, t + 1]``."""
+        labels = torch.as_tensor(labels, device=logits.device)
+        return F.cross_entropy(logits[:, :-1, :], labels[:, 1:])
+
+    def pipeline_decompose(self):
         raise NotImplementedError(
-            "the full-sequence forward rides the flash-attention and "
-            "RMSNorm kernels, which come with the training slice (ROADMAP, "
-            "Queue 1 item 1); serve through inference."
-            "ContinuousBatchingServer")
+            "pipeline_decompose is not ported (ROADMAP, Queue 1 item 13: "
+            "multi-card training, parallel/)")
 
 
 def llama2_7b(**kw):

@@ -39,7 +39,12 @@ def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "chip_smoke.py" in names
     assert "paddle_tpu_torch/inference/continuous_batching.py" in names
-    assert len(names) >= 20
+    assert {"paddle_tpu_torch/nn/functional.py",
+            "paddle_tpu_torch/optimizer/optimizer.py",
+            "paddle_tpu_torch/jit/__init__.py",
+            "paddle_tpu_torch/ops/kernels/flash_attention.py",
+            "paddle_tpu_torch/ops/kernels/rms_norm.py"} <= names
+    assert len(names) >= 27
 
 
 def test_scan_catches_a_forbidden_import(tmp_path):

@@ -29,7 +29,8 @@ def test_library_name_follows_the_source_and_the_shared_header(
 def test_every_local_include_is_a_hashed_header_beside_the_sources():
     sources = sorted(_build.CSRC.glob("*.cu"))
     assert {s.stem for s in sources} >= {"paged_attention", "ragged_prefill",
-                                         "fused_tick"}
+                                         "fused_tick", "flash_attention",
+                                         "rms_norm"}
     for src in sources:
         for name in re.findall(r'^#include "([^"]+)"', src.read_text(),
                                flags=re.M):

@@ -19,6 +19,9 @@ both packages.
   second wave; ``pool_balance()`` ends with ``live == 0`` on both;
 - the fused tick on the same squeezed pool (``tests/test_torch_fused_tick.py``
   holds the rest of ``serving_mode="fused"``);
+- serving stays graph-free now that the parameters are trainable: a
+  wave leaves every ``.grad`` None and the bundle's outputs carry no
+  ``grad_fn``;
 - refusals: the JAX server's options that are not ported raise
   ``NotImplementedError`` naming the ROADMAP, and entry points refuse
   to run without a CUDA device unless given ``device="cpu"``.
@@ -236,6 +239,39 @@ def test_server_greedy_tokens_equal_jax_paged_server():
     assert trp.ragged_prefill_attention.launches == 0
 
 
+def test_serving_builds_no_graph_with_trainable_parameters():
+    """The parameters require grad (the training slice), yet serving
+    runs under torch.no_grad: a wave leaves every .grad None, the
+    bundle's outputs carry no grad_fn, and the tokens still equal the
+    JAX paged server's."""
+    jm, tm = _models()
+    assert all(p.requires_grad for p in tm.parameters())
+    waves = _waves()
+    ts = _server(ContinuousBatchingServer, tm)
+    got = _serve(ts, waves)
+    want = _serve(_server(JaxServer, jm), waves)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert all(isinstance(t, np.ndarray) for t in got)
+    assert all(p.grad is None for p in tm.parameters())
+    assert not ts._caches["pool"]["k"].requires_grad
+
+    tb = tm._decode_bundle(MCL, cache_backend="paged", page_size=PG,
+                           num_pages=9)
+    caches = tb[0](2)
+    caches["bt"][:, :2] = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    toks = torch.tensor([[5, 6, 7, 8], [9, 10, 0, 0]], dtype=torch.int32)
+    t0 = torch.tensor([0, 0], dtype=torch.int32)
+    logits, caches = tb[5](toks, t0, caches,
+                           torch.tensor([3, 1], dtype=torch.int32))
+    x = tb[1](torch.tensor([1, 2], dtype=torch.int32), 4)
+    out, caches = tb[4](x, caches, 4)
+    outs = [logits, x, out, tb[3](out), caches["pool"]["k"],
+            caches["pool"]["v"]]
+    assert all(t.grad_fn is None and not t.requires_grad for t in outs)
+    assert all(p.grad is None for p in tm.parameters())
+
+
 def test_server_matches_jax_on_a_pool_that_evicts():
     """Five usable pages for two slots of up to four: donated prompt
     pages must be evicted (LRU) to admit later requests, on both
@@ -371,7 +407,7 @@ def test_other_refusals_point_at_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         srv.submit(np.arange(4, dtype=np.int32), journey=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm(torch.zeros(1, 4, dtype=torch.long))
+        tm.pipeline_decompose()
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
