@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --only build,k1,k2,k3
     python3 chip_smoke.py --only build,k4,k5,train_parity,train
+    python3 chip_smoke.py --only build,k6,k7,k8,int8_parity
 
 Phases, in order; any failure exits non-zero:
 
@@ -33,17 +34,43 @@ Phases, in order; any failure exits non-zero:
 7. k5: RMSNorm forward (K5a) and backward (K5b) likewise, at 8192 x 1024
    (llama_350m) and 4096 x 4096 (Llama-2-7B) rows x d, beside
    torch.nn.functional.rms_norm;
-8. parity: a llama_tiny-shaped float32 model served on the card (the
+8. k6: the rope kernel, forward (sign +1) and backward (sign -1), bf16
+   and f32, at llama_350m's q (8 x 1024 x 16 x 64), Llama-2-7B's q
+   (1 x 4096 x 32 x 128) and a tail (S = 1000) against its plain
+   version, the reference's composition (bit for bit expected, held to
+   TOL and VEC_RTOL), timed beside it: the A/B the reference's opt-in
+   waits for;
+9. k7: the fused GEMM epilogue forward, and its backward through
+   autograd, against the plain version at GPT-2 345M's FFN (4096 rows:
+   1024 -> 4096 + bias, gelu; 4096 -> 1024 + bias), Llama-2-7B's gate
+   projection (4096 x 4096 @ 4096 x 11008), relu and ragged shapes, bf16
+   and f32, timed beside torch.addmm + the activation (a yardstick the
+   port never calls); then the GPT-2 FFN forward and backward through
+   ``incubate.nn.functional.fused_linear_activation`` and
+   ``fused_matmul_bias``, counters zeroed just before and read after;
+10. k8: the int8 matmul against its plain version, bit for bit, at
+   Llama-2-7B's projection shapes with 4096 rows (K x N 4096 x 4096,
+   4096 x 11008, 11008 x 4096, 4096 x 32000), a decode batch (M = 8) and
+   ragged shapes, timed beside torch._int_mm + the same epilogue (a
+   yardstick);
+11. parity: a llama_tiny-shaped float32 model served on the card (the
    kernels) and on the CPU (the plain versions) from the same weights,
    on split ticks and on fused ticks, must emit equal greedy tokens:
    card == CPU on each, and fused == split; split runs launch K1 and K2
    only, fused runs K3 only;
-9. train_parity: llama_tiny in float32 trained 3 steps (``train_step_fn``
+12. train_parity: llama_tiny in float32 trained 3 steps (``train_step_fn``
    + ``AdamW``) on the card and on the CPU from one set of weights:
    per-step losses, step-1 gradients and the trained weights agree, and
    every step launches K4 forward, dq and dk + dv once per layer and K5
-   forward and backward 2 x layers + 1 times;
-10. serve: Llama-2-7B in bf16 (random weights from a seed, full width
+   forward and backward 2 x layers + 1 times; then again with
+   ``PT_ROPE_PALLAS=1``, where every step also launches K6 4 x layers
+   times (q and k, forward and backward);
+13. int8_parity: a llama_tiny-shaped float32 model converted by
+   ``to_int8_inference`` on the card (K8) and on the CPU (the plain
+   version) from the same weights: equal int8 codes, logits within one
+   quantisation step of the head, equal greedy argmax, and 7 x layers + 1
+   K8 launches per forward;
+14. serve: Llama-2-7B in bf16 (random weights from a seed, full width
    and depth) serves 8 requests through ``ContinuousBatchingServer``,
    on split and on fused ticks in the order split, fused, fused, split
    (a new server over the same model each time, the last one freed
@@ -51,12 +78,25 @@ Phases, in order; any failure exits non-zero:
    read just after, and must equal decode ticks x layers (K1) and
    prefill launches x layers (K2) on a split wave, fused launches x
    layers (K3) on a fused wave;
-11. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
+15. int8_infer: the serve phase's Llama-2-7B (full width and depth):
+   one bf16 forward of 8 x 512 ids from seed 0, then
+   ``to_int8_inference(model, inplace=True)`` and the same forward with
+   the counters zeroed just before and read just after: 7 x layers + 1
+   K8 launches, the forward's K4 and K5 launches as in bf16, no other
+   kernel, finite logits; top-1 agreement and the largest relative logit
+   error against bf16, ms per forward and tokens/s for both, peak memory,
+   a profile of one forward of each;
+16. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
    f32 moments, one fixed 8 x 1024 batch from seed 0: 2 warm-up steps,
    then 10 timed with the counters zeroed just before and read just
-   after (K4: 10 x layers each, K5: 10 x (2 x layers + 1) each); the
-   loss must fall and stay finite, gradients finite; step time,
-   tokens/s, peak memory and a profile of one step.
+   after (K4: 10 x layers each, K5: 10 x (2 x layers + 1) each, no K6);
+   the loss must fall and stay finite, gradients finite; step time,
+   tokens/s, peak memory and a profile of one step;
+17. train_rope: the same model, weights, batch and optimizer with
+   ``PT_ROPE_PALLAS=1`` (K6 rope): 2 warm-up steps and 5 timed, the
+   counters zeroed before the first and read after the last (K6: 7 x 4 x
+   layers); the 7 losses within 1e-3 relative of the train phase's first
+   7; step time beside train's.
 
 The last two lines of standard output are the per-kernel JSON record
 and ``{"ok": true, "device": {...}}``. Without a CUDA card, or without
@@ -64,6 +104,7 @@ the ``paddle_tpu_torch`` package beside this file, it exits non-zero and
 prints no result.
 """
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -71,15 +112,17 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "parity", "train_parity",
-          "serve", "train")
+PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "parity",
+          "train_parity", "int8_parity", "serve", "int8_infer", "train",
+          "train_rope")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
-# outside the tensor cores). The SXM part is the default.
+# outside the tensor cores, int8 tensor-core operations/s). The SXM part
+# is the default.
 CARD_PEAKS = {
-    "H100 SXM": (3.35e12, 989e12, 67e12),
-    "H100 PCIe": (2.0e12, 756e12, 51e12),
-    "H100 NVL": (3.9e12, 835e12, 60e12),
+    "H100 SXM": (3.35e12, 989e12, 67e12, 1979e12),
+    "H100 PCIe": (2.0e12, 756e12, 51e12, 1513e12),
+    "H100 NVL": (3.9e12, 835e12, 60e12, 1670e12),
 }
 
 # bf16 holds 8 significant bits: the kernels accumulate in f32 and round
@@ -157,11 +200,13 @@ def cuda_ms(fn, torch, iters=20, warmup=3, flush=None):
     return times[len(times) // 2]
 
 
-def bound(nbytes, flops, peak):
+def bound(nbytes, flops, peak, ops_peak=None):
     """(bound_ms, bound_by): the larger of bytes over the memory rate
-    and bf16 tensor-core operations over their peak."""
-    bw, pk_bf16, _ = peak
-    b_bytes, b_ops = nbytes / bw * 1e3, flops / pk_bf16 * 1e3
+    and operations over ``ops_peak`` (by default the bf16 tensor-core
+    peak; the f32 or int8 entry of ``peak`` for those types)."""
+    bw = peak[0]
+    ops_peak = peak[1] if ops_peak is None else ops_peak
+    b_bytes, b_ops = nbytes / bw * 1e3, flops / ops_peak * 1e3
     return max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else "operations"
 
 
@@ -641,6 +686,269 @@ def phase_k5(torch, peak, flush, record):
                     f"{bnd:.4f} ms")
 
 
+# (tag, [B, S, H, D], table rows): llama_350m's q (the train_rope path),
+# Llama-2-7B's q, and a tail (S = 1000, no power of two)
+K6_CASES = (("350m", (8, 1024, 16, 64), 2048),
+            ("7b", (1, 4096, 32, 128), 4096),
+            ("tail", (2, 1000, 8, 128), 2048))
+
+
+def phase_k6(torch, peak, flush, record):
+    from paddle_tpu_torch.ops.kernels import rope as rk
+    from paddle_tpu_torch.ops.rope import precompute_freqs
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for tag, shape, rows in K6_CASES:
+        cos, sin = precompute_freqs(shape[-1], rows, device="cuda")
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            # half scale: a rotation keeps each pair's norm, so outputs
+            # stay below ~3, the size TOL is set for
+            x = (0.5 * torch.randn(shape, generator=gen, device="cuda")
+                 ).to(dtype)
+            errs, same, finite = [], True, True
+            for sign in (1, -1):
+                out = rk.rope_fwd(x, cos, sin, sign)
+                torch.cuda.synchronize()
+                ref = rk._ref_rope(x, cos, sin, sign)
+                errs.append(agreement([(out, ref.float())], dname))
+                same &= torch.equal(out, ref)
+                finite &= bool(torch.isfinite(out).all().item())
+            ok = all(e[2] for e in errs) and finite
+            log(f"k6 {tag} {dname}: {list(shape)}, table {rows} rows, "
+                f"max_abs_err fwd/bwd {errs[0][0]:.2e}/{errs[1][0]:.2e} (tol "
+                f"{TOL[dname]:.0e}), max vector-relative error "
+                f"{max(e[1] for e in errs):.3e} (tol {VEC_RTOL[dname]:.0e}), "
+                f"bitwise equal to the plain version {same} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"k6 {tag} {dname} disagrees with its plain "
+                                 f"version")
+            if tag != "350m" or dtype != torch.bfloat16:
+                continue
+            ms_f = cuda_ms(lambda: rk.rope_fwd(x, cos, sin, 1), torch,
+                           flush=flush)
+            ms_b = cuda_ms(lambda: rk.rope_fwd(x, cos, sin, -1), torch,
+                           flush=flush)
+            plain_f = cuda_ms(lambda: rk._ref_rope(x, cos, sin, 1), torch,
+                              flush=flush)
+            plain_b = cuda_ms(lambda: rk._ref_rope(x, cos, sin, -1), torch,
+                              flush=flush)
+            # x read and written once, the table's first S rows of cos and
+            # sin read once; 6 operations a pair (no tensor-core work)
+            nbytes = 2 * x.numel() * x.element_size() \
+                + 2 * shape[1] * shape[-1] // 2 * 4
+            bound_ms, by = bound(nbytes, 3 * x.numel(), peak, peak[2])
+            record["rope"].update(
+                max_abs_err=max(e[0] for e in errs), ms=ms_f,
+                plain_ms=plain_f, library_ms=None, bound_ms=bound_ms,
+                bound_by=by)
+            log(f"k6 350m bf16 timing: kernel forward {ms_f:.4f} ms, "
+                f"backward {ms_b:.4f} ms; plain composition forward "
+                f"{plain_f:.4f} ms, backward {plain_b:.4f} ms; bound "
+                f"{bound_ms:.4f} ms ({by}; {nbytes} bytes)")
+
+
+# (tag, M, K, N, bias, activation): GPT-2 345M's FFN at 4096 rows (8 x
+# 512; benchmarks/decode_bench.py:24-26), Llama-2-7B's gate projection,
+# relu, and ragged shapes (N off the 128 tile; then K and N odd, which
+# take the element loads)
+K7_CASES = (("gpt2-ffn1", 4096, 1024, 4096, True, "gelu"),
+            ("gpt2-ffn2", 4096, 4096, 1024, True, "none"),
+            ("7b-gate", 4096, 4096, 11008, False, "none"),
+            ("relu", 4096, 1024, 4096, True, "relu"),
+            ("ragged", 1000, 1000, 1000, True, "gelu"),
+            ("ragged-odd", 999, 777, 333, True, "relu"))
+
+
+def k7_inputs(torch, gen, M, K, N, has_bias, dtype):
+    """x, w, bias and a cotangent: w at 0.5 / sqrt(K) keeps the
+    pre-activation near N(0, 1/4), below ~3 (the size TOL is set for);
+    the cotangent at 0.5 / sqrt(M) keeps dw and db, sums over M rows,
+    near that size too."""
+    x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((K, N), generator=gen, device="cuda")
+         * (0.5 / K ** 0.5)).to(dtype)
+    b = (0.1 * torch.randn((N,), generator=gen, device="cuda")).to(dtype) \
+        if has_bias else None
+    g = (torch.randn((M, N), generator=gen, device="cuda")
+         * (0.5 / M ** 0.5)).to(dtype)
+    return x, w, b, g
+
+
+def phase_k7(torch, peak, flush, record):
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import gemm_epilogue as ge
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for tag, M, K, N, has_bias, act in K7_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            x, w, b, g = k7_inputs(torch, gen, M, K, N, has_bias, dtype)
+            leaves = [t.detach().requires_grad_() for t in (x, w)] + \
+                ([b.detach().requires_grad_()] if has_bias else [])
+            out = ge.fused_gemm_epilogue(*leaves[:2],
+                                         leaves[2] if has_bias else None, act)
+            grads = torch.autograd.grad(out, leaves, g)
+            torch.cuda.synchronize()
+            # the plain version in f32, its backward through autograd
+            ref_leaves = [t.detach().float().requires_grad_() for t in leaves]
+            ref = ge._ref_gemm_epilogue(
+                *ref_leaves[:2], ref_leaves[2] if has_bias else None, act)
+            ref_grads = torch.autograd.grad(ref, ref_leaves, g.float())
+            pairs = [(out, ref.detach())] + [      # db as one row
+                (gr.reshape(-1, gr.shape[-1]), rg.reshape(-1, rg.shape[-1]))
+                for gr, rg in zip(grads, ref_grads)]
+            errs = [agreement([pr], dname, floor=1e-2) for pr in pairs]
+            del ref, ref_grads, ref_leaves, pairs
+            ok = all(e[2] for e in errs) and torch.isfinite(out).all().item() \
+                and all(torch.isfinite(t).all().item() for t in grads)
+            log(f"k7 {tag} {dname}: [{M}, {K}] @ [{K}, {N}]"
+                f"{' + bias' if has_bias else ''}, {act}, max_abs_err out/"
+                f"dx/dw{'/db' if has_bias else ''} "
+                f"{'/'.join(f'{e[0]:.2e}' for e in errs)} (tol "
+                f"{TOL[dname]:.0e}), max vector-relative error "
+                f"{max(e[1] for e in errs):.3e} (tol {VEC_RTOL[dname]:.0e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"k7 {tag} {dname} disagrees with its plain "
+                                 f"version")
+            if dtype == torch.bfloat16 and tag in ("gpt2-ffn1", "7b-gate"):
+                k7_time(torch, F, ge, tag, x, w, b, act, peak, flush, record,
+                        errs[0][0])
+            del x, w, b, g, leaves, out, grads
+    record["gemm_epilogue"]["launches"] = k7_main_path(torch, gen)
+    torch.cuda.empty_cache()
+
+
+def k7_time(torch, F, ge, tag, x, w, b, act, peak, flush, record, err):
+    """K7 forward beside its plain version and torch.addmm followed by
+    the activation (a yardstick the port never calls), and its bound."""
+    M, K = x.shape
+    N = w.shape[1]
+    ms = cuda_ms(lambda: ge.gemm_epilogue(x, w, b, act), torch, flush=flush)
+    plain_ms = cuda_ms(lambda: ge._ref_gemm_epilogue(x, w, b, act), torch,
+                       flush=flush)
+    zero = torch.zeros((N,), dtype=x.dtype, device="cuda")
+    lib_act = {"gelu": lambda t: F.gelu(t, approximate="tanh"),
+               "relu": F.relu, "none": lambda t: t}[act]
+    lib_ms = cuda_ms(lambda: lib_act(torch.addmm(
+        b if b is not None else zero, x, w)), torch, flush=flush)
+    elt = x.element_size()
+    nbytes = (M * K + K * N + M * N + (N if b is not None else 0)) * elt
+    bound_ms, by = bound(nbytes, 2 * M * N * K, peak)
+    if tag == "gpt2-ffn1":
+        record["gemm_epilogue"].update(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bound_ms, bound_by=by)
+    log(f"k7 {tag} bf16 timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"addmm + {act} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}; "
+        f"{nbytes} bytes, {2 * M * N * K} flops)")
+
+
+def k7_main_path(torch, gen):
+    """GPT-2 345M's FFN at 4096 rows in bf16 through the incubate entry
+    points, forward and backward: ``fused_linear_activation`` (gelu)
+    then ``fused_matmul_bias``. The counters are zeroed just before and
+    read just after: K7 twice (the backward is torch.matmul, as in the
+    reference), no other kernel. Returns K7's count."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.ops.kernels import gemm_epilogue as ge
+    x, w1, b1, _ = k7_inputs(torch, gen, 4096, 1024, 4096, True,
+                             torch.bfloat16)
+    _, w2, b2, gy = k7_inputs(torch, gen, 4096, 4096, 1024, True,
+                              torch.bfloat16)
+    leaves = [t.requires_grad_() for t in (x, w1, b1, w2, b2)]
+    zero_counts()
+    h = IF.fused_linear_activation(x, w1, b1, activation="gelu")
+    y = IF.fused_matmul_bias(h, w2, b2)
+    grads = torch.autograd.grad(y, leaves, gy)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    with torch.no_grad():
+        ref = ge._ref_gemm_epilogue(
+            ge._ref_gemm_epilogue(x, w1, b1, "gelu"), w2, b2, "none")
+    err, rel, close = agreement([(y, ref.float())], "bfloat16")
+    ok = close and counts["k7"] == 2 and not any(
+        v for k, v in counts.items() if k != "k7") and all(
+        torch.isfinite(t).all().item() for t in (y, *grads))
+    log(f"k7 main path: GPT-2 345M FFN [4096, 1024] bf16 through "
+        f"fused_linear_activation + fused_matmul_bias, forward and backward:"
+        f" launches {counts}, max_abs_err against the plain chain {err:.2e}"
+        f" (tol {TOL['bfloat16']:.0e}), max vector-relative error {rel:.3e}"
+        f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("k7 main path: the incubate entry points did not "
+                         "run K7 as counted, or disagree with the plain "
+                         "chain")
+    return counts["k7"]
+
+
+# (tag, M, K, N): Llama-2-7B's projections at 4096 rows (8 x 512 tokens):
+# q/k/v/o, gate/up, down and the head; a decode batch; ragged M; then K
+# and N off the wide loads' multiples
+K8_CASES = (("7b-qkvo", 4096, 4096, 4096), ("7b-gate-up", 4096, 4096, 11008),
+            ("7b-down", 4096, 11008, 4096), ("7b-head", 4096, 4096, 32000),
+            ("decode", 8, 4096, 11008), ("ragged-m", 1000, 4096, 4096),
+            ("ragged-all", 77, 1000, 1002))
+
+
+def phase_k8(torch, peak, flush, record):
+    from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for tag, M, K, N in K8_CASES:
+        x = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        sx = torch.tensor(0.0123, device="cuda")
+        sw = 1e-3 + 1e-2 * torch.rand((N,), generator=gen, device="cuda")
+        out = qm.quantized_matmul(x, w, sx, sw)
+        out_bf = qm.quantized_matmul(x, w, sx, sw, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        ref = qm._ref(x, w, sx, sw)
+        same = torch.equal(out, ref) and torch.equal(
+            out_bf, ref.to(torch.bfloat16))
+        err = (out - ref).abs().max().item()
+        log(f"k8 {tag}: [{M}, {K}] @ [{K}, {N}] int8, f32 and bf16 out "
+            f"bitwise equal to the plain version {same} (max_abs_err "
+            f"{err:.2e}) {'ok' if same else 'FAIL'}")
+        if not same:
+            raise SystemExit(f"k8 {tag} disagrees with its plain version")
+        del out_bf, ref
+        if tag == "7b-gate-up":
+            k8_time(torch, qm, x, w, sx, sw, peak, flush, record, err)
+        del x, w, out
+    torch.cuda.empty_cache()
+
+
+def k8_time(torch, qm, x, w, sx, sw, peak, flush, record, err):
+    """K8 beside its plain version (an f64 product) and torch._int_mm
+    with the same epilogue (a yardstick the port never calls), and its
+    bound at the int8 tensor-core peak."""
+    M, K = x.shape
+    N = w.shape[1]
+    ms = cuda_ms(lambda: qm.quantized_matmul(x, w, sx, sw), torch,
+                 flush=flush)
+    plain_ms = cuda_ms(lambda: qm._ref(x, w, sx, sw), torch, iters=5,
+                       flush=flush)
+    try:
+        lib_ms = cuda_ms(lambda: torch._int_mm(x, w).float() * sx
+                         * sw[None, :], torch, flush=flush)
+    except RuntimeError as e:        # the yardstick only; nothing depends
+        lib_ms = None
+        log(f"k8: torch._int_mm refused these operands ({e}); library_ms "
+            f"not measured")
+    nbytes = M * K + K * N + 4 + 4 * N + 4 * M * N
+    bound_ms, by = bound(nbytes, 2 * M * N * K, peak, peak[3])
+    record["quant_matmul"].update(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound_ms=bound_ms, bound_by=by)
+    log(f"k8 7b-gate-up timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+        f" _int_mm + epilogue "
+        f"{'not measured' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+        f"{bound_ms:.4f} ms ({by}; {nbytes} bytes, {2 * M * N * K} int8 "
+        f"operations)")
+
+
 def serve_wave(srv, prompts, n_new):
     rids = [srv.submit(p, max_new_tokens=n_new) for p in prompts]
     out = srv.run()
@@ -652,10 +960,13 @@ def counters():
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import rms_norm as rn
     from paddle_tpu_torch.ops.kernels.fused_tick import fused_tick_attention
+    from paddle_tpu_torch.ops.kernels.gemm_epilogue import gemm_epilogue
     from paddle_tpu_torch.ops.kernels.paged_attention import \
         paged_attention
+    from paddle_tpu_torch.ops.kernels.quant_matmul import quantized_matmul
     from paddle_tpu_torch.ops.kernels.ragged_prefill import \
         ragged_prefill_attention
+    from paddle_tpu_torch.ops.kernels.rope import rope_fwd
     return {"k1": (paged_attention, "launches"),
             "k2": (ragged_prefill_attention, "launches"),
             "k3": (fused_tick_attention, "launches"),
@@ -663,7 +974,10 @@ def counters():
             "k4_dq": (fa.flash_bwd, "dq_launches"),
             "k4_dkv": (fa.flash_bwd, "dkv_launches"),
             "k5_fwd": (rn.rms_norm_fwd, "launches"),
-            "k5_bwd": (rn.rms_norm_bwd, "launches")}
+            "k5_bwd": (rn.rms_norm_bwd, "launches"),
+            "k6": (rope_fwd, "launches"),
+            "k7": (gemm_epilogue, "launches"),
+            "k8": (quantized_matmul, "launches")}
 
 
 def zero_counts():
@@ -851,6 +1165,7 @@ def phase_serve(torch, np, card, record):
     for mode in ("split", "fused"):
         profile_decode(torch, np, server(mode), cfg, card, mode)
         release()
+    return model
 
 
 def profile_decode(torch, np, srv, cfg, card, mode):
@@ -900,7 +1215,27 @@ def per_step_counts(L, steps=1):
             "k5_fwd": steps * (2 * L + 1), "k5_bwd": steps * (2 * L + 1)}
 
 
+@contextlib.contextmanager
+def rope_kernel_opt_in():
+    """``PT_ROPE_PALLAS=1`` inside the block (K6 rope in the train step,
+    as the reference's opt-in), the environment restored after it."""
+    old = os.environ.get("PT_ROPE_PALLAS")
+    os.environ["PT_ROPE_PALLAS"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PT_ROPE_PALLAS", None)
+        else:
+            os.environ["PT_ROPE_PALLAS"] = old
+
+
 def phase_train_parity(torch, np):
+    for rope in (False, True):
+        train_parity_run(torch, np, rope)
+
+
+def train_parity_run(torch, np, rope):
     from paddle_tpu_torch.jit import train_step_fn
     from paddle_tpu_torch.models import (LlamaForCausalLM, export_params,
                                          llama_tiny, load_jax_params)
@@ -912,25 +1247,29 @@ def phase_train_parity(torch, np):
     load_jax_params(gpu, export_params(cpu))
     ids = np.random.default_rng(6).integers(0, cfg.vocab_size, (4, 64))
     want = per_step_counts(cfg.num_layers)
+    want["k6"] = 4 * cfg.num_layers if rope else 0
     res = {}
     for name, model in (("cpu", cpu), ("cuda", gpu)):
         t = torch.as_tensor(ids, device=model.device)
         batch = {"inputs": (t,), "labels": (t,)}
         opt = AdamW(learning_rate=lr, parameters=model.named_parameters())
         step = train_step_fn(model, model.loss, opt)
-        # step 1 by hand, to read its gradients; steps 2 and 3 through
-        # train_step_fn; the counters zeroed before and read after each
-        zero_counts()
-        loss = model.loss(model(t), t)
-        loss.backward()
-        grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
-        opt.step()
-        opt.clear_grad()
-        losses, counts = [loss.item()], [read_counts()]
-        for _ in range(2):
+        with rope_kernel_opt_in() if rope else contextlib.nullcontext():
+            # step 1 by hand, to read its gradients; steps 2 and 3
+            # through train_step_fn; the counters zeroed before and read
+            # after each
             zero_counts()
-            losses.append(step(batch).item())
-            counts.append(read_counts())
+            loss = model.loss(model(t), t)
+            loss.backward()
+            grads = {n: p.grad.float().cpu()
+                     for n, p in model.named_parameters()}
+            opt.step()
+            opt.clear_grad()
+            losses, counts = [loss.item()], [read_counts()]
+            for _ in range(2):
+                zero_counts()
+                losses.append(step(batch).item())
+                counts.append(read_counts())
         res[name] = (losses, grads, export_params(model), counts)
     (l_cpu, g_cpu, p_cpu, c_cpu), (l_gpu, g_gpu, p_gpu, c_gpu) = \
         res["cpu"], res["cuda"]
@@ -944,8 +1283,9 @@ def phase_train_parity(torch, np):
     w_err = max(np.abs(p_gpu[n] - p_cpu[n]).max() for n in p_cpu)
     counted = all({k: c[k] for k in want} == want for c in c_gpu)
     quiet = not any(v for c in c_cpu for v in c.values()) and \
-        not any(c[k] for c in c_gpu for k in ("k1", "k2", "k3"))
-    log(f"train_parity llama_tiny f32: losses cpu "
+        not any(c[k] for c in c_gpu for k in ("k1", "k2", "k3", "k7", "k8"))
+    tag = "with K6 rope (PT_ROPE_PALLAS=1)" if rope else "composition rope"
+    log(f"train_parity llama_tiny f32, {tag}: losses cpu "
         f"{[round(x, 6) for x in l_cpu]} card {[round(x, 6) for x in l_gpu]}"
         f" (max diff {loss_err:.2e}, tol 1e-5), step-1 gradients max diff "
         f"{grad_err:.2e} (atol 1e-5, rtol 1e-4) {grad_ok}, trained weights "
@@ -953,11 +1293,133 @@ def phase_train_parity(torch, np):
         f"{c_gpu}")
     if not (loss_err <= 1e-5 and grad_ok and w_err <= 0.02 * lr and counted
             and quiet and l_gpu[2] < l_gpu[0]):
-        raise SystemExit("train_parity: the card and the CPU disagree, or "
-                         "a step did not launch each kernel as counted")
+        raise SystemExit(f"train_parity ({tag}): the card and the CPU "
+                         f"disagree, or a step did not launch each kernel "
+                         f"as counted")
 
 
-def phase_train(torch, np, card, peak, record):
+def phase_int8_parity(torch, np):
+    from paddle_tpu_torch.models import (LlamaForCausalLM, export_params,
+                                         llama_tiny, load_jax_params)
+    from paddle_tpu_torch.ops.kernels.quant_matmul import quantize_tensor
+    from paddle_tpu_torch.quantization import to_int8_inference
+    cfg = llama_tiny()
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=8)
+    gpu = LlamaForCausalLM(cfg, device="cuda")
+    load_jax_params(gpu, export_params(cpu))
+    qc, qg = to_int8_inference(cpu), to_int8_inference(gpu)
+    ids = np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 24))
+    zero_counts()
+    with torch.no_grad():
+        lg = qg(torch.as_tensor(ids, device="cuda"))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        lc = qc(torch.as_tensor(ids))
+        h = qc(torch.as_tensor(ids), return_hidden=True)
+    # one quantisation step of the head: its input scale x its largest
+    # weight scale x 127, what one flipped input code moves a logit by
+    _, sx = quantize_tensor(h.reshape(-1, h.shape[-1]))
+    step = (sx * qc.lm_head.w_scale.max() * 127).item()
+    err = (lg.cpu() - lc).abs().max().item()
+    argmax = torch.equal(lg.cpu().argmax(-1), lc.argmax(-1))
+    cb = dict(qc.named_buffers())
+    codes = all(torch.equal(b.cpu(), cb[n]) for n, b in qg.named_buffers()
+                if n.endswith(("qweight", "w_scale")))
+    L = cfg.num_layers
+    launched = counts["k8"] == 7 * L + 1 and not any(
+        counts[k] for k in ("k1", "k2", "k3", "k6", "k7", "k4_dq", "k4_dkv",
+                            "k5_bwd"))
+    log(f"int8_parity llama_tiny f32: int8 codes and scales of every layer "
+        f"equal card/CPU {codes}, logits max diff {err:.3e} (tol one quantisation "
+        f"step of the head, {step:.3e}), greedy argmax equal {argmax}, "
+        f"launches per forward {counts}")
+    if not (codes and err <= step and argmax and launched
+            and torch.isfinite(lg).all().item()):
+        raise SystemExit("int8_parity: the card and the CPU disagree, or a "
+                         "forward did not launch K8 7 x layers + 1 times")
+
+
+def phase_int8_infer(torch, np, card, record, model):
+    """Llama-2-7B bf16 (the serve phase's model, or a new one from seed
+    0), then converted in place to int8: one forward each of 8 x 512 ids
+    from seed 0."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+    from paddle_tpu_torch.quantization import to_int8_inference
+    cfg = llama2_7b()
+    if model is None:
+        model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                                 seed=0)
+    L = cfg.num_layers
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 512)), device="cuda")
+    tokens = ids.numel()
+
+    def timed(n=3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            model(ids)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    with torch.no_grad():
+        model(ids)                                # warm
+        zero_counts()
+        ref = model(ids)
+        torch.cuda.synchronize()
+        c_bf16 = read_counts()
+        ms_bf16 = timed()
+        profile_once(torch, lambda: model(ids), card, "bf16_infer", "forward")
+        t0 = time.perf_counter()
+        to_int8_inference(model, inplace=True)
+        torch.cuda.synchronize()
+        conv_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        out = model(ids)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms_int8 = timed()
+        profile_once(torch, lambda: model(ids), card, "int8_infer", "forward")
+    int8_bytes = sum(b.numel() * b.element_size() for b in model.buffers()
+                     if b.dtype == torch.int8)
+    top1 = (out.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    rel = ((out.float() - ref.float()).abs().amax(-1)
+           / ref.float().abs().amax(-1)).max().item()
+    fwd = {"k4_fwd": L, "k5_fwd": 2 * L + 1}
+    log(f"int8_infer: Llama-2-7B, {L} layers, 8 x 512 ids from seed 0; "
+        f"to_int8_inference in place in {conv_s:.1f} s ({int8_bytes} bytes "
+        f"of int8 weights); launches per forward bf16 {c_bf16}, int8 "
+        f"{counts}")
+    log(f"int8_infer metrics [{card}]: bf16 {ms_bf16:.1f} ms per forward "
+        f"({tokens / ms_bf16 * 1e3:.0f} tokens/s), int8 {ms_int8:.1f} ms "
+        f"({tokens / ms_int8 * 1e3:.0f} tokens/s), peak memory after the "
+        f"conversion {peak_gb:.2f} GiB; int8 against bf16 (informational): "
+        f"top-1 agreement {top1:.4f}, largest relative logit error "
+        f"{rel:.4f}")
+    checks = {"int8 logits finite": torch.isfinite(out).all().item(),
+              "k8 == 7 x layers + 1": counts["k8"] == 7 * L + 1,
+              "bf16 forward: K4 and K5 forward only, no K8":
+                  {k: c_bf16[k] for k in fwd} == fwd and not any(
+                      v for k, v in c_bf16.items() if k not in fwd),
+              "int8 forward: K8, K4 and K5 forward only":
+                  {k: counts[k] for k in fwd} == fwd and not any(
+                      v for k, v in counts.items()
+                      if k not in fwd and k != "k8")}
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"int8_infer: check failed: {name}")
+    record["quant_matmul"]["launches"] = counts["k8"]
+
+
+def run_350m(torch, np, n, count_warmup=False):
+    """llama_350m in bf16 from seed 0, AdamW(1e-4), the fixed 8 x 1024
+    batch from seed 0: 2 warm-up steps by hand (their gradients checked
+    finite), then ``n`` timed ``train_step_fn`` steps. The counters are
+    zeroed before the timed steps, or before the warm-up with
+    ``count_warmup``, and read after the last step."""
     import gc
     from paddle_tpu_torch.jit import train_step_fn
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_350m
@@ -965,21 +1427,17 @@ def phase_train(torch, np, card, peak, record):
     gc.collect()
     torch.cuda.empty_cache()
     cfg = llama_350m()
-    L = cfg.num_layers
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                              seed=0)
-    n_params = sum(p.numel() for p in model.parameters())
     opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters())
     B, S = 8, 1024
     ids = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, S)), device="cuda")
     batch = {"inputs": (ids,), "labels": (ids,)}
     step = train_step_fn(model, model.loss, opt)
-    log(f"train: llama_350m bf16, {L} layers, {n_params} parameters, "
-        f"AdamW(1e-4) f32 moments, batch {B} x {S} from seed 0")
-
-    # two warm-up steps by hand: every gradient must be finite
     losses, grads_finite = [], True
+    if count_warmup:
+        zero_counts()
     for _ in range(2):
         loss = model.loss(model(ids), ids)
         loss.backward()
@@ -990,36 +1448,49 @@ def phase_train(torch, np, card, peak, record):
         losses.append(loss.detach())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    n = 10
-    zero_counts()
+    if not count_warmup:
+        zero_counts()
     t0 = time.perf_counter()
     for _ in range(n):
         losses.append(step(batch))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [x.item() for x in losses]
     finite = all(np.isfinite(losses)) and all(
         torch.isfinite(p).all().item() for p in model.parameters())
+    return {"cfg": cfg, "model": model, "step": step, "batch": batch,
+            "losses": losses, "counts": counts, "wall": wall,
+            "step_ms": wall / n * 1e3, "tok_s": B * S * n / wall,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "finite": finite and grads_finite,
+            "n_params": sum(p.numel() for p in model.parameters())}
+
+
+def phase_train(torch, np, card, peak, record):
+    n = 10
+    r = run_350m(torch, np, n)
+    cfg, counts, losses = r["cfg"], r["counts"], r["losses"]
+    L, B, S = cfg.num_layers, 8, 1024
+    log(f"train: llama_350m bf16, {L} layers, {r['n_params']} parameters, "
+        f"AdamW(1e-4) f32 moments, batch {B} x {S} from seed 0")
     want = per_step_counts(L, n)
-    step_ms = wall / n * 1e3
-    tok_s = B * S * n / wall
-    flops = 6 * n_params * B * S + 3 * 2 * B * cfg.num_heads * S * S \
+    flops = 6 * r["n_params"] * B * S + 3 * 2 * B * cfg.num_heads * S * S \
         * cfg.head_dim * L
+    per_step_s = r["wall"] / n
     log(f"train losses: {[round(x, 4) for x in losses]}")
-    log(f"train metrics [{card}]: {step_ms:.1f} ms per step, {tok_s:.0f} "
-        f"tokens/s, peak memory {peak_gb:.2f} GiB, "
-        f"{flops / (wall / n) / 1e12:.1f} model TFLOP/s "
-        f"({100 * flops / (wall / n) / peak[1]:.1f}% of the bf16 peak)")
+    log(f"train metrics [{card}]: {r['step_ms']:.1f} ms per step, "
+        f"{r['tok_s']:.0f} tokens/s, peak memory {r['peak_gb']:.2f} GiB, "
+        f"{flops / per_step_s / 1e12:.1f} model TFLOP/s "
+        f"({100 * flops / per_step_s / peak[1]:.1f}% of the bf16 peak)")
     log(f"train launches over {n} steps: {counts}")
     checks = {"loss falls": losses[-1] < losses[0],
-              "losses and weights finite": finite,
-              "warm-up gradients finite": grads_finite,
+              "losses, weights and warm-up gradients finite": r["finite"],
               "launches == steps x per-step counts":
                   {k: counts[k] for k in want} == want,
-              "no serving kernel": counts["k1"] == counts["k2"]
-                  == counts["k3"] == 0}
+              "no serving, rope, epilogue or int8 kernel":
+                  not any(counts[k] for k in ("k1", "k2", "k3", "k6", "k7",
+                                              "k8"))}
     for name, good in checks.items():
         if not good:
             raise SystemExit(f"train: check failed: {name}")
@@ -1027,19 +1498,52 @@ def phase_train(torch, np, card, peak, record):
     record["flash_attention_bwd"]["launches"] = counts["k4_dq"]
     record["rms_norm_fwd"]["launches"] = counts["k5_fwd"]
     record["rms_norm_bwd"]["launches"] = counts["k5_bwd"]
-    profile_train(torch, step, batch, card)
+    profile_once(torch, lambda: r["step"](r["batch"]), card)
+    return {"losses": losses, "step_ms": r["step_ms"]}
 
 
-def profile_train(torch, step, batch, card):
-    """Where a train step's time goes: one step under torch.profiler,
-    device time by kernel and the device's busy share of the wall time.
-    Informational: it checks nothing."""
+def phase_train_rope(torch, np, card, record, train):
+    """The train phase's run with K6 rope: the same losses expected (K6 is
+    the composition bit for bit, forward and backward)."""
+    n = 5
+    with rope_kernel_opt_in():
+        r = run_350m(torch, np, n, count_warmup=True)
+    counts, losses = r["counts"], r["losses"]
+    L = r["cfg"].num_layers
+    steps = n + 2
+    want = {**per_step_counts(L, steps), "k6": steps * 4 * L}
+    ref = train["losses"][:steps]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    log(f"train_rope losses: {[round(x, 4) for x in losses]}; the train "
+        f"phase's first {steps}: {[round(x, 4) for x in ref]}; largest "
+        f"relative difference {rel:.2e} (tol 1e-3), equal {losses == ref}")
+    log(f"train_rope metrics [{card}]: {r['step_ms']:.1f} ms per step with "
+        f"K6 rope, {train['step_ms']:.1f} ms with the composition (train "
+        f"phase), {r['tok_s']:.0f} tokens/s, peak memory "
+        f"{r['peak_gb']:.2f} GiB; launches over {steps} steps: {counts}")
+    checks = {"losses within 1e-3 of train's": rel <= 1e-3,
+              "losses, weights and warm-up gradients finite": r["finite"],
+              "launches == steps x per-step counts (K6: 4 x layers)":
+                  {k: counts[k] for k in want} == want,
+              "no serving, epilogue or int8 kernel":
+                  not any(counts[k] for k in ("k1", "k2", "k3", "k7",
+                                              "k8"))}
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"train_rope: check failed: {name}")
+    record["rope"]["launches"] = counts["k6"]
+
+
+def profile_once(torch, fn, card, what="train", unit="step"):
+    """Where one call's time goes (a train step, an int8 forward): ``fn``
+    once under torch.profiler, device time by kernel and the device's
+    busy share of the wall time. Informational: it checks nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -1049,14 +1553,15 @@ def profile_train(torch, step, batch, card):
     kernels.sort(key=lambda k: -k[1])
     busy = sum(k[1] for k in kernels)
     if not kernels:
-        log("profile train: the profiler recorded no device time (not "
-            "measured)")
+        log(f"profile {what}: the profiler recorded no device time (not "
+            f"measured)")
         return
-    log(f"profile train [{card}]: one step {wall_ms:.1f} ms wall (under the "
-        f"profiler), device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%),"
-        f" {sum(k[2] for k in kernels)} kernel launches")
+    log(f"profile {what} [{card}]: one {unit} {wall_ms:.1f} ms wall (under "
+        f"the profiler), device busy {busy:.1f} ms "
+        f"({100 * busy / wall_ms:.1f}%), {sum(k[2] for k in kernels)} kernel "
+        f"launches")
     for name, ms, count in kernels[:12]:
-        log(f"  {ms:8.3f} ms/step  {count:5d}x  {name[:90]}")
+        log(f"  {ms:8.3f} ms/{unit}  {count:5d}x  {name[:90]}")
 
 
 def main():
@@ -1068,6 +1573,9 @@ def main():
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    if "train_rope" in phases and "train" not in phases:
+        ap.error("train_rope compares its losses with the train phase's: "
+                 "run both")
     if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
         print("chip_smoke.py: the paddle_tpu_torch package is not beside "
               "this script", file=sys.stderr)
@@ -1085,6 +1593,9 @@ def main():
     log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the reference's default rope (the composition) everywhere but the
+    # phases that opt in to K6 themselves
+    os.environ.pop("PT_ROPE_PALLAS", None)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}; bounds use "
@@ -1130,7 +1641,10 @@ def main():
             ("flash_attention_bwd", "flash_attention.cu",
              "flash_attention.py:248"),
             ("rms_norm_fwd", "rms_norm.cu", "rms_norm.py:42"),
-            ("rms_norm_bwd", "rms_norm.cu", "rms_norm.py:91")):
+            ("rms_norm_bwd", "rms_norm.cu", "rms_norm.py:91"),
+            ("rope", "rope.cu", "rope.py:89"),
+            ("gemm_epilogue", "gemm_epilogue.cu", "gemm_epilogue.py:72"),
+            ("quant_matmul", "quant_matmul.cu", "quant_matmul.py:51")):
         record[kname] = {
             "name": kname, "route": "cuda",
             "source": f"paddle_tpu_torch/csrc/{src}",
@@ -1149,16 +1663,30 @@ def main():
         phase_k4(torch, peak, flush, record)
     if "k5" in phases:
         phase_k5(torch, peak, flush, record)
+    if "k6" in phases:
+        phase_k6(torch, peak, flush, record)
+    if "k7" in phases:
+        phase_k7(torch, peak, flush, record)
+    if "k8" in phases:
+        phase_k8(torch, peak, flush, record)
     del flush
     if "parity" in phases:
         phase_parity(torch, np)
     if "train_parity" in phases:
         phase_train_parity(torch, np)
+    if "int8_parity" in phases:
+        phase_int8_parity(torch, np)
+    model_7b = None
     if "serve" in phases:
         torch.cuda.empty_cache()
-        phase_serve(torch, np, card, record)
+        model_7b = phase_serve(torch, np, card, record)
+    if "int8_infer" in phases:
+        phase_int8_infer(torch, np, card, record, model_7b)
+    del model_7b
     if "train" in phases:
-        phase_train(torch, np, card, peak, record)
+        train = phase_train(torch, np, card, peak, record)
+    if "train_rope" in phases:
+        phase_train_rope(torch, np, card, record, train)
     log(json.dumps({"kernels": list(record.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

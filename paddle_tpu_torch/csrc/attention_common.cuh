@@ -1,11 +1,12 @@
 // Device code shared by the port's kernels: K1 (paged_attention.cu), K2
-// (ragged_prefill.cu), K3 (fused_tick.cu), K4 (flash_attention.cu) and K5
-// (rms_norm.cu).
+// (ragged_prefill.cu), K3 (fused_tick.cu), K4 (flash_attention.cu), K5
+// (rms_norm.cu), K6 (rope.cu), K7 (gemm_epilogue.cu) and K8
+// (quant_matmul.cu).
 //
 // - element helpers: f32 loads and stores of f32/bf16, 16-byte row loads,
 //   warp sums and sums or maxima over a few neighbouring lanes;
-// - mma.sync m16n8k16 bf16 fragment helpers (K3's and K4's tensor-core
-//   tiles);
+// - mma.sync m16n8k16 bf16 fragment helpers (K3's, K4's and K7's
+//   tensor-core tiles);
 // - decode_attend: one query row per kv head's GQA group over paged K/V
 //   (K1's design). K1 runs it over a slot's block table; K3's C == 1
 //   kernel runs it over the slot's run of the page schedule. The caller

@@ -26,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..nn.layer import Linear
 from ..ops.kernels.fused_tick import fused_tick_attention
 from ..ops.kernels.paged_attention import paged_attention
 from ..ops.kernels.ragged_prefill import ragged_prefill_attention
@@ -286,6 +287,15 @@ def _make_llama_decode_fns(model, max_cache_len, weight_dtype=None,
             "quantized serving)")
     _check_paged_config(max_cache_len, page_size, num_pages, cache_dtype,
                         mesh)
+    projections = [model.lm_head] + [
+        p for blk in model.model.layers
+        for p in (blk.self_attn.q_proj, blk.self_attn.k_proj,
+                  blk.self_attn.v_proj, blk.self_attn.o_proj,
+                  blk.mlp.gate_proj, blk.mlp.up_proj, blk.mlp.down_proj)]
+    if not all(isinstance(p, Linear) for p in projections):
+        raise NotImplementedError(
+            "serving a model converted by to_int8_inference is not ported "
+            "(ROADMAP, Queue 1 item 10: quantized serving)")
     cfg = model.cfg
     nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     eps = cfg.rms_eps

@@ -3,12 +3,15 @@
 Port of ``paddle_tpu/models/llama.py``. ``LlamaForCausalLM`` holds its
 parameters under the JAX module's names (``model.embed_tokens.weight``,
 ``model.layers.{i}.self_attn.q_proj.weight``, ..., ``lm_head.weight``)
-and its Linear weights as ``[in, out]``, used as ``x @ w`` — so
-``models.bridge.load_jax_params`` copies one model into the other name
-for name, and ``export_params`` back. The full-sequence ``forward()``
-(training) runs the JAX module's forwards on the flash-attention (K4)
-and RMSNorm (K5) kernels through ``nn.functional``; serving runs through
-the paged decode bundle (``models.generation``) under ``torch.no_grad``.
+and its projections and head as ``nn.Linear`` layers with ``[in, out]``
+weights, used as ``x @ w`` — so ``models.bridge.load_jax_params`` copies
+one model into the other name for name, ``export_params`` back, and
+``quantization.to_int8_inference`` swaps those layers for int8 ones. The
+full-sequence ``forward()`` (training) runs the JAX module's forwards on
+the flash-attention (K4) and RMSNorm (K5) kernels through
+``nn.functional`` (and rope on K6 with ``PT_ROPE_PALLAS=1``); serving
+runs through the paged decode bundle (``models.generation``) under
+``torch.no_grad``.
 """
 import math
 from dataclasses import dataclass
@@ -18,6 +21,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..nn import functional as F
+from ..nn.layer import Linear
 from ..ops.rope import apply_rotary, precompute_freqs
 from .generation import GenerationMixin
 
@@ -49,14 +53,26 @@ class LlamaConfig:
 
 
 class _Weight(nn.Module):
-    """One named, trainable ``weight`` parameter (a Linear's ``[in,
-    out]`` matrix, a norm's scale or the embedding table). Serving reads
-    the parameters under ``torch.no_grad`` and builds no graph."""
+    """One named, trainable ``weight`` parameter (a norm's scale or the
+    embedding table). Serving reads the parameters under
+    ``torch.no_grad`` and builds no graph."""
 
     def __init__(self, shape, dtype, device):
         super().__init__()
         self.weight = nn.Parameter(
             torch.empty(shape, dtype=dtype, device=device))
+
+
+class _Proj(Linear):
+    """A projection or the head: a bias-free ``Linear`` whose weight
+    ``LlamaForCausalLM.reset_parameters`` draws, so building a model
+    makes no extra random pass and leaves the global RNG alone."""
+
+    def __init__(self, in_features, out_features, dtype, device):
+        super().__init__(in_features, out_features, False, dtype, device)
+
+    def reset_parameters(self):
+        pass
 
 
 class _Attention(nn.Module):
@@ -69,10 +85,10 @@ class _Attention(nn.Module):
         h, hd = cfg.hidden_size, cfg.head_dim
         q_out, kv_out = cfg.num_heads * hd, cfg.num_kv_heads * hd
         self.cfg = cfg
-        self.q_proj = _Weight((h, q_out), dtype, device)
-        self.k_proj = _Weight((h, kv_out), dtype, device)
-        self.v_proj = _Weight((h, kv_out), dtype, device)
-        self.o_proj = _Weight((q_out, h), dtype, device)
+        self.q_proj = _Proj(h, q_out, dtype, device)
+        self.k_proj = _Proj(h, kv_out, dtype, device)
+        self.v_proj = _Proj(h, kv_out, dtype, device)
+        self.o_proj = _Proj(q_out, h, dtype, device)
         # f32 tables shared by every layer: the JAX module's rope buffers
         # are not parameters, and model.astype leaves them in f32
         self.register_buffer("rope_cos", rope[0], persistent=False)
@@ -82,16 +98,16 @@ class _Attention(nn.Module):
         cfg = self.cfg
         b, s = x.shape[0], x.shape[1]
         nh, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        q = F.linear(x, self.q_proj.weight).reshape(b, s, nh, hd)
-        k = F.linear(x, self.k_proj.weight).reshape(b, s, kvh, hd)
-        v = F.linear(x, self.v_proj.weight).reshape(b, s, kvh, hd)
+        q = self.q_proj(x).reshape(b, s, nh, hd)
+        k = self.k_proj(x).reshape(b, s, kvh, hd)
+        v = self.v_proj(x).reshape(b, s, kvh, hd)
         q = apply_rotary(q, self.rope_cos, self.rope_sin, position_ids)
         k = apply_rotary(k, self.rope_cos, self.rope_sin, position_ids)
         if kvh != nh:
             k = k.repeat_interleave(nh // kvh, dim=2)
             v = v.repeat_interleave(nh // kvh, dim=2)
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        return F.linear(out.reshape(b, s, nh * hd), self.o_proj.weight)
+        return self.o_proj(out.reshape(b, s, nh * hd))
 
 
 class _MLP(nn.Module):
@@ -100,14 +116,12 @@ class _MLP(nn.Module):
     def __init__(self, cfg, dtype, device):
         super().__init__()
         h, m = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = _Weight((h, m), dtype, device)
-        self.up_proj = _Weight((h, m), dtype, device)
-        self.down_proj = _Weight((m, h), dtype, device)
+        self.gate_proj = _Proj(h, m, dtype, device)
+        self.up_proj = _Proj(h, m, dtype, device)
+        self.down_proj = _Proj(m, h, dtype, device)
 
     def forward(self, x):
-        return F.linear(F.silu(F.linear(x, self.gate_proj.weight))
-                        * F.linear(x, self.up_proj.weight),
-                        self.down_proj.weight)
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class _Block(nn.Module):
@@ -175,8 +189,8 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
         self.model = _Model(cfg, self.dtype, self.device)
-        self.lm_head = _Weight((cfg.hidden_size, cfg.vocab_size), self.dtype,
-                               self.device)
+        self.lm_head = _Proj(cfg.hidden_size, cfg.vocab_size, self.dtype,
+                             self.device)
         self.reset_parameters(seed)
 
     @torch.no_grad()
@@ -202,7 +216,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         h = self.model(ids, position_ids)
         if return_hidden:
             return h
-        return F.linear(h, self.lm_head.weight)
+        return self.lm_head(h)
 
     def loss(self, logits, labels):
         """Mean next-token cross-entropy in f32: position t predicts

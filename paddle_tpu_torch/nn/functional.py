@@ -36,14 +36,16 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if attn_mask is not None or dropout_p != 0.0:
         raise NotImplementedError(
             "scaled_dot_product_attention with attn_mask or dropout is not "
-            "ported (ROADMAP, Queue 1 item 2: the rest of the training "
+            "ported (ROADMAP, Queue 1 item 3: the rest of the training "
             "stack); the flash-attention kernels take neither")
     return _fa.flash_attention(query, key, value, causal=is_causal)
 
 
-def linear(x, weight):
-    """``x @ weight``, weight ``[in, out]`` (paddle convention)."""
-    return torch.matmul(x, weight)
+def linear(x, weight, bias=None):
+    """``x @ weight (+ bias)``, weight ``[in, out]`` (paddle
+    convention)."""
+    out = torch.matmul(x, weight)
+    return out if bias is None else out + bias
 
 
 def embedding(x, weight):
@@ -68,7 +70,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
         raise NotImplementedError(
             "cross_entropy is ported for the mean over hard labels on the "
             "last axis with softmax only (no weight, soft_label or "
-            "label_smoothing): ROADMAP, Queue 1 item 2, the rest of the "
+            "label_smoothing): ROADMAP, Queue 1 item 3, the rest of the "
             "training stack")
     logp = torch.log_softmax(input.float(), dim=-1)
     label = label.long()

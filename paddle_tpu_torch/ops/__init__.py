@@ -1,2 +1,3 @@
-"""Operators of the port: rope (plain torch) and the hand-written CUDA
-kernels under ``ops.kernels``."""
+"""Operators of the port: rope (the plain composition, and the opt-in
+route to its kernel) and the hand-written CUDA kernels under
+``ops.kernels``."""

@@ -3,6 +3,8 @@ use by ``_build``), each with its plain PyTorch version and a launch
 counter on its wrapper: ``paged_attention.paged_attention``,
 ``ragged_prefill.ragged_prefill_attention``,
 ``fused_tick.fused_tick_attention``, ``flash_attention.flash_fwd`` and
-``flash_attention.flash_bwd`` (dq and dk + dv), ``rms_norm.rms_norm_fwd``
-and ``rms_norm.rms_norm_bwd``; the last two kernels sit behind autograd
+``flash_attention.flash_bwd`` (dq and dk + dv), ``rms_norm.rms_norm_fwd``,
+``rms_norm.rms_norm_bwd``, ``rope.rope_fwd`` (forward and backward),
+``gemm_epilogue.gemm_epilogue`` and ``quant_matmul.quantized_matmul``.
+Flash attention, RMSNorm, rope and the GEMM epilogue sit behind autograd
 Functions."""

@@ -16,7 +16,7 @@ of every update); this one updates the parameters and its state in
 place, under ``torch.no_grad``, and keeps the state by parameter index
 as the JAX object API does (``state_dict()["state"]["m"]["0"]``).
 Learning-rate schedulers and gradient clipping are not ported yet and
-raise ``NotImplementedError`` (ROADMAP, Queue 1 item 2).
+raise ``NotImplementedError`` (ROADMAP, Queue 1 item 3).
 """
 import numbers
 
@@ -25,7 +25,7 @@ import torch
 
 __all__ = ["Optimizer", "Adam", "AdamW"]
 
-_TODO = "ROADMAP, Queue 1 item 2: the rest of the training stack"
+_TODO = "ROADMAP, Queue 1 item 3: the rest of the training stack"
 
 
 def _moment_dtype(p):

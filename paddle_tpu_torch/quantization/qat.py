@@ -1,0 +1,78 @@
+"""True-int8 inference layers: ``Int8InferLinear`` and
+``to_int8_inference``.
+
+Port of ``paddle_tpu/quantization/qat.py:138-200``. ``to_int8_inference``
+swaps every ``nn.Linear`` of a model for an ``Int8InferLinear``, whose
+weight is quantized once to int8 per output channel and whose forward
+quantizes its input per tensor and runs the int8 matmul with the fused
+dequantize (K8, ``ops.kernels.quant_matmul``). Deploy only: the forward
+builds no graph, as the reference cuts the tangent.
+
+The QAT/PTQ engines, ``QuantedLinear``, ``QuantConfig`` and the
+observers run no kernel and are not ported yet (ROADMAP, Queue 1 item
+15); a model holding a ``QuantedLinear`` has nothing of it here to
+convert.
+"""
+import copy
+
+import torch
+from torch import nn
+
+from ..nn.layer import Linear
+from ..ops.kernels.quant_matmul import quantize_tensor, quantized_matmul
+
+__all__ = ["Int8InferLinear", "to_int8_inference"]
+
+
+def _set_sublayer(root, dotted, new):
+    """Replace the submodule at ``dotted`` (``ModuleList`` indices
+    included: ``setattr(module_list, "3", m)`` replaces entry 3)."""
+    parts = dotted.split(".")
+    obj = root
+    for p in parts[:-1]:
+        obj = getattr(obj, p)
+    setattr(obj, parts[-1], new)
+
+
+class Int8InferLinear(nn.Module):
+    """Int8 deploy Linear: ``qweight`` int8 ``[in, out]`` and ``w_scale``
+    ``[out]`` (in the weight's dtype) from ``quantize_tensor(weight,
+    per_channel_axis=1)`` at construction; ``forward`` quantizes x per
+    tensor, runs ``quantized_matmul`` (f32 out), casts to x's dtype and
+    adds the layer's bias, if any."""
+
+    def __init__(self, layer):
+        super().__init__()
+        with torch.no_grad():
+            qw, sw = quantize_tensor(layer.weight.detach(),
+                                     per_channel_axis=1)
+        self.register_buffer("qweight", qw)
+        self.register_buffer("w_scale", sw)
+        self.bias = getattr(layer, "bias", None)
+
+    def forward(self, x):
+        with torch.no_grad():
+            x = x.detach()
+            shape = x.shape
+            qx, sx = quantize_tensor(x.reshape(-1, shape[-1]))
+            out = quantized_matmul(qx, self.qweight, sx, self.w_scale)
+            out = out.reshape(*shape[:-1], out.shape[-1]).to(x.dtype)
+        if self.bias is not None:
+            out = out + self.bias
+        return out
+
+
+def to_int8_inference(model, inplace=False):
+    """Replace every ``Linear`` of ``model`` (the root excepted) with an
+    ``Int8InferLinear``; ``inplace=False`` converts a deep copy and
+    leaves ``model`` untouched. Layers are looked up by name one at a
+    time, so in place each float weight is freed as its layer is
+    replaced."""
+    if not inplace:
+        model = copy.deepcopy(model)
+    names = [name for name, sub in list(model.named_modules())[1:]
+             if isinstance(sub, Linear)]
+    for name in names:
+        _set_sublayer(model, name,
+                      Int8InferLinear(model.get_submodule(name)))
+    return model

@@ -23,7 +23,9 @@ and the JAX package its XLA compositions of the same functions.
   fused multiply-adds; the cancellation in 1 - beta2 ** step), bf16 bit
   for bit;
 - options that are not ported raise ``NotImplementedError`` with a
-  ROADMAP pointer.
+  ROADMAP pointer;
+- the projections and the head are ``nn.Linear`` layers under the JAX
+  parameter names, and the weight bridge round-trips.
 """
 import functools
 
@@ -42,6 +44,7 @@ from paddle_tpu.models.llama import llama_tiny as jax_llama_tiny
 from paddle_tpu_torch.jit import train_step_fn
 from paddle_tpu_torch.models import (LlamaForCausalLM, export_params,
                                      llama_tiny, load_jax_params)
+from paddle_tpu_torch.nn import Linear
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.optimizer import Adam, AdamW
 
@@ -267,6 +270,48 @@ def test_unported_options_raise_with_a_roadmap_pointer(what):
             _port_model().pipeline_decompose()
         else:
             LlamaForCausalLM(llama_tiny(tensor_parallel=True), device="cpu")
+
+
+def test_projections_are_linear_layers_under_the_jax_names():
+    """The seven projections of every block and the head are ``nn.Linear``
+    without a bias: the parameter names stay the JAX module's, so the
+    bridge round-trips and the optimizer sees the same names."""
+    jm, tm = _jax_model(), _port_model()
+    blk = tm.model.layers[0]
+    layers = [tm.lm_head, blk.self_attn.q_proj, blk.self_attn.k_proj,
+              blk.self_attn.v_proj, blk.self_attn.o_proj, blk.mlp.gate_proj,
+              blk.mlp.up_proj, blk.mlp.down_proj]
+    assert all(isinstance(m, Linear) and m.bias is None for m in layers)
+    assert blk.self_attn.q_proj.weight.shape == (64, 64)
+    assert blk.mlp.down_proj.weight.shape == (128, 64)
+    want = {n: p.numpy() for n, p in jm.named_parameters()}
+    got = export_params(tm)
+    assert list(got) == [n for n, _ in tm.named_parameters()]
+    assert set(got) == set(want)
+    for n, a in want.items():
+        np.testing.assert_array_equal(got[n], a)
+    again = LlamaForCausalLM(llama_tiny(), device="cpu", seed=9)
+    load_jax_params(again, got)
+    assert all(np.array_equal(export_params(again)[n], a)
+               for n, a in want.items())
+
+
+def test_linear_defaults_to_the_card_and_llama_draws_its_own_weights():
+    """``nn.Linear`` resolves ``device=None`` to the card like every other
+    entry point (so it raises on a machine without one), and building a
+    Llama draws each projection once, from its own generator: the global
+    RNG is left as it was."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Linear(4, 3)
+    lin = Linear(4, 3, device="cpu")
+    assert lin.weight.device.type == "cpu" and lin.weight.shape == (4, 3)
+    assert torch.equal(lin.bias, torch.zeros(3))
+    torch.manual_seed(0)
+    before = torch.rand(4)
+    torch.manual_seed(0)
+    LlamaForCausalLM(llama_tiny(), device="cpu", seed=1)
+    assert torch.equal(torch.rand(4), before)
 
 
 def test_cross_entropy_ignores_the_ignore_index():
