@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --only build,k1,k2,k3
+    python3 chip_smoke.py --only build,k2,k7
     python3 chip_smoke.py --only build,k4,k5,train_parity,train
     python3 chip_smoke.py --only build,k6,k7,k8,int8_parity
 
@@ -17,7 +18,12 @@ Phases, in order; any failure exits non-zero:
    within TOL and VEC_RTOL (below), with its time beside the plain version's, one SDPA call over the
    gathered frame (a yardstick the port never calls) and its bound;
 4. k2: the ragged-prefill kernel likewise, on 512-row chunks with
-   prefix offsets, an idle slot and a chunk ending mid-page;
+   prefix offsets, an idle slot and a chunk ending mid-page, at 7B's and
+   70B's heads (both timed in bf16), then bf16 edge cases at full widths
+   (C = 100, rep 4, head_dim 64 and 16, a slot ending at the table's last
+   column), each with a poison check: every page past each slot's
+   frontier and every unused column's page filled with NaN must leave the
+   live rows bit for bit unchanged;
 5. k3: the fused-tick kernel likewise, on an admission tick (512-row
    chunks at prefix offsets, two decode rows, an idle slot, a chunk
    ending mid-page) and a decode-only tick (C = 1, K1's lengths, timed
@@ -43,11 +49,14 @@ Phases, in order; any failure exits non-zero:
 9. k7: the fused GEMM epilogue forward, and its backward through
    autograd, against the plain version at GPT-2 345M's FFN (4096 rows:
    1024 -> 4096 + bias, gelu; 4096 -> 1024 + bias), Llama-2-7B's gate
-   projection (4096 x 4096 @ 4096 x 11008), relu and ragged shapes, bf16
-   and f32, timed beside torch.addmm + the activation (a yardstick the
-   port never calls); then the GPT-2 FFN forward and backward through
+   projection (4096 x 4096 @ 4096 x 11008), relu, an N tail (N = 1000)
+   and ragged shapes, bf16 and f32, each on its stated route (wgmma,
+   mma.sync for K and N odd, simt for f32), timed beside torch.addmm +
+   the activation (a yardstick the port never calls); then the GPT-2 FFN
+   forward and backward through
    ``incubate.nn.functional.fused_linear_activation`` and
-   ``fused_matmul_bias``, counters zeroed just before and read after;
+   ``fused_matmul_bias``, counters zeroed just before and read after,
+   both launches on the wgmma route;
 10. k8: the int8 matmul against its plain version, bit for bit, at
    Llama-2-7B's projection shapes with 4096 rows (K x N 4096 x 4096,
    4096 x 11008, 11008 x 4096, 4096 x 32000), a decode batch (M = 8) and
@@ -77,7 +86,8 @@ Phases, in order; any failure exits non-zero:
    first); the launch counters are zeroed just before each wave and
    read just after, and must equal decode ticks x layers (K1) and
    prefill launches x layers (K2) on a split wave, fused launches x
-   layers (K3) on a fused wave;
+   layers (K3) on a fused wave; then one split and one fused admission
+   tick, and five decode ticks of each, under torch.profiler;
 15. int8_infer: the serve phase's Llama-2-7B (full width and depth):
    one bf16 forward of 8 x 512 ids from seed 0, then
    ``to_int8_inference(model, inplace=True)`` and the same forward with
@@ -292,26 +302,48 @@ def phase_k1(torch, peak, flush, record):
                 f"{bound_ms:.4f} ms ({nbytes} bytes, {flops} flops)")
 
 
+def k2_cases(T):
+    """(tag, C, nh, kvh, hd, [(t0, take) per slot], dtypes, timed) of
+    the cases K2 is held at, S = 8 slots over 128 pages of 16: the serve
+    phase's admission tick at Llama-2-7B's heads (the main path) and at
+    Llama-2-70B's GQA layout, both dtypes, each timed in bf16 (cold and
+    prefix-offset chunks, page-aligned and mid-page, an idle slot at the
+    scheduler's t0 = T sentinel, chunks ending mid-page); then bf16 edge
+    cases at full widths, each with a slot whose frontier ends at the
+    table's last column: C = 100 (a row tile straddles C), 32 query heads
+    over 8 kv heads (rep 4: 16 rows x 4 heads a tile), llama_350m's 16
+    heads of 64 and llama_tiny's 4 heads of 16 over 2."""
+    bf, f32 = ("bfloat16",), ("bfloat16", "float32")
+    admit = [(0, 512), (256, 512), (1000, 300), (T, 0), (37, 512),
+             (512, 200), (1200, 512), (1536, 500)]
+    to_end = admit[:-1] + [(T - 512, 512)]
+    c100 = [(0, 100), (T - 100, 100), (1000, 37), (T, 0), (5, 100),
+            (16, 64), (700, 99), (1900, 65)]
+    return (("7b", 512, 32, 32, 128, admit, f32, True),
+            ("70b-gqa", 512, 64, 8, 128, admit, f32, True),
+            ("c100", 100, 32, 32, 128, c100, bf, False),
+            ("rep4", 512, 32, 8, 128, to_end, bf, False),
+            ("hd64", 512, 16, 16, 64, to_end, bf, False),
+            ("hd16", 512, 4, 2, 16, to_end, bf, False))
+
+
 def phase_k2(torch, peak, flush, record):
-    import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import ragged_prefill as rp
-    S, C, pg, maxp, hd = 8, 512, 16, 128, 128
+    S, pg, maxp = 8, 16, 128
     T = maxp * pg
-    # cold, prefix hits (page-aligned and mid-page), an idle slot (the
-    # scheduler's t0 = T sentinel, last = -1), chunks ending mid-page
-    t0s = [0, 256, 1000, T, 37, 512, 1200, 1536]
-    takes = [512, 512, 300, 0, 512, 200, 512, 500]
-    lasts = [t + n - 1 if n else -1 for t, n in zip(t0s, takes)]
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for nh, kvh, tag in ((32, 32, "7b"), (64, 8, "70b-gqa")):
-        for dtype in (torch.bfloat16, torch.float32):
-            dname = str(dtype).split(".")[1]
+    for tag, C, nh, kvh, hd, slots, dnames, timed in k2_cases(T):
+        t0s = [t for t, _ in slots]
+        takes = [n for _, n in slots]
+        lasts = [t + n - 1 if n else -1 for t, n in slots]
+        t0 = torch.tensor(t0s, dtype=torch.int32, device="cuda")
+        last = torch.tensor(lasts, dtype=torch.int32, device="cuda")
+        for dname in dnames:
+            dtype = getattr(torch, dname)
             kp, vp, bt = paged_case(torch, S, nh, kvh, hd, pg, maxp, dtype,
                                     gen)
             q = torch.randn((S, C, nh, hd), generator=gen,
                             device="cuda").to(dtype)
-            t0 = torch.tensor(t0s, dtype=torch.int32, device="cuda")
-            last = torch.tensor(lasts, dtype=torch.int32, device="cuda")
             scale = hd ** -0.5
             out = rp.ragged_prefill_attention(q, kp, vp, bt, t0, last, scale)
             torch.cuda.synchronize()
@@ -320,46 +352,80 @@ def phase_k2(torch, peak, flush, record):
             err, rel, close = agreement(     # live rows only
                 [(out[s, :n], ref[s, :n]) for s, n in enumerate(takes)
                  if n], dname)
-            idle_zero = out[3].abs().max().item() == 0.0
-            ok = close and idle_zero and torch.isfinite(out).all().item()
-            log(f"k2 {tag} {dname}: max_abs_err {err:.3e} (tol "
-                f"{TOL[dname]:.0e}), max vector-relative error {rel:.3e} "
-                f"(tol {VEC_RTOL[dname]:.0e}), idle slot zero {idle_zero} "
-                f"{'ok' if ok else 'FAIL'}")
+            del ref
+            idle_zero = all(out[s].abs().max().item() == 0.0
+                            for s, n in enumerate(takes) if not n)
+            # poison: every page past each slot's frontier (its last
+            # position), every unused column's page and every page of an
+            # idle slot -> NaN; the live rows must not move by a bit
+            seen = torch.zeros(kp.shape[0], dtype=torch.bool, device="cuda")
+            for s, x in enumerate(lasts):
+                if x >= 0:
+                    seen[bt[s, :x // pg + 1].long()] = True
+            kpn, vpn = kp.clone(), vp.clone()
+            kpn[~seen] = float("nan")
+            vpn[~seen] = float("nan")
+            out2 = rp.ragged_prefill_attention(q, kpn, vpn, bt, t0, last,
+                                               scale)
+            torch.cuda.synchronize()
+            same = all(torch.equal(out[s, :n], out2[s, :n])
+                       for s, n in enumerate(takes) if n)
+            del kpn, vpn, out2
+            ok = close and idle_zero and same \
+                and torch.isfinite(out).all().item()
+            log(f"k2 {tag} {dname}: C={C}, {nh} heads over {kvh} kv heads "
+                f"of {hd}, max_abs_err {err:.3e} (tol {TOL[dname]:.0e}), "
+                f"max vector-relative error {rel:.3e} (tol "
+                f"{VEC_RTOL[dname]:.0e}), idle slot zero {idle_zero}, "
+                f"pages past each frontier NaN-poisoned: live rows bitwise "
+                f"equal {same} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"k2 {tag} {dname} disagrees with its "
                                  f"plain version")
-            del ref
-            if tag != "7b" or dtype != torch.bfloat16:
-                continue
-            ms = cuda_ms(lambda: rp.ragged_prefill_attention(
-                q, kp, vp, bt, t0, last, scale), torch, flush=flush)
-            plain_ms = cuda_ms(lambda: rp._ref_ragged_prefill(
-                q, kp, vp, bt, t0, last, scale), torch, iters=5,
-                flush=flush)
-            k, v = gathered(torch, kp, vp, bt, nh // kvh)
-            pos = torch.arange(T, device="cuda")
-            row = t0.long()[:, None] + torch.arange(C, device="cuda")[None]
-            mask = (pos[None, None] <= row[:, :, None])[:, None]
-            qq = q.transpose(1, 2)
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qq, k, v, attn_mask=mask, scale=scale), torch, flush=flush)
-            elt = q.element_size()
-            vis = sum(sum(t + c + 1 for c in range(n))
-                      for t, n in zip(t0s, takes))
-            flops = 4 * vis * nh * hd
-            kv_toks = sum(t + n for t, n in zip(t0s, takes) if n)
-            nbytes = (sum(takes) * nh * hd * elt + q.numel() * elt
-                      + 2 * kv_toks * kvh * hd * elt + 12 * S
-                      + sum(-(-(t + n) // pg) for t, n in zip(t0s, takes)
-                            if n) * 4)
-            bound_ms, by = bound(nbytes, flops, peak)
-            record["ragged_prefill"].update(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=by)
-            log(f"k2 7b bf16 timing: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({nbytes} bytes, {flops} flops)")
+            if timed and dname == "bfloat16":
+                k2_time(torch, rp, tag, q, kp, vp, bt, t0, last, slots,
+                        scale, peak, flush, record, err)
+            del q, kp, vp, bt, out
+    torch.cuda.empty_cache()
+
+
+def k2_time(torch, rp, tag, q, kp, vp, bt, t0, last, slots, scale, peak,
+            flush, record, err):
+    """K2 at the main path's shape beside its plain version, one SDPA call
+    over the gathered masked frame (a yardstick the port never calls) and
+    its bound; the 7B case goes into the record."""
+    import torch.nn.functional as F
+    S, C, nh, hd = q.shape
+    _, pg, kvh, _ = kp.shape
+    T = bt.shape[1] * pg
+    ms = cuda_ms(lambda: rp.ragged_prefill_attention(
+        q, kp, vp, bt, t0, last, scale), torch, flush=flush)
+    plain_ms = cuda_ms(lambda: rp._ref_ragged_prefill(
+        q, kp, vp, bt, t0, last, scale), torch, iters=5, flush=flush)
+    k, v = gathered(torch, kp, vp, bt, nh // kvh)
+    pos = torch.arange(T, device="cuda")
+    row = t0.long()[:, None] + torch.arange(C, device="cuda")[None]
+    mask = (pos[None, None] <= row[:, :, None])[:, None]
+    qq = q.transpose(1, 2)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qq, k, v, attn_mask=mask, scale=scale), torch, flush=flush)
+    del k, v, mask
+    elt = q.element_size()
+    vis = sum(sum(t + c + 1 for c in range(n)) for t, n in slots)
+    flops = 4 * vis * nh * hd
+    kv_toks = sum(t + n for t, n in slots if n)
+    takes = sum(n for _, n in slots)
+    nbytes = (takes * nh * hd * elt + q.numel() * elt
+              + 2 * kv_toks * kvh * hd * elt + 12 * S
+              + sum(-(-(t + n) // pg) for t, n in slots if n) * 4)
+    bound_ms, by = bound(nbytes, flops, peak)
+    if tag == "7b":
+        record["ragged_prefill"].update(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bound_ms, bound_by=by)
+    log(f"k2 {tag} bf16 timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}; "
+        f"{nbytes} bytes, {flops} flops)")
 
 
 def k3_ticks(T):
@@ -748,16 +814,18 @@ def phase_k6(torch, peak, flush, record):
                 f"{bound_ms:.4f} ms ({by}; {nbytes} bytes)")
 
 
-# (tag, M, K, N, bias, activation): GPT-2 345M's FFN at 4096 rows (8 x
-# 512; benchmarks/decode_bench.py:24-26), Llama-2-7B's gate projection,
-# relu, and ragged shapes (N off the 128 tile; then K and N odd, which
-# take the element loads)
-K7_CASES = (("gpt2-ffn1", 4096, 1024, 4096, True, "gelu"),
-            ("gpt2-ffn2", 4096, 4096, 1024, True, "none"),
-            ("7b-gate", 4096, 4096, 11008, False, "none"),
-            ("relu", 4096, 1024, 4096, True, "relu"),
-            ("ragged", 1000, 1000, 1000, True, "gelu"),
-            ("ragged-odd", 999, 777, 333, True, "relu"))
+# (tag, M, K, N, bias, activation, bf16 route): GPT-2 345M's FFN at 4096
+# rows (8 x 512; benchmarks/decode_bench.py:24-26), Llama-2-7B's gate
+# projection, relu, an N tail that is a multiple of 8 but not of the 128
+# tile, ragged M, N and K (multiples of 8: TMA zero-fills the edges), then
+# K and N odd, which only the masked element loads take. f32 runs simt.
+K7_CASES = (("gpt2-ffn1", 4096, 1024, 4096, True, "gelu", "wgmma"),
+            ("gpt2-ffn2", 4096, 4096, 1024, True, "none", "wgmma"),
+            ("7b-gate", 4096, 4096, 11008, False, "none", "wgmma"),
+            ("relu", 4096, 1024, 4096, True, "relu", "wgmma"),
+            ("n-tail", 4096, 1024, 1000, True, "gelu", "wgmma"),
+            ("ragged", 1000, 1000, 1000, True, "gelu", "wgmma"),
+            ("ragged-odd", 999, 777, 333, True, "relu", "mma_sync"))
 
 
 def k7_inputs(torch, gen, M, K, N, has_bias, dtype):
@@ -779,14 +847,18 @@ def phase_k7(torch, peak, flush, record):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import gemm_epilogue as ge
     gen = torch.Generator(device="cuda").manual_seed(7)
-    for tag, M, K, N, has_bias, act in K7_CASES:
+    for tag, M, K, N, has_bias, act, bf16_route in K7_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
+            want = bf16_route if dtype == torch.bfloat16 else "simt"
             x, w, b, g = k7_inputs(torch, gen, M, K, N, has_bias, dtype)
             leaves = [t.detach().requires_grad_() for t in (x, w)] + \
                 ([b.detach().requires_grad_()] if has_bias else [])
+            before = dict(ge.gemm_epilogue.route_launches)
             out = ge.fused_gemm_epilogue(*leaves[:2],
                                          leaves[2] if has_bias else None, act)
+            took = [r for r, n in ge.gemm_epilogue.route_launches.items()
+                    if n != before[r]]
             grads = torch.autograd.grad(out, leaves, g)
             torch.cuda.synchronize()
             # the plain version in f32, its backward through autograd
@@ -800,9 +872,11 @@ def phase_k7(torch, peak, flush, record):
             errs = [agreement([pr], dname, floor=1e-2) for pr in pairs]
             del ref, ref_grads, ref_leaves, pairs
             ok = all(e[2] for e in errs) and torch.isfinite(out).all().item() \
-                and all(torch.isfinite(t).all().item() for t in grads)
+                and all(torch.isfinite(t).all().item() for t in grads) \
+                and took == [want]
             log(f"k7 {tag} {dname}: [{M}, {K}] @ [{K}, {N}]"
-                f"{' + bias' if has_bias else ''}, {act}, max_abs_err out/"
+                f"{' + bias' if has_bias else ''}, {act}, route {took} "
+                f"(expected {want}), max_abs_err out/"
                 f"dx/dw{'/db' if has_bias else ''} "
                 f"{'/'.join(f'{e[0]:.2e}' for e in errs)} (tol "
                 f"{TOL[dname]:.0e}), max vector-relative error "
@@ -848,8 +922,9 @@ def k7_main_path(torch, gen):
     """GPT-2 345M's FFN at 4096 rows in bf16 through the incubate entry
     points, forward and backward: ``fused_linear_activation`` (gelu)
     then ``fused_matmul_bias``. The counters are zeroed just before and
-    read just after: K7 twice (the backward is torch.matmul, as in the
-    reference), no other kernel. Returns K7's count."""
+    read just after: K7 twice, both on the wgmma route (the backward is
+    torch.matmul, as in the reference), no other kernel. Returns K7's
+    count."""
     from paddle_tpu_torch.incubate.nn import functional as IF
     from paddle_tpu_torch.ops.kernels import gemm_epilogue as ge
     x, w1, b1, _ = k7_inputs(torch, gen, 4096, 1024, 4096, True,
@@ -858,27 +933,30 @@ def k7_main_path(torch, gen):
                               torch.bfloat16)
     leaves = [t.requires_grad_() for t in (x, w1, b1, w2, b2)]
     zero_counts()
+    ge.gemm_epilogue.route_launches = dict.fromkeys(ge.ROUTES, 0)
     h = IF.fused_linear_activation(x, w1, b1, activation="gelu")
     y = IF.fused_matmul_bias(h, w2, b2)
     grads = torch.autograd.grad(y, leaves, gy)
     torch.cuda.synchronize()
     counts = read_counts()
+    routes = dict(ge.gemm_epilogue.route_launches)
     with torch.no_grad():
         ref = ge._ref_gemm_epilogue(
             ge._ref_gemm_epilogue(x, w1, b1, "gelu"), w2, b2, "none")
     err, rel, close = agreement([(y, ref.float())], "bfloat16")
-    ok = close and counts["k7"] == 2 and not any(
+    ok = close and counts["k7"] == 2 and routes["wgmma"] == 2 and not any(
         v for k, v in counts.items() if k != "k7") and all(
         torch.isfinite(t).all().item() for t in (y, *grads))
     log(f"k7 main path: GPT-2 345M FFN [4096, 1024] bf16 through "
         f"fused_linear_activation + fused_matmul_bias, forward and backward:"
-        f" launches {counts}, max_abs_err against the plain chain {err:.2e}"
+        f" launches {counts}, by route {routes}, max_abs_err against the "
+        f"plain chain {err:.2e}"
         f" (tol {TOL['bfloat16']:.0e}), max vector-relative error {rel:.3e}"
         f" {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("k7 main path: the incubate entry points did not "
-                         "run K7 as counted, or disagree with the plain "
-                         "chain")
+                         "run K7 as counted (twice, on the wgmma route), or "
+                         "disagree with the plain chain")
     return counts["k7"]
 
 
@@ -1163,9 +1241,57 @@ def phase_serve(torch, np, card, record):
     log(f"serve: split and fused agree on {agree} of {8 * n_new} tokens "
         f"(informational: bf16 near-ties on random weights may flip)")
     for mode in ("split", "fused"):
+        profile_admit(torch, np, server(mode), prompts, warm, card, mode)
+        release()
+    for mode in ("split", "fused"):
         profile_decode(torch, np, server(mode), cfg, card, mode)
         release()
     return model
+
+
+def profile_admit(torch, np, srv, prompts, warm, card, mode):
+    """Where an admission tick's time goes, the tick TTFT waits on: a
+    warm-up request served first, then the serve wave's 8 prompts
+    submitted and the first tick (admission, a 512-token prefill chunk,
+    K2 per layer on a split tick, K3 on a fused one) run under
+    torch.profiler: device time by kernel and the attention kernel's
+    share. Informational: it checks nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    srv.submit(warm, max_new_tokens=2)
+    srv.run()
+    for p in prompts:
+        srv.submit(p, max_new_tokens=2)
+    before = srv.stats["prefill_tokens"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        srv.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    chunk = srv.stats["prefill_tokens"] - before
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    kernels.sort(key=lambda k: -k[1])
+    busy = sum(k[1] for k in kernels)
+    if not kernels:
+        log("profile admit: the profiler recorded no device time (not "
+            "measured)")
+    else:
+        attn = sum(ms for name, ms, _ in kernels if any(
+            k in name for k in ("ragged_prefill", "fused_rows",
+                                "fused_decode")))
+        log(f"profile admit {mode} [{card}]: admission tick ({chunk} "
+            f"prompt tokens) {wall_ms:.2f} ms wall under the profiler, "
+            f"device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%), "
+            f"attention kernel {attn:.3f} ms ({100 * attn / busy:.1f}% of "
+            f"device time), {sum(k[2] for k in kernels)} kernel launches")
+        for name, ms, count in kernels[:10]:
+            log(f"  {ms:8.3f} ms/tick  {count:5d}x  {name[:90]}")
+    srv.run()
 
 
 def profile_decode(torch, np, srv, cfg, card, mode):

@@ -5,8 +5,9 @@
 //
 // - element helpers: f32 loads and stores of f32/bf16, 16-byte row loads,
 //   warp sums and sums or maxima over a few neighbouring lanes;
-// - mma.sync m16n8k16 bf16 fragment helpers (K3's, K4's and K7's
-//   tensor-core tiles);
+// - mma.sync m16n8k16 bf16 fragment helpers (K2's, K3's, K4's and K7's
+//   tensor-core tiles), ldmatrix fragment loads and 16-byte cp.async
+//   copies (K2's pipelined gather);
 // - decode_attend: one query row per kv head's GQA group over paged K/V
 //   (K1's design). K1 runs it over a slot's block table; K3's C == 1
 //   kernel runs it over the slot's run of the page schedule. The caller
@@ -101,6 +102,49 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// 32-bit address of a shared-memory pointer, as PTX's shared-space
+// instructions take it
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ldmatrix .x4: lanes 8i .. 8i + 7 give the row addresses (16 bytes each,
+// 16-byte aligned) of 8 x 8 matrix i; r[i] receives matrix i's fragment,
+// row lane / 4, columns 2 (lane % 4) and + 1 (.trans: its transpose, so
+// a [key][dim] tile is read as the k-major B operand of P V)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// 16-byte asynchronous copy global -> shared (both 16-byte aligned); with
+// pred false nothing is read and the 16 bytes are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_u32(dst)), "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // reduce over the 4 lanes that hold one fragment row

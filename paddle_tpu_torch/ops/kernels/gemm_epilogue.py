@@ -15,9 +15,20 @@ ROADMAP, Queue 3.)
 ``gemm_epilogue`` launches the hand-written kernel
 (``csrc/gemm_epilogue.cu``) for CUDA tensors and the plain version
 ``_ref_gemm_epilogue`` for CPU tensors; a CUDA tensor the kernel cannot
-take raises instead of falling back. It counts its launches in
-``gemm_epilogue.launches``. The backward (``_fge_bwd``) is plain
-``torch.matmul``, as the reference computes it outside any Pallas kernel.
+take raises instead of falling back. The kernel has three routes, which
+``route`` picks from the shape before the launch (never on failure):
+
+- ``"wgmma"``: bf16 with K >= 8, K and N multiples of 8 and x, w and out
+  16-byte aligned (TMA's stride and base rule): TMA loads into a ring of
+  stages, ``wgmma`` with w read as it lies;
+- ``"mma_sync"``: every other bf16 shape (K or N odd, a misaligned view):
+  ``mma.sync`` tiles with loads masked element by element;
+- ``"simt"``: float32, fused multiply-adds in full f32 (no TF32).
+
+``gemm_epilogue.launches`` counts every launch and
+``gemm_epilogue.route_launches`` each route's. The backward
+(``_fge_bwd``) is plain ``torch.matmul``, as the reference computes it
+outside any Pallas kernel.
 """
 import ctypes
 import math
@@ -26,11 +37,12 @@ import torch
 
 from . import _build
 
-__all__ = ["ACTIVATIONS", "gemm_epilogue", "fused_gemm_epilogue",
-           "FusedGemmEpilogueFunction"]
+__all__ = ["ACTIVATIONS", "ROUTES", "route", "gemm_epilogue",
+           "fused_gemm_epilogue", "FusedGemmEpilogueFunction"]
 
 ACTIVATIONS = {"none": 0, "relu": 1, "gelu": 2}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {"simt": 0, "mma_sync": 1, "wgmma": 2}
+_DTYPES = (torch.float32, torch.bfloat16)
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
 
@@ -79,10 +91,22 @@ def _check(x, w, bias):
             raise ValueError(f"{name} must be contiguous")
 
 
+def route(m, n, k, dtype, aligned):
+    """The kernel route for an ``[m, k] @ [k, n]`` product in ``dtype``,
+    ``aligned`` telling whether x, w and out all start on 16 bytes (see
+    the module docstring). ``m`` takes no part: TMA zero-fills the rows
+    past it and the stores are masked."""
+    if dtype == torch.float32:
+        return "simt"
+    if k >= 8 and k % 8 == 0 and n % 8 == 0 and aligned:
+        return "wgmma"
+    return "mma_sync"
+
+
 def gemm_epilogue(x, w, bias=None, activation="none"):
     """K7: ``act(x @ w + bias)`` in x's dtype for x ``[M, K]``, w ``[K,
-    N]``, bias ``[N]`` or None. CUDA tensors run the kernel (f32 or bf16,
-    every shape: tails are masked); CPU tensors run
+    N]``, bias ``[N]`` or None. CUDA tensors run the kernel on the route
+    ``route`` picks (f32 or bf16, every shape); CPU tensors run
     ``_ref_gemm_epilogue``."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation must be one of {list(ACTIVATIONS)}, "
@@ -95,22 +119,26 @@ def gemm_epilogue(x, w, bias=None, activation="none"):
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, out))
+    path = route(m, n, k, x.dtype, aligned)
     fn = _build.library("gemm_epilogue").gemm_epilogue_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), w.data_ptr(),
              None if bias is None else bias.data_ptr(), out.data_ptr(),
-             m, n, k, ACTIVATIONS[activation], _DTYPES[x.dtype],
+             m, n, k, ACTIVATIONS[activation], ROUTES[path],
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"gemm_epilogue kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"gemm_epilogue kernel launch failed ({path} "
+                           f"route): CUDA error {err}")
     gemm_epilogue.launches += 1
+    gemm_epilogue.route_launches[path] += 1
     return out
 
 
 gemm_epilogue.launches = 0
+gemm_epilogue.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def _fge_bwd(x, w, bias, g, activation):

@@ -13,8 +13,10 @@ zeros.
 ``ragged_prefill_attention`` launches the hand-written kernel
 (``csrc/ragged_prefill.cu``) for CUDA tensors and the plain version
 ``_ref_ragged_prefill`` for CPU tensors; a CUDA tensor the kernel
-cannot take raises. ``ragged_prefill_attention.launches`` counts kernel
-launches.
+cannot take raises. bf16 runs on the tensor cores (``mma.sync``, K/V
+gathered with ``cp.async`` into a two-stage ring, one block per 64 query
+vectors of a kv head's GQA group); f32 runs SIMT in full f32.
+``ragged_prefill_attention.launches`` counts kernel launches.
 """
 import ctypes
 import math
@@ -25,6 +27,9 @@ from . import _build
 from .paged_attention import _DTYPES, HEAD_DIMS, NEG_INF
 
 __all__ = ["ragged_prefill_attention"]
+
+# the bf16 kernel's block holds 64 query vectors: rows x the GQA group
+MAX_REP_BF16 = 64
 
 
 def _ref_ragged_prefill(q, k_pages, v_pages, block_tables, t0, last,
@@ -74,6 +79,9 @@ def _check(q, k_pages, v_pages, block_tables, t0, last):
     if nh % kvh:
         raise ValueError(f"query heads ({nh}) must be a multiple of kv "
                          f"heads ({kvh})")
+    if q.dtype == torch.bfloat16 and nh // kvh > MAX_REP_BF16:
+        raise ValueError(f"bf16 takes at most {MAX_REP_BF16} query heads "
+                         f"per kv head, got {nh // kvh}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
@@ -134,8 +142,9 @@ def ragged_prefill_attention(q, k_pages, v_pages, block_tables, t0,
 
     Row c of slot s attends to key positions <= t0[s] + c. Returns
     [slots, chunk, num_heads, head_dim] in q's dtype. CUDA tensors run
-    the kernel (f32 or bf16, head_dim 16/64/128, any GQA ratio); CPU
-    tensors run ``_ref_ragged_prefill``."""
+    the kernel (f32 or bf16, head_dim 16/64/128, any GQA ratio in f32, up
+    to 64 query heads per kv head in bf16); CPU tensors run
+    ``_ref_ragged_prefill``."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if last is None:

@@ -19,7 +19,10 @@ port's plain version, which the CUDA kernel is held to on the card
   ``trans_x``/``trans_y``), ``fused_matmul_bias`` (both of its routes)
   and ``fused_linear`` vs the JAX incubate functions, f32 within 1e-5;
 - the contract refuses an unknown activation, and unported incubate
-  functions raise with a ROADMAP pointer.
+  functions raise with a ROADMAP pointer;
+- the kernel's route (wgmma, mma.sync or simt) is a pure function of the
+  shape, the dtype and the operands' alignment, every branch; on the CPU
+  no route counts a launch.
 """
 import numpy as np
 import pytest
@@ -204,3 +207,37 @@ def test_unknown_activation_and_unported_functions_raise():
             getattr(tif, name)(x)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         incubate.nn.FusedMultiTransformer(64, 4, 128)
+
+
+# (m, n, k, dtype, aligned, route): every branch of ``route``
+ROUTE_CASES = [
+    (4096, 4096, 1024, torch.bfloat16, True, "wgmma"),    # GPT-2 FFN1
+    (4096, 11008, 4096, torch.bfloat16, True, "wgmma"),   # 7B gate
+    (4096, 1000, 1024, torch.bfloat16, True, "wgmma"),    # N tail of 8s
+    (1000, 1000, 1000, torch.bfloat16, True, "wgmma"),    # ragged M, K
+    (1, 8, 8, torch.bfloat16, True, "wgmma"),             # the least K, N
+    (999, 333, 777, torch.bfloat16, True, "mma_sync"),    # K and N odd
+    (64, 48, 100, torch.bfloat16, True, "mma_sync"),      # K % 8 != 0
+    (64, 44, 96, torch.bfloat16, True, "mma_sync"),       # N % 8 != 0
+    (64, 48, 0, torch.bfloat16, True, "mma_sync"),        # K == 0
+    (4096, 4096, 1024, torch.bfloat16, False, "mma_sync"),  # misaligned
+    (4096, 4096, 1024, torch.float32, True, "simt"),
+    (999, 333, 777, torch.float32, False, "simt"),
+]
+
+
+@pytest.mark.parametrize("m,n,k,dtype,aligned,want", ROUTE_CASES)
+def test_route_is_chosen_by_shape_dtype_and_alignment(m, n, k, dtype,
+                                                      aligned, want):
+    assert tge.route(m, n, k, dtype, aligned) == want
+    assert tge.route(m + 1, n, k, dtype, aligned) == want   # M takes no part
+
+
+def test_cpu_tensors_count_no_route_launch():
+    before = dict(tge.gemm_epilogue.route_launches)
+    assert set(before) == set(tge.ROUTES)
+    x, w, b, _ = _data(16, 16, 8, 6)
+    tge.gemm_epilogue(torch.from_numpy(x).bfloat16(),
+                      torch.from_numpy(w).bfloat16(),
+                      torch.from_numpy(b).bfloat16(), "gelu")
+    assert tge.gemm_epilogue.route_launches == before

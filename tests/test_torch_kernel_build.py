@@ -37,3 +37,11 @@ def test_every_local_include_is_a_hashed_header_beside_the_sources():
                                flags=re.M):
             assert name.endswith(".cuh") and "/" not in name, (src, name)
             assert (_build.CSRC / name).is_file(), (src, name)
+
+
+def test_library_name_follows_the_nvcc_flags(monkeypatch):
+    src = _build.CSRC / "gemm_epilogue.cu"
+    before = _build._target(src)
+    monkeypatch.setattr(_build, "NVCC_FLAGS",
+                        (*_build.NVCC_FLAGS, "-lineinfo"))
+    assert _build._target(src) != before

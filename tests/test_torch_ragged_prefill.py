@@ -8,6 +8,12 @@ slot zeroing) and through the port's plain version
 Tolerance: float32, atol 1e-5 — same f32 softmax over the same
 products, only summation order differs.
 
+The edge shapes of the CUDA kernel's bf16 tiling (64 query vectors a
+block: 64 / rep rows x the rep heads of a GQA group) are held on the CPU
+too: a chunk that is not a multiple of the row tile, rep 4, prefix
+resumes at a page boundary and mid-page, and a slot that ends at the
+table's last column.
+
 Rows past a slot's ``last`` (chunk padding) are garbage callers
 discard: the kernels stop their keys at ``last``, the gather versions
 do not, so kernel comparisons cover live rows and idle slots only.
@@ -64,6 +70,55 @@ def test_plain_version_matches_jax_kernel_and_fallback(nh, kvh, hd):
         np.testing.assert_allclose(got[s, :n], ref[s, :n], rtol=0,
                                    atol=ATOL)
     assert not got[3].any() and not kern[3].any()     # idle slot: zeros
+
+
+# (nh, kvh, hd, C, t0 per slot, take per slot): C = 20 against the
+# bf16 tile's 16 rows at rep 4 (and its 64 rows at rep 1, 32 at rep 2);
+# resumes at a page boundary (t0 = 8, 4) and mid-page (13, 6, 1); slot 1
+# of the first case ends at the table's last column (t0 + take = 32).
+EDGE_CASES = [
+    (8, 2, 16, 20, [0, 12, 13, 32, 8], [20, 20, 7, 0, 19]),
+    (8, 2, 64, 20, [4, 6, 0, 32, 1], [20, 17, 20, 0, 3]),
+    (4, 4, 16, 20, [8, 1, 0, 32, 13], [20, 20, 20, 0, 19]),
+    (4, 2, 32, 20, [0, 8, 6, 32, 12], [20, 20, 11, 0, 20]),
+]
+
+
+@pytest.mark.parametrize("nh,kvh,hd,C,t0s,takes", EDGE_CASES)
+def test_plain_version_matches_jax_kernel_at_the_tile_edges(nh, kvh, hd, C,
+                                                            t0s, takes):
+    S, pg, maxp = 5, 4, 8
+    q, kp, vp, bt = _case(S, C, nh, kvh, hd, pg, maxp, seed=nh + hd + C)
+    t0 = np.array(t0s, np.int32)
+    takes = np.array(takes, np.int32)
+    last = np.where(takes > 0, t0 + takes - 1, -1).astype(np.int32)
+    assert last.max() <= pg * maxp - 1
+    scale = hd ** -0.5
+    got = trp.ragged_prefill_attention(
+        *(torch.from_numpy(a) for a in (q, kp, vp, bt, t0, last)),
+        sm_scale=scale).numpy()
+    jargs = [jnp.asarray(a) for a in (q, kp, vp, bt, t0)]
+    kern = np.asarray(jrp._ragged_prefill_pallas(
+        *jargs, jnp.asarray(last), scale, interpret=True))
+    for s in range(S):
+        n = takes[s]
+        np.testing.assert_allclose(got[s, :n], kern[s, :n], rtol=0,
+                                   atol=ATOL)
+    assert not got[3].any() and not kern[3].any()     # idle slot: zeros
+
+
+def test_bf16_gqa_ratio_is_checked_before_launch():
+    S, C, hd, P, pg, maxp = 1, 2, 16, 3, 4, 2
+    bt = torch.zeros(S, maxp, dtype=torch.int32)
+    t0 = torch.zeros(S, dtype=torch.int32)
+    kp = torch.zeros(P, pg, 1, hd, dtype=torch.bfloat16)
+    trp._check(torch.zeros(S, C, 64, hd, dtype=torch.bfloat16), kp, kp, bt,
+               t0, t0)
+    with pytest.raises(ValueError, match="kv head"):
+        trp._check(torch.zeros(S, C, 128, hd, dtype=torch.bfloat16), kp, kp,
+                   bt, t0, t0)
+    trp._check(torch.zeros(S, C, 128, hd), kp.float(), kp.float(), bt, t0,
+               t0)                                  # f32: any ratio
 
 
 def test_default_last_covers_every_row():
