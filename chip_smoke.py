@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only build,k1,k2,k3
     python3 chip_smoke.py --only build,k2,k7
     python3 chip_smoke.py --only build,k4,k5,train_parity,train
+    python3 chip_smoke.py --only build,k4,k6,train_parity,train
     python3 chip_smoke.py --only build,k6,k7,k8,int8_parity
 
 Phases, in order; any failure exits non-zero:
@@ -13,6 +14,10 @@ Phases, in order; any failure exits non-zero:
    float32 products and convolutions;
 2. build: every ``paddle_tpu_torch/csrc/*.cu`` compiled by nvcc for
    sm_90a (one process per source, all at once), with ptxas's report;
+   every time below is the card's own (``cuda_ms``: the wrapper's host
+   work is hidden behind a spin kernel, and a sample it was not hidden
+   from is dropped), each kernel's also on the clock it replaced, for
+   one PR;
 3. k1: the paged-decode kernel against its plain version at Llama-2-7B
    decode shapes (and at Llama-2-70B's GQA head layout), bf16 and f32,
    within TOL and VEC_RTOL (below), with its time beside the plain version's, one SDPA call over the
@@ -33,10 +38,13 @@ Phases, in order; any failure exits non-zero:
    dk + dv) against their plain versions, bf16 and f32, at llama_350m's
    training shape (B = 8, S = 1024, 16 heads of 64, causal), at
    Llama-2-7B's (B = 1, S = 4096, 32 heads of 128, causal), non-causal,
-   and at S = 1000 (a tail tile): o, lse, dq, dk, dv within TOL and
-   VEC_RTOL; two backward runs bitwise equal; times beside the plain
+   and at S = 1000 (a tail tile); then bf16 at S = 100, at S_q != S_k
+   (non-causal and causal) and at head_dim 16: o, lse, dq, dk, dv within
+   TOL and VEC_RTOL; two backward runs bitwise equal; ptxas's registers
+   and spills of the three bf16 kernels at each head_dim; at the 350m and
+   7B shapes, forward, backward and both timed beside the plain
    version, one SDPA call (a yardstick the port never calls) and the
-   bound;
+   bound, the kernels' time also read from torch.profiler;
 7. k5: RMSNorm forward (K5a) and backward (K5b) likewise, at 8192 x 1024
    (llama_350m) and 4096 x 4096 (Llama-2-7B) rows x d, beside
    torch.nn.functional.rms_norm;
@@ -45,7 +53,9 @@ Phases, in order; any failure exits non-zero:
    (1 x 4096 x 32 x 128) and a tail (S = 1000) against its plain
    version, the reference's composition (bit for bit expected, held to
    TOL and VEC_RTOL), timed beside it: the A/B the reference's opt-in
-   waits for;
+   waits for; then bf16 tables under bf16 and f32 x through
+   ``apply_rotary_kernel``, forward and backward: two K6 launches (the
+   kernel's route) and the plain version's values;
 9. k7: the fused GEMM epilogue forward, and its backward through
    autograd, against the plain version at GPT-2 345M's FFN (4096 rows:
    1024 -> 4096 + bias, gelu; 4096 -> 1024 + bias), Llama-2-7B's gate
@@ -189,9 +199,69 @@ def peaks(name):
     return key, CARD_PEAKS[key]
 
 
+_SPIN = {}     # cycles of torch.cuda._sleep per millisecond, measured once
+
+
+def spin_cycles_per_ms(torch):
+    if "per_ms" not in _SPIN:
+        torch.cuda._sleep(100_000)                   # warm
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(2_000_000)
+        end.record()
+        end.synchronize()
+        _SPIN["per_ms"] = 2_000_000 / start.elapsed_time(end)
+    return _SPIN["per_ms"]
+
+
 def cuda_ms(fn, torch, iters=20, warmup=3, flush=None):
-    """Median milliseconds of ``fn`` over CUDA events, the L2 cache
-    flushed before every timed launch (the main path finds it cold)."""
+    """Median milliseconds of the card's work in one call of ``fn``, the
+    L2 cache flushed before every timed call (the main path finds it
+    cold). Only the card's time counts: before each timed call the
+    stream gets a spin kernel (``torch.cuda._sleep``) that outlasts the
+    host side of ``fn`` (contract checks, allocation, the ctypes call,
+    PyTorch's dispatch), so the start event is reached after ``fn`` has
+    queued all its work. A sample whose start event had already been
+    reached when ``fn`` returned on the host (the spin was too short) is
+    dropped and the spin doubled. Kernels, their plain versions and the
+    library yardsticks are all timed so."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin = int(max(0.05, 3 * host_ms) * spin_cycles_per_ms(torch))
+    times, dropped = [], 0
+    while len(times) < iters:
+        if flush is not None:
+            flush.zero_()
+        torch.cuda._sleep(spin)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        covered = not start.query()
+        end.record()
+        end.synchronize()
+        if covered:
+            times.append(start.elapsed_time(end))
+            continue
+        dropped += 1
+        spin *= 2
+        if dropped > 12:
+            raise SystemExit("cuda_ms: the host side of a timed call "
+                             "outlasted every spin")
+    times.sort()
+    return times[len(times) // 2]
+
+
+def cuda_ms_host(fn, torch, iters=20, warmup=3, flush=None):
+    """The clock ``cuda_ms`` replaced, kept for one PR beside it: the
+    start event is recorded on an idle card before ``fn``, so its host
+    work counts too. Median milliseconds, L2 flushed before each call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -208,6 +278,16 @@ def cuda_ms(fn, torch, iters=20, warmup=3, flush=None):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def kernel_ms(fn, torch, flush, what):
+    """A kernel's time on the card's clock (``cuda_ms``), logged beside
+    the old clock's (``cuda_ms_host``) reading of the same call."""
+    ms = cuda_ms(fn, torch, flush=flush)
+    old = cuda_ms_host(fn, torch, flush=flush)
+    log(f"clock {what}: {ms:.4f} ms on the card's clock, {old:.4f} ms on "
+        f"the old clock (host work included)")
+    return ms
 
 
 def bound(nbytes, flops, peak, ops_peak=None):
@@ -276,9 +356,9 @@ def phase_k1(torch, peak, flush, record):
             if tag != "7b" or dtype != torch.bfloat16:
                 continue
             # the main path's shape and type: time it
-            ms = cuda_ms(lambda: pa.paged_attention(q, kp, vp, bt, lengths,
-                                                    scale), torch,
-                         flush=flush)
+            ms = kernel_ms(lambda: pa.paged_attention(q, kp, vp, bt,
+                                                      lengths, scale),
+                           torch, flush, "k1 7b bf16")
             plain_ms = cuda_ms(lambda: pa._ref_paged_attention(
                 q, kp, vp, bt, lengths, scale), torch, iters=5,
                 flush=flush)
@@ -398,8 +478,8 @@ def k2_time(torch, rp, tag, q, kp, vp, bt, t0, last, slots, scale, peak,
     S, C, nh, hd = q.shape
     _, pg, kvh, _ = kp.shape
     T = bt.shape[1] * pg
-    ms = cuda_ms(lambda: rp.ragged_prefill_attention(
-        q, kp, vp, bt, t0, last, scale), torch, flush=flush)
+    ms = kernel_ms(lambda: rp.ragged_prefill_attention(
+        q, kp, vp, bt, t0, last, scale), torch, flush, f"k2 {tag} bf16")
     plain_ms = cuda_ms(lambda: rp._ref_ragged_prefill(
         q, kp, vp, bt, t0, last, scale), torch, iters=5, flush=flush)
     k, v = gathered(torch, kp, vp, bt, nh // kvh)
@@ -522,8 +602,8 @@ def k3_time(torch, F, ft, pa, tick, q, kp, vp, bt, args, slots, n_live,
     bt_live, t0, last, dec, ss, sp, scale = args
     S, C, nh, hd = q.shape
     _, pg, kvh, _ = kp.shape
-    ms = cuda_ms(lambda: ft.fused_tick_attention(q, kp, vp, *args), torch,
-                 flush=flush)
+    ms = kernel_ms(lambda: ft.fused_tick_attention(q, kp, vp, *args), torch,
+                   flush, f"k3 {tick} 7b bf16")
     plain_ms = cuda_ms(lambda: ft._ref_fused_tick(
         q, kp, vp, bt_live, t0, last, dec, scale), torch, iters=5,
         flush=flush)
@@ -557,35 +637,86 @@ def k3_time(torch, F, ft, pa, tick, q, kp, vp, bt, args, slots, n_live,
     else:
         lengths = (t0 + 1).to(torch.int32)
         qd = q[:, 0].contiguous()
-        k1_ms = cuda_ms(lambda: pa.paged_attention(qd, kp, vp, bt, lengths,
-                                                   scale), torch,
-                        flush=flush)
+        k1_ms = kernel_ms(lambda: pa.paged_attention(qd, kp, vp, bt,
+                                                     lengths, scale),
+                          torch, flush, "k1 at k3's decode lengths")
         extra = f", K1 at the same lengths {k1_ms:.4f} ms"
     log(f"k3 {tick} 7b bf16 timing: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({by}; {nbytes} bytes, {flops} flops){extra}")
 
 
-# (tag, B, S, heads, head_dim, causal): llama_350m's training shape (the
-# main path), Llama-2-7B's, a non-causal case and a tail tile (S = 1000)
-K4_CASES = (("350m", 8, 1024, 16, 64, True), ("7b", 1, 4096, 32, 128, True),
-            ("noncausal", 4, 512, 16, 64, False),
-            ("tail", 2, 1000, 8, 128, True))
+# (tag, B, S_q, S_k, heads, head_dim, causal, types): llama_350m's
+# training shape (the main path), Llama-2-7B's, a non-causal case and a
+# tail tile (S = 1000), in both types; then bf16 cases at the edges of
+# the kernels' 64-row tiles: S = 100 (one full tile and a tail), S_q !=
+# S_k non-causal at head_dim 128 (key tiles past the row tiles, tails on
+# both axes) and causal (the top-left diagonal at unequal lengths), and
+# llama_tiny's head_dim 16 (one k-step)
+BOTH, BF16 = ("bfloat16", "float32"), ("bfloat16",)
+K4_CASES = (("350m", 8, 1024, 1024, 16, 64, True, BOTH),
+            ("7b", 1, 4096, 4096, 32, 128, True, BOTH),
+            ("noncausal", 4, 512, 512, 16, 64, False, BOTH),
+            ("tail", 2, 1000, 1000, 8, 128, True, BOTH),
+            ("s100", 4, 100, 100, 16, 64, True, BF16),
+            ("rect", 2, 300, 1000, 16, 128, False, BF16),
+            ("rect-causal", 2, 1000, 300, 8, 64, True, BF16),
+            ("hd16", 4, 1024, 1024, 4, 16, True, BF16))
+K4_KERNELS = ("fwd_mma_kernel", "dq_mma_kernel", "dkv_mma_kernel")
+
+
+def ptxas_report(stem, names):
+    """{(kernel, template arguments): (registers, spill stores, spill
+    loads)} from ptxas's report of ``csrc/<stem>.cu`` in this process's
+    build, for the kernels named in ``names``."""
+    import re
+    from paddle_tpu_torch.ops.kernels import _build
+    info = _build.build_log().get(stem)
+    if info is None:
+        return {}
+    out, cur = {}, None
+    for line in info["ptxas"].splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = None
+            for n in names:
+                t = re.search(n + r"I((?:Li\d+E)+)E", m.group(1))
+                if t:
+                    cur = (n, ",".join(re.findall(r"Li(\d+)E", t.group(1))))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(cur, [None, 0, 0])[1:] = [int(m.group(1)),
+                                                    int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(cur, [None, 0, 0])[0] = int(m.group(1))
+    return out
 
 
 def phase_k4(torch, peak, flush, record):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    report = ptxas_report("flash_attention", K4_KERNELS)
+    if not report:
+        log("k4 ptxas: the library was not built by this process (not "
+            "reported)")
+    for (kname, targs), (regs, st, ld) in sorted(report.items()):
+        log(f"k4 ptxas {kname}<{targs}>: {regs} registers, {st} bytes spill "
+            f"stores, {ld} bytes spill loads")
     gen = torch.Generator(device="cuda").manual_seed(4)
-    for tag, B, S, H, D, causal in K4_CASES:
-        for dtype in (torch.bfloat16, torch.float32):
-            dname = str(dtype).split(".")[1]
+    for tag, B, Sq, Sk, H, D, causal, dnames in K4_CASES:
+        for dname in dnames:
+            dtype = getattr(torch, dname)
             # v and do at half scale: o and the gradients stay below ~3,
             # the size TOL is set for (bf16 output rounding <= 2^-9 |x|)
-            q, k = (torch.randn((B * H, S, D), generator=gen, device="cuda")
-                    .to(dtype) for _ in range(2))
-            v, do = (torch.randn((B * H, S, D), generator=gen, device="cuda")
-                     .mul(0.5).to(dtype) for _ in range(2))
+            q, k = (torch.randn((B * H, n, D), generator=gen, device="cuda")
+                    .to(dtype) for n in (Sq, Sk))
+            v, do = (torch.randn((B * H, n, D), generator=gen, device="cuda")
+                     .mul(0.5).to(dtype) for n in (Sk, Sq))
             scale = D ** -0.5
             o, lse = fa.flash_fwd(q, k, v, scale, causal)
             dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, scale, causal)
@@ -607,8 +738,8 @@ def phase_k4(torch, peak, flush, record):
             rel = max(e[1] for e in errs)
             ok = all(e[2] for e in errs) and same and all(
                 torch.isfinite(t).all().item() for t in (o, lse, dq, dk, dv))
-            log(f"k4 {tag} {dname}: B={B} S={S} H={H} hd={D} causal={causal}"
-                f", max_abs_err o/lse/dq/dk/dv "
+            log(f"k4 {tag} {dname}: B={B} Sq={Sq} Sk={Sk} H={H} hd={D} "
+                f"causal={causal}, max_abs_err o/lse/dq/dk/dv "
                 f"{'/'.join(f'{e[0]:.2e}' for e in errs)} (tol "
                 f"{TOL[dname]:.0e}), max vector-relative error {rel:.3e} "
                 f"(tol {VEC_RTOL[dname]:.0e}), backward bitwise repeatable "
@@ -616,27 +747,54 @@ def phase_k4(torch, peak, flush, record):
             if not ok:
                 raise SystemExit(f"k4 {tag} {dname} disagrees with its plain "
                                  f"version")
-            if tag == "350m" and dtype == torch.bfloat16:
-                k4_time(torch, F, fa, (q, k, v, o, lse, do), (B, S, H, D),
-                        scale, peak, flush, record, errs)
+            if tag in ("350m", "7b") and dtype == torch.bfloat16:
+                k4_time(torch, F, fa, tag, (q, k, v, o, lse, do),
+                        (B, Sq, H, D), scale, peak, flush, record, errs)
             del q, k, v, do, o, lse, dq, dk, dv
             torch.cuda.empty_cache()
 
 
-def k4_time(torch, F, fa, tensors, shape, scale, peak, flush, record,
+def profiled_ms(torch, fn, names, flush, iters=10):
+    """Device time per call of the kernels whose names hold one of
+    ``names``, summed from torch.profiler over ``iters`` calls (L2
+    flushed before each): a second reading of the card's clock. None
+    when the profiler saw no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and any(n in e.key for n in names))
+    return us / 1e3 / iters if us else None
+
+
+def k4_time(torch, F, fa, tag, tensors, shape, scale, peak, flush, record,
             errs):
-    """K4a and K4b at the main path's shape and type beside their plain
-    versions and one SDPA call (forward; its backward through autograd
-    on a kept graph), and their bounds; also forward + backward."""
+    """K4a and K4b at a training shape in bf16 (llama_350m's, the main
+    path, goes into the record; Llama-2-7B's) beside their plain versions
+    and one SDPA call (forward; its backward through autograd on a kept
+    graph), and their bounds; also forward + backward. The kernels' own
+    times are read a second way from torch.profiler."""
     q, k, v, o, lse, do = tensors
     B, S, H, D = shape
-    ms_f = cuda_ms(lambda: fa.flash_fwd(q, k, v, scale, True), torch,
-                   flush=flush)
-    ms_b = cuda_ms(lambda: fa.flash_bwd(q, k, v, o, lse, do, scale, True),
-                   torch, flush=flush)
-    ms_fb = cuda_ms(lambda: fa.flash_bwd(
+    ms_f = kernel_ms(lambda: fa.flash_fwd(q, k, v, scale, True), torch,
+                     flush, f"k4 {tag} bf16 forward")
+    ms_b = kernel_ms(lambda: fa.flash_bwd(q, k, v, o, lse, do, scale, True),
+                     torch, flush, f"k4 {tag} bf16 backward")
+    ms_fb = kernel_ms(lambda: fa.flash_bwd(
         q, k, v, *fa.flash_fwd(q, k, v, scale, True), do, scale, True),
-        torch, flush=flush)
+        torch, flush, f"k4 {tag} bf16 forward+backward")
+    prof_f = profiled_ms(torch, lambda: fa.flash_fwd(q, k, v, scale, True),
+                         K4_KERNELS[:1], flush)
+    prof_b = profiled_ms(torch, lambda: fa.flash_bwd(q, k, v, o, lse, do,
+                                                     scale, True),
+                         K4_KERNELS[1:], flush)
     plain_f = cuda_ms(lambda: fa._ref_with_lse(q, k, v, scale, True), torch,
                       iters=5, flush=flush)
     plain_b = cuda_ms(lambda: fa._ref_bwd(q, k, v, o, lse, do, scale, True),
@@ -668,18 +826,26 @@ def k4_time(torch, F, fa, tensors, shape, scale, peak, flush, record,
     bound_f, by_f = bound(4 * n + 4 * B * H * S, flops_f, peak)
     bound_b, by_b = bound(8 * n + 4 * B * H * S, 2.5 * flops_f, peak)
     bound_fb, _ = bound(9 * n + 4 * B * H * S, 3.5 * flops_f, peak)
-    record["flash_attention_fwd"].update(
-        max_abs_err=max(errs[0][0], errs[1][0]), ms=ms_f, plain_ms=plain_f,
-        library_ms=lib_f, bound_ms=bound_f, bound_by=by_f)
-    record["flash_attention_bwd"].update(
-        max_abs_err=max(e[0] for e in errs[2:]), ms=ms_b, plain_ms=plain_b,
-        library_ms=lib_b, bound_ms=bound_b, bound_by=by_b)
-    for what, ms, plain, lib, bnd in (
-            ("forward", ms_f, plain_f, lib_f, bound_f),
-            ("backward", ms_b, plain_b, lib_b, bound_b),
-            ("forward+backward", ms_fb, plain_fb, lib_fb, bound_fb)):
-        log(f"k4 350m bf16 {what} timing: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms")
+    if tag == "350m":
+        record["flash_attention_fwd"].update(
+            max_abs_err=max(errs[0][0], errs[1][0]), ms=ms_f,
+            plain_ms=plain_f, library_ms=lib_f, bound_ms=bound_f,
+            bound_by=by_f)
+        record["flash_attention_bwd"].update(
+            max_abs_err=max(e[0] for e in errs[2:]), ms=ms_b,
+            plain_ms=plain_b, library_ms=lib_b, bound_ms=bound_b,
+            bound_by=by_b)
+    def by_profiler(x):
+        return ", profiler " + ("no device time (not measured)"
+                                if x is None else f"{x:.4f} ms")
+
+    for what, ms, plain, lib, bnd, seen in (
+            ("forward", ms_f, plain_f, lib_f, bound_f, by_profiler(prof_f)),
+            ("backward", ms_b, plain_b, lib_b, bound_b, by_profiler(prof_b)),
+            ("forward+backward", ms_fb, plain_fb, lib_fb, bound_fb, "")):
+        log(f"k4 {tag} bf16 {what} timing: kernel {ms:.4f} ms{seen}, plain "
+            f"{plain:.4f} ms, sdpa {lib:.4f} ms ({ms / lib:.2f}x), bound "
+            f"{bnd:.4f} ms")
 
 
 def phase_k5(torch, peak, flush, record):
@@ -720,10 +886,10 @@ def phase_k5(torch, peak, flush, record):
                                  f"version")
             if tag != "350m" or dtype != torch.bfloat16:
                 continue
-            ms_f = cuda_ms(lambda: rn.rms_norm_fwd(x, w, eps), torch,
-                           flush=flush)
-            ms_b = cuda_ms(lambda: rn.rms_norm_bwd(x, w, g, eps), torch,
-                           flush=flush)
+            ms_f = kernel_ms(lambda: rn.rms_norm_fwd(x, w, eps), torch,
+                             flush, "k5 350m bf16 forward")
+            ms_b = kernel_ms(lambda: rn.rms_norm_bwd(x, w, g, eps), torch,
+                             flush, "k5 350m bf16 backward")
             plain_f = cuda_ms(lambda: rn._ref_fwd(x, w, eps), torch,
                               flush=flush)
             plain_b = cuda_ms(lambda: rn._ref_bwd(x, w, g, eps), torch,
@@ -791,10 +957,10 @@ def phase_k6(torch, peak, flush, record):
                                  f"version")
             if tag != "350m" or dtype != torch.bfloat16:
                 continue
-            ms_f = cuda_ms(lambda: rk.rope_fwd(x, cos, sin, 1), torch,
-                           flush=flush)
-            ms_b = cuda_ms(lambda: rk.rope_fwd(x, cos, sin, -1), torch,
-                           flush=flush)
+            ms_f = kernel_ms(lambda: rk.rope_fwd(x, cos, sin, 1), torch,
+                             flush, "k6 350m bf16 forward")
+            ms_b = kernel_ms(lambda: rk.rope_fwd(x, cos, sin, -1), torch,
+                             flush, "k6 350m bf16 backward")
             plain_f = cuda_ms(lambda: rk._ref_rope(x, cos, sin, 1), torch,
                               flush=flush)
             plain_b = cuda_ms(lambda: rk._ref_rope(x, cos, sin, -1), torch,
@@ -812,6 +978,44 @@ def phase_k6(torch, peak, flush, record):
                 f"backward {ms_b:.4f} ms; plain composition forward "
                 f"{plain_f:.4f} ms, backward {plain_b:.4f} ms; bound "
                 f"{bound_ms:.4f} ms ({by}; {nbytes} bytes)")
+    k6_bf16_tables(torch, gen)
+
+
+def k6_bf16_tables(torch, gen):
+    """bf16 cos/sin tables, as the reference's kernel takes the tables'
+    type, at llama_350m's q in bf16 and f32: ``apply_rotary_kernel``
+    forward and backward must take the kernel route (two K6 launches)
+    and agree with the plain composition (bit for bit expected)."""
+    from paddle_tpu_torch.ops.kernels import rope as rk
+    from paddle_tpu_torch.ops.rope import precompute_freqs
+    shape = K6_CASES[0][1]
+    cos, sin = precompute_freqs(shape[-1], K6_CASES[0][2],
+                                dtype=torch.bfloat16, device="cuda")
+    x0 = 0.5 * torch.randn(shape, generator=gen, device="cuda")
+    g0 = 0.5 * torch.randn(shape, generator=gen, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        x = x0.to(dtype).requires_grad_()
+        g = g0.to(dtype)
+        before = rk.rope_fwd.launches
+        out = rk.apply_rotary_kernel(x, cos, sin)
+        (dx,) = torch.autograd.grad(out, x, g)
+        torch.cuda.synchronize()
+        launched = rk.rope_fwd.launches - before
+        ref = rk._ref_rope(x.detach(), cos, sin, 1)
+        ref_dx = rk._ref_rope(g, cos, sin, -1)
+        errs = [agreement([(out.detach(), ref.float())], dname),
+                agreement([(dx, ref_dx.float())], dname)]
+        same = torch.equal(out, ref) and torch.equal(dx, ref_dx)
+        ok = all(e[2] for e in errs) and launched == 2
+        log(f"k6 bf16 tables, {dname} x {list(shape)}: route kernel "
+            f"({launched} K6 launches for forward + backward, expected 2), "
+            f"max_abs_err fwd/bwd {errs[0][0]:.2e}/{errs[1][0]:.2e} (tol "
+            f"{TOL[dname]:.0e}), bitwise equal to the plain version {same} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"k6 bf16 tables {dname}: not on the kernel "
+                             f"route, or disagrees with the plain version")
 
 
 # (tag, M, K, N, bias, activation, bf16 route): GPT-2 345M's FFN at 4096
@@ -898,7 +1102,8 @@ def k7_time(torch, F, ge, tag, x, w, b, act, peak, flush, record, err):
     the activation (a yardstick the port never calls), and its bound."""
     M, K = x.shape
     N = w.shape[1]
-    ms = cuda_ms(lambda: ge.gemm_epilogue(x, w, b, act), torch, flush=flush)
+    ms = kernel_ms(lambda: ge.gemm_epilogue(x, w, b, act), torch, flush,
+                   f"k7 {tag} bf16")
     plain_ms = cuda_ms(lambda: ge._ref_gemm_epilogue(x, w, b, act), torch,
                        flush=flush)
     zero = torch.zeros((N,), dtype=x.dtype, device="cuda")
@@ -1004,8 +1209,8 @@ def k8_time(torch, qm, x, w, sx, sw, peak, flush, record, err):
     bound at the int8 tensor-core peak."""
     M, K = x.shape
     N = w.shape[1]
-    ms = cuda_ms(lambda: qm.quantized_matmul(x, w, sx, sw), torch,
-                 flush=flush)
+    ms = kernel_ms(lambda: qm.quantized_matmul(x, w, sx, sw), torch, flush,
+                   "k8 7b-gate-up")
     plain_ms = cuda_ms(lambda: qm._ref(x, w, sx, sw), torch, iters=5,
                        flush=flush)
     try:
@@ -1688,6 +1893,16 @@ def profile_once(torch, fn, card, what="train", unit="step"):
         f"launches")
     for name, ms, count in kernels[:12]:
         log(f"  {ms:8.3f} ms/{unit}  {count:5d}x  {name[:90]}")
+    # the port's own kernels (each library's anonymous namespace; PyTorch
+    # has kernels there too, named with at:: or c10:: types), ranked or
+    # not: K4's three and K5's in a train step
+    ours = [(name.split("::")[1].split("(")[0], ms, count)
+            for name, ms, count in kernels
+            if name.startswith("void (anonymous namespace)::")
+            and "at::" not in name and "c10::" not in name]
+    log(f"profile {what}: the port's kernels, {sum(k[1] for k in ours):.3f} "
+        f"ms/{unit}: " + ", ".join(f"{n} {ms:.3f} ms ({c}x)"
+                                     for n, ms, c in ours))
 
 
 def main():

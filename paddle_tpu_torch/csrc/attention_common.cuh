@@ -6,8 +6,8 @@
 // - element helpers: f32 loads and stores of f32/bf16, 16-byte row loads,
 //   warp sums and sums or maxima over a few neighbouring lanes;
 // - mma.sync m16n8k16 bf16 fragment helpers (K2's, K3's, K4's and K7's
-//   tensor-core tiles), ldmatrix fragment loads and 16-byte cp.async
-//   copies (K2's pipelined gather);
+//   tensor-core tiles), ldmatrix fragment loads and 16- and 4-byte
+//   cp.async copies (K2's and K4's pipelined loads);
 // - decode_attend: one query row per kv head's GQA group over paged K/V
 //   (K1's design). K1 runs it over a slot's block table; K3's C == 1
 //   kernel runs it over the slot's run of the page schedule. The caller
@@ -136,6 +136,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :
                : "r"(smem_u32(dst)), "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+// 4-byte asynchronous copy (one f32), zero-filled when pred is false
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :
+               : "r"(smem_u32(dst)), "l"(src), "r"(pred ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

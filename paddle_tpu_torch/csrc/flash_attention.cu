@@ -18,42 +18,81 @@
 // f32 or bf16; hd 16, 64 or 128; any Sq and Sk (the tail tiles are
 // masked).
 //
-// What bounds it on this card: operations. At llama_350m's training shape
-// (B = 8, 16 heads, S = 1024, hd = 64, causal) the forward does 2 * B * H *
-// S^2 * hd = 17.2 GFLOP against 67 MB of q, k, v and o: 0.017 ms at 989
-// TFLOP/s bf16 against 0.020 ms at 3.35 TB/s, so bytes and operations are
-// of one order there; at Llama-2-7B's (S = 4096, hd = 128) operations lead
-// by four times.
+// What bounds it on this card. At llama_350m's training shape (B = 8, 16
+// heads, S = 1024, hd = 64, causal) the forward does 2 * B * H * S^2 * hd
+// = 17.2 GFLOP against 67 MB of q, k, v and o: 0.017 ms at 989 TFLOP/s
+// bf16 against 0.020 ms at 3.35 TB/s; the backward does 2.5 times the
+// operations (0.043 ms) against 134 MB (0.040 ms). Bytes and operations
+// are of one order, and at Llama-2-7B's shape (S = 4096, hd = 128)
+// operations lead by four times. So the kernels must keep the tensor
+// cores busy while the next tile streams in: what costs time is a tile's
+// load latency left exposed, instructions spent moving data between
+// shared memory and registers, and work on masked scores.
 //
-// Design. The Pallas grid carries the softmax state (or dq, or dk and dv)
-// across its sequential kv (or q) axis in VMEM scratch. Blocks here run in
-// no order, so each block owns one output tile and walks the other axis
-// itself, in order: no atomics, and the gradients are the same bit for
-// bit from run to run.
-//
-// - forward and dq: one block per (tile of 64 query rows, b*h), walking
-//   tiles of 32 keys up to the tile's causal frontier (key tiles wholly
-//   above the diagonal are neither read nor computed);
-// - dk + dv: one block per (tile of keys, b*h), walking tiles of 32 query
-//   rows from the first that can see the block's first key;
+// bf16: tensor cores fed by asynchronous copies (the design of K2,
+// ragged_prefill.cu).
+// - Tiles of 64 rows on both axes, 4 warps of 16 rows. Forward and dq: one
+//   block per (64 query rows, b*h), walking 64-key tiles up to the row
+//   tile's causal frontier (tiles wholly above it are neither read nor
+//   computed); blocks of the last row tiles, the longest walks, start
+//   first, so the grid's tail is short walks. dk + dv: one block per (64
+//   keys, b*h), walking query tiles from the first that can see its
+//   first key; blockIdx.x ascending already starts the longest walks
+//   first.
+// - Loads: a two-stage ring of 16-byte cp.async copies (4-byte ones for
+//   the lse and delta rows). Tile i + 1's K and V (or Q, dO, lse and
+//   delta) are in flight while tile i's products run, behind one barrier
+//   a tile. Rows past Sq or Sk are zero-filled by src-size-0 copies and
+//   never addressed.
+// - Fragments: the block's own rows (Q; Q and dO; K and V) are copied
+//   once, and each warp's A fragments loaded by ldmatrix.x4 and held in
+//   registers for the whole walk; dk + dv at hd 128, whose two 16 x 128
+//   f32 accumulators a warp leave no room for them, reload them from
+//   shared memory each tile. Every B operand comes by ldmatrix from the
+//   tile as it lies: .x4 where the tile's rows are the product's columns
+//   (K in q k^T, V in do v^T, Q in k q^T, dO in v do^T), .x4.trans where
+//   they are its k index (V in p v, K in ds k, dO in p^T do, Q in ds^T
+//   q). No tile is transposed by hand, and each of Q, K, V and dO is
+//   read from device memory once per walk. Rows in shared memory are
+//   padded by 16 bytes: every ldmatrix is free of bank conflicts.
+// - Scores leave mma.sync in the C layout, which is the A layout of the
+//   next product (p v, ds k; in dk + dv's transposed frame p^T do and
+//   ds^T q), rounded to bf16 as the plain version's bf16 operands round.
+// - Softmax in base 2: scores times scale * log2(e) and exp2f (one
+//   instruction); lse is written in natural log, (m2 + log2 l) * ln 2,
+//   and the backward forms p = exp2(s * scale * log2 e - lse * log2 e).
+// - The causal mask and the Sq/Sk bounds are tested only on a warp's
+//   tiles that cross the diagonal or the tail; a warp skips a tile none
+//   of its rows can see.
+// - Outputs go through a drained slot of shared memory (each warp its
+//   own 16 rows) to 16-byte stores.
+// - No atomics: each block owns its output tile and walks the other axis
+//   in order, so the gradients are the same bit for bit from run to run.
+//   The price is the dq kernel's own recomputation of the scores and of
+//   do v^T (7 products a tile pair where an atomic dq would do 5).
 // - delta: the dq kernel computes its rows' delta from do and o, uses it,
 //   and writes it for the dk + dv kernel, which the caller launches after
 //   it on the same stream.
 //
-// bf16 runs the products on mma.sync m16n8k16 tensor-core tiles with f32
-// accumulators (4 warps of 16 rows; probabilities and ds rounded to bf16
-// for their products, as the plain version's bf16 operands round its). f32
-// runs SIMT so that f32 keeps f32 products: a thread keeps a few rows'
-// state and a slice of their accumulators in registers and computes a
-// 4-wide block of scores from shared memory.
+// f32 runs SIMT so that f32 keeps f32 products (no TF32): a thread keeps
+// a few rows' state and a slice of their accumulators in registers and
+// computes a 4-wide block of scores from shared memory, over 32-wide
+// tiles staged by plain loads.
 //
-// What it does not do yet: wgmma, TMA or cp.async pipelining (a tile's
-// loads and products do not overlap), ldmatrix, GQA without repeated
-// heads.
+// What holds it back, and what it does not do yet. Each warp reads the
+// whole K and V tile (or Q and dO) from shared memory for its 16 rows:
+// per 64 x 64 tile pair the four warps' ldmatrix loads move 64 KB at
+// hd 64 against the 16 KB copied in, which at 128 bytes of shared memory
+// a cycle an SM takes about as long as their 256 mma.sync (an estimate
+// from the shapes; no profiler on the card's machine counts it). wgmma
+// (a warpgroup's m64 tile is the block's 64 rows, B read once from
+// shared memory for all of them) is the next step; then TMA, a third
+// stage, GQA without repeated heads.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cmath>
 #include <cstdint>
 
 #include "attention_common.cuh"
@@ -64,8 +103,10 @@ using namespace pt_attn;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 128;   // 4 warps
-constexpr int kRowTile = 64;    // query rows (forward, dq) or keys (dk+dv)
-constexpr int kColTile = 32;    // keys (forward, dq) or query rows (dk+dv)
+constexpr int kRowTile = 64;    // f32: query rows (forward, dq)
+constexpr int kColTile = 32;    // f32: keys (forward, dq), query rows (dk+dv)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Dims {
   int Sq, Sk;
@@ -73,256 +114,16 @@ struct Dims {
   bool causal;
 };
 
-// key kk may be seen by query row qr: both in range, and not above the
-// diagonal when causal
+// key kk is in range and, when causal, not above query row qr's diagonal
+// (the bf16 kernels never store rows past Sq, so they test only this)
+__device__ __forceinline__ bool sees(const Dims& d, int qr, int kk) {
+  return kk < d.Sk && (!d.causal || kk <= qr);
+}
+
+// ... and query row qr is in range too (the f32 kernels)
 __device__ __forceinline__ bool visible(const Dims& d, int qr, int kk) {
-  return qr < d.Sq && kk < d.Sk && (!d.causal || kk <= qr);
+  return qr < d.Sq && sees(d, qr, kk);
 }
-
-// ------------------------------------------------------- bf16: staging
-//
-// Rows of a [rows, HD] bf16 tensor into shared memory, row-major with a
-// padded stride (HD + 8: the fragment loads of neighbouring rows fall in
-// other banks), or transposed ([HD][N + 8]). Rows past `total` are zeros.
-
-template <int HD>
-__device__ __forceinline__ void stage_rows(bf16* __restrict__ dst,
-                                           const bf16* __restrict__ src,
-                                           int row0, int n, int total) {
-  constexpr int CH = HD / 8;
-  constexpr int LD = HD + 8;
-  for (int i = threadIdx.x; i < n * CH; i += kThreads) {
-    const int r = i / CH;
-    const int c = (i % CH) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < total)
-      x = __ldg(reinterpret_cast<const uint4*>(
-          src + static_cast<long long>(row0 + r) * HD + c));
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = x;
-  }
-}
-
-template <int HD, int N>
-__device__ __forceinline__ void stage_cols(bf16* __restrict__ dst,
-                                           const bf16* __restrict__ src,
-                                           int row0, int total) {
-  constexpr int CH = HD / 8;
-  constexpr int LD = N + 8;
-  // consecutive threads take consecutive rows of one chunk: no bank
-  // conflicts on the transposed stores
-  for (int i = threadIdx.x; i < N * CH; i += kThreads) {
-    const int r = i % N;
-    const int c = (i / N) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < total)
-      x = __ldg(reinterpret_cast<const uint4*>(
-          src + static_cast<long long>(row0 + r) * HD + c));
-    const bf16* xv = reinterpret_cast<const bf16*>(&x);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dst[(c + e) * LD + r] = xv[e];
-  }
-}
-
-// A fragment of k-step k of a warp's 16 rows, from a row-major tile of
-// stride LD (rows r0 .. r0 + 15)
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* s,
-                                       int r0, int k) {
-  const int fr = (threadIdx.x & 31) >> 2;
-  const int fc = (threadIdx.x & 3) * 2;
-  const bf16* p = s + (r0 + fr) * LD + k * 16 + fc;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * LD);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * LD + 8);
-}
-
-// acc[n] (NT n-tiles of 8 columns) += A B^T over KS k-steps: A the warp's
-// 16 rows of a row-major tile sa (stride LDA, from row ra), B's rows the
-// columns of the product (row-major tile sb, stride LDB)
-template <int KS, int NT, int LDA, int LDB>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const bf16* sa,
-                                        int ra, const bf16* sb) {
-  const int fr = (threadIdx.x & 31) >> 2;
-  const int fc = (threadIdx.x & 3) * 2;
-#pragma unroll
-  for (int k = 0; k < KS; ++k) {
-    uint32_t a[4];
-    frag_a<LDA>(a, sa, ra, k);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const bf16* b = sb + (n * 8 + fr) * LDB + k * 16 + fc;
-      mma_bf16(acc[n], a, ld32(b), ld32(b + 8));
-    }
-  }
-}
-
-// acc[n] (NO n-tiles over HD) += P B: P the warp's 16 x (2 * KJ * 8)
-// fragment values in C layout (p[2j], p[2j + 1] form k-step j), B a
-// transposed tile sbt ([HD][LDB], the k index contiguous)
-template <int KJ, int NO, int LDB>
-__device__ __forceinline__ void mma_pb(float (&acc)[NO][4],
-                                       const float (&p)[2 * KJ][4],
-                                       const bf16* sbt) {
-  const int fr = (threadIdx.x & 31) >> 2;
-  const int fc = (threadIdx.x & 3) * 2;
-#pragma unroll
-  for (int j = 0; j < KJ; ++j) {
-    const uint32_t a[4] = {pack_bf16(p[2 * j][0], p[2 * j][1]),
-                           pack_bf16(p[2 * j][2], p[2 * j][3]),
-                           pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
-                           pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      const bf16* b = sbt + (n * 8 + fr) * LDB + j * 16 + fc;
-      mma_bf16(acc[n], a, ld32(b), ld32(b + 8));
-    }
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  }
-}
-
-// rows fr and fr + 8 of the warp's 16 (from row0) of a [*, HD] output,
-// times mul, rows at or past `total` skipped
-template <int NO>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ out,
-                                           const float (&acc)[NO][4],
-                                           int row0, int total,
-                                           const float (&mul)[2]) {
-  const int fr = (threadIdx.x & 31) >> 2;
-  const int fc = (threadIdx.x & 3) * 2;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row0 + fr + 8 * h;
-    if (r >= total) continue;
-    bf16* op = out + static_cast<long long>(r) * (NO * 8);
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(op + n * 8 + fc) =
-          pack_bf16(acc[n][2 * h] * mul[h], acc[n][2 * h + 1] * mul[h]);
-  }
-}
-
-// ---------------------------------------------------- bf16: forward
-
-template <int HD>
-constexpr size_t fwd_mma_smem() {
-  return sizeof(bf16) * ((kRowTile + kColTile) * (HD + 8) +
-                         HD * (kColTile + 8));
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o,
-               float* __restrict__ lse, Dims dm) {
-  constexpr int LD = HD + 8, LDT = kColTile + 8;
-  constexpr int KS = HD / 16, NS = kColTile / 8, NO = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [kRowTile][LD]
-  bf16* sK = sQ + kRowTile * LD;                  // [kColTile][LD]
-  bf16* sVt = sK + kColTile * LD;                 // [HD][LDT]
-
-  const long long bh = blockIdx.y;
-  const int q0 = blockIdx.x * kRowTile;
-  const bf16* qb = q + bh * dm.Sq * HD;
-  const bf16* kb = k + bh * dm.Sk * HD;
-  const bf16* vb = v + bh * dm.Sk * HD;
-  const int warp = threadIdx.x >> 5;
-  const int fr = (threadIdx.x & 31) >> 2;
-  const int fc = (threadIdx.x & 3) * 2;
-  const int wr = warp * 16;                       // the warp's first row
-
-  stage_rows<HD>(sQ, qb, q0, kRowTile, dm.Sq);
-  __syncthreads();
-  uint32_t qa[KS][4];   // the warp's Q fragments, for the whole walk
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) frag_a<LD>(qa[kk], sQ, wr, kk);
-
-  int qr[2];
-  float m[2], l[2], acc[NO][4];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    qr[h] = q0 + wr + fr + 8 * h;
-    m[h] = kNegInf;
-    l[h] = 0.f;
-  }
-  zero(acc);
-  const int q_hi = min(q0 + kRowTile, dm.Sq) - 1;
-  const int n_keys = dm.causal ? min(dm.Sk, q_hi + 1) : dm.Sk;
-
-  for (int k0 = 0; k0 < n_keys; k0 += kColTile) {
-    stage_rows<HD>(sK, kb, k0, kColTile, dm.Sk);
-    stage_cols<HD, kColTile>(sVt, vb, k0, dm.Sk);
-    __syncthreads();
-    float sc[NS][4];
-    zero(sc);
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const bf16* b = sK + (n * 8 + fr) * LD + kk * 16 + fc;
-        mma_bf16(sc[n], qa[kk], ld32(b), ld32(b + 8));
-      }
-    }
-    // online softmax of fragment rows fr (h = 0) and fr + 8 (h = 1)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool ok = visible(dm, qr[h], k0 + n * 8 + fc + e);
-          const float x = ok ? sc[n][2 * h + e] * dm.scale : kNegInf;
-          sc[n][2 * h + e] = x;
-          mx = fmaxf(mx, x);
-        }
-      }
-      mx = quad_max(mx);
-      const float m_new = fmaxf(m[h], mx);
-      const float corr = expf(m[h] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool ok = visible(dm, qr[h], k0 + n * 8 + fc + e);
-          const float p = ok ? expf(sc[n][2 * h + e] - m_new) : 0.f;
-          sc[n][2 * h + e] = p;
-          psum += p;
-        }
-      }
-      l[h] = l[h] * corr + quad_sum(psum);
-      m[h] = m_new;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        acc[n][2 * h] *= corr;
-        acc[n][2 * h + 1] *= corr;
-      }
-    }
-    mma_pb<kColTile / 16, NO, LDT>(acc, sc, sVt);
-    __syncthreads();   // the next tile rewrites sK and sVt
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    inv[h] = l[h] == 0.f ? 0.f : 1.f / l[h];
-    if (fc == 0 && qr[h] < dm.Sq)
-      lse[bh * dm.Sq + qr[h]] = m[h] + logf(fmaxf(l[h], 1e-30f));
-  }
-  store_rows<NO>(o + bh * dm.Sq * HD, acc, q0 + wr, dm.Sq, inv);
-}
-
-// ------------------------------------------------- bf16: dq (+ delta)
 
 // delta of rows row0 .. row0 + n - 1 (rows past Sq get 0): rowsum(do * o)
 // - dlse, each warp taking rows warp, warp + 4, ...; written to s_delta
@@ -352,11 +153,296 @@ __device__ __forceinline__ void row_delta(const T* __restrict__ dob,
   }
 }
 
+// ------------------------------------------------- bf16: shared helpers
+
+constexpr int kTile = 64;   // the block's own rows, 16 a warp, and the
+                            // walked tile: 64 on both axes
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  }
+}
+
+// rows row0 .. row0 + n - 1 of a [*, HD] tensor into shared memory
+// (pitch HD + 8) by 16-byte cp.async; rows at or past total are
+// zero-filled and never addressed
+template <int HD>
+__device__ __forceinline__ void copy_rows(bf16* dst,
+                                          const bf16* __restrict__ src,
+                                          int row0, int n, int total) {
+  constexpr int CH = HD / 8, P = HD + 8;
+  for (int e = threadIdx.x; e < n * CH; e += kThreads) {
+    const int r = e / CH, c = (e % CH) * 8;
+    const bool ok = row0 + r < total;
+    cp_async16(dst + r * P + c,
+               src + (ok ? static_cast<long long>(row0 + r) * HD + c : 0),
+               ok);
+  }
+}
+
+// the A fragment of k-step k of rows r0 .. r0 + 15 of a shared tile
+// (pitch P): ldmatrix.x4, matrix i from lanes 8i .. 8i + 7 (rows + 8 for
+// odd i, columns + 8 for i >= 2)
+template <int P>
+__device__ __forceinline__ void ldm_a(uint32_t (&a)[4], const bf16* s,
+                                      int r0, int k) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(a, s + (r0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * P +
+                     k * 16 + (lane >> 4) * 8);
+}
+
+// acc[n] (NT n-tiles of 8 columns) += A B^T over KS k-steps: afrag(a, k)
+// gives the warp's A fragment of k-step k; B^T is a shared tile sb
+// (pitch P) whose rows are the product's columns, its k index their
+// elements: one ldmatrix.x4 gives the B fragments of two n-tiles
+template <int KS, int NT, int P, typename AFrag>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], AFrag afrag,
+                                        const bf16* sb) {
+  const int lane = threadIdx.x & 31;
+  const int mi = lane >> 3, mr = lane & 7;
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {
+    uint32_t a[4];
+    afrag(a, k);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4(b, sb + (np * 16 + (mi >> 1) * 8 + mr) * P + k * 16 +
+                         (mi & 1) * 8);
+      mma_bf16(acc[2 * np], a, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc[n] (NO n-tiles over HD) += X B: X the warp's 16 x 16 KJ values in
+// the C layout (x[2j], x[2j + 1] are the n-tiles of k-step j), rounded to
+// bf16 into A fragments; B a shared tile (pitch P) as it lies, its rows
+// the k index: ldmatrix.x4.trans gives the B fragments of two n-tiles
+template <int KJ, int NO, int P>
+__device__ __forceinline__ void mma_xb(float (&acc)[NO][4],
+                                       const float (&x)[2 * KJ][4],
+                                       const bf16* sb) {
+  const int lane = threadIdx.x & 31;
+  const int mi = lane >> 3, mr = lane & 7;
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    const uint32_t a[4] = {pack_bf16(x[2 * j][0], x[2 * j][1]),
+                           pack_bf16(x[2 * j][2], x[2 * j][3]),
+                           pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]),
+                           pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3])};
+#pragma unroll
+    for (int np = 0; np < NO / 2; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, sb + (j * 16 + (mi & 1) * 8 + mr) * P + np * 16 +
+                               (mi >> 1) * 8);
+      mma_bf16(acc[2 * np], a, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The warp's accumulator rows (fragment rows fr and fr + 8) times mul[h],
+// rounded to bf16, into its 16 rows s of a slot no other warp touches
+// (pitch HD + 8), then out in 16-byte stores as rows row0 .. row0 + 15
+// of out [*, HD]; rows at or past total are skipped
+template <int HD>
+__device__ __forceinline__ void store_tile(bf16* __restrict__ out,
+                                           const float (&acc)[HD / 8][4],
+                                           bf16* s, int row0, int total,
+                                           const float (&mul)[2]) {
+  constexpr int CH = HD / 8, P = HD + 8;
+  const int lane = threadIdx.x & 31;
+  const int fr = lane >> 2, fc = (lane & 3) * 2;
+  __syncwarp();   // the warp's last reads of s (ldmatrix) are done
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<uint32_t*>(s + (fr + 8 * h) * P + n * 8 + fc) =
+          pack_bf16(acc[n][2 * h] * mul[h], acc[n][2 * h + 1] * mul[h]);
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * CH; e += 32) {
+    const int r = e / CH, c = (e % CH) * 8;
+    if (row0 + r < total)
+      *reinterpret_cast<uint4*>(out + static_cast<long long>(row0 + r) * HD +
+                                c) =
+          *reinterpret_cast<const uint4*>(s + r * P + c);
+  }
+}
+
+// ---------------------------------------------------- bf16: forward
+
+// One key tile's online-softmax step (base 2) for the warp's fragment
+// rows qr[0] (fr) and qr[1] (fr + 8): the raw scores sc become
+// probabilities exp2(s * scale2 - m) in place, and m, l and acc are
+// rescaled. MASK tests each key against Sk and the causal diagonal and
+// sets an unseen scaled score to -inf, whose exp2 is 0 (m stays finite:
+// it starts at -1e30); without MASK every key is seen.
+template <bool MASK, int NS, int NO>
+__device__ __forceinline__ void softmax_step(float (&sc)[NS][4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&acc)[NO][4],
+                                             const int (&qr)[2], int k0,
+                                             const Dims& dm, float scale2) {
+  const int fc = (threadIdx.x & 3) * 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = sc[n][2 * h + e] * scale2;
+        if (MASK && !sees(dm, qr[h], k0 + n * 8 + fc + e)) x = -INFINITY;
+        sc[n][2 * h + e] = x;
+        mx = fmaxf(mx, x);
+      }
+    }
+    const float m_new = fmaxf(m[h], quad_max(mx));
+    const float corr = exp2f(m[h] - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = exp2f(sc[n][2 * h + e] - m_new);
+        sc[n][2 * h + e] = p;
+        psum += p;
+      }
+    }
+    l[h] = l[h] * corr + quad_sum(psum);
+    m[h] = m_new;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][2 * h] *= corr;
+      acc[n][2 * h + 1] *= corr;
+    }
+  }
+}
+
+// the ring of the forward and dq: two stages of two 64-row tiles (K and V)
+template <int HD>
+constexpr size_t ring_bytes() {
+  return sizeof(bf16) * 2 * 2 * kTile * (HD + 8);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, bf16* __restrict__ o,
+               float* __restrict__ lse, Dims dm) {
+  constexpr int P = HD + 8, KS = HD / 16, NS = kTile / 8, NO = HD / 8;
+  constexpr int T = kTile * P;   // elements of one tile in shared memory
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);   // [2][K, V][kTile][P]
+
+  const long long bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const bf16* kb = k + bh * dm.Sk * HD;
+  const bf16* vb = v + bh * dm.Sk * HD;
+  const int fr = (threadIdx.x & 31) >> 2;
+  const int fc = (threadIdx.x & 3) * 2;
+  const int wr = (threadIdx.x >> 5) * 16;   // the warp's first row
+  const int q_hi = min(q0 + kTile, dm.Sq) - 1;
+  const int n_keys = dm.causal ? min(dm.Sk, q_hi + 1) : dm.Sk;
+  const int n_tiles = (n_keys + kTile - 1) / kTile;
+  auto stage = [&](int i) { return ring + (i & 1) * 2 * T; };
+  auto load = [&](int i) {
+    copy_rows<HD>(stage(i), kb, i * kTile, kTile, dm.Sk);
+    copy_rows<HD>(stage(i) + T, vb, i * kTile, kTile, dm.Sk);
+  };
+
+  // Q into stage 1's K slot (free until tile 1 is loaded), tile 0 into
+  // stage 0; each warp's Q fragments are then held for the whole walk
+  copy_rows<HD>(stage(1), q + bh * dm.Sq * HD, q0, kTile, dm.Sq);
+  load(0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) ldm_a<P>(qa[kk], stage(1), wr, kk);
+  auto q_frag = [&](uint32_t (&a)[4], int kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[e] = qa[kk][e];
+  };
+
+  const float scale2 = dm.scale * kLog2e;
+  int qr[2];
+  float m[2], l[2], acc[NO][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qr[h] = q0 + wr + fr + 8 * h;
+    m[h] = kNegInf;
+    l[h] = 0.f;
+  }
+  zero(acc);
+  const int row_lo = q0 + wr;
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<0>();
+    // tile i has landed for every thread, and every warp is done with
+    // tile i - 1 (and with Q): its stage takes tile i + 1
+    __syncthreads();
+    if (i + 1 < n_tiles) load(i + 1);
+    cp_async_commit();
+    const int k0 = i * kTile;
+    if (dm.causal && k0 > row_lo + 15) continue;   // warp-uniform
+    const bf16* sk = stage(i);
+    float sc[NS][4];
+    zero(sc);
+    mma_abt<KS, NS, P>(sc, q_frag, sk);               // q k^T
+    if ((dm.causal && k0 + kTile - 1 > row_lo) || k0 + kTile > dm.Sk)
+      softmax_step<true>(sc, m, l, acc, qr, k0, dm, scale2);
+    else
+      softmax_step<false>(sc, m, l, acc, qr, k0, dm, scale2);
+    mma_xb<kTile / 16, NO, P>(acc, sc, sk + T);       // p v
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    inv[h] = l[h] == 0.f ? 0.f : 1.f / l[h];
+    if (fc == 0 && qr[h] < dm.Sq)
+      lse[bh * dm.Sq + qr[h]] = (m[h] + log2f(fmaxf(l[h], 1e-30f))) * kLn2;
+  }
+  // stage n_tiles % 2 was last read before the last barrier
+  store_tile<HD>(o + bh * dm.Sq * HD, acc, stage(n_tiles) + wr * P, row_lo,
+                 dm.Sq, inv);
+}
+
+// ------------------------------------------------- bf16: dq (+ delta)
+
 template <int HD>
 constexpr size_t dq_mma_smem() {
-  return sizeof(bf16) * (2 * (kRowTile + kColTile) * (HD + 8) +
-                         HD * (kColTile + 8)) +
-         sizeof(float) * 2 * kRowTile;
+  return ring_bytes<HD>() + sizeof(float) * kTile;
+}
+
+// ds of one key tile in place of the raw scores sc: p = exp2(s * scale2 -
+// lse2) (lse2 = lse * log2 e of rows qr[h]), ds = p * (dp - delta)
+template <bool MASK, int NS>
+__device__ __forceinline__ void ds_step(float (&sc)[NS][4],
+                                        const float (&dp)[NS][4],
+                                        const float (&rl)[2],
+                                        const float (&rd)[2],
+                                        const int (&qr)[2], int k0,
+                                        const Dims& dm, float scale2) {
+  const int fc = (threadIdx.x & 3) * 2;
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      float p = exp2f(fmaf(sc[n][e], scale2, -rl[h]));
+      if (MASK && !sees(dm, qr[h], k0 + n * 8 + fc + (e & 1))) p = 0.f;
+      sc[n][e] = p * (dp[n][e] - rd[h]);
+    }
+  }
 }
 
 template <int HD>
@@ -366,81 +452,117 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ dlse, float* __restrict__ delta,
               bf16* __restrict__ dq, Dims dm) {
-  constexpr int LD = HD + 8, LDT = kColTile + 8;
-  constexpr int KS = HD / 16, NS = kColTile / 8, NO = HD / 8;
+  constexpr int P = HD + 8, KS = HD / 16, NS = kTile / 8, NO = HD / 8;
+  constexpr int T = kTile * P;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [kRowTile][LD]
-  bf16* sdO = sQ + kRowTile * LD;                 // [kRowTile][LD]
-  bf16* sK = sdO + kRowTile * LD;                 // [kColTile][LD]
-  bf16* sV = sK + kColTile * LD;                  // [kColTile][LD]
-  bf16* sKt = sV + kColTile * LD;                 // [HD][LDT]
-  float* s_lse = reinterpret_cast<float*>(sKt + HD * LDT);
-  float* s_delta = s_lse + kRowTile;
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);   // [2][K, V][kTile][P]
+  float* s_delta = reinterpret_cast<float*>(ring + 4 * T);
 
   const long long bh = blockIdx.y;
-  const int q0 = blockIdx.x * kRowTile;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
   const long long qoff = bh * dm.Sq * HD, koff = bh * dm.Sk * HD;
-  const int warp = threadIdx.x >> 5;
   const int fr = (threadIdx.x & 31) >> 2;
-  const int fc = (threadIdx.x & 3) * 2;
-  const int wr = warp * 16;
+  const int wr = (threadIdx.x >> 5) * 16;
+  const int q_hi = min(q0 + kTile, dm.Sq) - 1;
+  const int n_keys = dm.causal ? min(dm.Sk, q_hi + 1) : dm.Sk;
+  const int n_tiles = (n_keys + kTile - 1) / kTile;
+  auto stage = [&](int i) { return ring + (i & 1) * 2 * T; };
+  auto load = [&](int i) {
+    copy_rows<HD>(stage(i), k + koff, i * kTile, kTile, dm.Sk);
+    copy_rows<HD>(stage(i) + T, v + koff, i * kTile, kTile, dm.Sk);
+  };
 
-  stage_rows<HD>(sQ, q + qoff, q0, kRowTile, dm.Sq);
-  stage_rows<HD>(sdO, dout + qoff, q0, kRowTile, dm.Sq);
-  for (int r = threadIdx.x; r < kRowTile; r += kThreads)
-    s_lse[r] = q0 + r < dm.Sq ? lse[bh * dm.Sq + q0 + r] : 0.f;
+  // Q and dO into stage 1 (free until tile 1 is loaded), tile 0 into
+  // stage 0; delta and lse while they fly
+  copy_rows<HD>(stage(1), q + qoff, q0, kTile, dm.Sq);
+  copy_rows<HD>(stage(1) + T, dout + qoff, q0, kTile, dm.Sq);
+  load(0);
+  cp_async_commit();
   row_delta<bf16, HD>(dout + qoff, o + qoff,
                       dlse == nullptr ? nullptr : dlse + bh * dm.Sq,
-                      delta + bh * dm.Sq, s_delta, q0, kRowTile, dm.Sq);
-  __syncthreads();
-
+                      delta + bh * dm.Sq, s_delta, q0, kTile, dm.Sq);
   int qr[2];
-  float rl[2], rd[2];
+  float rl[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     qr[h] = q0 + wr + fr + 8 * h;
-    rl[h] = s_lse[wr + fr + 8 * h];
-    rd[h] = s_delta[wr + fr + 8 * h];
+    rl[h] = qr[h] < dm.Sq ? lse[bh * dm.Sq + qr[h]] * kLog2e : 0.f;
   }
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[KS][4], da[KS][4];   // Q and dO fragments, held
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    ldm_a<P>(qa[kk], stage(1), wr, kk);
+    ldm_a<P>(da[kk], stage(1) + T, wr, kk);
+  }
+  auto q_frag = [&](uint32_t (&a)[4], int kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[e] = qa[kk][e];
+  };
+  auto do_frag = [&](uint32_t (&a)[4], int kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[e] = da[kk][e];
+  };
+  const float rd[2] = {s_delta[wr + fr], s_delta[wr + fr + 8]};
+
+  const float scale2 = dm.scale * kLog2e;
   float acc[NO][4];
   zero(acc);
-  const int q_hi = min(q0 + kRowTile, dm.Sq) - 1;
-  const int n_keys = dm.causal ? min(dm.Sk, q_hi + 1) : dm.Sk;
-
-  for (int k0 = 0; k0 < n_keys; k0 += kColTile) {
-    stage_rows<HD>(sK, k + koff, k0, kColTile, dm.Sk);
-    stage_rows<HD>(sV, v + koff, k0, kColTile, dm.Sk);
-    stage_cols<HD, kColTile>(sKt, k + koff, k0, dm.Sk);
-    __syncthreads();
+  const int row_lo = q0 + wr;
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();   // as in the forward
+    if (i + 1 < n_tiles) load(i + 1);
+    cp_async_commit();
+    const int k0 = i * kTile;
+    if (dm.causal && k0 > row_lo + 15) continue;   // warp-uniform
+    const bf16* sk = stage(i);
     float sc[NS][4], dp[NS][4];
     zero(sc);
     zero(dp);
-    mma_abt<KS, NS, LD, LD>(sc, sQ, wr, sK);    // q k^T
-    mma_abt<KS, NS, LD, LD>(dp, sdO, wr, sV);   // do v^T
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const bool ok = visible(dm, qr[h], k0 + n * 8 + fc + (e & 1));
-        const float p = ok ? expf(sc[n][e] * dm.scale - rl[h]) : 0.f;
-        sc[n][e] = p * (dp[n][e] - rd[h]);      // ds
-      }
-    }
-    mma_pb<kColTile / 16, NO, LDT>(acc, sc, sKt);   // ds k
-    __syncthreads();
+    mma_abt<KS, NS, P>(sc, q_frag, sk);        // q k^T
+    mma_abt<KS, NS, P>(dp, do_frag, sk + T);   // do v^T
+    if ((dm.causal && k0 + kTile - 1 > row_lo) || k0 + kTile > dm.Sk)
+      ds_step<true>(sc, dp, rl, rd, qr, k0, dm, scale2);
+    else
+      ds_step<false>(sc, dp, rl, rd, qr, k0, dm, scale2);
+    mma_xb<kTile / 16, NO, P>(acc, sc, sk);    // ds k
   }
   const float mul[2] = {dm.scale, dm.scale};
-  store_rows<NO>(dq + qoff, acc, q0 + wr, dm.Sq, mul);
+  store_tile<HD>(dq + qoff, acc, stage(n_tiles) + wr * P, row_lo, dm.Sq,
+                 mul);
 }
 
 // ---------------------------------------------------- bf16: dk + dv
 
 template <int HD>
 constexpr size_t dkv_mma_smem() {
-  return sizeof(bf16) * (2 * (kRowTile + kColTile) * (HD + 8) +
-                         2 * HD * (kColTile + 8)) +
-         sizeof(float) * 2 * kColTile;
+  return sizeof(bf16) * 6 * kTile * (HD + 8) + sizeof(float) * 4 * kTile;
+}
+
+// p and ds of one query tile in the transposed frame (rows keys kr[h],
+// columns the tile's query rows q0 + c): st (raw k q^T) becomes p, dpt
+// (v do^T) becomes ds; sl, sd the tile's lse and delta
+template <bool MASK, int NS>
+__device__ __forceinline__ void dkv_step(float (&st)[NS][4],
+                                         float (&dpt)[NS][4],
+                                         const float* sl, const float* sd,
+                                         const int (&kr)[2], int q0,
+                                         const Dims& dm, float scale2) {
+  const int fc = (threadIdx.x & 3) * 2;
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = n * 8 + fc + (e & 1);
+      float p = exp2f(fmaf(st[n][e], scale2, -sl[c] * kLog2e));
+      if (MASK && !(q0 + c < dm.Sq && sees(dm, q0 + c, kr[e >> 1])))
+        p = 0.f;
+      st[n][e] = p;
+      dpt[n][e] = p * (dpt[n][e] - sd[c]);
+    }
+  }
 }
 
 template <int HD>
@@ -450,74 +572,105 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const float* __restrict__ lse,
                const float* __restrict__ delta, bf16* __restrict__ dk,
                bf16* __restrict__ dv, Dims dm) {
-  constexpr int LD = HD + 8, LDT = kColTile + 8;
-  constexpr int KS = HD / 16, NS = kColTile / 8, NO = HD / 8;
+  constexpr int P = HD + 8, KS = HD / 16, NS = kTile / 8, NO = HD / 8;
+  constexpr int T = kTile * P;
+  constexpr bool kHold = HD <= 64;   // K and V fragments in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);   // [kRowTile][LD]
-  bf16* sV = sK + kRowTile * LD;                  // [kRowTile][LD]
-  bf16* sQ = sV + kRowTile * LD;                  // [kColTile][LD]
-  bf16* sdO = sQ + kColTile * LD;                 // [kColTile][LD]
-  bf16* sQt = sdO + kColTile * LD;                // [HD][LDT]
-  bf16* sdOt = sQt + HD * LDT;                    // [HD][LDT]
-  float* s_lse = reinterpret_cast<float*>(sdOt + HD * LDT);
-  float* s_delta = s_lse + kColTile;
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);   // [kTile][P]
+  bf16* sV = sK + kTile * P;                      // [kTile][P]
+  bf16* ring = sV + kTile * P;                    // [2][Q, dO][kTile][P]
+  // [2][lse, delta][kTile]
+  float* rows = reinterpret_cast<float*>(ring + 4 * T);
 
   const long long bh = blockIdx.y;
-  const int kb0 = blockIdx.x * kRowTile;
+  const int kb0 = blockIdx.x * kTile;
   const long long qoff = bh * dm.Sq * HD, koff = bh * dm.Sk * HD;
-  const int warp = threadIdx.x >> 5;
   const int fr = (threadIdx.x & 31) >> 2;
-  const int fc = (threadIdx.x & 3) * 2;
-  const int wr = warp * 16;
+  const int wr = (threadIdx.x >> 5) * 16;
+  // the first query row that can see key kb0 is kb0 itself
+  const int q_lo = dm.causal ? kb0 : 0;
+  const int n_tiles = q_lo < dm.Sq ? (dm.Sq - q_lo + kTile - 1) / kTile : 0;
+  auto stage = [&](int i) { return ring + (i & 1) * 2 * T; };
+  auto stage_rows = [&](int i) { return rows + (i & 1) * 2 * kTile; };
+  auto load = [&](int i) {
+    const int q0 = q_lo + i * kTile;
+    copy_rows<HD>(stage(i), q + qoff, q0, kTile, dm.Sq);
+    copy_rows<HD>(stage(i) + T, dout + qoff, q0, kTile, dm.Sq);
+    float* sr = stage_rows(i);
+    for (int r = threadIdx.x; r < 2 * kTile; r += kThreads) {
+      const int row = q0 + r % kTile;        // r < kTile: lse, else delta
+      const bool ok = row < dm.Sq;
+      const float* src = (r < kTile ? lse : delta) + bh * dm.Sq;
+      cp_async4(sr + r, src + (ok ? row : 0), ok);
+    }
+  };
 
-  stage_rows<HD>(sK, k + koff, kb0, kRowTile, dm.Sk);
-  stage_rows<HD>(sV, v + koff, kb0, kRowTile, dm.Sk);
+  copy_rows<HD>(sK, k + koff, kb0, kTile, dm.Sk);
+  copy_rows<HD>(sV, v + koff, kb0, kTile, dm.Sk);
+  if (n_tiles > 0) load(0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t ka[KS][4], va[KS][4];
+  if constexpr (kHold) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      ldm_a<P>(ka[kk], sK, wr, kk);
+      ldm_a<P>(va[kk], sV, wr, kk);
+    }
+  }
+  auto k_frag = [&](uint32_t (&a)[4], int kk) {
+    if constexpr (kHold) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = ka[kk][e];
+    } else {
+      ldm_a<P>(a, sK, wr, kk);
+    }
+  };
+  auto v_frag = [&](uint32_t (&a)[4], int kk) {
+    if constexpr (kHold) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = va[kk][e];
+    } else {
+      ldm_a<P>(a, sV, wr, kk);
+    }
+  };
+
+  const float scale2 = dm.scale * kLog2e;
   int kr[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) kr[h] = kb0 + wr + fr + 8 * h;
+  const int key_lo = kb0 + wr;   // the warp's first key
   float dka[NO][4], dva[NO][4];
   zero(dka);
   zero(dva);
-  // the first query row that can see key kb0 is kb0 itself
-  const int q_lo = dm.causal ? (kb0 / kColTile) * kColTile : 0;
-
-  for (int q0 = q_lo; q0 < dm.Sq; q0 += kColTile) {
-    stage_rows<HD>(sQ, q + qoff, q0, kColTile, dm.Sq);
-    stage_rows<HD>(sdO, dout + qoff, q0, kColTile, dm.Sq);
-    stage_cols<HD, kColTile>(sQt, q + qoff, q0, dm.Sq);
-    stage_cols<HD, kColTile>(sdOt, dout + qoff, q0, dm.Sq);
-    for (int r = threadIdx.x; r < kColTile; r += kThreads) {
-      const bool in = q0 + r < dm.Sq;
-      s_lse[r] = in ? lse[bh * dm.Sq + q0 + r] : 0.f;
-      s_delta[r] = in ? delta[bh * dm.Sq + q0 + r] : 0.f;
-    }
-    __syncthreads();
-    // the transposed frame: rows are keys, columns query rows
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();   // as in the forward
+    if (i + 1 < n_tiles) load(i + 1);
+    cp_async_commit();
+    const int q0 = q_lo + i * kTile;
+    if (dm.causal && q0 + kTile - 1 < key_lo) continue;   // warp-uniform
+    const bf16* sq = stage(i);
+    const bf16* sdo = sq + T;
+    const float* sl = stage_rows(i);
     float st[NS][4], dpt[NS][4];
     zero(st);
     zero(dpt);
-    mma_abt<KS, NS, LD, LD>(st, sK, wr, sQ);     // k q^T
-    mma_abt<KS, NS, LD, LD>(dpt, sV, wr, sdO);   // v do^T
-    float dst[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + fc + (e & 1);     // query row q0 + c
-        const bool ok = visible(dm, q0 + c, kr[e >> 1]);
-        const float p = ok ? expf(st[n][e] * dm.scale - s_lse[c]) : 0.f;
-        st[n][e] = p;
-        dst[n][e] = p * (dpt[n][e] - s_delta[c]);
-      }
-    }
-    mma_pb<kColTile / 16, NO, LDT>(dva, st, sdOt);   // p^T do
-    mma_pb<kColTile / 16, NO, LDT>(dka, dst, sQt);   // ds^T q
-    __syncthreads();   // the next tile rewrites sQ .. s_delta
+    mma_abt<KS, NS, P>(st, k_frag, sq);     // k q^T
+    mma_abt<KS, NS, P>(dpt, v_frag, sdo);   // v do^T
+    if ((dm.causal && q0 < key_lo + 15) || q0 + kTile > dm.Sq)
+      dkv_step<true>(st, dpt, sl, sl + kTile, kr, q0, dm, scale2);
+    else
+      dkv_step<false>(st, dpt, sl, sl + kTile, kr, q0, dm, scale2);
+    mma_xb<kTile / 16, NO, P>(dva, st, sdo);   // p^T do
+    mma_xb<kTile / 16, NO, P>(dka, dpt, sq);   // ds^T q
   }
-  const float one[2] = {1.f, 1.f};
+  // each warp's rows of sK and sV are its own: they take its outputs
   const float mul[2] = {dm.scale, dm.scale};
-  store_rows<NO>(dk + koff, dka, kb0 + wr, dm.Sk, mul);
-  store_rows<NO>(dv + koff, dva, kb0 + wr, dm.Sk, one);
+  const float one[2] = {1.f, 1.f};
+  store_tile<HD>(dk + koff, dka, sK + wr * P, key_lo, dm.Sk, mul);
+  store_tile<HD>(dv + koff, dva, sV + wr * P, key_lo, dm.Sk, one);
 }
 
 // -------------------------------------------------------- f32: SIMT
@@ -854,6 +1007,7 @@ dkv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   simt_store<HD, VPT>(dv + koff, dva, kb0, dm.Sk, one);
 }
 
+
 // ------------------------------------------------------------- launch
 
 template <typename Kernel>
@@ -879,8 +1033,8 @@ template <int HD>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 float* lse, int BH, Dims dm, int dtype, cudaStream_t st) {
   if (dtype == 1) {
-    PT_LAUNCH(fwd_mma_kernel<HD>, grid_of(dm.Sq, kRowTile, BH),
-              fwd_mma_smem<HD>(), st, static_cast<const bf16*>(q),
+    PT_LAUNCH(fwd_mma_kernel<HD>, grid_of(dm.Sq, kTile, BH),
+              ring_bytes<HD>(), st, static_cast<const bf16*>(q),
               static_cast<const bf16*>(k), static_cast<const bf16*>(v),
               static_cast<bf16*>(o), lse, dm);
   }
@@ -896,7 +1050,7 @@ cudaError_t dq(const void* q, const void* k, const void* v, const void* o,
                float* delta, void* dqp, int BH, Dims dm, int dtype,
                cudaStream_t st) {
   if (dtype == 1) {
-    PT_LAUNCH(dq_mma_kernel<HD>, grid_of(dm.Sq, kRowTile, BH),
+    PT_LAUNCH(dq_mma_kernel<HD>, grid_of(dm.Sq, kTile, BH),
               dq_mma_smem<HD>(), st, static_cast<const bf16*>(q),
               static_cast<const bf16*>(k), static_cast<const bf16*>(v),
               static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
@@ -915,7 +1069,7 @@ cudaError_t dkv(const void* q, const void* k, const void* v,
                 void* dkp, void* dvp, int BH, Dims dm, int dtype,
                 cudaStream_t st) {
   if (dtype == 1) {
-    PT_LAUNCH(dkv_mma_kernel<HD>, grid_of(dm.Sk, kRowTile, BH),
+    PT_LAUNCH(dkv_mma_kernel<HD>, grid_of(dm.Sk, kTile, BH),
               dkv_mma_smem<HD>(), st, static_cast<const bf16*>(q),
               static_cast<const bf16*>(k), static_cast<const bf16*>(v),
               static_cast<const bf16*>(dout), lse, delta,

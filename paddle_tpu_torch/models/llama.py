@@ -69,7 +69,8 @@ class _Proj(Linear):
     makes no extra random pass and leaves the global RNG alone."""
 
     def __init__(self, in_features, out_features, dtype, device):
-        super().__init__(in_features, out_features, False, dtype, device)
+        super().__init__(in_features, out_features, bias_attr=False,
+                         dtype=dtype, device=device)
 
     def reset_parameters(self):
         pass

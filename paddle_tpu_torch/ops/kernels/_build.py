@@ -27,7 +27,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_all", "library", "build_log"]
+__all__ = ["NVCC_FLAGS", "build_all", "library", "function",
+           "build_log"]
 
 _PKG = Path(__file__).resolve().parents[2]           # paddle_tpu_torch/
 CSRC = _PKG / "csrc"
@@ -38,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs = {}          # source stem -> loaded ctypes.CDLL
+_fns = {}           # (stem, name) -> C function with its argument types
 _log = {}           # source stem -> {"seconds", "ptxas"} of a fresh build
 
 
@@ -120,6 +122,19 @@ def library(stem):
         if lib is None:
             raise RuntimeError(f"no kernel source csrc/{stem}.cu")
     return lib
+
+
+def function(stem, name, argtypes):
+    """The C launch function ``name`` of ``csrc/<stem>.cu``, returning a
+    C int, with ``argtypes`` set once: every later call of a wrapper gets
+    the same bound function without touching ctypes again."""
+    fn = _fns.get((stem, name))
+    if fn is None:
+        fn = getattr(library(stem), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[stem, name] = fn
+    return fn
 
 
 def build_log():

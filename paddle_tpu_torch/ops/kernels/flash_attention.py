@@ -114,11 +114,9 @@ def _check(q, k, v, o=None, lse=None, do=None, dlse=None):
 
 
 def _fn(name, n_ptr):
-    fn = getattr(_build.library("flash_attention"), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 \
-        + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.function(
+        "flash_attention", name, [ctypes.c_void_p] * n_ptr
+        + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _dims(q, k, sm_scale, causal):

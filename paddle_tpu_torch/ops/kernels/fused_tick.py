@@ -131,11 +131,9 @@ def _launch(q, k_pages, v_pages, block_tables, t0, last, dec, sched_slot,
             sched_page, sm_scale):
     _check(q, k_pages, v_pages, block_tables, t0, last, dec, sched_slot,
            sched_page)
-    lib = _build.library("fused_tick")
-    fn = lib.fused_tick_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
-        + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function("fused_tick", "fused_tick_launch",
+                         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                         + [ctypes.c_float, ctypes.c_void_p])
     S, C, nh, hd = q.shape
     _, pg, kvh, _ = k_pages.shape
     out = torch.empty_like(q)

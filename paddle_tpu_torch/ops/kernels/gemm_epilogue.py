@@ -121,10 +121,9 @@ def gemm_epilogue(x, w, bias=None, activation="none"):
         return out
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, out))
     path = route(m, n, k, x.dtype, aligned)
-    fn = _build.library("gemm_epilogue").gemm_epilogue_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function("gemm_epilogue", "gemm_epilogue_launch",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p])
     err = fn(x.data_ptr(), w.data_ptr(),
              None if bias is None else bias.data_ptr(), out.data_ptr(),
              m, n, k, ACTIVATIONS[activation], ROUTES[path],

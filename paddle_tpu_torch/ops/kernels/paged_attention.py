@@ -91,11 +91,9 @@ def _check(q, k_pages, v_pages, block_tables, lengths):
 
 def _launch(q, k_pages, v_pages, block_tables, lengths, sm_scale):
     _check(q, k_pages, v_pages, block_tables, lengths)
-    lib = _build.library("paged_attention")
-    fn = lib.paged_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
-        + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function("paged_attention", "paged_attention_launch",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                         + [ctypes.c_float, ctypes.c_void_p])
     S, nh, hd = q.shape
     _, pg, kvh, _ = k_pages.shape
     out = torch.empty_like(q)

@@ -87,10 +87,9 @@ def quantized_matmul(x, w, scale_x, scale_w, out_dtype=torch.float32):
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    fn = _build.library("quant_matmul").quant_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function("quant_matmul", "quant_matmul_launch",
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p])
     err = fn(x.data_ptr(), w.data_ptr(), sx.data_ptr(), sw.data_ptr(),
              out.data_ptr(), m, n, k, _OUT_DTYPES[out_dtype],
              torch.cuda.current_stream(x.device).cuda_stream)

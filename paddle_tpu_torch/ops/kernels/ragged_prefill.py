@@ -105,11 +105,9 @@ def _check(q, k_pages, v_pages, block_tables, t0, last):
 
 def _launch(q, k_pages, v_pages, block_tables, t0, last, sm_scale):
     _check(q, k_pages, v_pages, block_tables, t0, last)
-    lib = _build.library("ragged_prefill")
-    fn = lib.ragged_prefill_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
-        + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function("ragged_prefill", "ragged_prefill_launch",
+                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                         + [ctypes.c_float, ctypes.c_void_p])
     S, C, nh, hd = q.shape
     _, pg, kvh, _ = k_pages.shape
     out = torch.empty_like(q)

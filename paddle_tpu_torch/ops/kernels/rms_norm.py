@@ -72,11 +72,9 @@ def _check(x, w, g=None):
 
 
 def _fn(name, n_ptr, n_int):
-    fn = getattr(_build.library("rms_norm"), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
-        + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.function(
+        "rms_norm", name, [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+        + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _raise_on(err, what):

@@ -3,11 +3,15 @@ the autograd Function.
 
 Port of ``paddle_tpu/ops/pallas/rope.py:73-113`` (``apply_rotary_pallas``
 / ``_rope_call``): the neox half rotation of x ``[B, S, H, D]`` at rows
-0..S-1 of f32 cos/sin tables ``[S_max, D/2]``::
+0..S-1 of cos/sin tables ``[S_max, D/2]``::
 
     out1 = x1 * c - sign * x2 * s,  out2 = x2 * c + sign * x1 * s
 
-in f32, rounded once to x's dtype. ``sign = +1`` is the rotation;
+in f32, rounded once to x's dtype. The tables are f32 or bf16, as the
+reference's kernel takes them: with bf16 tables and bf16 x each product
+is rounded to bf16 first (bf16 * bf16 is bf16 in both frameworks), and
+the result is the reference's interpreted Pallas kernel bit for bit.
+``sign = +1`` is the rotation;
 ``sign = -1`` is its transpose, which is the backward: the reference
 kernel has no VJP of its own (ROADMAP, Queue 3), the port's backward is
 the same kernel run the other way. The backward rounds each product to
@@ -30,12 +34,14 @@ from . import _build
 __all__ = ["rope_fwd", "RopeFunction", "apply_rotary_kernel"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def _ref_rope(x, cos, sin, sign=1):
     """Plain version: the composition of ``rope.py:47-53`` at rows
-    0..S-1, in f32 (bf16 x against the f32 tables promotes), rounded once
-    to x's dtype. ``sign = -1`` is the backward (x the cotangent): the
+    0..S-1: in f32 against f32 tables (bf16 x promotes), rounded once to
+    x's dtype; bf16 x against bf16 tables rounds each product to bf16
+    first. ``sign = -1`` is the backward (x the cotangent): the
     transpose, with each product rounded to x's dtype before the sum, as
     the VJP of the composition rounds each promoted copy's cotangent."""
     seq, d2 = x.shape[1], x.shape[-1] // 2
@@ -62,10 +68,11 @@ def _check(x, cos, sin):
     if cos.dim() != 2 or cos.shape[1] != d2 or sin.shape != cos.shape:
         raise ValueError(f"cos/sin must be [S_max, {d2}], got "
                          f"{tuple(cos.shape)} / {tuple(sin.shape)}")
-    if x.dtype not in _DTYPES or cos.dtype != torch.float32 \
-            or sin.dtype != torch.float32:
-        raise TypeError(f"x must be one of {list(_DTYPES)} and the tables "
-                        f"float32, got {x.dtype}/{cos.dtype}/{sin.dtype}")
+    if x.dtype not in _DTYPES or cos.dtype not in _DTYPES \
+            or sin.dtype != cos.dtype:
+        raise TypeError(f"x and the tables must each be one of "
+                        f"{list(_DTYPES)}, cos and sin alike, got "
+                        f"{x.dtype}/{cos.dtype}/{sin.dtype}")
     if x.numel() >= 2 ** 31:
         raise ValueError("x must hold fewer than 2**31 elements")
     for name, t in (("x", x), ("cos", cos), ("sin", sin)):
@@ -83,8 +90,8 @@ def _check_table(x, cos):
 
 def rope_fwd(x, cos, sin, sign=1):
     """K6 on x ``[B, S, H, D]`` at rows 0..S-1 of ``cos``/``sin``
-    ``[S_max, D/2]`` (f32); ``sign = -1`` applies the transpose (the
-    backward). CUDA tensors run the kernel (f32 or bf16 x, any S up to
+    ``[S_max, D/2]`` (f32 or bf16); ``sign = -1`` applies the transpose
+    (the backward). CUDA tensors run the kernel (f32 or bf16 x, any S up to
     the table, D even); CPU tensors run ``_ref_rope``. S past the table
     raises on both."""
     _check_table(x, cos)
@@ -93,13 +100,11 @@ def rope_fwd(x, cos, sin, sign=1):
     _check(x, cos, sin)
     out = torch.empty_like(x)
     b, s, h, d = x.shape
-    fn = _build.library("rope").rope_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function("rope", "rope_launch", _ARGTYPES)
     err = fn(x.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
              b, s, h, d, cos.shape[0], 1 if sign > 0 else -1,
-             _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+             _DTYPES[x.dtype], _DTYPES[cos.dtype],
+             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rope kernel launch failed: CUDA error {err}")
     rope_fwd.launches += 1

@@ -9,6 +9,8 @@ products in another order):
 
 - forward o and lse vs ``_flash_fwd_pallas``, causal and not, and with
   rectangular K/V;
+- the card tiles' edges (S = 100, S_q = 64 under S_k = 192, head_dim
+  16), forward and backward;
 - backward dq, dk, dv vs ``_flash_bwd_pallas``, causal and not,
   rectangular K/V, and with an lse cotangent (``dlse``);
 - the explicit ``_ref_bwd`` (FlashAttention-2's formulas) vs autograd
@@ -67,6 +69,26 @@ def test_forward_matches_the_pallas_kernel(causal, sq, sk):
     assert tfa.flash_fwd.launches == 0       # CPU: the plain version
 
 
+def test_the_plain_forward_does_not_depend_on_the_thread_count():
+    """The 2e-5 tolerance above holds the plain forward to the Pallas
+    kernel with ~20x room (measured: 7.8e-8 on o, 9.5e-7 on lse at
+    S = 256, at 1 to 8 threads alike), and its bits do not move with
+    torch's thread count: summation order under BLAS threads is not what
+    a worker of a parallel test run could see differently."""
+    q, k, v = _t(*_qkv(2, 256, 256, 64, 0))
+    sm = 1.0 / np.sqrt(64)
+    before = torch.get_num_threads()
+    try:
+        outs = []
+        for n in (1, 2, 4):
+            torch.set_num_threads(n)
+            outs.append(tfa.flash_fwd(q, k, v, sm, False))
+    finally:
+        torch.set_num_threads(before)
+    for o, lse in outs[1:]:
+        assert torch.equal(o, outs[0][0]) and torch.equal(lse, outs[0][1])
+
+
 @pytest.mark.parametrize("causal,sq,sk,with_dlse", [
     (False, 256, 256, False), (True, 256, 256, False),
     (False, 128, 256, False), (True, 256, 256, True),
@@ -90,6 +112,32 @@ def test_backward_matches_the_pallas_kernel(causal, sq, sk, with_dlse):
         assert g.shape == w.shape
         _close(g.numpy(), w)
     assert tfa.flash_bwd.dq_launches == tfa.flash_bwd.dkv_launches == 0
+
+
+@pytest.mark.parametrize("causal,sq,sk,hd", [(True, 100, 100, 64),
+                                             (False, 64, 192, 64),
+                                             (True, 96, 96, 16)])
+def test_tile_edges_match_the_pallas_kernels(causal, sq, sk, hd):
+    """The edges of the card kernels' 64-row tiles, in the plain
+    versions they are held to: S = 100 (a tail tile), S_q = 64 under
+    S_k = 192 non-causal (key tiles past the row tile), head_dim 16
+    (``llama_tiny``'s, a single k-step); forward and backward against
+    the Pallas kernels in interpret mode."""
+    q, k, v = _qkv(2, sq, sk, hd, 50)
+    do = _rand((2, sq, hd), 51)
+    sm = 1.0 / np.sqrt(hd)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    jo, jlse = jfa._flash_fwd_pallas(jq, jk, jv, sm, causal, interpret=True)
+    want = jfa._flash_bwd_pallas(jq, jk, jv, jo, jlse, jdo, sm, causal,
+                                 interpret=True)
+    o, lse = tfa.flash_fwd(*_t(q, k, v), sm, causal)
+    _close(o.numpy(), jo)
+    _close(lse.numpy(), jlse)
+    got = tfa.flash_bwd(*_t(q, k, v), o, lse, torch.from_numpy(do), sm,
+                        causal)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        _close(g.numpy(), w)
 
 
 @pytest.mark.parametrize("causal", [False, True])

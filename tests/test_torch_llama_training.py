@@ -314,6 +314,29 @@ def test_linear_defaults_to_the_card_and_llama_draws_its_own_weights():
     assert torch.equal(torch.rand(4), before)
 
 
+@pytest.mark.parametrize("args,kwargs", [
+    ((), {}), ((None, False), {}), ((None, None), {}),
+    ((None, False, "fc"), {}), ((), {"bias_attr": False}),
+    ((), {"weight_attr": None, "bias_attr": None, "name": "fc"})])
+def test_linear_takes_the_reference_arguments(args, kwargs):
+    """``Linear(in, out, weight_attr, bias_attr, name)`` in the
+    reference's order: the same positional and keyword arguments build
+    the same parameter shapes, with or without a bias."""
+    ref = pt.nn.Linear(6, 5, *args, **kwargs)
+    got = Linear(6, 5, *args, **kwargs, device="cpu")
+    assert tuple(got.weight.shape) == tuple(ref.weight.shape) == (6, 5)
+    assert (got.bias is None) == (ref.bias is None)
+    if got.bias is not None:
+        assert tuple(got.bias.shape) == tuple(ref.bias.shape) == (5,)
+
+
+def test_linear_refuses_a_parameter_attribute_it_cannot_honour():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        Linear(6, 5, pt.ParamAttr(name="w"), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        Linear(6, 5, bias_attr=pt.ParamAttr(name="b"), device="cpu")
+
+
 def test_cross_entropy_ignores_the_ignore_index():
     rng = np.random.default_rng(4)
     logits = torch.from_numpy(rng.standard_normal((2, 5, 7))

@@ -12,6 +12,8 @@ the CUDA kernel is held to on the card (``chip_smoke.py`` phase ``k6``):
 - backward: the autograd Function vs ``jax.vjp`` of
   ``_apply_rotary_jnp``, bit for bit in f32 and bf16 (each product
   rounded to x's dtype before the sum, as that VJP rounds);
+- bf16 tables: forward against the interpreted Pallas kernel and
+  backward against ``jax.vjp``, and the kernel's contract takes them;
 - a sequence past the table raises, as ``test_rope_kernel.py`` asks of
   the reference;
 - ``PT_ROPE_PALLAS=1`` routes a 4-D call without ``position_ids`` on a
@@ -95,6 +97,53 @@ def test_backward_is_the_vjp_of_the_composition_bit_for_bit(dtype):
     trope.apply_rotary(xc, torch.from_numpy(c), torch.from_numpy(s)) \
         .backward(torch.from_numpy(g).to(tdt))
     assert torch.equal(xc.grad, xt.grad)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_bf16_tables_match_the_pallas_kernel_and_the_vjp(dtype):
+    """bf16 cos/sin tables, as the reference's kernel takes them: the
+    forward against ``apply_rotary_pallas(interpret=True)`` (bf16 x bit
+    for bit, each product rounded to bf16 as bf16 * bf16 is in both
+    frameworks; f32 x within one f32 ulp, the kernel's fused
+    multiply-add), the backward against ``jax.vjp`` of the composition
+    bit for bit."""
+    jdt, tdt = DTYPES[dtype]
+    x, g = _x((2, 64, 3, 32), 10), _x((2, 64, 3, 32), 11)
+    c, s = (jnp.asarray(t).astype(jnp.bfloat16) for t in _tables(32, 96))
+    tc, ts = (torch.from_numpy(np.array(t.astype(jnp.float32)))
+              .to(torch.bfloat16) for t in (c, s))
+    jx = jnp.asarray(x).astype(jdt)
+    kern = _np(jrope.apply_rotary_pallas(jx, c, s, block_s=32,
+                                         interpret=True))
+    got = trk.rope_fwd(torch.from_numpy(x).to(tdt), tc, ts)
+    assert got.dtype == tdt
+    got = got.float().numpy()
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(got, kern)
+    else:
+        np.testing.assert_allclose(got, kern, rtol=0,
+                                   atol=np.spacing(np.abs(kern)).max())
+    _, vjp = jax.vjp(lambda a: jrope._apply_rotary_jnp(a, c, s), jx)
+    (want,) = vjp(jnp.asarray(g).astype(jdt))
+    xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    trk.apply_rotary_kernel(xt, tc, ts).backward(
+        torch.from_numpy(g).to(tdt))
+    np.testing.assert_array_equal(xt.grad.float().numpy(), _np(want))
+    assert trk.rope_fwd.launches == 0          # CPU: the plain version
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_the_kernel_contract_takes_bf16_tables(x_dtype):
+    """The kernel reads f32 or bf16 tables (the card launches it for
+    both); cos and sin must share one of those types."""
+    x = torch.zeros((1, 8, 2, 16), dtype=x_dtype)
+    c = torch.zeros((8, 8), dtype=torch.bfloat16)
+    trk._check(x, c, c.clone())
+    trk._check(x, c.float(), c.float())
+    with pytest.raises(TypeError):
+        trk._check(x, c, c.float())
+    with pytest.raises(TypeError):
+        trk._check(x, c.half(), c.half())
 
 
 def test_a_sequence_past_the_table_raises():
