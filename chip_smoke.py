@@ -16,12 +16,16 @@ Phases, in order; any failure exits non-zero:
    sm_90a (one process per source, all at once), with ptxas's report;
    every time below is the card's own (``cuda_ms``: the wrapper's host
    work is hidden behind a spin kernel, and a sample it was not hidden
-   from is dropped), each kernel's also on the clock it replaced, for
-   one PR;
+   from is dropped);
 3. k1: the paged-decode kernel against its plain version at Llama-2-7B
-   decode shapes (and at Llama-2-70B's GQA head layout), bf16 and f32,
-   within TOL and VEC_RTOL (below), with its time beside the plain version's, one SDPA call over the
-   gathered frame (a yardstick the port never calls) and its bound;
+   decode shapes and at Llama-2-70B's GQA head layout, bf16 and f32,
+   within TOL and VEC_RTOL (below); a second launch bitwise equal; a
+   poison check: every page that no slot's first ceil(min(len, T) / pg)
+   table entries name filled with NaN must leave every output bit for
+   bit unchanged; ptxas's registers and spills of the bf16 kernels; in
+   bf16 at both head layouts its time beside the plain version's, one
+   SDPA call over the gathered frame (a yardstick the port never calls)
+   and its bound;
 4. k2: the ragged-prefill kernel likewise, on 512-row chunks with
    prefix offsets, an idle slot and a chunk ending mid-page, at 7B's and
    70B's heads (both timed in bf16), then bf16 edge cases at full widths
@@ -31,9 +35,11 @@ Phases, in order; any failure exits non-zero:
    live rows bit for bit unchanged;
 5. k3: the fused-tick kernel likewise, on an admission tick (512-row
    chunks at prefix offsets, two decode rows, an idle slot, a chunk
-   ending mid-page) and a decode-only tick (C = 1, K1's lengths, timed
-   beside K1), plus a poison check: every page the schedule does not
-   list filled with NaN must leave the live rows bit for bit unchanged;
+   ending mid-page) and a decode-only tick (C = 1, K1's lengths), each
+   timed in bf16 at both head layouts (the decode-only tick beside K1),
+   plus a poison check: every page the schedule does not list filled
+   with NaN must leave the live rows bit for bit unchanged, and a second
+   launch bitwise equal;
 6. k4: the flash-attention forward (K4a) and backward (K4b: dq, then
    dk + dv) against their plain versions, bf16 and f32, at llama_350m's
    training shape (B = 8, S = 1024, 16 heads of 64, causal), at
@@ -97,7 +103,8 @@ Phases, in order; any failure exits non-zero:
    read just after, and must equal decode ticks x layers (K1) and
    prefill launches x layers (K2) on a split wave, fused launches x
    layers (K3) on a fused wave; then one split and one fused admission
-   tick, and five decode ticks of each, under torch.profiler;
+   tick, and five decode ticks of each, under torch.profiler, with the
+   attention kernels' device time per tick;
 15. int8_infer: the serve phase's Llama-2-7B (full width and depth):
    one bf16 forward of 8 x 512 ids from seed 0, then
    ``to_int8_inference(model, inplace=True)`` and the same forward with
@@ -258,38 +265,6 @@ def cuda_ms(fn, torch, iters=20, warmup=3, flush=None):
     return times[len(times) // 2]
 
 
-def cuda_ms_host(fn, torch, iters=20, warmup=3, flush=None):
-    """The clock ``cuda_ms`` replaced, kept for one PR beside it: the
-    start event is recorded on an idle card before ``fn``, so its host
-    work counts too. Median milliseconds, L2 flushed before each call."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        if flush is not None:
-            flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
-
-
-def kernel_ms(fn, torch, flush, what):
-    """A kernel's time on the card's clock (``cuda_ms``), logged beside
-    the old clock's (``cuda_ms_host``) reading of the same call."""
-    ms = cuda_ms(fn, torch, flush=flush)
-    old = cuda_ms_host(fn, torch, flush=flush)
-    log(f"clock {what}: {ms:.4f} ms on the card's clock, {old:.4f} ms on "
-        f"the old clock (host work included)")
-    return ms
-
-
 def bound(nbytes, flops, peak, ops_peak=None):
     """(bound_ms, bound_by): the larger of bytes over the memory rate
     and operations over ``ops_peak`` (by default the bf16 tensor-core
@@ -323,9 +298,14 @@ def gathered(torch, kp, vp, bt, rep):
     return k, v
 
 
+K1_KERNELS = ("paged_decode_split_kernel", "split_merge_kernel")
+K3_KERNELS = ("fused_decode_split_kernel", "split_merge_kernel",
+              "fused_prefill_mma_kernel")
+
+
 def phase_k1(torch, peak, flush, record):
-    import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    log_ptxas("k1", "paged_attention", K1_KERNELS)
     S, pg, maxp, hd = 8, 16, 128, 128
     T = maxp * pg
     # empty slot, 1 token, page-unaligned, full table, parked (T + 1),
@@ -342,44 +322,83 @@ def phase_k1(torch, peak, flush, record):
             lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
             scale = hd ** -0.5
             out = pa.paged_attention(q, kp, vp, bt, lengths, scale)
+            again = pa.paged_attention(q, kp, vp, bt, lengths, scale)
             torch.cuda.synchronize()
+            repeat = torch.equal(out, again)
             ref = pa._ref_paged_attention(q.float(), kp.float(), vp.float(),
                                           bt, lengths, scale)
             err, rel, close = agreement([(out, ref)], dname)
-            ok = close and torch.isfinite(out).all().item()
+            del ref, again
+            # poison: every page that no slot's first ceil(min(len, T) /
+            # pg) table entries name -> NaN; no output may move by a bit
+            seen = torch.zeros(kp.shape[0], dtype=torch.bool, device="cuda")
+            for s, n in enumerate(lens):
+                if min(n, T) > 0:
+                    seen[bt[s, :-(-min(n, T) // pg)].long()] = True
+            kpn, vpn = kp.clone(), vp.clone()
+            kpn[~seen] = float("nan")
+            vpn[~seen] = float("nan")
+            out2 = pa.paged_attention(q, kpn, vpn, bt, lengths, scale)
+            torch.cuda.synchronize()
+            same = torch.equal(out, out2)
+            del kpn, vpn, out2
+            ok = close and repeat and same and torch.isfinite(out).all().item()
             log(f"k1 {tag} {dname}: max_abs_err {err:.3e} (tol "
                 f"{TOL[dname]:.0e}), max vector-relative error {rel:.3e} "
-                f"(tol {VEC_RTOL[dname]:.0e}) {'ok' if ok else 'FAIL'}")
+                f"(tol {VEC_RTOL[dname]:.0e}), second launch bitwise equal "
+                f"{repeat}, unnamed pages NaN-poisoned: outputs bitwise "
+                f"equal {same} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"k1 {tag} {dname} disagrees with its "
                                  f"plain version")
-            if tag != "7b" or dtype != torch.bfloat16:
-                continue
-            # the main path's shape and type: time it
-            ms = kernel_ms(lambda: pa.paged_attention(q, kp, vp, bt,
-                                                      lengths, scale),
-                           torch, flush, "k1 7b bf16")
-            plain_ms = cuda_ms(lambda: pa._ref_paged_attention(
-                q, kp, vp, bt, lengths, scale), torch, iters=5,
-                flush=flush)
-            k, v = gathered(torch, kp, vp, bt, nh // kvh)
-            mask = (torch.arange(T, device="cuda")[None]
-                    < lengths[:, None])[:, None, None, :]
-            qq = q[:, :, None, :]
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qq, k, v, attn_mask=mask, scale=scale), torch, flush=flush)
-            elt = q.element_size()
-            toks = sum(min(n, T) for n in lens)
-            nbytes = (2 * q.numel() * elt + 2 * toks * kvh * hd * elt
-                      + sum(-(-min(n, T) // pg) for n in lens) * 4 + 4 * S)
-            flops = 4 * toks * nh * hd
-            bound_ms, by = bound(nbytes, flops, peak)
-            record["paged_attention"].update(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=by)
-            log(f"k1 7b bf16 timing: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({nbytes} bytes, {flops} flops)")
+            if dtype == torch.bfloat16:
+                k1_time(torch, pa, tag, q, kp, vp, bt, lengths, lens, scale,
+                        peak, flush, record, err)
+            del q, kp, vp, bt, out
+    torch.cuda.empty_cache()
+
+
+def k1_time(torch, pa, tag, q, kp, vp, bt, lengths, lens, scale, peak,
+            flush, record, err):
+    """K1 in bf16 beside its plain version, one SDPA call over the
+    gathered masked frame (a yardstick the port never calls) and its
+    bound; the 7B case (the main path's) goes into the record."""
+    import torch.nn.functional as F
+    S, nh, hd = q.shape
+    _, pg, kvh, _ = kp.shape
+    T = bt.shape[1] * pg
+    ms = cuda_ms(lambda: pa.paged_attention(q, kp, vp, bt, lengths, scale),
+                 torch, flush=flush)
+    plain_ms = cuda_ms(lambda: pa._ref_paged_attention(
+        q, kp, vp, bt, lengths, scale), torch, iters=5, flush=flush)
+    k, v = gathered(torch, kp, vp, bt, nh // kvh)
+    mask = (torch.arange(T, device="cuda")[None]
+            < lengths[:, None])[:, None, None, :]
+    qq = q[:, :, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qq, k, v, attn_mask=mask, scale=scale), torch, flush=flush)
+    del k, v, mask
+    elt = q.element_size()
+    toks = sum(min(n, T) for n in lens)
+    nbytes = (2 * q.numel() * elt + 2 * toks * kvh * hd * elt
+              + sum(-(-min(n, T) // pg) for n in lens) * 4 + 4 * S)
+    flops = 4 * toks * nh * hd
+    bound_ms, by = bound(nbytes, flops, peak)
+    split_ms, merge_ms = (profiled_ms(
+        torch, lambda: pa.paged_attention(q, kp, vp, bt, lengths, scale),
+        names, flush) for names in (K1_KERNELS[:1], K1_KERNELS[1:]))
+    if tag == "7b":
+        record["paged_attention"].update(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bound_ms, bound_by=by)
+    log(f"k1 {tag} bf16 timing: kernel {ms:.4f} ms (profiler: splits "
+        f"{fmt_ms(split_ms)}, merge {fmt_ms(merge_ms)}), plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms ({ms / lib_ms:.2f}x), "
+        f"bound {bound_ms:.4f} ms ({by}; {nbytes} bytes, {flops} flops)")
+
+
+def fmt_ms(x):
+    return "no device time (not measured)" if x is None else f"{x:.4f} ms"
 
 
 def k2_cases(T):
@@ -409,6 +428,7 @@ def k2_cases(T):
 
 def phase_k2(torch, peak, flush, record):
     from paddle_tpu_torch.ops.kernels import ragged_prefill as rp
+    log_ptxas("k2", "ragged_prefill", ("ragged_prefill_mma_kernel",))
     S, pg, maxp = 8, 16, 128
     T = maxp * pg
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -478,8 +498,8 @@ def k2_time(torch, rp, tag, q, kp, vp, bt, t0, last, slots, scale, peak,
     S, C, nh, hd = q.shape
     _, pg, kvh, _ = kp.shape
     T = bt.shape[1] * pg
-    ms = kernel_ms(lambda: rp.ragged_prefill_attention(
-        q, kp, vp, bt, t0, last, scale), torch, flush, f"k2 {tag} bf16")
+    ms = cuda_ms(lambda: rp.ragged_prefill_attention(
+        q, kp, vp, bt, t0, last, scale), torch, flush=flush)
     plain_ms = cuda_ms(lambda: rp._ref_ragged_prefill(
         q, kp, vp, bt, t0, last, scale), torch, iters=5, flush=flush)
     k, v = gathered(torch, kp, vp, bt, nh // kvh)
@@ -525,6 +545,7 @@ def phase_k3(torch, peak, flush, record):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import fused_tick as ft
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    log_ptxas("k3", "fused_tick", K3_KERNELS)
     S, pg, maxp, hd = 8, 16, 128, 128
     T = maxp * pg
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -553,7 +574,10 @@ def phase_k3(torch, peak, flush, record):
                 scale = hd ** -0.5
                 args = (bt_live, t0, last, dec, ss, sp, scale)
                 out = ft.fused_tick_attention(q, kp, vp, *args)
+                again = ft.fused_tick_attention(q, kp, vp, *args)
                 torch.cuda.synchronize()
+                repeat = torch.equal(out, again)
+                del again
                 ref = ft._ref_fused_tick(q.float(), kp.float(), vp.float(),
                                          bt_live, t0, last, dec, scale)
                 err, rel, close = agreement(
@@ -576,34 +600,37 @@ def phase_k3(torch, peak, flush, record):
                 same = all(torch.equal(out[s, :n], out2[s, :n])
                            for s, n in enumerate(rows) if n)
                 del kpn, vpn, out2
-                ok = close and idle_zero and same \
+                ok = close and idle_zero and same and repeat \
                     and torch.isfinite(out).all().item()
                 log(f"k3 {tick} {tag} {dname}: C={C} W={W} G={len(ss_np)} "
                     f"({n_live} live pages), max_abs_err {err:.3e} (tol "
                     f"{TOL[dname]:.0e}), max vector-relative error "
                     f"{rel:.3e} (tol {VEC_RTOL[dname]:.0e}), idle slot "
-                    f"zero {idle_zero}, "
-                    f"unlisted pages NaN-poisoned: live rows bitwise "
-                    f"equal {same} {'ok' if ok else 'FAIL'}")
+                    f"zero {idle_zero}, second launch bitwise equal "
+                    f"{repeat}, unlisted pages NaN-poisoned: live rows "
+                    f"bitwise equal {same} {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise SystemExit(f"k3 {tick} {tag} {dname} disagrees "
                                      f"with its plain version")
-                if tag == "7b" and dtype == torch.bfloat16:
-                    k3_time(torch, F, ft, pa, tick, q, kp, vp, bt, args,
-                            slots, n_live, peak, flush, record, err)
+                if dtype == torch.bfloat16:
+                    k3_time(torch, F, ft, pa, tick, tag, q, kp, vp, bt,
+                            args, slots, n_live, peak, flush, record, err)
+                del q, kp, vp, bt, bt_live, out
+    torch.cuda.empty_cache()
 
 
-def k3_time(torch, F, ft, pa, tick, q, kp, vp, bt, args, slots, n_live,
-            peak, flush, record, err):
-    """K3's time at the main path's shape beside its plain version, one
-    SDPA call over the gathered masked frame (a yardstick the port never
-    calls) and its bound; on the decode-only tick, K1 at the same
-    lengths too."""
+def k3_time(torch, F, ft, pa, tick, tag, q, kp, vp, bt, args, slots,
+            n_live, peak, flush, record, err):
+    """K3 in bf16 beside its plain version, one SDPA call over the
+    gathered masked frame (a yardstick the port never calls) and its
+    bound; on the decode-only tick, K1 at the same lengths too. The 7B
+    ticks (the main path's) go into the record: the admission tick's
+    as the kernel's numbers, the decode-only tick's beside them."""
     bt_live, t0, last, dec, ss, sp, scale = args
     S, C, nh, hd = q.shape
     _, pg, kvh, _ = kp.shape
-    ms = kernel_ms(lambda: ft.fused_tick_attention(q, kp, vp, *args), torch,
-                   flush, f"k3 {tick} 7b bf16")
+    ms = cuda_ms(lambda: ft.fused_tick_attention(q, kp, vp, *args), torch,
+                 flush=flush)
     plain_ms = cuda_ms(lambda: ft._ref_fused_tick(
         q, kp, vp, bt_live, t0, last, dec, scale), torch, iters=5,
         flush=flush)
@@ -629,21 +656,33 @@ def k3_time(torch, F, ft, pa, tick, q, kp, vp, bt, args, slots, n_live,
     nbytes = (live_rows * nh * hd * elt + q.numel() * elt
               + 2 * n_live * pg * kvh * hd * elt + 4 * (3 * n_live + 2 * S))
     bound_ms, by = bound(nbytes, flops, peak)
+    names = K3_KERNELS[:2] if tick == "decode" else K3_KERNELS[2:]
+    seen = []
+    for n in names:
+        x = profiled_ms(torch, lambda: ft.fused_tick_attention(
+            q, kp, vp, *args), (n,), flush)
+        seen.append(f"{n} {fmt_ms(x)}")
+    seen = ", ".join(seen)
     extra = ""
-    if tick == "admit":
+    if tick == "admit" and tag == "7b":
         record["fused_tick"].update(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=bound_ms, bound_by=by)
-    else:
+    elif tag == "7b":
+        record["fused_tick"].update(
+            decode_tick_ms=ms, decode_tick_library_ms=lib_ms,
+            decode_tick_bound_ms=bound_ms)
+    if tick == "decode":
         lengths = (t0 + 1).to(torch.int32)
         qd = q[:, 0].contiguous()
-        k1_ms = kernel_ms(lambda: pa.paged_attention(qd, kp, vp, bt,
-                                                     lengths, scale),
-                          torch, flush, "k1 at k3's decode lengths")
+        k1_ms = cuda_ms(lambda: pa.paged_attention(qd, kp, vp, bt, lengths,
+                                                   scale), torch, flush=flush)
         extra = f", K1 at the same lengths {k1_ms:.4f} ms"
-    log(f"k3 {tick} 7b bf16 timing: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({by}; {nbytes} bytes, {flops} flops){extra}")
+    log(f"k3 {tick} {tag} bf16 timing: kernel {ms:.4f} ms (profiler: "
+        f"{seen}), plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms ({ms / lib_ms:.2f}x), "
+        f"bound {bound_ms:.4f} ms ({by}; {nbytes} bytes, {flops} "
+        f"flops){extra}")
 
 
 # (tag, B, S_q, S_k, heads, head_dim, causal, types): llama_350m's
@@ -697,16 +736,22 @@ def ptxas_report(stem, names):
     return out
 
 
+def log_ptxas(phase, stem, names):
+    """Log ptxas's registers and spills of the kernels ``names`` of
+    ``csrc/<stem>.cu``, as this process built them."""
+    report = ptxas_report(stem, names)
+    if not report:
+        log(f"{phase} ptxas: the library was not built by this process "
+            f"(not reported)")
+    for (kname, targs), (regs, st, ld) in sorted(report.items()):
+        log(f"{phase} ptxas {kname}<{targs}>: {regs} registers, {st} bytes "
+            f"spill stores, {ld} bytes spill loads")
+
+
 def phase_k4(torch, peak, flush, record):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
-    report = ptxas_report("flash_attention", K4_KERNELS)
-    if not report:
-        log("k4 ptxas: the library was not built by this process (not "
-            "reported)")
-    for (kname, targs), (regs, st, ld) in sorted(report.items()):
-        log(f"k4 ptxas {kname}<{targs}>: {regs} registers, {st} bytes spill "
-            f"stores, {ld} bytes spill loads")
+    log_ptxas("k4", "flash_attention", K4_KERNELS)
     gen = torch.Generator(device="cuda").manual_seed(4)
     for tag, B, Sq, Sk, H, D, causal, dnames in K4_CASES:
         for dname in dnames:
@@ -783,13 +828,13 @@ def k4_time(torch, F, fa, tag, tensors, shape, scale, peak, flush, record,
     times are read a second way from torch.profiler."""
     q, k, v, o, lse, do = tensors
     B, S, H, D = shape
-    ms_f = kernel_ms(lambda: fa.flash_fwd(q, k, v, scale, True), torch,
-                     flush, f"k4 {tag} bf16 forward")
-    ms_b = kernel_ms(lambda: fa.flash_bwd(q, k, v, o, lse, do, scale, True),
-                     torch, flush, f"k4 {tag} bf16 backward")
-    ms_fb = kernel_ms(lambda: fa.flash_bwd(
+    ms_f = cuda_ms(lambda: fa.flash_fwd(q, k, v, scale, True), torch,
+                   flush=flush)
+    ms_b = cuda_ms(lambda: fa.flash_bwd(q, k, v, o, lse, do, scale, True),
+                   torch, flush=flush)
+    ms_fb = cuda_ms(lambda: fa.flash_bwd(
         q, k, v, *fa.flash_fwd(q, k, v, scale, True), do, scale, True),
-        torch, flush, f"k4 {tag} bf16 forward+backward")
+        torch, flush=flush)
     prof_f = profiled_ms(torch, lambda: fa.flash_fwd(q, k, v, scale, True),
                          K4_KERNELS[:1], flush)
     prof_b = profiled_ms(torch, lambda: fa.flash_bwd(q, k, v, o, lse, do,
@@ -835,13 +880,11 @@ def k4_time(torch, F, fa, tag, tensors, shape, scale, peak, flush, record,
             max_abs_err=max(e[0] for e in errs[2:]), ms=ms_b,
             plain_ms=plain_b, library_ms=lib_b, bound_ms=bound_b,
             bound_by=by_b)
-    def by_profiler(x):
-        return ", profiler " + ("no device time (not measured)"
-                                if x is None else f"{x:.4f} ms")
-
     for what, ms, plain, lib, bnd, seen in (
-            ("forward", ms_f, plain_f, lib_f, bound_f, by_profiler(prof_f)),
-            ("backward", ms_b, plain_b, lib_b, bound_b, by_profiler(prof_b)),
+            ("forward", ms_f, plain_f, lib_f, bound_f,
+             ", profiler " + fmt_ms(prof_f)),
+            ("backward", ms_b, plain_b, lib_b, bound_b,
+             ", profiler " + fmt_ms(prof_b)),
             ("forward+backward", ms_fb, plain_fb, lib_fb, bound_fb, "")):
         log(f"k4 {tag} bf16 {what} timing: kernel {ms:.4f} ms{seen}, plain "
             f"{plain:.4f} ms, sdpa {lib:.4f} ms ({ms / lib:.2f}x), bound "
@@ -886,10 +929,10 @@ def phase_k5(torch, peak, flush, record):
                                  f"version")
             if tag != "350m" or dtype != torch.bfloat16:
                 continue
-            ms_f = kernel_ms(lambda: rn.rms_norm_fwd(x, w, eps), torch,
-                             flush, "k5 350m bf16 forward")
-            ms_b = kernel_ms(lambda: rn.rms_norm_bwd(x, w, g, eps), torch,
-                             flush, "k5 350m bf16 backward")
+            ms_f = cuda_ms(lambda: rn.rms_norm_fwd(x, w, eps), torch,
+                           flush=flush)
+            ms_b = cuda_ms(lambda: rn.rms_norm_bwd(x, w, g, eps), torch,
+                           flush=flush)
             plain_f = cuda_ms(lambda: rn._ref_fwd(x, w, eps), torch,
                               flush=flush)
             plain_b = cuda_ms(lambda: rn._ref_bwd(x, w, g, eps), torch,
@@ -957,10 +1000,10 @@ def phase_k6(torch, peak, flush, record):
                                  f"version")
             if tag != "350m" or dtype != torch.bfloat16:
                 continue
-            ms_f = kernel_ms(lambda: rk.rope_fwd(x, cos, sin, 1), torch,
-                             flush, "k6 350m bf16 forward")
-            ms_b = kernel_ms(lambda: rk.rope_fwd(x, cos, sin, -1), torch,
-                             flush, "k6 350m bf16 backward")
+            ms_f = cuda_ms(lambda: rk.rope_fwd(x, cos, sin, 1), torch,
+                           flush=flush)
+            ms_b = cuda_ms(lambda: rk.rope_fwd(x, cos, sin, -1), torch,
+                           flush=flush)
             plain_f = cuda_ms(lambda: rk._ref_rope(x, cos, sin, 1), torch,
                               flush=flush)
             plain_b = cuda_ms(lambda: rk._ref_rope(x, cos, sin, -1), torch,
@@ -1102,8 +1145,7 @@ def k7_time(torch, F, ge, tag, x, w, b, act, peak, flush, record, err):
     the activation (a yardstick the port never calls), and its bound."""
     M, K = x.shape
     N = w.shape[1]
-    ms = kernel_ms(lambda: ge.gemm_epilogue(x, w, b, act), torch, flush,
-                   f"k7 {tag} bf16")
+    ms = cuda_ms(lambda: ge.gemm_epilogue(x, w, b, act), torch, flush=flush)
     plain_ms = cuda_ms(lambda: ge._ref_gemm_epilogue(x, w, b, act), torch,
                        flush=flush)
     zero = torch.zeros((N,), dtype=x.dtype, device="cuda")
@@ -1209,8 +1251,7 @@ def k8_time(torch, qm, x, w, sx, sw, peak, flush, record, err):
     bound at the int8 tensor-core peak."""
     M, K = x.shape
     N = w.shape[1]
-    ms = kernel_ms(lambda: qm.quantized_matmul(x, w, sx, sw), torch, flush,
-                   "k8 7b-gate-up")
+    ms = cuda_ms(lambda: qm.quantized_matmul(x, w, sx, sw), torch, flush=flush)
     plain_ms = cuda_ms(lambda: qm._ref(x, w, sx, sw), torch, iters=5,
                        flush=flush)
     try:
@@ -1454,6 +1495,13 @@ def phase_serve(torch, np, card, record):
     return model
 
 
+# the serving path's attention kernels, by the names the profiler shows
+# (K1's and K3's bf16 decode kernels and their merge, K2's and K3's row
+# tiles, and the f32 kernels)
+ATTENTION_KERNELS = ("paged_decode", "split_merge", "ragged_prefill",
+                     "fused_prefill", "fused_rows", "fused_decode")
+
+
 def profile_admit(torch, np, srv, prompts, warm, card, mode):
     """Where an admission tick's time goes, the tick TTFT waits on: a
     warm-up request served first, then the serve wave's 8 prompts
@@ -1486,9 +1534,8 @@ def profile_admit(torch, np, srv, prompts, warm, card, mode):
         log("profile admit: the profiler recorded no device time (not "
             "measured)")
     else:
-        attn = sum(ms for name, ms, _ in kernels if any(
-            k in name for k in ("ragged_prefill", "fused_rows",
-                                "fused_decode")))
+        attn = sum(ms for name, ms, _ in kernels
+                   if any(k in name for k in ATTENTION_KERNELS))
         log(f"profile admit {mode} [{card}]: admission tick ({chunk} "
             f"prompt tokens) {wall_ms:.2f} ms wall under the profiler, "
             f"device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%), "
@@ -1501,8 +1548,9 @@ def profile_admit(torch, np, srv, prompts, warm, card, mode):
 
 def profile_decode(torch, np, srv, cfg, card, mode):
     """Where a steady decode tick's time goes: 8 live slots, 5 ticks
-    under torch.profiler, device time by kernel and the device's busy
-    share of the wall time. Informational: it checks nothing."""
+    under torch.profiler, device time by kernel, the attention kernels'
+    sum and the device's busy share of the wall time. Informational: it
+    checks nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(7)
@@ -1530,9 +1578,14 @@ def profile_decode(torch, np, srv, cfg, card, mode):
     if not kernels:
         log("profile: the profiler recorded no device time (not measured)")
     else:
+        attn = sum(ms for name, ms, _ in kernels
+                   if any(k in name for k in ATTENTION_KERNELS))
         log(f"profile {mode} [{card}]: decode tick {wall_ms:.2f} ms wall, "
             f"device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%), "
-            f"{sum(k[2] for k in kernels)} kernel launches per tick")
+            f"attention kernels {attn:.4f} ms per tick "
+            f"({100 * attn / busy:.1f}% of device time), "
+            f"{sum(k[2] for k in kernels)} kernel "
+            f"launches per tick")
         for name, ms, count in kernels[:10]:
             log(f"  {ms:8.3f} ms/tick  {count:5d}x  {name[:90]}")
     srv.run()

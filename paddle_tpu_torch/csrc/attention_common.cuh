@@ -5,13 +5,15 @@
 //
 // - element helpers: f32 loads and stores of f32/bf16, 16-byte row loads,
 //   warp sums and sums or maxima over a few neighbouring lanes;
-// - mma.sync m16n8k16 bf16 fragment helpers (K2's, K3's, K4's and K7's
-//   tensor-core tiles), ldmatrix fragment loads and 16- and 4-byte
-//   cp.async copies (K2's and K4's pipelined loads);
-// - decode_attend: one query row per kv head's GQA group over paged K/V
-//   (K1's design). K1 runs it over a slot's block table; K3's C == 1
-//   kernel runs it over the slot's run of the page schedule. The caller
-//   says where key j lies in the pool.
+// - mma.sync m16n8k16 bf16 fragment helpers (the tensor-core tiles of
+//   K1-K4 and K7), ldmatrix fragment loads and 16- and 4-byte
+//   cp.async copies (the pipelined loads of K1-K4);
+// - decode_attend: one query row per kv head's GQA group over paged K/V,
+//   SIMT (the f32 route: K1 runs it over a slot's block table, K3's
+//   C == 1 kernel over the slot's run of the page schedule; the caller
+//   says where key j lies in the pool). The bf16 route of both is the
+//   split-K body of paged_decode.cuh; K2's and K3's bf16 row tiles are
+//   paged_prefill.cuh's.
 //
 // _build.py hashes this header into every kernel library's name, so an
 // edit here rebuilds all of them.

@@ -33,42 +33,46 @@
 //
 // The Pallas grid walks the schedule in order and carries the softmax
 // state of a slot across its run in VMEM scratch. Blocks here run in no
-// order, so each block finds its slot's run [lo, hi) in sched_slot by
-// binary search and walks it itself. Two block shapes, picked by C:
+// order, so each block finds its slot's run [lo, hi) in sched_slot and
+// walks it itself. The run lists the slot's live-table columns in
+// increasing order (build_schedule's): a key's position is never below
+// its index in the run, so a walk by run index stops at the frontier.
 //
-// - C == 1 (the steady state, every live slot a decode row): K1's design
-//   and code (decode_attend in attention_common.cuh), with key j found
-//   through the run's schedule entry lo + j / pg instead of the block
-//   table's column j / pg. One block per (slot, kv head) carries the kv
-//   head's rep query heads; 8 warps take the keys round-robin.
-// - C >= 2: one block per (slot, kv head, tile of rows). The tile holds
-//   64 query vectors: 64 / rep rows times the rep query heads of the kv
-//   head, so each K/V row gathered into shared memory serves the whole
-//   GQA group and the whole row tile. The block walks its run in tiles
-//   of 32 key positions up to the tile's causal frontier
-//   min(t0 + last row, last); key rows past it are neither read nor
-//   computed, and a tile of rows wholly past the slot's take writes
-//   zeros without reading anything (RowTile and stage_keys below, shared
-//   by both tile kernels). In bf16 both products run on mma.sync
-//   m16n8k16 tensor-core tiles with f32 accumulators: 4 warps of 16
-//   query vectors each, Q fragments held in registers for the whole
-//   walk, probabilities rounded to bf16 for P V (the plain version
-//   rounds them to q's type too). In f32 they run SIMT, so f32 keeps f32
-//   products: each thread keeps 4 query vectors' softmax state and a
-//   4 x (hd / 8) slice of their accumulators in registers and computes a
-//   4 x 4 block of scores from shared memory.
+// bf16, picked by C:
+// - C == 1 (the steady state, every live slot a decode row): K1's
+//   split-K body (paged_decode.cuh): one block per (slot, kv head, split
+//   of the run), the split's schedule entries and their table pages
+//   staged once in shared memory, 64-key tiles on a two-stage 16-byte
+//   cp.async ring, mma.sync, and a merge kernel over the splits. The
+//   split plan comes from W, the live slice's width: static per ladder
+//   width.
+// - C >= 2: K2's row-tile body (paged_prefill.cuh): one block of 4 warps
+//   per (slot, kv head, 64 query vectors), long row tiles first, 64-key
+//   tiles on the same kind of ring, Q fragments held in registers, K by
+//   ldmatrix and V by ldmatrix.trans, base-2 softmax (two blocks a SM:
+//   at three the run's key map spills); key i of the walk found through
+//   the run (sp[lo + i / pg], then the live table), never through a
+//   column the schedule does not list.
+// The block finds its run with one pass of the whole block over
+// sched_slot (slot_run), not a chain of dependent loads.
 //
-// What it does not do yet: wgmma, TMA or cp.async pipelining (a tile's
-// loads and products do not overlap), split-K over pages for long
-// single rows. Pool offsets are computed in 64 bits.
+// f32 keeps the first port's SIMT kernels (f32 products, no TF32): at C == 1
+// K1's f32 body (decode_attend) over the run found by binary search; at
+// C >= 2 one block per (slot, kv head, 64 query vectors), 32-key tiles
+// staged in shared memory, each thread holding 4 vectors' softmax state
+// and a 4 x (hd / 8) slice of their accumulators (RowTile and
+// stage_keys below).
+//
+// Pool offsets are computed in 64 bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
-#include <type_traits>
 
 #include "attention_common.cuh"
+#include "paged_decode.cuh"
+#include "paged_prefill.cuh"
 
 namespace {
 
@@ -88,7 +92,7 @@ __device__ __forceinline__ int first_at_least(const int* __restrict__ a,
   return lo;
 }
 
-// ----------------------------------------------------------- C == 1
+// ----------------------------------------------------- f32, C == 1
 
 constexpr int kDecWarps = 8;
 constexpr int kDecThreads = kDecWarps * 32;
@@ -128,49 +132,10 @@ fused_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       scale);
 }
 
-// ------------------------------------------ C >= 2: the row-tile walk
+// ------------------------------------------------- f32, C >= 2
 
 constexpr int kRowThreads = 128;
-constexpr int kVecs = 64;     // query vectors (rows x GQA heads) per block
 constexpr int kKeys = 32;     // key positions per shared-memory tile
-
-// Block (s, g, z) of a row-tile kernel: slot s, kv head g, and query
-// vectors v = 0 .. nvec - 1 of the z-th tile of rows, vector v being row
-// r0 + v / rep of the chunk under query head g * rep + v % rep.
-struct RowTile {
-  int s, g, rep, nvec, r0, C, nh;
-  long long t0, last;
-  long long frontier;   // causal frontier: min(t0 + the last row, last)
-
-  __device__ __forceinline__ RowTile(const int* t0s, const int* lasts,
-                                     int C_, int nh_, int kvh)
-      : s(blockIdx.x), g(blockIdx.y), rep(nh_ / kvh), C(C_), nh(nh_) {
-    const int R = kVecs / rep;          // chunk rows per block
-    nvec = R * rep;
-    r0 = blockIdx.z * R;
-    const int rows = (C - r0) < R ? (C - r0) : R;
-    t0 = t0s[s];
-    last = lasts[s];
-    frontier = t0 + r0 + rows - 1;
-    if (last < frontier) frontier = last;
-  }
-  // an idle slot, or rows wholly past the slot's take: read nothing
-  __device__ __forceinline__ bool empty() const {
-    return last < 0 || t0 + r0 > last;
-  }
-  // vector v's row of hd elements in q and out; -1 when v is no row
-  __device__ __forceinline__ long long vec(int v) const {
-    const int row = r0 + v / rep;
-    if (v >= nvec || row >= C) return -1;
-    return (static_cast<long long>(s) * C + row) * nh + g * rep + v % rep;
-  }
-  // vector v's causal limit min(t0 + row, last); -1 when v is no row
-  __device__ __forceinline__ long long limit(int v) const {
-    const int row = r0 + v / rep;
-    if (v >= nvec || row >= C) return -1;
-    return t0 + row < last ? t0 + row : last;
-  }
-};
 
 template <typename T, int HD>
 __device__ __forceinline__ void zero_tile(const RowTile& t,
@@ -214,7 +179,7 @@ __device__ __forceinline__ bool stage_keys(const RowTile& t,
       const int pidx = sp[run.lo + i / pg];
       const int off = i % pg;
       const long long p = static_cast<long long>(pidx) * pg + off;
-      if (pidx >= 0 && pidx < W && p <= t.frontier) {
+      if (pidx >= 0 && pidx < W && p <= t.hi) {
         pos = static_cast<int>(p);
         base = ((static_cast<long long>(run.row_bt[pidx]) * pg + off) * kvh +
                 t.g) * HD;
@@ -226,8 +191,6 @@ __device__ __forceinline__ bool stage_keys(const RowTile& t,
   }
   return __syncthreads_or(vis) != 0;
 }
-
-// ------------------------------------------------------ C >= 2, f32
 
 constexpr int kVpt = 4;       // query vectors per thread
 constexpr int kGroup = 8;     // threads sharing a group of kVpt vectors
@@ -262,8 +225,8 @@ fused_rows_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   float* s_v = s_k + kKeys * LD;                          // [kKeys][LD]
   float* s_p = s_v + kKeys * LD;                          // [kVecs][kKeys+1]
 
-  const RowTile t(t0s, lasts, C, nh, kvh);
-  if (t.empty()) {
+  const RowTile t(t0s, lasts, C, nh, kvh, pg, W);
+  if (t.hi < 0) {
     zero_tile<T, HD>(t, out);
     return;
   }
@@ -390,193 +353,172 @@ fused_rows_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-// ---------------------------------------------- C >= 2, bf16: tensor cores
-//
-// The same tiling and walk as fused_rows_kernel, with the two products
-// on mma.sync m16n8k16 bf16 tiles and f32 accumulators: each of the 4
-// warps owns 16 query vectors, holds their Q fragments in registers for
-// the whole walk, and keeps its scores, the online softmax state of its
-// fragment rows and a 16 x hd accumulator in registers. The
-// probabilities are rounded to bf16 for P V, as the plain version rounds
-// them to q's type. The fragment helpers (mma_bf16, pack_bf16, ld32,
-// quad_max, quad_sum) are in attention_common.cuh.
+// ------------------------------------------------------------- bf16
 
-template <int HD>
-__global__ void __launch_bounds__(kRowThreads)
-fused_rows_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ kp,
-                      const __nv_bfloat16* __restrict__ vp,
-                      const int* __restrict__ bt, const int* __restrict__ t0s,
-                      const int* __restrict__ lasts,
-                      const int* __restrict__ ss, const int* __restrict__ sp,
-                      __nv_bfloat16* __restrict__ out, int C, int nh, int kvh,
-                      int pg, int W, int G, float scale) {
-  using bf16 = __nv_bfloat16;
-  constexpr int QP = HD + 8;        // padded row of sQ and sK (bf16)
-  constexpr int VP = kKeys + 8;     // padded row of sVt, V transposed
-  constexpr int CH = HD / 8;        // 16-byte chunks in a row
-  constexpr int KS = HD / 16;       // k-steps of Q K^T
-  constexpr int NS = kKeys / 8;     // n-tiles of the scores
-  constexpr int NO = HD / 8;        // n-tiles of the accumulator
-  static_assert(kRowThreads == 4 * 32 && kVecs == 4 * 16, "4 warps x 16");
-  __shared__ __align__(16) bf16 sQ[kVecs * QP];
-  __shared__ __align__(16) bf16 sK[kKeys * QP];
-  __shared__ __align__(16) bf16 sVt[HD * VP];
-  __shared__ long long s_base[kKeys];
-  __shared__ int s_pos[kKeys];
-
-  const RowTile t(t0s, lasts, C, nh, kvh);
-  if (t.empty()) {
-    zero_tile<bf16, HD>(t, out);
-    return;
+// [lo, hi) of slot s's run in the sorted sched_slot[0, G): the entries
+// below s and up to s, counted by the whole block in one pass (no chain
+// of dependent loads), into run[0] and run[1]. A barrier for the block.
+__device__ __forceinline__ void slot_run(const int* __restrict__ ss, int G,
+                                         int s, int* run) {
+  __shared__ int part[32][2];
+  int below = 0, upto = 0;
+  for (int i = threadIdx.x; i < G; i += blockDim.x) {
+    const int v = ss[i];
+    below += v < s;
+    upto += v <= s;
   }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int fr = lane >> 2;         // fragment row (and fr + 8)
-  const int fc = (lane & 3) * 2;    // fragment column pair
-
-  for (int i = threadIdx.x; i < kVecs * CH; i += kRowThreads) {
-    const long long at = t.vec(i / CH);
-    const int c = (i % CH) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (at >= 0) x = __ldg(reinterpret_cast<const uint4*>(q + at * HD + c));
-    *reinterpret_cast<uint4*>(&sQ[(i / CH) * QP + c]) = x;
-  }
-  long long lim[2];                 // causal limits of rows fr, fr + 8
-  float m[2], l[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    lim[h] = t.limit(warp * 16 + fr + 8 * h);
-    m[h] = kNegInf;
-    l[h] = 0.f;
-  }
-  float o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  below = __reduce_add_sync(0xffffffffu, below);
+  upto = __reduce_add_sync(0xffffffffu, upto);
+  if ((threadIdx.x & 31) == 0) {
+    part[threadIdx.x >> 5][0] = below;
+    part[threadIdx.x >> 5][1] = upto;
   }
   __syncthreads();
-  uint32_t qa[KS][4];
-  const bf16* qw = sQ + warp * 16 * QP;
-#pragma unroll
-  for (int k = 0; k < KS; ++k) {
-    qa[k][0] = ld32(qw + fr * QP + k * 16 + fc);
-    qa[k][1] = ld32(qw + (fr + 8) * QP + k * 16 + fc);
-    qa[k][2] = ld32(qw + fr * QP + k * 16 + fc + 8);
-    qa[k][3] = ld32(qw + (fr + 8) * QP + k * 16 + fc + 8);
+  if (threadIdx.x == 0) {
+    int lo = 0, hi = 0;
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
+      lo += part[w][0];
+      hi += part[w][1];
+    }
+    run[0] = lo;
+    run[1] = hi;
   }
+  __syncthreads();
+}
 
-  const KeyRun run(t, ss, bt, G, W, pg);
-  for (int i0 = 0; i0 < run.n_pos; i0 += kKeys) {
-    if (!stage_keys<HD>(t, run, i0, sp, pg, W, kvh, s_base, s_pos))
-      continue;   // nothing here is visible
-
-    // K rows as they lie; V transposed (consecutive lanes take
-    // consecutive keys of one chunk: no bank conflicts on the stores)
-    for (int i = threadIdx.x; i < kKeys * CH; i += kRowThreads) {
-      const int kk = i / CH;
-      const int c = (i % CH) * 8;
-      const long long base = s_base[kk];
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (base >= 0) x = __ldg(reinterpret_cast<const uint4*>(kp + base + c));
-      *reinterpret_cast<uint4*>(&sK[kk * QP + c]) = x;
-    }
-    for (int i = threadIdx.x; i < kKeys * CH; i += kRowThreads) {
-      const int kk = i % kKeys;
-      const int c = (i / kKeys) * 8;
-      const long long base = s_base[kk];
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (base >= 0) x = __ldg(reinterpret_cast<const uint4*>(vp + base + c));
-      const bf16* xv = reinterpret_cast<const bf16*>(&x);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sVt[(c + e) * VP + kk] = xv[e];
-    }
-    __syncthreads();
-
-    float sc[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < KS; ++k) {
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const bf16* kr = sK + (n * 8 + fr) * QP + k * 16 + fc;
-        mma_bf16(sc[n], qa[k], ld32(kr), ld32(kr + 8));
-      }
-    }
-
-    // online softmax of fragment rows fr (h = 0) and fr + 8 (h = 1)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      bool ok[NS][2];
-      float mx = kNegInf;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int pos = s_pos[n * 8 + fc + e];
-          ok[n][e] = pos >= 0 && pos <= lim[h];
-          const float x = ok[n][e] ? sc[n][2 * h + e] * scale : kNegInf;
-          sc[n][2 * h + e] = x;
-          mx = fmaxf(mx, x);
-        }
-      }
-      mx = quad_max(mx);
-      const float m_new = fmaxf(m[h], mx);
-      const float corr = expf(m[h] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = ok[n][e] ? expf(sc[n][2 * h + e] - m_new) : 0.f;
-          sc[n][2 * h + e] = p;
-          psum += p;
-        }
-      }
-      l[h] = l[h] * corr + quad_sum(psum);
-      m[h] = m_new;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        o[n][2 * h] *= corr;
-        o[n][2 * h + 1] *= corr;
-      }
-    }
-
-    // O += P V: the score fragments of keys 16j .. 16j + 15 are the A
-    // fragment of one k-step
-#pragma unroll
-    for (int j = 0; j < kKeys / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16(sc[2 * j][0], sc[2 * j][1]),
-                              pack_bf16(sc[2 * j][2], sc[2 * j][3]),
-                              pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]),
-                              pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const bf16* vr = sVt + (n * 8 + fr) * VP + j * 16 + fc;
-        mma_bf16(o[n], pa, ld32(vr), ld32(vr + 8));
-      }
-    }
-    __syncthreads();   // the next tile rewrites s_base .. sVt
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const long long at = t.vec(warp * 16 + fr + 8 * h);
-    if (at >= 0) {
-      bf16* op = out + at * HD;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const float a = l[h] == 0.f ? 0.f : o[n][2 * h] / l[h];
-        const float b = l[h] == 0.f ? 0.f : o[n][2 * h + 1] / l[h];
-        *reinterpret_cast<uint32_t*>(op + n * 8 + fc) = pack_bf16(a, b);
-      }
+// C == 1: the split-K body of paged_decode.cuh over the slot's run.
+// Split z holds run entries z * pps ..; entry e's page is the live
+// table's column sp[lo + e], and its keys sit at positions sp[lo + e] *
+// pg .. A key is visible at most up to row 0's frontier min(t0, last).
+// The run lists columns in increasing order (build_schedule's), so a
+// key's position is never below its index in the run, and the walk
+// stops at index min(run keys, lim + 1): no schedule entry past it is
+// read.
+template <int HD>
+__global__ void __launch_bounds__(kSplitThreads, 3)
+fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ kp,
+                          const __nv_bfloat16* __restrict__ vp,
+                          const int* __restrict__ bt,
+                          const int* __restrict__ t0s,
+                          const int* __restrict__ lasts,
+                          const int* __restrict__ ss,
+                          const int* __restrict__ sp,
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ ws, int nh, int kvh, int pg,
+                          int W, int G, int pps, int splits, float scale) {
+  __shared__ SplitPages pages;
+  __shared__ int run[2];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int s = blockIdx.x;
+  const int g = blockIdx.y;
+  const int z = blockIdx.z;
+  const int rep = nh / kvh;
+  const long long t0 = t0s[s];
+  const long long last = lasts[s];
+  const long long lim = t0 < last ? t0 : last;   // row 0's frontier
+  const int e0 = z * pps;                // the split's first run entry
+  long long n = 0;                       // an idle slot sees no key, nor
+  if (last >= 0 && static_cast<long long>(e0) * pg <= lim) {  // a split
+    slot_run(ss, G, s, run);             // past the frontier
+    long long walk = static_cast<long long>(run[1] - run[0]) * pg;
+    if (lim + 1 < walk) walk = lim + 1;
+    n = walk - static_cast<long long>(e0) * pg;
+    if (n < 0) n = 0;
+    if (n > static_cast<long long>(pps) * pg)
+      n = static_cast<long long>(pps) * pg;
+    const int* run_sp = sp + run[0] + e0;
+    const int* row_bt = bt + static_cast<long long>(s) * W;
+    for (int e = threadIdx.x; e * static_cast<long long>(pg) < n;
+         e += kSplitThreads) {
+      const int pidx = run_sp[e];
+      const bool ok = pidx >= 0 && pidx < W;
+      pages.id[e] = ok ? row_bt[pidx] : -1;
+      pages.base[e] = ok ? pidx * pg : 0;
     }
   }
+  __syncthreads();
+  const long long v0 = static_cast<long long>(s) * nh + g * rep;
+  const bool direct = splits == 1;
+  split_decode<HD>(q + v0 * HD, kp, vp, rep, kvh, g, pg, pages,
+                   static_cast<int>(n), lim, scale,
+                   direct ? out + v0 * HD : nullptr,
+                   direct ? nullptr : ws + (v0 * splits + z) * (HD + 2),
+                   static_cast<long long>(splits) * (HD + 2), smem_raw);
+}
+
+// C >= 2: K2's row-tile body (paged_prefill.cuh) over the slot's run:
+// key i of the walk is run entry i / pg, the live table's column
+// sp[lo + i / pg], at position sp[lo + i / pg] * pg + i % pg. The
+// gathering thread of a key's first chunk records its position (or
+// kNoPos: a key no row may see) for the mask. The run lists columns in
+// increasing order, so the walk ends at index min(run keys - 1, hi),
+// RowTile's frontier over the live slice.
+constexpr int kNoPos = INT_MAX;
+__shared__ int ring_pos[kStages * kKeyTile];   // the ring's key positions
+
+struct RunKeys {
+  const int* run_sp;  // the slot's run of sched_page
+  const int* row_bt;  // the slot's row of the live table
+  int pg, W;
+  long long hi;       // RowTile::hi
+  long long walk;     // the last key of the walk: min(run keys - 1, hi)
+
+  __device__ __forceinline__ long long last() const { return walk; }
+  // -1 past the walk, for a schedule entry outside the live table, or
+  // past the frontier
+  __device__ __forceinline__ long long row(int stage, int kk, int i,
+                                           bool first) const {
+    long long r = -1;
+    int p = kNoPos;
+    if (i <= walk) {
+      const int pidx = run_sp[i / pg];
+      const int off = i % pg;
+      if (pidx >= 0 && pidx < W &&
+          static_cast<long long>(pidx) * pg + off <= hi) {
+        p = pidx * pg + off;
+        r = static_cast<long long>(row_bt[pidx]) * pg + off;
+      }
+    }
+    if (first) ring_pos[stage * kKeyTile + kk] = p;
+    return r;
+  }
+  __device__ __forceinline__ long long pos(int stage, int kk,
+                                           long long /*i*/) const {
+    return ring_pos[stage * kKeyTile + kk];
+  }
+};
+
+// Two blocks a SM, not K2's three: under three's 168-register cap the
+// run's key map spills at hd 128 (60-100 bytes on the card); at two it
+// takes 212 registers and spills nothing.
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+fused_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ kp,
+                         const __nv_bfloat16* __restrict__ vp,
+                         const int* __restrict__ bt,
+                         const int* __restrict__ t0s,
+                         const int* __restrict__ lasts,
+                         const int* __restrict__ ss,
+                         const int* __restrict__ sp,
+                         __nv_bfloat16* __restrict__ out, int C, int nh,
+                         int kvh, int pg, int W, int G, float scale) {
+  __shared__ int run[2];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const RowTile t(t0s, lasts, C, nh, kvh, pg, W);
+  int lo = 0;
+  long long walk = -1;                   // no key
+  if (t.hi >= 0) {                       // block-uniform
+    slot_run(ss, G, t.s, run);
+    lo = run[0];
+    walk = static_cast<long long>(run[1] - lo) * pg - 1;
+    if (t.hi < walk) walk = t.hi;
+  }
+  const RunKeys keys{sp + lo, bt + static_cast<long long>(t.s) * W, pg, W,
+                     t.hi, walk};
+  rows_mma_walk<HD>(q, kp, vp, out, t, keys, kvh, scale,
+                    reinterpret_cast<__nv_bfloat16*>(smem_raw));
 }
 
 // ------------------------------------------------------------- launch
@@ -591,83 +533,128 @@ struct Args {
   const int* ss;
   const int* sp;
   void* out;
-  int S, C, nh, kvh, pg, W, G;
+  float* ws;
+  int S, C, nh, kvh, pg, W, G, pps, splits;
   float scale;
   cudaStream_t stream;
 };
 
-template <typename T, int HD>
-cudaError_t launch_hd(const Args& a) {
-  const T* q = static_cast<const T*>(a.q);
-  const T* kp = static_cast<const T*>(a.kp);
-  const T* vp = static_cast<const T*>(a.vp);
-  T* out = static_cast<T*>(a.out);
+template <int HD>
+cudaError_t launch_f32(const Args& a) {
+  const float* q = static_cast<const float*>(a.q);
+  const float* kp = static_cast<const float*>(a.kp);
+  const float* vp = static_cast<const float*>(a.vp);
+  float* out = static_cast<float*>(a.out);
   if (a.C == 1) {
     const dim3 grid(a.S, a.kvh);
-    fused_decode_kernel<T, HD><<<grid, kDecThreads, 0, a.stream>>>(
+    fused_decode_kernel<float, HD><<<grid, kDecThreads, 0, a.stream>>>(
         q, kp, vp, a.bt, a.t0, a.last, a.ss, a.sp, out, a.nh, a.kvh, a.pg,
         a.W, a.G, a.scale);
     return cudaGetLastError();
   }
-  const int R = kVecs / (a.nh / a.kvh);
-  const int tiles = (a.C + R - 1) / R;
+  const int tiles = (a.C + kVecs / (a.nh / a.kvh) - 1) /
+                    (kVecs / (a.nh / a.kvh));
   if (tiles > 65535) return cudaErrorInvalidValue;
+  constexpr size_t smem = rows_smem_bytes<HD>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      fused_rows_kernel<float, HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
   const dim3 grid(a.S, a.kvh, tiles);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    fused_rows_mma_kernel<HD><<<grid, kRowThreads, 0, a.stream>>>(
-        q, kp, vp, a.bt, a.t0, a.last, a.ss, a.sp, out, a.C, a.nh, a.kvh,
-        a.pg, a.W, a.G, a.scale);
-    return cudaGetLastError();
-  } else {
-    constexpr size_t smem = rows_smem_bytes<HD>();
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_rows_kernel<T, HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    fused_rows_kernel<T, HD><<<grid, kRowThreads, smem, a.stream>>>(
-        q, kp, vp, a.bt, a.t0, a.last, a.ss, a.sp, out, a.C, a.nh, a.kvh,
-        a.pg, a.W, a.G, a.scale);
-    return cudaGetLastError();
-  }
+  fused_rows_kernel<float, HD><<<grid, kRowThreads, smem, a.stream>>>(
+      q, kp, vp, a.bt, a.t0, a.last, a.ss, a.sp, out, a.C, a.nh, a.kvh,
+      a.pg, a.W, a.G, a.scale);
+  return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const Args& a, int hd) {
-  switch (hd) {
-    case 16:
-      return launch_hd<T, 16>(a);
-    case 64:
-      return launch_hd<T, 64>(a);
-    case 128:
-      return launch_hd<T, 128>(a);
-    default:
+template <int HD>
+cudaError_t launch_bf16(const Args& a) {
+  using bf16 = __nv_bfloat16;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* kp = static_cast<const bf16*>(a.kp);
+  const bf16* vp = static_cast<const bf16*>(a.vp);
+  bf16* out = static_cast<bf16*>(a.out);
+  if (a.C == 1) {
+    if (a.pps < 1 || a.pps > kMaxSplitPages || a.splits < 1 ||
+        a.splits > 65535 ||
+        static_cast<long long>(a.pps) * a.splits < a.W ||
+        (a.splits > 1 && a.ws == nullptr))
       return cudaErrorInvalidValue;
+    constexpr size_t smem = split_smem_bytes<HD>();
+    cudaError_t e = cudaFuncSetAttribute(
+        fused_decode_split_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    const dim3 grid(a.S, a.kvh, a.splits);
+    fused_decode_split_kernel<HD><<<grid, kSplitThreads, smem, a.stream>>>(
+        q, kp, vp, a.bt, a.t0, a.last, a.ss, a.sp, out, a.ws, a.nh, a.kvh,
+        a.pg, a.W, a.G, a.pps, a.splits, a.scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess || a.splits == 1) return e;
+    split_merge_kernel<HD><<<a.S * a.nh, HD < 32 ? 32 : HD, 0, a.stream>>>(
+        a.ws, out, a.splits);
+    return cudaGetLastError();
   }
+  const int tiles = (a.C + kVecs / (a.nh / a.kvh) - 1) /
+                    (kVecs / (a.nh / a.kvh));
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  constexpr size_t smem = mma_smem_bytes<HD>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      fused_prefill_mma_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.S, a.kvh, tiles);
+  fused_prefill_mma_kernel<HD><<<grid, kMmaThreads, smem, a.stream>>>(
+      q, kp, vp, a.bt, a.t0, a.last, a.ss, a.sp, out, a.C, a.nh, a.kvh,
+      a.pg, a.W, a.G, a.scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_hd(const Args& a, int dtype) {
+  if (dtype == 0) return launch_f32<HD>(a);
+  if (dtype == 1) return launch_bf16<HD>(a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. At C == 1 bf16 takes the split plan
+// (pages_per_split schedule entries a split, `splits` splits covering
+// W) and, with more than one split, a float32 workspace of S * nh *
+// splits * (hd + 2) elements; every other route ignores them. Returns a
+// cudaError_t (0 = launched).
 extern "C" int fused_tick_launch(const void* q, const void* k_pages,
                                  const void* v_pages,
                                  const void* block_tables, const void* t0,
                                  const void* last, const void* sched_slot,
-                                 const void* sched_page, void* out, int S,
-                                 int C, int nh, int kvh, int hd, int pg,
-                                 int W, int G, int dtype, float sm_scale,
-                                 void* stream) {
+                                 const void* sched_page, void* out,
+                                 void* workspace, int S, int C, int nh,
+                                 int kvh, int hd, int pg, int W, int G,
+                                 int pages_per_split, int splits, int dtype,
+                                 float sm_scale, void* stream) {
   if (S <= 0 || C <= 0) return cudaSuccess;
   if (kvh <= 0 || nh % kvh != 0 || nh / kvh > pt_attn::kMaxRep ||
       kvh > 65535 || pg <= 0 || W <= 0 || G < 0 ||
-      static_cast<long long>(G) * pg > INT_MAX)
+      static_cast<long long>(G) * pg > INT_MAX ||
+      static_cast<long long>(W) * pg > INT_MAX)
     return cudaErrorInvalidValue;
   const Args a{q, k_pages, v_pages,
                static_cast<const int*>(block_tables),
                static_cast<const int*>(t0), static_cast<const int*>(last),
                static_cast<const int*>(sched_slot),
-               static_cast<const int*>(sched_page), out, S, C, nh, kvh, pg,
-               W, G, sm_scale, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return launch<float>(a, hd);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, hd);
-  return cudaErrorInvalidValue;
+               static_cast<const int*>(sched_page), out,
+               static_cast<float*>(workspace), S, C, nh, kvh, pg, W, G,
+               pages_per_split, splits, sm_scale,
+               static_cast<cudaStream_t>(stream)};
+  switch (hd) {
+    case 16:
+      return launch_hd<16>(a, dtype);
+    case 64:
+      return launch_hd<64>(a, dtype);
+    case 128:
+      return launch_hd<128>(a, dtype);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

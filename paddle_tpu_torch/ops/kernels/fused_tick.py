@@ -15,7 +15,8 @@ reads as zeros.
 (``csrc/fused_tick.cu``) for CUDA tensors and the plain version
 ``_ref_fused_tick`` for CPU tensors; a CUDA tensor the kernel cannot
 take raises. ``fused_tick_attention.launches`` counts kernel launches:
-one per call, whatever the chunk width.
+one per call, whatever the chunk width (a bf16 decode-only tick runs
+K1's split-K body and its merge, two kernels, and counts one).
 """
 import ctypes
 import math
@@ -24,7 +25,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .paged_attention import _DTYPES, MAX_REP, _ref_paged_attention
+from .paged_attention import (_DTYPES, MAX_REP, _ref_paged_attention,
+                              split_args)
 from .ragged_prefill import _check as _check_ragged
 from .ragged_prefill import _ref_ragged_prefill
 
@@ -132,17 +134,21 @@ def _launch(q, k_pages, v_pages, block_tables, t0, last, dec, sched_slot,
     _check(q, k_pages, v_pages, block_tables, t0, last, dec, sched_slot,
            sched_page)
     fn = _build.function("fused_tick", "fused_tick_launch",
-                         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
                          + [ctypes.c_float, ctypes.c_void_p])
     S, C, nh, hd = q.shape
     _, pg, kvh, _ = k_pages.shape
+    W = block_tables.shape[1]
+    # a decode-only tick splits its rows' keys over the live slice's W
+    # pages, as K1 does over the table
+    ws, pps, splits = split_args(q, k_pages, W) if C == 1 else (None, 0, 0)
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_tables.data_ptr(), t0.data_ptr(), last.data_ptr(),
              sched_slot.data_ptr(), sched_page.data_ptr(), out.data_ptr(),
-             S, C, nh, kvh, hd, pg, block_tables.shape[1],
-             sched_slot.shape[0], _DTYPES[q.dtype], float(sm_scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             None if ws is None else ws.data_ptr(), S, C, nh, kvh, hd, pg,
+             W, sched_slot.shape[0], pps, splits, _DTYPES[q.dtype],
+             float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_tick kernel launch failed: CUDA error "
                            f"{err}")

@@ -11,7 +11,9 @@ against the JAX package's, on CPU.
   tests use (same f32 softmax, another summation order). Idle slots are
   exact zeros. Pages past every slot's frontier, poisoned with large
   finite values, move no bit of a live row. The contract is checked
-  before any launch.
+  before any launch. A decode-only tick split and merged as the bf16
+  kernel does it over each slot's schedule run (``_ref_split_decode``,
+  split sizes of 1, 2 and 5 entries) equals the Pallas kernel at C = 1.
 - Bundle: the fused-tick entry's logits equal the JAX fused entry's
   within 1e-4 at one mixed tick, with bridged weights. On torch's CPU
   the fused decode row is bitwise equal to the split decode step when
@@ -244,6 +246,50 @@ def test_kernel_contract_is_checked_before_launch(bad):
     with pytest.raises((TypeError, ValueError)):
         tft._check(t["q"], t["kp"], t["kp"].clone(), t["bt"], t["t0"],
                    t["last"], t["dec"], t["ss"], t["sp"])
+
+
+@pytest.mark.parametrize("pps", [1, 2, 5])
+@pytest.mark.parametrize("nh,kvh,hd", [(4, 4, 16), (8, 1, 32), (8, 4, 64)])
+def test_split_and_merge_over_the_schedule_match_the_pallas_kernel(
+        pps, nh, kvh, hd):
+    """A decode-only tick (C = 1) as the bf16 kernel splits it: slot s
+    walks its run of the schedule, entry e being the live table's column
+    sp[lo + e] at positions sp[lo + e] * pg .., visible up to min(t0,
+    last); split every ``pps`` entries and merged in index order
+    (``_ref_split_decode``), it equals the JAX kernel in interpret mode
+    and the port's plain version within ATOL; an idle slot is zeros."""
+    rng = np.random.RandomState(pps + nh + hd)
+    S, pg, W, P = 5, 4, 6, 40
+    q = (rng.randn(S, 1, nh, hd) * 0.5).astype(np.float32)
+    kp = (rng.randn(P, pg, kvh, hd) * 0.5).astype(np.float32)
+    vp = (rng.randn(P, pg, kvh, hd) * 0.5).astype(np.float32)
+    bt = (rng.permutation(P - 1)[:S * W] + 1).reshape(S, W).astype(np.int32)
+    last = np.array([0, 3, 4, W * pg - 1, -1], np.int32)
+    t0 = np.where(last >= 0, last, W * pg).astype(np.int32)
+    dec = (last >= 0).astype(np.int32)
+    ss, sp, _ = tft.build_schedule(last, pg, n_slots=S)
+    pages = np.full((S, W), -1, np.int32)
+    bases = np.zeros((S, W), np.int32)
+    for s in range(S):
+        run = sp[ss == s]
+        pages[s, :len(run)] = bt[s, run]
+        bases[s, :len(run)] = run * pg
+    lim = np.minimum(t0, last)
+    scale = hd ** -0.5
+    got = tpa._ref_split_decode(
+        torch.from_numpy(q[:, 0]), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(pages), torch.from_numpy(bases),
+        torch.from_numpy(lim), scale, pps).numpy()
+    kern = np.asarray(jft._fused_tick_pallas(
+        *(jnp.asarray(a) for a in (q, kp, vp, bt, t0, ss, sp)), scale,
+        interpret=True))[:, 0]
+    port = tft.fused_tick_attention(
+        *(torch.from_numpy(a) for a in (q, kp, vp, bt, t0, last, dec, ss,
+                                        sp)), sm_scale=scale).numpy()[:, 0]
+    live = last >= 0
+    np.testing.assert_allclose(got[live], kern[live], rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, port, rtol=0, atol=ATOL)
+    assert not got[~live].any()
 
 
 # ------------------------------------------------------------ the bundle
