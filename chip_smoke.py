@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only build,k4,k5,train_parity,train
     python3 chip_smoke.py --only build,k4,k6,train_parity,train
     python3 chip_smoke.py --only build,k6,k7,k8,int8_parity
+    python3 chip_smoke.py --only build,k5,k8,int8_parity,int8_infer,train
 
 Phases, in order; any failure exits non-zero:
 
@@ -52,8 +53,11 @@ Phases, in order; any failure exits non-zero:
    version, one SDPA call (a yardstick the port never calls) and the
    bound, the kernels' time also read from torch.profiler;
 7. k5: RMSNorm forward (K5a) and backward (K5b) likewise, at 8192 x 1024
-   (llama_350m) and 4096 x 4096 (Llama-2-7B) rows x d, beside
-   torch.nn.functional.rms_norm;
+   (llama_350m), 4096 x 4096 (Llama-2-7B) and 1000 x 264 rows x d, the
+   backward bitwise repeatable; ptxas's registers and spills of the three
+   kernels; in bf16 at both shapes timed beside
+   torch.nn.functional.rms_norm, the backward's row kernel and its dw
+   reduction also read apart from torch.profiler;
 8. k6: the rope kernel, forward (sign +1) and backward (sign -1), bf16
    and f32, at llama_350m's q (8 x 1024 x 16 x 64), Llama-2-7B's q
    (1 x 4096 x 32 x 128) and a tail (S = 1000) against its plain
@@ -73,11 +77,17 @@ Phases, in order; any failure exits non-zero:
    ``incubate.nn.functional.fused_linear_activation`` and
    ``fused_matmul_bias``, counters zeroed just before and read after,
    both launches on the wgmma route;
-10. k8: the int8 matmul against its plain version, bit for bit, at
-   Llama-2-7B's projection shapes with 4096 rows (K x N 4096 x 4096,
-   4096 x 11008, 11008 x 4096, 4096 x 32000), a decode batch (M = 8) and
-   ragged shapes, timed beside torch._int_mm + the same epilogue (a
-   yardstick);
+10. k8: the int8 matmul against its plain version, bit for bit in f32
+   and bf16 out, at Llama-2-7B's projection shapes with 4096 rows (K x N
+   4096 x 4096, 4096 x 11008, 11008 x 4096, 4096 x 32000), a decode batch
+   (M = 8), M, K and N past the wgmma tile and ragged shapes, each on
+   its stated route (wgmma; mma.sync for K and N off TMA's multiples),
+   the 7B shapes also through the K-major entry the int8 layers call;
+   every case launched twice into an output poisoned with NaN, bitwise
+   equal; ptxas's registers and spills of both routes' kernels; the main
+   path's entry (K-major, bf16 out) at 7B gate/up timed beside
+   torch._int_mm + the same epilogue (a yardstick), with bf16
+   torch.addmm and K7 at the same shape printed;
 11. parity: a llama_tiny-shaped float32 model served on the card (the
    kernels) and on the CPU (the plain versions) from the same weights,
    on split ticks and on fused ticks, must emit equal greedy tokens:
@@ -92,7 +102,8 @@ Phases, in order; any failure exits non-zero:
    times (q and k, forward and backward);
 13. int8_parity: a llama_tiny-shaped float32 model converted by
    ``to_int8_inference`` on the card (K8) and on the CPU (the plain
-   version) from the same weights: equal int8 codes, logits within one
+   version) from the same weights: equal int8 codes (every layer's
+   K-major ``qweight_t``) and scales, logits within one
    quantisation step of the head, equal greedy argmax, and 7 x layers + 1
    K8 launches per forward;
 14. serve: Llama-2-7B in bf16 (random weights from a seed, full width
@@ -704,6 +715,30 @@ K4_CASES = (("350m", 8, 1024, 1024, 16, 64, True, BOTH),
 K4_KERNELS = ("fwd_mma_kernel", "dq_mma_kernel", "dkv_mma_kernel")
 
 
+def template_args(mangled):
+    """The template arguments at the head of an Itanium-mangled list
+    (``I...E`` without its ``I``), as text: ``13__nv_bfloat16Li4EE`` ->
+    ``__nv_bfloat16,4``; ``fLb1EE`` -> ``f,1``."""
+    import re
+    args = []
+    while mangled and mangled[0] != "E":
+        m = re.match(r"L\w(-?\d+)E", mangled)          # a value
+        if m is None:
+            m = re.match(r"(\d+)", mangled)             # a named type
+            if m is not None:
+                n = int(m.group(1))
+                name = mangled[m.end():m.end() + n]
+                args.append(name)
+                mangled = mangled[m.end() + n:]
+                continue
+            args.append(mangled[0])                      # a builtin type
+            mangled = mangled[1:]
+            continue
+        args.append(m.group(1))
+        mangled = mangled[m.end():]
+    return ",".join(args)
+
+
 def ptxas_report(stem, names):
     """{(kernel, template arguments): (registers, spill stores, spill
     loads)} from ptxas's report of ``csrc/<stem>.cu`` in this process's
@@ -719,9 +754,10 @@ def ptxas_report(stem, names):
         if m:
             cur = None
             for n in names:
-                t = re.search(n + r"I((?:Li\d+E)+)E", m.group(1))
+                t = re.search(r"\d" + n + r"(I?)", m.group(1))
                 if t:
-                    cur = (n, ",".join(re.findall(r"Li(\d+)E", t.group(1))))
+                    rest = m.group(1)[t.end():]
+                    cur = (n, template_args(rest) if t.group(1) else "")
             continue
         if cur is None:
             continue
@@ -891,12 +927,19 @@ def k4_time(torch, F, fa, tag, tensors, shape, scale, peak, flush, record,
             f"{bnd:.4f} ms")
 
 
+K5_KERNELS = ("rms_fwd_kernel", "rms_bwd_kernel", "rms_dw_reduce_kernel")
+
+
 def phase_k5(torch, peak, flush, record):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import rms_norm as rn
+    log_ptxas("k5", "rms_norm", K5_KERNELS)
     gen = torch.Generator(device="cuda").manual_seed(5)
     eps = 1e-5
-    for tag, rows, d in (("350m", 8192, 1024), ("7b", 4096, 4096)):
+    # llama_350m's and Llama-2-7B's rows; a ragged width (33 chunks of 16
+    # bytes in bf16: most lanes masked) with fewer rows than row groups
+    for tag, rows, d in (("350m", 8192, 1024), ("7b", 4096, 4096),
+                         ("ragged", 1000, 264)):
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             x = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
@@ -927,38 +970,50 @@ def phase_k5(torch, peak, flush, record):
             if not ok:
                 raise SystemExit(f"k5 {tag} {dname} disagrees with its plain "
                                  f"version")
-            if tag != "350m" or dtype != torch.bfloat16:
-                continue
-            ms_f = cuda_ms(lambda: rn.rms_norm_fwd(x, w, eps), torch,
-                           flush=flush)
-            ms_b = cuda_ms(lambda: rn.rms_norm_bwd(x, w, g, eps), torch,
-                           flush=flush)
-            plain_f = cuda_ms(lambda: rn._ref_fwd(x, w, eps), torch,
-                              flush=flush)
-            plain_b = cuda_ms(lambda: rn._ref_bwd(x, w, g, eps), torch,
-                              flush=flush)
-            xs, ws = x.detach().requires_grad_(), w.detach().requires_grad_()
-            lib_f = cuda_ms(lambda: F.rms_norm(xs, (d,), ws, eps), torch,
-                            flush=flush)
-            y = F.rms_norm(xs, (d,), ws, eps)
-            lib_b = cuda_ms(lambda: torch.autograd.grad(
-                y, (xs, ws), g, retain_graph=True), torch, flush=flush)
-            elt = x.element_size()
-            bound_f, by_f = bound((2 * rows * d + d) * elt, 0, peak)
-            bound_b, by_b = bound((3 * rows * d + 2 * d) * elt, 0, peak)
-            record["rms_norm_fwd"].update(
-                max_abs_err=errs[0][0], ms=ms_f, plain_ms=plain_f,
-                library_ms=lib_f, bound_ms=bound_f, bound_by=by_f)
-            record["rms_norm_bwd"].update(
-                max_abs_err=max(errs[1][0], errs[2][0]), ms=ms_b,
-                plain_ms=plain_b, library_ms=lib_b, bound_ms=bound_b,
-                bound_by=by_b)
-            for what, ms, plain, lib, bnd in (
-                    ("forward", ms_f, plain_f, lib_f, bound_f),
-                    ("backward", ms_b, plain_b, lib_b, bound_b)):
-                log(f"k5 350m bf16 {what} timing: kernel {ms:.4f} ms, plain "
-                    f"{plain:.4f} ms, F.rms_norm {lib:.4f} ms, bound "
-                    f"{bnd:.4f} ms")
+            if dtype == torch.bfloat16 and tag != "ragged":
+                k5_time(torch, F, rn, tag, x, w, g, eps, peak, flush, record,
+                        errs)
+
+
+def k5_time(torch, F, rn, tag, x, w, g, eps, peak, flush, record, errs):
+    """K5a and K5b in bf16 beside their plain versions and
+    F.rms_norm (forward; its backward through autograd on a kept graph),
+    yardsticks the port never calls, and their bounds; the backward's
+    row kernel and its dw reduction also read apart from torch.profiler.
+    llama_350m's shape (the train path's) goes into the record."""
+    rows, d = x.shape
+    ms_f = cuda_ms(lambda: rn.rms_norm_fwd(x, w, eps), torch, flush=flush)
+    ms_b = cuda_ms(lambda: rn.rms_norm_bwd(x, w, g, eps), torch, flush=flush)
+    prof_rows, prof_dw = (profiled_ms(
+        torch, lambda: rn.rms_norm_bwd(x, w, g, eps), names, flush)
+        for names in (K5_KERNELS[1:2], K5_KERNELS[2:]))
+    plain_f = cuda_ms(lambda: rn._ref_fwd(x, w, eps), torch, flush=flush)
+    plain_b = cuda_ms(lambda: rn._ref_bwd(x, w, g, eps), torch, flush=flush)
+    xs, ws = x.detach().requires_grad_(), w.detach().requires_grad_()
+    lib_f = cuda_ms(lambda: F.rms_norm(xs, (d,), ws, eps), torch,
+                    flush=flush)
+    y = F.rms_norm(xs, (d,), ws, eps)
+    lib_b = cuda_ms(lambda: torch.autograd.grad(
+        y, (xs, ws), g, retain_graph=True), torch, flush=flush)
+    elt = x.element_size()
+    bound_f, by_f = bound((2 * rows * d + d) * elt, 0, peak)
+    bound_b, by_b = bound((3 * rows * d + 2 * d) * elt, 0, peak)
+    if tag == "350m":
+        record["rms_norm_fwd"].update(
+            max_abs_err=errs[0][0], ms=ms_f, plain_ms=plain_f,
+            library_ms=lib_f, bound_ms=bound_f, bound_by=by_f)
+        record["rms_norm_bwd"].update(
+            max_abs_err=max(errs[1][0], errs[2][0]), ms=ms_b,
+            plain_ms=plain_b, library_ms=lib_b, bound_ms=bound_b,
+            bound_by=by_b)
+    for what, ms, plain, lib, bnd, seen in (
+            ("forward", ms_f, plain_f, lib_f, bound_f, ""),
+            ("backward", ms_b, plain_b, lib_b, bound_b,
+             f" (profiler: rows {fmt_ms(prof_rows)}, dw reduction "
+             f"{fmt_ms(prof_dw)}, from its start: a programmatic "
+             f"dependent launch starts under the rows' tail and waits)")):
+        log(f"k5 {tag} bf16 {what} timing: kernel {ms:.4f} ms{seen}, plain "
+            f"{plain:.4f} ms, F.rms_norm {lib:.4f} ms, bound {bnd:.4f} ms")
 
 
 # (tag, [B, S, H, D], table rows): llama_350m's q (the train_rope path),
@@ -1208,51 +1263,96 @@ def k7_main_path(torch, gen):
 
 
 # (tag, M, K, N): Llama-2-7B's projections at 4096 rows (8 x 512 tokens):
-# q/k/v/o, gate/up, down and the head; a decode batch; ragged M; then K
-# and N off the wide loads' multiples
+# q/k/v/o, gate/up, down and the head; a decode batch; ragged M; M, K and
+# N past the wgmma tile's multiples (128, 128, 256); then K and N off
+# TMA's multiples (the mma.sync route)
 K8_CASES = (("7b-qkvo", 4096, 4096, 4096), ("7b-gate-up", 4096, 4096, 11008),
             ("7b-down", 4096, 11008, 4096), ("7b-head", 4096, 4096, 32000),
             ("decode", 8, 4096, 11008), ("ragged-m", 1000, 4096, 4096),
-            ("ragged-all", 77, 1000, 1002))
+            ("tails", 200, 1040, 1000), ("ragged-all", 77, 1000, 1002))
+
+
+K8_KERNELS = ("qmm_wgmma_kernel", "qmm_kernel")
 
 
 def phase_k8(torch, peak, flush, record):
+    """Every case through the reference layout's entry (its K-major copy
+    made on the card) in f32 and bf16 out, on its stated route, bitwise
+    equal to the plain version; the 7B cases also through the K-major
+    entry the main path calls. Then each case's launch into an output
+    poisoned with NaN, twice: every element written, bitwise equal to
+    the plain version and between the two launches."""
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+    log_ptxas("k8", "quant_matmul", K8_KERNELS)
     gen = torch.Generator(device="cuda").manual_seed(8)
+    f32, bf16 = torch.float32, torch.bfloat16
     for tag, M, K, N in K8_CASES:
+        want = "mma_sync" if tag == "ragged-all" else "wgmma"
         x = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
                           dtype=torch.int8)
         w = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
                           dtype=torch.int8)
+        wt = w.t().contiguous()
         sx = torch.tensor(0.0123, device="cuda")
         sw = 1e-3 + 1e-2 * torch.rand((N,), generator=gen, device="cuda")
-        out = qm.quantized_matmul(x, w, sx, sw)
-        out_bf = qm.quantized_matmul(x, w, sx, sw, out_dtype=torch.bfloat16)
-        torch.cuda.synchronize()
         ref = qm._ref(x, w, sx, sw)
-        same = torch.equal(out, ref) and torch.equal(
-            out_bf, ref.to(torch.bfloat16))
-        err = (out - ref).abs().max().item()
-        log(f"k8 {tag}: [{M}, {K}] @ [{K}, {N}] int8, f32 and bf16 out "
-            f"bitwise equal to the plain version {same} (max_abs_err "
-            f"{err:.2e}) {'ok' if same else 'FAIL'}")
-        if not same:
-            raise SystemExit(f"k8 {tag} disagrees with its plain version")
-        del out_bf, ref
+        entries = [("reference layout", qm.quantized_matmul, w)]
+        if tag.startswith("7b"):
+            entries.append(("K-major", qm.quantized_matmul_kmajor, wt))
+        checks, err = {}, 0.0
+        for name, fn, weight in entries:
+            for dt in (f32, bf16):
+                before = dict(qm.quantized_matmul.route_launches)
+                out = fn(x, weight, sx, sw, out_dtype=dt)
+                took = [r for r, n in qm.quantized_matmul.route_launches
+                        .items() if n != before[r]]
+                torch.cuda.synchronize()
+                checks[f"{name} {str(dt)[6:]} on {took}"] = \
+                    torch.equal(out, ref.to(dt)) and took == [want]
+                if dt == f32:
+                    err = max(err, (out - ref).abs().max().item())
+                del out
+        sxs, sws = qm._scales(sx, sw, N, x.device)
+        for dt in (f32, bf16):
+            a, b = (torch.full((M, N), float("nan"), dtype=dt, device="cuda")
+                    for _ in range(2))
+            qm._launch(x, wt, sxs, sws, a)
+            qm._launch(x, wt, sxs, sws, b)
+            torch.cuda.synchronize()
+            checks[f"poisoned {str(dt)[6:]} twice"] = torch.equal(
+                a, ref.to(dt)) and torch.equal(a, b)
+            del a, b
+        ok = all(checks.values())
+        log(f"k8 {tag}: [{M}, {K}] @ [{K}, {N}] int8, route {want}; bitwise "
+            f"equal to the plain version: {checks} (max_abs_err {err:.2e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"k8 {tag} disagrees with its plain version, "
+                             f"took another route, or is not repeatable")
+        del ref
         if tag == "7b-gate-up":
-            k8_time(torch, qm, x, w, sx, sw, peak, flush, record, err)
-        del x, w, out
+            k8_time(torch, qm, x, w, wt, sx, sw, peak, flush, record, err)
+        del x, w, wt
     torch.cuda.empty_cache()
 
 
-def k8_time(torch, qm, x, w, sx, sw, peak, flush, record, err):
-    """K8 beside its plain version (an f64 product) and torch._int_mm
-    with the same epilogue (a yardstick the port never calls), and its
-    bound at the int8 tensor-core peak."""
+def k8_time(torch, qm, x, w, wt, sx, sw, peak, flush, record, err):
+    """K8 through the main path's entry (the K-major weight, bf16 out, as
+    ``Int8InferLinear`` calls it; f32 out beside it) against its plain
+    version (an f64 product) and torch._int_mm with the same epilogue (a
+    yardstick the port never calls), and its bound at the int8
+    tensor-core peak; for information, bf16 torch.addmm and K7's bf16
+    route at the same shape."""
+    from paddle_tpu_torch.ops.kernels import gemm_epilogue as ge
     M, K = x.shape
     N = w.shape[1]
-    ms = cuda_ms(lambda: qm.quantized_matmul(x, w, sx, sw), torch, flush=flush)
-    plain_ms = cuda_ms(lambda: qm._ref(x, w, sx, sw), torch, iters=5,
+    bf16 = torch.bfloat16
+    ms = cuda_ms(lambda: qm.quantized_matmul_kmajor(x, wt, sx, sw,
+                                                    out_dtype=bf16),
+                 torch, flush=flush)
+    ms_f32 = cuda_ms(lambda: qm.quantized_matmul_kmajor(x, wt, sx, sw),
+                     torch, flush=flush)
+    plain_ms = cuda_ms(lambda: qm._ref(x, w, sx, sw, bf16), torch, iters=5,
                        flush=flush)
     try:
         lib_ms = cuda_ms(lambda: torch._int_mm(x, w).float() * sx
@@ -1261,16 +1361,22 @@ def k8_time(torch, qm, x, w, sx, sw, peak, flush, record, err):
         lib_ms = None
         log(f"k8: torch._int_mm refused these operands ({e}); library_ms "
             f"not measured")
-    nbytes = M * K + K * N + 4 + 4 * N + 4 * M * N
+    xb, wb = x.to(bf16), w.to(bf16)
+    zero = torch.zeros((N,), dtype=bf16, device="cuda")
+    addmm_ms = cuda_ms(lambda: torch.addmm(zero, xb, wb), torch, flush=flush)
+    k7_ms = cuda_ms(lambda: ge.gemm_epilogue(xb, wb), torch, flush=flush)
+    del xb, wb
+    nbytes = M * K + K * N + 4 + 4 * N + 2 * M * N
     bound_ms, by = bound(nbytes, 2 * M * N * K, peak, peak[3])
     record["quant_matmul"].update(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         bound_ms=bound_ms, bound_by=by)
-    log(f"k8 7b-gate-up timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-        f" _int_mm + epilogue "
+    log(f"k8 7b-gate-up timing: kernel {ms:.4f} ms (K-major, bf16 out; f32 "
+        f"out {ms_f32:.4f} ms), plain {plain_ms:.4f} ms, _int_mm + epilogue "
         f"{'not measured' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
         f"{bound_ms:.4f} ms ({by}; {nbytes} bytes, {2 * M * N * K} int8 "
-        f"operations)")
+        f"operations); for information, bf16 at the same shape: addmm "
+        f"{addmm_ms:.4f} ms, K7 wgmma {k7_ms:.4f} ms")
 
 
 def serve_wave(srv, prompts, n_new):
@@ -1706,10 +1812,12 @@ def phase_int8_parity(torch, np):
     step = (sx * qc.lm_head.w_scale.max() * 127).item()
     err = (lg.cpu() - lc).abs().max().item()
     argmax = torch.equal(lg.cpu().argmax(-1), lc.argmax(-1))
-    cb = dict(qc.named_buffers())
-    codes = all(torch.equal(b.cpu(), cb[n]) for n, b in qg.named_buffers()
-                if n.endswith(("qweight", "w_scale")))
     L = cfg.num_layers
+    cb = dict(qc.named_buffers())
+    held = {n: b for n, b in qg.named_buffers()
+            if n.endswith(("qweight_t", "w_scale"))}
+    codes = len(held) == 2 * (7 * L + 1) and all(
+        torch.equal(b.cpu(), cb[n]) for n, b in held.items())
     launched = counts["k8"] == 7 * L + 1 and not any(
         counts[k] for k in ("k1", "k2", "k3", "k6", "k7", "k4_dq", "k4_dkv",
                             "k5_bwd"))
@@ -1949,9 +2057,10 @@ def profile_once(torch, fn, card, what="train", unit="step"):
     # the port's own kernels (each library's anonymous namespace; PyTorch
     # has kernels there too, named with at:: or c10:: types), ranked or
     # not: K4's three and K5's in a train step
-    ours = [(name.split("::")[1].split("(")[0], ms, count)
+    anon = "void (anonymous namespace)::"
+    ours = [(name[len(anon):].split("(")[0], ms, count)
             for name, ms, count in kernels
-            if name.startswith("void (anonymous namespace)::")
+            if name.startswith(anon)
             and "at::" not in name and "c10::" not in name]
     log(f"profile {what}: the port's kernels, {sum(k[1] for k in ours):.3f} "
         f"ms/{unit}: " + ", ".join(f"{n} {ms:.3f} ms ({c}x)"

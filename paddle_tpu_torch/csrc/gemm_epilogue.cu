@@ -40,7 +40,8 @@
 //   masked; stores are. Blocks run in groups of 16 row tiles, so a wave
 //   of blocks shares its x rows and w columns in L2. The tensor maps are
 //   built on the host by cuTensorMapEncodeTiled, reached through the
-//   runtime's entry-point query, so the library needs no -lcuda. Not yet:
+//   runtime's entry-point query, so the library needs no -lcuda (the
+//   TMA and mbarrier helpers are hopper_tma.cuh's, shared with K8). Not yet:
 //   a persistent grid (one tile's epilogue under the next one's loads)
 //   and clusters sharing a TMA multicast.
 // - mma.sync (the other bf16 shapes, e.g. K or N odd): the first bf16
@@ -48,13 +49,13 @@
 //   loads masked at every edge and the w tile transposed while staged.
 // - simt (f32): fused multiply-adds in full f32 (no TF32), as the TPU
 //   kernel dots in f32; a 64 x 64 tile, 4 x 4 outputs a thread.
-#include <cuda.h>   // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "attention_common.cuh"
+#include "hopper_tma.cuh"
 
 namespace {
 
@@ -259,60 +260,12 @@ static_assert(X_BYTES % 1024 == 0 && W_BOX % 1024 == 0,
 static_assert(TM * OP * 2 <= kStages * STAGE,
               "the output tile reuses the ring");
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-// spin until the barrier's phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// TMA: the box at coordinates (c0 innermost, c1) of the map into dst,
-// completion counted in bytes on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, the
-// leading and stride byte offsets, all in 16-byte units
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
+using pt_tma::desc;
+using pt_tma::mbar_arrive;
+using pt_tma::mbar_expect_tx;
+using pt_tma::mbar_init;
+using pt_tma::mbar_wait;
+using pt_tma::tma_load;
 
 // keep the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma
@@ -520,54 +473,16 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, fetched through the runtime
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a row-major [rows, cols] bf16 matrix read in [box_rows, 64] boxes with
-// the 128-byte swizzle, zeros past its edges
-bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int rows,
-              int cols, int box_rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t estr[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(base), dims, strides, box, estr,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 cudaError_t launch(const void* x, const void* w, const void* bias, void* out,
                    int M, int N, int K, int act, cudaStream_t st) {
-  const EncodeTiled enc = encode_tiled();
+  const pt_tma::EncodeTiled enc = pt_tma::encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
+  // bf16 rows read in boxes 64 wide (128 bytes): x [TM, 64], w [TK, 64]
   CUtensorMap xmap, wmap;
-  if (!make_map(enc, &xmap, x, M, K, TM) || !make_map(enc, &wmap, w, K, N, TK))
+  if (!pt_tma::make_map(enc, &xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        M, K, TM, 64) ||
+      !pt_tma::make_map(enc, &wmap, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        K, N, TK, 64))
     return cudaErrorInvalidValue;
   const long long blocks = static_cast<long long>((M + TM - 1) / TM) *
                            ((N + TN - 1) / TN);
@@ -583,10 +498,6 @@ cudaError_t launch(const void* x, const void* w, const void* bias, void* out,
 }
 
 }  // namespace wg
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
 
 }  // namespace
 
@@ -612,8 +523,8 @@ extern "C" int gemm_epilogue_launch(const void* x, const void* w,
     return cudaGetLastError();
   }
   if (route == 2) {
-    if (K < 8 || K % 8 != 0 || N % 8 != 0 || !aligned16(x) || !aligned16(w) ||
-        !aligned16(out))
+    if (K < 8 || K % 8 != 0 || N % 8 != 0 || !pt_tma::aligned16(x) ||
+        !pt_tma::aligned16(w) || !pt_tma::aligned16(out))
       return cudaErrorInvalidValue;
     return wg::launch(x, w, bias, out, M, N, K, act, st);
   }

@@ -5,7 +5,9 @@ Port of ``paddle_tpu/quantization/qat.py:138-200``. ``to_int8_inference``
 swaps every ``nn.Linear`` of a model for an ``Int8InferLinear``, whose
 weight is quantized once to int8 per output channel and whose forward
 quantizes its input per tensor and runs the int8 matmul with the fused
-dequantize (K8, ``ops.kernels.quant_matmul``). Deploy only: the forward
+dequantize (K8, ``ops.kernels.quant_matmul``). The codes are kept once,
+K-major (``[out, in]``), the layout K8's ``wgmma`` route reads; the
+reference's ``[in, out]`` layout is a view. Deploy only: the forward
 builds no graph, as the reference cuts the tangent.
 
 The QAT/PTQ engines, ``QuantedLinear``, ``QuantConfig`` and the
@@ -19,7 +21,8 @@ import torch
 from torch import nn
 
 from ..nn.layer import Linear
-from ..ops.kernels.quant_matmul import quantize_tensor, quantized_matmul
+from ..ops.kernels.quant_matmul import (quantize_tensor,
+                                        quantized_matmul_kmajor)
 
 __all__ = ["Int8InferLinear", "to_int8_inference"]
 
@@ -35,27 +38,40 @@ def _set_sublayer(root, dotted, new):
 
 
 class Int8InferLinear(nn.Module):
-    """Int8 deploy Linear: ``qweight`` int8 ``[in, out]`` and ``w_scale``
-    ``[out]`` (in the weight's dtype) from ``quantize_tensor(weight,
-    per_channel_axis=1)`` at construction; ``forward`` quantizes x per
-    tensor, runs ``quantized_matmul`` (f32 out), casts to x's dtype and
-    adds the layer's bias, if any."""
+    """Int8 deploy Linear: the codes and ``w_scale`` ``[out]`` (in the
+    weight's dtype) from ``quantize_tensor(weight, per_channel_axis=1)``
+    at construction, the codes kept once as ``qweight_t`` int8 ``[out,
+    in]`` (K-major); ``qweight`` is the reference's ``[in, out]`` view of
+    them. ``forward`` quantizes x per tensor, runs K8 with x's dtype out
+    (one rounding of the f32 dequantized value, as the reference's f32
+    result cast to x's dtype) and adds the layer's bias, if any."""
 
     def __init__(self, layer):
         super().__init__()
         with torch.no_grad():
             qw, sw = quantize_tensor(layer.weight.detach(),
                                      per_channel_axis=1)
-        self.register_buffer("qweight", qw)
+            qw = qw.t().contiguous()       # the [in, out] codes are freed
+        self.register_buffer("qweight_t", qw)
         self.register_buffer("w_scale", sw)
         self.bias = getattr(layer, "bias", None)
+
+    @property
+    def qweight(self):
+        """The int8 codes in the reference's ``[in, out]`` layout (a
+        view of ``qweight_t``)."""
+        return self.qweight_t.t()
 
     def forward(self, x):
         with torch.no_grad():
             x = x.detach()
             shape = x.shape
             qx, sx = quantize_tensor(x.reshape(-1, shape[-1]))
-            out = quantized_matmul(qx, self.qweight, sx, self.w_scale)
+            # K8 writes f32 or bf16; any other type is cast from f32
+            kind = x.dtype if x.dtype in (torch.float32, torch.bfloat16) \
+                else torch.float32
+            out = quantized_matmul_kmajor(qx, self.qweight_t, sx,
+                                          self.w_scale, out_dtype=kind)
             out = out.reshape(*shape[:-1], out.shape[-1]).to(x.dtype)
         if self.bias is not None:
             out = out + self.bias

@@ -19,9 +19,17 @@ the card (``chip_smoke.py`` phase ``k8``):
   times 127: what one flipped input code can move a logit), greedy
   argmax equal, the original left untouched with ``inplace=False``;
 - ``Int8InferLinear`` with a bias, and the paged serving bundle refusing
-  a converted model (ROADMAP, Queue 1 item 10).
+  a converted model (ROADMAP, Queue 1 item 10);
+- the K-major entry (``quantized_matmul_kmajor``, the weight ``[N, K]``
+  as the kernel reads it) against the reference layout's entry and the
+  JAX function, bit for bit, f32 and bf16 out; the kernel route each of
+  ``chip_smoke.py``'s K8 cases takes, picked before any launch; the
+  converted layer's one K-major int8 buffer, its ``qweight`` view and
+  its forward in x's dtype (one rounding, as f32 then cast).
 """
 import functools
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
@@ -182,3 +190,101 @@ def test_serving_a_converted_model_raises_with_a_roadmap_pointer():
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         q._decode_bundle(32, cache_backend="paged", page_size=8,
                          num_pages=9)
+
+
+# ------------------------------------------------- the K-major weight
+
+
+@pytest.mark.parametrize("out", list(DTYPES))
+@pytest.mark.parametrize("shape", [(128, 256, 128), (37, 100, 50)],
+                         ids=["divisible", "ragged"])
+def test_kmajor_entry_matches_the_reference_layout_and_jax(shape, out):
+    jdt, tdt = DTYPES[out]
+    m, k, n = shape
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    jx, sx = jqm.quantize_tensor(jnp.asarray(x))
+    jw, sw = jqm.quantize_tensor(jnp.asarray(w), per_channel_axis=1)
+    want = jqm.quantized_matmul(jx, jw, sx, sw, block_m=128, block_n=128,
+                                block_k=128, interpret=True, out_dtype=jdt)
+    tx, tw = torch.from_numpy(np.array(jx)), torch.from_numpy(np.array(jw))
+    tsx, tsw = torch.from_numpy(_np(sx)), torch.from_numpy(_np(sw))
+    got = tqm.quantized_matmul_kmajor(tx, tw.t().contiguous(), tsx, tsw,
+                                      out_dtype=tdt)
+    assert got.dtype == tdt and got.shape == (m, n)
+    assert torch.equal(got, tqm.quantized_matmul(tx, tw, tsx, tsw,
+                                                 out_dtype=tdt))
+    np.testing.assert_array_equal(_t2np(got), _np(want))
+    assert tqm.quantized_matmul.launches == 0   # CPU: the plain version
+
+
+def _chip_smoke_k8_cases():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.K8_CASES
+
+
+def test_route_is_picked_from_the_shape_before_any_launch():
+    """wgmma where K is a multiple of 16, N of 8 and every pointer
+    16-byte aligned (every 7B case, the decode batch, ragged M and the
+    tile's tails);
+    mma.sync for the rest; a shape neither takes raises."""
+    want = {"7b-qkvo": "wgmma", "7b-gate-up": "wgmma", "7b-down": "wgmma",
+            "7b-head": "wgmma", "decode": "wgmma", "ragged-m": "wgmma",
+            "tails": "wgmma", "ragged-all": "mma_sync"}
+    cases = _chip_smoke_k8_cases()
+    assert {c[0] for c in cases} == set(want)
+    for tag, m, k, n in cases:
+        assert tqm.route(m, n, k, aligned=True) == want[tag], tag
+    assert tqm.route(4096, 11008, 4096, aligned=False) == "mma_sync"
+    assert tqm.route(8, 8, 0, aligned=True) == "mma_sync"
+    with pytest.raises(ValueError, match="mma.sync"):
+        tqm.route(tqm.MAX_MMA_ROWS + 1, 1002, 1000, aligned=True)
+    with pytest.raises(ValueError, match="exact"):
+        tqm.route(8, 8, tqm.MAX_K, aligned=True)
+    assert tqm.quantized_matmul.launches == 0
+
+
+def test_converted_model_holds_one_kmajor_int8_buffer_a_layer():
+    jq, tm, _, _ = _llamas()
+    q = to_int8_inference(tm)
+    jmods = dict(jq.named_sublayers())
+    int8 = {n: b for n, b in q.named_buffers() if b.dtype == torch.int8}
+    layers = {n: m for n, m in q.named_modules()
+              if isinstance(m, Int8InferLinear)}
+    assert set(int8) == {f"{n}.qweight_t" for n in layers}
+    total = 0
+    for n, mod in layers.items():
+        k, n_out = tm.get_submodule(n).weight.shape
+        assert mod.qweight_t.shape == (n_out, k)
+        assert mod.qweight_t.is_contiguous()
+        # the reference's [in, out] codes: a view, no second buffer
+        assert mod.qweight.shape == (k, n_out)
+        assert mod.qweight.data_ptr() == mod.qweight_t.data_ptr()
+        np.testing.assert_array_equal(mod.qweight.numpy(),
+                                      np.asarray(jmods[n].qweight.numpy()))
+        total += k * n_out
+    assert sum(b.numel() * b.element_size() for b in int8.values()) == total
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_int8_forward_in_x_dtype_rounds_once(dtype):
+    """The layer asks K8 for x's dtype: equal, bit for bit, to the f32
+    result cast to x's dtype (the reference's order)."""
+    _, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(12)
+    lin = Linear(64, 48, bias_attr=False, device="cpu")
+    with torch.no_grad():
+        lin.weight.copy_(torch.from_numpy(
+            rng.standard_normal((64, 48)).astype(np.float32)))
+    layer = Int8InferLinear(lin.to(tdt))
+    x = torch.from_numpy(
+        rng.standard_normal((5, 7, 64)).astype(np.float32)).to(tdt)
+    got = layer(x)
+    qx, sx = tqm.quantize_tensor(x.reshape(-1, 64))
+    f32 = tqm._ref(qx, layer.qweight, sx, layer.w_scale)
+    assert got.dtype == tdt
+    assert torch.equal(got, f32.to(tdt).reshape(5, 7, 48))

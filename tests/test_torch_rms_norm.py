@@ -15,7 +15,12 @@ kernels are held to on the card (``chip_smoke.py`` phase ``k5``):
   forward (1e-5), 3-D inputs;
 - bf16: dx in bf16, dw in w's dtype, both within a bf16 rounding of the
   JAX reference;
-- the kernels' contract refuses bad inputs before any launch.
+- the kernels' contract refuses bad inputs before any launch;
+- the backward kernel's static plan (``bwd_plan``) walks every row
+  exactly once from the shape, the SM count and the blocks a SM alone,
+  and its plain model (``_ref_bwd_plan``: the plan's row walk and dw's
+  fixed summation order) agrees with ``_pallas_bwd(interpret=True)``
+  within the tolerances above.
 """
 import functools
 
@@ -132,3 +137,69 @@ def test_contract_refuses_bad_inputs_before_a_launch(case):
     err = TypeError if case == "dtype" else ValueError
     with pytest.raises(err):
         trn._check(x, w, g)
+
+
+# ------------------------------------------------ the backward's plan
+
+PLANS = [(96, 64, torch.float32, 1, 1),       # one block: 8 row groups
+         (48, 1024, torch.float32, 2, 2),     # 2 warps a row, 4 groups
+         (96, 64, torch.float32, 3, 2),       # 6 blocks, rows 2 a group
+         (96, 64, torch.float32, 132, 3),     # fewer rows than the card
+         (40, 4096, torch.float32, 2, 1),     # 8 warps a row, 1 group
+         (50, 1024, torch.bfloat16, 4, 3)]    # 12 blocks, NV = 4
+
+
+@pytest.mark.parametrize("rows,d,dtype,sms,per_sm", PLANS)
+def test_bwd_plan_walks_every_row_once(rows, d, dtype, sms, per_sm):
+    plan = trn.bwd_plan(rows, d, dtype, sms, per_sm)
+    assert plan.groups * plan.warps_per_row == trn.BWD_WARPS
+    assert 1 <= plan.blocks <= sms * per_sm
+    # a lane's chunks cover the row: 32 lanes x W warps x NV chunks
+    vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    assert 32 * plan.warps_per_row * plan.chunks_per_lane * vec >= d
+    assert plan.chunks_per_lane <= trn.MAX_CHUNKS
+    walked = [r for blk in trn.plan_rows(plan, rows) for grp in blk
+              for r in grp]
+    assert sorted(walked) == list(range(rows))
+    # no block is left without rows when the rows are few
+    assert all(any(grp for grp in blk) for blk in trn.plan_rows(plan, rows))
+
+
+def test_bwd_plan_depends_on_the_static_shape_and_the_card_only():
+    """The plan takes no tensor: the same shape and card give the same
+    plan; only the SM count (and the kernel's blocks a SM) move the
+    grid, and one warp takes a row up to 2 KB of x."""
+    a = trn.bwd_plan(8192, 1024, torch.bfloat16, 132, 3)
+    assert a == trn.bwd_plan(8192, 1024, torch.bfloat16, 132, 3)
+    assert a == trn.BwdPlan(1, 4, 8, 396)
+    assert trn.bwd_plan(8192, 1024, torch.bfloat16, 114, 3).blocks == 342
+    assert trn.bwd_plan(4096, 4096, torch.bfloat16, 132, 2) == \
+        trn.BwdPlan(4, 4, 2, 264)
+    assert trn.bwd_shape(1024, torch.bfloat16) == (1, 4)
+    assert trn.bwd_shape(512, torch.float32) == (1, 4)
+    assert trn.bwd_shape(1032, torch.bfloat16) == (2, 4)
+    assert trn.bwd_shape(1024, torch.float32) == (2, 4)
+    # the widest rows: every warp of the block, 8 chunks a lane
+    assert trn.bwd_shape(16384, torch.bfloat16) == (8, 8)
+    assert trn.bwd_shape(8192, torch.float32) == (8, 8)
+
+
+@pytest.mark.parametrize("rows,d,dtype,sms,per_sm", PLANS[:5])
+def test_bwd_plan_model_matches_the_pallas_kernel(rows, d, dtype, sms,
+                                                  per_sm):
+    x, w, g = _inputs((rows, d), 4)
+    jx, jw, jg = jnp.asarray(x), jnp.asarray(w), jnp.asarray(g)
+    pdx, pdw = jrn._pallas_bwd(jx, jw, jg, EPS, block_rows=rows // 8 or 1,
+                               interpret=True)
+    plan = trn.bwd_plan(rows, d, dtype, sms, per_sm)
+    dx, dw = trn._ref_bwd_plan(torch.from_numpy(x), torch.from_numpy(w),
+                               torch.from_numpy(g), EPS, plan)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(pdx), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(pdw), rtol=0,
+                               atol=1e-4)
+    # the same as the plain version within the same tolerances
+    rdx, rdw = trn._ref_bwd(torch.from_numpy(x), torch.from_numpy(w),
+                            torch.from_numpy(g), EPS)
+    np.testing.assert_allclose(dx.numpy(), rdx.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(dw.numpy(), rdw.numpy(), rtol=0, atol=1e-4)
