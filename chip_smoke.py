@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only build,k1,k2,k3
     python3 chip_smoke.py --only build,k2,k7
     python3 chip_smoke.py --only build,k4,k5,train_parity,train
+    python3 chip_smoke.py --only build,k6,train_parity,train
     python3 chip_smoke.py --only build,k4,k6,train_parity,train
     python3 chip_smoke.py --only build,k6,k7,k8,int8_parity
     python3 chip_smoke.py --only build,k5,k8,int8_parity,int8_infer,train
@@ -59,13 +60,19 @@ Phases, in order; any failure exits non-zero:
    torch.nn.functional.rms_norm, the backward's row kernel and its dw
    reduction also read apart from torch.profiler;
 8. k6: the rope kernel, forward (sign +1) and backward (sign -1), bf16
-   and f32, at llama_350m's q (8 x 1024 x 16 x 64), Llama-2-7B's q
-   (1 x 4096 x 32 x 128) and a tail (S = 1000) against its plain
-   version, the reference's composition (bit for bit expected, held to
-   TOL and VEC_RTOL), timed beside it: the A/B the reference's opt-in
-   waits for; then bf16 tables under bf16 and f32 x through
-   ``apply_rotary_kernel``, forward and backward: two K6 launches (the
-   kernel's route) and the plain version's values;
+   and f32 x under f32 and bf16 tables, against its plain version, the
+   reference's composition, bit for bit (and within TOL and VEC_RTOL):
+   one tensor at llama_350m's q (8 x 1024 x 16 x 64), Llama-2-7B's q (1 x
+   4096 x 32 x 128) and a tail (S = 1000); q and k in one launch at
+   llama_350m (16 + 16 heads), 7B (32 + 32) and Llama-2-70B's GQA heads
+   (64 + 8 of 128, S = 1024); the scalar body at D = 72 and on an offset
+   view; every case launched twice into NaN-poisoned outputs, bitwise
+   equal, on its stated route; ptxas's registers and spills of every
+   instantiation; at 350m and 7B in bf16 (f32 tables, the train path's)
+   the single-tensor and q + k launches timed beside the plain versions
+   and their bytes bounds; then ``apply_rotary_kernel`` and
+   ``apply_rotary_qk_kernel`` forward and backward under bf16 tables: two
+   launches each (the kernel's route) and the plain version's values;
 9. k7: the fused GEMM epilogue forward, and its backward through
    autograd, against the plain version at GPT-2 345M's FFN (4096 rows:
    1024 -> 4096 + bias, gelu; 4096 -> 1024 + bias), Llama-2-7B's gate
@@ -96,16 +103,17 @@ Phases, in order; any failure exits non-zero:
 12. train_parity: llama_tiny in float32 trained 3 steps (``train_step_fn``
    + ``AdamW``) on the card and on the CPU from one set of weights:
    per-step losses, step-1 gradients and the trained weights agree, and
-   every step launches K4 forward, dq and dk + dv once per layer and K5
-   forward and backward 2 x layers + 1 times; then again with
-   ``PT_ROPE_PALLAS=1``, where every step also launches K6 4 x layers
-   times (q and k, forward and backward);
+   every step launches K4 forward, dq and dk + dv once per layer, K5
+   forward and backward 2 x layers + 1 times and K6's q + k launch 2 x
+   layers times (forward and backward); then again with rope on the
+   composition (``ops.rope._COMPOSITION_ONLY``), no K6 launch;
 13. int8_parity: a llama_tiny-shaped float32 model converted by
    ``to_int8_inference`` on the card (K8) and on the CPU (the plain
    version) from the same weights: equal int8 codes (every layer's
    K-major ``qweight_t``) and scales, logits within one
    quantisation step of the head, equal greedy argmax, and 7 x layers + 1
-   K8 launches per forward;
+   K8 launches per forward (and K6's q + k launch once a layer: the
+   forward passes no ``position_ids``);
 14. serve: Llama-2-7B in bf16 (random weights from a seed, full width
    and depth) serves 8 requests through ``ContinuousBatchingServer``,
    on split and on fused ticks in the order split, fused, fused, split
@@ -113,28 +121,33 @@ Phases, in order; any failure exits non-zero:
    first); the launch counters are zeroed just before each wave and
    read just after, and must equal decode ticks x layers (K1) and
    prefill launches x layers (K2) on a split wave, fused launches x
-   layers (K3) on a fused wave; then one split and one fused admission
+   layers (K3) on a fused wave, no K6 (serving passes ``position_ids``:
+   rope is the composition); then one split and one fused admission
    tick, and five decode ticks of each, under torch.profiler, with the
    attention kernels' device time per tick;
 15. int8_infer: the serve phase's Llama-2-7B (full width and depth):
    one bf16 forward of 8 x 512 ids from seed 0, then
    ``to_int8_inference(model, inplace=True)`` and the same forward with
    the counters zeroed just before and read just after: 7 x layers + 1
-   K8 launches, the forward's K4 and K5 launches as in bf16, no other
-   kernel, finite logits; top-1 agreement and the largest relative logit
+   K8 launches, the forward's K4, K5 and K6 launches as in bf16 (K6's
+   q + k once a layer), no other kernel, finite logits; top-1 agreement
+   and the largest relative logit
    error against bf16, ms per forward and tokens/s for both, peak memory,
    a profile of one forward of each;
 16. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
    f32 moments, one fixed 8 x 1024 batch from seed 0: 2 warm-up steps,
    then 10 timed with the counters zeroed just before and read just
-   after (K4: 10 x layers each, K5: 10 x (2 x layers + 1) each, no K6);
-   the loss must fall and stay finite, gradients finite; step time,
+   after (K4: 10 x layers each, K5: 10 x (2 x layers + 1) each, K6's q +
+   k launch 10 x 2 x layers, all on the vector route, no single-tensor
+   K6); the loss must fall and stay finite, gradients finite; step time,
    tokens/s, peak memory and a profile of one step;
-17. train_rope: the same model, weights, batch and optimizer with
-   ``PT_ROPE_PALLAS=1`` (K6 rope): 2 warm-up steps and 5 timed, the
-   counters zeroed before the first and read after the last (K6: 7 x 4 x
-   layers); the 7 losses within 1e-3 relative of the train phase's first
-   7; step time beside train's.
+17. train_compose: the same model, weights, batch and optimizer with rope
+   on the composition (``ops.rope._COMPOSITION_ONLY``, set for the phase
+   and restored after it): 2 warm-up steps and 5 timed, the counters
+   zeroed before the first and read after the last (no K6); the 7 losses
+   equal to the train phase's first 7 bit for bit (K6 is the composition
+   bit for bit, forward and backward); ms per step of both phases from
+   this call, and a profile of one step.
 
 The last two lines of standard output are the per-kernel JSON record
 and ``{"ok": true, "device": {...}}``. Without a CUDA card, or without
@@ -152,7 +165,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "parity",
           "train_parity", "int8_parity", "serve", "int8_infer", "train",
-          "train_rope")
+          "train_compose")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
 # outside the tensor cores, int8 tensor-core operations/s). The SXM part
@@ -718,10 +731,18 @@ K4_KERNELS = ("fwd_mma_kernel", "dq_mma_kernel", "dkv_mma_kernel")
 def template_args(mangled):
     """The template arguments at the head of an Itanium-mangled list
     (``I...E`` without its ``I``), as text: ``13__nv_bfloat16Li4EE`` ->
-    ``__nv_bfloat16,4``; ``fLb1EE`` -> ``f,1``."""
+    ``__nv_bfloat16,4``; ``fLb1EE`` -> ``f,1``; ``13__nv_bfloat16S1_Lb0E``
+    -> ``__nv_bfloat16,__nv_bfloat16,0`` (a substitution repeats the type
+    named before it)."""
     import re
-    args = []
+    args, named = [], []
     while mangled and mangled[0] != "E":
+        m = re.match(r"S\d*_", mangled)                 # a substitution
+        if m is not None:
+            # our kernels name one type at most: the one named before
+            args.append(named[-1] if named else m.group(0))
+            mangled = mangled[m.end():]
+            continue
         m = re.match(r"L\w(-?\d+)E", mangled)          # a value
         if m is None:
             m = re.match(r"(\d+)", mangled)             # a named type
@@ -729,6 +750,7 @@ def template_args(mangled):
                 n = int(m.group(1))
                 name = mangled[m.end():m.end() + n]
                 args.append(name)
+                named.append(name)
                 mangled = mangled[m.end() + n:]
                 continue
             args.append(mangled[0])                      # a builtin type
@@ -1016,102 +1038,190 @@ def k5_time(torch, F, rn, tag, x, w, g, eps, peak, flush, record, errs):
             f"{plain:.4f} ms, F.rms_norm {lib:.4f} ms, bound {bnd:.4f} ms")
 
 
-# (tag, [B, S, H, D], table rows): llama_350m's q (the train_rope path),
-# Llama-2-7B's q, and a tail (S = 1000, no power of two)
-K6_CASES = (("350m", (8, 1024, 16, 64), 2048),
-            ("7b", (1, 4096, 32, 128), 4096),
-            ("tail", (2, 1000, 8, 128), 2048))
+# (tag, B, S, Hq, Hk, D, table rows, offset view): one tensor (Hk = 0)
+# at llama_350m's q, Llama-2-7B's q and a tail (S = 1000, no power of
+# two); q and k in one launch at llama_350m (the train path's), 7B and
+# Llama-2-70B's GQA heads (64 over 8); the scalar body at D = 72 (D/2 =
+# 36: no whole 16-byte chunks of bf16; f32 takes 9 chunks of 4) and on
+# views 2 or 4 bytes past 16-byte alignment
+K6_CASES = (("350m", 8, 1024, 16, 0, 64, 2048, False),
+            ("7b", 1, 4096, 32, 0, 128, 4096, False),
+            ("tail", 2, 1000, 8, 0, 128, 2048, False),
+            ("350m-qk", 8, 1024, 16, 16, 64, 2048, False),
+            ("7b-qk", 1, 4096, 32, 32, 128, 4096, False),
+            ("70b-gqa-qk", 2, 1024, 64, 8, 128, 4096, False),
+            ("d72-qk", 2, 512, 8, 8, 72, 1024, False),
+            ("offset-qk", 2, 512, 16, 4, 64, 1024, True))
+K6_KERNELS = ("rope_kernel",)
+
+
+def k6_route(tag, dtype):
+    """The route a K6 case must take."""
+    if tag.startswith("offset") or (tag.startswith("d72")
+                                    and dtype == "bfloat16"):
+        return "scalar"
+    return "vector"
+
+
+def k6_inputs(torch, gen, B, S, H, D, dtype, offset):
+    """x [B, S, H, D] at half scale (a rotation keeps each pair's norm,
+    so outputs stay below ~3, the size TOL is set for); with ``offset``
+    a contiguous view one element past a 16-byte boundary."""
+    n = B * S * H * D
+    flat = (0.5 * torch.randn((n + 8,), generator=gen, device="cuda")
+            ).to(dtype)
+    return flat[1:1 + n].view(B, S, H, D) if offset else \
+        flat[:n].view(B, S, H, D)
+
+
+def k6_case(torch, rk, q, k, cos, sin, dname):
+    """Both signs, each launched twice into outputs poisoned with NaN:
+    (max_abs_err, vector-relative error, within tolerance, bit for bit
+    the plain version, bitwise repeat, finite, routes taken)."""
+    errs, same, repeat, finite, routes = [], True, True, True, set()
+    for sign in (1, -1):
+        ref = (rk._ref_rope(q, cos, sin, sign),
+               None if k is None else rk._ref_rope(k, cos, sin, sign))
+        outs = []
+        for _ in range(2):
+            buf = tuple(None if t is None else
+                        torch.full_like(t, float("nan")) for t in (q, k))
+            out, path = rk._launch(q, k, cos, sin, sign, out=buf)
+            outs.append(out)
+            routes.add(path)
+        torch.cuda.synchronize()
+        for o, o2, r in zip(outs[0], outs[1], ref):
+            if r is None:
+                continue
+            errs.append(agreement([(o, r.float())], dname))
+            same &= torch.equal(o, r)
+            repeat &= torch.equal(o, o2)
+            finite &= bool(torch.isfinite(o).all().item())
+    return (max(e[0] for e in errs), max(e[1] for e in errs),
+            all(e[2] for e in errs), same, repeat, finite, routes)
 
 
 def phase_k6(torch, peak, flush, record):
     from paddle_tpu_torch.ops.kernels import rope as rk
     from paddle_tpu_torch.ops.rope import precompute_freqs
+    log_ptxas("k6", "rope", K6_KERNELS)
     gen = torch.Generator(device="cuda").manual_seed(6)
-    for tag, shape, rows in K6_CASES:
-        cos, sin = precompute_freqs(shape[-1], rows, device="cuda")
-        for dtype in (torch.bfloat16, torch.float32):
-            dname = str(dtype).split(".")[1]
-            # half scale: a rotation keeps each pair's norm, so outputs
-            # stay below ~3, the size TOL is set for
-            x = (0.5 * torch.randn(shape, generator=gen, device="cuda")
-                 ).to(dtype)
-            errs, same, finite = [], True, True
-            for sign in (1, -1):
-                out = rk.rope_fwd(x, cos, sin, sign)
-                torch.cuda.synchronize()
-                ref = rk._ref_rope(x, cos, sin, sign)
-                errs.append(agreement([(out, ref.float())], dname))
-                same &= torch.equal(out, ref)
-                finite &= bool(torch.isfinite(out).all().item())
-            ok = all(e[2] for e in errs) and finite
-            log(f"k6 {tag} {dname}: {list(shape)}, table {rows} rows, "
-                f"max_abs_err fwd/bwd {errs[0][0]:.2e}/{errs[1][0]:.2e} (tol "
-                f"{TOL[dname]:.0e}), max vector-relative error "
-                f"{max(e[1] for e in errs):.3e} (tol {VEC_RTOL[dname]:.0e}), "
-                f"bitwise equal to the plain version {same} "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise SystemExit(f"k6 {tag} {dname} disagrees with its plain "
-                                 f"version")
-            if tag != "350m" or dtype != torch.bfloat16:
-                continue
-            ms_f = cuda_ms(lambda: rk.rope_fwd(x, cos, sin, 1), torch,
-                           flush=flush)
-            ms_b = cuda_ms(lambda: rk.rope_fwd(x, cos, sin, -1), torch,
-                           flush=flush)
-            plain_f = cuda_ms(lambda: rk._ref_rope(x, cos, sin, 1), torch,
-                              flush=flush)
-            plain_b = cuda_ms(lambda: rk._ref_rope(x, cos, sin, -1), torch,
-                              flush=flush)
-            # x read and written once, the table's first S rows of cos and
-            # sin read once; 6 operations a pair (no tensor-core work)
-            nbytes = 2 * x.numel() * x.element_size() \
-                + 2 * shape[1] * shape[-1] // 2 * 4
-            bound_ms, by = bound(nbytes, 3 * x.numel(), peak, peak[2])
-            record["rope"].update(
-                max_abs_err=max(e[0] for e in errs), ms=ms_f,
-                plain_ms=plain_f, library_ms=None, bound_ms=bound_ms,
-                bound_by=by)
-            log(f"k6 350m bf16 timing: kernel forward {ms_f:.4f} ms, "
-                f"backward {ms_b:.4f} ms; plain composition forward "
-                f"{plain_f:.4f} ms, backward {plain_b:.4f} ms; bound "
-                f"{bound_ms:.4f} ms ({by}; {nbytes} bytes)")
+    worst = 0.0
+    for tag, B, S, hq, hk, D, rows, offset in K6_CASES:
+        for tname in ("float32", "bfloat16"):
+            cos, sin = precompute_freqs(D, rows, dtype=getattr(torch, tname),
+                                        device="cuda")
+            for dname in ("bfloat16", "float32"):
+                dtype = getattr(torch, dname)
+                q = k6_inputs(torch, gen, B, S, hq, D, dtype, offset)
+                k = k6_inputs(torch, gen, B, S, hk, D, dtype, offset) \
+                    if hk else None
+                err, rel, within, same, repeat, finite, routes = k6_case(
+                    torch, rk, q, k, cos, sin, dname)
+                want = k6_route(tag, dname)
+                ok = within and same and repeat and finite \
+                    and routes == {want}
+                worst = max(worst, err)
+                log(f"k6 {tag} {dname} x, {tname} tables: B={B} S={S} "
+                    f"Hq={hq} Hk={hk} D={D}, table {rows} rows, route "
+                    f"{sorted(routes)} (want {want}), max_abs_err fwd+bwd "
+                    f"{err:.2e} (tol {TOL[dname]:.0e}), max vector-relative"
+                    f" error {rel:.3e} (tol {VEC_RTOL[dname]:.0e}), bit for"
+                    f" bit the plain version {same}, twice into NaN "
+                    f"bitwise equal {repeat} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"k6 {tag} {dname} x, {tname} tables:"
+                                     f" disagrees with its plain version or"
+                                     f" is off its route")
+                if tname == "float32" and dname == "bfloat16" \
+                        and tag in ("350m", "7b", "350m-qk", "7b-qk"):
+                    k6_time(torch, rk, tag, q, k, cos, sin, peak, flush,
+                            record)
+                del q, k
+    record["rope"]["max_abs_err"] = worst
     k6_bf16_tables(torch, gen)
+
+
+def k6_time(torch, rk, tag, q, k, cos, sin, peak, flush, record):
+    """The launch beside its plain version and its bytes bound (each
+    tensor read and written once, the table's first S rows of cos and sin
+    read once; 6 operations a pair, no tensor-core work): forward and
+    backward. llama_350m's go into the record (the one-tensor launch as
+    ``ms``, the q + k launch the train step makes as ``qk_ms``)."""
+    S, D = q.shape[1], q.shape[3]
+    if k is None:
+        def kern(sign):
+            return rk.rope_fwd(q, cos, sin, sign)
+
+        def plain(sign):
+            return rk._ref_rope(q, cos, sin, sign)
+    else:
+        def kern(sign):
+            return rk.rope_qk_fwd(q, k, cos, sin, sign)
+
+        def plain(sign):
+            return rk._ref_rope_qk(q, k, cos, sin, sign)
+    ms_f, ms_b, plain_f, plain_b = (
+        cuda_ms(lambda: fn(sign), torch, flush=flush)
+        for fn, sign in ((kern, 1), (kern, -1), (plain, 1), (plain, -1)))
+    n = q.numel() + (0 if k is None else k.numel())
+    nbytes = 2 * n * q.element_size() + 2 * S * D // 2 * cos.element_size()
+    bound_ms, by = bound(nbytes, 3 * n, peak, peak[2])
+    if tag == "350m":
+        record["rope"].update(ms=ms_f, plain_ms=plain_f, library_ms=None,
+                              bound_ms=bound_ms, bound_by=by)
+    elif tag == "350m-qk":
+        record["rope"].update(qk_ms=ms_f, qk_backward_ms=ms_b,
+                              qk_plain_ms=plain_f, qk_bound_ms=bound_ms)
+    log(f"k6 {tag} bf16 timing ({list(q.shape)}"
+        f"{'' if k is None else f' + {list(k.shape)}'}, f32 tables): kernel"
+        f" forward {ms_f:.4f} ms, backward {ms_b:.4f} ms; plain composition "
+        f"forward {plain_f:.4f} ms, backward {plain_b:.4f} ms; bound "
+        f"{bound_ms:.4f} ms ({by}; {nbytes} bytes): forward at "
+        f"{100 * bound_ms / ms_f:.0f}% of it, backward "
+        f"{100 * bound_ms / ms_b:.0f}%")
 
 
 def k6_bf16_tables(torch, gen):
     """bf16 cos/sin tables, as the reference's kernel takes the tables'
-    type, at llama_350m's q in bf16 and f32: ``apply_rotary_kernel``
-    forward and backward must take the kernel route (two K6 launches)
-    and agree with the plain composition (bit for bit expected)."""
+    type, at llama_350m's q (and k) in bf16 and f32:
+    ``apply_rotary_kernel`` and ``apply_rotary_qk_kernel`` forward and
+    backward must take the kernel route (two launches of each wrapper)
+    and agree with the plain composition bit for bit."""
     from paddle_tpu_torch.ops.kernels import rope as rk
     from paddle_tpu_torch.ops.rope import precompute_freqs
-    shape = K6_CASES[0][1]
-    cos, sin = precompute_freqs(shape[-1], K6_CASES[0][2],
-                                dtype=torch.bfloat16, device="cuda")
-    x0 = 0.5 * torch.randn(shape, generator=gen, device="cuda")
-    g0 = 0.5 * torch.randn(shape, generator=gen, device="cuda")
+    _, B, S, H, _, D, rows, _ = K6_CASES[0]
+    shape = (B, S, H, D)
+    cos, sin = precompute_freqs(D, rows, dtype=torch.bfloat16, device="cuda")
+    x0, g0, k0, gk0 = (0.5 * torch.randn(shape, generator=gen,
+                                         device="cuda") for _ in range(4))
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
-        x = x0.to(dtype).requires_grad_()
-        g = g0.to(dtype)
-        before = rk.rope_fwd.launches
+        x, k = (t.to(dtype).requires_grad_() for t in (x0, k0))
+        g, gk = g0.to(dtype), gk0.to(dtype)
+        before = rk.rope_fwd.launches, rk.rope_qk_fwd.launches
         out = rk.apply_rotary_kernel(x, cos, sin)
         (dx,) = torch.autograd.grad(out, x, g)
+        oq, ok = rk.apply_rotary_qk_kernel(x, k, cos, sin)
+        dq, dk = torch.autograd.grad((oq, ok), (x, k), (g, gk))
         torch.cuda.synchronize()
-        launched = rk.rope_fwd.launches - before
-        ref = rk._ref_rope(x.detach(), cos, sin, 1)
-        ref_dx = rk._ref_rope(g, cos, sin, -1)
-        errs = [agreement([(out.detach(), ref.float())], dname),
-                agreement([(dx, ref_dx.float())], dname)]
-        same = torch.equal(out, ref) and torch.equal(dx, ref_dx)
-        ok = all(e[2] for e in errs) and launched == 2
+        launched = (rk.rope_fwd.launches - before[0],
+                    rk.rope_qk_fwd.launches - before[1])
+        pairs = [(out, rk._ref_rope(x.detach(), cos, sin, 1)),
+                 (dx, rk._ref_rope(g, cos, sin, -1)),
+                 (oq, rk._ref_rope(x.detach(), cos, sin, 1)),
+                 (ok, rk._ref_rope(k.detach(), cos, sin, 1)),
+                 (dq, rk._ref_rope(g, cos, sin, -1)),
+                 (dk, rk._ref_rope(gk, cos, sin, -1))]
+        errs = [agreement([(a.detach(), b.float())], dname) for a, b in pairs]
+        same = all(torch.equal(a, b) for a, b in pairs)
+        ok_ = all(e[2] for e in errs) and same and launched == (2, 2)
         log(f"k6 bf16 tables, {dname} x {list(shape)}: route kernel "
-            f"({launched} K6 launches for forward + backward, expected 2), "
-            f"max_abs_err fwd/bwd {errs[0][0]:.2e}/{errs[1][0]:.2e} (tol "
-            f"{TOL[dname]:.0e}), bitwise equal to the plain version {same} "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
+            f"({launched[0]} single and {launched[1]} q + k launches for "
+            f"forward + backward, expected 2 and 2), max_abs_err "
+            f"{max(e[0] for e in errs):.2e} (tol {TOL[dname]:.0e}), bit for "
+            f"bit the plain version {same} {'ok' if ok_ else 'FAIL'}")
+        if not ok_:
             raise SystemExit(f"k6 bf16 tables {dname}: not on the kernel "
                              f"route, or disagrees with the plain version")
 
@@ -1396,7 +1506,7 @@ def counters():
     from paddle_tpu_torch.ops.kernels.quant_matmul import quantized_matmul
     from paddle_tpu_torch.ops.kernels.ragged_prefill import \
         ragged_prefill_attention
-    from paddle_tpu_torch.ops.kernels.rope import rope_fwd
+    from paddle_tpu_torch.ops.kernels.rope import rope_fwd, rope_qk_fwd
     return {"k1": (paged_attention, "launches"),
             "k2": (ragged_prefill_attention, "launches"),
             "k3": (fused_tick_attention, "launches"),
@@ -1406,6 +1516,7 @@ def counters():
             "k5_fwd": (rn.rms_norm_fwd, "launches"),
             "k5_bwd": (rn.rms_norm_bwd, "launches"),
             "k6": (rope_fwd, "launches"),
+            "k6_qk": (rope_qk_fwd, "launches"),
             "k7": (gemm_epilogue, "launches"),
             "k8": (quantized_matmul, "launches")}
 
@@ -1571,6 +1682,8 @@ def phase_serve(torch, np, card, record):
                 "k3 == fused launches x layers":
                     c["k3"] == r["fused_launches"] * L > 0,
                 "no k1 or k2 launch": c["k1"] == c["k2"] == 0}
+        launch_checks["no k6 launch (rope at position_ids)"] = \
+            c["k6"] == c["k6_qk"] == 0
         checks = {"32 in-vocabulary tokens each":
                       all(len(t) == n_new and t.min() >= 0
                           and t.max() < cfg.vocab_size for t in r["tokens"]),
@@ -1697,31 +1810,31 @@ def profile_decode(torch, np, srv, cfg, card, mode):
     srv.run()
 
 
-def per_step_counts(L, steps=1):
+def per_step_counts(L, steps=1, rope=True):
     """The launches a train step of an L-layer Llama makes: K4's three
     kernels once per layer, K5 forward and backward at both norms of
-    every layer and the final norm."""
+    every layer and the final norm, and (unless rope is the composition)
+    K6's q + k launch once per layer forward and once backward."""
     return {"k4_fwd": steps * L, "k4_dq": steps * L, "k4_dkv": steps * L,
-            "k5_fwd": steps * (2 * L + 1), "k5_bwd": steps * (2 * L + 1)}
+            "k5_fwd": steps * (2 * L + 1), "k5_bwd": steps * (2 * L + 1),
+            "k6": 0, "k6_qk": steps * 2 * L if rope else 0}
 
 
 @contextlib.contextmanager
-def rope_kernel_opt_in():
-    """``PT_ROPE_PALLAS=1`` inside the block (K6 rope in the train step,
-    as the reference's opt-in), the environment restored after it."""
-    old = os.environ.get("PT_ROPE_PALLAS")
-    os.environ["PT_ROPE_PALLAS"] = "1"
+def rope_composition():
+    """Rope on the composition inside the block (the module-private switch
+    of ``ops.rope``), restored after it: the A/B against K6."""
+    from paddle_tpu_torch.ops import rope
+    old = rope._COMPOSITION_ONLY
+    rope._COMPOSITION_ONLY = True
     try:
         yield
     finally:
-        if old is None:
-            os.environ.pop("PT_ROPE_PALLAS", None)
-        else:
-            os.environ["PT_ROPE_PALLAS"] = old
+        rope._COMPOSITION_ONLY = old
 
 
 def phase_train_parity(torch, np):
-    for rope in (False, True):
+    for rope in (True, False):
         train_parity_run(torch, np, rope)
 
 
@@ -1736,15 +1849,14 @@ def train_parity_run(torch, np, rope):
     gpu = LlamaForCausalLM(cfg, device="cuda")
     load_jax_params(gpu, export_params(cpu))
     ids = np.random.default_rng(6).integers(0, cfg.vocab_size, (4, 64))
-    want = per_step_counts(cfg.num_layers)
-    want["k6"] = 4 * cfg.num_layers if rope else 0
+    want = per_step_counts(cfg.num_layers, rope=rope)
     res = {}
     for name, model in (("cpu", cpu), ("cuda", gpu)):
         t = torch.as_tensor(ids, device=model.device)
         batch = {"inputs": (t,), "labels": (t,)}
         opt = AdamW(learning_rate=lr, parameters=model.named_parameters())
         step = train_step_fn(model, model.loss, opt)
-        with rope_kernel_opt_in() if rope else contextlib.nullcontext():
+        with contextlib.nullcontext() if rope else rope_composition():
             # step 1 by hand, to read its gradients; steps 2 and 3
             # through train_step_fn; the counters zeroed before and read
             # after each
@@ -1774,7 +1886,7 @@ def train_parity_run(torch, np, rope):
     counted = all({k: c[k] for k in want} == want for c in c_gpu)
     quiet = not any(v for c in c_cpu for v in c.values()) and \
         not any(c[k] for c in c_gpu for k in ("k1", "k2", "k3", "k7", "k8"))
-    tag = "with K6 rope (PT_ROPE_PALLAS=1)" if rope else "composition rope"
+    tag = "K6 rope (q + k)" if rope else "composition rope"
     log(f"train_parity llama_tiny f32, {tag}: losses cpu "
         f"{[round(x, 6) for x in l_cpu]} card {[round(x, 6) for x in l_gpu]}"
         f" (max diff {loss_err:.2e}, tol 1e-5), step-1 gradients max diff "
@@ -1818,9 +1930,9 @@ def phase_int8_parity(torch, np):
             if n.endswith(("qweight_t", "w_scale"))}
     codes = len(held) == 2 * (7 * L + 1) and all(
         torch.equal(b.cpu(), cb[n]) for n, b in held.items())
-    launched = counts["k8"] == 7 * L + 1 and not any(
-        counts[k] for k in ("k1", "k2", "k3", "k6", "k7", "k4_dq", "k4_dkv",
-                            "k5_bwd"))
+    launched = counts["k8"] == 7 * L + 1 and counts["k6_qk"] == L \
+        and not any(counts[k] for k in ("k1", "k2", "k3", "k6", "k7",
+                                        "k4_dq", "k4_dkv", "k5_bwd"))
     log(f"int8_parity llama_tiny f32: int8 codes and scales of every layer "
         f"equal card/CPU {codes}, logits max diff {err:.3e} (tol one quantisation "
         f"step of the head, {step:.3e}), greedy argmax equal {argmax}, "
@@ -1828,7 +1940,8 @@ def phase_int8_parity(torch, np):
     if not (codes and err <= step and argmax and launched
             and torch.isfinite(lg).all().item()):
         raise SystemExit("int8_parity: the card and the CPU disagree, or a "
-                         "forward did not launch K8 7 x layers + 1 times")
+                         "forward did not launch K8 7 x layers + 1 times "
+                         "and K6's q + k launch once a layer")
 
 
 def phase_int8_infer(torch, np, card, record, model):
@@ -1880,7 +1993,7 @@ def phase_int8_infer(torch, np, card, record, model):
     top1 = (out.argmax(-1) == ref.argmax(-1)).float().mean().item()
     rel = ((out.float() - ref.float()).abs().amax(-1)
            / ref.float().abs().amax(-1)).max().item()
-    fwd = {"k4_fwd": L, "k5_fwd": 2 * L + 1}
+    fwd = {"k4_fwd": L, "k5_fwd": 2 * L + 1, "k6_qk": L}
     log(f"int8_infer: Llama-2-7B, {L} layers, 8 x 512 ids from seed 0; "
         f"to_int8_inference in place in {conv_s:.1f} s ({int8_bytes} bytes "
         f"of int8 weights); launches per forward bf16 {c_bf16}, int8 "
@@ -1893,10 +2006,10 @@ def phase_int8_infer(torch, np, card, record, model):
         f"{rel:.4f}")
     checks = {"int8 logits finite": torch.isfinite(out).all().item(),
               "k8 == 7 x layers + 1": counts["k8"] == 7 * L + 1,
-              "bf16 forward: K4 and K5 forward only, no K8":
+              "bf16 forward: K4, K5 and K6 forward only, no K8":
                   {k: c_bf16[k] for k in fwd} == fwd and not any(
                       v for k, v in c_bf16.items() if k not in fwd),
-              "int8 forward: K8, K4 and K5 forward only":
+              "int8 forward: K8, K4, K5 and K6 forward only":
                   {k: counts[k] for k in fwd} == fwd and not any(
                       v for k, v in counts.items()
                       if k not in fwd and k != "k8")}
@@ -1915,6 +2028,7 @@ def run_350m(torch, np, n, count_warmup=False):
     import gc
     from paddle_tpu_torch.jit import train_step_fn
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_350m
+    from paddle_tpu_torch.ops.kernels import rope as rk
     from paddle_tpu_torch.optimizer import AdamW
     gc.collect()
     torch.cuda.empty_cache()
@@ -1930,6 +2044,7 @@ def run_350m(torch, np, n, count_warmup=False):
     losses, grads_finite = [], True
     if count_warmup:
         zero_counts()
+        vector = rk.rope_qk_fwd.route_launches["vector"]
     for _ in range(2):
         loss = model.loss(model(ids), ids)
         loss.backward()
@@ -1942,12 +2057,14 @@ def run_350m(torch, np, n, count_warmup=False):
     torch.cuda.reset_peak_memory_stats()
     if not count_warmup:
         zero_counts()
+        vector = rk.rope_qk_fwd.route_launches["vector"]
     t0 = time.perf_counter()
     for _ in range(n):
         losses.append(step(batch))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    counts["k6_qk_vector"] = rk.rope_qk_fwd.route_launches["vector"] - vector
     losses = [x.item() for x in losses]
     finite = all(np.isfinite(losses)) and all(
         torch.isfinite(p).all().item() for p in model.parameters())
@@ -1978,11 +2095,12 @@ def phase_train(torch, np, card, peak, record):
     log(f"train launches over {n} steps: {counts}")
     checks = {"loss falls": losses[-1] < losses[0],
               "losses, weights and warm-up gradients finite": r["finite"],
-              "launches == steps x per-step counts":
+              "launches == steps x per-step counts (K6: q + k, 2 x layers)":
                   {k: counts[k] for k in want} == want,
-              "no serving, rope, epilogue or int8 kernel":
-                  not any(counts[k] for k in ("k1", "k2", "k3", "k6", "k7",
-                                              "k8"))}
+              "K6 on the vector route":
+                  counts["k6_qk_vector"] == counts["k6_qk"],
+              "no serving, epilogue or int8 kernel":
+                  not any(counts[k] for k in ("k1", "k2", "k3", "k7", "k8"))}
     for name, good in checks.items():
         if not good:
             raise SystemExit(f"train: check failed: {name}")
@@ -1990,40 +2108,42 @@ def phase_train(torch, np, card, peak, record):
     record["flash_attention_bwd"]["launches"] = counts["k4_dq"]
     record["rms_norm_fwd"]["launches"] = counts["k5_fwd"]
     record["rms_norm_bwd"]["launches"] = counts["k5_bwd"]
+    record["rope"]["launches"] = counts["k6"] + counts["k6_qk"]
     profile_once(torch, lambda: r["step"](r["batch"]), card)
     return {"losses": losses, "step_ms": r["step_ms"]}
 
 
-def phase_train_rope(torch, np, card, record, train):
-    """The train phase's run with K6 rope: the same losses expected (K6 is
-    the composition bit for bit, forward and backward)."""
+def phase_train_compose(torch, np, card, train):
+    """The train phase's run with rope on the composition: the same
+    losses bit for bit (K6 is the composition bit for bit, forward and
+    backward), and the step time beside train's from this call."""
     n = 5
-    with rope_kernel_opt_in():
+    with rope_composition():
         r = run_350m(torch, np, n, count_warmup=True)
+        profile_once(torch, lambda: r["step"](r["batch"]), card,
+                     "train_compose")
     counts, losses = r["counts"], r["losses"]
     L = r["cfg"].num_layers
     steps = n + 2
-    want = {**per_step_counts(L, steps), "k6": steps * 4 * L}
+    want = per_step_counts(L, steps, rope=False)
     ref = train["losses"][:steps]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
-    log(f"train_rope losses: {[round(x, 4) for x in losses]}; the train "
-        f"phase's first {steps}: {[round(x, 4) for x in ref]}; largest "
-        f"relative difference {rel:.2e} (tol 1e-3), equal {losses == ref}")
-    log(f"train_rope metrics [{card}]: {r['step_ms']:.1f} ms per step with "
-        f"K6 rope, {train['step_ms']:.1f} ms with the composition (train "
-        f"phase), {r['tok_s']:.0f} tokens/s, peak memory "
+    log(f"train_compose losses: {[round(x, 4) for x in losses]}; the train "
+        f"phase's first {steps}: {[round(x, 4) for x in ref]}; bit for bit "
+        f"equal {losses == ref}")
+    log(f"train_compose metrics [{card}]: {r['step_ms']:.1f} ms per step "
+        f"with the composition rope, {train['step_ms']:.1f} ms with K6 (the "
+        f"train phase), {r['tok_s']:.0f} tokens/s, peak memory "
         f"{r['peak_gb']:.2f} GiB; launches over {steps} steps: {counts}")
-    checks = {"losses within 1e-3 of train's": rel <= 1e-3,
+    checks = {"losses equal train's bit for bit": losses == ref,
               "losses, weights and warm-up gradients finite": r["finite"],
-              "launches == steps x per-step counts (K6: 4 x layers)":
+              "launches == steps x per-step counts (no K6)":
                   {k: counts[k] for k in want} == want,
               "no serving, epilogue or int8 kernel":
                   not any(counts[k] for k in ("k1", "k2", "k3", "k7",
                                               "k8"))}
     for name, good in checks.items():
         if not good:
-            raise SystemExit(f"train_rope: check failed: {name}")
-    record["rope"]["launches"] = counts["k6"]
+            raise SystemExit(f"train_compose: check failed: {name}")
 
 
 def profile_once(torch, fn, card, what="train", unit="step"):
@@ -2076,8 +2196,8 @@ def main():
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
-    if "train_rope" in phases and "train" not in phases:
-        ap.error("train_rope compares its losses with the train phase's: "
+    if "train_compose" in phases and "train" not in phases:
+        ap.error("train_compose compares its losses with the train phase's: "
                  "run both")
     if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
         print("chip_smoke.py: the paddle_tpu_torch package is not beside "
@@ -2096,9 +2216,6 @@ def main():
     log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # the reference's default rope (the composition) everywhere but the
-    # phases that opt in to K6 themselves
-    os.environ.pop("PT_ROPE_PALLAS", None)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}; bounds use "
@@ -2155,6 +2272,8 @@ def main():
             "launches": None, "max_abs_err": None, "ms": None,
             "plain_ms": None, "bound_ms": None, "bound_by": None,
             "library_ms": None}
+    record["rope"].update(qk_ms=None, qk_backward_ms=None, qk_plain_ms=None,
+                          qk_bound_ms=None)
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
     if "k1" in phases:
         phase_k1(torch, peak, flush, record)
@@ -2188,8 +2307,8 @@ def main():
     del model_7b
     if "train" in phases:
         train = phase_train(torch, np, card, peak, record)
-    if "train_rope" in phases:
-        phase_train_rope(torch, np, card, record, train)
+    if "train_compose" in phases:
+        phase_train_compose(torch, np, card, train)
     log(json.dumps({"kernels": list(record.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -22,10 +22,11 @@ train it, and run it in int8:
   ``ops.kernels.ragged_prefill`` / ``ops.kernels.fused_tick``), flash
   attention and RMSNorm, forward and backward, for training
   (``ops.kernels.flash_attention`` / ``ops.kernels.rms_norm``), rope
-  (``ops.kernels.rope``, opt-in with ``PT_ROPE_PALLAS=1``), the fused
-  GEMM + bias + activation (``ops.kernels.gemm_epilogue``) and the int8
-  matmul with its dequantize (``ops.kernels.quant_matmul``), each with
-  a plain PyTorch version beside it.
+  (``ops.kernels.rope``, q and k in one launch, training's rope on the
+  card), the fused GEMM + bias + activation
+  (``ops.kernels.gemm_epilogue``) and the int8 matmul with its
+  dequantize (``ops.kernels.quant_matmul``), each with a plain PyTorch
+  version beside it.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``device.resolve_device``). On the CPU every kernel wrapper takes its

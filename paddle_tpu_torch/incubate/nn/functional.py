@@ -8,8 +8,9 @@ Port of ``paddle_tpu/incubate/nn/functional.py``:
   and backward;
 - ``fused_matmul_bias``: a 2-D ``y`` without ``transpose_x`` goes to K7;
   otherwise a matmul plus add, as the reference does it;
-- ``fused_rotary_position_embedding`` (``ops.rope``'s): ``apply_rotary``
-  on q and k, so K6 when ``PT_ROPE_PALLAS=1`` opts in on the card.
+- ``fused_rotary_position_embedding`` (``ops.rope``'s): q and k through
+  ``apply_rotary_qk``, one K6 launch on the card without
+  ``position_ids``.
 
 The other functions of the reference module run no kernel and are not
 ported yet: they raise ``NotImplementedError`` (ROADMAP, Queue 1 item

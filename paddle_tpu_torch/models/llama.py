@@ -9,7 +9,7 @@ one model into the other name for name, ``export_params`` back, and
 ``quantization.to_int8_inference`` swaps those layers for int8 ones. The
 full-sequence ``forward()`` (training) runs the JAX module's forwards on
 the flash-attention (K4) and RMSNorm (K5) kernels through
-``nn.functional`` (and rope on K6 with ``PT_ROPE_PALLAS=1``); serving
+``nn.functional`` and rope on K6 (q and k in one launch); serving
 runs through the paged decode bundle (``models.generation``) under
 ``torch.no_grad``.
 """
@@ -22,7 +22,7 @@ from torch import nn
 from ..device import resolve_device
 from ..nn import functional as F
 from ..nn.layer import Linear
-from ..ops.rope import apply_rotary, precompute_freqs
+from ..ops.rope import apply_rotary_qk, precompute_freqs
 from .generation import GenerationMixin
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "llama2_7b", "llama2_70b",
@@ -102,8 +102,8 @@ class _Attention(nn.Module):
         q = self.q_proj(x).reshape(b, s, nh, hd)
         k = self.k_proj(x).reshape(b, s, kvh, hd)
         v = self.v_proj(x).reshape(b, s, kvh, hd)
-        q = apply_rotary(q, self.rope_cos, self.rope_sin, position_ids)
-        k = apply_rotary(k, self.rope_cos, self.rope_sin, position_ids)
+        q, k = apply_rotary_qk(q, k, self.rope_cos, self.rope_sin,
+                               position_ids)
         if kvh != nh:
             k = k.repeat_interleave(nh // kvh, dim=2)
             v = v.repeat_interleave(nh // kvh, dim=2)

@@ -45,6 +45,8 @@ def test_scan_sees_the_whole_port():
             "paddle_tpu_torch/ops/kernels/flash_attention.py",
             "paddle_tpu_torch/ops/kernels/rms_norm.py",
             "paddle_tpu_torch/ops/kernels/rope.py",
+            "paddle_tpu_torch/ops/rope.py",
+            "paddle_tpu_torch/models/llama.py",
             "paddle_tpu_torch/ops/kernels/gemm_epilogue.py",
             "paddle_tpu_torch/ops/kernels/quant_matmul.py",
             "paddle_tpu_torch/nn/layer.py",

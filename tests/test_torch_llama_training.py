@@ -13,7 +13,9 @@ and the JAX package its XLA compositions of the same functions.
 - three steps of the port's ``train_step_fn`` + ``AdamW`` against
   ``paddle_tpu.jit.train_step_fn`` + ``paddle_tpu.optimizer.AdamW``:
   per-step losses within 1e-5, and the trained parameters
-  (``export_params``) within 0.02 lr of each other. Adam divides by
+  (``export_params``) within 0.02 lr of each other, with rope on the
+  composition and on the kernel's route (its CPU body, one call for q
+  and k forward and one backward per layer). Adam divides by
   sqrt(v): at step 1 a parameter moves by about lr * sign(g), so the
   gradients' rounding differences show up as fractions of lr, never as
   more than a small one where no gradient is within rounding of zero;
@@ -46,6 +48,8 @@ from paddle_tpu_torch.models import (LlamaForCausalLM, export_params,
                                      llama_tiny, load_jax_params)
 from paddle_tpu_torch.nn import Linear
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.ops import rope as trope
+from paddle_tpu_torch.ops.kernels import rope as trk
 from paddle_tpu_torch.optimizer import Adam, AdamW
 
 LR = 1e-3
@@ -114,6 +118,27 @@ def test_loss_and_step1_gradients_match_jax():
 
 
 def test_three_adamw_steps_match_the_jax_train_step():
+    _three_adamw_steps_match_the_jax_train_step()
+
+
+def test_three_adamw_steps_through_the_rope_kernel_route_match_jax(
+        monkeypatch):
+    """The same steps with rope on the kernel's route as the card takes
+    it (``apply_rotary_qk`` -> ``RopeQKFunction``, one call forward and
+    one backward per layer), its CPU body the plain version: the losses
+    and weights still match the JAX train step."""
+    calls = []
+    pair = trk.rope_qk_fwd
+    monkeypatch.setattr(trope, "_kernel_route",
+                        lambda position_ids, *xs: position_ids is None)
+    monkeypatch.setattr(trk, "rope_qk_fwd",
+                        lambda *a: calls.append(a[-1]) or pair(*a))
+    _three_adamw_steps_match_the_jax_train_step()
+    layers = llama_tiny().num_layers       # signs: forward, backward
+    assert calls == ([1] * layers + [-1] * layers) * 3
+
+
+def _three_adamw_steps_match_the_jax_train_step():
     jm, tm = _jax_model(), _port_model()
     batches = [_ids(10)] * 3          # one fixed batch, as bench.py
 
