@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only build,k4,k6,train_parity,train
     python3 chip_smoke.py --only build,k6,k7,k8,int8_parity
     python3 chip_smoke.py --only build,k5,k8,int8_parity,int8_infer,train
+    python3 chip_smoke.py --only build,opt,train,train_amp
 
 Phases, in order; any failure exits non-zero:
 
@@ -95,26 +96,44 @@ Phases, in order; any failure exits non-zero:
    path's entry (K-major, bf16 out) at 7B gate/up timed beside
    torch._int_mm + the same epilogue (a yardstick), with bf16
    torch.addmm and K7 at the same shape printed;
-11. parity: a llama_tiny-shaped float32 model served on the card (the
+11. opt: the optimizer's fused step (``multi_tensor_adam``, the
+   counterpart of the reference's jitted multi-tensor update) first on
+   ragged, one-element and misaligned tensors packed between NaN gaps
+   beside a tensor that is not live, f32, bf16, bf16 with masters and a
+   mixed set, with and without the global-norm clip: every buffer bit for
+   bit the plain version's on the CPU; then over llama_350m's 219
+   parameter shapes (373,867,520 elements, seeded gradients at 1e-3 so
+   ClipGradByGlobalNorm(1.0) is active) for bf16 parameters, bf16 with
+   f32 masters and f32, each with and without the clip, 3 AdamW steps:
+   against the plain version on the card by ROADMAP Queue 3's Adam rule
+   (fed the kernel's clip scales; the scale itself within 4 f32 ulps of
+   the plain one), a cut of the tensors bit for bit the plain version on
+   the CPU, a second run bitwise equal, the kernels a step (1, or 3 with
+   the clip); timed beside the per-leaf chain (which it must beat) and
+   torch._fused_adamw_ (a yardstick the port never calls), with the
+   bytes bound;
+12. parity: a llama_tiny-shaped float32 model served on the card (the
    kernels) and on the CPU (the plain versions) from the same weights,
    on split ticks and on fused ticks, must emit equal greedy tokens:
    card == CPU on each, and fused == split; split runs launch K1 and K2
    only, fused runs K3 only;
-12. train_parity: llama_tiny in float32 trained 3 steps (``train_step_fn``
+13. train_parity: llama_tiny in float32 trained 3 steps (``train_step_fn``
    + ``AdamW``) on the card and on the CPU from one set of weights:
    per-step losses, step-1 gradients and the trained weights agree, and
    every step launches K4 forward, dq and dk + dv once per layer, K5
-   forward and backward 2 x layers + 1 times and K6's q + k launch 2 x
-   layers times (forward and backward); then again with rope on the
-   composition (``ops.rope._COMPOSITION_ONLY``), no K6 launch;
-13. int8_parity: a llama_tiny-shaped float32 model converted by
+   forward and backward 2 x layers + 1 times, K6's q + k launch 2 x
+   layers times (forward and backward) and the fused AdamW step once (one
+   kernel) on the card, where the CPU runs its plain version; then again
+   with rope on the composition (``ops.rope._COMPOSITION_ONLY``), no K6
+   launch;
+14. int8_parity: a llama_tiny-shaped float32 model converted by
    ``to_int8_inference`` on the card (K8) and on the CPU (the plain
    version) from the same weights: equal int8 codes (every layer's
    K-major ``qweight_t``) and scales, logits within one
    quantisation step of the head, equal greedy argmax, and 7 x layers + 1
    K8 launches per forward (and K6's q + k launch once a layer: the
    forward passes no ``position_ids``);
-14. serve: Llama-2-7B in bf16 (random weights from a seed, full width
+15. serve: Llama-2-7B in bf16 (random weights from a seed, full width
    and depth) serves 8 requests through ``ContinuousBatchingServer``,
    on split and on fused ticks in the order split, fused, fused, split
    (a new server over the same model each time, the last one freed
@@ -125,7 +144,7 @@ Phases, in order; any failure exits non-zero:
    rope is the composition); then one split and one fused admission
    tick, and five decode ticks of each, under torch.profiler, with the
    attention kernels' device time per tick;
-15. int8_infer: the serve phase's Llama-2-7B (full width and depth):
+16. int8_infer: the serve phase's Llama-2-7B (full width and depth):
    one bf16 forward of 8 x 512 ids from seed 0, then
    ``to_int8_inference(model, inplace=True)`` and the same forward with
    the counters zeroed just before and read just after: 7 x layers + 1
@@ -134,20 +153,39 @@ Phases, in order; any failure exits non-zero:
    and the largest relative logit
    error against bf16, ms per forward and tokens/s for both, peak memory,
    a profile of one forward of each;
-16. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
+17. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
    f32 moments, one fixed 8 x 1024 batch from seed 0: 2 warm-up steps,
    then 10 timed with the counters zeroed just before and read just
    after (K4: 10 x layers each, K5: 10 x (2 x layers + 1) each, K6's q +
    k launch 10 x 2 x layers, all on the vector route, no single-tensor
-   K6); the loss must fall and stay finite, gradients finite; step time,
-   tokens/s, peak memory and a profile of one step;
-17. train_compose: the same model, weights, batch and optimizer with rope
+   K6; the fused AdamW step 10 times, one kernel each); the loss must
+   fall and stay finite, gradients finite; step time, tokens/s, peak
+   memory and a profile of one step (its launches, the optimizer's
+   device time);
+18. train_compose: the same model, weights, batch and optimizer with rope
    on the composition (``ops.rope._COMPOSITION_ONLY``, set for the phase
    and restored after it): 2 warm-up steps and 5 timed, the counters
    zeroed before the first and read after the last (no K6); the 7 losses
    equal to the train phase's first 7 bit for bit (K6 is the composition
    bit for bit, forward and backward); ms per step of both phases from
-   this call, and a profile of one step.
+   this call, and a profile of one step;
+19. train_amp: the slice's path. llama_350m at full width and depth
+   from seed 0, ``amp.decorate(level="O2", dtype="bfloat16")`` (the rope
+   tables stay f32), ``AdamW(multi_precision=True, weight_decay=0.01``
+   off the norms, ``grad_clip=ClipGradByGlobalNorm(1.0))`` on the fused
+   kernel, ``LinearWarmup(CosineAnnealingDecay(3e-4, T_max=100), 5
+   steps from 0)`` stepped once a step; 12 steps under
+   ``auto_cast(level="O2")`` on the fixed 8 x 1024 batch (the first by
+   hand, to hold the clip scale against the plain global norm), the
+   counters zeroed before and read after: the loss falls, all finite, each
+   step's lr the scheduler's ``get_lr_at``, every clip scale <= 1,
+   launches = steps x (K4; K5 on its f32 route; K6's q + k on the vector
+   route; one optimizer step of 3 kernels); ms a step, tokens/s, peak
+   memory and a profile of one step. Then f32 llama_350m under O1 with
+   ``GradScaler(2**15, decr_every_n_nan_or_inf=1)``: 3 steps, an inf
+   written into one gradient of the second: that step is skipped
+   (parameters unchanged bit for bit, the optimizer not stepped) and the
+   scale halves.
 
 The last two lines of standard output are the per-kernel JSON record
 and ``{"ok": true, "device": {...}}``. Without a CUDA card, or without
@@ -163,9 +201,9 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "parity",
-          "train_parity", "int8_parity", "serve", "int8_infer", "train",
-          "train_compose")
+PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "opt",
+          "parity", "train_parity", "int8_parity", "serve", "int8_infer",
+          "train", "train_compose", "train_amp")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
 # outside the tensor cores, int8 tensor-core operations/s). The SXM part
@@ -285,6 +323,31 @@ def cuda_ms(fn, torch, iters=20, warmup=3, flush=None):
         if dropped > 12:
             raise SystemExit("cuda_ms: the host side of a timed call "
                              "outlasted every spin")
+    times.sort()
+    return times[len(times) // 2]
+
+
+def event_ms(fn, torch, iters=10, warmup=2, flush=None):
+    """Median milliseconds between CUDA events recorded just before and
+    just after ``fn``, the L2 flushed first: the card's time plus the
+    gaps its launches leave. For calls of more launches than the card's
+    launch queue holds (the per-leaf optimizer chain: ~4000), whose host
+    side ``cuda_ms``'s spin cannot cover: the host blocks on the full
+    queue while the spin runs."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        if flush is not None:
+            flush.zero_()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
 
@@ -1489,6 +1552,348 @@ def k8_time(torch, qm, x, w, wt, sx, sw, peak, flush, record, err):
         f"{addmm_ms:.4f} ms, K7 wgmma {k7_ms:.4f} ms")
 
 
+def llama_350m_shapes():
+    """The shapes of llama_350m's 219 parameters, in the model's order:
+    373,867,520 elements."""
+    from paddle_tpu_torch.models import llama_350m
+    cfg = llama_350m()
+    h, m, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kv = cfg.num_kv_heads * cfg.head_dim
+    layer = [("input_layernorm", (h,)), ("q_proj", (h, h)),
+             ("k_proj", (h, kv)), ("v_proj", (h, kv)), ("o_proj", (h, h)),
+             ("post_attention_layernorm", (h,)), ("gate_proj", (h, m)),
+             ("up_proj", (h, m)), ("down_proj", (m, h))]
+    return ([("model.embed_tokens.weight", (v, h))]
+            + [(f"model.layers.{i}.{n}", s) for i in range(cfg.num_layers)
+               for n, s in layer]
+            + [("model.norm.weight", (h,)), ("lm_head.weight", (h, v))])
+
+
+# (tag, parameter dtype name, f32 masters): the train phase's case, the
+# slice's path (train_amp: bf16 with masters) and f32 parameters
+OPT_CASES = (("bf16", "bfloat16", False), ("bf16_mp", "bfloat16", True),
+             ("f32", "float32", False))
+OPT_LR, OPT_STEPS = 1e-3, 3
+
+
+def opt_bytes(dtype_bytes, master):
+    """Bytes an element the step must move: g, the parameter (or its
+    master, which the update reads instead), m and v read; the parameter
+    (and master), m and v written."""
+    read = dtype_bytes + (4 if master else dtype_bytes) + 8
+    write = dtype_bytes + (4 if master else 0) + 8
+    return read + write
+
+
+def opt_state(torch, params, master):
+    m = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+         for p in params]
+    v = [torch.zeros_like(t) for t in m]
+    mp = [p.float() for p in params] if master else [None] * len(params)
+    return [params, m, v, mp]
+
+
+def opt_clone(st):
+    return [[None if t is None else t.clone() for t in part] for part in st]
+
+
+def opt_run(mta, grads, st, wds, clip, plain=False, scales=None):
+    """OPT_STEPS AdamW steps over the state ``st`` (params, m, v,
+    masters) in place: the kernel (through the wrapper) or the plain
+    version (with the kernel's clip scales, when given). Returns each
+    step's [scale, norm] tensor (or None)."""
+    infos, cache = [], {}
+    for s in range(OPT_STEPS):
+        g = grads[s]
+        kw = dict(lr=OPT_LR, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                  step=1 + s, decoupled=True)
+        if not plain:
+            infos.append(mta.multi_tensor_adam(
+                g, st[0], st[1], st[2], st[3], wds, clip_norm=clip,
+                cache=cache, **kw))
+        else:
+            infos.append(mta._ref_multi_tensor_adam(
+                g, st[0], st[1], st[2], st[3], wds, kw["lr"], kw["beta1"],
+                kw["beta2"], kw["epsilon"], kw["step"], True,
+                None if scales else clip,
+                None if not scales else scales[s][0]))
+    return infos
+
+
+def bits(torch, t):
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+def opt_equal(torch, a, b):
+    """Whether two states are equal bit for bit."""
+    return all((x is None and y is None) or torch.equal(bits(torch, x),
+                                                        bits(torch, y))
+               for pa, pb in zip(a, b) for x, y in zip(pa, pb))
+
+
+def opt_against(torch, got, want, dtype):
+    """The kernel's state against the plain version's on the card
+    (ROADMAP Queue 3's Adam rule): m and v and f32 parameters or masters
+    within two f32 ulps plus 1e-5 lr an element; bf16 parameters at most
+    one bf16 ulp apart a step (an f32 value an ulp apart that crosses a
+    bf16 rounding midpoint; a parameter without a master carries the
+    flip into the next step, an ulp of its value then, at most |value|
+    plus the steps' updates), on at most 1e-4 of the elements. Returns
+    (largest absolute error of the parameters, fraction of bf16 elements
+    that differ, ok)."""
+    err, flips, total, ok = 0.0, 0, 0, True
+    for part, (pa, pb) in enumerate(zip(got, want)):
+        for x, y in zip(pa, pb):
+            if x is None:
+                continue
+            d = (x.float() - y.float()).abs()
+            if part == 0:
+                err = max(err, d.max().item())
+            if x.dtype == torch.bfloat16:
+                # a flip at an earlier step is an ulp of the value then:
+                # at most |y| plus the steps' updates (~lr each)
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    y.float().abs() + OPT_STEPS * OPT_LR)) - 7)
+                good = bool((d <= OPT_STEPS * ulp).all())
+                flips += int((d > 0).sum())
+                total += d.numel()
+            else:
+                lim = 2.5e-7 * y.abs() + (1e-5 * OPT_LR if part in (0, 3)
+                                          else 0.0)
+                good = bool((d <= lim).all())
+            if not good:
+                i = int((d - (OPT_STEPS * ulp if x.dtype == torch.bfloat16
+                              else lim)).argmax())
+                log(f"opt: {('param', 'm', 'v', 'master')[part]} "
+                    f"{tuple(x.shape)} {x.dtype} off the rule: kernel "
+                    f"{x.flatten()[i].item()!r}, plain "
+                    f"{y.flatten()[i].item()!r}")
+            ok &= good
+    frac = flips / max(total, 1)
+    return err, frac, ok and frac <= 1e-4
+
+
+def opt_poison_check(torch, mta, gen):
+    """Ragged, one-element and misaligned tensors (16-byte body and
+    scalar tail) packed into buffers with NaN gaps, beside a tensor that
+    is not live: three steps of the kernel, with and without the clip,
+    each dtype and a mixed set: bit for bit the plain version run on the
+    CPU (given the kernel's clip scale), every NaN gap and the tensor
+    that is not live untouched."""
+    sizes = [1, 3, 7, 8, 9, 1000, 16384, 16385, 40000]
+    good = True
+    for kinds in (("float32",), ("bfloat16",), ("bfloat16m",),
+                  ("float32", "bfloat16m", "bfloat16", "float16")):
+        for clip in (None, 1.0):
+            bufs, views = [], []
+            for i, n in enumerate(sizes):
+                kind = kinds[i % len(kinds)]
+                dt = getattr(torch, kind.rstrip("m"))
+                off = 8 + (i % 2)                       # odd: misaligned
+                made = []
+                for what, t_dt in (("p", dt), ("m", torch.float32),
+                                   ("v", torch.float32),
+                                   ("mp", torch.float32)):
+                    if what == "mp" and not kind.endswith("m"):
+                        made.append((None, None))
+                        continue
+                    buf = torch.full((n + 40,), float("nan"), dtype=t_dt,
+                                     device="cuda")
+                    view = buf[off:off + n]
+                    made.append((buf, view))
+                (pb, p), (mb, m), (vb, v), (mpb, mp) = made
+                p.copy_(torch.randn(n, generator=gen, device="cuda") * 0.1)
+                m.zero_()
+                v.zero_()
+                if mp is not None:
+                    mp.copy_(p.float())
+                gs = [(torch.randn(n, generator=gen, device="cuda")
+                       * 0.05).to(dt) for _ in range(OPT_STEPS)]
+                bufs.append([pb, mb, vb, mpb])
+                views.append([p, m, v, mp, gs, 0.0 if i % 3 == 0 else 0.01])
+            live = views[:-1]                        # the last is not live
+            cpu = [[x.cpu() if x is not None else None for x in b]
+                   for b in bufs]
+            st = [[v_[k] for v_ in live] for k in range(4)]
+            grads = [[v_[4][s] for v_ in live] for s in range(OPT_STEPS)]
+            wds = [v_[5] for v_ in live]
+            infos = opt_run(mta, grads, st, wds, clip)
+            torch.cuda.synchronize()
+            # the same on the CPU copies of the buffers
+            cviews = []
+            for (p, m, v, mp, gs, wd), cb in zip(views, cpu):
+                off, n = p.storage_offset(), p.numel()
+                cviews.append([cb[0][off:off + n], cb[1][off:off + n],
+                               cb[2][off:off + n],
+                               None if cb[3] is None else
+                               cb[3][off:off + n],
+                               [g.cpu() for g in gs], wd])
+            clive = cviews[:-1]
+            cst = [[v_[k] for v_ in clive] for k in range(4)]
+            cgrads = [[v_[4][s] for v_ in clive] for s in range(OPT_STEPS)]
+            scales = None if clip is None else [i.cpu() for i in infos]
+            opt_run(mta, cgrads, cst, [v_[5] for v_ in clive], clip,
+                    plain=True, scales=scales)
+            same = all(
+                (a is None and b is None)
+                or torch.equal(bits(torch, a.cpu()), bits(torch, b))
+                for ba, bb in zip(bufs, cpu) for a, b in zip(ba, bb))
+            log(f"opt poison {'+'.join(kinds)} clip {clip}: every buffer bit "
+                f"for bit the plain version's on the CPU (NaN gaps and the "
+                f"tensor that is not live untouched): {same}")
+            good &= same
+    return good
+
+
+def phase_opt(torch, np, peak, flush, record):
+    """The fused AdamW step over llama_350m's 219 parameter shapes, for
+    each case of OPT_CASES with and without ClipGradByGlobalNorm(1.0)
+    (seeded gradients at 1e-3, a global norm of ~19, so the clip is
+    active): three kernel steps against the plain version on the card
+    (given the kernel's clip scales; the scale itself within a few f32
+    ulps of the plain global norm's) and, on a cut of the tensors,
+    against the plain version on the CPU bit for bit; a second run from
+    the same state bitwise equal; the poison check; the launches a step.
+    Then the kernel, the per-leaf chain and torch._fused_adamw_ (a time
+    yardstick the port never calls) timed on the card's clock."""
+    from paddle_tpu_torch.nn.clip import _global_scale, _sq_sum
+    from paddle_tpu_torch.ops.kernels import multi_tensor_adam as mta
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    if not opt_poison_check(torch, mta, gen):
+        raise SystemExit("opt: the kernel disagrees with its plain version "
+                         "on the CPU, or wrote outside its tensors")
+    shapes = llama_350m_shapes()
+    n_el = sum(int(np.prod(s)) for _, s in shapes)
+    wds = [0.0 if "norm" in n else 0.01 for n, _ in shapes]
+    cut = [i for i, (_, s) in enumerate(shapes)
+           if int(np.prod(s)) <= 3 << 20][::24]
+    log(f"opt: llama_350m's {len(shapes)} parameter shapes, {n_el} "
+        f"elements; AdamW(lr {OPT_LR}, decay 0.01 off the norms), "
+        f"{OPT_STEPS} steps; CPU cut: tensors {cut}")
+    worst, rows = 0.0, {}
+    for tag, dname, master in OPT_CASES:
+        dtype = getattr(torch, dname)
+        for clip in (None, 1.0):
+            torch.cuda.empty_cache()
+            params = [(torch.randn(s, generator=gen, device="cuda") * 0.02)
+                      .to(dtype) for _, s in shapes]
+            grads = [[(torch.randn(s, generator=gen, device="cuda") * 1e-3)
+                      .to(dtype) for _, s in shapes]
+                     for _ in range(OPT_STEPS)]
+            st = opt_state(torch, params, master)
+            plain, again = opt_clone(st), opt_clone(st)
+            cpu = [[None if part[i] is None else part[i].cpu()
+                    for i in cut] for part in st]
+            k0 = mta.multi_tensor_adam.kernel_launches
+            infos = opt_run(mta, grads, st, wds, clip)
+            torch.cuda.synchronize()
+            per_step = (mta.multi_tensor_adam.kernel_launches - k0) \
+                / OPT_STEPS
+            infos2 = opt_run(mta, grads, again, wds, clip)
+            repeat = opt_equal(torch, st, again) and all(
+                a is None or torch.equal(a, b) for a, b in zip(infos, infos2))
+            del again
+            scales = None if clip is None else infos
+            opt_run(mta, grads, plain, wds, clip, plain=True, scales=scales)
+            err, frac, close = opt_against(torch, st, plain, dtype)
+            worst = max(worst, err)
+            del plain
+            scale_ok = True
+            if clip is not None:
+                ref_scale, ref_gn = _global_scale(_sq_sum(grads[0]), clip)
+                ks, kg = infos[0].tolist()
+                scale_ok = ks <= 1.0 and abs(ks - ref_scale.item()) <= \
+                    4 * np.spacing(np.float32(ref_scale.item())) and \
+                    abs(kg - ref_gn.item()) <= 1e-6 * ref_gn.item()
+                log(f"opt {tag} clip: scale {ks!r} (plain {ref_scale.item()!r}"
+                    f"), global norm {kg!r} (plain {ref_gn.item()!r}) "
+                    f"{scale_ok}")
+            cg = [[grads[s][i].cpu() for i in cut] for s in range(OPT_STEPS)]
+            opt_run(mta, cg, cpu, [wds[i] for i in cut], clip, plain=True,
+                    scales=None if clip is None else
+                    [t.cpu() for t in infos])
+            on_cpu = opt_equal(torch, [[None if part[i] is None else
+                                        part[i].cpu() for i in cut]
+                                       for part in st], cpu)
+            want_k = mta.kernels_per_step(len(shapes), clip is not None)
+            ok = close and repeat and on_cpu and scale_ok \
+                and per_step == want_k
+            log(f"opt {tag} clip {clip}: against the plain version on the "
+                f"card: largest parameter error {err:.3e}, bf16 elements "
+                f"an ulp apart {frac:.2e} (rule: Queue 3) {close}; the CPU "
+                f"cut bit for bit {on_cpu}; bitwise repeat {repeat}; "
+                f"kernels a step {per_step:g} (want {want_k}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"opt {tag} clip {clip}: the kernel "
+                                 f"disagrees with its plain version, or "
+                                 f"is not repeatable")
+            rows[tag, clip] = opt_time(torch, mta, st, grads[0], wds, clip,
+                                       master, peak, flush, n_el, tag)
+            del st, grads, params, infos
+    main = rows["bf16_mp", 1.0]
+    record["multi_tensor_adam"].update(
+        max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"],
+        cases={f"{t}{'' if c is None else '+clip'}": r
+               for (t, c), r in rows.items()})
+    slow = [k for k, r in rows.items() if r["ms"] >= r["plain_ms"]]
+    if slow:
+        raise SystemExit(f"opt: the kernel is not faster than the per-leaf "
+                         f"chain in {slow}")
+
+
+def opt_time(torch, mta, st, g, wds, clip, master, peak, flush, n_el, tag):
+    """The kernel step and torch._fused_adamw_ over the same tensors (f32
+    copies where it refuses the mixed types) on the card's clock
+    (``cuda_ms``), the per-leaf chain (the plain version on the card)
+    between events (``event_ms``: its launches outnumber the launch
+    queue); the bound from opt_bytes at the card's data-sheet rate."""
+    kw = dict(lr=OPT_LR, beta1=0.9, beta2=0.999, epsilon=1e-8, step=4,
+              decoupled=True)
+
+    cache = {}
+
+    def kern():
+        mta.multi_tensor_adam(g, st[0], st[1], st[2], st[3], wds,
+                              clip_norm=clip, cache=cache, **kw)
+
+    def plain():
+        mta._ref_multi_tensor_adam(g, st[0], st[1], st[2], st[3], wds,
+                                   kw["lr"], 0.9, 0.999, 1e-8, 4, True, clip)
+
+    ms = cuda_ms(kern, torch, flush=flush)
+    plain_ms = event_ms(plain, torch, flush=flush)
+    steps = [torch.zeros((), device="cuda") for _ in st[0]]
+    lib_on = "the same tensors"
+    lp, lg = st[0], g
+    try:
+        torch._fused_adamw_(lp, lg, st[1], st[2], [], steps, lr=OPT_LR,
+                            beta1=0.9, beta2=0.999, weight_decay=0.01,
+                            eps=1e-8, amsgrad=False, maximize=False)
+    except RuntimeError as e:
+        lib_on = f"f32 copies (it refused the mixed types: {str(e)[:80]})"
+        lp = [p.float() for p in st[0]]
+        lg = [x.float() for x in g]
+    library_ms = cuda_ms(lambda: torch._fused_adamw_(
+        lp, lg, st[1], st[2], [], steps, lr=OPT_LR, beta1=0.9, beta2=0.999,
+        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False), torch,
+        flush=flush)
+    del lp, lg
+    nbytes = n_el * opt_bytes(st[0][0].element_size(), master)
+    bound_ms, by = bound(nbytes, 20 * n_el, peak, peak[2])
+    log(f"opt {tag} clip {clip} timing: kernel {ms:.4f} ms, per-leaf "
+        f"chain {plain_ms:.4f} ms between events ({plain_ms / ms:.1f}x the "
+        f"kernel), "
+        f"torch._fused_adamw_ {library_ms:.4f} ms on {lib_on} (no clip; it "
+        f"decays before the Adam step), bound {bound_ms:.4f} ms ({by}; "
+        f"{nbytes} bytes): the kernel at {100 * bound_ms / ms:.0f}% of it")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": by}
+
+
 def serve_wave(srv, prompts, n_new):
     rids = [srv.submit(p, max_new_tokens=n_new) for p in prompts]
     out = srv.run()
@@ -1501,6 +1906,8 @@ def counters():
     from paddle_tpu_torch.ops.kernels import rms_norm as rn
     from paddle_tpu_torch.ops.kernels.fused_tick import fused_tick_attention
     from paddle_tpu_torch.ops.kernels.gemm_epilogue import gemm_epilogue
+    from paddle_tpu_torch.ops.kernels.multi_tensor_adam import \
+        multi_tensor_adam
     from paddle_tpu_torch.ops.kernels.paged_attention import \
         paged_attention
     from paddle_tpu_torch.ops.kernels.quant_matmul import quantized_matmul
@@ -1518,7 +1925,9 @@ def counters():
             "k6": (rope_fwd, "launches"),
             "k6_qk": (rope_qk_fwd, "launches"),
             "k7": (gemm_epilogue, "launches"),
-            "k8": (quantized_matmul, "launches")}
+            "k8": (quantized_matmul, "launches"),
+            "opt": (multi_tensor_adam, "launches"),
+            "opt_kernels": (multi_tensor_adam, "kernel_launches")}
 
 
 def zero_counts():
@@ -1810,14 +2219,17 @@ def profile_decode(torch, np, srv, cfg, card, mode):
     srv.run()
 
 
-def per_step_counts(L, steps=1, rope=True):
+def per_step_counts(L, steps=1, rope=True, opt_kernels=1):
     """The launches a train step of an L-layer Llama makes: K4's three
     kernels once per layer, K5 forward and backward at both norms of
-    every layer and the final norm, and (unless rope is the composition)
-    K6's q + k launch once per layer forward and once backward."""
+    every layer and the final norm, (unless rope is the composition)
+    K6's q + k launch once per layer forward and once backward, and one
+    fused optimizer step of ``opt_kernels`` kernels (1 without the clip,
+    ``multi_tensor_adam.kernels_per_step``)."""
     return {"k4_fwd": steps * L, "k4_dq": steps * L, "k4_dkv": steps * L,
             "k5_fwd": steps * (2 * L + 1), "k5_bwd": steps * (2 * L + 1),
-            "k6": 0, "k6_qk": steps * 2 * L if rope else 0}
+            "k6": 0, "k6_qk": steps * 2 * L if rope else 0,
+            "opt": steps, "opt_kernels": steps * opt_kernels}
 
 
 @contextlib.contextmanager
@@ -2146,6 +2558,177 @@ def phase_train_compose(torch, np, card, train):
             raise SystemExit(f"train_compose: check failed: {name}")
 
 
+def phase_train_amp(torch, np, card, record):
+    """The slice's path: llama_350m at full width and depth, cast by
+    amp.decorate(O2, bf16) (the rope tables stay f32), AdamW with f32
+    masters, decay off the norms and ClipGradByGlobalNorm(1.0) on the
+    fused kernel, lr from LinearWarmup(CosineAnnealingDecay(3e-4, 100),
+    5 steps from 0), 12 train_step_fn steps under auto_cast(O2, bf16) on
+    the fixed 8 x 1024 batch, the first one by hand to hold the clip
+    against the plain global norm. Then f32 parameters under O1 with a
+    GradScaler: an injected inf gradient skips its step."""
+    import gc
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import train_step_fn
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_350m
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn.clip import _global_scale, _sq_sum
+    from paddle_tpu_torch.ops.kernels import multi_tensor_adam as mta
+    from paddle_tpu_torch.ops.kernels import rms_norm as rn
+    from paddle_tpu_torch.ops.kernels import rope as rk
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as lrs
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama_350m()
+    L, B, S, n = cfg.num_layers, 8, 1024, 12
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    attn = model.model.layers[0].self_attn
+    cast_ok = all(p.dtype == torch.bfloat16 for p in model.parameters()) \
+        and attn.rope_cos.dtype == torch.float32
+    sched = lrs.LinearWarmup(lrs.CosineAnnealingDecay(3e-4, T_max=100),
+                             warmup_steps=5, start_lr=0.0, end_lr=3e-4)
+    clip = ClipGradByGlobalNorm(1.0)
+    opt = AdamW(learning_rate=sched, parameters=model.named_parameters(),
+                weight_decay=0.01, multi_precision=True, grad_clip=clip,
+                apply_decay_param_fun=lambda name: "norm" not in name)
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)), device="cuda")
+    batch = {"inputs": (ids,), "labels": (ids,)}
+    step = train_step_fn(model, model.loss, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    k5 = (dict(rn.rms_norm_fwd.dtype_launches),
+          dict(rn.rms_norm_bwd.dtype_launches))
+    vector = rk.rope_qk_fwd.route_launches["vector"]
+    lrs_seen, infos, losses = [], [], []
+    t0 = time.perf_counter()
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        # step 1 by hand: the plain global norm of its gradients
+        loss = model.loss(model(ids), ids)
+        loss.backward()
+        ref_scale, ref_gn = _global_scale(
+            _sq_sum([p.grad for p in model.parameters()]), clip.clip_norm)
+        lrs_seen.append(opt.get_lr())
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        losses.append(loss.detach())
+        infos.append(opt._clip_info)
+        for _ in range(n - 1):
+            lrs_seen.append(opt.get_lr())
+            losses.append(step(batch))
+            infos.append(opt._clip_info)
+            sched.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    counts["k6_qk_vector"] = rk.rope_qk_fwd.route_launches["vector"] - vector
+    k5_f32 = (rn.rms_norm_fwd.dtype_launches["float32"] - k5[0]["float32"],
+              rn.rms_norm_bwd.dtype_launches["float32"] - k5[1]["float32"])
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [x.item() for x in losses]
+    infos = [x.tolist() for x in infos]
+    ks, kg = infos[0]
+    masters = opt.state_dict()["state"]["master"].values()
+    finite = all(np.isfinite(losses)) and all(
+        torch.isfinite(p).all().item() for p in model.parameters()) and all(
+        torch.isfinite(m).all().item() for m in masters)
+    n_tensors = len(list(model.parameters()))
+    want = per_step_counts(L, n, opt_kernels=mta.kernels_per_step(
+        n_tensors, True))
+    log(f"train_amp: llama_350m O2 bf16 (decorate; rope tables f32 "
+        f"{attn.rope_cos.dtype}), AdamW multi_precision, decay 0.01 off the "
+        f"norms, ClipGradByGlobalNorm(1.0), LinearWarmup(CosineAnnealing"
+        f"Decay(3e-4, 100), 5 steps); {n} steps on {B} x {S}")
+    log(f"train_amp losses: {[round(x, 4) for x in losses]}")
+    log(f"train_amp lr: {lrs_seen}")
+    log(f"train_amp clip: step 1 scale {ks!r}, norm {kg!r} (plain "
+        f"{ref_scale.item()!r}, {ref_gn.item()!r}); scales "
+        f"{[round(i[0], 6) for i in infos]}")
+    log(f"train_amp metrics [{card}]: {wall / n * 1e3:.1f} ms per step, "
+        f"{B * S * n / wall:.0f} tokens/s, peak memory {peak_gb:.2f} GiB; "
+        f"launches over {n} steps {counts}, K5 on its f32 route {k5_f32}")
+    checks = {
+        "parameters bf16, rope tables f32": cast_ok,
+        "loss falls": losses[-1] < losses[0],
+        "losses, parameters and masters finite": finite,
+        "lr each step == the scheduler's get_lr_at":
+            lrs_seen == [sched.get_lr_at(i) for i in range(n)],
+        "clip scale <= 1 and within 4 f32 ulps of the plain one":
+            all(i[0] <= 1.0 for i in infos) and abs(ks - ref_scale.item())
+            <= 4 * np.spacing(np.float32(ref_scale.item()))
+            and abs(kg - ref_gn.item()) <= 1e-6 * ref_gn.item(),
+        "launches == steps x (K4, K5, K6 q + k, the optimizer kernel)":
+            {k: counts[k] for k in want} == want,
+        "K5 on its f32 route": k5_f32 == (want["k5_fwd"], want["k5_bwd"]),
+        "K6 on the vector route": counts["k6_qk_vector"] == counts["k6_qk"],
+        "no serving, epilogue or int8 kernel":
+            not any(counts[k] for k in ("k1", "k2", "k3", "k7", "k8"))}
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"train_amp: check failed: {name}")
+    record["multi_tensor_adam"]["launches"] = counts["opt"]
+    record["multi_tensor_adam"]["kernel_launches"] = counts["opt_kernels"]
+
+    def one():
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            step(batch)
+
+    profile_once(torch, one, card, "train_amp")
+    del model, opt, step
+    train_amp_scaler(torch, np, card)
+
+
+def train_amp_scaler(torch, np, card):
+    """f32 llama_350m under auto_cast(O1, bf16) with
+    GradScaler(2**15, decr_every_n_nan_or_inf=1) and AdamW(1e-4) on the
+    kernel: 3 steps, the second with an inf written into one gradient.
+    That step is skipped (parameters unchanged bit for bit, the optimizer
+    not stepped) and the scale halves; the other two update."""
+    import gc
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_350m
+    from paddle_tpu_torch.optimizer import AdamW
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama_350m()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters())
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15,
+                            decr_every_n_nan_or_inf=1)
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 1024)), device="cuda")
+    snaps, scales, losses, stepped = [], [], [], []
+    for i in range(3):
+        before = [p.detach().clone() for p in model.parameters()]
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = model.loss(model(ids), ids)
+        scaler.scale(loss).backward()
+        if i == 1:
+            model.lm_head.weight.grad[0, 0] = float("inf")
+        count = opt.state_dict()["step"]
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        stepped.append(opt.state_dict()["step"] > count)
+        snaps.append(all(torch.equal(a, p) for a, p in
+                         zip(before, model.parameters())))
+        scales.append(scaler.get_init_loss_scaling())
+        losses.append(loss.item())
+    log(f"train_amp scaler [{card}]: f32 llama_350m under O1, losses "
+        f"{[round(x, 4) for x in losses]}, scale after each step {scales}, "
+        f"optimizer stepped {stepped}, parameters unchanged {snaps}")
+    ok = stepped == [True, False, True] and snaps == [False, True, False] \
+        and scales == [2.0 ** 15, 2.0 ** 14, 2.0 ** 14] \
+        and all(np.isfinite(losses))
+    if not ok:
+        raise SystemExit("train_amp: the GradScaler did not skip the inf "
+                         "step, or did not halve its scale")
+
+
 def profile_once(torch, fn, card, what="train", unit="step"):
     """Where one call's time goes (a train step, an int8 forward): ``fn``
     once under torch.profiler, device time by kernel and the device's
@@ -2177,14 +2760,21 @@ def profile_once(torch, fn, card, what="train", unit="step"):
     # the port's own kernels (each library's anonymous namespace; PyTorch
     # has kernels there too, named with at:: or c10:: types), ranked or
     # not: K4's three and K5's in a train step
-    anon = "void (anonymous namespace)::"
-    ours = [(name[len(anon):].split("(")[0], ms, count)
+    # (a template kernel's name starts with its return type, void)
+    anon = "(anonymous namespace)::"
+    ours = [(name[name.index(anon) + len(anon):].split("(")[0], ms, count)
             for name, ms, count in kernels
-            if name.startswith(anon)
+            if name.startswith((anon, "void " + anon))
             and "at::" not in name and "c10::" not in name]
     log(f"profile {what}: the port's kernels, {sum(k[1] for k in ours):.3f} "
         f"ms/{unit}: " + ", ".join(f"{n} {ms:.3f} ms ({c}x)"
                                      for n, ms, c in ours))
+    opt = [(n, ms, c) for n, ms, c in ours
+           if n in ("update_kernel", "sumsq_kernel", "scale_kernel")]
+    if opt:
+        log(f"profile {what}: the optimizer's fused step "
+            f"{sum(k[1] for k in opt):.3f} ms/{unit} in "
+            f"{sum(k[2] for k in opt)} launches")
 
 
 def main():
@@ -2274,6 +2864,15 @@ def main():
             "library_ms": None}
     record["rope"].update(qk_ms=None, qk_backward_ms=None, qk_plain_ms=None,
                           qk_bound_ms=None)
+    # the optimizer's fused step: the counterpart of an XLA fusion (the
+    # reference's jitted multi-tensor update), not of a pallas_call
+    record["multi_tensor_adam"] = {
+        "name": "multi_tensor_adam", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/multi_tensor_adam.cu",
+        "replaces": "paddle_tpu/optimizer/optimizer.py:62",
+        "launches": None, "max_abs_err": None, "ms": None,
+        "plain_ms": None, "bound_ms": None, "bound_by": None,
+        "library_ms": None}
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
     if "k1" in phases:
         phase_k1(torch, peak, flush, record)
@@ -2291,6 +2890,8 @@ def main():
         phase_k7(torch, peak, flush, record)
     if "k8" in phases:
         phase_k8(torch, peak, flush, record)
+    if "opt" in phases:
+        phase_opt(torch, np, peak, flush, record)
     del flush
     if "parity" in phases:
         phase_parity(torch, np)
@@ -2309,6 +2910,8 @@ def main():
         train = phase_train(torch, np, card, peak, record)
     if "train_compose" in phases:
         phase_train_compose(torch, np, card, train)
+    if "train_amp" in phases:
+        phase_train_amp(torch, np, card, record)
     log(json.dumps({"kernels": list(record.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

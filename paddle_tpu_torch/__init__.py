@@ -10,13 +10,18 @@ train it, and run it in int8:
 - ``inference.ContinuousBatchingServer`` in paged mode with ragged
   prefill and split or fused ticks, over the host-side page allocator
   and radix prefix cache;
-- ``nn.functional`` (the train step's operators), ``nn.Linear``,
-  ``optimizer`` (Adam, AdamW with the JAX update rule) and
-  ``jit.train_step_fn``;
+- ``nn.functional`` (the train step's operators, ``cross_entropy``'s
+  options, masked attention), ``nn.Linear``, the gradient clips
+  (``nn.clip``), the optimizer zoo with the JAX update rules and the
+  learning-rate schedulers (``optimizer``, ``optimizer.lr``),
+  mixed precision (``amp``: ``auto_cast``, ``decorate``,
+  ``GradScaler``), activation recompute (``parallel.recompute_util``)
+  and ``jit.train_step_fn``;
 - ``quantization.to_int8_inference`` (every ``nn.Linear`` becomes an
   ``Int8InferLinear``) and ``incubate.nn.functional``'s fused linear and
   rope entry points;
-- eight hand-written CUDA kernels for ``sm_90a`` under ``csrc/``: paged
+- hand-written CUDA kernels for ``sm_90a`` under ``csrc/``, one for each
+  TPU kernel: paged
   decode attention, ragged prefill attention and fused-tick attention
   for serving (``ops.kernels.paged_attention`` /
   ``ops.kernels.ragged_prefill`` / ``ops.kernels.fused_tick``), flash
@@ -26,7 +31,9 @@ train it, and run it in int8:
   card), the fused GEMM + bias + activation
   (``ops.kernels.gemm_epilogue``) and the int8 matmul with its
   dequantize (``ops.kernels.quant_matmul``), each with a plain PyTorch
-  version beside it.
+  version beside it; and a ninth, the optimizer's fused Adam / AdamW
+  step over every live parameter (``ops.kernels.multi_tensor_adam``),
+  the counterpart of the reference's jitted multi-tensor update.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``device.resolve_device``). On the CPU every kernel wrapper takes its

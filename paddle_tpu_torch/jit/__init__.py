@@ -7,6 +7,15 @@ PyTorch runs eagerly and its autograd takes the place of the JAX
 package's tape (``core/tape.py``), so here the step is a plain function
 of the batch that updates the module's parameters, and the optimizer its
 state, IN PLACE.
+
+The step honours the optimizer's ``grad_clip`` and learning-rate
+scheduler through ``optimizer.step()``: the clip's own ``clip_values``
+inside the update, as the reference's ``Optimizer.step`` does. The
+reference's ``train_step_fn`` instead always clips by the global norm,
+reading ``grad_clip.clip_norm`` (``jit/__init__.py:166-170``); the two
+agree for ``ClipGradByGlobalNorm`` (ROADMAP, Queue 3). The caller steps
+the scheduler. Under ``amp.auto_cast`` the step's operators cast their
+inputs as the reference's dispatch does.
 """
 
 __all__ = ["train_step_fn"]

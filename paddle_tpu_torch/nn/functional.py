@@ -3,47 +3,85 @@
 Port of the matching subset of ``paddle_tpu/nn/functional.py``: RMSNorm
 and attention ride the hand-written kernels (K5 and K4, through their
 autograd Functions), the rest is plain torch, as the JAX package leaves
-it to XLA. Options of the JAX functions that this slice does not port
-raise ``NotImplementedError`` naming the ROADMAP item.
+it to XLA. Under ``amp.auto_cast`` each entry point casts its inputs
+under the reference's op name (``linear``, ``flash_attention``,
+``sdp_attention``: the AMP dtype; ``rms_norm``, ``softmax``,
+``cross_entropy_with_softmax``, ``cross_entropy_soft``: f32), as the
+reference's dispatch does (``amp.cast_inputs_for_op``). Options of the
+JAX functions that this slice does not port raise
+``NotImplementedError`` naming the ROADMAP item.
 """
+import math
+
 import torch
 import torch.nn.functional as tf
 
+from ..amp import cast_inputs_for_op as _cast
 from ..ops.kernels import flash_attention as _fa
 from ..ops.kernels import rms_norm as _rn
 
 __all__ = ["rms_norm", "scaled_dot_product_attention", "flash_attention",
-           "linear", "embedding", "silu", "cross_entropy"]
+           "linear", "embedding", "silu", "softmax", "cross_entropy"]
 
 
 def rms_norm(x, weight, epsilon=1e-6):
     """RMSNorm over the last dim (K5 forward and backward)."""
+    x, weight = _cast("rms_norm", [x, weight])
     return _rn.rms_norm(x, weight, epsilon)
 
 
 def flash_attention(query, key, value, causal=False, sm_scale=None):
     """Flash attention on ``[batch, seq, heads, head_dim]`` (K4)."""
+    query, key, value = _cast("flash_attention", [query, key, value])
     return _fa.flash_attention(query, key, value, causal=causal,
                                sm_scale=sm_scale)
+
+
+def _sdp_composition(q, k, v, mask, is_causal):
+    """The reference's XLA composition (``functional.py:909-922``) on
+    ``[batch, seq, heads, head_dim]``: scores in the inputs' type, the
+    causal mask (-inf above the diagonal, top-left aligned), the additive
+    ``mask``, softmax in f32 rounded back to q's type, then P V."""
+    q_, k_, v_ = (t.transpose(1, 2) for t in (q, k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q_, k_) * (1.0 / math.sqrt(
+        q_.shape[-1]))
+    if is_causal:
+        qs, ks = s.shape[-2], s.shape[-1]
+        keep = torch.ones((qs, ks), dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    if mask is not None:
+        s = s + mask
+    p = torch.softmax(s.float(), dim=-1).to(q_.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v_).transpose(1, 2)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True):
     """paddle.nn.functional.scaled_dot_product_attention on ``[batch,
-    seq, heads, head_dim]``, through the flash-attention kernels (K4).
-    Causal masking is top-left aligned (query row i sees keys 0..i)."""
-    if attn_mask is not None or dropout_p != 0.0:
+    seq, heads, head_dim]``. Without a mask or dropout it runs the
+    flash-attention kernels (K4; causal masking top-left aligned, query
+    row i sees keys 0..i); with ``attn_mask`` (added to the scores) the
+    reference's composition in plain torch: K4 takes no mask. Dropout
+    raises while training (ROADMAP Queue 1 item 4)."""
+    if dropout_p > 0.0 and training:
         raise NotImplementedError(
-            "scaled_dot_product_attention with attn_mask or dropout is not "
-            "ported (ROADMAP, Queue 1 item 3: the rest of the training "
-            "stack); the flash-attention kernels take neither")
-    return _fa.flash_attention(query, key, value, causal=is_causal)
+            "scaled_dot_product_attention with dropout is not ported: the "
+            "reference draws it from jax.random, and parity needs its "
+            "threefry stream (ROADMAP, Queue 1 item 4: the sampler, "
+            "bit-compatible with jax.random)")
+    if attn_mask is None and dropout_p == 0.0:
+        query, key, value = _cast("flash_attention", [query, key, value])
+        return _fa.flash_attention(query, key, value, causal=is_causal)
+    query, key, value, attn_mask = _cast(
+        "sdp_attention", [query, key, value, attn_mask])
+    return _sdp_composition(query, key, value, attn_mask, is_causal)
 
 
 def linear(x, weight, bias=None):
     """``x @ weight (+ bias)``, weight ``[in, out]`` (paddle
     convention)."""
+    x, weight, bias = _cast("linear", [x, weight, bias])
     out = torch.matmul(x, weight)
     return out if bias is None else out + bias
 
@@ -57,24 +95,61 @@ def silu(x):
     return tf.silu(x)
 
 
+def softmax(x, axis=-1, dtype=None):
+    """Softmax over ``axis`` (in ``dtype`` when given)."""
+    (x,) = _cast("softmax", [x])
+    return torch.softmax(x.to(dtype) if dtype is not None else x, dim=axis)
+
+
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
 def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
-    """Mean softmax cross-entropy with hard labels ``[...]`` over the
-    last axis of ``input`` ``[..., classes]``, in f32
-    (``functional.py:744-797``): labels equal to ``ignore_index`` count
-    neither in the sum nor in the mean's denominator."""
-    if (weight is not None or reduction != "mean" or soft_label
-            or not use_softmax or label_smoothing
-            or axis not in (-1, input.dim() - 1)):
-        raise NotImplementedError(
-            "cross_entropy is ported for the mean over hard labels on the "
-            "last axis with softmax only (no weight, soft_label or "
-            "label_smoothing): ROADMAP, Queue 1 item 3, the rest of the "
-            "training stack")
-    logp = torch.log_softmax(input.float(), dim=-1)
+    """Softmax cross-entropy in f32 over ``axis`` of ``input``
+    (``functional.py:744-797``).
+
+    Hard labels (``label`` without the class axis, or with a trailing
+    axis of 1): labels equal to ``ignore_index`` count neither in the sum
+    nor in the mean's denominator; ``label_smoothing`` mixes the one-hot
+    target with the uniform one. Soft labels (``soft_label=True``,
+    ``label`` a distribution over the classes): ``-sum(label * logp)``,
+    the mean taken over every row. ``reduction`` is ``"mean"``,
+    ``"sum"`` or ``"none"``. ``weight`` and ``use_softmax`` are accepted
+    and not used, as in the reference (ROADMAP, Queue 3)."""
+    if soft_label:
+        input, label = _cast("cross_entropy_soft", [input, label])
+        logp = torch.log_softmax(input.float(), dim=axis)
+        return _reduce(-(label * logp).sum(axis), reduction)
+    if label.dim() == input.dim() and label.shape[-1] == 1:
+        label = label.squeeze(-1)
+    (input,) = _cast("cross_entropy_with_softmax", [input])
+    logp = torch.log_softmax(input.float(), dim=axis)
+    if axis not in (-1, input.dim() - 1):
+        logp = logp.movedim(axis, -1)
     label = label.long()
-    keep = label != ignore_index
-    nll = -logp.gather(-1, label.where(keep, 0)[..., None])[..., 0]
-    return (nll * keep.to(nll.dtype)).sum() \
-        / keep.sum().to(nll.dtype).clamp_min(1.0)
+    nclass = logp.shape[-1]
+    # the reference's one-hot target: an all-zero row for a label outside
+    # [0, classes), the ignored one included
+    valid = (label >= 0) & (label < nclass)
+    idx = label.where(valid, 0)
+    if label_smoothing > 0.0:
+        onehot = tf.one_hot(idx, nclass).to(logp.dtype) \
+            * valid[..., None].to(logp.dtype)
+        onehot = onehot * (1 - label_smoothing) + label_smoothing / nclass
+        nll = -(onehot * logp).sum(-1)
+    else:
+        nll = -logp.gather(-1, idx[..., None])[..., 0] * valid.to(logp.dtype)
+    mask = (label != ignore_index).to(nll.dtype)
+    nll = nll * mask
+    if reduction == "mean":
+        return nll.sum() / mask.sum().clamp_min(1.0)
+    if reduction == "sum":
+        return nll.sum()
+    return nll

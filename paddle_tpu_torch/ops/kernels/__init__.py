@@ -5,6 +5,7 @@ counter on its wrapper: ``paged_attention.paged_attention``,
 ``fused_tick.fused_tick_attention``, ``flash_attention.flash_fwd`` and
 ``flash_attention.flash_bwd`` (dq and dk + dv), ``rms_norm.rms_norm_fwd``,
 ``rms_norm.rms_norm_bwd``, ``rope.rope_fwd`` (forward and backward),
-``gemm_epilogue.gemm_epilogue`` and ``quant_matmul.quantized_matmul``.
+``gemm_epilogue.gemm_epilogue``, ``quant_matmul.quantized_matmul`` and
+the optimizer's fused step ``multi_tensor_adam.multi_tensor_adam``.
 Flash attention, RMSNorm, rope and the GEMM epilogue sit behind autograd
 Functions."""

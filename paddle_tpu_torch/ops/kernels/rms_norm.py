@@ -10,7 +10,8 @@ dtype and dw (summed over every row in f32) in w's dtype.
 (``csrc/rms_norm.cu``) for CUDA tensors and the plain versions
 ``_ref_fwd``/``_ref_bwd`` for CPU tensors; a CUDA tensor the kernels
 cannot take raises instead of falling back. Each counts its launches in
-``.launches``. ``rms_norm`` is the differentiable entry point.
+``.launches``, and by the type it ran in (its f32 or bf16 route) in
+``.dtype_launches``. ``rms_norm`` is the differentiable entry point.
 
 The backward's kernel walks rows in a static plan (``bwd_plan``, from
 the shape, the SM count and the kernel's blocks a SM only) and sums dw
@@ -29,6 +30,7 @@ __all__ = ["rms_norm", "rms_norm_fwd", "rms_norm_bwd", "RMSNormFunction",
            "bwd_plan"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 MAX_D = {torch.float32: 8192, torch.bfloat16: 16384}
 # the backward's row kernel (csrc/rms_norm.cu, namespace bwd): warps a
 # block, 16-byte chunks of a row a lane at most, and the reduction's warps
@@ -192,6 +194,7 @@ def rms_norm_fwd(x, w, eps=1e-6):
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "rms_norm forward")
     rms_norm_fwd.launches += 1
+    rms_norm_fwd.dtype_launches[_NAMES[x.dtype]] += 1
     return out
 
 
@@ -240,11 +243,14 @@ def rms_norm_bwd(x, w, g, eps=1e-6):
         float(eps), torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "rms_norm backward")
     rms_norm_bwd.launches += 1
+    rms_norm_bwd.dtype_launches[_NAMES[x.dtype]] += 1
     return dx, dw
 
 
 rms_norm_fwd.launches = 0
 rms_norm_bwd.launches = 0
+rms_norm_fwd.dtype_launches = dict.fromkeys(_NAMES.values(), 0)
+rms_norm_bwd.dtype_launches = dict.fromkeys(_NAMES.values(), 0)
 
 
 class RMSNormFunction(torch.autograd.Function):

@@ -25,7 +25,11 @@ and the JAX package its XLA compositions of the same functions.
   fused multiply-adds; the cancellation in 1 - beta2 ** step), bf16 bit
   for bit;
 - options that are not ported raise ``NotImplementedError`` with a
-  ROADMAP pointer;
+  ROADMAP pointer (dropout: item 4; the schedulers, clips,
+  ``lr_ratio``, ``attn_mask``, ``soft_label`` and ``reduction`` are
+  ported and held against the reference in ``test_torch_lr_and_clip.py``,
+  ``test_torch_optimizer_zoo.py`` and
+  ``test_torch_functional_options.py``);
 - the projections and the head are ``nn.Linear`` layers under the JAX
   parameter names, and the weight bridge round-trips.
 """
@@ -267,30 +271,13 @@ def test_adam_l2_and_multi_precision_match_jax():
     assert fresh.get_lr() == 5e-4
 
 
-@pytest.mark.parametrize("what", ["lr_scheduler", "grad_clip", "lr_ratio",
-                                  "attn_mask", "dropout", "soft_label",
-                                  "reduction", "pipeline_decompose",
+@pytest.mark.parametrize("what", ["dropout", "pipeline_decompose",
                                   "tensor_parallel"])
 def test_unported_options_raise_with_a_roadmap_pointer(what):
     q = torch.zeros(1, 4, 2, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "lr_scheduler":
-            AdamW(learning_rate=object())
-        elif what == "grad_clip":
-            AdamW(grad_clip=object())
-        elif what == "lr_ratio":
-            AdamW(lr_ratio=lambda p: 1.0)
-        elif what == "attn_mask":
-            F.scaled_dot_product_attention(q, q, q,
-                                           attn_mask=torch.zeros(4, 4))
-        elif what == "dropout":
+        if what == "dropout":
             F.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
-        elif what == "soft_label":
-            F.cross_entropy(torch.zeros(2, 3), torch.zeros(2, 3),
-                            soft_label=True)
-        elif what == "reduction":
-            F.cross_entropy(torch.zeros(2, 3), torch.zeros(2),
-                            reduction="sum")
         elif what == "pipeline_decompose":
             _port_model().pipeline_decompose()
         else:
