@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only build,k6,k7,k8,int8_parity
     python3 chip_smoke.py --only build,k5,k8,int8_parity,int8_infer,train
     python3 chip_smoke.py --only build,opt,train,train_amp
+    python3 chip_smoke.py --only build,rng,parity
 
 Phases, in order; any failure exits non-zero:
 
@@ -112,12 +113,42 @@ Phases, in order; any failure exits non-zero:
    the clip); timed beside the per-leaf chain (which it must beat) and
    torch._fused_adamw_ (a yardstick the port never calls), with the
    bytes bound;
-12. parity: a llama_tiny-shaped float32 model served on the card (the
+12. rng: the random kernels against their plain versions on the card
+   (``core.prng``'s int64 threefry, itself ``jax.random`` bit for bit on
+   the CPU). R1 (``sample_rows``, the serving tick's seeded draw): 1024
+   rows at V = 32000 (raw rows bf16) and at V = 128256 (raw rows f32),
+   fresh and carried keys, emitting and not, edge seeds, NaN, Inf and
+   filtered rows, a NaN only in the raw rows: tokens, keys out and
+   non-finite flags equal, a second launch equal; its time at the serve
+   wave's shape (8 x 32000) beside its bytes bound, the plain version and
+   torch.argmax over the same logits (greedy's cost). R2
+   (``threefry_fill``): keep masks bit for bit, the Gumbel noise (jax's
+   and gumbel_softmax's) within RNG_ULPS of ``max(|g|, 1)``, dropout
+   forward and backward in f32 and bf16 over full and broadcast masks in
+   both modes bit for bit (a NaN matching any NaN), at 8 x 64 x 16 x 64
+   and at the path's shapes (8 x 1024 x 16 x 64, 8 x 1024 x 1024: four
+   passes of the kernel's grid), a second launch equal; dropout's time at
+   llama_350m's attention output beside its bytes bound, the plain
+   version and torch's own dropout (a yardstick the port never calls),
+   the timed call's output bit for bit the plain version's. Then R2's
+   path, the counters zeroed before and read after: attention with
+   dropout while training at llama_350m's shape
+   (``scaled_dot_product_attention(dropout_p=0.1)``, forward and
+   backward), ``dropout`` of a hidden state forward and backward and a
+   hard ``gumbel_softmax``: 4 dropout launches, 1 draw, no other kernel;
+   the outputs bit for bit the plain version's under the same keys (the
+   attention's and the hidden state's forward, the hidden state's
+   gradient) and the one-hot at the plain noise's argmax. Each kernel's
+   ``max_abs_err`` is the largest |kernel - plain| over all of this;
+13. parity: a llama_tiny-shaped float32 model served on the card (the
    kernels) and on the CPU (the plain versions) from the same weights,
    on split ticks and on fused ticks, must emit equal greedy tokens:
    card == CPU on each, and fused == split; split runs launch K1 and K2
-   only, fused runs K3 only;
-13. train_parity: llama_tiny in float32 trained 3 steps (``train_step_fn``
+   only, fused runs K3 only; then a seeded sampled wave of each
+   (temperature 0.8, top_k 20, top_p 0.9; explicit seeds, edge seeds
+   and the default rule past 2**31): card == CPU on each, one R1 launch
+   a draw on the card;
+14. train_parity: llama_tiny in float32 trained 3 steps (``train_step_fn``
    + ``AdamW``) on the card and on the CPU from one set of weights:
    per-step losses, step-1 gradients and the trained weights agree, and
    every step launches K4 forward, dq and dk + dv once per layer, K5
@@ -126,25 +157,29 @@ Phases, in order; any failure exits non-zero:
    kernel) on the card, where the CPU runs its plain version; then again
    with rope on the composition (``ops.rope._COMPOSITION_ONLY``), no K6
    launch;
-14. int8_parity: a llama_tiny-shaped float32 model converted by
+15. int8_parity: a llama_tiny-shaped float32 model converted by
    ``to_int8_inference`` on the card (K8) and on the CPU (the plain
    version) from the same weights: equal int8 codes (every layer's
    K-major ``qweight_t``) and scales, logits within one
    quantisation step of the head, equal greedy argmax, and 7 x layers + 1
    K8 launches per forward (and K6's q + k launch once a layer: the
    forward passes no ``position_ids``);
-15. serve: Llama-2-7B in bf16 (random weights from a seed, full width
+16. serve: Llama-2-7B in bf16 (random weights from a seed, full width
    and depth) serves 8 requests through ``ContinuousBatchingServer``,
-   on split and on fused ticks in the order split, fused, fused, split
-   (a new server over the same model each time, the last one freed
-   first); the launch counters are zeroed just before each wave and
-   read just after, and must equal decode ticks x layers (K1) and
-   prefill launches x layers (K2) on a split wave, fused launches x
+   on split and on fused ticks, greedy and sampled, in the order split,
+   fused, sampled split, sampled fused, sampled fused, sampled split,
+   fused, split (a new server over the same model each time, the last
+   one freed first); the launch counters are zeroed just before each
+   wave and read just after, and must equal decode ticks x layers (K1)
+   and prefill launches x layers (K2) on a split wave, fused launches x
    layers (K3) on a fused wave, no K6 (serving passes ``position_ids``:
-   rope is the composition); then one split and one fused admission
-   tick, and five decode ticks of each, under torch.profiler, with the
-   attention kernels' device time per tick;
-16. int8_infer: the serve phase's Llama-2-7B (full width and depth):
+   rope is the composition); the sampled waves (temperature 0.8, top_k
+   50, top_p 0.95, default seeds) with the same gates plus R1: one
+   launch a fused tick, one a decode tick and one a completing prefill
+   launch on split ticks; then one split and one fused admission tick,
+   and five decode ticks of each (greedy and sampled), under
+   torch.profiler, with the attention kernels' device time per tick;
+17. int8_infer: the serve phase's Llama-2-7B (full width and depth):
    one bf16 forward of 8 x 512 ids from seed 0, then
    ``to_int8_inference(model, inplace=True)`` and the same forward with
    the counters zeroed just before and read just after: 7 x layers + 1
@@ -153,7 +188,7 @@ Phases, in order; any failure exits non-zero:
    and the largest relative logit
    error against bf16, ms per forward and tokens/s for both, peak memory,
    a profile of one forward of each;
-17. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
+18. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
    f32 moments, one fixed 8 x 1024 batch from seed 0: 2 warm-up steps,
    then 10 timed with the counters zeroed just before and read just
    after (K4: 10 x layers each, K5: 10 x (2 x layers + 1) each, K6's q +
@@ -162,14 +197,14 @@ Phases, in order; any failure exits non-zero:
    fall and stay finite, gradients finite; step time, tokens/s, peak
    memory and a profile of one step (its launches, the optimizer's
    device time);
-18. train_compose: the same model, weights, batch and optimizer with rope
+19. train_compose: the same model, weights, batch and optimizer with rope
    on the composition (``ops.rope._COMPOSITION_ONLY``, set for the phase
    and restored after it): 2 warm-up steps and 5 timed, the counters
    zeroed before the first and read after the last (no K6); the 7 losses
    equal to the train phase's first 7 bit for bit (K6 is the composition
    bit for bit, forward and backward); ms per step of both phases from
    this call, and a profile of one step;
-19. train_amp: the slice's path. llama_350m at full width and depth
+20. train_amp: the slice's path. llama_350m at full width and depth
    from seed 0, ``amp.decorate(level="O2", dtype="bfloat16")`` (the rope
    tables stay f32), ``AdamW(multi_precision=True, weight_decay=0.01``
    off the norms, ``grad_clip=ClipGradByGlobalNorm(1.0))`` on the fused
@@ -202,8 +237,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "opt",
-          "parity", "train_parity", "int8_parity", "serve", "int8_infer",
-          "train", "train_compose", "train_amp")
+          "rng", "parity", "train_parity", "int8_parity", "serve",
+          "int8_infer", "train", "train_compose", "train_amp")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
 # outside the tensor cores, int8 tensor-core operations/s). The SXM part
@@ -227,6 +262,12 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # kernels' own share is ~2^-8 in bf16 (output rounding, and K3's bf16
 # probabilities in P V) and ~1e-5 in f32.
 VEC_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# The Gumbel noise of R1 and R2 against the plain version on the card, in
+# f32 ulps of max(|g|, 1): both take each log in f64 and round it to f32
+# (core.prng.log_rn), so they should agree bit for bit; the plain version
+# is held to jax.random by the same two ulps on the CPU
+# (tests/test_torch_random.py).
+RNG_ULPS = 2
 
 
 def log(*a):
@@ -1894,8 +1935,274 @@ def opt_time(torch, mta, st, g, wds, clip, master, peak, flush, n_el, tag):
             "bound_ms": bound_ms, "bound_by": by}
 
 
-def serve_wave(srv, prompts, n_new):
-    rids = [srv.submit(p, max_new_tokens=n_new) for p in prompts]
+def words(torch, t):
+    """An integer tensor as int64 (torch's uint32 has copies and views only
+    on CUDA: through an int32 view, masked)."""
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return t.to(torch.int64)
+
+
+def same_bits(torch, a, b):
+    """Bit for bit, a NaN matching any NaN at the same place (the card's
+    bf16 conversion and torch's spell NaN differently)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(words(torch, a), words(torch, b))
+    na, nb = torch.isnan(a), torch.isnan(b)
+    iv = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return torch.equal(na, nb) and torch.equal(a.view(iv)[~na],
+                                               b.view(iv)[~nb])
+
+
+def gumbel_ulps(torch, got, want):
+    """Largest distance of ``got`` from ``want`` in f32 ulps of
+    ``max(|want|, 1)``."""
+    ulp = want.abs().clamp_min(1.0) * 2.0 ** -23
+    return ((got.double() - want.double()).abs() / ulp.double()).max().item()
+
+
+def max_diff(torch, a, b):
+    """Largest |a - b| over two outputs of one shape: integers, keys and
+    flags as int64 words, floats in f64 with equal values (a NaN against
+    a NaN, an Inf against the same Inf) at 0 and a NaN against a number
+    at infinity."""
+    if a.dtype == torch.bool or not a.dtype.is_floating_point:
+        d = (words(torch, a.to(torch.uint8) if a.dtype == torch.bool else a)
+             - words(torch, b.to(torch.uint8) if b.dtype == torch.bool
+                     else b)).abs()
+        return float(d.max().item()) if d.numel() else 0.0
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    d = torch.where(same, 0.0, (a.double() - b.double()).abs())
+    return float(torch.nan_to_num(d, nan=float("inf")).max().item()) \
+        if d.numel() else 0.0
+
+
+def r1_case(torch, np, gen, S, V, raw_dtype):
+    """R1's inputs at [S, V]: filtered logits of scale 3 with a NaN row, an
+    Inf row and a row filtered to -1e30 but for a few entries; raw rows
+    (``raw_dtype``) equal to them but for a NaN in row 4, which the
+    filters erased; random keys; edge and random seeds; mixed fresh and
+    emit flags. Flags expected on rows 1, 2 and 4 of the first five."""
+    logits = torch.from_numpy((gen.standard_normal((S, V)) * 3)
+                              .astype(np.float32)).cuda()
+    logits[1, 7] = float("nan")
+    logits[2, 3] = float("inf")
+    logits[3, 50:] = -1e30
+    raw = logits.to(raw_dtype)
+    raw[4, 11] = float("nan")
+    keys = torch.from_numpy(gen.integers(0, 2**32, (S, 2), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).cuda() \
+        .view(torch.uint32)
+    seeds = gen.integers(-2**31, 2**31, S, dtype=np.int64).astype(np.int32)
+    seeds[:5] = [0, 1, 2**31 - 1, -2**31, -1]
+    seeds = torch.from_numpy(seeds).cuda()
+    fresh = torch.from_numpy(gen.integers(0, 2, S).astype(np.int32)).cuda()
+    emit = torch.from_numpy(gen.integers(0, 2, S).astype(np.int32)).cuda()
+    return (logits, keys, seeds, fresh, emit), raw
+
+
+def phase_rng(torch, np, peak, flush, record):
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.core import prng
+    from paddle_tpu_torch.core import random as trandom
+    from paddle_tpu_torch.ops.kernels import sample_rows as sr
+    from paddle_tpu_torch.ops.kernels import threefry_fill as tf
+    F = nn.functional
+    gen = np.random.default_rng(11)
+    # R1: 1024 rows at Llama-2's and Llama-3's vocabularies, the raw rows
+    # in bf16 (the 7B serve's logits) and in f32
+    r1_err = 0.0
+    for V, raw_dtype in ((32000, torch.bfloat16), (128256, torch.float32)):
+        args, raw = r1_case(torch, np, gen, 1024, V, raw_dtype)
+        got = sr.sample_rows(*args, raw=raw)
+        again = sr.sample_rows(*args, raw=raw)
+        want = sr._ref_sample_rows(*args, raw=raw)
+        torch.cuda.synchronize()
+        errs = [max_diff(torch, a, b) for a, b in zip(got, want)]
+        r1_err = max(r1_err, *errs)
+        repeat = all(torch.equal(words(torch, a), words(torch, b))
+                     for a, b in zip(got, again))
+        greedy = torch.argmax(args[0], -1).to(torch.int32)
+        differ = (got[0] != greedy).float().mean().item()
+        log(f"rng r1 V={V} raw {raw_dtype}: 1024 rows, largest |kernel - "
+            f"plain| of tokens / keys out / non-finite flags {errs}, a "
+            f"second launch equal {repeat}, tokens off the greedy argmax in "
+            f"{100 * differ:.1f}% of rows, flags {got[2][:5].tolist()}")
+        if not (max(errs) == 0 and repeat and differ > 0.5
+                and got[2][:5].tolist() == [0, 1, 1, 0, 1]):
+            raise SystemExit(f"rng: R1 disagrees with its plain version at "
+                             f"V = {V}")
+    # R1's time at the serve wave's shape: f32 filtered rows, bf16 raw
+    S, V = 8, 32000
+    args, raw = r1_case(torch, np, gen, S, V, torch.bfloat16)
+    logits = args[0]
+    ms = cuda_ms(lambda: sr.sample_rows(*args, raw=raw), torch, flush=flush)
+    # the plain versions copy small constants from the host, which waits
+    # for the card: no spin covers them, so they are timed between events
+    plain_ms = event_ms(lambda: sr._ref_sample_rows(*args, raw=raw), torch,
+                        flush=flush)
+    argmax_ms = cuda_ms(lambda: torch.argmax(logits, -1), torch,
+                        flush=flush)
+    nbytes = S * V * (4 + 2) + S * (8 + 4 + 4 + 4) + S * (4 + 8 + 4)
+    bound_ms, by = bound(nbytes, 0, peak)
+    log(f"rng r1 time at {S} x {V} f32 (raw bf16): {ms:.4f} ms, plain "
+        f"version {plain_ms:.4f} ms (events), torch.argmax over the same "
+        f"logits {argmax_ms:.4f} ms (greedy's cost, a yardstick), bound "
+        f"{bound_ms:.4f} ms ({by}; {nbytes} bytes): "
+        f"{100 * bound_ms / ms:.1f}% of it")
+    record["sample_rows"].update(max_abs_err=r1_err, ms=ms,
+                                 plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=by, argmax_ms=argmax_ms)
+    # R2's draws against the plain version on the card
+    key = prng.PRNGKey(2024)
+    worst_ulps, r2_err, checks = 0.0, 0.0, {}
+    for shape in ((8, 1024, 16, 64), (1000, 333), (7,)):
+        for what, lo in ((tf._KEEP, 0.9), (tf._KEEP, 0.5),
+                         (tf._GUMBEL, prng.TINY_F32), (tf._GUMBEL, 1e-10)):
+            got = tf.fill(key, shape, what, "cuda", lo)
+            again = tf.fill(key, shape, what, "cuda", lo)
+            want = tf._ref_fill(key, shape, what, lo, "cuda")
+            tag = f"fill {what} {lo:g} {shape}"
+            r2_err = max(r2_err, max_diff(torch, got, want))
+            if what == tf._GUMBEL:
+                u = gumbel_ulps(torch, got, want)
+                worst_ulps = max(worst_ulps, u)
+                checks[tag] = u <= RNG_ULPS and torch.equal(got, again)
+            else:
+                checks[tag] = same_bits(torch, got, want) \
+                    and same_bits(torch, got, again)
+    # dropout at a small shape (one pass of the kernel's grid) and at the
+    # path's shapes: llama_350m's attention output and hidden state, each
+    # over four grid-stride passes, full and broadcast masks
+    cases = []
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        x = torch.randn((8, 64, 16, 64), dtype=dtype, device="cuda")
+        x.view(-1)[5] = float("nan")
+        cases += [(dname, x, m) for m in ((8, 64, 16, 64), (8, 1, 16, 1),
+                                          (1, 64, 1, 64))]
+        x = torch.randn((8, 1024, 16, 64), dtype=dtype, device="cuda")
+        x.view(-1)[3 * 2**21 + 5] = float("nan")
+        cases += [(dname, x, m) for m in ((8, 1024, 16, 64),
+                                          (8, 1024, 1, 64),
+                                          (1, 1024, 16, 64))]
+    h = torch.randn((8, 1024, 1024), dtype=torch.bfloat16, device="cuda")
+    cases += [("bfloat16", h, (8, 1024, 1024)), ("bfloat16", h, (8, 1, 1024))]
+    for dname, x, mask in cases:
+        for p, upscale, backward in ((0.1, True, False), (0.1, True, True),
+                                     (0.5, False, False), (1.0, True, True)):
+            got = tf.dropout(x, key, mask, p, upscale, backward)
+            again = tf.dropout(x, key, mask, p, upscale, backward)
+            want = tf._ref_dropout(x, key, mask, p, upscale, backward)
+            r2_err = max(r2_err, max_diff(torch, got, want))
+            checks[f"dropout {dname} {tuple(x.shape)} mask {mask} p={p} "
+                   f"upscale={upscale} backward={backward}"] = \
+                same_bits(torch, got, want) and same_bits(torch, got, again)
+    torch.cuda.synchronize()
+    bad = [k for k, v in checks.items() if not v]
+    log(f"rng r2: {len(checks)} cases (keep masks, Gumbel noise, dropout "
+        f"forward and backward up to 8 x 1024 x 16 x 64) against the plain "
+        f"version: {len(checks) - len(bad)} pass; largest |kernel - plain| "
+        f"{r2_err:.3e}; Gumbel noise within {worst_ulps:.3f} ulps of "
+        f"max(|g|, 1) (tolerance {RNG_ULPS})")
+    if bad:
+        raise SystemExit(f"rng: R2 disagrees with its plain version: {bad}")
+    # dropout's time at llama_350m's attention output (bf16)
+    x = torch.randn((8, 1024, 16, 64), dtype=torch.bfloat16, device="cuda")
+    shape = tuple(x.shape)
+    ms = cuda_ms(lambda: tf.dropout(x, key, shape, 0.1, True), torch,
+                 flush=flush)
+    plain_ms = event_ms(lambda: tf._ref_dropout(x, key, shape, 0.1, True),
+                        torch, flush=flush)
+    library_ms = cuda_ms(lambda: torch.nn.functional.dropout(
+        x, 0.1, training=True), torch, flush=flush)
+    timed = tf.dropout(x, key, shape, 0.1, True)
+    timed_ok = same_bits(torch, timed, tf._ref_dropout(x, key, shape, 0.1,
+                                                       True))
+    nbytes = 2 * x.numel() * x.element_size()
+    bound_ms, by = bound(nbytes, 0, peak)
+    log(f"rng r2 dropout time at {shape} bf16: {ms:.4f} ms, plain version "
+        f"{plain_ms:.4f} ms (events), torch.nn.functional.dropout "
+        f"{library_ms:.4f} ms (a yardstick the port never calls), bound "
+        f"{bound_ms:.4f} ms ({by}; {nbytes} bytes): "
+        f"{100 * bound_ms / ms:.1f}% of it; the timed call's output bit for "
+        f"bit the plain version's {timed_ok}")
+    if not timed_ok:
+        raise SystemExit("rng: R2's timed dropout disagrees with its plain "
+                         "version")
+    # R2's path: attention with dropout while training, a hidden state's
+    # dropout and a hard gumbel_softmax, through the port's entry points
+    q, k, v = (torch.randn((8, 1024, 16, 64), dtype=torch.bfloat16,
+                           device="cuda", requires_grad=True)
+               for _ in range(3))
+    h = torch.randn((8, 1024, 1024), dtype=torch.bfloat16, device="cuda",
+                    requires_grad=True)
+    lg = torch.randn((8, 32000), device="cuda")
+    trandom.seed(0)
+    zero_counts()
+    out = F.scaled_dot_product_attention(q, k, v, dropout_p=0.1,
+                                         is_causal=True)
+    out.float().square().sum().backward()
+    hd = F.dropout(h, p=0.1)
+    hd.float().sum().backward()
+    y = F.gumbel_softmax(lg, hard=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    # the path's outputs against the plain version under the same keys
+    trandom.seed(0)
+    k_attn, k_h, k_g = (trandom.next_key() for _ in range(3))
+    with torch.no_grad():
+        attn = F._sdp_composition(q, k, v, None, True)
+        path = {
+            "attention dropout forward": (out, tf._ref_dropout(
+                attn, k_attn, tuple(attn.shape), 0.1, True)),
+            "hidden dropout forward": (hd, tf._ref_dropout(
+                h, k_h, tuple(h.shape), 0.1, True)),
+            "hidden dropout backward": (h.grad, tf._ref_dropout(
+                torch.ones_like(h), k_h, tuple(h.shape), 0.1, True, True))}
+        g_ref = tf._ref_fill(k_g, tuple(lg.shape), tf._GUMBEL, 1e-10,
+                             "cuda")
+    path_ok = {name: same_bits(torch, a, b) for name, (a, b) in path.items()}
+    r2_err = max(r2_err, *(max_diff(torch, a, b) for a, b in path.values()))
+    path_ok["gumbel_softmax argmax"] = torch.equal(
+        y.argmax(-1), torch.argmax(lg + g_ref, -1))
+    dropped = (hd == 0).float().mean().item()
+    gates = {
+        "4 dropout launches, 1 draw, no other kernel":
+            counts["r2_dropout"] == 4 and counts["r2_fill"] == 1
+            and not any(n for name, n in counts.items()
+                        if name not in ("r2_dropout", "r2_fill")),
+        **{f"finite {name}": torch.isfinite(t).all().item()
+           for name, t in (("out", out), ("dq", q.grad), ("dk", k.grad),
+                           ("dv", v.grad), ("dh", h.grad), ("y", y))},
+        "dropped share within 0.01 of p": abs(dropped - 0.1) < 0.01,
+        # torch.randn in bf16 on the card can give an exact 0, whose kept
+        # output is 0 too: held where h is not 0
+        "the gradient zero where a nonzero input's output is": torch.equal(
+            (h.grad == 0) & (h != 0), (hd == 0) & (h != 0)),
+        "a one-hot gumbel_softmax": (y - y.round()).abs().max().item()
+            <= 1e-6 and (y.round().sum(-1) == 1).all().item(),
+        **path_ok}
+    log(f"rng r2 path: attention dropout (8 x 1024 x 16 x 64 bf16) forward "
+        f"and backward, a hidden state's dropout (8 x 1024 x 1024) forward "
+        f"and backward and a hard gumbel_softmax (8 x 32000): launches "
+        f"{counts}, dropped share {dropped:.4f} (p = 0.1); gates, the last "
+        f"four against the plain version under the same keys {gates}")
+    bad = [name for name, good in gates.items() if not good]
+    if bad:
+        raise SystemExit(f"rng: R2's path failed {bad}")
+    record["threefry_fill"].update(
+        max_abs_err=r2_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=by, library_ms=library_ms, gumbel_ulps=worst_ulps,
+        launches=counts["r2_dropout"] + counts["r2_fill"])
+
+
+def serve_wave(srv, prompts, n_new, seeds=None):
+    seeds = [None] * len(prompts) if seeds is None else seeds
+    rids = [srv.submit(p, max_new_tokens=n_new, seed=s)
+            for p, s in zip(prompts, seeds)]
     out = srv.run()
     return [out[r] for r in rids]
 
@@ -1914,6 +2221,8 @@ def counters():
     from paddle_tpu_torch.ops.kernels.ragged_prefill import \
         ragged_prefill_attention
     from paddle_tpu_torch.ops.kernels.rope import rope_fwd, rope_qk_fwd
+    from paddle_tpu_torch.ops.kernels.sample_rows import sample_rows
+    from paddle_tpu_torch.ops.kernels.threefry_fill import dropout, fill
     return {"k1": (paged_attention, "launches"),
             "k2": (ragged_prefill_attention, "launches"),
             "k3": (fused_tick_attention, "launches"),
@@ -1927,7 +2236,10 @@ def counters():
             "k7": (gemm_epilogue, "launches"),
             "k8": (quantized_matmul, "launches"),
             "opt": (multi_tensor_adam, "launches"),
-            "opt_kernels": (multi_tensor_adam, "kernel_launches")}
+            "opt_kernels": (multi_tensor_adam, "kernel_launches"),
+            "r1": (sample_rows, "launches"),
+            "r2_dropout": (dropout, "launches"),
+            "r2_fill": (fill, "launches")}
 
 
 def zero_counts():
@@ -1980,6 +2292,44 @@ def phase_parity(torch, np):
     if not good:
         raise SystemExit("parity: the card and the CPU, or the fused and "
                          "split ticks, disagree")
+    # seeded sampling: explicit seeds (edges among them) on the first
+    # wave, the default rule (server seed + rid, past 2**31) on the second
+    seeds = [0, 2**31 - 1, 2**31, -1, 2**32 - 1, 12345]
+    for mode in ("split", "fused"):
+        toks = {}
+        for name, model in (("cpu", cpu), ("cuda", gpu)):
+            zero_counts()
+            srv = ContinuousBatchingServer(model, max_slots=3,
+                                           max_cache_len=64,
+                                           cache_backend="paged",
+                                           page_size=8,
+                                           prefill_tokens_per_tick=5,
+                                           serving_mode=mode,
+                                           do_sample=True, temperature=0.8,
+                                           top_k=20, top_p=0.9,
+                                           seed=2**31 - 4)
+            toks[name] = serve_wave(srv, wave1, 7, seeds) + \
+                serve_wave(srv, wave2, 7)
+            n = read_counts()
+            draws = srv.stats["sample_launches"]
+            want = {"split": ("k1", "k2"), "fused": ("k3",)}[mode]
+            launched = (all(n[k] > 0 for k in want)
+                        and n["r1"] == draws > 0) if name == "cuda" \
+                else not any(n.values())
+            others = not any(v for k, v in n.items()
+                             if k not in want + ("r1",))
+            live = srv.pool_balance()[1]
+            log(f"parity sampled {mode} {name}: {draws} draws, live pages "
+                f"{live}, launches {n}")
+            good &= launched and others and live == 0
+        same = all(np.array_equal(a, b)
+                   for a, b in zip(toks["cuda"], toks["cpu"]))
+        log(f"parity sampled {mode}: card tokens equal to the CPU's {same}")
+        good &= same
+    if not good:
+        raise SystemExit("parity: seeded sampled tokens of the card and "
+                         "the CPU disagree, or R1 was not launched once a "
+                         "draw")
 
 
 def serve_timed(torch, np, srv, prompts, n_new, warm):
@@ -2014,7 +2364,8 @@ def serve_timed(torch, np, srv, prompts, n_new, warm):
     counts = read_counts()
     d = {k: srv.stats[k] - s0[k] for k in ("decode_ticks",
                                             "prefill_launches",
-                                            "fused_launches")}
+                                            "fused_launches",
+                                            "sample_launches")}
     ttft = sorted((first_at[r] - submitted[r]) * 1e3 for r in submitted)
     decode_only_ms.sort()
     return {"tokens": [out[r] for r in submitted], "counts": counts,
@@ -2048,34 +2399,43 @@ def phase_serve(torch, np, card, record):
     L = cfg.num_layers
     log(f"serve: prompts {lens.tolist()}, {n_new} new tokens each")
 
-    def server(mode):
+    def server(mode, sample=False):
         # prefill_tokens_per_tick=512: long prompts stream in as 512-row
-        # chunks between (split) or beside (fused) decode rows
+        # chunks between (split) or beside (fused) decode rows; sampled
+        # waves take a common serving filter
+        kw = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.95) \
+            if sample else {}
         return ContinuousBatchingServer(model, max_slots=8,
                                         max_cache_len=2048, page_size=16,
                                         cache_backend="paged",
                                         prefill_tokens_per_tick=512,
-                                        serving_mode=mode)
+                                        serving_mode=mode, **kw)
 
     def release():
         # the last server went out of scope: return its pool to the card
         gc.collect()
         torch.cuda.empty_cache()
 
-    # split, fused, fused, split: the tick is host-bound and drifts from
-    # wave to wave, so each mode's two waves bracket the other's. The
-    # profiled ticks come after every timed wave and cannot disturb it.
-    res = {"split": [], "fused": []}
-    for mode in ("split", "fused", "fused", "split"):
-        r = serve_timed(torch, np, server(mode), prompts, n_new, warm)
+    # The profiled ticks come after every timed wave and cannot disturb it.
+    res = {"split": [], "fused": [], "sampled split": [],
+           "sampled fused": []}
+    # the tick is host-bound and drifts from wave to wave, so the greedy
+    # waves bracket the sampled ones, and each pair brackets its twin
+    for wave in ("split", "fused", "sampled split", "sampled fused",
+                 "sampled fused", "sampled split", "fused", "split"):
+        mode = wave.split()[-1]
+        sample = wave.startswith("sampled")
+        r = serve_timed(torch, np, server(mode, sample), prompts, n_new,
+                        warm)
         release()
-        res[mode].append(r)
+        res[wave].append(r)
         c = r["counts"]
-        log(f"serve {mode}: {r['ticks']} ticks ({r['decode_ticks']} "
+        log(f"serve {wave}: {r['ticks']} ticks ({r['decode_ticks']} "
             f"decode, {r['prefill_launches']} prefill launches, "
-            f"{r['fused_launches']} fused launches), launches {c}, "
+            f"{r['fused_launches']} fused launches, "
+            f"{r['sample_launches']} draws), launches {c}, "
             f"non-finite live logit rows {r['bad']}, pool {r['pool']}")
-        log(f"serve metrics {mode} [{card}]: wall {r['wall']:.3f} s, "
+        log(f"serve metrics {wave} [{card}]: wall {r['wall']:.3f} s, "
             f"{r['tok_s']:.1f} tok/s, median decode-only tick "
             f"{r['decode_ms']:.2f} ms, TTFT median {r['ttft_med']:.1f} ms "
             f"max {r['ttft_max']:.1f} ms")
@@ -2093,6 +2453,19 @@ def phase_serve(torch, np, card, record):
                 "no k1 or k2 launch": c["k1"] == c["k2"] == 0}
         launch_checks["no k6 launch (rope at position_ids)"] = \
             c["k6"] == c["k6_qk"] == 0
+        if not sample:
+            launch_checks["no r1 launch"] = c["r1"] == 0
+        elif mode == "split":
+            # a draw a decode tick, and one a prefill launch that
+            # completed a prompt (its first tokens)
+            launch_checks["r1 == draws, decode ticks <= r1 <= decode "
+                          "ticks + prefill launches"] = \
+                c["r1"] == r["sample_launches"] and r["decode_ticks"] \
+                <= c["r1"] <= r["decode_ticks"] + r["prefill_launches"]
+        else:
+            launch_checks["r1 == fused launches (one draw a tick)"] = \
+                c["r1"] == r["sample_launches"] == r["fused_launches"]
+        launch_checks["no r2 launch"] = c["r2_dropout"] == c["r2_fill"] == 0
         checks = {"32 in-vocabulary tokens each":
                       all(len(t) == n_new and t.min() >= 0
                           and t.max() < cfg.vocab_size for t in r["tokens"]),
@@ -2101,7 +2474,7 @@ def phase_serve(torch, np, card, record):
                   **launch_checks}
         for name, good in checks.items():
             if not good:
-                raise SystemExit(f"serve {mode}: check failed: {name}")
+                raise SystemExit(f"serve {wave}: check failed: {name}")
     for mode, runs in res.items():
         log(f"serve summary {mode} [{card}]: tok/s "
             f"{[round(r['tok_s'], 1) for r in runs]}, median decode-only "
@@ -2110,6 +2483,8 @@ def phase_serve(torch, np, card, record):
     record["paged_attention"]["launches"] = res["split"][0]["counts"]["k1"]
     record["ragged_prefill"]["launches"] = res["split"][0]["counts"]["k2"]
     record["fused_tick"]["launches"] = res["fused"][0]["counts"]["k3"]
+    record["sample_rows"]["launches"] = \
+        res["sampled fused"][0]["counts"]["r1"]
     agree = sum(int((a == b).sum()) for a, b in
                 zip(res["split"][0]["tokens"], res["fused"][0]["tokens"]))
     log(f"serve: split and fused agree on {agree} of {8 * n_new} tokens "
@@ -2119,6 +2494,9 @@ def phase_serve(torch, np, card, record):
         release()
     for mode in ("split", "fused"):
         profile_decode(torch, np, server(mode), cfg, card, mode)
+        release()
+        profile_decode(torch, np, server(mode, sample=True), cfg, card,
+                       f"sampled {mode}")
         release()
     return model
 
@@ -2873,6 +3251,22 @@ def main():
         "launches": None, "max_abs_err": None, "ms": None,
         "plain_ms": None, "bound_ms": None, "bound_by": None,
         "library_ms": None}
+    # the random kernels: counterparts of jnp over jax.random in jitted
+    # programs, not of a pallas_call
+    record["sample_rows"] = {
+        "name": "sample_rows", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/sample_rows.cu",
+        "replaces": "paddle_tpu/inference/continuous_batching.py:2555",
+        "launches": None, "max_abs_err": None, "ms": None,
+        "plain_ms": None, "bound_ms": None, "bound_by": None,
+        "library_ms": None, "argmax_ms": None}
+    record["threefry_fill"] = {
+        "name": "threefry_fill", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/threefry_fill.cu",
+        "replaces": "paddle_tpu/nn/functional.py:208",
+        "launches": None, "max_abs_err": None, "ms": None,
+        "plain_ms": None, "bound_ms": None, "bound_by": None,
+        "library_ms": None, "gumbel_ulps": None}
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
     if "k1" in phases:
         phase_k1(torch, peak, flush, record)
@@ -2892,6 +3286,8 @@ def main():
         phase_k8(torch, peak, flush, record)
     if "opt" in phases:
         phase_opt(torch, np, peak, flush, record)
+    if "rng" in phases:
+        phase_rng(torch, np, peak, flush, record)
     del flush
     if "parity" in phases:
         phase_parity(torch, np)

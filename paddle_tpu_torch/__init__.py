@@ -35,6 +35,12 @@ train it, and run it in int8:
   step over every live parameter (``ops.kernels.multi_tensor_adam``),
   the counterpart of the reference's jitted multi-tensor update.
 
+Randomness is ``jax.random``'s threefry stream bit for bit
+(``core.prng``): ``seed``, ``get_rng_state`` and ``set_rng_state`` hold
+the global key (``core.random``), the server samples seeded tokens with
+R1 (``ops.kernels.sample_rows``) and dropout and the other draws run on
+R2 (``ops.kernels.threefry_fill``).
+
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``device.resolve_device``). On the CPU every kernel wrapper takes its
 plain version; a CUDA tensor takes the kernel or raises.
@@ -42,6 +48,7 @@ plain version; a CUDA tensor takes the kernel or raises.
 This package imports torch, numpy and the standard library only — never
 jax or ``paddle_tpu`` (tests/test_torch_import_hygiene.py).
 """
+from .core.random import get_rng_state, seed, set_rng_state  # noqa: F401
 from .device import resolve_device  # noqa: F401
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "seed", "get_rng_state", "set_rng_state"]

@@ -2,13 +2,13 @@
 
 Port of ``paddle_tpu/inference/continuous_batching.py`` cut down to its
 paged path: ``cache_backend="paged"``, ragged prefill, split or fused
-ticks, ``admission="reserve"``, automatic prefix caching and greedy
-decoding. A fixed pool of decode slots steps as one batched decode step
-every tick; finished slots are refilled from the queue without stopping
-the others. Admissions only reserve pages: every tick runs the next
-prompt chunk of ALL mid-prefill slots straight into pool pages, under a
-per-tick token budget (``prefill_tokens_per_tick``), so long prompts
-stream in across ticks while live slots keep decoding.
+ticks, ``admission="reserve"``, automatic prefix caching, and greedy or
+seeded sampled decoding. A fixed pool of decode slots steps as one
+batched decode step every tick; finished slots are refilled from the
+queue without stopping the others. Admissions only reserve pages: every
+tick runs the next prompt chunk of ALL mid-prefill slots straight into
+pool pages, under a per-tick token budget (``prefill_tokens_per_tick``),
+so long prompts stream in across ticks while live slots keep decoding.
 
 ``serving_mode="split"`` (the default) runs a tick as one ragged-prefill
 launch for the admission wave, then the s=1 decode step for live slots,
@@ -18,6 +18,15 @@ rows packed into one fused-tick launch per layer whose page schedule
 covers only live pages, the tick's small host arrays riding in with one
 host-to-device copy — the tick's dispatch profile is ``{"fused": 1}``.
 
+Sampling (``do_sample=True``) follows the reference's chains exactly:
+a request's key is ``PRNGKey(seed)`` (``seed`` defaults to the server's
+seed plus the request id), each token splits the slot's key and draws
+``categorical`` from the other half over ``process_logits``' filtered
+row, and a slot that does not emit keeps its key. The draw is one
+launch a tick on the card (R1, ``ops.kernels.sample_rows``); on fused
+ticks the keys ride the launch on the card and come back with the
+tokens. Tokens equal the JAX server's for the same seeds.
+
 Host/device split: the device runs the steps (``models.generation``; the
 paged-attention, ragged-prefill and fused-tick kernels on a CUDA model);
 the host assigns slots, owns the page allocator and the radix prefix
@@ -25,12 +34,12 @@ cache (``kv_cache``, ``prefix_cache``), harvests finished rows and swaps
 new prompts in.
 
 The JAX server's other modes are not ported yet. Asking for one raises
-``NotImplementedError`` naming its ROADMAP item (Queue 1): sampling
-(item 4), the dense backend and dense prefill (item 5), ``tick_block >
-1`` (item 6), optimistic admission and preemption (item 7), telemetry,
-flight recorder, goodput ledger, cost catalog, journeys, fault injection
-and the supervised serve loop (item 8), the mesh and the host KV tier
-(item 9), int8 weights and caches (item 10).
+``NotImplementedError`` naming its ROADMAP item (Queue 1): the dense
+backend and dense prefill (item 5), ``tick_block > 1`` (item 6),
+optimistic admission and preemption (item 7), telemetry, flight
+recorder, goodput ledger, cost catalog, journeys, fault injection and
+the supervised serve loop (item 8), the mesh and the host KV tier (item
+9), int8 weights and caches (item 10).
 """
 import threading
 import time as _time_mod
@@ -38,11 +47,14 @@ import time as _time_mod
 import numpy as np
 import torch
 
+from ..core import prng
 from ..ops.kernels.fused_tick import build_schedule
+from ..ops.kernels.sample_rows import sample_rows
 from ..reliability.errors import (CallbackError, DeadlineExceeded,
                                   QueueFullError, ReliabilityError,
                                   RequestCancelled, ServerClosed)
 from ..telemetry.clock import MonotonicClock
+from .decode_loop import process_logits
 from .kv_cache import OutOfPages, PagedKVCache
 from .prefix_cache import PrefixCache
 
@@ -58,22 +70,24 @@ def _not_ported(what, item, name):
 class _Pending:
     """A queued request awaiting a slot."""
 
-    __slots__ = ("rid", "ids", "budget", "on_token", "deadline")
+    __slots__ = ("rid", "ids", "budget", "on_token", "deadline", "seed")
 
-    def __init__(self, rid, ids, budget, on_token, deadline):
+    def __init__(self, rid, ids, budget, on_token, deadline, seed):
         self.rid = rid
         self.ids = ids
         self.budget = budget
         self.on_token = on_token
         self.deadline = deadline      # absolute clock time, or None
+        self.seed = seed              # resolved sampling seed (a Python int)
 
 
 class _Slot:
     __slots__ = ("rid", "ids", "prompt_len", "budget", "emitted",
-                 "on_token", "streamed", "deadline", "fill_pos", "filled")
+                 "on_token", "streamed", "deadline", "fill_pos", "filled",
+                 "seed")
 
     def __init__(self, rid, ids, prompt_len, budget, on_token=None,
-                 deadline=None):
+                 deadline=None, seed=0):
         self.rid = rid
         self.ids = ids                # prompt tokens (donated at release)
         self.prompt_len = prompt_len
@@ -84,6 +98,7 @@ class _Slot:
         self.deadline = deadline      # absolute clock time, or None
         self.fill_pos = 0             # next prompt position to prefill
         self.filled = 0               # prompt rows actually written
+        self.seed = seed              # the request's sampling seed
 
     def stream(self, sink):
         """Queue this slot's unstreamed chunk on ``sink``; the server
@@ -99,8 +114,8 @@ class _Slot:
 
 
 class ContinuousBatchingServer:
-    """Serve greedy requests through a fixed slot pool over a paged KV
-    pool, on the model's device.
+    """Serve greedy or seeded sampled requests through a fixed slot pool
+    over a paged KV pool, on the model's device.
 
     >>> srv = ContinuousBatchingServer(model, max_slots=4,
     ...                                max_cache_len=256,
@@ -113,10 +128,13 @@ class ContinuousBatchingServer:
     ported). ``serving_mode="fused"`` runs each tick as one fused-tick
     pass (prefill chunks and decode rows in one kernel launch per
     layer) in place of the split prefill launch and decode step; the
-    tokens are the same. With ``auto_prefix_cache=True`` every finished
-    request donates its full prompt pages into a radix tree, every admission
-    reuses the longest cached page-aligned prefix and prefills only the
-    remainder, and unpinned cached pages are evicted LRU when the
+    tokens are the same. ``do_sample=True`` draws each token from
+    ``process_logits(logits, temperature, top_k, top_p)`` on the
+    request's threefry chain, bit for bit the JAX server's. With
+    ``auto_prefix_cache=True`` every finished request donates its full
+    prompt pages into a radix tree, every admission reuses the longest
+    cached page-aligned prefix and prefills only the remainder, and
+    unpinned cached pages are evicted LRU when the
     allocator runs short. ``submit(deadline_s=...)`` bounds a request's
     time, ``max_queue`` + ``shed_policy`` bound the queue, and
     ``start()``/``wait()``/``stop()`` serve from a background thread.
@@ -180,9 +198,6 @@ class ContinuousBatchingServer:
                     "per slot, the verify shape of speculative decoding "
                     "(ROADMAP, Queue 1 item 12: remaining inference "
                     "modules); use tick_block=1 or serving_mode='split'")
-        if do_sample:
-            raise _not_ported("do_sample=True", 4,
-                              "a sampler bit-compatible with jax.random")
         if cache_backend == "dense" or prefill_mode == "dense":
             raise _not_ported("the dense cache backend and dense prefill",
                               5, "the dense backend")
@@ -205,16 +220,21 @@ class ContinuousBatchingServer:
             raise _not_ported("mesh=", 9, "the fleet")
         if host_tier is not None or host_tier_bytes is not None:
             raise _not_ported("host_tier=", 9, "the fleet")
-        # Greedy decoding reads no seed and no sampling parameter,
         # ``prefill_chunk`` sizes the dense prefill only (ragged
         # admission chunks by the per-tick token budget) and ``role`` is
-        # a placement hint for the fleet router: all are accepted and
-        # unused, as in the JAX server's greedy ragged mode.
+        # a placement hint for the fleet router: both are accepted and
+        # unused, as in the JAX server's ragged mode. Greedy decoding
+        # reads no seed and no sampling parameter.
         self.model = model
         self.device = model.device
         self.max_slots = int(max_slots)
         self.max_cache_len = int(max_cache_len)
         self.eos_token_id = eos_token_id
+        self.do_sample = bool(do_sample)
+        self._temperature = float(temperature)
+        self._top_k = int(top_k)
+        self._top_p = float(top_p)
+        self._seed = int(seed)
 
         page_size = int(page_size)
         if self.max_cache_len % page_size:
@@ -259,6 +279,20 @@ class ContinuousBatchingServer:
                                 device=self.device)
         self._t = torch.zeros((self.max_slots,), dtype=torch.int32,
                               device=self.device)
+        # sampling: each slot's threefry key on the device, the keys of
+        # this tick's activations (pushed with the slot state), and the
+        # split decode draw's constant flags (no fresh key, every row
+        # splits, as the reference's vmap over slots)
+        self._keys = torch.zeros((self.max_slots, 2), dtype=torch.int32,
+                                 device=self.device).view(torch.uint32)
+        self._pending_key = {}
+        if self.do_sample and not self._fused:
+            self._no_fresh = torch.zeros((self.max_slots,),
+                                         dtype=torch.int32,
+                                         device=self.device)
+            self._all_emit = torch.ones((self.max_slots,),
+                                        dtype=torch.int32,
+                                        device=self.device)
         self._active = np.zeros((self.max_slots,), bool)   # host-side
         self._slots = [None] * self.max_slots
         self._queue = []
@@ -271,9 +305,12 @@ class ContinuousBatchingServer:
                       # launches of the device programs (split ticks:
                       # ragged prefill and decode; fused ticks: the
                       # fused tick), and rows of emitting slots whose
-                      # logits held a NaN or an Inf
+                      # logits (when sampling, filtered ones) held a NaN
+                      # or an Inf
                       "prefill_launches": 0, "decode_ticks": 0,
-                      "fused_launches": 0, "nonfinite_logit_rows": 0}
+                      "fused_launches": 0, "nonfinite_logit_rows": 0,
+                      # seeded draws (one R1 launch on the card each)
+                      "sample_launches": 0}
         self._clock = clock if clock is not None else MonotonicClock()
         self._tick_disp = {}      # this tick's {op: dispatches}
         self._failures = {}       # rid -> exception, for wait()
@@ -300,12 +337,13 @@ class ContinuousBatchingServer:
         """Queue a prompt; returns a request id. The FIRST generated
         token comes from the prompt's last prefill chunk.
         ``on_token(rid, tokens)`` streams each harvested chunk.
-        ``seed`` only matters to sampling and is ignored by greedy
-        decoding. ``deadline_s`` bounds the request's total time from
-        submit: a
-        request still queued when it expires fails with
-        ``DeadlineExceeded``; one expiring in flight is cancelled and
-        its partial tokens become the result. With ``max_queue`` set, a
+        ``seed`` only matters to sampling: the request's chain starts at
+        ``PRNGKey(seed)``, and ``None`` resolves to the server's seed
+        plus the request id, as the JAX server does. ``deadline_s``
+        bounds the request's total time from submit: a request still
+        queued when it expires fails with ``DeadlineExceeded``; one
+        expiring in flight is cancelled and its partial tokens become
+        the result. With ``max_queue`` set, a
         full queue sheds per ``shed_policy``. ``priority`` only matters
         under optimistic admission and is ignored here, as in the JAX
         server's reserve mode."""
@@ -359,10 +397,12 @@ class ContinuousBatchingServer:
                 self._done_cv.notify_all()
             rid = self._next_rid
             self._next_rid += 1
+            if seed is None:
+                seed = self._seed + rid     # the reference's default rule
             deadline = None if deadline_s is None \
                 else self._clock.now() + float(deadline_s)
             self._queue.append(_Pending(rid, ids, int(max_new_tokens),
-                                        on_token, deadline))
+                                        on_token, deadline, int(seed)))
         return rid
 
     def cancel(self, rid):
@@ -516,7 +556,7 @@ class ContinuousBatchingServer:
             self.stats["prefix_auto_hits"] += 1
             self.stats["prefix_auto_hit_tokens"] += n_pre
         st = _Slot(req.rid, ids, T, req.budget, req.on_token,
-                   req.deadline)
+                   req.deadline, req.seed)
         st.fill_pos = st.filled = n_pre
         self._slots[slot] = st
         self._prefill_fifo.append(slot)
@@ -586,19 +626,53 @@ class ContinuousBatchingServer:
         self.stats["prefill_launches"] += 1
         self._advance(plan)
         if done:
-            firsts = self._pick(logits[torch.tensor(done, device=dev)])
+            firsts = self._pick(logits[torch.tensor(done, device=dev)],
+                                done)
             for slot, first in zip(done, firsts):
                 self._activate(slot, first)
 
-    def _pick(self, logits):
-        """Greedy tokens of ``logits`` rows [n, V] as a host list (one
-        device-to-host copy); rows holding a NaN or an Inf are counted
-        in ``stats["nonfinite_logit_rows"]``."""
-        nxt = torch.argmax(logits, -1).to(torch.int32)
-        bad = (~torch.isfinite(logits).all(-1)).to(torch.int32)
+    def _pick(self, logits, slots):
+        """First tokens of ``logits`` rows [n, V] of ``slots`` as a host
+        list (one device-to-host copy); rows holding a NaN or an Inf are
+        counted in ``stats["nonfinite_logit_rows"]``. Greedy: the argmax.
+        Sampling: each slot's chain starts at ``PRNGKey(seed)``, is split
+        once and draws from the filtered row (the reference's eager
+        ``_activate``: a true division by the temperature); the kept
+        halves wait in ``_pending_key`` for the tick's state push."""
+        if not self.do_sample:
+            nxt = torch.argmax(logits, -1).to(torch.int32)
+            bad = (~torch.isfinite(logits).all(-1)).to(torch.int32)
+        else:
+            n = len(slots)
+            seeds = torch.from_numpy(self._wrap_seeds(
+                [self._slots[s].seed for s in slots])).to(self.device)
+            ones = torch.ones((n,), dtype=torch.int32, device=self.device)
+            nxt, keys, bad = self._draw(logits, self._keys[:n], seeds,
+                                        ones, ones, reciprocal=False)
+            for i, slot in enumerate(slots):
+                self._pending_key[slot] = keys[i]
         host = torch.stack([nxt, bad]).cpu().numpy()
         self.stats["nonfinite_logit_rows"] += int(host[1].sum())
         return [int(x) for x in host[0]]
+
+    @staticmethod
+    def _wrap_seeds(seeds):
+        """Seeds as int32 by two's-complement wrap (``PRNGKey`` of the
+        wrapped value is ``PRNGKey`` of the seed: both take its low 32
+        bits), as the reference packs them for its fused tick."""
+        return np.asarray([s & prng.MASK for s in seeds],
+                          np.uint32).view(np.int32)
+
+    def _draw(self, logits, keys, seeds, fresh, emit, reciprocal):
+        """One seeded draw a row (R1 on the card) over
+        ``process_logits``' filtered rows: (tokens, keys out, non-finite
+        row flags), all on the device. The flags read the raw rows, as
+        greedy's do: the filters fill a row holding a NaN or an Inf with
+        ``-1e30``."""
+        rows = process_logits(logits, self._temperature, self._top_k,
+                              self._top_p, reciprocal=reciprocal)
+        self.stats["sample_launches"] += 1
+        return sample_rows(rows, keys, seeds, fresh, emit, raw=logits)
 
     def _activate(self, slot, first):
         """A slot's prompt is fully written and ``first`` is its first
@@ -614,8 +688,8 @@ class ContinuousBatchingServer:
 
     def _flush_slot_state(self):
         """Write pending per-slot decode state (first token, write
-        position) into the device arrays the decode step reads — one
-        batched write per array per tick."""
+        position and, when sampling, the key) into the device arrays the
+        decode step reads — one batched write per array per tick."""
         for pending, arr in ((self._pending_tok, self._tok),
                              (self._pending_t, self._t)):
             if pending:
@@ -626,6 +700,14 @@ class ContinuousBatchingServer:
                                         device=self.device)
                 pending.clear()
                 self._count_dispatches(1, op="state_push")
+        if self._pending_key:
+            idx = torch.tensor(list(self._pending_key), dtype=torch.long,
+                               device=self.device)
+            # uint32 has no index_put or stack: write through int32 views
+            self._keys.view(torch.int32)[idx] = torch.stack(
+                [k.view(torch.int32) for k in self._pending_key.values()])
+            self._pending_key.clear()
+            self._count_dispatches(1, op="state_push")
 
     def _count_dispatches(self, n=1, op="prefill"):
         """Account ``n`` device dispatches of the admission/prefill path
@@ -638,17 +720,26 @@ class ContinuousBatchingServer:
 
     @torch.no_grad()
     def _decode(self):
-        """One batched greedy decode step over every slot; returns the
-        new tokens [slots, 1] on the host. Rows of slots with no live
-        decode work (empty, finished or mid-prefill) ride along: their
-        writes null-redirect and their tokens are discarded."""
+        """One batched decode step over every slot; returns the new
+        tokens [slots, 1] on the host. Rows of slots with no live decode
+        work (empty, finished or mid-prefill) ride along: their writes
+        null-redirect and their tokens are discarded. Sampling splits
+        every slot's key, as the reference's vmap over slots does (the
+        idle slots' keys are replaced when they activate), and scales by
+        the temperature's reciprocal, as its jitted step does."""
         x = self._embed_fn(self._tok, self._t)
         out, self._caches = self._step_fn(x, self._caches, self._t)
         logits = self._head_fn(out)[:, -1]
-        self._tok = torch.argmax(logits, -1).to(torch.int32)
-        self._t = self._t + 1
         live = torch.from_numpy(self._active).to(self.device)
-        bad = (~torch.isfinite(logits).all(-1) & live).to(torch.int32)
+        if self.do_sample:
+            self._tok, self._keys, bad = self._draw(
+                logits, self._keys, self._no_fresh, self._no_fresh,
+                self._all_emit, reciprocal=True)
+            bad = (bad.bool() & live).to(torch.int32)
+        else:
+            self._tok = torch.argmax(logits, -1).to(torch.int32)
+            bad = (~torch.isfinite(logits).all(-1) & live).to(torch.int32)
+        self._t = self._t + 1
         host = torch.stack([self._tok, bad]).cpu().numpy()
         self.stats["nonfinite_logit_rows"] += int(host[1].sum())
         self.stats["decode_ticks"] += 1
@@ -696,12 +787,10 @@ class ContinuousBatchingServer:
         st.stream(self._deferred_cbs)
         self.stats["admissions"] += 1
 
-    def _fused_inputs(self, tokens, t0, last, dec, out_idx, bt_live, ss,
-                      sp):
+    def _fused_inputs(self, *parts):
         """The tick's small int32 host arrays packed into one buffer and
         moved to the device in ONE copy; returns device views of it in
         argument order."""
-        parts = (tokens, t0, last, dec, out_idx, bt_live, ss, sp)
         buf = torch.from_numpy(np.concatenate(
             [a.reshape(-1) for a in parts])).to(self.device)
         views, at = [], 0
@@ -734,6 +823,9 @@ class ContinuousBatchingServer:
         t0 = np.full((S,), self.max_cache_len, np.int32)   # idle sentinel
         last = np.full((S,), -1, np.int32)
         dec = np.zeros((S,), np.int32)
+        emit = np.zeros((S,), np.int32)
+        fresh = np.zeros((S,), np.int32)
+        seeds = np.zeros((S,), np.int32)
         out_idx = np.zeros((S,), np.int32)
         done = []
         for slot, start, take in plan:
@@ -743,13 +835,15 @@ class ContinuousBatchingServer:
             last[slot] = start + take - 1
             if start + take == st.prompt_len:
                 out_idx[slot] = take - 1
+                emit[slot] = fresh[slot] = 1
+                seeds[slot] = self._wrap_seeds([st.seed])[0]
                 done.append(slot)
         for slot in dec_slots:
             st = self._slots[slot]
             t = st.prompt_len + len(st.emitted) - 1
             tokens[slot, 0] = st.emitted[-1]
             t0[slot] = last[slot] = t
-            dec[slot] = 1
+            dec[slot] = emit[slot] = 1
         # the live block-table slice (a power-of-two width capped at the
         # table) and the schedule of live pages: the launch reads pages
         # up to the live frontier only, whatever the configured width
@@ -759,12 +853,22 @@ class ContinuousBatchingServer:
         bt_live = np.ascontiguousarray(self._kv.block_table[:, :W])
         ss, sp, _ = build_schedule(last, pg, n_slots=S)
         self._kv.dirty = False     # the slice is the device's view
+        draw = (emit, fresh, seeds) if self.do_sample else ()
         args = self._fused_inputs(tokens, t0, last, dec, out_idx, bt_live,
-                                  ss, sp)
+                                  ss, sp, *draw)
         logits, self._caches = self._fused_fn(*args[:4], self._caches,
-                                              *args[4:])
-        nxt = torch.argmax(logits, -1).to(torch.int32)
-        bad = (~torch.isfinite(logits).all(-1)).to(torch.int32)
+                                              *args[4:8])
+        if self.do_sample:
+            # the reference's fused program: fresh slots start their
+            # chain from their seed inside it, non-emitting slots keep
+            # their key; jitted, so the temperature is a reciprocal
+            emit_d, fresh_d, seeds_d = args[8:]
+            nxt, self._keys, bad = self._draw(logits, self._keys, seeds_d,
+                                              fresh_d, emit_d,
+                                              reciprocal=True)
+        else:
+            nxt = torch.argmax(logits, -1).to(torch.int32)
+            bad = (~torch.isfinite(logits).all(-1)).to(torch.int32)
         host = torch.stack([nxt, bad]).cpu().numpy()   # syncs the tick
         emitting = done + dec_slots
         self.stats["nonfinite_logit_rows"] += int(host[1][emitting].sum())

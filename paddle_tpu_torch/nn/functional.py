@@ -3,8 +3,12 @@
 Port of the matching subset of ``paddle_tpu/nn/functional.py``: RMSNorm
 and attention ride the hand-written kernels (K5 and K4, through their
 autograd Functions), the rest is plain torch, as the JAX package leaves
-it to XLA. Under ``amp.auto_cast`` each entry point casts its inputs
-under the reference's op name (``linear``, ``flash_attention``,
+it to XLA. The dropout family and ``gumbel_softmax`` draw their keys
+from ``core.random.next_key`` exactly where the reference does, so the
+same ``seed()`` gives the same masks; on the card the draw and dropout's
+apply are R2 (``ops.kernels.threefry_fill``), dropout's backward drawing
+the mask again from the saved key. Under ``amp.auto_cast`` each entry
+point casts its inputs under the reference's op name (``linear``, ``flash_attention``,
 ``sdp_attention``: the AMP dtype; ``rms_norm``, ``softmax``,
 ``cross_entropy_with_softmax``, ``cross_entropy_soft``: f32), as the
 reference's dispatch does (``amp.cast_inputs_for_op``). Options of the
@@ -17,11 +21,15 @@ import torch
 import torch.nn.functional as tf
 
 from ..amp import cast_inputs_for_op as _cast
+from ..core.random import next_key as _next_key
 from ..ops.kernels import flash_attention as _fa
 from ..ops.kernels import rms_norm as _rn
+from ..ops.kernels import threefry_fill as _tf
 
 __all__ = ["rms_norm", "scaled_dot_product_attention", "flash_attention",
-           "linear", "embedding", "silu", "softmax", "cross_entropy"]
+           "linear", "embedding", "silu", "softmax", "cross_entropy",
+           "dropout", "dropout2d", "dropout3d", "alpha_dropout",
+           "gumbel_softmax"]
 
 
 def rms_norm(x, weight, epsilon=1e-6):
@@ -61,21 +69,109 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """paddle.nn.functional.scaled_dot_product_attention on ``[batch,
     seq, heads, head_dim]``. Without a mask or dropout it runs the
     flash-attention kernels (K4; causal masking top-left aligned, query
-    row i sees keys 0..i); with ``attn_mask`` (added to the scores) the
-    reference's composition in plain torch: K4 takes no mask. Dropout
-    raises while training (ROADMAP Queue 1 item 4)."""
-    if dropout_p > 0.0 and training:
-        raise NotImplementedError(
-            "scaled_dot_product_attention with dropout is not ported: the "
-            "reference draws it from jax.random, and parity needs its "
-            "threefry stream (ROADMAP, Queue 1 item 4: the sampler, "
-            "bit-compatible with jax.random)")
+    row i sees keys 0..i); with ``attn_mask`` (added to the scores) or
+    ``dropout_p > 0`` the reference's composition in plain torch: K4
+    takes neither. While training, ``dropout_p`` drops the attention's
+    output (``dropout``), as the reference does (``functional.py:
+    929-930``)."""
     if attn_mask is None and dropout_p == 0.0:
         query, key, value = _cast("flash_attention", [query, key, value])
         return _fa.flash_attention(query, key, value, causal=is_causal)
     query, key, value, attn_mask = _cast(
         "sdp_attention", [query, key, value, attn_mask])
-    return _sdp_composition(query, key, value, attn_mask, is_causal)
+    out = _sdp_composition(query, key, value, attn_mask, is_causal)
+    if dropout_p > 0.0 and training:
+        out = dropout(out, p=dropout_p, training=training)
+    return out
+
+
+class _Dropout(torch.autograd.Function):
+    """Dropout under one key: the forward draws the mask and applies it
+    (R2 on the card), the backward draws it again from the key and
+    applies the vjp; no mask is stored."""
+
+    @staticmethod
+    def forward(ctx, x, key, mask_shape, p, upscale):
+        ctx.args = (key, mask_shape, p, upscale)
+        return _tf.dropout(x, key, mask_shape, p, upscale)
+
+    @staticmethod
+    def backward(ctx, g):
+        key, mask_shape, p, upscale = ctx.args
+        return (_tf.dropout(g, key, mask_shape, p, upscale, backward=True),
+                None, None, None, None)
+
+
+def _scalar(v, like):
+    """A Python number as a 0-d tensor of ``like``'s type on its device:
+    the reference's weakly typed constant, rounded to the value's type."""
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None):
+    """paddle.nn.functional.dropout (``functional.py:208-228``): keep each
+    element (each slice along ``axis``, whose mask broadcasts over the
+    other axes) with probability ``1 - p``, drawn from ``next_key()``;
+    ``"upscale_in_train"`` divides what it keeps by ``1 - p`` in x's
+    type, ``"downscale_in_infer"`` keeps it as it is while training and
+    multiplies by ``1 - p`` outside it. ``name`` is accepted and unused."""
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * _scalar(1.0 - p, x)
+        return x
+    key = _next_key()
+    shape = list(x.shape)
+    if axis is not None:
+        axes = [axis] if isinstance(axis, int) else axis
+        # as the reference: an axis is matched by its index as given
+        shape = [s if i in axes else 1 for i, s in enumerate(shape)]
+    return _Dropout.apply(x, key, tuple(shape), float(p),
+                          mode == "upscale_in_train")
+
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW"):
+    """Dropout of whole channels of a 4-D input."""
+    axis = [0, 1] if data_format == "NCHW" else [0, 3]
+    return dropout(x, p=p, axis=axis, training=training)
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW"):
+    """Dropout of whole channels of a 5-D input."""
+    axis = [0, 1] if data_format == "NCDHW" else [0, 4]
+    return dropout(x, p=p, axis=axis, training=training)
+
+
+def alpha_dropout(x, p=0.5, training=True):
+    """SELU-preserving dropout (``functional.py:241-254``): dropped
+    elements become ``-alpha * scale``, then ``a * v + b`` keeps the mean
+    and variance; the keep mask is R2's on the card, the affine map plain
+    torch, each constant rounded to x's type as in the reference."""
+    if not training or p == 0.0:
+        return x
+    alpha = 1.6732632423543772
+    scale = 1.0507009873554805
+    alpha_p = -alpha * scale
+    a = ((1 - p) * (1 + p * alpha_p ** 2)) ** -0.5
+    b = -a * alpha_p * p
+    keep = _tf.keep_mask(_next_key(), x.shape, 1.0 - p, x.device)
+    return _scalar(a, x) * torch.where(keep, x, _scalar(alpha_p, x)) \
+        + _scalar(b, x)
+
+
+def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1):
+    """Softmax of ``(x + g) / temperature`` with Gumbel noise ``g`` from
+    ``uniform(next_key(), x.shape, f32, 1e-10, 1)`` (``functional.py:
+    161-172``; R2 on the card, the logs taken in f64 as
+    ``core.prng.log_rn``); ``hard`` returns the one-hot of the argmax
+    with the soft gradient (straight through)."""
+    g = _tf.gumbel(_next_key(), x.shape, x.device, 1e-10)
+    y = torch.softmax((x + g.to(x.dtype)) / temperature, dim=axis)
+    if hard:
+        idx = torch.argmax(y, dim=axis, keepdim=True)
+        y_hard = torch.zeros_like(y).scatter_(axis, idx, 1.0)
+        y = (y_hard - y).detach() + y
+    return y
 
 
 def linear(x, weight, bias=None):

@@ -7,8 +7,11 @@ weight is quantized once to int8 per output channel and whose forward
 quantizes its input per tensor and runs the int8 matmul with the fused
 dequantize (K8, ``ops.kernels.quant_matmul``). The codes are kept once,
 K-major (``[out, in]``), the layout K8's ``wgmma`` route reads; the
-reference's ``[in, out]`` layout is a view. Deploy only: the forward
-builds no graph, as the reference cuts the tangent.
+reference's ``[in, out]`` layout is a view, and it is the layout of
+the state dict: ``state_dict()`` writes ``qweight [in, out]`` (keys and
+shapes the reference's) and ``load_state_dict`` reads it back into the
+K-major buffer. Deploy only: the forward builds no graph, as the
+reference cuts the tangent.
 
 The QAT/PTQ engines, ``QuantedLinear``, ``QuantConfig`` and the
 observers run no kernel and are not ported yet (ROADMAP, Queue 1 item
@@ -61,6 +64,25 @@ class Int8InferLinear(nn.Module):
         """The int8 codes in the reference's ``[in, out]`` layout (a
         view of ``qweight_t``)."""
         return self.qweight_t.t()
+
+    def _save_to_state_dict(self, destination, prefix, keep_vars):
+        """The state dict in the reference's layout: ``qweight [in,
+        out]`` (a view of the codes) in place of ``qweight_t``."""
+        super()._save_to_state_dict(destination, prefix, keep_vars)
+        codes = destination.pop(prefix + "qweight_t")
+        destination[prefix + "qweight"] = codes.t()
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata,
+                              strict, missing_keys, unexpected_keys,
+                              error_msgs):
+        """Read the reference's ``qweight [in, out]`` into the K-major
+        ``qweight_t``."""
+        codes = state_dict.pop(prefix + "qweight", None)
+        if codes is not None:
+            state_dict[prefix + "qweight_t"] = torch.as_tensor(codes).t()
+        super()._load_from_state_dict(state_dict, prefix, local_metadata,
+                                      strict, missing_keys,
+                                      unexpected_keys, error_msgs)
 
     def forward(self, x):
         with torch.no_grad():

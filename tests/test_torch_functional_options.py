@@ -11,7 +11,9 @@ with a mask, ``softmax`` and activation recompute, on the CPU.
   mask, a [B, H, S, S] one, causal and not) against the reference's
   composition within 1e-5, gradients through it finite; without a mask
   it takes K4's plain version; dropout outside training is the plain
-  composition, inside training it raises naming item 4;
+  composition, inside training it drops the output as the reference
+  does after the same ``seed()`` (``tests/test_torch_dropout.py`` holds
+  the rest);
 - ``softmax`` against the reference's;
 - ``parallel.recompute`` and ``recompute_sequential``: outputs and
   gradients (of the inputs and of the parameters the layers hold) equal
@@ -24,6 +26,7 @@ import torch
 import jax.numpy as jnp
 
 import paddle_tpu as pt
+import paddle_tpu_torch as ptt
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.parallel import recompute, recompute_sequential
 
@@ -123,8 +126,13 @@ def test_sdpa_without_a_mask_and_dropout_outside_training():
                                        is_causal=True,
                                        training=False).numpy(),
         want, rtol=0, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        F.scaled_dot_product_attention(tq, tk, tv, dropout_p=0.3)
+    pt.seed(4)
+    ptt.seed(4)
+    want = np.asarray(pt.nn.functional.scaled_dot_product_attention(
+        jq, jk, jv, dropout_p=0.3)._value)
+    got = F.scaled_dot_product_attention(tq, tk, tv, dropout_p=0.3).numpy()
+    np.testing.assert_array_equal(got == 0, want == 0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("axis", [-1, 0])

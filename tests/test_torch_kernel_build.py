@@ -31,7 +31,8 @@ def test_every_local_include_is_a_hashed_header_beside_the_sources():
     assert {s.stem for s in sources} >= {"paged_attention", "ragged_prefill",
                                          "fused_tick", "flash_attention",
                                          "rms_norm", "rope", "gemm_epilogue",
-                                         "quant_matmul", "multi_tensor_adam"}
+                                         "quant_matmul", "multi_tensor_adam",
+                                         "sample_rows", "threefry_fill"}
     for src in sources:
         for name in re.findall(r'^#include "([^"]+)"', src.read_text(),
                                flags=re.M):

@@ -383,7 +383,7 @@ def pt_errors():
 
 
 @pytest.mark.parametrize("kw", [
-    {"do_sample": True}, {"cache_backend": "dense"},
+    {"cache_backend": "dense"},
     {"prefill_mode": "dense"},
     {"tick_block": 2}, {"admission": "optimistic"}, {"mesh": object()},
     {"telemetry": True}, {"recorder": True}, {"ledger": True},

@@ -25,11 +25,12 @@ and the JAX package its XLA compositions of the same functions.
   fused multiply-adds; the cancellation in 1 - beta2 ** step), bf16 bit
   for bit;
 - options that are not ported raise ``NotImplementedError`` with a
-  ROADMAP pointer (dropout: item 4; the schedulers, clips,
-  ``lr_ratio``, ``attn_mask``, ``soft_label`` and ``reduction`` are
-  ported and held against the reference in ``test_torch_lr_and_clip.py``,
+  ROADMAP pointer (the schedulers, clips, ``lr_ratio``, ``attn_mask``,
+  ``soft_label`` and ``reduction`` are ported and held against the
+  reference in ``test_torch_lr_and_clip.py``,
   ``test_torch_optimizer_zoo.py`` and
-  ``test_torch_functional_options.py``);
+  ``test_torch_functional_options.py``; attention dropout in
+  ``test_torch_dropout.py``);
 - the projections and the head are ``nn.Linear`` layers under the JAX
   parameter names, and the weight bridge round-trips.
 """
@@ -271,14 +272,11 @@ def test_adam_l2_and_multi_precision_match_jax():
     assert fresh.get_lr() == 5e-4
 
 
-@pytest.mark.parametrize("what", ["dropout", "pipeline_decompose",
+@pytest.mark.parametrize("what", ["pipeline_decompose",
                                   "tensor_parallel"])
 def test_unported_options_raise_with_a_roadmap_pointer(what):
-    q = torch.zeros(1, 4, 2, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "dropout":
-            F.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
-        elif what == "pipeline_decompose":
+        if what == "pipeline_decompose":
             _port_model().pipeline_decompose()
         else:
             LlamaForCausalLM(llama_tiny(tensor_parallel=True), device="cpu")

@@ -288,3 +288,34 @@ def test_int8_forward_in_x_dtype_rounds_once(dtype):
     f32 = tqm._ref(qx, layer.qweight, sx, layer.w_scale)
     assert got.dtype == tdt
     assert torch.equal(got, f32.to(tdt).reshape(5, 7, 48))
+
+
+def test_int8_state_dict_is_the_references_and_loads_from_it():
+    """The converted model's state dict has the reference's keys and
+    shapes (``qweight [in, out]``, not the K-major buffer), and the
+    reference's int8 state dict loaded into another converted model
+    gives the converted model's forward bit for bit, the K-major buffer
+    kept (ROADMAP Queue 3)."""
+    jq, tm, ids, _ = _llamas()
+    q = to_int8_inference(tm)
+    want = {k: tuple(v.shape) for k, v in jq.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in q.state_dict().items()}
+    assert got == want
+    assert not any(k.endswith("qweight_t") for k in got)
+    jsd = {k: torch.tensor(np.asarray(v.numpy()))
+           for k, v in jq.state_dict().items()}
+    other = to_int8_inference(LlamaForCausalLM(llama_tiny(), device="cpu",
+                                               seed=7))
+    x = torch.from_numpy(ids)
+    with torch.no_grad():
+        assert not torch.equal(other(x), q(x))
+        missing, unexpected = other.load_state_dict(jsd)
+        assert not missing and not unexpected
+        assert torch.equal(other(x), q(x))
+    mod = other.lm_head
+    assert mod.qweight_t.is_contiguous()
+    assert mod.qweight_t.shape == (mod.w_scale.shape[0],
+                                   q.lm_head.qweight.shape[0])
+    np.testing.assert_array_equal(mod.qweight.numpy(),
+                                  np.asarray(dict(jq.named_sublayers())
+                                             ["lm_head"].qweight.numpy()))
