@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only build,k5,k8,int8_parity,int8_infer,train
     python3 chip_smoke.py --only build,opt,train,train_amp
     python3 chip_smoke.py --only build,rng,parity
+    python3 chip_smoke.py --only build,train,fit
 
 Phases, in order; any failure exits non-zero:
 
@@ -220,7 +221,30 @@ Phases, in order; any failure exits non-zero:
    ``GradScaler(2**15, decr_every_n_nan_or_inf=1)``: 3 steps, an inf
    written into one gradient of the second: that step is skipped
    (parameters unchanged bit for bit, the optimizer not stepped) and the
-   scale halves.
+   scale halves;
+21. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
+   llama_350m in bf16 at full width and depth from seed 0,
+   ``AdamW(1e-4, weight_decay=0.01)``, ``nn.CrossEntropyLoss()``, a
+   ``TensorDataset`` of 96 rows of 1025 seeded ids (inputs the first
+   1024, labels the last 1024), batch 8 (12 batches an epoch), 2 fork
+   workers, a checkpoint every 6 steps keeping 1, in a temporary
+   directory removed at the end. Run A: one uninterrupted epoch, the
+   counters zeroed just before and read just after (12 x the train
+   step's K4, K5 and K6 launches, the fused AdamW step 12 times, no
+   other kernel); its ms per step (median of the steps that saved no
+   checkpoint) beside the train phase's, tokens/s, peak memory, the
+   loader's wait a step, seconds and GB/s of every checkpoint save, the
+   guarded and the plain step each ended by the loss read, the key
+   split, the batch's move and a profile of one guarded step. Run B:
+   the same, preempted from a callback after step 5; run C: a fresh
+   model and supervisor over B's directory resume it: B's losses then
+   C's equal A's bit for bit, and C's final parameters A's. Run E:
+   ``evaluate`` over 2 batches, forward launches only, a finite loss.
+   Run F: ``Model.save`` and ``Model.load`` into another model, the
+   parameters bit for bit. Run D: 3 batches, the loss NaN at step 2:
+   skipped, every parameter and optimizer state unchanged bit for bit
+   across it while the step count advances, the fused step launched 2
+   times. All losses but the injected one finite; the loss falls.
 
 The last two lines of standard output are the per-kernel JSON record
 and ``{"ok": true, "device": {...}}``. Without a CUDA card, or without
@@ -238,7 +262,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "opt",
           "rng", "parity", "train_parity", "int8_parity", "serve",
-          "int8_infer", "train", "train_compose", "train_amp")
+          "int8_infer", "train", "train_compose", "train_amp", "fit")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
 # outside the tensor cores, int8 tensor-core operations/s). The SXM part
@@ -3107,6 +3131,365 @@ def train_amp_scaler(torch, np, card):
                          "step, or did not halve its scale")
 
 
+class FitRecorder:
+    """A ``hapi`` callback that keeps each step's loss and the host
+    clock at each batch's begin and end (``fit`` reads the loss as a
+    float at the end of every step, so an end time is the step's end
+    on the card). ``hook(n)`` runs after the n-th step; ``around(it,
+    when)`` at a batch's begin and end."""
+
+    def __init__(self, hook=None, around=None):
+        self.losses, self.begins, self.ends = [], [], []
+        self.hook, self.around = hook, around
+
+    def set_model(self, model):
+        self.model = model
+
+    def __getattr__(self, name):
+        if name.startswith("on_"):
+            return lambda *a, **k: None
+        raise AttributeError(name)
+
+    def on_train_begin(self, logs=None):
+        self.start = time.perf_counter()
+
+    def on_train_batch_begin(self, step, logs=None):
+        self.begins.append(time.perf_counter())
+        if self.around is not None:
+            self.around(step, "begin")
+
+    def on_train_batch_end(self, step, logs=None):
+        self.ends.append(time.perf_counter())
+        self.losses.append(logs["loss"])
+        if self.around is not None:
+            self.around(step, "end")
+        if self.hook is not None:
+            self.hook(len(self.losses))
+
+
+def timed_store(sup, saves):
+    """Time every save of ``sup``'s store into ``saves``: (step,
+    seconds, bytes of the checkpoint's files)."""
+    store, save = sup.store, sup.store.save
+
+    def timed(step, state, meta=None):
+        t0 = time.perf_counter()
+        path = save(step, state, meta)
+        dt = time.perf_counter() - t0
+        with open(os.path.join(path, "manifest.json")) as f:
+            nbytes = sum(e["bytes"] for e in json.load(f)["files"].values())
+        saves.append((int(step), dt, nbytes))
+        return path
+
+    store.save = timed
+    return sup
+
+
+def state_snapshot(torch, model):
+    """Clones of a Model's parameters and optimizer state, by name."""
+    snap = {("p", n): t.detach().clone() for n, t in model._params.items()}
+    for sname, tree in model._opt_state.items():
+        snap.update({(sname, n): t.clone() for n, t in tree.items()})
+    return snap
+
+
+def guard_flags(torch, tensors):
+    """The guarded step's finiteness flag (``hapi.model._all_finite``,
+    one multi-tensor pass) on card tensors: true on finite ones, false
+    with a NaN, an Inf or a -Inf planted in the last element of the
+    first, a middle or the last tensor, each restored after."""
+    from paddle_tpu_torch.hapi.model import _all_finite
+    seen = [_all_finite(tensors).item()]
+    for i in (0, len(tensors) // 2, len(tensors) - 1):
+        flat = tensors[i].view(-1)
+        old = flat[-1].clone()
+        for bad in (float("nan"), float("inf"), float("-inf")):
+            flat[-1] = bad
+            seen.append(not _all_finite(tensors).item())
+        flat[-1] = old
+    seen.append(_all_finite(tensors).item())
+    log(f"fit guard: flags {seen} (all must be True)")
+    return all(seen)
+
+
+def fit_breakdown(torch, np, model, data, card):
+    """Where a fit step's time goes beyond the train step's, on the
+    trained model of run A (it takes further steps): the guarded step
+    (finiteness flags read before the update) and the plain step, each
+    ended by the loss read as fit reads it, median of 5; the key split
+    and the batch's move to the card on the host; a profile of one
+    guarded step."""
+    from paddle_tpu_torch.core import prng
+    from paddle_tpu_torch.io import DataLoader
+    batch = next(iter(DataLoader(data, batch_size=8)))
+    inputs, labels = model._split(batch)
+
+    def median_ms(fn, n=5):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times)) * 1e3
+
+    def step(fn):
+        def run():
+            model._step_count += 1
+            sub = prng.split(prng.PRNGKey(model._step_count))[1]
+            out = fn(inputs, labels, model._step_count, sub,
+                     model._cur_lr())
+            float(out[0] if isinstance(out, tuple) else out)
+        return run
+
+    guarded = median_ms(step(model._gstep_fn))
+    plain = median_ms(step(model._step_fn))
+    split = median_ms(lambda: prng.split(prng.PRNGKey(1)), 20)
+    move = median_ms(lambda: model._split(batch), 20)
+    log(f"fit step [{card}]: guarded {guarded:.1f} ms, plain {plain:.1f} "
+        f"ms (each ended by the loss read), key split {split:.3f} ms, "
+        f"batch to the card {move:.3f} ms (host clock, median)")
+    profile_once(torch, step(model._gstep_fn), card, "fit")
+
+
+def phase_fit(torch, np, card, record, train):
+    """This slice's path: ``Model.fit`` under ``TrainSupervisor`` on
+    llama_350m at full width and depth in bf16, seed 0,
+    AdamW(1e-4, weight_decay=0.01), ``nn.CrossEntropyLoss()``, a
+    ``TensorDataset`` of 96 seeded rows of 1025 ids (inputs the first
+    1024, labels the last 1024), batch 8 (12 batches), 2 fork workers,
+    checkpoints every 6 steps, keeping 1, in a temporary directory.
+    A: one uninterrupted epoch; B: the same, preempted after step 5;
+    C: a fresh model and supervisor over B's directory, resuming it; D:
+    3 batches with a NaN loss at step 2; E: evaluate over 2 batches; F:
+    Model.save and Model.load."""
+    import gc
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_350m
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.ops.kernels import rope as rk
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.reliability import TrainSupervisor
+    cfg = llama_350m()
+    L, B, S, N = cfg.num_layers, 8, 1024, 96
+    steps = N // B
+    rows = np.random.default_rng(0).integers(0, cfg.vocab_size, (N, S + 1))
+    data = TensorDataset([rows[:, :S], rows[:, 1:]])
+
+    def make(seed=0, loss=None):
+        gc.collect()
+        torch.cuda.empty_cache()
+        net = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                               seed=seed)
+        return Model(net).prepare(
+            optimizer=AdamW(1e-4, parameters=net.named_parameters(),
+                            weight_decay=0.01),
+            loss=loss or CrossEntropyLoss())
+
+    def run(model, sup, rec, ds=data):
+        zero_counts()
+        vector = rk.rope_qk_fwd.route_launches["vector"]
+        t0 = time.perf_counter()
+        model.fit(ds, batch_size=B, epochs=1, verbose=0, num_workers=2,
+                  callbacks=[rec], supervisor=sup)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        counts["k6_qk_vector"] = \
+            rk.rope_qk_fwd.route_launches["vector"] - vector
+        return counts, time.perf_counter() - t0
+
+    def launched(tag, counts, n, committed):
+        want = per_step_counts(L, n)
+        want.update(opt=committed, opt_kernels=committed)
+        quiet = ("k1", "k2", "k3", "k6", "k7", "k8", "r1", "r2_dropout",
+                 "r2_fill")
+        good = {k: counts[k] for k in want} == want and \
+            counts["k6_qk_vector"] == counts["k6_qk"] and \
+            not any(counts[k] for k in quiet)
+        log(f"fit {tag}: launches {counts}; want {want}, no other kernel: "
+            f"{good}")
+        return good
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    checks = {}
+    t_phase = time.perf_counter()
+    try:
+        # A: the uninterrupted run, the counters zeroed just before
+        saves = []
+        model = make()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec_a = FitRecorder()
+        counts, wall_a = run(model, timed_store(TrainSupervisor(
+            os.path.join(root, "a"), save_interval_steps=6, max_to_keep=1),
+            saves), rec_a)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        checks["A: launches == 12 x the train step's, fused step 12"] = \
+            launched("A", counts, steps, steps)
+        record["flash_attention_fwd"]["launches"] = counts["k4_fwd"]
+        record["flash_attention_bwd"]["launches"] = counts["k4_dq"]
+        record["rms_norm_fwd"]["launches"] = counts["k5_fwd"]
+        record["rms_norm_bwd"]["launches"] = counts["k5_bwd"]
+        record["rope"]["launches"] = counts["k6"] + counts["k6_qk"]
+        record["multi_tensor_adam"]["launches"] = counts["opt"]
+        final_a = [p.detach().clone() for p in model.network.parameters()]
+        checks["the guard flags a NaN, an Inf and a -Inf in one of 219 "
+               "bf16 tensors, and nothing in finite ones"] = \
+            guard_flags(torch, final_a)
+        fit_breakdown(torch, np, model, data, card)
+        del model
+        shutil.rmtree(os.path.join(root, "a"), ignore_errors=True)
+        saved = {s for s, _, _ in saves}
+        step_s = [(i + 1, rec_a.ends[i] - rec_a.ends[i - 1])
+                  for i in range(1, len(rec_a.ends))]
+        steady = [dt for n, dt in step_s if n not in saved]
+        step_ms = float(np.median(steady)) * 1e3
+        waits = [rec_a.begins[i] - rec_a.ends[i - 1]
+                 for i in range(1, len(rec_a.begins))]
+        log(f"fit A losses: {rec_a.losses}")
+        train_ms = (f"{train['step_ms']:.1f} ms" if train is not None
+                    else "not measured (run the train phase)")
+        log(f"fit metrics [{card}]: llama_350m bf16, {L} layers, batch {B} "
+            f"x {S}: {step_ms:.1f} ms per step (median of {len(steady)} "
+            f"steady steps, checkpoint steps {sorted(saved)} excluded; "
+            f"the train phase's step in this call: {train_ms}), "
+            f"{B * S / step_ms * 1e3:.0f} tokens/s, peak memory "
+            f"{peak_gb:.2f} GiB, loader wait {np.median(waits) * 1e3:.3f} "
+            f"ms per step (median, max {max(waits) * 1e3:.3f} ms), run A "
+            f"{wall_a:.1f} s wall")
+        log(f"fit A step times (ms): "
+            f"{[round(dt * 1e3, 1) for _, dt in step_s]}")
+
+        # B: preempted after step 5; C: a fresh model resumes it
+        d = os.path.join(root, "bc")
+        sup_b = TrainSupervisor(d, save_interval_steps=6, max_to_keep=1)
+        rec_b = FitRecorder(hook=lambda n: n == 5
+                            and sup_b.request_preemption())
+        model = make()
+        counts, _ = run(model, timed_store(sup_b, saves), rec_b)
+        checks["B: preempted after 5 steps, launches 5 x"] = \
+            len(rec_b.losses) == 5 and model.stop_training and \
+            launched("B", counts, 5, 5)
+        del model
+        model = make()
+        rec_c = FitRecorder()
+        sup_c = TrainSupervisor(d, save_interval_steps=6, max_to_keep=1)
+        restore = sup_c.store.restore
+        restores = []
+
+        def timed_restore(step=None):
+            t0 = time.perf_counter()
+            out = restore(step)
+            restores.append(time.perf_counter() - t0)
+            return out
+
+        sup_c.store.restore = timed_restore
+        counts, _ = run(model, timed_store(sup_c, saves), rec_c)
+        checks["C: launches 7 x"] = launched("C", counts, steps - 5,
+                                             steps - 5)
+        log(f"fit B losses {rec_b.losses} + C losses {rec_c.losses}; A's "
+            f"{rec_a.losses}")
+        for tag, (step, dt, nbytes) in zip("AAABCC", saves):
+            log(f"fit checkpoint [{card}]: run {tag} step {step}, "
+                f"{nbytes / 1e9:.3f} GB in {dt:.2f} s, "
+                f"{nbytes / 1e9 / dt:.2f} GB/s")
+        log(f"fit checkpoint [{card}]: run C restored step 5 in "
+            f"{restores[0]:.2f} s")
+        checks["B + C losses == A's, bit for bit"] = \
+            rec_b.losses + rec_c.losses == rec_a.losses
+        checks["C's final parameters == A's, bit for bit"] = all(
+            torch.equal(a, b) for a, b in zip(final_a,
+                                              model.network.parameters()))
+        del final_a
+        shutil.rmtree(d, ignore_errors=True)
+
+        # E: evaluate over 2 batches on C's model
+        zero_counts()
+        res = model.evaluate(data, batch_size=B, num_iters=2)
+        counts = read_counts()
+        want = {"k4_fwd": 2 * L, "k4_dq": 0, "k4_dkv": 0,
+                "k5_fwd": 2 * (2 * L + 1), "k5_bwd": 0, "k6_qk": 2 * L,
+                "opt": 0}
+        log(f"fit E: evaluate {res}, launches {counts}")
+        checks["E: evaluate loss finite, forward launches only"] = \
+            bool(np.isfinite(res["loss"][0])) and \
+            {k: counts[k] for k in want} == want
+
+        # F: Model.save and Model.load round-trip
+        path = os.path.join(root, "model")
+        t0 = time.perf_counter()
+        model.save(path)
+        t_save = time.perf_counter() - t0
+        other = make(seed=1)
+        t0 = time.perf_counter()
+        other.load(path)
+        t_load = time.perf_counter() - t0
+        checks["F: loaded parameters == saved, bit for bit"] = all(
+            torch.equal(a, b) for a, b in zip(model.network.parameters(),
+                                              other.network.parameters()))
+        log(f"fit F: Model.save {t_save:.2f} s "
+            f"({os.path.getsize(path + '.pdparams') / 1e9:.3f} GB params, "
+            f"{os.path.getsize(path + '.pdopt') / 1e9:.3f} GB optimizer), "
+            f"Model.load {t_load:.2f} s")
+        del model, other
+
+        # D: 3 batches, a NaN loss at step 2: skipped, the state unchanged
+        ce = CrossEntropyLoss()
+        calls = [0]
+
+        def nan_at_2(out, label):
+            calls[0] += 1
+            loss = ce(out, label)
+            return loss * float("nan") if calls[0] == 2 else loss
+
+        model = make(loss=nan_at_2)
+        held = {}
+
+        def around(it, when):
+            if it != 1:
+                return
+            if when == "begin":
+                held["state"] = state_snapshot(torch, model)
+                held["count"] = model._step_count
+                return
+            after = state_snapshot(torch, model)
+            held["same"] = all(torch.equal(after[k], v)
+                               for k, v in held["state"].items())
+            held["advanced"] = model._step_count == held["count"] + 1
+            del held["state"]
+
+        sup_d = TrainSupervisor(os.path.join(root, "d"),
+                                save_interval_steps=100, max_to_keep=1)
+        rec_d = FitRecorder(around=around)
+        counts, _ = run(model, sup_d, rec_d, TensorDataset(
+            [rows[:3 * B, :S], rows[:3 * B, 1:]]))
+        log(f"fit D losses {rec_d.losses}; anomalies {sup_d.anomalies}; "
+            f"state unchanged across the NaN step {held.get('same')}, step "
+            f"count advanced {held.get('advanced')}")
+        checks["D: NaN step skipped, state unchanged bit for bit, count "
+               "advanced, fused step 2 of 3"] = \
+            held.get("same") is True and held.get("advanced") is True and \
+            sup_d.anomalies == 1 and launched("D", counts, 3, 2) and \
+            not np.isfinite(rec_d.losses[1]) and \
+            all(np.isfinite([rec_d.losses[0], rec_d.losses[2]]))
+        del model
+        losses = rec_a.losses + rec_b.losses + rec_c.losses
+        checks["losses finite, the loss falls"] = \
+            all(np.isfinite(losses)) and rec_a.losses[-1] < rec_a.losses[0]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"fit: phase {time.perf_counter() - t_phase:.1f} s wall; checks "
+        f"{checks}")
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"fit: check failed: {name}")
+
+
 def profile_once(torch, fn, card, what="train", unit="step"):
     """Where one call's time goes (a train step, an int8 forward): ``fn``
     once under torch.profiler, device time by kernel and the device's
@@ -3308,6 +3691,9 @@ def main():
         phase_train_compose(torch, np, card, train)
     if "train_amp" in phases:
         phase_train_amp(torch, np, card, record)
+    if "fit" in phases:
+        phase_fit(torch, np, card, record,
+                  train if "train" in phases else None)
     log(json.dumps({"kernels": list(record.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -35,6 +35,13 @@ train it, and run it in int8:
   step over every live parameter (``ops.kernels.multi_tensor_adam``),
   the counterpart of the reference's jitted multi-tensor update.
 
+The high-level training loop is ``Model`` (``hapi``): ``prepare``,
+``fit`` with or without the fault-tolerant ``reliability.
+TrainSupervisor`` (durable checkpoints in the reference's format, exact
+resume, NaN-step skip and rollback, preemption), ``evaluate``,
+``predict``, ``save`` and ``load``, over ``io.DataLoader`` (samplers on
+numpy's RNG, fork workers over shared memory) and ``metric``.
+
 Randomness is ``jax.random``'s threefry stream bit for bit
 (``core.prng``): ``seed``, ``get_rng_state`` and ``set_rng_state`` hold
 the global key (``core.random``), the server samples seeded tokens with
@@ -48,7 +55,12 @@ plain version; a CUDA tensor takes the kernel or raises.
 This package imports torch, numpy and the standard library only — never
 jax or ``paddle_tpu`` (tests/test_torch_import_hygiene.py).
 """
+from . import hapi, io, metric, reliability  # noqa: F401
 from .core.random import get_rng_state, seed, set_rng_state  # noqa: F401
 from .device import resolve_device  # noqa: F401
+from .hapi import Model, flops, summary  # noqa: F401
+from .io import load, save  # noqa: F401
 
-__all__ = ["resolve_device", "seed", "get_rng_state", "set_rng_state"]
+__all__ = ["resolve_device", "seed", "get_rng_state", "set_rng_state",
+           "hapi", "io", "metric", "reliability", "Model", "summary",
+           "flops", "save", "load"]

@@ -37,9 +37,9 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["threefry2x32", "PRNGKey", "key_data", "make_key", "split",
-           "fold_in", "random_bits", "uniform_from_bits", "gumbel_from_bits",
-           "log_rn", "fma_f32", "MASK", "TINY_F32"]
+__all__ = ["threefry2x32", "PRNGKey", "key_data", "key_numpy", "make_key",
+           "split", "fold_in", "random_bits", "uniform_from_bits",
+           "gumbel_from_bits", "log_rn", "fma_f32", "MASK", "TINY_F32"]
 
 MASK = 0xFFFFFFFF
 KS_PARITY = 0x1BD11BDA
@@ -88,6 +88,13 @@ def key_data(key):
         key = key.view(torch.int32)
     k = key.to(torch.int64) & MASK
     return k[..., 0], k[..., 1]
+
+
+def key_numpy(key):
+    """``key`` as a numpy ``uint32`` array ``[..., 2]``, the layout of a
+    jax key's data (what a checkpoint stores)."""
+    w0, w1 = key_data(key.cpu())
+    return torch.stack([w0, w1], -1).numpy().astype(np.uint32)
 
 
 def PRNGKey(seed, device="cpu"):

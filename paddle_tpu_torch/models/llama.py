@@ -21,7 +21,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..nn import functional as F
-from ..nn.layer import Linear
+from ..nn.layer import Linear, set_state_dict
 from ..ops.rope import apply_rotary_qk, precompute_freqs
 from .generation import GenerationMixin
 
@@ -224,6 +224,8 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         ``labels[:, t + 1]``."""
         labels = torch.as_tensor(labels, device=logits.device)
         return F.cross_entropy(logits[:, :-1, :], labels[:, 1:])
+
+    set_state_dict = set_state_dict
 
     def pipeline_decompose(self):
         raise NotImplementedError(

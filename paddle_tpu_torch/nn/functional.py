@@ -28,8 +28,8 @@ from ..ops.kernels import threefry_fill as _tf
 
 __all__ = ["rms_norm", "scaled_dot_product_attention", "flash_attention",
            "linear", "embedding", "silu", "softmax", "cross_entropy",
-           "dropout", "dropout2d", "dropout3d", "alpha_dropout",
-           "gumbel_softmax"]
+           "mse_loss", "binary_cross_entropy_with_logits", "dropout",
+           "dropout2d", "dropout3d", "alpha_dropout", "gumbel_softmax"]
 
 
 def rms_norm(x, weight, epsilon=1e-6):
@@ -249,3 +249,25 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
     if reduction == "sum":
         return nll.sum()
     return nll
+
+
+def mse_loss(input, label, reduction="mean"):  # noqa: A002
+    """``(input - label) ** 2``, reduced (``functional.py:718-720``)."""
+    return _reduce((input - label).square(), reduction)
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None):
+    """Sigmoid cross-entropy on logits in the reference's stable form
+    (``functional.py:810-822``)."""
+    max_val = (-logit).clamp_min(0)
+    if pos_weight is not None:
+        log_w = (pos_weight - 1) * label + 1
+        loss = (1 - label) * logit + log_w * (
+            torch.log1p(torch.exp(-logit.abs())) + max_val)
+    else:
+        loss = (1 - label) * logit + max_val + \
+            torch.log(torch.exp(-max_val) + torch.exp(-logit - max_val))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)

@@ -1,18 +1,50 @@
-"""Layers of the port: ``Linear``.
+"""Layers of the port: ``Linear``, the loss layers ``CrossEntropyLoss``,
+``MSELoss`` and ``BCEWithLogitsLoss``, and ``set_state_dict``.
 
-Port of ``paddle_tpu/nn/layers_basic.py:44-63``: paddle's Linear keeps
-its weight as ``[in_features, out_features]`` and computes ``x @ W +
-b``. The arguments are the reference's, in its order: ``weight_attr``,
-``bias_attr`` (``False`` leaves the layer without a bias, as in paddle)
-and ``name``; ``dtype`` and ``device`` follow as keywords.
+Port of ``paddle_tpu/nn/layers_basic.py:44-63`` and ``:710-790``:
+paddle's Linear keeps its weight as ``[in_features, out_features]`` and
+computes ``x @ W + b``. The arguments are the reference's, in its order:
+``weight_attr``, ``bias_attr`` (``False`` leaves the layer without a
+bias, as in paddle) and ``name``; ``dtype`` and ``device`` follow as
+keywords. The loss layers hold their options and call
+``nn.functional``.
 """
+import numpy as np
 import torch
 from torch import nn
 
 from ..device import resolve_device
 from . import functional as F
 
-__all__ = ["Linear"]
+__all__ = ["Linear", "CrossEntropyLoss", "MSELoss", "BCEWithLogitsLoss",
+           "set_state_dict"]
+
+
+@torch.no_grad()
+def set_state_dict(module, state_dict, use_structured_name=True):
+    """paddle's ``Layer.set_state_dict`` (``nn/layer.py:295-308``) on a
+    torch module: every entry of ``state_dict`` (a tensor or an array,
+    under the names of ``module.state_dict()``: parameters and
+    persistent buffers) is copied into the module's own tensor, cast to
+    its dtype and device. Returns ``(missing, unexpected)`` names, as
+    the reference does; a shape that differs raises ValueError before
+    anything is copied."""
+    own = module.state_dict(keep_vars=True)
+    missing = [k for k in own if k not in state_dict]
+    unexpected = [k for k in state_dict if k not in own]
+    vals = {}
+    for k, v in state_dict.items():
+        if k not in own:
+            continue
+        t = v if isinstance(v, torch.Tensor) else \
+            torch.from_numpy(np.array(v))
+        if tuple(t.shape) != tuple(own[k].shape):
+            raise ValueError(f"{k}: shape {tuple(t.shape)} does not match "
+                             f"the layer's {tuple(own[k].shape)}")
+        vals[k] = t
+    for k, t in vals.items():
+        own[k].copy_(t.to(device=own[k].device, dtype=own[k].dtype))
+    return missing, unexpected
 
 
 class Linear(nn.Module):
@@ -58,6 +90,54 @@ class Linear(nn.Module):
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
 
+    set_state_dict = set_state_dict
+
     def extra_repr(self):
         return (f"in_features={self.in_features}, "
                 f"out_features={self.out_features}")
+
+
+class CrossEntropyLoss(nn.Module):
+    """``F.cross_entropy`` with its options held (``layers_basic.py:
+    710-728``); ``use_softmax`` and ``name`` are accepted and not used,
+    as in the reference."""
+
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 soft_label=False, axis=-1, use_softmax=True,
+                 label_smoothing=0.0, name=None):
+        super().__init__()
+        self.weight = weight
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+        self.soft_label = soft_label
+        self.axis = axis
+        self.label_smoothing = label_smoothing
+
+    def forward(self, input, label):  # noqa: A002
+        return F.cross_entropy(input, label, weight=self.weight,
+                               ignore_index=self.ignore_index,
+                               reduction=self.reduction,
+                               soft_label=self.soft_label, axis=self.axis,
+                               label_smoothing=self.label_smoothing)
+
+
+class MSELoss(nn.Module):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.mse_loss(input, label, self.reduction)
+
+
+class BCEWithLogitsLoss(nn.Module):
+    def __init__(self, weight=None, reduction="mean", pos_weight=None,
+                 name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+        self.pos_weight = pos_weight
+
+    def forward(self, logit, label):
+        return F.binary_cross_entropy_with_logits(
+            logit, label, self.weight, self.reduction, self.pos_weight)

@@ -28,6 +28,15 @@ functional (new parameters and state out of every update); this one
 updates the parameters and its state in place, under ``torch.no_grad``,
 and keeps the state by parameter index as the JAX object API does
 (``state_dict()["state"]["m"]["0"]``).
+
+``functional()`` is the counterpart of the reference's functional
+facade, which ``hapi.Model`` trains through: state keyed as the caller's
+parameter dict (by name), the caller's step count and learning rate,
+every parameter decayed by ``weight_decay`` unless a ``wd_mask`` says
+otherwise, no gradient clip, and the rate weakly typed, as a Python
+scalar meets a low-precision tensor in the reference's update
+(``optimizer.py:191-227``; ROADMAP Queue 3). It updates the given
+tensors in place, Adam and AdamW in one ``multi_tensor_adam`` call.
 """
 import numbers
 
@@ -106,6 +115,7 @@ class Optimizer:
         self._grad_clip = grad_clip
         self._opt_state = None
         self._step_count = 0
+        self._weak_lr = False     # True while functional() updates
 
     # ------------------------------------------------------------- lr
     def get_lr(self):
@@ -128,6 +138,14 @@ class Optimizer:
         if getattr(self._parameters[i], "no_weight_decay", False):
             return 0.0
         return self._weight_decay
+
+    def _lr_mul(self, lr, t):
+        """``lr * t`` with the rate an f32 scalar as the reference's
+        object API passes it (a low-precision ``t`` widened to f32), or,
+        inside ``functional()``'s update, weakly typed as the
+        reference's jitted functional update takes it (``lr`` rounded to
+        ``t``'s type, the product in that type)."""
+        return _c(lr, t) * t if self._weak_lr else lr * _wide(t)
 
     def _update_leaf(self, g, p, state, lr, step, wd):
         """(new value of p, in f32 where the reference computes it so;
@@ -164,6 +182,52 @@ class Optimizer:
             p.copy_(new_p)                 # rounds to p's dtype
             for n, v in new_state.items():
                 self._opt_state[n][k] = v
+
+    # ---------------------------------------------------- functional facade
+    def functional(self):
+        """``(init_fn, update_fn)`` over a flat ``{name: tensor}``
+        parameter dict, as the reference's ``functional()`` returns them.
+
+        ``init_fn(params)`` is the state ``{state name: {name: tensor}}``.
+        ``update_fn(grads, params, state, lr=None, step=1, wd_mask=None)``
+        updates ``params`` and ``state`` IN PLACE and returns them: the
+        learning rate ``lr`` (``get_lr()`` when None), the 1-based
+        ``step`` of the bias corrections, ``weight_decay`` for every
+        parameter where ``wd_mask`` (``{name: bool}``) is None or True,
+        0 elsewhere. Neither ``grad_clip`` nor the optimizer's own decay
+        exemptions (``apply_decay_param_fun``, ``no_weight_decay``) take
+        part, and ``lr`` meets a low-precision tensor in its type
+        (``_lr_mul``), as in the reference's functional update."""
+        def init_fn(params):
+            return self.init_state(params)
+
+        @torch.no_grad()
+        def update_fn(grads, params, state, lr=None, step=1, wd_mask=None):
+            lr_ = self.get_lr() if lr is None else lr
+            keys = sorted(params)
+            wd = float(self._weight_decay or 0.0)
+            wds = [wd if wd_mask is None or wd_mask[k] else 0.0
+                   for k in keys]
+            self._functional_update(keys, grads, params, state, float(lr_),
+                                    int(step), wds)
+            return params, state
+
+        return init_fn, update_fn
+
+    def _functional_update(self, keys, grads, params, state, lr, step, wds):
+        """The per-leaf update of ``params[k]`` for every key, in place,
+        the rate weakly typed (``_lr_mul``)."""
+        self._weak_lr = True
+        try:
+            for k, wd in zip(keys, wds):
+                leaf = {n: st[k] for n, st in state.items()}
+                new_p, new_state = self._update_leaf(
+                    grads[k], params[k], leaf, lr, step, wd)
+                params[k].copy_(new_p)             # rounds to p's dtype
+                for n, v in new_state.items():
+                    state[n][k] = v
+        finally:
+            self._weak_lr = False
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
@@ -204,7 +268,7 @@ class Optimizer:
 class SGD(Optimizer):
     def _update_leaf(self, g, p, state, lr, step, wd):
         g = _decay(g, p, wd)
-        return _wide(p) - lr * _wide(g), {}
+        return _wide(p) - self._lr_mul(lr, g), {}
 
 
 class Momentum(Optimizer):
@@ -294,6 +358,18 @@ class Adam(Optimizer):
             step=self._step_count, decoupled=self._decoupled_wd,
             clip_norm=clip_norm, cache=self._fused_cache)
 
+    def _functional_update(self, keys, grads, params, state, lr, step, wds):
+        """Every parameter in one ``multi_tensor_adam`` call, the clip
+        off: on the card one kernel launch."""
+        masters = [state["master"][k] for k in keys] if "master" in state \
+            else [None] * len(keys)
+        multi_tensor_adam(
+            [grads[k] for k in keys], [params[k] for k in keys],
+            [state["m"][k] for k in keys], [state["v"][k] for k in keys],
+            masters, wds, lr=lr, beta1=self._beta1, beta2=self._beta2,
+            epsilon=self._eps, step=step, decoupled=self._decoupled_wd,
+            cache=self._fused_cache)
+
 
 class AdamW(Adam):
     """Adam with decoupled weight decay (``upd + wd * p``).
@@ -355,8 +431,8 @@ class Adagrad(Optimizer):
     def _update_leaf(self, g, p, state, lr, step, wd):
         g = _decay(g, p, wd)
         acc = state["moment"] + g.square()
-        return _wide(p) - lr * _wide(g) / (sqrt_rn(acc) + self._eps), \
-            {"moment": acc}
+        upd = self._lr_mul(lr, g) / (sqrt_rn(acc) + self._eps)
+        return _wide(p) - upd, {"moment": acc}
 
 
 class Adadelta(Optimizer):
@@ -409,7 +485,7 @@ class RMSProp(Optimizer):
             denom = ms - mg.square()
             out["mean_grad"] = mg
         mom = self._momentum * state["momentum"] \
-            + lr * _wide(g) / sqrt_rn(denom + self._eps)
+            + self._lr_mul(lr, g) / sqrt_rn(denom + self._eps)
         out["momentum"] = mom
         return _wide(p) - mom, out
 
