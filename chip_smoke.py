@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only build,k5,k8,int8_parity,int8_infer,train
     python3 chip_smoke.py --only build,opt,train,train_amp
     python3 chip_smoke.py --only build,rng,parity
+    python3 chip_smoke.py --only build,rng --parent build/parent
     python3 chip_smoke.py --only build,train,fit
 
 Phases, in order; any failure exits non-zero:
@@ -116,31 +117,53 @@ Phases, in order; any failure exits non-zero:
    bytes bound;
 12. rng: the random kernels against their plain versions on the card
    (``core.prng``'s int64 threefry, itself ``jax.random`` bit for bit on
-   the CPU). R1 (``sample_rows``, the serving tick's seeded draw): 1024
-   rows at V = 32000 (raw rows bf16) and at V = 128256 (raw rows f32),
-   fresh and carried keys, emitting and not, edge seeds, NaN, Inf and
-   filtered rows, a NaN only in the raw rows: tokens, keys out and
-   non-finite flags equal, a second launch equal; its time at the serve
-   wave's shape (8 x 32000) beside its bytes bound, the plain version and
-   torch.argmax over the same logits (greedy's cost). R2
-   (``threefry_fill``): keep masks bit for bit, the Gumbel noise (jax's
-   and gumbel_softmax's) within RNG_ULPS of ``max(|g|, 1)``, dropout
-   forward and backward in f32 and bf16 over full and broadcast masks in
-   both modes bit for bit (a NaN matching any NaN), at 8 x 64 x 16 x 64
-   and at the path's shapes (8 x 1024 x 16 x 64, 8 x 1024 x 1024: four
-   passes of the kernel's grid), a second launch equal; dropout's time at
-   llama_350m's attention output beside its bytes bound, the plain
-   version and torch's own dropout (a yardstick the port never calls),
-   the timed call's output bit for bit the plain version's. Then R2's
-   path, the counters zeroed before and read after: attention with
-   dropout while training at llama_350m's shape
-   (``scaled_dot_product_attention(dropout_p=0.1)``, forward and
-   backward), ``dropout`` of a hidden state forward and backward and a
-   hard ``gumbel_softmax``: 4 dropout launches, 1 draw, no other kernel;
-   the outputs bit for bit the plain version's under the same keys (the
-   attention's and the hidden state's forward, the hidden state's
-   gradient) and the one-hot at the plain noise's argmax. Each kernel's
-   ``max_abs_err`` is the largest |kernel - plain| over all of this;
+   the CPU). First ptxas's registers and spills of R1's and R2's kernels
+   and, from ``cuobjdump -sass`` of the built libraries, the instructions
+   an element of each kernel's busiest loop by class (alu: the integer ALU;
+   imad: IMAD and VIADD on the FMA pipe; fp32; fp64; uniform; other), which
+   the kernels' own bounds below use with the card's rates (SMs x lanes x
+   the maximum SM clock; issue slots too). R1 (``sample_rows``, the serving
+   tick's seeded draw): 1024 rows at V = 32000 (raw rows bf16) and at V =
+   128256 (raw rows f32), fresh and carried keys, emitting and not, edge
+   seeds, NaN, Inf and filtered rows, a NaN only in the raw rows: tokens,
+   keys out and non-finite flags equal, a second launch equal; then its
+   many-block plan at S = 1, 8 and 64 and V = 32000 and 128256 (raw bf16,
+   f16, f32) with ties planted across block boundaries, NaNs in several
+   chunks and the maximum and a raw NaN in the last chunk: two launches
+   into outputs poisoned with NaN bits, one with keys_out aliasing keys and
+   one on the scalar route (an unaligned view), all bitwise the plain
+   version's and the planted tokens and flags. R2 (``threefry_fill``): keep
+   masks bit for bit (p in 0.9, 0.5, 0, 1), the Gumbel noise (jax's and
+   gumbel_softmax's) within RNG_ULPS of ``max(|g|, 1)``, at shapes up to 8
+   x 1024 x 16 x 64 and a tail of 7 x 1001; dropout in f32, bf16 and f16
+   with p in 0, 0.1, 0.5 (both modes) and 1: the forward and its saved
+   bits, launched twice, and the vjp from those bits, bit for bit (a NaN
+   matching any NaN), over full and broadcast masks (dropout2d's channels,
+   a 7 x 1001 tail, an unaligned view on the scalar route, the wide route
+   forced on small values, llama_350m's attention output and hidden state),
+   each on its stated route. Then the times at the main path's shapes, each
+   beside its bound (bytes, or the least instructions the function needs,
+   NEED, over their pipes' rates), the bound of the kernel's own SASS
+   counts, the plain version and the yardstick, each timed call's outputs
+   then bit for bit the plain version's; and, given ``--parent`` (a ``git
+   archive`` of a parent tree unpacked in a directory git ignores), the
+   parent's kernels imported as ``ptt_parent`` in the same call (change,
+   parent, change, parent): R1 at 1 x 32000, 8 x 32000, 8 x 128256 and 1024
+   x 32000 beside torch.argmax (greedy's cost); R2's dropout at
+   llama_350m's attention output forward with its saved bits and backward
+   from them, the (8, 1, 1024) mask over 8 x 1024 x 1024 and dropout2d at 8
+   x 64 x 32 x 32, beside torch.nn.functional.dropout (Philox: another
+   mask, a yardstick the port never calls), and ``gumbel`` at 8 x 32000.
+   Then R2's path, the counters zeroed before and read after: attention
+   with dropout while training at llama_350m's shape
+   (``scaled_dot_product_attention(dropout_p=0.1)``, forward and backward),
+   ``dropout`` of a hidden state forward and backward and a hard
+   ``gumbel_softmax``: 4 dropout launches (two forwards, two backwards from
+   the saved bits), 1 draw, no other kernel; the outputs bit for bit the
+   plain version's under the same keys (the attention's and the hidden
+   state's forward, the hidden state's gradient) and the one-hot at the
+   plain noise's argmax. Each kernel's ``max_abs_err`` is the largest
+   |kernel - plain| over all of this;
 13. parity: a llama_tiny-shaped float32 model served on the card (the
    kernels) and on the CPU (the plain versions) from the same weights,
    on split ticks and on fused ticks, must emit equal greedy tokens:
@@ -254,6 +277,7 @@ prints no result.
 import argparse
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -417,14 +441,64 @@ def event_ms(fn, torch, iters=10, warmup=2, flush=None):
     return times[len(times) // 2]
 
 
-def bound(nbytes, flops, peak, ops_peak=None):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate
-    and operations over ``ops_peak`` (by default the bf16 tensor-core
-    peak; the f32 or int8 entry of ``peak`` for those types)."""
+# Thread instructions a clock an SM by the pipe they issue to (NVIDIA H100
+# Tensor Core GPU Architecture white paper: a Hopper SM has 64 INT32
+# lanes, 128 FP32 lanes, 64 FP64 lanes and four schedulers that issue one
+# warp instruction a clock each; the CUDA C++ Programming Guide's
+# throughput table for compute capability 9.0: 32-bit integer multiply-add,
+# IMAD, 64 a clock an SM, on the FMA pipe). card_rates multiplies them by
+# the card's SMs and its maximum SM clock; sass_class says which opcode
+# counts where.
+LANES = {"alu": 64, "imad": 64, "fma": 128, "fp64": 64, "int": 128,
+         "issue": 128}
+RATES = {}          # instructions a second by pipe, set by card_rates
+
+
+def card_rates(torch):
+    """{pipe: instructions a second} of card 0: SMs (the device
+    properties) x lanes an SM (LANES) x the maximum SM clock
+    (nvidia-smi's clocks.max.sm); also "sms" and "clock_mhz"."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    RATES.update({k: sms * n * mhz * 1e6 for k, n in LANES.items()},
+                 sms=sms, clock_mhz=mhz)
+    return RATES
+
+
+INSTR = ("alu", "imad", "flex", "fp32", "fp64", "uniform", "other")
+
+
+def instr_terms(c):
+    """{term: ms} of instruction counts ``c`` ({class: instructions},
+    INSTR) over the card's rates: "alu" the integer ALU pipe; "imad" IMAD
+    and VIADD on the FMA pipe at their own rate; "fma" those and the FP32
+    instructions on its 128 lanes; "fp64"; "int" the integer work the ALU
+    and IMAD can share ("flex": adds either takes) over both; "issue"
+    every instruction over the schedulers' 128 lanes a clock."""
+    g = lambda k: c.get(k, 0)                                  # noqa: E731
+    n = {"alu": g("alu"), "imad": g("imad"), "fma": g("imad") + g("fp32"),
+         "fp64": g("fp64"), "int": g("alu") + g("imad") + g("flex"),
+         "issue": sum(g(k) for k in INSTR)}
+    return {k: v / RATES[k] * 1e3 for k, v in n.items() if v}
+
+
+def bound(nbytes, flops, peak, ops_peak=None, instr=None, term=False):
+    """(bound_ms, bound_by): the largest of bytes over the memory rate,
+    operations over ``ops_peak`` (by default the bf16 tensor-core peak;
+    the f32 or int8 entry of ``peak`` for those types), and instruction
+    counts ``instr`` over their pipes' rates (instr_terms). ``bound_by`` is
+    "bytes" or "operations"; ``term=True`` adds the winning term's name
+    (bytes, operations or one of instr_terms')."""
     bw = peak[0]
     ops_peak = peak[1] if ops_peak is None else ops_peak
-    b_bytes, b_ops = nbytes / bw * 1e3, flops / ops_peak * 1e3
-    return max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else "operations"
+    terms = {"bytes": nbytes / bw * 1e3, "operations": flops / ops_peak * 1e3}
+    terms.update(instr_terms(instr or {}))
+    name = max(terms, key=terms.get)
+    out = (terms[name], "bytes" if name == "bytes" else "operations")
+    return out + (name,) if term else out
 
 
 def paged_case(torch, S, nh, kvh, hd, pg, maxp, dtype, gen):
@@ -932,6 +1006,144 @@ def log_ptxas(phase, stem, names):
     for (kname, targs), (regs, st, ld) in sorted(report.items()):
         log(f"{phase} ptxas {kname}<{targs}>: {regs} registers, {st} bytes "
             f"spill stores, {ld} bytes spill loads")
+
+
+# SASS opcodes by the pipe they issue to (the base name before the first
+# dot). "alu" is the integer ALU pipe (64 lanes an SM). The compiler
+# moves about a third of the hash's adds to IMAD and VIADD, which issue to
+# the FMA pipe at 64 a clock an SM ("imad"); "fp32" is the rest of the
+# FMA pipe's work. Conversions with an F64 side count as FP64; "U..."
+# opcodes run once a warp on the uniform datapath ("uniform"); loads,
+# stores and control are "other". Every class takes issue slots.
+SASS_INT = frozenset((
+    "IADD3", "IADD", "IADD32I", "IMUL", "LOP3", "LOP", "LOP32I", "SHF",
+    "SHL", "SHR", "LEA", "ISETP", "ISET", "IMNMX", "PRMT", "SEL", "MOV",
+    "IABS", "POPC", "FLO", "BREV", "BMSK", "SGXT", "VIMNMX", "PLOP3",
+    "ISCADD", "BFE", "BFI", "IDP"))
+SASS_IMAD = frozenset(("IMAD", "IMAD32I", "VIADD", "VIADDMNMX"))
+SASS_FP32 = frozenset((
+    "FADD", "FMUL", "FFMA", "FSETP", "FSET", "FMNMX", "FSEL", "MUFU",
+    "FCHK", "FRND", "F2FP", "HADD2", "HMUL2", "HFMA2", "HSETP2", "HMNMX2",
+    "FSWZADD", "F2F", "F2I", "I2F", "I2FP", "F2IP"))
+SASS_FP64 = frozenset(("DADD", "DMUL", "DFMA", "DSETP", "DSET", "DMNMX"))
+
+
+def sass_class(op):
+    base = op.split(".")[0]
+    if base in SASS_FP64 or (base in ("F2F", "F2I", "I2F") and "F64" in op):
+        return "fp64"
+    if base in SASS_IMAD:
+        return "imad"
+    if base in SASS_FP32:
+        return "fp32"
+    if base in SASS_INT:
+        return "alu"
+    if base.startswith("U"):
+        return "uniform"
+    return "other"
+
+
+def sass_functions(text):
+    """{mangled name: (instructions [(address, opcode, operands)], labels
+    {name: address})} from ``cuobjdump -sass`` (or nvdisasm) text."""
+    import re
+    funcs, cur, pending = {}, None, []
+    for line in text.splitlines():
+        m = re.search(r"Function\s*:\s*(\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), ([], {}))
+            pending = []
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+|\.L_\w+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)\s*([^;]*);", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for lab in pending:
+                cur[1][lab] = addr
+            pending = []
+            cur[0].append((addr, m.group(2), m.group(3)))
+    return funcs
+
+
+def sass_loops(instrs, labels):
+    """[(start, end)] address ranges closed by backward branches, one a
+    loop head (its last back edge closes it)."""
+    import re
+    heads = {}
+    for addr, op, args in instrs:
+        if not op.startswith("BRA"):
+            continue
+        m = re.search(r"\((\.L\w+)\)", args) or re.search(r"(\.L_x_\d+)",
+                                                          args)
+        target = labels.get(m.group(1)) if m else None
+        if target is None:
+            m = re.search(r"0x([0-9a-f]+)", args)
+            target = int(m.group(1), 16) if m else None
+        if target is not None and target < addr:
+            heads[target] = max(heads.get(target, addr), addr)
+    return sorted(heads.items())
+
+
+def sass_main_loop(instrs, labels):
+    """Instruction counts by pipe of the kernel's busiest loop: the loop
+    with the most instructions of its own (those of loops nested inside it
+    left out), with its address range."""
+    loops = sass_loops(instrs, labels)
+    best = None
+    for lo, hi in loops:
+        inner = [(a, b) for a, b in loops if lo <= a and b <= hi
+                 and (a, b) != (lo, hi)]
+        counts = {}
+        for addr, op, _ in instrs:
+            if lo <= addr <= hi and not any(a <= addr <= b for a, b in inner):
+                c = sass_class(op)
+                counts[c] = counts.get(c, 0) + 1
+        if best is None or sum(counts.values()) > sum(best[1].values()):
+            best = ((lo, hi), counts)
+    return best
+
+
+_SASS = {}          # library path -> sass_functions of it
+
+
+def sass_counts(lib, kernel, targs, per_iter):
+    """Instructions an element by class (sass_class) of kernel
+    ``kernel<targs>`` in library ``lib``, from its busiest loop, which
+    takes ``per_iter`` elements an iteration: every instruction of the
+    loop body once, taken or not."""
+    import re
+    import shutil
+    if lib not in _SASS:
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        _SASS[lib] = sass_functions(text)
+        dump = os.path.join(HERE, "chiprun_out", "sass")
+        os.makedirs(dump, exist_ok=True)
+        with open(os.path.join(dump, os.path.basename(str(lib)) + ".txt"),
+                  "w") as f:
+            f.write(text)
+    for name, (instrs, labels) in _SASS[lib].items():
+        t = re.search(r"\d" + kernel + r"(I?)", name)
+        if t is None:
+            continue
+        if (template_args(name[t.end():]) if t.group(1) else "") != targs:
+            continue
+        found = sass_main_loop(instrs, labels)
+        if found is None:
+            raise SystemExit(f"sass: no loop in {kernel}<{targs}>")
+        (lo, hi), counts = found
+        out = {k: counts.get(k, 0) / per_iter
+               for k in ("alu", "imad", "fp32", "fp64", "uniform", "other")}
+        out["loop"] = f"{lo:#x}-{hi:#x}"
+        return out
+    raise SystemExit(f"sass: no kernel {kernel}<{targs}> in {lib}")
 
 
 def phase_k4(torch, peak, flush, record):
@@ -2008,32 +2220,222 @@ def r1_case(torch, np, gen, S, V, raw_dtype):
     Inf row and a row filtered to -1e30 but for a few entries; raw rows
     (``raw_dtype``) equal to them but for a NaN in row 4, which the
     filters erased; random keys; edge and random seeds; mixed fresh and
-    emit flags. Flags expected on rows 1, 2 and 4 of the first five."""
+    emit flags. Flags expected on rows 1, 2 and 4 of the first five
+    (below five rows, random rows only)."""
     logits = torch.from_numpy((gen.standard_normal((S, V)) * 3)
                               .astype(np.float32)).cuda()
-    logits[1, 7] = float("nan")
-    logits[2, 3] = float("inf")
-    logits[3, 50:] = -1e30
+    edge = S >= 5                   # the planted rows, where there are five
+    if edge:
+        logits[1, 7] = float("nan")
+        logits[2, 3] = float("inf")
+        logits[3, 50:] = -1e30
     raw = logits.to(raw_dtype)
-    raw[4, 11] = float("nan")
+    if edge:
+        raw[4, 11] = float("nan")
     keys = torch.from_numpy(gen.integers(0, 2**32, (S, 2), dtype=np.uint64)
                             .astype(np.uint32).view(np.int32)).cuda() \
         .view(torch.uint32)
     seeds = gen.integers(-2**31, 2**31, S, dtype=np.int64).astype(np.int32)
-    seeds[:5] = [0, 1, 2**31 - 1, -2**31, -1]
+    if edge:
+        seeds[:5] = [0, 1, 2**31 - 1, -2**31, -1]
     seeds = torch.from_numpy(seeds).cuda()
     fresh = torch.from_numpy(gen.integers(0, 2, S).astype(np.int32)).cuda()
     emit = torch.from_numpy(gen.integers(0, 2, S).astype(np.int32)).cuda()
     return (logits, keys, seeds, fresh, emit), raw
 
 
-def phase_rng(torch, np, peak, flush, record):
+# Per-element instruction counts of the random kernels' busiest loops:
+# name -> (source stem, kernel, template arguments, elements an iteration)
+RNG_SASS = {
+    "dropout_fwd": ("threefry_fill", "dropout_full_kernel",
+                    "__nv_bfloat16,j,0", 8),
+    "dropout_vjp": ("threefry_fill", "dropout_full_kernel",
+                    "__nv_bfloat16,j,1", 8),
+    "keep": ("threefry_fill", "fill_kernel", "0,j", 16),
+    "gumbel": ("threefry_fill", "fill_kernel", "1,j", 4),
+    "r1": ("sample_rows", "sample_rows_kernel", "__nv_bfloat16,1", 8),
+}
+# the parent tree's kernels: one element an iteration
+PARENT_SASS = {
+    "dropout": ("threefry_fill", "dropout_kernel", "__nv_bfloat16", 1),
+    "fill": ("threefry_fill", "fill_kernel", "", 1),
+    "r1": ("sample_rows", "sample_rows_kernel", "", 1),
+}
+RNG_KERNELS = {"threefry_fill": ("dropout_full_kernel", "dropout_kernel",
+                                 "fill_kernel"),
+               "sample_rows": ("sample_rows_kernel",)}
+
+
+def import_parent(path):
+    """The ``paddle_tpu_torch`` of a parent tree unpacked at ``path`` (a
+    ``git archive``), imported as the package ``ptt_parent`` beside this
+    one, its build limited to R1's and R2's sources: (its sample_rows,
+    its threefry_fill, its _build)."""
+    import importlib
+    import importlib.util
+    pkg = os.path.join(os.path.abspath(path), "paddle_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "ptt_parent", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["ptt_parent"] = mod
+    spec.loader.exec_module(mod)
+    pb = importlib.import_module("ptt_parent.ops.kernels._build")
+    pb._sources = lambda: [pb.CSRC / "sample_rows.cu",
+                           pb.CSRC / "threefry_fill.cu"]
+    t0 = time.perf_counter()
+    pb.build_all()
+    log(f"rng parent: {pkg} imported as ptt_parent, R1 and R2 built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return (importlib.import_module("ptt_parent.ops.kernels.sample_rows"),
+            importlib.import_module("ptt_parent.ops.kernels.threefry_fill"),
+            pb)
+
+
+def rng_sass(build, table, tag):
+    """{name: instructions an element by class} of ``table``'s kernels in
+    the libraries ``build`` (a _build module) made, each logged."""
+    out = {}
+    for name, (stem, kernel, targs, per) in table.items():
+        c = sass_counts(build._target(build.CSRC / f"{stem}.cu"), kernel,
+                        targs, per)
+        out[name] = c
+        log(f"rng sass {tag} {name} ({kernel}<{targs}>, {per} elements an "
+            f"iteration of loop {c['loop']}): an element " + ", ".join(
+                f"{k} {c[k]:.2f}" for k in INSTR if k in c))
+    return out
+
+
+def ops_of(*terms):
+    """bound()'s instruction counts from (elements, counts an element)
+    pairs."""
+    return {k: sum(n * c.get(k, 0) for n, c in terms) for k in INSTR}
+
+
+def plus(*counts):
+    """Instruction counts added class by class."""
+    return {k: sum(c.get(k, 0) for c in counts) for k in INSTR}
+
+
+# The least instructions an element of each random function needs, counted
+# from the function (not from a kernel), for the bounds the records keep.
+# One Threefry-2x32 on a 32-bit counter: 20 rotates (SHF) and 21 xors
+# (LOP3, the output's included), which only the integer ALU takes, and 27
+# adds (20 rounds'; x1's key adds, 1 at the start, 4 between blocks and 1
+# at the end, and x0's at the end: x0's other key adds fold into the next
+# round's three-input add, its first is the key itself), which the ALU
+# (IADD3) or the FMA pipe (IMAD) can take. The keep test is one compare of
+# the bits against T << 9; a 16-bit value's conversions are one shift in
+# and half an F2FP (two to an instruction) out; the uniform float is a
+# shift and an or, then a subtract, a multiply-add and a max; R1 adds the
+# logit, compares with the best and tests the raw value. The division and
+# the select are not counted (the bound stays a lower bound), and the two
+# f64 logs take the kernel's own FP64 count (libdevice's log, which the
+# plain version's f64 log on the card also runs). The vjp's one ALU
+# instruction a mask element is its saved bit's test.
+HASH = {"alu": 41, "flex": 27}
+KEEP = {"alu": 1}
+CVT16 = {"flex": 1, "fp32": 0.5}
+UNIFORM = {"alu": 2, "fp32": 3}
+NEED = {"dropout_fwd": plus(HASH, KEEP, CVT16),   # a full mask, 16-bit
+        "dropout_vjp": plus(KEEP, CVT16),         # the saved bit's test
+        "mask": plus(HASH, KEEP),                 # a mask element
+        "value16": CVT16,                         # a value element
+        "gumbel": plus(HASH, UNIFORM),
+        "r1": plus(HASH, UNIFORM, {"fp32": 3, "flex": 1})}
+
+
+def need(name, sass):
+    """NEED[name], the f64 logs' instructions (gumbel, r1) from the
+    kernel's SASS counts ``sass``."""
+    if name in ("gumbel", "r1"):
+        return plus(NEED[name], {"fp64": sass[name]["fp64"]})
+    return NEED[name]
+
+
+POISON = 0x7FC00000         # an f32 NaN's bits, in every poisoned output word
+
+
+def r1_planted(torch, np, gen, S, V, chunk, raw_dtype):
+    """R1's inputs at [S, V] with planted rows by s % 5 (chunk: the plan's
+    chunk c): 0 +inf at c - 1, c and 2c + 3 (a tie across a block
+    boundary: c - 1 wins); 1 NaNs at 2c + 1 and 3c + 2 (several chunks:
+    2c + 1 wins over every number) and +inf at 5; 2 all -inf (index 0
+    wins); 3 1e9 at V - 1 (the last chunk), its raw row NaN at V - 2; 4
+    random. Returns (args, raw, {row: expected token})."""
+    logits = torch.from_numpy((gen.standard_normal((S, V)) * 3)
+                              .astype(np.float32)).cuda()
+    raw_extra, want = [], {}
+    at = lambda i: min(V - 1, i)                               # noqa: E731
+    for s in range(S):
+        kind = s % 5
+        if kind == 0:
+            for i in (chunk - 1, chunk, 2 * chunk + 3):
+                logits[s, at(i)] = float("inf")
+            want[s] = at(chunk - 1)
+        elif kind == 1:
+            logits[s, at(5)] = float("inf")
+            for i in (3 * chunk + 2, 2 * chunk + 1):
+                logits[s, at(i)] = float("nan")
+            want[s] = min(at(2 * chunk + 1), at(3 * chunk + 2))
+        elif kind == 2:
+            logits[s] = float("-inf")
+            want[s] = 0
+        elif kind == 3:
+            logits[s, V - 1] = 1e9
+            raw_extra.append((s, max(0, V - 2)))
+            want[s] = V - 1
+    raw = logits.to(raw_dtype, copy=True)
+    for s, i in raw_extra:
+        raw[s, i] = float("nan")
+    keys = torch.from_numpy(gen.integers(0, 2**32, (S, 2), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).cuda() \
+        .view(torch.uint32)
+    seeds = torch.from_numpy(gen.integers(-2**31, 2**31, S, dtype=np.int64)
+                             .astype(np.int32)).cuda()
+    fresh = torch.from_numpy(gen.integers(0, 2, S).astype(np.int32)).cuda()
+    emit = torch.from_numpy(gen.integers(0, 2, S).astype(np.int32)).cuda()
+    return (logits, keys, seeds, fresh, emit), raw, want
+
+
+def r1_poisoned(torch, sr, args, raw, alias=False):
+    """R1 launched into outputs poisoned with NaN bits (``alias``: keys_out
+    is a copy of keys passed as both): (tokens, keys_out, bad)."""
+    S = args[0].shape[0]
+    dev = args[0].device
+    tokens = torch.full((S,), POISON, dtype=torch.int32, device=dev)
+    bad = torch.full((S,), POISON, dtype=torch.int32, device=dev)
+    if alias:
+        keys = args[1].clone()
+        sr._launch(args[0], keys, *args[2:], raw, tokens, keys, bad)
+        return tokens, keys, bad
+    keys_out = torch.full((S, 2), POISON, dtype=torch.int32,
+                          device=dev).view(torch.uint32)
+    sr._launch(*args, raw, tokens, keys_out, bad)
+    return tokens, keys_out, bad
+
+
+def phase_rng(torch, np, peak, flush, record, parent=None):
     from paddle_tpu_torch import nn
     from paddle_tpu_torch.core import prng
     from paddle_tpu_torch.core import random as trandom
+    from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import sample_rows as sr
     from paddle_tpu_torch.ops.kernels import threefry_fill as tf
     F = nn.functional
+    for stem, names in RNG_KERNELS.items():
+        log_ptxas("rng", stem, names)
+    sass = rng_sass(_build, RNG_SASS, "new")
+    psr = ptf = psass = None
+    if parent is not None:
+        psr, ptf, pbuild = import_parent(parent)
+        for stem in RNG_KERNELS:
+            info = pbuild.build_log().get(stem)
+            if info is not None:
+                log(f"rng parent ptxas {stem}: " + " | ".join(
+                    ln.strip() for ln in info["ptxas"].splitlines()
+                    if "registers" in ln))
+        psass = rng_sass(pbuild, PARENT_SASS, "parent")
     gen = np.random.default_rng(11)
     # R1: 1024 rows at Llama-2's and Llama-3's vocabularies, the raw rows
     # in bf16 (the 7B serve's logits) and in f32
@@ -2058,33 +2460,58 @@ def phase_rng(torch, np, peak, flush, record):
                 and got[2][:5].tolist() == [0, 1, 1, 0, 1]):
             raise SystemExit(f"rng: R1 disagrees with its plain version at "
                              f"V = {V}")
-    # R1's time at the serve wave's shape: f32 filtered rows, bf16 raw
-    S, V = 8, 32000
-    args, raw = r1_case(torch, np, gen, S, V, torch.bfloat16)
-    logits = args[0]
-    ms = cuda_ms(lambda: sr.sample_rows(*args, raw=raw), torch, flush=flush)
-    # the plain versions copy small constants from the host, which waits
-    # for the card: no spin covers them, so they are timed between events
-    plain_ms = event_ms(lambda: sr._ref_sample_rows(*args, raw=raw), torch,
-                        flush=flush)
-    argmax_ms = cuda_ms(lambda: torch.argmax(logits, -1), torch,
-                        flush=flush)
-    nbytes = S * V * (4 + 2) + S * (8 + 4 + 4 + 4) + S * (4 + 8 + 4)
-    bound_ms, by = bound(nbytes, 0, peak)
-    log(f"rng r1 time at {S} x {V} f32 (raw bf16): {ms:.4f} ms, plain "
-        f"version {plain_ms:.4f} ms (events), torch.argmax over the same "
-        f"logits {argmax_ms:.4f} ms (greedy's cost, a yardstick), bound "
-        f"{bound_ms:.4f} ms ({by}; {nbytes} bytes): "
-        f"{100 * bound_ms / ms:.1f}% of it")
-    record["sample_rows"].update(max_abs_err=r1_err, ms=ms,
-                                 plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=by, argmax_ms=argmax_ms)
+    # R1 over many blocks: planted ties across block boundaries, NaNs in
+    # several chunks, the maximum and a raw NaN in the last chunk; each
+    # case twice into NaN-poisoned outputs, once more with keys_out
+    # aliasing keys, and once on the scalar route (an unaligned view)
+    r1_bad = []
+    sms = sr.sm_count(0)
+    for S, V, raw_dtype in ((1, 32000, torch.bfloat16),
+                            (8, 32000, torch.bfloat16),
+                            (64, 32000, torch.float16),
+                            (1, 128256, torch.float32),
+                            (8, 128256, torch.bfloat16),
+                            (64, 128256, torch.float32)):
+        p = sr.plan(S, V, sms)
+        args, raw, planted = r1_planted(torch, np, gen, S, V, p.chunk,
+                                        raw_dtype)
+        before = dict(sr.sample_rows.route_launches)
+        runs = [r1_poisoned(torch, sr, args, raw) for _ in range(2)]
+        runs.append(r1_poisoned(torch, sr, args, raw, alias=True))
+        big = torch.empty((S, V + 1), device="cuda")
+        big[:, 1:] = args[0]
+        runs.append(r1_poisoned(torch, sr, (big[:, 1:], *args[1:]), raw))
+        want = sr._ref_sample_rows(*args, raw=raw)
+        torch.cuda.synchronize()
+        routes = {k: sr.sample_rows.route_launches[k] - before[k]
+                  for k in before}
+        errs = [max(max_diff(torch, a, b) for a, b in zip(run, want))
+                for run in runs]
+        r1_err = max(r1_err, *errs)
+        equal = all(torch.equal(words(torch, a), words(torch, b))
+                    for run in runs[1:] for a, b in zip(run, runs[0]))
+        tok = runs[0][0].tolist()
+        hits = all(tok[s] == t for s, t in planted.items())
+        flags = runs[0][2].tolist()
+        flagged = all(flags[s] == 1 for s in range(S) if s % 5 in (1, 3))
+        ok = max(errs) == 0 and equal and hits and flagged and \
+            routes == {"vector": 3, "scalar": 1}
+        log(f"rng r1 plan S={S} V={V} raw {raw_dtype}: {p.blocks} blocks a "
+            f"row of {p.chunk} ({p.threads} threads); largest |kernel - "
+            f"plain| of each run (poisoned, poisoned, keys_out = keys, "
+            f"scalar route) {errs}, runs bitwise equal {equal}, planted "
+            f"tokens {hits}, planted flags {flagged}, routes {routes}")
+        if not ok:
+            r1_bad.append((S, V))
+    if r1_bad:
+        raise SystemExit(f"rng: R1's many-block cases failed {r1_bad}")
     # R2's draws against the plain version on the card
     key = prng.PRNGKey(2024)
     worst_ulps, r2_err, checks = 0.0, 0.0, {}
-    for shape in ((8, 1024, 16, 64), (1000, 333), (7,)):
-        for what, lo in ((tf._KEEP, 0.9), (tf._KEEP, 0.5),
-                         (tf._GUMBEL, prng.TINY_F32), (tf._GUMBEL, 1e-10)):
+    for shape in ((8, 1024, 16, 64), (1000, 333), (7,), (7, 1001)):
+        for what, lo in ((tf._KEEP, 0.9), (tf._KEEP, 0.5), (tf._KEEP, 0.0),
+                         (tf._KEEP, 1.0), (tf._GUMBEL, prng.TINY_F32),
+                         (tf._GUMBEL, 1e-10)):
             got = tf.fill(key, shape, what, "cuda", lo)
             again = tf.fill(key, shape, what, "cuda", lo)
             want = tf._ref_fill(key, shape, what, lo, "cuda")
@@ -2098,64 +2525,263 @@ def phase_rng(torch, np, peak, flush, record):
                 checks[tag] = same_bits(torch, got, want) \
                     and same_bits(torch, got, again)
     # dropout at a small shape (one pass of the kernel's grid) and at the
-    # path's shapes: llama_350m's attention output and hidden state, each
-    # over four grid-stride passes, full and broadcast masks
+    # path's shapes: llama_350m's attention output and hidden state, full
+    # and broadcast masks; forward (its saved bits too) and the vjp from
+    # the saved bits
     cases = []
-    for dname in ("float32", "bfloat16"):
+    for dname in ("float32", "bfloat16", "float16"):
         dtype = getattr(torch, dname)
         x = torch.randn((8, 64, 16, 64), dtype=dtype, device="cuda")
         x.view(-1)[5] = float("nan")
-        cases += [(dname, x, m) for m in ((8, 64, 16, 64), (8, 1, 16, 1),
-                                          (1, 64, 1, 64))]
+        cases += [(dname, x, m, None) for m in ((8, 64, 16, 64), (8, 1, 16, 1),
+                                                (1, 64, 1, 64))]
+        x = torch.randn((8, 64, 32, 32), dtype=dtype, device="cuda")
+        cases.append((dname, x, (8, 64, 1, 1), None))        # dropout2d
+        x = torch.randn((7, 1001), dtype=dtype, device="cuda")
+        cases += [(dname, x, (7, 1001), None), (dname, x, (7, 1), None)]
+        buf = torch.randn((8 * 64 * 16 * 64 + 1,), dtype=dtype,
+                          device="cuda")
+        xo = buf[1:].view(8, 64, 16, 64)                      # unaligned
+        cases += [(dname, xo, (8, 64, 16, 64), "scalar"),
+                  (dname, xo, (1, 64, 1, 64), "scalar")]
+        cases += [(dname, x, m, "wide") for m in ((7, 1001), (1, 1001))]
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
         x = torch.randn((8, 1024, 16, 64), dtype=dtype, device="cuda")
         x.view(-1)[3 * 2**21 + 5] = float("nan")
-        cases += [(dname, x, m) for m in ((8, 1024, 16, 64),
-                                          (8, 1024, 1, 64),
-                                          (1, 1024, 16, 64))]
+        cases += [(dname, x, m, None) for m in ((8, 1024, 16, 64),
+                                                (8, 1024, 1, 64),
+                                                (1, 1024, 16, 64))]
     h = torch.randn((8, 1024, 1024), dtype=torch.bfloat16, device="cuda")
-    cases += [("bfloat16", h, (8, 1024, 1024)), ("bfloat16", h, (8, 1, 1024))]
-    for dname, x, mask in cases:
-        for p, upscale, backward in ((0.1, True, False), (0.1, True, True),
-                                     (0.5, False, False), (1.0, True, True)):
-            got = tf.dropout(x, key, mask, p, upscale, backward)
-            again = tf.dropout(x, key, mask, p, upscale, backward)
-            want = tf._ref_dropout(x, key, mask, p, upscale, backward)
-            r2_err = max(r2_err, max_diff(torch, got, want))
+    cases += [("bfloat16", h, (8, 1024, 1024), None),
+              ("bfloat16", h, (8, 1, 1024), None)]
+    routes_seen = dict.fromkeys(tf.ROUTES, 0)
+    for dname, x, mask, forced in cases:
+        expect = forced or tf.route(tuple(x.shape), mask, True)
+        for p, upscale in ((0.0, True), (0.1, True), (0.5, True),
+                           (0.5, False), (1.0, True)):
+            keep_p, c, mode = tf._plan_args(x, mask, p, upscale)
+            before = dict(tf.dropout.route_launches)
+            got, bits = tf._launch(x, key, mask, keep_p, c, mode,
+                                   save_mask=True, force_route=forced)
+            again, bits2 = tf._launch(x, key, mask, keep_p, c, mode,
+                                      save_mask=True, force_route=forced)
+            want, wbits = tf._ref_dropout(x, key, mask, p, upscale,
+                                          save_mask=True)
+            g = torch.randn(x.shape, dtype=x.dtype, device="cuda")
+            vjp = tf._launch(g, None, mask, keep_p, c, tf._GRAD_MODE[mode],
+                             bits_in=bits, force_route=forced)[0]
+            wvjp = tf._ref_dropout_vjp(g, wbits, mask, p, upscale)
+            took = {k: tf.dropout.route_launches[k] - before[k]
+                    for k in before}
+            for k in took:
+                routes_seen[k] += took[k]
+            r2_err = max(r2_err, max_diff(torch, got, want),
+                         max_diff(torch, vjp, wvjp))
             checks[f"dropout {dname} {tuple(x.shape)} mask {mask} p={p} "
-                   f"upscale={upscale} backward={backward}"] = \
+                   f"upscale={upscale} route {expect}"] = (
                 same_bits(torch, got, want) and same_bits(torch, got, again)
+                and torch.equal(bits, wbits) and torch.equal(bits, bits2)
+                and same_bits(torch, vjp, wvjp) and took[expect] == 3)
     torch.cuda.synchronize()
     bad = [k for k, v in checks.items() if not v]
     log(f"rng r2: {len(checks)} cases (keep masks, Gumbel noise, dropout "
-        f"forward and backward up to 8 x 1024 x 16 x 64) against the plain "
-        f"version: {len(checks) - len(bad)} pass; largest |kernel - plain| "
+        f"forward with its saved bits and the vjp from them, f32 / bf16 / "
+        f"f16, p in 0, 0.1, 0.5, 1, up to "
+        f"8 x 1024 x 1024) against the plain version: {len(checks) - len(bad)}"
+        f" pass; launches by route {routes_seen}; largest |kernel - plain| "
         f"{r2_err:.3e}; Gumbel noise within {worst_ulps:.3f} ulps of "
         f"max(|g|, 1) (tolerance {RNG_ULPS})")
     if bad:
         raise SystemExit(f"rng: R2 disagrees with its plain version: {bad}")
-    # dropout's time at llama_350m's attention output (bf16)
+    rng_times(torch, np, peak, flush, record, sr, tf, sass, psr, ptf, psass,
+              r1_err, r2_err, worst_ulps)
+    rng_path(torch, F, tf, trandom, record, r2_err)
+
+
+def rng_times(torch, np, peak, flush, record, sr, tf, sass, psr, ptf,
+              psass, r1_err, r2_err, worst_ulps):
+    """R1's and R2's times at the main path's shapes beside their bounds
+    (bytes, or the least instructions the function needs over the card's
+    rates: NEED; and the kernel's own SASS counts over the same rates),
+    the plain versions, the library yardsticks and, given a parent tree,
+    the parent's kernels in the same call. Each timed call's outputs are
+    then held bit for bit against the plain version's."""
+    from paddle_tpu_torch.core import prng
+    gen = np.random.default_rng(12)
+    key = prng.PRNGKey(2024)
+    wrong = []
+
+    def line(tag, ms, nbytes, needs, own, plain_ms=None, library=None,
+             parent=None):
+        b, by, term = bound(nbytes, 0, peak, instr=needs, term=True)
+        sb, _, sterm = bound(nbytes, 0, peak, instr=own, term=True)
+        text = (f"rng time {tag}: {ms:.4f} ms; the function's bound {b:.4f} "
+                f"ms ({by}: {term}; {nbytes} bytes, instructions " +
+                ", ".join(f"{k} {v:.4g}" for k, v in needs.items() if v) +
+                f"): {100 * b / ms:.1f}% of it; the kernel's own SASS's "
+                f"{sb:.4f} ms ({sterm}): {100 * sb / ms:.1f}% of it")
+        if parent is not None:
+            pms, pops = parent
+            pb, _, pterm = bound(nbytes, 0, peak, instr=pops, term=True)
+            text += (f"; parent {pms:.4f} ms ({pms / ms:.2f}x the new), the "
+                     f"function's bound {100 * b / pms:.1f}% of it, its own "
+                     f"SASS's {pb:.4f} ms ({pterm}): {100 * pb / pms:.1f}%")
+        if plain_ms is not None:
+            text += f"; plain version {plain_ms:.4f} ms (events)"
+        if library is not None:
+            text += f"; {library[0]} {library[1]:.4f} ms (a yardstick)"
+        log(text)
+        return {"ms": ms, "bound_ms": b, "bound_by": by, "bound_term": term,
+                "sass_bound_ms": sb, "sass_bound_term": sterm,
+                "plain_ms": plain_ms,
+                "parent_ms": None if parent is None else parent[0]}
+
+    def timed(tag, fn, same, parent_fn=None):
+        """min of two times of ``fn`` (change, parent, change, parent with
+        ``parent_fn``), and the parent's; ``same(out)`` then holds the
+        timed call's outputs against the plain version."""
+        ms = cuda_ms(fn, torch, flush=flush)
+        pms = None if parent_fn is None else cuda_ms(parent_fn, torch,
+                                                     flush=flush)
+        ms2 = cuda_ms(fn, torch, flush=flush)
+        if parent_fn is not None:
+            pms = min(pms, cuda_ms(parent_fn, torch, flush=flush))
+        if not same(fn()):
+            wrong.append(tag)
+        return min(ms, ms2), pms
+
+    out = {}
+    # R1 at one live slot, the serve wave's shape, Llama-3's vocabulary and
+    # 1024 rows
+    for S, V in ((1, 32000), (8, 32000), (8, 128256), (1024, 32000)):
+        args, raw = r1_case(torch, np, gen, S, V, torch.bfloat16)
+        want = sr._ref_sample_rows(*args, raw=raw)
+        ms, pms = timed(
+            f"r1 {S} x {V}", lambda: sr.sample_rows(*args, raw=raw),
+            lambda got: all(torch.equal(words(torch, a), words(torch, b))
+                            for a, b in zip(got, want)),
+            None if psr is None else
+            (lambda: psr.sample_rows(*args, raw=raw)))
+        plain_ms = event_ms(lambda: sr._ref_sample_rows(*args, raw=raw),
+                            torch, iters=3 if S > 8 else 10, flush=flush)
+        argmax_ms = cuda_ms(lambda: torch.argmax(args[0], -1), torch,
+                            flush=flush)
+        nbytes = S * V * (4 + 2) + S * (8 + 4 + 4 + 4) + S * (4 + 8 + 4)
+        p = sr.plan(S, V, sr.sm_count(0))
+        out[f"r1 {S}x{V}"] = line(
+            f"r1 {S} x {V} f32, raw bf16 ({p.blocks} blocks a row of "
+            f"{p.threads} threads)", ms, nbytes,
+            ops_of((S * V, need("r1", sass))), ops_of((S * V, sass["r1"])),
+            plain_ms, ("torch.argmax over the same logits", argmax_ms),
+            None if pms is None else (pms, ops_of((S * V, psass["r1"]))))
+        out[f"r1 {S}x{V}"]["argmax_ms"] = argmax_ms
+    # R2: dropout at llama_350m's attention output, full mask, forward
+    # with its saved bits (the autograd path), and the backward from them
     x = torch.randn((8, 1024, 16, 64), dtype=torch.bfloat16, device="cuda")
-    shape = tuple(x.shape)
-    ms = cuda_ms(lambda: tf.dropout(x, key, shape, 0.1, True), torch,
-                 flush=flush)
-    plain_ms = event_ms(lambda: tf._ref_dropout(x, key, shape, 0.1, True),
+    g = torch.randn_like(x)
+    shape, n = tuple(x.shape), x.numel()
+    want, wbits = tf._ref_dropout(x, key, shape, 0.1, True, save_mask=True)
+    wvjp = tf._ref_dropout_vjp(g, wbits, shape, 0.1, True)
+    lib = cuda_ms(lambda: torch.nn.functional.dropout(x, 0.1, training=True),
+                  torch, flush=flush)
+    yard = ("torch.nn.functional.dropout (Philox: another mask)", lib)
+    ms, pms = timed(
+        "r2 forward", lambda: tf.dropout(x, key, shape, 0.1, True,
+                                         save_mask=True),
+        lambda o: same_bits(torch, o[0], want) and torch.equal(o[1], wbits),
+        None if ptf is None else
+        (lambda: ptf.dropout(x, key, shape, 0.1, True)))
+    plain_ms = event_ms(lambda: tf._ref_dropout(x, key, shape, 0.1, True,
+                                                save_mask=True),
                         torch, flush=flush)
-    library_ms = cuda_ms(lambda: torch.nn.functional.dropout(
-        x, 0.1, training=True), torch, flush=flush)
-    timed = tf.dropout(x, key, shape, 0.1, True)
-    timed_ok = same_bits(torch, timed, tf._ref_dropout(x, key, shape, 0.1,
-                                                       True))
-    nbytes = 2 * x.numel() * x.element_size()
-    bound_ms, by = bound(nbytes, 0, peak)
-    log(f"rng r2 dropout time at {shape} bf16: {ms:.4f} ms, plain version "
-        f"{plain_ms:.4f} ms (events), torch.nn.functional.dropout "
-        f"{library_ms:.4f} ms (a yardstick the port never calls), bound "
-        f"{bound_ms:.4f} ms ({by}; {nbytes} bytes): "
-        f"{100 * bound_ms / ms:.1f}% of it; the timed call's output bit for "
-        f"bit the plain version's {timed_ok}")
-    if not timed_ok:
-        raise SystemExit("rng: R2's timed dropout disagrees with its plain "
-                         "version")
+    pops = None if psass is None else ops_of((n, psass["dropout"]))
+    out["fwd"] = line("r2 dropout forward 8 x 1024 x 16 x 64 bf16, full mask, "
+                      "saving its bits", ms, 4 * n + n // 8,
+                      ops_of((n, need("dropout_fwd", sass))),
+                      ops_of((n, sass["dropout_fwd"])), plain_ms, yard,
+                      None if pms is None else (pms, pops))
+    out["fwd"]["library_ms"] = lib
+    vjp_ms, _ = timed(
+        "r2 backward", lambda: tf.dropout_vjp(g, wbits, shape, 0.1, True),
+        lambda o: same_bits(torch, o, wvjp))
+    out["vjp"] = line("r2 dropout backward from the saved bits", vjp_ms,
+                      4 * n + n // 8, ops_of((n, need("dropout_vjp", sass))),
+                      ops_of((n, sass["dropout_vjp"])),
+                      event_ms(lambda: tf._ref_dropout_vjp(
+                          g, wbits, shape, 0.1, True), torch, flush=flush))
+    log(f"rng r2 backward {vjp_ms:.4f} ms against the forward {ms:.4f} ms: "
+        f"{vjp_ms / ms:.2f}x")
+    # R2 over broadcast masks: a hidden state's (8, 1, 1024) mask, and
+    # dropout2d's channels
+    for tag, xs, mask in (("(8, 1, 1024) mask over 8 x 1024 x 1024",
+                           (8, 1024, 1024), (8, 1, 1024)),
+                          ("dropout2d (8, 64, 1, 1) over 8 x 64 x 32 x 32",
+                           (8, 64, 32, 32), (8, 64, 1, 1))):
+        xb = torch.randn(xs, dtype=torch.bfloat16, device="cuda")
+        nb, m = xb.numel(), math.prod(mask)
+        want, wbits = tf._ref_dropout(xb, key, mask, 0.1, True,
+                                      save_mask=True)
+        ms, pms = timed(
+            f"r2 {tag}", lambda: tf.dropout(xb, key, mask, 0.1, True,
+                                            save_mask=True),
+            lambda o: same_bits(torch, o[0], want) and torch.equal(o[1],
+                                                                   wbits),
+            None if ptf is None else
+            (lambda: ptf.dropout(xb, key, mask, 0.1, True)))
+        plain_ms = event_ms(lambda: tf._ref_dropout(xb, key, mask, 0.1, True,
+                                                    save_mask=True),
+                            torch, flush=flush)
+        lib = cuda_ms(lambda: torch.nn.functional.dropout(
+            xb, 0.1, training=True), torch, flush=flush)
+        out[tag] = line(f"r2 {tag} bf16, saving its bits", ms,
+                        4 * nb + -(-m // 8),
+                        ops_of((m, need("mask", sass)),
+                               (nb, need("value16", sass))),
+                        ops_of((m, sass["dropout_fwd"]),
+                               (nb, sass["dropout_vjp"])), plain_ms,
+                        ("torch.nn.functional.dropout (full mask)", lib),
+                        None if pms is None else
+                        (pms, ops_of((nb, psass["dropout"]))))
+    # the Gumbel draw at the serve wave's vocabulary
+    want = tf._ref_fill(key, (8, 32000), tf._GUMBEL, prng.TINY_F32, "cuda")
+    ms, pms = timed("r2 gumbel", lambda: tf.gumbel(key, (8, 32000), "cuda"),
+                    lambda o: same_bits(torch, o, want),
+                    None if ptf is None else
+                    (lambda: ptf.gumbel(key, (8, 32000), "cuda")))
+    plain_ms = event_ms(lambda: tf._ref_fill(key, (8, 32000), tf._GUMBEL,
+                                             prng.TINY_F32, "cuda"),
+                        torch, flush=flush)
+    out["gumbel"] = line("r2 gumbel 8 x 32000 f32", ms, 4 * 8 * 32000,
+                         ops_of((8 * 32000, need("gumbel", sass))),
+                         ops_of((8 * 32000, sass["gumbel"])), plain_ms, None,
+                         None if pms is None else
+                         (pms, ops_of((8 * 32000, psass["fill"]))))
+    torch.cuda.synchronize()
+    log(f"rng times: every timed call's outputs bit for bit the plain "
+        f"version's: {not wrong}")
+    if wrong:
+        raise SystemExit(f"rng: timed calls disagree with their plain "
+                         f"versions: {wrong}")
+    r1 = out["r1 8x32000"]
+    record["sample_rows"].update(
+        max_abs_err=r1_err, ms=r1["ms"], plain_ms=r1["plain_ms"],
+        bound_ms=r1["bound_ms"], bound_by=r1["bound_by"],
+        bound_term=r1["bound_term"], sass_bound_ms=r1["sass_bound_ms"],
+        argmax_ms=r1["argmax_ms"], parent_ms=r1["parent_ms"])
+    f = out["fwd"]
+    record["threefry_fill"].update(
+        max_abs_err=r2_err, ms=f["ms"], plain_ms=f["plain_ms"],
+        bound_ms=f["bound_ms"], bound_by=f["bound_by"],
+        bound_term=f["bound_term"], sass_bound_ms=f["sass_bound_ms"],
+        library_ms=f["library_ms"], parent_ms=f["parent_ms"],
+        backward_ms=out["vjp"]["ms"], gumbel_ulps=worst_ulps)
+
+
+def rng_path(torch, F, tf, trandom, record, r2_err):
+    """R2's path through the port's entry points, the counters zeroed
+    before and read after, against the plain version under the same
+    keys."""
     # R2's path: attention with dropout while training, a hidden state's
     # dropout and a hard gumbel_softmax, through the port's entry points
     q, k, v = (torch.randn((8, 1024, 16, 64), dtype=torch.bfloat16,
@@ -2184,8 +2810,10 @@ def phase_rng(torch, np, peak, flush, record):
                 attn, k_attn, tuple(attn.shape), 0.1, True)),
             "hidden dropout forward": (hd, tf._ref_dropout(
                 h, k_h, tuple(h.shape), 0.1, True)),
-            "hidden dropout backward": (h.grad, tf._ref_dropout(
-                torch.ones_like(h), k_h, tuple(h.shape), 0.1, True, True))}
+            "hidden dropout backward": (h.grad, tf._ref_dropout_vjp(
+                torch.ones_like(h), tf._ref_dropout(
+                    h, k_h, tuple(h.shape), 0.1, True, save_mask=True)[1],
+                tuple(h.shape), 0.1, True))}
         g_ref = tf._ref_fill(k_g, tuple(lg.shape), tf._GUMBEL, 1e-10,
                              "cuda")
     path_ok = {name: same_bits(torch, a, b) for name, (a, b) in path.items()}
@@ -2218,8 +2846,7 @@ def phase_rng(torch, np, peak, flush, record):
     if bad:
         raise SystemExit(f"rng: R2's path failed {bad}")
     record["threefry_fill"].update(
-        max_abs_err=r2_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=by, library_ms=library_ms, gumbel_ulps=worst_ulps,
+        max_abs_err=r2_err,
         launches=counts["r2_dropout"] + counts["r2_fill"])
 
 
@@ -3542,6 +4169,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)}")
+    ap.add_argument("--parent", default=None,
+                    help="a parent tree's root (git archive unpacked): the "
+                         "rng phase times its R1 and R2 beside this tree's")
     args = ap.parse_args()
     phases = [p for p in args.only.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -3567,6 +4197,11 @@ def main():
     log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    rates = card_rates(torch)
+    log(f"card rates: {rates['sms']} SMs at {rates['clock_mhz']:.0f} MHz "
+        f"(nvidia-smi clocks.max.sm): " + ", ".join(
+            f"{k} {rates[k] / 1e12:.2f}e12 instructions/s ({n} lanes an SM)"
+            for k, n in LANES.items()))
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}; bounds use "
@@ -3670,7 +4305,7 @@ def main():
     if "opt" in phases:
         phase_opt(torch, np, peak, flush, record)
     if "rng" in phases:
-        phase_rng(torch, np, peak, flush, record)
+        phase_rng(torch, np, peak, flush, record, args.parent)
     del flush
     if "parity" in phases:
         phase_parity(torch, np)

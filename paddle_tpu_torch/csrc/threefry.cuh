@@ -23,6 +23,16 @@
 //
 // Every float operation is an __*_rn intrinsic: nvcc contracts nothing
 // else, and the library is built without --use_fast_math.
+//
+// What the hash costs on Hopper: one bits_at on a 32-bit counter needs at
+// least 68 integer instructions, 41 that only the integer ALU runs (20
+// funnel-shift rotates, 21 xors) and 27 adds that the ALU (IADD3) or the
+// FMA pipe (IMAD) can take (chip_smoke.py's NEED). The compiled hash is
+// ~49 ALU instructions and ~25 IMAD / VIADD (sm_90a SASS, counted by
+// chip_smoke.py's rng phase). An SM runs 64 ALU lanes a clock, so a whole
+// card does ~400 hashes a ns at best. gumbel_f32's two f64 logs add 64
+// FP64 instructions on the 64 FP64 lanes. The kernels built on these are
+// bound by those pipes and by issue slots, not by their bytes.
 #pragma once
 
 #include <cstdint>
@@ -63,11 +73,26 @@ __device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1,
 }
 
 // the 32 random bits of element i (its flat index) of a draw under key k
-__device__ __forceinline__ uint32_t bits32(uint32_t k0, uint32_t k1,
-                                           unsigned long long i) {
+__device__ __forceinline__ uint32_t bits_at(uint32_t k0, uint32_t k1,
+                                            unsigned long long i) {
   const uint2 b = threefry2x32(k0, k1, static_cast<uint32_t>(i >> 32),
                                static_cast<uint32_t>(i));
   return b.x ^ b.y;
+}
+
+// the same for i < 2^32: the counter's high word is 0, so its first key
+// add folds into the schedule (one add fewer an element)
+__device__ __forceinline__ uint32_t bits_at(uint32_t k0, uint32_t k1,
+                                            uint32_t i) {
+  const uint2 b = threefry2x32(k0, k1, 0u, i);
+  return b.x ^ b.y;
+}
+
+// bernoulli's keep flag unit_f32(bits) < p on the bits alone: unit_f32
+// is m * 2^-23 for m = bits >> 9, so it is below f32 p exactly when m <
+// ceil(p * 2^23) = thresh (computed on the host, clamped to [0, 2^23])
+__device__ __forceinline__ bool keep_bits(uint32_t bits, uint32_t thresh) {
+  return (bits >> 9) < thresh;
 }
 
 // f32 in [0, 1) from 32 random bits: exact

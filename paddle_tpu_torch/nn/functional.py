@@ -6,8 +6,8 @@ autograd Functions), the rest is plain torch, as the JAX package leaves
 it to XLA. The dropout family and ``gumbel_softmax`` draw their keys
 from ``core.random.next_key`` exactly where the reference does, so the
 same ``seed()`` gives the same masks; on the card the draw and dropout's
-apply are R2 (``ops.kernels.threefry_fill``), dropout's backward drawing
-the mask again from the saved key. Under ``amp.auto_cast`` each entry
+apply are R2 (``ops.kernels.threefry_fill``), dropout's backward reading
+the keep flags its forward saved as bits. Under ``amp.auto_cast`` each entry
 point casts its inputs under the reference's op name (``linear``, ``flash_attention``,
 ``sdp_attention``: the AMP dtype; ``rms_norm``, ``softmax``,
 ``cross_entropy_with_softmax``, ``cross_entropy_soft``: f32), as the
@@ -86,20 +86,23 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
 
 class _Dropout(torch.autograd.Function):
-    """Dropout under one key: the forward draws the mask and applies it
-    (R2 on the card), the backward draws it again from the key and
-    applies the vjp; no mask is stored."""
+    """Dropout under one key: the forward draws the mask, applies it and
+    keeps it packed 8 flags to a byte (R2 on the card); the backward
+    applies the vjp from those bits, as the reference's vjp keeps
+    ``keep`` as its residual."""
 
     @staticmethod
     def forward(ctx, x, key, mask_shape, p, upscale):
-        ctx.args = (key, mask_shape, p, upscale)
-        return _tf.dropout(x, key, mask_shape, p, upscale)
+        out, bits = _tf.dropout(x, key, mask_shape, p, upscale,
+                                save_mask=True)
+        ctx.save_for_backward(bits)
+        ctx.args = (mask_shape, p, upscale)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        key, mask_shape, p, upscale = ctx.args
-        return (_tf.dropout(g, key, mask_shape, p, upscale, backward=True),
-                None, None, None, None)
+        (bits,) = ctx.saved_tensors
+        return (_tf.dropout_vjp(g, bits, *ctx.args), None, None, None, None)
 
 
 def _scalar(v, like):

@@ -19,8 +19,15 @@ reference does, so the same seed gives the same masks op for op:
   dropped elements bit for bit, values and gradients within 1e-5 (the
   composition's products are summed by another BLAS), and the counter
   advanced as the reference's: the next key drawn after it is equal;
-- the CPU takes the plain versions: no R2 launch.
+- the CPU takes the plain versions: no R2 launch;
+- the kernel's plans, by their CPU models: the integer keep test
+  ``(bits >> 9) < keep_threshold(p)`` equals the float test for all 2**23
+  mantissas; the magic divisors divide; the collapsed-axis plan's walk
+  writes each value once with ``_mask_strides``' mask index on every
+  route; the saved mask's bit packing; and ``_Dropout``'s backward from
+  the saved bits equal to ``jax.vjp`` of the reference's dropout.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -190,3 +197,110 @@ def test_mask_strides_recompose_the_mask_index():
     want = np.ravel_multi_index(
         tuple(np.where(np.asarray(mask) == 1, 0, idx).T), mask)
     np.testing.assert_array_equal(flat, want)
+
+
+# ------------------------------------------- R2's keep test, plan and bits
+
+
+KEEP_PS = [0.0, 2.0 ** -23, 1e-10, 0.1, 0.5, 0.9,
+           float(np.nextafter(np.float32(1), np.float32(0))), 1.0]
+
+
+@pytest.mark.parametrize("p", KEEP_PS)
+def test_integer_keep_threshold_equals_the_float_test(p):
+    """``(bits >> 9) < keep_threshold(p)`` equals ``unit_f32(bits) <
+    f32(p)`` for every one of the 2**23 mantissas ``bits >> 9`` (the low 9
+    bits do not reach either test)."""
+    m = np.arange(1 << 23, dtype=np.uint32)
+    unit = (m | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
+    np.testing.assert_array_equal(m < ttf.keep_threshold(p),
+                                  unit < np.float32(p))
+
+
+def test_magic_division_matches_integer_division():
+    rng = np.random.default_rng(3)
+    divisors = [1, 2, 3, 7, 8, 1000, 1024, 32000, 128256, 2**31 - 1,
+                2**31 + 5, 2**32 - 1, *rng.integers(1, 2**32, 20).tolist()]
+    n = np.concatenate([rng.integers(0, 2**32, 4000, dtype=np.int64),
+                        [0, 1, 2**31 - 1, 2**31, 2**32 - 2, 2**32 - 1]])
+    for d in divisors:
+        mg = ttf.magic(int(d))
+        assert 0 < mg[0] < 2**32
+        got = [ttf._udiv(int(v), mg) for v in n]
+        np.testing.assert_array_equal(got, n // int(d))
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_dropout_plan_reproduces_the_mask_index(seed):
+    """The collapsed-axis plan, walked with its magic divisors on each
+    route, writes every value element once with ``_mask_strides``' mask
+    index, for seeded shapes up to rank 8 with broadcast axes anywhere."""
+    rng = np.random.default_rng(seed)
+    for _ in range(8):
+        rank = int(rng.integers(1, 9))
+        shape = [int(s) for s in rng.integers(1, 5, rank)]
+        if rng.random() < 0.5:
+            shape[-1] = 8 * int(rng.integers(1, 3))
+        shape = tuple(shape)
+        mask = tuple(s if rng.random() < 0.5 else 1 for s in shape)
+        idx = np.indices(shape).reshape(rank, -1).T
+        want = (idx * np.asarray(ttf._mask_strides(shape, mask))).sum(1)
+        for force in (None, "scalar", "wide"):
+            p = ttf.dropout_plan(shape, mask, True, int(rng.integers(1, 6)),
+                                 force)
+            got, count = ttf.plan_walk(p, idx.shape[0])
+            assert (count == 1).all(), (shape, mask, p.route)
+            np.testing.assert_array_equal(got, want)
+
+
+def test_dropout_routes():
+    assert ttf.route((8, 1024, 16, 64), (8, 1024, 16, 64), True) == "vector"
+    assert ttf.route((7, 1001), (7, 1001), True) == "vector"   # a tail
+    assert ttf.route((8, 64, 32, 32), (8, 64, 1, 1), True) == "vector"
+    assert ttf.route((8, 1024, 1024), (8, 1, 1024), True) == "vector"
+    assert ttf.route((8, 1024, 16, 64), (8, 1024, 16, 64), False) == \
+        "scalar"
+    assert ttf.route((4, 6, 5), (4, 1, 5), True) == "scalar"   # odd runs
+    assert ttf.route((2**16, 2**16), (1, 2**16), True) == "wide"
+
+
+@pytest.mark.parametrize("mask", [(5, 3, 7), (5, 1, 7), (1, 3, 1), (1, 1, 1)])
+def test_saved_mask_bits_pack_the_keep_flags(mask):
+    keep = torch.from_numpy(np.random.default_rng(1).random(mask) < 0.5)
+    bits = ttf._ref_pack(keep)
+    assert bits.dtype == torch.uint8 and bits.numel() == -(-keep.numel() // 8)
+    np.testing.assert_array_equal(
+        bits.numpy(), np.packbits(keep.numpy().reshape(-1),
+                                  bitorder="little"))
+    assert torch.equal(ttf._ref_unpack(bits, mask), keep)
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["p0.3", "axis1", "downscale", "p1"])
+def test_dropout_backward_from_the_saved_bits_equals_jax_vjp(case, dname):
+    """``_Dropout``'s backward (the saved bits, no hash) against
+    ``jax.vjp`` of the reference's dropout at a random cotangent."""
+    kw = DROPOUT[case]
+    jd, td = DTYPES[dname]
+    x, ct = _x((4, 6, 5)), _x((4, 6, 5), seed=1)
+    pt.seed(5)
+    y, vjp = jax.vjp(lambda v: pt.nn.functional.dropout(
+        pt.to_tensor(v), **kw)._value, jnp.asarray(x, jd))
+    (want,) = vjp(jnp.asarray(ct, jd))
+    ptt.seed(5)
+    tx = torch.tensor(x).to(td).requires_grad_(True)
+    ty = F.dropout(tx, **kw)
+    ty.backward(torch.tensor(ct).to(td))
+    f32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))  # noqa
+    np.testing.assert_array_equal(ty.detach().float().numpy(), f32(y))
+    np.testing.assert_array_equal(tx.grad.float().numpy(), f32(want))
+    assert ttf.dropout.launches == 0
+
+
+def test_dropout_vjp_checks_the_saved_mask():
+    g = torch.zeros((2, 8))
+    _, bits = ttf.dropout(g, trandom.next_key(), (2, 8), 0.5, True,
+                          save_mask=True)
+    assert bits.numel() == 2
+    np.testing.assert_array_equal(
+        ttf.dropout_vjp(g, bits, (2, 8), 0.5, True).numpy(), 0)

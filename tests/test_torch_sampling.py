@@ -16,7 +16,11 @@
   -1, 2**32 - 1) and with the default-seed rule (``seed + rid``, a server
   seed past 2**31 included), top-k / top-p on and off, a request
   admitted mid-wave; pool drained, no launch on the CPU;
-- greedy serving does not touch the keys.
+- greedy serving does not touch the keys;
+- R1's many-block plan covers each element of a row once, and a CPU
+  model of its chunked walk plus the merge gives the plain version's
+  tokens (ties across chunk boundaries, NaNs in several chunks, an all
+  -inf row, V = 1).
 """
 import functools
 
@@ -260,3 +264,93 @@ def test_sampling_differs_from_greedy_and_greedy_leaves_the_keys():
     assert any(not np.array_equal(a, b) for a, b in zip(g, s))
     assert greedy.stats["sample_launches"] == 0
     assert not greedy._keys.to(torch.int64).any()
+
+
+# ------------------------------------------------- R1's plan and its merge
+
+
+@pytest.mark.parametrize("V", [1, 7, 32000, 128256])
+@pytest.mark.parametrize("S", [1, 8, 64, 1024])
+def test_r1_plan_covers_every_element_once(S, V):
+    p = tsr.plan(S, V, 132)
+    assert (tsr.plan_cover(p, V) == 1).all()
+    assert p.chunk % tsr.STEP == 0 and (p.blocks - 1) * p.chunk < V
+    assert 32 <= p.threads <= tsr.MAX_THREADS and p.threads % 32 == 0
+    steps = p.chunk // tsr.STEP               # at most half a warp idle
+    assert p.threads <= max(32, 2 * steps - 1)
+    if S == 8 and V >= 32000:
+        assert S * p.blocks >= 2 * 132            # two blocks an SM
+    if S == 1024:
+        assert p.blocks == 1                      # one block a row
+
+
+def _first_max(vals, idx):
+    """(value, index) first in argmax order (a NaN above every number, the
+    lower index winning ties) of f32 ``vals`` at ``idx``: the kernel's
+    ``ahead``."""
+    best, bi = -np.inf, np.iinfo(np.int32).max
+    for v, i in zip(vals.tolist(), idx.tolist()):
+        if np.isnan(best) or np.isnan(v):
+            if np.isnan(v) and (not np.isnan(best) or i < bi):
+                best, bi = v, i
+        elif v > best or (v == best and i < bi):
+            best, bi = v, i
+    return best, bi
+
+
+def _walk_and_merge(rows, p):
+    """The kernel's chunked walk and merge on the CPU: each block's first
+    maximum over its chunk's strided thread walk, then the blocks' pairs
+    merged in the same order."""
+    tokens = []
+    V = rows.shape[1]
+    for row in rows:
+        pairs = []
+        for part in range(p.blocks):
+            lo, hi = part * p.chunk, min(V, (part + 1) * p.chunk)
+            thread_best = []
+            for t in range(p.threads):
+                idx = np.concatenate([np.arange(v0, min(v0 + tsr.STEP, hi))
+                                      for v0 in range(lo + t * tsr.STEP, hi,
+                                                      p.threads * tsr.STEP)]
+                                     or [np.zeros(0, np.int64)])
+                thread_best.append(_first_max(row[idx], idx))
+            vals, idx = zip(*thread_best)
+            pairs.append(_first_max(np.array(vals, np.float32),
+                                    np.array(idx)))
+        vals, idx = zip(*pairs)
+        tokens.append(_first_max(np.array(vals, np.float32), np.array(idx))[1])
+    return np.array(tokens, np.int32)
+
+
+@pytest.mark.parametrize("V", [1, 77, 3000])
+def test_r1_chunked_walk_and_merge_give_the_plain_tokens(V):
+    """Ties across chunk boundaries, NaNs in several chunks, an all -inf
+    row and V = 1: the plan's walk plus the merge picks the plain
+    version's token."""
+    rng = np.random.default_rng(V)
+    S = 6
+    p = tsr.plan(S, V, 4)
+    logits = (rng.standard_normal((S, V)) * 3).astype(np.float32)
+    c = p.chunk
+    if V > 2 * c:
+        logits[0, [c - 1, c, 2 * c]] = np.inf              # a tie
+        logits[1, [2 * c + 1, c + 3]] = np.nan               # NaNs
+        logits[4, V - 1] = 1e9                               # the last chunk
+    logits[2] = -np.inf
+    keys = rng.integers(0, 2**32, (S, 2), dtype=np.uint64).astype(np.uint32)
+    args = (torch.from_numpy(keys.astype(np.int64)).to(torch.uint32),
+            torch.zeros((S,), dtype=torch.int32),
+            torch.zeros((S,), dtype=torch.int32),
+            torch.ones((S,), dtype=torch.int32))
+    want, _, _ = tsr.sample_rows(torch.from_numpy(logits), *args)
+    # the kernel's values: logits + the Gumbel noise of each row's sub key
+    from paddle_tpu_torch.core import prng
+    k0, k1 = prng.key_data(args[0])
+    sub = prng.split(prng.make_key(k0, k1)).unbind(-2)[1]
+    g = prng.gumbel_from_bits(prng.random_bits(sub, (V,))).numpy()
+    vals = (g + logits).astype(np.float32)
+    np.testing.assert_array_equal(_walk_and_merge(vals, p), want.numpy())
+    if V > 2 * c:
+        assert want[0] == c - 1 and want[1] == c + 3 and want[4] == V - 1
+    assert want[2] == 0
