@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only build,rng,parity
     python3 chip_smoke.py --only build,rng --parent build/parent
     python3 chip_smoke.py --only build,train,fit
+    python3 chip_smoke.py --only build,dense_parity,dense
 
 Phases, in order; any failure exits non-zero:
 
@@ -172,7 +173,26 @@ Phases, in order; any failure exits non-zero:
    (temperature 0.8, top_k 20, top_p 0.9; explicit seeds, edge seeds
    and the default rule past 2**31): card == CPU on each, one R1 launch
    a draw on the card;
-14. train_parity: llama_tiny in float32 trained 3 steps (``train_step_fn``
+14. dense_parity: the dense paths of the parity phase's llama_tiny-shaped
+   float32 model on the card and on the CPU from the same weights,
+   through the parity phase's two waves: the dense backend
+   (``cache_backend="dense"``) and the paged pool with
+   ``prefill_mode="dense"`` with a 12-token ``register_prefix`` (one page
+   and a tail, registered twice) shared by the second wave, each greedy
+   and sampled (the parity seeds), at ``tick_block`` 1 and 3; the paged
+   pool with its default ragged prefill (5 prompt tokens a tick) at
+   ``tick_block`` 3 with the same prefix (pinned tree pages), greedy and
+   sampled, so slots parked mid-prefill at the ``max_cache_len``
+   sentinel ride K1's block steps past the table; then ``generate`` at
+   B = 3, greedy and sampled, whole and chunked. Card tokens must equal
+   the CPU's in every mode; on the card the dense backend launches no
+   K1, K2, K3 or R2, the pool K1 once a decode step and layer and no K3
+   or R2, K2 none under dense prefill and once a layer of each ragged
+   prefill launch, R1 once a server draw, and ``generate(do_sample=
+   True)`` one R2 fill a draw and nothing else (greedy nothing); pools
+   drain to ``live == 0`` with the prefix's page pinned; no launch at all
+   on the CPU;
+15. train_parity: llama_tiny in float32 trained 3 steps (``train_step_fn``
    + ``AdamW``) on the card and on the CPU from one set of weights:
    per-step losses, step-1 gradients and the trained weights agree, and
    every step launches K4 forward, dq and dk + dv once per layer, K5
@@ -181,14 +201,14 @@ Phases, in order; any failure exits non-zero:
    kernel) on the card, where the CPU runs its plain version; then again
    with rope on the composition (``ops.rope._COMPOSITION_ONLY``), no K6
    launch;
-15. int8_parity: a llama_tiny-shaped float32 model converted by
+16. int8_parity: a llama_tiny-shaped float32 model converted by
    ``to_int8_inference`` on the card (K8) and on the CPU (the plain
    version) from the same weights: equal int8 codes (every layer's
    K-major ``qweight_t``) and scales, logits within one
    quantisation step of the head, equal greedy argmax, and 7 x layers + 1
    K8 launches per forward (and K6's q + k launch once a layer: the
    forward passes no ``position_ids``);
-16. serve: Llama-2-7B in bf16 (random weights from a seed, full width
+17. serve: Llama-2-7B in bf16 (random weights from a seed, full width
    and depth) serves 8 requests through ``ContinuousBatchingServer``,
    on split and on fused ticks, greedy and sampled, in the order split,
    fused, sampled split, sampled fused, sampled fused, sampled split,
@@ -203,7 +223,24 @@ Phases, in order; any failure exits non-zero:
    launch on split ticks; then one split and one fused admission tick,
    and five decode ticks of each (greedy and sampled), under
    torch.profiler, with the attention kernels' device time per tick;
-17. int8_infer: the serve phase's Llama-2-7B (full width and depth):
+18. dense: the serve phase's Llama-2-7B in bf16 through the dense paths.
+   ``generate`` of 4 x 512-token prompts, 64 new tokens, greedy, sampled
+   (temperature 0.8, top_k 50, top_p 0.95) and greedy with
+   ``prefill_chunk=256``: wall, tokens/s, TTFT (a 1-token generate),
+   TPOT and peak memory, the counters zeroed just before and read just
+   after (sampled: one R2 fill a draw, nothing else, and R2's [4, V]
+   noise under each of the 64 draws' keys bit for bit equal to its plain
+   version; greedy: nothing).
+   Then the dense server and the paged server with ``prefill_mode=
+   "dense"`` (8 slots, max_cache_len 2048, the serve phase's 8 prompts
+   behind a 256-token prefix, 32 new tokens), greedy at ``tick_block`` 1
+   and 4 and one sampled wave of each, the paged ones with the prefix
+   registered (16 pinned pages, every prompt hitting it): wall,
+   tokens/s, the median decode-only tick and TPOT, TTFT median and max,
+   peak memory, beside the serve phase's paged ragged numbers; the
+   dense_parity gates, finite live logits and a drained pool; then one
+   profiled dense decode tick;
+19. int8_infer: the serve phase's Llama-2-7B (full width and depth):
    one bf16 forward of 8 x 512 ids from seed 0, then
    ``to_int8_inference(model, inplace=True)`` and the same forward with
    the counters zeroed just before and read just after: 7 x layers + 1
@@ -212,7 +249,7 @@ Phases, in order; any failure exits non-zero:
    and the largest relative logit
    error against bf16, ms per forward and tokens/s for both, peak memory,
    a profile of one forward of each;
-18. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
+20. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
    f32 moments, one fixed 8 x 1024 batch from seed 0: 2 warm-up steps,
    then 10 timed with the counters zeroed just before and read just
    after (K4: 10 x layers each, K5: 10 x (2 x layers + 1) each, K6's q +
@@ -221,14 +258,14 @@ Phases, in order; any failure exits non-zero:
    fall and stay finite, gradients finite; step time, tokens/s, peak
    memory and a profile of one step (its launches, the optimizer's
    device time);
-19. train_compose: the same model, weights, batch and optimizer with rope
+21. train_compose: the same model, weights, batch and optimizer with rope
    on the composition (``ops.rope._COMPOSITION_ONLY``, set for the phase
    and restored after it): 2 warm-up steps and 5 timed, the counters
    zeroed before the first and read after the last (no K6); the 7 losses
    equal to the train phase's first 7 bit for bit (K6 is the composition
    bit for bit, forward and backward); ms per step of both phases from
    this call, and a profile of one step;
-20. train_amp: the slice's path. llama_350m at full width and depth
+22. train_amp: the slice's path. llama_350m at full width and depth
    from seed 0, ``amp.decorate(level="O2", dtype="bfloat16")`` (the rope
    tables stay f32), ``AdamW(multi_precision=True, weight_decay=0.01``
    off the norms, ``grad_clip=ClipGradByGlobalNorm(1.0))`` on the fused
@@ -245,7 +282,7 @@ Phases, in order; any failure exits non-zero:
    written into one gradient of the second: that step is skipped
    (parameters unchanged bit for bit, the optimizer not stepped) and the
    scale halves;
-21. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
+23. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
    llama_350m in bf16 at full width and depth from seed 0,
    ``AdamW(1e-4, weight_decay=0.01)``, ``nn.CrossEntropyLoss()``, a
    ``TensorDataset`` of 96 rows of 1025 seeded ids (inputs the first
@@ -285,8 +322,9 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "opt",
-          "rng", "parity", "train_parity", "int8_parity", "serve",
-          "int8_infer", "train", "train_compose", "train_amp", "fit")
+          "rng", "parity", "dense_parity", "train_parity", "int8_parity",
+          "serve", "dense", "int8_infer", "train", "train_compose",
+          "train_amp", "fit")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
 # outside the tensor cores, int8 tensor-core operations/s). The SXM part
@@ -2983,6 +3021,151 @@ def phase_parity(torch, np):
                          "draw")
 
 
+def dense_gates(n, L, paged, draws, steps, ragged=None):
+    """The launch gates of a dense-path wave on the card: the dense
+    backend launches no K1, K2, K3 or R2; the paged pool launches K1
+    once a decode step and layer (block steps included), no K3, and K2
+    once a layer of each of its ``ragged`` prefill launches (none under
+    dense prefill, ``ragged=None``); R1 once a draw; never K6 (serving
+    passes position_ids)."""
+    checks = {"no k3 or r2 launch":
+                  n["k3"] == n["r2_fill"] == n["r2_dropout"] == 0,
+              "r1 == the server's draws": n["r1"] == draws,
+              "no k6 launch": n["k6"] == n["k6_qk"] == 0}
+    if ragged is None:
+        checks["no k2 launch"] = n["k2"] == 0
+    else:
+        checks["k2 == ragged prefill launches x layers"] = \
+            n["k2"] == ragged * L > 0
+    if paged:
+        checks["k1 == decode steps x layers"] = n["k1"] == steps * L > 0
+    else:
+        checks["no k1 launch"] = n["k1"] == 0
+    return checks
+
+
+def phase_dense_parity(torch, np):
+    """The dense paths of a llama_tiny-shaped float32 model on the card
+    and on the CPU from the same weights, through the parity phase's two
+    waves: equal tokens in every mode, and the launch gates."""
+    from paddle_tpu_torch.inference import ContinuousBatchingServer
+    from paddle_tpu_torch.models import (LlamaForCausalLM, export_params,
+                                         llama_tiny, load_jax_params)
+    cfg = llama_tiny()
+    L = cfg.num_layers
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=3)
+    gpu = LlamaForCausalLM(cfg, device="cuda")
+    load_jax_params(gpu, export_params(cpu))
+    rng = np.random.default_rng(5)
+    wave1 = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+             for n in (1, 7, 8, 13, 17, 30)]
+    wave2 = [np.concatenate([wave1[5][:16],
+                             rng.integers(0, cfg.vocab_size, (n,))
+                             .astype(np.int32)]) for n in (3, 9)]
+    prefix = wave1[5][:12]              # one 8-token page and a tail
+    seeds = [0, 2**31 - 1, 2**31, -1, 2**32 - 1, 12345]
+    sample = dict(do_sample=True, temperature=0.8, top_k=20, top_p=0.9,
+                  seed=2**31 - 4)
+    dense = dict(cache_backend="dense")
+    paged = dict(cache_backend="paged", page_size=8, prefill_mode="dense")
+    # ragged prefill under blocks: slots parked mid-prefill at the
+    # max_cache_len sentinel ride K1's block steps past the table
+    ragged = dict(cache_backend="paged", page_size=8,
+                  prefill_tokens_per_tick=5, tick_block=3)
+    modes = [("dense", dense, False), ("dense sampled", dict(dense, **sample),
+                                       False),
+             ("dense block3", dict(dense, tick_block=3), False),
+             ("dense block3 sampled", dict(dense, tick_block=3, **sample),
+              False),
+             ("paged-dense prefix", paged, True),
+             ("paged-dense prefix sampled", dict(paged, **sample), True),
+             ("paged-dense prefix block3", dict(paged, tick_block=3), True),
+             ("paged-dense prefix block3 sampled",
+              dict(paged, tick_block=3, **sample), True),
+             ("paged-ragged prefix block3", ragged, True),
+             ("paged-ragged prefix block3 sampled", dict(ragged, **sample),
+              True)]
+    good = True
+    for name, kw, register in modes:
+        toks = {}
+        for dev, model in (("cpu", cpu), ("cuda", gpu)):
+            srv = ContinuousBatchingServer(model, max_slots=3,
+                                           max_cache_len=64, **kw)
+            zero_counts()
+            toks[dev] = serve_wave(srv, wave1, 7,
+                                   seeds if "sampled" in name else None)
+            if register:
+                srv.register_prefix(prefix)
+                srv.register_prefix(prefix)        # a no-op
+            toks[dev] += serve_wave(srv, wave2, 7)
+            n = read_counts()
+            st = srv.stats
+            bal = srv.pool_balance()
+            if dev == "cuda":
+                checks = dense_gates(
+                    n, L, kw["cache_backend"] == "paged",
+                    st["sample_launches"], st["decode_steps"],
+                    None if "prefill_mode" in kw or kw["cache_backend"]
+                    == "dense" else st["prefill_launches"])
+            else:
+                checks = {"no launch on the CPU": not any(n.values())}
+            if bal is not None:
+                checks["pool drained, the prefix's page pinned"] = \
+                    bal[1] == 0 and bal[2] == (1 if register else 0)
+            if register:
+                checks["prefix hits"] = st["prefix_hit_tokens"] > 0
+            checks["no non-finite live logits"] = \
+                st["nonfinite_logit_rows"] == 0
+            log(f"dense_parity {name} {dev}: {st['decode_ticks']} decode "
+                f"ticks ({st['decode_steps']} steps), {st['sample_launches']}"
+                f" draws, prefix hit tokens {st['prefix_hit_tokens']}, pool "
+                f"{None if bal is None else tuple(bal)}, launches {n}")
+            for what, ok in checks.items():
+                if not ok:
+                    log(f"dense_parity {name} {dev}: check failed: {what}")
+                    good = False
+        same = all(np.array_equal(a, b)
+                   for a, b in zip(toks["cuda"], toks["cpu"]))
+        log(f"dense_parity {name}: card tokens equal to the CPU's {same}")
+        good &= same
+    # generate at B = 3: greedy and one-key sampled, chunked and not
+    ids = np.stack([wave1[5], np.concatenate([wave1[4], wave1[3]]),
+                    np.concatenate([wave1[3], wave1[4]])]).astype(np.int32)
+    n_new = 9
+    for sampled in (False, True):
+        for chunk in (None, 8):
+            kw = dict(max_new_tokens=n_new, prefill_chunk=chunk)
+            if sampled:
+                kw.update(do_sample=True, seed=2**31 + 5, temperature=0.8,
+                          top_k=20, top_p=0.9)
+            out = {}
+            for dev, model in (("cpu", cpu), ("cuda", gpu)):
+                zero_counts()
+                out[dev] = model.generate(ids, **kw).cpu().numpy()
+                n = read_counts()
+                if dev == "cpu":
+                    ok = not any(n.values())
+                elif sampled:
+                    ok = n["r2_fill"] == n_new and not any(
+                        v for k, v in n.items() if k != "r2_fill")
+                else:
+                    ok = not any(n.values())
+                tag = f"generate B=3 {'sampled' if sampled else 'greedy'} " \
+                      f"chunk {chunk}"
+                log(f"dense_parity {tag} {dev}: launches {n}")
+                if not ok:
+                    log(f"dense_parity {tag} {dev}: check failed: launches "
+                        f"(sampled: one r2 fill a draw, {n_new} draws, "
+                        f"nothing else; greedy: none)")
+                    good = False
+            same = np.array_equal(out["cuda"], out["cpu"])
+            log(f"dense_parity {tag}: card tokens equal to the CPU's {same}")
+            good &= same and out["cuda"].shape == (3, 30 + n_new)
+    if not good:
+        raise SystemExit("dense_parity: the card and the CPU disagree, or "
+                         "a launch gate failed")
+
+
 def serve_timed(torch, np, srv, prompts, n_new, warm):
     """One wave through ``srv`` tick by tick: a warm-up request first
     (cuBLAS handles, the allocator; its prompt shares no page with the
@@ -3013,10 +3196,12 @@ def serve_timed(torch, np, srv, prompts, n_new, warm):
     out = srv.run()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    d = {k: srv.stats[k] - s0[k] for k in ("decode_ticks",
+    d = {k: srv.stats[k] - s0[k] for k in ("decode_ticks", "decode_steps",
                                             "prefill_launches",
                                             "fused_launches",
-                                            "sample_launches")}
+                                            "sample_launches",
+                                            "prefix_hit_tokens")}
+    pool = srv.pool_balance()
     ttft = sorted((first_at[r] - submitted[r]) * 1e3 for r in submitted)
     decode_only_ms.sort()
     return {"tokens": [out[r] for r in submitted], "counts": counts,
@@ -3026,7 +3211,7 @@ def serve_timed(torch, np, srv, prompts, n_new, warm):
             if decode_only_ms else float("nan"),
             "ttft_med": ttft[len(ttft) // 2], "ttft_max": ttft[-1],
             "bad": srv.stats["nonfinite_logit_rows"],
-            "pool": tuple(srv.pool_balance()), **d}
+            "pool": None if pool is None else tuple(pool), **d}
 
 
 def phase_serve(torch, np, card, record):
@@ -3149,6 +3334,192 @@ def phase_serve(torch, np, card, record):
         profile_decode(torch, np, server(mode, sample=True), cfg, card,
                        f"sampled {mode}")
         release()
+    return model, res
+
+
+def phase_dense(torch, np, card, record, model, serve_res):
+    """Llama-2-7B bf16 (the serve phase's model, or a new one from seed
+    0) through the dense paths: ``generate`` and the dense and
+    dense-prefill servers, timed, with the launch gates of
+    ``dense_parity``."""
+    import gc
+    from paddle_tpu_torch.core import prng
+    from paddle_tpu_torch.inference import ContinuousBatchingServer
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+    from paddle_tpu_torch.ops.kernels import threefry_fill as tf
+    cfg = llama2_7b()
+    L, V = cfg.num_layers, cfg.vocab_size
+    if model is None:
+        model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                                 seed=0)
+    sample = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.95)
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # generate: 4 x 512-token prompts, 64 new tokens
+    ids = np.random.default_rng(1).integers(0, V, (4, 512)).astype(np.int32)
+    n_new = 64
+    gen, gen_counts = {}, {}
+    for name, kw in (("greedy", {}), ("sampled", dict(sample, seed=7)),
+                     ("greedy chunk256", {"prefill_chunk": 256})):
+        model.generate(ids[:1, :64], max_new_tokens=2, **kw)    # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.generate(ids, max_new_tokens=1, **kw)
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=n_new, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        new = out[:, 512:].cpu().numpy()
+        gen[name], gen_counts[name] = new, n
+        checks = {"64 in-vocabulary tokens a row":
+                      out.shape == (4, 512 + n_new) and new.min() >= 0
+                      and new.max() < V,
+                  "the prompt returned":
+                      np.array_equal(out[:, :512].cpu().numpy(), ids)}
+        if "sampled" in name:
+            checks["one r2 fill a draw, nothing else"] = \
+                n["r2_fill"] == n_new and not any(
+                    v for k, v in n.items() if k != "r2_fill")
+            # R2 at generate's own shape and keys: the key chain of
+            # sample_generate replayed, each draw's [4, V] noise bit for
+            # bit against the plain version (after the counted run)
+            key, noise_ok = prng.PRNGKey(kw["seed"]), True
+            for _ in range(n_new):
+                key, sub = prng.split(key)
+                noise_ok &= same_bits(
+                    torch, tf.gumbel(sub, (4, V), "cuda"),
+                    tf._ref_fill(sub, (4, V), tf._GUMBEL, prng.TINY_F32,
+                                 "cuda"))
+            checks[f"r2's [4, {V}] noise equal to its plain version bit "
+                   f"for bit, every draw's key"] = noise_ok
+            log(f"dense generate {name}: r2's noise at [4, {V}] under "
+                f"the {n_new} draws' keys bitwise equal to the plain "
+                f"version {noise_ok}")
+        else:
+            checks["no kernel launch"] = not any(n.values())
+        log(f"dense generate {name}: launches {n}")
+        log(f"dense generate metrics {name} [{card}]: B=4 x 512 prompt, "
+            f"{n_new} new: wall {wall:.3f} s, {4 * n_new / wall:.1f} tok/s, "
+            f"TTFT (prefill + first draw) {ttft * 1e3:.1f} ms, TPOT "
+            f"{(wall - ttft) / (n_new - 1) * 1e3:.2f} ms, peak memory "
+            f"{peak:.2f} GiB")
+        for what, ok in checks.items():
+            if not ok:
+                raise SystemExit(f"dense generate {name}: check failed: "
+                                 f"{what}")
+        release()
+    agree = int((gen["greedy"] == gen["greedy chunk256"]).sum())
+    log(f"dense generate: whole and chunked greedy agree on {agree} of "
+        f"{4 * n_new} tokens (informational: bf16 products of other "
+        f"shapes may flip near-ties)")
+
+    # servers: the serve phase's 8 prompts behind a 256-token prefix
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, 1025, size=8)
+    stems = [rng.integers(0, V, (int(k),)).astype(np.int32) for k in lens]
+    warm = rng.integers(0, V, (40,)).astype(np.int32)
+    prefix = np.random.default_rng(2).integers(0, V, (256,)).astype(
+        np.int32)
+    prompts = [np.concatenate([prefix, p]) for p in stems]
+    n_tok = 32
+    paged = dict(cache_backend="paged", page_size=16, prefill_mode="dense")
+    configs = {"dense": (dict(cache_backend="dense"), False),
+               "dense block4": (dict(cache_backend="dense", tick_block=4),
+                                False),
+               "paged-dense": (paged, True),
+               "paged-dense block4": (dict(paged, tick_block=4), True),
+               "sampled dense": (dict(cache_backend="dense", **sample),
+                                 False),
+               "sampled paged-dense": (dict(paged, **sample), True)}
+    # the waves drift from one to the next (the serve phase's too), so
+    # the order runs forward and back: each pair brackets its twin
+    log(f"dense: prompts {[len(p) for p in prompts]} (a 256-token prefix, "
+        f"registered on the paged pool, and the serve phase's prompts), "
+        f"{n_tok} new tokens each, 8 slots, max_cache_len 2048")
+    res = {name: [] for name in configs}
+    for name in list(configs) + list(configs)[::-1]:
+        kw, register = configs[name]
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        srv = ContinuousBatchingServer(model, max_slots=8,
+                                       max_cache_len=2048, **kw)
+        if register:
+            srv.register_prefix(prefix)
+        r = serve_timed(torch, np, srv, prompts, n_tok, warm)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        res[name].append(r)
+        c = r["counts"]
+        on_pool = kw["cache_backend"] == "paged"
+        steps = max(1, r["decode_steps"] // max(1, r["decode_ticks"]))
+        log(f"dense {name}: {r['ticks']} ticks ({r['decode_ticks']} decode, "
+            f"{r['decode_steps']} steps, {r['prefill_launches']} prefill "
+            f"calls, {r['sample_launches']} draws), prefix hit tokens "
+            f"{r['prefix_hit_tokens']}, launches {c}, non-finite live "
+            f"logit rows {r['bad']}, pool {r['pool']}")
+        log(f"dense metrics {name} [{card}]: wall {r['wall']:.3f} s, "
+            f"{r['tok_s']:.1f} tok/s, median decode-only tick "
+            f"{r['decode_ms']:.2f} ms ({steps} step{'s' * (steps > 1)}: "
+            f"TPOT {r['decode_ms'] / steps:.2f} ms), TTFT median "
+            f"{r['ttft_med']:.1f} ms max {r['ttft_max']:.1f} ms, peak "
+            f"memory {peak:.2f} GiB")
+        checks = {f"{n_tok} in-vocabulary tokens each":
+                      all(len(t) == n_tok and t.min() >= 0 and t.max() < V
+                          for t in r["tokens"]),
+                  "no non-finite live logits": r["bad"] == 0,
+                  **dense_gates(c, L, on_pool, r["sample_launches"],
+                                r["decode_steps"])}
+        if on_pool:
+            checks["pool drained, the prefix's 16 pages pinned"] = \
+                r["pool"][1] == 0 and r["pool"][2] == 256 // 16
+            checks["every prompt hit the prefix"] = \
+                r["prefix_hit_tokens"] == 8 * 256
+        del srv
+        for what, ok in checks.items():
+            if not ok:
+                raise SystemExit(f"dense {name}: check failed: {what}")
+    for name, runs in res.items():
+        steps = 4 if "block4" in name else 1
+        log(f"dense summary {name} [{card}]: tok/s "
+            f"{[round(r['tok_s'], 1) for r in runs]}, TPOT "
+            f"{[round(r['decode_ms'] / steps, 2) for r in runs]} ms, TTFT "
+            f"median {[round(r['ttft_med'], 1) for r in runs]} ms")
+    for a, b in (("dense", "paged-dense"), ("dense", "dense block4"),
+                 ("paged-dense", "paged-dense block4")):
+        agree = sum(int((x == y).sum()) for x, y in
+                    zip(res[a][0]["tokens"], res[b][0]["tokens"]))
+        log(f"dense: {a} and {b} agree on {agree} of {8 * n_tok} tokens "
+            f"(informational: bf16 near-ties on random weights may flip)")
+    if serve_res:
+        for mode in ("split", "fused"):
+            rs = serve_res.get(mode) or []
+            log(f"dense: the serve phase's paged ragged {mode} waves, for "
+                f"information [{card}]: tok/s "
+                f"{[round(x['tok_s'], 1) for x in rs]}, median decode-only "
+                f"tick {[round(x['decode_ms'], 2) for x in rs]} ms, TTFT "
+                f"median {[round(x['ttft_med'], 1) for x in rs]} ms max "
+                f"{[round(x['ttft_max'], 1) for x in rs]} ms")
+    record["paged_attention"]["dense_prefill_launches"] = \
+        res["paged-dense"][0]["counts"]["k1"]
+    record["sample_rows"]["dense_launches"] = \
+        res["sampled dense"][0]["counts"]["r1"]
+    record["threefry_fill"]["generate_launches"] = \
+        gen_counts["sampled"]["r2_fill"]
+    for name in ("dense", "paged-dense"):
+        release()
+        profile_decode(torch, np, ContinuousBatchingServer(
+            model, max_slots=8, max_cache_len=2048, **configs[name][0]),
+            cfg, card, name)
+    release()
     return model
 
 
@@ -4309,14 +4680,19 @@ def main():
     del flush
     if "parity" in phases:
         phase_parity(torch, np)
+    if "dense_parity" in phases:
+        phase_dense_parity(torch, np)
     if "train_parity" in phases:
         phase_train_parity(torch, np)
     if "int8_parity" in phases:
         phase_int8_parity(torch, np)
-    model_7b = None
+    model_7b, serve_res = None, None
     if "serve" in phases:
         torch.cuda.empty_cache()
-        model_7b = phase_serve(torch, np, card, record)
+        model_7b, serve_res = phase_serve(torch, np, card, record)
+    if "dense" in phases:
+        torch.cuda.empty_cache()
+        model_7b = phase_dense(torch, np, card, record, model_7b, serve_res)
     if "int8_infer" in phases:
         phase_int8_infer(torch, np, card, record, model_7b)
     del model_7b

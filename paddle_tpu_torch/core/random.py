@@ -10,7 +10,7 @@ the reference, op for op (``prng`` is bit for bit with
 
 Keys are ``torch.uint32`` tensors ``[2]`` on the CPU; the fold-in runs
 on Python ints (``prng.fold_in``), so drawing a key never touches the
-card.
+card. ``categorical`` draws a batch of tokens under one such key.
 """
 import contextlib
 import threading
@@ -21,7 +21,7 @@ import torch
 from . import prng
 
 __all__ = ["seed", "get_rng_state", "set_rng_state", "rng_scope",
-           "next_key", "in_rng_scope"]
+           "next_key", "in_rng_scope", "categorical"]
 
 _state = threading.local()
 
@@ -97,3 +97,17 @@ def next_key():
 
 def in_rng_scope():
     return bool(_tls().scopes)
+
+
+def categorical(key, logits):
+    """``jax.random.categorical(key, logits, axis=-1)`` of f32 ``logits
+    [..., V]`` under ONE key over the whole array: ``argmax(logits +
+    gumbel(key, logits.shape))``, the first maximum, as int32. Row ``b``
+    of a ``[B, V]`` batch takes the noise of counters ``b * V + v``, not a
+    key a row: at B > 1 this is not R1's per-slot draw
+    (``ops.kernels.sample_rows``). On the card the noise is one launch of
+    R2's fill (``ops.kernels.threefry_fill.gumbel``); on the CPU its
+    plain version."""
+    from ..ops.kernels.threefry_fill import gumbel
+    noise = gumbel(key, logits.shape, logits.device)
+    return torch.argmax(logits + noise, dim=-1).to(torch.int32)

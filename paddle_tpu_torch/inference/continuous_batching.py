@@ -1,14 +1,28 @@
-"""Continuous-batching decode server over the paged KV pool.
+"""Continuous-batching decode server over a dense KV cache or a paged
+KV pool.
 
-Port of ``paddle_tpu/inference/continuous_batching.py`` cut down to its
-paged path: ``cache_backend="paged"``, ragged prefill, split or fused
-ticks, ``admission="reserve"``, automatic prefix caching, and greedy or
-seeded sampled decoding. A fixed pool of decode slots steps as one
+Port of ``paddle_tpu/inference/continuous_batching.py`` cut down to
+``admission="reserve"`` on one card: the dense and paged cache backends,
+dense or ragged prefill, split or fused ticks, ``tick_block`` decode
+steps a split tick, registered and automatic prefix caching, and greedy
+or seeded sampled decoding. A fixed pool of decode slots steps as one
 batched decode step every tick; finished slots are refilled from the
-queue without stopping the others. Admissions only reserve pages: every
-tick runs the next prompt chunk of ALL mid-prefill slots straight into
-pool pages, under a per-tick token budget (``prefill_tokens_per_tick``),
-so long prompts stream in across ticks while live slots keep decoding.
+queue without stopping the others.
+
+``cache_backend="dense"`` (the default) gives every slot its own
+``[max_cache_len]`` K/V rows a layer; each admission prefills its prompt
+at batch 1 (``prefill_mode="dense"``, optionally in ``prefill_chunk``
+chunks) and copies the rows into its slot. ``cache_backend="paged"``
+keeps K/V in a global page pool addressed through per-slot block
+tables. There, admissions only reserve pages under ragged prefill (its
+default): every tick runs the next prompt chunk of ALL mid-prefill slots
+straight into pool pages, under a per-tick token budget
+(``prefill_tokens_per_tick``), so long prompts stream in across ticks
+while live slots keep decoding; ``prefill_mode="dense"`` prefills each
+admission at batch 1 as on the dense backend and scatters its rows into
+its pages. ``register_prefix`` prefills a shared prefix once: dense
+prefill seeds later admissions from its stored rows, ragged prefill
+shares its pinned pages through the radix tree.
 
 ``serving_mode="split"`` (the default) runs a tick as one ragged-prefill
 launch for the admission wave, then the s=1 decode step for live slots,
@@ -23,20 +37,27 @@ a request's key is ``PRNGKey(seed)`` (``seed`` defaults to the server's
 seed plus the request id), each token splits the slot's key and draws
 ``categorical`` from the other half over ``process_logits``' filtered
 row, and a slot that does not emit keeps its key. The draw is one
-launch a tick on the card (R1, ``ops.kernels.sample_rows``); on fused
-ticks the keys ride the launch on the card and come back with the
-tokens. Tokens equal the JAX server's for the same seeds.
+launch a decode step on the card (R1, ``ops.kernels.sample_rows``), and
+one for the first tokens a prefill gives; on fused ticks the keys ride
+the launch on the card and come back with the tokens. Tokens equal the
+JAX server's for the same seeds.
+
+``tick_block=n`` runs n decode steps a split tick with one host read of
+the ``[slots, n]`` token block; a slot that finishes mid-block wastes
+the block's later rows (``stats["block_waste_tokens"]``), whose writes
+past ``max_cache_len`` the caches drop. The fused tick refuses it, as
+the reference does.
 
 Host/device split: the device runs the steps (``models.generation``; the
-paged-attention, ragged-prefill and fused-tick kernels on a CUDA model);
+paged-attention, ragged-prefill and fused-tick kernels on a CUDA model,
+dense attention in plain torch);
 the host assigns slots, owns the page allocator and the radix prefix
 cache (``kv_cache``, ``prefix_cache``), harvests finished rows and swaps
 new prompts in.
 
 The JAX server's other modes are not ported yet. Asking for one raises
-``NotImplementedError`` naming its ROADMAP item (Queue 1): the dense
-backend and dense prefill (item 5), ``tick_block > 1`` (item 6),
-optimistic admission and preemption (item 7), telemetry, flight
+``NotImplementedError`` naming its ROADMAP item (Queue 1): optimistic
+admission and preemption (item 7), telemetry, flight
 recorder, goodput ledger, cost catalog, journeys, fault injection and
 the supervised serve loop (item 8), the mesh and the host KV tier (item
 9), int8 weights and caches (item 10).
@@ -115,29 +136,34 @@ class _Slot:
 
 class ContinuousBatchingServer:
     """Serve greedy or seeded sampled requests through a fixed slot pool
-    over a paged KV pool, on the model's device.
+    over a dense KV cache or a paged KV pool, on the model's device.
 
     >>> srv = ContinuousBatchingServer(model, max_slots=4,
-    ...                                max_cache_len=256,
-    ...                                cache_backend="paged")
+    ...                                max_cache_len=256)
     >>> rid = srv.submit(prompt_ids, max_new_tokens=32)
     >>> outs = srv.run()            # {rid: np.ndarray of new tokens}
 
-    The constructor keeps the JAX server's argument names and defaults;
-    ``cache_backend="paged"`` must be given (the dense default is not
-    ported). ``serving_mode="fused"`` runs each tick as one fused-tick
-    pass (prefill chunks and decode rows in one kernel launch per
-    layer) in place of the split prefill launch and decode step; the
-    tokens are the same. ``do_sample=True`` draws each token from
+    The constructor keeps the JAX server's argument names and defaults.
+    ``cache_backend="dense"`` (the default) prefills each admission at
+    batch 1 and gives each slot its own cache rows;
+    ``cache_backend="paged"`` serves from a page pool, with ragged
+    prefill (the default) or ``prefill_mode="dense"``.
+    ``serving_mode="fused"`` (paged, ragged) runs each tick as one
+    fused-tick pass (prefill chunks and decode rows in one kernel launch
+    per layer) in place of the split prefill launch and decode step; the
+    tokens are the same. ``tick_block=n`` runs n decode steps a split
+    tick. ``do_sample=True`` draws each token from
     ``process_logits(logits, temperature, top_k, top_p)`` on the
-    request's threefry chain, bit for bit the JAX server's. With
-    ``auto_prefix_cache=True`` every finished request donates its full
-    prompt pages into a radix tree, every admission reuses the longest
-    cached page-aligned prefix and prefills only the remainder, and
-    unpinned cached pages are evicted LRU when the
-    allocator runs short. ``submit(deadline_s=...)`` bounds a request's
-    time, ``max_queue`` + ``shed_policy`` bound the queue, and
-    ``start()``/``wait()``/``stop()`` serve from a background thread.
+    request's threefry chain, bit for bit the JAX server's.
+    ``register_prefix`` prefills a shared prefix once for every later
+    request that starts with it. With ``auto_prefix_cache=True`` (paged)
+    every finished request donates its full prompt pages into a radix
+    tree, every admission reuses the longest cached page-aligned prefix
+    and prefills only the remainder, and unpinned cached pages are
+    evicted LRU when the allocator runs short. ``submit(deadline_s=...)``
+    bounds a request's time, ``max_queue`` + ``shed_policy`` bound the
+    queue, and ``start()``/``wait()``/``stop()`` serve from a background
+    thread.
     """
 
     def __init__(self, model, max_slots=4, max_cache_len=256,
@@ -163,9 +189,16 @@ class ContinuousBatchingServer:
         if cache_backend not in ("dense", "paged"):
             raise ValueError(f"cache_backend must be 'dense' or 'paged', "
                              f"got {cache_backend!r}")
-        if prefill_mode not in (None, "dense", "ragged"):
+        paged = cache_backend == "paged"
+        if prefill_mode is None:
+            prefill_mode = "ragged" if paged else "dense"
+        if prefill_mode not in ("dense", "ragged"):
             raise ValueError(f"prefill_mode must be 'dense' or 'ragged',"
                              f" got {prefill_mode!r}")
+        if prefill_mode == "ragged" and not paged:
+            raise ValueError("prefill_mode='ragged' needs "
+                             "cache_backend='paged' (prefill writes "
+                             "straight into pool pages)")
         if admission not in ("reserve", "optimistic"):
             raise ValueError(f"admission must be 'reserve' or "
                              f"'optimistic', got {admission!r}")
@@ -177,8 +210,9 @@ class ContinuousBatchingServer:
         if shed_policy not in ("reject", "evict_oldest"):
             raise ValueError(f"shed_policy must be 'reject' or "
                              f"'evict_oldest', got {shed_policy!r}")
+        self.tick_block = max(1, int(tick_block))
         if serving_mode == "fused":
-            if cache_backend != "paged":
+            if not paged:
                 raise ValueError(
                     "serving_mode='fused' needs cache_backend='paged' "
                     "(the fused tick writes straight into pool pages "
@@ -191,19 +225,13 @@ class ContinuousBatchingServer:
             if mesh is not None:
                 raise _not_ported("serving_mode='fused' with mesh=", 9,
                                   "the fleet")
-            if int(tick_block) != 1:
+            if self.tick_block != 1:
                 raise NotImplementedError(
                     "serving_mode='fused' runs ONE decode row per slot "
                     "per launch; tick_block > 1 needs multi-token rows "
                     "per slot, the verify shape of speculative decoding "
                     "(ROADMAP, Queue 1 item 12: remaining inference "
                     "modules); use tick_block=1 or serving_mode='split'")
-        if cache_backend == "dense" or prefill_mode == "dense":
-            raise _not_ported("the dense cache backend and dense prefill",
-                              5, "the dense backend")
-        if int(tick_block) != 1:
-            raise _not_ported("tick_block > 1", 6,
-                              "block decode on the split tick")
         if admission == "optimistic":
             raise _not_ported("admission='optimistic'", 7,
                               "optimistic admission and preemption")
@@ -220,11 +248,9 @@ class ContinuousBatchingServer:
             raise _not_ported("mesh=", 9, "the fleet")
         if host_tier is not None or host_tier_bytes is not None:
             raise _not_ported("host_tier=", 9, "the fleet")
-        # ``prefill_chunk`` sizes the dense prefill only (ragged
-        # admission chunks by the per-tick token budget) and ``role`` is
-        # a placement hint for the fleet router: both are accepted and
-        # unused, as in the JAX server's ragged mode. Greedy decoding
-        # reads no seed and no sampling parameter.
+        # ``role`` is a placement hint for the fleet router: accepted and
+        # unused, as in the JAX server. Greedy decoding reads no seed and
+        # no sampling parameter.
         self.model = model
         self.device = model.device
         self.max_slots = int(max_slots)
@@ -235,29 +261,48 @@ class ContinuousBatchingServer:
         self._top_k = int(top_k)
         self._top_p = float(top_p)
         self._seed = int(seed)
-
-        page_size = int(page_size)
-        if self.max_cache_len % page_size:
-            raise ValueError(
-                f"page_size ({page_size}) must divide max_cache_len "
-                f"({self.max_cache_len})")
-        pages_per_slot = self.max_cache_len // page_size
-        if num_pages is None:     # worst case: every slot maxed out
-            num_pages = self.max_slots * pages_per_slot + 1
-        self.page_size = page_size
+        # the dense bundle always exists: dense prefill and
+        # register_prefix run on dense batch-1 caches whatever the
+        # decode backend is
+        self._bundle = model._decode_bundle(self.max_cache_len,
+                                            weight_dtype, mesh, cache_dtype)
+        (self._init_caches, self._embed_fn, self._step_fn, self._head_fn,
+         _) = self._bundle
+        self._prefill_chunk = prefill_chunk
+        self.cache_backend = cache_backend
         self.serving_mode = serving_mode
         self._fused = serving_mode == "fused"
-        (self._init_caches, self._embed_fn, self._step_fn, self._head_fn,
-         _, self._ragged_fn, self._fused_fn) = model._decode_bundle(
-            self.max_cache_len, weight_dtype, mesh, cache_dtype,
-            cache_backend="paged", page_size=page_size,
-            num_pages=int(num_pages))
-        self._kv = PagedKVCache(int(num_pages), page_size, self.max_slots,
-                                pages_per_slot)
-        self._caches = self._init_caches(self.max_slots)
-        self._prefix = PrefixCache(self._kv)
-        self._kv.reclaimer = self._reclaim_pages
-        self._auto_prefix = bool(auto_prefix_cache)
+        self.prefill_mode = prefill_mode
+        self._ragged = prefill_mode == "ragged"
+        if paged:
+            page_size = int(page_size)
+            if self.max_cache_len % page_size:
+                raise ValueError(
+                    f"page_size ({page_size}) must divide max_cache_len "
+                    f"({self.max_cache_len})")
+            pages_per_slot = self.max_cache_len // page_size
+            if num_pages is None:     # worst case: every slot maxed out
+                num_pages = self.max_slots * pages_per_slot + 1
+            self.page_size = page_size
+            paged_bundle = model._decode_bundle(
+                self.max_cache_len, weight_dtype, mesh, cache_dtype,
+                cache_backend="paged", page_size=page_size,
+                num_pages=int(num_pages))
+            self._step_fn = paged_bundle[2]
+            self._ragged_fn, self._fused_fn = paged_bundle[5:7]
+            self._kv = PagedKVCache(int(num_pages), page_size,
+                                    self.max_slots, pages_per_slot)
+            self._caches = paged_bundle[0](self.max_slots)
+            self._prefix = PrefixCache(self._kv)
+            self._kv.reclaimer = self._reclaim_pages
+            self._auto_prefix = bool(auto_prefix_cache)
+        else:
+            self.page_size = None
+            self._kv = None
+            self._caches = self._init_caches(self.max_slots)
+            self._prefix = None
+            self._auto_prefix = False
+            self._ragged_fn = self._fused_fn = None
 
         if prefill_tokens_per_tick is None:
             prefill_tokens_per_tick = self.max_cache_len
@@ -271,6 +316,9 @@ class ContinuousBatchingServer:
                              "(0 would admit nothing, forever)")
         self._prefill_fifo = []   # slot ids mid-prefill, admission order
         self._prefill_used = 0    # tokens prefilled this tick
+        # registered prefixes, longest first: (ids, dense rows, last
+        # logits, pool pages); ragged prefill keeps no rows or logits
+        self._prefixes = []
         # slot-state updates batched into one device write per array
         # per tick
         self._pending_tok = {}
@@ -302,13 +350,17 @@ class ContinuousBatchingServer:
                       "prefix_auto_hits": 0, "prefix_auto_hit_tokens": 0,
                       "admissions": 0, "prefill_dispatches": 0,
                       "tick_dispatches": 0,
-                      # launches of the device programs (split ticks:
-                      # ragged prefill and decode; fused ticks: the
-                      # fused tick), and rows of emitting slots whose
-                      # logits (when sampling, filtered ones) held a NaN
-                      # or an Inf
+                      # launches of the device programs (ragged prefill
+                      # launches or dense prefill calls; split decode
+                      # ticks and the decode steps they run; fused
+                      # ticks), and rows of emitting slots whose logits
+                      # (when sampling, filtered ones) held a NaN or an
+                      # Inf
                       "prefill_launches": 0, "decode_ticks": 0,
-                      "fused_launches": 0, "nonfinite_logit_rows": 0,
+                      "decode_steps": 0, "fused_launches": 0,
+                      "nonfinite_logit_rows": 0,
+                      # decode-block rows after a slot finished mid-block
+                      "block_waste_tokens": 0,
                       # seeded draws (one R1 launch on the card each)
                       "sample_launches": 0}
         self._clock = clock if clock is not None else MonotonicClock()
@@ -326,16 +378,138 @@ class ContinuousBatchingServer:
         self._accepting = True    # False while draining / after stop
         self._draining = False
 
+    # ------------------------------------------------------ prefix cache
     def register_prefix(self, prefix_ids):
-        raise _not_ported("register_prefix (it prefills through the dense "
-                          "bundle)", 5, "the dense backend")
+        """Prefill a shared prompt prefix (e.g. a system prompt) ONCE and
+        reuse its KV state for every later request that starts with it:
+        admission then prefills only the remainder. The longest
+        registered match wins. Returns the prefix length. Registering
+        the same ids again is a no-op. The entry is permanent: on the
+        paged backend its full pages are stored once in the pool as
+        PINNED radix-tree nodes (adopting pages the automatic cache
+        already holds for these tokens), never evicted. Dense prefill
+        seeds admissions from the prefix's stored rows and last logits;
+        ragged prefill shares its pinned pages through the tree and
+        keeps no rows. Raises ValueError, registering nothing, when the
+        prefix would pad a queued request's remainder prefill past
+        ``max_cache_len`` or pin pages a queued request needs."""
+        if torch.is_tensor(prefix_ids):
+            prefix_ids = prefix_ids.detach().cpu().numpy()
+        ids = np.asarray(prefix_ids).astype(np.int32).reshape(-1)
+        T = ids.shape[0]
+        if T + 1 > self.max_cache_len:
+            raise ValueError(f"prefix ({T}) leaves no room in "
+                             f"max_cache_len ({self.max_cache_len})")
+        with self._lock:
+            for pre_ids, _, _, _ in self._prefixes:
+                # idempotent: re-registering (a client retry) must not
+                # prefill again or pin a second, unreachable page set
+                if (pre_ids.shape[0] == T
+                        and np.array_equal(pre_ids, ids)):
+                    return T
+            if self._prefill_chunk and not self._ragged:
+                # a queued request was bound-checked at submit against
+                # the prefixes registered THEN; refuse a prefix whose
+                # remainder-chunk pad would overflow its rows
+                for item in self._queue:
+                    q_ids = item.ids
+                    Tq = q_ids.shape[0]
+                    if Tq <= T or not np.array_equal(q_ids[:T], ids):
+                        continue
+                    cur = self._match_prefix(q_ids)
+                    if cur is not None and cur[0].shape[0] >= T:
+                        continue    # a longer match still wins
+                    rpad = self._chunk_pad(Tq - T)
+                    if Tq + rpad > self.max_cache_len:
+                        raise ValueError(
+                            f"registering this {T}-token prefix "
+                            f"would pad the queued {Tq}-token "
+                            f"request's remainder prefill {rpad} "
+                            f"rows past max_cache_len "
+                            f"({self.max_cache_len}) — register "
+                            f"prefixes before submitting")
+            logits, caches1 = self.model._run_prefill(
+                self._bundle, ids[None], chunk=self._prefill_chunk)
+            self.stats["prefill_tokens"] += T
+            # ragged admission matches through the pinned pages alone:
+            # a dense copy of the prefix's rows would only hold memory
+            rows = None if self._ragged else {
+                k: c[:, :, :T].clone() for k, c in caches1.items()}
+            if self._ragged:
+                logits = None
+            pages, run, own, pin_delta = [], [], [], 0
+            if self._kv is not None:
+                # the prefix's FULL pages go into the pool once; nodes
+                # the automatic cache already holds for these tokens are
+                # adopted (pinned below), the rest allocated and filled
+                nfull = T // self._kv.page_size
+                if nfull:
+                    aligned = ids[:nfull * self._kv.page_size]
+                    run = self._prefix.node_run(aligned)
+                    pin_delta = nfull - sum(1 for nd in run if nd.pinned)
+                    if nfull > len(run):
+                        # the adopted run must survive the allocation's
+                        # own reclaim sweep
+                        self._prefix.protect(run)
+                        try:
+                            own = self._kv.alloc(nfull - len(run))
+                        finally:
+                            self._prefix.protect(())
+                    pages = [nd.page for nd in run] + own
+            entry = (ids, rows, logits, pages)
+            self._prefixes.append(entry)
+            self._prefixes.sort(key=lambda e: -e[0].shape[0])
+            if self._kv is not None and pages:
+                # pinning shrinks the pool for everyone else: a queued
+                # request that could never fit again would starve the
+                # FIFO, so the registration is refused instead
+                usable = self._kv.num_pages - 1 \
+                    - (self._prefix.pinned_pages + pin_delta)
+                for item in self._queue:
+                    q_need = self._request_pages(
+                        item.ids, item.budget, self._match_prefix(item.ids))
+                    if q_need > usable:
+                        self._prefixes = [e for e in self._prefixes
+                                          if e is not entry]
+                        if own:
+                            self._kv.release(own)
+                        raise ValueError(
+                            f"registering this {T}-token prefix pins "
+                            f"{len(pages)} pages and would strand an "
+                            f"already-queued request needing {q_need} "
+                            f"of {usable} usable pages — grow num_pages "
+                            f"or register prefixes before submitting")
+                if own:
+                    self._fill_pages(caches1, own,
+                                     len(run) * self._kv.page_size)
+                self._prefix.extend_pinned(
+                    ids[:len(pages) * self._kv.page_size], run, own)
+        return T
+
+    def _chunk_pad(self, seg_len):
+        """Rows the chunked prefill pads past ``seg_len``: zero when the
+        segment runs unchunked (``seg_len <= chunk``: ``_run_prefill``
+        then writes exactly ``seg_len`` rows)."""
+        c = self._prefill_chunk
+        if not c or seg_len <= c:
+            return 0
+        return (-seg_len) % c
+
+    def _match_prefix(self, ids):
+        """The longest registered prefix ``ids`` starts with, as its
+        entry ``(ids, rows, logits, pages)``, or None."""
+        for pre_ids, rows, logits, pages in self._prefixes:
+            n = pre_ids.shape[0]
+            if ids.shape[0] >= n and np.array_equal(ids[:n], pre_ids):
+                return pre_ids, rows, logits, pages
+        return None
 
     # ------------------------------------------------------------ queue
     def submit(self, input_ids, max_new_tokens=32, seed=None,
                on_token=None, deadline_s=None, priority=0,
                journey=None):
         """Queue a prompt; returns a request id. The FIRST generated
-        token comes from the prompt's last prefill chunk.
+        token comes from the prompt's prefill (its last chunk).
         ``on_token(rid, tokens)`` streams each harvested chunk.
         ``seed`` only matters to sampling: the request's chain starts at
         ``PRNGKey(seed)``, and ``None`` resolves to the server's seed
@@ -369,19 +543,46 @@ class ContinuousBatchingServer:
             if deadline_s is not None and deadline_s <= 0:
                 raise DeadlineExceeded(
                     f"deadline_s={deadline_s} is already expired")
-            if T + max_new_tokens > self.max_cache_len:
+            hit = None if self._ragged else self._match_prefix(ids)
+            pad = 0
+            if self._prefill_chunk and not self._ragged:
+                # a registered-prefix hit prefills only the REMAINDER at
+                # t0 = n, whose own chunk pad can exceed the full
+                # prompt's. The longest match wins at admission,
+                # prefixes are never removed, and register_prefix
+                # refuses one that would strand a queued request, so
+                # the CURRENT longest match decides the bound. Ragged
+                # prefill never pads.
+                pad = self._chunk_pad(T - hit[0].shape[0]) \
+                    if hit is not None else self._chunk_pad(T)
+            if max(T + max_new_tokens, T + pad) > self.max_cache_len:
+                seg = "prefix-remainder" \
+                    if hit is not None and self._prefill_chunk else "prompt"
                 raise ValueError(
-                    f"prompt ({T}) + max_new_tokens ({max_new_tokens}) "
+                    f"prompt ({T}) + max({max_new_tokens} new tokens, "
+                    f"{pad} prefill-chunk pad rows on the {seg}) "
                     f"exceeds max_cache_len ({self.max_cache_len})")
-            # full-extent reservation (prompt + budget): a request that
-            # can never fit must fail HERE, not stall the FIFO forever
-            need = self._npages_for(T + int(max_new_tokens))
-            usable = self._kv.num_pages - 1
-            if need > usable:
-                raise ValueError(
-                    f"prompt ({T}) + max_new_tokens ({max_new_tokens}) "
-                    f"needs {need} pages but only {usable} are usable — "
-                    f"grow num_pages")
+            if self._kv is not None:
+                # full-extent reservation (prompt + budget): a request
+                # that can never fit must fail HERE, not stall the FIFO
+                # forever: the pool minus the pinned pages, minus the
+                # pinned pages this request would share itself (ragged
+                # prefill counts only the pinned tree run: donated pages
+                # can be evicted before admission)
+                if self._ragged:
+                    need = self._npages_for(T + int(max_new_tokens)) \
+                        - self._pinned_run_pages(ids)
+                else:
+                    need = self._request_pages(ids, int(max_new_tokens),
+                                               hit)
+                usable = self._kv.num_pages - 1 \
+                    - self._prefix.pinned_pages
+                if need > usable:
+                    raise ValueError(
+                        f"prompt ({T}) + max_new_tokens "
+                        f"({max_new_tokens}) needs {need} pages beyond "
+                        f"its prefix hit but only {usable} are not "
+                        f"pinned by prefixes — grow num_pages")
             if (self._max_queue is not None
                     and len(self._queue) >= self._max_queue):
                 if self._shed_policy == "reject" or not self._queue:
@@ -434,6 +635,8 @@ class ContinuousBatchingServer:
         self._slots[slot] = None
         if slot in self._prefill_fifo:
             self._prefill_fifo.remove(slot)
+        if self._kv is None:
+            return
         pages = self._kv.detach_slot(slot)
         if not pages:
             return
@@ -451,10 +654,38 @@ class ContinuousBatchingServer:
         return st
 
     # ---------------------------------------------------- paged backend
+    def _fill_pages(self, caches1, pages, start):
+        """Copy dense batch-1 cache rows [start, start + len(pages) *
+        page_size) into the pool at ``pages`` (position order)."""
+        if not pages:
+            return
+        pg = self._kv.page_size
+        n = len(pages) * pg
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        for name in ("k", "v"):
+            pool, c = self._caches["pool"][name], caches1[name]
+            seg = c[:, 0, start:start + n]
+            pool[:, idx] = seg.reshape(seg.shape[0], len(pages), pg,
+                                       *seg.shape[2:]).to(pool.dtype)
+
+    def _seed_from_pages(self, pages):
+        """The inverse of ``_fill_pages``: cached pool pages gathered into
+        fresh dense batch-1 caches covering [0, len(pages) * page_size),
+        the rows a tree hit's remainder prefill attends to (dense prefill
+        only: ragged prefill attends through the block table)."""
+        pg = self._kv.page_size
+        n = len(pages) * pg
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        base = self._init_caches(1)
+        for name in ("k", "v"):
+            s = self._caches["pool"][name][:, idx]
+            base[name][:, 0, :n] = s.reshape(s.shape[0], n, *s.shape[3:])
+        return base
+
     def _sync_block_table(self):
         """Copy the host block-table mirror into the device table the
         kernels read, when a row changed."""
-        if self._kv.dirty:
+        if self._kv is not None and self._kv.dirty:
             self._caches["bt"].copy_(
                 torch.from_numpy(self._kv.block_table))
             self._kv.dirty = False
@@ -463,13 +694,15 @@ class ContinuousBatchingServer:
     def pool_balance(self):
         """``(free, live, pinned, cached)`` page counts summing to the
         usable pool (``num_pages - 1``; page 0 is the null page).
-        ``live`` pages belong to slots, ``cached`` to the automatic
-        prefix cache; ``pinned`` (registered prefixes) stays 0 until
-        ``register_prefix`` is ported. ``live == 0`` once drained means
-        no page leaked."""
+        ``live`` pages belong to slots, ``pinned`` to registered
+        prefixes (never evicted), ``cached`` to the automatic prefix
+        cache. ``live == 0`` once drained means no page leaked. The
+        dense backend has no pool: None."""
+        if self._kv is None:
+            return None
         with self._lock:
             free = self._kv.free_pages()
-            pinned = 0
+            pinned = self._prefix.pinned_pages
             cached = self._prefix.cached_pages
             live = self._kv.used_pages() - pinned - cached
             return free, live, pinned, cached
@@ -480,17 +713,66 @@ class ContinuousBatchingServer:
         return self._prefix.evict(shortfall)
 
     def _best_hit(self, ids):
-        """The longest cached page-aligned prefix of ``ids``, capped one
-        token short of the prompt (the remainder prefill must emit the
-        first-token logits), or None."""
-        return self._prefix.lookup(ids, int(ids.shape[0]) - 1)
+        """The longest reusable prefix state for ``ids``: ``("reg",
+        entry)`` (a registered prefix: dense rows and last logits,
+        token-exact length), ``("tree", PrefixMatch)`` (the radix tree's
+        page-aligned run), whichever covers more tokens, or None. A tree
+        match is capped one token short of the prompt (the remainder
+        prefill must emit the first-token logits) and trimmed page by
+        page until the remainder's prefill-chunk pad fits
+        ``max_cache_len`` (the tree moves under queued requests).
+
+        Ragged prefill matches through the tree alone: registered
+        prefixes live there as pinned nodes, so a registered hit reuses
+        its page-aligned run and the sub-page tail prefills again with
+        the remainder (the same tokens); ragged remainders never pad."""
+        T = int(ids.shape[0])
+        if self._ragged:
+            tree = self._prefix.lookup(ids, T - 1)
+            return None if tree is None else ("tree", tree)
+        reg = self._match_prefix(ids)
+        best = None if reg is None else ("reg", reg)
+        if self._auto_prefix:
+            tree = self._prefix.lookup(ids, T - 1)
+            while tree is not None and \
+                    T + self._chunk_pad(T - tree.tokens) \
+                    > self.max_cache_len:
+                tree = tree.shrink()
+            reg_n = reg[0].shape[0] if reg is not None else 0
+            if tree is not None and tree.tokens > reg_n:
+                best = ("tree", tree)
+        return best
+
+    def _pinned_run_pages(self, ids):
+        """Pages of the PINNED (registered) tree run this prompt would
+        share: the floor on page reuse a ragged-prefill submit may count
+        (capped at T - 1 like ``_best_hit``'s lookup)."""
+        T = int(ids.shape[0])
+        aligned = (T - 1) // self._kv.page_size * self._kv.page_size
+        n = 0
+        for nd in self._prefix.node_run(ids[:aligned]):
+            if not nd.pinned:
+                break
+            n += 1
+        return n
+
+    def _request_pages(self, ids, budget, hit):
+        """Fresh pages a request needs for its full extent (prompt +
+        budget), net of the shared pages of ``hit`` (a
+        ``_match_prefix`` entry)."""
+        shared = len(hit[3]) if hit is not None else 0
+        return self._npages_for(ids.shape[0] + budget) - shared
 
     def _head_fits_pool(self, head, best):
         """Can the pool take ``head``'s full extent now? Evictable
         cached pages count as headroom, minus the nodes the head's own
-        hit is about to share."""
-        shared, nodes = (0, ()) if best is None \
-            else (len(best.nodes), best.nodes)
+        tree hit is about to share."""
+        if best is None:
+            shared, nodes = 0, ()
+        elif best[0] == "reg":
+            shared, nodes = len(best[1][3]), ()
+        else:
+            shared, nodes = len(best[1].nodes), best[1].nodes
         need = self._npages_for(head.ids.shape[0] + head.budget) - shared
         avail = self._kv.free_pages() \
             + self._prefix.evictable_pages(exclude=nodes)
@@ -501,12 +783,12 @@ class ContinuousBatchingServer:
 
     # ------------------------------------------------------- scheduling
     def _admit(self, run_prefill=True):
-        """Pop queued requests into free slots (reservation only: the
-        full prompt + budget extent, cache-hit pages shared by
-        reference), then run one batched ragged prefill launch over
-        every slot with prompt rows still to write. OutOfPages DEFERS
-        the head request (FIFO kept); any other admission error fails
-        that request alone."""
+        """Fill free slots from the queue. Dense prefill: one batch-1
+        prefill per admission (``_admit_one``). Ragged prefill:
+        admissions only reserve their slot and full page extent here;
+        the prompt chunks run batched in ``_prefill_tick``. OutOfPages
+        DEFERS the head request (FIFO kept); any other admission error
+        fails that request alone."""
         admitted = 0
         for slot in range(self.max_slots):
             if self._admit_cap is not None and admitted >= self._admit_cap:
@@ -516,17 +798,27 @@ class ContinuousBatchingServer:
             if not self._queue:
                 break
             item = self._queue[0]
+            # one _best_hit an attempt feeds the fits check and the
+            # admission: same lock, the tree cannot move in between
             best = self._best_hit(item.ids)
-            if not self._head_fits_pool(item, best):
+            if self._kv is not None \
+                    and not self._head_fits_pool(item, best):
                 break
             req = self._queue.pop(0)
             try:
-                self._reserve_one(slot, req, best)
+                if self._ragged:
+                    self._reserve_one(slot, req, best)
+                else:
+                    self._admit_one(slot, req, best)
             except OutOfPages:
+                if self._kv.slot_pages(slot):
+                    self._kv.free_slot(slot)
+                self._active[slot] = False
+                self._slots[slot] = None
                 self._queue.insert(0, req)
                 break
             except Exception as e:
-                if self._kv.slot_pages(slot):
+                if self._kv is not None and self._kv.slot_pages(slot):
                     self._kv.free_slot(slot)     # roll back a part-admit
                 self._active[slot] = False
                 self._slots[slot] = None
@@ -536,25 +828,31 @@ class ContinuousBatchingServer:
                 self._done_cv.notify_all()
             else:
                 admitted += 1
-        if run_prefill:
+        if run_prefill and self._ragged:
             self._prefill_tick()
 
     def _reserve_one(self, slot, req, best):
-        """Reserve ``slot`` for ``req``: full-extent pages (cache-hit
-        pages joined by reference) and a prefill-phase slot record. The
-        prompt's chunks run in ``_prefill_tick`` launches."""
+        """Reserve ``slot`` for ``req`` (ragged prefill): full-extent
+        pages (tree-hit pages joined by reference) and a prefill-phase
+        slot record. The prompt's chunks run in ``_prefill_tick``
+        launches."""
         ids = req.ids
         T = ids.shape[0]
-        n_pre, pre_pages = (0, []) if best is None \
-            else (best.tokens, best.pages)
+        m = None if best is None else best[1]
+        n_pre, pre_pages = (0, []) if m is None else (m.tokens, m.pages)
         self._kv.admit_slot(slot, T + req.budget, pre_pages)
+        n_auto = 0
+        if m is not None:
+            self._prefix.use(m)               # LRU: reuse is recency
+            # pinned nodes are registered state (the run's head:
+            # extend_pinned pins whole root paths), the rest the
+            # automatic cache's
+            n_auto = n_pre - sum(1 for nd in m.nodes if nd.pinned) \
+                * self._kv.page_size
         self.stats["prefix_hit_tokens"] += n_pre
-        if best is not None:
-            # no prefix is ever pinned here (register_prefix is not
-            # ported), so every hit is an automatic one
-            self._prefix.use(best)            # LRU: reuse is recency
+        if n_auto:
             self.stats["prefix_auto_hits"] += 1
-            self.stats["prefix_auto_hit_tokens"] += n_pre
+            self.stats["prefix_auto_hit_tokens"] += n_auto
         st = _Slot(req.rid, ids, T, req.budget, req.on_token,
                    req.deadline, req.seed)
         st.fill_pos = st.filled = n_pre
@@ -568,6 +866,103 @@ class ContinuousBatchingServer:
             # state: mid-prefill slots ride the launch as real prefill
             # rows, idle ones are skipped by the kernel.)
             self._pending_t[slot] = self.max_cache_len
+
+    def _n_prefill_calls(self, seg_len):
+        """Prefill step calls ``_run_prefill`` makes for a
+        ``seg_len``-token segment (1 unchunked, else one a chunk)."""
+        if seg_len <= 0:
+            return 0
+        c = self._prefill_chunk
+        if not c or seg_len <= c:
+            return 1
+        return (seg_len + self._chunk_pad(seg_len)) // c
+
+    def _prefill_rest(self, rest, caches1, t0):
+        """Dense prefill of the prompt segment ``rest`` at ``t0`` (fresh
+        batch-1 caches when ``caches1`` is None), accounted; returns its
+        last logits [1, V] and the caches."""
+        logits, caches1 = self.model._run_prefill(
+            self._bundle, rest[None], chunk=self._prefill_chunk,
+            caches=caches1, t0=t0)
+        calls = self._n_prefill_calls(rest.shape[0])
+        self._count_dispatches(calls)
+        self.stats["prefill_launches"] += calls
+        self.stats["prefill_tokens"] += rest.shape[0]
+        return logits, caches1
+
+    def _admit_one(self, slot, req, best):
+        """Dense-prefill admission: reserve the slot (its full page
+        extent on the paged pool), prefill the prompt at batch 1 (a tree
+        hit gathers its cached pages into the dense caches first, a
+        registered hit seeds them from the stored rows; either way only
+        the remainder is prefilled), draw the first token, and copy the
+        rows into the slot's dense cache row or its own pages."""
+        ids, T = req.ids, req.ids.shape[0]
+        if best is not None and best[0] == "tree":
+            n_pre, pre_pages = best[1].tokens, best[1].pages
+        elif best is not None:
+            n_pre, pre_pages = best[1][0].shape[0], best[1][3]
+        else:
+            n_pre, pre_pages = 0, []
+        own = []
+        if self._kv is not None:
+            # the full extent is reserved before any prefill work or
+            # stats: an OutOfPages here defers the request with nothing
+            # counted. Shared pages are referenced before the alloc, so
+            # its reclaim sweep cannot evict them.
+            own = self._kv.admit_slot(slot, T + req.budget, pre_pages)
+        if best is not None and best[0] == "tree":
+            m = best[1]
+            self._prefix.use(m)               # LRU: reuse is recency
+            caches1 = self._seed_from_pages(m.pages)
+            self._count_dispatches(1, op="page_gather")
+            self.stats["prefix_hit_tokens"] += n_pre
+            self.stats["prefix_auto_hits"] += 1
+            self.stats["prefix_auto_hit_tokens"] += n_pre
+            # the remainder is never empty (the lookup's T - 1 cap)
+            logits, caches1 = self._prefill_rest(ids[n_pre:], caches1,
+                                                 n_pre)
+        elif best is not None:
+            rows, pre_logits = best[1][1], best[1][2]
+            caches1 = self._init_caches(1)
+            for name in ("k", "v"):
+                caches1[name][:, :, :n_pre] = rows[name]
+            self._count_dispatches(1, op="page_scatter")  # the row seed
+            self.stats["prefix_hit_tokens"] += n_pre
+            if T > n_pre:
+                logits, caches1 = self._prefill_rest(ids[n_pre:], caches1,
+                                                     n_pre)
+            else:
+                logits = pre_logits
+        else:
+            logits, caches1 = self._prefill_rest(ids, None, 0)
+        firsts, keys = self._pick(logits, [req.seed])
+        first = firsts[0]
+        if keys is not None:
+            self._keys.view(torch.int32)[slot] = keys[0].view(torch.int32)
+        if self._kv is not None:
+            # only the prompt's own rows are copied: the shared prefix
+            # pages ahead of them are filled already
+            pg = self._kv.page_size
+            n_prompt = -(-T // pg) - len(pre_pages)
+            if own[:n_prompt]:
+                self._count_dispatches(1, op="page_scatter")
+            self._fill_pages(caches1, own[:n_prompt], len(pre_pages) * pg)
+        else:
+            for name in ("k", "v"):
+                self._caches[name][:, slot] = caches1[name][:, 0]
+            self._count_dispatches(1, op="page_scatter")  # the row copy
+        self._tok[slot] = first
+        self._t[slot] = T
+        self._count_dispatches(3, op="state_push")    # tok, t, key
+        self._active[slot] = True
+        st = _Slot(req.rid, ids, T, req.budget, req.on_token,
+                   req.deadline, req.seed)
+        st.filled = st.fill_pos = T
+        st.emitted.append(first)
+        st.stream(self._deferred_cbs)
+        self._slots[slot] = st
+        self.stats["admissions"] += 1
 
     def _chunk_plan(self):
         """The next prompt chunk of every mid-prefill slot, oldest
@@ -626,34 +1021,37 @@ class ContinuousBatchingServer:
         self.stats["prefill_launches"] += 1
         self._advance(plan)
         if done:
-            firsts = self._pick(logits[torch.tensor(done, device=dev)],
-                                done)
-            for slot, first in zip(done, firsts):
-                self._activate(slot, first)
+            firsts, keys = self._pick(
+                logits[torch.tensor(done, device=dev)],
+                [self._slots[s].seed for s in done])
+            for i, slot in enumerate(done):
+                if keys is not None:
+                    self._pending_key[slot] = keys[i]
+                self._activate(slot, firsts[i])
 
-    def _pick(self, logits, slots):
-        """First tokens of ``logits`` rows [n, V] of ``slots`` as a host
-        list (one device-to-host copy); rows holding a NaN or an Inf are
-        counted in ``stats["nonfinite_logit_rows"]``. Greedy: the argmax.
-        Sampling: each slot's chain starts at ``PRNGKey(seed)``, is split
-        once and draws from the filtered row (the reference's eager
-        ``_activate``: a true division by the temperature); the kept
-        halves wait in ``_pending_key`` for the tick's state push."""
+    def _pick(self, logits, seeds):
+        """First tokens of the prefill ``logits`` rows [n, V] of requests
+        with sampling ``seeds``, as a host list (one device-to-host
+        copy), and when sampling their chains' kept keys on the device
+        [n, 2] (else None); rows holding a NaN or an Inf are counted in
+        ``stats["nonfinite_logit_rows"]``. Greedy: the argmax. Sampling:
+        each chain starts at ``PRNGKey(seed)``, is split once and draws
+        from the filtered row (the reference's eager first draw: a true
+        division by the temperature)."""
+        keys = None
         if not self.do_sample:
             nxt = torch.argmax(logits, -1).to(torch.int32)
             bad = (~torch.isfinite(logits).all(-1)).to(torch.int32)
         else:
-            n = len(slots)
-            seeds = torch.from_numpy(self._wrap_seeds(
-                [self._slots[s].seed for s in slots])).to(self.device)
+            n = len(seeds)
+            seeds = torch.from_numpy(self._wrap_seeds(seeds)).to(
+                self.device)
             ones = torch.ones((n,), dtype=torch.int32, device=self.device)
             nxt, keys, bad = self._draw(logits, self._keys[:n], seeds,
                                         ones, ones, reciprocal=False)
-            for i, slot in enumerate(slots):
-                self._pending_key[slot] = keys[i]
         host = torch.stack([nxt, bad]).cpu().numpy()
         self.stats["nonfinite_logit_rows"] += int(host[1].sum())
-        return [int(x) for x in host[0]]
+        return [int(x) for x in host[0]], keys
 
     @staticmethod
     def _wrap_seeds(seeds):
@@ -720,31 +1118,37 @@ class ContinuousBatchingServer:
 
     @torch.no_grad()
     def _decode(self):
-        """One batched decode step over every slot; returns the new
-        tokens [slots, 1] on the host. Rows of slots with no live decode
-        work (empty, finished or mid-prefill) ride along: their writes
-        null-redirect and their tokens are discarded. Sampling splits
-        every slot's key, as the reference's vmap over slots does (the
-        idle slots' keys are replaced when they activate), and scales by
-        the temperature's reciprocal, as its jitted step does."""
-        x = self._embed_fn(self._tok, self._t)
-        out, self._caches = self._step_fn(x, self._caches, self._t)
-        logits = self._head_fn(out)[:, -1]
-        live = torch.from_numpy(self._active).to(self.device)
-        if self.do_sample:
-            self._tok, self._keys, bad = self._draw(
-                logits, self._keys, self._no_fresh, self._no_fresh,
-                self._all_emit, reciprocal=True)
-            bad = (bad.bool() & live).to(torch.int32)
-        else:
-            self._tok = torch.argmax(logits, -1).to(torch.int32)
-            bad = (~torch.isfinite(logits).all(-1) & live).to(torch.int32)
-        self._t = self._t + 1
-        host = torch.stack([self._tok, bad]).cpu().numpy()
-        self.stats["nonfinite_logit_rows"] += int(host[1].sum())
+        """``tick_block`` batched decode steps over every slot; returns
+        the tokens [slots, n] and their rows' non-finite flags [slots, n]
+        on the host (one device-to-host copy). Rows of slots with no live
+        decode work (empty or mid-prefill) ride along: their writes
+        null-redirect (paged) or land in their own rows or past the
+        cache (dense), and their tokens are discarded. Sampling splits
+        every slot's key every step, as the reference's vmap over slots
+        does (the idle slots' keys are replaced when they activate),
+        and scales by the temperature's reciprocal, as its jitted step
+        does: one R1 launch a step."""
+        toks, bads = [], []
+        for _ in range(self.tick_block):
+            x = self._embed_fn(self._tok, self._t)
+            out, self._caches = self._step_fn(x, self._caches, self._t)
+            logits = self._head_fn(out)[:, -1]
+            if self.do_sample:
+                self._tok, self._keys, bad = self._draw(
+                    logits, self._keys, self._no_fresh, self._no_fresh,
+                    self._all_emit, reciprocal=True)
+            else:
+                self._tok = torch.argmax(logits, -1).to(torch.int32)
+                bad = (~torch.isfinite(logits).all(-1)).to(torch.int32)
+            self._t = self._t + 1
+            toks.append(self._tok)
+            bads.append(bad)
+        host = torch.stack([torch.stack(toks, 1),
+                            torch.stack(bads, 1)]).cpu().numpy()
         self.stats["decode_ticks"] += 1
+        self.stats["decode_steps"] += self.tick_block
         self._tick_dispatch("decode")
-        return host[0][:, None]
+        return host[0], host[1]
 
     def step(self):
         """One server tick: admit waiting requests and run their prefill
@@ -909,16 +1313,24 @@ class ContinuousBatchingServer:
         # activations batched their tok/t updates, and slots still
         # prefilling carry parked write positions: push both first
         self._flush_slot_state()
-        toks = self._decode()
+        toks, bad = self._decode()
+        n = toks.shape[1]
         for slot in range(self.max_slots):
             if not self._active[slot]:
                 continue
             st = self._slots[slot]
-            st.emitted.append(int(toks[slot, 0]))
+            for j in range(n):
+                st.emitted.append(int(toks[slot, j]))
+                self.stats["nonfinite_logit_rows"] += int(bad[slot, j])
+                if self._finished(st):
+                    # the block's later rows are waste
+                    self.stats["block_waste_tokens"] += n - (j + 1)
+                    break
             st.stream(self._deferred_cbs)
         self._harvest()
-        # end-of-tick admissions reserve only: their prefill chunks run
-        # in the NEXT tick's launch (the token budget is per tick)
+        # end-of-tick admissions: ragged ones reserve only, their
+        # prefill chunks run in the NEXT tick's launch (the token budget
+        # is per tick); dense ones prefill here
         self._admit(run_prefill=False)
         return int(self._active.sum())
 

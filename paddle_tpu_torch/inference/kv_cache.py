@@ -158,3 +158,18 @@ class PagedKVCache:
         self.block_table[slot, :] = NULL_PAGE
         self.dirty = True
         return pages
+
+    @staticmethod
+    def paged_hbm_bytes(num_pages, page_size, layers, kv_heads, head_dim,
+                        itemsize=4):
+        """K+V pool bytes for a paged cache config."""
+        return 2 * layers * num_pages * page_size * kv_heads * head_dim \
+            * itemsize
+
+    @staticmethod
+    def dense_hbm_bytes(max_slots, max_cache_len, layers, kv_heads,
+                        head_dim, itemsize=4):
+        """K+V bytes the dense backend allocates for the same serving
+        config: the baseline the paged pool is measured against."""
+        return 2 * layers * max_slots * max_cache_len * kv_heads \
+            * head_dim * itemsize

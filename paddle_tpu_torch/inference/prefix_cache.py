@@ -2,7 +2,8 @@
 
 Copied from ``paddle_tpu/inference/prefix_cache.py`` (host-side numpy
 bookkeeping, no device code), cut to what the port's server reaches:
-lookup, donation and LRU eviction. The paged serving stack keeps a
+lookup, donation, LRU eviction and the pinned nodes of registered
+prefixes. The paged serving stack keeps a
 request's KV state in refcounted pool pages; this module makes reusing
 them automatic and bounded.
 
@@ -34,9 +35,16 @@ Lifecycle:
   idle pool capacity and shrinks to nothing under load, with zero
   correctness impact — eviction only ever forgets REUSABLE state.
 
-Pinned prefixes (``register_prefix``), the host KV tier, the routing
-sketch and the chaos hooks of the JAX module come back with the ROADMAP
-items that first need them.
+- pinning: ``register_prefix`` stores a prefix's full pages in the tree
+  as PINNED nodes (``extend_pinned``), adopting nodes the automatic
+  cache already holds for those tokens (``node_run``, shielded from the
+  allocation's own reclaim by ``protect``). Eviction never takes a
+  pinned node, nor an ancestor of one; ``pinned_pages`` and
+  ``cached_pages`` partition the tree for ``pool_balance()``.
+
+The host KV tier, the routing sketch (and ``flush_sketch``) and the
+chaos hooks of the JAX module come back with the ROADMAP items that
+first need them (Queue 1 items 9 and 8).
 
 Host-side only, mutated exclusively under the server lock.
 """
@@ -48,15 +56,17 @@ __all__ = ["PrefixCache", "PrefixMatch"]
 class _Node:
     """One cached page: ``key`` is the page's token tuple, ``page`` its
     pool id. ``last_used``/``seq`` order eviction (LRU, then insertion
-    order)."""
+    order); ``pinned`` marks register_prefix entries."""
 
-    __slots__ = ("key", "page", "parent", "children", "last_used", "seq")
+    __slots__ = ("key", "page", "parent", "children", "pinned",
+                 "last_used", "seq")
 
     def __init__(self, key, page, parent):
         self.key = key
         self.page = page
         self.parent = parent
         self.children = {}
+        self.pinned = False
         self.last_used = 0
         self.seq = 0
 
@@ -67,12 +77,21 @@ class PrefixMatch:
     ``nodes`` is the matched tree path — pass it back to ``use()`` when
     the match is actually taken so LRU sees the reuse."""
 
-    __slots__ = ("tokens", "pages", "nodes")
+    __slots__ = ("tokens", "pages", "nodes", "_page_size")
 
     def __init__(self, nodes, page_size):
         self.nodes = nodes
         self.pages = [n.page for n in nodes]
         self.tokens = len(nodes) * page_size
+        self._page_size = page_size
+
+    def shrink(self):
+        """The same match minus its last page (None when that leaves it
+        empty): the server trims a match whose remainder would overflow
+        the prefill-chunk pad bound."""
+        if len(self.nodes) <= 1:
+            return None
+        return PrefixMatch(self.nodes[:-1], self._page_size)
 
 
 class PrefixCache:
@@ -81,8 +100,8 @@ class PrefixCache:
     Page ownership: every node holds exactly ONE allocator reference to
     its page. Slots that reuse a cached page take their own reference
     (``admit_slot(shared_pages=...)``), so ``kv.refcount(page) > 1``
-    means "in use by a live slot" and blocks eviction.
-    ``cached_pages`` counts the tree for pool accounting
+    means "in use by a live slot" and blocks eviction. ``pinned_pages``
+    / ``cached_pages`` partition the tree for pool accounting
     (``pool_balance()``).
     """
 
@@ -92,7 +111,9 @@ class PrefixCache:
         self._root = _Node(None, None, None)
         self._tick = 0          # logical LRU clock (bumped per touch)
         self._seq = 0           # insertion order, the deterministic tie-break
-        self.cached_pages = 0
+        self._protected = frozenset()   # node ids shielded from eviction
+        self.pinned_pages = 0   # nodes register_prefix pinned (never evicted)
+        self.cached_pages = 0   # unpinned nodes (evictable when refcount 1)
 
     # ---------------------------------------------------------- matching
     def _page_keys(self, ids, npages):
@@ -132,6 +153,12 @@ class PrefixCache:
         if not run:
             return None
         return PrefixMatch(run, self.page_size)
+
+    def node_run(self, ids):
+        """Existing nodes covering ``ids`` (page-aligned): register_prefix
+        adopts these instead of allocating again."""
+        ids = np.asarray(ids).reshape(-1)
+        return self._walk(ids, len(ids) // self.page_size)
 
     def _touch(self, node):
         self._tick += 1
@@ -173,18 +200,19 @@ class PrefixCache:
 
     # ---------------------------------------------------------- eviction
     def _evictable(self, exclude=()):
-        """Nodes safe to remove: not excluded, refcount 1 (only the
-        tree's own hold), and no blocked descendant — an ancestor of a
-        shared or excluded page must survive so the chain below it stays
-        reachable."""
-        ex = {id(n) for n in exclude}
+        """Nodes safe to remove: unpinned, unprotected, not excluded,
+        refcount 1 (only the tree's own hold), and no blocked descendant
+        — an ancestor of a pinned, shared, protected or excluded page
+        must survive so the chain below it stays reachable."""
+        ex = {id(n) for n in exclude} | self._protected
         out = []
 
         def walk(n):
             ok = True
             for ch in n.children.values():
                 ok = walk(ch) and ok
-            ok = ok and id(n) not in ex and self.kv.refcount(n.page) == 1
+            ok = (ok and not n.pinned and id(n) not in ex
+                  and self.kv.refcount(n.page) == 1)
             if ok:
                 out.append(n)
             return ok
@@ -198,6 +226,12 @@ class PrefixCache:
         counts these as available headroom. ``exclude`` holds the
         nodes a pending match is about to take by reference."""
         return len(self._evictable(exclude))
+
+    def protect(self, nodes):
+        """Shield ``nodes`` from eviction across an allocator call that
+        may reclaim (register_prefix adopting a cached run must not have
+        that run evicted under it). Pass ``()`` to clear."""
+        self._protected = frozenset(id(n) for n in nodes)
 
     def evict(self, need):
         """Free up to ``need`` pool pages, least-recently-used leaf
@@ -216,3 +250,29 @@ class PrefixCache:
             self.cached_pages -= 1
             freed += 1
         return freed
+
+    # ----------------------------------------------------------- pinning
+    def extend_pinned(self, ids, run, own_pages):
+        """Commit a ``register_prefix`` entry: pin the existing ``run``
+        (adopted donated pages stop being evictable) and append
+        ``own_pages`` as fresh pinned nodes for the remaining keys of
+        page-aligned ``ids``. Returns the entry's full page list."""
+        for nd in run:
+            self._touch(nd)
+            if not nd.pinned:
+                nd.pinned = True
+                self.cached_pages -= 1
+                self.pinned_pages += 1
+        node = run[-1] if run else self._root
+        ids = np.asarray(ids).reshape(-1)
+        keys = self._page_keys(ids, len(ids) // self.page_size)
+        for key, page in zip(keys[len(run):], own_pages):
+            child = _Node(key, page, node)
+            self._seq += 1
+            child.seq = self._seq
+            node.children[key] = child
+            child.pinned = True
+            self._touch(child)
+            node = child
+            self.pinned_pages += 1
+        return [n.page for n in run] + list(own_pages)

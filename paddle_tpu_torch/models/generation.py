@@ -1,31 +1,42 @@
-"""Paged decode bundle for the Llama family: the serving step functions.
+"""Decode bundles for the Llama family: ``generate()`` and the serving
+step functions.
 
-Port of the paged subset of ``paddle_tpu/models/generation.py``. Each
-causal LM decomposes into plain step functions over its parameters and
-a paged KV cache: one global K/V page pool per layer
-(``[layers, num_pages, page_size, kv_heads, head_dim]``) plus per-slot
-block tables (``[slots, pages_per_slot]`` int32). Decode steps (one
-token per slot) run the paged-attention kernel; ragged prefill chunks
-(several slots' prompt chunks in one call) run the ragged-prefill
-kernel; a fused tick (every slot's prefill chunk and decode row in one
-call, over the live slice of the block tables) runs the fused-tick
-kernel. Each kernel takes its plain PyTorch version on CPU tensors.
+Port of ``paddle_tpu/models/generation.py``. Each causal LM decomposes
+into plain step functions over its parameters and a KV cache, in one of
+two layouts:
 
-Where the JAX package returns new cache arrays, the port writes pool
-pages IN PLACE (``index_put_`` on the layer's pool view): the pool is
-the largest tensor of a serving process, and a copy per layer per step
-would double it. The step functions still return the cache dict so
-call sites read like the JAX ones.
+- dense (``cache_backend="dense"``, ``generate()``'s and every prefill's):
+  one ``[batch, max_cache_len, kv_heads, head_dim]`` K and V buffer a
+  layer (``{"k": [layers, ...], "v": ...}``), written at per-row or
+  shared offsets and attended in plain torch (``_cached_attend``: GQA
+  repeat, masked softmax in f32), as the reference computes it in plain
+  jnp outside any ``pallas_call``;
+- paged: one global K/V page pool per layer (``[layers, num_pages,
+  page_size, kv_heads, head_dim]``) plus per-slot block tables
+  (``[slots, pages_per_slot]`` int32). Decode steps (one token per
+  slot) run the paged-attention kernel; ragged prefill chunks (several
+  slots' prompt chunks in one call) run the ragged-prefill kernel; a
+  fused tick (every slot's prefill chunk and decode row in one call,
+  over the live slice of the block tables) runs the fused-tick kernel.
+  Each kernel takes its plain PyTorch version on CPU tensors.
 
-The dense cache backend, int8 weights and caches and the mesh are not
-ported yet; asking for them raises ``NotImplementedError`` naming the
-ROADMAP item.
+Where the JAX package returns new cache arrays, the port writes caches
+IN PLACE (``index_put_`` or a slice on the layer's view): a cache is the
+largest tensor of a serving process, and a copy per layer per step
+would double it. The step functions still return the cache dict so call
+sites read like the JAX ones.
+
+Int8 weights and caches, the mesh, beam search and constrained decoding
+are not ported yet; asking for them raises ``NotImplementedError``
+naming the ROADMAP item.
 """
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import prng
 from ..nn.layer import Linear
 from ..ops.kernels.fused_tick import fused_tick_attention
 from ..ops.kernels.paged_attention import paged_attention
@@ -40,11 +51,15 @@ def _rms(x, w, eps):
     return (x.float() * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
-def _positions(t, b, s):
+NEG = -1e30        # the masked logit of the reference's _cached_attend
+
+
+def _positions(t, b, s, device=None):
     """Absolute positions [B, s] for a step at per-row offsets ``t``
-    ([B] tensor) or one shared offset (a Python int)."""
+    ([B] tensor) or one shared offset (a Python int or a 0-d tensor), on
+    ``t``'s device or, for a Python int, on ``device``."""
     row = torch.arange(s, dtype=torch.int32,
-                       device=t.device if torch.is_tensor(t) else None)
+                       device=t.device if torch.is_tensor(t) else device)
     if not torch.is_tensor(t) or t.dim() == 0:
         return (row + t)[None, :].repeat(b, 1)
     return t[:, None] + row[None, :]
@@ -57,19 +72,87 @@ def _per_slot(t, b, device):
     return torch.full((b,), int(t), dtype=torch.int32, device=device)
 
 
+def _cached_attend(q, k_cache, v_cache, t, s, scale):
+    """q [B, s, nh, hd] at positions [t, t + s); caches [B, T, nh, hd]
+    already written through t + s. Key position p is visible to query
+    row r iff p <= t + r (unwritten and future rows masked with -1e30
+    before an f32 softmax). ``t`` a Python int, a 0-d tensor or [B]."""
+    T = k_cache.shape[1]
+    logits = torch.einsum("bsnd,btnd->bnst", q, k_cache) * scale
+    pos = torch.arange(T, device=q.device)
+    row = _positions(t, q.shape[0], s, q.device)            # [B, s]
+    ok = pos[None, None] <= row[:, :, None]                 # [B, s, T]
+    logits = torch.where(ok[:, None], logits.float(), NEG)
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bnst,btnd->bsnd", p, v_cache)
+
+
+def _write_cache(cache, kv, t):
+    """cache [B, T, h, hd] <- kv [B, s, h, hd] at positions [t, t + s), in
+    place; returns ``cache``.
+
+    A shared offset (a Python int or a 0-d tensor) is a slice write. The
+    reference's ``dynamic_update_slice`` clamps a start past ``T - s``;
+    every caller bound-checks first, so here it raises. Per-row offsets
+    ([B]) are the reference's scatter, which DROPS positions >= T (the
+    wasted block steps of a slot that ends at ``max_cache_len``, idle
+    dense slots whose offset keeps growing); torch's ``index_put_``
+    raises there on the CPU and asserts on CUDA, so those positions are
+    masked: at s == 1 (the decode step) the row is written back with
+    the value it holds, with no host sync; at s > 1 they are left out."""
+    T = cache.shape[1]
+    b, s = kv.shape[0], kv.shape[1]
+    kv = kv.to(cache.dtype)
+    if not torch.is_tensor(t) or t.dim() == 0:
+        t0 = int(t)
+        if t0 < 0 or t0 + s > T:
+            raise ValueError(f"cache write of rows [{t0}, {t0 + s}) lies "
+                             f"outside the cache's {T} rows")
+        cache[:, t0:t0 + s] = kv
+        return cache
+    rows = torch.arange(b, device=cache.device)
+    if s == 1:
+        col = t.long()
+        oob = col >= T
+        col = col.clamp(max=T - 1)
+        cache[rows, col] = torch.where(oob[:, None, None], cache[rows, col],
+                                       kv[:, 0])
+        return cache
+    pos = _positions(t, b, s).long()
+    keep = pos < T
+    cache[rows[:, None].expand(b, s)[keep], pos[keep]] = kv[keep]
+    return cache
+
+
+def _check_cache_dtype(cache_dtype):
+    if cache_dtype == "int8":
+        raise NotImplementedError(
+            "cache_dtype='int8' is not ported (ROADMAP, Queue 1 item 10: "
+            "quantized serving)")
+
+
+def _init_kv(shape, dtype, cache_dtype, device):
+    """Dense caches ``{"k", "v"}`` of ``shape`` ([layers, batch,
+    max_cache_len, kv_heads, head_dim]), zeroed."""
+    _check_cache_dtype(cache_dtype)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _check_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh serving is not ported (ROADMAP, Queue 1 item 9: the "
+            "fleet)")
+
+
 def _check_paged_config(max_cache_len, page_size, num_pages, cache_dtype,
                         mesh):
     """Validate a paged decode bundle request. ``page_size`` must divide
     ``max_cache_len`` so the block table spans exactly the cache
     length."""
-    if cache_dtype == "int8":
-        raise NotImplementedError(
-            "cache_dtype='int8' is not ported (ROADMAP, Queue 1 item 10: "
-            "quantized serving)")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh serving is not ported (ROADMAP, Queue 1 item 9: the "
-            "fleet)")
+    _check_cache_dtype(cache_dtype)
+    _check_mesh(mesh)
     if not page_size or int(page_size) < 1:
         raise ValueError("paged backend needs page_size >= 1")
     if not num_pages or int(num_pages) < 2:
@@ -177,17 +260,21 @@ def _fused_attend(q, k_pool, v_pool, bt, t, last, dec, ss, sp, scale):
                                 sm_scale=scale)
 
 
-def _rope_gqa_attn(blk, xx, k_pool, v_pool, t, pos, dims, tables, eps, bt,
+def _rope_gqa_attn(blk, xx, kc, vc, t, pos, dims, tables, eps, bt=None,
                    fused=None):
-    """Llama attention sublayer for one layer of a paged step:
-    pre-RMSNorm, rope at absolute positions, K/V written into the
-    layer's pool pages, paged attention (s == 1: decode kernel; s > 1:
-    ragged prefill kernel), output projection and residual. ``fused``
-    (a ``(last, dec, ss, sp)`` tuple) switches to the fused tick:
-    ``bt`` is then the live block-table slice, rows past ``last``
-    null-redirect zeroed on write, and attention runs the fused-tick
-    kernel over the page schedule ``(ss, sp)``. Returns (xx, h2) with
-    h2 the post-attention norm for the FFN."""
+    """Llama attention sublayer for one layer of a step: pre-RMSNorm,
+    rope at absolute positions, K/V written into the layer's cache,
+    attention, output projection and residual. ``bt`` None: ``kc``/``vc``
+    are the layer's dense caches [B, T, kvh, hd], written by
+    ``_write_cache`` and attended by ``_cached_attend`` over the kv heads
+    repeated to the query heads. ``bt`` given: they are the layer's page
+    pools, written and attended through the block table (s == 1: decode
+    kernel; s > 1: ragged prefill kernel). ``fused`` (a ``(last, dec, ss,
+    sp)`` tuple) switches to the fused tick: ``bt`` is then the live
+    block-table slice, rows past ``last`` null-redirect zeroed on write,
+    and attention runs the fused-tick kernel over the page schedule
+    ``(ss, sp)``. Returns (xx, h2) with h2 the post-attention norm for
+    the FFN."""
     b, s, nh, kvh, hd, scale = dims
     cos, sin = tables
     h = _rms(xx, blk["ln1"], eps)
@@ -196,20 +283,26 @@ def _rope_gqa_attn(blk, xx, k_pool, v_pool, t, pos, dims, tables, eps, bt,
     v = (h @ blk["wv"]).reshape(b, s, kvh, hd)
     q = apply_rotary(q, cos, sin, position_ids=pos)
     k = apply_rotary(k, cos, sin, position_ids=pos)
-    if fused is not None:
+    if bt is None:
+        _write_cache(kc, k, t)
+        _write_cache(vc, v, t)
+        rep = nh // kvh
+        kk = kc.repeat_interleave(rep, dim=2) if rep > 1 else kc
+        vv = vc.repeat_interleave(rep, dim=2) if rep > 1 else vc
+        att = _cached_attend(q, kk, vv, t, s, scale)
+    elif fused is not None:
         last, dec, ss, sp = fused
-        _page_write_seq(k_pool, k, bt, t, last=last)
-        _page_write_seq(v_pool, v, bt, t, last=last)
-        att = _fused_attend(q, k_pool, v_pool, bt, t, last, dec, ss, sp,
-                            scale)
+        _page_write_seq(kc, k, bt, t, last=last)
+        _page_write_seq(vc, v, bt, t, last=last)
+        att = _fused_attend(q, kc, vc, bt, t, last, dec, ss, sp, scale)
     elif s > 1:
-        _page_write_seq(k_pool, k, bt, t)
-        _page_write_seq(v_pool, v, bt, t)
-        att = _paged_prefill_attend(q, k_pool, v_pool, bt, t, scale)
+        _page_write_seq(kc, k, bt, t)
+        _page_write_seq(vc, v, bt, t)
+        att = _paged_prefill_attend(q, kc, vc, bt, t, scale)
     else:
-        _page_write(k_pool, k, bt, t)
-        _page_write(v_pool, v, bt, t)
-        att = _paged_attend(q, k_pool, v_pool, bt, t, scale)
+        _page_write(kc, k, bt, t)
+        _page_write(vc, v, bt, t)
+        att = _paged_attend(q, kc, vc, bt, t, scale)
     xx = xx + att.reshape(b, s, nh * hd) @ blk["wo"]
     h2 = _rms(xx, blk["ln2"], eps)
     return xx, h2
@@ -270,23 +363,25 @@ def _make_llama_decode_fns(model, max_cache_len, weight_dtype=None,
                            mesh=None, cache_dtype=None,
                            cache_backend="dense", page_size=None,
                            num_pages=None):
-    """(init_caches, embed_fn, step_fn, head_fn, ragged_fn, fused_fn)
-    for a paged
-    ``LlamaForCausalLM``: GQA-aware (kv heads cached unrepeated), rope at
-    absolute positions, the layer scan a Python loop over layers. The
+    """``(init_caches, embed_fn, step_fn, head_fn)`` for a dense
+    ``LlamaForCausalLM``, and ``(..., ragged_fn, fused_fn)`` for a paged
+    one: GQA-aware (kv heads cached unrepeated), rope at absolute
+    positions, the layer scan a Python loop over layers. Dense caches
+    are ``[batch, max_cache_len, kv_heads, head_dim]`` a layer. The
     functions read the model's parameters in place (no stacked copy) and
     run under ``torch.no_grad``: the parameters are trainable, serving
     builds no graph."""
-    if cache_backend != "paged":
-        raise NotImplementedError(
-            "cache_backend='dense' is not ported (ROADMAP, Queue 1 item 5: "
-            "the dense backend); use cache_backend='paged'")
     if weight_dtype == "int8":
         raise NotImplementedError(
             "weight_dtype='int8' is not ported (ROADMAP, Queue 1 item 10: "
             "quantized serving)")
-    _check_paged_config(max_cache_len, page_size, num_pages, cache_dtype,
-                        mesh)
+    paged = cache_backend == "paged"
+    if paged:
+        _check_paged_config(max_cache_len, page_size, num_pages,
+                            cache_dtype, mesh)
+    else:
+        _check_cache_dtype(cache_dtype)
+        _check_mesh(mesh)
     projections = [model.lm_head] + [
         p for blk in model.model.layers
         for p in (blk.self_attn.q_proj, blk.self_attn.k_proj,
@@ -317,12 +412,14 @@ def _make_llama_decode_fns(model, max_cache_len, weight_dtype=None,
     tables = precompute_freqs(hd, max_cache_len, cfg.rope_theta,
                               device=device)
     scale = 1.0 / math.sqrt(hd)
-    page_size, num_pages = int(page_size), int(num_pages)
 
     def init_caches(batch):
-        return _init_paged_kv(batch, L, num_pages, page_size,
-                              max_cache_len // page_size, kvh, hd, dtype,
-                              device)
+        if paged:
+            return _init_paged_kv(batch, L, int(num_pages), int(page_size),
+                                  max_cache_len // int(page_size), kvh, hd,
+                                  dtype, device)
+        return _init_kv((L, batch, max_cache_len, kvh, hd), dtype,
+                        cache_dtype, device)
 
     @torch.no_grad()
     def embed_fn(tok, t):
@@ -330,27 +427,33 @@ def _make_llama_decode_fns(model, max_cache_len, weight_dtype=None,
 
     def _run_layers(x, caches, t, bt, fused=None):
         b, s = x.shape[0], x.shape[1]
-        t = _per_slot(t, b, x.device)
-        pos = _positions(t, b, s)                          # [B, s]
+        if bt is not None:
+            t = _per_slot(t, b, x.device)
+            kv = zip(caches["pool"]["k"], caches["pool"]["v"])
+        else:
+            kv = zip(caches["k"], caches["v"])
+        pos = _positions(t, b, s, x.device)                # [B, s]
         dims = (b, s, nh, kvh, hd, scale)
-        for blk, k_pool, v_pool in zip(blocks, caches["pool"]["k"],
-                                       caches["pool"]["v"]):
-            x, h2 = _rope_gqa_attn(blk, x, k_pool, v_pool, t, pos, dims,
-                                   tables, eps, bt, fused=fused)
+        for blk, (kc, vc) in zip(blocks, kv):
+            x, h2 = _rope_gqa_attn(blk, x, kc, vc, t, pos, dims, tables,
+                                   eps, bt, fused=fused)
             x = x + (F.silu(h2 @ blk["wg"]) * (h2 @ blk["wu"])) @ blk["wd"]
         return x, caches
 
     @torch.no_grad()
     def step_fn(x, caches, t):
-        return _run_layers(x, caches, t, caches["bt"])
-
-    @torch.no_grad()
-    def fused_step(x, caches, t, last, dec, bt_live, ss, sp):
-        return _run_layers(x, caches, t, bt_live, fused=(last, dec, ss, sp))
+        return _run_layers(x, caches, t, caches["bt"] if paged else None)
 
     @torch.no_grad()
     def head_fn(out):
         return (_rms(out, norm, eps) @ head).float()
+
+    if not paged:
+        return init_caches, embed_fn, step_fn, head_fn
+
+    @torch.no_grad()
+    def fused_step(x, caches, t, last, dec, bt_live, ss, sp):
+        return _run_layers(x, caches, t, bt_live, fused=(last, dec, ss, sp))
 
     @torch.no_grad()
     def embed_tokens(tokens, t0):
@@ -362,25 +465,155 @@ def _make_llama_decode_fns(model, max_cache_len, weight_dtype=None,
 
 
 class GenerationMixin:
-    """The paged decode bundle of a causal LM."""
+    """``generate()`` (greedy and seeded sampled) and the decode bundles
+    of a causal LM."""
 
     def _decode_bundle(self, max_cache_len, weight_dtype=None, mesh=None,
                        cache_dtype=None, cache_backend="dense",
                        page_size=None, num_pages=None):
-        """``(init_caches, embed_fn, step_fn, head_fn, step_fn,
-        ragged_fn, fused_fn)`` — the JAX package's paged bundle layout:
-        the jitted step in element 4 (here the same eager ``step_fn``),
-        the ragged-prefill entry in element 5 and the fused-tick entry
-        in element 6 (``_make_fused_tick_fn``). The dense backend, int8
-        and the mesh are not ported."""
+        """The JAX package's bundle layouts: dense ``(init_caches,
+        embed_fn, step_fn, head_fn, prefill_fn)`` (element 4 is the
+        prefill step, here the same ``step_fn``), paged ``(...,
+        ragged_fn, fused_fn)`` with the ragged-prefill entry in element 5
+        and the fused-tick entry in element 6 (``_make_fused_tick_fn``).
+        Bundles are cached on the model by their arguments, least
+        recently used first out past 4 (the server's dense and paged
+        pair twice over); call ``reset_generate_cache()`` after
+        replacing parameters (loading in place needs nothing)."""
+        key = (max_cache_len, weight_dtype,
+               None if mesh is None else id(mesh), cache_dtype,
+               cache_backend, page_size, num_pages)
+        cached = getattr(self, "_pt_decode_cache", None)
+        if cached is None:
+            cached = self._pt_decode_cache = {}
+        if key in cached:
+            cached[key] = cached.pop(key)        # LRU: move to the back
+            return cached[key]
         from .llama import LlamaForCausalLM
         if not isinstance(self, LlamaForCausalLM):
             raise NotImplementedError(
-                f"the paged decode bundle is ported for LlamaForCausalLM "
-                f"only, not {type(self).__name__} (ROADMAP, Queue 1 item 11: "
-                f"other paged families)")
-        init, embed, step, head, ragged, fused = _make_llama_decode_fns(
+                f"decoding {type(self).__name__} is not ported (ROADMAP, "
+                f"Queue 1 item 11: other paged families)")
+        fns = _make_llama_decode_fns(
             self, max_cache_len, weight_dtype, mesh, cache_dtype,
             cache_backend=cache_backend, page_size=page_size,
             num_pages=num_pages)
-        return init, embed, step, head, step, ragged, fused
+        bundle = fns[:4] + (fns[2],) + fns[4:]
+        cached[key] = bundle
+        while len(cached) > 4:
+            cached.pop(next(iter(cached)))
+        return bundle
+
+    def _prefill_embed(self, ids):
+        """[B, T] ids (a tensor on the model's device) -> [B, T, H] input
+        embeddings of a multi-token step (Llama has no learned
+        positions)."""
+        return self.model.embed_tokens.weight[ids.long()]
+
+    @torch.no_grad()
+    def _run_prefill(self, bundle, ids_np, chunk=None, caches=None, t0=0):
+        """Prefill ``ids_np`` [B, T] starting at position ``t0`` (fresh
+        dense caches unless ``caches`` resumes a partly filled set, e.g.
+        a prefix hit); returns (last-position logits [B, V], caches).
+
+        ``chunk``: feed the prompt in fixed-size chunks (the prompt padded
+        up to a multiple); the padded rows lie above the valid frontier,
+        where the causal mask hides them and decode overwrites them."""
+        init_caches, _, _, head_fn, prefill = bundle[:5]
+        B, T = ids_np.shape
+        if caches is None:
+            caches = init_caches(B)
+        dev = self.device
+        if not chunk or chunk >= T:
+            x0 = self._prefill_embed(torch.from_numpy(ids_np).to(dev))
+            out, caches = prefill(x0, caches, int(t0))
+            return head_fn(out[:, -1:])[:, -1], caches
+        pad = (-T) % chunk
+        cache_rows = caches["k"].shape[2]
+        if t0 + T + pad > cache_rows:
+            raise ValueError(
+                f"chunked prefill writes rows up to {t0 + T + pad} "
+                f"(prompt {T} at offset {t0} padded to a multiple of "
+                f"{chunk}) but max_cache_len is {cache_rows} — raise "
+                f"max_cache_len by at least {chunk - 1} for chunk "
+                f"headroom")
+        ids = torch.from_numpy(np.pad(ids_np, ((0, 0), (0, pad)))).to(dev)
+        last = None
+        for i in range(0, T + pad, chunk):
+            x = self._prefill_embed(ids[:, i:i + chunk])
+            out, caches = prefill(x, caches, int(t0 + i))
+            if i <= T - 1 < i + chunk:
+                last = head_fn(out[:, T - 1 - i:T - i])[:, -1]
+        return last, caches
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32, do_sample=False,
+                 temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
+                 seed=None, max_cache_len=None, weight_dtype=None,
+                 prefill_chunk=None, mesh=None, cache_dtype=None,
+                 num_beams=1, fsm=None):
+        """Continuations of ``input_ids`` ([B, T] or [T] ints: a tensor,
+        an array or a list) on the model's device. Returns the FULL
+        sequence (prompt + ``max_new_tokens``) as an int32 tensor on the
+        model's device; once a row has emitted ``eos_token_id`` the rest
+        of it is eos.
+
+        Greedy when ``do_sample=False``; otherwise each token is drawn
+        with ONE key over the whole ``[B, V]`` batch, ``categorical`` of
+        the ``temperature``/``top_k``/``top_p``-filtered logits (its
+        Gumbel noise one R2 launch a draw on the card), from
+        ``PRNGKey(seed)``; ``seed=None`` draws a seed from numpy's global
+        RNG, so repeated calls differ. Tokens equal the JAX package's.
+        The decode functions are built from the model's parameters and
+        cached per ``max_cache_len``; call ``reset_generate_cache()``
+        after replacing parameters.
+
+        ``prefill_chunk`` prefills in fixed-size chunks (the prompt
+        padded to a multiple, which ``max_cache_len`` must hold). Beam
+        search and ``fsm`` (item 12), int8 weights and caches (item 10)
+        and ``mesh`` (item 9) raise ``NotImplementedError``."""
+        from ..inference.decode_loop import greedy_generate, sample_generate
+        if num_beams > 1 or fsm is not None:
+            raise NotImplementedError(
+                "generate(num_beams > 1) and generate(fsm=) are not ported "
+                "(ROADMAP, Queue 1 item 12: remaining inference modules)")
+        if torch.is_tensor(input_ids):
+            input_ids = input_ids.detach().cpu().numpy()
+        ids_np = np.asarray(input_ids)
+        if ids_np.ndim == 1:
+            ids_np = ids_np[None]
+        ids_np = ids_np.astype(np.int32)
+        B, T = ids_np.shape
+        pad = (-T) % prefill_chunk if prefill_chunk else 0
+        if max_cache_len is None:
+            max_cache_len = min(self.cfg.max_seq_len,
+                                max(T + max_new_tokens, T + pad))
+        if T + max_new_tokens > max_cache_len:
+            raise ValueError(
+                f"prompt ({T}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds max_cache_len ({max_cache_len})")
+        bundle = self._decode_bundle(max_cache_len, weight_dtype, mesh,
+                                     cache_dtype)
+        init_caches, embed_fn, step_fn, head_fn, _ = bundle
+        last_logits, caches = self._run_prefill(bundle, ids_np,
+                                                chunk=prefill_chunk)
+        if do_sample:
+            if seed is None:        # fresh entropy per call, as the
+                seed = int(np.random.randint(0, 2**31))   # reference's
+            new_ids, _ = sample_generate(
+                embed_fn, step_fn, head_fn, caches, last_logits, T,
+                max_new_tokens, prng.PRNGKey(seed),
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                eos_token_id=eos_token_id)
+        else:
+            first = torch.argmax(last_logits, -1).to(torch.int32)
+            new_ids, _ = greedy_generate(
+                embed_fn, step_fn, head_fn, caches, first, T,
+                max_new_tokens, eos_token_id=eos_token_id)
+        prompt = torch.from_numpy(ids_np).to(new_ids.device)
+        return torch.cat([prompt, new_ids], dim=1)
+
+    def reset_generate_cache(self):
+        """Drop the cached decode bundles (call after replacing
+        parameters)."""
+        self._pt_decode_cache = None

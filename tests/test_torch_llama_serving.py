@@ -383,9 +383,7 @@ def pt_errors():
 
 
 @pytest.mark.parametrize("kw", [
-    {"cache_backend": "dense"},
-    {"prefill_mode": "dense"},
-    {"tick_block": 2}, {"admission": "optimistic"}, {"mesh": object()},
+    {"admission": "optimistic"}, {"mesh": object()},
     {"telemetry": True}, {"recorder": True}, {"ledger": True},
     {"costs": True}, {"journeys": True}, {"host_tier": True},
     {"fault_injector": object()}, {"breaker": object()},
@@ -402,8 +400,6 @@ def test_unported_options_raise_with_a_roadmap_pointer(kw):
 def test_other_refusals_point_at_the_roadmap():
     _, tm = _models()
     srv = _server(ContinuousBatchingServer, tm)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        srv.register_prefix(np.arange(8, dtype=np.int32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         srv.submit(np.arange(4, dtype=np.int32), journey=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):

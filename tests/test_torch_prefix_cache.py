@@ -102,3 +102,71 @@ def test_eviction_takes_the_least_recently_used_leaf_like_jax():
         freed.append(order)
         assert pc.cached_pages == 0 and pc.evictable_pages() == 0
     assert freed[0] == freed[1] == [4, 3, 2, 1]
+
+
+def _pin_state(kv, pc):
+    return _state(kv, pc) + (pc.pinned_pages,)
+
+
+@pytest.mark.parametrize("adopt", [0, 1, 2])
+def test_pinned_nodes_match_jax_and_survive_eviction(adopt):
+    """register_prefix's tree work on both sides: ``adopt`` pages of a
+    3-page prefix are already cached (donated), ``node_run`` finds them,
+    ``protect`` shields them while the rest is allocated under a
+    reclaiming pool, ``extend_pinned`` pins the run and the new pages.
+    Eviction then never takes a pinned node (nor, through it, its
+    ancestors), a donation onto a pinned page drops its duplicate
+    reference, and a slot sharing the pinned run reads it by
+    reference."""
+    rng = np.random.default_rng(adopt)
+    prefix = rng.integers(0, 50, (3 * PG,)).astype(np.int32)
+    other = rng.integers(50, 99, (3 * PG,)).astype(np.int32)
+    seen = []
+    for kv, pc in _pair(9):
+        # cached state: ``adopt`` pages of the prefix, and another
+        # prompt's 3 pages the allocation below must evict
+        if adopt:
+            kv.admit_slot(0, adopt * PG)
+            pc.donate(prefix, kv.detach_slot(0), adopt * PG)
+        kv.admit_slot(1, 3 * PG)
+        pc.donate(other, kv.detach_slot(1), 3 * PG)
+        kv.admit_slot(2, 8)                       # a live slot's pages
+        run = pc.node_run(prefix)
+        assert len(run) == adopt
+        pc.protect(run)
+        try:
+            own = kv.alloc(3 - len(run))
+        finally:
+            pc.protect(())
+        pages = pc.extend_pinned(prefix, run, own)
+        assert pc.pinned_pages == 3
+        trace = [_pin_state(kv, pc), pages]
+        # nothing pinned is evictable; the sweep frees only the rest
+        trace.append(pc.evict(10))
+        trace.append(_pin_state(kv, pc))
+        # a slot sharing the pinned run, then donating it back
+        m = pc.lookup(np.concatenate([prefix, other[:3]]), 3 * PG + 2)
+        kv.free_slot(2)
+        kv.admit_slot(2, 3 * PG + 5, m.pages)
+        pc.use(m)
+        trace.append(_pin_state(kv, pc))
+        pc.donate(np.concatenate([prefix, other[:3]]), kv.detach_slot(2),
+                  3 * PG + 3)
+        trace.append(_pin_state(kv, pc))
+        trace.append(pc.evict(10))
+        trace.append(_pin_state(kv, pc))
+        seen.append(trace)
+    assert seen[0] == seen[1]
+    assert seen[1][-1][-1] == 3            # pinned pages outlive it all
+
+
+@pytest.mark.parametrize("args", [(17, 8, 2, 2, 16, 4), (8 * 128 + 1, 16, 32,
+                                                        32, 128, 2)])
+def test_hbm_byte_helpers_match_jax(args):
+    """The pool's K+V bytes and the dense backend's for the same slots
+    x cache length (here llama_tiny's and Llama-2-7B's bf16 pool)."""
+    pages, pg, layers, kvh, hd, item = args
+    assert PagedKVCache.paged_hbm_bytes(pages, pg, layers, kvh, hd, item) \
+        == JaxKV.paged_hbm_bytes(pages, pg, layers, kvh, hd, item)
+    assert PagedKVCache.dense_hbm_bytes(8, 2048, layers, kvh, hd, item) \
+        == JaxKV.dense_hbm_bytes(8, 2048, layers, kvh, hd, item)
