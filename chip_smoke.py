@@ -14,6 +14,7 @@
     python3 chip_smoke.py --only build,rng --parent build/parent
     python3 chip_smoke.py --only build,train,fit
     python3 chip_smoke.py --only build,dense_parity,dense
+    python3 chip_smoke.py --only build,preempt_parity,serve,preempt
 
 Phases, in order; any failure exits non-zero:
 
@@ -192,7 +193,23 @@ Phases, in order; any failure exits non-zero:
    True)`` one R2 fill a draw and nothing else (greedy nothing); pools
    drain to ``live == 0`` with the prefix's page pinned; no launch at all
    on the CPU;
-15. train_parity: llama_tiny in float32 trained 3 steps (``train_step_fn``
+15. preempt_parity: optimistic admission and preemption on the parity
+   phase's llama_tiny-shaped float32 model, on the card and on the CPU
+   from the same weights: ``tests/test_torch_preemption.py``'s six
+   prompts (4-11 tokens, seed 3), 24 new tokens each, 4 slots over a
+   9-page pool of 8-token pages (every optimistic wave preempts),
+   ``headroom_pages=1``, 6 prompt tokens a tick; optimistic split, fused
+   and sampled split (temperature 0.8, top_k 20, top_p 0.9) waves and a
+   reserve split wave at the same pool, each request streaming through
+   ``on_token``. Card tokens must equal the CPU's in every mode and the
+   optimistic greedy tokens the reserve wave's; ``preemptions`` >= 1 and
+   equal on the card and the CPU (so are resumes, grown and headroom
+   pages); every pool ends ``live == 0``, ``preempted == 0`` and
+   ``free + pinned + cached == num_pages - 1``; every stream,
+   concatenated, is its result (no chunk re-sent); on the card split
+   waves launch K1 and K2 only, fused K3 only, R1 once a draw, and the
+   CPU launches nothing;
+16. train_parity: llama_tiny in float32 trained 3 steps (``train_step_fn``
    + ``AdamW``) on the card and on the CPU from one set of weights:
    per-step losses, step-1 gradients and the trained weights agree, and
    every step launches K4 forward, dq and dk + dv once per layer, K5
@@ -201,29 +218,30 @@ Phases, in order; any failure exits non-zero:
    kernel) on the card, where the CPU runs its plain version; then again
    with rope on the composition (``ops.rope._COMPOSITION_ONLY``), no K6
    launch;
-16. int8_parity: a llama_tiny-shaped float32 model converted by
+17. int8_parity: a llama_tiny-shaped float32 model converted by
    ``to_int8_inference`` on the card (K8) and on the CPU (the plain
    version) from the same weights: equal int8 codes (every layer's
    K-major ``qweight_t``) and scales, logits within one
    quantisation step of the head, equal greedy argmax, and 7 x layers + 1
    K8 launches per forward (and K6's q + k launch once a layer: the
    forward passes no ``position_ids``);
-17. serve: Llama-2-7B in bf16 (random weights from a seed, full width
+18. serve: Llama-2-7B in bf16 (random weights from a seed, full width
    and depth) serves 8 requests through ``ContinuousBatchingServer``,
    on split and on fused ticks, greedy and sampled, in the order split,
    fused, sampled split, sampled fused, sampled fused, sampled split,
    fused, split (a new server over the same model each time, the last
    one freed first); the launch counters are zeroed just before each
    wave and read just after, and must equal decode ticks x layers (K1)
-   and prefill launches x layers (K2) on a split wave, fused launches x
-   layers (K3) on a fused wave, no K6 (serving passes ``position_ids``:
-   rope is the composition); the sampled waves (temperature 0.8, top_k
+   and prefill launches x layers (K2) on a split wave, fused passes x
+   layers (K3) on a fused wave (a tick with prefill chunks and decode
+   rows runs the decode rows as a pass of their own), no K6 (serving
+   passes ``position_ids``: rope is the composition); the sampled waves (temperature 0.8, top_k
    50, top_p 0.95, default seeds) with the same gates plus R1: one
    launch a fused tick, one a decode tick and one a completing prefill
    launch on split ticks; then one split and one fused admission tick,
    and five decode ticks of each (greedy and sampled), under
    torch.profiler, with the attention kernels' device time per tick;
-18. dense: the serve phase's Llama-2-7B in bf16 through the dense paths.
+19. dense: the serve phase's Llama-2-7B in bf16 through the dense paths.
    ``generate`` of 4 x 512-token prompts, 64 new tokens, greedy, sampled
    (temperature 0.8, top_k 50, top_p 0.95) and greedy with
    ``prefill_chunk=256``: wall, tokens/s, TTFT (a 1-token generate),
@@ -240,7 +258,32 @@ Phases, in order; any failure exits non-zero:
    peak memory, beside the serve phase's paged ragged numbers; the
    dense_parity gates, finite live logits and a drained pool; then one
    profiled dense decode tick;
-19. int8_infer: the serve phase's Llama-2-7B (full width and depth):
+20. preempt: optimistic admission on the serve phase's Llama-2-7B in
+   bf16 (full width and depth): 8 slots x 2048 tokens, 16-token pages,
+   512 prompt tokens a tick, ``headroom_pages=1``; 12 requests (seeded
+   prompts of 128-512 tokens, 128 new tokens each, each streaming
+   through ``on_token``) over a pool sized so that reserve admission
+   holds at most 4 requests at once (the 5 smallest full extents do not
+   fit together; the size is printed). Four waves, each through the
+   supervised ``start()`` / ``wait()`` / ``stop(drain=True)`` loop:
+   reserve split, then optimistic split, fused and sampled split
+   (temperature 0.8, top_k 50, top_p 0.95). Printed beside the card's
+   name and power limit for each: wall, tokens/s, the median
+   decode-only tick, TTFT median and max, mean decoding slots a tick,
+   preemptions, resumes, pages grown and the launches of K1, K2, K3 and
+   R1. Gates: 128 in-vocabulary tokens each; no non-finite live logits;
+   no tick failed; every optimistic wave preempts at least once; the pool
+   ends ``live == 0``, ``preempted == 0`` and ``free + pinned + cached ==
+   num_pages - 1``; K1 == decode ticks x layers and K2 == prefill
+   launches x layers on split waves, K3 == fused passes x layers on the
+   fused wave, R1 == the draws on the sampled wave (none on greedy
+   waves), no K6 or R2; every ``on_token`` stream is its ``wait()``
+   result: each position sent once and every chunk a prefix of the
+   result, so a replay redrew the tokens its request was parked with
+   (the streams that disagree are printed before the gate fails).
+   Informational: the optimistic greedy tokens against the reserve
+   wave's;
+21. int8_infer: the serve phase's Llama-2-7B (full width and depth):
    one bf16 forward of 8 x 512 ids from seed 0, then
    ``to_int8_inference(model, inplace=True)`` and the same forward with
    the counters zeroed just before and read just after: 7 x layers + 1
@@ -249,7 +292,7 @@ Phases, in order; any failure exits non-zero:
    and the largest relative logit
    error against bf16, ms per forward and tokens/s for both, peak memory,
    a profile of one forward of each;
-20. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
+22. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
    f32 moments, one fixed 8 x 1024 batch from seed 0: 2 warm-up steps,
    then 10 timed with the counters zeroed just before and read just
    after (K4: 10 x layers each, K5: 10 x (2 x layers + 1) each, K6's q +
@@ -258,14 +301,14 @@ Phases, in order; any failure exits non-zero:
    fall and stay finite, gradients finite; step time, tokens/s, peak
    memory and a profile of one step (its launches, the optimizer's
    device time);
-21. train_compose: the same model, weights, batch and optimizer with rope
+23. train_compose: the same model, weights, batch and optimizer with rope
    on the composition (``ops.rope._COMPOSITION_ONLY``, set for the phase
    and restored after it): 2 warm-up steps and 5 timed, the counters
    zeroed before the first and read after the last (no K6); the 7 losses
    equal to the train phase's first 7 bit for bit (K6 is the composition
    bit for bit, forward and backward); ms per step of both phases from
    this call, and a profile of one step;
-22. train_amp: the slice's path. llama_350m at full width and depth
+24. train_amp: the slice's path. llama_350m at full width and depth
    from seed 0, ``amp.decorate(level="O2", dtype="bfloat16")`` (the rope
    tables stay f32), ``AdamW(multi_precision=True, weight_decay=0.01``
    off the norms, ``grad_clip=ClipGradByGlobalNorm(1.0))`` on the fused
@@ -282,7 +325,7 @@ Phases, in order; any failure exits non-zero:
    written into one gradient of the second: that step is skipped
    (parameters unchanged bit for bit, the optimizer not stepped) and the
    scale halves;
-23. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
+25. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
    llama_350m in bf16 at full width and depth from seed 0,
    ``AdamW(1e-4, weight_decay=0.01)``, ``nn.CrossEntropyLoss()``, a
    ``TensorDataset`` of 96 rows of 1025 seeded ids (inputs the first
@@ -322,9 +365,9 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "opt",
-          "rng", "parity", "dense_parity", "train_parity", "int8_parity",
-          "serve", "dense", "int8_infer", "train", "train_compose",
-          "train_amp", "fit")
+          "rng", "parity", "dense_parity", "preempt_parity", "train_parity",
+          "int8_parity", "serve", "dense", "preempt", "int8_infer", "train",
+          "train_compose", "train_amp", "fit")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
 # outside the tensor cores, int8 tensor-core operations/s). The SXM part
@@ -3166,6 +3209,121 @@ def phase_dense_parity(torch, np):
                          "a launch gate failed")
 
 
+def stream_log(np):
+    """An ``on_token`` callback and the chunks it receives, by rid."""
+    chunks = {}
+
+    def on_token(rid, toks):
+        chunks.setdefault(rid, []).append(np.array(toks, copy=True))
+    return chunks, on_token
+
+
+def stream_check(np, chunks, out):
+    """The streaming contract across preemption: every ``on_token``
+    stream IS its ``wait()`` result — each position delivered once, and
+    every chunk a prefix of the result, so a replay neither sends a
+    chunk again nor takes a streamed token back. Returns ``(ok,
+    [(rid, streamed, result length, differing positions)])`` with a
+    request listed where its stream and result disagree."""
+    bad = []
+    for rid, toks in out.items():
+        sent = np.concatenate(chunks[rid]) if chunks.get(rid) \
+            else np.zeros((0,), np.int32)
+        n = min(len(sent), len(toks))
+        diff = [i for i in range(n) if sent[i] != toks[i]]
+        if diff or len(sent) != len(toks):
+            bad.append((rid, len(sent), len(toks), diff))
+    return not bad, bad
+
+
+def pool_gates(bal, num_pages):
+    return {"pool ends live == 0 and preempted == 0":
+                bal[1] == 0 and bal.preempted == 0,
+            "free + pinned + cached == num_pages - 1":
+                bal[0] + bal[2] + bal[3] == num_pages - 1}
+
+
+PREEMPT_STATS = ("preemptions", "preempt_resumed", "grow_pages",
+                 "headroom_pages", "admissions", "prefill_tokens")
+
+
+def phase_preempt_parity(torch, np):
+    """Optimistic admission and preemption of a llama_tiny-shaped float32
+    model on the card and on the CPU from the same weights: equal tokens
+    and preemption stats, reserve's tokens, drained pools, streams never
+    re-sent, and the launch gates."""
+    from paddle_tpu_torch.inference import ContinuousBatchingServer
+    from paddle_tpu_torch.models import (LlamaForCausalLM, export_params,
+                                         llama_tiny, load_jax_params)
+    cfg = llama_tiny()
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=3)
+    gpu = LlamaForCausalLM(cfg, device="cuda")
+    load_jax_params(gpu, export_params(cpu))
+    # tests/test_torch_preemption.py's prompts and pool
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(k),)).astype(np.int32)
+               for k in rng.integers(4, 12, (6,))]
+    num_pages, n_new = 9, 24
+    waves = {"optimistic split": ("optimistic", "split", False),
+             "optimistic fused": ("optimistic", "fused", False),
+             "optimistic sampled split": ("optimistic", "split", True),
+             "reserve split": ("reserve", "split", False)}
+    toks, good = {}, True
+    for wave, (admission, mode, sample) in waves.items():
+        stats = {}
+        for name, model in (("cpu", cpu), ("cuda", gpu)):
+            kw = dict(do_sample=True, temperature=0.8, top_k=20,
+                      top_p=0.9) if sample else {}
+            srv = ContinuousBatchingServer(
+                model, max_slots=4, max_cache_len=64, cache_backend="paged",
+                page_size=8, num_pages=num_pages, admission=admission,
+                headroom_pages=1, prefill_tokens_per_tick=6,
+                serving_mode=mode, seed=5, **kw)
+            chunks, on_token = stream_log(np)
+            zero_counts()
+            rids = [srv.submit(p, max_new_tokens=n_new, on_token=on_token)
+                    for p in prompts]
+            out = srv.run()
+            n = read_counts()
+            toks[wave, name] = [out[r] for r in rids]
+            stats[name] = {k: srv.stats[k] for k in PREEMPT_STATS}
+            bal = srv.pool_balance()
+            want = {"split": ("k1", "k2"), "fused": ("k3",)}[mode]
+            draws = srv.stats["sample_launches"]
+            if name == "cuda":
+                launched = all(n[k] > 0 for k in want) and (
+                    n["r1"] == draws > 0 if sample else n["r1"] == 0)
+                others = not any(v for k, v in n.items()
+                                 if k not in want + ("r1",))
+            else:
+                launched, others = not any(n.values()), True
+            checks = {
+                "launches": launched and others,
+                "every stream is its result (no chunk re-sent or "
+                "taken back)": stream_check(np, chunks, out)[0],
+                **pool_gates(bal, num_pages)}
+            if admission == "optimistic":
+                checks["preempted at least once"] = \
+                    srv.stats["preemptions"] >= 1
+            log(f"preempt_parity {wave} {name}: stats {stats[name]}, pool "
+                f"{tuple(bal)} preempted {bal.preempted}, launches {n}, "
+                f"checks {checks}")
+            good &= all(checks.values())
+        same = all(np.array_equal(a, b) for a, b in
+                   zip(toks[wave, "cuda"], toks[wave, "cpu"]))
+        log(f"preempt_parity {wave}: card tokens equal to the CPU's {same}, "
+            f"stats equal {stats['cuda'] == stats['cpu']}")
+        good &= same and stats["cuda"] == stats["cpu"]
+    for wave in ("optimistic split", "optimistic fused"):
+        same = all(np.array_equal(a, b) for a, b in
+                   zip(toks[wave, "cuda"], toks["reserve split", "cuda"]))
+        log(f"preempt_parity {wave}: card tokens equal to the reserve "
+            f"wave's {same}")
+        good &= same
+    if not good:
+        raise SystemExit("preempt_parity: a gate failed (above)")
+
+
 def serve_timed(torch, np, srv, prompts, n_new, warm):
     """One wave through ``srv`` tick by tick: a warm-up request first
     (cuBLAS handles, the allocator; its prompt shares no page with the
@@ -3199,6 +3357,7 @@ def serve_timed(torch, np, srv, prompts, n_new, warm):
     d = {k: srv.stats[k] - s0[k] for k in ("decode_ticks", "decode_steps",
                                             "prefill_launches",
                                             "fused_launches",
+                                            "fused_passes",
                                             "sample_launches",
                                             "prefix_hit_tokens")}
     pool = srv.pool_balance()
@@ -3268,7 +3427,8 @@ def phase_serve(torch, np, card, record):
         c = r["counts"]
         log(f"serve {wave}: {r['ticks']} ticks ({r['decode_ticks']} "
             f"decode, {r['prefill_launches']} prefill launches, "
-            f"{r['fused_launches']} fused launches, "
+            f"{r['fused_launches']} fused launches in "
+            f"{r['fused_passes']} passes, "
             f"{r['sample_launches']} draws), launches {c}, "
             f"non-finite live logit rows {r['bad']}, pool {r['pool']}")
         log(f"serve metrics {wave} [{card}]: wall {r['wall']:.3f} s, "
@@ -3284,8 +3444,8 @@ def phase_serve(torch, np, card, record):
                 "no k3 launch": c["k3"] == 0}
         else:
             launch_checks = {
-                "k3 == fused launches x layers":
-                    c["k3"] == r["fused_launches"] * L > 0,
+                "k3 == fused passes x layers":
+                    c["k3"] == r["fused_passes"] * L > 0,
                 "no k1 or k2 launch": c["k1"] == c["k2"] == 0}
         launch_checks["no k6 launch (rope at position_ids)"] = \
             c["k6"] == c["k6_qk"] == 0
@@ -3520,6 +3680,177 @@ def phase_dense(torch, np, card, record, model, serve_res):
             model, max_slots=8, max_cache_len=2048, **configs[name][0]),
             cfg, card, name)
     release()
+    return model
+
+
+def preempt_wave(torch, np, srv, prompts, n_new, warm):
+    """One wave through the supervised serve thread: a warm-up request
+    first (driven by ``run()``), then the counters zeroed, the thread
+    started, every request submitted with an ``on_token`` stream and
+    collected by ``wait()``, the thread drained and the counters read.
+    Each tick's wall time and decoding slots are recorded by wrapping the
+    server's tick (measurement only: the wrapper calls it unchanged; the
+    serve thread has no public per-tick hook)."""
+    srv.submit(warm, max_new_tokens=2)
+    srv.run()
+    ticks = []
+    step = srv._step_locked
+
+    def timed_step():
+        before = srv.stats["prefill_tokens"]
+        t = time.perf_counter()
+        n = step()
+        ticks.append(((time.perf_counter() - t) * 1e3, n,
+                      srv.stats["prefill_tokens"] != before))
+        return n
+
+    srv._step_locked = timed_step
+    chunks, stream = stream_log(np)
+    first_at = {}
+
+    def on_token(rid, toks):
+        first_at.setdefault(rid, time.perf_counter())
+        stream(rid, toks)
+
+    zero_counts()
+    s0 = dict(srv.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.start()
+    submitted = {srv.submit(p, max_new_tokens=n_new, on_token=on_token):
+                 time.perf_counter() for p in prompts}
+    out = {rid: srv.wait(rid, timeout=900) for rid in submitted}
+    wall = time.perf_counter() - t0
+    srv.stop(drain=True)
+    counts = read_counts()
+    d = {k: srv.stats[k] - s0[k]
+         for k in ("decode_ticks", "prefill_launches", "fused_launches",
+                   "fused_passes",
+                   "sample_launches", "preemptions", "preempt_resumed",
+                   "grow_pages", "headroom_pages", "nonfinite_logit_rows")}
+    ttft = sorted((first_at[r] - submitted[r]) * 1e3 for r in submitted)
+    decode_only = sorted(ms for ms, _, prefilled in ticks if not prefilled)
+    return {"tokens": [out[r] for r in submitted], "out": out,
+            "chunks": chunks, "counts": counts,
+            "ticks": len(ticks), "wall": wall,
+            "tok_s": len(prompts) * n_new / wall,
+            "decode_ms": decode_only[len(decode_only) // 2]
+            if decode_only else float("nan"),
+            "live": sum(n for _, n, _ in ticks) / max(1, len(ticks)),
+            "ttft_med": ttft[len(ttft) // 2], "ttft_max": ttft[-1],
+            "retries": srv._sup.retries_total,
+            "pool": srv.pool_balance(), **d}
+
+
+def phase_preempt(torch, np, card, record, model):
+    """Optimistic admission on Llama-2-7B bf16 (the serve phase's model,
+    or a new one from seed 0) over a pool too small for reserve mode's
+    concurrency: reserve split, then optimistic split, fused and sampled
+    split waves through the supervised serve loop, timed and gated."""
+    import gc
+    from paddle_tpu_torch.inference import ContinuousBatchingServer
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+    cfg = llama2_7b()
+    L, V = cfg.num_layers, cfg.vocab_size
+    if model is None:
+        model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                                 seed=0)
+    rng = np.random.default_rng(15)
+    lens = rng.integers(128, 513, size=12)
+    prompts = [rng.integers(0, V, (int(n),)).astype(np.int32) for n in lens]
+    warm = rng.integers(0, V, (40,)).astype(np.int32)
+    n_new, pg = 128, 16
+    extents = sorted(-(-(int(n) + n_new) // pg) for n in lens)
+    # reserve admission holds at most 4 at once: no 5 full extents fit
+    num_pages = sum(extents[:5])          # usable = that sum - 1
+    page_bytes = pg * L * 2 * cfg.num_kv_heads * cfg.head_dim * 2
+    log(f"preempt: prompts {lens.tolist()}, {n_new} new tokens each; "
+        f"full extents {extents} pages; pool {num_pages} pages of {pg} "
+        f"tokens ({num_pages * page_bytes / 2**30:.2f} GiB), "
+        f"{num_pages - 1} usable < the 5 smallest extents' "
+        f"{sum(extents[:5])}: reserve admission holds at most 4 requests")
+
+    def server(admission, mode, sample=False):
+        kw = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.95) \
+            if sample else {}
+        return ContinuousBatchingServer(
+            model, max_slots=8, max_cache_len=2048, page_size=pg,
+            cache_backend="paged", num_pages=num_pages, admission=admission,
+            headroom_pages=1, prefill_tokens_per_tick=512,
+            serving_mode=mode, **kw)
+
+    res = {}
+    for wave in ("reserve split", "optimistic split", "optimistic fused",
+                 "optimistic sampled split"):
+        words = wave.split()
+        admission, mode, sample = words[0], words[-1], "sampled" in words
+        r = preempt_wave(torch, np, server(admission, mode, sample),
+                         prompts, n_new, warm)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res[wave] = r
+        c, bal = r["counts"], r["pool"]
+        log(f"preempt {wave}: {r['ticks']} ticks ({r['decode_ticks']} "
+            f"decode, {r['prefill_launches']} prefill launches, "
+            f"{r['fused_launches']} fused launches in {r['fused_passes']} "
+            f"passes, {r['sample_launches']} "
+            f"draws), launches k1 {c['k1']} k2 {c['k2']} k3 {c['k3']} r1 "
+            f"{c['r1']}, pool {tuple(bal)} preempted {bal.preempted}")
+        log(f"preempt metrics {wave} [{card}]: wall {r['wall']:.3f} s, "
+            f"{r['tok_s']:.1f} tok/s, median decode-only tick "
+            f"{r['decode_ms']:.2f} ms, TTFT median {r['ttft_med']:.1f} ms "
+            f"max {r['ttft_max']:.1f} ms, mean decoding slots a tick "
+            f"{r['live']:.2f}, preemptions {r['preemptions']}, resumes "
+            f"{r['preempt_resumed']}, pages grown {r['grow_pages']}, "
+            f"headroom pages {r['headroom_pages']}")
+        streamed, disagree = stream_check(np, r["chunks"], r["out"])
+        log(f"preempt {wave}: streams that disagree with their result "
+            f"(rid, streamed, result length, differing positions): "
+            f"{disagree}; {r['preemptions']} preemptions, each replay "
+            f"redrew its parked tokens: {streamed}")
+        if mode == "split":
+            launch_checks = {
+                "k1 == decode ticks x layers":
+                    c["k1"] == r["decode_ticks"] * L > 0,
+                "k2 == prefill launches x layers":
+                    c["k2"] == r["prefill_launches"] * L > 0,
+                "no k3 launch": c["k3"] == 0}
+        else:
+            launch_checks = {
+                "k3 == fused passes x layers":
+                    c["k3"] == r["fused_passes"] * L > 0,
+                "no k1 or k2 launch": c["k1"] == c["k2"] == 0}
+        launch_checks["r1 == draws" if sample else "no r1 launch"] = \
+            c["r1"] == r["sample_launches"] > 0 if sample else c["r1"] == 0
+        launch_checks["no k6 or r2 launch"] = \
+            c["k6"] == c["k6_qk"] == c["r2_dropout"] == c["r2_fill"] == 0
+        checks = {f"{n_new} in-vocabulary tokens each":
+                      all(len(t) == n_new and t.min() >= 0
+                          and t.max() < V for t in r["tokens"]),
+                  "no non-finite live logits":
+                      r["nonfinite_logit_rows"] == 0,
+                  "no tick failed": r["retries"] == 0,
+                  **pool_gates(bal, num_pages), **launch_checks,
+                  "every stream is its result (each position sent once, "
+                  "no streamed token taken back)": streamed}
+        if admission == "optimistic":
+            checks["preempted at least once"] = r["preemptions"] >= 1
+        for name, good in checks.items():
+            if not good:
+                raise SystemExit(f"preempt {wave}: check failed: {name}")
+    ref = res["reserve split"]["tokens"]
+    for wave in ("optimistic split", "optimistic fused"):
+        same = sum(int((a == b).sum())
+                   for a, b in zip(res[wave]["tokens"], ref))
+        log(f"preempt: {wave} and reserve split agree on {same} of "
+            f"{len(ref) * n_new} tokens (informational: bf16 near-ties)")
+    for key, name in (("paged_attention", "k1"), ("ragged_prefill", "k2")):
+        record[key]["preempt_launches"] = \
+            res["optimistic split"]["counts"][name]
+    record["fused_tick"]["preempt_launches"] = \
+        res["optimistic fused"]["counts"]["k3"]
+    record["sample_rows"]["preempt_launches"] = \
+        res["optimistic sampled split"]["counts"]["r1"]
     return model
 
 
@@ -4682,6 +5013,8 @@ def main():
         phase_parity(torch, np)
     if "dense_parity" in phases:
         phase_dense_parity(torch, np)
+    if "preempt_parity" in phases:
+        phase_preempt_parity(torch, np)
     if "train_parity" in phases:
         phase_train_parity(torch, np)
     if "int8_parity" in phases:
@@ -4693,6 +5026,9 @@ def main():
     if "dense" in phases:
         torch.cuda.empty_cache()
         model_7b = phase_dense(torch, np, card, record, model_7b, serve_res)
+    if "preempt" in phases:
+        torch.cuda.empty_cache()
+        model_7b = phase_preempt(torch, np, card, record, model_7b)
     if "int8_infer" in phases:
         phase_int8_infer(torch, np, card, record, model_7b)
     del model_7b

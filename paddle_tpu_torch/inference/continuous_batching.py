@@ -27,10 +27,14 @@ shares its pinned pages through the radix tree.
 ``serving_mode="split"`` (the default) runs a tick as one ragged-prefill
 launch for the admission wave, then the s=1 decode step for live slots,
 with the slot-state pushes between them. ``serving_mode="fused"`` runs
-the whole tick as one pass over the layers: prefill chunks and decode
-rows packed into one fused-tick launch per layer whose page schedule
-covers only live pages, the tick's small host arrays riding in with one
+the whole tick as one fused-tick entry call: prefill chunks and decode
+rows through one fused-tick launch per layer whose page schedule covers
+only live pages, the tick's small host arrays riding in with one
 host-to-device copy — the tick's dispatch profile is ``{"fused": 1}``.
+A tick that carries both runs its decode rows as a pass of their own at
+a decode-only tick's shapes, so a decode row's bits do not depend on
+what else its tick packs (a replay after a preemption redraws its
+parked tokens on the card too).
 
 Sampling (``do_sample=True``) follows the reference's chains exactly:
 a request's key is ``PRNGKey(seed)`` (``seed`` defaults to the server's
@@ -48,6 +52,30 @@ the block's later rows (``stats["block_waste_tokens"]``), whose writes
 past ``max_cache_len`` the caches drop. The fused tick refuses it, as
 the reference does.
 
+``admission="optimistic"`` (paged) admits a request with its prompt
+pages plus ``headroom_pages`` only; decode grows each slot a page at a
+time (before a split tick's dispatch, after a fused tick's harvest and
+before its packing), and when the pool runs dry the
+``preemption_policy`` parks a victim: its written prompt pages are
+donated cold into the prefix cache, the rest freed, and a record
+carrying its resolved seed, absolute deadline, stream offset and
+partial tokens waits on the preempted queue. Re-admission replays it
+from the prompt (hitting whatever of its donated pages survived): the
+same chain from ``PRNGKey(seed)``, the stream resumed at its old offset.
+``submit(priority=...)`` sets the preemption class and makes admission
+priority-aware.
+
+Reliability: ``fault_injector`` arms the chaos points of the JAX server
+(``server.prefill``, ``server.decode_tick``, ``server.preempt``,
+``server.on_token``; ``kv.alloc`` and ``kv.grow`` in the page pool,
+``prefix.donate`` and ``prefix.evict`` in the prefix cache), each where
+the reference has it: no device write of a failed tick happens before
+its point, so a retried tick draws the same keys. ``start()`` runs a
+supervised loop (``retry_policy`` and ``breaker``: a failing tick is
+retried with backoff; after ``breaker.failure_threshold`` failures in a
+row every waiter is failed with ``CircuitOpenError`` and ``health``
+goes ``degraded`` until a probe tick passes).
+
 Host/device split: the device runs the steps (``models.generation``; the
 paged-attention, ragged-prefill and fused-tick kernels on a CUDA model,
 dense attention in plain torch);
@@ -56,11 +84,10 @@ cache (``kv_cache``, ``prefix_cache``), harvests finished rows and swaps
 new prompts in.
 
 The JAX server's other modes are not ported yet. Asking for one raises
-``NotImplementedError`` naming its ROADMAP item (Queue 1): optimistic
-admission and preemption (item 7), telemetry, flight
-recorder, goodput ledger, cost catalog, journeys, fault injection and
-the supervised serve loop (item 8), the mesh and the host KV tier (item
-9), int8 weights and caches (item 10).
+``NotImplementedError`` naming its ROADMAP item (Queue 1): telemetry,
+flight recorder, goodput ledger, cost catalog and journeys (item 8),
+the mesh and the host KV tier (item 9), int8 weights and caches (item
+10).
 """
 import threading
 import time as _time_mod
@@ -71,15 +98,20 @@ import torch
 from ..core import prng
 from ..ops.kernels.fused_tick import build_schedule
 from ..ops.kernels.sample_rows import sample_rows
-from ..reliability.errors import (CallbackError, DeadlineExceeded,
+from ..reliability import faults
+from ..reliability.errors import (CallbackError, CircuitOpenError,
+                                  DeadlineExceeded, PreemptedError,
                                   QueueFullError, ReliabilityError,
                                   RequestCancelled, ServerClosed)
+from ..reliability.health import (DEAD, DEGRADED, DRAINING, HEALTHY,
+                                  HealthMonitor)
+from ..reliability.supervisor import ServeSupervisor
 from ..telemetry.clock import MonotonicClock
 from .decode_loop import process_logits
 from .kv_cache import OutOfPages, PagedKVCache
 from .prefix_cache import PrefixCache
 
-__all__ = ["ContinuousBatchingServer"]
+__all__ = ["ContinuousBatchingServer", "PreemptionPolicy", "PoolBalance"]
 
 
 def _not_ported(what, item, name):
@@ -91,21 +123,24 @@ def _not_ported(what, item, name):
 class _Pending:
     """A queued request awaiting a slot."""
 
-    __slots__ = ("rid", "ids", "budget", "on_token", "deadline", "seed")
+    __slots__ = ("rid", "ids", "budget", "on_token", "deadline", "seed",
+                 "priority")
 
-    def __init__(self, rid, ids, budget, on_token, deadline, seed):
+    def __init__(self, rid, ids, budget, on_token, deadline, seed,
+                 priority=0):
         self.rid = rid
         self.ids = ids
         self.budget = budget
         self.on_token = on_token
         self.deadline = deadline      # absolute clock time, or None
         self.seed = seed              # resolved sampling seed (a Python int)
+        self.priority = priority      # higher = preempted later
 
 
 class _Slot:
     __slots__ = ("rid", "ids", "prompt_len", "budget", "emitted",
                  "on_token", "streamed", "deadline", "fill_pos", "filled",
-                 "seed")
+                 "seed", "priority", "preempts", "replayed")
 
     def __init__(self, rid, ids, prompt_len, budget, on_token=None,
                  deadline=None, seed=0):
@@ -120,10 +155,28 @@ class _Slot:
         self.fill_pos = 0             # next prompt position to prefill
         self.filled = 0               # prompt rows actually written
         self.seed = seed              # the request's sampling seed
+        self.priority = 0             # preemption class (higher = safer)
+        self.preempts = 0             # times this request was preempted
+        # the partial recorded BEFORE a preemption: a resumed slot
+        # replays the same chain, so the longer of (replayed, emitted)
+        # is the request's partial; a deadline, cancel or hard stop
+        # mid-replay must not hand the waiter fewer tokens than its
+        # on_token stream already delivered
+        self.replayed = ()
+
+    def partial(self):
+        """The request's current partial output: the tokens replayed
+        from before a preemption or the live emitted list, whichever is
+        longer (they agree on the common prefix where the replay is
+        bit-exact)."""
+        return self.emitted if len(self.emitted) >= len(self.replayed) \
+            else list(self.replayed)
 
     def stream(self, sink):
         """Queue this slot's unstreamed chunk on ``sink``; the server
-        fires callbacks AFTER releasing its lock."""
+        fires callbacks AFTER releasing its lock. A RESUMED slot starts
+        with ``streamed`` at its pre-preemption offset, so the replayed
+        tokens below it are never sent again."""
         if self.on_token is None:
             return
         upto = min(len(self.emitted), self.budget)
@@ -132,6 +185,82 @@ class _Slot:
                          np.asarray(self.emitted[self.streamed:upto],
                                     np.int32)))
             self.streamed = upto
+
+
+class _Preempted:
+    """A request parked off its slot under pool pressure, awaiting
+    re-admission (``admission="optimistic"``). Carries what a bit-exact
+    replay needs: the RESOLVED sampling seed (the replayed chain draws
+    the same tokens), the ABSOLUTE deadline (time spent parked keeps
+    counting), ``streamed`` (on_token never re-sends delivered chunks)
+    and ``emitted``, the longest partial so far, flushed as the result
+    if the request must leave early (deadline, cancel, hard stop) before
+    decode resumes."""
+
+    __slots__ = ("rid", "ids", "budget", "seed", "on_token", "deadline",
+                 "priority", "emitted", "streamed", "preempts")
+
+    def __init__(self, st):
+        self.rid = st.rid
+        self.ids = st.ids
+        self.budget = st.budget
+        self.seed = st.seed
+        self.on_token = st.on_token
+        self.deadline = st.deadline
+        self.priority = st.priority
+        self.emitted = list(st.partial())
+        self.streamed = st.streamed
+        self.preempts = st.preempts + 1
+
+
+class PreemptionPolicy:
+    """Victim selection for ``admission="optimistic"``: when a decode
+    page grow finds the pool exhausted, ``pick`` names the slot whose
+    pages are freed. The default order sacrifices the LEAST valuable
+    work first: the lowest ``priority`` class, then the fewest tokens
+    generated (the least recompute thrown away), then the youngest
+    request (highest rid), so ties are deterministic and two runs with
+    the same seeds preempt the same slots.
+
+    The growing slot is itself a candidate: when it ranks last it parks
+    ITSELF instead of evicting more valuable work. The ranking is then a
+    strict total order over live slots, so the top request is never
+    preempted, only gains tokens, and finishes: global progress follows
+    by induction however hard the pool thrashes."""
+
+    def key(self, slot, st):
+        """Sort key over live slots; the MINIMUM is preempted first.
+        Work is the request's TRUE partial (``st.partial()``, the longer
+        of the pre-preemption tokens and the live replay): a resumed
+        victim early in its replay keeps the seniority of the work it
+        already did once, or every squeeze would pick the same
+        just-resumed request again."""
+        return (st.priority, len(st.partial()), -st.rid)
+
+    def pick(self, grower, candidates):
+        """``candidates`` is ``[(slot, _Slot)]`` for every live slot, the
+        grower included. Returns the victim slot id (possibly
+        ``grower`` itself), or None when there is nothing to free."""
+        if not candidates:
+            return None
+        return min(candidates, key=lambda c: self.key(*c))[0]
+
+
+class PoolBalance(tuple):
+    """``pool_balance()``'s result: a plain ``(free, live, pinned,
+    cached)`` 4-tuple (4-way unpacks keep working), with the optimistic
+    admission state as ATTRIBUTES: ``preempted``, the requests parked
+    on the preempted queue now (their pages are donated or freed, so
+    they add nothing to ``live``), and ``preemptions``, the victims
+    preempted so far. The JAX server's mesh and host-tier attributes
+    come with the fleet (ROADMAP Queue 1 item 9)."""
+
+    def __new__(cls, free, live, pinned, cached, preempted=0,
+                preemptions=0):
+        self = super().__new__(cls, (free, live, pinned, cached))
+        self.preempted = preempted
+        self.preemptions = preemptions
+        return self
 
 
 class ContinuousBatchingServer:
@@ -160,10 +289,15 @@ class ContinuousBatchingServer:
     every finished request donates its full prompt pages into a radix
     tree, every admission reuses the longest cached page-aligned prefix
     and prefills only the remainder, and unpinned cached pages are
-    evicted LRU when the allocator runs short. ``submit(deadline_s=...)``
-    bounds a request's time, ``max_queue`` + ``shed_policy`` bound the
-    queue, and ``start()``/``wait()``/``stop()`` serve from a background
-    thread.
+    evicted LRU when the allocator runs short.
+    ``admission="optimistic"`` (paged) reserves only the prompt plus
+    ``headroom_pages`` at admission, grows slots on demand and preempts
+    (and later replays, bit for bit) the ``preemption_policy``'s victims
+    when the pool runs dry. ``submit(deadline_s=...)`` bounds a
+    request's time, ``max_queue`` + ``shed_policy`` bound the queue,
+    ``fault_injector`` arms the chaos points, and
+    ``start()``/``wait()``/``stop()`` serve from a supervised background
+    thread (``retry_policy``, ``breaker``; ``health``).
     """
 
     def __init__(self, model, max_slots=4, max_cache_len=256,
@@ -202,6 +336,17 @@ class ContinuousBatchingServer:
         if admission not in ("reserve", "optimistic"):
             raise ValueError(f"admission must be 'reserve' or "
                              f"'optimistic', got {admission!r}")
+        if admission == "optimistic" and not paged:
+            raise NotImplementedError(
+                "admission='optimistic' needs cache_backend='paged': "
+                "the dense backend allocates every slot's full "
+                "[max_cache_len] KV rows up front, so there is no pool "
+                "to admit optimistically against — virtualizing dense "
+                "slot buffers is the same page-pool work as the "
+                "quantized paged pool (ROADMAP, Queue 1 item 10); use "
+                "cache_backend='paged'")
+        if int(headroom_pages) < 0:
+            raise ValueError("headroom_pages must be >= 0")
         if serving_mode is None:
             serving_mode = "split"
         if serving_mode not in ("split", "fused"):
@@ -232,18 +377,11 @@ class ContinuousBatchingServer:
                     "per slot, the verify shape of speculative decoding "
                     "(ROADMAP, Queue 1 item 12: remaining inference "
                     "modules); use tick_block=1 or serving_mode='split'")
-        if admission == "optimistic":
-            raise _not_ported("admission='optimistic'", 7,
-                              "optimistic admission and preemption")
         for name, value in (("telemetry", telemetry),
                             ("recorder", recorder), ("ledger", ledger),
-                            ("journeys", journeys), ("costs", costs),
-                            ("fault_injector", fault_injector),
-                            ("retry_policy", retry_policy),
-                            ("breaker", breaker)):
+                            ("journeys", journeys), ("costs", costs)):
             if value is not None:
-                raise _not_ported(f"{name}=", 8,
-                                  "telemetry and reliability")
+                raise _not_ported(f"{name}=", 8, "telemetry")
         if mesh is not None:
             raise _not_ported("mesh=", 9, "the fleet")
         if host_tier is not None or host_tier_bytes is not None:
@@ -291,9 +429,11 @@ class ContinuousBatchingServer:
             self._step_fn = paged_bundle[2]
             self._ragged_fn, self._fused_fn = paged_bundle[5:7]
             self._kv = PagedKVCache(int(num_pages), page_size,
-                                    self.max_slots, pages_per_slot)
+                                    self.max_slots, pages_per_slot,
+                                    fault_injector=fault_injector)
             self._caches = paged_bundle[0](self.max_slots)
-            self._prefix = PrefixCache(self._kv)
+            self._prefix = PrefixCache(self._kv,
+                                       fault_injector=fault_injector)
             self._kv.reclaimer = self._reclaim_pages
             self._auto_prefix = bool(auto_prefix_cache)
         else:
@@ -314,6 +454,17 @@ class ContinuousBatchingServer:
         if self._admit_cap is not None and self._admit_cap < 1:
             raise ValueError("max_admissions_per_tick must be >= 1 "
                              "(0 would admit nothing, forever)")
+        # "reserve" takes a request's full extent (prompt + budget) at
+        # admission; "optimistic" the prompt plus headroom_pages, and
+        # decode grows the slot on demand, preempting the policy's
+        # victims when the pool runs dry
+        self.admission = admission
+        self._optimistic = admission == "optimistic"
+        self._headroom_pages = int(headroom_pages)
+        self._preempt_policy = preemption_policy \
+            if preemption_policy is not None else PreemptionPolicy()
+        self._preempted = []      # _Preempted records awaiting re-admission
+        self._priority_seen = False   # sticky: any submit(priority != 0)
         self._prefill_fifo = []   # slot ids mid-prefill, admission order
         self._prefill_used = 0    # tokens prefilled this tick
         # registered prefixes, longest first: (ids, dense rows, last
@@ -353,16 +504,22 @@ class ContinuousBatchingServer:
                       # launches of the device programs (ragged prefill
                       # launches or dense prefill calls; split decode
                       # ticks and the decode steps they run; fused
-                      # ticks), and rows of emitting slots whose logits
+                      # ticks and their passes over the layers, one a
+                      # fused-tick launch a layer), and rows of emitting
+                      # slots whose logits
                       # (when sampling, filtered ones) held a NaN or an
                       # Inf
                       "prefill_launches": 0, "decode_ticks": 0,
                       "decode_steps": 0, "fused_launches": 0,
+                      "fused_passes": 0,
                       "nonfinite_logit_rows": 0,
                       # decode-block rows after a slot finished mid-block
                       "block_waste_tokens": 0,
                       # seeded draws (one R1 launch on the card each)
-                      "sample_launches": 0}
+                      "sample_launches": 0,
+                      # admission="optimistic" accounting
+                      "preemptions": 0, "preempt_resumed": 0,
+                      "grow_pages": 0, "headroom_pages": 0}
         self._clock = clock if clock is not None else MonotonicClock()
         self._tick_disp = {}      # this tick's {op: dispatches}
         self._failures = {}       # rid -> exception, for wait()
@@ -375,6 +532,9 @@ class ContinuousBatchingServer:
         self._deferred_cbs = []   # (cb, rid, tokens) fired OUTSIDE the lock
         self._max_queue = None if max_queue is None else int(max_queue)
         self._shed_policy = shed_policy
+        self._faults = fault_injector
+        self._sup = ServeSupervisor(retry=retry_policy, breaker=breaker)
+        self._health = HealthMonitor()
         self._accepting = True    # False while draining / after stop
         self._draining = False
 
@@ -465,7 +625,9 @@ class ContinuousBatchingServer:
                 # FIFO, so the registration is refused instead
                 usable = self._kv.num_pages - 1 \
                     - (self._prefix.pinned_pages + pin_delta)
-                for item in self._queue:
+                # parked preempted requests must stay re-admittable too:
+                # their FULL extent is the binding bound
+                for item in self._queue + self._preempted:
                     q_need = self._request_pages(
                         item.ids, item.budget, self._match_prefix(item.ids))
                     if q_need > usable:
@@ -518,12 +680,15 @@ class ContinuousBatchingServer:
         queued when it expires fails with ``DeadlineExceeded``; one
         expiring in flight is cancelled and its partial tokens become
         the result. With ``max_queue`` set, a
-        full queue sheds per ``shed_policy``. ``priority`` only matters
-        under optimistic admission and is ignored here, as in the JAX
-        server's reserve mode."""
+        full queue sheds per ``shed_policy``. ``priority``
+        (``admission="optimistic"`` only; ignored under ``"reserve"``)
+        is the request's preemption class: victims are taken from the
+        LOWEST class first, and admission prefers higher classes
+        (same class: submit order). Whatever the pressure, a request's
+        full extent must fit the pool on its own (checked here), so the
+        top-ranked request can always run to completion."""
         if journey is not None:
-            raise _not_ported("submit(journey=)", 8,
-                              "telemetry and reliability")
+            raise _not_ported("submit(journey=)", 8, "telemetry")
         if torch.is_tensor(input_ids):
             input_ids = input_ids.detach().cpu().numpy()
         ids = np.asarray(input_ids).astype(np.int32)
@@ -538,8 +703,9 @@ class ContinuousBatchingServer:
                              "token")
         with self._lock:
             if not self._accepting:
-                raise ServerClosed("server is stopped; not accepting new "
-                                   "requests")
+                raise ServerClosed(
+                    f"server is {self._health.state}; not accepting "
+                    f"new requests")
             if deadline_s is not None and deadline_s <= 0:
                 raise DeadlineExceeded(
                     f"deadline_s={deadline_s} is already expired")
@@ -602,8 +768,11 @@ class ContinuousBatchingServer:
                 seed = self._seed + rid     # the reference's default rule
             deadline = None if deadline_s is None \
                 else self._clock.now() + float(deadline_s)
+            if priority:
+                self._priority_seen = True
             self._queue.append(_Pending(rid, ids, int(max_new_tokens),
-                                        on_token, deadline, int(seed)))
+                                        on_token, deadline, int(seed),
+                                        int(priority)))
         return rid
 
     def cancel(self, rid):
@@ -624,12 +793,25 @@ class ContinuousBatchingServer:
                     self._finish_partial_locked(slot)
                     self._done_cv.notify_all()
                     return True
+            for i, rec in enumerate(self._preempted):
+                if rec.rid == rid:
+                    # parked under pool pressure: the pre-preemption
+                    # partial is the result (its pages were donated or
+                    # freed at preemption)
+                    del self._preempted[i]
+                    self._flush_parked_locked(rec)
+                    self._done_cv.notify_all()
+                    return True
             return False
 
-    def _release_slot(self, slot):
+    def _release_slot(self, slot, cold=False):
         """Tear down a slot's host and page state. With auto prefix
         caching the request's written full prompt pages are DONATED into
-        the radix tree; everything else returns to the free list."""
+        the radix tree; everything else returns to the free list. An
+        injected ``prefix.donate`` fault abandons the insert and the
+        pages are simply freed. ``cold=True`` (preemption teardown)
+        donates at the cold end of the LRU, so the grow that displaced
+        this slot reclaims its pages first."""
         st = self._slots[slot]
         self._active[slot] = False
         self._slots[slot] = None
@@ -641,15 +823,25 @@ class ContinuousBatchingServer:
         if not pages:
             return
         if self._auto_prefix and st is not None:
-            self._prefix.donate(st.ids, pages, min(st.prompt_len, st.filled))
+            try:
+                # only prompt rows actually written are donated: a slot
+                # torn down mid-prefill caches its filled prefix only
+                self._prefix.donate(st.ids, pages,
+                                    min(st.prompt_len, st.filled),
+                                    cold=cold)
+            except Exception:
+                self._kv.release(pages)
         else:
             self._kv.release(pages)
 
     def _finish_partial_locked(self, slot):
         """Record the slot's partial tokens as its rid's result and tear
-        the slot down (cancel, deadline expiry, hard stop)."""
+        the slot down (cancel, deadline expiry, hard stop). A resumed
+        slot's partial is the LONGER of its pre-preemption tokens and the
+        replay so far (never fewer tokens than already streamed)."""
         st = self._slots[slot]
-        self._results[st.rid] = np.asarray(st.emitted[:st.budget], np.int32)
+        self._results[st.rid] = np.asarray(st.partial()[:st.budget],
+                                           np.int32)
         self._release_slot(slot)
         return st
 
@@ -692,12 +884,14 @@ class ContinuousBatchingServer:
             self._tick_dispatch("block_table")
 
     def pool_balance(self):
-        """``(free, live, pinned, cached)`` page counts summing to the
-        usable pool (``num_pages - 1``; page 0 is the null page).
-        ``live`` pages belong to slots, ``pinned`` to registered
+        """``PoolBalance``: ``(free, live, pinned, cached)`` page counts
+        summing to the usable pool (``num_pages - 1``; page 0 is the null
+        page). ``live`` pages belong to slots, ``pinned`` to registered
         prefixes (never evicted), ``cached`` to the automatic prefix
-        cache. ``live == 0`` once drained means no page leaked. The
-        dense backend has no pool: None."""
+        cache. ``live == 0`` once drained means no page leaked.
+        ``.preempted`` (parked requests) and ``.preemptions`` (victims
+        so far) ride as attributes. The dense backend has no pool:
+        None."""
         if self._kv is None:
             return None
         with self._lock:
@@ -705,12 +899,20 @@ class ContinuousBatchingServer:
             pinned = self._prefix.pinned_pages
             cached = self._prefix.cached_pages
             live = self._kv.used_pages() - pinned - cached
-            return free, live, pinned, cached
+            return PoolBalance(free, live, pinned, cached,
+                               preempted=len(self._preempted),
+                               preemptions=self.stats["preemptions"])
 
     def _reclaim_pages(self, shortfall):
         """``PagedKVCache.alloc``'s reclaimer: evict LRU cached prefix
-        pages when the free list runs short."""
-        return self._prefix.evict(shortfall)
+        pages when the free list runs short. An injected
+        ``prefix.evict`` fault aborts THIS sweep: alloc then raises
+        OutOfPages (admission defers, a grow fails its tick); no page
+        leaks and no request fails."""
+        try:
+            return self._prefix.evict(shortfall)
+        except Exception:
+            return 0
 
     def _best_hit(self, ids):
         """The longest reusable prefix state for ``ids``: ``("reg",
@@ -763,17 +965,31 @@ class ContinuousBatchingServer:
         shared = len(hit[3]) if hit is not None else 0
         return self._npages_for(ids.shape[0] + budget) - shared
 
+    def _extent_tokens(self, T, budget):
+        """Tokens' worth of pages admission reserves for a request.
+        ``admission="reserve"``: the FULL extent (prompt + budget), so
+        decode can never hit an empty pool mid-flight.
+        ``"optimistic"``: the prompt plus ``headroom_pages`` worth;
+        decode grows page by page on demand (``_grow_locked``) and the
+        preemption policy settles the bill when the gamble loses."""
+        if self._optimistic:
+            return min(T + self._headroom_pages * self.page_size,
+                       T + budget)
+        return T + budget
+
     def _head_fits_pool(self, head, best):
-        """Can the pool take ``head``'s full extent now? Evictable
-        cached pages count as headroom, minus the nodes the head's own
-        tree hit is about to share."""
+        """Can the pool take ``head`` (the chosen admission candidate)
+        now? Evictable cached pages count as headroom, minus the nodes
+        the head's own tree hit is about to share. Optimistic admission
+        asks only for the prompt + headroom reservation."""
         if best is None:
             shared, nodes = 0, ()
         elif best[0] == "reg":
             shared, nodes = len(best[1][3]), ()
         else:
             shared, nodes = len(best[1].nodes), best[1].nodes
-        need = self._npages_for(head.ids.shape[0] + head.budget) - shared
+        need = self._npages_for(
+            self._extent_tokens(head.ids.shape[0], head.budget)) - shared
         avail = self._kv.free_pages() \
             + self._prefix.evictable_pages(exclude=nodes)
         return avail >= need
@@ -781,30 +997,78 @@ class ContinuousBatchingServer:
     def _npages_for(self, n_tokens):
         return -(-int(n_tokens) // self._kv.page_size)
 
+    # -------------------------------------------- admission scheduling
+    def _next_admission_locked(self):
+        """``(item, source)`` of the next admission candidate, or
+        ``(None, None)``. Reserve mode: strict FIFO, the queue head.
+        Optimistic mode: PRIORITY-AWARE FIFO — highest priority class
+        first, then submit order (rid), in one order across the
+        preempted queue and the main queue; a preempted request keeps
+        its rid, so at equal priority it re-enters ahead of later
+        arrivals. ``source`` is the pop/defer handle."""
+        if not self._optimistic \
+                or (not self._priority_seen and not self._preempted):
+            # reserve mode, or optimistic with every priority at the
+            # default and nothing parked: the order IS rid order, the
+            # queue head
+            if not self._queue:
+                return None, None
+            return self._queue[0], ("queue", 0)
+        best, src = None, None
+        for where, items in (("queue", self._queue),
+                             ("preempted", self._preempted)):
+            for i, item in enumerate(items):
+                if best is None or (-item.priority, item.rid) \
+                        < (-best.priority, best.rid):
+                    best, src = item, (where, i)
+        return best, src
+
+    def _pop_admission_locked(self, src):
+        where, i = src
+        return (self._queue if where == "queue"
+                else self._preempted).pop(i)
+
+    def _defer_admission_locked(self, src, item):
+        """Put a popped candidate back where it came from (an admission
+        attempt rolled back: OutOfPages defers)."""
+        where, i = src
+        (self._queue if where == "queue"
+         else self._preempted).insert(i, item)
+
+    def _flush_parked_locked(self, rec):
+        """Record a parked record's pre-preemption partial as its rid's
+        RESULT: the one way a preempted request leaves the parked queue
+        without decode resuming (cancel, deadline expiry, hard stop).
+        The caller removes the record from ``_preempted`` and
+        notifies."""
+        self._results[rec.rid] = np.asarray(rec.emitted[:rec.budget],
+                                            np.int32)
+
     # ------------------------------------------------------- scheduling
     def _admit(self, run_prefill=True):
-        """Fill free slots from the queue. Dense prefill: one batch-1
+        """Fill free slots from the queue and the preempted queue
+        (``_next_admission_locked``'s order). Dense prefill: one batch-1
         prefill per admission (``_admit_one``). Ragged prefill:
-        admissions only reserve their slot and full page extent here;
-        the prompt chunks run batched in ``_prefill_tick``. OutOfPages
-        DEFERS the head request (FIFO kept); any other admission error
-        fails that request alone."""
+        admissions only reserve their slot and pages here; the prompt
+        chunks run batched in ``_prefill_tick``. OutOfPages DEFERS the
+        candidate (order kept); any other admission error fails that
+        request alone."""
         admitted = 0
         for slot in range(self.max_slots):
             if self._admit_cap is not None and admitted >= self._admit_cap:
                 break
             if self._slots[slot] is not None:
                 continue
-            if not self._queue:
+            item, src = self._next_admission_locked()
+            if item is None:
                 break
-            item = self._queue[0]
             # one _best_hit an attempt feeds the fits check and the
             # admission: same lock, the tree cannot move in between
             best = self._best_hit(item.ids)
             if self._kv is not None \
                     and not self._head_fits_pool(item, best):
                 break
-            req = self._queue.pop(0)
+            req = self._pop_admission_locked(src)
             try:
                 if self._ragged:
                     self._reserve_one(slot, req, best)
@@ -815,7 +1079,7 @@ class ContinuousBatchingServer:
                     self._kv.free_slot(slot)
                 self._active[slot] = False
                 self._slots[slot] = None
-                self._queue.insert(0, req)
+                self._defer_admission_locked(src, req)
                 break
             except Exception as e:
                 if self._kv is not None and self._kv.slot_pages(slot):
@@ -832,15 +1096,22 @@ class ContinuousBatchingServer:
             self._prefill_tick()
 
     def _reserve_one(self, slot, req, best):
-        """Reserve ``slot`` for ``req`` (ragged prefill): full-extent
-        pages (tree-hit pages joined by reference) and a prefill-phase
-        slot record. The prompt's chunks run in ``_prefill_tick``
-        launches."""
+        """Reserve ``slot`` for ``req`` (ragged prefill): its pages
+        (``_extent_tokens``; tree-hit pages joined by reference) and a
+        prefill-phase slot record. The prompt's chunks run in
+        ``_prefill_tick`` launches."""
+        if self._faults is not None:
+            # chaos point: an admission that dies is a PER-REQUEST
+            # failure (_admit records it), and it fires BEFORE the
+            # reservation, so no pages need rolling back
+            self._faults.check(faults.PREFILL, rid=req.rid)
         ids = req.ids
         T = ids.shape[0]
         m = None if best is None else best[1]
         n_pre, pre_pages = (0, []) if m is None else (m.tokens, m.pages)
-        self._kv.admit_slot(slot, T + req.budget, pre_pages)
+        self._kv.admit_slot(slot, self._extent_tokens(T, req.budget),
+                            pre_pages)
+        self._count_headroom(slot, T)
         n_auto = 0
         if m is not None:
             self._prefix.use(m)               # LRU: reuse is recency
@@ -856,6 +1127,7 @@ class ContinuousBatchingServer:
         st = _Slot(req.rid, ids, T, req.budget, req.on_token,
                    req.deadline, req.seed)
         st.fill_pos = st.filled = n_pre
+        self._bind_request(st, req)
         self._slots[slot] = st
         self._prefill_fifo.append(slot)
         if not self._fused:
@@ -866,6 +1138,28 @@ class ContinuousBatchingServer:
             # state: mid-prefill slots ride the launch as real prefill
             # rows, idle ones are skipped by the kernel.)
             self._pending_t[slot] = self.max_cache_len
+
+    def _bind_request(self, st, req):
+        """Carry the request's scheduling state onto its slot. A RESUMED
+        (previously preempted) request keeps its stream offset (on_token
+        never re-sends delivered chunks), its pre-preemption partial
+        (flushed if it must leave early again) and its preemption
+        count."""
+        st.priority = req.priority
+        if isinstance(req, _Preempted):
+            st.streamed = req.streamed
+            st.replayed = tuple(req.emitted)
+            st.preempts = req.preempts
+            self.stats["preempt_resumed"] += 1
+
+    def _count_headroom(self, slot, T):
+        """Account the pages an optimistic admission reserved BEYOND the
+        prompt (its pre-paid growth headroom)."""
+        if not self._optimistic:
+            return
+        hr = len(self._kv.slot_pages(slot)) - self._npages_for(T)
+        if hr > 0:
+            self.stats["headroom_pages"] += hr
 
     def _n_prefill_calls(self, seg_len):
         """Prefill step calls ``_run_prefill`` makes for a
@@ -897,6 +1191,10 @@ class ContinuousBatchingServer:
         registered hit seeds them from the stored rows; either way only
         the remainder is prefilled), draw the first token, and copy the
         rows into the slot's dense cache row or its own pages."""
+        if self._faults is not None:
+            # chaos point: an admission prefill that dies is a
+            # PER-REQUEST failure (_admit records it)
+            self._faults.check(faults.PREFILL, rid=req.rid)
         ids, T = req.ids, req.ids.shape[0]
         if best is not None and best[0] == "tree":
             n_pre, pre_pages = best[1].tokens, best[1].pages
@@ -910,7 +1208,9 @@ class ContinuousBatchingServer:
             # stats: an OutOfPages here defers the request with nothing
             # counted. Shared pages are referenced before the alloc, so
             # its reclaim sweep cannot evict them.
-            own = self._kv.admit_slot(slot, T + req.budget, pre_pages)
+            own = self._kv.admit_slot(
+                slot, self._extent_tokens(T, req.budget), pre_pages)
+            self._count_headroom(slot, T)
         if best is not None and best[0] == "tree":
             m = best[1]
             self._prefix.use(m)               # LRU: reuse is recency
@@ -959,6 +1259,7 @@ class ContinuousBatchingServer:
         st = _Slot(req.rid, ids, T, req.budget, req.on_token,
                    req.deadline, req.seed)
         st.filled = st.fill_pos = T
+        self._bind_request(st, req)
         st.emitted.append(first)
         st.stream(self._deferred_cbs)
         self._slots[slot] = st
@@ -1116,6 +1417,96 @@ class ContinuousBatchingServer:
     def _tick_dispatch(self, op, n=1):
         self._tick_disp[op] = self._tick_disp.get(op, 0) + n
 
+    # ------------------------------------- optimistic growth / preemption
+    def _grow_locked(self):
+        """Optimistic admission's growth pass: every active slot whose
+        next ``tick_block`` decode writes would cross its block-table
+        coverage gets pages appended on demand
+        (``PagedKVCache.grow_slot``); when the pool cannot supply them
+        the preemption policy frees victims (``_grow_one_locked``). Runs
+        under the server lock BEFORE the device work that writes those
+        rows, so the launch always sees tables covering every row it
+        genuinely needs; rows past a request's total extent
+        null-redirect, as reserve mode's wasted block steps do."""
+        n = self.tick_block
+        for slot in range(self.max_slots):
+            if not self._active[slot]:
+                continue              # empty, mid-prefill, or just parked
+            st = self._slots[slot]
+            # the next tick writes rows [t, t + n), t = prompt_len +
+            # emitted - 1; rows at or past prompt + budget are never
+            # read back (harvest stops the slot first)
+            needed = min(st.prompt_len + len(st.emitted) - 1 + n,
+                         st.prompt_len + st.budget)
+            try:
+                self._grow_one_locked(slot, st, needed)
+            except PreemptedError:
+                # the grower itself ranked last and was parked: typed,
+                # internal, and caught HERE, so it never reaches a waiter
+                continue
+
+    def _grow_one_locked(self, slot, st, needed_tokens):
+        """Grow one slot to cover ``needed_tokens``, preempting victims
+        if the pool is genuinely exhausted. Each iteration succeeds,
+        raises (a transient tick failure, retried by the supervisor with
+        all state consistent) or removes one live slot from the
+        candidates, so it terminates; when the grower itself is the
+        least valuable live work it parks itself (``PreemptedError``,
+        caught by ``_grow_locked``) rather than evict anyone ranked
+        above it."""
+        kv = self._kv
+        need = self._npages_for(needed_tokens) - len(kv.slot_pages(slot))
+        if need <= 0:
+            return
+        while True:
+            try:
+                kv.grow_slot(slot, need)
+            except OutOfPages:
+                if kv.free_pages() \
+                        + self._prefix.evictable_pages() >= need:
+                    # pages exist but this reclaim sweep died (an
+                    # injected ``prefix.evict`` fault): a TRANSIENT tick
+                    # failure the supervisor retries; preempting here
+                    # would burn a victim for pages already reclaimable
+                    raise
+                cands = [(s, self._slots[s])
+                         for s in range(self.max_slots)
+                         if self._slots[s] is not None]
+                victim = self._preempt_policy.pick(slot, cands)
+                if victim is None:
+                    raise      # no live work to free: genuine exhaustion
+                if self._faults is not None:
+                    # chaos point: an aborted victim teardown leaves the
+                    # victim decoding and fails the TICK (supervised
+                    # retry); victims already parked this sweep stay
+                    # parked, and nothing leaks either way
+                    self._faults.check(faults.SERVER_PREEMPT,
+                                       slot=victim, grower=slot,
+                                       rid=self._slots[victim].rid)
+                if victim == slot:
+                    self._preempt_slot_locked(slot)
+                    raise PreemptedError(
+                        f"request {st.rid} parked by its own page "
+                        f"growth (least valuable live work)")
+                self._preempt_slot_locked(victim)
+            else:
+                self.stats["grow_pages"] += need
+                return
+
+    def _preempt_slot_locked(self, slot):
+        """Tear a victim down, resumable: park its replay record
+        (resolved seed, absolute deadline, stream offset, the partial so
+        far) on the preempted queue, donate its written
+        prompt pages into the radix tree COLD (the grow that triggered
+        this reclaims them first; a quick re-admission still hits what
+        survives) and free the rest. The waiter keeps blocking:
+        re-admission replays the same token chain, greedy trivially,
+        sampled because the chain restarts from the same seed."""
+        rec = _Preempted(self._slots[slot])
+        self._release_slot(slot, cold=True)
+        self._preempted.append(rec)
+        self.stats["preemptions"] += 1
+
     @torch.no_grad()
     def _decode(self):
         """``tick_block`` batched decode steps over every slot; returns
@@ -1167,6 +1558,8 @@ class ContinuousBatchingServer:
         errors = []
         for cb, rid, toks in cbs:
             try:
+                if self._faults is not None:
+                    self._faults.check(faults.ON_TOKEN, rid=rid)
                 cb(rid, toks)
             except Exception as e:
                 errors.append((rid, e))
@@ -1216,6 +1609,13 @@ class ContinuousBatchingServer:
         # harvest BEFORE packing: a slot whose budget is spent (or that
         # emitted eos at activation) must not decode further
         self._harvest()
+        if self._optimistic and self._active.any():
+            # grow every decode slot about to cross its coverage NOW:
+            # the launch must never write a needed row through a missing
+            # page (rows past the extent null-redirect as on split
+            # ticks); a slot parked here neither packs nor emits, so its
+            # key is not drawn
+            self._grow_locked()
         S = self.max_slots
         pg = self.page_size
         plan, C = self._chunk_plan()
@@ -1248,20 +1648,29 @@ class ContinuousBatchingServer:
             tokens[slot, 0] = st.emitted[-1]
             t0[slot] = last[slot] = t
             dec[slot] = emit[slot] = 1
-        # the live block-table slice (a power-of-two width capped at the
-        # table) and the schedule of live pages: the launch reads pages
-        # up to the live frontier only, whatever the configured width
-        live_pages = max(int(x) // pg + 1 for x in last if x >= 0)
-        W = min(self._kv.pages_per_slot,
-                max(1, 1 << (live_pages - 1).bit_length()))
-        bt_live = np.ascontiguousarray(self._kv.block_table[:, :W])
+        # the whole block table and the schedule of live pages: the
+        # launch reads pages up to the live frontier only. The table
+        # goes at its full width, not sliced to the frontier: the bf16
+        # decode body splits a row's keys by the table's width, and a
+        # decode row must compute the same bits whatever the other
+        # slots' frontiers are (a replay redraws its parked tokens)
+        bt_live = self._kv.block_table
         ss, sp, _ = build_schedule(last, pg, n_slots=S)
         self._kv.dirty = False     # the slice is the device's view
+        if self._faults is not None:
+            # chaos point: a dying fused tick is a SERVER-level transient
+            # the supervisor retries; nothing of this tick has reached
+            # the device yet (pages, keys), and slot bookkeeping happens
+            # after the launch
+            self._faults.check(faults.DECODE_TICK)
         draw = (emit, fresh, seeds) if self.do_sample else ()
         args = self._fused_inputs(tokens, t0, last, dec, out_idx, bt_live,
                                   ss, sp, *draw)
-        logits, self._caches = self._fused_fn(*args[:4], self._caches,
-                                              *args[4:8])
+        logits, self._caches = self._fused_fn(
+            *args[:4], self._caches, *args[4:8], bool(dec_slots))
+        # a tick with prefill chunks and decode rows runs them as two
+        # passes over the layers (``models.generation``)
+        self.stats["fused_passes"] += 1 + bool(plan and dec_slots)
         if self.do_sample:
             # the reference's fused program: fresh slots start their
             # chain from their seed inside it, non-emitting slots keep
@@ -1309,10 +1718,24 @@ class ContinuousBatchingServer:
         self._harvest()
         if not self._active.any():
             return 0
+        if self._optimistic:
+            # grow every slot about to cross its coverage NOW, preempting
+            # victims if the pool is dry: the dispatch below must never
+            # write a needed row through a missing page
+            self._grow_locked()
+            if not self._active.any():
+                # growth parked every decoding slot: nothing to dispatch
+                # this tick (re-admission restarts them next tick)
+                return 0
         self._sync_block_table()
         # activations batched their tok/t updates, and slots still
         # prefilling carry parked write positions: push both first
         self._flush_slot_state()
+        if self._faults is not None:
+            # chaos point: a dying decode tick is a SERVER-level
+            # transient the supervisor retries; nothing was dispatched
+            # yet, so no key has been split
+            self._faults.check(faults.DECODE_TICK)
         toks, bad = self._decode()
         n = toks.shape[1]
         for slot in range(self.max_slots):
@@ -1335,8 +1758,11 @@ class ContinuousBatchingServer:
         return int(self._active.sum())
 
     def _busy_locked(self):
+        """Work pending: queued requests, decoding slots, slots still
+        mid-prefill, or preempted requests parked for re-admission
+        (``stop(drain=True)`` keeps ticking until they finish too)."""
         return bool(self._queue or self._active.any()
-                    or self._prefill_fifo)
+                    or self._prefill_fifo or self._preempted)
 
     def queue_depth(self):
         """Requests waiting for a slot (a lock-free point-in-time read)."""
@@ -1346,6 +1772,13 @@ class ContinuousBatchingServer:
         """Slots holding a live request, decoding or mid-prefill (a
         lock-free point-in-time read)."""
         return sum(1 for st in self._slots if st is not None)
+
+    def preempt_pressure(self):
+        """Requests parked on the preempted queue: displaced in-flight
+        work this server must replay before it makes progress on new
+        traffic. Always 0 under ``admission="reserve"``. A lock-free
+        point-in-time read."""
+        return len(self._preempted)
 
     def _finished(self, st):
         if len(st.emitted) >= st.budget:
@@ -1367,9 +1800,10 @@ class ContinuousBatchingServer:
 
     def _expire_locked(self):
         """Fail queued requests whose deadline passed (before a prefill
-        is spent on them) and cancel expired in-flight slots (their
-        partial tokens become the result). Reads the clock only when a
-        live request carries a deadline."""
+        is spent on them), cancel expired in-flight slots and flush
+        expired parked requests (their partial tokens become the
+        result). Reads the clock only when a live request carries a
+        deadline."""
         now = None
         notify = False
         if any(item.deadline is not None for item in self._queue):
@@ -1393,12 +1827,27 @@ class ContinuousBatchingServer:
             if now >= st.deadline:
                 self._finish_partial_locked(slot)
                 notify = True
+        if self._preempted:
+            keep_p = []
+            for rec in self._preempted:
+                if rec.deadline is not None:
+                    if now is None:
+                        now = self._clock.now()
+                    if now >= rec.deadline:
+                        # the deadline holds ACROSS preemption (time
+                        # parked counts): the pre-preemption partial is
+                        # the result and no decode resumes
+                        self._flush_parked_locked(rec)
+                        notify = True
+                        continue
+                keep_p.append(rec)
+            self._preempted[:] = keep_p
         if notify:
             self._done_cv.notify_all()
 
     def _fail_request_locked(self, rid, err):
-        """Fail ONE live request (queued or in flight) with ``err``; a
-        rid already settled is left alone."""
+        """Fail ONE live request (queued, in flight or parked) with
+        ``err``; a rid already settled is left alone."""
         for i, item in enumerate(self._queue):
             if item.rid == rid:
                 del self._queue[i]
@@ -1410,7 +1859,12 @@ class ContinuousBatchingServer:
                     self._release_slot(slot)
                     break
             else:
-                return
+                for i, rec in enumerate(self._preempted):
+                    if rec.rid == rid:
+                        del self._preempted[i]
+                        break
+                else:
+                    return
         self._deferred_cbs = [c for c in self._deferred_cbs
                               if c[1] != rid]
         self._failures[rid] = err
@@ -1433,14 +1887,57 @@ class ContinuousBatchingServer:
             self._run_failures, self._failures = self._failures, {}
         return out
 
+    def _fail_all_locked(self, cause):
+        """Breaker-open path: fail EVERY queued, parked and in-flight
+        request with a ``CircuitOpenError`` so no waiter wedges on a
+        server that cannot tick now."""
+        thresh = self._sup.breaker.failure_threshold
+        rids = [item.rid for item in self._queue]
+        self._queue.clear()
+        rids += [rec.rid for rec in self._preempted]
+        self._preempted.clear()
+        for slot in range(self.max_slots):
+            if self._slots[slot] is not None:
+                rids.append(self._slots[slot].rid)
+                self._release_slot(slot)
+        # chunks queued by the failed tick belong to rids that now have
+        # no result: firing them after recovery would stream tokens for
+        # requests whose wait() already raised
+        self._deferred_cbs.clear()
+        for rid in rids:
+            err = CircuitOpenError(
+                f"request {rid} aborted: circuit breaker opened after "
+                f"{thresh} consecutive tick failures")
+            err.__cause__ = cause
+            self._failures[rid] = err
+        self._done_cv.notify_all()
+
+    @property
+    def health(self):
+        """Current health state: ``healthy`` / ``degraded`` /
+        ``draining`` / ``dead`` (``reliability.health``). A lock-free
+        read of a plain string: it answers while a tick holds the serve
+        lock."""
+        return self._health.state
+
     # ------------------------------------------------------ serve thread
     def start(self, idle_sleep=0.005):
-        """Run the tick loop on a background thread: ``submit()`` from
-        any thread, collect results with ``wait(rid)``. A failing
-        ``on_token`` callback fails its own request only; any other
-        tick error ends the thread and is raised to every waiter (the
-        JAX server's retrying supervisor and circuit breaker are not
-        ported yet)."""
+        """Run the tick loop on a SUPERVISED background thread:
+        ``submit()`` and ``cancel()`` from any thread, collect results
+        with ``wait(rid)``.
+
+        Supervision (``reliability.ServeSupervisor``): a failing tick is
+        retried with exponential backoff (``retry_policy``); a failing
+        REQUEST (a poisoned on_token callback, an injected per-request
+        fault) is failed alone through the per-rid failures channel
+        while every other slot keeps decoding; after
+        ``breaker.failure_threshold`` consecutive tick failures the
+        circuit breaker opens: every waiter is unblocked with
+        ``CircuitOpenError``, health goes ``degraded``, and after the
+        cooldown a half-open probe tick restores ``healthy``. Deadlines
+        still expire during the cooldown, and an idle degraded server
+        recovers once the cooldown ends. The thread survives everything
+        short of interpreter shutdown."""
         if self._thread is not None:
             raise RuntimeError("server already started")
         self._stop.clear()
@@ -1448,8 +1945,11 @@ class ContinuousBatchingServer:
         with self._lock:
             self._accepting = True
             self._draining = False
+            if self._health.state != HEALTHY:
+                self._health.reset()   # explicit restart after stop()
 
         def loop():
+            sup = self._sup
             try:
                 while True:
                     with self._lock:
@@ -1458,6 +1958,20 @@ class ContinuousBatchingServer:
                                                     and busy):
                         break
                     if not busy:
+                        if (sup.breaker.state != sup.breaker.CLOSED
+                                and sup.allow()):
+                            # cooldown elapsed with nothing failing: close
+                            # the breaker so an IDLE server does not stay
+                            # degraded
+                            sup.success()
+                            self._recover_health()
+                        _time_mod.sleep(idle_sleep)
+                        continue
+                    if not sup.allow():          # breaker cooldown
+                        with self._lock:
+                            # deadlines keep their promise while the
+                            # breaker gates ticks
+                            self._expire_locked()
                         _time_mod.sleep(idle_sleep)
                         continue
                     try:
@@ -1466,32 +1980,56 @@ class ContinuousBatchingServer:
                                 self._step_locked()
                         self._fire_callbacks()
                     except CallbackError as ce:
+                        # the engine is fine: fail exactly the requests
+                        # whose streams are poisoned
                         with self._lock:
                             for rid, err in ce.errors:
                                 self._fail_request_locked(
                                     rid, CallbackError(
                                         [(rid, err)],
                                         what="on_token callback"))
+                        sup.success()
+                        self._recover_health()
+                    except Exception as e:
+                        self._on_tick_failure(e)
+                    else:
+                        sup.success()
+                        self._recover_health()
             except BaseException as e:   # surface to waiters, don't wedge
                 with self._lock:
                     self._thread_error = e
+                    self._health.to(DEAD)
                     self._done_cv.notify_all()
-                raise
 
         self._thread = threading.Thread(target=loop, daemon=True)
         self._thread.start()
         return self
 
+    def _on_tick_failure(self, e):
+        """Supervised-tick failure path, called WITHOUT the lock (the
+        retry backoff sleeps here)."""
+        if self._sup.failure(e) == "open":
+            with self._lock:
+                self._health.to(DEGRADED)
+                self._fail_all_locked(e)
+
+    def _recover_health(self):
+        with self._lock:
+            if self._health.state == DEGRADED:
+                self._health.to(HEALTHY)
+
     def stop(self, timeout=60.0, drain=False):
-        """Stop the serve thread. ``drain=True`` closes admission and
-        keeps ticking until every queued and in-flight request has
-        finished; ``drain=False`` stops after the current tick, records
-        in-flight partials and fails still-queued requests with
-        ``ServerClosed``."""
+        """Stop the serve thread. ``drain=True`` closes admission (health
+        ``draining``) and keeps ticking until every queued, parked and
+        in-flight request has finished; ``drain=False`` stops after the
+        current tick, records in-flight and parked partials and fails
+        still-queued requests with ``ServerClosed``. Either way the
+        server ends ``dead`` until ``start()`` is called again."""
         with self._lock:
             self._accepting = False
             if drain and self._thread is not None:
                 self._draining = True
+                self._health.to(DRAINING)
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=timeout)
@@ -1506,12 +2044,16 @@ class ContinuousBatchingServer:
                 for slot in range(self.max_slots):
                     if self._slots[slot] is not None:
                         self._finish_partial_locked(slot)
+                for rec in self._preempted:
+                    self._flush_parked_locked(rec)
+                self._preempted.clear()
                 for item in self._queue:
                     self._failures[item.rid] = ServerClosed(
                         f"request {item.rid} was still queued when the "
                         f"server stopped")
                 self._queue.clear()
                 self._deferred_cbs.clear()
+            self._health.to(DEAD)
             self._done_cv.notify_all()
 
     def wait(self, rid, timeout=120.0):

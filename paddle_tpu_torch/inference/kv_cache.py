@@ -21,6 +21,8 @@ corrupt a live slot's pages.
 """
 import numpy as np
 
+from ..reliability.faults import KV_GROW, PAGE_ALLOC
+
 __all__ = ["PagedKVCache", "OutOfPages", "NULL_PAGE"]
 
 NULL_PAGE = 0
@@ -42,7 +44,8 @@ class PagedKVCache:
     device copy needs a refresh.
     """
 
-    def __init__(self, num_pages, page_size, max_slots, pages_per_slot):
+    def __init__(self, num_pages, page_size, max_slots, pages_per_slot,
+                 fault_injector=None):
         if page_size < 1 or pages_per_slot < 1:
             raise ValueError("page_size and pages_per_slot must be >= 1")
         if num_pages < 2:
@@ -57,6 +60,11 @@ class PagedKVCache:
         self._ref = np.zeros((num_pages,), np.int32)
         self._slot_pages = [[] for _ in range(max_slots)]
         self.dirty = True
+        # chaos hook (reliability.FaultInjector): alloc() checks the
+        # "kv.alloc" point BEFORE touching the free list, so an injected
+        # allocation failure can never leak pages
+        self._faults = fault_injector
+        self.grown_total = 0       # pages appended mid-decode (grow_slot)
         # last-resort page source: when the free list runs short,
         # ``alloc`` calls ``reclaimer(shortfall)`` once before giving
         # up — the prefix cache hooks in here to evict LRU cached
@@ -78,6 +86,8 @@ class PagedKVCache:
         """Take ``n`` pages off the free list (refcount 1 each). A
         short free list first asks ``reclaimer`` (the prefix cache's
         LRU eviction) to make up the difference."""
+        if self._faults is not None:
+            self._faults.check(PAGE_ALLOC, need=n)
         if n > len(self._free) and self.reclaimer is not None:
             self.reclaimer(n - len(self._free))
         if n > len(self._free):
@@ -107,10 +117,16 @@ class PagedKVCache:
     def slot_pages(self, slot):
         return list(self._slot_pages[slot])
 
+    def coverage(self, slot):
+        """Tokens the slot's current pages can hold."""
+        return len(self._slot_pages[slot]) * self.page_size
+
     def admit_slot(self, slot, n_tokens, shared_pages=()):
         """Give ``slot`` a block table covering ``n_tokens`` positions —
-        the request's FULL extent (prompt + budget), reserved up front
-        so decode can never hit an empty pool mid-flight:
+        under reserve admission the request's FULL extent (prompt +
+        budget), so decode can never hit an empty pool mid-flight; under
+        optimistic admission the prompt plus headroom, grown later by
+        ``grow_slot``:
         ``shared_pages`` (refcounted, e.g. a cached prefix's full
         pages) cover the head, fresh pages the rest. Returns the fresh
         page ids — the caller copies the slot's own KV rows (positions
@@ -141,6 +157,33 @@ class PagedKVCache:
         row[:] = NULL_PAGE
         row[:len(pages)] = pages
         self.dirty = True
+        return own
+
+    def grow_slot(self, slot, n):
+        """Append ``n`` fresh pages to a live slot's block table:
+        optimistic admission grows a slot page by page as decode crosses
+        page boundaries instead of reserving its full extent up front.
+        The ``kv.grow`` chaos point fires BEFORE the free list is
+        touched, so an injected grow failure is a clean transient
+        (nothing to roll back). Raises ``OutOfPages`` when the pool
+        (plus whatever the reclaimer can evict) cannot supply the pages:
+        the server's preemption policy then frees a victim's pages and
+        retries. Returns the new page ids."""
+        if self._faults is not None:
+            self._faults.check(KV_GROW, slot=slot, need=n)
+        pages = self._slot_pages[slot]
+        if not pages:
+            raise RuntimeError(f"slot {slot} holds no pages to grow")
+        if len(pages) + n > self.pages_per_slot:
+            raise ValueError(
+                f"growing slot {slot} by {n} pages exceeds "
+                f"pages_per_slot ({self.pages_per_slot})")
+        own = self.alloc(n)
+        row = self.block_table[slot]
+        row[len(pages):len(pages) + n] = own
+        pages.extend(own)
+        self.dirty = True
+        self.grown_total += n
         return own
 
     def free_slot(self, slot):

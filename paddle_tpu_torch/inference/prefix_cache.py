@@ -42,13 +42,23 @@ Lifecycle:
   pinned node, nor an ancestor of one; ``pinned_pages`` and
   ``cached_pages`` partition the tree for ``pool_balance()``.
 
-The host KV tier, the routing sketch (and ``flush_sketch``) and the
-chaos hooks of the JAX module come back with the ROADMAP items that
-first need them (Queue 1 items 9 and 8).
+Chaos hooks (reliability.FaultInjector): ``prefix.donate`` faults
+abandon the insert before any state changes (the caller frees the
+pages: the cache loses an entry, never a page); ``prefix.evict`` faults
+abort that reclaim attempt (the allocator then reports OutOfPages and
+admission defers to the next tick). A preemption donates its victim's
+pages COLD (``donate(cold=True)``): at the LRU's cold end, so the grow
+that displaced it reclaims them first.
+
+The host KV tier and the routing sketch (and ``flush_sketch``) of the
+JAX module come back with the ROADMAP item that first needs them
+(Queue 1 item 9).
 
 Host-side only, mutated exclusively under the server lock.
 """
 import numpy as np
+
+from ..reliability.faults import PREFIX_DONATE, PREFIX_EVICT
 
 __all__ = ["PrefixCache", "PrefixMatch"]
 
@@ -105,8 +115,9 @@ class PrefixCache:
     (``pool_balance()``).
     """
 
-    def __init__(self, kv):
+    def __init__(self, kv, fault_injector=None):
         self.kv = kv
+        self._faults = fault_injector
         self.page_size = kv.page_size
         self._root = _Node(None, None, None)
         self._tick = 0          # logical LRU clock (bumped per touch)
@@ -171,13 +182,28 @@ class PrefixCache:
             self._touch(node)
 
     # ---------------------------------------------------------- donation
-    def donate(self, ids, pages, prompt_len):
+    def donate(self, ids, pages, prompt_len, cold=False):
         """Adopt a released slot's page list: full prompt pages become
         (or refresh) tree nodes, everything else — the partial prompt
         tail and the decode budget — is released. Takes ownership of
         EVERY reference the caller held on ``pages``: existing nodes
         absorb the duplicate (released), new nodes keep theirs. Returns
-        the number of newly cached pages."""
+        the number of newly cached pages.
+
+        ``cold=True`` is the PREEMPTION donation path: the donated run
+        enters at the COLD end of the LRU instead of as most recent —
+        new nodes keep ``last_used=0`` (insertion ``seq`` still breaks
+        ties deterministically) and existing nodes keep their real
+        recency. The grow that displaced the victim is about to reclaim
+        pages, and takes the victim's first; the pages stay lookup-able
+        until evicted, so a quickly re-admitted victim still hits its
+        own prompt.
+
+        Raises (``prefix.donate`` fault) strictly BEFORE any state
+        changes: on failure the caller still owns all ``pages`` and
+        frees them; the tree and refcounts are untouched."""
+        if self._faults is not None:
+            self._faults.check(PREFIX_DONATE, pages=len(pages))
         nf = min(int(prompt_len) // self.page_size, len(pages))
         node, new = self._root, 0
         for key, page in zip(self._page_keys(ids, nf), pages[:nf]):
@@ -193,7 +219,8 @@ class PrefixCache:
                 node.children[key] = child
                 self.cached_pages += 1
                 new += 1
-            self._touch(child)
+            if not cold:
+                self._touch(child)
             node = child
         self.kv.release(pages[nf:])
         return new
@@ -236,7 +263,10 @@ class PrefixCache:
     def evict(self, need):
         """Free up to ``need`` pool pages, least-recently-used leaf
         first (ties by insertion order — fully deterministic). Returns
-        the number of pages freed."""
+        the number of pages freed; raising (``prefix.evict`` fault)
+        happens strictly before any state changes."""
+        if self._faults is not None:
+            self._faults.check(PREFIX_EVICT, need=int(need))
         safe = set(self._evictable())
         freed = 0
         while freed < int(need):

@@ -17,7 +17,7 @@ two layouts:
   slot) run the paged-attention kernel; ragged prefill chunks (several
   slots' prompt chunks in one call) run the ragged-prefill kernel; a
   fused tick (every slot's prefill chunk and decode row in one call,
-  over the live slice of the block tables) runs the fused-tick kernel.
+  over the pages its schedule lists) runs the fused-tick kernel.
   Each kernel takes its plain PyTorch version on CPU tensors.
 
 Where the JAX package returns new cache arrays, the port writes caches
@@ -335,26 +335,56 @@ def _make_fused_tick_fn(fused_step, head_fn, embed_tokens):
     fused-tick kernel launch per layer.
 
     Signature: ``(tokens [S, C], t0 [S], last [S], dec [S], caches,
-    out_idx [S], bt_live [S, W], sched_slot [G], sched_page [G]) ->
-    (logits [S, V], caches)``. Per slot: a prefill chunk carries
-    ``t0 = fill position``, ``last = t0 + take - 1``; a decode row
-    carries its token in column 0 with ``t0 = last = t`` (the write
-    position) and ``dec = 1``; an idle slot carries ``last = -1`` (its
-    writes null-redirect zeroed, the kernel skips it). ``out_idx`` picks
-    the logits row: the last prompt token of a completing prefill, row 0
-    for decode. ``bt_live`` is the block tables sliced to the live page
-    frontier and ``(sched_slot, sched_page)`` the live-page schedule
-    (``ops.kernels.fused_tick.build_schedule``)."""
+    out_idx [S], bt_live [S, W], sched_slot [G], sched_page [G],
+    has_decode=None) -> (logits [S, V], caches)``. Per slot: a prefill
+    chunk carries ``t0 = fill position``, ``last = t0 + take - 1``; a
+    decode row carries its token in column 0 with ``t0 = last = t``
+    (the write position) and ``dec = 1``; an idle slot carries ``last =
+    -1`` (its writes null-redirect zeroed, the kernel skips it).
+    ``out_idx`` picks the logits row: the last prompt token of a
+    completing prefill, row 0 for decode. ``bt_live`` is the block tables' first W columns (any W
+    covering the live frontier; the server passes the whole table, whose
+    width fixes the bf16 decode body's split plan) and ``(sched_slot,
+    sched_page)`` the live-page schedule
+    (``ops.kernels.fused_tick.build_schedule``).
+
+    A decode row computes the same bits whatever else its tick packs:
+    when the tick also carries prefill chunks (C > 1), the decode rows
+    take a pass of their own at the shapes of a decode-only tick
+    (``[S, 1]`` rows, so projections at M = S and the fused-tick
+    kernel's C = 1 body) and the prefill rows another, each pass with
+    the other's slots idle. Two kernel launches a layer on such a tick.
+    On the card a GEMM's rounding depends on its M, so one pass at
+    M = S * C would give a decode row other bits than a decode-only tick
+    gives it, and a replayed request would not redraw its parked tokens.
+    ``has_decode`` (a host bool) says whether ``dec`` has a live row;
+    None reads it from ``dec``."""
     @torch.no_grad()
     def fused_tick(tokens, t0, last, dec, caches, out_idx, bt_live,
-                   sched_slot, sched_page):
-        S = tokens.shape[0]
-        x = embed_tokens(tokens, t0)
-        out, caches = fused_step(x, caches, t0, last, dec, bt_live,
-                                 sched_slot, sched_page)
-        rows = out[torch.arange(S, device=out.device),
-                   out_idx.long()][:, None]                 # [S, 1, H]
-        return head_fn(rows)[:, -1], caches
+                   sched_slot, sched_page, has_decode=None):
+        S, C = tokens.shape
+        ar = torch.arange(S, device=tokens.device)
+        if has_decode is None:
+            has_decode = bool((dec > 0).any())
+        if C == 1 or not has_decode:
+            out, caches = fused_step(embed_tokens(tokens, t0), caches, t0,
+                                     last, dec, bt_live, sched_slot,
+                                     sched_page)
+            rows = out[ar, out_idx.long()]
+        else:
+            is_dec = dec > 0
+            idle = torch.full_like(last, -1)
+            out_d, caches = fused_step(
+                embed_tokens(tokens[:, :1].contiguous(), t0), caches, t0,
+                torch.where(is_dec, last, idle), dec, bt_live, sched_slot,
+                sched_page)
+            out_p, caches = fused_step(
+                embed_tokens(tokens, t0), caches, t0,
+                torch.where(is_dec, idle, last), dec, bt_live, sched_slot,
+                sched_page)
+            rows = torch.where(is_dec[:, None], out_d[:, 0],
+                               out_p[ar, out_idx.long()])
+        return head_fn(rows[:, None])[:, -1], caches
 
     return fused_tick
 

@@ -1,8 +1,9 @@
 """Typed errors for the serving and training reliability layers.
 
 Copied from ``paddle_tpu/reliability/errors.py``, cut to the failures
-the port raises: the server's, the fault injector's, the durable
-checkpoints' and the training supervisor's.
+the port raises: the server's (its preemption signal included), the
+fault injector's, the durable checkpoints' and the training
+supervisor's.
 
 Every failure the reliability layer can hand a waiter is a
 ``ReliabilityError`` subclass, so callers can catch the whole family or
@@ -14,8 +15,9 @@ these DIRECTLY (no RuntimeError wrapping) — a client distinguishing
 
 __all__ = ["ReliabilityError", "DeadlineExceeded", "QueueFullError",
            "RequestCancelled", "ServerClosed", "CallbackError",
-           "CircuitOpenError", "InjectedFault", "CheckpointCorruptError",
-           "TrainAnomalyError", "StepFailedError"]
+           "CircuitOpenError", "PreemptedError", "InjectedFault",
+           "CheckpointCorruptError", "TrainAnomalyError",
+           "StepFailedError"]
 
 
 class ReliabilityError(RuntimeError):
@@ -52,6 +54,19 @@ class CircuitOpenError(ReliabilityError):
     failures): in-flight and queued requests are failed with this so no
     waiter wedges, and the server goes ``degraded`` until a half-open
     probe tick succeeds. ``__cause__`` is the last tick error."""
+
+
+class PreemptedError(ReliabilityError):
+    """INTERNAL scheduling signal of ``admission="optimistic"``: the
+    server preempted this request's slot under KV-pool pressure (its
+    pages were freed, its written prompt prefix donated to the prefix
+    cache) and parked it on the preempted queue for bit-exact
+    re-admission. It is typed so the scheduler's own control flow and
+    the chaos tests can match it precisely, but it is NOT a request
+    outcome: a preempted request is still live, its waiter keeps
+    blocking, and ``wait()`` NEVER raises this. A preempted request
+    ultimately resolves like any other: result, partial (deadline,
+    cancel, hard stop), or a different typed failure."""
 
 
 class InjectedFault(ReliabilityError):

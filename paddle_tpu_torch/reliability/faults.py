@@ -1,9 +1,11 @@
 """Deterministic fault injection for chaos testing.
 
 Copied from ``paddle_tpu/reliability/faults.py`` (the module is
-framework-free); the port fires the training and checkpoint points
-(``CKPT_WRITE``, ``CKPT_RENAME``, ``CKPT_SWAP``, ``TRAIN_STEP``,
-``DATA_NEXT``). Publishing fires to a telemetry registry waits for the
+framework-free); the port fires the serving points (``PREFILL``,
+``DECODE_TICK``, ``PAGE_ALLOC``, ``KV_GROW``, ``SERVER_PREEMPT``,
+``ON_TOKEN``, ``PREFIX_EVICT``, ``PREFIX_DONATE``) and the training and
+checkpoint points (``CKPT_WRITE``, ``CKPT_RENAME``, ``CKPT_SWAP``,
+``TRAIN_STEP``, ``DATA_NEXT``). Publishing fires to a telemetry registry waits for the
 port's telemetry (ROADMAP Queue 1 item 8): ``registry=`` raises.
 
 A ``FaultInjector`` owns named FAILURE POINTS. Production code calls

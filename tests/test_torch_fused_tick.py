@@ -20,6 +20,8 @@ against the JAX package's, on CPU.
   the live slice spans at least 32 positions, at every chunk width; at a
   16-position slice it differs by ~6e-7 (a measured property of this
   torch build, recorded in ROADMAP Queue 3), so there it is held to 1e-5.
+  A mixed tick runs its decode rows as a pass of their own at C = 1:
+  their logits and K/V equal a decode-only tick's bit for bit.
 - Server: ``serving_mode="fused"`` emits greedy tokens equal to the JAX
   fused server and to the port's split server (prompt lengths 1, pg-1,
   pg and multi-page, a chunk-straddling budget, an automatic prefix hit),
@@ -392,6 +394,66 @@ def test_fused_decode_row_against_the_split_step_across_widths():
                 np.testing.assert_allclose(lf[0].numpy(), split.numpy(),
                                            rtol=0, atol=1e-5)
             assert int(lf[0].argmax()) == int(split.argmax())
+
+
+def test_fused_decode_row_takes_a_pass_at_decode_shapes(monkeypatch):
+    """A mixed tick (slot 0 a cold 12-token chunk, C=16; slot 1 a decode
+    row at t=9; slot 2 idle) runs its decode rows as a pass of their own
+    at C = 1 and its chunks as another at C = 16, one fused-tick call a
+    layer each. The decode row's logits and the K/V it writes are
+    bitwise those of a decode-only tick (C = 1) on the same cache: what
+    else a tick packs moves no bit of a decode row."""
+    from paddle_tpu_torch.models import generation
+    _, tm = _models()
+    S = 3
+    init, _, _, _, _, ragged, fused = tm._decode_bundle(
+        MCL, cache_backend="paged", page_size=PG, num_pages=17)
+    rng = np.random.default_rng(0)
+    caches = init(S)
+    bt = np.zeros((S, MCL // PG), np.int32)
+    bt[0, :2], bt[1, :2] = [1, 2], [3, 4]
+    caches["bt"].copy_(torch.from_numpy(bt))
+    toks = np.zeros((S, 16), np.int32)
+    toks[1, :9] = rng.integers(0, 256, 9)
+    lg, caches = ragged(torch.from_numpy(toks),
+                        torch.tensor([MCL, 0, MCL], dtype=torch.int32),
+                        caches, torch.tensor([0, 8, 0], dtype=torch.int32))
+    nxt = int(lg[1].argmax())
+    widths = []
+    inner = generation._fused_attend
+
+    def attend(q, *args):
+        widths.append(q.shape[1])
+        return inner(q, *args)
+
+    monkeypatch.setattr(generation, "_fused_attend", attend)
+    full = torch.from_numpy(bt)
+
+    def tick(C, last, dec, out_idx, prompt=()):
+        tf = np.zeros((S, C), np.int32)
+        tf[0, :len(prompt)] = prompt
+        tf[1, 0] = nxt
+        t0 = np.array([0 if len(prompt) else MCL, 9, MCL], np.int32)
+        ss, sp, _ = tft.build_schedule(last, PG, n_slots=S)
+        return fused(torch.from_numpy(tf), torch.from_numpy(t0),
+                     torch.from_numpy(np.asarray(last, np.int32)),
+                     torch.from_numpy(np.asarray(dec, np.int32)),
+                     _copy(caches), torch.from_numpy(
+                         np.asarray(out_idx, np.int32)), full,
+                     torch.from_numpy(ss), torch.from_numpy(sp))
+
+    L = tm.cfg.num_layers
+    mixed, mc = tick(16, [11, 9, -1], [0, 1, 0], [11, 0, 0],
+                     rng.integers(0, 256, 12))
+    assert widths == [1] * L + [16] * L
+    widths.clear()
+    alone, ac = tick(1, [-1, 9, -1], [0, 1, 0], [0, 0, 0])
+    assert widths == [1] * L
+    assert torch.equal(mixed[1], alone[1])
+    for name in ("k", "v"):
+        assert torch.equal(mc["pool"][name][:, 4, 1],
+                           ac["pool"][name][:, 4, 1])
+    assert torch.isfinite(mixed[:2]).all()
 
 
 # ------------------------------------------------------------ the server

@@ -58,7 +58,9 @@ def test_scan_sees_the_whole_port():
             "paddle_tpu_torch/amp/__init__.py",
             "paddle_tpu_torch/parallel/recompute_util.py",
             "paddle_tpu_torch/models/bridge.py",
-            "paddle_tpu_torch/ops/kernels/multi_tensor_adam.py"} <= names
+            "paddle_tpu_torch/ops/kernels/multi_tensor_adam.py",
+            "paddle_tpu_torch/reliability/health.py",
+            "paddle_tpu_torch/reliability/supervisor.py"} <= names
     assert len(names) >= 43
 
 
