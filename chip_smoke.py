@@ -15,6 +15,7 @@
     python3 chip_smoke.py --only build,train,fit
     python3 chip_smoke.py --only build,dense_parity,dense
     python3 chip_smoke.py --only build,preempt_parity,serve,preempt
+    python3 chip_smoke.py --only build,serve,telemetry,fit
 
 Phases, in order; any failure exits non-zero:
 
@@ -283,7 +284,37 @@ Phases, in order; any failure exits non-zero:
    (the streams that disagree are printed before the gate fails).
    Informational: the optimistic greedy tokens against the reserve
    wave's;
-21. int8_infer: the serve phase's Llama-2-7B (full width and depth):
+21. telemetry: the port's telemetry on the serve phase's Llama-2-7B,
+   prompts and 32 new tokens: for split and for fused ticks, three
+   waves without telemetry and three with it, interleaved off on on off
+   off on, each on a new server, then a sampled fused wave on, "on"
+   being ``telemetry``, ``recorder``, ``ledger``, ``journeys`` and a
+   ``CostCatalog`` on the card's data-sheet peaks, each driven tick by
+   tick. Gates: every wave's tokens (256 of 256) and K1, K2, K3 and R1
+   launches equal its mode's first "off" wave's (the sampled wave's
+   tokens the serve phase's sampled fused wave's), serve's launch
+   gates; the ledger's kinds sum to the rows each tick's launches ran
+   (the server's ``device_rows``, counted from the host arrays it
+   packs; no masked page read on the card), goodput = the
+   prompt rows + 8 x 31 decode rows; the ``serving_ttft_seconds`` and
+   ``serving_tpot_seconds`` histograms count the 8 requests, each
+   median in the buckets of the smoke's own median (its clock reads
+   bracket the server's; TPOT is a request's mean over its decode
+   tokens); the catalog's roofline ratio <= 1.05
+   on every tick; ``/metrics`` (parsed by ``parse_prometheus``) and
+   ``/stats`` (with ``goodput`` and ``costs``) from ``serve_metrics``
+   on the loopback interface during a ``start()`` wave; one postmortem
+   bundle, whose pool balance adds up, from a request failed by an
+   injected ``server.prefill`` fault; the tracer, mirrored into
+   ``torch.profiler.record_function``, puts the server's request spans
+   among a profile's events. Printed: each wave's tokens/s (over the
+   time spent in the server's ``submit`` and ``step`` calls) and median
+   decode-only tick, on against off, and their medians; the phase split
+   of the first
+   admission tick and of a steady decode tick, the ledger's kinds and
+   goodput ratio, each op's FLOPs, bytes, MFU and roofline ratio over
+   its launch phase's seconds;
+22. int8_infer: the serve phase's Llama-2-7B (full width and depth):
    one bf16 forward of 8 x 512 ids from seed 0, then
    ``to_int8_inference(model, inplace=True)`` and the same forward with
    the counters zeroed just before and read just after: 7 x layers + 1
@@ -292,7 +323,7 @@ Phases, in order; any failure exits non-zero:
    and the largest relative logit
    error against bf16, ms per forward and tokens/s for both, peak memory,
    a profile of one forward of each;
-22. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
+23. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
    f32 moments, one fixed 8 x 1024 batch from seed 0: 2 warm-up steps,
    then 10 timed with the counters zeroed just before and read just
    after (K4: 10 x layers each, K5: 10 x (2 x layers + 1) each, K6's q +
@@ -301,14 +332,14 @@ Phases, in order; any failure exits non-zero:
    fall and stay finite, gradients finite; step time, tokens/s, peak
    memory and a profile of one step (its launches, the optimizer's
    device time);
-23. train_compose: the same model, weights, batch and optimizer with rope
+24. train_compose: the same model, weights, batch and optimizer with rope
    on the composition (``ops.rope._COMPOSITION_ONLY``, set for the phase
    and restored after it): 2 warm-up steps and 5 timed, the counters
    zeroed before the first and read after the last (no K6); the 7 losses
    equal to the train phase's first 7 bit for bit (K6 is the composition
    bit for bit, forward and backward); ms per step of both phases from
    this call, and a profile of one step;
-24. train_amp: the slice's path. llama_350m at full width and depth
+25. train_amp: the slice's path. llama_350m at full width and depth
    from seed 0, ``amp.decorate(level="O2", dtype="bfloat16")`` (the rope
    tables stay f32), ``AdamW(multi_precision=True, weight_decay=0.01``
    off the norms, ``grad_clip=ClipGradByGlobalNorm(1.0))`` on the fused
@@ -325,7 +356,7 @@ Phases, in order; any failure exits non-zero:
    written into one gradient of the second: that step is skipped
    (parameters unchanged bit for bit, the optimizer not stepped) and the
    scale halves;
-25. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
+26. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
    llama_350m in bf16 at full width and depth from seed 0,
    ``AdamW(1e-4, weight_decay=0.01)``, ``nn.CrossEntropyLoss()``, a
    ``TensorDataset`` of 96 rows of 1025 seeded ids (inputs the first
@@ -334,8 +365,10 @@ Phases, in order; any failure exits non-zero:
    directory removed at the end. Run A: one uninterrupted epoch, the
    counters zeroed just before and read just after (12 x the train
    step's K4, K5 and K6 launches, the fused AdamW step 12 times, no
-   other kernel); its ms per step (median of the steps that saved no
-   checkpoint) beside the train phase's, tokens/s, peak memory, the
+   other kernel), with ``TelemetryCallback`` and a registry on the
+   supervisor (12 steps in the step histogram, 12 x 8 x 1024 tokens,
+   every checkpoint save, last good step 12); its ms per step (median
+   of the steps that saved no checkpoint) beside the train phase's, tokens/s, peak memory, the
    loader's wait a step, seconds and GB/s of every checkpoint save, the
    guarded and the plain step each ended by the loss read, the key
    split, the batch's move and a profile of one guarded step. Run B:
@@ -366,7 +399,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "opt",
           "rng", "parity", "dense_parity", "preempt_parity", "train_parity",
-          "int8_parity", "serve", "dense", "preempt", "int8_infer", "train",
+          "int8_parity", "serve", "dense", "preempt", "telemetry",
+          "int8_infer", "train",
           "train_compose", "train_amp", "fit")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
@@ -665,14 +699,24 @@ def phase_k1(torch, peak, flush, record):
     torch.cuda.empty_cache()
 
 
+def attn_costs(q, kp, bt):
+    """The port's price model of one layer's paged attention at these
+    tensors' shapes (``models.costs.AttentionCosts``, what the server's
+    cost catalog charges): the bounds of K1, K2 and K3."""
+    from paddle_tpu_torch.models.costs import AttentionCosts
+    _, pg, kvh, hd = kp.shape
+    return AttentionCosts(q.shape[-2], kvh, hd, pg, bt.shape[1],
+                          q.element_size())
+
+
 def k1_time(torch, pa, tag, q, kp, vp, bt, lengths, lens, scale, peak,
             flush, record, err):
     """K1 in bf16 beside its plain version, one SDPA call over the
     gathered masked frame (a yardstick the port never calls) and its
     bound; the 7B case (the main path's) goes into the record."""
     import torch.nn.functional as F
-    S, nh, hd = q.shape
-    _, pg, kvh, _ = kp.shape
+    nh = q.shape[1]
+    pg, kvh = kp.shape[1:3]
     T = bt.shape[1] * pg
     ms = cuda_ms(lambda: pa.paged_attention(q, kp, vp, bt, lengths, scale),
                  torch, flush=flush)
@@ -685,11 +729,7 @@ def k1_time(torch, pa, tag, q, kp, vp, bt, lengths, lens, scale, peak,
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qq, k, v, attn_mask=mask, scale=scale), torch, flush=flush)
     del k, v, mask
-    elt = q.element_size()
-    toks = sum(min(n, T) for n in lens)
-    nbytes = (2 * q.numel() * elt + 2 * toks * kvh * hd * elt
-              + sum(-(-min(n, T) // pg) for n in lens) * 4 + 4 * S)
-    flops = 4 * toks * nh * hd
+    flops, nbytes = attn_costs(q, kp, bt).k1(lens)
     bound_ms, by = bound(nbytes, flops, peak)
     split_ms, merge_ms = (profiled_ms(
         torch, lambda: pa.paged_attention(q, kp, vp, bt, lengths, scale),
@@ -802,8 +842,8 @@ def k2_time(torch, rp, tag, q, kp, vp, bt, t0, last, slots, scale, peak,
     over the gathered masked frame (a yardstick the port never calls) and
     its bound; the 7B case goes into the record."""
     import torch.nn.functional as F
-    S, C, nh, hd = q.shape
-    _, pg, kvh, _ = kp.shape
+    C, nh = q.shape[1:3]
+    pg, kvh = kp.shape[1:3]
     T = bt.shape[1] * pg
     ms = cuda_ms(lambda: rp.ragged_prefill_attention(
         q, kp, vp, bt, t0, last, scale), torch, flush=flush)
@@ -817,14 +857,7 @@ def k2_time(torch, rp, tag, q, kp, vp, bt, t0, last, slots, scale, peak,
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qq, k, v, attn_mask=mask, scale=scale), torch, flush=flush)
     del k, v, mask
-    elt = q.element_size()
-    vis = sum(sum(t + c + 1 for c in range(n)) for t, n in slots)
-    flops = 4 * vis * nh * hd
-    kv_toks = sum(t + n for t, n in slots if n)
-    takes = sum(n for _, n in slots)
-    nbytes = (takes * nh * hd * elt + q.numel() * elt
-              + 2 * kv_toks * kvh * hd * elt + 12 * S
-              + sum(-(-(t + n) // pg) for t, n in slots if n) * 4)
+    flops, nbytes = attn_costs(q, kp, bt).k2(slots, C)
     bound_ms, by = bound(nbytes, flops, peak)
     if tag == "7b":
         record["ragged_prefill"].update(
@@ -907,10 +940,13 @@ def phase_k3(torch, peak, flush, record):
                 same = all(torch.equal(out[s, :n], out2[s, :n])
                            for s, n in enumerate(rows) if n)
                 del kpn, vpn, out2
-                ok = close and idle_zero and same and repeat \
+                # the price model's page count is the schedule's
+                priced = attn_costs(q, kp, bt).k3_pages(slots) == n_live
+                ok = close and idle_zero and same and repeat and priced \
                     and torch.isfinite(out).all().item()
                 log(f"k3 {tick} {tag} {dname}: C={C} W={W} G={len(ss_np)} "
-                    f"({n_live} live pages), max_abs_err {err:.3e} (tol "
+                    f"({n_live} live pages, priced {priced}), max_abs_err "
+                    f"{err:.3e} (tol "
                     f"{TOL[dname]:.0e}), max vector-relative error "
                     f"{rel:.3e} (tol {VEC_RTOL[dname]:.0e}), idle slot "
                     f"zero {idle_zero}, second launch bitwise equal "
@@ -921,21 +957,21 @@ def phase_k3(torch, peak, flush, record):
                                      f"with its plain version")
                 if dtype == torch.bfloat16:
                     k3_time(torch, F, ft, pa, tick, tag, q, kp, vp, bt,
-                            args, slots, n_live, peak, flush, record, err)
+                            args, slots, peak, flush, record, err)
                 del q, kp, vp, bt, bt_live, out
     torch.cuda.empty_cache()
 
 
 def k3_time(torch, F, ft, pa, tick, tag, q, kp, vp, bt, args, slots,
-            n_live, peak, flush, record, err):
+            peak, flush, record, err):
     """K3 in bf16 beside its plain version, one SDPA call over the
     gathered masked frame (a yardstick the port never calls) and its
     bound; on the decode-only tick, K1 at the same lengths too. The 7B
     ticks (the main path's) go into the record: the admission tick's
     as the kernel's numbers, the decode-only tick's beside them."""
-    bt_live, t0, last, dec, ss, sp, scale = args
-    S, C, nh, hd = q.shape
-    _, pg, kvh, _ = kp.shape
+    bt_live, t0, last, dec, _, _, scale = args
+    C, nh = q.shape[1:3]
+    kvh = kp.shape[2]
     ms = cuda_ms(lambda: ft.fused_tick_attention(q, kp, vp, *args), torch,
                  flush=flush)
     plain_ms = cuda_ms(lambda: ft._ref_fused_tick(
@@ -950,18 +986,12 @@ def k3_time(torch, F, ft, pa, tick, tag, q, kp, vp, bt, args, slots,
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qq, k, v, attn_mask=mask, scale=scale), torch, flush=flush)
     del k, v, mask
-    elt = q.element_size()
-    vis = sum(t + 1 if d else sum(t + c + 1 for c in range(n))
-              for t, n, d in slots if n)
-    flops = 4 * vis * nh * hd
     # q: the live rows only (rows past a take, and rows 1.. of a decode
     # slot, need not be read); out: every row, as the contract writes
     # them (finite values past a take, zeros for an idle slot); K/V: the
     # scheduled pages; int32: their block-table and schedule entries, t0
     # and last
-    live_rows = sum(1 if d else n for _, n, d in slots)
-    nbytes = (live_rows * nh * hd * elt + q.numel() * elt
-              + 2 * n_live * pg * kvh * hd * elt + 4 * (3 * n_live + 2 * S))
+    flops, nbytes = attn_costs(q, kp, bt).k3(slots, C)
     bound_ms, by = bound(nbytes, flops, peak)
     names = K3_KERNELS[:2] if tick == "decode" else K3_KERNELS[2:]
     seen = []
@@ -4087,6 +4117,426 @@ def phase_int8_parity(torch, np):
                          "and K6's q + k launch once a layer")
 
 
+# -------------------------------------------------------------- telemetry
+
+
+def bucket_of(x, bounds):
+    """Index of the histogram bucket holding ``x`` (upper bounds
+    inclusive, ``len(bounds)`` for +Inf)."""
+    for i, b in enumerate(bounds):
+        if x <= b:
+            return i
+    return len(bounds)
+
+
+def hist_median_bucket(cum):
+    """The bucket index of the lower median sample of cumulative bucket
+    counts ``cum``."""
+    half = cum[-1] / 2
+    for i, c in enumerate(cum):
+        if c >= half:
+            return i
+    return len(cum) - 1
+
+
+def median_in_bucket(lows, highs, cum, bounds):
+    """Whether the histogram's median bucket (cumulative counts ``cum``)
+    holds the smoke's own median of the same quantity. The smoke reads
+    the clock around the server's reads (a submit before and after it, a
+    token's tick at its start and at its callback), so each request's
+    value lies in [lows[i], highs[i]], and the lower median in the
+    buckets from the lows' lower median's to the highs'."""
+    k = (len(lows) - 1) // 2
+    got = hist_median_bucket(cum)
+    return bucket_of(sorted(lows)[k], bounds) <= got \
+        <= bucket_of(sorted(highs)[k], bounds)
+
+
+def telemetry_wave(torch, srv, prompts, n_new, warm, tele=None):
+    """``serve_timed``'s wave, tick by tick, with each tick's ledger held
+    to the rows its launches ran (the server's ``device_rows``, counted
+    from the host arrays it packs; masked page reads: none on the card)
+    and each tick's roofline ratio read, when ``tele`` carries the
+    server's telemetry objects. Its wall time is the time spent in the
+    server's ``submit`` and ``step`` calls, so the readings between ticks
+    are not charged to it. Returns serve_timed's metrics and the
+    telemetry readings."""
+    srv.submit(warm, max_new_tokens=2)
+    srv.run()
+    first_at, last_at, first_tick, last_tick = {}, {}, {}, {}
+    tick_start = [0.0]
+
+    def on_token(rid, toks):
+        now = time.perf_counter()
+        if rid not in first_at:
+            first_at[rid], first_tick[rid] = now, tick_start[0]
+        last_at[rid], last_tick[rid] = now, tick_start[0]
+
+    led = cat = None
+    if tele is not None:
+        led, cat = srv.ledger, srv.costs
+        led0, ops0 = led.totals(), cat.totals()
+        hists = ("serving_ttft_seconds", "serving_tpot_seconds")
+        hist0 = {k: tele.registry.snapshot()[k]["samples"][()]
+                 for k in hists}
+        n_ev0 = len(srv.recorder.events(kind="tick"))
+    zero_counts()
+    s0 = dict(srv.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    submitted, around = {}, {}
+    for p in prompts:
+        before = time.perf_counter()
+        rid = srv.submit(p, max_new_tokens=n_new, on_token=on_token)
+        submitted[rid] = time.perf_counter()
+        around[rid] = (before, submitted[rid])
+    wall = time.perf_counter() - t0
+    ticks, decode_only_ms = 0, []
+    unconserved, rooflines = [], []
+    while srv.queue_depth() or srv.in_flight():
+        before = srv.stats["prefill_tokens"]
+        rows0 = srv.stats["device_rows"]
+        n_led = led.ticks if led is not None else 0
+        ts = tick_start[0] = time.perf_counter()
+        srv.step()
+        dt = time.perf_counter() - ts
+        wall += dt
+        ticks += 1
+        if srv.stats["prefill_tokens"] == before:
+            decode_only_ms.append(dt * 1e3)
+        if led is not None:
+            tick = led.snapshot()["last_tick"] if led.ticks > n_led \
+                else {}
+            rows = srv.stats["device_rows"] - rows0
+            if sum(tick.values()) != rows:
+                unconserved.append((ticks, dict(tick), rows))
+            rooflines.append(cat.snapshot()["roofline_ratio"])
+    out = srv.run()
+    counts = read_counts()
+    d = {k: srv.stats[k] - s0[k] for k in ("decode_ticks", "decode_steps",
+                                            "prefill_launches",
+                                            "fused_launches",
+                                            "fused_passes",
+                                            "sample_launches",
+                                            "prefill_tokens")}
+    pool = srv.pool_balance()
+    ttft = sorted((first_at[r] - submitted[r]) for r in submitted)
+    tpot = sorted((last_at[r] - first_at[r]) / (n_new - 1)
+                  for r in submitted)
+    decode_only_ms.sort()
+    r = {"tokens": [out[r] for r in submitted], "counts": counts,
+         "ticks": ticks, "wall": wall,
+         "tok_s": len(prompts) * n_new / wall,
+         "decode_ms": decode_only_ms[len(decode_only_ms) // 2]
+         if decode_only_ms else float("nan"),
+         "ttft_med": ttft[len(ttft) // 2], "tpot_med": tpot[len(tpot) // 2],
+         # each request's server-side value lies between these bounds
+         "ttft_bounds": ([first_tick[r] - around[r][1] for r in submitted],
+                         [first_at[r] - around[r][0] for r in submitted]),
+         "tpot_bounds": ([(last_tick[r] - first_at[r]) / (n_new - 1)
+                          for r in submitted],
+                         [(last_at[r] - first_tick[r]) / (n_new - 1)
+                          for r in submitted]),
+         "bad": srv.stats["nonfinite_logit_rows"],
+         "pool": None if pool is None else tuple(pool), **d}
+    if led is not None:
+        led1 = led.totals()
+        r["ledger"] = {k: led1.get(k, 0) - led0.get(k, 0)
+                       for k in set(led1) | set(led0)}
+        ops1 = cat.totals()
+        r["ops"] = {op: {k: v[k] - ops0.get(op, {}).get(k, 0) for k in v}
+                    for op, v in ops1.items()}
+        r["unconserved"] = unconserved
+        r["rooflines"] = [x for x in rooflines if x is not None]
+        r["tick_events"] = srv.recorder.events(kind="tick")[n_ev0:]
+        r["hist"] = {}
+        for k, snap0 in hist0.items():
+            snap1 = tele.registry.snapshot()[k]["samples"][()]
+            cum = [c1 - c0 for (_, c1), (_, c0) in zip(snap1["buckets"],
+                                                     snap0["buckets"])]
+            r["hist"][k] = (snap1["count"] - snap0["count"], cum)
+    return r
+
+
+def phase_telemetry(torch, np, card, peak, record, model, serve_res):
+    """The port's telemetry wired into the 7B server (the serve phase's
+    model and prompts, or a new model from seed 0): for each mode three
+    waves off and three on, interleaved, and a sampled fused wave on,
+    each gated (tokens and launches of every wave equal its mode's first
+    "off" wave's; the
+    ledger conserves each tick's rows; goodput = prompt rows + decode
+    rows; TTFT and TPOT histograms against the smoke's own medians; the
+    catalog's roofline ratio <= 1.05 every tick); then ``/metrics`` and
+    ``/stats`` scraped from ``serve_metrics`` during a ``start()`` wave,
+    a postmortem from an injected prefill fault, and the tracer's spans
+    inside a torch.profiler trace."""
+    import gc
+    import json as _json
+    import statistics
+    import urllib.request
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import telemetry as tt
+    from paddle_tpu_torch.inference import (ContinuousBatchingServer,
+                                            serve_metrics)
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+    from paddle_tpu_torch.reliability import FaultInjector
+    from paddle_tpu_torch.telemetry.costs import TICK_PHASES
+    from paddle_tpu_torch.telemetry.metrics import DEFAULT_BUCKETS
+    from paddle_tpu_torch.telemetry.serving import TPOT_BUCKETS
+    cfg = llama2_7b()
+    L = cfg.num_layers
+    if model is None:
+        model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                                 seed=0)
+    rng = np.random.default_rng(0)                 # the serve phase's
+    lens = rng.integers(128, 1025, size=8)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+               for n in lens]
+    warm = rng.integers(0, cfg.vocab_size, (40,)).astype(np.int32)
+    n_new = 32
+    t_phase = time.perf_counter()
+
+    def server(mode, on, sample=False, **extra):
+        kw = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.95) \
+            if sample else {}
+        tele = None
+        if on:
+            tele = tt.ServerTelemetry()
+            kw.update(telemetry=tele, recorder=True, ledger=True,
+                      journeys=True, costs=tt.CostCatalog(
+                          registry=tele.registry, peak_flops=peak[1],
+                          peak_hbm_bytes_per_s=peak[0]))
+        kw.update(extra)
+        return ContinuousBatchingServer(model, max_slots=8,
+                                        max_cache_len=2048, page_size=16,
+                                        cache_backend="paged",
+                                        prefill_tokens_per_tick=512,
+                                        serving_mode=mode, **kw), tele
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def gate(wave, srv, tele, r, mode, on, sample, detail):
+        """The wave's gates into ``checks``; with ``detail``, its ledger,
+        costs and phase split printed too."""
+        c = r["counts"]
+        log(f"telemetry {wave} [{card}]: {r['ticks']} ticks, "
+            f"{r['tok_s']:.1f} tok/s, median decode-only tick "
+            f"{r['decode_ms']:.2f} ms, TTFT median {r['ttft_med'] * 1e3:.1f}"
+            f" ms, TPOT median {r['tpot_med'] * 1e3:.2f} ms, launches k1 "
+            f"{c['k1']} k2 {c['k2']} k3 {c['k3']} r1 {c['r1']}")
+        if mode == "split":
+            launch = c["k1"] == r["decode_ticks"] * L > 0 and \
+                c["k2"] == r["prefill_launches"] * L > 0 and c["k3"] == 0
+        else:
+            launch = c["k3"] == r["fused_passes"] * L > 0 and \
+                c["k1"] == c["k2"] == 0
+        launch &= (c["r1"] == r["fused_launches"]) if sample \
+            else c["r1"] == 0
+        checks[f"{wave}: serve's launch gates"] = launch and \
+            c["k6"] == c["k6_qk"] == c["r2_dropout"] == c["r2_fill"] == 0
+        checks[f"{wave}: 32 tokens each, finite logits, pool drained"] = \
+            all(len(t) == n_new for t in r["tokens"]) and r["bad"] == 0 \
+            and r["pool"][1] == 0
+        if not on:
+            return
+        led = r["ledger"]
+        want_good = int(sum(lens)) + len(prompts) * (n_new - 1)
+        checks[f"{wave}: the ledger conserves every tick's rows"] = \
+            not r["unconserved"]
+        checks[f"{wave}: goodput == prompt rows + 8 x 31 decode rows "
+               f"({want_good})"] = led.get("goodput") == want_good
+        checks[f"{wave}: no masked page read charged on the card"] = \
+            led.get("skipped_page_dma", 0) == 0
+        nt, ht = r["hist"]["serving_ttft_seconds"]
+        np_, hp = r["hist"]["serving_tpot_seconds"]
+        checks[f"{wave}: TTFT and TPOT histograms count 8 requests"] = \
+            nt == np_ == len(prompts)
+        checks[f"{wave}: TTFT median in the smoke's own median's bucket"] \
+            = median_in_bucket(*r["ttft_bounds"], ht, DEFAULT_BUCKETS)
+        checks[f"{wave}: TPOT median in the smoke's own median's bucket"] \
+            = median_in_bucket(*r["tpot_bounds"], hp, TPOT_BUCKETS)
+        roof = max(r["rooflines"]) if r["rooflines"] else None
+        checks[f"{wave}: roofline ratio <= 1.05 on every tick"] = \
+            roof is not None and roof <= 1.05
+        if not detail:
+            return
+        log(f"telemetry {wave} ledger [{card}]: {led}, goodput ratio "
+            f"{led.get('goodput', 0) / sum(led.values()):.4f}; ticks not "
+            f"conserved {r['unconserved'][:3]}")
+        decode_tok = tele.registry.get("serving_tokens_total") \
+            .labels(kind="decode").value
+        cost = srv.device_costs()
+        log(f"telemetry {wave} costs [{card}]: roofline ratio max {roof}, "
+            f"decode tokens counted {decode_tok}, compiles "
+            f"{cost['compiles']}, recompiles {cost['recompiles']}, price "
+            f"errors {cost['price_errors']}")
+        phases = {}
+        for ev in r["tick_events"]:
+            for ph, sec in ev.get("phases", {}).items():
+                phases[ph] = phases.get(ph, 0.0) + sec
+        for op, v in r["ops"].items():
+            ph = {"prefill": "prefill_launch", "decode": "decode_launch",
+                  "fused": "fused_launch"}.get(op)
+            sec = phases.get(ph) if ph else None
+            extra = ""
+            if sec and v["flops"]:
+                mfu = v["flops"] / sec / peak[1]
+                ratio = max(mfu, v["hbm_bytes"] / sec / peak[0])
+                extra = (f", over its {ph} seconds {sec:.4f}: MFU "
+                         f"{mfu:.4f}, roofline {ratio:.4f}")
+            log(f"  op {op}: {v['dispatches']} dispatches, "
+                f"{v['flops']:.4e} FLOPs, {v['hbm_bytes']:.4e} bytes{extra}")
+        ticks_ev = [e for e in r["tick_events"] if "phases" in e]
+        admit = ticks_ev[0] if ticks_ev else None
+        steady = [e for e in ticks_ev
+                  if set(e["dispatches"]) <= {"decode", "fused",
+                                              "block_table"}
+                  and e["active"] == 8]
+        for tag, ev in (("first admission tick", admit),
+                        ("a steady decode tick", steady[len(steady) // 2]
+                         if steady else None)):
+            if ev is not None:
+                log(f"  phase split of {tag} (ms): " + ", ".join(
+                    f"{p} {ev['phases'][p] * 1e3:.3f}" for p in TICK_PHASES
+                    if p in ev["phases"]))
+
+    # each mode's waves without telemetry and with it, interleaved
+    # off-on, on-off, off-on so that drift over the phase falls on both
+    # alike; a new server each wave (a server's prefix cache would give
+    # a later wave's prompts hits)
+    checks, res = {}, {}
+    for mode in ("split", "fused"):
+        for o in ("off", "on", "on", "off", "off", "on"):
+            srv, tele = server(mode, o == "on")
+            r = telemetry_wave(torch, srv, prompts, n_new, warm, tele)
+            waves = res.setdefault(f"{mode} {o}", [])
+            waves.append(r)
+            gate(f"{mode} {o} {len(waves)}", srv, tele, r, mode, o == "on",
+                 False, o == "on" and len(waves) == 1)
+            del srv, tele
+            release()
+        off, on = res[f"{mode} off"], res[f"{mode} on"]
+        want = off[0]["tokens"]
+        same = min(sum(int((a == b).sum()) for a, b in zip(w["tokens"],
+                                                          want))
+                   for w in off[1:] + on)
+        checks[f"{mode}: every wave's tokens == the first off wave's "
+               f"(least {same} of {len(prompts) * n_new})"] = \
+            same == len(prompts) * n_new
+        keys = ("k1", "k2", "k3", "r1")
+        checks[f"{mode}: every wave's launches == the first off wave's"] = \
+            all({k: w["counts"][k] for k in keys}
+                == {k: off[0]["counts"][k] for k in keys}
+                for w in off[1:] + on)
+        med = statistics.median
+        log(f"telemetry {mode} on against off [{card}], waves in the order "
+            f"off on on off off on: tok/s on "
+            f"{[round(w['tok_s'], 1) for w in on]} off "
+            f"{[round(w['tok_s'], 1) for w in off]} (medians "
+            f"{med([w['tok_s'] for w in on]):.1f} / "
+            f"{med([w['tok_s'] for w in off]):.1f}); median decode-only tick "
+            f"on {[round(w['decode_ms'], 2) for w in on]} off "
+            f"{[round(w['decode_ms'], 2) for w in off]} ms (medians "
+            f"{med([w['decode_ms'] for w in on]):.2f} / "
+            f"{med([w['decode_ms'] for w in off]):.2f} ms)")
+    srv, tele = server("fused", True, True)
+    r = telemetry_wave(torch, srv, prompts, n_new, warm, tele)
+    res["sampled fused on"] = [r]
+    gate("sampled fused on", srv, tele, r, "fused", True, True, True)
+    del srv, tele
+    release()
+    if serve_res is not None:
+        ref = serve_res["sampled fused"][0]["tokens"]
+        same = sum(int((a == b).sum()) for a, b in
+                   zip(res["sampled fused on"][0]["tokens"], ref))
+        checks[f"sampled fused on tokens == the serve phase's ({same} of "
+               f"{len(prompts) * n_new})"] = same == len(prompts) * n_new
+    for name, wave, key in (("paged_attention", "split on", "k1"),
+                            ("ragged_prefill", "split on", "k2"),
+                            ("fused_tick", "fused on", "k3"),
+                            ("sample_rows", "sampled fused on", "r1")):
+        record[name]["telemetry_launches"] = res[wave][0]["counts"][key]
+
+    # /metrics and /stats from serve_metrics during a start() wave
+    srv, tele = server("fused", True)
+    ms = serve_metrics(srv)
+    try:
+        srv.start()
+        rids = [srv.submit(p, max_new_tokens=n_new) for p in prompts]
+        while srv.stats["admissions"] < len(prompts):
+            time.sleep(0.05)
+        with urllib.request.urlopen(ms.url + "/metrics", timeout=30) as f:
+            page = f.read().decode()
+        with urllib.request.urlopen(ms.url + "/stats", timeout=30) as f:
+            stats = _json.loads(f.read().decode())
+        outs = [srv.wait(r, timeout=300) for r in rids]
+        srv.stop(drain=True)
+    finally:
+        ms.close()
+    parsed = tt.parse_prometheus(page)
+    checks["/metrics parses, with serving and cost samples"] = \
+        any(k[0] == "serving_ttft_seconds_count" for k in parsed) and \
+        any(k[0] == "server_flops_total" for k in parsed)
+    checks["/stats carries goodput and costs"] = \
+        "goodput" in stats["stats"] and "costs" in stats["stats"]
+    checks["the start() wave's tokens == the fused on wave's"] = all(
+        np.array_equal(a, b) for a, b in zip(outs,
+                                             res["fused on"][0]["tokens"]))
+    log(f"telemetry exposition: {len(parsed)} samples on /metrics "
+        f"({len(page)} bytes), /stats keys {sorted(stats['stats'])[:40]}")
+    del srv
+    release()
+
+    # a postmortem from a request failed by an injected prefill fault
+    fi = FaultInjector(seed=0).on("server.prefill", schedule=[0])
+    srv, _ = server("split", True, fault_injector=fi)
+    bad = srv.submit(prompts[0], max_new_tokens=4)
+    good = srv.submit(prompts[1], max_new_tokens=4)
+    out = srv.run()
+    pms = srv.postmortems()
+    bal = pms[0]["pool_balance"] if pms else {}
+    checks["one postmortem from the failed request, its pool balance "
+           "adds up"] = \
+        len(pms) == 1 and pms[0]["reason"] == "request_failed" and \
+        bad in srv.failures and good in out and \
+        bal["free"] + bal["live"] + bal["pinned"] + bal["cached"] == \
+        srv._kv.num_pages - 1
+    log(f"telemetry postmortem: reason {pms[0]['reason'] if pms else None}"
+        f", pool balance {bal}, sections {sorted(pms[0]) if pms else []}")
+    del srv
+    release()
+
+    # the tracer's spans inside a torch.profiler trace: one request's
+    # admission tick and its decode tick
+    tele = tt.ServerTelemetry(tracer=tt.Tracer(annotate=True))
+    srv = ContinuousBatchingServer(model, max_slots=8, max_cache_len=2048,
+                                   page_size=16, cache_backend="paged",
+                                   telemetry=tele)
+    srv.submit(warm, max_new_tokens=2)
+    srv.run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        srv.submit(prompts[2], max_new_tokens=2)
+        srv.run()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    spans = {"request.queued", "request.prefill", "request.decode"}
+    checks["the server's spans are among the profiler's events"] = \
+        spans <= names
+    log(f"telemetry trace: spans {sorted(spans & names)} of "
+        f"{sorted(spans)} among {len(names)} profiler event names")
+    del srv
+    release()
+    log(f"telemetry: phase {time.perf_counter() - t_phase:.1f} s wall; "
+        f"checks {checks}")
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"telemetry: check failed: {name}")
+    return model
+
+
 def phase_int8_infer(torch, np, card, record, model):
     """Llama-2-7B bf16 (the serve phase's model, or a new one from seed
     0), then converted in place to int8: one forward each of 8 x 512 ids
@@ -4602,6 +5052,7 @@ def phase_fit(torch, np, card, record, train):
     from paddle_tpu_torch.ops.kernels import rope as rk
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.reliability import TrainSupervisor
+    from paddle_tpu_torch.telemetry import MetricRegistry, TelemetryCallback
     cfg = llama_350m()
     L, B, S, N = cfg.num_layers, 8, 1024, 96
     steps = N // B
@@ -4618,12 +5069,12 @@ def phase_fit(torch, np, card, record, train):
                             weight_decay=0.01),
             loss=loss or CrossEntropyLoss())
 
-    def run(model, sup, rec, ds=data):
+    def run(model, sup, rec, ds=data, extra=()):
         zero_counts()
         vector = rk.rope_qk_fwd.route_launches["vector"]
         t0 = time.perf_counter()
         model.fit(ds, batch_size=B, epochs=1, verbose=0, num_workers=2,
-                  callbacks=[rec], supervisor=sup)
+                  callbacks=[rec, *extra], supervisor=sup)
         torch.cuda.synchronize()
         counts = read_counts()
         counts["k6_qk_vector"] = \
@@ -4646,15 +5097,33 @@ def phase_fit(torch, np, card, record, train):
     checks = {}
     t_phase = time.perf_counter()
     try:
-        # A: the uninterrupted run, the counters zeroed just before
+        # A: the uninterrupted run, the counters zeroed just before, with
+        # the telemetry callback and a registry on the supervisor (and
+        # its checkpoint store)
         saves = []
         model = make()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         rec_a = FitRecorder()
+        reg = MetricRegistry()
         counts, wall_a = run(model, timed_store(TrainSupervisor(
-            os.path.join(root, "a"), save_interval_steps=6, max_to_keep=1),
-            saves), rec_a)
+            os.path.join(root, "a"), save_interval_steps=6, max_to_keep=1,
+            registry=reg), saves), rec_a,
+            extra=[TelemetryCallback(reg, tokens_per_batch=B * S)])
+        snap = reg.snapshot()
+        tel = {"steps": snap["train_step_seconds"]["samples"][()]["count"],
+               "steps_total": snap["train_steps_total"]["samples"][()],
+               "tokens_total": snap["train_tokens_total"]["samples"][()],
+               "saves": snap["ckpt_save_seconds"]["samples"][()]["count"],
+               "last_good": snap["ckpt_last_good_step"]["samples"][()],
+               "loss": snap["train_loss"]["samples"][()],
+               "tokens_s": snap["train_throughput"]["samples"][()]}
+        log(f"fit A telemetry [{card}]: {tel}")
+        checks["A: the step histogram counts 12 steps, the registry every "
+               "checkpoint save, the last good step 12"] = \
+            tel["steps"] == tel["steps_total"] == steps and \
+            tel["tokens_total"] == steps * B * S and \
+            tel["saves"] == len(saves) > 0 and tel["last_good"] == steps
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         checks["A: launches == 12 x the train step's, fused step 12"] = \
             launched("A", counts, steps, steps)
@@ -5029,6 +5498,10 @@ def main():
     if "preempt" in phases:
         torch.cuda.empty_cache()
         model_7b = phase_preempt(torch, np, card, record, model_7b)
+    if "telemetry" in phases:
+        torch.cuda.empty_cache()
+        model_7b = phase_telemetry(torch, np, card, peak, record, model_7b,
+                                   serve_res)
     if "int8_infer" in phases:
         phase_int8_infer(torch, np, card, record, model_7b)
     del model_7b

@@ -1,9 +1,9 @@
 """hapi callbacks (reference python/paddle/hapi/callbacks.py).
 
-Port of ``paddle_tpu/hapi/callbacks.py`` (framework-free). The
-reference's ``TelemetryCallback`` (step time, loss and tokens per second
-into a telemetry registry) raises ``NotImplementedError`` until the
-port has a registry (ROADMAP Queue 1 item 8).
+Port of ``paddle_tpu/hapi/callbacks.py`` (framework-free).
+``TelemetryCallback`` (step time, loss and tokens per second into a
+telemetry registry) lives in ``telemetry.training`` and is re-exported
+here, as in the reference.
 """
 import time
 
@@ -247,8 +247,7 @@ class WandbCallback(Callback):
             self._run.finish()
 
 
-class TelemetryCallback(Callback):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "hapi.callbacks.TelemetryCallback: the telemetry registry is "
-            "not ported yet (ROADMAP Queue 1 item 8)")
+# telemetry bridge (step time / loss / tokens-per-second into a
+# MetricRegistry); lives in telemetry.training, duck-typed against the
+# Callback protocol so the import direction stays telemetry -> nothing
+from ..telemetry.training import TelemetryCallback  # noqa: E402,F401

@@ -76,6 +76,20 @@ retried with backoff; after ``breaker.failure_threshold`` failures in a
 row every waiter is failed with ``CircuitOpenError`` and ``health``
 goes ``degraded`` until a probe tick passes).
 
+Telemetry (``paddle_tpu_torch.telemetry``), each option off by default
+(``None``: every hook site costs one ``is None`` check, no lock and no
+clock read; a disabled object is treated as ``None``; ``True`` builds a
+default one): ``telemetry`` (``ServerTelemetry``: TTFT, TPOT, queue
+wait, tick and dispatch histograms, pool gauges, request spans),
+``recorder`` (``FlightRecorder``: an event ring and postmortem bundles,
+one on every request failure and breaker open), ``ledger``
+(``GoodputLedger``: each tick's device tokens by kind), ``costs``
+(``CostCatalog``: each launch priced by ``models.costs``' analytic
+model, the compile watch over static tick shapes, the tick's wall by
+phase, MFU) and ``journeys`` (``JourneyRecorder``: per-request
+timelines, ``journey(rid)``), as the JAX server wires them.
+``inference.serving.serve_metrics(srv)`` serves them over HTTP.
+
 Host/device split: the device runs the steps (``models.generation``; the
 paged-attention, ragged-prefill and fused-tick kernels on a CUDA model,
 dense attention in plain torch);
@@ -84,10 +98,9 @@ cache (``kv_cache``, ``prefix_cache``), harvests finished rows and swaps
 new prompts in.
 
 The JAX server's other modes are not ported yet. Asking for one raises
-``NotImplementedError`` naming its ROADMAP item (Queue 1): telemetry,
-flight recorder, goodput ledger, cost catalog and journeys (item 8),
-the mesh and the host KV tier (item 9), int8 weights and caches (item
-10).
+``NotImplementedError`` naming its ROADMAP item (Queue 1): the mesh, the
+host KV tier and the fleet's migration surface (item 9), int8 weights
+and caches (item 10).
 """
 import threading
 import time as _time_mod
@@ -124,10 +137,10 @@ class _Pending:
     """A queued request awaiting a slot."""
 
     __slots__ = ("rid", "ids", "budget", "on_token", "deadline", "seed",
-                 "priority")
+                 "priority", "journey")
 
     def __init__(self, rid, ids, budget, on_token, deadline, seed,
-                 priority=0):
+                 priority=0, journey=None):
         self.rid = rid
         self.ids = ids
         self.budget = budget
@@ -135,12 +148,14 @@ class _Pending:
         self.deadline = deadline      # absolute clock time, or None
         self.seed = seed              # resolved sampling seed (a Python int)
         self.priority = priority      # higher = preempted later
+        self.journey = journey        # telemetry.Journey handle, or None
 
 
 class _Slot:
     __slots__ = ("rid", "ids", "prompt_len", "budget", "emitted",
                  "on_token", "streamed", "deadline", "fill_pos", "filled",
-                 "seed", "priority", "preempts", "replayed")
+                 "seed", "priority", "preempts", "replayed", "journey",
+                 "n_pre", "phase", "reprefill_upto")
 
     def __init__(self, rid, ids, prompt_len, budget, on_token=None,
                  deadline=None, seed=0):
@@ -163,6 +178,12 @@ class _Slot:
         # mid-replay must not hand the waiter fewer tokens than its
         # on_token stream already delivered
         self.replayed = ()
+        self.journey = None           # telemetry.Journey handle, or None
+        self.n_pre = 0                # prompt tokens a prefix hit covered
+        self.phase = "decode"         # "prefill" while chunks remain
+        # the goodput ledger's registered-prefix tail: prompt rows below
+        # this that a ragged prefill launches re-prefill registered state
+        self.reprefill_upto = 0
 
     def partial(self):
         """The request's current partial output: the tokens replayed
@@ -198,7 +219,7 @@ class _Preempted:
     decode resumes."""
 
     __slots__ = ("rid", "ids", "budget", "seed", "on_token", "deadline",
-                 "priority", "emitted", "streamed", "preempts")
+                 "priority", "emitted", "streamed", "preempts", "journey")
 
     def __init__(self, st):
         self.rid = st.rid
@@ -211,6 +232,7 @@ class _Preempted:
         self.emitted = list(st.partial())
         self.streamed = st.streamed
         self.preempts = st.preempts + 1
+        self.journey = st.journey
 
 
 class PreemptionPolicy:
@@ -297,7 +319,11 @@ class ContinuousBatchingServer:
     request's time, ``max_queue`` + ``shed_policy`` bound the queue,
     ``fault_injector`` arms the chaos points, and
     ``start()``/``wait()``/``stop()`` serve from a supervised background
-    thread (``retry_policy``, ``breaker``; ``health``).
+    thread (``retry_policy``, ``breaker``; ``health``). ``telemetry``,
+    ``recorder``, ``ledger``, ``costs`` and ``journeys`` wire the
+    telemetry objects of ``paddle_tpu_torch.telemetry`` in (module
+    docstring); ``goodput()``, ``device_costs()``, ``utilization()``,
+    ``postmortems()`` and ``journey(rid)`` read them.
     """
 
     def __init__(self, model, max_slots=4, max_cache_len=256,
@@ -377,11 +403,6 @@ class ContinuousBatchingServer:
                     "per slot, the verify shape of speculative decoding "
                     "(ROADMAP, Queue 1 item 12: remaining inference "
                     "modules); use tick_block=1 or serving_mode='split'")
-        for name, value in (("telemetry", telemetry),
-                            ("recorder", recorder), ("ledger", ledger),
-                            ("journeys", journeys), ("costs", costs)):
-            if value is not None:
-                raise _not_ported(f"{name}=", 8, "telemetry")
         if mesh is not None:
             raise _not_ported("mesh=", 9, "the fleet")
         if host_tier is not None or host_tier_bytes is not None:
@@ -517,10 +538,79 @@ class ContinuousBatchingServer:
                       "block_waste_tokens": 0,
                       # seeded draws (one R1 launch on the card each)
                       "sample_launches": 0,
+                      # rows the launches ran, from the host arrays they
+                      # were packed from: a prefill launch's rows (C a
+                      # participating slot; a dense segment's chunks), a
+                      # decode step's slots, a fused pass's live rows.
+                      # The goodput ledger's tokens less its masked page
+                      # reads
+                      "device_rows": 0,
                       # admission="optimistic" accounting
                       "preemptions": 0, "preempt_resumed": 0,
                       "grow_pages": 0, "headroom_pages": 0}
-        self._clock = clock if clock is not None else MonotonicClock()
+        # telemetry (``telemetry.ServerTelemetry``): True builds a
+        # default-enabled one; None (default) or a disabled one keeps
+        # every hook site at a single attribute check — no locks, no
+        # clock reads
+        if telemetry is True:
+            from ..telemetry import ServerTelemetry
+            telemetry = ServerTelemetry()
+        self.telemetry = telemetry
+        self._tele = telemetry if (telemetry is not None
+                                   and telemetry.enabled) else None
+        # one time base for everything (events must correlate with
+        # spans and deadlines in a postmortem, and FakeClock tests need
+        # determinism): explicit clock > telemetry's > monotonic
+        self._clock = clock if clock is not None else (
+            telemetry.clock if self._tele is not None else MonotonicClock())
+        # flight recorder: structured event ring + postmortem bundles
+        if recorder is True:
+            from ..telemetry import FlightRecorder
+            recorder = FlightRecorder(clock=self._clock)
+        self.recorder = recorder
+        self._rec = recorder if (recorder is not None
+                                 and recorder.enabled) else None
+        # goodput ledger: each tick's device tokens by kind (it never
+        # reads a clock)
+        if ledger is True:
+            from ..telemetry import GoodputLedger
+            ledger = GoodputLedger(
+                registry=self._tele.registry
+                if self._tele is not None else None)
+        self.ledger = ledger
+        self._led = ledger if (ledger is not None
+                               and ledger.enabled) else None
+        # device-cost catalog + compile watch: each launch priced by the
+        # model's analytic cost model (``models.costs``), the tick's
+        # wall split into phases
+        if costs is True:
+            from ..telemetry import CostCatalog
+            costs = CostCatalog(
+                registry=self._tele.registry
+                if self._tele is not None else None, clock=self._clock)
+        self.costs = costs
+        self._costs = costs if (costs is not None
+                                and costs.enabled) else None
+        self._phase_timer = None    # per-tick, set by _step_locked
+        self._decode_prog = None    # priced decode program (static shapes)
+        self._price = None          # the launches' price model, or None
+        self._t_host = None         # host mirror of the decode positions
+        if self._costs is not None and self._kv is not None:
+            from ..models.costs import serving_costs
+            self._price = serving_costs(
+                model, self._caches["pool"]["k"].element_size(),
+                self.page_size, self._kv.pages_per_slot, self.max_slots)
+            # the decode step's keys are t + 1 a slot, idle slots too
+            # (their positions keep stepping); prices read this mirror
+            self._t_host = np.zeros((self.max_slots,), np.int64)
+        # journeys for a STANDALONE server: submit() mints "s<rid>"
+        # journeys when no handle arrives through submit(journey=)
+        if journeys is True:
+            from ..telemetry import JourneyRecorder
+            journeys = JourneyRecorder(clock=self._clock)
+        self.journeys = journeys
+        self._jrec = journeys if (journeys is not None
+                                  and journeys.enabled) else None
         self._tick_disp = {}      # this tick's {op: dispatches}
         self._failures = {}       # rid -> exception, for wait()
         self._run_failures = {}   # last run()'s drained failures
@@ -533,10 +623,22 @@ class ContinuousBatchingServer:
         self._max_queue = None if max_queue is None else int(max_queue)
         self._shed_policy = shed_policy
         self._faults = fault_injector
+        if fault_injector is not None:
+            # chaos storms become VISIBLE: fires publish to this
+            # server's registry and land in its flight recorder (an
+            # injector shared across servers keeps the first recorder
+            # it was given)
+            if self._tele is not None:
+                fault_injector.publish_to(self._tele.registry)
+            if self._rec is not None \
+                    and getattr(fault_injector, "recorder", None) is None:
+                fault_injector.recorder = self._rec
         self._sup = ServeSupervisor(retry=retry_policy, breaker=breaker)
-        self._health = HealthMonitor()
+        self._health = HealthMonitor(on_change=self._publish_health)
         self._accepting = True    # False while draining / after stop
         self._draining = False
+        if self._tele is not None:
+            self._tele.set_health(HEALTHY)
 
     # ------------------------------------------------------ prefix cache
     def register_prefix(self, prefix_ids):
@@ -591,6 +693,8 @@ class ContinuousBatchingServer:
             logits, caches1 = self.model._run_prefill(
                 self._bundle, ids[None], chunk=self._prefill_chunk)
             self.stats["prefill_tokens"] += T
+            if self._tele is not None:
+                self._tele.add_prefill_tokens(T)
             # ragged admission matches through the pinned pages alone:
             # a dense copy of the prefix's rows would only hold memory
             rows = None if self._ragged else {
@@ -686,9 +790,10 @@ class ContinuousBatchingServer:
         LOWEST class first, and admission prefers higher classes
         (same class: submit order). Whatever the pressure, a request's
         full extent must fit the pool on its own (checked here), so the
-        top-ranked request can always run to completion."""
-        if journey is not None:
-            raise _not_ported("submit(journey=)", 8, "telemetry")
+        top-ranked request can always run to completion. ``journey`` (a
+        ``telemetry.Journey`` handle, normally minted by a router) traces
+        the request's phases; a server built with ``journeys=`` mints its
+        own when none is given."""
         if torch.is_tensor(input_ids):
             input_ids = input_ids.detach().cpu().numpy()
         ids = np.asarray(input_ids).astype(np.int32)
@@ -752,18 +857,34 @@ class ContinuousBatchingServer:
             if (self._max_queue is not None
                     and len(self._queue) >= self._max_queue):
                 if self._shed_policy == "reject" or not self._queue:
+                    if self._tele is not None:
+                        self._tele.on_shed("reject")
                     raise QueueFullError(
                         f"queue holds {len(self._queue)} requests "
                         f"(max_queue={self._max_queue}); shed_policy="
                         f"'reject' — resubmit with backoff")
                 old = self._queue.pop(0)
-                self._failures[old.rid] = QueueFullError(
+                err = QueueFullError(
                     f"request {old.rid} evicted by a newer submit "
                     f"(queue full at max_queue={self._max_queue}, "
                     f"shed_policy='evict_oldest')")
+                self._failures[old.rid] = err
+                if self._tele is not None:
+                    self._tele.on_shed("evict_oldest")
+                    self._tele.on_admission_failure(old.rid, err)
+                self._note_request_failure_locked(old.rid, err,
+                                                  old.journey,
+                                                  bundle=False)
                 self._done_cv.notify_all()
             rid = self._next_rid
             self._next_rid += 1
+            if journey is None and self._jrec is not None:
+                # standalone server: mint this request's own journey
+                # ("s<rid>", location "server"); a handle passed in
+                # always wins
+                journey = self._jrec.begin(f"s{rid}", where="server")
+                journey.event("submitted", rid=rid,
+                              prompt_tokens=int(T))
             if seed is None:
                 seed = self._seed + rid     # the reference's default rule
             deadline = None if deadline_s is None \
@@ -772,7 +893,11 @@ class ContinuousBatchingServer:
                 self._priority_seen = True
             self._queue.append(_Pending(rid, ids, int(max_new_tokens),
                                         on_token, deadline, int(seed),
-                                        int(priority)))
+                                        int(priority), journey))
+            if self._tele is not None:
+                self._tele.on_submit(rid, T, len(self._queue))
+            if journey is not None:
+                journey.event("queued", rid=rid, prompt_tokens=int(T))
         return rid
 
     def cancel(self, rid):
@@ -785,12 +910,27 @@ class ContinuousBatchingServer:
                     del self._queue[i]
                     self._failures[rid] = RequestCancelled(
                         f"request {rid} cancelled while queued")
+                    if self._tele is not None:
+                        self._tele.on_cancel(rid)
+                        self._tele.set_queue_depth(len(self._queue))
+                    if self._rec is not None:
+                        self._rec.record("cancel", rid=rid, where="queued")
+                    if item.journey is not None:
+                        item.journey.event("cancelled")
                     self._done_cv.notify_all()
                     return True
             for slot in range(self.max_slots):
                 st = self._slots[slot]
                 if st is not None and st.rid == rid:
+                    if self._rec is not None:
+                        self._rec.record("cancel", rid=rid,
+                                         where="in_flight")
+                    if st.journey is not None:
+                        st.journey.event("cancelled")
                     self._finish_partial_locked(slot)
+                    if self._tele is not None:
+                        self._tele.on_cancel(rid)
+                        self._pool_gauges()
                     self._done_cv.notify_all()
                     return True
             for i, rec in enumerate(self._preempted):
@@ -799,7 +939,15 @@ class ContinuousBatchingServer:
                     # partial is the result (its pages were donated or
                     # freed at preemption)
                     del self._preempted[i]
+                    if self._rec is not None:
+                        self._rec.record("cancel", rid=rid,
+                                         where="preempted")
                     self._flush_parked_locked(rec)
+                    if self._tele is not None:
+                        self._tele.on_cancel(rid)
+                        self._preempt_gauge()
+                    if rec.journey is not None:
+                        rec.journey.event("cancelled")
                     self._done_cv.notify_all()
                     return True
             return False
@@ -826,11 +974,17 @@ class ContinuousBatchingServer:
             try:
                 # only prompt rows actually written are donated: a slot
                 # torn down mid-prefill caches its filled prefix only
-                self._prefix.donate(st.ids, pages,
-                                    min(st.prompt_len, st.filled),
-                                    cold=cold)
+                new = self._prefix.donate(st.ids, pages,
+                                          min(st.prompt_len, st.filled),
+                                          cold=cold)
             except Exception:
                 self._kv.release(pages)
+            else:
+                if new and self._tele is not None:
+                    self._tele.on_prefix_donate(new)
+                if new and self._rec is not None:
+                    self._rec.record("donate", rid=st.rid, pages=new,
+                                     cold=cold)
         else:
             self._kv.release(pages)
 
@@ -842,6 +996,12 @@ class ContinuousBatchingServer:
         st = self._slots[slot]
         self._results[st.rid] = np.asarray(st.partial()[:st.budget],
                                            np.int32)
+        if self._rec is not None:
+            self._rec.record("flush", rid=st.rid,
+                             tokens=len(self._results[st.rid]))
+        if st.journey is not None:
+            st.journey.event("flushed",
+                             tokens=len(self._results[st.rid]))
         self._release_slot(slot)
         return st
 
@@ -872,6 +1032,9 @@ class ContinuousBatchingServer:
         for name in ("k", "v"):
             s = self._caches["pool"][name][:, idx]
             base[name][:, 0, :n] = s.reshape(s.shape[0], n, *s.shape[3:])
+        if self._costs is not None:
+            # a read and a write of n rows of K and V, every layer
+            self._charge_transfer("page_gather", 2 * n * self._row_nbytes())
         return base
 
     def _sync_block_table(self):
@@ -882,6 +1045,27 @@ class ContinuousBatchingServer:
                 torch.from_numpy(self._kv.block_table))
             self._kv.dirty = False
             self._tick_dispatch("block_table")
+            self._charge_transfer("block_table",
+                                  2 * self._kv.block_table.nbytes)
+
+    def _pool_gauges(self):
+        """Refresh the page-pool occupancy gauges (paged backend). The
+        port's pool is one card's and has no host tier: one shard,
+        no host pages."""
+        if self._tele is not None and self._kv is not None:
+            used = self._kv.used_pages()
+            pinned = self._prefix.pinned_pages
+            cached = self._prefix.cached_pages
+            self._tele.set_pool(self._kv.free_pages(),
+                                used - pinned - cached, pinned, cached, 0)
+            self._tele.set_pool_shards(1, self._shard_pool_bytes())
+
+    def _shard_pool_bytes(self):
+        """K+V pool bytes resident on the card (one shard)."""
+        if self._kv is None:
+            return None
+        pool = self._caches["pool"]
+        return int(pool["k"].nbytes + pool["v"].nbytes)
 
     def pool_balance(self):
         """``PoolBalance``: ``(free, live, pinned, cached)`` page counts
@@ -910,9 +1094,14 @@ class ContinuousBatchingServer:
         OutOfPages (admission defers, a grow fails its tick); no page
         leaks and no request fails."""
         try:
-            return self._prefix.evict(shortfall)
+            freed = self._prefix.evict(shortfall)
         except Exception:
             return 0
+        if freed and self._tele is not None:
+            self._tele.on_prefix_evict(freed)
+        if freed and self._rec is not None:
+            self._rec.record("evict", pages=freed)
+        return freed
 
     def _best_hit(self, ids):
         """The longest reusable prefix state for ``ids``: ``("reg",
@@ -1025,8 +1214,11 @@ class ContinuousBatchingServer:
 
     def _pop_admission_locked(self, src):
         where, i = src
-        return (self._queue if where == "queue"
+        item = (self._queue if where == "queue"
                 else self._preempted).pop(i)
+        if where == "preempted":
+            self._preempt_gauge()
+        return item
 
     def _defer_admission_locked(self, src, item):
         """Put a popped candidate back where it came from (an admission
@@ -1034,6 +1226,12 @@ class ContinuousBatchingServer:
         where, i = src
         (self._queue if where == "queue"
          else self._preempted).insert(i, item)
+        if where == "preempted":
+            self._preempt_gauge()
+
+    def _preempt_gauge(self):
+        if self._tele is not None:
+            self._tele.set_preempted_depth(len(self._preempted))
 
     def _flush_parked_locked(self, rec):
         """Record a parked record's pre-preemption partial as its rid's
@@ -1043,6 +1241,14 @@ class ContinuousBatchingServer:
         notifies."""
         self._results[rec.rid] = np.asarray(rec.emitted[:rec.budget],
                                             np.int32)
+        if self._rec is not None:
+            self._rec.record("flush", rid=rec.rid,
+                             tokens=len(self._results[rec.rid]),
+                             parked=True)
+        if rec.journey is not None:
+            rec.journey.event("flushed",
+                              tokens=len(self._results[rec.rid]),
+                              parked=True)
 
     # ------------------------------------------------------- scheduling
     def _admit(self, run_prefill=True):
@@ -1069,6 +1275,8 @@ class ContinuousBatchingServer:
                     and not self._head_fits_pool(item, best):
                 break
             req = self._pop_admission_locked(src)
+            if self._tele is not None:
+                self._tele.on_admit(req.rid, len(self._queue))
             try:
                 if self._ragged:
                     self._reserve_one(slot, req, best)
@@ -1080,6 +1288,13 @@ class ContinuousBatchingServer:
                 self._active[slot] = False
                 self._slots[slot] = None
                 self._defer_admission_locked(src, req)
+                if self._tele is not None:
+                    self._tele.on_admission_deferred(req.rid,
+                                                     len(self._queue))
+                if self._rec is not None:
+                    self._rec.record("defer", rid=req.rid)
+                if req.journey is not None:
+                    req.journey.event("deferred")
                 break
             except Exception as e:
                 if self._kv is not None and self._kv.slot_pages(slot):
@@ -1089,11 +1304,16 @@ class ContinuousBatchingServer:
                 if slot in self._prefill_fifo:
                     self._prefill_fifo.remove(slot)
                 self._failures[req.rid] = e
+                if self._tele is not None:
+                    self._tele.on_admission_failure(req.rid, e)
+                self._note_request_failure_locked(req.rid, e, req.journey)
                 self._done_cv.notify_all()
             else:
                 admitted += 1
         if run_prefill and self._ragged:
             self._prefill_tick()
+        if self._tele is not None:
+            self._pool_gauges()
 
     def _reserve_one(self, slot, req, best):
         """Reserve ``slot`` for ``req`` (ragged prefill): its pages
@@ -1124,10 +1344,20 @@ class ContinuousBatchingServer:
         if n_auto:
             self.stats["prefix_auto_hits"] += 1
             self.stats["prefix_auto_hit_tokens"] += n_auto
+        if self._tele is not None and self._auto_prefix:
+            self._tele.on_prefix_auto(n_auto > 0, n_auto)
         st = _Slot(req.rid, ids, T, req.budget, req.on_token,
                    req.deadline, req.seed)
-        st.fill_pos = st.filled = n_pre
-        self._bind_request(st, req)
+        st.phase = "prefill"
+        st.fill_pos = st.filled = st.n_pre = n_pre
+        if self._led is not None:
+            # ragged matching is page-granular, so a registered
+            # prefix's sub-page tail re-prefills with the remainder:
+            # the ledger's tail_reprefill kind
+            reg = self._match_prefix(ids)
+            if reg is not None and reg[0].shape[0] > n_pre:
+                st.reprefill_upto = int(reg[0].shape[0])
+        self._bind_request(st, req, slot)
         self._slots[slot] = st
         self._prefill_fifo.append(slot)
         if not self._fused:
@@ -1139,18 +1369,31 @@ class ContinuousBatchingServer:
             # rows, idle ones are skipped by the kernel.)
             self._pending_t[slot] = self.max_cache_len
 
-    def _bind_request(self, st, req):
+    def _bind_request(self, st, req, slot):
         """Carry the request's scheduling state onto its slot. A RESUMED
         (previously preempted) request keeps its stream offset (on_token
         never re-sends delivered chunks), its pre-preemption partial
         (flushed if it must leave early again) and its preemption
-        count."""
+        count. Also the observability funnel for admissions: one
+        recorder event and one journey phase a (re)admission,
+        ``replay`` for a request off the preempted queue."""
         st.priority = req.priority
-        if isinstance(req, _Preempted):
+        st.journey = req.journey
+        resumed = isinstance(req, _Preempted)
+        if resumed:
             st.streamed = req.streamed
             st.replayed = tuple(req.emitted)
             st.preempts = req.preempts
             self.stats["preempt_resumed"] += 1
+            if self._tele is not None:
+                self._tele.on_preempt_resumed()
+        if self._rec is not None:
+            self._rec.record("replay" if resumed else "admit",
+                             rid=st.rid, slot=slot,
+                             prompt=st.prompt_len, prefix_hit=st.n_pre)
+        if st.journey is not None:
+            st.journey.event("replay" if resumed else "admitted",
+                             slot=slot, prefix_hit=st.n_pre)
 
     def _count_headroom(self, slot, T):
         """Account the pages an optimistic admission reserved BEYOND the
@@ -1160,6 +1403,8 @@ class ContinuousBatchingServer:
         hr = len(self._kv.slot_pages(slot)) - self._npages_for(T)
         if hr > 0:
             self.stats["headroom_pages"] += hr
+            if self._tele is not None:
+                self._tele.add_headroom_pages(hr)
 
     def _n_prefill_calls(self, seg_len):
         """Prefill step calls ``_run_prefill`` makes for a
@@ -1171,17 +1416,26 @@ class ContinuousBatchingServer:
             return 1
         return (seg_len + self._chunk_pad(seg_len)) // c
 
-    def _prefill_rest(self, rest, caches1, t0):
+    def _prefill_rest(self, rest, caches1, t0, replay=False):
         """Dense prefill of the prompt segment ``rest`` at ``t0`` (fresh
         batch-1 caches when ``caches1`` is None), accounted; returns its
-        last logits [1, V] and the caches."""
+        last logits [1, V] and the caches. The ledger takes its rows
+        (``replay`` when a preempted request re-prefills) and the
+        chunked prefill's remainder pad; the dense program runs on dense
+        batch-1 caches, with no page reads to model."""
         logits, caches1 = self.model._run_prefill(
             self._bundle, rest[None], chunk=self._prefill_chunk,
             caches=caches1, t0=t0)
-        calls = self._n_prefill_calls(rest.shape[0])
+        n = rest.shape[0]
+        calls = self._n_prefill_calls(n)
         self._count_dispatches(calls)
         self.stats["prefill_launches"] += calls
-        self.stats["prefill_tokens"] += rest.shape[0]
+        self.stats["prefill_tokens"] += n
+        self.stats["device_rows"] += n if calls <= 1 \
+            else calls * self._prefill_chunk
+        if self._led is not None and n:
+            self._led.add("replay" if replay else "goodput", n)
+            self._led.add("chunk_pad", self._chunk_pad(n))
         return logits, caches1
 
     def _admit_one(self, slot, req, best):
@@ -1211,6 +1465,11 @@ class ContinuousBatchingServer:
             own = self._kv.admit_slot(
                 slot, self._extent_tokens(T, req.budget), pre_pages)
             self._count_headroom(slot, T)
+        tele = self._tele
+        t_started = tele.prefill_started() if tele is not None else None
+        if self._phase_timer is not None:
+            self._phase_timer.mark("admission")
+        replay = isinstance(req, _Preempted)
         if best is not None and best[0] == "tree":
             m = best[1]
             self._prefix.use(m)               # LRU: reuse is recency
@@ -1221,21 +1480,32 @@ class ContinuousBatchingServer:
             self.stats["prefix_auto_hit_tokens"] += n_pre
             # the remainder is never empty (the lookup's T - 1 cap)
             logits, caches1 = self._prefill_rest(ids[n_pre:], caches1,
-                                                 n_pre)
+                                                 n_pre, replay)
+            if tele is not None:
+                tele.on_prefix_auto(True, n_pre)
         elif best is not None:
             rows, pre_logits = best[1][1], best[1][2]
             caches1 = self._init_caches(1)
             for name in ("k", "v"):
                 caches1[name][:, :, :n_pre] = rows[name]
             self._count_dispatches(1, op="page_scatter")  # the row seed
+            if self._costs is not None:
+                self._charge_transfer(
+                    "page_scatter",
+                    2 * sum(r.nbytes for r in rows.values()))
             self.stats["prefix_hit_tokens"] += n_pre
             if T > n_pre:
                 logits, caches1 = self._prefill_rest(ids[n_pre:], caches1,
-                                                     n_pre)
+                                                     n_pre, replay)
             else:
                 logits = pre_logits
+            if tele is not None and self._auto_prefix:
+                tele.on_prefix_auto(False, 0)
         else:
-            logits, caches1 = self._prefill_rest(ids, None, 0)
+            logits, caches1 = self._prefill_rest(ids, None, 0, replay)
+            if tele is not None and self._auto_prefix:
+                tele.on_prefix_auto(False, 0)
+        # _pick's host read waits for the prefill: prefill_launch
         firsts, keys = self._pick(logits, [req.seed])
         first = firsts[0]
         if keys is not None:
@@ -1247,23 +1517,46 @@ class ContinuousBatchingServer:
             n_prompt = -(-T // pg) - len(pre_pages)
             if own[:n_prompt]:
                 self._count_dispatches(1, op="page_scatter")
+                if self._costs is not None:
+                    self._charge_transfer(
+                        "page_scatter",
+                        2 * len(own[:n_prompt]) * pg * self._row_nbytes())
             self._fill_pages(caches1, own[:n_prompt], len(pre_pages) * pg)
         else:
             for name in ("k", "v"):
                 self._caches[name][:, slot] = caches1[name][:, 0]
             self._count_dispatches(1, op="page_scatter")  # the row copy
+            if self._costs is not None:
+                self._charge_transfer(
+                    "page_scatter",
+                    2 * sum(c.nbytes for c in caches1.values()))
         self._tok[slot] = first
         self._t[slot] = T
+        if self._t_host is not None:
+            self._t_host[slot] = T
         self._count_dispatches(3, op="state_push")    # tok, t, key
+        if self._costs is not None:
+            # three transfers, charged as three: the cost ledger's
+            # dispatch count reconciles 1:1 with the tick profile
+            for arr in (self._tok, self._t, self._keys):
+                self._charge_transfer("state_push", 2 * arr.nbytes)
         self._active[slot] = True
         st = _Slot(req.rid, ids, T, req.budget, req.on_token,
                    req.deadline, req.seed)
         st.filled = st.fill_pos = T
-        self._bind_request(st, req)
+        st.n_pre = n_pre
+        self._bind_request(st, req, slot)
         st.emitted.append(first)
+        if st.journey is not None:
+            st.journey.event("first_token")
         st.stream(self._deferred_cbs)
         self._slots[slot] = st
         self.stats["admissions"] += 1
+        if self._phase_timer is not None:
+            self._phase_timer.mark("prefill_launch")
+        if tele is not None:
+            tele.on_prefill_batch(t_started, T - n_pre)
+            tele.on_first_token(req.rid, T - n_pre, n_pre)
 
     def _chunk_plan(self):
         """The next prompt chunk of every mid-prefill slot, oldest
@@ -1314,14 +1607,54 @@ class ContinuousBatchingServer:
                 out_idx[slot] = take - 1
                 done.append(slot)
         self._sync_block_table()
+        tele = self._tele
+        t_started = tele.prefill_started() if tele is not None else None
+        if self._phase_timer is not None:
+            self._phase_timer.mark("admission")
         dev = self.device
-        logits, self._caches = self._ragged_fn(
-            torch.from_numpy(toks).to(dev), torch.from_numpy(t0).to(dev),
-            self._caches, torch.from_numpy(out_idx).to(dev))
+        args = (torch.from_numpy(toks).to(dev), torch.from_numpy(t0).to(dev),
+                self._caches, torch.from_numpy(out_idx).to(dev))
+        prefill_fn = self._ragged_fn
+        if self._costs is not None:
+            # one catalog entry per chunk width on the pow2 ladder: a
+            # width first seen after warm-up is a recompile. Each
+            # participating slot runs its C rows (its last is t0 + C - 1)
+            price = None if self._price is None else \
+                self._price.prefill(
+                    [(int(t0[s]), C if int(t0[s]) < self.max_cache_len
+                      else 0) for s in range(S)], C)
+            prefill_fn = self._cost_program("prefill", self._ragged_fn,
+                                            args, price)
+        logits, self._caches = prefill_fn(*args)
         self._count_dispatches(1, op="prefill")
         self.stats["prefill_launches"] += 1
+        # C rows for each slot whose offset lies in the table
+        self.stats["device_rows"] += C * int(
+            (t0 < self.max_cache_len).sum())
+        led = self._led
+        for slot, start, take in plan:
+            st = self._slots[slot]
+            if led is not None:
+                # the launch runs C rows for each participating slot
+                # (idle slots are skipped): ``take`` real rows and the
+                # ladder's pad
+                if st.preempts:
+                    # a resumed request's prompt re-prefill is pure
+                    # preemption recompute
+                    led.add("replay", take)
+                else:
+                    tail = max(0, min(start + take,
+                                      st.reprefill_upto) - start)
+                    led.add("tail_reprefill", tail)
+                    led.add("goodput", take - tail)
+                led.add("chunk_pad", C - take)
+                led.add("skipped_page_dma",
+                        self._skipped_dma(start + take))
+            if st.journey is not None:
+                st.journey.event("prefill_chunk", start=start, take=take)
         self._advance(plan)
         if done:
+            # _pick's host read waits for the launch: prefill_launch
             firsts, keys = self._pick(
                 logits[torch.tensor(done, device=dev)],
                 [self._slots[s].seed for s in done])
@@ -1329,6 +1662,10 @@ class ContinuousBatchingServer:
                 if keys is not None:
                     self._pending_key[slot] = keys[i]
                 self._activate(slot, firsts[i])
+        if self._phase_timer is not None:
+            self._phase_timer.mark("prefill_launch")
+        if tele is not None:
+            tele.on_prefill_batch(t_started, sum(t for _, _, t in plan))
 
     def _pick(self, logits, seeds):
         """First tokens of the prefill ``logits`` rows [n, V] of requests
@@ -1379,16 +1716,25 @@ class ContinuousBatchingServer:
         st = self._slots[slot]
         self._pending_tok[slot] = first
         self._pending_t[slot] = st.prompt_len
+        st.phase = "decode"
         self._active[slot] = True
         self._prefill_fifo.remove(slot)
         st.emitted.append(first)
+        if st.journey is not None:
+            st.journey.event("first_token")
         st.stream(self._deferred_cbs)
         self.stats["admissions"] += 1
+        if self._tele is not None:
+            self._tele.on_first_token(st.rid, st.prompt_len - st.n_pre,
+                                      st.n_pre)
 
     def _flush_slot_state(self):
         """Write pending per-slot decode state (first token, write
         position and, when sampling, the key) into the device arrays the
         decode step reads — one batched write per array per tick."""
+        if self._t_host is not None:
+            for slot, t in self._pending_t.items():
+                self._t_host[slot] = t
         for pending, arr in ((self._pending_tok, self._tok),
                              (self._pending_t, self._t)):
             if pending:
@@ -1399,6 +1745,7 @@ class ContinuousBatchingServer:
                                         device=self.device)
                 pending.clear()
                 self._count_dispatches(1, op="state_push")
+                self._charge_transfer("state_push", 2 * arr.nbytes)
         if self._pending_key:
             idx = torch.tensor(list(self._pending_key), dtype=torch.long,
                                device=self.device)
@@ -1407,15 +1754,78 @@ class ContinuousBatchingServer:
                 [k.view(torch.int32) for k in self._pending_key.values()])
             self._pending_key.clear()
             self._count_dispatches(1, op="state_push")
+            self._charge_transfer("state_push", 2 * self._keys.nbytes)
 
     def _count_dispatches(self, n=1, op="prefill"):
         """Account ``n`` device dispatches of the admission/prefill path
         (prefill launches, slot-state writes) in the tick's profile."""
         self.stats["prefill_dispatches"] += n
         self._tick_dispatch(op, n)
+        if self._tele is not None:
+            self._tele.add_prefill_dispatches(n)
 
     def _tick_dispatch(self, op, n=1):
         self._tick_disp[op] = self._tick_disp.get(op, 0) + n
+
+    def _cost_program(self, op, fn, args, price=None):
+        """The cost catalog's priced callable for ``fn`` at ``args``'
+        shape signature, charging ``price`` (``models.costs``; None: a
+        model the port cannot price). The compile-watch funnel lives
+        here: the first call of a new signature (which may build
+        kernels) lands a ``compile`` recorder event, and one after the
+        op warmed is a RECOMPILE, stamped as a ``compile_stall`` journey
+        phase on every request parked behind the stalled tick. Caller
+        guarantees ``self._costs is not None``."""
+        prog = self._costs.program(op, fn, args, price)
+        if not getattr(prog, "compiled_now", False):
+            return prog
+
+        def first_call(*a):
+            out = prog(*a)
+            if self._rec is not None:
+                self._rec.record("compile", op=op,
+                                 recompile=prog.recompile,
+                                 seconds=prog.compile_s)
+            if prog.recompile:
+                stalled = [item.journey for item in self._queue]
+                stalled += [rec.journey for rec in self._preempted]
+                stalled += [st.journey for st in self._slots
+                            if st is not None]
+                for journey in stalled:
+                    if journey is not None:
+                        journey.event("compile_stall", op=op)
+            return out
+        first_call.prog = prog
+        return first_call
+
+    def _charge_transfer(self, op, nbytes):
+        """Price a host<->device data movement that is not a program
+        (slot-state push, page gather/scatter, block-table sync): bytes
+        moved — read + write of the touched buffers — zero FLOPs. No-op
+        without an enabled cost catalog."""
+        if self._costs is not None:
+            self._costs.charge_bytes(op, int(nbytes))
+
+    def _row_nbytes(self):
+        """Bytes one token's K and V rows take across every layer of the
+        page pool: the unit of the page gather and scatter charges."""
+        pool = self._caches["pool"]
+        pg = self._kv.page_size
+        return sum(leaf.nbytes // (leaf.shape[1] * pg)
+                   for leaf in (pool["k"], pool["v"]))
+
+    def _skipped_dma(self, live_tokens):
+        """The goodput ledger's masked page reads of one live slot in
+        one launch: on the card none (every route reads no column at or
+        past the frontier); on the CPU the plain versions gather the
+        block table's whole width, so the pages wholly beyond the slot's
+        live length are read and masked —
+        ``(table_width - ceil(live / pg)) * pg`` token-equivalents, the
+        reference's model."""
+        if self.device.type == "cuda":
+            return 0
+        live = -(-int(live_tokens) // self.page_size)
+        return max(0, self._kv.pages_per_slot - live) * self.page_size
 
     # ------------------------------------- optimistic growth / preemption
     def _grow_locked(self):
@@ -1491,6 +1901,13 @@ class ContinuousBatchingServer:
                 self._preempt_slot_locked(victim)
             else:
                 self.stats["grow_pages"] += need
+                if self._tele is not None:
+                    self._tele.add_grow_pages(need)
+                if self._rec is not None:
+                    self._rec.record("grow", rid=st.rid, slot=slot,
+                                     pages=need)
+                if st.journey is not None:
+                    st.journey.event("grow", pages=need)
                 return
 
     def _preempt_slot_locked(self, slot):
@@ -1502,10 +1919,21 @@ class ContinuousBatchingServer:
         survives) and free the rest. The waiter keeps blocking:
         re-admission replays the same token chain, greedy trivially,
         sampled because the chain restarts from the same seed."""
-        rec = _Preempted(self._slots[slot])
+        st = self._slots[slot]
+        rec = _Preempted(st)
+        if self._rec is not None:
+            self._rec.record("preempt", rid=st.rid, slot=slot,
+                             tokens=len(rec.emitted),
+                             preempts=rec.preempts)
+        if st.journey is not None:
+            st.journey.event("preempted", slot=slot,
+                             tokens=len(rec.emitted))
         self._release_slot(slot, cold=True)
         self._preempted.append(rec)
         self.stats["preemptions"] += 1
+        if self._tele is not None:
+            self._tele.on_preempt(st.rid, len(self._preempted))
+            self._pool_gauges()
 
     @torch.no_grad()
     def _decode(self):
@@ -1519,10 +1947,41 @@ class ContinuousBatchingServer:
         does (the idle slots' keys are replaced when they activate),
         and scales by the temperature's reciprocal, as its jitted step
         does: one R1 launch a step."""
+        step = self._decode_steps
+        if self._costs is not None:
+            price = None if self._price is None \
+                else self._price.decode(self._t_host, self.tick_block)
+            if self._decode_prog is None:
+                # one catalog entry, priced once per tick below: the
+                # decode step's shapes are static, so the tick path does
+                # not hash the caches' shapes again
+                step = self._cost_program(
+                    "decode", self._decode_steps,
+                    (self._tok, self._caches, self._t, self._keys), price)
+                self._decode_prog = getattr(step, "prog", step)
+            else:
+                step = self._decode_prog
+                if price is not None:
+                    step.at(price)
+        toks, bads = step()
+        if self._t_host is not None:
+            self._t_host += self.tick_block
+        # the host read waits for every step: decode_launch
+        host = torch.stack([torch.stack(toks, 1),
+                            torch.stack(bads, 1)]).cpu().numpy()
+        self.stats["decode_ticks"] += 1
+        self.stats["decode_steps"] += self.tick_block
+        self._tick_dispatch("decode")
+        return host[0], host[1]
+
+    def _decode_steps(self, *_):
+        """Launch ``tick_block`` decode steps; returns the device token
+        and non-finite flag rows, one a step."""
         toks, bads = [], []
         for _ in range(self.tick_block):
             x = self._embed_fn(self._tok, self._t)
             out, self._caches = self._step_fn(x, self._caches, self._t)
+            self.stats["device_rows"] += x.shape[0]
             logits = self._head_fn(out)[:, -1]
             if self.do_sample:
                 self._tok, self._keys, bad = self._draw(
@@ -1534,12 +1993,7 @@ class ContinuousBatchingServer:
             self._t = self._t + 1
             toks.append(self._tok)
             bads.append(bad)
-        host = torch.stack([torch.stack(toks, 1),
-                            torch.stack(bads, 1)]).cpu().numpy()
-        self.stats["decode_ticks"] += 1
-        self.stats["decode_steps"] += self.tick_block
-        self._tick_dispatch("decode")
-        return host[0], host[1]
+        return toks, bads
 
     def step(self):
         """One server tick: admit waiting requests and run their prefill
@@ -1555,6 +2009,8 @@ class ContinuousBatchingServer:
         every one fires even when another raises, then the failures are
         raised together as a ``CallbackError``."""
         cbs, self._deferred_cbs = self._deferred_cbs, []
+        ct = self._costs
+        t_cb = ct.clock.now() if (ct is not None and cbs) else None
         errors = []
         for cb, rid, toks in cbs:
             try:
@@ -1563,26 +2019,70 @@ class ContinuousBatchingServer:
                 cb(rid, toks)
             except Exception as e:
                 errors.append((rid, e))
+        if t_cb is not None:
+            # fires OUTSIDE the lock after the tick flushed, so this
+            # phase folds into the NEXT tick's breakdown (a one-tick
+            # skew, documented in telemetry.costs)
+            ct.add_phase("token_callbacks", ct.clock.now() - t_cb)
         if errors:
             raise CallbackError(errors, what="on_token callback")
 
     def _step_locked(self):
+        """One tick under the lock. Publishes the tick's dispatch
+        profile, ledger and costs however the tick exits (normal, an
+        early return, or a raising fault: a partial profile is what a
+        postmortem wants)."""
         self._tick_disp = {}
+        ct = self._costs
+        if ct is not None:
+            self._phase_timer = ct.phase_timer()
         try:
             return self._step_inner()
         finally:
-            self.stats["tick_dispatches"] += sum(self._tick_disp.values())
+            if self._phase_timer is not None:
+                # trailing work since the last mark (the token-emit
+                # loop, the end-of-tick harvest and admissions, or an
+                # early return's remainder) is bookkeeping
+                self._phase_timer.close("bookkeeping")
+            prof = self._tick_disp
+            total = sum(prof.values())
+            self.stats["tick_dispatches"] += total
+            if prof:
+                if self._tele is not None:
+                    self._tele.on_tick_dispatches(prof)
+                if self._rec is not None:
+                    extra = {}
+                    if ct is not None:
+                        extra["phases"] = ct.pending_phases()
+                    self._rec.record("tick", dispatches=dict(prof),
+                                     total=total,
+                                     active=int(self._active.sum()),
+                                     **extra)
+            if self._led is not None:
+                # the conservation boundary: whatever this tick
+                # attributed (even a partial, faulted tick) is folded
+                # and published now
+                self._led.flush_tick()
+            if ct is not None:
+                ct.flush_tick()
+                self._phase_timer = None
 
     def _activate_fused(self, slot, first):
         """A slot's prompt completed inside the fused launch, which also
         gave its first token: flip it into the decode phase. No device
         state to push: the next tick's launch carries the token."""
         st = self._slots[slot]
+        st.phase = "decode"
         self._active[slot] = True
         self._prefill_fifo.remove(slot)
         st.emitted.append(first)
+        if st.journey is not None:
+            st.journey.event("first_token")
         st.stream(self._deferred_cbs)
         self.stats["admissions"] += 1
+        if self._tele is not None:
+            self._tele.on_first_token(st.rid, st.prompt_len - st.n_pre,
+                                      st.n_pre)
 
     def _fused_inputs(self, *parts):
         """The tick's small int32 host arrays packed into one buffer and
@@ -1606,6 +2106,8 @@ class ContinuousBatchingServer:
         self._prefill_used = 0
         self._expire_locked()
         self._admit(run_prefill=False)     # reserve; chunks ride the launch
+        if self._phase_timer is not None:
+            self._phase_timer.mark("admission")
         # harvest BEFORE packing: a slot whose budget is spent (or that
         # emitted eos at activation) must not decode further
         self._harvest()
@@ -1621,6 +2123,8 @@ class ContinuousBatchingServer:
         plan, C = self._chunk_plan()
         dec_slots = [s for s in range(S) if self._active[s]]
         if not plan and not dec_slots:
+            if self._tele is not None:
+                self._tele.set_active_slots(0)
             return 0
         C = max(C, 1)          # a decode-only tick packs one row per slot
         tokens = np.zeros((S, C), np.int32)
@@ -1663,14 +2167,44 @@ class ContinuousBatchingServer:
             # the device yet (pages, keys), and slot bookkeeping happens
             # after the launch
             self._faults.check(faults.DECODE_TICK)
+        tele = self._tele
+        n_active = len(dec_slots)
+        t_tick = tele.tick_started() if tele is not None else None
+        t_pre = tele.prefill_started() if (tele is not None and plan) \
+            else None
         draw = (emit, fresh, seeds) if self.do_sample else ()
         args = self._fused_inputs(tokens, t0, last, dec, out_idx, bt_live,
                                   ss, sp, *draw)
-        logits, self._caches = self._fused_fn(
-            *args[:4], self._caches, *args[4:8], bool(dec_slots))
         # a tick with prefill chunks and decode rows runs them as two
-        # passes over the layers (``models.generation``)
-        self.stats["fused_passes"] += 1 + bool(plan and dec_slots)
+        # passes over the layers (``models.generation``): the decode
+        # rows at C = 1, the chunks at C
+        mixed = bool(plan and dec_slots)
+        fused_fn = self._fused_fn
+        if self._costs is not None:
+            call = (*args[:4], self._caches, *args[4:8], bool(dec_slots))
+            price = None
+            if self._price is not None:
+                rows = {s: (int(t0[s]), take, 0) for s, _, take in plan}
+                rows.update({s: (int(t0[s]), 1, 1) for s in dec_slots})
+                if mixed:
+                    passes = [([rows[s] if dec[s] else (0, 0, 0)
+                                for s in range(S)], 1),
+                              ([(0, 0, 0) if dec[s] else
+                                rows.get(s, (0, 0, 0))
+                                for s in range(S)], C)]
+                else:
+                    passes = [([rows.get(s, (0, 0, 0)) for s in range(S)],
+                               C)]
+                price = self._price.fused(passes)
+            fused_fn = self._cost_program("fused", self._fused_fn, call,
+                                          price)
+        logits, self._caches = fused_fn(
+            *args[:4], self._caches, *args[4:8], bool(dec_slots))
+        self.stats["fused_passes"] += 1 + mixed
+        # C rows a live slot; a mixed tick's decode pass one a decode slot
+        live = int((last >= 0).sum())
+        self.stats["device_rows"] += len(dec_slots) + (live - len(
+            dec_slots)) * C if mixed else live * C
         if self.do_sample:
             # the reference's fused program: fresh slots start their
             # chain from their seed inside it, non-emitting slots keep
@@ -1682,7 +2216,8 @@ class ContinuousBatchingServer:
         else:
             nxt = torch.argmax(logits, -1).to(torch.int32)
             bad = (~torch.isfinite(logits).all(-1)).to(torch.int32)
-        host = torch.stack([nxt, bad]).cpu().numpy()   # syncs the tick
+        # the host read waits for the whole tick: fused_launch
+        host = torch.stack([nxt, bad]).cpu().numpy()
         emitting = done + dec_slots
         self.stats["nonfinite_logit_rows"] += int(host[1][emitting].sum())
         self.stats["fused_launches"] += 1
@@ -1692,18 +2227,56 @@ class ContinuousBatchingServer:
             self._count_dispatches(1, op="fused")
         else:
             self._tick_dispatch("fused")
+        if self._phase_timer is not None:
+            self._phase_timer.mark("fused_launch")
+        led = self._led
+        for slot, start, take in plan:
+            st = self._slots[slot]
+            if led is not None:
+                if st.preempts:
+                    led.add("replay", take)
+                else:
+                    tail = max(0, min(start + take,
+                                      st.reprefill_upto) - start)
+                    led.add("tail_reprefill", tail)
+                    led.add("goodput", take - tail)
+                led.add("chunk_pad", C - take)
+                led.add("skipped_page_dma", self._skipped_dma(start + take))
+            if st.journey is not None:
+                st.journey.event("prefill_chunk", start=start, take=take)
         self._advance(plan)
         for slot in done:
             self._activate_fused(slot, int(host[0][slot]))
         for slot in dec_slots:
             st = self._slots[slot]
             st.emitted.append(int(host[0][slot]))
+            if led is not None:
+                # one device row a decode slot: a mixed tick runs the
+                # decode rows in a pass of their own at [S, 1], with no
+                # C - 1 pad. A resumed slot's rows below its
+                # pre-preemption offset re-generate tokens the waiter
+                # already has
+                led.add("replay"
+                        if len(st.emitted) <= len(st.replayed)
+                        else "goodput", 1)
+                led.add("skipped_page_dma",
+                        self._skipped_dma(st.prompt_len + len(st.emitted)
+                                          - 1))
             st.stream(self._deferred_cbs)
+        if tele is not None:
+            tele.on_tick(t_tick, n_active, len(dec_slots))
+            if t_pre is not None:
+                # the launch wall covers decode rows too: fused prefill
+                # seconds are launch seconds
+                tele.on_prefill_batch(t_pre, sum(t for _, _, t in plan))
         self._harvest()
         # end-of-tick admissions reserve only: their chunks ride the
         # NEXT tick's launch (the token budget is per tick)
         self._admit(run_prefill=False)
-        return int(self._active.sum())
+        n = int(self._active.sum())
+        if tele is not None:
+            tele.set_active_slots(n)
+        return n
 
     def _step_inner(self):
         if self._fused:
@@ -1711,12 +2284,22 @@ class ContinuousBatchingServer:
         self._prefill_used = 0       # per-tick prefill token budget
         self._expire_locked()
         self._admit()
+        if self._phase_timer is not None:
+            # scheduling work minus the prefill launches (those mark
+            # themselves out as "prefill_launch")
+            self._phase_timer.mark("admission")
         if not self._active.any():
+            if self._tele is not None:
+                self._tele.set_active_slots(0)
             return 0
         # harvest BEFORE stepping: a slot whose budget is spent (or that
         # emitted eos as its first token) must not decode further
         self._harvest()
+        if self._phase_timer is not None:
+            self._phase_timer.mark("bookkeeping")
         if not self._active.any():
+            if self._tele is not None:
+                self._tele.set_active_slots(0)
             return 0
         if self._optimistic:
             # grow every slot about to cross its coverage NOW, preempting
@@ -1726,6 +2309,8 @@ class ContinuousBatchingServer:
             if not self._active.any():
                 # growth parked every decoding slot: nothing to dispatch
                 # this tick (re-admission restarts them next tick)
+                if self._tele is not None:
+                    self._tele.set_active_slots(0)
                 return 0
         self._sync_block_table()
         # activations batched their tok/t updates, and slots still
@@ -1736,26 +2321,67 @@ class ContinuousBatchingServer:
             # transient the supervisor retries; nothing was dispatched
             # yet, so no key has been split
             self._faults.check(faults.DECODE_TICK)
+        tele = self._tele
+        n_active = int(self._active.sum())
+        t_tick = tele.tick_started() if tele is not None else None
         toks, bad = self._decode()
+        if self._phase_timer is not None:
+            # the grow, state pushes and block-table sync, the launches
+            # and the host read that waits for them
+            self._phase_timer.mark("decode_launch")
         n = toks.shape[1]
+        decoded = wasted = 0
+        led = self._led
+        if led is not None:
+            # rows of slots holding no live decode work still ride the
+            # step: empty slots and mid-prefill slots (parked past the
+            # table so their writes null-redirect; the dense backend
+            # drops them past the cache: the same waste class)
+            led.add("null_redirect", (self.max_slots - n_active) * n)
         for slot in range(self.max_slots):
             if not self._active[slot]:
                 continue
             st = self._slots[slot]
+            if led is not None and self._kv is not None:
+                led.add("skipped_page_dma", self._skipped_dma(
+                    st.prompt_len + len(st.emitted)))
             for j in range(n):
                 st.emitted.append(int(toks[slot, j]))
                 self.stats["nonfinite_logit_rows"] += int(bad[slot, j])
+                if led is not None:
+                    # a resumed slot's rows below its pre-preemption
+                    # offset re-generate tokens the waiter already has
+                    led.add("replay"
+                            if len(st.emitted) <= len(st.replayed)
+                            else "goodput", 1)
                 if self._finished(st):
                     # the block's later rows are waste
                     self.stats["block_waste_tokens"] += n - (j + 1)
+                    wasted += n - (j + 1)
+                    if led is not None:
+                        led.add("block_waste", n - (j + 1))
                     break
+            decoded += min(j + 1, n)
             st.stream(self._deferred_cbs)
+        if tele is not None:
+            # the host read in _decode synced the steps, so the tick
+            # time covers the host's launches and the device's work
+            tele.on_tick(t_tick, n_active, decoded)
+            if wasted:
+                tele.add_wasted_block_tokens(wasted)
+            if self._kv is not None:
+                # inactive rows still step; their writes go through an
+                # all-null block-table row to the null page
+                tele.add_null_writes((self.max_slots - n_active) * n)
         self._harvest()
         # end-of-tick admissions: ragged ones reserve only, their
         # prefill chunks run in the NEXT tick's launch (the token budget
         # is per tick); dense ones prefill here
         self._admit(run_prefill=False)
-        return int(self._active.sum())
+        n = int(self._active.sum())
+        if tele is not None:
+            tele.set_active_slots(n)
+        return n
 
     def _busy_locked(self):
         """Work pending: queued requests, decoding slots, slots still
@@ -1791,11 +2417,20 @@ class ContinuousBatchingServer:
         for slot in range(self.max_slots):
             st = self._slots[slot]
             if self._active[slot] and self._finished(st):
-                self._results[st.rid] = np.asarray(st.emitted[:st.budget],
-                                                   np.int32)
+                out = np.asarray(st.emitted[:st.budget], np.int32)
+                self._results[st.rid] = out
                 self._release_slot(slot)   # donates prompt pages
+                if self._tele is not None:
+                    self._tele.on_finish(st.rid, len(out))
+                if self._rec is not None:
+                    self._rec.record("finish", rid=st.rid,
+                                     tokens=len(out))
+                if st.journey is not None:
+                    st.journey.event("finished", tokens=len(out))
                 finished = True
         if finished:
+            if self._tele is not None:
+                self._pool_gauges()
             self._done_cv.notify_all()
 
     def _expire_locked(self):
@@ -1811,13 +2446,27 @@ class ContinuousBatchingServer:
             keep = []
             for item in self._queue:
                 if item.deadline is not None and now >= item.deadline:
-                    self._failures[item.rid] = DeadlineExceeded(
+                    err = DeadlineExceeded(
                         f"request {item.rid} expired in queue "
                         f"(deadline passed before admission)")
+                    self._failures[item.rid] = err
                     notify = True
+                    if self._tele is not None:
+                        self._tele.on_deadline_expired("queued")
+                        self._tele.on_admission_failure(item.rid, err)
+                    if self._rec is not None:
+                        self._rec.record("deadline", rid=item.rid,
+                                         where="queued")
+                    if item.journey is not None:
+                        # "where" is a Journey reserved key (the hop
+                        # label): the expiry location is "at"
+                        item.journey.event("expired", at="queued")
                 else:
                     keep.append(item)
-            self._queue[:] = keep
+            if len(keep) != len(self._queue):
+                self._queue[:] = keep
+                if self._tele is not None:
+                    self._tele.set_queue_depth(len(self._queue))
         for slot in range(self.max_slots):
             st = self._slots[slot]
             if st is None or st.deadline is None:
@@ -1825,8 +2474,17 @@ class ContinuousBatchingServer:
             if now is None:
                 now = self._clock.now()
             if now >= st.deadline:
+                if self._rec is not None:
+                    self._rec.record("deadline", rid=st.rid,
+                                     where="decoding")
+                if st.journey is not None:
+                    st.journey.event("expired", at="decoding")
                 self._finish_partial_locked(slot)
                 notify = True
+                if self._tele is not None:
+                    self._tele.on_deadline_expired("decoding")
+                    self._tele.on_cancel(st.rid)
+                    self._pool_gauges()
         if self._preempted:
             keep_p = []
             for rec in self._preempted:
@@ -1834,41 +2492,160 @@ class ContinuousBatchingServer:
                     if now is None:
                         now = self._clock.now()
                     if now >= rec.deadline:
+                        if self._rec is not None:
+                            self._rec.record("deadline", rid=rec.rid,
+                                             where="preempted")
+                        if rec.journey is not None:
+                            rec.journey.event("expired", at="preempted")
                         # the deadline holds ACROSS preemption (time
                         # parked counts): the pre-preemption partial is
                         # the result and no decode resumes
                         self._flush_parked_locked(rec)
                         notify = True
+                        if self._tele is not None:
+                            self._tele.on_deadline_expired("preempted")
+                            self._tele.on_cancel(rec.rid)
                         continue
                 keep_p.append(rec)
-            self._preempted[:] = keep_p
+            if len(keep_p) != len(self._preempted):
+                self._preempted[:] = keep_p
+                self._preempt_gauge()
         if notify:
             self._done_cv.notify_all()
 
     def _fail_request_locked(self, rid, err):
         """Fail ONE live request (queued, in flight or parked) with
         ``err``; a rid already settled is left alone."""
+        found, journey = False, None
         for i, item in enumerate(self._queue):
             if item.rid == rid:
                 del self._queue[i]
+                found, journey = True, item.journey
                 break
-        else:
+        if not found:
             for slot in range(self.max_slots):
                 st = self._slots[slot]
                 if st is not None and st.rid == rid:
                     self._release_slot(slot)
+                    if self._tele is not None:
+                        self._pool_gauges()
+                    found, journey = True, st.journey
                     break
-            else:
-                for i, rec in enumerate(self._preempted):
-                    if rec.rid == rid:
-                        del self._preempted[i]
-                        break
-                else:
-                    return
+        if not found:
+            for i, rec in enumerate(self._preempted):
+                if rec.rid == rid:
+                    del self._preempted[i]
+                    self._preempt_gauge()
+                    found, journey = True, rec.journey
+                    break
+        if not found:
+            return
         self._deferred_cbs = [c for c in self._deferred_cbs
                               if c[1] != rid]
         self._failures[rid] = err
+        if self._tele is not None:
+            self._tele.on_admission_failure(rid, err)
+        self._note_request_failure_locked(rid, err, journey)
         self._done_cv.notify_all()
+
+    def _note_request_failure_locked(self, rid, err, journey=None,
+                                     bundle=True):
+        """Observability funnel for one request FAILING (as opposed to
+        finishing with a partial): journey phase, recorder event, and a
+        postmortem bundle — the moment an operator wants the last N
+        events and the pool state frozen. ``bundle=False`` skips the
+        capture for EXPECTED sheds (evict_oldest runs on every
+        overloaded submit). The caller owns the failure bookkeeping."""
+        if journey is not None:
+            journey.event("failed", error=type(err).__name__)
+        if self._rec is not None:
+            self._rec.record("fail", rid=rid, error=type(err).__name__)
+            if bundle:
+                self._postmortem_locked("request_failed", rid=rid,
+                                        error=repr(err))
+
+    def _postmortem_locked(self, reason, **extra):
+        """Capture a postmortem bundle into the flight recorder: recent
+        events plus the serving state an incident review needs — pool
+        balance, block-table occupancy, radix-tree stats, the parked
+        queue, live slots, queue depth, health, stats, and the ledger's
+        and the catalog's snapshots. Called under the server lock;
+        returns the bundle (or None without a recorder). The JAX
+        server's ``migration`` section comes with the fleet (ROADMAP
+        Queue 1 item 9)."""
+        if self._rec is None:
+            return None
+        sections = {
+            "health": self._health.state,
+            "stats": dict(self.stats),
+            "queue": [item.rid for item in self._queue],
+            "slots": [{"slot": s, "rid": st.rid, "phase": st.phase,
+                       "emitted": len(st.emitted),
+                       "priority": st.priority}
+                      for s, st in enumerate(self._slots)
+                      if st is not None],
+            "parked": [{"rid": rec.rid, "priority": rec.priority,
+                        "preempts": rec.preempts,
+                        "emitted": len(rec.emitted)}
+                       for rec in self._preempted],
+        }
+        if self._kv is not None:
+            # pool_balance() is the ONE definition of the balance (a
+            # re-entrant lock: safe here)
+            bal = self.pool_balance()
+            sections["pool_balance"] = {
+                "free": bal[0], "live": bal[1], "pinned": bal[2],
+                "cached": bal[3], "preempted": bal.preempted,
+                "preemptions": bal.preemptions}
+            sections["block_table"] = self._kv.occupancy()
+            sections["prefix_cache"] = self._prefix.stats()
+        if self._led is not None:
+            sections["goodput"] = self._led.snapshot()
+        if self._costs is not None:
+            sections["costs"] = self._costs.snapshot()
+        sections.update(extra)
+        return self._rec.postmortem(reason, **sections)
+
+    def postmortems(self):
+        """Captured postmortem bundles, oldest first (empty without a
+        recorder) — served over ``/debug/postmortem`` by
+        ``serving.serve_metrics``."""
+        return [] if self._rec is None else self._rec.postmortems()
+
+    def journey(self, rid):
+        """Timeline of a SELF-MINTED journey (a server built with
+        ``journeys=``): the request's phase events in arrival order, or
+        None without a journey recorder, for an unknown rid, or for a
+        journey minted elsewhere. Served over ``/debug/journey/<rid>``
+        by ``serving.serve_metrics``."""
+        if self._jrec is None:
+            return None
+        return self._jrec.journey(f"s{int(rid)}")
+
+    def goodput(self):
+        """The goodput ledger's cumulative snapshot (``{"tokens": {kind:
+        n}, "goodput_ratio": ...}``), or None without an enabled ledger
+        — also ``/stats["goodput"]`` and the ``goodput`` postmortem
+        section."""
+        return None if self._led is None else self._led.snapshot()
+
+    def device_costs(self):
+        """The cost catalog's cumulative snapshot (per-op FLOPs and
+        bytes, compile counts, warm-up and recompile state,
+        MFU/roofline, the last tick's phase split), or None without an
+        enabled catalog — also ``/stats["costs"]`` and the ``costs``
+        postmortem section."""
+        return None if self._costs is None else self._costs.snapshot()
+
+    def utilization(self):
+        """Utilization digest for routing-side views: the goodput ratio
+        (ledger) and MFU (cost catalog), whichever is wired."""
+        util = {}
+        if self._led is not None:
+            util["goodput_ratio"] = self._led.goodput_ratio()
+        if self._costs is not None:
+            util["mfu"] = self._costs.mfu()
+        return util
 
     def run(self, max_ticks=100000):
         """Drive until queue and slots drain; returns {rid: new_tokens}.
@@ -1892,10 +2669,16 @@ class ContinuousBatchingServer:
         request with a ``CircuitOpenError`` so no waiter wedges on a
         server that cannot tick now."""
         thresh = self._sup.breaker.failure_threshold
+        for group in (self._queue, self._preempted,
+                      [st for st in self._slots if st is not None]):
+            for item in group:
+                if item.journey is not None:
+                    item.journey.event("failed", error="CircuitOpenError")
         rids = [item.rid for item in self._queue]
         self._queue.clear()
         rids += [rec.rid for rec in self._preempted]
         self._preempted.clear()
+        self._preempt_gauge()
         for slot in range(self.max_slots):
             if self._slots[slot] is not None:
                 rids.append(self._slots[slot].rid)
@@ -1910,6 +2693,12 @@ class ContinuousBatchingServer:
                 f"{thresh} consecutive tick failures")
             err.__cause__ = cause
             self._failures[rid] = err
+            if self._tele is not None:
+                self._tele.on_admission_failure(rid, err)
+        if self._tele is not None:
+            self._tele.set_queue_depth(0)
+            self._tele.set_active_slots(0)
+            self._pool_gauges()
         self._done_cv.notify_all()
 
     @property
@@ -1919,6 +2708,12 @@ class ContinuousBatchingServer:
         read of a plain string: it answers while a tick holds the serve
         lock."""
         return self._health.state
+
+    def _publish_health(self, state, code):
+        if self._tele is not None:
+            self._tele.set_health(state)
+        if self._rec is not None:
+            self._rec.record("health", state=state)
 
     # ------------------------------------------------------ serve thread
     def start(self, idle_sleep=0.005):
@@ -2008,10 +2803,24 @@ class ContinuousBatchingServer:
     def _on_tick_failure(self, e):
         """Supervised-tick failure path, called WITHOUT the lock (the
         retry backoff sleeps here)."""
+        if self._tele is not None:
+            self._tele.on_tick_retry()
+        if self._rec is not None:
+            self._rec.record("tick_retry", error=type(e).__name__)
         if self._sup.failure(e) == "open":
             with self._lock:
                 self._health.to(DEGRADED)
+                if self._rec is not None:
+                    self._rec.record("breaker", state="open",
+                                     error=type(e).__name__)
+                    # capture BEFORE the teardown: the bundle freezes
+                    # the parked queue, pool balance and slots as they
+                    # were when the retries ran out
+                    self._postmortem_locked("breaker_open",
+                                            error=repr(e))
                 self._fail_all_locked(e)
+            if self._tele is not None:
+                self._tele.on_breaker_open()
 
     def _recover_health(self):
         with self._lock:
@@ -2047,6 +2856,7 @@ class ContinuousBatchingServer:
                 for rec in self._preempted:
                     self._flush_parked_locked(rec)
                 self._preempted.clear()
+                self._preempt_gauge()
                 for item in self._queue:
                     self._failures[item.rid] = ServerClosed(
                         f"request {item.rid} was still queued when the "

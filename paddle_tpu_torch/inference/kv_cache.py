@@ -59,12 +59,16 @@ class PagedKVCache:
         self._free = list(range(num_pages - 1, 0, -1))  # pop() -> low ids
         self._ref = np.zeros((num_pages,), np.int32)
         self._slot_pages = [[] for _ in range(max_slots)]
+        self._slot_shared = [0] * max_slots
         self.dirty = True
         # chaos hook (reliability.FaultInjector): alloc() checks the
         # "kv.alloc" point BEFORE touching the free list, so an injected
         # allocation failure can never leak pages
         self._faults = fault_injector
         self.grown_total = 0       # pages appended mid-decode (grow_slot)
+        self.alloc_total = 0       # pages taken off the free list
+        self.freed_total = 0       # pages returned (refcount hit 0)
+        self.shared_ref_total = 0  # extra refs taken on shared pages
         # last-resort page source: when the free list runs short,
         # ``alloc`` calls ``reclaimer(shortfall)`` once before giving
         # up — the prefix cache hooks in here to evict LRU cached
@@ -98,6 +102,7 @@ class PagedKVCache:
         pages = [self._free.pop() for _ in range(n)]
         for p in pages:
             self._ref[p] = 1
+        self.alloc_total += n
         return pages
 
     def release(self, pages):
@@ -107,6 +112,7 @@ class PagedKVCache:
             self._ref[p] -= 1
             if self._ref[p] == 0:
                 self._free.append(p)
+                self.freed_total += 1
 
     def refcount(self, page):
         """Live references on ``page`` (prefix-cache eviction treats
@@ -145,14 +151,17 @@ class PagedKVCache:
         # could free-and-recycle it mid-admission
         for p in shared_pages:
             self._ref[p] += 1
+        self.shared_ref_total += len(shared_pages)
         try:
             own = self.alloc(need - len(shared_pages))
         except Exception:
             for p in shared_pages:
                 self._ref[p] -= 1
+            self.shared_ref_total -= len(shared_pages)
             raise
         pages = list(shared_pages) + own
         self._slot_pages[slot] = pages
+        self._slot_shared[slot] = len(shared_pages)
         row = self.block_table[slot]
         row[:] = NULL_PAGE
         row[:len(pages)] = pages
@@ -198,9 +207,48 @@ class PagedKVCache:
         and null the block-table row like ``free_slot``."""
         pages = self._slot_pages[slot]
         self._slot_pages[slot] = []
+        self._slot_shared[slot] = 0
         self.block_table[slot, :] = NULL_PAGE
         self.dirty = True
         return pages
+
+    # ------------------------------------------------------- accounting
+    def occupancy(self, num_shards=1, host_tier=None):
+        """Per-slot block-table occupancy, plain data — the postmortem
+        bundle's "who holds which pages" section: pages held and
+        shared-prefix pages per occupied slot, plus the pool totals.
+        ``num_shards`` and ``host_tier`` keep the JAX package's
+        signature; the port's pool is one card's and has no host tier
+        (ROADMAP Queue 1 item 9), so only their views are added when
+        given, as the reference adds them."""
+        occ = {"free_pages": self.free_pages(),
+               "used_pages": self.used_pages(),
+               "pages_per_slot": self.pages_per_slot,
+               "slots": {s: {"pages": len(p),
+                             "shared": self._slot_shared[s]}
+                         for s, p in enumerate(self._slot_pages) if p}}
+        if num_shards > 1:
+            occ["shards"] = [{"shard": i,
+                              "free_pages": occ["free_pages"],
+                              "used_pages": occ["used_pages"]}
+                             for i in range(num_shards)]
+        if host_tier is not None:
+            occ["host_tier"] = dict(host_tier.stats()
+                                    if hasattr(host_tier, "stats")
+                                    else host_tier)
+        return occ
+
+    def telemetry_stats(self):
+        """Point-in-time pool state + cumulative churn, plain data —
+        the ``/stats`` payload and the page-pool gauges source."""
+        return {"num_pages": self.num_pages,
+                "page_size": self.page_size,
+                "free_pages": self.free_pages(),
+                "used_pages": self.used_pages(),
+                "alloc_total": self.alloc_total,
+                "freed_total": self.freed_total,
+                "shared_ref_total": self.shared_ref_total,
+                "grown_total": self.grown_total}
 
     @staticmethod
     def paged_hbm_bytes(num_pages, page_size, layers, kv_heads, head_dim,

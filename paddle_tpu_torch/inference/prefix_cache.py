@@ -125,6 +125,9 @@ class PrefixCache:
         self._protected = frozenset()   # node ids shielded from eviction
         self.pinned_pages = 0   # nodes register_prefix pinned (never evicted)
         self.cached_pages = 0   # unpinned nodes (evictable when refcount 1)
+        self.donated_pages_total = 0   # new nodes created by donate()
+        self.dedup_pages_total = 0     # donated pages already in the tree
+        self.evicted_pages_total = 0
 
     # ---------------------------------------------------------- matching
     def _page_keys(self, ids, npages):
@@ -212,6 +215,7 @@ class PrefixCache:
                 # already cached (maybe the very page this slot shared
                 # at admission): drop the slot's duplicate reference
                 self.kv.release([page])
+                self.dedup_pages_total += 1
             else:
                 child = _Node(key, page, node)
                 self._seq += 1
@@ -223,6 +227,7 @@ class PrefixCache:
                 self._touch(child)
             node = child
         self.kv.release(pages[nf:])
+        self.donated_pages_total += new
         return new
 
     # ---------------------------------------------------------- eviction
@@ -278,8 +283,23 @@ class PrefixCache:
             del victim.parent.children[victim.key]
             self.kv.release([victim.page])
             self.cached_pages -= 1
+            self.evicted_pages_total += 1
             freed += 1
         return freed
+
+    def stats(self):
+        """Point-in-time tree state + cumulative churn, plain data
+        (``/stats`` and postmortem bundles), under the JAX package's
+        keys. ``host_pages`` and ``sketch_size`` stay 0: the host tier
+        and the routing sketch come with the fleet (ROADMAP Queue 1
+        item 9)."""
+        return {"cached_pages": self.cached_pages,
+                "pinned_pages": self.pinned_pages,
+                "host_pages": 0,
+                "sketch_size": 0,
+                "donated_pages_total": self.donated_pages_total,
+                "dedup_pages_total": self.dedup_pages_total,
+                "evicted_pages_total": self.evicted_pages_total}
 
     # ----------------------------------------------------------- pinning
     def extend_pinned(self, ids, run, own_pages):

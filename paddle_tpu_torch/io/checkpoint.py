@@ -52,8 +52,10 @@ class CheckpointManager:
     ``async_save`` defaults to False: synchronous save-then-return is
     the safe default for the durability contract — "save() returned"
     means "this step survives a kill"; ``async_save=True`` moves
-    serialization+fsync off the step path. ``registry=`` raises
-    ``NotImplementedError`` (ROADMAP Queue 1 item 8).
+    serialization+fsync off the step path. ``registry=`` publishes the
+    store's checkpoint metrics (``ckpt_save_seconds``,
+    ``ckpt_restore_seconds``, ``ckpt_last_good_step``,
+    ``ckpt_corrupt_total``).
     """
 
     def __init__(self, directory, max_to_keep=3, save_interval_steps=1,

@@ -2,9 +2,7 @@
 
 Port of ``paddle_tpu/metric/__init__.py``: metrics accumulate on the
 host in numpy; torch tensors (on any device, bf16 widened to f32) are
-read as numpy arrays. ``publish`` (a metric into a telemetry gauge)
-raises ``NotImplementedError`` until the port has a telemetry registry
-(ROADMAP Queue 1 item 8).
+read as numpy arrays. ``publish`` puts a metric into a telemetry gauge.
 """
 import numpy as np
 import torch
@@ -14,9 +12,23 @@ __all__ = ["Metric", "Accuracy", "Precision", "Recall", "Auc", "accuracy",
 
 
 def publish(metric, registry, name=None):
-    raise NotImplementedError(
-        "metric.publish: the telemetry registry is not ported yet "
-        "(ROADMAP Queue 1 item 8)")
+    """Publish a ``Metric``'s ``accumulate()`` into a telemetry gauge
+    (``eval_<metric base name>`` by default) so eval-loop quality
+    metrics ride the same ``/metrics`` exposition as the
+    serving/training signals. Multi-valued metrics (e.g. top-k
+    Accuracy) keep one gauge per metric and label each component.
+    Returns the value(s) published."""
+    vals = metric.accumulate()
+    names = metric.name()
+    base = name or f"eval_{getattr(metric, '_name', None) or 'metric'}"
+    if isinstance(vals, (list, tuple)):
+        g = registry.gauge(base, "Eval metric value",
+                           labelnames=("component",))
+        for n, v in zip(names, vals):
+            g.labels(component=n).set(float(v))
+    else:
+        registry.gauge(base, "Eval metric value").set(float(vals))
+    return vals
 
 
 def _np(x):

@@ -28,7 +28,7 @@ import time
 from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "build_all", "library", "function",
-           "build_log"]
+           "build_log", "build_seconds"]
 
 _PKG = Path(__file__).resolve().parents[2]           # paddle_tpu_torch/
 CSRC = _PKG / "csrc"
@@ -41,6 +41,7 @@ _lock = threading.Lock()
 _libs = {}          # source stem -> loaded ctypes.CDLL
 _fns = {}           # (stem, name) -> C function with its argument types
 _log = {}           # source stem -> {"seconds", "ptxas"} of a fresh build
+_build_s = [0.0]    # wall seconds of the build_all calls that compiled
 
 
 def _nvcc():
@@ -82,6 +83,7 @@ def build_all():
         missing = [(s, t) for s, t in todo if not t.exists()]
         secs = {s.stem: 0.0 for s, _ in todo}
         if missing:
+            t_all = time.perf_counter()
             nvcc = _nvcc()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             procs = []
@@ -105,6 +107,7 @@ def build_all():
                 os.replace(tmp, out)     # atomic: racing builders agree
                 _log[src.stem] = {"seconds": secs[src.stem],
                                   "ptxas": stdout + stderr}
+            _build_s[0] += time.perf_counter() - t_all
             if errors:
                 raise RuntimeError("\n".join(errors))
         for src, out in todo:
@@ -135,6 +138,12 @@ def function(stem, name, argtypes):
         fn.restype = ctypes.c_int
         _fns[stem, name] = fn
     return fn
+
+
+def build_seconds():
+    """Wall seconds this process spent compiling kernel libraries (the
+    ``build_all`` calls that found a library missing)."""
+    return _build_s[0]
 
 
 def build_log():

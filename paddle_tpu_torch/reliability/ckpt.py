@@ -57,11 +57,16 @@ from .errors import CheckpointCorruptError
 __all__ = ["write_checkpoint", "read_checkpoint", "verify_checkpoint",
            "checkpoint_meta", "recover_interrupted_swaps",
            "CheckpointStore", "AsyncCheckpointer",
-           "MANIFEST_NAME"]
+           "MANIFEST_NAME", "CKPT_SAVE_BUCKETS"]
 
 MANIFEST_NAME = "manifest.json"
 _FORMAT = 1
 _STEP_RE = re.compile(r"^step_(\d+)$")
+
+# Save/restore latencies: tmpfs microseconds up to multi-minute sharded
+# dumps on network filesystems.
+CKPT_SAVE_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0,
+                     30.0, 60.0, 300.0, 600.0)
 
 
 def _sha256(data):
@@ -380,17 +385,15 @@ class CheckpointStore:
       corrupt/newer-but-torn dirs never push a valid one out, and the
       newest valid checkpoint is never deleted.
 
-    The telemetry of the reference (``ckpt_save_seconds`` /
+    Telemetry (optional ``registry``): ``ckpt_save_seconds`` /
     ``ckpt_restore_seconds`` histograms, ``ckpt_last_good_step`` gauge,
-    ``ckpt_corrupt_total`` counter) waits for the port's telemetry:
-    ``registry=`` raises ``NotImplementedError`` (ROADMAP Queue 1 item
-    8).
+    ``ckpt_corrupt_total`` counter.
     """
 
     _STEP_RE = _STEP_RE
 
     def __init__(self, directory, max_to_keep=None, fsync=True,
-                 injector=None, registry=None):
+                 injector=None, registry=None, clock=None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
@@ -403,11 +406,28 @@ class CheckpointStore:
         # refreshes entries, so externally corrupted dirs are demoted
         # the moment recovery actually looks at them)
         self._valid_cache = {}
-        if registry is not None:
-            raise NotImplementedError(
-                "CheckpointStore(registry=...): the telemetry registry is "
-                "not ported yet (ROADMAP Queue 1 item 8)")
         recover_interrupted_swaps(self.directory)
+        if clock is None:
+            from ..telemetry.clock import MonotonicClock
+            clock = MonotonicClock()
+        self._clock = clock
+        if registry is None:
+            from ..telemetry.metrics import NULL_INSTRUMENT
+            self._h_save = self._h_restore = NULL_INSTRUMENT
+            self._g_last_good = self._c_corrupt = NULL_INSTRUMENT
+        else:
+            self._h_save = registry.histogram(
+                "ckpt_save_seconds", "Durable checkpoint save duration",
+                buckets=CKPT_SAVE_BUCKETS)
+            self._h_restore = registry.histogram(
+                "ckpt_restore_seconds", "Checkpoint restore duration",
+                buckets=CKPT_SAVE_BUCKETS)
+            self._g_last_good = registry.gauge(
+                "ckpt_last_good_step",
+                "Newest step with a checksum-valid checkpoint")
+            self._c_corrupt = registry.counter(
+                "ckpt_corrupt_total",
+                "Checkpoint dirs that failed verification")
 
     # ------------------------------------------------------------ paths
     def step_path(self, step):
@@ -479,10 +499,13 @@ class CheckpointStore:
             self._sweep_tmp()
             meta = dict(meta or {})
             meta.setdefault("step", step)
+            t0 = self._clock.now()
             write_checkpoint(self.step_path(step), state, meta, step=step,
                              injector=self.injector, fsync=self.fsync,
                              overwrite=True)
             self._valid_cache[step] = True
+            self._h_save.observe(self._clock.now() - t0)
+            self._g_last_good.set(step)
             self._prune()
             return self.step_path(step)
 
@@ -514,8 +537,10 @@ class CheckpointStore:
 
     def _restore_locked(self, step):
         recover_interrupted_swaps(self.directory)
+        t0 = self._clock.now()
         if step is not None:
             state, meta = read_checkpoint(self.step_path(step))
+            self._h_restore.observe(self._clock.now() - t0)
             return state, meta, int(step)
         self.skipped = []
         for s in reversed(self.all_steps()):
@@ -524,8 +549,11 @@ class CheckpointStore:
             except CheckpointCorruptError as e:
                 self.skipped.append((s, str(e)))
                 self._valid_cache[s] = False
+                self._c_corrupt.inc()
                 continue
             self._valid_cache[s] = True
+            self._h_restore.observe(self._clock.now() - t0)
+            self._g_last_good.set(s)
             return state, meta, s
         return None, None, None
 

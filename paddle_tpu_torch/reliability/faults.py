@@ -5,8 +5,8 @@ framework-free); the port fires the serving points (``PREFILL``,
 ``DECODE_TICK``, ``PAGE_ALLOC``, ``KV_GROW``, ``SERVER_PREEMPT``,
 ``ON_TOKEN``, ``PREFIX_EVICT``, ``PREFIX_DONATE``) and the training and
 checkpoint points (``CKPT_WRITE``, ``CKPT_RENAME``, ``CKPT_SWAP``,
-``TRAIN_STEP``, ``DATA_NEXT``). Publishing fires to a telemetry registry waits for the
-port's telemetry (ROADMAP Queue 1 item 8): ``registry=`` raises.
+``TRAIN_STEP``, ``DATA_NEXT``), and publishes its fires to a telemetry
+registry and a flight recorder as the reference does.
 
 A ``FaultInjector`` owns named FAILURE POINTS. Production code calls
 ``injector.check("train.step")`` at each point (only when an injector
@@ -138,6 +138,14 @@ class FaultInjector:
     ...                           .on(CKPT_WRITE, schedule=[3])
     >>> sup = TrainSupervisor("/ckpts/run1", injector=fi)
 
+    Observability: ``publish_to(registry)`` mints
+    ``fault_fires_total{point}`` so a chaos storm is VISIBLE on
+    ``/metrics`` (a server with telemetry attached wires this
+    automatically), and ``recorder`` (a ``telemetry.FlightRecorder``;
+    the server wires its own at construction) records each fire as a
+    ``fault`` event. Neither hook consumes the per-point PRNG streams —
+    same-seed injection traces stay identical.
+
     ``enabled=False`` (or ``disarm()``) turns every ``check`` into a
     counter-only visit, so one test can run the same script with and
     without chaos.
@@ -150,6 +158,9 @@ class FaultInjector:
         self._rngs = {}
         self._visits = {}
         self.trace = []               # (point, visit_index) of FIRES
+        self._fires = []              # fault_fires_total counters, one
+        #                               per ATTACHED registry
+        self.recorder = None          # FlightRecorder (fires -> events)
         self._lock = threading.Lock()
         self.publish_to(registry)
 
@@ -172,13 +183,18 @@ class FaultInjector:
         return self
 
     def publish_to(self, registry):
-        """Publish ``fault_fires_total{point}`` to ``registry``. The
-        port has no telemetry registry yet: None is a no-op, anything
-        else raises ``NotImplementedError`` (ROADMAP Queue 1 item 8)."""
-        if registry is not None:
-            raise NotImplementedError(
-                "FaultInjector(registry=...): the telemetry registry is "
-                "not ported yet (ROADMAP Queue 1 item 8)")
+        """Publish ``fault_fires_total{point}`` to ``registry``
+        (``telemetry.MetricRegistry``; None or disabled no-ops).
+        Idempotent per registry, CUMULATIVE across registries: an
+        injector shared by several components counts every fire in
+        every attached registry."""
+        if registry is not None and registry.enabled:
+            c = registry.counter(
+                "fault_fires_total",
+                "Injected chaos faults fired, by failure point",
+                labelnames=("point",))
+            if all(c is not prev for prev in self._fires):
+                self._fires.append(c)
         return self
 
     def arm(self):
@@ -226,6 +242,13 @@ class FaultInjector:
                 return
             rule.fired += 1
             self.trace.append((point, n))
+        # observability hooks OUTSIDE the injector lock (each has its
+        # own short lock): the fire is visible on /metrics and in the
+        # flight recorder before the error even propagates
+        for fires in self._fires:
+            fires.labels(point=point).inc()
+        if self.recorder is not None:
+            self.recorder.record("fault", point=point, visit=n)
         if rule.error is None:
             err = InjectedFault(point, n)
         else:

@@ -1,9 +1,8 @@
 """Server health state machine.
 
 Copied from ``paddle_tpu/reliability/health.py`` (framework-free). The
-server reads it through its ``health`` property; the ``server_health``
-gauge and ``/healthz`` that publish it in the JAX package wait for the
-port's telemetry (ROADMAP Queue 1 item 8). Four states:
+server reads it through its ``health`` property and publishes it as the
+``server_health`` gauge and on ``/healthz``. Four states:
 
 - ``healthy``  — serving normally.
 - ``degraded`` — serving, but the circuit breaker opened recently;

@@ -3,8 +3,9 @@
 Port of ``paddle_tpu/reliability/training.py`` (framework-free but for
 the global RNG state, which is the port's ``core.random``: its key is
 checkpointed as a numpy ``uint32 [2]``, as the reference's jax key is).
-The telemetry counters wait for the port's telemetry: ``registry=``
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 8).
+``registry=`` publishes the reference's counters (``train_anomaly_total
+{kind}``, ``train_rollback_total``, ``train_step_retries_total``,
+``train_preempt_total``) and the store's checkpoint metrics.
 
 ``TrainSupervisor`` is the training-side sibling of ``ServeSupervisor``:
 it owns the durable ``CheckpointStore``, the retry/breaker policy around
@@ -204,13 +205,9 @@ class TrainSupervisor:
                  retry=None, breaker=None, max_step_retries=3,
                  async_save=False, track_global_rng=True,
                  injector=None, registry=None, max_to_keep=None):
-        if registry is not None:
-            raise NotImplementedError(
-                "TrainSupervisor(registry=...): the telemetry registry is "
-                "not ported yet (ROADMAP Queue 1 item 8)")
         if not isinstance(store, CheckpointStore):
             store = CheckpointStore(store, max_to_keep=max_to_keep,
-                                    injector=injector)
+                                    injector=injector, registry=registry)
         else:
             if injector is not None and store.injector is None:
                 store.injector = injector
@@ -234,6 +231,23 @@ class TrainSupervisor:
         self.rollbacks = 0
         self.retries_total = 0
         self.preempts_total = 0
+        if registry is None:
+            from ..telemetry.metrics import NULL_INSTRUMENT
+            self._c_anomaly = self._c_rollback = NULL_INSTRUMENT
+            self._c_retries = self._c_preempt = NULL_INSTRUMENT
+        else:
+            self._c_anomaly = registry.counter(
+                "train_anomaly_total", "Anomalous (skipped) train steps",
+                labelnames=("kind",))
+            self._c_rollback = registry.counter(
+                "train_rollback_total",
+                "Rollbacks to the last good checkpoint")
+            self._c_retries = registry.counter(
+                "train_step_retries_total",
+                "Step/data retries after transient failures")
+            self._c_preempt = registry.counter(
+                "train_preempt_total",
+                "Preemptions handled (checkpoint + clean exit)")
 
     # ------------------------------------------------------- preemption
     @property
@@ -253,6 +267,7 @@ class TrainSupervisor:
         """Account one handled preemption; the loop acting on
         ``preempted`` calls this exactly once."""
         self.preempts_total += 1
+        self._c_preempt.inc()
 
     def install_signal_handlers(self, signals=None):
         """Route SIGTERM (by default) to ``request_preemption``. Main
@@ -363,6 +378,7 @@ class TrainSupervisor:
                         f"{point} failed after {attempt + 1} attempts") \
                         from e
                 self.retries_total += 1
+                self._c_retries.inc()
                 self.retry.sleep(attempt)
                 attempt += 1
                 continue
@@ -379,6 +395,7 @@ class TrainSupervisor:
         checkpoint); raises ``TrainAnomalyError`` once the rollback
         budget is spent."""
         self.anomalies += 1
+        self._c_anomaly.labels(kind=kind).inc()
         self._consec_anomalies += 1
         if self._consec_anomalies < self.anomaly.max_consecutive:
             return "skip"
@@ -389,6 +406,7 @@ class TrainSupervisor:
                 kind=kind, step=step)
         self._consec_anomalies = 0
         self.rollbacks += 1
+        self._c_rollback.inc()
         return "rollback"
 
     # --------------------------------------------------- standalone loop

@@ -11,7 +11,8 @@
   fallback, pruning, the async checkpointer's barrier and sticky
   failures, the manager's interval and retention) hold in both
   packages: each case runs once against each;
-- the telemetry hooks and sharded checkpoints name their ROADMAP items.
+- the telemetry hooks publish the reference's metrics, and sharded
+  checkpoints name their ROADMAP item.
 """
 import collections
 import os
@@ -297,11 +298,23 @@ def test_manager_interval_retention_and_metrics(impl, tmp_path):
 
 
 def test_port_refusals_name_their_roadmap_items(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trel.CheckpointStore(str(tmp_path), registry=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trel.FaultInjector(registry=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trel.TrainSupervisor(str(tmp_path), registry=object())
+    """Sharded checkpoints still refuse, naming their item; the registry
+    hooks that refused before the port had telemetry now publish the
+    reference's metrics."""
+    from paddle_tpu_torch.telemetry import MetricRegistry
+    reg = MetricRegistry()
+    store = trel.CheckpointStore(str(tmp_path / "c"), registry=reg)
+    store.save(3, _state(1.0))
+    store.restore()
+    fi = trel.FaultInjector(registry=reg).on("train.step", schedule=[0])
+    with pytest.raises(trel.InjectedFault):
+        fi.check("train.step")
+    trel.TrainSupervisor(str(tmp_path / "s"), registry=reg).note_preempt()
+    snap = reg.snapshot()
+    assert snap["ckpt_last_good_step"]["samples"][()] == 3
+    assert snap["ckpt_save_seconds"]["samples"][()]["count"] == 1
+    assert snap["ckpt_restore_seconds"]["samples"][()]["count"] == 1
+    assert snap["fault_fires_total"]["samples"][("train.step",)] == 1
+    assert snap["train_preempt_total"]["samples"][()] == 1
     with pytest.raises(NotImplementedError, match="item 13"):
         tio_ckpt.save_sharded({}, str(tmp_path / "s"))

@@ -22,7 +22,11 @@ within 0.02 lr (two BLAS summation orders; XLA's fused multiply-adds).
   functional update), and its step count, which bias-corrects the next
   update, advances over a skipped NaN step; and every optimizer's
   ``functional()`` update of bf16 parameters equals the reference's op
-  by op, bit for bit (the rate weakly typed).
+  by op, bit for bit (the rate weakly typed);
+- the training telemetry: ``TelemetryCallback`` and a registry on the
+  ``TrainSupervisor`` (and its checkpoint store) in a poisoned fit, and
+  a registry on ``io.CheckpointManager``, publish the reference's
+  samples.
 """
 import functools
 
@@ -377,3 +381,89 @@ def test_functional_update_of_bf16_parameters_equals_reference(name, kw):
         assert tp[k].dtype == torch.bfloat16
         np.testing.assert_array_equal(tp[k].float().numpy(),
                                       np.asarray(jp[k], np.float32))
+
+
+# ------------------------------------------------- training telemetry
+def _telemetry_fit(m, mods, tmp_path):
+    """A poisoned MLP fit under a supervisor with a registry, with the
+    telemetry callback on a FakeClock advanced 0.25 s a batch."""
+    ds, sup_cls, T = mods
+    x, y = _mlp_data(poison=True)
+    reg = T.MetricRegistry()
+    fc = T.FakeClock()
+    tele = T.TelemetryCallback(reg, clock=fc, samples_per_batch=8)
+
+    class _Tick:
+        def set_model(self, model):
+            pass
+
+        def __getattr__(self, name):
+            if name.startswith("on_"):
+                return lambda *a, **k: None
+            raise AttributeError(name)
+
+        def on_train_batch_begin(self, step, logs=None):
+            fc.advance(0.25)
+
+    sup = sup_cls(str(tmp_path), save_interval_steps=2, registry=reg)
+    m.fit(ds([x, y]), batch_size=8, epochs=1, shuffle=False, verbose=0,
+          callbacks=[tele, _Tick()], supervisor=sup)
+    return reg.snapshot()
+
+
+def test_telemetry_callback_and_supervisor_registry_match_reference(
+        tmp_path):
+    """``Model.fit`` with ``TelemetryCallback`` and a registry on the
+    ``TrainSupervisor`` (and so on its checkpoint store): the same
+    step histogram (3 batches on the FakeClock), steps, samples and
+    throughput, the same anomaly, rollback, retry and preemption counters
+    and checkpoint saves and last good step as the reference's fit; the
+    last loss within the Adam tolerance."""
+    import paddle_tpu.telemetry as JT
+    import paddle_tpu_torch.telemetry as TT
+    jm, tm = _mlp_pair()
+    want = _telemetry_fit(jm, (JTensorDataset, JTrainSupervisor, JT),
+                          tmp_path / "jax")
+    got = _telemetry_fit(tm, (TensorDataset, TrainSupervisor, TT),
+                         tmp_path / "torch")
+    assert set(got) == set(want)
+    timed = {"ckpt_save_seconds", "ckpt_restore_seconds"}
+    for name in set(got) - timed - {"train_loss"}:
+        assert got[name]["samples"] == want[name]["samples"], name
+    for name in timed:
+        assert got[name]["samples"][()]["count"] == \
+            want[name]["samples"][()]["count"]
+    np.testing.assert_allclose(got["train_loss"]["samples"][()],
+                               want["train_loss"]["samples"][()], rtol=0,
+                               atol=LOSS_TOL)
+    assert got["train_step_seconds"]["samples"][()]["count"] == 3
+    assert got["train_anomaly_total"]["samples"] == \
+        {("nonfinite_loss",): 1.0}
+    assert got["ckpt_last_good_step"]["samples"][()] == 3
+
+
+def test_checkpoint_manager_registry_matches_reference(tmp_path):
+    """``io.CheckpointManager(registry=...)``: saves, a corrupt newest
+    checkpoint skipped on restore, and the restore, counted as the
+    reference's manager counts them."""
+    import paddle_tpu.io.checkpoint as jck
+    import paddle_tpu.telemetry as JT
+    import paddle_tpu_torch.io.checkpoint as tck
+    import paddle_tpu_torch.telemetry as TT
+    out = []
+    for mod, T, d in ((jck, JT, "jax"), (tck, TT, "torch")):
+        reg = T.MetricRegistry()
+        mgr = mod.CheckpointManager(str(tmp_path / d), max_to_keep=3,
+                                    registry=reg)
+        for step in (1, 2, 3):
+            mgr.save(step, {"w": np.full(3, float(step))})
+        with open(f"{mgr.store.step_path(3)}/leaf_00000.pkl", "ab") as f:
+            f.write(b"\x00torn")
+        state = mgr.restore()
+        assert float(np.asarray(state["w"])[0]) == 2.0
+        snap = reg.snapshot()
+        out.append({k: (v["samples"] if "seconds" not in k else
+                        v["samples"][()]["count"])
+                    for k, v in snap.items()})
+    assert out[1] == out[0]
+    assert out[1]["ckpt_corrupt_total"] == {(): 1.0}

@@ -60,7 +60,12 @@ def test_scan_sees_the_whole_port():
             "paddle_tpu_torch/models/bridge.py",
             "paddle_tpu_torch/ops/kernels/multi_tensor_adam.py",
             "paddle_tpu_torch/reliability/health.py",
-            "paddle_tpu_torch/reliability/supervisor.py"} <= names
+            "paddle_tpu_torch/reliability/supervisor.py",
+            "paddle_tpu_torch/telemetry/costs.py",
+            "paddle_tpu_torch/telemetry/serving.py",
+            "paddle_tpu_torch/telemetry/exposition.py",
+            "paddle_tpu_torch/models/costs.py",
+            "paddle_tpu_torch/inference/serving.py"} <= names
     assert len(names) >= 43
 
 

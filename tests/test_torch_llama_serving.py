@@ -386,9 +386,7 @@ def pt_errors():
     # optimistic admission runs on the pool; the dense backend refuses
     # it, as the reference does
     {"admission": "optimistic", "cache_backend": "dense"},
-    {"mesh": object()},
-    {"telemetry": True}, {"recorder": True}, {"ledger": True},
-    {"costs": True}, {"journeys": True}, {"host_tier": True},
+    {"mesh": object()}, {"host_tier": True},
     {"weight_dtype": "int8"}, {"cache_dtype": "int8"},
 ], ids=lambda kw: next(iter(kw)))     # ids must not vary per process
 def test_unported_options_raise_with_a_roadmap_pointer(kw):
@@ -399,11 +397,35 @@ def test_unported_options_raise_with_a_roadmap_pointer(kw):
                                  page_size=PG, **kw)
 
 
+@pytest.mark.parametrize("name,attr", [
+    ("telemetry", "_tele"), ("recorder", "_rec"), ("ledger", "_led"),
+    ("costs", "_costs"), ("journeys", "_jrec")])
+def test_telemetry_options_build_default_objects(name, attr):
+    """The telemetry options, once refusals naming their ROADMAP item:
+    ``True`` builds a default, enabled object (the ledger and the
+    catalog on the telemetry's registry when both are on), and a
+    disabled object is treated as None, as in the JAX server."""
+    from paddle_tpu_torch import telemetry as tt
+    _, tm = _models()
+    srv = ContinuousBatchingServer(tm, max_slots=2, max_cache_len=MCL,
+                                   page_size=PG, cache_backend="paged",
+                                   **{"telemetry": True, name: True})
+    assert getattr(srv, attr) is getattr(srv, name)
+    assert getattr(srv, name).enabled
+    off = {"telemetry": tt.ServerTelemetry(tt.MetricRegistry(False)),
+           "recorder": tt.FlightRecorder(enabled=False),
+           "ledger": tt.GoodputLedger(enabled=False),
+           "costs": tt.CostCatalog(enabled=False),
+           "journeys": tt.JourneyRecorder(enabled=False)}[name]
+    srv = ContinuousBatchingServer(tm, max_slots=2, max_cache_len=MCL,
+                                   page_size=PG, cache_backend="paged",
+                                   **{name: off})
+    assert getattr(srv, attr) is None and getattr(srv, name) is off
+
+
 def test_other_refusals_point_at_the_roadmap():
     _, tm = _models()
     srv = _server(ContinuousBatchingServer, tm)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        srv.submit(np.arange(4, dtype=np.int32), journey=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.pipeline_decompose()
 

@@ -2,7 +2,8 @@
 numpy inputs (and the same inputs as torch tensors, bf16 among them):
 ``Accuracy`` (top-1 and top-k, its ``compute`` / ``update`` /
 ``accumulate`` / ``name``), ``Precision``, ``Recall``, ``Auc`` and
-``accuracy`` agree exactly; ``publish`` names its ROADMAP item."""
+``accuracy`` agree exactly; ``publish`` writes the reference's gauges
+into a telemetry registry."""
 import numpy as np
 import pytest
 import torch
@@ -69,5 +70,17 @@ def test_functional_accuracy(k):
 
 
 def test_publish_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tm.publish(tm.Accuracy(), registry=object())
+    """``publish`` was a refusal naming its ROADMAP item until the port
+    had a registry: it now renders the reference's Prometheus page, byte
+    for byte, for a single- and a multi-valued metric."""
+    from paddle_tpu.telemetry import MetricRegistry as JReg
+    from paddle_tpu_torch.telemetry import MetricRegistry as TReg
+    logits, labels, _, _ = _inputs()
+    pages = []
+    for mod, reg in ((jm, JReg()), (tm, TReg())):
+        for topk in ((1,), (1, 3)):
+            m = mod.Accuracy(topk=topk, name=f"acc{len(topk)}")
+            m.update(m.compute(logits, labels))
+            mod.publish(m, reg)
+        pages.append(reg.render())
+    assert pages[0] == pages[1] and "eval_acc2" in pages[1]

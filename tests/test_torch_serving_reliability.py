@@ -1,9 +1,9 @@
 """The port's supervised serve loop, health states and drain, on the CPU.
 
 The JAX package's ``tests/test_serving_reliability.py`` classes
-``TestSupervisedLoop`` and ``TestHealthAndDrain`` on the port's server,
-without ``/healthz`` and the metrics, which wait for the port's
-telemetry (ROADMAP Queue 1 item 8). They run on the torch stub of
+``TestSupervisedLoop`` and ``TestHealthAndDrain`` on the port's server
+(``/healthz`` and the metrics are held in ``tests/test_torch_telemetry.py``
+and ``tests/test_torch_flight_recorder.py``). They run on the torch stub of
 ``tests/test_torch_preemption.py`` (the decode-bundle contract with the
 closed-form oracle ``stub_tokens``) and ``FakeClock`` deadlines:
 

@@ -4,8 +4,8 @@
 ``TestSupervisorLoop``, ``TestSupervisedFit``,
 ``TestCallbackListFiresAll``) run on the port, on the CPU, merged into
 parametrised cases where they repeat each other. Where the reference
-reads its telemetry registry (not ported: ROADMAP Queue 1 item 8), the
-supervisor's own counters are read instead; ``pt.rand`` becomes a draw
+reads its telemetry registry, the supervisor's own counters are read
+(the registry's counters are held in ``tests/test_torch_hapi.py``); ``pt.rand`` becomes a draw
 of ``core.random.next_key``. The fit cases train a 4-8-1 MLP (port
 ``nn.Linear`` layers in a ``torch.nn.Sequential``, ``Adam``,
 ``BCEWithLogitsLoss``); resumed runs must match uninterrupted ones BIT
