@@ -16,6 +16,7 @@
     python3 chip_smoke.py --only build,dense_parity,dense
     python3 chip_smoke.py --only build,preempt_parity,serve,preempt
     python3 chip_smoke.py --only build,serve,telemetry,fit
+    python3 chip_smoke.py --only build,fleet_parity,fleet
 
 Phases, in order; any failure exits non-zero:
 
@@ -314,7 +315,46 @@ Phases, in order; any failure exits non-zero:
    admission tick and of a steady decode tick, the ledger's kinds and
    goodput ratio, each op's FLOPs, bytes, MFU and roofline ratio over
    its launch phase's seconds;
-22. int8_infer: the serve phase's Llama-2-7B (full width and depth):
+22. fleet_parity: llama_tiny in f32 on the card against the same scripts
+   on the CPU (weights from seed 3): a request moved mid-decode between
+   two port servers (``migrate_out`` / ``migrate_in``, every page's
+   sha256 checked on arrival), split and fused, greedy and sampled; a
+   session spilled to the host tier by later sessions and restored on
+   its next turn; a disaggregated handoff (a prefill specialist and a
+   decode replica behind ``ReplicaRouter(placement="disaggregated")``);
+   a kill with failover. Gates: the card's tokens equal the CPU's in
+   every scenario; each equals its never-migrated, never-evicted or
+   single-replica run (a flushed partial is a prefix of it); zero
+   re-prefill on each target; no request fails; live == 0 on every
+   pool; the card's launches of K1 and K2 (split), K3 (fused) and R1
+   (sampled) > 0, none on the CPU;
+23. fleet: the in-process fleet on Llama-2-7B in bf16 (the serve phase's
+   model): paged ragged replicas sharing its weights, each with the
+   serve geometry (8 slots x 2048 tokens, 16-token pages, 512 prompt
+   tokens a tick), behind ``ReplicaRouter``. Affinity: the serve
+   prompts behind a 256-token prefix; after a donor, all 7 route to its
+   replica (7 affinity hits, prefix hit tokens); the router's host ms a
+   submit. Failover: 12 more such requests (all on the donor's replica:
+   8 in its slots, 4 queued), ``kill()`` once a slot decodes: the queued
+   ones complete on siblings, the partials flush, no request fails,
+   live == 0 on every replica, the corpse too; ``serve_metrics(router)``
+   ``/healthz`` 200, then 503 after ``stop()``. Migration: a 900-token
+   request moved A -> B after 8 tokens, split and fused, greedy and
+   sampled: its stream equals the never-migrated run's, B prefills 0
+   tokens, every page passes its sha256; migrate_out and migrate_in ms,
+   and the parts (gather, host copy, sha256, scatter) with pages, MiB
+   and GB/s. Host tier: a 130-page pool where three 1000-token sessions
+   spill the first, whose next turn restores it: tokens equal the
+   never-evicted run's, spill and restore GB/s. Disaggregated: one
+   prefill specialist and two decode replicas against a hybrid fleet of
+   three on the serve prompts: every prompt of >= 256 tokens handed off,
+   0 rows prefilled for them on their targets, the handoff latency
+   (pump start to commit), the token agreement with the hybrid fleet
+   (informational: chunk shapes differ), both fleets' tokens/s. Every
+   wave's launches: K1 == decode ticks x layers and K2 == prefill
+   launches x layers over its split replicas, K3 == fused passes x
+   layers over its fused ones, R1 == the draws, no K6 or R2;
+24. int8_infer: the serve phase's Llama-2-7B (full width and depth):
    one bf16 forward of 8 x 512 ids from seed 0, then
    ``to_int8_inference(model, inplace=True)`` and the same forward with
    the counters zeroed just before and read just after: 7 x layers + 1
@@ -323,7 +363,7 @@ Phases, in order; any failure exits non-zero:
    and the largest relative logit
    error against bf16, ms per forward and tokens/s for both, peak memory,
    a profile of one forward of each;
-23. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
+25. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
    f32 moments, one fixed 8 x 1024 batch from seed 0: 2 warm-up steps,
    then 10 timed with the counters zeroed just before and read just
    after (K4: 10 x layers each, K5: 10 x (2 x layers + 1) each, K6's q +
@@ -332,14 +372,14 @@ Phases, in order; any failure exits non-zero:
    fall and stay finite, gradients finite; step time, tokens/s, peak
    memory and a profile of one step (its launches, the optimizer's
    device time);
-24. train_compose: the same model, weights, batch and optimizer with rope
+26. train_compose: the same model, weights, batch and optimizer with rope
    on the composition (``ops.rope._COMPOSITION_ONLY``, set for the phase
    and restored after it): 2 warm-up steps and 5 timed, the counters
    zeroed before the first and read after the last (no K6); the 7 losses
    equal to the train phase's first 7 bit for bit (K6 is the composition
    bit for bit, forward and backward); ms per step of both phases from
    this call, and a profile of one step;
-25. train_amp: the slice's path. llama_350m at full width and depth
+27. train_amp: the slice's path. llama_350m at full width and depth
    from seed 0, ``amp.decorate(level="O2", dtype="bfloat16")`` (the rope
    tables stay f32), ``AdamW(multi_precision=True, weight_decay=0.01``
    off the norms, ``grad_clip=ClipGradByGlobalNorm(1.0))`` on the fused
@@ -356,7 +396,7 @@ Phases, in order; any failure exits non-zero:
    written into one gradient of the second: that step is skipped
    (parameters unchanged bit for bit, the optimizer not stepped) and the
    scale halves;
-26. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
+28. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
    llama_350m in bf16 at full width and depth from seed 0,
    ``AdamW(1e-4, weight_decay=0.01)``, ``nn.CrossEntropyLoss()``, a
    ``TensorDataset`` of 96 rows of 1025 seeded ids (inputs the first
@@ -400,7 +440,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "opt",
           "rng", "parity", "dense_parity", "preempt_parity", "train_parity",
           "int8_parity", "serve", "dense", "preempt", "telemetry",
-          "int8_infer", "train",
+          "fleet_parity", "fleet", "int8_infer", "train",
           "train_compose", "train_amp", "fit")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
@@ -4537,6 +4577,581 @@ def phase_telemetry(torch, np, card, peak, record, model, serve_res):
     return model
 
 
+def fleet_drive(router, reps, cap=20000):
+    """Drive a router's fleet from this thread: one supervisor poll,
+    then one ``step()`` of every serving replica with work, until the
+    fleet is idle (a killed replica is never stepped). While a handoff
+    pump runs (its own thread), each round leaves it a few milliseconds
+    to take the servers' locks between ticks. A paused migration or an
+    open staging holds a slot, so an idle fleet has none in flight."""
+    idle = 0
+    for _ in range(cap):
+        router.poll()
+        busy = False
+        for rep in reps:
+            if rep.health != "dead" and (rep.queue_depth()
+                                         or rep.in_flight()):
+                rep.step()
+                busy = True
+        idle = 0 if busy else idle + 1
+        if idle >= 2:
+            return
+        if router._pumping or not busy:
+            time.sleep(0.005 if router._pumping else 0.001)
+    raise SystemExit("fleet: the router's drive did not converge")
+
+
+def fleet_stats(reps, keys=("decode_ticks", "prefill_launches",
+                            "fused_passes", "sample_launches")):
+    return {k: sum(r.stats[k] for r in reps) for k in keys}
+
+
+def fleet_launch_gates(c, before, after, L, sample):
+    """The launch gates of one fleet wave over its replicas, from the
+    counters read just after it (``c``) and the replicas' summed stats
+    before and after: K1 == decode ticks x layers and K2 == prefill
+    launches x layers over the split replicas, K3 == fused passes x
+    layers over the fused ones, R1 == the draws (none when greedy)."""
+    d = {k: after[k] - before[k] for k in after}
+    gates = {"k1 == decode ticks x layers": c["k1"] == d["decode_ticks"] * L,
+             "k2 == prefill launches x layers":
+                 c["k2"] == d["prefill_launches"] * L,
+             "k3 == fused passes x layers": c["k3"] == d["fused_passes"] * L,
+             "k1 + k3 > 0 (the wave ran on the kernels)":
+                 c["k1"] + c["k3"] > 0,
+             "r1 == draws": c["r1"] == d["sample_launches"]
+             and (c["r1"] > 0) == bool(sample),
+             "no k6 or r2 launch":
+                 c["k6"] == c["k6_qk"] == c["r2_dropout"] == c["r2_fill"]
+                 == 0}
+    return d, gates
+
+
+def fleet_check(tag, checks):
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"{tag}: check failed: {name}")
+
+
+def fleet_parity_run(np, model):
+    """One pass of the fleet_parity scripts on ``model`` (llama_tiny in
+    f32); returns {scenario: tokens} and {scenario: launch counts}."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingServer,
+                                            ReplicaRouter)
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(8)
+    p_mig = rng.integers(0, V, (37,)).astype(np.int32)
+    kw = dict(max_slots=2, max_cache_len=64, cache_backend="paged",
+              page_size=8, prefill_tokens_per_tick=16)
+    sample = dict(do_sample=True, temperature=0.8, top_k=20, top_p=0.9)
+    toks, counts = {}, {}
+    # mid-decode migration, split and fused, greedy and sampled: never
+    # migrated, then moved after 5 tokens
+    for mode in ("split", "fused"):
+        for s in (False, True):
+            k = dict(kw, serving_mode=mode, **(sample if s else {}))
+            zero_counts()
+            ref = serve_wave(ContinuousBatchingServer(model, **k), [p_mig],
+                             16, [9])[0]
+            src = ContinuousBatchingServer(model, **k)
+            tgt = ContinuousBatchingServer(model, **k)
+            rid = src.submit(p_mig, max_new_tokens=16, seed=9)
+            while src._slots[0] is None or len(src._slots[0].emitted) < 5:
+                src.step()
+            state, payloads = src.migrate_out(rid)
+            new = tgt.migrate_in(state, payloads)   # verifies every sha256
+            src.migrate_finish(rid)
+            out = tgt.run()[new]
+            name = f"migrate {mode} {'sampled' if s else 'greedy'}"
+            toks[name] = (ref, out)
+            counts[name] = read_counts()
+            fleet_check(f"fleet_parity {name}", {
+                "tokens equal the never-migrated run's":
+                    np.array_equal(ref, out),
+                "zero re-prefill on the target":
+                    tgt.stats["prefill_tokens"] == 0,
+                "live == 0 on both": src.pool_balance()[1]
+                == tgt.pool_balance()[1] == 0})
+    # spill then restore: session A spilled by three later sessions,
+    # then its next turn restores it
+    prompts = [rng.integers(0, V, (16,)).astype(np.int32) for _ in range(4)]
+    ext = rng.integers(0, V, (3,)).astype(np.int32)
+    zero_counts()
+    outs = {}
+    for name, extra in (("oracle", dict(num_pages=24)),
+                        ("tiered", dict(num_pages=7, host_tier=True))):
+        srv = ContinuousBatchingServer(
+            model, **dict(kw, max_slots=1, **extra))
+        seq = [serve_wave(srv, [p], 4, [101 + i])[0]
+               for i, p in enumerate(prompts)]
+        hist = np.concatenate([prompts[0], seq[0].astype(np.int32), ext])
+        seq.append(serve_wave(srv, [hist], 4, [105])[0])
+        outs[name] = (seq, srv)
+    tier = outs["tiered"][1].host_tier
+    toks["host tier"] = (outs["oracle"][0], outs["tiered"][0])
+    counts["host tier"] = read_counts()
+    fleet_check("fleet_parity host tier", {
+        "tokens equal the never-evicted run's":
+            all(np.array_equal(a, b) for a, b in zip(*toks["host tier"])),
+        "spilled and restored": tier.spilled_pages_total > 0
+        and tier.restored_pages_total >= 2 and tier.restore_corrupt_total
+        == 0})
+    # a disaggregated handoff: prefill specialist -> decode replica
+    long_p = rng.integers(0, V, (40,)).astype(np.int32)
+    zero_counts()
+    ref = serve_wave(ContinuousBatchingServer(model, **kw), [long_p], 8,
+                     [3])[0]
+    pre = ContinuousBatchingServer(model, role="prefill", **kw)
+    dec = ContinuousBatchingServer(model, role="decode", **kw)
+    router = ReplicaRouter([pre, dec], placement="disaggregated",
+                           disagg_prefill_min_tokens=16)
+    rid = router.submit(long_p, max_new_tokens=8, seed=3)
+    fleet_drive(router, [pre, dec])
+    out = router.wait(rid, timeout=60)
+    toks["handoff"] = (ref, out)
+    counts["handoff"] = read_counts()
+    fleet_check("fleet_parity handoff", {
+        "tokens equal a single replica's": np.array_equal(ref, out),
+        "handed off": router.stats["handoffs"] == 1,
+        "zero re-prefill on the decode replica":
+            dec.stats["prefill_tokens"] == 0})
+    # a kill with failover: three queued requests move to the sibling,
+    # the two in flight flush their partials
+    zero_counts()
+    reps = [ContinuousBatchingServer(model, **kw) for _ in range(2)]
+    router = ReplicaRouter(reps)
+    wave = [rng.integers(0, V, (n,)).astype(np.int32)
+            for n in (9, 12, 20, 7, 15)]
+    ref = serve_wave(ContinuousBatchingServer(model, **kw), wave, 6,
+                     list(range(5)))
+    rids = [router.submit(p, max_new_tokens=6, seed=i)
+            for i, p in enumerate(wave)]
+    # least-loaded spreads the wave: kill the replica holding more
+    victim = max(range(2), key=lambda i: reps[i].queue_depth()
+                 + reps[i].in_flight())
+    for _ in range(3):
+        reps[victim].step()
+    reps[victim].kill()
+    fleet_drive(router, reps)
+    got = [router.wait(r, timeout=60) for r in rids]
+    toks["failover"] = (ref, got)
+    counts["failover"] = read_counts()
+    fleet_check("fleet_parity failover", {
+        "each result a prefix of (or equal to) the never-killed run's":
+            all(np.array_equal(g, r[:len(g)]) for g, r in zip(got, ref)),
+        "no request failed": router.failures == {},
+        "live == 0 on every replica, the corpse too":
+            all(r.pool_balance()[1] == 0 for r in reps)})
+    return toks, counts
+
+
+def phase_fleet_parity(torch, np):
+    """llama_tiny in f32 on the card against the same scripts on the
+    CPU: a mid-decode migration (split and fused, greedy and sampled),
+    a spill then restore through the host tier, a disaggregated handoff
+    through the router and a kill with failover. Every page's sha256 is
+    checked on arrival (``migrate_in``)."""
+    from paddle_tpu_torch.models import (LlamaForCausalLM, export_params,
+                                         llama_tiny, load_jax_params)
+    cfg = llama_tiny()
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=3)
+    gpu = LlamaForCausalLM(cfg, device="cuda")
+    load_jax_params(gpu, export_params(cpu))
+    t0 = time.perf_counter()
+    cpu_toks, cpu_counts = fleet_parity_run(np, cpu)
+    card_toks, card_counts = fleet_parity_run(np, gpu)
+    def flat(runs):     # (reference, result), each tokens or a list
+        return [t for r in runs for t in (r if isinstance(r, list)
+                                          else [r])]
+
+    good = True
+    for name in cpu_toks:
+        a, b = flat(card_toks[name]), flat(cpu_toks[name])
+        same = len(a) == len(b) and all(
+            np.array_equal(x, y) for x, y in zip(a, b))
+        n = card_counts[name]
+        split = "fused" not in name
+        want = ("k3",) if not split else ("k1", "k2")
+        launched = all(n[k] > 0 for k in want)
+        if "sampled" in name:
+            launched &= n["r1"] > 0
+        idle_cpu = not any(cpu_counts[name].values())
+        log(f"fleet_parity {name}: card tokens equal to the CPU's {same}, "
+            f"card launches {n}")
+        good &= same and launched and idle_cpu
+    log(f"fleet_parity: {time.perf_counter() - t0:.1f} s")
+    if not good:
+        raise SystemExit("fleet_parity: the card's fleet tokens differ from "
+                         "the CPU's, or a kernel of the path was not "
+                         "launched")
+
+
+def fleet_migration(torch, np, model, kw, prompt, n_new, mode, sample):
+    """One request moved A -> B mid-decode between two identical
+    replicas, against its never-migrated run on a third; returns the
+    timings and the gates' inputs. The server's own ``migrate_out`` /
+    ``migrate_in`` move the pages; their parts (gather, host copy, hash,
+    scatter) are timed again on the same pages right after."""
+    from paddle_tpu_torch.inference import ContinuousBatchingServer
+    from paddle_tpu_torch.inference.kv_tier import _sha256
+    k = dict(kw, serving_mode=mode)
+    if sample:
+        k.update(do_sample=True, temperature=0.8, top_k=50, top_p=0.95)
+    sync = torch.cuda.synchronize
+    ref_srv = ContinuousBatchingServer(model, **k)
+    ref = serve_wave(ref_srv, [prompt], n_new, [11])[0]
+    del ref_srv
+    src = ContinuousBatchingServer(model, **k)
+    tgt = ContinuousBatchingServer(model, **k)
+    s_src, s_tgt = fleet_stats([src]), fleet_stats([tgt])
+    zero_counts()
+    rid = src.submit(prompt, max_new_tokens=n_new, seed=11)
+    while src._slots[0] is None or len(src._slots[0].emitted) < 8:
+        src.step()
+    sync()
+    t0 = time.perf_counter()
+    state, payloads = src.migrate_out(rid)
+    t_out = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    new = tgt.migrate_in(state, payloads)
+    sync()
+    t_in = time.perf_counter() - t0
+    src.migrate_finish(rid)
+    pages = tgt._kv.slot_pages(0)[:len(payloads)]
+    # the parts, on the target's pages (they hold the payloads now, and
+    # the target has not decoded into the last one yet)
+    pool = tgt._caches["pool"]
+    idx = torch.tensor(pages, dtype=torch.long, device="cuda")
+    sync()
+    t0 = time.perf_counter()
+    dev = [pool[n].transpose(0, 1)[idx] for n in ("k", "v")]
+    sync()
+    t_gather = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = [d.view(torch.uint16).cpu().numpy() for d in dev]
+    t_copy = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    digests = [_sha256([host[0][j], host[1][j]]) for j in range(len(pages))]
+    t_hash = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tgt._scatter_pages(pages, payloads)
+    sync()
+    t_scatter = time.perf_counter() - t0
+    out = tgt.run()[new]
+    counts = read_counts()
+    launch = fleet_stats([src, tgt])
+    before = {key: s_src[key] + s_tgt[key] for key in s_src}
+    nbytes = sum(a.nbytes for p in payloads for a in p)
+    return {"ref": ref, "out": out, "counts": counts, "before": before,
+            "after": launch, "pages": len(payloads), "bytes": nbytes,
+            "out_ms": t_out * 1e3, "in_ms": t_in * 1e3,
+            "gather_ms": t_gather * 1e3, "copy_ms": t_copy * 1e3,
+            "hash_ms": t_hash * 1e3, "scatter_ms": t_scatter * 1e3,
+            "digests_equal": digests == state["sha256"],
+            "tgt_prefill": tgt.stats["prefill_tokens"],
+            "tgt_admissions": tgt.stats["admissions"],
+            "live": (src.pool_balance()[1], tgt.pool_balance()[1])}
+
+
+def phase_fleet(torch, np, card, model):
+    """The in-process fleet on Llama-2-7B in bf16 (the serve phase's
+    model, or a new one from seed 0): paged ragged replicas sharing the
+    model's weights, each with the serve geometry (8 slots x 2048
+    tokens, 16-token pages, 512 prompt tokens a tick), behind the port's
+    ``ReplicaRouter``."""
+    import gc
+    import json as _json
+    import urllib.error
+    import urllib.request
+    from paddle_tpu_torch.inference import (ContinuousBatchingServer,
+                                            ReplicaRouter, serve_metrics)
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+    cfg = llama2_7b()
+    L, V = cfg.num_layers, cfg.vocab_size
+    if model is None:
+        model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                                 seed=0)
+    kw = dict(max_slots=8, max_cache_len=2048, page_size=16,
+              cache_backend="paged", prefill_tokens_per_tick=512)
+    mib = 2**20
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    release()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, 1025, size=8)
+    stems = [rng.integers(0, V, (int(n),)).astype(np.int32) for n in lens]
+    prefix = np.random.default_rng(2).integers(0, V, (256,)).astype(
+        np.int32)
+    shared = [np.concatenate([prefix, p]) for p in stems]
+    n_new = 32
+    log(f"fleet [{card}]: Llama-2-7B bf16 replicas sharing one model's "
+        f"weights, 8 slots x 2048 tokens, 16-token pages, 512 prompt "
+        f"tokens a tick; prompts {[len(p) for p in shared]} behind a "
+        f"256-token prefix, {n_new} new tokens")
+
+    # ---- affinity: a donor, then every shared-prefix request follows it
+    reps = [ContinuousBatchingServer(model, **kw) for _ in range(3)]
+    router = ReplicaRouter(reps, telemetry=True)
+    ms = serve_metrics(router)
+    health0 = urllib.request.urlopen(ms.url + "/healthz", timeout=10).status
+    donor = router.submit(shared[0], max_new_tokens=8, seed=1)
+    fleet_drive(router, reps)
+    router.wait(donor, timeout=120)
+    home = max(range(3), key=lambda i: router.stats["routed"][i])
+    before = fleet_stats(reps)
+    zero_counts()
+    t0 = time.perf_counter()
+    sub_ms = []
+    rids = []
+    for i, p in enumerate(shared[1:]):
+        ts = time.perf_counter()
+        rids.append(router.submit(p, max_new_tokens=n_new, seed=20 + i))
+        sub_ms.append((time.perf_counter() - ts) * 1e3)
+    fleet_drive(router, reps)
+    outs = [router.wait(r, timeout=300) for r in rids]
+    wall = time.perf_counter() - t0
+    c = read_counts()
+    d, gates = fleet_launch_gates(c, before, fleet_stats(reps), L, False)
+    st = router.stats
+    hit_tokens = reps[home].stats["prefix_hit_tokens"]
+    log(f"fleet affinity [{card}]: donor on replica {home}; routed "
+        f"{st['routed']}, affinity hits {st['affinity_hits']}, fallbacks "
+        f"{st['fallbacks']}, prefix hit tokens on the donor's replica "
+        f"{hit_tokens}; router host ms a submit median "
+        f"{sorted(sub_ms)[len(sub_ms) // 2]:.3f} max {max(sub_ms):.3f}; "
+        f"{len(outs) * n_new / wall:.1f} tok/s over {wall:.3f} s; "
+        f"launches {c}")
+    fleet_check("fleet affinity", {
+        "every shared-prefix request routed to the donor's replica":
+            st["routed"][home] == 8 and st["affinity_hits"] == 7,
+        "prefix hit tokens > 0": hit_tokens >= 7 * 256,
+        "32 in-vocabulary tokens each": all(
+            len(o) == n_new and o.min() >= 0 and o.max() < V
+            for o in outs),
+        **gates})
+
+    # ---- failover: the donor's replica holds queued and mid-decode work
+    before = fleet_stats(reps)
+    zero_counts()
+    wave = [np.concatenate([prefix, rng.integers(0, V, (int(n),)).astype(
+        np.int32)]) for n in rng.integers(64, 400, size=12)]
+    rids = [router.submit(p, max_new_tokens=n_new, seed=40 + i)
+            for i, p in enumerate(wave)]
+    victim = reps[home]
+    for _ in range(40):          # until a slot decodes, the queue still held
+        victim.step()
+        if any(s is not None and s.emitted for s in victim._slots):
+            break
+    queued_on_victim = victim.queue_depth()
+    mid = sum(1 for s in victim._slots if s is not None and s.emitted)
+    victim.kill()
+    fleet_drive(router, reps)
+    outs = [router.wait(r, timeout=300) for r in rids]
+    c = read_counts()
+    d, gates = fleet_launch_gates(c, before, fleet_stats(reps), L, False)
+    st = router.stats
+    bal = [tuple(r.pool_balance()) for r in reps]
+    full = sum(1 for o in outs if len(o) == n_new)
+    log(f"fleet failover [{card}]: killed replica {home} with "
+        f"{queued_on_victim} queued and {mid} in flight; requeued "
+        f"{st['requeued']}, evacuations {st['evacuations']}, replica lost "
+        f"{st['replica_lost']}; {full} of 12 requests complete, partial "
+        f"lengths {[len(o) for o in outs if len(o) < n_new]}; pools {bal}; "
+        f"launches {c}")
+    fleet_check("fleet failover", {
+        "the victim held queued and mid-decode work":
+            queued_on_victim > 0 and mid > 0,
+        "queued requests completed on siblings":
+            st["requeued"] >= queued_on_victim and full >= queued_on_victim,
+        "no request failed": router.failures == {}
+        and st["replica_lost"] == 0,
+        "live == 0 on every replica, the corpse too":
+            all(b[1] == 0 for b in bal),
+        **gates})
+    router.stop(drain=False)
+    health1 = None
+    try:
+        urllib.request.urlopen(ms.url + "/healthz", timeout=10)
+    except urllib.error.HTTPError as e:
+        health1 = e.code
+    fleet_snapshot = _json.loads(urllib.request.urlopen(
+        ms.url + "/stats", timeout=10).read().decode())["stats"]
+    ms.close()
+    log(f"fleet serve_metrics(router): /healthz {health0} -> {health1} "
+        f"after stop(); /stats routed {fleet_snapshot['routed']}")
+    fleet_check("fleet serve_metrics", {
+        "/healthz 200 then 503": health0 == 200 and health1 == 503})
+    del router, reps, victim
+    release()
+
+    # ---- live migration A -> B, split and fused, greedy and sampled
+    mig_prompt = np.random.default_rng(3).integers(0, V, (900,)).astype(
+        np.int32)
+    for mode in ("split", "fused"):
+        for sample in (False, True):
+            tag = f"{'sampled ' if sample else ''}{mode}"
+            r = fleet_migration(torch, np, model, kw, mig_prompt, 24, mode,
+                                sample)
+            release()
+            d, gates = fleet_launch_gates(r["counts"], r["before"],
+                                          r["after"], L, sample)
+            gb = r["bytes"] / 1e9
+            log(f"fleet migration {tag} [{card}]: {r['pages']} pages, "
+                f"{r['bytes'] / mib:.1f} MiB; migrate_out "
+                f"{r['out_ms']:.2f} ms, migrate_in {r['in_ms']:.2f} ms; "
+                f"parts: gather {r['gather_ms']:.2f} ms "
+                f"({gb / (r['gather_ms'] / 1e3):.1f} GB/s), host copy "
+                f"{r['copy_ms']:.2f} ms "
+                f"({gb / (r['copy_ms'] / 1e3):.2f} GB/s), sha256 "
+                f"{r['hash_ms']:.2f} ms "
+                f"({gb / (r['hash_ms'] / 1e3):.2f} GB/s), scatter "
+                f"{r['scatter_ms']:.2f} ms "
+                f"({gb / (r['scatter_ms'] / 1e3):.2f} GB/s); end to end "
+                f"{gb / ((r['out_ms'] + r['in_ms']) / 1e3):.2f} GB/s; "
+                f"launches {r['counts']}")
+            fleet_check(f"fleet migration {tag}", {
+                "the stream equals the never-migrated run's tokens":
+                    np.array_equal(r["out"], r["ref"]),
+                "the target prefilled 0 tokens":
+                    r["tgt_prefill"] == 0 and r["tgt_admissions"] == 0,
+                "every page passed its sha256": r["digests_equal"],
+                "live == 0 on both": r["live"] == (0, 0),
+                **gates})
+
+    # ---- host tier: a pool sized so that the prefix spills
+    tier_p = [np.random.default_rng(30 + i).integers(0, V, (1000,)).astype(
+        np.int32) for i in range(3)]
+    outs, srvs, spans = {}, {}, {"spill": [], "restore": []}
+    for name, extra in (("oracle", {}),
+                        ("tiered", dict(num_pages=130, host_tier=True))):
+        srv = ContinuousBatchingServer(model, **dict(kw, **extra))
+        if name == "tiered":
+            reclaim, restore = srv._kv.reclaimer, srv._restore_match
+
+            def timed_reclaim(n, _f=reclaim):
+                t = time.perf_counter()
+                got = _f(n)
+                torch.cuda.synchronize()
+                spans["spill"].append(time.perf_counter() - t)
+                return got
+
+            def timed_restore(m, _f=restore):
+                t = time.perf_counter()
+                got = _f(m)
+                torch.cuda.synchronize()
+                spans["restore"].append(time.perf_counter() - t)
+                return got
+
+            srv._kv.reclaimer = timed_reclaim
+            srv._restore_match = timed_restore
+            zero_counts()
+            before = fleet_stats([srv])
+        seq = [serve_wave(srv, [p], 16, [60 + i])[0]
+               for i, p in enumerate(tier_p)]
+        hist = np.concatenate([tier_p[0], seq[0].astype(np.int32),
+                               np.asarray([17, 23, 5], np.int32)])
+        seq.append(serve_wave(srv, [hist], 16, [63])[0])
+        outs[name], srvs[name] = seq, srv
+        if name == "tiered":
+            c = read_counts()
+            d, gates = fleet_launch_gates(c, before, fleet_stats([srv]), L,
+                                          False)
+    tier = srvs["tiered"].host_tier
+    pg_bytes = srvs["tiered"]._row_nbytes() * 16
+    sp_b = tier.spilled_pages_total * pg_bytes
+    rs_b = tier.restored_pages_total * pg_bytes
+    sp_s, rs_s = sum(spans["spill"]), sum(spans["restore"])
+    log(f"fleet host tier [{card}]: 130-page pool, spilled "
+        f"{tier.spilled_pages_total} pages ({sp_b / mib:.1f} MiB) in "
+        f"{sp_s * 1e3:.1f} ms ({sp_b / 1e9 / max(sp_s, 1e-9):.2f} GB/s), "
+        f"restored {tier.restored_pages_total} pages ({rs_b / mib:.1f} MiB) "
+        f"in {rs_s * 1e3:.1f} ms ({rs_b / 1e9 / max(rs_s, 1e-9):.2f} GB/s), "
+        f"tier {tier.stats()}; launches {c}")
+    fleet_check("fleet host tier", {
+        "the prefix spilled": tier.spilled_pages_total > 0,
+        "the returning request restored it":
+            tier.restored_pages_total > 0
+            and srvs["tiered"].stats["prefix_auto_hit_tokens"] > 0,
+        "tokens equal the never-evicted run's":
+            all(np.array_equal(a, b) for a, b in zip(outs["oracle"],
+                                                     outs["tiered"])),
+        "live == 0": srvs["tiered"].pool_balance()[1] == 0,
+        **gates})
+    del srvs, srv
+    release()
+
+    # ---- disaggregated: one prefill specialist, two decode replicas,
+    # against a hybrid fleet of three on the same traffic
+    res = {}
+    for place in ("disaggregated", "hybrid"):
+        if place == "disaggregated":
+            reps = [ContinuousBatchingServer(model, role="prefill", **kw),
+                    ContinuousBatchingServer(model, role="decode", **kw),
+                    ContinuousBatchingServer(model, role="decode", **kw)]
+            router = ReplicaRouter(reps, placement="disaggregated",
+                                   disagg_prefill_min_tokens=256,
+                                   telemetry=True)
+        else:
+            reps = [ContinuousBatchingServer(model, **kw)
+                    for _ in range(3)]
+            router = ReplicaRouter(reps, telemetry=True)
+        before = fleet_stats(reps)
+        zero_counts()
+        t0 = time.perf_counter()
+        rids = [router.submit(p, max_new_tokens=n_new, seed=80 + i)
+                for i, p in enumerate(stems)]
+        fleet_drive(router, reps)
+        outs = [router.wait(r, timeout=300) for r in rids]
+        wall = time.perf_counter() - t0
+        c = read_counts()
+        d, gates = fleet_launch_gates(c, before, fleet_stats(reps), L, False)
+        reg = router.telemetry.registry.snapshot()
+        h = reg.get("serving_handoff_seconds", {}).get("samples", {}).get(
+            (), {})
+        res[place] = dict(outs=outs, wall=wall, stats=router.stats,
+                          counts=c, gates=gates, handoff=h,
+                          dec_prefill=[r.stats["prefill_tokens"]
+                                       for r in reps],
+                          bal=[tuple(r.pool_balance()) for r in reps])
+        del router, reps
+        release()
+    dg = res["disaggregated"]
+    long_n = sum(1 for p in stems if len(p) >= 256)
+    short_tokens = sum(len(p) for p in stems if len(p) < 256)
+    h = dg["handoff"]
+    agree = sum(int((a == b).sum()) for a, b in
+                zip(dg["outs"], res["hybrid"]["outs"]))
+    for place, r in res.items():
+        log(f"fleet {place} [{card}]: {8 * n_new / r['wall']:.1f} tok/s "
+            f"over {r['wall']:.3f} s, routed {r['stats']['routed']}, "
+            f"handoffs {r['stats']['handoffs']} (fallbacks "
+            f"{r['stats']['handoff_fallbacks']}), prefill tokens by replica "
+            f"{r['dec_prefill']}, launches {r['counts']}")
+    log(f"fleet disaggregated handoff latency [{card}]: "
+        f"{h.get('count', 0)} handoffs, mean "
+        f"{1e3 * h.get('sum', 0.0) / max(h.get('count', 0), 1):.1f} ms "
+        f"(pump start to commit); tokens agree with the hybrid fleet on "
+        f"{agree} of {8 * n_new} (informational: prefill chunk shapes "
+        f"differ)")
+    fleet_check("fleet disaggregated", {
+        "every long prompt handed off": dg["stats"]["handoffs"] == long_n
+        and dg["stats"]["handoff_fallbacks"] == 0,
+        "handed-off requests prefilled 0 rows on their targets":
+            sum(dg["dec_prefill"][1:]) == short_tokens,
+        "32 in-vocabulary tokens each": all(
+            len(o) == n_new and o.min() >= 0 and o.max() < V
+            for o in dg["outs"]),
+        "live == 0 everywhere": all(b[1] == 0 for b in dg["bal"]),
+        **dg["gates"], **{f"hybrid: {k}": v
+                          for k, v in res["hybrid"]["gates"].items()}})
+    log(f"fleet: {time.perf_counter() - t_phase:.1f} s")
+    return model
+
+
 def phase_int8_infer(torch, np, card, record, model):
     """Llama-2-7B bf16 (the serve phase's model, or a new one from seed
     0), then converted in place to int8: one forward each of 8 x 512 ids
@@ -5502,6 +6117,11 @@ def main():
         torch.cuda.empty_cache()
         model_7b = phase_telemetry(torch, np, card, peak, record, model_7b,
                                    serve_res)
+    if "fleet_parity" in phases:
+        phase_fleet_parity(torch, np)
+    if "fleet" in phases:
+        torch.cuda.empty_cache()
+        model_7b = phase_fleet(torch, np, card, model_7b)
     if "int8_infer" in phases:
         phase_int8_infer(torch, np, card, record, model_7b)
     del model_7b

@@ -90,6 +90,22 @@ phase, MFU) and ``journeys`` (``JourneyRecorder``: per-request
 timelines, ``journey(rid)``), as the JAX server wires them.
 ``inference.serving.serve_metrics(srv)`` serves them over HTTP.
 
+The fleet surface (paged): ``host_tier`` spills evicted prefix pages
+to a checksummed host-RAM tier (``kv_tier.HostTier``) and an admission
+that hits a spilled run restores it into fresh pool pages, bit for bit;
+``prefix_sketch()`` is the router's affinity signal; ``migrate_out`` /
+``migrate_in`` (and the staged ``migrate_in_begin`` /
+``migrate_in_pages`` / ``migrate_in_commit``) move a live request's
+written pages, resolved seed and emitted tokens to a sibling, which
+continues it without re-prefilling; ``evacuate``, ``abandon`` and
+``kill`` are the router's failover hooks (``inference.router``). The
+state dict and the page payloads are the JAX server's, key for key and
+byte for byte (a bf16 pool's pages as their ``uint16`` bit patterns),
+so a request moves between the two packages' servers too. A decode
+row's bits depend on the slot count (the decode step's GEMM shapes and
+the split decode kernel's plan), so a migrated request continues
+bit-exactly on a target built like its source.
+
 Host/device split: the device runs the steps (``models.generation``; the
 paged-attention, ragged-prefill and fused-tick kernels on a CUDA model,
 dense attention in plain torch);
@@ -98,9 +114,8 @@ cache (``kv_cache``, ``prefix_cache``), harvests finished rows and swaps
 new prompts in.
 
 The JAX server's other modes are not ported yet. Asking for one raises
-``NotImplementedError`` naming its ROADMAP item (Queue 1): the mesh, the
-host KV tier and the fleet's migration surface (item 9), int8 weights
-and caches (item 10).
+``NotImplementedError`` naming its ROADMAP item (Queue 1): the mesh (the
+kv-head-sharded pool, item 9), int8 weights and caches (item 10).
 """
 import threading
 import time as _time_mod
@@ -113,16 +128,18 @@ from ..ops.kernels.fused_tick import build_schedule
 from ..ops.kernels.sample_rows import sample_rows
 from ..reliability import faults
 from ..reliability.errors import (CallbackError, CircuitOpenError,
-                                  DeadlineExceeded, PreemptedError,
-                                  QueueFullError, ReliabilityError,
-                                  RequestCancelled, ServerClosed)
+                                  DeadlineExceeded, MigrationError,
+                                  PreemptedError, QueueFullError,
+                                  ReliabilityError, RequestCancelled,
+                                  ServerClosed)
 from ..reliability.health import (DEAD, DEGRADED, DRAINING, HEALTHY,
                                   HealthMonitor)
 from ..reliability.supervisor import ServeSupervisor
 from ..telemetry.clock import MonotonicClock
 from .decode_loop import process_logits
 from .kv_cache import OutOfPages, PagedKVCache
-from .prefix_cache import PrefixCache
+from .kv_tier import HostTier, _sha256
+from .prefix_cache import PrefixCache, PrefixMatch
 
 __all__ = ["ContinuousBatchingServer", "PreemptionPolicy", "PoolBalance"]
 
@@ -155,7 +172,7 @@ class _Slot:
     __slots__ = ("rid", "ids", "prompt_len", "budget", "emitted",
                  "on_token", "streamed", "deadline", "fill_pos", "filled",
                  "seed", "priority", "preempts", "replayed", "journey",
-                 "n_pre", "phase", "reprefill_upto")
+                 "n_pre", "phase", "reprefill_upto", "sent_pages")
 
     def __init__(self, rid, ids, prompt_len, budget, on_token=None,
                  deadline=None, seed=0):
@@ -184,6 +201,9 @@ class _Slot:
         # the goodput ledger's registered-prefix tail: prompt rows below
         # this that a ragged prefill launches re-prefill registered state
         self.reprefill_upto = 0
+        # pages already shipped by a pipelined prefill handoff
+        # (``migrate_out(partial=True)``); reset by ``migrate_abort``
+        self.sent_pages = 0
 
     def partial(self):
         """The request's current partial output: the tokens replayed
@@ -274,14 +294,27 @@ class PoolBalance(tuple):
     admission state as ATTRIBUTES: ``preempted``, the requests parked
     on the preempted queue now (their pages are donated or freed, so
     they add nothing to ``live``), and ``preemptions``, the victims
-    preempted so far. The JAX server's mesh and host-tier attributes
-    come with the fleet (ROADMAP Queue 1 item 9)."""
+    preempted so far.
+
+    The host tier rides as attributes too: ``host``, the host-resident
+    radix-tree nodes (spilled pages hold NO device page, so they stay
+    outside the 4-tuple, which keeps summing to the usable pool), and
+    ``host_bytes``, the tier's buffer bytes. ``num_shards``,
+    ``per_shard`` and ``shard_page_bytes`` keep the JAX server's mesh
+    view: the port's pool is one card's, one shard (the sharded pool is
+    ROADMAP Queue 1 item 9)."""
 
     def __new__(cls, free, live, pinned, cached, preempted=0,
-                preemptions=0):
+                preemptions=0, num_shards=1, per_shard=(),
+                shard_page_bytes=None, host=0, host_bytes=0):
         self = super().__new__(cls, (free, live, pinned, cached))
         self.preempted = preempted
         self.preemptions = preemptions
+        self.num_shards = num_shards
+        self.per_shard = tuple(per_shard)
+        self.shard_page_bytes = shard_page_bytes
+        self.host = host
+        self.host_bytes = host_bytes
         return self
 
 
@@ -395,7 +428,7 @@ class ContinuousBatchingServer:
                     "prompt chunks)")
             if mesh is not None:
                 raise _not_ported("serving_mode='fused' with mesh=", 9,
-                                  "the fleet")
+                                  "the fleet's kv-head-sharded pool")
             if self.tick_block != 1:
                 raise NotImplementedError(
                     "serving_mode='fused' runs ONE decode row per slot "
@@ -404,12 +437,15 @@ class ContinuousBatchingServer:
                     "(ROADMAP, Queue 1 item 12: remaining inference "
                     "modules); use tick_block=1 or serving_mode='split'")
         if mesh is not None:
-            raise _not_ported("mesh=", 9, "the fleet")
-        if host_tier is not None or host_tier_bytes is not None:
-            raise _not_ported("host_tier=", 9, "the fleet")
-        # ``role`` is a placement hint for the fleet router: accepted and
-        # unused, as in the JAX server. Greedy decoding reads no seed and
-        # no sampling parameter.
+            raise _not_ported("mesh=", 9, "the fleet's kv-head-sharded "
+                              "pool")
+        # disaggregated serving: the role is a PLACEMENT hint the router
+        # reads — a "prefill" specialist runs ragged prefill and hands
+        # finished prompt pages to decode replicas; its one hard rule is
+        # refusing decode-phase migrate_in (it still decodes locally when
+        # the fleet degrades to hybrid routing). "decode" is advisory.
+        # Greedy decoding reads no seed and no sampling parameter.
+        self.role = role
         self.model = model
         self.device = model.device
         self.max_slots = int(max_slots)
@@ -453,11 +489,37 @@ class ContinuousBatchingServer:
                                     self.max_slots, pages_per_slot,
                                     fault_injector=fault_injector)
             self._caches = paged_bundle[0](self.max_slots)
+            # host KV tier (``kv_tier.HostTier``): eviction SPILLS cold
+            # prefix pages to checksummed host buffers instead of
+            # dropping them, and admissions hitting a spilled run restore
+            # it into fresh pool pages. True builds a default tier
+            # (``host_tier_bytes`` bounds it; None = unbounded); None or
+            # a disabled tier keeps eviction exactly as before
+            if host_tier is None and host_tier_bytes is not None:
+                host_tier = True
+            if host_tier is True:
+                host_tier = HostTier(budget_bytes=host_tier_bytes,
+                                     fault_injector=fault_injector)
+            self.host_tier = host_tier
+            self._host = host_tier if (host_tier is not None
+                                       and host_tier.enabled) else None
+            if self._host is not None and self._host._faults is None:
+                # a bare tier adopts the server's injector, so
+                # tier.spill / tier.restore storms need no extra wiring
+                self._host._faults = fault_injector
             self._prefix = PrefixCache(self._kv,
-                                       fault_injector=fault_injector)
+                                       fault_injector=fault_injector,
+                                       host_tier=self._host,
+                                       spill=self._spill_payload)
             self._kv.reclaimer = self._reclaim_pages
             self._auto_prefix = bool(auto_prefix_cache)
         else:
+            if host_tier is True or (host_tier is not None
+                                     and host_tier.enabled):
+                raise ValueError("host_tier= needs cache_backend="
+                                 "'paged' (the tier spills pool pages)")
+            self.host_tier = None
+            self._host = None
             self.page_size = None
             self._kv = None
             self._caches = self._init_caches(self.max_slots)
@@ -485,6 +547,16 @@ class ContinuousBatchingServer:
         self._preempt_policy = preemption_policy \
             if preemption_policy is not None else PreemptionPolicy()
         self._preempted = []      # _Preempted records awaiting re-admission
+        # rid -> (slot, telemetry t0, prior phase): paused slots whose
+        # gathered pages are in flight to a sibling (migrate_out), settled
+        # by migrate_finish (pages released / donated here) or
+        # migrate_abort (resume decoding, or prefilling, here)
+        self._migrating = {}
+        # handle -> pipelined-restore slot (migrate_in_begin): pages
+        # scatter in batches while the source still prefills; settled by
+        # migrate_in_commit / migrate_in_abort
+        self._staging = {}
+        self._next_xfer = 1       # staged-restore handle mint
         self._priority_seen = False   # sticky: any submit(priority != 0)
         self._prefill_fifo = []   # slot ids mid-prefill, admission order
         self._prefill_used = 0    # tokens prefilled this tick
@@ -547,7 +619,16 @@ class ContinuousBatchingServer:
                       "device_rows": 0,
                       # admission="optimistic" accounting
                       "preemptions": 0, "preempt_resumed": 0,
-                      "grow_pages": 0, "headroom_pages": 0}
+                      "grow_pages": 0, "headroom_pages": 0,
+                      # live KV-page migration: handoffs committed as the
+                      # SOURCE / degraded to evacuate+replay / restored as
+                      # the TARGET
+                      "migrations": 0, "migration_fallbacks": 0,
+                      "migrated_in": 0,
+                      # pipelined prefill handoff: partial page batches
+                      # shipped as the source / staged batches landed as
+                      # the target
+                      "handoff_pages_out": 0, "handoff_pages_in": 0}
         # telemetry (``telemetry.ServerTelemetry``): True builds a
         # default-enabled one; None (default) or a disabled one keeps
         # every hook site at a single attribute check — no locks, no
@@ -750,6 +831,7 @@ class ContinuousBatchingServer:
                                      len(run) * self._kv.page_size)
                 self._prefix.extend_pinned(
                     ids[:len(pages) * self._kv.page_size], run, own)
+                self._prefix.flush_sketch()
         return T
 
     def _chunk_pad(self, seg_len):
@@ -1050,14 +1132,14 @@ class ContinuousBatchingServer:
 
     def _pool_gauges(self):
         """Refresh the page-pool occupancy gauges (paged backend). The
-        port's pool is one card's and has no host tier: one shard,
-        no host pages."""
+        port's pool is one card's: one shard."""
         if self._tele is not None and self._kv is not None:
             used = self._kv.used_pages()
             pinned = self._prefix.pinned_pages
             cached = self._prefix.cached_pages
             self._tele.set_pool(self._kv.free_pages(),
-                                used - pinned - cached, pinned, cached, 0)
+                                used - pinned - cached, pinned, cached,
+                                self._prefix.host_pages)
             self._tele.set_pool_shards(1, self._shard_pool_bytes())
 
     def _shard_pool_bytes(self):
@@ -1073,9 +1155,9 @@ class ContinuousBatchingServer:
         page). ``live`` pages belong to slots, ``pinned`` to registered
         prefixes (never evicted), ``cached`` to the automatic prefix
         cache. ``live == 0`` once drained means no page leaked.
-        ``.preempted`` (parked requests) and ``.preemptions`` (victims
-        so far) ride as attributes. The dense backend has no pool:
-        None."""
+        ``.preempted`` (parked requests), ``.preemptions`` (victims so
+        far), ``.host`` (spilled pages) and ``.host_bytes`` ride as
+        attributes. The dense backend has no pool: None."""
         if self._kv is None:
             return None
         with self._lock:
@@ -1085,23 +1167,154 @@ class ContinuousBatchingServer:
             live = self._kv.used_pages() - pinned - cached
             return PoolBalance(free, live, pinned, cached,
                                preempted=len(self._preempted),
-                               preemptions=self.stats["preemptions"])
+                               preemptions=self.stats["preemptions"],
+                               shard_page_bytes=self._shard_pool_bytes(),
+                               host=self._prefix.host_pages,
+                               host_bytes=self._host.bytes_used
+                               if self._host is not None else 0)
 
     def _reclaim_pages(self, shortfall):
         """``PagedKVCache.alloc``'s reclaimer: evict LRU cached prefix
         pages when the free list runs short. An injected
         ``prefix.evict`` fault aborts THIS sweep: alloc then raises
         OutOfPages (admission defers, a grow fails its tick); no page
-        leaks and no request fails."""
+        leaks and no request fails. With a host tier the sweep DEMOTES
+        instead of dropping: spills are counted (and priced as
+        ``page_spill`` bytes, never a tick dispatch) by diffing the
+        tier's totals across the sweep, so the eviction metrics split
+        into spilled and dropped."""
+        tier = self._host
+        s0 = tier.spilled_pages_total if tier is not None else 0
         try:
             freed = self._prefix.evict(shortfall)
         except Exception:
             return 0
-        if freed and self._tele is not None:
-            self._tele.on_prefix_evict(freed)
+        spilled = tier.spilled_pages_total - s0 if tier is not None else 0
+        if spilled:
+            if self._tele is not None:
+                self._tele.on_host_spill(spilled)
+            if self._rec is not None:
+                self._rec.record("spill", pages=spilled)
+            self._charge_transfer(
+                "page_spill",
+                2 * spilled * self._kv.page_size * self._row_nbytes())
+        dropped = freed - spilled
+        if dropped and self._tele is not None:
+            self._tele.on_prefix_evict(dropped)
         if freed and self._rec is not None:
             self._rec.record("evict", pages=freed)
         return freed
+
+    def _spill_payload(self, page):
+        """One pool page's K and V rows as host numpy arrays, each
+        ``[L, pg, kvh, hd]`` — the demotion gather
+        ``PrefixCache.evict`` routes through the host tier (one indexed
+        read a leaf and one device-to-host copy). Runs inside an
+        allocator reclaim under the server lock, off the tick path."""
+        return self._gather_pages([int(page)])[0]
+
+    def _gather_pages(self, pages):
+        """``[k, v]`` host payloads of pool ``pages`` (position order):
+        ONE indexed read of each pool leaf into a page-major ``[n, L,
+        pg, kvh, hd]`` tensor and ONE device-to-host copy of it, so each
+        page's payload is a contiguous view. A bf16 pool's pages come
+        back as their ``uint16`` bit patterns (numpy has no bfloat16):
+        the bytes the reference hashes."""
+        if not pages:
+            return []
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        leaves = []
+        for name in ("k", "v"):
+            t = self._caches["pool"][name].transpose(0, 1)[idx]
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.uint16)
+            leaves.append(t.cpu().numpy())
+        k, v = leaves
+        return [[k[j], v[j]] for j in range(len(pages))]
+
+    def _scatter_pages(self, pages, payloads):
+        """Write host page ``payloads`` (``[k, v]`` each, the layout
+        ``_gather_pages`` returns, or the JAX server's) into pool
+        ``pages`` IN PLACE: one host stack, one host-to-device copy and
+        one ``index_copy_`` a leaf — the pool tensors are never
+        rebound. ``uint16`` payloads of a bf16 pool are bit patterns."""
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        for j, name in enumerate(("k", "v")):
+            leaf = self._caches["pool"][name]
+            val = np.stack([np.asarray(p[j]) for p in payloads])
+            if leaf.dtype == torch.bfloat16:
+                val = torch.from_numpy(val.view(np.uint16)).view(
+                    torch.bfloat16)
+            else:
+                val = torch.from_numpy(val).to(leaf.dtype)
+            leaf.index_copy_(1, idx, val.to(self.device).transpose(0, 1))
+
+    def _restore_match(self, m):
+        """Restore a tree match's host-resident suffix into freshly
+        allocated pool pages so admission takes the WHOLE run by
+        reference through the normal ``admit_slot``/refcount path — a
+        restored run is bit-exact with a never-evicted one. Returns a
+        fresh all-hot ``PrefixMatch`` over the same nodes (possibly
+        trimmed to the hot prefix), or None when nothing survives. Any
+        failure is a MISS for the affected pages, never a request
+        failure: an injected ``tier.restore`` fault leaves the run
+        spilled for a later attempt, a checksum mismatch forgets the
+        corrupt node (and its all-host subtree) for good, and an
+        OutOfPages trims to the hot prefix."""
+        nodes = m.nodes
+        hot = m.hot_len()
+        if hot == len(nodes):
+            return m
+        tele = self._tele
+        t0 = tele.restore_started() if tele is not None else None
+        payloads, restoring, n_restored = [], [], 0
+        for nd in nodes[hot:]:
+            try:
+                payload = self._host.get(nd.host, fp=nd.fp)
+            except Exception:
+                break          # transient (injected) miss: the run stays
+            #                    spilled, nodes intact for a retry
+            if payload is None:
+                # checksum mismatch: drop the node and everything under
+                # it so the corrupt entry can never be matched again
+                if tele is not None:
+                    tele.on_host_restore_corrupt()
+                if self._rec is not None:
+                    self._rec.record("restore_corrupt", fp=nd.fp)
+                self._prefix.drop_subtree(nd)
+                break
+            payloads.append(payload)
+            restoring.append(nd)
+        if restoring:
+            # fresh pages for the suffix: protect the whole run across
+            # the alloc — its reclaim sweep must not demote the hot
+            # prefix (not yet referenced by a slot) or shrink away the
+            # very entries being restored
+            self._prefix.protect(nodes[:hot] + restoring)
+            try:
+                fresh = self._kv.alloc(len(restoring))
+            except Exception:
+                fresh = None   # pool exhausted even after reclaim:
+            finally:           # serve the hot prefix only
+                self._prefix.protect(())
+            if fresh is not None:
+                self._scatter_pages(fresh, payloads)
+                for nd, page in zip(restoring, fresh):
+                    self._prefix.promote(nd, page)
+                # bytes moved both ways, zero FLOPs, and NOT a tick
+                # dispatch
+                self._charge_transfer(
+                    "page_restore",
+                    2 * len(fresh) * self._kv.page_size * self._row_nbytes())
+                if self._rec is not None:
+                    self._rec.record("restore", pages=len(fresh))
+                n_restored = len(fresh)
+                hot += n_restored
+        if tele is not None:
+            tele.on_host_restore(n_restored, t0)
+        if hot == 0:
+            return None
+        return PrefixMatch(nodes[:hot], self._kv.page_size)
 
     def _best_hit(self, ids):
         """The longest reusable prefix state for ``ids``: ``("reg",
@@ -1176,7 +1389,12 @@ class ContinuousBatchingServer:
         elif best[0] == "reg":
             shared, nodes = len(best[1][3]), ()
         else:
-            shared, nodes = len(best[1].nodes), best[1].nodes
+            # only the HOT prefix is shared by reference; a host-resident
+            # suffix needs fresh pool pages (the restore allocates them
+            # before admit_slot), so it counts toward need exactly like
+            # prefilling those tokens would
+            hot = best[1].hot_len()
+            shared, nodes = hot, best[1].nodes[:hot]
         need = self._npages_for(
             self._extent_tokens(head.ids.shape[0], head.budget)) - shared
         avail = self._kv.free_pages() \
@@ -1327,6 +1545,13 @@ class ContinuousBatchingServer:
             self._faults.check(faults.PREFILL, rid=req.rid)
         ids = req.ids
         T = ids.shape[0]
+        if best is not None and self._host is not None:
+            # the match may carry a host-resident suffix: restore it into
+            # fresh pool pages FIRST so admit_slot below shares the whole
+            # run by reference like any hot hit (a failed restore just
+            # trims the match; prefill covers the rest)
+            m = self._restore_match(best[1])
+            best = None if m is None else ("tree", m)
         m = None if best is None else best[1]
         n_pre, pre_pages = (0, []) if m is None else (m.tokens, m.pages)
         self._kv.admit_slot(slot, self._extent_tokens(T, req.budget),
@@ -1450,6 +1675,12 @@ class ContinuousBatchingServer:
             # PER-REQUEST failure (_admit records it)
             self._faults.check(faults.PREFILL, rid=req.rid)
         ids, T = req.ids, req.ids.shape[0]
+        if best is not None and best[0] == "tree" \
+                and self._host is not None:
+            # restore any host-resident suffix before the pages are
+            # shared and gathered below
+            m = self._restore_match(best[1])
+            best = None if m is None else ("tree", m)
         if best is not None and best[0] == "tree":
             n_pre, pre_pages = best[1].tokens, best[1].pages
         elif best is not None:
@@ -2001,6 +2232,8 @@ class ContinuousBatchingServer:
         Returns the number of active slots after the tick."""
         with self._lock:
             n = self._step_locked()
+            if self._prefix is not None:
+                self._prefix.flush_sketch()   # one publish a tick
         self._fire_callbacks()
         return n
 
@@ -2406,6 +2639,730 @@ class ContinuousBatchingServer:
         point-in-time read."""
         return len(self._preempted)
 
+    def abandon(self, rid, err):
+        """Record a typed failure for ``rid`` on behalf of a caller that
+        HOLDS the request outside this server (the router: a foreign rid
+        harvested off this replica's queue that no route ever claimed) —
+        its waiter's ``wait(rid)`` raises ``err`` promptly instead of
+        running out its timeout. No-op (returns False) when the rid
+        already settled here."""
+        with self._lock:
+            if rid in self._results or rid in self._failures:
+                return False
+            self._failures[rid] = err
+            self._done_cv.notify_all()
+        return True
+
+    def prefix_sketch(self):
+        """Fingerprint set of this replica's radix-tree contents
+        (``PrefixCache.sketch()``) — the router's prefix-affinity
+        signal. Host-side only, no device reads, and LOCK-FREE: the
+        cache publishes an immutable snapshot once a tick. Empty for
+        the dense backend."""
+        prefix = self._prefix
+        return frozenset() if prefix is None else prefix.sketch()
+
+    def evacuate(self, flush_partials=False):
+        """Harvest every QUEUED request off this replica and hand it to
+        the caller (a router requeues them on sibling replicas). The
+        harvested entries carry everything a resubmit needs — prompt,
+        budget, the resolved sampling seed (a sibling draws the identical
+        chain), callback and the ABSOLUTE deadline. Nothing is recorded
+        in ``failures`` for harvested rids: the caller owns them now.
+
+        ``flush_partials=True`` (a DEAD replica being evacuated) also
+        flushes every in-flight slot's partial tokens to its waiter, as
+        ``stop(drain=False)`` does, and the parked preempted requests'
+        partials: mid-decode work is not replayable elsewhere without
+        double-streaming. With the default False (a DRAINING replica)
+        in-flight slots keep decoding to completion."""
+        with self._lock:
+            harvested = list(self._queue)
+            self._queue.clear()
+            if self._rec is not None:
+                self._rec.record("evacuate", harvested=len(harvested),
+                                 flush_partials=bool(flush_partials))
+            if self._tele is not None:
+                # the harvested rids leave THIS replica for good: close
+                # their lifecycle spans here
+                for item in harvested:
+                    self._tele.on_cancel(item.rid)
+            if flush_partials:
+                for slot in range(self.max_slots):
+                    if self._slots[slot] is not None:
+                        st = self._finish_partial_locked(slot)
+                        if self._tele is not None:
+                            self._tele.on_cancel(st.rid)
+                for rec in self._preempted:
+                    self._flush_parked_locked(rec)
+                    if self._tele is not None:
+                        self._tele.on_cancel(rec.rid)
+                self._preempted.clear()
+                self._preempt_gauge()
+                # nobody fires chunks on a dead replica, and every live
+                # rid was just flushed
+                self._deferred_cbs.clear()
+                if self._tele is not None:
+                    self._tele.set_active_slots(0)
+            if self._prefix is not None:
+                self._prefix.flush_sketch()   # flushed slots donated
+            if self._tele is not None:
+                self._tele.set_queue_depth(0)
+                self._pool_gauges()
+            self._done_cv.notify_all()
+        return harvested
+
+    # ------------------------------------------- live KV-page migration
+    def _chain_key(self, seed, n):
+        """A sampled slot's key after ``n`` emitted tokens:
+        ``PRNGKey(seed)`` split ``n`` times, keeping the first half each
+        time (the draw's chain), on the device."""
+        key = prng.PRNGKey(seed)
+        for _ in range(n):
+            key = prng.split(key)[0]
+        return key.to(self.device)
+
+    def migrate_out(self, rid, partial=False, from_page=0):
+        """Gather a live request's FULL resumable state so a sibling
+        continues it without re-prefilling: the written pool pages (one
+        gather, ``_gather_pages``), the resolved sampling seed, the
+        emitted-token log and the stream offset. Returns ``(state,
+        payloads)`` — ``state`` is a JSON-able dict whose ``sha256``
+        list lets the target verify every page END TO END, ``payloads``
+        one ``[k, v]`` host-array pair a page. Both are the JAX
+        server's, key for key and byte for byte (a bf16 pool adds
+        ``"page_dtype": "bfloat16"``: its pages are ``uint16`` bit
+        patterns).
+
+        A mid-DECODE slot ships ``phase="decode"``; a slot still
+        mid-PREFILL ships ``phase="prefill"`` and ``filled`` (rows
+        written) — a prefill handoff: the target scatters the finished
+        prompt pages, prefills only the rest and samples the first token
+        from the resolved seed.
+
+        ``partial=True`` is the non-pausing PIPELINED half: ship the
+        complete, not-yet-shipped prompt pages of a mid-prefill slot as
+        one batch and keep prefilling (``_migrate_partial_locked``).
+        ``from_page`` skips pages the target already holds.
+
+        The full path PAUSES the slot: stepping (decode) or chunking
+        (prefill) stops and its pages stay held until the caller settles
+        with ``migrate_finish`` (the target committed: release here,
+        donating the prompt prefix as usual) or ``migrate_abort``
+        (resume here bit-exactly). Raises ``MigrationError`` when the
+        request is not migratable (unknown rid, dense backend, already
+        in flight); an injected ``migrate.gather`` fault fires BEFORE
+        the pause, so a faulted attempt leaves the slot untouched."""
+        with self._lock:
+            if self._kv is None:
+                raise MigrationError(
+                    "cache_backend='dense' has no page pool to migrate "
+                    f"(request {rid})")
+            slot = next((s for s in range(self.max_slots)
+                         if self._slots[s] is not None
+                         and self._slots[s].rid == rid), None)
+            if slot is None:
+                raise MigrationError(
+                    f"request {rid} holds no slot here (queued, parked, "
+                    f"finished, or foreign rids are not migratable — "
+                    f"evacuate/replay covers them)")
+            st = self._slots[slot]
+            if st.phase not in ("decode", "prefill"):
+                raise MigrationError(
+                    f"request {rid} is mid-{st.phase} — only decoding "
+                    f"or prefilling slots migrate")
+            if st.phase == "decode" and not st.emitted:
+                raise MigrationError(
+                    f"request {rid} has no resumable decode state yet")
+            if rid in self._migrating:
+                raise MigrationError(
+                    f"request {rid} already has a migration in flight")
+            if partial:
+                # non-pausing: no gather fault either (a pump polls
+                # this many times a handoff)
+                return self._migrate_partial_locked(slot, st)
+            if self._faults is not None:
+                self._faults.check(faults.MIGRATE_GATHER, rid=rid)
+            t0 = self._tele.migration_started() \
+                if self._tele is not None else None
+            if st.phase == "decode":
+                # the LAST emitted token is the decode step's pending
+                # input — sampled but not yet written, so the target
+                # rewrites nothing and re-prefills nothing
+                written = st.prompt_len + len(st.emitted) - 1
+            else:
+                # prefill handoff: everything below ``filled`` is final;
+                # the target resumes chunking at fill_pos
+                written = st.filled
+            npages = self._npages_for(written)
+            base = max(0, min(int(from_page), npages))
+            pages = self._kv.slot_pages(slot)[base:npages]
+            payloads = self._gather_pages(pages)
+            self._charge_transfer(
+                "page_migrate",
+                2 * len(payloads) * self._kv.page_size * self._row_nbytes())
+            remaining = None if st.deadline is None else \
+                max(0.0, st.deadline - self._clock.now())
+            state = {
+                "rid": rid,
+                "ids": [int(t) for t in st.ids],
+                "prompt_len": int(st.prompt_len),
+                "budget": int(st.budget),
+                "seed": int(st.seed),
+                "emitted": [int(t) for t in st.emitted],
+                "replayed": [int(t) for t in st.replayed],
+                "streamed": int(st.streamed),
+                "preempts": int(st.preempts),
+                "priority": int(st.priority),
+                "n_pre": int(st.n_pre),
+                "deadline_s": remaining,
+                "page_size": int(self._kv.page_size),
+                "written": int(written),
+                "phase": st.phase,
+                "fill_pos": int(st.fill_pos),
+                "filled": int(st.filled),
+                "base": int(base),
+                "sha256": [_sha256(p) for p in payloads],
+            }
+            if self._caches["pool"]["k"].dtype == torch.bfloat16:
+                state["page_dtype"] = "bfloat16"
+            # pause: the decode tick skips inactive rows, the ragged
+            # planner skips slots off the fifo, and (split ticks) the
+            # write cursor parks past the table; resume pushes tok, t and
+            # key again (or re-queues the fifo for a prefill slot), so
+            # nothing the device writes while paused is ever read
+            prior = st.phase
+            self._active[slot] = False
+            st.phase = "migrating"
+            if prior == "prefill" and slot in self._prefill_fifo:
+                self._prefill_fifo.remove(slot)
+            if not self._fused:
+                self._pending_t[slot] = self.max_cache_len
+            self._migrating[rid] = (slot, t0, prior)
+            if self._rec is not None:
+                self._rec.record("migrate_out", rid=rid,
+                                 pages=npages - base, phase=prior,
+                                 tokens=len(st.emitted))
+            if st.journey is not None:
+                if prior == "prefill":
+                    st.journey.event("handoff", at="source",
+                                     pages=npages - base,
+                                     filled=int(st.filled))
+                else:
+                    st.journey.event("migrating", at="source",
+                                     pages=npages,
+                                     tokens=len(st.emitted))
+            return state, payloads
+
+    def _migrate_partial_locked(self, slot, st):
+        """One NON-pausing batch of a mid-prefill slot's complete,
+        not-yet-shipped pages (``migrate_out(partial=True)``). The
+        fragment's ``base``/``fill_pos``/``phase`` tell the handoff pump
+        where the stream stands; the slot keeps prefilling throughout,
+        so a dead pump costs nothing here."""
+        frag = {"rid": int(st.rid), "partial": True,
+                "phase": st.phase,
+                "page_size": int(self._kv.page_size),
+                "prompt_len": int(st.prompt_len),
+                "fill_pos": int(st.fill_pos),
+                "filled": int(st.filled),
+                "base": int(st.sent_pages),
+                "sha256": []}
+        if st.phase != "prefill":
+            # past activation: the full migrate_out ships the balance
+            return frag, []
+        whole = st.filled // self._kv.page_size
+        base = st.sent_pages
+        if whole <= base:
+            return frag, []
+        payloads = self._gather_pages(self._kv.slot_pages(slot)[base:whole])
+        self._charge_transfer(
+            "page_migrate",
+            2 * len(payloads) * self._kv.page_size * self._row_nbytes())
+        st.sent_pages = whole
+        self.stats["handoff_pages_out"] += len(payloads)
+        frag["sha256"] = [_sha256(p) for p in payloads]
+        if self._rec is not None:
+            self._rec.record("handoff_partial", rid=st.rid, base=base,
+                             pages=len(payloads))
+        if st.journey is not None:
+            st.journey.event("handoff", at="source", base=base,
+                             pages=len(payloads))
+        return frag, payloads
+
+    def migrate_finish(self, rid):
+        """Commit a migration: the target restored ``rid`` (and owns its
+        waiter now), so release the paused slot's pages here through the
+        normal teardown — the written prompt prefix is DONATED to the
+        prefix cache like a finished request's. Counts
+        ``server_migrations_total{result="ok"}``. Nothing lands in
+        results or failures: the caller owns the request now."""
+        with self._lock:
+            ent = self._migrating.pop(rid, None)
+            if ent is None:
+                raise MigrationError(
+                    f"request {rid} has no migration in flight")
+            slot, t0 = ent[0], ent[1]
+            st = self._slots[slot]
+            if st is not None and st.rid == rid:
+                if st.journey is not None:
+                    st.journey.event("migrating", at="source",
+                                     handoff=True)
+                self._release_slot(slot)
+            if self._rec is not None:
+                self._rec.record("migrate_done", rid=rid)
+            self.stats["migrations"] += 1
+            if self._tele is not None:
+                self._tele.on_migration("ok", t0)
+                self._tele.on_cancel(rid)   # the lifecycle closes HERE
+                self._pool_gauges()
+            self._done_cv.notify_all()
+
+    def migrate_abort(self, rid):
+        """Abort a migration and RESUME the paused slot bit-exactly. A
+        mid-decode pause pushes the pending token, the write position
+        and (sampling, split ticks) the key again — ``PRNGKey(seed)``
+        advanced one split an emitted token, the chain the device
+        carried; a fused tick keeps a paused slot's key. A mid-PREFILL
+        pause re-queues the slot on the ragged fifo (the shipped-page
+        cursor resets, so a later handoff ships everything again).
+        Counts ``{result="fallback"}`` and freezes a postmortem. Returns
+        False when nothing was in flight for ``rid``."""
+        with self._lock:
+            ent = self._migrating.pop(rid, None)
+            if ent is None:
+                return False
+            slot, t0, prior = ent
+            st = self._slots[slot]
+            if st is None or st.rid != rid:
+                return False   # torn down behind the pause (hard stop)
+            st.sent_pages = 0
+            if prior == "prefill":
+                st.phase = "prefill"
+                if slot not in self._prefill_fifo:
+                    self._prefill_fifo.append(slot)
+                if not self._fused:
+                    self._pending_t[slot] = self.max_cache_len
+            else:
+                st.phase = "decode"
+                if not self._fused:
+                    if self.do_sample:
+                        self._pending_key[slot] = self._chain_key(
+                            st.seed, len(st.emitted))
+                    self._pending_tok[slot] = int(st.emitted[-1])
+                    self._pending_t[slot] = \
+                        st.prompt_len + len(st.emitted) - 1
+                self._active[slot] = True
+            self.stats["migration_fallbacks"] += 1
+            if self._rec is not None:
+                self._rec.record("migrate_fallback", rid=rid)
+                self._postmortem_locked("migration_fallback")
+            if st.journey is not None:
+                st.journey.event("migrating", at="source", fallback=True)
+            if self._tele is not None:
+                self._tele.on_migration("fallback", t0)
+            return True
+
+    def _check_restore_state(self, state):
+        """Shared ``migrate_in`` / ``migrate_in_commit`` validation: the
+        page-size and role gates and the phase's written rows. Returns
+        ``(phase, emitted, prompt_len, budget, written)``; every refusal
+        is a typed ``MigrationError`` raised BEFORE any allocation."""
+        if int(state.get("page_size", self.page_size)) != self.page_size:
+            raise MigrationError(
+                f"page-size mismatch: source pages are "
+                f"{state.get('page_size')} tokens, this pool's are "
+                f"{self.page_size} — migration ships pages whole")
+        emitted = [int(t) for t in state.get("emitted") or ()]
+        prompt_len = int(state["prompt_len"])
+        budget = int(state["budget"])
+        phase = str(state.get("phase") or "decode")
+        if phase == "decode":
+            if self.role == "prefill":
+                raise MigrationError(
+                    "replica role 'prefill' refuses decode-phase "
+                    "admissions — hand mid-decode state to a decode "
+                    "or hybrid replica")
+            if not emitted or len(emitted) >= budget:
+                raise MigrationError(
+                    "only mid-decode state restores (source sends "
+                    "nothing for queued/finished requests)")
+            written = prompt_len + len(emitted) - 1
+        elif phase == "prefill":
+            if emitted:
+                raise MigrationError(
+                    "a prefill-phase handoff cannot carry emitted "
+                    "tokens (activation would have flipped the slot "
+                    "to decode)")
+            written = int(state.get("filled") or 0)
+            if not 0 <= written <= prompt_len:
+                raise MigrationError(
+                    f"filled={written} rows outside the prompt "
+                    f"({prompt_len} tokens)")
+        else:
+            raise MigrationError(
+                f"phase {phase!r} state does not restore (sources "
+                f"send decoding or prefilling slots only)")
+        return phase, emitted, prompt_len, budget, written
+
+    def _verify_pages(self, payloads, digests, base=None, what="staged"):
+        """Every page's end-to-end sha256 against the source's digest (a
+        typed ``MigrationError`` on the first mismatch, worded as the
+        JAX server words it: ``migrated page i/n`` for a one-shot
+        restore, ``{what} page base + i`` for a staged batch)."""
+        for i, want in enumerate(digests or ()):
+            if _sha256(payloads[i]) != want:
+                where = f"migrated page {i}/{len(payloads)}" \
+                    if base is None else f"{what} page {base + i}"
+                raise MigrationError(
+                    f"{where} failed its end-to-end sha256 check")
+
+    def _scatter_pages_locked(self, own, base, payloads):
+        """Scatter received page payloads into this pool's pages
+        ``own[base : base + len(payloads)]`` in place
+        (``_scatter_pages``) and price the bytes as ``page_migrate``
+        (never a prefill dispatch). Caller holds the lock and handles
+        rollback."""
+        self._scatter_pages(own[base:base + len(payloads)], payloads)
+        self._charge_transfer(
+            "page_migrate",
+            2 * len(payloads) * self.page_size * self._row_nbytes())
+
+    def _restore_slot_locked(self, slot, state, phase, emitted,
+                             prompt_len, budget, written, on_token,
+                             journey):
+        """Build and prime the restored ``_Slot`` (the shared tail of
+        ``migrate_in`` and ``migrate_in_commit``): a decode-phase
+        restore resumes the chain exactly where the source paused it; a
+        prefill-phase restore re-queues the ragged fifo at ``fill_pos``
+        so the planner finishes the prompt and activation fires HERE.
+        Returns the request's NEW rid."""
+        rid = self._next_rid
+        self._next_rid += 1
+        dl = state.get("deadline_s")
+        st = _Slot(rid, np.asarray(state["ids"], np.int32), prompt_len,
+                   budget, on_token,
+                   None if dl is None else self._clock.now() + float(dl),
+                   int(state["seed"]))
+        st.emitted = list(emitted)
+        st.streamed = int(state.get("streamed", 0))
+        st.replayed = tuple(int(t) for t in state.get("replayed", ()))
+        st.preempts = int(state.get("preempts", 0))
+        st.priority = int(state.get("priority", 0))
+        st.n_pre = int(state.get("n_pre", 0))
+        st.journey = journey
+        self._slots[slot] = st
+        if phase == "prefill":
+            # the remaining prompt rows prefill here; the ragged planner
+            # picks the slot up next tick and the activation draws the
+            # first token from PRNGKey(seed), the identical chain
+            st.phase = "prefill"
+            st.fill_pos = st.filled = written
+            self._prefill_fifo.append(slot)
+            if not self._fused:
+                self._pending_t[slot] = self.max_cache_len
+        else:
+            # prime the decode chain where the source paused it: pending
+            # input = the last emitted token, write position = the first
+            # unwritten row, key = seed advanced one split an emitted
+            # token (greedy never reads it). The whole prompt is written,
+            # so the finished request donates its prompt pages here
+            st.fill_pos = st.filled = prompt_len
+            if self.do_sample:
+                key = self._chain_key(st.seed, len(emitted))
+                if self._fused:
+                    self._keys.view(torch.int32)[slot] = \
+                        key.view(torch.int32)
+                else:
+                    self._pending_key[slot] = key
+            if not self._fused:
+                self._pending_tok[slot] = int(emitted[-1])
+                self._pending_t[slot] = written
+            self._active[slot] = True
+        self.stats["migrated_in"] += 1
+        if journey is not None:
+            if phase == "prefill":
+                journey.event("handoff", at="target", slot=slot,
+                              filled=written)
+            else:
+                journey.event("migrating", at="target", slot=slot,
+                              tokens=len(emitted))
+        if self._tele is not None:
+            self._pool_gauges()
+        self._done_cv.notify_all()
+        return rid
+
+    def _free_slot_index(self, what):
+        slot = next((s for s in range(self.max_slots)
+                     if self._slots[s] is None), None)
+        if slot is None:
+            raise OutOfPages(f"no free slot for {what} "
+                             f"(all {self.max_slots} busy)")
+        return slot
+
+    def _check_accepting(self):
+        if self._kv is None:
+            raise MigrationError(
+                "cache_backend='dense' has no page pool to restore "
+                "migrated pages into")
+        if not self._accepting:
+            raise MigrationError(
+                "replica is draining/stopped — not accepting migrated "
+                "requests")
+
+    def migrate_in(self, state, payloads, on_token=None, journey=None):
+        """Restore a migrated request into THIS replica and resume it
+        mid-chain: fresh pool pages through the normal ``admit_slot``
+        path, one in-place scatter of the received payloads, and the
+        slot primed as the activation would have left it at this point
+        of the chain — the token stream continues bit-exactly, greedy
+        or seeded sampled, with ZERO re-prefill of the shipped rows (the
+        scatter is priced as ``page_migrate`` bytes, never counted as a
+        prefill). Prefill-phase state resumes CHUNKING at ``fill_pos``.
+        Returns the request's NEW rid.
+
+        Every refusal is typed and leak-free: an injected
+        ``migrate.restore`` fault, a page failing its end-to-end sha256
+        check, a geometry or role mismatch, or a pipelined-stream state
+        (``base`` > 0 restores through the staged calls) raises
+        ``MigrationError`` BEFORE any allocation; ``OutOfPages`` (no free
+        slot, pool exhausted) propagates from the admit; a scatter
+        failure rolls the fresh pages back."""
+        with self._lock:
+            self._check_accepting()
+            if self._faults is not None:
+                self._faults.check(faults.MIGRATE_RESTORE,
+                                   rid=state.get("rid"))
+            if int(state.get("base") or 0):
+                raise MigrationError(
+                    "state carries a page base — a pipelined partial "
+                    "stream restores through migrate_in_begin/"
+                    "migrate_in_pages/migrate_in_commit, not a one-shot "
+                    "migrate_in")
+            phase, emitted, prompt_len, budget, written = \
+                self._check_restore_state(state)
+            if len(payloads) != self._npages_for(written):
+                raise MigrationError(
+                    f"page-count mismatch: {len(payloads)} payloads for "
+                    f"{written} written rows "
+                    f"(expected {self._npages_for(written)})")
+            self._verify_pages(payloads, state.get("sha256"))
+            slot = self._free_slot_index("a migrated request")
+            # a prefill restore sizes its extent off the FULL prompt, a
+            # decode restore off the written rows; both grow as usual
+            # under optimistic admission
+            extent = self._extent_tokens(
+                prompt_len if phase == "prefill" else written,
+                budget - len(emitted))
+            own = self._kv.admit_slot(slot, max(written, extent))
+            if payloads:
+                try:
+                    self._scatter_pages_locked(own, 0, payloads)
+                except Exception:
+                    self._kv.free_slot(slot)
+                    raise
+            rid = self._restore_slot_locked(
+                slot, state, phase, emitted, prompt_len, budget, written,
+                on_token, journey)
+            if self._rec is not None:
+                self._rec.record("migrate_in", rid=rid,
+                                 pages=len(payloads), phase=phase,
+                                 tokens=len(emitted))
+            return rid
+
+    # --------------------- pipelined (staged) prefill-handoff restore
+    def migrate_in_begin(self, state):
+        """Open a PIPELINED restore (disaggregated prefill handoff):
+        allocate the slot and its full page extent NOW so page batches
+        scatter as the source's chunks complete (``migrate_in_pages``)
+        and the first decode tick launches the moment the commit lands
+        (``migrate_in_commit``). ``state`` needs ``ids`` /
+        ``prompt_len`` / ``budget`` / ``page_size`` / ``seed``; the
+        commit's full state re-verifies everything. Returns an opaque
+        transfer handle; ``migrate_in_abort`` releases every page if the
+        handoff dies mid-stream. The placeholder slot counts toward
+        ``in_flight`` but never ticks: not active, not on the prefill
+        fifo, no deadline until the commit."""
+        with self._lock:
+            self._check_accepting()
+            if self._faults is not None:
+                self._faults.check(faults.MIGRATE_RESTORE,
+                                   rid=state.get("rid"))
+            if int(state.get("page_size", self.page_size)) \
+                    != self.page_size:
+                raise MigrationError(
+                    f"page-size mismatch: source pages are "
+                    f"{state.get('page_size')} tokens, this pool's are "
+                    f"{self.page_size} — migration ships pages whole")
+            if self.role == "prefill" and \
+                    str(state.get("phase") or "decode") == "decode":
+                raise MigrationError(
+                    "replica role 'prefill' refuses decode-phase "
+                    "admissions — hand mid-decode state to a decode "
+                    "or hybrid replica")
+            prompt_len = int(state["prompt_len"])
+            budget = int(state["budget"])
+            slot = self._free_slot_index("a staged restore")
+            own = self._kv.admit_slot(
+                slot, self._extent_tokens(prompt_len, budget))
+            rid = self._next_rid
+            self._next_rid += 1
+            st = _Slot(rid, np.asarray(state["ids"], np.int32),
+                       prompt_len, budget, seed=int(state.get("seed", 0)))
+            st.phase = "staging"
+            self._slots[slot] = st
+            if not self._fused:
+                self._pending_t[slot] = self.max_cache_len
+            handle = self._next_xfer
+            self._next_xfer += 1
+            self._staging[handle] = {"slot": slot, "own": list(own),
+                                     "rid": rid, "got": set()}
+            if self._rec is not None:
+                self._rec.record("handoff_begin", rid=rid, slot=slot,
+                                 pages=len(own))
+            if self._tele is not None:
+                self._pool_gauges()
+            return handle
+
+    def migrate_in_pages(self, handle, base, payloads, sha256=None):
+        """Scatter one pipelined page batch at page index ``base`` of the
+        staged restore ``handle`` — the target half of
+        ``migrate_out(partial=True)``. Batches may arrive in any order;
+        the commit verifies full coverage. Raises ``MigrationError``
+        (unknown handle, sha256 failure, pages outside the staged
+        extent) with the staging KEPT: the caller decides between a
+        retry and ``migrate_in_abort``."""
+        with self._lock:
+            ent = self._staging.get(handle)
+            if ent is None:
+                raise MigrationError(
+                    f"no staged restore open for handle {handle!r}")
+            base = int(base)
+            self._verify_pages(payloads, sha256, base, what="staged")
+            own = ent["own"]
+            if base < 0 or base + len(payloads) > len(own):
+                raise MigrationError(
+                    f"staged pages [{base}, {base + len(payloads)}) "
+                    f"fall outside the slot's {len(own)}-page extent")
+            if payloads:
+                self._scatter_pages_locked(own, base, payloads)
+                ent["got"].update(range(base, base + len(payloads)))
+                self.stats["handoff_pages_in"] += len(payloads)
+            if self._rec is not None:
+                self._rec.record("handoff_pages", rid=ent["rid"],
+                                 base=base, pages=len(payloads))
+            return len(payloads)
+
+    def migrate_in_commit(self, handle, state, payloads=(), on_token=None,
+                          journey=None):
+        """Close a pipelined restore: scatter the closing batch (the
+        ``migrate_out(..., from_page=...)`` balance, page base in
+        ``state["base"]``), verify every page of the written extent
+        arrived, and flip the placeholder into a live slot as
+        ``migrate_in`` would. Returns the request's NEW rid. Any refusal
+        (coverage gap, sha256, role or geometry mismatch, ids drifting
+        from the ``migrate_in_begin`` state) raises typed with the
+        staging kept, so the caller can still ``migrate_in_abort``."""
+        with self._lock:
+            ent = self._staging.get(handle)
+            if ent is None:
+                raise MigrationError(
+                    f"no staged restore open for handle {handle!r}")
+            phase, emitted, prompt_len, budget, written = \
+                self._check_restore_state(state)
+            slot, own = ent["slot"], ent["own"]
+            ph = self._slots[slot]
+            if ph is None or ph.rid != ent["rid"]:
+                raise MigrationError(
+                    "staged slot was torn down behind the transfer "
+                    "(hard stop) — nothing to commit")
+            if prompt_len != ph.prompt_len or budget != ph.budget \
+                    or not np.array_equal(
+                        np.asarray(state["ids"], np.int32), ph.ids):
+                raise MigrationError(
+                    "commit state does not match the migrate_in_begin "
+                    "request (ids/prompt_len/budget drift)")
+            need = self._npages_for(written)
+            base = int(state.get("base") or 0)
+            if need > len(own):
+                raise MigrationError(
+                    f"{need} written pages exceed the staged "
+                    f"{len(own)}-page extent")
+            if base + len(payloads) != need:
+                raise MigrationError(
+                    f"closing batch [{base}, {base + len(payloads)}) "
+                    f"does not reach the written extent ({need} pages)")
+            missing = sorted(set(range(base)) - ent["got"])
+            if missing:
+                raise MigrationError(
+                    f"staged restore incomplete: pages {missing} never "
+                    f"arrived before the commit")
+            self._verify_pages(payloads, state.get("sha256"), base,
+                               what="closing")
+            if payloads:
+                self._scatter_pages_locked(own, base, list(payloads))
+            # flip the placeholder into the live slot: _restore_slot
+            # mints the rid the waiter sees
+            self._slots[slot] = None
+            self._staging.pop(handle)
+            rid = self._restore_slot_locked(
+                slot, state, phase, emitted, prompt_len, budget, written,
+                on_token, journey)
+            if self._rec is not None:
+                self._rec.record("handoff_commit", rid=rid, pages=need,
+                                 phase=phase)
+            return rid
+
+    def migrate_in_abort(self, handle):
+        """Tear down a staged restore that will never commit: release
+        every staged page straight back to the allocator (no donation:
+        the rows may be half-written) and drop the placeholder. Returns
+        False when nothing was staged for ``handle``."""
+        with self._lock:
+            ent = self._staging.pop(handle, None)
+            if ent is None:
+                return False
+            slot = ent["slot"]
+            st = self._slots[slot]
+            if st is not None and st.rid == ent["rid"]:
+                self._slots[slot] = None
+                self._active[slot] = False
+                pages = self._kv.detach_slot(slot)
+                if pages:
+                    self._kv.release(pages)
+            if self._rec is not None:
+                self._rec.record("handoff_abort", rid=ent["rid"])
+            if self._tele is not None:
+                self._pool_gauges()
+            return True
+
+    def kill(self, timeout=60.0):
+        """Simulate a replica crash (failover drills): stop the serve
+        thread NOW — joined, so no launch is in flight — and mark the
+        server ``dead``, but unlike ``stop()`` leave the queue and the
+        in-flight slots exactly as they are: no failures recorded, no
+        partials flushed. That is the state a router finds after a real
+        crash and harvests with ``evacuate(flush_partials=True)``.
+        ``start()`` restarts as usual."""
+        with self._lock:
+            self._accepting = False
+            self._draining = False
+            if self._rec is not None:
+                self._rec.record("killed")
+                self._postmortem_locked("killed")
+            self._health.to(DEAD)
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=timeout)
+            if self._thread.is_alive():
+                raise RuntimeError(
+                    f"serve thread did not stop within {timeout}s (a "
+                    f"tick may still be running); call kill() again to "
+                    f"re-join")
+            self._thread = None
+        with self._lock:
+            self._done_cv.notify_all()
+
     def _finished(self, st):
         if len(st.emitted) >= st.budget:
             return True
@@ -2470,6 +3427,13 @@ class ContinuousBatchingServer:
         for slot in range(self.max_slots):
             st = self._slots[slot]
             if st is None or st.deadline is None:
+                continue
+            if st.phase == "migrating":
+                # its pages are in flight to a sibling: expiring the slot
+                # here would tear down state migrate_finish /
+                # migrate_abort still owns. The pause spans ONE attempt;
+                # the deadline bites again the moment the slot resumes
+                # (or on the target)
                 continue
             if now is None:
                 now = self._clock.now()
@@ -2568,11 +3532,10 @@ class ContinuousBatchingServer:
         """Capture a postmortem bundle into the flight recorder: recent
         events plus the serving state an incident review needs — pool
         balance, block-table occupancy, radix-tree stats, the parked
-        queue, live slots, queue depth, health, stats, and the ledger's
-        and the catalog's snapshots. Called under the server lock;
-        returns the bundle (or None without a recorder). The JAX
-        server's ``migration`` section comes with the fleet (ROADMAP
-        Queue 1 item 9)."""
+        queue, live slots, queue depth, health, stats, the migration
+        state, and the ledger's and the catalog's snapshots. Called
+        under the server lock; returns the bundle (or None without a
+        recorder)."""
         if self._rec is None:
             return None
         sections = {
@@ -2588,6 +3551,17 @@ class ContinuousBatchingServer:
                         "preempts": rec.preempts,
                         "emitted": len(rec.emitted)}
                        for rec in self._preempted],
+            # the in-flight pauses an incident interrupted plus the
+            # cumulative outcome split: "did this replica hand its work
+            # off or flush it?"
+            "migration": {
+                "in_flight": sorted(self._migrating),
+                "staging": sorted(self._staging),
+                "migrations": self.stats["migrations"],
+                "fallbacks": self.stats["migration_fallbacks"],
+                "migrated_in": self.stats["migrated_in"],
+                "handoff_pages_out": self.stats["handoff_pages_out"],
+                "handoff_pages_in": self.stats["handoff_pages_in"]},
         }
         if self._kv is not None:
             # pool_balance() is the ONE definition of the balance (a
@@ -2596,8 +3570,13 @@ class ContinuousBatchingServer:
             sections["pool_balance"] = {
                 "free": bal[0], "live": bal[1], "pinned": bal[2],
                 "cached": bal[3], "preempted": bal.preempted,
-                "preemptions": bal.preemptions}
-            sections["block_table"] = self._kv.occupancy()
+                "preemptions": bal.preemptions,
+                "num_shards": bal.num_shards,
+                "per_shard": list(bal.per_shard),
+                "shard_page_bytes": bal.shard_page_bytes,
+                "host": bal.host, "host_bytes": bal.host_bytes}
+            sections["block_table"] = self._kv.occupancy(
+                host_tier=self._host)
             sections["prefix_cache"] = self._prefix.stats()
         if self._led is not None:
             sections["goodput"] = self._led.snapshot()
@@ -2657,6 +3636,8 @@ class ContinuousBatchingServer:
                 if not self._busy_locked():
                     break
                 self._step_locked()
+                if self._prefix is not None:
+                    self._prefix.flush_sketch()
             self._fire_callbacks()
             ticks += 1
         with self._lock:
@@ -2773,6 +3754,8 @@ class ContinuousBatchingServer:
                         with self._lock:
                             if self._busy_locked():
                                 self._step_locked()
+                            if self._prefix is not None:
+                                self._prefix.flush_sketch()
                         self._fire_callbacks()
                     except CallbackError as ce:
                         # the engine is fine: fail exactly the requests

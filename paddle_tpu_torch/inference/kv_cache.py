@@ -217,10 +217,12 @@ class PagedKVCache:
         """Per-slot block-table occupancy, plain data — the postmortem
         bundle's "who holds which pages" section: pages held and
         shared-prefix pages per occupied slot, plus the pool totals.
-        ``num_shards`` and ``host_tier`` keep the JAX package's
-        signature; the port's pool is one card's and has no host tier
-        (ROADMAP Queue 1 item 9), so only their views are added when
-        given, as the reference adds them."""
+        With ``num_shards > 1`` a ``shards`` view is appended (the
+        JAX package's signature: the port's pool is one card's, and the
+        kv-head-sharded pool is ROADMAP Queue 1 item 9). ``host_tier`` (a
+        ``kv_tier.HostTier`` or its ``stats()`` dict) appends the host
+        tier's residency as a ``host_tier`` section — where the evicted
+        pages went once spill-to-host is on."""
         occ = {"free_pages": self.free_pages(),
                "used_pages": self.used_pages(),
                "pages_per_slot": self.pages_per_slot,

@@ -143,7 +143,7 @@ def _check_mesh(mesh):
     if mesh is not None:
         raise NotImplementedError(
             "mesh serving is not ported (ROADMAP, Queue 1 item 9: the "
-            "fleet)")
+            "fleet's kv-head-sharded pool)")
 
 
 def _check_paged_config(max_cache_len, page_size, num_pages, cache_dtype,

@@ -1,16 +1,17 @@
 """Typed failures, fault injection, retry and circuit breaking, the
 serve loop's supervisor and health states, durable checkpoints and the
 fault-tolerant training supervisor: the port of the JAX package's
-reliability layer, cut to what the server and the training loop use."""
+reliability layer, cut to what the server, the in-process fleet and the
+training loop use."""
 from . import faults
 from .ckpt import (AsyncCheckpointer, CheckpointStore, checkpoint_meta,
                    read_checkpoint, recover_interrupted_swaps,
                    verify_checkpoint, write_checkpoint)
 from .errors import (CallbackError, CheckpointCorruptError,
                      CircuitOpenError, DeadlineExceeded, InjectedFault,
-                     PreemptedError, QueueFullError, ReliabilityError,
-                     RequestCancelled, ServerClosed, StepFailedError,
-                     TrainAnomalyError)
+                     MigrationError, PreemptedError, QueueFullError,
+                     ReliabilityError, ReplicaLostError, RequestCancelled,
+                     ServerClosed, StepFailedError, TrainAnomalyError)
 from .faults import FaultInjector
 from .health import (DEAD, DEGRADED, DRAINING, HEALTH_CODES, HEALTHY,
                      HealthMonitor, is_serving_state)
@@ -21,8 +22,9 @@ from .training import (AnomalyPolicy, ResumableLoader, TrainReport,
 
 __all__ = ["ReliabilityError", "DeadlineExceeded", "QueueFullError",
            "RequestCancelled", "ServerClosed", "CallbackError",
-           "CircuitOpenError", "PreemptedError", "InjectedFault",
-           "CheckpointCorruptError", "TrainAnomalyError",
+           "CircuitOpenError", "ReplicaLostError", "PreemptedError",
+           "MigrationError", "InjectedFault", "CheckpointCorruptError",
+           "TrainAnomalyError",
            "StepFailedError", "faults", "FaultInjector", "RetryPolicy",
            "CircuitBreaker", "ServeSupervisor", "HealthMonitor",
            "HEALTHY", "DEGRADED", "DRAINING", "DEAD", "HEALTH_CODES",

@@ -2,8 +2,10 @@
 
 Copied from ``paddle_tpu/reliability/errors.py``, cut to the failures
 the port raises: the server's (its preemption signal included), the
-fault injector's, the durable checkpoints' and the training
-supervisor's.
+in-process fleet's (the router's lost replica, a migration attempt),
+the fault injector's, the durable checkpoints' and the training
+supervisor's. The wire's ``TransportError`` and ``FrameError`` come
+with the process replicas (ROADMAP Queue 1 item 9).
 
 Every failure the reliability layer can hand a waiter is a
 ``ReliabilityError`` subclass, so callers can catch the whole family or
@@ -15,7 +17,8 @@ these DIRECTLY (no RuntimeError wrapping) — a client distinguishing
 
 __all__ = ["ReliabilityError", "DeadlineExceeded", "QueueFullError",
            "RequestCancelled", "ServerClosed", "CallbackError",
-           "CircuitOpenError", "PreemptedError", "InjectedFault",
+           "CircuitOpenError", "ReplicaLostError", "PreemptedError",
+           "MigrationError", "InjectedFault",
            "CheckpointCorruptError", "TrainAnomalyError",
            "StepFailedError"]
 
@@ -54,6 +57,31 @@ class CircuitOpenError(ReliabilityError):
     failures): in-flight and queued requests are failed with this so no
     waiter wedges, and the server goes ``degraded`` until a half-open
     probe tick succeeds. ``__cause__`` is the last tick error."""
+
+
+class ReplicaLostError(ReliabilityError):
+    """The multi-replica router could not place (or re-place) this
+    request on ANY replica: no replica was serving at submit, or the
+    replica holding it died and the requeue found the whole fleet
+    down (while any sibling is alive the router HOLDS the request and
+    keeps retrying instead). ``__cause__`` is the last per-replica
+    error. Request-level outcomes pass through the router unchanged —
+    ``DeadlineExceeded``, ``RequestCancelled``, ``CallbackError``, and
+    a replica's breaker opening (``CircuitOpenError``, deliberately
+    fail-fast: its in-flight work may already have streamed tokens, so
+    transparent re-execution would double-stream)."""
+
+
+class MigrationError(ReliabilityError):
+    """A live KV-page migration attempt could not complete: the request
+    is not migratable (unknown, finished, dense backend, already in
+    flight), a gathered or received page failed its sha256 check, or
+    the two ends disagree on page geometry or role. It marks exactly ONE
+    migration attempt's outcome — the request itself is STILL LIVE on
+    the source (paused at worst, resumed by ``migrate_abort``) — so
+    callers degrade to the evacuate+replay path
+    (``server_migrations_total{result=fallback}``) and NEVER surface
+    this to a waiter."""
 
 
 class PreemptedError(ReliabilityError):

@@ -3,7 +3,10 @@
 Copied from ``paddle_tpu/reliability/faults.py`` (the module is
 framework-free); the port fires the serving points (``PREFILL``,
 ``DECODE_TICK``, ``PAGE_ALLOC``, ``KV_GROW``, ``SERVER_PREEMPT``,
-``ON_TOKEN``, ``PREFIX_EVICT``, ``PREFIX_DONATE``) and the training and
+``ON_TOKEN``, ``PREFIX_EVICT``, ``PREFIX_DONATE``), the in-process
+fleet's (``TIER_SPILL``, ``TIER_RESTORE``, ``ROUTER_DISPATCH``,
+``ROUTER_EVACUATE``, ``MIGRATE_GATHER``, ``MIGRATE_RESTORE``; the
+``NET_*`` points wait for the wire) and the training and
 checkpoint points (``CKPT_WRITE``, ``CKPT_RENAME``, ``CKPT_SWAP``,
 ``TRAIN_STEP``, ``DATA_NEXT``), and publishes its fires to a telemetry
 registry and a flight recorder as the reference does.

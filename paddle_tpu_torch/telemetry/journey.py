@@ -1,8 +1,8 @@
 """Request-journey tracing across the serving fleet.
 
 Copied from ``paddle_tpu/telemetry/journey.py`` (framework-free; the
-port's router comes with ROADMAP Queue 1 item 9, and a standalone server
-mints its own journeys). The telemetry's lifecycle spans live inside
+port's ``inference.router.ReplicaRouter`` mints fleet journeys, and a
+standalone server mints its own). The telemetry's lifecycle spans live inside
 ONE replica's tracer under that replica's LOCAL rid — they cannot answer "what happened to request X"
 once X crossed a dead replica, was preempted and replayed, or was
 evacuated and requeued onto a sibling. A ``JourneyRecorder`` is the

@@ -1,9 +1,9 @@
 """Serving SLO instrumentation for the continuous-batching server.
 
 Copied from ``paddle_tpu/telemetry/serving.py`` (framework-free). The
-port's server feeds ``ServerTelemetry``; ``RouterTelemetry`` waits for
-the port's router (ROADMAP Queue 1 item 9), as do the host-tier and
-migration signals, which stay at zero.
+port's server feeds ``ServerTelemetry`` (its host-tier and migration
+signals included); the port's ``ReplicaRouter`` feeds
+``RouterTelemetry``.
 
 One ``ServerTelemetry`` object owns every signal an SLO-aware scheduler
 (or an operator's dashboard) needs from ``ContinuousBatchingServer``:

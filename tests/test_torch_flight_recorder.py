@@ -10,10 +10,10 @@ same) on a ``FakeClock``:
   profiles, grows, preemptions, donations, replays, faults, retries,
   the breaker, health, finishes, flushes, fails) is the reference's,
   field for field, in five scenarios;
-- a postmortem bundle's sections are the reference's, but for the
-  fleet's parts (pinned: the ``migration`` section, the pool balance's
-  shard and host-tier keys, the routing sketch's size) and the server's
-  own ``stats``;
+- a postmortem bundle's sections are the reference's — the fleet's
+  ``migration`` section, the pool balance's shard and host-tier keys and
+  the routing sketch's size included — but for the server's own
+  ``stats``;
 - journeys, self-minted by a server built with ``journeys=`` or handed
   in through ``submit(journey=)``, hold the reference's timelines;
 - ``serve_metrics``' debug routes serve the journeys and the bundles;
@@ -36,7 +36,7 @@ from _serving_stub import StubModel, stub_tokens
 from paddle_tpu.inference.continuous_batching import \
     ContinuousBatchingServer as JaxServer
 from paddle_tpu_torch.inference import (ContinuousBatchingServer,
-                                        serve_metrics)
+                                        ReplicaRouter, serve_metrics)
 from test_torch_preemption import TorchStub
 
 SAMPLE = {"do_sample": True, "temperature": 0.7, "top_k": 4}
@@ -133,33 +133,20 @@ def _run(impl, scenario):
             [_strip(srv.journey(r) or []) for r in rids], rids)
 
 
-FLEET_ONLY = {"migration"}
-POOL_FLEET_KEYS = {"num_shards", "per_shard", "shard_page_bytes", "host",
-                   "host_bytes"}
-
-
 @pytest.mark.parametrize("scenario", list(SCENARIOS))
 def test_recorder_events_and_journeys_equal_the_jax_servers(scenario):
     """The same scenario on both servers: the recorder's events, each
     request's journey and each postmortem bundle are the reference's
-    (bundles: but for the fleet's sections and the stats dict)."""
+    (bundles: but for the stats dict)."""
     srv, events, bundles, journeys, rids = _run(PORT, scenario)
     _, ref_events, ref_bundles, ref_journeys, _ = _run(JAX, scenario)
     assert events == ref_events
     assert journeys == ref_journeys and all(journeys)
     assert len(bundles) == len(ref_bundles)
     for got, want in zip(bundles, ref_bundles):
-        assert set(want) - set(got) == FLEET_ONLY
-        for k in set(got) - {"stats", "pool_balance", "prefix_cache"}:
+        assert set(want) == set(got)
+        for k in set(got) - {"stats"}:
             assert got[k] == want[k], k
-        assert got["pool_balance"] == {
-            k: v for k, v in want["pool_balance"].items()
-            if k not in POOL_FLEET_KEYS}
-        assert {k: v for k, v in got["prefix_cache"].items()
-                if k != "sketch_size"} == \
-            {k: v for k, v in want["prefix_cache"].items()
-             if k != "sketch_size"}
-        assert got["prefix_cache"]["sketch_size"] == 0
         bal = got["pool_balance"]
         assert bal["free"] + bal["live"] + bal["pinned"] + bal["cached"] \
             == srv._kv.num_pages - 1
@@ -216,7 +203,8 @@ def test_serve_metrics_debug_routes():
     self-minted timeline (404 for an unknown rid), ``/debug/postmortem``
     the bundles, ``/healthz`` the health verdict, ``/stats`` the pool's,
     the prefix cache's and the ledger's statistics; a server without
-    telemetry refuses, and so does a router target (not ported)."""
+    telemetry refuses; a router target aggregates its replicas'
+    health."""
     fi = TR.FaultInjector(seed=0).on(TR.faults.PREFILL, schedule=[1])
     srv = ContinuousBatchingServer(TorchStub(), max_slots=2,
                                    max_cache_len=32, cache_backend="paged",
@@ -252,12 +240,17 @@ def test_serve_metrics_debug_routes():
         serve_metrics(ContinuousBatchingServer(TorchStub(), max_slots=1,
                                                max_cache_len=16))
 
-    class _Router:
-        replicas = ()
-        telemetry = TT.RouterTelemetry()
-
-    with pytest.raises(NotImplementedError, match="item 9"):
-        serve_metrics(_Router())
+    # a router front door: /healthz aggregates its replicas
+    rep = ContinuousBatchingServer(TorchStub(), max_slots=1,
+                                   max_cache_len=16)
+    router = ReplicaRouter([rep], telemetry=True)
+    ms = serve_metrics(router)
+    try:
+        assert _get(ms.url + "/healthz")[0] == 200
+        stats = json.loads(_get(ms.url + "/stats")[1])["stats"]
+        assert stats["replicas"][0]["health"] == "healthy"
+    finally:
+        ms.close()
 
 
 @pytest.mark.parametrize("mode", ["dense", "split", "fused"])

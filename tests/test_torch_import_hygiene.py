@@ -65,7 +65,10 @@ def test_scan_sees_the_whole_port():
             "paddle_tpu_torch/telemetry/serving.py",
             "paddle_tpu_torch/telemetry/exposition.py",
             "paddle_tpu_torch/models/costs.py",
-            "paddle_tpu_torch/inference/serving.py"} <= names
+            "paddle_tpu_torch/inference/serving.py",
+            "paddle_tpu_torch/inference/kv_tier.py",
+            "paddle_tpu_torch/inference/placement.py",
+            "paddle_tpu_torch/inference/router.py"} <= names
     assert len(names) >= 43
 
 

@@ -386,7 +386,7 @@ def pt_errors():
     # optimistic admission runs on the pool; the dense backend refuses
     # it, as the reference does
     {"admission": "optimistic", "cache_backend": "dense"},
-    {"mesh": object()}, {"host_tier": True},
+    {"mesh": object()},
     {"weight_dtype": "int8"}, {"cache_dtype": "int8"},
 ], ids=lambda kw: next(iter(kw)))     # ids must not vary per process
 def test_unported_options_raise_with_a_roadmap_pointer(kw):
