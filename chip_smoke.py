@@ -17,6 +17,7 @@
     python3 chip_smoke.py --only build,preempt_parity,serve,preempt
     python3 chip_smoke.py --only build,serve,telemetry,fit
     python3 chip_smoke.py --only build,fleet_parity,fleet
+    python3 chip_smoke.py --only build,serve,wire_parity,wire
 
 Phases, in order; any failure exits non-zero:
 
@@ -286,13 +287,13 @@ Phases, in order; any failure exits non-zero:
    Informational: the optimistic greedy tokens against the reserve
    wave's;
 21. telemetry: the port's telemetry on the serve phase's Llama-2-7B,
-   prompts and 32 new tokens: for split and for fused ticks, three
-   waves without telemetry and three with it, interleaved off on on off
-   off on, each on a new server, then a sampled fused wave on, "on"
+   prompts and 32 new tokens: for split and for fused ticks, one wave
+   without telemetry and one with it, in that order, each on a new
+   server, then a sampled fused wave on, "on"
    being ``telemetry``, ``recorder``, ``ledger``, ``journeys`` and a
    ``CostCatalog`` on the card's data-sheet peaks, each driven tick by
    tick. Gates: every wave's tokens (256 of 256) and K1, K2, K3 and R1
-   launches equal its mode's first "off" wave's (the sampled wave's
+   launches equal its mode's "off" wave's (the sampled wave's
    tokens the serve phase's sampled fused wave's), serve's launch
    gates; the ledger's kinds sum to the rows each tick's launches ran
    (the server's ``device_rows``, counted from the host arrays it
@@ -310,7 +311,7 @@ Phases, in order; any failure exits non-zero:
    ``torch.profiler.record_function``, puts the server's request spans
    among a profile's events. Printed: each wave's tokens/s (over the
    time spent in the server's ``submit`` and ``step`` calls) and median
-   decode-only tick, on against off, and their medians; the phase split
+   decode-only tick, on against off; the phase split
    of the first
    admission tick and of a steady decode tick, the ledger's kinds and
    goodput ratio, each op's FLOPs, bytes, MFU and roofline ratio over
@@ -354,7 +355,46 @@ Phases, in order; any failure exits non-zero:
    wave's launches: K1 == decode ticks x layers and K2 == prefill
    launches x layers over its split replicas, K3 == fused passes x
    layers over its fused ones, R1 == the draws, no K6 or R2;
-24. int8_infer: the serve phase's Llama-2-7B (full width and depth):
+24. wire_parity: llama_tiny in f32 (weights from seed 3) served through
+   the wire: ``ReplicaHost``s on threads of this process, their servers
+   on the card, behind ``RemoteReplica``s and a round-robin
+   ``ReplicaRouter``; the same script on the CPU. Waves of four prompts,
+   split and fused, greedy and sampled, submitted before the replicas
+   start; one request moved A -> B mid-decode over the wire (page
+   frames sha256-checked by the transport and by the target), split and
+   fused; a polite ``kill`` of a host holding queued work. Gates: the
+   card's tokens equal the CPU's in every scenario; the moved request
+   equals its never-moved run with zero re-prefill on B; the killed
+   host's queue completes on its sibling, no request fails; live == 0
+   on every pool, read over the wire; each wave's launches
+   (``fleet_launch_gates``) from the hosts' servers' stats; none on the
+   CPU;
+25. wire: Llama-2-7B bf16 (full width and depth, seed 0) in two
+   replica processes started together by ``spawn_replica_host``
+   (``wire_factory``: the serve geometry, split, and serve_timed's warm
+   request before the host listens). Prints each child's start time,
+   the parent's ``torch.cuda.mem_get_info()`` and every process's use
+   (``nvidia-smi --query-compute-apps``). Parity: each child takes the
+   serve prompts before its serve loop starts: greedy tokens equal the
+   serve phase's split wave, 256 of 256 (a reference wave in this
+   process when serve is not run). Move: the fleet phase's 900-token
+   request from A to B after 8 tokens over the wire (57 page frames of
+   exactly 8 MiB): its tokens equal its never-moved run on B; printed:
+   the gather, every side's sha256, the scatter, the socket and host
+   copies, end to end. Digests: the longest gap between two digests the
+   router's clients received while both hosts served (gated below the
+   clients' ``draining_after_s``). Drill (``RouterSupervisor``, a router
+   with journeys and ``serve_metrics``): A holds queued and mid-decode
+   requests; A is frozen (SIGSTOP) until its client reads it ``dead``
+   with its connection still open (stale digests alone), then
+   SIGKILLed. Gates: the queued requests complete on B with full
+   budgets, the mid-decode ones return exactly their streamed partials,
+   B ends with live == 0, a failed-over request's journey spans two
+   pids in ``export_fleet_trace``, ``/healthz`` answers 200 while B
+   serves. B is then stopped and shut down: its launch counts, written
+   at exit by the factory's ``atexit`` hook, pass ``fleet_launch_gates``
+   against its own stats with K1 + K2 > 0;
+26. int8_infer: the serve phase's Llama-2-7B (full width and depth):
    one bf16 forward of 8 x 512 ids from seed 0, then
    ``to_int8_inference(model, inplace=True)`` and the same forward with
    the counters zeroed just before and read just after: 7 x layers + 1
@@ -363,7 +403,7 @@ Phases, in order; any failure exits non-zero:
    and the largest relative logit
    error against bf16, ms per forward and tokens/s for both, peak memory,
    a profile of one forward of each;
-25. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
+27. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
    f32 moments, one fixed 8 x 1024 batch from seed 0: 2 warm-up steps,
    then 10 timed with the counters zeroed just before and read just
    after (K4: 10 x layers each, K5: 10 x (2 x layers + 1) each, K6's q +
@@ -372,14 +412,14 @@ Phases, in order; any failure exits non-zero:
    fall and stay finite, gradients finite; step time, tokens/s, peak
    memory and a profile of one step (its launches, the optimizer's
    device time);
-26. train_compose: the same model, weights, batch and optimizer with rope
+28. train_compose: the same model, weights, batch and optimizer with rope
    on the composition (``ops.rope._COMPOSITION_ONLY``, set for the phase
    and restored after it): 2 warm-up steps and 5 timed, the counters
    zeroed before the first and read after the last (no K6); the 7 losses
    equal to the train phase's first 7 bit for bit (K6 is the composition
    bit for bit, forward and backward); ms per step of both phases from
    this call, and a profile of one step;
-27. train_amp: the slice's path. llama_350m at full width and depth
+29. train_amp: the slice's path. llama_350m at full width and depth
    from seed 0, ``amp.decorate(level="O2", dtype="bfloat16")`` (the rope
    tables stay f32), ``AdamW(multi_precision=True, weight_decay=0.01``
    off the norms, ``grad_clip=ClipGradByGlobalNorm(1.0))`` on the fused
@@ -396,7 +436,7 @@ Phases, in order; any failure exits non-zero:
    written into one gradient of the second: that step is skipped
    (parameters unchanged bit for bit, the optimizer not stepped) and the
    scale halves;
-28. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
+30. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
    llama_350m in bf16 at full width and depth from seed 0,
    ``AdamW(1e-4, weight_decay=0.01)``, ``nn.CrossEntropyLoss()``, a
    ``TensorDataset`` of 96 rows of 1025 seeded ids (inputs the first
@@ -422,7 +462,8 @@ Phases, in order; any failure exits non-zero:
    across it while the step count advances, the fused step launched 2
    times. All losses but the injected one finite; the loss falls.
 
-The last two lines of standard output are the per-kernel JSON record
+Each phase ends with a ``phase <name> <seconds>`` line. The last two
+lines of standard output are the per-kernel JSON record
 and ``{"ok": true, "device": {...}}``. Without a CUDA card, or without
 the ``paddle_tpu_torch`` package beside this file, it exits non-zero and
 prints no result.
@@ -440,8 +481,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "opt",
           "rng", "parity", "dense_parity", "preempt_parity", "train_parity",
           "int8_parity", "serve", "dense", "preempt", "telemetry",
-          "fleet_parity", "fleet", "int8_infer", "train",
-          "train_compose", "train_amp", "fit")
+          "fleet_parity", "fleet", "wire_parity", "wire", "int8_infer",
+          "train", "train_compose", "train_amp", "fit")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
 # outside the tensor cores, int8 tensor-core operations/s). The SXM part
@@ -4300,10 +4341,9 @@ def telemetry_wave(torch, srv, prompts, n_new, warm, tele=None):
 
 def phase_telemetry(torch, np, card, peak, record, model, serve_res):
     """The port's telemetry wired into the 7B server (the serve phase's
-    model and prompts, or a new model from seed 0): for each mode three
-    waves off and three on, interleaved, and a sampled fused wave on,
-    each gated (tokens and launches of every wave equal its mode's first
-    "off" wave's; the
+    model and prompts, or a new model from seed 0): for each mode one
+    wave off and one on, and a sampled fused wave on, each gated (tokens
+    and launches of the "on" wave equal its mode's "off" wave's; the
     ledger conserves each tick's rows; goodput = prompt rows + decode
     rows; TTFT and TPOT histograms against the smoke's own medians; the
     catalog's roofline ratio <= 1.05 every tick); then ``/metrics`` and
@@ -4312,7 +4352,6 @@ def phase_telemetry(torch, np, card, peak, record, model, serve_res):
     inside a torch.profiler trace."""
     import gc
     import json as _json
-    import statistics
     import urllib.request
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch import telemetry as tt
@@ -4442,13 +4481,14 @@ def phase_telemetry(torch, np, card, peak, record, model, serve_res):
                     f"{p} {ev['phases'][p] * 1e3:.3f}" for p in TICK_PHASES
                     if p in ev["phases"]))
 
-    # each mode's waves without telemetry and with it, interleaved
-    # off-on, on-off, off-on so that drift over the phase falls on both
-    # alike; a new server each wave (a server's prefix cache would give
-    # a later wave's prompts hits)
+    # each mode's wave without telemetry, then with it; a new server
+    # each wave (a server's prefix cache would give a later wave's
+    # prompts hits). The cost of telemetry on a tick stays inside the
+    # waves' spread at this depth: one pair a mode gates, it does not
+    # measure
     checks, res = {}, {}
     for mode in ("split", "fused"):
-        for o in ("off", "on", "on", "off", "off", "on"):
+        for o in ("off", "on"):
             srv, tele = server(mode, o == "on")
             r = telemetry_wave(torch, srv, prompts, n_new, warm, tele)
             waves = res.setdefault(f"{mode} {o}", [])
@@ -4462,25 +4502,18 @@ def phase_telemetry(torch, np, card, peak, record, model, serve_res):
         same = min(sum(int((a == b).sum()) for a, b in zip(w["tokens"],
                                                           want))
                    for w in off[1:] + on)
-        checks[f"{mode}: every wave's tokens == the first off wave's "
-               f"(least {same} of {len(prompts) * n_new})"] = \
+        checks[f"{mode}: the on wave's tokens == the off wave's "
+               f"({same} of {len(prompts) * n_new})"] = \
             same == len(prompts) * n_new
         keys = ("k1", "k2", "k3", "r1")
-        checks[f"{mode}: every wave's launches == the first off wave's"] = \
+        checks[f"{mode}: the on wave's launches == the off wave's"] = \
             all({k: w["counts"][k] for k in keys}
                 == {k: off[0]["counts"][k] for k in keys}
                 for w in off[1:] + on)
-        med = statistics.median
         log(f"telemetry {mode} on against off [{card}], waves in the order "
-            f"off on on off off on: tok/s on "
-            f"{[round(w['tok_s'], 1) for w in on]} off "
-            f"{[round(w['tok_s'], 1) for w in off]} (medians "
-            f"{med([w['tok_s'] for w in on]):.1f} / "
-            f"{med([w['tok_s'] for w in off]):.1f}); median decode-only tick "
-            f"on {[round(w['decode_ms'], 2) for w in on]} off "
-            f"{[round(w['decode_ms'], 2) for w in off]} ms (medians "
-            f"{med([w['decode_ms'] for w in on]):.2f} / "
-            f"{med([w['decode_ms'] for w in off]):.2f} ms)")
+            f"off on: tok/s on {on[0]['tok_s']:.1f} off "
+            f"{off[0]['tok_s']:.1f}; median decode-only tick on "
+            f"{on[0]['decode_ms']:.2f} off {off[0]['decode_ms']:.2f} ms")
     srv, tele = server("fused", True, True)
     r = telemetry_wave(torch, srv, prompts, n_new, warm, tele)
     res["sampled fused on"] = [r]
@@ -5150,6 +5183,630 @@ def phase_fleet(torch, np, card, model):
                           for k, v in res["hybrid"]["gates"].items()}})
     log(f"fleet: {time.perf_counter() - t_phase:.1f} s")
     return model
+
+
+def wire_parity_run(np, model):
+    """One pass of the wire_parity scripts on ``model`` (llama_tiny in
+    f32): ``ReplicaHost``s on threads of this process serve
+    ``ContinuousBatchingServer``s of the model behind ``RemoteReplica``s.
+    Returns {scenario: tokens}, {scenario: launch counts} and
+    {scenario: launch gates} (the gates hold only on the card)."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingServer,
+                                            RemoteReplica, ReplicaHost,
+                                            ReplicaRouter)
+    V, L = model.cfg.vocab_size, model.cfg.num_layers
+    rng = np.random.default_rng(12)
+    kw = dict(max_slots=2, max_cache_len=64, cache_backend="paged",
+              page_size=8, prefill_tokens_per_tick=16)
+    sample = dict(do_sample=True, temperature=0.8, top_k=20, top_p=0.9)
+    toks, counts, gates = {}, {}, {}
+    opened = []
+
+    def pair(k):
+        srvs = [ContinuousBatchingServer(model, **k) for _ in range(2)]
+        hosts = [ReplicaHost(s).start() for s in srvs]
+        reps = [RemoteReplica(h.address) for h in hosts]
+        opened.append((reps, hosts, srvs))
+        return srvs, reps
+
+    def live(reps):
+        return [r.pool_balance()[1] for r in reps]
+
+    try:
+        # waves through a round-robin router, every prompt submitted
+        # before the replicas start (the admission grouping is fixed)
+        wave = [rng.integers(0, V, (int(n),)).astype(np.int32)
+                for n in (9, 20, 13, 30)]
+        for mode in ("split", "fused"):
+            for s in (False, True):
+                name = f"wave {mode} {'sampled' if s else 'greedy'}"
+                srvs, reps = pair(dict(kw, serving_mode=mode,
+                                       **(sample if s else {})))
+                router = ReplicaRouter(reps, policy="round_robin")
+                router.start(poll_interval=0.01, start_replicas=False)
+                before = fleet_stats(srvs)
+                zero_counts()
+                rids = [router.submit(p, max_new_tokens=8, seed=30 + i)
+                        for i, p in enumerate(wave)]
+                for rep in reps:
+                    rep.start()
+                toks[name] = [router.wait(r, timeout=300) for r in rids]
+                router.stop(drain=True, timeout=120)
+                counts[name] = read_counts()
+                _, gates[name] = fleet_launch_gates(
+                    counts[name], before, fleet_stats(srvs), L, s)
+                fleet_check(f"wire_parity {name}", {
+                    "8 tokens each": all(len(t) == 8 for t in toks[name]),
+                    "routed 2 and 2": router.stats["routed"] == [2, 2],
+                    "no request failed": router.failures == {},
+                    "live == 0 on both, over the wire":
+                        live(reps) == [0, 0]})
+        # one request moved A -> B mid-decode over the wire
+        p_mig = rng.integers(0, V, (37,)).astype(np.int32)
+        for mode in ("split", "fused"):
+            name = f"move {mode}"
+            k = dict(kw, serving_mode=mode)
+            ref = serve_wave(ContinuousBatchingServer(model, **k), [p_mig],
+                             16, [9])[0]
+            srvs, reps = pair(k)
+            before = fleet_stats(srvs)
+            zero_counts()
+            rid = reps[0].submit(p_mig, max_new_tokens=16, seed=9)
+            src = srvs[0]
+            while src._slots[0] is None or len(src._slots[0].emitted) < 5:
+                src.step()
+            state, payloads = reps[0].migrate_out(rid)
+            new = reps[1].migrate_in(state, payloads)
+            moved = reps[0].migrate_finish(rid)
+            reps[1].start()
+            out = reps[1].wait(new, timeout=300)
+            reps[1].stop(drain=True, timeout=120)
+            toks[name] = (ref, out)
+            counts[name] = read_counts()
+            _, gates[name] = fleet_launch_gates(
+                counts[name], before, fleet_stats(srvs), L, False)
+            fleet_check(f"wire_parity {name}", {
+                "tokens equal the never-moved run's":
+                    np.array_equal(ref, out),
+                "committed": moved is True,
+                "every frame's and page's sha256 held, zero re-prefill on "
+                "B": srvs[1].stats["migrated_in"] == 1
+                and srvs[1].stats["prefill_tokens"] == 0,
+                "live == 0 on both, over the wire": live(reps) == [0, 0]})
+        # a polite kill of a host holding queued work
+        name = "kill"
+        k = dict(kw)
+        wave5 = [rng.integers(0, V, (int(n),)).astype(np.int32)
+                 for n in (9, 12, 20, 7, 15)]
+        ref = serve_wave(ContinuousBatchingServer(model, **k), wave5, 6,
+                         list(range(5)))
+        srvs, reps = pair(k)
+        router = ReplicaRouter(reps, policy="round_robin")
+        router.start(poll_interval=0.01, start_replicas=False)
+        before = fleet_stats(srvs)
+        zero_counts()
+        rids = [router.submit(p, max_new_tokens=6, seed=i)
+                for i, p in enumerate(wave5)]
+        queued = srvs[0].queue_depth()
+        reps[0].kill()
+        deadline = time.monotonic() + 60
+        while router.stats["requeued"] < queued:
+            if time.monotonic() > deadline:
+                raise SystemExit(f"wire_parity kill: no failover "
+                                 f"{router.stats}")
+            time.sleep(0.01)
+        reps[1].start()
+        got = [router.wait(r, timeout=300) for r in rids]
+        router.stop(drain=True, timeout=120, stop_replicas=False)
+        reps[1].stop(drain=True, timeout=120)
+        toks[name] = (ref, got)
+        counts[name] = read_counts()
+        _, gates[name] = fleet_launch_gates(
+            counts[name], before, fleet_stats(srvs), L, False)
+        fleet_check("wire_parity kill", {
+            "the killed host held 3 queued requests": queued == 3,
+            "every request completed on the sibling, equal to the "
+            "never-killed run's": all(np.array_equal(g, r)
+                                       for g, r in zip(got, ref)),
+            "no request failed": router.failures == {},
+            "live == 0 on both, the killed host too, over the wire":
+                live(reps) == [0, 0]})
+    finally:
+        for reps, hosts, srvs in opened:
+            for rep in reps:
+                rep.close()
+            for host in hosts:
+                host.close()
+            for srv in srvs:
+                if srv._thread is not None:
+                    srv.stop(timeout=60)
+    return toks, counts, gates
+
+
+def phase_wire_parity(torch, np):
+    """llama_tiny in f32 served over the wire on the card against the
+    same scripts on the CPU (see the module docstring)."""
+    from paddle_tpu_torch.models import (LlamaForCausalLM, export_params,
+                                         llama_tiny, load_jax_params)
+    cfg = llama_tiny()
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=3)
+    gpu = LlamaForCausalLM(cfg, device="cuda")
+    load_jax_params(gpu, export_params(cpu))
+    t0 = time.perf_counter()
+    cpu_toks, cpu_counts, _ = wire_parity_run(np, cpu)
+    card_toks, card_counts, card_gates = wire_parity_run(np, gpu)
+
+    def flat(runs):
+        out = []
+        for r in (runs if isinstance(runs, (list, tuple)) else [runs]):
+            out.extend(r if isinstance(r, (list, tuple)) else [r])
+        return out
+
+    checks = {}
+    for name in cpu_toks:
+        a, b = flat(card_toks[name]), flat(cpu_toks[name])
+        checks[f"{name}: the card's tokens equal the CPU's"] = \
+            len(a) == len(b) and all(np.array_equal(x, y)
+                                     for x, y in zip(a, b))
+        checks[f"{name}: no launch on the CPU"] = \
+            not any(cpu_counts[name].values())
+        for g, good in card_gates[name].items():
+            checks[f"{name}: {g}"] = good
+        same = checks[f"{name}: the card's tokens equal the CPU's"]
+        log(f"wire_parity {name}: card tokens equal to the CPU's {same}, "
+            f"card launches {card_counts[name]}")
+    log(f"wire_parity: {time.perf_counter() - t0:.1f} s")
+    fleet_check("wire_parity", checks)
+
+
+# the wire phase's client thresholds: a digest older than these reads
+# draining / dead. Both sit above the longest gap the phase measures
+# between two digests of a healthy 7B host (gated), so only a host that
+# stopped reads as either.
+WIRE_DRAINING_S = 2.0
+WIRE_DEAD_S = 4.0
+
+
+def wire_factory(warm, counts_path):
+    """The wire phase's replica factory, run in each spawned child:
+    Llama-2-7B bf16 from seed 0 on the card (the parent's bits), a split
+    server of the serve geometry, and serve_timed's warm request run
+    before the host listens. Smoke instrumentation only, no wire op:
+    the migration parts are timed into ``stats`` (``wire_*_s``, read
+    over the wire), and an ``atexit`` hook writes the child's launch
+    counts and build seconds to ``counts_path``."""
+    import atexit
+    import hashlib
+    import types
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference import ContinuousBatchingServer
+    from paddle_tpu_torch.inference import continuous_batching as cb
+    from paddle_tpu_torch.inference import transport
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+    from paddle_tpu_torch.ops.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(llama2_7b(), device="cuda",
+                             dtype=torch.bfloat16, seed=0)
+    srv = ContinuousBatchingServer(model, max_slots=8, max_cache_len=2048,
+                                   page_size=16, cache_backend="paged",
+                                   prefill_tokens_per_tick=512,
+                                   serving_mode="split")
+    srv.submit(np.asarray(warm, np.int32), max_new_tokens=2)
+    srv.run()
+    torch.cuda.synchronize()
+    srv.stats["wire_ready_s"] = time.perf_counter() - t0
+    srv.stats["wire_build_s"] = _build.build_seconds()
+
+    def timed(key, fn, sync=False):
+        srv.stats[key] = 0.0
+
+        def f(*a, **k):
+            t = time.perf_counter()
+            try:
+                out = fn(*a, **k)
+                if sync:
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                srv.stats[key] += time.perf_counter() - t
+        return f
+
+    srv._gather_pages = timed("wire_gather_s", srv._gather_pages)
+    srv._scatter_pages = timed("wire_scatter_s", srv._scatter_pages,
+                               sync=True)
+    cb._sha256 = timed("wire_server_sha256_s", cb._sha256)
+    transport.hashlib = types.SimpleNamespace(
+        sha256=timed("wire_frame_sha256_s", hashlib.sha256))
+
+    def dump():
+        with open(counts_path, "w") as f:
+            json.dump({"counts": read_counts(), "pid": os.getpid(),
+                       "build_s": _build.build_seconds()}, f)
+
+    atexit.register(dump)
+    return srv
+
+
+def wire_memory(torch, tag):
+    free, total = torch.cuda.mem_get_info()
+    try:
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip().replace("\n", "; ")
+    except (OSError, subprocess.SubprocessError) as e:
+        apps = f"nvidia-smi failed: {e!r}"
+    log(f"wire memory {tag}: card free {free / 2**30:.1f} of "
+        f"{total / 2**30:.1f} GiB (parent's mem_get_info); compute apps "
+        f"(pid, used): {apps or 'none listed'}")
+
+
+def phase_wire(torch, np, card, model, serve_res):
+    """Llama-2-7B in two spawned replica processes behind the wire (see
+    the module docstring)."""
+    import gc
+    import hashlib
+    import signal
+    import tempfile
+    import threading
+    import types
+    import urllib.error
+    import urllib.request
+    from paddle_tpu_torch.inference import (ContinuousBatchingServer,
+                                            RemoteReplica, ReplicaRouter,
+                                            serve_metrics,
+                                            spawn_replica_host, transport)
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+    cfg = llama2_7b()
+    L, V = cfg.num_layers, cfg.vocab_size
+    rng = np.random.default_rng(0)                 # the serve phase's
+    lens = rng.integers(128, 1025, size=8)
+    prompts = [rng.integers(0, V, (int(n),)).astype(np.int32)
+               for n in lens]
+    warm = rng.integers(0, V, (40,)).astype(np.int32)
+    n_new = 32
+    checks = {}
+    if serve_res is not None:
+        want = serve_res["split"][0]["tokens"]
+    else:
+        if model is None:
+            model = LlamaForCausalLM(cfg, device="cuda",
+                                     dtype=torch.bfloat16, seed=0)
+        srv = ContinuousBatchingServer(model, max_slots=8,
+                                       max_cache_len=2048, page_size=16,
+                                       cache_backend="paged",
+                                       prefill_tokens_per_tick=512,
+                                       serving_mode="split")
+        want = serve_timed(torch, np, srv, prompts, n_new, warm)["tokens"]
+        del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-wire-")
+    procs, reps, started, errors = {}, {}, {}, []
+    router = ms = None
+
+    def spawn(tag):
+        try:
+            t = time.perf_counter()
+            proc, addr = spawn_replica_host(
+                wire_factory, {"warm": warm.tolist(), "counts_path":
+                               os.path.join(tmp.name, f"{tag}.json")},
+                heartbeat_s=0.02, startup_timeout=300.0)
+            procs[tag] = proc
+            started[tag] = (addr, time.perf_counter() - t)
+        except Exception as e:
+            errors.append(e)
+
+    arrivals = {"A": [], "B": []}
+    try:
+        t_spawn = time.perf_counter()
+        threads = [threading.Thread(target=spawn, args=(tag,))
+                   for tag in ("A", "B")]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise errors[0]
+        log(f"wire [{card}]: two Llama-2-7B bf16 replica processes "
+            f"started together in {time.perf_counter() - t_spawn:.1f} s "
+            f"(A {started['A'][1]:.1f} s, B {started['B'][1]:.1f} s: "
+            f"interpreter, CUDA, weights from seed 0, the warm request); "
+            f"pids A {procs['A'].pid} B {procs['B'].pid}")
+        for tag in ("A", "B"):
+            rep = RemoteReplica(started[tag][0], name=f"replica-{tag}",
+                                draining_after_s=WIRE_DRAINING_S,
+                                dead_after_s=WIRE_DEAD_S)
+            inner = rep._on_digest
+
+            def on_digest(d, _tag=tag, _inner=inner):
+                arrivals[_tag].append(time.monotonic())
+                _inner(d)
+
+            rep._on_digest = on_digest
+            reps[tag] = rep
+        ra, rb = reps["A"], reps["B"]
+        wire_memory(torch, "after both children started")
+        ready = {tag: reps[tag].stats.get("wire_ready_s") for tag in reps}
+        built = {tag: reps[tag].stats.get("wire_build_s") for tag in reps}
+        log(f"wire: in-child build of model, server and warm request "
+            f"{ready} s; kernel compile seconds in the children {built}")
+        checks["the children compiled no kernel (they loaded the build "
+               "phase's libraries)"] = all(b == 0.0 for b in built.values())
+        t_serve = time.monotonic()
+
+        # ---- parity: each child takes the serve prompts, then starts
+        t0 = time.perf_counter()
+        rids = {tag: [reps[tag].submit(p, max_new_tokens=n_new)
+                      for p in prompts] for tag in reps}
+        for rep in reps.values():
+            rep.start()
+        outs = {tag: [reps[tag].wait(r, timeout=600) for r in rids[tag]]
+                for tag in reps}
+        t_par = time.perf_counter() - t0
+        for tag, out in outs.items():
+            same = sum(int((a == b).sum()) for a, b in zip(out, want))
+            log(f"wire parity {tag} [{card}]: greedy tokens equal the serve "
+                f"phase's split wave on {same} of {8 * n_new}; both "
+                f"children's waves together {t_par:.2f} s")
+            checks[f"parity {tag}: 256 of 256 tokens equal serve's split "
+                   f"wave"] = same == 8 * n_new \
+                and all(len(o) == n_new for o in out)
+
+        # ---- a wire move A -> B after 8 tokens
+        mig = np.random.default_rng(3).integers(0, V, (900,)).astype(
+            np.int32)
+        ref = rb.wait(rb.submit(mig, max_new_tokens=24, seed=11),
+                      timeout=600)
+        got = []
+        rid = ra.submit(mig, max_new_tokens=24, seed=11,
+                        on_token=lambda r, t: got.extend(int(x) for x in t))
+        deadline = time.monotonic() + 300
+        while len(got) < 8:
+            if time.monotonic() > deadline:
+                raise SystemExit("wire: the move's request never streamed "
+                                 "8 tokens")
+            time.sleep(0.002)
+        hash_s = [0.0]
+
+        def parent_sha256(data=b""):
+            t = time.perf_counter()
+            h = hashlib.sha256(data)
+            hash_s[0] += time.perf_counter() - t
+            return h
+
+        saved = transport.hashlib
+        transport.hashlib = types.SimpleNamespace(sha256=parent_sha256)
+        try:
+            sa0, sb0 = ra._call("stats"), rb._call("stats")
+            t0 = time.perf_counter()
+            state, payloads = ra.migrate_out(rid)
+            t_out = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            new = rb.migrate_in(state, payloads,
+                                on_token=lambda r, t: got.extend(
+                                    int(x) for x in t))
+            t_in = time.perf_counter() - t0
+        finally:
+            transport.hashlib = saved
+        committed = ra.migrate_finish(rid)
+        out = rb.wait(new, timeout=600)
+        sa1, sb1 = ra._call("stats"), rb._call("stats")
+
+        def part(s1, s0, key):
+            return s1[key] - s0[key]
+
+        nbytes = sum(p.nbytes for p in payloads)
+        gb = nbytes / 1e9
+        parts = {"A gather (device gather + copy to host)":
+                     part(sa1, sa0, "wire_gather_s"),
+                 "A state sha256 (server)":
+                     part(sa1, sa0, "wire_server_sha256_s"),
+                 "A frame sha256 (send_pages)":
+                     part(sa1, sa0, "wire_frame_sha256_s"),
+                 "parent frame sha256 (recv from A + send_pages to B)":
+                     hash_s[0],
+                 "B frame sha256 (recv)":
+                     part(sb1, sb0, "wire_frame_sha256_s"),
+                 "B page sha256 (server migrate_in)":
+                     part(sb1, sb0, "wire_server_sha256_s"),
+                 "B scatter (copy to card + index_copy_)":
+                     part(sb1, sb0, "wire_scatter_s")}
+        e2e = t_out + t_in
+        rest = e2e - sum(parts.values())
+        log(f"wire move [{card}]: {len(payloads)} page frames of "
+            f"{payloads[0].nbytes} bytes ({payloads[0].dtype}, page_dtype "
+            f"{state.get('page_dtype')}), {nbytes / 2**20:.1f} MiB; "
+            f"migrate_out {t_out * 1e3:.1f} ms, migrate_in "
+            f"{t_in * 1e3:.1f} ms, end to end {e2e * 1e3:.1f} ms "
+            f"({gb / e2e:.3f} GB/s); " + "; ".join(
+                f"{k} {v * 1e3:.1f} ms ({gb / max(v, 1e-9):.2f} GB/s)"
+                for k, v in parts.items())
+            + f"; the rest (loopback socket, framing and host copies) "
+            f"{rest * 1e3:.1f} ms")
+        checks["move: 57 page frames of exactly 8,388,608 bytes, uint16 "
+               "bits of a bf16 pool"] = len(payloads) == 57 and all(
+            p.nbytes == 8388608 and p.dtype == np.uint16 for p in payloads) \
+            and state.get("page_dtype") == "bfloat16"
+        checks["move: tokens equal the never-moved run's (24 of 24)"] = \
+            np.array_equal(out, ref) and len(out) == 24
+        checks["move: the stream carried every token once"] = \
+            got == [int(t) for t in out]
+        checks["move: committed, B prefilled nothing for it"] = \
+            committed is True and sb1["migrated_in"] == 1 and \
+            sb1["prefill_tokens"] == sb0["prefill_tokens"]
+
+        # ---- the SIGKILL drill, behind RouterSupervisor
+        gaps = {}
+        router = ReplicaRouter([ra, rb], policy="least_loaded",
+                               telemetry=True, journeys=True,
+                               recorder=True)
+        ms = serve_metrics(router)
+        router.start(poll_interval=0.02, start_replicas=False)
+        drng = np.random.default_rng(5)
+        wave = [drng.integers(0, V, (int(n),)).astype(np.int32)
+                for n in drng.integers(64, 256, size=20)]
+        streams = {}
+        sub_ms = []
+        rids = []
+        for i, p in enumerate(wave):
+            ts = time.perf_counter()
+            r = router.submit(p, max_new_tokens=n_new, seed=50 + i,
+                              on_token=lambda r_, t, _i=i: streams.setdefault(
+                                  _i, []).extend(int(x) for x in t))
+            sub_ms.append((time.perf_counter() - ts) * 1e3)
+            rids.append(r)
+        deadline = time.monotonic() + 300
+        while True:
+            q, f = ra._mirror_counts()
+            if q >= 1 and f >= 1:
+                break
+            if time.monotonic() > deadline:
+                raise SystemExit("wire drill: A never held queued and "
+                                 "mid-decode work")
+            time.sleep(0.002)
+        for tag, ts in arrivals.items():
+            live_ts = [t for t in ts if t >= t_serve]
+            gaps[tag] = max([b - a for a, b in zip(live_ts, live_ts[1:])]
+                            + [0.0])
+        # freeze A: its digests stop while its connection stays open
+        os.kill(procs["A"].pid, signal.SIGSTOP)
+        t_freeze = time.monotonic()
+        dead_seen = wire_open = age = None
+        while time.monotonic() - t_freeze < 60:
+            if ra.health == "dead":
+                dead_seen = time.monotonic() - t_freeze
+                wire_open = not ra._wire_dead()
+                age = ra._clock.now() - ra._last_hb
+                break
+            time.sleep(0.01)
+        # A sent nothing since the freeze and its client has read every
+        # frame sent before it: the mirror is final
+        with router._lock:
+            on_a = {rid: rt.rrid for rid, rt in router._routes.items()
+                    if rt.idx == 0}
+        with ra._state_lock:
+            mirrors = {m.rid: len(m.tokens) for m in ra._mirror.values()
+                       if not m.done}
+        os.kill(procs["A"].pid, signal.SIGKILL)
+        procs["A"].join(30)
+        health_codes = []
+        done = threading.Event()
+
+        def poll_health():
+            while not done.is_set():
+                try:
+                    health_codes.append(urllib.request.urlopen(
+                        ms.url + "/healthz", timeout=10).status)
+                except urllib.error.HTTPError as e:
+                    health_codes.append(e.code)
+                except OSError:
+                    health_codes.append(None)
+                done.wait(0.2)
+
+        hp = threading.Thread(target=poll_health)
+        hp.start()
+        try:
+            res = {r: router.wait(r, timeout=600) for r in rids}
+        finally:
+            done.set()
+            hp.join(30)
+        st = router.stats
+        queued = [i for i, r in enumerate(rids)
+                  if mirrors.get(on_a.get(r)) == 0]
+        mid = [i for i, r in enumerate(rids)
+               if (mirrors.get(on_a.get(r)) or 0) > 0]
+        bal_b = rb.pool_balance()
+        path = os.path.join(tmp.name, "fleet.json")
+        router.export_fleet_trace(path)
+        with open(path) as f:
+            evs = json.load(f)["traceEvents"]
+
+        def pids_of(i):
+            flows = [e for e in evs if e.get("cat") == "journey"
+                     and e.get("id") == f"r{rids[i]}"]
+            return {e["pid"] for e in flows} if flows and \
+                flows[0]["ph"] == "s" and flows[-1]["ph"] == "f" else set()
+
+        log(f"wire drill [{card}]: digest gaps while serving, longest "
+            f"A {gaps['A'] * 1e3:.1f} ms B {gaps['B'] * 1e3:.1f} ms "
+            f"(clients' draining_after_s {WIRE_DRAINING_S}, dead_after_s "
+            f"{WIRE_DEAD_S}); router host ms a submit median "
+            f"{sorted(sub_ms)[len(sub_ms) // 2]:.3f} max {max(sub_ms):.3f}; "
+            f"A frozen with {len(queued)} queued and {len(mid)} mid-decode "
+            f"requests, read dead {dead_seen} s later (last digest {age} s "
+            f"old) with its connection open {wire_open}; after SIGKILL: "
+            f"evacuations {st['evacuations']}, requeued {st['requeued']}, "
+            f"queued ones' lengths {[len(res[rids[i]]) for i in queued]}, "
+            f"partials {[len(res[rids[i]]) for i in mid]}; "
+            f"B pool {tuple(bal_b) if bal_b is not None else None}; "
+            f"/healthz codes while B served {sorted(set(health_codes))} "
+            f"({len(health_codes)} polls)")
+        checks["digest gaps of a healthy 7B host below draining_after_s"] = \
+            max(gaps.values()) < WIRE_DRAINING_S
+        checks["A read dead from stale digests alone (connection open)"] = \
+            dead_seen is not None and wire_open is True \
+            and age >= WIRE_DEAD_S
+        checks["A held queued and mid-decode work"] = \
+            len(queued) >= 1 and len(mid) >= 1
+        checks["A's queued requests requeued on B with full budgets"] = \
+            st["evacuations"] >= 1 and st["requeued"] >= len(queued) and \
+            all(len(res[rids[i]]) == n_new for i in queued)
+        checks["mid-decode requests flushed exactly their streamed "
+               "partials"] = all(
+            len(res[rids[i]]) == mirrors[on_a[rids[i]]] < n_new
+            and [int(t) for t in res[rids[i]]] == streams.get(i)
+            for i in mid)
+        checks["every other request finished, none failed"] = \
+            router.failures == {} and all(
+                len(res[rids[i]]) == n_new for i in range(len(rids))
+                if i not in mid)
+        checks["B ends with live == 0"] = bal_b is not None and bal_b[1] == 0
+        checks["a failed-over request's journey spans two pids"] = any(
+            len(pids_of(i)) >= 2 for i in queued)
+        checks["/healthz 200 while B served"] = \
+            bool(health_codes) and set(health_codes) == {200}
+        router.stop(drain=False, timeout=60, stop_replicas=False)
+        ms.close()
+        ms = router = None
+
+        # ---- B: stopped, shut down; its counts written at exit
+        rb.stop(drain=True, timeout=120)
+        sb = rb._call("stats")
+        rb.shutdown()
+        procs["B"].join(120)
+        with open(os.path.join(tmp.name, "B.json")) as f:
+            child = json.load(f)
+        c = child["counts"]
+        zero = {k: 0 for k in ("decode_ticks", "prefill_launches",
+                               "fused_passes", "sample_launches")}
+        _, gates = fleet_launch_gates(
+            c, zero, {k: sb[k] for k in zero}, L, False)
+        log(f"wire B's launches at exit (pid {child['pid']}, exit code "
+            f"{procs['B'].exitcode}, compiled {child['build_s']} s): {c}; "
+            f"its stats decode ticks {sb['decode_ticks']}, prefill launches "
+            f"{sb['prefill_launches']}")
+        checks.update({f"B launches: {k}": v for k, v in gates.items()})
+        checks["B launches: k1 + k2 > 0"] = c["k1"] + c["k2"] > 0
+        checks["B exited cleanly"] = procs["B"].exitcode == 0
+        wire_memory(torch, "after the drill")
+    finally:
+        if router is not None:
+            router.stop(drain=False, timeout=60, stop_replicas=False)
+        if ms is not None:
+            ms.close()
+        for rep in reps.values():
+            rep.close()
+        for proc in procs.values():
+            if proc.is_alive():
+                proc.kill()
+            proc.join(30)
+        tmp.cleanup()
+    log(f"wire: checks {checks}")
+    fleet_check("wire", checks)
 
 
 def phase_int8_infer(torch, np, card, record, model):
@@ -5999,6 +6656,7 @@ def main():
     secs = _build.build_all()
     log(f"build: {time.perf_counter() - t_build:.1f} s wall, per source "
         f"{ {k: round(v, 1) for k, v in secs.items()} }")
+    log(f"phase build {time.perf_counter() - t_build:.1f}")
     for stem, info in _build.build_log().items():
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -6071,69 +6729,85 @@ def main():
         "launches": None, "max_abs_err": None, "ms": None,
         "plain_ms": None, "bound_ms": None, "bound_by": None,
         "library_ms": None, "gumbel_ulps": None}
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        log(f"phase {name} {time.perf_counter() - t:.1f}")
+        return out
+
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
     if "k1" in phases:
-        phase_k1(torch, peak, flush, record)
+        timed("k1", phase_k1, torch, peak, flush, record)
     if "k2" in phases:
-        phase_k2(torch, peak, flush, record)
+        timed("k2", phase_k2, torch, peak, flush, record)
     if "k3" in phases:
-        phase_k3(torch, peak, flush, record)
+        timed("k3", phase_k3, torch, peak, flush, record)
     if "k4" in phases:
-        phase_k4(torch, peak, flush, record)
+        timed("k4", phase_k4, torch, peak, flush, record)
     if "k5" in phases:
-        phase_k5(torch, peak, flush, record)
+        timed("k5", phase_k5, torch, peak, flush, record)
     if "k6" in phases:
-        phase_k6(torch, peak, flush, record)
+        timed("k6", phase_k6, torch, peak, flush, record)
     if "k7" in phases:
-        phase_k7(torch, peak, flush, record)
+        timed("k7", phase_k7, torch, peak, flush, record)
     if "k8" in phases:
-        phase_k8(torch, peak, flush, record)
+        timed("k8", phase_k8, torch, peak, flush, record)
     if "opt" in phases:
-        phase_opt(torch, np, peak, flush, record)
+        timed("opt", phase_opt, torch, np, peak, flush, record)
     if "rng" in phases:
-        phase_rng(torch, np, peak, flush, record, args.parent)
+        timed("rng", phase_rng, torch, np, peak, flush, record,
+              args.parent)
     del flush
     if "parity" in phases:
-        phase_parity(torch, np)
+        timed("parity", phase_parity, torch, np)
     if "dense_parity" in phases:
-        phase_dense_parity(torch, np)
+        timed("dense_parity", phase_dense_parity, torch, np)
     if "preempt_parity" in phases:
-        phase_preempt_parity(torch, np)
+        timed("preempt_parity", phase_preempt_parity, torch, np)
     if "train_parity" in phases:
-        phase_train_parity(torch, np)
+        timed("train_parity", phase_train_parity, torch, np)
     if "int8_parity" in phases:
-        phase_int8_parity(torch, np)
+        timed("int8_parity", phase_int8_parity, torch, np)
     model_7b, serve_res = None, None
     if "serve" in phases:
         torch.cuda.empty_cache()
-        model_7b, serve_res = phase_serve(torch, np, card, record)
+        model_7b, serve_res = timed("serve", phase_serve, torch, np, card,
+                                    record)
     if "dense" in phases:
         torch.cuda.empty_cache()
-        model_7b = phase_dense(torch, np, card, record, model_7b, serve_res)
+        model_7b = timed("dense", phase_dense, torch, np, card, record,
+                         model_7b, serve_res)
     if "preempt" in phases:
         torch.cuda.empty_cache()
-        model_7b = phase_preempt(torch, np, card, record, model_7b)
+        model_7b = timed("preempt", phase_preempt, torch, np, card, record,
+                         model_7b)
     if "telemetry" in phases:
         torch.cuda.empty_cache()
-        model_7b = phase_telemetry(torch, np, card, peak, record, model_7b,
-                                   serve_res)
+        model_7b = timed("telemetry", phase_telemetry, torch, np, card,
+                         peak, record, model_7b, serve_res)
     if "fleet_parity" in phases:
-        phase_fleet_parity(torch, np)
+        timed("fleet_parity", phase_fleet_parity, torch, np)
     if "fleet" in phases:
         torch.cuda.empty_cache()
-        model_7b = phase_fleet(torch, np, card, model_7b)
+        model_7b = timed("fleet", phase_fleet, torch, np, card, model_7b)
+    if "wire_parity" in phases:
+        timed("wire_parity", phase_wire_parity, torch, np)
+    if "wire" in phases:
+        torch.cuda.empty_cache()
+        timed("wire", phase_wire, torch, np, card, model_7b, serve_res)
     if "int8_infer" in phases:
-        phase_int8_infer(torch, np, card, record, model_7b)
+        timed("int8_infer", phase_int8_infer, torch, np, card, record,
+              model_7b)
     del model_7b
     if "train" in phases:
-        train = phase_train(torch, np, card, peak, record)
+        train = timed("train", phase_train, torch, np, card, peak, record)
     if "train_compose" in phases:
-        phase_train_compose(torch, np, card, train)
+        timed("train_compose", phase_train_compose, torch, np, card, train)
     if "train_amp" in phases:
-        phase_train_amp(torch, np, card, record)
+        timed("train_amp", phase_train_amp, torch, np, card, record)
     if "fit" in phases:
-        phase_fit(torch, np, card, record,
-                  train if "train" in phases else None)
+        timed("fit", phase_fit, torch, np, card, record,
+              train if "train" in phases else None)
     log(json.dumps({"kernels": list(record.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -10,8 +10,7 @@ handoff, so long prefills stop stealing decode ticks and inflating
 TPOT. This module holds the placement brain the router calls into:
 
 - **roles** — ``replica_role()`` reads a replica's ``role`` attribute
-  (local servers; a process replica's heartbeat digest once the wire
-  is ported, ROADMAP Queue 1 item 9), defaulting
+  (local servers) or heartbeat digest (``RemoteReplica``), defaulting
   to ``"hybrid"`` for pre-role replicas so mixed-version fleets route
   safely;
 - **phase routing** — ``request_phase()`` splits fresh prompts by

@@ -62,8 +62,9 @@ The surface the router reads (``submit`` / ``wait`` / ``cancel`` /
 ``preempt_pressure`` / ``prefix_sketch`` / ``migrate_*`` / ``abandon``
 / ``stop`` / ``start``) is all a replica needs; a replica without an
 in-process registry may offer ``registry_snapshot()`` instead, which
-the fleet fold reads (the process replicas behind the wire, ROADMAP
-Queue 1 item 9, drop in through it).
+the fleet fold reads — so a ``remote.RemoteReplica`` (a process replica
+behind the wire) drops in unchanged, and the router routes over any mix
+of in-process servers and remote processes.
 """
 import threading
 import time
@@ -1223,13 +1224,13 @@ class ReplicaRouter:
             if tele is not None and getattr(tele, "enabled", False):
                 snaps.append(tele.registry.snapshot())
                 continue
-            # a replica whose registry is not in process (a process
-            # replica behind the wire, ROADMAP Queue 1 item 9): its registry
-            # lives across the wire — one snapshot op per fleet fold,
-            # so /fleet spans process boundaries. Only serving replicas
-            # are asked (a stale/dead one would spend the scrape's wire
-            # budget to contribute nothing); the snapshot op itself is
-            # bounded by the proxy's short snapshot timeout
+            # a replica whose registry is not in process (a
+            # RemoteReplica): its registry lives across the wire — one
+            # snapshot op per fleet fold, so /fleet spans process
+            # boundaries. Only serving replicas are asked (a stale/dead
+            # one would spend the scrape's wire budget to contribute
+            # nothing); the snapshot op itself is bounded by the proxy's
+            # short snapshot timeout
             remote = getattr(rep, "registry_snapshot", None)
             if callable(remote) and is_serving_state(rep.health):
                 snap = remote()

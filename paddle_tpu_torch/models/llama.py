@@ -185,7 +185,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         if cfg.tensor_parallel:
             raise NotImplementedError(
                 "tensor_parallel serving is not ported yet (ROADMAP, "
-                "Queue 1 item 9: the fleet)")
+                "Queue 1 item 9: mesh= and tensor_parallel)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype) if dtype is None else dtype

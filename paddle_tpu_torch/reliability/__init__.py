@@ -1,17 +1,18 @@
 """Typed failures, fault injection, retry and circuit breaking, the
 serve loop's supervisor and health states, durable checkpoints and the
 fault-tolerant training supervisor: the port of the JAX package's
-reliability layer, cut to what the server, the in-process fleet and the
-training loop use."""
+reliability layer, cut to what the server, the fleet (in process and
+over the wire) and the training loop use."""
 from . import faults
 from .ckpt import (AsyncCheckpointer, CheckpointStore, checkpoint_meta,
                    read_checkpoint, recover_interrupted_swaps,
                    verify_checkpoint, write_checkpoint)
 from .errors import (CallbackError, CheckpointCorruptError,
-                     CircuitOpenError, DeadlineExceeded, InjectedFault,
-                     MigrationError, PreemptedError, QueueFullError,
-                     ReliabilityError, ReplicaLostError, RequestCancelled,
-                     ServerClosed, StepFailedError, TrainAnomalyError)
+                     CircuitOpenError, DeadlineExceeded, FrameError,
+                     InjectedFault, MigrationError, PreemptedError,
+                     QueueFullError, ReliabilityError, ReplicaLostError,
+                     RequestCancelled, ServerClosed, StepFailedError,
+                     TrainAnomalyError, TransportError)
 from .faults import FaultInjector
 from .health import (DEAD, DEGRADED, DRAINING, HEALTH_CODES, HEALTHY,
                      HealthMonitor, is_serving_state)
@@ -23,7 +24,8 @@ from .training import (AnomalyPolicy, ResumableLoader, TrainReport,
 __all__ = ["ReliabilityError", "DeadlineExceeded", "QueueFullError",
            "RequestCancelled", "ServerClosed", "CallbackError",
            "CircuitOpenError", "ReplicaLostError", "PreemptedError",
-           "MigrationError", "InjectedFault", "CheckpointCorruptError",
+           "MigrationError", "InjectedFault", "TransportError",
+           "FrameError", "CheckpointCorruptError",
            "TrainAnomalyError",
            "StepFailedError", "faults", "FaultInjector", "RetryPolicy",
            "CircuitBreaker", "ServeSupervisor", "HealthMonitor",

@@ -2,10 +2,10 @@
 
 Copied from ``paddle_tpu/reliability/errors.py``, cut to the failures
 the port raises: the server's (its preemption signal included), the
-in-process fleet's (the router's lost replica, a migration attempt),
-the fault injector's, the durable checkpoints' and the training
-supervisor's. The wire's ``TransportError`` and ``FrameError`` come
-with the process replicas (ROADMAP Queue 1 item 9).
+fleet's (the router's lost replica, a migration attempt, and the wire's
+``TransportError`` and ``FrameError`` between a router and its process
+replicas), the fault injector's, the durable checkpoints' and the
+training supervisor's.
 
 Every failure the reliability layer can hand a waiter is a
 ``ReliabilityError`` subclass, so callers can catch the whole family or
@@ -18,8 +18,8 @@ these DIRECTLY (no RuntimeError wrapping) — a client distinguishing
 __all__ = ["ReliabilityError", "DeadlineExceeded", "QueueFullError",
            "RequestCancelled", "ServerClosed", "CallbackError",
            "CircuitOpenError", "ReplicaLostError", "PreemptedError",
-           "MigrationError", "InjectedFault",
-           "CheckpointCorruptError", "TrainAnomalyError",
+           "MigrationError", "InjectedFault", "TransportError",
+           "FrameError", "CheckpointCorruptError", "TrainAnomalyError",
            "StepFailedError"]
 
 
@@ -70,6 +70,24 @@ class ReplicaLostError(ReliabilityError):
     a replica's breaker opening (``CircuitOpenError``, deliberately
     fail-fast: its in-flight work may already have streamed tokens, so
     transparent re-execution would double-stream)."""
+
+
+class TransportError(ReliabilityError):
+    """A wire-transport failure between a router and a remote replica
+    (``inference/transport.py``): the connection died, was severed by
+    an injected ``net.*`` fault, or a call's reply never arrived. It
+    marks exactly ONE call's outcome — the request may still be alive
+    on the remote host, so the router treats it like any transient
+    dispatch failure (breaker + failover), never as a request
+    verdict."""
+
+
+class FrameError(TransportError):
+    """One frame on the wire was unusable — truncated payload, a
+    length prefix past the frame cap, or bytes that do not decode as a
+    JSON object. The receiver fails the affected call (or drops the
+    frame when no call can be attributed) and, unless the stream lost
+    sync (oversize/truncation), keeps serving the connection."""
 
 
 class MigrationError(ReliabilityError):

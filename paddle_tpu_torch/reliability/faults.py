@@ -5,8 +5,9 @@ framework-free); the port fires the serving points (``PREFILL``,
 ``DECODE_TICK``, ``PAGE_ALLOC``, ``KV_GROW``, ``SERVER_PREEMPT``,
 ``ON_TOKEN``, ``PREFIX_EVICT``, ``PREFIX_DONATE``), the in-process
 fleet's (``TIER_SPILL``, ``TIER_RESTORE``, ``ROUTER_DISPATCH``,
-``ROUTER_EVACUATE``, ``MIGRATE_GATHER``, ``MIGRATE_RESTORE``; the
-``NET_*`` points wait for the wire) and the training and
+``ROUTER_EVACUATE``, ``MIGRATE_GATHER``, ``MIGRATE_RESTORE``), the
+wire's (``NET_SEND``, ``NET_RECV``, ``NET_CONNECT``, ``NET_PARTITION``,
+``NET_PAGE_SEND``, checked by ``inference.transport``) and the training and
 checkpoint points (``CKPT_WRITE``, ``CKPT_RENAME``, ``CKPT_SWAP``,
 ``TRAIN_STEP``, ``DATA_NEXT``), and publishes its fires to a telemetry
 registry and a flight recorder as the reference does.

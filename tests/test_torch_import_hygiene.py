@@ -1,7 +1,8 @@
 """The port imports neither JAX nor the JAX package.
 
-A static AST scan of every ``.py`` under ``paddle_tpu_torch/`` and of
-``chip_smoke.py``: no ``import``/``from`` statement may have a
+A static AST scan of every ``.py`` under ``paddle_tpu_torch/``, of
+``chip_smoke.py`` and of ``tests/_torch_remote_stub.py`` (the factories
+spawned port hosts import): no ``import``/``from`` statement may have a
 top-level module name of ``jax``, ``jaxlib`` or ``paddle_tpu`` (compared
 exactly — ``paddle_tpu_torch`` shares the prefix). Static, not
 ``sys.modules``: the environment may import jax at interpreter start.
@@ -14,7 +15,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "paddle_tpu"}
 FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_remote_stub.py"]
 
 
 def _top_level_imports(path):
@@ -38,6 +39,7 @@ def test_no_jax_or_jax_package_import(path):
 def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "chip_smoke.py" in names
+    assert "tests/_torch_remote_stub.py" in names
     assert "paddle_tpu_torch/inference/continuous_batching.py" in names
     assert {"paddle_tpu_torch/nn/functional.py",
             "paddle_tpu_torch/optimizer/optimizer.py",
@@ -68,8 +70,10 @@ def test_scan_sees_the_whole_port():
             "paddle_tpu_torch/inference/serving.py",
             "paddle_tpu_torch/inference/kv_tier.py",
             "paddle_tpu_torch/inference/placement.py",
-            "paddle_tpu_torch/inference/router.py"} <= names
-    assert len(names) >= 43
+            "paddle_tpu_torch/inference/router.py",
+            "paddle_tpu_torch/inference/transport.py",
+            "paddle_tpu_torch/inference/remote.py"} <= names
+    assert len(names) >= 46
 
 
 def test_scan_catches_a_forbidden_import(tmp_path):

@@ -21,13 +21,14 @@ with the same arguments and fed the same numpy prompts:
   leaked page.
 
 Then the JAX package's ``tests/test_preemption.py`` contracts on
-``TorchStub``, a torch model defined here that follows the decode-bundle
-contract and the closed-form token recurrence of ``tests/_serving_stub.py``
-(``stub_tokens`` is the oracle): victim order, resumed seniority, the
-grower parking itself, streaming never re-sent, deadline expiry, cancel,
-drain and hard stop of parked requests, the config guards, ``submit``
-still bounding the full extent, and the chaos storms. Tokens are
-compared for equality everywhere; no tolerance is involved.
+``TorchStub`` (``tests/_torch_remote_stub.py``), a torch model that
+follows the decode-bundle contract and the closed-form token recurrence
+of ``tests/_serving_stub.py`` (``stub_tokens`` is the oracle): victim
+order, resumed seniority, the grower parking itself, streaming never
+re-sent, deadline expiry, cancel, drain and hard stop of parked
+requests, the config guards, ``submit`` still bounding the full extent,
+and the chaos storms. Tokens are compared for equality everywhere; no
+tolerance is involved.
 """
 import functools
 import time
@@ -37,7 +38,7 @@ import pytest
 import torch
 
 import paddle_tpu as pt
-from _serving_stub import V, stub_tokens
+from _serving_stub import stub_tokens
 from paddle_tpu.inference.continuous_batching import \
     ContinuousBatchingServer as JaxServer
 from paddle_tpu.inference.continuous_batching import \
@@ -54,6 +55,7 @@ from paddle_tpu_torch.reliability import (CircuitBreaker, FaultInjector,
                                           PreemptedError, ReliabilityError,
                                           RetryPolicy, faults)
 from paddle_tpu_torch.telemetry.clock import FakeClock
+from _torch_remote_stub import TorchStub  # noqa: E402  (re-exported)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -67,98 +69,9 @@ def _one_torch_thread():
 
 
 # ------------------------------------------------------------ the stub
-
-
-def _onehot(nxt):
-    return torch.nn.functional.one_hot(nxt.long() % V, V).float() * 10.0
-
-
-class TorchStub:
-    """The decode-bundle contract the port's server consumes, dense and
-    paged (ragged-prefill and fused-tick entries included), with the
-    closed-form recurrence of ``tests/_serving_stub.py``:
-
-        first  = (7 * prompt[-1] + len(prompt)) % V          (prefill)
-        tok_k+1 = (7 * tok_k + t_k + 1) % V,  t_k = T, T+1, ...
-
-    Prefill writes token values into the cache rows (or pool pages) it
-    covers, so page fills move real data; decode passes the caches
-    through (logits depend only on the token and its position)."""
-
-    L, H, HD = 1, 1, 2
-    device = torch.device("cpu")
-
-    def _decode_bundle(self, max_cache_len, weight_dtype=None, mesh=None,
-                       cache_dtype=None, cache_backend="dense",
-                       page_size=None, num_pages=None):
-        L, h, hd = self.L, self.H, self.HD
-        C = int(max_cache_len)
-
-        def embed_fn(tok, t):
-            return torch.stack([tok.float(), t.float()], -1)[:, None]
-
-        def step_fn(x, caches, t):
-            return x, caches
-
-        def head_fn(out):
-            tok, t = out[..., 0].long(), out[..., 1].long()
-            return _onehot(7 * tok + t + 1)
-
-        if cache_backend != "paged":
-            def init_caches(batch):
-                shape = (L, batch, C, h, hd)
-                return {"k": torch.zeros(shape), "v": torch.zeros(shape)}
-            return init_caches, embed_fn, step_fn, head_fn, None
-
-        pg = int(page_size)
-        maxp = C // pg
-
-        def init_caches(batch):
-            shape = (L, int(num_pages), pg, h, hd)
-            return {"pool": {"k": torch.zeros(shape),
-                             "v": torch.zeros(shape)},
-                    "bt": torch.zeros((batch, maxp), dtype=torch.int32)}
-
-        def write(pool, bt, pos, tokens, oob):
-            W = bt.shape[1]
-            page = torch.where(oob, 0, torch.gather(
-                bt.long(), 1, torch.clamp(pos // pg, max=W - 1)))
-            vals = torch.where(oob, 0, tokens).float().reshape(-1)
-            for name in ("k", "v"):
-                pool[name][:, page.reshape(-1), (pos % pg).reshape(-1)] = \
-                    vals[None, :, None, None].expand(L, -1, h, hd)
-
-        def logits_at(tokens, t0, out_idx):
-            last = torch.gather(tokens.long(), 1,
-                                out_idx.long()[:, None])[:, 0]
-            return _onehot(7 * last + t0.long() + out_idx.long() + 1)
-
-        def ragged(tokens, t0, caches, out_idx):
-            pos = t0.long()[:, None] + torch.arange(tokens.shape[1])[None]
-            write(caches["pool"], caches["bt"], pos, tokens,
-                  pos // pg >= maxp)
-            return logits_at(tokens, t0, out_idx), caches
-
-        def fused(tokens, t0, last, dec, caches, out_idx, bt_live, ss, sp,
-                  has_decode=None):
-            pos = t0.long()[:, None] + torch.arange(tokens.shape[1])[None]
-            oob = (pos // pg >= bt_live.shape[1]) \
-                | (pos > last.long()[:, None])
-            write(caches["pool"], bt_live, pos, tokens, oob)
-            return logits_at(tokens, t0, out_idx), caches
-
-        return (init_caches, embed_fn, step_fn, head_fn, None, ragged,
-                fused)
-
-    def _run_prefill(self, bundle, ids_np, chunk=None, caches=None, t0=0):
-        ids = torch.from_numpy(np.asarray(ids_np, np.int64))
-        B, T = ids.shape
-        if caches is None:
-            caches = bundle[0](B)
-        vals = ids.float()[None, :, :, None, None]
-        for name in ("k", "v"):
-            caches[name][:, :, t0:t0 + T] = vals
-        return _onehot(7 * ids[:, -1] + t0 + T), caches
+# ``TorchStub`` lives in ``_torch_remote_stub`` (spawned replica hosts
+# import it from there without the JAX package); re-exported here for
+# the port's serving tests that import it from this module.
 
 
 def test_stub_follows_the_serving_stub_oracle():
