@@ -18,6 +18,7 @@
     python3 chip_smoke.py --only build,serve,telemetry,fit
     python3 chip_smoke.py --only build,fleet_parity,fleet
     python3 chip_smoke.py --only build,serve,wire_parity,wire
+    python3 chip_smoke.py --only build,serve,family_parity,families
 
 Phases, in order; any failure exits non-zero:
 
@@ -394,7 +395,32 @@ Phases, in order; any failure exits non-zero:
    serves. B is then stopped and shut down: its launch counts, written
    at exit by the factory's ``atexit`` hook, pass ``fleet_launch_gates``
    against its own stats with K1 + K2 > 0;
-26. int8_infer: the serve phase's Llama-2-7B (full width and depth):
+26. family_parity: gpt2_tiny, mixtral_tiny and llama_tiny in float32
+   (weights from seed 3) served on the card and on the CPU with the same
+   weights: paged split and fused waves, greedy and seeded sampled, then
+   split and fused with ``weight_dtype="int8"``, then the dense server
+   with ``cache_dtype="int8"``; the card's tokens equal the CPU's on
+   every wave; K1 and K2 launched on split waves, K3 on fused ones, R1
+   once a draw, no kernel on the dense waves, nothing on the CPU;
+27. families: GPT-2 345M (full width and depth) and Mixtral-8x7B's
+   widths at 8 of its 32 layers (one card holds 8 layers in bf16 beside
+   their int8 copy and the serve phase's 7B model), bf16 from seed 0,
+   each on 8 slots x 1024 tokens (GPT-2's position table), 16-token
+   pages, 512 prefill tokens a tick, 8 prompts of 100-700 tokens, 32 new
+   tokens each: paged split and fused waves in bf16, then a split wave
+   with int8 weights (and for GPT-2 a dense-server wave with an int8
+   cache); then the serve phase's Llama-2-7B with int8 weights on its
+   prompts, split and fused. Each wave: TTFT, TPOT, tokens/s and peak
+   memory; gates as the serve phase's (launches = ticks x layers, the
+   pool drained) plus, for int8, the bundle's weight bytes within 2% of
+   half the bf16 projections' and the first token's logits within the
+   rule of ``tests/test_generation.py`` (max |int8 - bf16| under 5% of
+   max |bf16 logit|); int8 against bf16 token agreement printed. A
+   profiled decode tick of GPT-2 and Mixtral in bf16 and int8, and K1,
+   K2 and K3 alone at GPT-2's heads (16 of 64) and Mixtral's (32 over 8
+   of 128), each held against its plain version and timed beside it,
+   SDPA and its bound;
+28. int8_infer: the serve phase's Llama-2-7B (full width and depth):
    one bf16 forward of 8 x 512 ids from seed 0, then
    ``to_int8_inference(model, inplace=True)`` and the same forward with
    the counters zeroed just before and read just after: 7 x layers + 1
@@ -403,7 +429,7 @@ Phases, in order; any failure exits non-zero:
    and the largest relative logit
    error against bf16, ms per forward and tokens/s for both, peak memory,
    a profile of one forward of each;
-27. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
+29. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
    f32 moments, one fixed 8 x 1024 batch from seed 0: 2 warm-up steps,
    then 10 timed with the counters zeroed just before and read just
    after (K4: 10 x layers each, K5: 10 x (2 x layers + 1) each, K6's q +
@@ -412,14 +438,14 @@ Phases, in order; any failure exits non-zero:
    fall and stay finite, gradients finite; step time, tokens/s, peak
    memory and a profile of one step (its launches, the optimizer's
    device time);
-28. train_compose: the same model, weights, batch and optimizer with rope
+30. train_compose: the same model, weights, batch and optimizer with rope
    on the composition (``ops.rope._COMPOSITION_ONLY``, set for the phase
    and restored after it): 2 warm-up steps and 5 timed, the counters
    zeroed before the first and read after the last (no K6); the 7 losses
    equal to the train phase's first 7 bit for bit (K6 is the composition
    bit for bit, forward and backward); ms per step of both phases from
    this call, and a profile of one step;
-29. train_amp: the slice's path. llama_350m at full width and depth
+31. train_amp: the slice's path. llama_350m at full width and depth
    from seed 0, ``amp.decorate(level="O2", dtype="bfloat16")`` (the rope
    tables stay f32), ``AdamW(multi_precision=True, weight_decay=0.01``
    off the norms, ``grad_clip=ClipGradByGlobalNorm(1.0))`` on the fused
@@ -436,7 +462,7 @@ Phases, in order; any failure exits non-zero:
    written into one gradient of the second: that step is skipped
    (parameters unchanged bit for bit, the optimizer not stepped) and the
    scale halves;
-30. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
+32. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
    llama_350m in bf16 at full width and depth from seed 0,
    ``AdamW(1e-4, weight_decay=0.01)``, ``nn.CrossEntropyLoss()``, a
    ``TensorDataset`` of 96 rows of 1025 seeded ids (inputs the first
@@ -481,8 +507,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "opt",
           "rng", "parity", "dense_parity", "preempt_parity", "train_parity",
           "int8_parity", "serve", "dense", "preempt", "telemetry",
-          "fleet_parity", "fleet", "wire_parity", "wire", "int8_infer",
-          "train", "train_compose", "train_amp", "fit")
+          "fleet_parity", "fleet", "wire_parity", "wire", "family_parity",
+          "families", "int8_infer", "train", "train_compose", "train_amp",
+          "fit")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
 # outside the tensor cores, int8 tensor-core operations/s). The SXM part
@@ -5809,6 +5836,412 @@ def phase_wire(torch, np, card, model, serve_res):
     fleet_check("wire", checks)
 
 
+def family_models():
+    """(name, model class, tiny config, full-width config) of the three
+    families the decode bundles serve."""
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                         MixtralForCausalLM, gpt2_345m,
+                                         gpt2_tiny, llama2_7b, llama_tiny,
+                                         mixtral_8x7b, mixtral_tiny)
+    return (("gpt2", GPTForCausalLM, gpt2_tiny(), gpt2_345m()),
+            ("mixtral", MixtralForCausalLM, mixtral_tiny(),
+             mixtral_8x7b(num_layers=8)),
+            ("llama", LlamaForCausalLM, llama_tiny(), llama2_7b()))
+
+
+def phase_family_parity(torch, np):
+    """gpt2_tiny, mixtral_tiny and llama_tiny in float32 (weights from
+    seed 3, copied to the card) served on the card and on the CPU: paged
+    split and fused waves, greedy and seeded sampled, then split and
+    fused with int8 weights, then the dense server with an int8 cache.
+    The card's tokens must equal the CPU's; K1 and K2 launched on split
+    waves, K3 on fused ones, R1 once a draw, nothing on the dense
+    waves, nothing on the CPU."""
+    from paddle_tpu_torch.inference import ContinuousBatchingServer
+    from paddle_tpu_torch.models import export_params, load_jax_params
+    rng = np.random.default_rng(5)
+    wave1 = [rng.integers(0, 256, (n,)).astype(np.int32)
+             for n in (1, 7, 8, 13, 17, 30)]
+    wave2 = [np.concatenate([wave1[5][:16],
+                             rng.integers(0, 256, (n,)).astype(np.int32)])
+             for n in (3, 9)]
+    seeds = [0, 2**31 - 1, 2**31, -1, 2**32 - 1, 12345]
+    sample = dict(do_sample=True, temperature=0.8, top_k=20, top_p=0.9,
+                  seed=2**31 - 4)
+    paged = dict(cache_backend="paged", page_size=8,
+                 prefill_tokens_per_tick=5)
+    int8 = dict(weight_dtype="int8")
+    cases = (("split", paged, {}), ("fused", paged, {}),
+             ("sampled split", paged, sample),
+             ("sampled fused", paged, sample),
+             ("int8 split", paged, int8), ("int8 fused", paged, int8),
+             ("int8-cache dense", dict(cache_backend="dense"),
+              dict(cache_dtype="int8")))
+    good = True
+    for fam, cls, cfg, _ in family_models():
+        cpu = cls(cfg, device="cpu", seed=3)
+        gpu = cls(cfg, device="cuda")
+        load_jax_params(gpu, export_params(cpu))
+        for case, backend, kw in cases:
+            mode = case.split()[-1]
+            toks, draws = {}, 0
+            for name, model in (("cpu", cpu), ("cuda", gpu)):
+                zero_counts()
+                srv = ContinuousBatchingServer(
+                    model, max_slots=3, max_cache_len=64,
+                    serving_mode="fused" if mode == "fused" else "split",
+                    **backend, **kw)
+                toks[name] = serve_wave(
+                    srv, wave1, 7, seeds if "sampled" in case else None) \
+                    + serve_wave(srv, wave2, 7)
+                n = read_counts()
+                draws = srv.stats["sample_launches"]
+                bal = srv.pool_balance()
+                live = 0 if bal is None else bal[1]
+                want = {"split": ("k1", "k2"), "fused": ("k3",),
+                        "dense": ()}[mode]
+                if name == "cuda":
+                    launched = all(n[k] > 0 for k in want) \
+                        and n["r1"] == draws \
+                        and not any(v for k, v in n.items()
+                                    if k not in want + ("r1",))
+                else:
+                    launched = not any(n.values())
+                bad = srv.stats["nonfinite_logit_rows"]
+                log(f"family_parity {fam} {case} {name}: {draws} draws, "
+                    f"live pages {live}, non-finite rows {bad}, launches "
+                    f"{ {k: v for k, v in n.items() if v} }")
+                good &= launched and live == 0 and bad == 0
+            same = all(np.array_equal(a, b)
+                       for a, b in zip(toks["cuda"], toks["cpu"]))
+            log(f"family_parity {fam} {case}: card tokens equal to the "
+                f"CPU's {same}")
+            good &= same and ("sampled" not in case or draws > 0)
+        del cpu, gpu
+    torch.cuda.empty_cache()
+    if not good:
+        raise SystemExit("family_parity: the card and the CPU disagree, "
+                         "or a wave's launches are not its path's")
+
+
+def family_prompts(np, vocab):
+    """The families phase's wave: 8 prompts of 100-700 tokens and a
+    40-token warm-up prompt, from seed 0."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(100, 701, size=8)
+    prompts = [rng.integers(0, vocab, (int(n),)).astype(np.int32)
+               for n in lens]
+    return prompts, rng.integers(0, vocab, (40,)).astype(np.int32)
+
+
+def quantized_bytes(weights):
+    """Bytes of the int8 codes and f32 scales among a bundle's per-layer
+    weights (``step_fn.weights``)."""
+    return sum(t.numel() * t.element_size() for blk in weights
+               for w in blk.values() if isinstance(w, tuple) for t in w)
+
+
+def projection_bytes(weights):
+    """Bytes of the matrices the int8 bundle quantizes, as a float
+    bundle reads them."""
+    from paddle_tpu_torch.models.generation import _QUANT_WEIGHTS
+    return sum(w.numel() * w.element_size() for blk in weights
+               for k, w in blk.items() if k in _QUANT_WEIGHTS)
+
+
+def family_wave(torch, np, card, tag, model, prompts, warm, L, vocab,
+                **kw):
+    """One timed wave (``serve_timed``) through a new server built with
+    ``kw``, the peak memory of the build (an int8 bundle quantizes
+    there) and of the wave apart; its gates
+    as the serve phase's (32 in-vocabulary tokens each, no non-finite
+    live logits, the pool drained, launches = ticks x layers, no R1, no
+    R2, no K6). Returns serve_timed's result with ``peak_gib``,
+    ``build_s`` and, for an int8 server, ``int8_weights`` (the bundle's
+    quantized layers)."""
+    import gc
+    from paddle_tpu_torch.inference import ContinuousBatchingServer
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = ContinuousBatchingServer(model, max_slots=8, page_size=16,
+                                   prefill_tokens_per_tick=512, **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    r = serve_timed(torch, np, srv, prompts, 32, warm)
+    r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    r["build_s"] = build_s
+    if kw.get("weight_dtype") == "int8":
+        r["int8_weights"] = srv._step_fn.weights
+    c = r["counts"]
+    mode = "dense" if kw.get("cache_backend") == "dense" \
+        else kw.get("serving_mode", "split")
+    log(f"families {tag}: {r['ticks']} ticks ({r['decode_ticks']} decode, "
+        f"{r['prefill_launches']} prefill launches, {r['fused_launches']} "
+        f"fused launches in {r['fused_passes']} passes), launches "
+        f"{ {k: v for k, v in c.items() if v} }, non-finite live logit rows "
+        f"{r['bad']}, pool {r['pool']}, server built in {build_s:.2f} s "
+        f"(peak memory while building {build_gib:.2f} GiB)")
+    log(f"families metrics {tag} [{card}]: wall {r['wall']:.3f} s, "
+        f"{r['tok_s']:.1f} tok/s, median decode-only tick (TPOT) "
+        f"{r['decode_ms']:.2f} ms, TTFT median {r['ttft_med']:.1f} ms max "
+        f"{r['ttft_max']:.1f} ms, peak memory {r['peak_gib']:.2f} GiB")
+    if mode == "split":
+        launch = {"k1 == decode ticks x layers":
+                      c["k1"] == r["decode_ticks"] * L > 0,
+                  "k2 == prefill launches x layers":
+                      c["k2"] == r["prefill_launches"] * L > 0,
+                  "no k3 launch": c["k3"] == 0}
+    elif mode == "fused":
+        launch = {"k3 == fused passes x layers":
+                      c["k3"] == r["fused_passes"] * L > 0,
+                  "no k1 or k2 launch": c["k1"] == c["k2"] == 0}
+    else:
+        launch = {"no k1, k2 or k3 launch (dense attention)":
+                      c["k1"] == c["k2"] == c["k3"] == 0}
+    checks = {"32 in-vocabulary tokens each":
+                  all(len(t) == 32 and t.min() >= 0 and t.max() < vocab
+                      for t in r["tokens"]),
+              "no non-finite live logits": r["bad"] == 0,
+              "pool drained (live == 0)":
+                  r["pool"] is None or r["pool"][1] == 0,
+              "no r1, r2 or k6 launch":
+                  c["r1"] == c["r2_dropout"] == c["r2_fill"] == c["k6"]
+                  == c["k6_qk"] == 0,
+              **launch}
+    for name, ok in checks.items():
+        if not ok:
+            raise SystemExit(f"families {tag}: check failed: {name}")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def int8_checks(torch, tag, model, mcl, prompt, int8, bf16):
+    """The int8 gates of one model: its int8 bundle's weight bytes
+    within 2% of half its bf16 projections' bytes; the first token's
+    logits of ``prompt`` within the rule of ``tests/test_generation.py``
+    (max |int8 - bf16| under 5% of max |bf16 logit|). Reports (not
+    gated) how many of the int8 wave's tokens equal the bf16 wave's."""
+    qbytes = quantized_bytes(int8["int8_weights"])
+    fbytes = projection_bytes(model._decode_bundle(mcl)[2].weights)
+    ids = prompt[None]
+    lf, _ = model._run_prefill(model._decode_bundle(mcl), ids)
+    l8, _ = model._run_prefill(model._decode_bundle(mcl, "int8"), ids)
+    rel = ((l8 - lf).abs().max() / lf.abs().max()).item()
+    agree = sum(int((a == b).sum()) for a, b in
+                zip(int8["tokens"], bf16["tokens"]))
+    total = sum(len(t) for t in bf16["tokens"])
+    log(f"families {tag} int8: {qbytes} bytes of int8 weights and scales "
+        f"against {fbytes} bytes of bf16 projections "
+        f"({qbytes / fbytes:.4f}x); first-token logits max |int8 - bf16| "
+        f"{rel:.4f} of max |bf16| (rule < 0.05); int8 and bf16 split "
+        f"tokens agree on {agree} of {total} (informational)")
+    checks = {"int8 weights within 2% of half the bf16 projections":
+                  abs(qbytes - fbytes / 2) <= 0.02 * fbytes / 2,
+              "int8 first-token logits within 5% of max |bf16 logit|":
+                  rel < 0.05}
+    del int8["int8_weights"]       # the last reference outside the model
+    for name, ok in checks.items():
+        if not ok:
+            raise SystemExit(f"families {tag}: check failed: {name}")
+
+
+def family_kernel_times(torch, peak, record, tag, nh, kvh, hd):
+    """K1, K2 and K3 alone at a family's heads over the families waves'
+    geometry (8 slots, 64 pages of 16 tokens: a 1024-token cache), in
+    bf16: each held against its plain version (TOL, VEC_RTOL), then
+    timed beside it, one SDPA call (a yardstick) and its bound."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import fused_tick as ft
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.ops.kernels import ragged_prefill as rp
+    S, pg, maxp = 8, 16, 64
+    T = maxp * pg
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    kp, vp, bt = paged_case(torch, S, nh, kvh, hd, pg, maxp, dt, gen)
+    scale = hd ** -0.5
+    lens = [1, 17, 140, 333, 512, 700, 900, T]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn((S, nh, hd), generator=gen, device="cuda").to(dt)
+    out = pa.paged_attention(q, kp, vp, bt, lengths, scale)
+    ref = pa._ref_paged_attention(q.float(), kp.float(), vp.float(), bt,
+                                  lengths, scale)
+    err, rel, ok = agreement([(out, ref)], "bfloat16")
+    log(f"families k1 {tag}: {nh} heads over {kvh} of {hd}, max_abs_err "
+        f"{err:.3e}, vector-relative {rel:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"families k1 {tag} disagrees with its plain "
+                         f"version")
+    k1_time(torch, pa, tag, q, kp, vp, bt, lengths, lens, scale, peak,
+            flush, record, err)
+    slots = [(0, 512), (256, 512), (300, 300), (T, 0), (37, 512),
+             (512, 200), (100, 512), (512, 500)]
+    t0 = torch.tensor([t for t, _ in slots], dtype=torch.int32,
+                      device="cuda")
+    last = torch.tensor([t + n - 1 if n else -1 for t, n in slots],
+                        dtype=torch.int32, device="cuda")
+    q = torch.randn((S, 512, nh, hd), generator=gen, device="cuda").to(dt)
+    out = rp.ragged_prefill_attention(q, kp, vp, bt, t0, last, scale)
+    ref = rp._ref_ragged_prefill(q.float(), kp.float(), vp.float(), bt, t0,
+                                 last, scale)
+    err, rel, ok = agreement([(out[s, :n], ref[s, :n])
+                              for s, (_, n) in enumerate(slots) if n],
+                             "bfloat16")
+    del ref
+    log(f"families k2 {tag}: C=512, max_abs_err {err:.3e}, "
+        f"vector-relative {rel:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"families k2 {tag} disagrees with its plain "
+                         f"version")
+    k2_time(torch, rp, tag, q, kp, vp, bt, t0, last, slots, scale, peak,
+            flush, record, err)
+    admit = [(0, 512, 0), (256, 512, 0), (300, 300, 0), (T, 0, 0),
+             (700, 1, 1), (512, 200, 0), (900, 1, 1), (512, 500, 0)]
+    decode = [(n - 1, 1, 1) for n in lens]
+    for tick, C, ts in (("admit", 512, admit), ("decode", 1, decode)):
+        last_l = [t + n - 1 if n else -1 for t, n, _ in ts]
+        ss, sp, _ = ft.build_schedule(last_l, pg, n_slots=S)
+        args = (bt, torch.tensor([t for t, _, _ in ts], dtype=torch.int32,
+                                 device="cuda"),
+                torch.tensor(last_l, dtype=torch.int32, device="cuda"),
+                torch.tensor([d for _, _, d in ts], dtype=torch.int32,
+                             device="cuda"),
+                torch.from_numpy(ss).to("cuda"),
+                torch.from_numpy(sp).to("cuda"), scale)
+        q = torch.randn((S, C, nh, hd), generator=gen,
+                        device="cuda").to(dt)
+        out = ft.fused_tick_attention(q, kp, vp, *args)
+        ref = ft._ref_fused_tick(q.float(), kp.float(), vp.float(),
+                                 *args[:4], scale)
+        rows = [1 if d else n for _, n, d in ts]
+        err, rel, ok = agreement([(out[s, :n], ref[s, :n])
+                                  for s, n in enumerate(rows) if n],
+                                 "bfloat16")
+        del ref
+        log(f"families k3 {tick} {tag}: C={C}, max_abs_err {err:.3e}, "
+            f"vector-relative {rel:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"families k3 {tick} {tag} disagrees with its "
+                             f"plain version")
+        k3_time(torch, F, ft, pa, tick, tag, q, kp, vp, bt, args, ts, peak,
+                flush, record, err)
+    del flush, kp, vp, bt, q, out
+    torch.cuda.empty_cache()
+
+
+def phase_families(torch, np, card, peak, record, model_7b, serve_res):
+    """GPT-2 345M (full depth) and Mixtral-8x7B's widths at 8 of 32
+    layers in bf16 from seed 0, then the serve phase's Llama-2-7B with
+    int8 weights: timed waves (``family_wave``) and their int8 gates
+    (``int8_checks``), a profiled decode tick of each family in bf16 and
+    int8, and K1-K3 alone at GPT-2's and Mixtral's heads."""
+    import gc
+    from paddle_tpu_torch.inference import ContinuousBatchingServer
+    fams = {name: (cls, full) for name, cls, _, full in family_models()}
+    # --- GPT-2 345M: 8 slots x 1024 (its position table), bf16 and int8
+    cls, cfg = fams["gpt2"]
+    model = cls(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    L, V = cfg.num_layers, cfg.vocab_size
+    prompts, warm = family_prompts(np, V)
+    log(f"families gpt2: GPT-2 345M bf16 from seed 0, {L} layers, "
+        f"{sum(p.numel() for p in model.parameters())} parameters; "
+        f"prompts {[len(p) for p in prompts]}, 32 new tokens each")
+    paged = dict(max_cache_len=1024, cache_backend="paged")
+    res = {}
+    for tag, kw in (("gpt2 split", {}),
+                    ("gpt2 fused", dict(serving_mode="fused")),
+                    ("gpt2 int8 split", dict(weight_dtype="int8"))):
+        res[tag] = family_wave(torch, np, card, tag, model, prompts, warm,
+                               L, V, **paged, **kw)
+    res["gpt2 int8-cache dense"] = family_wave(
+        torch, np, card, "gpt2 int8-cache dense", model, prompts, warm, L,
+        V, max_cache_len=1024, cache_backend="dense", cache_dtype="int8")
+    int8_checks(torch, "gpt2", model, 1024, prompts[0],
+                res["gpt2 int8 split"], res["gpt2 split"])
+    for mode, kw in (("gpt2 bf16 split", {}),
+                     ("gpt2 int8 split", dict(weight_dtype="int8"))):
+        profile_decode(torch, np, ContinuousBatchingServer(
+            model, max_slots=8, page_size=16, prefill_tokens_per_tick=512,
+            **paged, **kw), cfg, card, mode)
+        gc.collect()
+        torch.cuda.empty_cache()
+    family_kernel_times(torch, peak, record, "gpt2", cfg.num_heads,
+                        cfg.num_heads, cfg.hidden_size // cfg.num_heads)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # --- Llama-2-7B (the serve phase's model and prompts), int8 weights
+    cls, cfg = fams["llama"]
+    if model_7b is None:
+        model_7b = cls(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    L, V = cfg.num_layers, cfg.vocab_size
+    rng = np.random.default_rng(0)          # the serve phase's prompts
+    lens = rng.integers(128, 1025, size=8)
+    prompts7 = [rng.integers(0, V, (int(n),)).astype(np.int32)
+                for n in lens]
+    warm7 = rng.integers(0, V, (40,)).astype(np.int32)
+    seven = dict(max_cache_len=2048, cache_backend="paged")
+    for tag, kw in (("llama-7b int8 split", {}),
+                    ("llama-7b int8 fused", dict(serving_mode="fused"))):
+        res[tag] = family_wave(torch, np, card, tag, model_7b, prompts7,
+                               warm7, L, V, weight_dtype="int8", **seven,
+                               **kw)
+    bf16 = serve_res["split"][0] if serve_res else family_wave(
+        torch, np, card, "llama-7b split", model_7b, prompts7, warm7, L, V,
+        **seven)
+    int8_checks(torch, "llama-7b", model_7b, 2048, prompts7[0],
+                res["llama-7b int8 split"], bf16)
+    del res["llama-7b int8 fused"]["int8_weights"]
+    model_7b.reset_generate_cache()         # frees the int8 copy
+    gc.collect()
+    torch.cuda.empty_cache()
+    # --- Mixtral-8x7B's widths at 8 of its 32 layers
+    cls, cfg = fams["mixtral"]
+    t_init = time.perf_counter()
+    model = cls(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    L, V = cfg.num_layers, cfg.vocab_size
+    prompts, warm = family_prompts(np, V)
+    log(f"families mixtral: Mixtral-8x7B widths bf16 from seed 0 at {L} of "
+        f"32 layers in {time.perf_counter() - t_init:.1f} s, "
+        f"{sum(p.numel() for p in model.parameters())} parameters; "
+        f"prompts {[len(p) for p in prompts]}, 32 new tokens each; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated "
+        f"with the 7B model resident")
+    for tag, kw in (("mixtral split", {}),
+                    ("mixtral fused", dict(serving_mode="fused")),
+                    ("mixtral int8 split", dict(weight_dtype="int8"))):
+        res[tag] = family_wave(torch, np, card, tag, model, prompts, warm,
+                               L, V, **paged, **kw)
+    int8_checks(torch, "mixtral", model, 1024, prompts[0],
+                res["mixtral int8 split"], res["mixtral split"])
+    for mode, kw in (("mixtral bf16 split", {}),
+                     ("mixtral int8 split", dict(weight_dtype="int8"))):
+        profile_decode(torch, np, ContinuousBatchingServer(
+            model, max_slots=8, page_size=16, prefill_tokens_per_tick=512,
+            **paged, **kw), cfg, card, mode)
+        gc.collect()
+        torch.cuda.empty_cache()
+    family_kernel_times(torch, peak, record, "mixtral", cfg.num_heads,
+                        cfg.num_kv_heads, cfg.head_dim)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for tag, r in res.items():
+        log(f"families summary {tag} [{card}]: {r['tok_s']:.1f} tok/s, TPOT "
+            f"{r['decode_ms']:.2f} ms, TTFT median {r['ttft_med']:.1f} ms, "
+            f"peak {r['peak_gib']:.2f} GiB, K1 {r['counts']['k1']}, K2 "
+            f"{r['counts']['k2']}, K3 {r['counts']['k3']}")
+    return model_7b
+
+
 def phase_int8_infer(torch, np, card, record, model):
     """Llama-2-7B bf16 (the serve phase's model, or a new one from seed
     0), then converted in place to int8: one forward each of 8 x 512 ids
@@ -6795,6 +7228,12 @@ def main():
     if "wire" in phases:
         torch.cuda.empty_cache()
         timed("wire", phase_wire, torch, np, card, model_7b, serve_res)
+    if "family_parity" in phases:
+        timed("family_parity", phase_family_parity, torch, np)
+    if "families" in phases:
+        torch.cuda.empty_cache()
+        model_7b = timed("families", phase_families, torch, np, card, peak,
+                         record, model_7b, serve_res)
     if "int8_infer" in phases:
         timed("int8_infer", phase_int8_infer, torch, np, card, record,
               model_7b)

@@ -113,9 +113,13 @@ the host assigns slots, owns the page allocator and the radix prefix
 cache (``kv_cache``, ``prefix_cache``), harvests finished rows and swaps
 new prompts in.
 
-The JAX server's other modes are not ported yet. Asking for one raises
-``NotImplementedError`` naming its ROADMAP item (Queue 1): the mesh (the
-kv-head-sharded pool, item 9), int8 weights and caches (item 10).
+The server reads no model config: any family the decode bundles serve
+(Llama, Mixtral, GPT) runs on every mode, the pool's geometry coming
+from the bundle's ``init_caches``. ``weight_dtype="int8"`` (both
+backends) and ``cache_dtype="int8"`` (dense) pass through to the
+bundles; a paged int8 cache is refused, as in the reference. The mesh
+(the kv-head-sharded pool, ROADMAP Queue 1 item 9) is not ported yet and
+raises ``NotImplementedError`` naming its item.
 """
 import threading
 import time as _time_mod
@@ -397,12 +401,10 @@ class ContinuousBatchingServer:
                              f"'optimistic', got {admission!r}")
         if admission == "optimistic" and not paged:
             raise NotImplementedError(
-                "admission='optimistic' needs cache_backend='paged': "
-                "the dense backend allocates every slot's full "
-                "[max_cache_len] KV rows up front, so there is no pool "
-                "to admit optimistically against — virtualizing dense "
-                "slot buffers is the same page-pool work as the "
-                "quantized paged pool (ROADMAP, Queue 1 item 10); use "
+                "admission='optimistic' needs cache_backend='paged', as "
+                "in the reference: the dense backend allocates every "
+                "slot's full [max_cache_len] KV rows up front, so there "
+                "is no pool to admit optimistically against; use "
                 "cache_backend='paged'")
         if int(headroom_pages) < 0:
             raise ValueError("headroom_pages must be >= 0")
@@ -680,7 +682,8 @@ class ContinuousBatchingServer:
             from ..models.costs import serving_costs
             self._price = serving_costs(
                 model, self._caches["pool"]["k"].element_size(),
-                self.page_size, self._kv.pages_per_slot, self.max_slots)
+                self.page_size, self._kv.pages_per_slot, self.max_slots,
+                weight_dtype=weight_dtype)
             # the decode step's keys are t + 1 a slot, idle slots too
             # (their positions keep stepping); prices read this mirror
             self._t_host = np.zeros((self.max_slots,), np.int64)
@@ -1717,7 +1720,7 @@ class ContinuousBatchingServer:
         elif best is not None:
             rows, pre_logits = best[1][1], best[1][2]
             caches1 = self._init_caches(1)
-            for name in ("k", "v"):
+            for name in caches1:       # k, v; int8: ks, vs too
                 caches1[name][:, :, :n_pre] = rows[name]
             self._count_dispatches(1, op="page_scatter")  # the row seed
             if self._costs is not None:
@@ -1754,7 +1757,7 @@ class ContinuousBatchingServer:
                         2 * len(own[:n_prompt]) * pg * self._row_nbytes())
             self._fill_pages(caches1, own[:n_prompt], len(pre_pages) * pg)
         else:
-            for name in ("k", "v"):
+            for name in caches1:
                 self._caches[name][:, slot] = caches1[name][:, 0]
             self._count_dispatches(1, op="page_scatter")  # the row copy
             if self._costs is not None:

@@ -26,8 +26,9 @@ from ..ops.kernels import flash_attention as _fa
 from ..ops.kernels import rms_norm as _rn
 from ..ops.kernels import threefry_fill as _tf
 
-__all__ = ["rms_norm", "scaled_dot_product_attention", "flash_attention",
-           "linear", "embedding", "silu", "softmax", "cross_entropy",
+__all__ = ["rms_norm", "layer_norm", "scaled_dot_product_attention",
+           "flash_attention", "linear", "embedding", "silu", "gelu",
+           "softmax", "cross_entropy",
            "mse_loss", "binary_cross_entropy_with_logits", "dropout",
            "dropout2d", "dropout3d", "alpha_dropout", "gumbel_softmax"]
 
@@ -36,6 +37,28 @@ def rms_norm(x, weight, epsilon=1e-6):
     """RMSNorm over the last dim (K5 forward and backward)."""
     x, weight = _cast("rms_norm", [x, weight])
     return _rn.rms_norm(x, weight, epsilon)
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    """LayerNorm over the trailing ``normalized_shape`` dims
+    (``functional.py:261-282`` of the reference): the biased variance of
+    the centred values, statistics in f32 for f16/bf16 inputs and the
+    result back in x's type, the scale and shift applied in the
+    statistics' type."""
+    (x,) = _cast("layer_norm", [x])
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    dims = tuple(range(x.dim() - len(normalized_shape), x.dim()))
+    low = x.dtype in (torch.float16, torch.bfloat16)
+    xc = x.float() if low else x
+    centred = xc - xc.mean(dims, keepdim=True)
+    out = centred * torch.rsqrt(centred.square().mean(dims, keepdim=True)
+                                + epsilon)
+    if weight is not None:
+        out = out * weight.to(out.dtype)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out.to(x.dtype)
 
 
 def flash_attention(query, key, value, causal=False, sm_scale=None):
@@ -192,6 +215,11 @@ def embedding(x, weight):
 
 def silu(x):
     return tf.silu(x)
+
+
+def gelu(x, approximate=False):
+    """GELU; ``approximate=True`` is the tanh form (``jax.nn.gelu``'s)."""
+    return tf.gelu(x, approximate="tanh" if approximate else "none")
 
 
 def softmax(x, axis=-1, dtype=None):

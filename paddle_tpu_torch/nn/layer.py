@@ -1,13 +1,16 @@
-"""Layers of the port: ``Linear``, the loss layers ``CrossEntropyLoss``,
-``MSELoss`` and ``BCEWithLogitsLoss``, and ``set_state_dict``.
+"""Layers of the port: ``Linear``, ``Embedding``, ``LayerNorm``, the loss
+layers ``CrossEntropyLoss``, ``MSELoss`` and ``BCEWithLogitsLoss``, and
+``set_state_dict``.
 
-Port of ``paddle_tpu/nn/layers_basic.py:44-63`` and ``:710-790``:
-paddle's Linear keeps its weight as ``[in_features, out_features]`` and
-computes ``x @ W + b``. The arguments are the reference's, in its order:
-``weight_attr``, ``bias_attr`` (``False`` leaves the layer without a
-bias, as in paddle) and ``name``; ``dtype`` and ``device`` follow as
-keywords. The loss layers hold their options and call
-``nn.functional``.
+Port of ``paddle_tpu/nn/layers_basic.py:44-84``, ``:340-355`` and
+``:710-790``: paddle's Linear keeps its weight as ``[in_features,
+out_features]`` and computes ``x @ W + b``. The arguments are the
+reference's, in its order: ``weight_attr``, ``bias_attr`` (``False``
+leaves the layer without a bias, as in paddle) and ``name``; ``dtype``
+and ``device`` follow as keywords. ``Embedding`` and ``LayerNorm`` hold
+the reference's ``weight`` (and ``bias``) under its names; their options
+that GPT does not use raise ``NotImplementedError`` (ROADMAP Queue 1
+item 15). The loss layers hold their options and call ``nn.functional``.
 """
 import numpy as np
 import torch
@@ -16,8 +19,8 @@ from torch import nn
 from ..device import resolve_device
 from . import functional as F
 
-__all__ = ["Linear", "CrossEntropyLoss", "MSELoss", "BCEWithLogitsLoss",
-           "set_state_dict"]
+__all__ = ["Linear", "Embedding", "LayerNorm", "CrossEntropyLoss",
+           "MSELoss", "BCEWithLogitsLoss", "set_state_dict"]
 
 
 @torch.no_grad()
@@ -95,6 +98,79 @@ class Linear(nn.Module):
     def extra_repr(self):
         return (f"in_features={self.in_features}, "
                 f"out_features={self.out_features}")
+
+
+def _refuse_options(layer, **options):
+    """Raise for any option of ``layer`` given other than its default
+    (None; ``sparse``: False)."""
+    for what, value in options.items():
+        if value is not None and not (what == "sparse" and value is False):
+            raise NotImplementedError(
+                f"{layer}({what}={value!r}) is not ported yet (ROADMAP "
+                f"Queue 1 item 15)")
+
+
+class Embedding(nn.Module):
+    """paddle.nn.Embedding: ``weight`` ``[num_embeddings,
+    embedding_dim]`` drawn N(0, 1), the reference's default, by
+    ``reset_parameters`` from ``generator`` (a ``torch.Generator`` on
+    ``device``; None: torch's default one); ``forward`` gathers its
+    rows. ``padding_idx``, ``sparse`` and ``weight_attr`` raise
+    ``NotImplementedError``. ``device=None`` means the CUDA card."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, *,
+                 dtype=torch.float32, device=None, generator=None):
+        super().__init__()
+        _refuse_options("Embedding", padding_idx=padding_idx,
+                        sparse=sparse, weight_attr=weight_attr)
+        device = resolve_device(device)
+        self.num_embeddings = num_embeddings
+        self.embedding_dim = embedding_dim
+        self.weight = nn.Parameter(torch.empty(
+            (num_embeddings, embedding_dim), dtype=dtype, device=device))
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        self.weight.normal_(0.0, 1.0, generator=generator)
+
+    def forward(self, x):
+        return F.embedding(x, self.weight)
+
+    def extra_repr(self):
+        return f"{self.num_embeddings}, {self.embedding_dim}"
+
+
+class LayerNorm(nn.Module):
+    """paddle.nn.LayerNorm: ``weight`` (ones) and ``bias`` (zeros) of
+    ``normalized_shape``, ``epsilon`` added to the variance inside the
+    square root (``F.layer_norm``). ``weight_attr`` and ``bias_attr``
+    raise ``NotImplementedError``. ``device=None`` means the CUDA
+    card."""
+
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, *, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        _refuse_options("LayerNorm", weight_attr=weight_attr,
+                        bias_attr=bias_attr)
+        device = resolve_device(device)
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(normalized_shape)
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(self.normalized_shape,
+                                              dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(self.normalized_shape,
+                                             dtype=dtype, device=device))
+
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape, self.weight,
+                            self.bias, self.epsilon)
+
+    def extra_repr(self):
+        return f"{self.normalized_shape}, epsilon={self.epsilon}"
 
 
 class CrossEntropyLoss(nn.Module):

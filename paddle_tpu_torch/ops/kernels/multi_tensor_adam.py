@@ -279,6 +279,11 @@ def multi_tensor_adam(grads, params, exp_avgs, exp_avg_sqs, masters,
                             weight_decays, lr, beta1, beta2, epsilon, step,
                             decoupled, clip_norm,
                             {} if cache is None else cache)
+    # the kernel writes through raw pointers: bump the parameters'
+    # version counters as an in-place torch op does, so autograd and
+    # the copies made from a parameter (an int8 serving bundle's) see
+    # the step
+    torch.autograd.graph.increment_version(params)
     multi_tensor_adam.launches += 1
     multi_tensor_adam.kernel_launches += kernels
     return info

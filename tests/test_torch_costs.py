@@ -11,7 +11,8 @@ model's config. So those cases are replaced here by:
 - the analytic model against a hand count at ``llama_tiny`` shapes (the
   dense terms and each attention kernel's, then a decode step, a ragged
   prefill launch, a fused tick of one pass and of two composed of
-  them), and ``chip_smoke.py``'s bounds for K1, K2 and K3 built from
+  them), at ``gpt2_tiny``'s and ``mixtral_tiny``'s, and with int8
+  weights (a byte a weight, an f32 scale a channel), and ``chip_smoke.py``'s bounds for K1, K2 and K3 built from
   the same attention model at the main path's shapes;
 - the catalog's surface with explicit prices: the per-op warm-up and
   recompile watch, the fallback for an unpriced function (counted in
@@ -35,8 +36,13 @@ import torch
 
 import paddle_tpu.telemetry as JT
 from paddle_tpu_torch.inference import ContinuousBatchingServer
-from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
-from paddle_tpu_torch.models.costs import LlamaServingCosts, serving_costs
+from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                     MixtralForCausalLM, gpt2_tiny,
+                                     llama_tiny, mixtral_tiny)
+from paddle_tpu_torch.models.costs import (GPTServingCosts,
+                                           LlamaServingCosts,
+                                           MixtralServingCosts,
+                                           serving_costs)
 from paddle_tpu_torch.telemetry import (CostCatalog, FakeClock,
                                         FlightRecorder, MetricRegistry,
                                         ServerTelemetry)
@@ -165,12 +171,81 @@ def test_launch_prices_compose_the_terms():
 
 
 def test_serving_costs_prices_llama_only():
-    """The model knows the port's Llama; any other model (the test stub)
-    gets None, and its calls are priced as errors."""
+    """The model knows the port's three families (Llama, Mixtral, GPT:
+    each its own price model, int8 weights when the bundle quantizes);
+    any other model (the test stub) gets None, and its calls are priced
+    as errors."""
     tm = LlamaForCausalLM(CFG, device="cpu")
     m = serving_costs(tm, 4, 8, 8, 2)
     assert isinstance(m, LlamaServingCosts) and m.W == 8 and m.S == 2
     assert serving_costs(TorchStub(), 4, 8, 8, 2) is None
+    gm = serving_costs(GPTForCausalLM(gpt2_tiny(), device="cpu"), 4, 8, 8,
+                       2, weight_dtype="int8")
+    assert isinstance(gm, GPTServingCosts)
+    assert gm.body_nbytes == GPTServingCosts(gpt2_tiny(), 4, 4, 8, 8, 2,
+                                             int8_weights=True).body_nbytes
+    mm = serving_costs(MixtralForCausalLM(mixtral_tiny(), device="cpu"), 4,
+                       8, 8, 2)
+    assert isinstance(mm, MixtralServingCosts)
+
+
+def test_gpt_and_mixtral_terms_equal_a_hand_count():
+    """GPT (``gpt2_tiny``: H 64, 4 heads of 16, I 256, 2 layers): qkv 3H^2,
+    proj H^2, fc1 and fc2 4H^2 each a row, their biases, two LayerNorms
+    (scale and shift) a layer, the final LayerNorm, token and position
+    rows, MHA caches, the tied table as the head. Mixtral
+    (``mixtral_tiny``: H 64, 4 heads over 2 kv heads, E 4 experts of I
+    128): the Llama attention, the router H x E and all E experts' gate,
+    up and down a row."""
+    g = GPTServingCosts(gpt2_tiny(), 4, 4, 8, 8, 2)
+    H, I, V, L = 64, 256, 256, 2
+    per_row = 2 * (3 * H * H + H * H + H * I + I * H)
+    assert g.row_flops == per_row
+    layer = 3 * H * H + H * H + H * I + I * H + (3 * H + H + I + H) + 4 * H
+    assert g.layer_params == layer
+    f, b = g.dense(5, 2)
+    assert f == L * 5 * per_row + 2 * 2 * H * V
+    assert b == 4 * (L * layer + 2 * H + H * V + 5 * 2 * H + 2 * V) \
+        + 5 * 2 * L * H * 4
+    assert (g.attn.nh, g.attn.kvh, g.attn.hd) == (4, 4, 16)
+    m = MixtralServingCosts(mixtral_tiny(), 4, 4, 8, 8, 2)
+    H, I, E, q, kv = 64, 128, 4, 64, 32
+    mats = H * q + 2 * H * kv + q * H + E * 3 * H * I
+    assert m.row_flops == 2 * (mats + H * E)
+    assert m.layer_params == mats + H * E + 2 * H
+    f, b = m.dense(3, 0)
+    assert f == L * 3 * 2 * (mats + H * E)
+    assert b == 4 * (L * (mats + H * E + 2 * H) + H + 3 * H) \
+        + 3 * 2 * L * kv * 4
+
+
+def test_int8_weights_are_a_byte_a_weight_and_a_scale_a_channel():
+    """The int8 bundle's bytes: every quantized matrix a byte a weight
+    plus an f32 scale a copy (layer, expert) and output channel; norms,
+    biases, the router, the embedding and the head at the model's
+    element size. FLOPs do not change."""
+    H, I, L = 64, 128, 2
+    q, kv = 64, 32
+    f32, i8 = _tiny(), LlamaServingCosts(CFG, 4, 4, 8, 8, 4,
+                                         int8_weights=True)
+    mats = H * q + 2 * H * kv + q * H + 3 * H * I
+    chans = q + 2 * kv + H + 2 * I + H
+    assert i8.row_flops == f32.row_flops
+    assert i8.body_nbytes == L * (mats + 4 * chans + 4 * 2 * H) + 4 * H
+    assert i8.head_nbytes == f32.head_nbytes
+    m = MixtralServingCosts(mixtral_tiny(), 2, 2, 8, 8, 2,
+                            int8_weights=True)
+    E = 4
+    mats = H * q + 2 * H * kv + q * H + E * 3 * H * I
+    chans = q + 2 * kv + H + E * (2 * I + H)
+    assert m.body_nbytes == L * (mats + 4 * chans + 2 * (H * E + 2 * H)) \
+        + 2 * H
+    g = GPTServingCosts(gpt2_tiny(), 2, 2, 8, 8, 2, int8_weights=True)
+    H, I = 64, 256
+    mats = 4 * H * H + 2 * H * I
+    chans = 3 * H + H + I + H
+    vec = (3 * H + H + I + H) + 4 * H
+    assert g.body_nbytes == L * (mats + 4 * chans + 2 * vec) + 2 * 2 * H
 
 
 # ------------------------------------------------------------- catalog

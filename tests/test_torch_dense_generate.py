@@ -262,7 +262,6 @@ def test_generate_value_errors_match_jax(kw, match):
 
 @pytest.mark.parametrize("kw,item", [
     ({"num_beams": 2}, 12), ({"fsm": (None, None)}, 12),
-    ({"weight_dtype": "int8"}, 10), ({"cache_dtype": "int8"}, 10),
     ({"mesh": object()}, 9),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else str(v))
 def test_generate_refuses_unported_options_naming_the_roadmap(kw, item):

@@ -19,7 +19,7 @@ the card (``chip_smoke.py`` phase ``k8``):
   times 127: what one flipped input code can move a logit), greedy
   argmax equal, the original left untouched with ``inplace=False``;
 - ``Int8InferLinear`` with a bias, and the paged serving bundle refusing
-  a converted model (ROADMAP, Queue 1 item 10);
+  a converted model, as the reference refuses it;
 - the K-major entry (``quantized_matmul_kmajor``, the weight ``[N, K]``
   as the kernel reads it) against the reference layout's entry and the
   JAX function, bit for bit, f32 and bf16 out; the kernel route each of
@@ -185,9 +185,11 @@ def test_int8_linear_with_a_bias_and_in_place_conversion():
 
 
 def test_serving_a_converted_model_raises_with_a_roadmap_pointer():
+    """The reference refuses a converted model too (its bundles read
+    trainable parameters only), and the message says so."""
     _, tm, _, _ = _llamas()
     q = to_int8_inference(tm)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="as in the reference"):
         q._decode_bundle(32, cache_backend="paged", page_size=8,
                          num_pages=9)
 
