@@ -19,6 +19,7 @@
     python3 chip_smoke.py --only build,fleet_parity,fleet
     python3 chip_smoke.py --only build,serve,wire_parity,wire
     python3 chip_smoke.py --only build,serve,family_parity,families
+    python3 chip_smoke.py --only build,serve,decode_parity,decoding,deploy
 
 Phases, in order; any failure exits non-zero:
 
@@ -420,7 +421,43 @@ Phases, in order; any failure exits non-zero:
    K2 and K3 alone at GPT-2's heads (16 of 64) and Mixtral's (32 over 8
    of 128), each held against its plain version and timed beside it,
    SDPA and its bound;
-28. int8_infer: the serve phase's Llama-2-7B (full width and depth):
+28. decode_parity: gpt2_tiny, mixtral_tiny and llama_tiny in float32
+   (weights from seed 3, a weak draft from seed 4, copied to the card),
+   on the card and on the CPU: ``beam_generate`` at K = 1 and 3, FSM
+   greedy and seeded sampled ``generate(fsm=)`` over a phrase trie,
+   ``speculative_generate`` with a perfect and a weak draft, 6 steps of
+   ``scan_decode``; the card's tokens, acceptance, beam scores and
+   ``scan_decode`` output and caches (within 1e-4) equal the CPU's; R2
+   launched once a sampled FSM draw and nothing else on the card; then a
+   ``BatchScheduler`` over llama_tiny's forward on the card gives each
+   one-row result within 1e-4;
+29. decoding: the serve phase's Llama-2-7B in bf16: ``generate(
+   num_beams=4)`` over 2 prompts of 512 tokens, 32 new each, and
+   ``beam_generate`` at K = 1 against ``generate()`` greedy; FSM greedy
+   and seeded sampled over ``phrases_to_fsm`` of 8 phrases of 4-12
+   tokens (every row a phrase and an eos tail); ``speculative_generate``
+   (gamma 4, 64 new tokens, a 512-token prompt) with a weak draft (its
+   widths at 2 layers, seed 1) and a perfect one (the target), against
+   ``generate()`` greedy. Every card-against-card token comparison keeps
+   the near-tie rule (``near_ties``): a run may leave its yardstick only
+   where the yardstick's top-2 logit gap is within TOL["bfloat16"] of
+   that row's max |logit|, each such position printed. ms a token of
+   each path, speculative's rounds and acceptance;
+30. deploy: ``torch.export`` archives on the card in a temporary
+   directory removed at the end: ``export_layer`` of llama_tiny, of its
+   ``to_int8_inference`` copy and of a bf16 fused linear, each archive's
+   output equal to the eager card output and a run's launches those of
+   the custom ops (K4a, K5a, K6 q + k; K8; K7); ``export_decode`` of
+   llama_tiny equal to the card's ``generate()``; GPT-2 345M in bf16
+   (full width and depth, seed 0): ``export_decode`` at 4 x 256 prompt
+   tokens, 32 new (the near-tie rule against ``generate()``),
+   ``export_layer`` of its forward at a dynamic batch through
+   ``create_predictor`` (K4a 24 times a run, logits within TOL of the
+   eager forward's) and a ``BatchScheduler`` over that predictor (16
+   one-row requests from 4 threads, batches of at most 8 rows, each
+   result within TOL of a one-row run); export s, archive MB, load s
+   and ms a run printed;
+31. int8_infer: the serve phase's Llama-2-7B (full width and depth):
    one bf16 forward of 8 x 512 ids from seed 0, then
    ``to_int8_inference(model, inplace=True)`` and the same forward with
    the counters zeroed just before and read just after: 7 x layers + 1
@@ -429,7 +466,7 @@ Phases, in order; any failure exits non-zero:
    and the largest relative logit
    error against bf16, ms per forward and tokens/s for both, peak memory,
    a profile of one forward of each;
-29. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
+32. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
    f32 moments, one fixed 8 x 1024 batch from seed 0: 2 warm-up steps,
    then 10 timed with the counters zeroed just before and read just
    after (K4: 10 x layers each, K5: 10 x (2 x layers + 1) each, K6's q +
@@ -438,14 +475,14 @@ Phases, in order; any failure exits non-zero:
    fall and stay finite, gradients finite; step time, tokens/s, peak
    memory and a profile of one step (its launches, the optimizer's
    device time);
-30. train_compose: the same model, weights, batch and optimizer with rope
+33. train_compose: the same model, weights, batch and optimizer with rope
    on the composition (``ops.rope._COMPOSITION_ONLY``, set for the phase
    and restored after it): 2 warm-up steps and 5 timed, the counters
    zeroed before the first and read after the last (no K6); the 7 losses
    equal to the train phase's first 7 bit for bit (K6 is the composition
    bit for bit, forward and backward); ms per step of both phases from
    this call, and a profile of one step;
-31. train_amp: the slice's path. llama_350m at full width and depth
+34. train_amp: the slice's path. llama_350m at full width and depth
    from seed 0, ``amp.decorate(level="O2", dtype="bfloat16")`` (the rope
    tables stay f32), ``AdamW(multi_precision=True, weight_decay=0.01``
    off the norms, ``grad_clip=ClipGradByGlobalNorm(1.0))`` on the fused
@@ -462,18 +499,18 @@ Phases, in order; any failure exits non-zero:
    written into one gradient of the second: that step is skipped
    (parameters unchanged bit for bit, the optimizer not stepped) and the
    scale halves;
-32. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
+35. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
    llama_350m in bf16 at full width and depth from seed 0,
    ``AdamW(1e-4, weight_decay=0.01)``, ``nn.CrossEntropyLoss()``, a
    ``TensorDataset`` of 96 rows of 1025 seeded ids (inputs the first
    1024, labels the last 1024), batch 8 (12 batches an epoch), 2 fork
-   workers, a checkpoint every 6 steps keeping 1, in a temporary
-   directory removed at the end. Run A: one uninterrupted epoch, the
+   workers, a checkpoint at each run's end (and at B's preemption)
+   keeping 1, in a temporary directory removed at the end. Run A: one uninterrupted epoch, the
    counters zeroed just before and read just after (12 x the train
    step's K4, K5 and K6 launches, the fused AdamW step 12 times, no
    other kernel), with ``TelemetryCallback`` and a registry on the
    supervisor (12 steps in the step histogram, 12 x 8 x 1024 tokens,
-   every checkpoint save, last good step 12); its ms per step (median
+   its one checkpoint save, last good step 12); its ms per step (median
    of the steps that saved no checkpoint) beside the train phase's, tokens/s, peak memory, the
    loader's wait a step, seconds and GB/s of every checkpoint save, the
    guarded and the plain step each ended by the loss read, the key
@@ -508,8 +545,8 @@ PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "opt",
           "rng", "parity", "dense_parity", "preempt_parity", "train_parity",
           "int8_parity", "serve", "dense", "preempt", "telemetry",
           "fleet_parity", "fleet", "wire_parity", "wire", "family_parity",
-          "families", "int8_infer", "train", "train_compose", "train_amp",
-          "fit")
+          "families", "decode_parity", "decoding", "deploy", "int8_infer",
+          "train", "train_compose", "train_amp", "fit")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
 # outside the tensor cores, int8 tensor-core operations/s). The SXM part
@@ -6242,6 +6279,551 @@ def phase_families(torch, np, card, peak, record, model_7b, serve_res):
     return model_7b
 
 
+def near_ties(torch, np, model, tag, got, want, T):
+    """The near-tie rule of two card runs ``got`` and ``want`` (int token
+    arrays ``[B, T + N]``, ``want`` the yardstick): a row may differ only
+    from a position where the yardstick's top-2 logit gap is within
+    ``TOL["bfloat16"]`` of that row's max |logit| (the model's forward
+    over the yardstick's tokens to there gives the logits). Logs each
+    differing row's first position and gap; returns whether every row
+    keeps the rule."""
+    good = True
+    for b in range(want.shape[0]):
+        diff = np.nonzero(got[b] != want[b])[0]
+        if not len(diff):
+            continue
+        p = int(diff[0])
+        if p < T:
+            log(f"{tag} row {b}: the prompt differs at {p}")
+            good = False
+            continue
+        with torch.no_grad():
+            ids = torch.from_numpy(want[b:b + 1, :p].astype(np.int64))
+            row = model(ids.to(model.device))[0, -1].float()
+        top = torch.topk(row, 2).values
+        gap = float(top[0] - top[1])
+        scale = float(row.abs().max())
+        near = gap <= TOL["bfloat16"] * scale
+        log(f"{tag} row {b}: first difference at new token {p - T} "
+            f"(yardstick {int(want[b, p])}, run {int(got[b, p])}): top-2 "
+            f"gap {gap:.5f} = {gap / scale:.5f} of max |logit| {scale:.3f}; "
+            f"near-tie {near}")
+        good &= near
+    return good
+
+
+def phase_decode_parity(torch, np):
+    """gpt2_tiny, mixtral_tiny and llama_tiny in float32 (weights from
+    seed 3; a weak draft from seed 4), on the card and on the CPU: beam
+    search at K = 1 and 3 (``beam_generate``), FSM-constrained greedy and
+    seeded sampled ``generate`` over a phrase trie, speculative decoding
+    with a perfect and a weak draft, and 6 steps of ``scan_decode`` from
+    a prefill. The card's tokens, scores (f32 within 1e-4), acceptance
+    and ``scan_decode`` output and caches (within 1e-4) must equal the
+    CPU's; the dense bundles launch no kernel, R2 once a sampled FSM
+    draw (max_new_tokens + 1: its last step's pick moves the state).
+    Then a ``BatchScheduler`` over the card's llama_tiny forward (last
+    position's f32 logits): 6 one-row requests from 3 threads give the
+    one-row results within 1e-4."""
+    from paddle_tpu_torch.inference import phrases_to_fsm
+    from paddle_tpu_torch.models import export_params, load_jax_params
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, 256, (2, 9)).astype(np.int32)
+    T, new, mcl = 9, 8, 32
+    fsm = phrases_to_fsm([[10, 20, 30], [10, 25], [40, 41, 42, 43]], 256, 7)
+    sample = dict(do_sample=True, temperature=1.5, seed=11)
+    good = True
+    for fam, cls, cfg, _ in family_models():
+        runs = {}
+        cpu_pair = (cls(cfg, device="cpu", seed=3),
+                    cls(cfg, device="cpu", seed=4))
+        card_pair = tuple(cls(cfg, device="cuda") for _ in range(2))
+        for src, dst in zip(cpu_pair, card_pair):
+            load_jax_params(dst, export_params(src))
+        for dev, (model, weak) in (("cpu", cpu_pair), ("cuda", card_pair)):
+            runs[dev] = decode_parity_run(torch, np, model, weak, ids, T,
+                                          new, mcl, fsm, sample)
+        del cpu_pair, card_pair
+        cpu, card = runs["cpu"], runs["cuda"]
+        for key in cpu["out"]:
+            a, b = cpu["out"][key], card["out"][key]
+            if a.dtype.kind == "f":
+                err = float(np.abs(a - b).max())
+                same = err <= 1e-4
+                log(f"decode_parity {fam} {key}: card within {err:.2e} of "
+                    f"the CPU's {same}")
+            else:
+                same = a.shape == b.shape and np.array_equal(a, b)
+                log(f"decode_parity {fam} {key}: card equal to the CPU's "
+                    f"{same}")
+            good &= same
+        n, draws = card["counts"], new + 1
+        launched = n["r2_fill"] == draws and not any(
+            v for k, v in n.items() if k != "r2_fill")
+        log(f"decode_parity {fam}: card launches {n}; R2 = the sampled "
+            f"FSM's {draws} draws, nothing else: {launched}; CPU launches "
+            f"{ {k: v for k, v in cpu['counts'].items() if v} }")
+        good &= launched and not any(cpu["counts"].values())
+    good &= decode_parity_scheduler(torch, np)
+    torch.cuda.empty_cache()
+    if not good:
+        raise SystemExit("decode_parity: the card and the CPU disagree, or "
+                         "a run's launches are not its path's")
+
+
+def decode_parity_run(torch, np, model, weak, ids, T, new, mcl, fsm,
+                      sample):
+    """One device's decode_parity outputs: {"out": {name: array},
+    "counts": launches over the runs}."""
+    from paddle_tpu_torch.inference import (beam_generate, scan_decode,
+                                            speculative_generate)
+    out = {}
+    zero_counts()
+    bundle = model._decode_bundle(mcl)
+    for K in (1, 3):
+        last, caches = model._run_prefill(bundle, ids)
+        toks, scores = beam_generate(bundle[1], bundle[2], bundle[3], caches,
+                                     last, T, new, K)
+        out[f"beam K={K}"] = toks.cpu().numpy()
+        out[f"beam K={K} scores"] = scores.cpu().numpy()
+    out["fsm greedy"] = model.generate(
+        ids, max_new_tokens=new, max_cache_len=mcl, fsm=fsm,
+        eos_token_id=7).cpu().numpy()
+    out["fsm sampled"] = model.generate(
+        ids, max_new_tokens=new, max_cache_len=mcl, fsm=fsm, eos_token_id=7,
+        **sample).cpu().numpy()
+    for name, draft in (("perfect", model), ("weak", weak)):
+        toks, st = speculative_generate(model, draft, ids[:1],
+                                        max_new_tokens=new, gamma=3,
+                                        max_cache_len=mcl, return_stats=True)
+        out[f"speculative {name}"] = toks.cpu().numpy()
+        out[f"speculative {name} accepted"] = np.asarray(
+            st["accepted_per_round"])
+    last, caches = model._run_prefill(bundle, ids)
+    x0 = bundle[1](torch.tensor([3, 11], dtype=torch.int32,
+                                device=model.device), T)
+    x, caches = scan_decode(bundle[2], x0, caches, T, 6)
+    out["scan_decode out"] = x.float().cpu().numpy()
+    out["scan_decode k cache"] = caches["k"].float().cpu().numpy()
+    return {"out": out, "counts": read_counts()}
+
+
+def decode_parity_scheduler(torch, np):
+    """The scheduler over llama_tiny's forward on the card: every request
+    within 1e-4 of its one-row run, no batch above max_batch_size."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from paddle_tpu_torch.inference import BatchScheduler
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    model = LlamaForCausalLM(llama_tiny(), device="cuda", seed=3)
+    rows = []
+
+    def runner(stacked):
+        rows.append(stacked[0].shape[0])
+        with torch.no_grad():
+            x = torch.from_numpy(stacked[0].astype(np.int64)).cuda()
+            return [model(x)[:, -1].float().cpu().numpy()]
+
+    reqs = [np.random.default_rng(i).integers(0, 256, (1, 9))
+            for i in range(6)]
+    sched = BatchScheduler(runner, max_batch_size=4, max_delay_ms=50)
+    with ThreadPoolExecutor(max_workers=3) as ex:
+        got = list(ex.map(lambda r: sched.submit(r).result(timeout=120)[0],
+                          reqs))
+    sched.close()
+    batched = list(rows)
+    err = max(float(np.abs(g - runner([r])[0]).max())
+              for g, r in zip(got, reqs))
+    good = err <= 1e-4 and max(batched) <= 4 and sum(batched) == 6
+    log(f"decode_parity scheduler: batches of {batched} rows, every "
+        f"request within {err:.2e} of its one-row run: {good}")
+    return good
+
+
+def fsm_phrases(np, vocab, eos):
+    """8 phrases of 4-12 tokens from seed 13, of ids above ``eos``."""
+    rng = np.random.default_rng(13)
+    return [[int(t) for t in rng.integers(eos + 1, vocab, (int(n),))]
+            for n in rng.integers(4, 13, size=8)]
+
+
+def phase_decoding(torch, np, card, model):
+    """Beam, FSM-constrained and speculative decoding on the serve phase's
+    Llama-2-7B (bf16, seed 0; built here if that phase did not run).
+
+    Beam: ``generate(num_beams=4)`` over 2 prompts of 512 tokens, 32 new
+    each; ``beam_generate`` at K = 1 against ``generate()`` greedy (the
+    near-tie rule, ``near_ties``). FSM: greedy and seeded sampled
+    ``generate(fsm=)`` over ``phrases_to_fsm`` of 8 phrases of 4-12
+    tokens, 16 new tokens: every row a phrase and an eos tail.
+    Speculative: gamma 4, 64 new tokens, one 512-token prompt, a weak
+    draft (Llama-2-7B's widths at 2 layers, seed 1) and a perfect one
+    (the target): tokens against ``generate()`` greedy under the near-tie
+    rule; rounds, acceptance, tokens a target forward and ms a token
+    reported beside ``generate()``'s. The counters are zeroed before
+    each timed run and read after it: the dense bundles launch no
+    kernel, the sampled FSM R2 once a draw (16 + 1)."""
+    from paddle_tpu_torch.inference import (beam_generate, phrases_to_fsm,
+                                            speculative_generate)
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
+    cfg = llama2_7b()
+    if model is None:
+        model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                                 seed=0)
+    V, T, new, eos = cfg.vocab_size, 512, 32, 2
+    prompts = np.random.default_rng(9).integers(0, V, (2, T)).astype(
+        np.int32)
+    checks, launched = {}, {}
+
+    def timed(fn, tag=None):
+        """fn's result and ms; with a tag, its launches kept under it."""
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        if tag is not None:
+            launched[tag] = {k: v for k, v in read_counts().items() if v}
+        return out, (time.perf_counter() - t0) * 1e3
+
+    model.generate(prompts, max_new_tokens=2)        # warm, untimed
+    # --- beam search
+    greedy, g_ms = timed(lambda: model.generate(
+        prompts, max_new_tokens=new).cpu().numpy(), "greedy")
+    beam4, b4_ms = timed(lambda: model.generate(
+        prompts, max_new_tokens=new, num_beams=4).cpu().numpy(), "beam 4")
+    bundle = model._decode_bundle(T + new)
+
+    def beam1():
+        last, caches = model._run_prefill(bundle, prompts)
+        toks, scores = beam_generate(bundle[1], bundle[2], bundle[3], caches,
+                                     last, T, new, 1)
+        return np.concatenate([prompts, toks.cpu().numpy()], 1), scores
+
+    (b1, b1_scores), b1_ms = timed(beam1, "beam 1")
+    log(f"decoding beam [{card}]: 2 x {T} prompts, {new} new tokens: "
+        f"greedy generate {g_ms:.1f} ms ({g_ms / new:.2f} ms a token), "
+        f"num_beams=4 {b4_ms:.1f} ms ({b4_ms / new:.2f} ms a token), "
+        f"beam_generate K=1 {b1_ms:.1f} ms; beam 4 tokens "
+        f"{beam4[:, T:T + 8].tolist()}...; K=1 scores "
+        f"{b1_scores.float().cpu().numpy().ravel().tolist()}")
+    checks["beam 4: [2, 544] tokens in the vocabulary"] = \
+        beam4.shape == (2, T + new) and bool((beam4 >= 0).all()
+                                             and (beam4 < V).all())
+    checks["beam K=1 = greedy generate, near-ties apart"] = near_ties(
+        torch, np, model, "decoding beam K=1", b1, greedy, T)
+    # --- FSM-constrained
+    phrases = fsm_phrases(np, V, eos)
+    fsm = phrases_to_fsm(phrases, V, eos)
+    for tag, kw in (("greedy", {}),
+                    ("sampled", dict(do_sample=True, temperature=0.8,
+                                     seed=5))):
+        out, ms = timed(lambda: model.generate(
+            prompts, max_new_tokens=16, fsm=fsm, eos_token_id=eos,
+            **kw).cpu().numpy(), f"fsm {tag}")
+        rows = out[:, T:].tolist()
+        ok = all(any(r == ph + [eos] * (16 - len(ph)) for ph in phrases)
+                 for r in rows)
+        log(f"decoding fsm {tag} [{card}]: 2 x {T} prompts, 16 new tokens "
+            f"in {ms:.1f} ms ({ms / 16:.2f} ms a token); rows {rows}; "
+            f"each a phrase + eos tail: {ok}")
+        checks[f"fsm {tag}: every row a phrase and an eos tail"] = ok
+    # --- speculative
+    prompt = prompts[:1]
+    n_spec, gamma = 64, 4
+    mcl = T + n_spec + gamma + 1
+    want, gen_ms = timed(lambda: model.generate(
+        prompt, max_new_tokens=n_spec, max_cache_len=mcl).cpu().numpy())
+    _, pre_ms = timed(lambda: model.generate(
+        prompt, max_new_tokens=1, max_cache_len=mcl))
+    tpot = (gen_ms - pre_ms) / (n_spec - 1)
+    log(f"decoding speculative yardstick [{card}]: generate() greedy "
+        f"{n_spec} tokens in {gen_ms:.1f} ms ({gen_ms / n_spec:.2f} ms a "
+        f"token), TPOT {tpot:.2f} ms (64 tokens less 1, over 63)")
+    weak = LlamaForCausalLM(llama2_7b(num_layers=2), device="cuda",
+                            dtype=torch.bfloat16, seed=1)
+    for tag, draft in (("weak", weak), ("perfect", model)):
+        (toks, st), ms = timed(lambda: speculative_generate(
+            model, draft, prompt, max_new_tokens=n_spec, gamma=gamma,
+            max_cache_len=mcl, return_stats=True), f"speculative {tag}")
+        got = toks.cpu().numpy()
+        log(f"decoding speculative {tag} draft [{card}]: {n_spec} tokens in "
+            f"{ms:.1f} ms ({ms / n_spec:.2f} ms a token against generate()'s "
+            f"{gen_ms / n_spec:.2f}); {st['rounds']} rounds, mean accepted "
+            f"{st['mean_accepted']:.3f} of {gamma}, "
+            f"{st['tokens_per_target_forward']:.3f} tokens a target forward; "
+            f"accepted per round {st['accepted_per_round']}")
+        checks[f"speculative {tag}: = generate() greedy, near-ties apart"] \
+            = near_ties(torch, np, model, f"decoding speculative {tag}",
+                        got, want, T)
+    del weak
+    model.reset_generate_cache()
+    torch.cuda.empty_cache()
+    want = {tag: {"r2_fill": 17} if tag == "fsm sampled" else {}
+            for tag in launched}
+    log(f"decoding launches: {launched}")
+    checks["launches: none on the dense bundles, R2 17 on the sampled "
+           "FSM"] = launched == want
+    log(f"decoding checks: {checks}")
+    for name, ok in checks.items():
+        if not ok:
+            raise SystemExit(f"decoding: check failed: {name}")
+    return model
+
+
+def fused_gelu(torch):
+    """A K7 module for the deploy phase: ``gelu(x @ w + b)`` through the
+    incubate entry, bf16 at GPT-2 345M's FFN widths (1024 -> 4096), w
+    from seed 0 at 0.03 scale."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+
+    class FusedGelu(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            g = torch.Generator(device="cuda").manual_seed(0)
+            w = torch.randn(1024, 4096, device="cuda", generator=g) * 0.03
+            self.w = torch.nn.Parameter(w.to(torch.bfloat16))
+            self.b = torch.nn.Parameter(torch.zeros(
+                4096, device="cuda", dtype=torch.bfloat16))
+
+        def forward(self, x):
+            return IF.fused_linear_activation(x, self.w, self.b,
+                                              activation="gelu")
+
+    return FusedGelu()
+
+
+@contextlib.contextmanager
+def archive_io_times():
+    """{"save": [s], "load": [s]}: the seconds of every archive write
+    (``torch.export.save``) and read (``torch.export.load`` with its move
+    to the device) under the block, through the inference modules'
+    ``_save_program`` / ``_load_program``; restored after the block."""
+    from paddle_tpu_torch.inference import deploy_decode as dd
+    from paddle_tpu_torch.inference import export as ex
+    out = {"save": [], "load": []}
+    save, load = ex._save_program, ex._load_program
+
+    def timing(fn, key):
+        def run(*a):
+            t0 = time.perf_counter()
+            res = fn(*a)
+            out[key].append(round(time.perf_counter() - t0, 2))
+            return res
+        return run
+
+    for mod in (ex, dd):
+        mod._save_program = timing(save, "save")
+        mod._load_program = timing(load, "load")
+    try:
+        yield out
+    finally:
+        for mod in (ex, dd):
+            mod._save_program, mod._load_program = save, load
+
+
+def phase_deploy(torch, np, card, record):
+    """The deployment archives on the card, written under a temporary
+    directory the phase removes.
+
+    Tiny, f32 (seed 3): ``export_layer`` of llama_tiny's forward (a
+    dynamic batch, run at 3 rows), of its ``to_int8_inference`` copy and
+    of a bf16 fused linear (``fused_gelu``, 64 rows): each archive's output
+    equals the eager output on the card, and a run launches K4a once a
+    layer, K5a twice a layer and once more, K6 (q + k) once a layer, K8
+    once a projection and the head, K7 once. ``export_decode`` of
+    llama_tiny (2 x 9, 8 new): tokens equal the card's ``generate()``.
+
+    GPT-2 345M (full width and depth, bf16, seed 0): ``export_decode`` at
+    4 x 256 prompt tokens, 32 new (tokens against ``generate()`` under
+    the near-tie rule); ``export_layer`` of the forward at a dynamic batch
+    of 64-token rows, run through ``create_predictor`` (K4a 24 times a
+    run, logits within TOL of the eager forward's), and a
+    ``BatchScheduler`` over that ``Predictor``: 16 one-row requests from 4
+    threads, ``max_batch_size=8`` (no batch above 8 rows, each result
+    within TOL of a one-row run). Both logit gates scale TOL by the
+    eager logits' largest magnitude (TOL is sized for outputs near 1; a
+    batched GEMM's bf16 rounding follows its row count). Export s,
+    archive MB, load s and ms a run printed."""
+    import gc
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                         gpt2_345m, llama_tiny)
+    from paddle_tpu_torch.quantization import to_int8_inference
+    from paddle_tpu_torch.static import InputSpec
+    root = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    checks = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def mb(*paths):
+        return sum(os.path.getsize(p) for p in paths) / 2 ** 20
+
+    try:
+        # --- tiny archives on the card: the custom ops launch the kernels
+        tiny = LlamaForCausalLM(llama_tiny(), device="cuda", seed=3)
+        L = tiny.cfg.num_layers
+        ids = np.random.default_rng(3).integers(0, 256, (3, 16)).astype(
+            np.int32)
+        fused = fused_gelu(torch)
+        x = torch.randn(64, 1024, device="cuda").to(torch.bfloat16)
+        cases = (
+            ("llama_tiny", tiny, [InputSpec([-1, 16], "int32", "ids")],
+             ids, {"k4_fwd": L, "k5_fwd": 2 * L + 1, "k6_qk": L}),
+            ("llama_tiny int8", to_int8_inference(tiny),
+             [InputSpec([3, 16], "int32", "ids")], ids,
+             {"k4_fwd": L, "k5_fwd": 2 * L + 1, "k6_qk": L,
+              "k8": 7 * L + 1}),
+            ("fused linear", fused, [InputSpec([-1, 1024], "bfloat16",
+                                               "x")], x, {"k7": 1}))
+        for tag, layer, spec, feed, want in cases:
+            prefix = os.path.join(root, tag.replace(" ", "_"))
+            inference.export_layer(prefix, layer, spec)
+            prog, _, _ = inference.load_exported(prefix)
+            zero_counts()
+            got = prog(feed)
+            torch.cuda.synchronize()
+            n = read_counts()
+            with torch.no_grad():
+                eager = layer(torch.as_tensor(feed).cuda())
+            launched = {k: v for k, v in n.items() if v}
+            ok = torch.equal(got, eager) and launched == want
+            log(f"deploy {tag}: archive output equal to the eager card "
+                f"output {torch.equal(got, eager)}; a run's launches "
+                f"{launched} (want {want}): {ok}")
+            checks[f"{tag}: archive = eager on the card, launches {want}"] \
+                = ok
+            for kname, k in (("flash_attention_fwd", "k4_fwd"),
+                             ("rms_norm_fwd", "k5_fwd"), ("rope", "k6_qk"),
+                             ("quant_matmul", "k8"),
+                             ("gemm_epilogue", "k7")):
+                if k in want:
+                    record[kname]["export_launches"] = n[k]
+        prefix = os.path.join(root, "tiny_gen")
+        inference.export_decode(prefix, tiny, prompt_len=9, max_new_tokens=8,
+                                batch=2)
+        got = inference.load_decode(prefix).generate(ids[:2, :9])
+        want = tiny.generate(ids[:2, :9], max_new_tokens=8).cpu().numpy()
+        checks["llama_tiny export_decode = the card's generate()"] = \
+            np.array_equal(got, want)
+        log(f"deploy llama_tiny export_decode: tokens equal the card's "
+            f"generate() {np.array_equal(got, want)}")
+        del tiny, fused
+        # --- GPT-2 345M
+        cfg = gpt2_345m()
+        gpt = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=0)
+        B, T, new = 4, 256, 32
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (B, T)).astype(np.int32)
+        prefix = os.path.join(root, "gpt2_gen")
+        with archive_io_times() as io_s:
+            paths, export_s = timed(lambda: inference.export_decode(
+                prefix, gpt, prompt_len=T, max_new_tokens=new, batch=B))
+            gen, load_s = timed(lambda: inference.load_decode(prefix))
+        runs = []
+        for _ in range(2):
+            zero_counts()
+            got, run_s = timed(lambda: gen.generate(prompts))
+            runs.append(run_s * 1e3)
+        n = {k: v for k, v in read_counts().items() if v}
+        want, gen_s = timed(lambda: gpt.generate(
+            prompts, max_new_tokens=new).cpu().numpy())
+        log(f"deploy gpt2 export_decode [{card}]: {B} x {T} prompts, {new} "
+            f"new: export {export_s:.2f} s ({sum(io_s['save']):.2f} of it "
+            f"torch.export.save, {io_s['save']}), archives "
+            f"{mb(*paths):.1f} MB (prefill {mb(paths[0]):.1f}, decode "
+            f"{mb(paths[1]):.1f}), load {load_s:.2f} s ("
+            f"{sum(io_s['load']):.2f} of it torch.export.load and the move, "
+            f"{io_s['load']}), a run {runs[0]:.1f} then {runs[1]:.1f} ms "
+            f"({runs[1] / new:.2f} ms a token; generate() {gen_s * 1e3:.1f} "
+            f"ms); a run's launches {n} (the dense bundle: plain torch)")
+        checks["gpt2 export_decode = generate(), near-ties apart"] = \
+            near_ties(torch, np, gpt, "deploy gpt2 export_decode", got,
+                      want, T)
+        del gen
+        for p in paths:
+            os.remove(p)
+        prefix = os.path.join(root, "gpt2_fwd")
+        S = 64
+        with archive_io_times() as io_s:
+            _, export_s = timed(lambda: inference.export_layer(
+                prefix, gpt, [InputSpec([-1, S], "int32", "ids")]))
+            pred, load_s = timed(lambda: inference.create_predictor(
+                inference.Config(prefix)))
+        x = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                              (2, S)).astype(np.int32)
+        runs = []
+        for _ in range(3):
+            zero_counts()
+            out, run_s = timed(lambda: pred.run([x])[0])
+            runs.append(run_s * 1e3)
+            n = read_counts()
+        with torch.no_grad():
+            eager = gpt(torch.from_numpy(x).cuda()).float().cpu().numpy()
+        err = float(np.abs(out - eager).max())
+        ok = n["k4_fwd"] == cfg.num_layers and \
+            err <= TOL["bfloat16"] * max(1.0, float(np.abs(eager).max()))
+        log(f"deploy gpt2 predictor [{card}]: export {export_s:.2f} s "
+            f"({sum(io_s['save']):.2f} saving), archive "
+            f"{mb(prefix + '.pdmodel'):.1f} MB, load {load_s:.2f} s "
+            f"({sum(io_s['load']):.2f} in torch.export.load), "
+            f"a run of 2 x {S} {runs[0]:.1f} / {runs[1]:.1f} / "
+            f"{runs[2]:.1f} ms; K4a {n['k4_fwd']} a run; logits within "
+            f"{err:.3e} of the eager forward's (bitwise "
+            f"{np.array_equal(out, eager)}): {ok}")
+        checks["gpt2 predictor: K4a 24 a run, logits within TOL"] = ok
+        record["flash_attention_fwd"]["export_launches_gpt2"] = n["k4_fwd"]
+        rows = []
+
+        def runner(stacked):
+            rows.append(stacked[0].shape[0])
+            return pred.run(stacked)
+
+        sched = inference.BatchScheduler(runner, max_batch_size=8,
+                                         max_delay_ms=20)
+        reqs = [np.random.default_rng(10 + i).integers(
+            0, cfg.vocab_size, (1, S)).astype(np.int32) for i in range(16)]
+
+        def client(part):
+            futs = [sched.submit(r) for r in part]
+            return [f.result(timeout=300)[0] for f in futs]
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=4) as ex:
+            res = [o for part in ex.map(client, [reqs[i::4] for i in
+                                                range(4)]) for o in part]
+        sched_s = time.perf_counter() - t0
+        sched.close()
+        order = [r for i in range(4) for r in reqs[i::4]]
+        errs = [float(np.abs(o - pred.run([r])[0]).max())
+                for o, r in zip(res, order)]
+        ok = max(rows) <= 8 and sum(rows) == 16 and max(errs) <= TOL[
+            "bfloat16"] * max(1.0, float(np.abs(eager).max()))
+        log(f"deploy gpt2 scheduler [{card}]: 16 one-row requests from 4 "
+            f"threads in {sched_s * 1e3:.1f} ms, batches of {rows} rows; "
+            f"each within {max(errs):.3e} of its one-row run: {ok}")
+        checks["gpt2 scheduler: batches <= 8 rows, one-row results"] = ok
+        del pred, gpt
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"deploy checks: {checks}")
+    for name, ok in checks.items():
+        if not ok:
+            raise SystemExit(f"deploy: check failed: {name}")
+
+
 def phase_int8_infer(torch, np, card, record, model):
     """Llama-2-7B bf16 (the serve phase's model, or a new one from seed
     0), then converted in place to int8: one forward each of 8 x 512 ids
@@ -6736,13 +7318,20 @@ def fit_breakdown(torch, np, model, data, card):
     profile_once(torch, step(model._gstep_fn), card, "fit")
 
 
+# runs A and C of the fit phase save only at their end (their 12 and 7
+# steps stay under it); B saves at its preemption
+FIT_INTERVAL = 100
+
+
 def phase_fit(torch, np, card, record, train):
     """This slice's path: ``Model.fit`` under ``TrainSupervisor`` on
     llama_350m at full width and depth in bf16, seed 0,
     AdamW(1e-4, weight_decay=0.01), ``nn.CrossEntropyLoss()``, a
     ``TensorDataset`` of 96 seeded rows of 1025 ids (inputs the first
     1024, labels the last 1024), batch 8 (12 batches), 2 fork workers,
-    checkpoints every 6 steps, keeping 1, in a temporary directory.
+    a checkpoint at each run's end (and B's preemption), keeping 1, in a
+    temporary directory (one 4.5 GB save a run: the step interval that
+    saved A and C twice more was cut to make room for later phases).
     A: one uninterrupted epoch; B: the same, preempted after step 5;
     C: a fresh model and supervisor over B's directory, resuming it; D:
     3 batches with a NaN loss at step 2; E: evaluate over 2 batches; F:
@@ -6812,8 +7401,8 @@ def phase_fit(torch, np, card, record, train):
         rec_a = FitRecorder()
         reg = MetricRegistry()
         counts, wall_a = run(model, timed_store(TrainSupervisor(
-            os.path.join(root, "a"), save_interval_steps=6, max_to_keep=1,
-            registry=reg), saves), rec_a,
+            os.path.join(root, "a"), save_interval_steps=FIT_INTERVAL,
+            max_to_keep=1, registry=reg), saves), rec_a,
             extra=[TelemetryCallback(reg, tokens_per_batch=B * S)])
         snap = reg.snapshot()
         tel = {"steps": snap["train_step_seconds"]["samples"][()]["count"],
@@ -6825,7 +7414,8 @@ def phase_fit(torch, np, card, record, train):
                "tokens_s": snap["train_throughput"]["samples"][()]}
         log(f"fit A telemetry [{card}]: {tel}")
         checks["A: the step histogram counts 12 steps, the registry every "
-               "checkpoint save, the last good step 12"] = \
+               "checkpoint save (one), the last good step 12"] = \
+            len(saves) == 1 and \
             tel["steps"] == tel["steps_total"] == steps and \
             tel["tokens_total"] == steps * B * S and \
             tel["saves"] == len(saves) > 0 and tel["last_good"] == steps
@@ -6879,7 +7469,8 @@ def phase_fit(torch, np, card, record, train):
         del model
         model = make()
         rec_c = FitRecorder()
-        sup_c = TrainSupervisor(d, save_interval_steps=6, max_to_keep=1)
+        sup_c = TrainSupervisor(d, save_interval_steps=FIT_INTERVAL,
+                                max_to_keep=1)
         restore = sup_c.store.restore
         restores = []
 
@@ -6895,7 +7486,7 @@ def phase_fit(torch, np, card, record, train):
                                              steps - 5)
         log(f"fit B losses {rec_b.losses} + C losses {rec_c.losses}; A's "
             f"{rec_a.losses}")
-        for tag, (step, dt, nbytes) in zip("AAABCC", saves):
+        for tag, (step, dt, nbytes) in zip("ABC", saves):
             log(f"fit checkpoint [{card}]: run {tag} step {step}, "
                 f"{nbytes / 1e9:.3f} GB in {dt:.2f} s, "
                 f"{nbytes / 1e9 / dt:.2f} GB/s")
@@ -7234,6 +7825,15 @@ def main():
         torch.cuda.empty_cache()
         model_7b = timed("families", phase_families, torch, np, card, peak,
                          record, model_7b, serve_res)
+    if "decode_parity" in phases:
+        timed("decode_parity", phase_decode_parity, torch, np)
+    if "decoding" in phases:
+        torch.cuda.empty_cache()
+        model_7b = timed("decoding", phase_decoding, torch, np, card,
+                         model_7b)
+    if "deploy" in phases:
+        torch.cuda.empty_cache()
+        timed("deploy", phase_deploy, torch, np, card, record)
     if "int8_infer" in phases:
         timed("int8_infer", phase_int8_infer, torch, np, card, record,
               model_7b)

@@ -61,6 +61,8 @@ from .device import resolve_device  # noqa: F401
 from .hapi import Model, flops, summary  # noqa: F401
 from .io import load, save  # noqa: F401
 
+__version__ = "0.1.0"       # the JAX package's, whose API this ports
+
 __all__ = ["resolve_device", "seed", "get_rng_state", "set_rng_state",
            "hapi", "io", "metric", "reliability", "Model", "summary",
            "flops", "save", "load"]

@@ -435,9 +435,10 @@ class ContinuousBatchingServer:
                 raise NotImplementedError(
                     "serving_mode='fused' runs ONE decode row per slot "
                     "per launch; tick_block > 1 needs multi-token rows "
-                    "per slot, the verify shape of speculative decoding "
-                    "(ROADMAP, Queue 1 item 12: remaining inference "
-                    "modules); use tick_block=1 or serving_mode='split'")
+                    "per slot, the verify shape of speculative decoding, "
+                    "which the reference's fused tick refuses too, naming "
+                    "its own ROADMAP item 6 (its continuous_batching.py:"
+                    "644-651); use tick_block=1 or serving_mode='split'")
         if mesh is not None:
             raise _not_ported("mesh=", 9, "the fleet's kv-head-sharded "
                               "pool")

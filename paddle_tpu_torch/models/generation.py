@@ -36,8 +36,8 @@ largest tensor of a serving process, and a copy per layer per step
 would double it. The step functions still return the cache dict so call
 sites read like the JAX ones.
 
-The mesh, beam search and constrained decoding are not ported yet;
-asking for them raises ``NotImplementedError`` naming the ROADMAP item.
+The mesh is not ported yet; asking for it raises
+``NotImplementedError`` naming the ROADMAP item.
 A paged int8 cache, and serving a model converted by
 ``to_int8_inference``, are refused as the reference refuses them.
 """
@@ -866,8 +866,8 @@ def _make_gpt_decode_fns(model, max_cache_len, weight_dtype=None,
 
 
 class GenerationMixin:
-    """``generate()`` (greedy and seeded sampled) and the decode bundles
-    of a causal LM."""
+    """``generate()`` (greedy, seeded sampled, beam search and
+    constrained) and the decode bundles of a causal LM."""
 
     def _decode_bundle(self, max_cache_len, weight_dtype=None, mesh=None,
                        cache_dtype=None, cache_backend="dense",
@@ -996,13 +996,16 @@ class GenerationMixin:
         ``weight_dtype="int8"`` decodes with weight-only int8 matmul
         weights (per-channel scales; embeddings, norms, the router and
         the head in full precision), ``cache_dtype="int8"`` with int8
-        dense caches. Beam search and ``fsm`` (item 12) and ``mesh``
-        (item 9) raise ``NotImplementedError``."""
-        from ..inference.decode_loop import greedy_generate, sample_generate
-        if num_beams > 1 or fsm is not None:
-            raise NotImplementedError(
-                "generate(num_beams > 1) and generate(fsm=) are not ported "
-                "(ROADMAP, Queue 1 item 12: remaining inference modules)")
+        dense caches. ``mesh`` (item 9) raises ``NotImplementedError``.
+
+        ``num_beams > 1``: beam search (``beam_generate``; the best beam).
+        ``fsm=(mask, next[, start_state])``: constrained decoding
+        (``fsm_generate``), greedy or sampled from ``PRNGKey(seed or
+        0)``. Neither composes with beam search, and beam search not
+        with sampling (``ValueError``s, as in the reference)."""
+        from ..inference.decode_loop import (beam_generate, fsm_generate,
+                                             greedy_generate,
+                                             sample_generate)
         if torch.is_tensor(input_ids):
             input_ids = input_ids.detach().cpu().numpy()
         ids_np = np.asarray(input_ids)
@@ -1023,7 +1026,28 @@ class GenerationMixin:
         init_caches, embed_fn, step_fn, head_fn, _ = bundle
         last_logits, caches = self._run_prefill(bundle, ids_np,
                                                 chunk=prefill_chunk)
-        if do_sample:
+        if fsm is not None:
+            if num_beams > 1:
+                raise ValueError("constrained decoding composes with "
+                                 "greedy/sampling, not beam search")
+            mask_tab, next_tab = fsm[0], fsm[1]
+            start = fsm[2] if len(fsm) > 2 else 0
+            if do_sample and seed is None:       # greedy never draws
+                seed = int(np.random.randint(0, 2**31))
+            new_ids, _ = fsm_generate(
+                embed_fn, step_fn, head_fn, caches, last_logits, T,
+                max_new_tokens, mask_tab, next_tab, start_state=start,
+                do_sample=do_sample, key=prng.PRNGKey(seed or 0),
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                eos_token_id=eos_token_id)
+        elif num_beams > 1:
+            if do_sample:
+                raise ValueError("beam search and sampling are mutually "
+                                 "exclusive (reference decode semantics)")
+            new_ids, _ = beam_generate(
+                embed_fn, step_fn, head_fn, caches, last_logits, T,
+                max_new_tokens, num_beams, eos_token_id=eos_token_id)
+        elif do_sample:
             if seed is None:        # fresh entropy per call, as the
                 seed = int(np.random.randint(0, 2**31))   # reference's
             new_ids, _ = sample_generate(

@@ -202,8 +202,13 @@ def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1):
 
 def linear(x, weight, bias=None):
     """``x @ weight (+ bias)``, weight ``[in, out]`` (paddle
-    convention)."""
+    convention). Operands of two floating types meet in the wider, as
+    ``jnp``'s promotion does (an f32 input to a layer cast to bf16
+    computes in f32)."""
     x, weight, bias = _cast("linear", [x, weight, bias])
+    if x.dtype != weight.dtype:
+        dt = torch.promote_types(x.dtype, weight.dtype)
+        x, weight = x.to(dt), weight.to(dt)
     out = torch.matmul(x, weight)
     return out if bias is None else out + bias
 

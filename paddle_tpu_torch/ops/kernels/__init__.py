@@ -11,4 +11,7 @@ the serving tick's seeded draw ``sample_rows.sample_rows`` (R1) and
 ``jax.random``'s keep masks, Gumbel noise and dropout
 ``threefry_fill.fill`` / ``threefry_fill.dropout`` (R2).
 Flash attention, RMSNorm, rope and the GEMM epilogue sit behind autograd
-Functions."""
+Functions. ``custom_ops`` gives the forward kernels that an exported
+program can meet (K4a, K5a, K6, K7, K8) a ``torch.library`` face;
+importing this package registers them."""
+from . import custom_ops  # noqa: F401  (the ops exported programs hold)

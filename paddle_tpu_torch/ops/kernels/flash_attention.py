@@ -19,7 +19,9 @@ plain version both follow the TPU kernel (ROADMAP, Queue 3). With
 the plain versions ``_ref_with_lse``/``_ref_bwd`` for CPU tensors; a
 CUDA tensor the kernels cannot take raises instead of falling back.
 ``flash_fwd.launches`` counts forward launches, ``flash_bwd.dq_launches``
-and ``flash_bwd.dkv_launches`` the two backward kernels'.
+and ``flash_bwd.dkv_launches`` the two backward kernels'. A program being
+exported records the forward as the custom op
+``paddle_tpu_torch::flash_fwd`` (``custom_ops``).
 """
 import ctypes
 import math
@@ -245,9 +247,15 @@ def flash_attention_with_lse(q, k, v, sm_scale, causal):
 
 
 def flash_attention_bhsd(q, k, v, causal=False, sm_scale=None):
-    """The kernels on the ``[batch, heads, seq, head_dim]`` layout."""
+    """The kernels on the ``[batch, heads, seq, head_dim]`` layout. A
+    program being exported records K4a as the custom op
+    ``paddle_tpu_torch::flash_fwd`` (``custom_ops``; no backward)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if torch.compiler.is_exporting():
+        o, _ = torch.ops.paddle_tpu_torch.flash_fwd(
+            _flat(q), _flat(k), _flat(v), float(sm_scale), bool(causal))
+        return o.reshape(q.shape)
     return FlashAttentionFunction.apply(q, k, v, sm_scale, causal)
 
 

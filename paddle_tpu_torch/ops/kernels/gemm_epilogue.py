@@ -179,8 +179,15 @@ class FusedGemmEpilogueFunction(torch.autograd.Function):
 
 def fused_gemm_epilogue(x, w, bias=None, activation="none"):
     """``act(x @ w + bias)``, differentiable; x ``[..., K]`` flattened to
-    2-D internally (``gemm_epilogue.py:124-133``)."""
+    2-D internally (``gemm_epilogue.py:124-133``). A program being
+    exported records K7 as the custom op ``paddle_tpu_torch::
+    gemm_epilogue`` (``custom_ops``)."""
     lead = x.shape[:-1]
+    if torch.compiler.is_exporting():
+        out = torch.ops.paddle_tpu_torch.gemm_epilogue(
+            x.reshape(-1, x.shape[-1]).contiguous(), w.contiguous(),
+            None if bias is None else bias.contiguous(), activation)
+        return out.reshape(*lead, w.shape[1])
     out = FusedGemmEpilogueFunction.apply(x.reshape(-1, x.shape[-1]), w,
                                           bias, activation)
     return out.reshape(*lead, w.shape[1])

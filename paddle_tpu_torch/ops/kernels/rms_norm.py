@@ -273,5 +273,10 @@ class RMSNormFunction(torch.autograd.Function):
 
 def rms_norm(x, w, eps=1e-6):
     """Differentiable RMSNorm over x's last dim with scale w: K5a forward,
-    K5b backward on the card, the plain versions on the CPU."""
+    K5b backward on the card, the plain versions on the CPU. A program
+    being exported records K5a as the custom op
+    ``paddle_tpu_torch::rms_norm_fwd`` (``custom_ops``)."""
+    if torch.compiler.is_exporting():
+        return torch.ops.paddle_tpu_torch.rms_norm_fwd(
+            x.contiguous(), w.contiguous(), float(eps))
     return RMSNormFunction.apply(x, w, eps)

@@ -313,12 +313,20 @@ def apply_rotary_kernel(x, cos, sin):
     """Counterpart of ``apply_rotary_pallas``: differentiable rope of x
     ``[B, S, H, D]`` at rows 0..S-1, K6 forward and backward on the card.
     Any S up to the table (the reference's block-divisibility fallback is
-    TPU tiling and does not carry over); S past the table raises."""
+    TPU tiling and does not carry over); S past the table raises. A
+    program being exported records the custom op
+    ``paddle_tpu_torch::rope_fwd`` (``custom_ops``)."""
+    if torch.compiler.is_exporting():
+        return torch.ops.paddle_tpu_torch.rope_fwd(x.contiguous(), cos, sin)
     return RopeFunction.apply(x, cos, sin)
 
 
 def apply_rotary_qk_kernel(q, k, cos, sin):
     """Differentiable rope of q ``[B, S, Hq, D]`` and k ``[B, S, Hk, D]``
     at rows 0..S-1, one K6 launch forward and one backward on the card;
-    returns (q rotated, k rotated)."""
+    returns (q rotated, k rotated). A program being exported records the
+    custom op ``paddle_tpu_torch::rope_qk_fwd`` (``custom_ops``)."""
+    if torch.compiler.is_exporting():
+        return torch.ops.paddle_tpu_torch.rope_qk_fwd(
+            q.contiguous(), k.contiguous(), cos, sin)
     return RopeQKFunction.apply(q, k, cos, sin)

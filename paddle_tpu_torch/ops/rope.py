@@ -42,9 +42,13 @@ def precompute_freqs(head_dim, max_seq_len, theta=10000.0,
 
 
 def _kernel_route(position_ids, *xs):
-    """K6 takes the call: no ``position_ids``, 4-D tensors on the card."""
-    return (position_ids is None and not _COMPOSITION_ONLY
-            and all(x.dim() == 4 and x.is_cuda for x in xs))
+    """K6 takes the call: no ``position_ids``, 4-D tensors on the card,
+    or on any device in a program being exported (which records K6's
+    custom op, whose CPU body is the composition bit for bit)."""
+    if position_ids is not None or _COMPOSITION_ONLY:
+        return False
+    exporting = torch.compiler.is_exporting()
+    return all(x.dim() == 4 and (x.is_cuda or exporting) for x in xs)
 
 
 def _composition(x, cos, sin, position_ids):

@@ -92,8 +92,12 @@ class Int8InferLinear(nn.Module):
             # K8 writes f32 or bf16; any other type is cast from f32
             kind = x.dtype if x.dtype in (torch.float32, torch.bfloat16) \
                 else torch.float32
-            out = quantized_matmul_kmajor(qx, self.qweight_t, sx,
-                                          self.w_scale, out_dtype=kind)
+            if torch.compiler.is_exporting():    # custom_ops' K8 face
+                out = torch.ops.paddle_tpu_torch.quantized_matmul(
+                    qx, self.qweight_t, sx, self.w_scale, kind)
+            else:
+                out = quantized_matmul_kmajor(qx, self.qweight_t, sx,
+                                              self.w_scale, out_dtype=kind)
             out = out.reshape(*shape[:-1], out.shape[-1]).to(x.dtype)
         if self.bias is not None:
             out = out + self.bias

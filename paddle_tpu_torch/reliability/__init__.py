@@ -11,7 +11,8 @@ from .errors import (CallbackError, CheckpointCorruptError,
                      CircuitOpenError, DeadlineExceeded, FrameError,
                      InjectedFault, MigrationError, PreemptedError,
                      QueueFullError, ReliabilityError, ReplicaLostError,
-                     RequestCancelled, ServerClosed, StepFailedError,
+                     RequestCancelled, SchedulerClosed, ServerClosed,
+                     StepFailedError,
                      TrainAnomalyError, TransportError)
 from .faults import FaultInjector
 from .health import (DEAD, DEGRADED, DRAINING, HEALTH_CODES, HEALTHY,
@@ -22,7 +23,8 @@ from .training import (AnomalyPolicy, ResumableLoader, TrainReport,
                        TrainSupervisor)
 
 __all__ = ["ReliabilityError", "DeadlineExceeded", "QueueFullError",
-           "RequestCancelled", "ServerClosed", "CallbackError",
+           "RequestCancelled", "ServerClosed", "SchedulerClosed",
+           "CallbackError",
            "CircuitOpenError", "ReplicaLostError", "PreemptedError",
            "MigrationError", "InjectedFault", "TransportError",
            "FrameError", "CheckpointCorruptError",

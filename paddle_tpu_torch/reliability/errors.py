@@ -4,7 +4,7 @@ Copied from ``paddle_tpu/reliability/errors.py``, cut to the failures
 the port raises: the server's (its preemption signal included), the
 fleet's (the router's lost replica, a migration attempt, and the wire's
 ``TransportError`` and ``FrameError`` between a router and its process
-replicas), the fault injector's, the durable checkpoints' and the
+replicas), the batch scheduler's, the fault injector's, the durable checkpoints' and the
 training supervisor's.
 
 Every failure the reliability layer can hand a waiter is a
@@ -16,7 +16,8 @@ these DIRECTLY (no RuntimeError wrapping) — a client distinguishing
 """
 
 __all__ = ["ReliabilityError", "DeadlineExceeded", "QueueFullError",
-           "RequestCancelled", "ServerClosed", "CallbackError",
+           "RequestCancelled", "ServerClosed", "SchedulerClosed",
+           "CallbackError",
            "CircuitOpenError", "ReplicaLostError", "PreemptedError",
            "MigrationError", "InjectedFault", "TransportError",
            "FrameError", "CheckpointCorruptError", "TrainAnomalyError",
@@ -50,6 +51,12 @@ class RequestCancelled(ReliabilityError):
 class ServerClosed(ReliabilityError):
     """The server is draining or stopped: submits are refused, and a
     hard ``stop()`` fails still-queued requests with this."""
+
+
+class SchedulerClosed(ReliabilityError):
+    """``BatchScheduler.close()`` gave up on a wedged runner, or a submit
+    reached a closed scheduler; pending futures are failed with this
+    instead of hanging forever."""
 
 
 class CircuitOpenError(ReliabilityError):

@@ -21,7 +21,8 @@ both packages.
   ``jax.random.categorical``, and not R1's per-row chain at B = 3 (what
   an R1 port of ``generate(do_sample=True)`` would give);
 - the same ``ValueError``s as the reference, and ``NotImplementedError``
-  naming the ROADMAP for the options not ported;
+  naming the ROADMAP for the options not ported (``mesh``; beam search
+  and ``fsm`` run since item 12 closed);
 - the bundle cache: keyed by its arguments, least recently used first
   out past 4, cleared by ``reset_generate_cache``.
 """
@@ -260,12 +261,24 @@ def test_generate_value_errors_match_jax(kw, match):
         tm.generate(ids, **kw)
 
 
+_ONLY_5 = (np.eye(V, dtype=bool)[5:6], np.zeros((1, V), np.int32))
+
+
 @pytest.mark.parametrize("kw,item", [
-    ({"num_beams": 2}, 12), ({"fsm": (None, None)}, 12),
+    ({"num_beams": 2}, 12), ({"fsm": _ONLY_5}, 12),
     ({"mesh": object()}, 9),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else str(v))
 def test_generate_refuses_unported_options_naming_the_roadmap(kw, item):
+    """``mesh`` (item 9) raises naming its ROADMAP item; beam search and
+    ``fsm`` (item 12, closed) run: the prompt and two new tokens (the
+    automaton allows token 5 only)."""
     _, tm = _models()
+    if item == 12:
+        out = tm.generate(_ids(1), max_new_tokens=2, max_cache_len=16, **kw)
+        assert out.shape == (1, _ids(1).shape[1] + 2)
+        if "fsm" in kw:
+            assert (out[0, -2:] == 5).all()
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP, Queue 1 item {item}"):
         tm.generate(_ids(1), max_new_tokens=2, **kw)
