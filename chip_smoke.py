@@ -20,6 +20,7 @@
     python3 chip_smoke.py --only build,serve,wire_parity,wire
     python3 chip_smoke.py --only build,serve,family_parity,families
     python3 chip_smoke.py --only build,serve,decode_parity,decoding,deploy
+    python3 chip_smoke.py --only build,tensor_api
 
 Phases, in order; any failure exits non-zero:
 
@@ -266,7 +267,8 @@ Phases, in order; any failure exits non-zero:
 20. preempt: optimistic admission on the serve phase's Llama-2-7B in
    bf16 (full width and depth): 8 slots x 2048 tokens, 16-token pages,
    512 prompt tokens a tick, ``headroom_pages=1``; 12 requests (seeded
-   prompts of 128-512 tokens, 128 new tokens each, each streaming
+   prompts of 128-512 tokens, 96 new tokens each (cut from 128 to keep
+   the whole script within its time), each streaming
    through ``on_token``) over a pool sized so that reserve admission
    holds at most 4 requests at once (the 5 smallest full extents do not
    fit together; the size is printed). Four waves, each through the
@@ -276,7 +278,7 @@ Phases, in order; any failure exits non-zero:
    name and power limit for each: wall, tokens/s, the median
    decode-only tick, TTFT median and max, mean decoding slots a tick,
    preemptions, resumes, pages grown and the launches of K1, K2, K3 and
-   R1. Gates: 128 in-vocabulary tokens each; no non-finite live logits;
+   R1. Gates: 96 in-vocabulary tokens each; no non-finite live logits;
    no tick failed; every optimistic wave preempts at least once; the pool
    ends ``live == 0``, ``preempted == 0`` and ``free + pinned + cached ==
    num_pages - 1``; K1 == decode ticks x layers and K2 == prefill
@@ -457,7 +459,29 @@ Phases, in order; any failure exits non-zero:
    one-row requests from 4 threads, batches of at most 8 rows, each
    result within TOL of a one-row run); export s, archive MB, load s
    and ms a run printed;
-31. int8_infer: the serve phase's Llama-2-7B (full width and depth):
+31. tensor_api: the paddle API (``Tensor``, the flat op namespace,
+   ``nn.functional``) on the card. (a) every row of ``ops.optable`` with
+   ``set_device("gpu")``: each output against the row's numpy ``ref``
+   within the row's atol / rtol and against the same row run on the CPU
+   (``set_device("cpu")``) within them, dtypes equal, bool and integer
+   outputs exact; every row with a real floating input and output also
+   runs ``backward`` of ``sum(out * w)`` (w from seed 0) on both, the
+   card's gradients within max(atol, 1e-5) / rtol of the CPU's (no row
+   needs a wider bound on the card, cuSOLVER's decompositions included).
+   (b) a llama_350m-width block
+   (hidden 1024, 16 heads of 64, intermediate 2816, bf16, 8 x 1024
+   tokens, weights from seed 0 held as ``Tensor``s that need gradients):
+   ``rms_norm``, q / k / v ``pt.matmul``, ``reshape``, causal
+   ``flash_attention``, the output projection and residual,
+   ``rms_norm``, SwiGLU, the residual, the mean loss and
+   ``loss.backward()`` (``api_block``), against the same block written
+   in torch over the kernel wrappers (``direct_block``): loss and every
+   gradient bitwise equal; the API block's launches, counters zeroed
+   just before and read just after, K5a 2, K4a 1, K4b 1 (dq and dk + dv)
+   and K5b 2 and no other kernel; both blocks' ms a step, and the API's
+   cost a dispatched op (10,000 ``pt.add`` on a one-element tensor
+   against ``torch.add``);
+32. int8_infer: the serve phase's Llama-2-7B (full width and depth):
    one bf16 forward of 8 x 512 ids from seed 0, then
    ``to_int8_inference(model, inplace=True)`` and the same forward with
    the counters zeroed just before and read just after: 7 x layers + 1
@@ -466,7 +490,7 @@ Phases, in order; any failure exits non-zero:
    and the largest relative logit
    error against bf16, ms per forward and tokens/s for both, peak memory,
    a profile of one forward of each;
-32. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
+33. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
    f32 moments, one fixed 8 x 1024 batch from seed 0: 2 warm-up steps,
    then 10 timed with the counters zeroed just before and read just
    after (K4: 10 x layers each, K5: 10 x (2 x layers + 1) each, K6's q +
@@ -475,14 +499,14 @@ Phases, in order; any failure exits non-zero:
    fall and stay finite, gradients finite; step time, tokens/s, peak
    memory and a profile of one step (its launches, the optimizer's
    device time);
-33. train_compose: the same model, weights, batch and optimizer with rope
+34. train_compose: the same model, weights, batch and optimizer with rope
    on the composition (``ops.rope._COMPOSITION_ONLY``, set for the phase
    and restored after it): 2 warm-up steps and 5 timed, the counters
    zeroed before the first and read after the last (no K6); the 7 losses
    equal to the train phase's first 7 bit for bit (K6 is the composition
    bit for bit, forward and backward); ms per step of both phases from
    this call, and a profile of one step;
-34. train_amp: the slice's path. llama_350m at full width and depth
+35. train_amp: the slice's path. llama_350m at full width and depth
    from seed 0, ``amp.decorate(level="O2", dtype="bfloat16")`` (the rope
    tables stay f32), ``AdamW(multi_precision=True, weight_decay=0.01``
    off the norms, ``grad_clip=ClipGradByGlobalNorm(1.0))`` on the fused
@@ -499,7 +523,7 @@ Phases, in order; any failure exits non-zero:
    written into one gradient of the second: that step is skipped
    (parameters unchanged bit for bit, the optimizer not stepped) and the
    scale halves;
-35. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
+36. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
    llama_350m in bf16 at full width and depth from seed 0,
    ``AdamW(1e-4, weight_decay=0.01)``, ``nn.CrossEntropyLoss()``, a
    ``TensorDataset`` of 96 rows of 1025 seeded ids (inputs the first
@@ -545,7 +569,8 @@ PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "opt",
           "rng", "parity", "dense_parity", "preempt_parity", "train_parity",
           "int8_parity", "serve", "dense", "preempt", "telemetry",
           "fleet_parity", "fleet", "wire_parity", "wire", "family_parity",
-          "families", "decode_parity", "decoding", "deploy", "int8_infer",
+          "families", "decode_parity", "decoding", "deploy", "tensor_api",
+          "int8_infer",
           "train", "train_compose", "train_amp", "fit")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
@@ -3934,7 +3959,7 @@ def phase_preempt(torch, np, card, record, model):
     lens = rng.integers(128, 513, size=12)
     prompts = [rng.integers(0, V, (int(n),)).astype(np.int32) for n in lens]
     warm = rng.integers(0, V, (40,)).astype(np.int32)
-    n_new, pg = 128, 16
+    n_new, pg = 96, 16
     extents = sorted(-(-(int(n) + n_new) // pg) for n in lens)
     # reserve admission holds at most 4 at once: no 5 full extents fit
     num_pages = sum(extents[:5])          # usable = that sum - 1
@@ -6824,6 +6849,294 @@ def phase_deploy(torch, np, card, record):
             raise SystemExit(f"deploy: check failed: {name}")
 
 
+# ------------------------------------------------------------ tensor_api
+
+# the block's widths: llama_350m's (models.llama.llama_350m)
+BLOCK_WIDTHS = {"hidden": 1024, "heads": 16, "inter": 2816, "B": 8,
+                "S": 1024}
+
+
+def block_weights(np, hidden, inter, seed=0):
+    """The block's weights in f32 from ``seed``: the projections
+    N(0, 0.02^2), the two norm scales ones."""
+    rng = np.random.default_rng(seed)
+
+    def proj(a, b):
+        return (rng.standard_normal((a, b)) * 0.02).astype(np.float32)
+
+    return {"ln1": np.ones(hidden, np.float32),
+            "wq": proj(hidden, hidden), "wk": proj(hidden, hidden),
+            "wv": proj(hidden, hidden), "wo": proj(hidden, hidden),
+            "ln2": np.ones(hidden, np.float32),
+            "wg": proj(hidden, inter), "wu": proj(hidden, inter),
+            "wd": proj(inter, hidden)}
+
+
+def api_block(m, w, x, heads):
+    """One Llama block through the paddle API of ``m`` (the port, or the
+    JAX package in the CPU test): ``w`` its weights as Tensors, ``x``
+    ``[B, S, hidden]``. Returns the mean of the block's output."""
+    F = m.nn.functional
+    B, S, H = x.shape
+    d = H // heads
+    h = F.rms_norm(x, w["ln1"])
+    q = m.matmul(h, w["wq"]).reshape([B, S, heads, d])
+    k = m.matmul(h, w["wk"]).reshape([B, S, heads, d])
+    v = m.matmul(h, w["wv"]).reshape([B, S, heads, d])
+    a = F.flash_attention(q, k, v, causal=True)
+    if isinstance(a, tuple):            # the JAX package's (out, None)
+        a = a[0]
+    x = x + m.matmul(a.reshape([B, S, H]), w["wo"])
+    h = F.rms_norm(x, w["ln2"])
+    g = m.matmul(h, w["wg"])
+    u = m.matmul(h, w["wu"])
+    x = x + m.matmul(F.silu(g) * u, w["wd"])
+    return m.mean(x)
+
+
+def direct_block(torch, w, x, heads):
+    """The same block written in torch over the kernel wrappers."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from paddle_tpu_torch.ops.kernels.rms_norm import rms_norm
+    B, S, H = x.shape
+    d = H // heads
+    h = rms_norm(x, w["ln1"], 1e-6)
+    q = torch.matmul(h, w["wq"]).reshape(B, S, heads, d)
+    k = torch.matmul(h, w["wk"]).reshape(B, S, heads, d)
+    v = torch.matmul(h, w["wv"]).reshape(B, S, heads, d)
+    a = flash_attention(q, k, v, causal=True)
+    x = x + torch.matmul(a.reshape(B, S, H), w["wo"])
+    h = rms_norm(x, w["ln2"], 1e-6)
+    g = torch.matmul(h, w["wg"])
+    u = torch.matmul(h, w["wu"])
+    x = x + torch.matmul(torch.nn.functional.silu(g) * u, w["wd"])
+    return torch.mean(x)
+
+
+def optable_leaves(x):
+    if isinstance(x, (tuple, list)):
+        return [leaf for e in x for leaf in optable_leaves(e)]
+    return [x]
+
+
+def optable_row(pt, np, case, np_inputs, weights):
+    """One row on the default place: (outputs as numpy, their dtype
+    names, each input's gradient as numpy or None) — gradients of
+    ``sum(out * w)`` when ``weights`` is given."""
+    from paddle_tpu_torch.core.dtype import dtype_name
+    tensors = [pt.to_tensor(v, stop_gradient=not (
+        weights is not None and np.issubdtype(np.asarray(v).dtype,
+                                              np.floating)))
+               for v in np_inputs]
+    op = getattr(pt, case.name)
+    out = case.call(op, tensors, case.attrs) if case.call is not None \
+        else op(*tensors, **case.attrs)
+    outs = optable_leaves(out)
+    vals = [o.numpy() if isinstance(o, pt.Tensor) else np.asarray(o)
+            for o in outs]
+    names = [dtype_name(o.dtype) if isinstance(o, pt.Tensor)
+             else type(o).__name__ for o in outs]
+    grads = None
+    if weights is not None:
+        loss = None
+        for o, w in zip(outs, weights):
+            if w is not None and isinstance(o, pt.Tensor):
+                part = (o * pt.to_tensor(w, place=o.value.device)).sum()
+                loss = part if loss is None else loss + part
+        if loss is not None:
+            loss.backward()
+        grads = [None if t.grad is None else t.grad.numpy()
+                 for t in tensors]
+    return vals, names, grads
+
+
+def optable_close(np, got, want, atol, rtol):
+    """(within atol / rtol — exact for bool and integers —, max |error|)."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        return False, float("inf")
+    if want.dtype == bool or np.issubdtype(want.dtype, np.integer):
+        same = bool(np.array_equal(got.astype(want.dtype), want))
+        return same, 0.0 if same else float("inf")
+    kind = np.complex128 if np.iscomplexobj(got) or np.iscomplexobj(want) \
+        else np.float64
+    g, w = got.astype(kind), want.astype(kind)
+    err = float(np.nanmax(np.abs(g - w))) if g.size else 0.0
+    return bool(np.allclose(g, w, atol=atol, rtol=rtol, equal_nan=True)), err
+
+
+def tensor_api_table(torch, np, pt):
+    """Part (a): every optable row on the card, against numpy and the
+    CPU, values, dtypes and gradients. Returns (rows, grad rows, the
+    largest card-CPU error, failures)."""
+    from paddle_tpu_torch.ops.optable import TABLE
+    fails, n_grad, worst = [], 0, 0.0
+    for case in TABLE:
+        np_inputs = [gen() for gen in case.inputs.values()]
+        ref = optable_leaves(case.ref(*np_inputs) if case.inputs
+                             else case.ref())
+        floats_in = any(np.issubdtype(np.asarray(v).dtype, np.floating)
+                        for v in np_inputs)
+        weights = None
+        if floats_in and any(np.issubdtype(np.asarray(r).dtype,
+                                           np.floating) for r in ref):
+            rng = np.random.RandomState(0)
+            weights = [rng.uniform(0.5, 1.5, np.shape(r)).astype(np.float32)
+                       if np.issubdtype(np.asarray(r).dtype, np.floating)
+                       else None for r in ref]
+            n_grad += 1
+        atol, rtol = case.atol, case.rtol
+        try:
+            pt.set_device("gpu")
+            card = optable_row(pt, np, case, np_inputs, weights)
+            pt.set_device("cpu")
+            cpu = optable_row(pt, np, case, np_inputs, weights)
+        except Exception as e:           # noqa: BLE001 — reported below
+            fails.append(f"{case.case_id}: {type(e).__name__}: {e}")
+            continue
+        if card[1] != cpu[1]:
+            fails.append(f"{case.case_id}: dtypes {card[1]} vs {cpu[1]}")
+        if len(card[0]) != len(ref):
+            fails.append(f"{case.case_id}: {len(card[0])} outputs, "
+                         f"numpy {len(ref)}")
+            continue
+        for i, (c, h, r) in enumerate(zip(card[0], cpu[0], ref)):
+            ok_r, _ = optable_close(np, c, r, atol, rtol)
+            ok_c, err = optable_close(np, c, h, atol, rtol)
+            worst = max(worst, err)
+            if not (ok_r and ok_c):
+                fails.append(f"{case.case_id} output {i}: numpy {ok_r}, "
+                             f"cpu {ok_c} (max |card - cpu| {err:.3g})")
+        if weights is not None:
+            gatol = max(atol, 1e-5)
+            for i, (c, h) in enumerate(zip(card[2], cpu[2])):
+                if (c is None) != (h is None):
+                    fails.append(f"{case.case_id} grad {i}: card "
+                                 f"{c is None}, cpu {h is None}")
+                elif c is not None:
+                    ok, err = optable_close(np, c, h, gatol, rtol)
+                    worst = max(worst, err)
+                    if not ok:
+                        fails.append(f"{case.case_id} grad {i}: max "
+                                     f"|card - cpu| {err:.3g}")
+    return len(TABLE), n_grad, worst, fails
+
+
+def phase_tensor_api(torch, np, card, record):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import device as tdevice
+    t0 = time.perf_counter()
+    try:
+        rows, n_grad, worst, fails = tensor_api_table(torch, np, pt)
+    finally:
+        tdevice._default[0] = None
+    log(f"tensor_api table: {rows} rows on the card against numpy and the "
+        f"CPU, {n_grad} with gradients; largest |card - CPU| {worst:.3g}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    for f in fails:
+        log(f"  tensor_api table FAIL {f}")
+    # (b) the block at llama_350m's widths
+    bw = BLOCK_WIDTHS
+    H, heads, B, S = bw["hidden"], bw["heads"], bw["B"], bw["S"]
+    wn = block_weights(np, H, bw["inter"], seed=0)
+    xn = np.random.default_rng(1).standard_normal((B, S, H)).astype(
+        np.float32)
+    pw = {k: pt.to_tensor(v, dtype="bfloat16", place="gpu",
+                          stop_gradient=False) for k, v in wn.items()}
+    px = pt.to_tensor(xn, dtype="bfloat16", place="gpu")
+    tw = {k: torch.tensor(v).to("cuda", torch.bfloat16).requires_grad_()
+          for k, v in wn.items()}
+    tx = torch.tensor(xn).to("cuda", torch.bfloat16)
+
+    def api_step():
+        loss = api_block(pt, pw, px, heads)
+        loss.backward()
+        return loss
+
+    def direct_step():
+        loss = direct_block(torch, tw, tx, heads)
+        loss.backward()
+        return loss
+
+    for _ in range(2):                   # warm-up (cuBLAS, the kernels)
+        api_step()
+        direct_step()
+    for w in pw.values():
+        w.clear_grad()
+    for w in tw.values():
+        w.grad = None
+    torch.cuda.synchronize()
+    zero_counts()
+    la = api_step()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    ld = direct_step()
+    torch.cuda.synchronize()
+    same = {"loss": torch.equal(la.value, ld.detach())}
+    for k in wn:
+        same[k] = torch.equal(pw[k].grad.value, tw[k].grad)
+    finite = bool(torch.isfinite(la.value)) and all(
+        bool(torch.isfinite(w.grad.value).all()) for w in pw.values())
+
+    def step_ms(fn, clear, n=10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+            clear()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / n * 1e3
+
+    api_ms = step_ms(api_step, lambda: [w.clear_grad()
+                                        for w in pw.values()])
+    direct_ms = step_ms(direct_step, lambda: [setattr(w, "grad", None)
+                                              for w in tw.values()])
+    api_ms2 = step_ms(api_step, lambda: [w.clear_grad()
+                                         for w in pw.values()])
+    a1 = pt.to_tensor([1.0], place="gpu")
+    b1 = pt.to_tensor([2.0], place="gpu")
+    ta1, tb1 = a1.value, b1.value
+    n_ops = 10000
+
+    def per_op(fn, a, b):
+        for _ in range(100):
+            fn(a, b)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n_ops):
+            fn(a, b)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / n_ops * 1e6
+
+    us_api = per_op(pt.add, a1, b1)
+    us_torch = per_op(torch.add, ta1, tb1)
+    log(f"tensor_api block [{card}]: llama_350m widths ({H} hidden, {heads} "
+        f"heads of {H // heads}, {bw['inter']} intermediate), bf16, "
+        f"{B} x {S} tokens, loss {la.item():.6f}; bitwise API = direct: "
+        f"{same}; launches {counts}")
+    log(f"tensor_api metrics [{card}]: API block {api_ms:.3f} / "
+        f"{api_ms2:.3f} ms a step (forward + backward), direct block "
+        f"{direct_ms:.3f} ms; pt.add {us_api:.2f} us a call, torch.add "
+        f"{us_torch:.2f} us, the API's cost {us_api - us_torch:.2f} us a "
+        f"dispatched op")
+    want = {"k5_fwd": 2, "k4_fwd": 1, "k4_dq": 1, "k4_dkv": 1, "k5_bwd": 2}
+    checks = {"every optable row on the card = numpy = CPU": not fails,
+              "loss and every gradient bitwise the direct block's":
+                  all(same.values()),
+              "finite loss and gradients": finite,
+              "launches K5a 2, K4a 1, K4b 1 (dq, dk + dv), K5b 2":
+                  {k: counts[k] for k in want} == want,
+              "no other kernel": not any(
+                  v for k, v in counts.items() if k not in want)}
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"tensor_api: check failed: {name}")
+    record["flash_attention_fwd"]["tensor_api_launches"] = counts["k4_fwd"]
+    record["flash_attention_bwd"]["tensor_api_launches"] = counts["k4_dq"]
+    record["rms_norm_fwd"]["tensor_api_launches"] = counts["k5_fwd"]
+    record["rms_norm_bwd"]["tensor_api_launches"] = counts["k5_bwd"]
+
+
 def phase_int8_infer(torch, np, card, record, model):
     """Llama-2-7B bf16 (the serve phase's model, or a new one from seed
     0), then converted in place to int8: one forward each of 8 x 512 ids
@@ -7834,6 +8147,9 @@ def main():
     if "deploy" in phases:
         torch.cuda.empty_cache()
         timed("deploy", phase_deploy, torch, np, card, record)
+    if "tensor_api" in phases:
+        torch.cuda.empty_cache()
+        timed("tensor_api", phase_tensor_api, torch, np, card, record)
     if "int8_infer" in phases:
         timed("int8_infer", phase_int8_infer, torch, np, card, record,
               model_7b)

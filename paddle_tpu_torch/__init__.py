@@ -1,52 +1,61 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of ``paddle_tpu``.
 
 ``paddle_tpu`` (JAX/XLA/Pallas) stays the reference; this package does
-the same work in PyTorch on an NVIDIA Hopper card, slice by slice. The
-slices so far serve the Llama family with paged continuous batching,
-train it, and run it in int8:
+the same work in PyTorch on an NVIDIA Hopper card, slice by slice.
 
-- ``models.llama.LlamaForCausalLM``: the full-sequence forward and loss
-  for training, and its paged decode bundle (``models.generation``);
-- ``inference.ContinuousBatchingServer`` in paged mode with ragged
-  prefill and split or fused ticks, over the host-side page allocator
-  and radix prefix cache;
-- ``nn.functional`` (the train step's operators, ``cross_entropy``'s
-  options, masked attention), ``nn.Linear``, the gradient clips
-  (``nn.clip``), the optimizer zoo with the JAX update rules and the
-  learning-rate schedulers (``optimizer``, ``optimizer.lr``),
-  mixed precision (``amp``: ``auto_cast``, ``decorate``,
-  ``GradScaler``), activation recompute (``parallel.recompute_util``)
-  and ``jit.train_step_fn``;
-- ``quantization.to_int8_inference`` (every ``nn.Linear`` becomes an
-  ``Int8InferLinear``) and ``incubate.nn.functional``'s fused linear and
-  rope entry points;
-- hand-written CUDA kernels for ``sm_90a`` under ``csrc/``, one for each
-  TPU kernel: paged
-  decode attention, ragged prefill attention and fused-tick attention
-  for serving (``ops.kernels.paged_attention`` /
-  ``ops.kernels.ragged_prefill`` / ``ops.kernels.fused_tick``), flash
-  attention and RMSNorm, forward and backward, for training
-  (``ops.kernels.flash_attention`` / ``ops.kernels.rms_norm``), rope
-  (``ops.kernels.rope``, q and k in one launch, training's rope on the
-  card), the fused GEMM + bias + activation
-  (``ops.kernels.gemm_epilogue``) and the int8 matmul with its
-  dequantize (``ops.kernels.quant_matmul``), each with a plain PyTorch
-  version beside it; and a ninth, the optimizer's fused Adam / AdamW
-  step over every live parameter (``ops.kernels.multi_tensor_adam``),
-  the counterpart of the reference's jitted multi-tensor update.
+The paddle API (``import paddle_tpu_torch as pt``): ``pt.Tensor``,
+``pt.Parameter`` and ``pt.to_tensor`` over torch tensors with torch's
+autograd (``core.tensor``), the dtypes (``pt.float32`` ... as
+``torch.dtype``s, narrowed as the reference's 64-bit-off JAX narrows
+them: ``to_tensor(np.arange(3))`` is int32), ``no_grad`` /
+``enable_grad`` / ``set_grad_enabled``, ``pt.grad`` and
+``pt.autograd`` (``backward``, ``PyLayer``, ``vjp``, ``jvp``,
+``jacobian``, ``hessian``), and the flat op namespace: every op of
+``ops.registry.OPS`` (creation, math, manipulation, linalg and the
+``nn.functional`` ops the reference registers) as ``pt.<name>`` and,
+where the reference has one, as a ``Tensor`` method, in-place variants
+included. Tensors are made on the default place: the card, unless
+``pt.set_device("cpu")`` (or ``place="cpu"``) says otherwise; without a
+card the default raises. The random ops raise ``NotImplementedError``
+until ROADMAP item 15.2. The serving tick and the train step take plain
+torch tensors and never go through this layer.
 
-The high-level training loop is ``Model`` (``hapi``): ``prepare``,
-``fit`` with or without the fault-tolerant ``reliability.
-TrainSupervisor`` (durable checkpoints in the reference's format, exact
-resume, NaN-step skip and rollback, preemption), ``evaluate``,
-``predict``, ``save`` and ``load``, over ``io.DataLoader`` (samplers on
-numpy's RNG, fork workers over shared memory) and ``metric``.
+What runs on the card:
+- Llama serving: ``models.llama.LlamaForCausalLM``, its paged and dense
+  decode bundles (``models.generation``), ``generate()`` (greedy,
+  seeded sampling, beam search, FSM-constrained), speculative decoding
+  (``inference.speculative_generate``), and
+  ``inference.ContinuousBatchingServer`` (paged with ragged prefill and
+  split or fused ticks, or dense; the radix prefix cache, optimistic
+  admission with exact preemption, the supervised serve loop, the host
+  KV tier);
+- GPT-2 and Mixtral on both servers, weight-only int8 and the dense int8
+  KV cache; ``quantization.to_int8_inference``;
+- the fleet: ``inference.ReplicaRouter`` over in-process replicas or
+  process-isolated ones on the wire (``inference.transport`` /
+  ``inference.remote``), live page migration and disaggregated
+  prefill/decode; telemetry (``telemetry``: metrics, traces, the flight
+  recorder, goodput, costs, journeys, SLOs);
+- deployment: ``inference.export_layer`` / ``Predictor`` /
+  ``export_decode`` over ``torch.export``, and the ``BatchScheduler``;
+- training: ``nn`` (``functional``, ``Linear``, ``Embedding``,
+  ``LayerNorm``, the losses, the gradient clips), the optimizer zoo and
+  its schedulers, ``amp`` (``auto_cast``, ``decorate``, ``GradScaler``),
+  recompute, ``jit.train_step_fn``, and the high-level loop ``Model``
+  (``hapi``) with ``io.DataLoader``, checkpoints, ``metric`` and the
+  fault-tolerant ``reliability.TrainSupervisor``;
+- randomness: ``jax.random``'s threefry stream bit for bit
+  (``core.prng``, ``seed`` / ``get_rng_state`` / ``set_rng_state``).
 
-Randomness is ``jax.random``'s threefry stream bit for bit
-(``core.prng``): ``seed``, ``get_rng_state`` and ``set_rng_state`` hold
-the global key (``core.random``), the server samples seeded tokens with
-R1 (``ops.kernels.sample_rows``) and dropout and the other draws run on
-R2 (``ops.kernels.threefry_fill``).
+Every TPU kernel has a hand-written CUDA counterpart for ``sm_90a``
+under ``csrc/``, each with its plain PyTorch version beside it
+(``ops.kernels``): paged decode (K1), ragged prefill (K2) and the fused
+tick (K3) for serving; flash attention (K4) and RMSNorm (K5), forward
+and backward, for training (``nn.functional.flash_attention`` and
+``rms_norm``, which take the paddle ``Tensor`` too); rope (K6), the
+GEMM epilogue (K7) and the int8 matmul (K8); the optimizer's fused
+Adam step; and the random kernels R1 (the serving tick's seeded draw)
+and R2 (dropout and the draws).
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``device.resolve_device``). On the CPU every kernel wrapper takes its
@@ -55,14 +64,271 @@ plain version; a CUDA tensor takes the kernel or raises.
 This package imports torch, numpy and the standard library only — never
 jax or ``paddle_tpu`` (tests/test_torch_import_hygiene.py).
 """
+import importlib as _importlib
+
+import numpy as _np
+import torch as _torch
+
+from . import amp, autograd, core, jit, nn, ops, optimizer  # noqa: F401
 from . import hapi, io, metric, reliability  # noqa: F401
+from .core import dtype as _dtype_mod
+from .core.dtype import (  # noqa: F401
+    bfloat16, bool_, complex64, complex128, float16, float32, float64, int8,
+    int16, int32, int64, uint8,
+)
 from .core.random import get_rng_state, seed, set_rng_state  # noqa: F401
-from .device import resolve_device  # noqa: F401
+from .core.tape import enable_grad, no_grad, set_grad_enabled  # noqa: F401
+from .core.tensor import (  # noqa: F401
+    Parameter, Tensor, set_nan_inf_check, to_tensor,
+)
+from .device import (  # noqa: F401
+    CPUPlace, CUDAPinnedPlace, CUDAPlace, get_device, resolve_device,
+    set_device,
+)
 from .hapi import Model, flops, summary  # noqa: F401
 from .io import load, save  # noqa: F401
+from .ops import random_ops as _random_ops  # noqa: F401
+from .ops.registry import OPS as _OPS
+from .ops.registry import install_method_tail as _install_mt
+from .ops.registry import install_tensor_methods as _install_tm
 
 __version__ = "0.1.0"       # the JAX package's, whose API this ports
 
-__all__ = ["resolve_device", "seed", "get_rng_state", "set_rng_state",
-           "hapi", "io", "metric", "reliability", "Model", "summary",
-           "flops", "save", "load"]
+# second pass: nn.functional registered more ops (relu, softmax, ...)
+# after ops installed its methods; pick up their in-place variants
+_install_tm()
+_install_mt()
+
+# every registered op at the top level (paddle.* flat namespace)
+_g = globals()
+for _name, _op in _OPS.items():
+    _g.setdefault(_name, _op)
+del _g
+
+# subpackages loaded on first use (the reference's lazy list, where the
+# port has the package)
+_LAZY = ("parallel", "models", "incubate", "static", "inference",
+         "quantization", "telemetry")
+
+
+def __getattr__(name):
+    if name in _OPS:
+        return _OPS[name]
+    if name in _LAZY:
+        mod = _importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(
+        f"module 'paddle_tpu_torch' has no attribute {name!r}")
+
+
+def is_compiled_with_cuda():
+    """True when a CUDA card is there to run on."""
+    return _torch.cuda.is_available()
+
+
+def is_compiled_with_xpu():
+    return False
+
+
+def is_compiled_with_tpu():
+    return False
+
+
+_default_dtype = [_dtype_mod.float32]
+
+
+def get_default_dtype():
+    return _default_dtype[0]
+
+
+def set_default_dtype(d):
+    _default_dtype[0] = _dtype_mod.convert_dtype(d)
+
+
+def in_dynamic_mode():
+    """Always True: the port has no static-graph mode (item 15.5)."""
+    return True
+
+
+def grad(*args, **kwargs):
+    return autograd.grad(*args, **kwargs)
+
+
+def device_count():
+    return _torch.cuda.device_count()
+
+
+def synchronize():
+    if _torch.cuda.is_available():
+        _torch.cuda.synchronize()
+
+
+# ------------------------------------------------ top-level parity tail
+
+dtype = _torch.dtype
+bool = _dtype_mod.bool_          # noqa: A001 — paddle.bool dtype alias
+
+
+def iinfo(dt):
+    return _torch.iinfo(_dtype_mod.convert_dtype(dt))
+
+
+def finfo(dt):
+    return _torch.finfo(_dtype_mod.convert_dtype(dt))
+
+
+def is_tensor(x):
+    return isinstance(x, Tensor)
+
+
+def _dt_of(x):
+    return _dtype_mod.convert_dtype(x.dtype if hasattr(x, "dtype") else x)
+
+
+def is_complex(x):
+    return _dt_of(x).is_complex
+
+
+def is_integer(x):
+    d = _dt_of(x)
+    return not (d.is_floating_point or d.is_complex or d == _torch.bool)
+
+
+def is_floating_point(x):
+    return _dt_of(x).is_floating_point
+
+
+def rank(x):
+    """paddle.rank: a 0-d int32 tensor holding ndim."""
+    v = x._value if isinstance(x, Tensor) else x
+    return to_tensor(v.dim(), dtype="int32", place=v.device)
+
+
+def is_grad_enabled():
+    return _torch.is_grad_enabled()
+
+
+def tolist(x):
+    return (x.numpy() if isinstance(x, Tensor) else x).tolist()
+
+
+def floor_mod(x, y):
+    return _OPS["mod"](x, y)
+
+
+def broadcast_shape(x_shape, y_shape):
+    return list(_np.broadcast_shapes(tuple(x_shape), tuple(y_shape)))
+
+
+def get_cuda_rng_state():
+    """The global RNG state (one threefry key, as the reference's)."""
+    return [get_rng_state()]
+
+
+def set_cuda_rng_state(state):
+    set_rng_state(state[0] if isinstance(state, (list, tuple)) else state)
+
+
+def set_printoptions(precision=None, threshold=None, edgeitems=None,
+                     sci_mode=None, linewidth=None):
+    kw = {}
+    if precision is not None:
+        kw["precision"] = precision
+    if threshold is not None:
+        kw["threshold"] = threshold
+    if edgeitems is not None:
+        kw["edgeitems"] = edgeitems
+    if linewidth is not None:
+        kw["linewidth"] = linewidth
+    if sci_mode is not None:
+        kw["suppress"] = not sci_mode
+    _np.set_printoptions(**kw)
+
+
+def disable_signal_handler():
+    pass  # the reference installs no fault handlers either
+
+
+class LazyGuard:
+    """paddle.LazyGuard: parameters are made when a layer is built, so
+    the guard changes nothing."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+class NPUPlace(CUDAPlace):
+    def __repr__(self):
+        return f"Place(npu:{self.device_id})"
+
+
+class TPUPlace:
+    def __init__(self, device_id=0):
+        self.device_id = device_id
+
+    def __repr__(self):
+        return f"Place(tpu:{self.device_id})"
+
+
+def batch(reader, batch_size, drop_last=False):
+    """Legacy reader decorator: groups of ``batch_size`` items."""
+    def gen():
+        buf = []
+        for item in reader():
+            buf.append(item)
+            if len(buf) == batch_size:
+                yield buf
+                buf = []
+        if buf and not drop_last:
+            yield buf
+    return gen
+
+
+def tanh_(x):
+    return x.tanh_()
+
+
+def scatter_(x, index, updates, overwrite=True):
+    return x.scatter_(index, updates, overwrite)
+
+
+def reshape_(x, shape):
+    return x.reshape_(shape)
+
+
+def squeeze_(x, axis=None):
+    return x.squeeze_(axis)
+
+
+def unsqueeze_(x, axis):
+    return x.unsqueeze_(axis)
+
+
+def check_shape(x, shape):
+    """Assert a tensor's shape (-1 or None matches any size)."""
+    import builtins
+    got = list(x.shape)
+    want = list(shape)
+    ok = len(got) == len(want) and builtins.all(
+        w in (-1, None) or g == w for g, w in zip(got, want))
+    if not ok:
+        raise ValueError(f"shape mismatch: got {got}, expected {want}")
+    return x
+
+
+def broadcast_tensors(inputs):
+    """All of ``inputs`` broadcast to their common shape."""
+    target = _np.broadcast_shapes(*[tuple(t.shape) for t in inputs])
+    return [_OPS["broadcast_to"](t, list(target)) for t in inputs]
+
+
+def index_add_(x, index, axis, value):
+    return x.index_add_(index, axis, value)
+
+
+def index_add(x, index, axis, value):
+    return _OPS["index_add"](x, index, axis, value)

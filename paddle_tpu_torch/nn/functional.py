@@ -14,7 +14,19 @@ point casts its inputs under the reference's op name (``linear``, ``flash_attent
 reference's dispatch does (``amp.cast_inputs_for_op``). Options of the
 JAX functions that this slice does not port raise
 ``NotImplementedError`` naming the ROADMAP item.
+
+Every function takes the paddle API's ``Tensor`` as well as a
+``torch.Tensor`` and returns the kind it was given: a ``Tensor``
+argument sends the call through ``core.tensor.dispatch``, plain torch
+tensors call the function straight (what the train step and the
+serving tick do, at the cost of one type check an argument). The
+functions the reference registers as ops (the activations, ``softmax``,
+``linear``, the losses, ...) are in ``ops.registry.OPS`` too, so they are
+names of the flat namespace. The activations are the reference's
+compositions, so their gradients at a kink are jnp's (``leaky_relu``'s
+at 0 is 1, ``hardtanh``'s at a bound one half).
 """
+import functools
 import math
 
 import torch
@@ -22,15 +34,24 @@ import torch.nn.functional as tf
 
 from ..amp import cast_inputs_for_op as _cast
 from ..core.random import next_key as _next_key
+from ..core.tensor import Tensor, dispatch
+from ..ops.math import jabs as _abs
+from ..ops.registry import OPS
 from ..ops.kernels import flash_attention as _fa
 from ..ops.kernels import rms_norm as _rn
 from ..ops.kernels import threefry_fill as _tf
 
 __all__ = ["rms_norm", "layer_norm", "scaled_dot_product_attention",
-           "flash_attention", "linear", "embedding", "silu", "gelu",
-           "softmax", "cross_entropy",
-           "mse_loss", "binary_cross_entropy_with_logits", "dropout",
-           "dropout2d", "dropout3d", "alpha_dropout", "gumbel_softmax"]
+           "flash_attention", "linear", "embedding", "silu", "swish", "gelu",
+           "softmax", "log_softmax", "cross_entropy",
+           "cross_entropy_with_softmax", "cross_entropy_soft",
+           "mse_loss", "l1_loss", "binary_cross_entropy",
+           "binary_cross_entropy_with_logits", "kl_div",
+           "cosine_similarity", "normalize", "label_smooth", "dropout",
+           "dropout2d", "dropout3d", "alpha_dropout", "gumbel_softmax",
+           "relu", "relu6", "leaky_relu", "elu", "selu", "celu", "mish",
+           "softplus", "softsign", "softshrink", "hardshrink", "tanhshrink",
+           "hardsigmoid", "hardswish", "hardtanh", "rms_norm_ref"]
 
 
 def rms_norm(x, weight, epsilon=1e-6):
@@ -307,3 +328,188 @@ def binary_cross_entropy_with_logits(logit, label, weight=None,
     if weight is not None:
         loss = loss * weight
     return _reduce(loss, reduction)
+
+
+def swish(x):
+    return tf.silu(x)
+
+
+def log_softmax(x, axis=-1, dtype=None):
+    """Log-softmax over ``axis`` (in ``dtype`` when given)."""
+    (x,) = _cast("log_softmax", [x])
+    return torch.log_softmax(x.to(dtype) if dtype is not None else x,
+                             dim=axis)
+
+
+def cross_entropy_with_softmax(logits, label, ignore_index=-100,
+                               reduction="mean", label_smoothing=0.0,
+                               axis=-1):
+    """The reference's hard-label op (``functional.py:744``)."""
+    return cross_entropy(logits, label, ignore_index=ignore_index,
+                         reduction=reduction, axis=axis,
+                         label_smoothing=label_smoothing)
+
+
+def cross_entropy_soft(logits, label, reduction="mean", axis=-1):
+    """The reference's soft-label op (``functional.py:767``)."""
+    return cross_entropy(logits, label, reduction=reduction,
+                         soft_label=True, axis=axis)
+
+
+def l1_loss(input, label, reduction="mean"):  # noqa: A002
+    return _reduce(_abs(input - label), reduction)
+
+
+def binary_cross_entropy(input, label, weight=None,  # noqa: A002
+                         reduction="mean"):
+    eps = 1e-12
+    loss = -(label * torch.log(input + eps)
+             + (1 - label) * torch.log(1 - input + eps))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+def kl_div(input, label, reduction="mean"):  # noqa: A002
+    loss = label * (torch.log(label.clamp_min(1e-12)) - input)
+    return _reduce(loss, reduction)
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8):
+    dot = (x1 * x2).sum(axis)
+    n1 = torch.sqrt((x1 * x1).sum(axis))
+    n2 = torch.sqrt((x2 * x2).sum(axis))
+    return dot / torch.clamp_min(n1 * n2, eps)
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12):
+    nrm = torch.pow(torch.pow(_abs(x), p).sum(axis, keepdim=True), 1.0 / p)
+    return x / torch.clamp_min(nrm, epsilon)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1):
+    if prior_dist is not None:
+        return (1 - epsilon) * label + epsilon * prior_dist
+    return (1 - epsilon) * label + epsilon / label.shape[-1]
+
+
+def rms_norm_ref(x, weight, epsilon=1e-6):
+    """The reference's XLA RMSNorm (``functional.py:282``), plain torch:
+    statistics and scale in f32, the result in x's type."""
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + epsilon) * weight.float()).to(x.dtype)
+
+
+# -- activations: the reference's compositions (``functional.py:22-130``)
+
+def _clip(x, lo, hi):
+    """``jnp.clip``: maximum then minimum, half the gradient at a bound."""
+    return torch.minimum(torch.maximum(x, _scalar(lo, x)), _scalar(hi, x))
+
+
+def relu(x):
+    return torch.relu(x)
+
+
+def relu6(x):
+    return tf.relu6(x)
+
+
+def leaky_relu(x, negative_slope=0.01):
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+def elu(x, alpha=1.0):
+    return torch.where(x > 0, x, alpha * torch.expm1(
+        torch.where(x > 0, torch.zeros_like(x), x)))
+
+
+def selu(x, scale=1.0507009873554805, alpha=1.6732632423543772):
+    return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+def celu(x, alpha=1.0):
+    zero = _scalar(0.0, x)
+    return torch.maximum(x, zero) + alpha * torch.expm1(
+        torch.minimum(x, zero) / alpha)
+
+
+def softplus(x, beta=1.0, threshold=20.0):
+    return torch.where(beta * x > threshold, x,
+                       (1.0 / beta) * torch.log1p(torch.exp(beta * x)))
+
+
+def mish(x):
+    return x * torch.tanh(torch.logaddexp(x, _scalar(0.0, x)))
+
+
+def softsign(x):
+    return x / (_abs(x) + 1)
+
+
+def softshrink(x, threshold=0.5):
+    zero = torch.zeros_like(x)
+    return torch.where(x > threshold, x - threshold,
+                       torch.where(x < -threshold, x + threshold, zero))
+
+
+def hardshrink(x, threshold=0.5):
+    return torch.where(x.abs() > threshold, x, torch.zeros_like(x))
+
+
+def tanhshrink(x):
+    return x - torch.tanh(x)
+
+
+def hardsigmoid(x, slope=1.0 / 6.0, offset=0.5):
+    return _clip(slope * x + offset, 0.0, 1.0)
+
+
+def hardswish(x):
+    return x * _clip(x / 6.0 + 0.5, 0.0, 1.0)
+
+
+def hardtanh(x, min=-1.0, max=1.0):  # noqa: A002
+    return _clip(x, min, max)
+
+
+# -- the paddle API's entry: a Tensor anywhere among the arguments sends
+#    the call through dispatch; plain torch tensors call straight through
+
+# the functions the reference registers as ops (its flat namespace),
+# with its index arguments
+_AS_OPS = {"relu": (), "relu6": (), "gelu": (), "silu": (), "swish": (),
+           "leaky_relu": (), "elu": (), "selu": (), "celu": (),
+           "hardshrink": (), "softshrink": (), "tanhshrink": (),
+           "hardsigmoid": (), "hardswish": (), "hardtanh": (), "mish": (),
+           "softplus": (), "softsign": (), "softmax": (), "log_softmax": (),
+           "gumbel_softmax": (), "linear": (), "embedding": (0,),
+           "layer_norm": (), "rms_norm_ref": (), "normalize": (),
+           "mse_loss": (), "l1_loss": (), "cross_entropy_with_softmax": (1,),
+           "cross_entropy_soft": (), "binary_cross_entropy": (),
+           "binary_cross_entropy_with_logits": (), "kl_div": (),
+           "cosine_similarity": (), "label_smooth": ()}
+
+
+def _takes_tensor(name, fn, nondiff_args=()):
+    @functools.wraps(fn)
+    def entry(*args, **kwargs):
+        for a in args:
+            if isinstance(a, Tensor):
+                return dispatch(fn, *args, name=name,
+                                nondiff_args=nondiff_args, **kwargs)
+        if kwargs:
+            for a in kwargs.values():
+                if isinstance(a, Tensor):
+                    return dispatch(fn, *args, name=name,
+                                    nondiff_args=nondiff_args, **kwargs)
+        return fn(*args, **kwargs)
+    return entry
+
+
+for _name in __all__:
+    globals()[_name] = _takes_tensor(_name, globals()[_name],
+                                     _AS_OPS.get(_name, ()))
+    if _name in _AS_OPS:
+        OPS[_name] = globals()[_name]
