@@ -21,6 +21,7 @@
     python3 chip_smoke.py --only build,serve,family_parity,families
     python3 chip_smoke.py --only build,serve,decode_parity,decoding,deploy
     python3 chip_smoke.py --only build,tensor_api
+    python3 chip_smoke.py --only build,nn_layers
 
 Phases, in order; any failure exits non-zero:
 
@@ -58,11 +59,13 @@ Phases, in order; any failure exits non-zero:
    dk + dv) against their plain versions, bf16 and f32, at llama_350m's
    training shape (B = 8, S = 1024, 16 heads of 64, causal), at
    Llama-2-7B's (B = 1, S = 4096, 32 heads of 128, causal), non-causal,
-   and at S = 1000 (a tail tile); then bf16 at S = 100, at S_q != S_k
-   (non-causal and causal) and at head_dim 16: o, lse, dq, dk, dv within
-   TOL and VEC_RTOL; two backward runs bitwise equal; ptxas's registers
-   and spills of the three bf16 kernels at each head_dim; at the 350m and
-   7B shapes, forward, backward and both timed beside the plain
+   and at S = 1000 (a tail tile); at head_dims 32 and 96 (``nn``'s
+   256- and 768-wide attention over 8 heads, B = 8, S = 1024, causal);
+   then bf16 at S = 100, at S_q != S_k (non-causal and causal; also at
+   head_dim 96) and at head_dim 16: o, lse, dq, dk, dv within TOL and
+   VEC_RTOL; two backward runs bitwise equal; ptxas's registers and
+   spills of the three bf16 kernels at each head_dim; at the 350m, 7B,
+   hd32 and hd96 shapes, forward, backward and both timed beside the plain
    version, one SDPA call (a yardstick the port never calls) and the
    bound, the kernels' time also read from torch.profiler;
 7. k5: RMSNorm forward (K5a) and backward (K5b) likewise, at 8192 x 1024
@@ -481,7 +484,34 @@ Phases, in order; any failure exits non-zero:
    and K5b 2 and no other kernel; both blocks' ms a step, and the API's
    cost a dispatched op (10,000 ``pt.add`` on a one-element tensor
    against ``torch.add``);
-32. int8_infer: the serve phase's Llama-2-7B (full width and depth):
+32. nn_layers: the random ops and ``nn``'s layers on the card. (a) every
+   random op, ``uniform_``, ``exponential_`` and every initializer under
+   ``pt.seed(0)``, f32 and bf16, on the card (R2's bits, uniform, normal
+   and truncated-normal fills) and on the CPU (their plain versions): bit
+   for bit, Orthogonal's QR (cuSOLVER) within 1e-5; ``randn`` of 2**26
+   elements: mean within 1e-3 of 0 and std of 1; the uniform and normal
+   fills at 4096 x 4096 f32 timed beside their bounds and beside
+   ``torch.rand`` / ``torch.randn`` (Philox: another function, a
+   yardstick). (b) every layer class of ``layers_basic``, ``rnn`` and
+   ``transformer`` at a small size, built on the card and on the CPU
+   under one seed, forward and backward, within its row's tolerance
+   (``NN_TOL``; the cuDNN and cuSOLVER rows named); ``RMSNorm``
+   launches K5a 1 and K5b 1, ``MultiHeadAttention`` (head dims 64, 32
+   and 96, no mask, eval) K4a 1. (c) Transformer-base (``nn.Transformer()``'s
+   defaults, a shared 37,000-token embedding and output projection,
+   dropout 0.1, ``attn_dropout=0``): one f32 step at 2 x 128 / 120
+   tokens against the CPU (``TBASE_TOL``; each gradient at its own scale
+   but the key projections' biases, 0 in exact arithmetic), K4a 12, K4b
+   12 + 12 and R2's dropout twice a ``Dropout`` layer; 10 AdamW steps at
+   64 x 128 / 120 under ``auto_cast`` bf16, the counts zeroed just before
+   and read just after: 10 x those launches, no fill, a falling loss, ms
+   a step, tokens/s and peak memory; the ms a step with paddle's default
+   ``attn_dropout=0.1`` (the composition). (d) a 2-layer LSTM, input and
+   hidden 1024: the card against the CPU at batch 2 x 128, and ms a
+   forward and backward at 32 x 128. (e) the host's microseconds a call
+   of ``Layer.__call__`` against ``torch.nn.Module.__call__`` on one
+   small ``Linear``;
+33. int8_infer: the serve phase's Llama-2-7B (full width and depth):
    one bf16 forward of 8 x 512 ids from seed 0, then
    ``to_int8_inference(model, inplace=True)`` and the same forward with
    the counters zeroed just before and read just after: 7 x layers + 1
@@ -490,7 +520,7 @@ Phases, in order; any failure exits non-zero:
    and the largest relative logit
    error against bf16, ms per forward and tokens/s for both, peak memory,
    a profile of one forward of each;
-33. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
+34. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
    f32 moments, one fixed 8 x 1024 batch from seed 0: 2 warm-up steps,
    then 10 timed with the counters zeroed just before and read just
    after (K4: 10 x layers each, K5: 10 x (2 x layers + 1) each, K6's q +
@@ -499,14 +529,14 @@ Phases, in order; any failure exits non-zero:
    fall and stay finite, gradients finite; step time, tokens/s, peak
    memory and a profile of one step (its launches, the optimizer's
    device time);
-34. train_compose: the same model, weights, batch and optimizer with rope
+35. train_compose: the same model, weights, batch and optimizer with rope
    on the composition (``ops.rope._COMPOSITION_ONLY``, set for the phase
    and restored after it): 2 warm-up steps and 5 timed, the counters
    zeroed before the first and read after the last (no K6); the 7 losses
    equal to the train phase's first 7 bit for bit (K6 is the composition
    bit for bit, forward and backward); ms per step of both phases from
    this call, and a profile of one step;
-35. train_amp: the slice's path. llama_350m at full width and depth
+36. train_amp: the slice's path. llama_350m at full width and depth
    from seed 0, ``amp.decorate(level="O2", dtype="bfloat16")`` (the rope
    tables stay f32), ``AdamW(multi_precision=True, weight_decay=0.01``
    off the norms, ``grad_clip=ClipGradByGlobalNorm(1.0))`` on the fused
@@ -523,7 +553,7 @@ Phases, in order; any failure exits non-zero:
    written into one gradient of the second: that step is skipped
    (parameters unchanged bit for bit, the optimizer not stepped) and the
    scale halves;
-36. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
+37. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
    llama_350m in bf16 at full width and depth from seed 0,
    ``AdamW(1e-4, weight_decay=0.01)``, ``nn.CrossEntropyLoss()``, a
    ``TensorDataset`` of 96 rows of 1025 seeded ids (inputs the first
@@ -570,7 +600,7 @@ PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "opt",
           "int8_parity", "serve", "dense", "preempt", "telemetry",
           "fleet_parity", "fleet", "wire_parity", "wire", "family_parity",
           "families", "decode_parity", "decoding", "deploy", "tensor_api",
-          "int8_infer",
+          "nn_layers", "int8_infer",
           "train", "train_compose", "train_amp", "fit")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
@@ -1207,7 +1237,10 @@ K4_CASES = (("350m", 8, 1024, 1024, 16, 64, True, BOTH),
             ("s100", 4, 100, 100, 16, 64, True, BF16),
             ("rect", 2, 300, 1000, 16, 128, False, BF16),
             ("rect-causal", 2, 1000, 300, 8, 64, True, BF16),
-            ("hd16", 4, 1024, 1024, 4, 16, True, BF16))
+            ("hd16", 4, 1024, 1024, 4, 16, True, BF16),
+            ("hd32", 8, 1024, 1024, 8, 32, True, BOTH),
+            ("hd96", 8, 1024, 1024, 8, 96, True, BOTH),
+            ("hd96-rect", 2, 300, 1000, 8, 96, False, BF16))
 K4_KERNELS = ("fwd_mma_kernel", "dq_mma_kernel", "dkv_mma_kernel")
 
 
@@ -1471,7 +1504,8 @@ def phase_k4(torch, peak, flush, record):
             if not ok:
                 raise SystemExit(f"k4 {tag} {dname} disagrees with its plain "
                                  f"version")
-            if tag in ("350m", "7b") and dtype == torch.bfloat16:
+            if tag in ("350m", "7b", "hd32", "hd96") and \
+                    dtype == torch.bfloat16:
                 k4_time(torch, F, fa, tag, (q, k, v, o, lse, do),
                         (B, Sq, H, D), scale, peak, flush, record, errs)
             del q, k, v, do, o, lse, dq, dk, dv
@@ -2532,8 +2566,8 @@ RNG_SASS = {
                     "__nv_bfloat16,j,0", 8),
     "dropout_vjp": ("threefry_fill", "dropout_full_kernel",
                     "__nv_bfloat16,j,1", 8),
-    "keep": ("threefry_fill", "fill_kernel", "0,j", 16),
-    "gumbel": ("threefry_fill", "fill_kernel", "1,j", 4),
+    "keep": ("threefry_fill", "fill_kernel", "0,0,j", 16),
+    "gumbel": ("threefry_fill", "fill_kernel", "1,0,j", 4),
     "r1": ("sample_rows", "sample_rows_kernel", "__nv_bfloat16,1", 8),
 }
 # the parent tree's kernels: one element an iteration
@@ -2795,7 +2829,7 @@ def phase_rng(torch, np, peak, flush, record, parent=None):
                          (tf._GUMBEL, 1e-10)):
             got = tf.fill(key, shape, what, "cuda", lo)
             again = tf.fill(key, shape, what, "cuda", lo)
-            want = tf._ref_fill(key, shape, what, lo, "cuda")
+            want = tf._ref_fill(key, shape, what, "cuda", lo=lo)
             tag = f"fill {what} {lo:g} {shape}"
             r2_err = max(r2_err, max_diff(torch, got, want))
             if what == tf._GUMBEL:
@@ -3025,13 +3059,14 @@ def rng_times(torch, np, peak, flush, record, sr, tf, sass, psr, ptf,
                         None if pms is None else
                         (pms, ops_of((nb, psass["dropout"]))))
     # the Gumbel draw at the serve wave's vocabulary
-    want = tf._ref_fill(key, (8, 32000), tf._GUMBEL, prng.TINY_F32, "cuda")
+    want = tf._ref_fill(key, (8, 32000), tf._GUMBEL, "cuda",
+                        lo=prng.TINY_F32)
     ms, pms = timed("r2 gumbel", lambda: tf.gumbel(key, (8, 32000), "cuda"),
                     lambda o: same_bits(torch, o, want),
                     None if ptf is None else
                     (lambda: ptf.gumbel(key, (8, 32000), "cuda")))
     plain_ms = event_ms(lambda: tf._ref_fill(key, (8, 32000), tf._GUMBEL,
-                                             prng.TINY_F32, "cuda"),
+                                             "cuda", lo=prng.TINY_F32),
                         torch, flush=flush)
     out["gumbel"] = line("r2 gumbel 8 x 32000 f32", ms, 4 * 8 * 32000,
                          ops_of((8 * 32000, need("gumbel", sass))),
@@ -3095,8 +3130,8 @@ def rng_path(torch, F, tf, trandom, record, r2_err):
                 torch.ones_like(h), tf._ref_dropout(
                     h, k_h, tuple(h.shape), 0.1, True, save_mask=True)[1],
                 tuple(h.shape), 0.1, True))}
-        g_ref = tf._ref_fill(k_g, tuple(lg.shape), tf._GUMBEL, 1e-10,
-                             "cuda")
+        g_ref = tf._ref_fill(k_g, tuple(lg.shape), tf._GUMBEL, "cuda",
+                             lo=1e-10)
     path_ok = {name: same_bits(torch, a, b) for name, (a, b) in path.items()}
     r2_err = max(r2_err, *(max_diff(torch, a, b) for a, b in path.values()))
     path_ok["gumbel_softmax argmax"] = torch.equal(
@@ -3758,8 +3793,8 @@ def phase_dense(torch, np, card, record, model, serve_res):
                 key, sub = prng.split(key)
                 noise_ok &= same_bits(
                     torch, tf.gumbel(sub, (4, V), "cuda"),
-                    tf._ref_fill(sub, (4, V), tf._GUMBEL, prng.TINY_F32,
-                                 "cuda"))
+                    tf._ref_fill(sub, (4, V), tf._GUMBEL, "cuda",
+                                 lo=prng.TINY_F32))
             checks[f"r2's [4, {V}] noise equal to its plain version bit "
                    f"for bit, every draw's key"] = noise_ok
             log(f"dense generate {name}: r2's noise at [4, {V}] under "
@@ -7137,6 +7172,687 @@ def phase_tensor_api(torch, np, card, record):
     record["rms_norm_bwd"]["tensor_api_launches"] = counts["k5_bwd"]
 
 
+# ------------------------------------------------------------ nn_layers
+
+# (c)'s Transformer-base: nn.Transformer()'s own defaults (Vaswani et al.
+# 2017: d_model 512, 8 heads of 64, 6 + 6 layers, FFN 2048, ReLU,
+# post-norm) with a shared 37,000-token embedding and output projection
+# (the paper's EN-DE BPE vocabulary); (batch, source, target) tokens
+TBASE = {"d_model": 512, "nhead": 8, "layers": 6, "ffn": 2048,
+         "vocab": 37000, "parity": (2, 128, 120), "train": (64, 128, 120),
+         "steps": 10}
+# (d)'s LSTM: 2 layers, input and hidden 1024, batch 32 x 128 steps; the
+# card against the CPU at batch 2
+NN_LSTM = {"hidden": 1024, "layers": 2, "B": 32, "T": 128, "check_B": 2}
+# (a)'s fills timed at 4096 x 4096 f32, and the randn moments' size
+NN_FILL = (4096, 4096)
+NN_MOMENTS = 1 << 26
+# (e)'s calls a timing of Layer.__call__ against torch.nn.Module.__call__
+NN_HOST_CALLS = 2000
+# the layer table's tolerances (card against CPU, each tensor's largest
+# |error| over its largest |value|, floor 1): plain torch f32; cuDNN
+# (convolutions, pools) and cuSOLVER (Orthogonal's QR) sum in their own
+# orders
+NN_TOL = {"f32": 1e-5, "cudnn": 1e-4, "cusolver": 1e-5, "lstm": 1e-4}
+# (c)'s parity step: the card's loss and gradients against the CPU's
+# (K4 against its plain version, cuBLAS against the CPU's GEMMs; same
+# weights and dropout masks, R2 being its plain version bit for bit);
+# each gradient over its own largest |value|, but the key projections'
+# biases: a softmax ignores a shift of its row, so their gradient is 0 in
+# exact arithmetic and rounding noise on both sides, held over
+# NN_GRAD_FLOOR of the largest gradient of all
+TBASE_TOL = {"loss": 1e-4, "grad": 2e-3}
+NN_GRAD_FLOOR = 1e-3
+NN_ZERO_GRAD = "k_proj.bias"
+
+
+def nn_scaled_err(torch, got, want, floor=1.0):
+    """Largest |got - want| of a tensor over max(its largest |want|,
+    ``floor``)."""
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    if g.numel() == 0:
+        return 0.0
+    return ((g - w).abs().max() / w.abs().max().clamp_min(floor)).item()
+
+
+def nn_draws(torch, np, pt, dt):
+    """Every random op, ``uniform_``, ``exponential_`` and every
+    initializer under ``pt.seed(0)`` on the default place, in ``dt``
+    where the op takes a floating type: [(name, torch value)]."""
+    from paddle_tpu_torch.nn import initializer as I
+    out = []
+    pt.seed(0)
+    x = np.arange(24, dtype=np.float32).reshape(4, 6)
+    p = np.random.default_rng(0).uniform(0, 1, (4, 10)).astype(np.float32)
+    lam = np.array([0, 0.5, 3, 9.9, 10, 25, 100, 1000] * 8, np.float32)
+    ops = {
+        "rand": lambda: pt.ops.rand([33, 7], dt),
+        "randn": lambda: pt.ops.randn([33, 7], dt),
+        "uniform": lambda: pt.ops.uniform([1001], dt, -0.3, 2.0),
+        "uniform_seed": lambda: pt.ops.uniform([17], dt, seed=4),
+        "gaussian": lambda: pt.ops.gaussian([129], 1.0, 2.0, dt),
+        "standard_normal": lambda: pt.ops.standard_normal([5, 5], dt),
+        "rand_like": lambda: pt.ops.rand_like(pt.to_tensor(x, dtype=dt)),
+        "randn_like": lambda: pt.ops.randn_like(pt.to_tensor(x, dtype=dt)),
+        "normal": lambda: pt.ops.normal(0.5, 2.0, [77]),
+        "normal_tensor": lambda: pt.ops.normal(pt.to_tensor(x), 2.0),
+        "randint": lambda: pt.ops.randint(-5, 17, [50]),
+        "randint_like": lambda: pt.ops.randint_like(
+            pt.to_tensor(np.zeros(9, np.int32)), 100),
+        "randperm": lambda: pt.ops.randperm(37),
+        "randperm_two_rounds": lambda: pt.ops.randperm(3000),
+        "shuffle": lambda: pt.ops.shuffle(pt.to_tensor(x), 1),
+        "multinomial": lambda: pt.ops.multinomial(pt.to_tensor(p), 3),
+        "multinomial_replace": lambda: pt.ops.multinomial(
+            pt.to_tensor(p[0]), 5, True),
+        "bernoulli": lambda: pt.ops.bernoulli(pt.to_tensor(p, dtype=dt)),
+        "poisson": lambda: pt.ops.poisson(pt.to_tensor(lam)),
+        "uniform_": lambda: pt.to_tensor(x, dtype=dt).uniform_(-2.0, 3.0),
+        "exponential_": lambda: pt.to_tensor(x).exponential_(2.0),
+    }
+    for name, fn in ops.items():
+        out.append((name, fn().value))
+    inits = {"Constant": I.Constant(0.25), "Normal": I.Normal(0.5, 2.0),
+             "TruncatedNormal": I.TruncatedNormal(0.1, 0.02),
+             "Uniform": I.Uniform(-0.3, 0.7), "XavierNormal": I.XavierNormal(),
+             "XavierUniform": I.XavierUniform(),
+             "KaimingNormal": I.KaimingNormal(),
+             "KaimingUniform": I.KaimingUniform(),
+             "Assign": I.Assign(np.arange(60, dtype=np.float32).reshape(
+                 3, 4, 5)),
+             "Orthogonal": I.Orthogonal(1.5), "Bilinear": I.Bilinear(),
+             "Dirac": I.Dirac(groups=3)}
+    shapes = {"Bilinear": (3, 4, 5, 5), "Dirac": (6, 4, 3, 3)}
+    for name, init in inits.items():
+        out.append((name, init(shapes.get(name, (3, 4, 5)), dt)))
+    return out
+
+
+def nn_layer_table(torch, np, pt):
+    """(b)'s rows: (name, builder over ``nn``, inputs, tolerance key,
+    card route). Small widths; MultiHeadAttention at head dim 64."""
+    rng = np.random.default_rng(5)
+
+    def r(*s):
+        return rng.standard_normal(s).astype(np.float32)
+
+    def u(*s):
+        return rng.uniform(0.05, 0.95, s).astype(np.float32)
+
+    lbl = np.array([1, 0, 3, 2, 1], np.int32)
+    pm = np.array([1, -1, 1, 1, -1], np.float32)
+    T = []
+
+    def row(name, make, inputs, tol="f32", route="plain torch", train=False):
+        T.append((name, make, inputs, tol, route, train))
+
+    cd = "cuDNN through torch"
+    row("Linear", lambda nn: nn.Linear(16, 8), [r(4, 16)])
+    row("Embedding", lambda nn: nn.Embedding(50, 8, padding_idx=3),
+        [np.array([[1, 3, 7], [3, 49, 0]], np.int32)])
+    row("Identity", lambda nn: nn.Identity(), [r(3, 4)])
+    row("Dropout", lambda nn: nn.Dropout(0.3), [r(8, 16)], route="R2",
+        train=True)
+    row("Dropout2D", lambda nn: nn.Dropout2D(0.5), [r(2, 4, 8, 8)],
+        route="R2", train=True)
+    row("Dropout3D", lambda nn: nn.Dropout3D(0.5), [r(2, 4, 2, 4, 4)],
+        route="R2", train=True)
+    row("AlphaDropout", lambda nn: nn.AlphaDropout(0.2), [r(8, 16)],
+        route="R2", train=True)
+    row("Flatten", lambda nn: nn.Flatten(), [r(2, 3, 4)])
+    row("Unflatten", lambda nn: nn.Unflatten(1, [2, 3]), [r(2, 6, 4)])
+    row("Pad1D", lambda nn: nn.Pad1D([1, 2]), [r(2, 3, 4)])
+    row("Pad2D", lambda nn: nn.Pad2D([1, 0, 2, 1], mode="reflect"),
+        [r(1, 2, 4, 5)])
+    row("Pad3D", lambda nn: nn.Pad3D([1, 1, 0, 1, 1, 0]), [r(1, 1, 2, 3, 3)])
+    row("Upsample", lambda nn: nn.Upsample(size=[7, 5], mode="bicubic"),
+        [r(1, 2, 12, 9)])
+    row("UpsamplingBilinear2D", lambda nn: nn.UpsamplingBilinear2D(
+        scale_factor=2), [r(1, 2, 4, 4)])
+    row("UpsamplingNearest2D", lambda nn: nn.UpsamplingNearest2D(
+        scale_factor=2), [r(1, 2, 4, 4)])
+    row("CosineSimilarity", lambda nn: nn.CosineSimilarity(), [r(3, 5),
+                                                              r(3, 5)])
+    row("Bilinear", lambda nn: nn.Bilinear(3, 4, 5), [r(2, 3), r(2, 4)])
+    for dims, shape in ((1, (2, 4, 16)), (2, (2, 4, 12, 12)),
+                        (3, (1, 4, 6, 6, 6))):
+        row(f"Conv{dims}D", (lambda d: lambda nn: getattr(nn, f"Conv{d}D")(
+            4, 8, 3, padding=1, groups=2))(dims), [r(*shape)], "cudnn", cd)
+        row(f"Conv{dims}DTranspose", (lambda d: lambda nn: getattr(
+            nn, f"Conv{d}DTranspose")(4, 6, 3, stride=2, padding=1,
+                                      output_padding=1, groups=2))(dims),
+            [r(*shape)], "cudnn", cd)
+    row("Conv2D_NHWC_SAME", lambda nn: nn.Conv2D(
+        4, 4, 3, stride=2, padding="SAME", data_format="NHWC"),
+        [r(2, 9, 8, 4)], "cudnn", cd)
+    row("LayerNorm", lambda nn: nn.LayerNorm(32), [r(4, 32)])
+    row("RMSNorm", lambda nn: nn.RMSNorm(256), [r(8, 256)], route="K5a, K5b")
+    for name, shape in (("BatchNorm", (4, 3, 4, 4)), ("BatchNorm1D", (4, 3, 8)),
+                        ("BatchNorm2D", (4, 3, 4, 4)),
+                        ("BatchNorm3D", (2, 3, 2, 4, 4)),
+                        ("SyncBatchNorm", (4, 3, 4, 4))):
+        row(name, (lambda n: lambda nn: getattr(nn, n)(3))(name),
+            [r(*shape)], train=True)
+    row("GroupNorm", lambda nn: nn.GroupNorm(2, 4), [r(2, 4, 5, 5)])
+    for dims, shape in (("1D", (2, 3, 8)), ("2D", (2, 3, 5, 5)),
+                        ("3D", (2, 3, 2, 4, 4))):
+        row("InstanceNorm" + dims, (lambda d: lambda nn: getattr(
+            nn, "InstanceNorm" + d)(3))(dims), [r(*shape)])
+    row("LocalResponseNorm", lambda nn: nn.LocalResponseNorm(3),
+        [r(2, 5, 4, 4)])
+    row("SpectralNorm", lambda nn: nn.SpectralNorm([8, 6], power_iters=2),
+        [r(8, 6)])
+    for act, kw in (("ReLU", {}), ("ReLU6", {}), ("GELU", {}), ("SiLU", {}),
+                    ("Swish", {}), ("LeakyReLU", {"negative_slope": 0.2}),
+                    ("ELU", {}), ("CELU", {}), ("SELU", {}), ("RReLU", {}),
+                    ("Sigmoid", None), ("LogSigmoid", None), ("Tanh", None),
+                    ("Tanhshrink", {}), ("Hardshrink", {}),
+                    ("Softshrink", {}), ("Hardsigmoid", {}),
+                    ("Hardswish", {}), ("Hardtanh", {}), ("Mish", {}),
+                    ("Softmax", {}), ("LogSoftmax", {}), ("Softplus", {}),
+                    ("Softsign", {}), ("ThresholdedReLU", {}),
+                    ("GLU", {"axis": 1})):
+        row(act, (lambda a, k: lambda nn: getattr(nn, a)(**(k or {})))(
+            act, kw), [r(4, 6, 8)])
+    row("PReLU", lambda nn: nn.PReLU(4), [r(2, 4, 5)])
+    row("Maxout", lambda nn: nn.Maxout(2), [r(2, 6, 5)])
+    for name, args, kw, shape in (
+            ("MaxPool1D", (3,), {"stride": 2, "padding": 1}, (2, 4, 17)),
+            ("MaxPool2D", (3,), {"stride": 2, "padding": 1}, (2, 4, 9, 9)),
+            ("MaxPool3D", (2,), {}, (1, 2, 4, 4, 4)),
+            ("AvgPool1D", (3,), {"stride": 2, "padding": 1}, (2, 4, 17)),
+            ("AvgPool2D", (3,), {"stride": 2, "padding": 1,
+                                 "exclusive": False}, (2, 4, 9, 9)),
+            ("AvgPool3D", (2,), {"padding": 1}, (1, 2, 3, 4, 4)),
+            ("AdaptiveAvgPool1D", (5,), {}, (2, 3, 17)),
+            ("AdaptiveAvgPool2D", ((3, 4),), {}, (2, 3, 10, 9)),
+            ("AdaptiveAvgPool3D", (2,), {}, (1, 2, 5, 4, 6)),
+            ("AdaptiveMaxPool1D", (5,), {}, (2, 3, 17)),
+            ("AdaptiveMaxPool2D", ((3, 4),), {}, (2, 3, 10, 9))):
+        pool_route = cd if "Adaptive" not in name else "plain torch"
+        row(name, (lambda n, a, k: lambda nn: getattr(nn, n)(*a, **k))(
+            name, args, kw), [r(*shape)],
+            "cudnn" if "Adaptive" not in name else "f32", pool_route)
+    row("PixelShuffle", lambda nn: nn.PixelShuffle(2), [r(1, 8, 3, 3)])
+    for name, make, inputs in (
+            ("CrossEntropyLoss", lambda nn: nn.CrossEntropyLoss(),
+             [r(5, 4), lbl]),
+            ("MSELoss", lambda nn: nn.MSELoss(), [r(3, 4), r(3, 4)]),
+            ("L1Loss", lambda nn: nn.L1Loss(), [r(3, 4), r(3, 4)]),
+            ("NLLLoss", lambda nn: nn.NLLLoss(), [r(5, 4), lbl]),
+            ("BCELoss", lambda nn: nn.BCELoss(), [u(3, 4), u(3, 4)]),
+            ("BCEWithLogitsLoss", lambda nn: nn.BCEWithLogitsLoss(),
+             [r(3, 4), u(3, 4)]),
+            ("KLDivLoss", lambda nn: nn.KLDivLoss(), [r(3, 4), u(3, 4)]),
+            ("SmoothL1Loss", lambda nn: nn.SmoothL1Loss(), [r(3, 4),
+                                                           r(3, 4)]),
+            ("MarginRankingLoss", lambda nn: nn.MarginRankingLoss(0.1),
+             [r(5), r(5), pm]),
+            ("CosineEmbeddingLoss", lambda nn: nn.CosineEmbeddingLoss(),
+             [r(5, 3), r(5, 3), pm]),
+            ("TripletMarginLoss", lambda nn: nn.TripletMarginLoss(),
+             [r(4, 3), r(4, 3), r(4, 3)]),
+            ("HingeEmbeddingLoss", lambda nn: nn.HingeEmbeddingLoss(),
+             [r(5), pm])):
+        row(name, make, inputs)
+    row("SimpleRNN", lambda nn: nn.SimpleRNN(8, 16, direction="bidirect"),
+        [r(2, 6, 8)])
+    row("LSTM", lambda nn: nn.LSTM(8, 16, num_layers=2), [r(2, 6, 8)])
+    row("GRU", lambda nn: nn.GRU(8, 16, time_major=True), [r(6, 2, 8)])
+    row("SimpleRNNCell", lambda nn: nn.SimpleRNNCell(8, 16), [r(2, 8)])
+    row("LSTMCell", lambda nn: nn.LSTMCell(8, 16), [r(2, 8)])
+    row("GRUCell", lambda nn: nn.GRUCell(8, 16), [r(2, 8)])
+    row("RNN", lambda nn: nn.RNN(nn.GRUCell(8, 16)), [r(2, 6, 8)])
+    row("BiRNN", lambda nn: nn.BiRNN(nn.LSTMCell(8, 16),
+                                     nn.LSTMCell(8, 16)), [r(2, 6, 8)])
+    row("MultiHeadAttention", lambda nn: nn.MultiHeadAttention(256, 4),
+        [r(2, 32, 256)], route="K4a, K4b")
+    row("MultiHeadAttention_hd32", lambda nn: nn.MultiHeadAttention(256, 8),
+        [r(2, 32, 256)], route="K4a, K4b")
+    row("MultiHeadAttention_hd96", lambda nn: nn.MultiHeadAttention(768, 8),
+        [r(2, 32, 768)], route="K4a, K4b")
+    row("MultiHeadAttention_mask", lambda nn: nn.MultiHeadAttention(64, 2),
+        [r(2, 8, 64), r(2, 8, 64), r(2, 8, 64),
+         np.tril(np.ones((1, 1, 8, 8), bool))],
+        route="the composition (a mask)")
+    row("TransformerEncoderLayer", lambda nn: nn.TransformerEncoderLayer(
+        64, 4, 128, attn_dropout=0.0), [r(2, 8, 64)],
+        route="K4a, K4b; R2", train=True)
+    row("TransformerEncoder", lambda nn: nn.TransformerEncoder(
+        nn.TransformerEncoderLayer(64, 4, 128, dropout=0.0), 2),
+        [r(2, 8, 64)], route="K4a, K4b")
+    row("TransformerDecoderLayer", lambda nn: nn.TransformerDecoderLayer(
+        64, 4, 128, dropout=0.0), [r(2, 6, 64), r(2, 8, 64)],
+        route="K4a, K4b")
+    row("TransformerDecoder", lambda nn: nn.TransformerDecoder(
+        nn.TransformerDecoderLayer(64, 4, 128, dropout=0.0), 2),
+        [r(2, 6, 64), r(2, 8, 64)], route="K4a, K4b")
+    row("Transformer", lambda nn: nn.Transformer(
+        64, 4, 1, 1, 128, dropout=0.0), [r(2, 8, 64), r(2, 6, 64)],
+        route="K4a, K4b")
+    return T
+
+
+def nn_first(out):
+    """A layer's output tensor (the first of a tuple, recursively)."""
+    while isinstance(out, (tuple, list)):
+        out = out[0]
+    return out
+
+
+def nn_layer_run(torch, np, pt, device, make, inputs, train):
+    """Build ``make(pt.nn)`` under ``pt.seed(0)`` on ``device``, run it on
+    ``inputs`` and backward of ``sum(out * w)`` (w from seed 0): (output,
+    input gradients, {parameter: gradient}, the layer)."""
+    pt.set_device("gpu" if device == "cuda" else "cpu")
+    pt.seed(0)
+    layer = make(pt.nn)
+    layer.train() if train else layer.eval()
+    xs = [torch.tensor(x, device=device) for x in inputs]
+    for x in xs:
+        if x.is_floating_point():
+            x.requires_grad_()
+    pt.seed(1)
+    out = nn_first(layer(*xs))
+    w = torch.tensor(np.random.default_rng(0).uniform(
+        0.5, 1.5, tuple(out.shape)).astype(np.float32), device=device)
+    (out * w).sum().backward()
+    grads = {n: p.grad for n, p in layer.named_parameters()
+             if p.grad is not None}
+    return out, [x.grad for x in xs if x.requires_grad], grads, layer
+
+
+def nn_table(torch, np, pt):
+    """(b): every row on the card and on the CPU under the same seeds:
+    (rows, fails, {row: K launches}, the largest error by tolerance)."""
+    from paddle_tpu_torch import nn
+    fails, launches, worst = [], {}, {}
+    table = nn_layer_table(torch, np, pt)
+    for name, make, inputs, tol, route, train in table:
+        zero_counts()
+        try:
+            co, cdx, cg, _ = nn_layer_run(torch, np, pt, "cuda", make,
+                                          inputs, train)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            ho, hdx, hg, _ = nn_layer_run(torch, np, pt, "cpu", make,
+                                          inputs, train)
+        except Exception as e:           # noqa: BLE001 — reported below
+            fails.append(f"{name}: {type(e).__name__}: {e}")
+            continue
+        launches[name] = {k: v for k, v in counts.items() if v}
+        errs = [nn_scaled_err(torch, co, ho)]
+        if [a is None for a in cdx] != [b is None for b in hdx]:
+            fails.append(f"{name}: input gradients differ in presence")
+        errs += [nn_scaled_err(torch, a, b) for a, b in zip(cdx, hdx)
+                 if a is not None and b is not None]
+        if set(cg) != set(hg):
+            fails.append(f"{name}: gradients of {sorted(cg)} vs "
+                         f"{sorted(hg)}")
+        errs += [nn_scaled_err(torch, cg[k], hg[k]) for k in cg if k in hg]
+        err = max(errs)
+        worst[tol] = max(worst.get(tol, 0.0), err)
+        if not err <= NN_TOL[tol]:
+            fails.append(f"{name} ({route}): card against CPU {err:.3g} > "
+                         f"{NN_TOL[tol]}")
+    names = {n.split("_")[0] for n, *_ in table}
+    listed = set(nn.layers_basic.__all__) | set(nn.rnn.__all__) | set(
+        nn.transformer.__all__)
+    missing = listed - names - {"RNNCellBase"}
+    if missing:
+        fails.append(f"no row for {sorted(missing)}")
+    return table, fails, launches, worst
+
+
+def nn_transformer_base(pt, np, attn_dropout=0.0):
+    """(c)'s model on the default place: ``nn.Transformer`` at TBASE's
+    widths (dropout 0.1), a shared N(0, 1/d_model) embedding scaled by
+    sqrt(d_model) plus sinusoidal positions, and the embedding as the
+    output projection."""
+    nn, F = pt.nn, pt.nn.functional
+    d = TBASE["d_model"]
+
+    class TransformerBase(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(
+                TBASE["vocab"], d,
+                weight_attr=nn.initializer.Normal(0.0, d ** -0.5))
+            self.core = nn.Transformer(
+                d, TBASE["nhead"], TBASE["layers"], TBASE["layers"],
+                TBASE["ffn"], dropout=0.1, attn_dropout=attn_dropout)
+            pos = np.arange(512)[:, None] / np.power(
+                10000.0, np.arange(0, d, 2)[None, :] / d)
+            pe = np.zeros((512, d), np.float32)
+            pe[:, 0::2], pe[:, 1::2] = np.sin(pos), np.cos(pos)
+            self.register_buffer("pe", pt.to_tensor(pe), persistable=False)
+
+        def embed_at(self, ids):
+            return self.embed(ids) * (d ** 0.5) + self.pe[:ids.shape[1]]
+
+        def forward(self, src, tgt):
+            mask = self.core.generate_square_subsequent_mask(
+                tgt.shape[1]).value
+            out = self.core(self.embed_at(src), self.embed_at(tgt),
+                            tgt_mask=mask)
+            return F.linear(out, self.embed.weight.T)
+
+    return TransformerBase()
+
+
+def nn_dropout_layers(model):
+    """The model's ``Dropout`` layers with a rate, each called once a
+    forward."""
+    from paddle_tpu_torch.nn import Dropout
+    return sum(1 for m in model.sublayers() if isinstance(m, Dropout)
+               and m.p > 0)
+
+
+def nn_tbase_batch(torch, np, shape, device, seed=0):
+    B, Ss, St = shape
+    rng = np.random.default_rng(seed)
+    src = torch.tensor(rng.integers(0, TBASE["vocab"], (B, Ss)),
+                       device=device)
+    tgt = torch.tensor(rng.integers(0, TBASE["vocab"], (B, St + 1)),
+                       device=device)
+    return src, tgt[:, :-1], tgt[:, 1:]
+
+
+def nn_tbase_step(pt, model, src, tin, tout):
+    from paddle_tpu_torch.nn import functional as F
+    logits = model(src, tin)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           tout.reshape(-1))
+
+
+def nn_host_us(torch, fn):
+    """Microseconds a call of ``fn`` over NN_HOST_CALLS calls, the card
+    drained before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(NN_HOST_CALLS):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / NN_HOST_CALLS * 1e6
+
+
+def nn_tbase_launches_ok(counts, steps, layers, drops):
+    """Transformer-base's launches over ``steps`` steps: K4a and K4b's two
+    kernels each 2 x ``layers`` a step (the encoder's self-attention, the
+    decoder's cross-attention), R2's dropout 2 x ``drops`` (forward and
+    vjp), no fill."""
+    per = 2 * layers * steps
+    return counts["k4_fwd"] == per and counts["k4_dq"] == per and \
+        counts["k4_dkv"] == per and \
+        counts["r2_dropout"] == 2 * drops * steps and counts["r2_fill"] == 0
+
+
+def phase_nn_layers(torch, np, card, peak, record):
+    """Phase nn_layers: (a) the random draws, (b) the layer table, (c)
+    Transformer-base, (d) an LSTM, (e) the host's cost of a Layer call."""
+    import copy
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import device as tdevice
+    from paddle_tpu_torch.core import prng
+    from paddle_tpu_torch.ops.kernels import threefry_fill as tf
+    from paddle_tpu_torch.optimizer import AdamW
+    checks = {}
+    t_phase = time.perf_counter()
+    try:
+        # (a) the draws: card against CPU, bit for bit
+        modes0 = dict(tf.fill.mode_launches)
+        bad, n_draws = [], 0
+        for dt in ("float32", "bfloat16"):
+            pt.set_device("gpu")
+            on_card = nn_draws(torch, np, pt, dt)
+            torch.cuda.synchronize()
+            pt.set_device("cpu")
+            on_cpu = nn_draws(torch, np, pt, dt)
+            for (name, a), (_, b) in zip(on_card, on_cpu):
+                n_draws += 1
+                if a.device.type != "cuda":
+                    bad.append(f"{name} {dt}: made on {a.device}")
+                elif name == "Orthogonal":      # cuSOLVER's QR
+                    if not nn_scaled_err(torch, a, b) <= NN_TOL["cusolver"]:
+                        bad.append(f"{name} {dt}: QR beyond its tolerance")
+                elif not same_bits(torch, a.cpu(), b):
+                    bad.append(f"{name} {dt}: card and CPU differ")
+        modes = {k: v - modes0[k] for k, v in tf.fill.mode_launches.items()}
+        log(f"nn_layers draws: {n_draws} draws (the random ops, uniform_, "
+            f"exponential_, the initializers; f32 and bf16) on the card "
+            f"against the CPU; R2 launches by mode {modes}; differ: {bad}")
+        checks["every draw bit for bit the CPU's (Orthogonal's QR within "
+               f"{NN_TOL['cusolver']})"] = not bad
+        checks["R2 drew bits, uniform, normal and truncated normal on the "
+               "card"] = all(modes[k] for k in ("bits", "uniform", "normal",
+                                                "truncated_normal"))
+        pt.set_device("gpu")
+        pt.seed(0)
+        big = pt.ops.randn([NN_MOMENTS]).value
+        mean, std = big.double().mean().item(), big.double().std().item()
+        del big
+        log(f"nn_layers randn moments: {NN_MOMENTS} draws, mean {mean:.6f}, "
+            f"std {std:.6f}")
+        checks["randn of 2**26: mean within 1e-3 of 0, std of 1"] = \
+            abs(mean) < 1e-3 and abs(std - 1.0) < 1e-3
+        if not RATES:
+            card_rates(torch)
+        key = prng.PRNGKey(3)
+        n_el = NN_FILL[0] * NN_FILL[1]
+        fills = {}
+        for mode, fn, yard, need_el in (
+                ("uniform", lambda: tf.uniform(key, NN_FILL, "cuda"),
+                 lambda: torch.rand(NN_FILL, device="cuda"),
+                 plus(HASH, UNIFORM)),
+                ("normal", lambda: tf.normal(key, NN_FILL, "cuda"),
+                 lambda: torch.randn(NN_FILL, device="cuda"),
+                 plus(HASH, UNIFORM, {"fp32": 12}))):
+            ms = cuda_ms(fn, torch)
+            yard_ms = cuda_ms(yard, torch)
+            b_ms, by, term = bound(4 * n_el, 0, peak,
+                                   instr=ops_of((n_el, need_el)), term=True)
+            bytes_ms = 4 * n_el / peak[0] * 1e3
+            fills[mode] = {"ms": ms, "bound_ms": b_ms, "bound_by": by,
+                           "bytes_ms": bytes_ms, "torch_ms": yard_ms}
+            log(f"nn_layers fill {mode} [{card}]: {NN_FILL[0]} x "
+                f"{NN_FILL[1]} f32 {ms:.4f} ms; bound {b_ms:.4f} ms ({by}: "
+                f"{term}; the bytes alone {bytes_ms:.4f} ms); torch."
+                f"{'rand' if mode == 'uniform' else 'randn'} (Philox, "
+                f"another function) {yard_ms:.4f} ms")
+        record["threefry_fill"]["fills"] = fills
+        # (b) the layer table
+        t_table = time.perf_counter()
+        table, fails, launches, worst = nn_table(torch, np, pt)
+        log(f"nn_layers table: {len(table)} rows, card against CPU, "
+            f"forward and backward; largest error by tolerance "
+            f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} }; "
+            f"{time.perf_counter() - t_table:.1f} s")
+        for name, _, _, tol, route, _ in table:
+            if route != "plain torch":
+                log(f"  nn_layers row {name}: {route}, tolerance "
+                    f"{NN_TOL[tol]}, launches {launches.get(name)}")
+        for f in fails:
+            log(f"  nn_layers table FAIL {f}")
+        checks["every row within its tolerance"] = not fails
+        want_rms = {"k5_fwd": 1, "k5_bwd": 1}
+        checks["RMSNorm launches K5a 1, K5b 1"] = {
+            k: launches.get("RMSNorm", {}).get(k, 0) for k in want_rms} \
+            == want_rms
+        checks["MultiHeadAttention (head dims 64, 32, 96; no mask, eval) "
+               "launches K4a 1"] = all(
+                   launches.get(n, {}).get("k4_fwd") == 1 for n in (
+                       "MultiHeadAttention", "MultiHeadAttention_hd32",
+                       "MultiHeadAttention_hd96"))
+        # (c) Transformer-base
+        pt.set_device("gpu")
+        pt.seed(0)
+        card_m = nn_transformer_base(pt, np)
+        # the same model on the CPU: its weights are the card's (whose
+        # draws (a) held to the CPU's bit for bit; drawing 60 M normals
+        # with the plain version takes a minute)
+        cpu_m = copy.deepcopy(card_m).to("cpu")
+        n_params = sum(p.numel() for p in card_m.parameters())
+        drops = nn_dropout_layers(card_m)
+        src, tin, tout = nn_tbase_batch(torch, np, TBASE["parity"], "cuda")
+        pt.set_device("gpu")
+        zero_counts()
+        pt.seed(7)
+        loss_c = nn_tbase_step(pt, card_m, src, tin, tout)
+        loss_c.backward()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        pt.set_device("cpu")
+        pt.seed(7)
+        loss_h = nn_tbase_step(pt, cpu_m, src.cpu(), tin.cpu(), tout.cpu())
+        loss_h.backward()
+        loss_err = abs(loss_c.item() - loss_h.item()) / abs(loss_h.item())
+        hp = dict(cpu_m.named_parameters())
+        gmax = max(g.grad.abs().max().item() for g in hp.values())
+        grad_errs = {n: nn_scaled_err(torch, p.grad, hp[n].grad,
+                                      NN_GRAD_FLOOR * gmax
+                                      if n.endswith(NN_ZERO_GRAD) else 0.0)
+                     for n, p in card_m.named_parameters()}
+        worst_grad = max(grad_errs, key=grad_errs.get)
+        grad_err = grad_errs[worst_grad]
+        proj = {w: max(e for n, e in grad_errs.items()
+                       if f"{w}_proj." in n and not n.endswith(NN_ZERO_GRAD))
+                for w in ("q", "k", "v")}
+        zero = max(e for n, e in grad_errs.items()
+                   if n.endswith(NN_ZERO_GRAD))
+        L = TBASE["layers"]
+        log(f"nn_layers Transformer-base parity [{card}]: {n_params} "
+            f"parameters, {TBASE['parity']} (batch, source, target) tokens, "
+            f"f32: loss {loss_c.item():.6f} card, {loss_h.item():.6f} CPU "
+            f"(relative {loss_err:.3g}); largest gradient error {grad_err:.3g}"
+            f" ({worst_grad}); q / k / v projections' largest "
+            f"{ {w: float(f'{e:.3g}') for w, e in proj.items()} }, the key "
+            f"biases' (over {NN_GRAD_FLOOR} of the largest gradient) "
+            f"{zero:.3g}; launches {counts}; {drops} dropout layers")
+        checks[f"Transformer-base loss within {TBASE_TOL['loss']} and "
+               f"gradients within {TBASE_TOL['grad']} of the CPU's"] = \
+            loss_err <= TBASE_TOL["loss"] and grad_err <= TBASE_TOL["grad"]
+        checks[f"Transformer-base parity step launches K4a {2 * L}, K4b "
+               f"{2 * L} + {2 * L}, R2 dropout 2 x {drops}, no fill"] = \
+            nn_tbase_launches_ok(counts, 1, L, drops)
+        del cpu_m, hp
+
+        def train_run(model, steps):
+            opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+            src, tin, tout = nn_tbase_batch(torch, np, TBASE["train"],
+                                            "cuda", seed=1)
+            losses, times = [], []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with amp.auto_cast(level="O1", dtype="bfloat16"):
+                    loss = nn_tbase_step(pt, model, src, tin, tout)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                losses.append(loss.item())
+                times.append(time.perf_counter() - t)
+            return losses, times
+
+        pt.set_device("gpu")
+        steps = TBASE["steps"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        losses, times = train_run(card_m, steps)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        B, Ss, St = TBASE["train"]
+        ms = float(np.median(times[1:])) * 1e3
+        log(f"nn_layers Transformer-base train [{card}]: {B} x {Ss} / {St} "
+            f"tokens, AdamW, auto_cast bf16, attn_dropout 0: losses "
+            f"{[round(v, 4) for v in losses]}; {ms:.1f} ms a step "
+            f"(median of {len(times) - 1}), {B * (Ss + St) / ms * 1e3:.0f} "
+            f"tokens/s, peak {peak_gb:.2f} GiB; launches over {steps} steps "
+            f"{counts}")
+        checks["Transformer-base loss finite and falling"] = all(
+            math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+        checks[f"Transformer-base train launches {steps} x (K4a {2 * L}, "
+               f"K4b {2 * L} + {2 * L}, R2 dropout 2 x {drops}), no fill"] = \
+            nn_tbase_launches_ok(counts, steps, L, drops)
+        record["flash_attention_fwd"]["nn_layers_launches"] = \
+            counts["k4_fwd"]
+        record["flash_attention_bwd"]["nn_layers_launches"] = counts["k4_dq"]
+        record["threefry_fill"]["nn_layers_launches"] = counts["r2_dropout"]
+        profile_once(torch, lambda: train_run(card_m, 1), card,
+                     "nn_layers Transformer-base")
+        del card_m
+        torch.cuda.empty_cache()
+        pt.seed(0)
+        comp_m = nn_transformer_base(pt, np, attn_dropout=0.1)
+        _, ctimes = train_run(comp_m, 4)
+        cms = float(np.median(ctimes[1:])) * 1e3
+        log(f"nn_layers Transformer-base train [{card}]: paddle's default "
+            f"attn_dropout 0.1 (attention by the composition) {cms:.1f} ms "
+            f"a step (median of {len(ctimes) - 1})")
+        del comp_m
+        torch.cuda.empty_cache()
+        # (d) the LSTM
+        H, Ln = NN_LSTM["hidden"], NN_LSTM["layers"]
+        T, Bl, Bc = NN_LSTM["T"], NN_LSTM["B"], NN_LSTM["check_B"]
+        x = np.random.default_rng(2).standard_normal((Bl, T, H)).astype(
+            np.float32)
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            pt.set_device("gpu" if dev == "cuda" else "cpu")
+            pt.seed(0)
+            lstm = pt.nn.LSTM(H, H, num_layers=Ln)
+            xs = torch.tensor(x[:Bc], device=dev, requires_grad=True)
+            out, (h, c) = lstm(xs)
+            (out.sum() + h.sum()).backward()
+            outs[dev] = [out, h, c, xs.grad] + [p.grad for p in
+                                                lstm.parameters()]
+            if dev == "cuda":
+                card_lstm = lstm
+        lstm_err = max(nn_scaled_err(torch, a, b) for a, b in
+                       zip(outs["cuda"], outs["cpu"]))
+        xb = torch.tensor(x, device="cuda")
+
+        def lstm_step():
+            out, (h, c) = card_lstm(xb)
+            out.sum().backward()
+
+        lstm_ms = event_ms(lstm_step, torch, iters=5, warmup=1)
+        log(f"nn_layers LSTM [{card}]: {Ln} layers, input and hidden {H}; "
+            f"card against CPU at batch {Bc} x {T}: largest error "
+            f"{lstm_err:.3g}; {Bl} x {T} forward + backward {lstm_ms:.1f} "
+            f"ms")
+        checks[f"LSTM within {NN_TOL['lstm']} of the CPU"] = \
+            lstm_err <= NN_TOL["lstm"]
+        # (e) the host's cost of Layer.__call__ (hooks, the Tensor test)
+        # over torch.nn.Module.__call__, on one Linear's forward
+        pt.set_device("gpu")
+        lin = pt.nn.Linear(64, 64)
+        xs = torch.randn(8, 64, device="cuda")
+        xt = pt.to_tensor(xs)
+        calls = {"Layer.__call__": lambda: lin(xs),
+                 "torch.nn.Module.__call__":
+                     lambda: torch.nn.Module.__call__(lin, xs),
+                 "Layer.__call__ on a Tensor": lambda: lin(xt)}
+        us = dict.fromkeys(calls, math.inf)
+        with torch.no_grad():
+            for _ in range(3):                  # in turns, the least
+                for name, fn in calls.items():
+                    us[name] = min(us[name], nn_host_us(torch, fn))
+        log(f"nn_layers host [{card}]: a Linear(64, 64) forward at 8 rows, "
+            f"us a call (least of 3 turns of {NN_HOST_CALLS}) "
+            f"{ {k: float(f'{v:.3f}') for k, v in us.items()} }")
+    finally:
+        tdevice._default[0] = None
+    log(f"nn_layers phase {time.perf_counter() - t_phase:.1f} s; checks "
+        f"{checks}")
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"nn_layers: check failed: {name}")
+
+
 def phase_int8_infer(torch, np, card, record, model):
     """Llama-2-7B bf16 (the serve phase's model, or a new one from seed
     0), then converted in place to int8: one forward each of 8 x 512 ids
@@ -8150,6 +8866,9 @@ def main():
     if "tensor_api" in phases:
         torch.cuda.empty_cache()
         timed("tensor_api", phase_tensor_api, torch, np, card, record)
+    if "nn_layers" in phases:
+        torch.cuda.empty_cache()
+        timed("nn_layers", phase_nn_layers, torch, np, card, peak, record)
     if "int8_infer" in phases:
         timed("int8_infer", phase_int8_infer, torch, np, card, record,
               model_7b)

@@ -16,9 +16,10 @@ them: ``to_tensor(np.arange(3))`` is int32), ``no_grad`` /
 where the reference has one, as a ``Tensor`` method, in-place variants
 included. Tensors are made on the default place: the card, unless
 ``pt.set_device("cpu")`` (or ``place="cpu"``) says otherwise; without a
-card the default raises. The random ops raise ``NotImplementedError``
-until ROADMAP item 15.2. The serving tick and the train step take plain
-torch tensors and never go through this layer.
+card the default raises. The random ops (``ops.random_ops``) draw
+``jax.random``'s stream under ``pt.seed``, as do ``nn``'s initializers
+(``ParamAttr``, ``create_parameter``). The serving tick and the train
+step take plain torch tensors and never go through this layer.
 
 What runs on the card:
 - Llama serving: ``models.llama.LlamaForCausalLM``, its paged and dense
@@ -38,14 +39,18 @@ What runs on the card:
   recorder, goodput, costs, journeys, SLOs);
 - deployment: ``inference.export_layer`` / ``Predictor`` /
   ``export_decode`` over ``torch.export``, and the ``BatchScheduler``;
-- training: ``nn`` (``functional``, ``Linear``, ``Embedding``,
-  ``LayerNorm``, the losses, the gradient clips), the optimizer zoo and
+- training: ``nn`` (``Layer`` over ``torch.nn.Module`` and its
+  containers; ``functional``; the core layers: convolutions, pools,
+  norms, dropouts, activations, losses; the RNNs and the Transformer
+  stack; the initializers; ``nn.utils``; the gradient clips), the
+  optimizer zoo and
   its schedulers, ``amp`` (``auto_cast``, ``decorate``, ``GradScaler``),
   recompute, ``jit.train_step_fn``, and the high-level loop ``Model``
   (``hapi``) with ``io.DataLoader``, checkpoints, ``metric`` and the
   fault-tolerant ``reliability.TrainSupervisor``;
-- randomness: ``jax.random``'s threefry stream bit for bit
-  (``core.prng``, ``seed`` / ``get_rng_state`` / ``set_rng_state``).
+- randomness: ``jax.random``'s threefry stream (``core.prng``,
+  ``seed`` / ``get_rng_state`` / ``set_rng_state``): the uniform family
+  bit for bit, the normal family within 3 ulps.
 
 Every TPU kernel has a hand-written CUDA counterpart for ``sm_90a``
 under ``csrc/``, each with its plain PyTorch version beside it
@@ -55,7 +60,8 @@ and backward, for training (``nn.functional.flash_attention`` and
 ``rms_norm``, which take the paddle ``Tensor`` too); rope (K6), the
 GEMM epilogue (K7) and the int8 matmul (K8); the optimizer's fused
 Adam step; and the random kernels R1 (the serving tick's seeded draw)
-and R2 (dropout and the draws).
+and R2 (dropout and the draws: bits, uniform, normal, truncated
+normal).
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``device.resolve_device``). On the CPU every kernel wrapper takes its
@@ -87,6 +93,8 @@ from .device import (  # noqa: F401
 )
 from .hapi import Model, flops, summary  # noqa: F401
 from .io import load, save  # noqa: F401
+from .nn.layer import create_parameter  # noqa: F401
+from .nn.param_attr import ParamAttr  # noqa: F401
 from .ops import random_ops as _random_ops  # noqa: F401
 from .ops.registry import OPS as _OPS
 from .ops.registry import install_method_tail as _install_mt

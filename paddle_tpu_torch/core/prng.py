@@ -21,7 +21,27 @@ in plain torch on any device:
   the scale and shift into one fused multiply-add; ``fma_f32`` emulates
   it); bernoulli is ``uniform < p``;
 - ``gumbel_from_bits``: ``-log(-log(uniform(minval, 1)))``, mode "low"
-  of ``jax.random.gumbel`` at ``minval = tiny``.
+  of ``jax.random.gumbel`` at ``minval = tiny``;
+- ``uniform_from_bits`` in bf16 follows jax's 16-bit rule: 8 random
+  bits (the low byte of the 32-bit draw), 7 of them as the mantissa,
+  then ``max(lo, u * (hi - lo) + lo)`` rounded to bf16 after each
+  operation (no fused multiply-add): not the f32 draw rounded;
+- ``normal_from_bits``: ``sqrt(2) * erf_inv(uniform(nextafter(-1, 0),
+  1))`` (``_normal_real``), ``erf_inv_f32`` being XLA's f32 polynomial
+  (a branch at ``w = -log1p(-x * x) = 5``, Horner steps fused); bf16
+  takes the f32 ``erf_inv`` of its 16-bit uniform rounded to bf16;
+- ``truncated_normal_from_bits``: the uniform over ``(erf(lo / sqrt 2),
+  erf(hi / sqrt 2))``, ``erf_inv``, clipped to the open interval;
+- ``exponential_from_uniform``: ``jax.random.exponential``'s
+  ``-log1p(-uniform)``. jax's algorithms over the draws (``randint``,
+  the permutations, ``categorical``, ``poisson``) are in
+  ``ops.random_ops``, drawing through R2.
+
+XLA's f32 ``log1p`` is its own polynomial, within 2 ulps of the
+correctly rounded value that ``log1p_rn`` takes (f64, rounded once), so
+the normal family is within 3 ulps of jax's, not bit for bit: over all
+2**23 f32 uniform values 78960 differ (ROADMAP Queue 3); the uniform
+family is bit for bit.
 
 Keys are ``torch.uint32`` tensors whose last dimension holds the two
 words, as jax's raw keys are. torch's ``uint32`` has no arithmetic on
@@ -39,12 +59,25 @@ import torch
 
 __all__ = ["threefry2x32", "PRNGKey", "key_data", "key_numpy", "make_key",
            "split", "fold_in", "random_bits", "uniform_from_bits",
-           "gumbel_from_bits", "log_rn", "fma_f32", "MASK", "TINY_F32"]
+           "gumbel_from_bits", "log_rn", "log1p_rn", "fma_f32", "MASK",
+           "TINY_F32", "SQRT2_F32", "erf_inv_f32", "normal_from_bits",
+           "truncated_normal_from_bits", "truncated_bounds",
+           "exponential_from_uniform", "DRAW_DTYPES"]
 
 MASK = 0xFFFFFFFF
 KS_PARITY = 0x1BD11BDA
 ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 TINY_F32 = float(np.finfo(np.float32).tiny)
+SQRT2_F32 = float(np.float32(math.sqrt(2.0)))
+DRAW_DTYPES = (torch.float32, torch.bfloat16)
+# XLA's ErfInv32 (xla/hlo/builder/lib/math.cc): Horner coefficients for
+# w < 5 and for w >= 5
+ERFINV_LT = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+             -4.39150654e-06, 0.00021858087, -0.00125372503,
+             -0.00417768164, 0.246640727, 1.50140941)
+ERFINV_GT = (-0.000200214257, 0.000100950558, 0.00134934322,
+             -0.00367342844, 0.00573950773, -0.0076224613,
+             0.00943887047, 1.00167406, 2.83297682)
 
 
 def _rotl(x, r):
@@ -158,18 +191,100 @@ def fma_f32(a, b, c):
     return s.float()
 
 
-def uniform_from_bits(bits, minval=0.0, maxval=1.0):
-    """``jax.random.uniform(key, shape, float32, minval, maxval)`` from
-    its 32-bit draws (int64), for Python-number bounds: the top 23 bits
+def _scalar(v, dtype, device):
+    return torch.tensor(v, dtype=dtype, device=device)
+
+
+def uniform_from_bits(bits, minval=0.0, maxval=1.0, dtype=torch.float32):
+    """``jax.random.uniform(key, shape, dtype, minval, maxval)`` from its
+    32-bit draws (int64), for Python-number bounds. f32: the top 23 bits
     OR 1.0, minus 1 (exact), then ``max(minval, fma(u, maxval - minval,
-    minval))`` with the bounds and their difference in f32. At the
+    minval))`` with the bounds and their difference in f32; at the
     default bounds it is ``u`` itself, and bernoulli's keep flag is ``u <
-    f32(p)``."""
+    f32(p)``. bf16: the draw's low byte shifted right by one, OR 1.0,
+    minus 1, then the scale and the shift each rounded to bf16."""
+    if dtype == torch.bfloat16:
+        f = (((bits & 0xFF) >> 1) | 0x3F80).to(torch.int16).view(
+            torch.bfloat16) - 1.0
+        lo = _scalar(minval, torch.bfloat16, f.device)
+        scale = _scalar(maxval, torch.bfloat16, f.device) - lo
+        return torch.maximum(lo, f * scale + lo)
+    if dtype != torch.float32:
+        raise TypeError(f"uniform draws f32 or bf16, not {dtype}")
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) \
         - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
-    scale = torch.tensor(maxval, dtype=torch.float32, device=f.device) - lo
+    lo = _scalar(minval, torch.float32, f.device)
+    scale = _scalar(maxval, torch.float32, f.device) - lo
     return torch.maximum(lo, fma_f32(f, scale, lo))
+
+
+def erf_inv_f32(x):
+    """XLA's f32 ``erf_inv`` of f32 ``x``: ``w = -log1p(-x * x)``, then a
+    degree-8 polynomial in ``w - 2.5`` (w < 5) or ``sqrt(w) - 3``, each
+    Horner step one fused multiply-add, times ``x``; +-1 gives +-inf.
+    The log1p and the square root are taken in f64 and rounded once."""
+    w = -log1p_rn(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    lt_c = torch.tensor(ERFINV_LT, dtype=torch.float32, device=x.device)
+    gt_c = torch.tensor(ERFINV_GT, dtype=torch.float32, device=x.device)
+    p = torch.where(lt, lt_c[0], gt_c[0])
+    for i in range(1, len(ERFINV_LT)):
+        p = fma_f32(p, w, torch.where(lt, lt_c[i], gt_c[i]))
+    big = _scalar(float(np.finfo(np.float32).max), torch.float32, x.device)
+    return torch.where(x.abs() == 1.0, x * big, p * x)
+
+
+def _sqrt2_erf_inv(u):
+    """``sqrt(2) * erf_inv(u)`` in u's type (f32 or bf16)."""
+    if u.dtype == torch.bfloat16:
+        e = erf_inv_f32(u.float()).to(torch.bfloat16)
+        return _scalar(math.sqrt(2.0), torch.bfloat16, u.device) * e
+    return _scalar(SQRT2_F32, torch.float32, u.device) * erf_inv_f32(u)
+
+
+def _nextafter(v, toward, dtype):
+    """``nextafter`` of the Python number ``v`` in ``dtype`` (f32, bf16)
+    toward ``toward``, as a Python float."""
+    t = torch.tensor(v, dtype=dtype)
+    n = t.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+    step = 1 if (toward > float(t)) == (float(t) >= 0) else -1
+    if float(t) == 0.0:
+        raise ValueError("nextafter from 0 is not needed here")
+    return float((n + step).view(dtype))
+
+
+def normal_from_bits(bits, dtype=torch.float32):
+    """``jax.random.normal(key, shape, dtype)`` from its 32-bit draws:
+    ``sqrt(2) * erf_inv(uniform(nextafter(-1, 0), 1))``."""
+    lo = _nextafter(-1.0, 0.0, dtype)
+    return _sqrt2_erf_inv(uniform_from_bits(bits, lo, 1.0, dtype))
+
+
+def truncated_bounds(lower, upper, dtype=torch.float32):
+    """(a, b, lo, hi) of ``truncated_normal(lower, upper)`` in ``dtype``:
+    the uniform's bounds ``erf(bound / sqrt 2)`` (the quotient in
+    ``dtype``, erf taken in f64 and rounded to ``dtype``) and the clip's,
+    the bounds' neighbours inside the interval."""
+    def rnd(v):
+        return float(torch.tensor(v, dtype=dtype))
+    s2 = rnd(math.sqrt(2.0))
+    lo, hi = rnd(lower), rnd(upper)
+    a = rnd(math.erf(rnd(lo / s2)))
+    b = rnd(math.erf(rnd(hi / s2)))
+    return a, b, _nextafter(lo, math.inf, dtype), \
+        _nextafter(hi, -math.inf, dtype)
+
+
+def truncated_normal_from_bits(bits, lower=-2.0, upper=2.0,
+                               dtype=torch.float32):
+    """``jax.random.truncated_normal(key, lower, upper, shape, dtype)``
+    from its 32-bit draws, for Python-number bounds: ``sqrt(2) *
+    erf_inv(uniform(a, b))`` clipped to the open interval."""
+    a, b, lo, hi = truncated_bounds(lower, upper, dtype)
+    out = _sqrt2_erf_inv(uniform_from_bits(bits, a, b, dtype))
+    return torch.minimum(torch.maximum(out, _scalar(lo, dtype, out.device)),
+                         _scalar(hi, dtype, out.device))
 
 
 def gumbel_from_bits(bits, minval=TINY_F32):
@@ -188,3 +303,15 @@ def log_rn(x):
     ``logf`` by one. The kernels take the same f64 log, so the card's
     Gumbel noise is its plain version's bit for bit."""
     return torch.log(x.double()).to(x.dtype)
+
+
+def log1p_rn(x):
+    """``log1p(x)`` rounded once to x's type: taken in f64."""
+    return torch.log1p(x.double()).to(x.dtype)
+
+
+def exponential_from_uniform(u):
+    """``jax.random.exponential``'s ``-log1p(-u)`` of a uniform draw, the
+    log1p in f64 rounded to u's type (XLA's f32 log1p is within 2 ulps of
+    it)."""
+    return -log1p_rn(-u)

@@ -15,8 +15,9 @@
 //
 // Layouts (row-major, contiguous; BH = batch * heads): q, o, do, dq
 // [BH, Sq, hd]; k, v, dk, dv [BH, Sk, hd]; lse, delta, dlse [BH, Sq] f32.
-// f32 or bf16; hd 16, 64 or 128; any Sq and Sk (the tail tiles are
-// masked).
+// f32 or bf16; hd 16, 32, 64, 96 or 128 (32 and 96: nn's common
+// MultiHeadAttention widths, 256 / 8 and 768 / 8); any Sq and Sk (the tail
+// tiles are masked).
 //
 // What bounds it on this card. At llama_350m's training shape (B = 8, 16
 // heads, S = 1024, hd = 64, causal) the forward does 2 * B * H * S^2 * hd
@@ -1095,8 +1096,12 @@ bool bad_dims(int BH, int Sq, int Sk, int dtype) {
   switch (hd) {                          \
     case 16:                             \
       return call<16>(__VA_ARGS__);      \
+    case 32:                             \
+      return call<32>(__VA_ARGS__);      \
     case 64:                             \
       return call<64>(__VA_ARGS__);      \
+    case 96:                             \
+      return call<96>(__VA_ARGS__);      \
     case 128:                            \
       return call<128>(__VA_ARGS__);     \
     default:                             \

@@ -7,6 +7,15 @@
 //     (paddle_tpu/nn/functional.py:161-172, gumbel_softmax's noise;
 //     jax.random.gumbel);
 //   - bernoulli's keep mask, uniform < p (alpha_dropout, :241-254);
+//   - the draws of the random ops and the initializers
+//     (paddle_tpu/ops/random_ops.py, paddle_tpu/nn/initializer.py:58-165):
+//     the raw 32-bit bits (randint, the permutations' sort keys),
+//     jax.random.uniform(minval, maxval), normal (sqrt(2) *
+//     erf_inv(uniform(nextafter(-1, 0), 1)), XLA's f32 erf_inv
+//     polynomial) and truncated_normal (the uniform over (erf(lo / sqrt
+//     2), erf(hi / sqrt 2)), erf_inv, clipped), in f32 and in bf16 by
+//     jax's 16-bit rule (8 random bits, the scale and the shift each
+//     rounded to bf16, erf_inv in f32 rounded to bf16);
 //   - dropout (:208-228, and scaled_dot_product_attention's dropout of
 //     the attention output, :929-930): keep = uniform(mask shape) <
 //     1 - p, then where(keep, v / (1 - p), 0) ("upscale_in_train") or
@@ -69,7 +78,12 @@ constexpr long long kMaxBlocks = 1 << 16;
 constexpr int kMaxRuns = 8;
 constexpr int kChunk = 8;           // mask elements a dropout item hashes
 enum : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
-enum : int { kKeep = 0, kGumbel = 1 };
+// the draws (ops/kernels/threefry_fill.py: MODES) and their output types
+enum : int {
+  kKeep = 0, kGumbel = 1, kBits = 2, kUniform = 3, kNormal = 4,
+  kTruncated = 5
+};
+enum : int { kOutF32 = 0, kOutBF16 = 1 };
 enum : int { kScale = 0, kMask = 1, kScaleGrad = 2 };
 enum : int { kVector = 0, kScalar = 1, kWide = 2 };
 
@@ -369,14 +383,124 @@ dropout_full_kernel(uint32_t k0, uint32_t k1, const void* __restrict__ xv,
   }
 }
 
-// A draw of n elements: kKeep the uint8 flags keep_bits(bits, thresh), 16
-// a 16-byte store; kGumbel the f32 noise -log(-log(uniform(lo, 1))), 4 a
-// store. The last, partial item stores one element at a time.
-template <int kWhat, typename Idx>
+
+// XLA's ErfInv32 (xla/hlo/builder/lib/math.cc), the constants as the
+// host's f64 values rounded to f32 (ops/kernels/threefry_fill.py rounds
+// the same doubles)
+__device__ __forceinline__ float erf_inv_f32(float x) {
+  const float lt[9] = {
+      static_cast<float>(2.81022636e-08), static_cast<float>(3.43273939e-07),
+      static_cast<float>(-3.5233877e-06), static_cast<float>(-4.39150654e-06),
+      static_cast<float>(0.00021858087), static_cast<float>(-0.00125372503),
+      static_cast<float>(-0.00417768164), static_cast<float>(0.246640727),
+      static_cast<float>(1.50140941)};
+  const float gt[9] = {
+      static_cast<float>(-0.000200214257), static_cast<float>(0.000100950558),
+      static_cast<float>(0.00134934322), static_cast<float>(-0.00367342844),
+      static_cast<float>(0.00573950773), static_cast<float>(-0.0076224613),
+      static_cast<float>(0.00943887047), static_cast<float>(1.00167406),
+      static_cast<float>(2.83297682)};
+  // w = -log1p(-x * x), the log1p in f64 rounded once (prng.log1p_rn)
+  float w = -__double2float_rn(
+      log1p(-static_cast<double>(__fmul_rn(x, x))));
+  const bool small = w < 5.0f;
+  w = small ? __fsub_rn(w, 2.5f)
+            : __fsub_rn(__double2float_rn(__dsqrt_rn(
+                            static_cast<double>(w))), 3.0f);
+  float p = small ? lt[0] : gt[0];
+#pragma unroll
+  for (int i = 1; i < 9; ++i) p = __fmaf_rn(p, w, small ? lt[i] : gt[i]);
+  return fabsf(x) == 1.0f ? __fmul_rn(x, 3.40282346638528859812e+38f)
+                          : __fmul_rn(p, x);
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The draw's parameters, computed on the host in the output's type
+// (threefry_fill.py: _fill_params): the uniform's minval (a Gumbel
+// draw's too) and scale (maxval - minval), the clip bounds of a
+// truncated normal, sqrt(2), and the keep test's threshold.
+struct FillParams {
+  float lo, scale, clip_lo, clip_hi, sqrt2;
+  uint32_t thresh;
+};
+
+// jax.random.uniform(minval, maxval) of one 32-bit draw, as an f32
+// holding the output type's value: f32, max(lo, fma(u, scale, lo)); bf16
+// (jax's 16-bit rule), u from the draw's low byte shifted right by one
+// (7 mantissa bits, exact), then the product and the sum each rounded
+// to bf16
+template <int kOut>
+__device__ __forceinline__ float uniform_of(uint32_t b, const FillParams& q) {
+  if (kOut == kOutF32)
+    return fmaxf(q.lo, __fmaf_rn(tf::unit_f32(b), q.scale, q.lo));
+  const float u = __fsub_rn(
+      __uint_as_float((((b & 0xFFu) >> 1) | 0x3F80u) << 16), 1.0f);
+  return fmaxf(q.lo, round_bf16(__fadd_rn(round_bf16(__fmul_rn(u, q.scale)),
+                                          q.lo)));
+}
+
+template <int kOut>
+__device__ __forceinline__ float sqrt2_erf_inv(float u, const FillParams& q) {
+  if (kOut == kOutF32) return __fmul_rn(q.sqrt2, erf_inv_f32(u));
+  return round_bf16(__fmul_rn(q.sqrt2, round_bf16(erf_inv_f32(u))));
+}
+
+template <int kMode, int kOut>
+__device__ __forceinline__ float draw_of(uint32_t b, const FillParams& q) {
+  const float u = uniform_of<kOut>(b, q);
+  if (kMode == kUniform) return u;
+  const float n = sqrt2_erf_inv<kOut>(u, q);
+  if (kMode == kNormal) return n;
+  return fminf(fmaxf(n, q.clip_lo), q.clip_hi);
+}
+
+// The draw's element: kKeep a uint8 flag, a bf16 draw 16 bits, else 32
+template <int kMode, int kOut>
+struct Out {
+  using Raw = uint32_t;
+};
+template <>
+struct Out<kKeep, kOutF32> {
+  using Raw = uint8_t;
+};
+template <int kMode>
+struct Out<kMode, kOutBF16> {
+  using Raw = unsigned short;
+};
+
+// element i of a draw from its 32-bit draw b: kKeep keep_bits(b,
+// thresh), kGumbel the f32 noise -log(-log(uniform(lo, 1))), kBits b,
+// else draw_of's value in the output type
+template <int kMode, int kOut>
+__device__ __forceinline__ typename Out<kMode, kOut>::Raw value_of(
+    uint32_t b, const FillParams& q) {
+  if constexpr (kMode == kKeep) {
+    return tf::keep_bits(b, q.thresh) ? 1 : 0;
+  } else if constexpr (kMode == kGumbel) {
+    return __float_as_uint(tf::gumbel_f32(b, q.lo));
+  } else if constexpr (kMode == kBits) {
+    return b;
+  } else if constexpr (kOut == kOutF32) {
+    return __float_as_uint(draw_of<kMode, kOut>(b, q));
+  } else {
+    return static_cast<unsigned short>(
+        __float_as_uint(draw_of<kMode, kOut>(b, q)) >> 16);
+  }
+}
+
+// A draw of n elements of kMode: an item is one 16-byte store (16 keep
+// flags, 8 bf16 values or 4 of 32 bits), packed into words in element
+// order; the last, partial item stores one element at a time.
+template <int kMode, int kOut, typename Idx>
 __global__ void __launch_bounds__(kThreads)
 fill_kernel(uint32_t k0, uint32_t k1, void* __restrict__ out, Idx n,
-            float lo, uint32_t thresh) {
-  constexpr int kPer = kWhat == kKeep ? 16 : 4;
+            const FillParams q) {
+  using Raw = typename Out<kMode, kOut>::Raw;
+  constexpr int kPerWord = 4 / static_cast<int>(sizeof(Raw));
+  constexpr int kPer = 4 * kPerWord;
   const Idx items = (n + kPer - 1) / kPer;
   const Idx stride = static_cast<Idx>(gridDim.x) * kThreads;
   for (Idx t = static_cast<Idx>(blockIdx.x) * kThreads + threadIdx.x;
@@ -385,30 +509,21 @@ fill_kernel(uint32_t k0, uint32_t k1, void* __restrict__ out, Idx n,
     if (i0 + kPer <= n) {
       uint32_t w[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (kWhat == kKeep) {
-          w[q] = 0;
+      for (int j = 0; j < 4; ++j) {
+        w[j] = 0;
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            w[q] |= static_cast<uint32_t>(tf::keep_bits(
-                        tf::bits_at(k0, k1, i0 + static_cast<Idx>(4 * q + e)),
-                        thresh))
-                    << (8 * e);
-        } else {
-          w[q] = __float_as_uint(tf::gumbel_f32(
-              tf::bits_at(k0, k1, i0 + static_cast<Idx>(q)), lo));
-        }
+        for (int e = 0; e < kPerWord; ++e)
+          w[j] |= static_cast<uint32_t>(value_of<kMode, kOut>(
+                      tf::bits_at(k0, k1,
+                                  i0 + static_cast<Idx>(kPerWord * j + e)),
+                      q))
+                  << (8 * sizeof(Raw) * e);
       }
       reinterpret_cast<uint4*>(out)[t] = make_uint4(w[0], w[1], w[2], w[3]);
     } else {
-      for (Idx i = i0; i < n; ++i) {
-        const uint32_t b = tf::bits_at(k0, k1, i);
-        if (kWhat == kKeep) {
-          static_cast<uint8_t*>(out)[i] = tf::keep_bits(b, thresh) ? 1 : 0;
-        } else {
-          static_cast<float*>(out)[i] = tf::gumbel_f32(b, lo);
-        }
-      }
+      for (Idx i = i0; i < n; ++i)
+        static_cast<Raw*>(out)[i] =
+            value_of<kMode, kOut>(tf::bits_at(k0, k1, i), q);
     }
   }
 }
@@ -418,19 +533,30 @@ int blocks_for(unsigned long long items) {
   return static_cast<int>(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
-template <int kWhat>
+template <int kMode, int kOut>
 int fill_as(uint32_t k0, uint32_t k1, void* out, unsigned long long n,
-            float lo, uint32_t thresh, cudaStream_t st) {
-  constexpr int kPer = kWhat == kKeep ? 16 : 4;
+            const FillParams& q, cudaStream_t st) {
+  constexpr int kPer = 16 / static_cast<int>(
+                               sizeof(typename Out<kMode, kOut>::Raw));
   const int blocks = blocks_for((n + kPer - 1) / kPer);
   if (n < (1ull << 32)) {
-    fill_kernel<kWhat, uint32_t><<<blocks, kThreads, 0, st>>>(
-        k0, k1, out, static_cast<uint32_t>(n), lo, thresh);
+    fill_kernel<kMode, kOut, uint32_t><<<blocks, kThreads, 0, st>>>(
+        k0, k1, out, static_cast<uint32_t>(n), q);
   } else {
-    fill_kernel<kWhat, unsigned long long><<<blocks, kThreads, 0, st>>>(
-        k0, k1, out, n, lo, thresh);
+    fill_kernel<kMode, kOut, unsigned long long>
+        <<<blocks, kThreads, 0, st>>>(k0, k1, out, n, q);
   }
   return cudaGetLastError();
+}
+
+template <int kOut>
+int fill_value(int mode, uint32_t k0, uint32_t k1, void* out,
+               unsigned long long n, const FillParams& q, cudaStream_t st) {
+  switch (mode) {
+    case kUniform: return fill_as<kUniform, kOut>(k0, k1, out, n, q, st);
+    case kNormal: return fill_as<kNormal, kOut>(k0, k1, out, n, q, st);
+    default: return fill_as<kTruncated, kOut>(k0, k1, out, n, q, st);
+  }
 }
 
 template <typename T, bool kFromBits>
@@ -473,21 +599,37 @@ void dropout_dispatch(int route, uint32_t k0, uint32_t k1, const void* x,
 
 }  // namespace
 
-// out[i] for i < n: what 0 the uint8 keep flag uniform < p, given as
-// thresh = ceil(f32(p) * 2^23) clamped to [0, 2^23]; 1 the f32 Gumbel
-// noise -log(-log(uniform(lo, 1))). out is 16-byte aligned.
-extern "C" int tf_fill_launch(uint32_t k0, uint32_t k1, int what, void* out,
-                              long long n, float lo, uint32_t thresh,
+// out[i] for i < n of a draw under (k0, k1) by mode: 0 the uint8 keep
+// flag uniform < p, given as thresh = ceil(f32(p) * 2^23) clamped to [0,
+// 2^23]; 1 the f32 Gumbel noise -log(-log(uniform(lo, 1))); 2 the uint32
+// bits; 3 uniform, 4 normal, 5 truncated normal, in out_dtype 0 f32 or 1
+// bf16 (modes 0-2 take 0), with the parameters lo (the uniform's minval),
+// scale (maxval - minval), clip_lo, clip_hi and sqrt2, each a value of
+// out_dtype (threefry_fill.py: _fill_params). out is 16-byte aligned.
+extern "C" int tf_fill_launch(uint32_t k0, uint32_t k1, int mode,
+                              int out_dtype, void* out, long long n,
+                              float lo, float scale, float clip_lo,
+                              float clip_hi, float sqrt2, uint32_t thresh,
                               void* stream) {
-  if (n < 0 || what < kKeep || what > kGumbel || thresh > (1u << 23))
+  if (n < 0 || mode < kKeep || mode > kTruncated || out_dtype < kOutF32 ||
+      out_dtype > kOutBF16 || (mode < kUniform && out_dtype != kOutF32) ||
+      thresh > (1u << 23))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   if (out == nullptr || reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned long long un = static_cast<unsigned long long>(n);
-  return what == kKeep ? fill_as<kKeep>(k0, k1, out, un, lo, thresh, st)
-                       : fill_as<kGumbel>(k0, k1, out, un, lo, thresh, st);
+  const FillParams q{lo, scale, clip_lo, clip_hi, sqrt2, thresh};
+  switch (mode) {
+    case kKeep: return fill_as<kKeep, kOutF32>(k0, k1, out, un, q, st);
+    case kGumbel: return fill_as<kGumbel, kOutF32>(k0, k1, out, un, q, st);
+    case kBits: return fill_as<kBits, kOutF32>(k0, k1, out, un, q, st);
+    default:
+      return out_dtype == kOutF32
+                 ? fill_value<kOutF32>(mode, k0, k1, out, un, q, st)
+                 : fill_value<kOutBF16>(mode, k0, k1, out, un, q, st);
+  }
 }
 
 // Dropout of x (dtype 0 f32, 1 bf16, 2 f16) into out on route 0 vector, 1

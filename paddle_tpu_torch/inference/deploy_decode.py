@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..nn.layer import plain_parameters
 from .export import _load_program, _read_meta, _save_program
 
 __all__ = ["FORMAT", "export_decode", "load_decode", "DeployedGenerator"]
@@ -95,7 +96,7 @@ def export_decode(path_prefix, model, prompt_len, max_new_tokens,
     caches = bundle[0](batch)
     os.makedirs(os.path.dirname(os.path.abspath(path_prefix)), exist_ok=True)
     paths = []
-    with torch.no_grad():
+    with torch.no_grad(), plain_parameters(model):
         for name, mod, args in (
                 ("prefill", _Prefill(model, bundle, batch), (ids,)),
                 ("decode", _DecodeStep(bundle), (tok, caches, t))):

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..nn.layer import plain_parameters
 from ..static import InputSpec, _dtype
 
 __all__ = ["FORMAT", "ExportedProgram", "export_layer", "export_program",
@@ -98,7 +99,7 @@ def _save_program(ep, path):
 def _export(module, examples, dynamic_shapes=None):
     """``torch.export.export`` of ``module`` in inference: no autograd
     graph, no gradient state in the program."""
-    with torch.no_grad():
+    with torch.no_grad(), plain_parameters(module):
         return torch.export.export(module, tuple(examples),
                                    dynamic_shapes=dynamic_shapes)
 

@@ -49,7 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import prng
-from ..nn.layer import Linear
+from ..nn.layers_basic import Linear
 from ..ops.kernels.fused_tick import fused_tick_attention
 from ..ops.kernels.paged_attention import paged_attention
 from ..ops.kernels.ragged_prefill import ragged_prefill_attention

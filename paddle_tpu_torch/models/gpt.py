@@ -19,7 +19,8 @@ from torch import nn
 
 from ..device import resolve_device
 from ..nn import functional as F
-from ..nn.layer import Embedding, LayerNorm, Linear, set_state_dict
+from ..nn.layer import set_state_dict
+from ..nn.layers_basic import Embedding, LayerNorm, Linear
 from .generation import GenerationMixin
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",

@@ -21,7 +21,8 @@ from torch import nn
 
 from ..device import resolve_device
 from ..nn import functional as F
-from ..nn.layer import Linear, set_state_dict
+from ..nn.layer import set_state_dict
+from ..nn.layers_basic import Linear
 from ..ops.rope import apply_rotary_qk, precompute_freqs
 from .generation import GenerationMixin
 

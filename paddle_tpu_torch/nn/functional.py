@@ -1,9 +1,17 @@
-"""The functional operators the Llama train step calls.
+"""The functional operators: those the Llama train step calls and those
+``nn``'s layers call (convolutions and their transposes, pools, norms,
+resampling, the layers' activations and losses).
 
-Port of the matching subset of ``paddle_tpu/nn/functional.py``: RMSNorm
-and attention ride the hand-written kernels (K5 and K4, through their
-autograd Functions), the rest is plain torch, as the JAX package leaves
-it to XLA. The dropout family and ``gumbel_softmax`` draw their keys
+Port of the matching subset of ``paddle_tpu/nn/functional.py`` (the rest,
+which only ``layers_tail`` or no layer calls, is ROADMAP item 15.3's
+tail): RMSNorm and attention ride the hand-written kernels (K5 and K4,
+through their autograd Functions), the rest is plain torch (cuDNN's
+convolutions and pools on the card), as the JAX package leaves it to XLA.
+The layers' ops follow the reference, not torch's defaults: ``batch_norm``
+moves its running statistics paddle's way round with the biased
+variance, the pools take XLA's padding and ignore ``ceil_mode``,
+``interpolate`` is ``jax.image.resize``, the transposed convolutions do
+not flip their kernel. The dropout family and ``gumbel_softmax`` draw their keys
 from ``core.random.next_key`` exactly where the reference does, so the
 same ``seed()`` gives the same masks; on the card the draw and dropout's
 apply are R2 (``ops.kernels.threefry_fill``), dropout's backward reading
@@ -29,6 +37,7 @@ at 0 is 1, ``hardtanh``'s at a bound one half).
 import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as tf
 
@@ -51,7 +60,18 @@ __all__ = ["rms_norm", "layer_norm", "scaled_dot_product_attention",
            "dropout2d", "dropout3d", "alpha_dropout", "gumbel_softmax",
            "relu", "relu6", "leaky_relu", "elu", "selu", "celu", "mish",
            "softplus", "softsign", "softshrink", "hardshrink", "tanhshrink",
-           "hardsigmoid", "hardswish", "hardtanh", "rms_norm_ref"]
+           "hardsigmoid", "hardswish", "hardtanh", "rms_norm_ref",
+           "prelu", "rrelu", "thresholded_relu", "maxout", "glu",
+           "bilinear", "batch_norm", "instance_norm", "group_norm",
+           "local_response_norm", "conv1d", "conv2d", "conv3d",
+           "conv1d_transpose", "conv2d_transpose", "conv3d_transpose",
+           "max_pool1d", "max_pool2d", "max_pool3d", "avg_pool1d",
+           "avg_pool2d", "avg_pool3d", "adaptive_avg_pool1d",
+           "adaptive_avg_pool2d", "adaptive_avg_pool3d",
+           "adaptive_max_pool1d", "adaptive_max_pool2d", "smooth_l1_loss",
+           "nll_loss", "cosine_embedding_loss", "margin_ranking_loss",
+           "hinge_embedding_loss", "triplet_margin_loss", "pixel_shuffle",
+           "interpolate", "upsample"]
 
 
 def rms_norm(x, weight, epsilon=1e-6):
@@ -234,9 +254,15 @@ def linear(x, weight, bias=None):
     return out if bias is None else out + bias
 
 
-def embedding(x, weight):
-    """Rows of ``weight`` at the ids ``x``."""
-    return weight[x.long()]
+def embedding(x, weight, padding_idx=None, sparse=False):
+    """Rows of ``weight`` at the ids ``x``; with ``padding_idx`` the rows
+    of that id come out zero (times a 0/1 mask, so its gradient is zero
+    too). ``sparse`` is accepted and not used: the gradient is dense, as
+    the reference's."""
+    out = weight[x.long()]
+    if padding_idx is not None:
+        out = out * (x != padding_idx)[..., None].to(out.dtype)
+    return out
 
 
 def silu(x):
@@ -474,6 +500,625 @@ def hardtanh(x, min=-1.0, max=1.0):  # noqa: A002
     return _clip(x, min, max)
 
 
+# -- the layers' ops (``functional.py:68-150``, ``:197``, ``:300-400``,
+#    ``:401-715``, ``:729-870``, ``:976-1020`` of the reference): plain
+#    torch, cuDNN's convolutions and pools through torch on the card, as
+#    the reference leaves them to XLA
+
+def prelu(x, weight, data_format="NCHW"):
+    if weight.numel() > 1:
+        shape = [1] * x.dim()
+        shape[1 if data_format == "NCHW" else -1] = weight.numel()
+        weight = weight.reshape(shape)
+    return torch.where(x > 0, x, weight * x)
+
+
+def rrelu(x, lower=0.125, upper=0.333, training=True):
+    """The mean slope ``(lower + upper) / 2`` below zero, while training
+    too: the reference draws no slope."""
+    return torch.where(x >= 0, x, (lower + upper) / 2.0 * x)
+
+
+def thresholded_relu(x, threshold=1.0, value=0.0):
+    return torch.where(x > threshold, x, _scalar(value, x))
+
+
+def maxout(x, groups, axis=1):
+    axis = axis % x.dim()
+    shape = list(x.shape)
+    shape[axis] = x.shape[axis] // groups
+    shape.insert(axis + 1, groups)
+    return x.reshape(shape).amax(axis + 1)
+
+
+def glu(x, axis=-1):
+    a, b = torch.chunk(x, 2, dim=axis)
+    return a * torch.sigmoid(b)
+
+
+def bilinear(x1, x2, weight, bias=None):
+    """``x1 W x2`` with ``weight [out, in1, in2]``."""
+    out = torch.einsum("bi,oij,bj->bo", x1, weight, x2)
+    return out if bias is None else out + bias
+
+
+def _channel_axis(x, data_format):
+    return 1 if data_format.startswith("NC") else x.dim() - 1
+
+
+def _bcast(v, x, axis):
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+    return v.reshape(shape)
+
+
+def _moments(x, axes, keepdim=False):
+    """Mean and biased variance (``jnp.var``) over ``axes``."""
+    mean = x.mean(axes, keepdim=True)
+    var = (x - mean).square().mean(axes, keepdim=keepdim)
+    return (mean if keepdim else mean.squeeze(axes)), var
+
+
+def batch_norm_func(x, running_mean, running_var, weight, bias,
+                    training=False, momentum=0.9, epsilon=1e-5,
+                    data_format="NCHW"):
+    """Batch normalisation with the batch's statistics (``training``) or
+    the running ones; no update (the reference's ``batch_norm_func``)."""
+    caxis = _channel_axis(x, data_format)
+    axes = tuple(i for i in range(x.dim()) if i != caxis)
+    if training:
+        mean, var = _moments(x, axes)
+    else:
+        mean, var = running_mean, running_var
+    out = (x - _bcast(mean, x, caxis)) * torch.rsqrt(
+        _bcast(var, x, caxis) + epsilon)
+    if weight is not None:
+        out = out * _bcast(weight, x, caxis)
+    if bias is not None:
+        out = out + _bcast(bias, x, caxis)
+    return out
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW"):
+    """paddle's batch norm (``functional.py:319-335``). While training
+    the running statistics move in place, paddle's way round: ``running =
+    momentum * running + (1 - momentum) * batch``, the batch variance the
+    biased one; torch's ``batch_norm`` is not called (its momentum weighs
+    the batch, its running variance is unbiased)."""
+    out = batch_norm_func(x, running_mean, running_var, weight, bias,
+                          training, momentum, epsilon, data_format)
+    if training and torch.is_tensor(running_mean):
+        caxis = _channel_axis(x, data_format)
+        axes = tuple(i for i in range(x.dim()) if i != caxis)
+        with torch.no_grad():
+            m, v = _moments(x.detach(), axes)
+            running_mean.copy_(momentum * running_mean + (1 - momentum) * m)
+            running_var.copy_(momentum * running_var + (1 - momentum) * v)
+    return out
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW"):
+    """Per-sample, per-channel normalisation; the scale and the shift
+    apply only when ``weight`` is given, as in the reference."""
+    caxis = _channel_axis(x, data_format)
+    axes = tuple(range(2, x.dim())) if caxis == 1 else \
+        tuple(range(1, x.dim() - 1))
+    mean, var = _moments(x, axes, keepdim=True)
+    out = (x - mean) * torch.rsqrt(var + eps)
+    if weight is not None:
+        out = out * _bcast(weight, x, caxis)
+        if bias is not None:
+            out = out + _bcast(bias, x, caxis)
+    return out
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW"):
+    if data_format == "NHWC":
+        out = group_norm(x.movedim(-1, 1), num_groups, epsilon, weight,
+                         bias, "NCHW")
+        return out.movedim(1, -1)
+    n, c = x.shape[0], x.shape[1]
+    g = x.reshape((n, num_groups, c // num_groups) + tuple(x.shape[2:]))
+    mean, var = _moments(g, tuple(range(2, g.dim())), keepdim=True)
+    out = ((g - mean) * torch.rsqrt(var + epsilon)).reshape(x.shape)
+    if weight is not None:
+        out = out * _bcast(weight, x, 1)
+    if bias is not None:
+        out = out + _bcast(bias, x, 1)
+    return out
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW"):
+    caxis = _channel_axis(x, data_format)
+    sq = x.square().movedim(caxis, -1)
+    pad = (size - 1) // 2
+    padded = tf.pad(sq, (pad, size - 1 - pad))
+    c = sq.shape[-1]
+    win = sum(padded[..., i:i + c] for i in range(size))
+    return x / torch.pow(k + alpha * win.movedim(-1, caxis), beta)
+
+
+# -- convolution
+
+def _tuple(v, dims):
+    return (v,) * dims if isinstance(v, int) else tuple(v)
+
+
+def _same_pads(sizes, window, strides):
+    """XLA's "SAME" padding (``lax.padtype_to_pads``): the output has
+    ``ceil(in / stride)`` positions, the extra padding after."""
+    pads = []
+    for n, w, s in zip(sizes, window, strides):
+        total = max((-(-n // s) - 1) * s + w - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _pad_pairs(padding, dims):
+    """An int, ``dims`` ints or pairs, or ``2 * dims`` ints as (before,
+    after) pairs."""
+    if isinstance(padding, int):
+        return [(padding, padding)] * dims
+    padding = list(padding)
+    if len(padding) == dims:
+        return [(p, p) if isinstance(p, int) else tuple(p) for p in padding]
+    return [(padding[2 * i], padding[2 * i + 1]) for i in range(dims)]
+
+
+def _torch_pad(pairs):
+    """(before, after) pairs, first spatial axis first, as ``F.pad``'s
+    flat list (last axis first)."""
+    out = []
+    for lo, hi in reversed(pairs):
+        out += [lo, hi]
+    return out
+
+
+def _channels_first(x, channels_last):
+    return x.movedim(-1, 1) if channels_last else x
+
+
+def _channels_back(x, channels_last):
+    return x.movedim(1, -1) if channels_last else x
+
+
+_CONV = {1: tf.conv1d, 2: tf.conv2d, 3: tf.conv3d}
+
+
+def _conv_nd(x, weight, bias, stride, padding, dilation, groups, dims,
+             data_format):
+    """``lax.conv_general_dilated`` with the reference's padding forms:
+    explicit pairs pad first (``F.pad``), "SAME" / "VALID" by XLA's
+    rule; weight ``[out, in / groups, *k]``."""
+    channels_last = data_format in ("NHWC", "NLC", "NDHWC")
+    stride, dilation = _tuple(stride, dims), _tuple(dilation, dims)
+    x = _channels_first(x, channels_last)
+    if isinstance(padding, str):
+        if padding.upper() == "VALID":
+            pairs = [(0, 0)] * dims
+        else:
+            eff = [(k - 1) * d + 1 for k, d in zip(weight.shape[2:],
+                                                   dilation)]
+            pairs = _same_pads(x.shape[2:], eff, stride)
+    else:
+        pairs = _pad_pairs(padding, dims)
+    if any(lo != hi for lo, hi in pairs):
+        x = tf.pad(x, _torch_pad(pairs))
+        pad = 0
+    else:
+        pad = tuple(lo for lo, _ in pairs)
+    out = _CONV[dims](x, weight.to(x.dtype), None, stride, pad, dilation,
+                      groups)
+    if bias is not None:
+        out = out + _bcast(bias, out, 1)
+    return _channels_back(out, channels_last)
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCL"):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 1,
+                    data_format)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW"):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 2,
+                    data_format)
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW"):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 3,
+                    data_format)
+
+
+def _transpose_pads(padding, ksizes, dilation, strides, output_padding,
+                    dims):
+    """``lax.conv_transpose``'s padding of the dilated input: for a
+    conv padding p, ``(k - 1) d - p`` each side plus ``output_padding``
+    after; "SAME" / "VALID" by jax's ``_conv_transpose_padding``."""
+    eff = [(k - 1) * d + 1 for k, d in zip(ksizes, dilation)]
+    if isinstance(padding, str):
+        pads = []
+        for k, s in zip(eff, strides):
+            if padding.upper() == "SAME":
+                total = k + s - 2
+                lo = k - 1 if s > k - 1 else -(-total // 2)
+            else:
+                total = k + s - 2 + max(k - s, 0)
+                lo = k - 1
+            pads.append((lo, total - lo))
+        return pads
+    return [(e - 1 - lo, e - 1 - hi + op) for e, (lo, hi), op
+            in zip(eff, _pad_pairs(padding, dims), output_padding)]
+
+
+def _conv_transpose_nd(x, weight, bias, stride, padding, output_padding,
+                       dilation, groups, dims, data_format):
+    """The reference's transposed convolution (``functional.py:459-511``,
+    ``lax.conv_transpose`` with ``transpose_kernel=False``): the input
+    dilated by the stride, padded, and convolved with the kernel as it is
+    (not flipped, unlike ``torch.nn.functional.conv_transpose``), weight
+    ``[in, out / groups, *k]``."""
+    channels_last = not data_format.startswith("NC")
+    stride, dilation = _tuple(stride, dims), _tuple(dilation, dims)
+    output_padding = _tuple(output_padding, dims)
+    x = _channels_first(x, channels_last)
+    pads = _transpose_pads(padding, weight.shape[2:], dilation, stride,
+                           output_padding, dims)
+    n, c = x.shape[0], x.shape[1]
+    if any(s > 1 for s in stride):
+        sizes = [(i - 1) * s + 1 for i, s in zip(x.shape[2:], stride)]
+        xd = x.new_zeros((n, c, *sizes))
+        xd[(slice(None), slice(None)) + tuple(slice(None, None, s)
+                                              for s in stride)] = x
+        x = xd
+    x = tf.pad(x, _torch_pad(pads))
+    cin, opg = weight.shape[0], weight.shape[1]
+    w = weight.reshape(groups, cin // groups, opg, *weight.shape[2:])
+    w = w.transpose(1, 2).reshape(groups * opg, cin // groups,
+                                  *weight.shape[2:])
+    out = _CONV[dims](x, w.to(x.dtype), None, 1, 0, dilation, groups)
+    if bias is not None:
+        out = out + _bcast(bias, out, 1)
+    return _channels_back(out, channels_last)
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCL"):
+    return _conv_transpose_nd(x, weight, bias, stride, padding,
+                              output_padding, dilation, groups, 1,
+                              data_format)
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCHW"):
+    return _conv_transpose_nd(x, weight, bias, stride, padding,
+                              output_padding, dilation, groups, 2,
+                              data_format)
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCDHW"):
+    return _conv_transpose_nd(x, weight, bias, stride, padding,
+                              output_padding, dilation, groups, 3,
+                              data_format)
+
+
+# -- pooling
+
+_MAX_POOL = {1: tf.max_pool1d, 2: tf.max_pool2d, 3: tf.max_pool3d}
+_AVG_POOL = {1: tf.avg_pool1d, 2: tf.avg_pool2d, 3: tf.avg_pool3d}
+
+
+def _pool_nd(x, ksize, stride, padding, dims, data_format, avg,
+             count_include_pad=True):
+    """``lax.reduce_window`` as the reference calls it
+    (``functional.py:539-573``): explicit pairs or XLA's "SAME" /
+    "VALID"; max pads with -inf; the average divides by the window
+    (padding included, or a string padding) or by the count of real
+    elements (``exclusive``). ``ceil_mode`` is not taken, as in the
+    reference."""
+    channels_last = not data_format.startswith("NC")
+    ksize = _tuple(ksize, dims)
+    stride = ksize if stride is None else _tuple(stride, dims)
+    x = _channels_first(x, channels_last)
+    if isinstance(padding, str):
+        pairs = [(0, 0)] * dims if padding.upper() == "VALID" else \
+            _same_pads(x.shape[2:], ksize, stride)
+    else:
+        pairs = _pad_pairs(padding, dims)
+    padded = any(p != (0, 0) for p in pairs)
+    if not avg:
+        if padded:
+            x = tf.pad(x, _torch_pad(pairs), value=float("-inf"))
+        return _channels_back(_MAX_POOL[dims](x, ksize, stride), channels_last)
+    xp = tf.pad(x, _torch_pad(pairs)) if padded else x
+    out = _AVG_POOL[dims](xp, ksize, stride)
+    if padded and not count_include_pad and not isinstance(padding, str):
+        ones = tf.pad(torch.ones_like(x[:1, :1]), _torch_pad(pairs))
+        counts = _AVG_POOL[dims](ones, ksize, stride) * math.prod(ksize)
+        out = out * (math.prod(ksize) / counts)
+    return _channels_back(out, channels_last)
+
+
+def max_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               data_format="NCL"):
+    return _pool_nd(x, kernel_size, stride, padding, 1, data_format, False)
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               data_format="NCHW", return_mask=False):
+    return _pool_nd(x, kernel_size, stride, padding, 2, data_format, False)
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               data_format="NCDHW"):
+    return _pool_nd(x, kernel_size, stride, padding, 3, data_format, False)
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               ceil_mode=False, data_format="NCL"):
+    return _pool_nd(x, kernel_size, stride, padding, 1, data_format, True,
+                    not exclusive)
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               ceil_mode=False, data_format="NCHW"):
+    return _pool_nd(x, kernel_size, stride, padding, 2, data_format, True,
+                    not exclusive)
+
+
+def avg_pool3d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               ceil_mode=False, data_format="NCDHW"):
+    return _pool_nd(x, kernel_size, stride, padding, 3, data_format, True,
+                    not exclusive)
+
+
+def _adaptive_bins(in_size, o):
+    """Bin edges ``[floor(i * in / o), ceil((i + 1) * in / o))``."""
+    i = np.arange(o)
+    return (i * in_size) // o, -((-(i + 1) * in_size) // o)
+
+
+def _adaptive_general(out, d, o, avg):
+    """One axis to ``o`` bins of any size: the averages from a cumulative
+    sum, the maxima over a gather masked with -inf (separable, so exact
+    per axis)."""
+    in_size = out.shape[d]
+    start, end = _adaptive_bins(in_size, o)
+    if avg:
+        zero = torch.zeros_like(out.narrow(d, 0, 1))
+        csum = torch.cat([zero, out.cumsum(d)], d)
+        hi = csum.index_select(d, torch.as_tensor(end, device=out.device))
+        lo = csum.index_select(d, torch.as_tensor(start, device=out.device))
+        cnt = torch.as_tensor((end - start).astype(np.float32),
+                              device=out.device).to(out.dtype)
+        shape = [1] * out.dim()
+        shape[d] = o
+        return (hi - lo) / cnt.reshape(shape)
+    w = int((end - start).max())
+    idx = start[:, None] + np.arange(w)[None, :]
+    valid = idx < end[:, None]
+    idx = np.minimum(idx, in_size - 1)
+    g = out.index_select(d, torch.as_tensor(idx.reshape(-1),
+                                            device=out.device))
+    shape = list(out.shape)
+    shape[d:d + 1] = [o, w]
+    g = g.reshape(shape)
+    mshape = [1] * len(shape)
+    mshape[d], mshape[d + 1] = o, w
+    neg = torch.tensor(float("-inf"), dtype=out.dtype, device=out.device)
+    g = torch.where(torch.as_tensor(valid, device=out.device).reshape(mshape),
+                    g, neg)
+    return g.amax(d + 1)
+
+
+def _adaptive_pool(x, output_size, dims, data_format, avg):
+    channels_last = not data_format.startswith("NC")
+    output_size = _tuple(output_size, dims) if not isinstance(
+        output_size, int) else (output_size,) * dims
+    first = 1 if channels_last else 2
+    out = x
+    for i in range(dims):
+        d = first + i
+        in_size, o = out.shape[d], output_size[i]
+        if o is None or o == in_size:
+            continue
+        if in_size % o == 0:
+            shape = list(out.shape)
+            shape[d:d + 1] = [o, in_size // o]
+            r = out.reshape(shape)
+            out = r.mean(d + 1) if avg else r.amax(d + 1)
+        else:
+            out = _adaptive_general(out, d, o, avg)
+    return out
+
+
+def adaptive_avg_pool1d(x, output_size, data_format="NCL"):
+    return _adaptive_pool(x, output_size, 1, data_format, True)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+    return _adaptive_pool(x, output_size, 2, data_format, True)
+
+
+def adaptive_avg_pool3d(x, output_size, data_format="NCDHW"):
+    return _adaptive_pool(x, output_size, 3, data_format, True)
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False):
+    return _adaptive_pool(x, output_size, 1, "NCL", False)
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False):
+    return _adaptive_pool(x, output_size, 2, "NCHW", False)
+
+
+# -- the losses of the layers
+
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0):  # noqa: A002
+    diff = _abs(input - label)
+    loss = torch.where(diff < delta, 0.5 * diff * diff / delta,
+                       diff - 0.5 * delta)
+    return _reduce(loss, reduction)
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100,  # noqa: A002
+             reduction="mean"):
+    """``-input[label]`` on the last axis; labels equal to
+    ``ignore_index`` count neither in the sum nor in the mean's
+    denominator. ``weight`` is accepted and not used, as in the
+    reference."""
+    label = label.long()
+    nll = -torch.gather(input, -1, label.clamp(0, input.shape[-1] - 1)
+                        [..., None])[..., 0]
+    mask = (label != ignore_index).to(nll.dtype)
+    nll = nll * mask
+    if reduction == "mean":
+        return nll.sum() / mask.sum().clamp_min(1.0)
+    return _reduce(nll, reduction)
+
+
+def cosine_embedding_loss(input1, input2, label, margin=0,
+                          reduction="mean"):
+    cos = cosine_similarity(input1, input2, axis=-1)
+    loss = torch.where(label == 1, 1 - cos, (cos - margin).clamp_min(0))
+    return _reduce(loss, reduction)
+
+
+def margin_ranking_loss(input, other, label, margin=0.0,  # noqa: A002
+                        reduction="mean"):
+    return _reduce((-label * (input - other) + margin).clamp_min(0),
+                   reduction)
+
+
+def hinge_embedding_loss(input, label, margin=1.0,  # noqa: A002
+                         reduction="mean"):
+    loss = torch.where(label == 1, input, (margin - input).clamp_min(0))
+    return _reduce(loss, reduction)
+
+
+def triplet_margin_loss(input, positive, negative, margin=1.0,  # noqa: A002
+                        p=2, eps=1e-6, swap=False, reduction="mean"):
+    def pdist(a, b):
+        return torch.pow(torch.pow(_abs(a - b) + eps, p).sum(-1), 1.0 / p)
+    d_pos = pdist(input, positive)
+    d_neg = pdist(input, negative)
+    if swap:
+        d_neg = torch.minimum(d_neg, pdist(positive, negative))
+    return _reduce((d_pos - d_neg + margin).clamp_min(0), reduction)
+
+
+# -- resampling
+
+def pixel_shuffle(x, upscale_factor, data_format="NCHW"):
+    r = upscale_factor
+    if data_format == "NCHW":
+        n, c, h, w = x.shape
+        out = x.reshape(n, c // (r * r), r, r, h, w)
+        return out.permute(0, 1, 4, 2, 5, 3).reshape(n, c // (r * r), h * r,
+                                                      w * r)
+    n, h, w, c = x.shape
+    out = x.reshape(n, h, w, r, r, c // (r * r))
+    return out.permute(0, 1, 3, 2, 4, 5).reshape(n, h * r, w * r,
+                                                  c // (r * r))
+
+
+def interpolate_nearest(x, scale=2, data_format="NCHW"):
+    axes = (2, 3) if data_format == "NCHW" else (1, 2)
+    return x.repeat_interleave(scale, axes[0]).repeat_interleave(scale,
+                                                                 axes[1])
+
+
+def _keys_cubic(x):
+    """Keys' cubic kernel at a = -0.5 (jax.image's)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _triangle(x):
+    return (1 - x.abs()).clamp_min(0)
+
+
+def _resize_weights(in_size, out_size, kernel):
+    """``jax.image``'s ``compute_weight_mat`` ``[in, out]`` in f32: half-
+    pixel centres, the kernel widened by ``in / out`` when shrinking
+    (antialiasing), columns normalised, samples outside the input
+    zeroed."""
+    scale = out_size / in_size
+    inv = torch.tensor(1.0 / scale, dtype=torch.float32)
+    kscale = torch.clamp_min(inv, 1.0)
+    sample = (torch.arange(out_size, dtype=torch.float32) + 0.5) * inv - 0.5
+    x = (sample[None, :] - torch.arange(in_size, dtype=torch.float32)[
+        :, None]).abs() / kscale
+    w = kernel(x)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def _resize(v, out_shape, method):
+    """``jax.image.resize(v, out_shape, method)`` (antialiased)."""
+    if method == "nearest":
+        for d in range(v.dim()):
+            m, n = v.shape[d], out_shape[d]
+            if m == n:
+                continue
+            off = torch.floor((torch.arange(n, dtype=torch.float32) + 0.5)
+                              * m / n).to(torch.int64).to(v.device)
+            v = v.index_select(d, off)
+        return v
+    kernel = _triangle if method == "linear" else _keys_cubic
+    for d in range(v.dim()):
+        m, n = v.shape[d], out_shape[d]
+        if m == n:
+            continue
+        w = _resize_weights(m, n, kernel).to(device=v.device, dtype=v.dtype)
+        v = torch.tensordot(v, w, dims=([d], [0])).movedim(-1, d)
+    return v
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, data_format="NCHW"):
+    """``jax.image.resize`` as the reference calls it (``functional.py:
+    996-1014``): half-pixel centres, ``align_corners`` not taken, bilinear
+    and bicubic antialiased when shrinking, the cubic Keys' with a = -0.5
+    (torch's bicubic takes -0.75)."""
+    spatial = x.shape[2:] if data_format.startswith("NC") else x.shape[1:-1]
+    if size is None:
+        sf = scale_factor if isinstance(scale_factor, (list, tuple)) else \
+            [scale_factor] * len(spatial)
+        size = [int(s * f) for s, f in zip(spatial, sf)]
+    method = {"nearest": "nearest", "bilinear": "linear", "linear": "linear",
+              "bicubic": "cubic", "trilinear": "linear"}[mode]
+    size = [int(s) for s in size]
+    if data_format.startswith("NC"):
+        out_shape = tuple(x.shape[:2]) + tuple(size)
+    else:
+        out_shape = (x.shape[0],) + tuple(size) + (x.shape[-1],)
+    return _resize(x, out_shape, method)
+
+
+def upsample(x, size=None, scale_factor=None, mode="nearest",
+             align_corners=False, data_format="NCHW"):
+    return interpolate(x, size, scale_factor, mode, align_corners,
+                       data_format)
+
+
 # -- the paddle API's entry: a Tensor anywhere among the arguments sends
 #    the call through dispatch; plain torch tensors call straight through
 
@@ -489,7 +1134,20 @@ _AS_OPS = {"relu": (), "relu6": (), "gelu": (), "silu": (), "swish": (),
            "mse_loss": (), "l1_loss": (), "cross_entropy_with_softmax": (1,),
            "cross_entropy_soft": (), "binary_cross_entropy": (),
            "binary_cross_entropy_with_logits": (), "kl_div": (),
-           "cosine_similarity": (), "label_smooth": ()}
+           "cosine_similarity": (), "label_smooth": (), "prelu": (),
+           "rrelu": (), "thresholded_relu": (), "maxout": (), "glu": (),
+           "bilinear": (), "instance_norm": (), "group_norm": (),
+           "local_response_norm": (), "conv1d": (), "conv2d": (),
+           "conv3d": (), "conv1d_transpose": (), "conv2d_transpose": (),
+           "conv3d_transpose": (), "max_pool1d": (), "max_pool2d": (),
+           "max_pool3d": (), "avg_pool1d": (), "avg_pool2d": (),
+           "avg_pool3d": (), "adaptive_avg_pool1d": (),
+           "adaptive_avg_pool2d": (), "adaptive_avg_pool3d": (),
+           "adaptive_max_pool1d": (), "adaptive_max_pool2d": (),
+           "smooth_l1_loss": (), "nll_loss": (1,),
+           "cosine_embedding_loss": (), "margin_ranking_loss": (),
+           "hinge_embedding_loss": (), "triplet_margin_loss": (),
+           "pixel_shuffle": ()}
 
 
 def _takes_tensor(name, fn, nondiff_args=()):
@@ -513,3 +1171,8 @@ for _name in __all__:
                                      _AS_OPS.get(_name, ()))
     if _name in _AS_OPS:
         OPS[_name] = globals()[_name]
+
+# ops the reference registers under names of their own
+for _name, _fn in (("batch_norm_func", batch_norm_func),
+                   ("interpolate_nearest", interpolate_nearest)):
+    OPS[_name] = _takes_tensor(_name, _fn)

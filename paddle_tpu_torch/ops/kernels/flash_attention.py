@@ -37,7 +37,8 @@ __all__ = ["flash_attention", "flash_attention_bhsd",
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 64, 128)     # llama_tiny, llama_350m, Llama-2-7B/70B
+# llama_tiny, nn's 256 / 8, llama_350m, nn's 768 / 8, Llama-2-7B/70B
+HEAD_DIMS = (16, 32, 64, 96, 128)
 MAX_BH = 65535
 
 
@@ -90,7 +91,8 @@ def _check(q, k, v, o=None, lse=None, do=None, dlse=None):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
     if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS} (the other "
+                         f"head dims: ROADMAP Queue 1 item 16)")
     if bh > MAX_BH or sq == 0 or k.shape[1] == 0:
         raise ValueError(f"batch * heads must be in 1..{MAX_BH} and the "
                          f"sequences non-empty, got q {tuple(q.shape)}, k "

@@ -7,7 +7,11 @@ key: ``keep_mask`` (bernoulli's ``uniform < p``, alpha_dropout's mask),
 ``gumbel`` (``-log(-log(uniform(minval, 1)))``, gumbel_softmax's noise,
 the logs in f64 as ``core.prng.log_rn``); and ``dropout``, the keep mask
 over a mask shape that broadcasts against the value, applied in the
-value's type (``paddle_tpu/nn/functional.py:208-228``). The forward can
+value's type (``paddle_tpu/nn/functional.py:208-228``); and the draws of
+the random ops and the initializers (``bits``, ``uniform``, ``normal``,
+``truncated_normal``, in f32 or in bf16 by jax's 16-bit rule,
+``core.prng``'s plain versions bit for bit). All of these draws are one
+wrapper, ``fill``, over one kernel templated on the mode. The forward can
 hand back the keep flags packed 8 to a byte (``save_mask``), and
 ``dropout_vjp`` applies the gradient from them without hashing again, as
 the reference's vjp keeps ``keep`` as its residual.
@@ -17,8 +21,9 @@ takes their two words as arguments. The draws that make a tensor take a
 ``device``: CUDA launches ``csrc/threefry_fill.cu``, the CPU runs the
 plain version (built from ``core.prng``); ``dropout`` follows its
 value's device. A CUDA request the kernel cannot take raises.
-``fill.launches`` counts the draws' launches, ``dropout.launches``
-dropout's (forward and ``dropout_vjp``), and
+``fill.launches`` counts the draws' launches (``fill.mode_launches`` by
+mode: keep, gumbel, bits, uniform, normal, truncated_normal),
+``dropout.launches`` dropout's (forward and ``dropout_vjp``), and
 ``dropout.route_launches`` the same by route. Kernel and plain version
 agree bit for bit (masks, Gumbel noise, dropout's values, saved bits).
 
@@ -42,7 +47,7 @@ import torch
 from ...core import prng
 from . import _build
 
-__all__ = ["gumbel", "keep_mask", "dropout", "dropout_vjp", "fill",
+__all__ = ["gumbel", "keep_mask", "dropout", "dropout_vjp", "fill", "bits", "uniform", "normal", "truncated_normal", "MODES",
            "keep_threshold", "magic", "dropout_plan", "plan_walk", "route",
            "MAX_RANK", "ROUTES"]
 
@@ -51,7 +56,10 @@ CHUNK = 8                   # mask elements an item hashes: one saved byte
 ROUTES = ("vector", "scalar", "wide")
 ITEMS_PER_SM = 1024         # items a broadcast plan aims for, per SM
 DEPTH = 4                   # walk steps a thread has in flight (kDepth)
-_KEEP, _GUMBEL = 0, 1
+_KEEP, _GUMBEL, _BITS, _UNIFORM, _NORMAL, _TRUNCATED = range(6)
+MODES = ("keep", "gumbel", "bits", "uniform", "normal", "truncated_normal")
+_OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_RAW = {_KEEP: torch.uint8, _GUMBEL: torch.float32, _BITS: torch.int32}
 _SCALE, _MASK, _SCALE_GRAD = 0, 1, 2
 _GRAD_MODE = {_SCALE: _SCALE_GRAD, _MASK: _MASK}     # the vjp's mode
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -93,38 +101,106 @@ def _udiv(n, mg):
     return (((n * m) >> 32) + n) >> s
 
 
-def _ref_fill(key, shape, what, lo, device):
-    """Plain version of ``fill`` on ``device``."""
+def _ref_fill(key, shape, what, device, dtype=torch.float32, lo=0.0,
+              hi=1.0):
+    """Plain version of ``fill`` on ``device`` (``core.prng``)."""
     k0, k1 = _words(key)
-    bits = prng.random_bits(prng.make_key(k0, k1).to(device), shape)
+    b = prng.random_bits(prng.make_key(k0, k1).to(device), shape)
     if what == _KEEP:
-        return prng.uniform_from_bits(bits) < torch.tensor(
+        return prng.uniform_from_bits(b) < torch.tensor(
             lo, dtype=torch.float32, device=device)
-    return prng.gumbel_from_bits(bits, lo)
+    if what == _GUMBEL:
+        return prng.gumbel_from_bits(b, lo)
+    if what == _BITS:
+        return b
+    if what == _UNIFORM:
+        return prng.uniform_from_bits(b, lo, hi, dtype)
+    if what == _NORMAL:
+        return prng.normal_from_bits(b, dtype)
+    return prng.truncated_normal_from_bits(b, lo, hi, dtype)
 
 
-def fill(key, shape, what, device, lo):
-    """One draw of ``shape`` under ``key``: ``what`` ``_KEEP`` the keep
-    flags ``uniform < lo`` (bool), ``_GUMBEL`` the f32 Gumbel noise
-    ``-log(-log(uniform(lo, 1)))``. CUDA launches the kernel, the CPU
-    runs the plain version."""
+def _in(dtype, v):
+    """The Python number ``v`` rounded to ``dtype``."""
+    return float(torch.tensor(v, dtype=dtype))
+
+
+def _fill_params(what, dtype, lo, hi):
+    """The kernel's (lo, scale, clip_lo, clip_hi, sqrt2, thresh), each
+    float a value of ``dtype``: the uniform's minval (a Gumbel draw's
+    too) and ``maxval - minval`` (in ``dtype``), the clip bounds of a
+    truncated normal, sqrt(2), and the keep test's threshold."""
+    if what == _KEEP:
+        return 0.0, 0.0, 0.0, 0.0, 0.0, keep_threshold(lo)
+    if what in (_GUMBEL, _BITS):
+        return lo, 0.0, 0.0, 0.0, 0.0, 0
+    clip_lo = clip_hi = 0.0
+    if what == _NORMAL:
+        lo, hi = prng._nextafter(-1.0, 0.0, dtype), 1.0
+    elif what == _TRUNCATED:
+        lo, hi, clip_lo, clip_hi = prng.truncated_bounds(lo, hi, dtype)
+    lo = _in(dtype, lo)
+    scale = float(torch.tensor(hi, dtype=dtype)
+                  - torch.tensor(lo, dtype=dtype))
+    return lo, scale, clip_lo, clip_hi, _in(dtype, math.sqrt(2.0)), 0
+
+
+def fill(key, shape, what, device, lo=0.0, hi=1.0, dtype=torch.float32):
+    """One draw of ``shape`` under ``key`` by mode ``what``: ``_KEEP``
+    the flags ``uniform < lo`` (bool); ``_GUMBEL`` the f32 noise
+    ``-log(-log(uniform(lo, 1)))``; ``_BITS`` the 32-bit draws as int64
+    in [0, 2**32); ``_UNIFORM`` ``jax.random.uniform(lo, hi)``,
+    ``_NORMAL`` ``jax.random.normal``, ``_TRUNCATED`` the normal truncated
+    to (lo, hi), in ``dtype`` (f32 or bf16). CUDA launches the kernel,
+    the CPU runs the plain version."""
     shape = tuple(int(s) for s in shape)
     device = torch.device(device)
+    value = what >= _UNIFORM
+    if value and dtype not in _OUT_DTYPES:
+        raise TypeError(f"the draws are f32 or bf16, not {dtype}")
     if device.type != "cuda":
-        return _ref_fill(key, shape, what, lo, device)
+        return _ref_fill(key, shape, what, device, dtype, lo, hi)
     k0, k1 = _words(key)
-    dtype = torch.uint8 if what == _KEEP else torch.float32
-    out = torch.empty(shape, dtype=dtype, device=device)
+    out = torch.empty(shape, dtype=dtype if value else _RAW[what],
+                      device=device)
     fn = _build.function("threefry_fill", "tf_fill_launch",
-                         [_U, _U, _I, _P, _L, _F, _U, _P])
-    _raise_on(fn(k0, k1, what, out.data_ptr(), out.numel(), float(lo),
-                 keep_threshold(lo) if what == _KEEP else 0,
+                         [_U, _U, _I, _I, _P, _L, _F, _F, _F, _F, _F, _U,
+                          _P])
+    _raise_on(fn(k0, k1, what, _OUT_DTYPES[dtype] if value else 0,
+                 out.data_ptr(), out.numel(),
+                 *_fill_params(what, dtype, lo, hi),
                  torch.cuda.current_stream(device).cuda_stream), "fill")
     fill.launches += 1
-    return out.view(torch.bool) if what == _KEEP else out
+    fill.mode_launches[MODES[what]] += 1
+    if what == _KEEP:
+        return out.view(torch.bool)
+    return out.to(torch.int64) & prng.MASK if what == _BITS else out
 
 
 fill.launches = 0
+fill.mode_launches = dict.fromkeys(MODES, 0)
+
+
+def bits(key, shape, device):
+    """``jax.random.bits(key, shape, uint32)`` as int64 values."""
+    return fill(key, shape, _BITS, device)
+
+
+def uniform(key, shape, device, minval=0.0, maxval=1.0,
+            dtype=torch.float32):
+    """``jax.random.uniform(key, shape, dtype, minval, maxval)``."""
+    return fill(key, shape, _UNIFORM, device, minval, maxval, dtype)
+
+
+def normal(key, shape, device, dtype=torch.float32):
+    """``jax.random.normal(key, shape, dtype)``."""
+    return fill(key, shape, _NORMAL, device, dtype=dtype)
+
+
+def truncated_normal(key, shape, device, lower=-2.0, upper=2.0,
+                     dtype=torch.float32):
+    """``jax.random.truncated_normal(key, lower, upper, shape, dtype)``."""
+    return fill(key, shape, _TRUNCATED, device, lower, upper, dtype)
 
 
 def gumbel(key, shape, device, minval=prng.TINY_F32):
@@ -353,7 +429,7 @@ def _ref_apply(x, keep, c, mode):
 def _ref_dropout(x, key, mask_shape, p, upscale, *, save_mask=False):
     """Plain version of ``dropout`` on x's device."""
     keep_p, c, mode = _plan_args(x, mask_shape, p, upscale)
-    keep = _ref_fill(key, tuple(mask_shape), _KEEP, keep_p, x.device)
+    keep = _ref_fill(key, tuple(mask_shape), _KEEP, x.device, lo=keep_p)
     out = _ref_apply(x, keep, c, mode)
     return (out, _ref_pack(keep)) if save_mask else out
 

@@ -121,16 +121,8 @@ _EXTRA_TENSOR_METHODS = (
 )
 
 
-def _random_pending(name):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"Tensor.{name} draws from jax.random's stream; the random ops "
-            f"are not ported yet (ROADMAP Queue 1 item 15.2)")
-    method.__name__ = name
-    return method
-
-
 def install_method_tail():
+    from . import random_ops
     for name in _EXTRA_TENSOR_METHODS:
         op = OPS.get(name)
         if op is not None and not hasattr(Tensor, name):
@@ -185,8 +177,8 @@ def install_method_tail():
                      ("is_tensor", is_tensor), ("is_complex", is_complex),
                      ("is_integer", is_integer),
                      ("is_floating_point", is_floating_point),
-                     ("uniform_", _random_pending("uniform_")),
-                     ("exponential_", _random_pending("exponential_")),
+                     ("uniform_", random_ops.uniform_),
+                     ("exponential_", random_ops.exponential_),
                      ("erfinv_", _mk_inplace(OPS["erfinv"])),
                      ("put_along_axis_", _mk_inplace(OPS["put_along_axis"])),
                      ("create_tensor", create_tensor)]:

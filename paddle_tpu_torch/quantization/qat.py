@@ -23,7 +23,7 @@ import copy
 import torch
 from torch import nn
 
-from ..nn.layer import Linear
+from ..nn.layers_basic import Linear
 from ..ops.kernels.quant_matmul import (quantize_tensor,
                                         quantized_matmul_kmajor)
 

@@ -1,7 +1,8 @@
 """The port's paddle API surface against the JAX package's.
 
-- The top level and ``Tensor``'s methods are the reference's
-  (``dir(paddle_tpu)``, ``dir(paddle_tpu.Tensor)``) less ``NOT_YET``, a
+- The top level, ``Tensor``'s methods and ``nn`` are the reference's
+  (``dir(paddle_tpu)``, ``dir(paddle_tpu.Tensor)``, ``dir(paddle_tpu.nn)``)
+  less ``NOT_YET`` (``NOT_YET_METHODS``, ``NN_NOT_YET``), a
   set in which every name says the ROADMAP Queue 1 item that brings it;
   the set only shrinks (a name ported in a later slice leaves it, and
   the test fails while it is still listed). ``PORT_ONLY`` lists the
@@ -29,34 +30,37 @@ import paddle_tpu as jt
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import device as tdevice
 
-_NN = "item 15.3 (nn's other layers and functional ops)"
+_NN = "item 15.3 (nn's layers_tail, its functional ops and nn.quant)"
 NOT_YET = {
     "DataParallel": "item 13 (multi-card training)",
-    "ParamAttr": _NN, "create_parameter": _NN,
     "disable_static": "item 15.5 (static and jit)",
     "enable_static": "item 15.5 (static and jit)",
     "get_flags": "item 15.6 (runtime)", "set_flags": "item 15.6 (runtime)",
 }
 NOT_YET.update({n: _NN for n in (
-    "adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_avg_pool3d",
-    "adaptive_max_pool1d", "adaptive_max_pool2d", "adaptive_max_pool3d",
-    "affine_grid", "avg_pool1d", "avg_pool2d", "avg_pool3d",
-    "batch_norm_func", "bilinear", "channel_shuffle", "class_center_sample",
-    "conv1d", "conv1d_transpose", "conv2d", "conv2d_transpose", "conv3d",
-    "conv3d_transpose", "cosine_embedding_loss", "ctc_loss", "dice_loss",
-    "feature_alpha_dropout", "fold", "gather_tree", "gaussian_nll_loss",
-    "glu", "grid_sample", "group_norm", "hinge_embedding_loss",
-    "hsigmoid_loss", "huber_loss", "instance_norm", "interpolate_nearest",
-    "local_response_norm", "log_loss", "margin_cross_entropy",
-    "margin_ranking_loss", "max_pool1d", "max_pool2d", "max_pool3d",
-    "max_unpool1d", "max_unpool2d", "max_unpool3d", "maxout",
-    "multi_label_soft_margin_loss", "multi_margin_loss", "nll_loss",
-    "npair_loss", "pairwise_distance", "pixel_shuffle", "pixel_unshuffle",
-    "poisson_nll_loss", "prelu", "rnnt_loss", "rrelu", "sigmoid_focal_loss",
-    "smooth_l1_loss", "soft_margin_loss", "softmax_with_cross_entropy",
+    "adaptive_max_pool3d", "affine_grid", "channel_shuffle",
+    "class_center_sample", "ctc_loss", "dice_loss", "feature_alpha_dropout",
+    "fold", "gather_tree", "gaussian_nll_loss", "grid_sample",
+    "hsigmoid_loss", "huber_loss", "log_loss", "margin_cross_entropy",
+    "max_unpool1d", "max_unpool2d", "max_unpool3d",
+    "multi_label_soft_margin_loss", "multi_margin_loss", "npair_loss",
+    "pairwise_distance", "pixel_unshuffle", "poisson_nll_loss", "rnnt_loss",
+    "sigmoid_focal_loss", "soft_margin_loss", "softmax_with_cross_entropy",
     "sparse_attention", "square_error_cost", "temporal_shift",
-    "thresholded_relu", "triplet_margin_loss",
     "triplet_margin_with_distance_loss", "unfold", "zeropad2d")})
+# nn's names of layers_tail (its layers and the module itself)
+NN_NOT_YET = {n: _NN for n in (
+    "AdaptiveMaxPool3D", "BeamSearchDecoder", "CTCLoss", "ChannelShuffle",
+    "Fold", "HSigmoidLoss", "MaxUnPool1D", "MaxUnPool2D", "MaxUnPool3D",
+    "MultiLabelSoftMarginLoss", "MultiMarginLoss", "PairwiseDistance",
+    "PixelUnshuffle", "RNNTLoss", "Silu", "SoftMarginLoss", "Softmax2D",
+    "TripletMarginWithDistanceLoss", "Unfold", "ZeroPad2D", "dynamic_decode",
+    "layers_tail")}
+# names the port's nn adds: its Layer's hook handle, ParamAttr (the
+# reference has it at the top level only), set_state_dict for any torch
+# module, and the clip's tree form
+NN_PORT_ONLY = {"HookRemoveHelper", "ParamAttr", "param_attr",
+                "set_state_dict", "clip_by_global_norm_tree"}
 NOT_YET_METHODS = {"create_parameter": _NN,
                    # the reference adds these when paddle_tpu.sparse is
                    # imported (by another test in the same process)
@@ -94,7 +98,7 @@ def on_cpu():
 
 
 def test_every_not_yet_name_names_its_item():
-    for table in (NOT_YET, NOT_YET_METHODS):
+    for table in (NOT_YET, NOT_YET_METHODS, NN_NOT_YET):
         for name, item in table.items():
             assert item.startswith("item 1"), (name, item)
 
@@ -105,6 +109,18 @@ def test_top_level_is_the_references_less_the_named_set():
     port = _public(pt, mods)
     assert ref - port == set(NOT_YET), sorted((ref - port) ^ set(NOT_YET))
     assert port - ref == PORT_ONLY, sorted(port - ref)
+
+
+def test_nn_is_the_references_less_the_named_set():
+    """``dir(paddle_tpu.nn)`` less ``NN_NOT_YET`` (``layers_tail``'s
+    names, item 15.3) is the port's ``nn`` less its own additions."""
+    import paddle_tpu.nn as jnn
+    from paddle_tpu_torch import nn as tnn
+    ref = {n for n in dir(jnn) if not n.startswith("_")}
+    port = {n for n in dir(tnn) if not n.startswith("_")}
+    assert ref - port == set(NN_NOT_YET), sorted((ref - port)
+                                                 ^ set(NN_NOT_YET))
+    assert port - ref == NN_PORT_ONLY, sorted(port - ref)
 
 
 def test_tensor_methods_are_the_references_less_the_named_set():

@@ -116,13 +116,16 @@ def test_backward_matches_the_pallas_kernel(causal, sq, sk, with_dlse):
 
 @pytest.mark.parametrize("causal,sq,sk,hd", [(True, 100, 100, 64),
                                              (False, 64, 192, 64),
-                                             (True, 96, 96, 16)])
+                                             (True, 96, 96, 16),
+                                             (True, 100, 100, 32),
+                                             (False, 64, 160, 96)])
 def test_tile_edges_match_the_pallas_kernels(causal, sq, sk, hd):
     """The edges of the card kernels' 64-row tiles, in the plain
     versions they are held to: S = 100 (a tail tile), S_q = 64 under
     S_k = 192 non-causal (key tiles past the row tile), head_dim 16
-    (``llama_tiny``'s, a single k-step); forward and backward against
-    the Pallas kernels in interpret mode."""
+    (``llama_tiny``'s, a single k-step), 32 and 96 (``nn``'s 256- and
+    768-wide attention over 8 heads); forward and backward against the
+    Pallas kernels in interpret mode."""
     q, k, v = _qkv(2, sq, sk, hd, 50)
     do = _rand((2, sq, hd), 51)
     sm = 1.0 / np.sqrt(hd)
@@ -223,7 +226,7 @@ def test_contract_refuses_bad_inputs_before_a_launch(case):
     v = torch.zeros(2, 8, 64)
     lse = torch.zeros(2, 8)
     if case == "head_dim":
-        q, k, v = (torch.zeros(2, 8, 32) for _ in range(3))
+        q, k, v = (torch.zeros(2, 8, 48) for _ in range(3))
     elif case == "dtype":
         k = k.to(torch.bfloat16)
     elif case == "kv_shape":

@@ -118,19 +118,40 @@ def test_layer_norm_and_gelu_match_the_reference(dtype):
 
 
 def test_embedding_and_layer_norm_refuse_unported_options():
-    for kw in ({"padding_idx": 0}, {"sparse": True},
-               {"weight_attr": object()}):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            tnn.Embedding(8, 4, device="cpu", **kw)
-    for kw in ({"weight_attr": False}, {"bias_attr": False}):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            tnn.LayerNorm(4, device="cpu", **kw)
-    gen = torch.Generator().manual_seed(3)
-    e = tnn.Embedding(8, 4, device="cpu", generator=gen)
-    gen2 = torch.Generator().manual_seed(3)
-    assert torch.equal(e.weight, torch.empty(8, 4).normal_(
-        0.0, 1.0, generator=gen2))
-    assert torch.equal(e(torch.tensor([3, 1])), e.weight[[3, 1]])
+    """The options these layers once refused now work as the reference's:
+    ``padding_idx`` zeroes its row and its output rows, ``sparse`` is
+    accepted (dense gradient, as the reference), ``weight_attr`` names
+    the table's initializer, and LayerNorm's ``weight_attr=False`` /
+    ``bias_attr=False`` leave it without a scale / a shift. Under one
+    seed the tables are the reference's (Normal: within 3 ulps)."""
+    from paddle_tpu_torch import seed as tseed
+    ids = np.array([[3, 0, 1], [0, 7, 2]], np.int32)
+    for kw in ({"padding_idx": 0}, {"sparse": True}, {}):
+        pt.seed(3)
+        ref = pt.nn.Embedding(8, 4, **kw)
+        tseed(3)
+        got = tnn.Embedding(8, 4, device="cpu", **kw)
+        np.testing.assert_allclose(got.weight.numpy(), ref.weight.numpy(),
+                                   rtol=4e-7, atol=0)
+        out = got(torch.from_numpy(ids))
+        want = ref(pt.to_tensor(ids)).numpy()
+        np.testing.assert_allclose(out.detach().numpy(), want, rtol=4e-7,
+                                   atol=0)
+        out.sum().backward()
+        if kw.get("padding_idx") == 0:
+            assert not got.weight.grad[0].any()
+            assert not got.weight[0].any()
+    from paddle_tpu_torch.nn import initializer as TI
+    e = tnn.Embedding(8, 4, weight_attr=TI.Constant(0.5), device="cpu")
+    assert torch.equal(e.weight, torch.full((8, 4), 0.5))
+    ln = tnn.LayerNorm(4, weight_attr=False, bias_attr=False, device="cpu")
+    assert ln.weight is None and ln.bias is None
+    assert list(ln.state_dict()) == []
+    x = torch.randn(2, 4, generator=torch.Generator().manual_seed(0))
+    want = np.asarray(JF.layer_norm.__wrapped__(jnp.asarray(x.numpy()), 4))
+    np.testing.assert_allclose(ln(x).numpy(), want, rtol=0, atol=1e-6)
+    assert [n for n, _ in tnn.LayerNorm(4, device="cpu").named_parameters()
+            ] == ["weight", "bias"]
 
 
 # -------------------------------------------------- the eager oracle

@@ -341,10 +341,32 @@ def test_linear_takes_the_reference_arguments(args, kwargs):
 
 
 def test_linear_refuses_a_parameter_attribute_it_cannot_honour():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        Linear(6, 5, pt.ParamAttr(name="w"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        Linear(6, 5, bias_attr=pt.ParamAttr(name="b"), device="cpu")
+    """A parameter attribute the port once refused is now honoured as the
+    reference honours it: ``ParamAttr``'s name, initializer,
+    ``learning_rate`` and ``trainable``, and a bare initializer as the
+    attribute; the weights under one seed are the reference's."""
+    from paddle_tpu_torch import ParamAttr as TParamAttr
+    from paddle_tpu_torch import seed as tseed
+    from paddle_tpu_torch.nn import initializer as TI
+    lin = Linear(6, 5, TParamAttr(name="w", learning_rate=0.5),
+                 device="cpu")
+    assert lin.weight.name == "w"
+    assert lin.weight.optimize_attr["learning_rate"] == 0.5
+    lin = Linear(6, 5, bias_attr=TParamAttr(name="b", trainable=False,
+                                            initializer=TI.Constant(2.0)),
+                 device="cpu")
+    assert lin.bias.name == "b" and not lin.bias.trainable
+    assert lin.bias.stop_gradient and torch.equal(lin.bias,
+                                                  torch.full((5,), 2.0))
+    pt.seed(11)
+    ref = pt.nn.Linear(6, 5, pt.ParamAttr(
+        initializer=pt.nn.initializer.XavierUniform()),
+        pt.nn.initializer.Uniform(-0.5, 0.5))
+    tseed(11)
+    got = Linear(6, 5, TParamAttr(initializer=TI.XavierUniform()),
+                 TI.Uniform(-0.5, 0.5), device="cpu")
+    assert np.array_equal(got.weight.numpy(), ref.weight.numpy())
+    assert np.array_equal(got.bias.numpy(), ref.bias.numpy())
 
 
 def test_cross_entropy_ignores_the_ignore_index():

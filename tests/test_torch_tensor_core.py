@@ -10,9 +10,9 @@ the reference's tape could part: canonical dtypes, ``stop_gradient``,
 in-place rebinds and hooks, indexing out of range, gradients at kinks
 and ties, AMP O1 casts and the NaN/Inf check.
 
-``test_random_reproducible`` of ``test_tensor_autograd.py`` waits for
-the random ops (ROADMAP Queue 1 item 15.2); here the port's ``randn``
-raises naming that item.
+``test_random_reproducible`` of ``test_tensor_autograd.py`` is ported
+in ``test_torch_random_ops.py`` with the random ops; here the draws of
+``randn`` and ``Tensor.uniform_`` are the reference's under one seed.
 """
 import warnings
 
@@ -298,10 +298,18 @@ def test_vjp_jvp_jacobian_hessian():
 
 
 def test_random_ops_wait_for_item_15_2():
-    with pytest.raises(NotImplementedError, match="15.2"):
-        pt.ops.randn([4])
-    with pytest.raises(NotImplementedError, match="15.2"):
-        pt.to_tensor([1.0]).uniform_()
+    """The random ops of item 15.2 are in: ``randn`` and
+    ``Tensor.uniform_`` under one seed draw the reference's values
+    (uniform bit for bit, normal within 3 ulps)."""
+    def s(m):
+        m.seed(5)
+        a = m.ops.randn([4])
+        b = m.to_tensor([1.0, 2.0, 3.0]).uniform_(-2.0, 2.0)
+        return [a, b]
+    got, want = s(pt), s(jt)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0].numpy()),
+                               rtol=4e-7, atol=0)
+    assert np.array_equal(got[1].numpy(), np.asarray(want[1].numpy()))
 
 
 def test_cast_astype():

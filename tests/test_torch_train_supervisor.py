@@ -295,6 +295,7 @@ class _Rec:
 
 
 def _model(learning_rate=0.01):
+    pt.seed(7)          # the layers draw their weights from pt's stream
     torch.manual_seed(7)
     net = torch.nn.Sequential(nn.Linear(4, 8, device="cpu"),
                               torch.nn.ReLU(),
