@@ -22,6 +22,7 @@
     python3 chip_smoke.py --only build,serve,decode_parity,decoding,deploy
     python3 chip_smoke.py --only build,tensor_api
     python3 chip_smoke.py --only build,nn_layers
+    python3 chip_smoke.py --only build,zoo_parity,zoo
 
 Phases, in order; any failure exits non-zero:
 
@@ -64,10 +65,12 @@ Phases, in order; any failure exits non-zero:
    then bf16 at S = 100, at S_q != S_k (non-causal and causal; also at
    head_dim 96) and at head_dim 16: o, lse, dq, dk, dv within TOL and
    VEC_RTOL; two backward runs bitwise equal; ptxas's registers and
-   spills of the three bf16 kernels at each head_dim; at the 350m, 7B,
-   hd32 and hd96 shapes, forward, backward and both timed beside the plain
-   version, one SDPA call (a yardstick the port never calls) and the
-   bound, the kernels' time also read from torch.profiler;
+   spills of the three bf16 kernels at each head_dim; then bf16
+   non-causal at the zoo's shapes (DiT-S/4's 256 x 6 heads x 64 tokens,
+   ViT-L/14's 4 x 16 heads x 256); at the 350m, 7B, hd32, hd96 and the two
+   zoo shapes, forward, backward and both timed beside the plain version,
+   one SDPA call (a yardstick the port never calls) and the bound, the
+   kernels' time also read from torch.profiler;
 7. k5: RMSNorm forward (K5a) and backward (K5b) likewise, at 8192 x 1024
    (llama_350m), 4096 x 4096 (Llama-2-7B) and 1000 x 264 rows x d, the
    backward bitwise repeatable; ptxas's registers and spills of the three
@@ -511,7 +514,36 @@ Phases, in order; any failure exits non-zero:
    forward and backward at 32 x 128. (e) the host's microseconds a call
    of ``Layer.__call__`` against ``torch.nn.Module.__call__`` on one
    small ``Linear``;
-33. int8_infer: the serve phase's Llama-2-7B (full width and depth):
+33. zoo_parity: ``bert_tiny``, ``dit_tiny`` and ``qwen_vl_tiny`` in f32
+   (DiT's and the ViT's heads cut from 4 to 2: head dim 16, which K4
+   takes), built on the CPU from one seed (DiT's zero-initialised adaLN and
+   final projections redrawn) and copied to the card: one forward, loss
+   and backward on each, values within 1e-5 of the CPU's and gradients
+   within 1e-3 of each tensor's scale (floored at 1e-3 of the model's
+   largest gradient), the launches counted (K4 where the model attends
+   without a mask, K5 and K6 in the text tower); ``QwenVL.generate``'s
+   greedy and seeded-sampled tokens equal to the CPU's; every tail op and
+   layer of ``nn`` (48 rows and ``class_center_sample``) forward and input
+   gradients within ``ZOO_TOL``; ``feature_alpha_dropout``'s mask the
+   CPU's bit for bit (one R2 fill); beam search over a GRU cell, the
+   CPU's ids;
+34. zoo: at full width in bf16 from seed 0. BERT-base (``bert_base()``)
+   pretraining at 32 x 512 (15% masked labels, NSP), AdamW(1e-4) under
+   ``auto_cast`` bf16: 2 warm-up steps, 8 timed with the counters zeroed
+   just before and read just after; ms a step, tokens/s, peak, a profile;
+   gates: the loss falls, K4 = 0 (dropout 0.1: the reference's routing),
+   R2's dropout twice each dropout a step, the fused AdamW step once;
+   ``BertForSequenceClassification`` eval at 32 x 128 with padding: finite
+   logits, no launch. DiT-S/4 (``dit_s_4()``) at batch 256 likewise: ms a
+   step, images/s, peak; gates: the loss falls, K4a 12 and K4b 12 + 12 a
+   step. Qwen-VL (``QwenVLConfig()``: ViT-L/14 at 224 into a Llama-2-7B-wide
+   text tower, ~7.05 B parameters) on 4 images and 32-token prompts:
+   forward + loss (K4a 24 + 32, K5a 65, K6 32, a finite loss), then
+   ``generate`` of 32 tokens greedy and sampled (0.8, top_k 50, top_p
+   0.95): time to first token, ms a token, peak (with the serve phase's
+   7B when it ran); gates: 32 tokens a row, K4a 24 a call (the ViT), R2
+   one fill a sampled token;
+35. int8_infer: the serve phase's Llama-2-7B (full width and depth):
    one bf16 forward of 8 x 512 ids from seed 0, then
    ``to_int8_inference(model, inplace=True)`` and the same forward with
    the counters zeroed just before and read just after: 7 x layers + 1
@@ -520,7 +552,7 @@ Phases, in order; any failure exits non-zero:
    and the largest relative logit
    error against bf16, ms per forward and tokens/s for both, peak memory,
    a profile of one forward of each;
-34. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
+36. train: llama_350m in bf16 at full width and depth, AdamW(1e-4) with
    f32 moments, one fixed 8 x 1024 batch from seed 0: 2 warm-up steps,
    then 10 timed with the counters zeroed just before and read just
    after (K4: 10 x layers each, K5: 10 x (2 x layers + 1) each, K6's q +
@@ -529,14 +561,14 @@ Phases, in order; any failure exits non-zero:
    fall and stay finite, gradients finite; step time, tokens/s, peak
    memory and a profile of one step (its launches, the optimizer's
    device time);
-35. train_compose: the same model, weights, batch and optimizer with rope
+37. train_compose: the same model, weights, batch and optimizer with rope
    on the composition (``ops.rope._COMPOSITION_ONLY``, set for the phase
    and restored after it): 2 warm-up steps and 5 timed, the counters
    zeroed before the first and read after the last (no K6); the 7 losses
    equal to the train phase's first 7 bit for bit (K6 is the composition
    bit for bit, forward and backward); ms per step of both phases from
    this call, and a profile of one step;
-36. train_amp: the slice's path. llama_350m at full width and depth
+38. train_amp: the slice's path. llama_350m at full width and depth
    from seed 0, ``amp.decorate(level="O2", dtype="bfloat16")`` (the rope
    tables stay f32), ``AdamW(multi_precision=True, weight_decay=0.01``
    off the norms, ``grad_clip=ClipGradByGlobalNorm(1.0))`` on the fused
@@ -553,7 +585,7 @@ Phases, in order; any failure exits non-zero:
    written into one gradient of the second: that step is skipped
    (parameters unchanged bit for bit, the optimizer not stepped) and the
    scale halves;
-37. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
+39. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
    llama_350m in bf16 at full width and depth from seed 0,
    ``AdamW(1e-4, weight_decay=0.01)``, ``nn.CrossEntropyLoss()``, a
    ``TensorDataset`` of 96 rows of 1025 seeded ids (inputs the first
@@ -600,7 +632,7 @@ PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "opt",
           "int8_parity", "serve", "dense", "preempt", "telemetry",
           "fleet_parity", "fleet", "wire_parity", "wire", "family_parity",
           "families", "decode_parity", "decoding", "deploy", "tensor_api",
-          "nn_layers", "int8_infer",
+          "nn_layers", "zoo_parity", "zoo", "int8_infer",
           "train", "train_compose", "train_amp", "fit")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
@@ -1240,7 +1272,14 @@ K4_CASES = (("350m", 8, 1024, 1024, 16, 64, True, BOTH),
             ("hd16", 4, 1024, 1024, 4, 16, True, BF16),
             ("hd32", 8, 1024, 1024, 8, 32, True, BOTH),
             ("hd96", 8, 1024, 1024, 8, 96, True, BOTH),
-            ("hd96-rect", 2, 300, 1000, 8, 96, False, BF16))
+            ("hd96-rect", 2, 300, 1000, 8, 96, False, BF16),
+            # the zoo's non-causal attention at head dim 64: DiT-S/4's
+            # (batch 256, 64 tokens, 6 heads) and ViT-L/14's at 224 (4
+            # images, 256 tokens, 16 heads)
+            ("dit_s_4", 256, 64, 64, 6, 64, False, BF16),
+            ("vit_l_14", 4, 256, 256, 16, 64, False, BF16))
+# the K4 cases timed (bf16), each with its bound and SDPA's time
+K4_TIMED = ("350m", "7b", "hd32", "hd96", "dit_s_4", "vit_l_14")
 K4_KERNELS = ("fwd_mma_kernel", "dq_mma_kernel", "dkv_mma_kernel")
 
 
@@ -1504,10 +1543,10 @@ def phase_k4(torch, peak, flush, record):
             if not ok:
                 raise SystemExit(f"k4 {tag} {dname} disagrees with its plain "
                                  f"version")
-            if tag in ("350m", "7b", "hd32", "hd96") and \
-                    dtype == torch.bfloat16:
+            if tag in K4_TIMED and dtype == torch.bfloat16:
                 k4_time(torch, F, fa, tag, (q, k, v, o, lse, do),
-                        (B, Sq, H, D), scale, peak, flush, record, errs)
+                        (B, Sq, H, D), scale, peak, flush, record, errs,
+                        causal)
             del q, k, v, do, o, lse, dq, dk, dv
             torch.cuda.empty_cache()
 
@@ -1533,46 +1572,49 @@ def profiled_ms(torch, fn, names, flush, iters=10):
 
 
 def k4_time(torch, F, fa, tag, tensors, shape, scale, peak, flush, record,
-            errs):
+            errs, causal=True):
     """K4a and K4b at a training shape in bf16 (llama_350m's, the main
-    path, goes into the record; Llama-2-7B's) beside their plain versions
-    and one SDPA call (forward; its backward through autograd on a kept
-    graph), and their bounds; also forward + backward. The kernels' own
-    times are read a second way from torch.profiler."""
+    path, goes into the record; Llama-2-7B's; the zoo's non-causal ones
+    go into the record's ``shapes``) beside their plain versions and one
+    SDPA call (forward; its backward through autograd on a kept graph),
+    and their bounds; also forward + backward. The kernels' own times are
+    read a second way from torch.profiler."""
     q, k, v, o, lse, do = tensors
     B, S, H, D = shape
-    ms_f = cuda_ms(lambda: fa.flash_fwd(q, k, v, scale, True), torch,
+    ms_f = cuda_ms(lambda: fa.flash_fwd(q, k, v, scale, causal), torch,
                    flush=flush)
-    ms_b = cuda_ms(lambda: fa.flash_bwd(q, k, v, o, lse, do, scale, True),
-                   torch, flush=flush)
+    ms_b = cuda_ms(lambda: fa.flash_bwd(q, k, v, o, lse, do, scale,
+                                        causal), torch, flush=flush)
     ms_fb = cuda_ms(lambda: fa.flash_bwd(
-        q, k, v, *fa.flash_fwd(q, k, v, scale, True), do, scale, True),
-        torch, flush=flush)
-    prof_f = profiled_ms(torch, lambda: fa.flash_fwd(q, k, v, scale, True),
+        q, k, v, *fa.flash_fwd(q, k, v, scale, causal), do, scale,
+        causal), torch, flush=flush)
+    prof_f = profiled_ms(torch,
+                         lambda: fa.flash_fwd(q, k, v, scale, causal),
                          K4_KERNELS[:1], flush)
     prof_b = profiled_ms(torch, lambda: fa.flash_bwd(q, k, v, o, lse, do,
-                                                     scale, True),
+                                                     scale, causal),
                          K4_KERNELS[1:], flush)
-    plain_f = cuda_ms(lambda: fa._ref_with_lse(q, k, v, scale, True), torch,
-                      iters=5, flush=flush)
-    plain_b = cuda_ms(lambda: fa._ref_bwd(q, k, v, o, lse, do, scale, True),
+    plain_f = cuda_ms(lambda: fa._ref_with_lse(q, k, v, scale, causal),
+                      torch, iters=5, flush=flush)
+    plain_b = cuda_ms(lambda: fa._ref_bwd(q, k, v, o, lse, do, scale,
+                                          causal),
                       torch, iters=5, flush=flush)
     plain_fb = cuda_ms(lambda: fa._ref_bwd(
-        q, k, v, *fa._ref_with_lse(q, k, v, scale, True), do, scale, True),
-        torch, iters=5, flush=flush)
+        q, k, v, *fa._ref_with_lse(q, k, v, scale, causal), do, scale,
+        causal), torch, iters=5, flush=flush)
     qs, ks, vs = (t.reshape(B, H, S, D).detach().requires_grad_()
                   for t in (q, k, v))
     dos = do.reshape(B, H, S, D)
     lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True, scale=scale), torch, flush=flush)
-    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+        qs, ks, vs, is_causal=causal, scale=scale), torch, flush=flush)
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
                                          scale=scale)
     lib_b = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dos,
                                                 retain_graph=True), torch,
                     flush=flush)
 
     def sdpa_fb():
-        o_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+        o_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
                                             scale=scale)
         return torch.autograd.grad(o_, (qs, ks, vs), dos)
 
@@ -1580,7 +1622,7 @@ def k4_time(torch, F, fa, tag, tensors, shape, scale, peak, flush, record,
     del out
     elt = q.element_size()
     n = B * H * S * D * elt
-    flops_f = 2 * B * H * S * S * D          # causal: half of 4 B H S^2 D
+    flops_f = (2 if causal else 4) * B * H * S * S * D   # causal: half
     bound_f, by_f = bound(4 * n + 4 * B * H * S, flops_f, peak)
     bound_b, by_b = bound(8 * n + 4 * B * H * S, 2.5 * flops_f, peak)
     bound_fb, _ = bound(9 * n + 4 * B * H * S, 3.5 * flops_f, peak)
@@ -1593,6 +1635,15 @@ def k4_time(torch, F, fa, tag, tensors, shape, scale, peak, flush, record,
             max_abs_err=max(e[0] for e in errs[2:]), ms=ms_b,
             plain_ms=plain_b, library_ms=lib_b, bound_ms=bound_b,
             bound_by=by_b)
+    if tag in ("dit_s_4", "vit_l_14"):
+        for kname, ms, plain, lib, bnd, by in (
+                ("flash_attention_fwd", ms_f, plain_f, lib_f, bound_f, by_f),
+                ("flash_attention_bwd", ms_b, plain_b, lib_b, bound_b,
+                 by_b)):
+            record[kname].setdefault("shapes", {})[tag] = {
+                "shape": [B, S, H, D], "causal": causal, "ms": ms,
+                "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
+                "bound_by": by}
     for what, ms, plain, lib, bnd, seen in (
             ("forward", ms_f, plain_f, lib_f, bound_f,
              ", profiler " + fmt_ms(prof_f)),
@@ -7853,6 +7904,641 @@ def phase_nn_layers(torch, np, card, peak, record):
             raise SystemExit(f"nn_layers: check failed: {name}")
 
 
+# ------------------------------------------------------------------ the zoo
+
+# zoo_parity: card against CPU in f32, values (logits, losses, op
+# outputs) over max(|value|, 1) and gradients by nn_layers' rule: each
+# over its own largest |value|, but the key projections' biases
+# (NN_ZERO_GRAD), held over NN_GRAD_FLOOR of the model's largest gradient
+ZOO_TOL = {"value": 1e-5, "grad": 1e-3, "op_grad": 1e-4}
+# zoo: BERT-base pretraining at 32 x 512 (and classification at 32 x
+# 128), DiT-S/4 at the DiT paper's batch 256, Qwen-VL on 4 images with
+# 32-token prompts and 32 new tokens; each trained model takes 2 warm-up
+# steps and ZOO["steps"] timed ones
+ZOO = {"bert": (32, 512), "bert_cls": (32, 128), "dit_batch": 256,
+       "vl": (4, 32, 32), "steps": 8, "mask_id": 103}
+
+
+def zoo_tiny_models(torch, np, pt):
+    """zoo_parity's models, built on the CPU under ``pt.seed(0)``: the
+    repo's tiny configurations, DiT's and the ViT's heads cut from 4 to
+    2 (head dim 16: K4 takes 16 to 128), DiT's zero-initialised adaLN and
+    final projections drawn N(0, 0.05) so that every block carries
+    signal."""
+    from paddle_tpu_torch import models as M
+    pt.set_device("cpu")
+    pt.seed(0)
+    bert = M.BertForPretraining(M.bert_tiny())
+    dit = M.DiTForDiffusion(M.dit_tiny(num_heads=2))
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for n, p in dit.named_parameters():
+            if ".ada." in n or n.startswith("dit.final_layer.linear"):
+                p.copy_(0.05 * torch.randn(p.shape, generator=gen))
+    cfg = M.qwen_vl_tiny()
+    cfg.vision.num_heads = 2
+    vl = M.QwenVL(cfg, device="cpu")
+    return bert, dit, vl
+
+
+def zoo_tiny_inputs(np):
+    rng = np.random.default_rng(11)
+    ids = rng.integers(0, 128, (2, 16))
+    labels = np.where(rng.random((2, 16)) < 0.15, ids, -100)
+    labels[0, 0] = ids[0, 0]                   # at least one label
+    mask = np.ones((2, 16), np.int64)
+    mask[1, 12:] = 0
+    return {"bert": (ids, labels, rng.integers(0, 2, (2,)), mask),
+            "dit": (rng.standard_normal((2, 3, 8, 8)).astype(np.float32),
+                    np.array([10, 990]),
+                    rng.standard_normal((2, 3, 8, 8)).astype(np.float32),
+                    np.array([3, 10])),
+            "vl": (rng.integers(0, 256, (2, 12)),
+                   rng.standard_normal((2, 3, 16, 16)).astype(np.float32))}
+
+
+def zoo_tiny_run(torch, np, name, model, data, device):
+    """One forward, loss and backward of a tiny model on ``device``:
+    ({value name: tensor}, {parameter: gradient})."""
+    def t(a):
+        return torch.as_tensor(a, device=device)
+    model.train()
+    for p in model.parameters():
+        p.grad = None
+    out = {}
+    if name == "bert":
+        ids, labels, nsp, mask = (t(a) for a in data)
+        mlm, ns = model(ids)
+        loss = model.loss(mlm, ns, labels, nsp)
+        out.update(mlm=mlm, nsp=ns, loss=loss)
+        with torch.no_grad():
+            out["masked_seq"] = model.bert(ids, attention_mask=mask)[0]
+    elif name == "dit":
+        x0, tt, noise, y = (t(a) for a in data)
+        loss = model.loss(x0, tt, noise, y)
+        out.update(loss=loss)
+        with torch.no_grad():
+            out["eps"] = model(x0, tt, y)
+    else:
+        ids, px = t(data[0]), t(data[1])
+        logits = model(ids, px)
+        loss = model.loss(logits, ids)
+        out.update(logits=logits, loss=loss)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return out, grads
+
+
+def zoo_tail_rows(torch, np):
+    """zoo_parity's rows of the tail: (name, call over (F, nn, tensors),
+    numpy inputs, the indices of the inputs to differentiate)."""
+    rng = np.random.default_rng(7)
+
+    def r(*s, lo=None, hi=None):
+        if lo is not None:
+            return rng.uniform(lo, hi, s).astype(np.float32)
+        return rng.standard_normal(s).astype(np.float32)
+
+    def ints(hi, *s):
+        return rng.integers(0, hi, s).astype(np.int32)
+
+    x4 = r(2, 3, 4, 4)
+    win = x4.reshape(2, 3, 2, 2, 2, 2).transpose(0, 1, 2, 4, 3, 5).reshape(
+        2, 3, 2, 2, 4)
+    arg = win.argmax(-1)
+    ix2 = ((np.arange(2)[:, None] * 2 + arg // 2) * 4
+           + np.arange(2)[None, :] * 2 + arg % 2).astype(np.int32)
+    v2 = win.max(-1)
+    x1 = r(2, 3, 6).reshape(2, 3, 3, 2)
+    ix1 = (np.arange(3) * 2 + x1.argmax(-1)).astype(np.int32)
+    v1 = x1.max(-1)
+    ctc = [r(12, 3, 5), np.array([[1, 2, 2, 3], [4, 1, 4, 0], [2, 0, 0, 0]],
+                                 np.int32),
+           np.array([12, 10, 7], np.int32), np.array([4, 3, 0], np.int32)]
+    rnnt = [r(2, 5, 4, 6), np.array([[1, 2, 5], [3, 3, 0]], np.int32),
+            np.array([5, 4], np.int32), np.array([3, 2], np.int32)]
+    cols = np.array([[[0, 1, 1, 2, 0, 2, 3, 3], [0, 0, 1, 2, 3, 1, 2, 3]]],
+                    np.int32)
+    off = np.array([[[0, 2, 4, 6, 8], [0, 1, 3, 5, 8]]], np.int32)
+    grid = r(2, 4, 3, 2, lo=-1.2, hi=1.2)
+    rows = [
+        ("affine_grid", lambda F, nn, a: F.affine_grid(a, [2, 3, 4, 5]),
+         [r(2, 2, 3)], (0,)),
+        ("temporal_shift", lambda F, nn, a: F.temporal_shift(a, 2),
+         [r(4, 8, 3, 3)], (0,)),
+        ("zeropad2d", lambda F, nn, a: F.zeropad2d(a, [1, 2, 0, 1]),
+         [r(1, 2, 3, 3)], (0,)),
+        ("pixel_unshuffle", lambda F, nn, a: F.pixel_unshuffle(a, 2),
+         [r(1, 2, 4, 6)], (0,)),
+        ("channel_shuffle", lambda F, nn, a: F.channel_shuffle(a, 3),
+         [r(1, 6, 2, 2)], (0,)),
+        ("pairwise_distance", lambda F, nn, a, b: F.pairwise_distance(a, b),
+         [r(4, 5), r(4, 5)], (0, 1)),
+        ("unfold", lambda F, nn, a: F.unfold(a, 3, 2, 1), [r(2, 3, 6, 7)],
+         (0,)),
+        ("fold", lambda F, nn, a: F.fold(a, [5, 6], 2), [r(2, 12, 20)],
+         (0,)),
+        ("max_unpool1d", lambda F, nn, a, i: F.max_unpool1d(a, i, 2),
+         [v1, ix1], (0,)),
+        ("max_unpool2d", lambda F, nn, a, i: F.max_unpool2d(a, i, 2),
+         [v2, ix2], (0,)),
+        ("max_unpool3d", lambda F, nn, a, i: F.max_unpool3d(a, i, 2),
+         [r(1, 1, 1, 1, 1), np.array([[[[[5]]]]], np.int32)], (0,)),
+        ("adaptive_max_pool3d",
+         lambda F, nn, a: F.adaptive_max_pool3d(a, [3, 4, 3]),
+         [r(1, 2, 5, 7, 4)], (0,)),
+        ("square_error_cost", lambda F, nn, a, b: F.square_error_cost(a, b),
+         [r(3, 4), r(3, 4)], (0, 1)),
+        ("sigmoid_focal_loss",
+         lambda F, nn, a, b: F.sigmoid_focal_loss(a, b),
+         [r(4, 3), ints(2, 4, 3).astype(np.float32)], (0,)),
+        ("huber_loss", lambda F, nn, a, b: F.huber_loss(a, b, delta=0.7),
+         [r(3, 4), r(3, 4)], (0, 1)),
+        ("soft_margin_loss", lambda F, nn, a, b: F.soft_margin_loss(a, b),
+         [r(3, 4), np.sign(r(3, 4))], (0,)),
+        ("multi_label_soft_margin_loss",
+         lambda F, nn, a, b: F.multi_label_soft_margin_loss(a, b),
+         [r(3, 4), ints(2, 3, 4).astype(np.float32)], (0,)),
+        ("poisson_nll_loss",
+         lambda F, nn, a, b: F.poisson_nll_loss(a, b, full=True),
+         [r(3, 4), ints(5, 3, 4).astype(np.float32)], (0,)),
+        ("gaussian_nll_loss",
+         lambda F, nn, a, b, c: F.gaussian_nll_loss(a, b, c, full=True),
+         [r(3, 4), r(3, 4), r(3, 4, lo=0.2, hi=2.0)], (0, 1, 2)),
+        ("log_loss", lambda F, nn, a, b: F.log_loss(a, b),
+         [r(4, 1, lo=0.05, hi=0.95), ints(2, 4, 1).astype(np.float32)],
+         (0,)),
+        ("dice_loss", lambda F, nn, a, b: F.dice_loss(a, b),
+         [r(3, 4, 5, lo=0.0, hi=1.0), ints(5, 3, 4, 1)], (0,)),
+        ("npair_loss", lambda F, nn, a, b, c: F.npair_loss(a, b, c),
+         [r(4, 6), r(4, 6), np.array([0, 1, 0, 2], np.int32)], (0, 1)),
+        ("triplet_margin_with_distance_loss",
+         lambda F, nn, a, b, c: F.triplet_margin_with_distance_loss(
+             a, b, c, swap=True), [r(4, 5), r(4, 5), r(4, 5)], (0, 1, 2)),
+        ("ctc_loss", lambda F, nn, *a: F.ctc_loss(*a, reduction="none"),
+         ctc, (0,)),
+        ("rnnt_loss", lambda F, nn, *a: F.rnnt_loss(
+            *a, fastemit_lambda=0.001, reduction="none"), rnnt, (0,)),
+        ("softmax_with_cross_entropy",
+         lambda F, nn, a, b: F.softmax_with_cross_entropy(a, b),
+         [r(4, 5), np.array([[1], [4], [-100], [0]], np.int32)], (0,)),
+        ("margin_cross_entropy",
+         lambda F, nn, a, b: F.margin_cross_entropy(a, b, reduction="none"),
+         [r(4, 6, lo=-0.95, hi=0.95), np.array([0, 3, 5, 1], np.int32)],
+         (0,)),
+        ("multi_margin_loss",
+         lambda F, nn, a, b: F.multi_margin_loss(a, b, p=2),
+         [r(4, 5), np.array([0, 4, 2, 2], np.int32)], (0,)),
+        ("hsigmoid_loss",
+         lambda F, nn, a, b, w, c: F.hsigmoid_loss(a, b, 7, w, c),
+         [r(4, 6), np.array([0, 6, 3, 5], np.int32), r(6, 6), r(6, 1)],
+         (0, 2, 3)),
+        ("gather_tree", lambda F, nn, a, b: F.gather_tree(a, b),
+         [ints(9, 4, 2, 3), ints(3, 4, 2, 3)], ()),
+        ("sparse_attention",
+         lambda F, nn, q, k, v, o, c: F.sparse_attention(q, k, v, o, c),
+         [r(1, 2, 4, 8), r(1, 2, 4, 8), r(1, 2, 4, 8), off, cols],
+         (0, 1, 2)),
+        ("sequence_mask", lambda F, nn, a: F.sequence_mask(a, 6),
+         [np.array([2, 0, 5], np.int32)], ()),
+        ("Softmax2D", lambda F, nn, a: nn.Softmax2D()(a), [r(2, 3, 4, 4)],
+         (0,)),
+        ("CTCLoss", lambda F, nn, *a: nn.CTCLoss()(*a), ctc, (0,)),
+        ("RNNTLoss", lambda F, nn, *a: nn.RNNTLoss()(*a), rnnt, (0,)),
+    ]
+    for mode in ("bilinear", "nearest"):
+        for pad in ("zeros", "border", "reflection"):
+            for align in (True, False):
+                rows.append((
+                    f"grid_sample_{mode}_{pad}_{int(align)}",
+                    lambda F, nn, a, g, m=mode, p=pad, al=align:
+                        F.grid_sample(a, g, mode=m, padding_mode=p,
+                                      align_corners=al),
+                    [r(2, 3, 5, 6), grid], (0, 1) if mode == "bilinear"
+                    else (0,)))
+    return rows
+
+
+def zoo_tail_run(torch, np, call, inputs, diff, device):
+    """A tail row on ``device``: (outputs, input gradients of ``sum(out
+    * w)`` over the float outputs, w from seed 0)."""
+    import paddle_tpu_torch as pt
+    ts = [torch.tensor(a, device=device) for a in inputs]
+    for i in diff:
+        ts[i].requires_grad_()
+    out = call(pt.nn.functional, pt.nn, *ts)
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    if diff:
+        rng = np.random.default_rng(0)
+        loss = sum((o * torch.tensor(rng.uniform(0.5, 1.5, tuple(o.shape))
+                                     .astype(np.float32), device=device)
+                    ).sum() for o in outs if o.is_floating_point())
+        loss.backward()
+    return outs, [ts[i].grad for i in diff]
+
+
+def phase_zoo_parity(torch, np, card):
+    """Phase zoo_parity: the tiny BERT, DiT and Qwen-VL, f32, the card
+    against the CPU on one set of weights; QwenVL.generate's tokens; the
+    tail's ops and layers; feature_alpha_dropout's mask; beam search."""
+    import copy
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import device as tdevice
+    checks = {}
+    t_phase = time.perf_counter()
+    try:
+        models = zoo_tiny_models(torch, np, pt)
+        data = zoo_tiny_inputs(np)
+        # K4 where the model attends without a mask: BERT's masked
+        # forward takes the composition, DiT's second forward (no grad)
+        # K4a again, the ViT and the text tower two layers each
+        want_k = {"bert": {"k4_fwd": 2, "k4_dq": 2, "k4_dkv": 2},
+                  "dit": {"k4_fwd": 4, "k4_dq": 2, "k4_dkv": 2},
+                  "vl": {"k4_fwd": 4, "k4_dq": 4, "k4_dkv": 4,
+                         "k5_fwd": 5, "k5_bwd": 5, "k6_qk": 4}}
+        for name, cpu_m in zip(("bert", "dit", "vl"), models):
+            card_m = copy.deepcopy(cpu_m).to("cuda")
+            pt.set_device("gpu")
+            zero_counts()
+            c_out, c_g = zoo_tiny_run(torch, np, name, card_m, data[name],
+                                      "cuda")
+            torch.cuda.synchronize()
+            counts = read_counts()
+            pt.set_device("cpu")
+            h_out, h_g = zoo_tiny_run(torch, np, name, cpu_m, data[name],
+                                      "cpu")
+            v_err = {k: nn_scaled_err(torch, c_out[k], h_out[k])
+                     for k in h_out}
+            gmax = max(g.abs().max().item() for g in h_g.values())
+            g_err = {k: nn_scaled_err(torch, c_g[k], g,
+                                      NN_GRAD_FLOOR * gmax
+                                      if k.endswith(NN_ZERO_GRAD) else 0.0)
+                     for k, g in h_g.items()}
+            worst = max(g_err, key=g_err.get)
+            got_k = {k: counts[k] for k in want_k[name]}
+            log(f"zoo_parity {name} tiny [{card}]: "
+                f"{sum(p.numel() for p in cpu_m.parameters())} parameters; "
+                f"values card against CPU "
+                f"{ {k: float(f'{v:.3g}') for k, v in v_err.items()} }; "
+                f"largest gradient error {g_err[worst]:.3g} ({worst}) over "
+                f"{len(g_err)} tensors; launches {got_k}")
+            checks[f"{name}: values within {ZOO_TOL['value']}, gradients "
+                   f"within {ZOO_TOL['grad']}"] = \
+                max(v_err.values()) <= ZOO_TOL["value"] and \
+                g_err[worst] <= ZOO_TOL["grad"] and set(c_g) == set(h_g)
+            checks[f"{name}: launches {want_k[name]}"] = \
+                got_k == want_k[name]
+            if name == "vl":
+                ids, px = data["vl"]
+                for kw in ({}, {"do_sample": True, "temperature": 0.8,
+                                "top_k": 50, "top_p": 0.95, "seed": 7}):
+                    toks = []
+                    for m, dev in ((card_m, "cuda"), (cpu_m, "cpu")):
+                        pt.set_device("gpu" if dev == "cuda" else "cpu")
+                        toks.append(m.generate(
+                            torch.as_tensor(ids, device=dev),
+                            torch.as_tensor(px, device=dev),
+                            max_new_tokens=8, **kw).cpu())
+                    mode = "sampled" if kw else "greedy"
+                    log(f"zoo_parity vl generate {mode}: card "
+                        f"{toks[0][:, 12:].tolist()}, equal to the CPU's "
+                        f"{torch.equal(*toks)}")
+                    checks[f"QwenVL.generate {mode}: card tokens == CPU's"] \
+                        = torch.equal(*toks)
+            del card_m
+        # the tail: every op and layer row, card against CPU
+        fails, n_rows = [], 0
+        for name, call, inputs, diff in zoo_tail_rows(torch, np):
+            n_rows += 1
+            try:
+                pt.set_device("gpu")
+                co, cg = zoo_tail_run(torch, np, call, inputs, diff, "cuda")
+                pt.set_device("cpu")
+                ho, hg = zoo_tail_run(torch, np, call, inputs, diff, "cpu")
+            except Exception as e:       # noqa: BLE001 — reported below
+                fails.append(f"{name}: {type(e).__name__}: {e}")
+                continue
+            if any(o.device.type != "cuda" for o in co):
+                fails.append(f"{name}: an output off the card")
+            err = max([nn_scaled_err(torch, a.float(), b.float())
+                       for a, b in zip(co, ho)] + [0.0])
+            gerr = max([nn_scaled_err(torch, a, b, 1e-30)
+                        for a, b in zip(cg, hg)] + [0.0])
+            if not (err <= ZOO_TOL["value"] and gerr <= ZOO_TOL["op_grad"]):
+                fails.append(f"{name}: value {err:.3g}, gradient {gerr:.3g}")
+        # host-side ops: numpy's draw on both
+        outs = []
+        for dev in ("cuda", "cpu"):
+            np.random.seed(3)
+            outs.append([t.cpu() for t in pt.nn.functional.
+                         class_center_sample(torch.tensor(
+                             [3, 7, 3, 1, 9, 7], device=dev), 12, 7)])
+        n_rows += 1
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            fails.append("class_center_sample: card and CPU differ")
+        log(f"zoo_parity tail [{card}]: {n_rows} rows (the tail's ops and "
+            f"layers, forward and input gradients), card against CPU; "
+            f"fails {fails}")
+        checks["every tail row within its tolerance"] = not fails
+        # feature_alpha_dropout: R2's uniform fill on the reference's key
+        fill0 = read_counts()["r2_fill"]
+        masks = []
+        for dev in ("cuda", "cpu"):
+            pt.set_device("gpu" if dev == "cuda" else "cpu")
+            pt.seed(5)
+            z = torch.zeros((64, 16, 3), device=dev)
+            y = pt.nn.functional.feature_alpha_dropout(z, p=0.3)
+            masks.append((y == y.max()).cpu())
+        fills = read_counts()["r2_fill"] - fill0
+        log(f"zoo_parity feature_alpha_dropout: 64 x 16 channels, p 0.3; "
+            f"kept {masks[0].float().mean().item():.4f}; R2 fills {fills}; "
+            f"mask equal to the CPU's {torch.equal(*masks)}")
+        checks["feature_alpha_dropout: the mask bit for bit the CPU's, one "
+               "R2 fill"] = torch.equal(*masks) and fills == 1
+        # beam search over a GRU cell (built on the CPU, copied over)
+        res = []
+        pt.set_device("cpu")
+        pt.seed(3)
+        parts = (pt.nn.GRUCell(4, 5), pt.nn.Embedding(7, 4),
+                 pt.nn.Linear(5, 7))
+        for dev in ("cuda", "cpu"):
+            pt.set_device("gpu" if dev == "cuda" else "cpu")
+            cell, emb, out = (copy.deepcopy(m).to(dev) for m in parts)
+            dec = pt.nn.BeamSearchDecoder(cell, 0, 1, 3, embedding_fn=emb,
+                                          output_fn=out)
+            h0 = pt.to_tensor(np.random.default_rng(1).standard_normal(
+                (2, 5)).astype(np.float32))
+            ids, lengths = pt.nn.dynamic_decode(dec, inits=h0,
+                                                max_step_num=6)
+            res.append((ids.numpy(), lengths.numpy()))
+        same = all(np.array_equal(a, b) for a, b in zip(*res))
+        log(f"zoo_parity dynamic_decode: beam 3 over a GRU cell, ids "
+            f"{res[0][0].shape}, equal to the CPU's {same}")
+        checks["dynamic_decode: ids and lengths the CPU's"] = same
+    finally:
+        tdevice._default[0] = None
+    log(f"zoo_parity phase {time.perf_counter() - t_phase:.1f} s; checks "
+        f"{checks}")
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"zoo_parity: check failed: {name}")
+
+
+def zoo_train(torch, np, model, step, steps):
+    """2 warm-up steps, then ``steps`` timed with the counters zeroed
+    just before and read just after: (losses, ms a step (median),
+    launches, peak GiB over the timed steps)."""
+    losses = [step() for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    return ([float(x) for x in losses], float(np.median(times)) * 1e3,
+            counts, peak_gb)
+
+
+def phase_zoo(torch, np, card, record, model_7b):
+    """Phase zoo: BERT-base pretraining and classification, DiT-S/4
+    training and Qwen-VL's forward, loss and generation, at full width in
+    bf16 from seed 0."""
+    import gc
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import device as tdevice
+    from paddle_tpu_torch import models as M
+    from paddle_tpu_torch.nn import MultiHeadAttention
+    from paddle_tpu_torch.optimizer import AdamW
+    checks = {}
+    steps = ZOO["steps"]
+    t_phase = time.perf_counter()
+    resident = "with" if model_7b is not None else "without"
+    try:
+        pt.set_device("gpu")
+        # (a) BERT-base pretraining: MLM on 15% of the tokens ([MASK] in
+        # their place) and NSP, AdamW(1e-4) under auto_cast bf16
+        pt.seed(0)
+        cfg = M.bert_base()
+        model = M.BertForPretraining(cfg)
+        n_params = sum(p.numel() for p in model.parameters())
+        B, S = ZOO["bert"]
+        rng = np.random.default_rng(0)
+        ids = rng.integers(1000, cfg.vocab_size, (B, S))
+        picked = rng.random((B, S)) < 0.15
+        labels = torch.as_tensor(np.where(picked, ids, -100), device="cuda")
+        inputs = torch.as_tensor(np.where(picked, ZOO["mask_id"], ids),
+                                 device="cuda")
+        types = torch.as_tensor(np.repeat([[0] * (S // 2) + [1] * (S // 2)],
+                                          B, 0), device="cuda")
+        nsp = torch.as_tensor(rng.integers(0, 2, (B,)), device="cuda")
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        drops = nn_dropout_layers(model) + sum(
+            1 for m in model.sublayers()
+            if isinstance(m, MultiHeadAttention) and m.dropout > 0)
+
+        def bert_step():
+            with amp.auto_cast(level="O1", dtype="bfloat16"):
+                mlm, ns = model(inputs, types)
+                loss = model.loss(mlm, ns, labels, nsp)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+
+        model.train()
+        losses, ms, counts, peak_gb = zoo_train(torch, np, model, bert_step,
+                                                steps)
+        log(f"zoo bert-base pretraining [{card}]: {n_params} parameters, "
+            f"{B} x {S} tokens ({int(picked.sum())} masked labels), NSP, "
+            f"AdamW(1e-4), auto_cast bf16, dropout 0.1: losses "
+            f"{[round(v, 4) for v in losses]}; {ms:.1f} ms a step (median "
+            f"of {steps}), {B * S / ms * 1e3:.0f} tokens/s, peak "
+            f"{peak_gb:.2f} GiB ({resident} the resident 7B); {drops} "
+            f"dropouts a forward; launches over {steps} steps {counts}")
+        checks["bert-base: loss finite and falling"] = all(
+            math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+        checks["bert-base: K4 = 0 (dropout 0.1: the reference's routing)"] = \
+            counts["k4_fwd"] == counts["k4_dq"] == counts["k4_dkv"] == 0
+        checks[f"bert-base: R2 dropout {steps} x 2 x {drops}, no fill, the "
+               f"fused AdamW step {steps} times"] = \
+            counts["r2_dropout"] == 2 * drops * steps and \
+            counts["r2_fill"] == 0 and counts["opt"] == steps
+        record["threefry_fill"]["zoo_launches"] = {
+            "bert_base_step": counts["r2_dropout"] // steps}
+        profile_once(torch, bert_step, card, "zoo bert-base")
+        del model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        # classification: eval forward at 32 x 128 with padding
+        pt.seed(1)
+        cls = M.BertForSequenceClassification(cfg)
+        cls.eval()
+        B, S = ZOO["bert_cls"]
+        ids = torch.as_tensor(rng.integers(1000, cfg.vocab_size, (B, S)),
+                              device="cuda")
+        lengths = rng.integers(S // 2, S + 1, (B,))
+        mask = torch.as_tensor(np.arange(S)[None] < lengths[:, None],
+                               dtype=torch.int64, device="cuda")
+        with torch.no_grad(), amp.auto_cast(level="O1", dtype="bfloat16"):
+            cls(ids, attention_mask=mask)
+            zero_counts()
+            logits = cls(ids, attention_mask=mask)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            cms = event_ms(lambda: cls(ids, attention_mask=mask), torch,
+                           iters=10, warmup=1)
+        log(f"zoo bert-base classification [{card}]: eval forward {B} x "
+            f"{S} with padding (lengths {lengths.min()}..{lengths.max()}), "
+            f"auto_cast bf16: {cms:.2f} ms, {B * S / cms * 1e3:.0f} "
+            f"tokens/s; logits {tuple(logits.shape)}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        checks["bert-base classification: finite logits [32, 2], no kernel "
+               "launch (a mask, eval)"] = \
+            tuple(logits.shape) == (B, 2) and \
+            bool(torch.isfinite(logits.float()).all()) and \
+            not any(counts.values())
+        del cls, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b) DiT-S/4: epsilon prediction at batch 256, AdamW(1e-4)
+        pt.seed(0)
+        dcfg = M.dit_s_4()
+        dit = M.DiTForDiffusion(dcfg)
+        n_dit = sum(p.numel() for p in dit.parameters())
+        B = ZOO["dit_batch"]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        shape = (B, dcfg.in_channels, dcfg.image_size, dcfg.image_size)
+        x0 = torch.randn(shape, generator=gen, device="cuda")
+        noise = torch.randn(shape, generator=gen, device="cuda")
+        tt = torch.randint(0, 1000, (B,), generator=gen, device="cuda")
+        yy = torch.randint(0, dcfg.num_classes, (B,), generator=gen,
+                           device="cuda")
+        dopt = AdamW(learning_rate=1e-4, parameters=dit.parameters())
+        L = dcfg.num_layers
+
+        def dit_step():
+            with amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss = dit.loss(x0, tt, noise, yy)
+            loss.backward()
+            dopt.step()
+            dopt.clear_grad()
+            return loss.detach()
+
+        dit.train()
+        losses, ms, counts, peak_gb = zoo_train(torch, np, dit, dit_step,
+                                                steps)
+        log(f"zoo dit-s/4 [{card}]: {n_dit} parameters, batch {B} of "
+            f"{shape[1:]} latents ({dcfg.num_patches} tokens, 6 heads of "
+            f"64), AdamW(1e-4), auto_cast bf16: losses "
+            f"{[round(v, 5) for v in losses]}; {ms:.1f} ms a step (median "
+            f"of {steps}), {B / ms * 1e3:.0f} images/s, peak {peak_gb:.2f} "
+            f"GiB; launches over {steps} steps {counts}")
+        checks["dit-s/4: loss finite and falling"] = all(
+            math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+        checks[f"dit-s/4: K4a {L}, K4b {L} + {L} a step"] = \
+            counts["k4_fwd"] == counts["k4_dq"] == counts["k4_dkv"] == \
+            L * steps
+        record["flash_attention_fwd"]["zoo_launches"] = {
+            "dit_s_4_step": counts["k4_fwd"] // steps}
+        record["flash_attention_bwd"]["zoo_launches"] = {
+            "dit_s_4_step": counts["k4_dq"] // steps}
+        profile_once(torch, dit_step, card, "zoo dit-s/4")
+        del dit, dopt, x0, noise
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (c) Qwen-VL: ViT-L/14 at 224 into a Llama-2-7B-wide text model
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pt.seed(0)
+        vcfg = M.QwenVLConfig()
+        vl = M.QwenVL(vcfg, dtype="bfloat16")
+        vl.eval()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n_vl = sum(p.numel() for p in vl.parameters())
+        B, T, n_new = ZOO["vl"]
+        ids = torch.as_tensor(rng.integers(0, vcfg.text.vocab_size, (B, T)),
+                              device="cuda")
+        side = vcfg.vision.image_size
+        px = torch.randn((B, vcfg.vision.in_channels, side, side),
+                         generator=gen, device="cuda").to(torch.bfloat16)
+        Lv, Lt = vcfg.vision.num_layers, vcfg.text.num_layers
+        with torch.no_grad():
+            zero_counts()
+            logits = vl(ids, px)
+            loss = vl.loss(logits, ids)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            fwd_ms = event_ms(lambda: vl.loss(vl(ids, px), ids), torch,
+                              iters=3, warmup=1)
+        want = {"k4_fwd": Lv + Lt, "k4_dq": 0, "k4_dkv": 0,
+                "k5_fwd": 2 * Lt + 1, "k6_qk": Lt}
+        n_vis = vcfg.vision.num_patches
+        log(f"zoo qwen-vl [{card}]: {n_vl} parameters in bf16 (built in "
+            f"{build_s:.1f} s), {B} images of {side} x {side} ({n_vis} "
+            f"visual tokens each) + {T}-token prompts: forward + loss "
+            f"{float(loss):.4f}, {fwd_ms:.1f} ms, logits "
+            f"{tuple(logits.shape)}; launches {counts}")
+        checks[f"qwen-vl forward: K4a {Lv} (the ViT) + {Lt} (the text), "
+               f"K5a {2 * Lt + 1}, K6 q + k {Lt}, no backward"] = \
+            {k: counts[k] for k in want} == want
+        checks["qwen-vl: loss finite, logits [B, visual + text, vocab]"] = \
+            math.isfinite(float(loss)) and tuple(logits.shape) == (
+                B, n_vis + T, vcfg.text.vocab_size)
+        del logits
+        gen_res = {}
+        for mode, kw in (("greedy", {}),
+                         ("sampled", {"do_sample": True, "temperature": 0.8,
+                                      "top_k": 50, "top_p": 0.95,
+                                      "seed": 0})):
+            vl.generate(ids, px, max_new_tokens=2, **kw)        # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vl.generate(ids, px, max_new_tokens=1, **kw)
+            torch.cuda.synchronize()
+            ttft = (time.perf_counter() - t0) * 1e3
+            zero_counts()
+            t0 = time.perf_counter()
+            out = vl.generate(ids, px, max_new_tokens=n_new, **kw)
+            torch.cuda.synchronize()
+            full = (time.perf_counter() - t0) * 1e3
+            gcounts = read_counts()
+            per_tok = (full - ttft) / (n_new - 1)
+            gen_res[mode] = out
+            record["flash_attention_fwd"]["zoo_launches"][
+                f"vit_pass_{mode}"] = gcounts["k4_fwd"]
+            log(f"zoo qwen-vl generate {mode} [{card}]: {B} x ({n_vis} "
+                f"visual + {T}) -> {n_new} new tokens: time to first token "
+                f"{ttft:.1f} ms, {per_tok:.2f} ms a token after it, "
+                f"{full:.1f} ms in all; row 0 {out[0, T:T + 8].tolist()}...; "
+                f"launches {gcounts}")
+            checks[f"qwen-vl generate {mode}: {n_new} tokens a row, the "
+                   f"ViT's K4a {Lv}"] = \
+                tuple(out.shape) == (B, T + n_new) and \
+                bool((out[:, T:] >= 0).all()) and \
+                gcounts["k4_fwd"] == Lv and \
+                gcounts["r2_fill"] == (n_new if kw else 0)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"zoo qwen-vl [{card}]: peak {peak_gb:.2f} GiB ({resident} the "
+            f"resident serve 7B)")
+        del vl
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        tdevice._default[0] = None
+    log(f"zoo phase {time.perf_counter() - t_phase:.1f} s; checks {checks}")
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"zoo: check failed: {name}")
+
+
 def phase_int8_infer(torch, np, card, record, model):
     """Llama-2-7B bf16 (the serve phase's model, or a new one from seed
     0), then converted in place to int8: one forward each of 8 x 512 ids
@@ -8869,6 +9555,11 @@ def main():
     if "nn_layers" in phases:
         torch.cuda.empty_cache()
         timed("nn_layers", phase_nn_layers, torch, np, card, peak, record)
+    if "zoo_parity" in phases:
+        timed("zoo_parity", phase_zoo_parity, torch, np, card)
+    if "zoo" in phases:
+        torch.cuda.empty_cache()
+        timed("zoo", phase_zoo, torch, np, card, record, model_7b)
     if "int8_infer" in phases:
         timed("int8_infer", phase_int8_infer, torch, np, card, record,
               model_7b)

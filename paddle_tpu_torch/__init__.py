@@ -42,7 +42,9 @@ What runs on the card:
 - training: ``nn`` (``Layer`` over ``torch.nn.Module`` and its
   containers; ``functional``; the core layers: convolutions, pools,
   norms, dropouts, activations, losses; the RNNs and the Transformer
-  stack; the initializers; ``nn.utils``; the gradient clips), the
+  stack; the tail: CTC, RNN-T, fold / unfold, unpooling, beam search;
+  the initializers; ``nn.utils``; the gradient clips), the model zoo
+  (``models``: BERT, DiT, Qwen-VL with its ``generate``), the
   optimizer zoo and
   its schedulers, ``amp`` (``auto_cast``, ``decorate``, ``GradScaler``),
   recompute, ``jit.train_step_fn``, and the high-level loop ``Model``

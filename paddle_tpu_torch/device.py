@@ -11,10 +11,13 @@ the default place: the card until ``set_device("cpu")`` (or a
 ``place=`` of ``"cpu"`` / ``CPUPlace()``) says otherwise. Without a
 card the default raises, as ``resolve_device`` does.
 """
+import contextlib
+
 import torch
 
 __all__ = ["resolve_device", "set_device", "get_device", "default_device",
-           "place_to_device", "CPUPlace", "CUDAPlace", "CUDAPinnedPlace"]
+           "default_place", "place_to_device", "CPUPlace", "CUDAPlace",
+           "CUDAPinnedPlace"]
 
 
 def resolve_device(device=None):
@@ -90,3 +93,19 @@ def get_device():
         return "cpu"
     idx = torch.cuda.current_device() if dev.index is None else dev.index
     return f"gpu:{idx}"
+
+
+@contextlib.contextmanager
+def default_place(device=None):
+    """Inside the block the default place is ``device`` (a paddle place or
+    a torch device); None leaves it as it is. The models built from
+    ``nn``'s layers take their ``device=`` keyword so."""
+    if device is None:
+        yield
+        return
+    before = _default[0]
+    _default[0] = place_to_device(device)
+    try:
+        yield
+    finally:
+        _default[0] = before

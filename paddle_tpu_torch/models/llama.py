@@ -11,7 +11,9 @@ full-sequence ``forward()`` (training) runs the JAX module's forwards on
 the flash-attention (K4) and RMSNorm (K5) kernels through
 ``nn.functional`` and rope on K6 (q and k in one launch); serving
 runs through the paged decode bundle (``models.generation``) under
-``torch.no_grad``.
+``torch.no_grad``. ``LlamaModel``, the backbone alone (its
+``embed_tokens`` and ``norm`` callable, as the JAX module's), is what
+``QwenVL`` builds its text tower from.
 """
 import math
 from dataclasses import dataclass
@@ -19,15 +21,17 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..core import random as rnd
 from ..device import resolve_device
 from ..nn import functional as F
+from ..nn.initializer import Constant, Normal, XavierNormal
 from ..nn.layer import set_state_dict
 from ..nn.layers_basic import Linear
 from ..ops.rope import apply_rotary_qk, precompute_freqs
 from .generation import GenerationMixin
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "llama2_7b", "llama2_70b",
-           "llama_350m", "llama_tiny"]
+__all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama2_7b",
+           "llama2_70b", "llama_350m", "llama_tiny"]
 
 
 @dataclass
@@ -147,25 +151,80 @@ class _Block(nn.Module):
             F.rms_norm(x, self.post_attention_layernorm.weight, self.eps))
 
 
-class _Model(nn.Module):
-    """``LlamaModel``: embedding, the blocks, the final RMSNorm."""
+class _Embedding(_Weight):
+    """The token table, callable on ids (``nn.Embedding``'s forward)."""
 
-    def __init__(self, cfg, dtype, device):
+    def forward(self, input_ids):
+        return F.embedding(input_ids, self.weight)
+
+
+class _RMSNorm(_Weight):
+    """The final RMSNorm's scale, callable on hidden states (K5)."""
+
+    def __init__(self, shape, eps, dtype, device):
+        super().__init__(shape, dtype, device)
+        self.eps = eps
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self.eps)
+
+
+class LlamaModel(nn.Module):
+    """``LlamaModel``: ``embed_tokens`` (callable on ids), ``layers``
+    (each called as ``blk(x, position_ids=None)``), the final ``norm``
+    (callable), under the JAX module's attribute and parameter names.
+
+    ``device`` and ``dtype`` as ``LlamaForCausalLM``'s (the card unless
+    ``device="cpu"``; ``cfg.dtype``). The weights are the JAX module's
+    draws from the global key (``seed()``), in its order, each drawn in
+    f32 and rounded to ``dtype``; ``draw=False`` leaves them empty (a
+    ``LlamaForCausalLM`` draws its whole model from its own seed)."""
+
+    def __init__(self, cfg, device=None, dtype=None, *, draw=True):
         super().__init__()
-        self.eps = cfg.rms_eps
+        self.cfg = cfg
+        device = resolve_device(device)
+        dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
         rope = precompute_freqs(cfg.head_dim, cfg.max_seq_len,
                                 cfg.rope_theta, device=device)
-        self.embed_tokens = _Weight((cfg.vocab_size, cfg.hidden_size),
-                                    dtype, device)
+        self.embed_tokens = _Embedding((cfg.vocab_size, cfg.hidden_size),
+                                       dtype, device)
         self.layers = nn.ModuleList([_Block(cfg, dtype, device, rope)
                                      for _ in range(cfg.num_layers)])
-        self.norm = _Weight((cfg.hidden_size,), dtype, device)
+        self.norm = _RMSNorm((cfg.hidden_size,), cfg.rms_eps, dtype,
+                             device)
+        if draw:
+            self._draw_global()
+
+    @property
+    def device(self):
+        return self.embed_tokens.weight.device
+
+    @property
+    def dtype(self):
+        return self.embed_tokens.weight.dtype
+
+    @torch.no_grad()
+    def _draw_global(self):
+        """The JAX module's initializers on the global key: the table's
+        ``nn.Embedding`` N(0, 1) (a key it spends, then replaces) and
+        N(0, 0.02), the RMSNorm scales 1, every projection Xavier-normal
+        (``nn.Linear``'s default)."""
+        rnd.next_key()
+        for name, p in self.named_parameters():
+            if name == "embed_tokens.weight":
+                init = Normal(0.0, 0.02)
+            elif name.endswith("norm.weight"):
+                init = Constant(1.0)
+            else:
+                init = XavierNormal()
+            p.copy_(init(tuple(p.shape), torch.float32, p.device))
 
     def forward(self, input_ids, position_ids=None):
-        x = F.embedding(input_ids, self.embed_tokens.weight)
+        x = self.embed_tokens(input_ids)
         for blk in self.layers:
             x = blk(x, position_ids)
-        return F.rms_norm(x, self.norm.weight, self.eps)
+        return self.norm(x)
 
 
 class LlamaForCausalLM(nn.Module, GenerationMixin):
@@ -190,7 +249,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
-        self.model = _Model(cfg, self.dtype, self.device)
+        self.model = LlamaModel(cfg, self.device, self.dtype, draw=False)
         self.lm_head = _Proj(cfg.hidden_size, cfg.vocab_size, self.dtype,
                              self.device)
         self.reset_parameters(seed)

@@ -7,15 +7,16 @@
   convolutions, norms, dropouts, activations, pools and losses), the
   recurrent layers of ``rnn`` and the Transformer stack of
   ``transformer``;
+- the tail of ``layers_tail`` (CTC, RNN-T, HSigmoid, fold / unfold,
+  unpooling, the margin losses, ``BeamSearchDecoder``,
+  ``dynamic_decode``);
 - ``functional``, ``initializer`` (with ``ParamAttr`` of ``param_attr``),
   ``utils`` (weight and spectral norm, the parameter vectors), the
   gradient clips of ``clip``, and ``set_state_dict`` for any torch
   module.
 
-Not ported yet, each naming ROADMAP Queue 1 item 15.3: ``layers_tail``
-(CTC, RNN-T, HSigmoid, fold / unfold, unpooling, ``BeamSearchDecoder``,
-``dynamic_decode``), the functional ops only those layers call, and
-``nn.quant``.
+Not ported yet: ``nn.quant`` (its ``QuantedConv2D`` and the quantized
+layers), ROADMAP Queue 1 item 15.6.
 """
 from . import functional, initializer, utils  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
@@ -29,6 +30,8 @@ from .rnn import *  # noqa: F401,F403
 from .rnn import __all__ as _rnn_all
 from .transformer import *  # noqa: F401,F403
 from .transformer import __all__ as _transformer_all
+from .layers_tail import *  # noqa: F401,F403
+from .layers_tail import __all__ as _tail_all
 
 __all__ = (
     ["Layer", "LayerList", "Sequential", "ParameterList", "LayerDict",
@@ -36,4 +39,5 @@ __all__ = (
      "functional", "initializer", "utils", "set_state_dict",
      "clip_by_global_norm_tree", "ParamAttr", "HookRemoveHelper"]
     + list(_basic_all) + list(_rnn_all) + list(_transformer_all)
+    + list(_tail_all)
 )

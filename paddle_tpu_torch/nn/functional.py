@@ -1,17 +1,20 @@
-"""The functional operators: those the Llama train step calls and those
+"""The functional operators: those the Llama train step calls, those
 ``nn``'s layers call (convolutions and their transposes, pools, norms,
-resampling, the layers' activations and losses).
+resampling, the layers' activations and losses) and the tail that
+``layers_tail`` and the users of the flat namespace call (CTC and RNN-T,
+the margin and focal losses, ``grid_sample``, ``fold`` / ``unfold``,
+unpooling, ``gather_tree``, ``sparse_attention``, ...).
 
-Port of the matching subset of ``paddle_tpu/nn/functional.py`` (the rest,
-which only ``layers_tail`` or no layer calls, is ROADMAP item 15.3's
-tail): RMSNorm and attention ride the hand-written kernels (K5 and K4,
-through their autograd Functions), the rest is plain torch (cuDNN's
-convolutions and pools on the card), as the JAX package leaves it to XLA.
-The layers' ops follow the reference, not torch's defaults: ``batch_norm``
-moves its running statistics paddle's way round with the biased
-variance, the pools take XLA's padding and ignore ``ceil_mode``,
-``interpolate`` is ``jax.image.resize``, the transposed convolutions do
-not flip their kernel. The dropout family and ``gumbel_softmax`` draw their keys
+Port of ``paddle_tpu/nn/functional.py``: RMSNorm and attention ride the
+hand-written kernels (K5 and K4, through their autograd Functions), the
+rest is plain torch (cuDNN's convolutions and pools on the card), as the
+JAX package leaves it to XLA. The layers' ops follow the reference, not
+torch's defaults: ``batch_norm`` moves its running statistics paddle's
+way round with the biased variance, the pools take XLA's padding and
+ignore ``ceil_mode``, ``interpolate`` is ``jax.image.resize``, the
+transposed convolutions do not flip their kernel, ``ctc_loss``'s
+``"mean"`` is the batch mean. The dropout family
+(``feature_alpha_dropout`` too) and ``gumbel_softmax`` draw their keys
 from ``core.random.next_key`` exactly where the reference does, so the
 same ``seed()`` gives the same masks; on the card the draw and dropout's
 apply are R2 (``ops.kernels.threefry_fill``), dropout's backward reading
@@ -71,7 +74,19 @@ __all__ = ["rms_norm", "layer_norm", "scaled_dot_product_attention",
            "adaptive_max_pool1d", "adaptive_max_pool2d", "smooth_l1_loss",
            "nll_loss", "cosine_embedding_loss", "margin_ranking_loss",
            "hinge_embedding_loss", "triplet_margin_loss", "pixel_shuffle",
-           "interpolate", "upsample"]
+           "interpolate", "upsample",
+           # the tail (item 15.3)
+           "affine_grid", "temporal_shift", "sequence_mask", "zeropad2d",
+           "pixel_unshuffle", "channel_shuffle", "pairwise_distance",
+           "grid_sample", "unfold", "fold", "max_unpool1d", "max_unpool2d",
+           "max_unpool3d", "adaptive_max_pool3d", "square_error_cost",
+           "sigmoid_focal_loss", "huber_loss", "soft_margin_loss",
+           "multi_label_soft_margin_loss", "poisson_nll_loss",
+           "gaussian_nll_loss", "log_loss", "dice_loss", "npair_loss",
+           "triplet_margin_with_distance_loss", "feature_alpha_dropout",
+           "ctc_loss", "rnnt_loss", "softmax_with_cross_entropy",
+           "margin_cross_entropy", "multi_margin_loss", "hsigmoid_loss",
+           "gather_tree", "class_center_sample", "sparse_attention"]
 
 
 def rms_norm(x, weight, epsilon=1e-6):
@@ -1119,6 +1134,568 @@ def upsample(x, size=None, scale_factor=None, mode="nearest",
                        data_format)
 
 
+# -- the tail (item 15.3): the ops only ``layers_tail``'s layers, the
+#    losses and the samplers call (``functional.py:1023-1719`` of the
+#    reference: plain jnp there, plain torch here)
+
+def _jmax(x, v):
+    """``jnp.maximum(x, v)`` for a Python number ``v``: a tie takes half
+    the gradient, as jnp's does (``clamp_min`` gives it all)."""
+    return torch.maximum(x, _scalar(v, x))
+
+
+def affine_grid(theta, out_shape, align_corners=True):
+    """The ``[N, H, W, 2]`` sampling grid of the affine maps ``theta
+    [N, 2, 3]`` over ``out_shape = (N, C, H, W)``."""
+    n, _, h, w = [int(s) for s in out_shape]
+    kw = {"dtype": torch.float32, "device": theta.device}
+    ys = torch.linspace(-1, 1, h, **kw) if align_corners else \
+        torch.linspace(-1 + 1 / h, 1 - 1 / h, h, **kw)
+    xs = torch.linspace(-1, 1, w, **kw) if align_corners else \
+        torch.linspace(-1 + 1 / w, 1 - 1 / w, w, **kw)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    grid = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)
+    return torch.einsum("nij,hwj->nhwi", theta, grid.to(theta.dtype))
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, data_format="NCHW"):
+    """TSM: the first ``shift_ratio`` of the channels shift back one
+    segment, the next as many forward, zeros coming in."""
+    nt, c, h, w = x.shape
+    v = x.reshape(nt // seg_num, seg_num, c, h, w)
+    fold = int(c * shift_ratio)
+    left = torch.cat([v[:, 1:, :fold], torch.zeros_like(v[:, :1, :fold])],
+                     dim=1)
+    right = torch.cat([torch.zeros_like(v[:, :1, fold:2 * fold]),
+                       v[:, :-1, fold:2 * fold]], dim=1)
+    return torch.cat([left, right, v[:, :, 2 * fold:]],
+                     dim=2).reshape(nt, c, h, w)
+
+
+def sequence_mask(lengths, maxlen=None, dtype="int64"):
+    """``mask[..., j] = j < lengths[...]`` in ``dtype`` (64-bit types
+    narrowed, as everywhere in the port)."""
+    from ..core.dtype import canonical, convert_dtype
+    m = int(lengths.max()) if maxlen is None else int(maxlen)
+    ar = torch.arange(m, device=lengths.device)
+    return (ar < lengths[..., None]).to(canonical(convert_dtype(dtype)))
+
+
+def zeropad2d(x, padding, data_format="NCHW"):
+    left, right, top, bottom = padding
+    if data_format == "NCHW":
+        return tf.pad(x, (left, right, top, bottom))
+    return tf.pad(x, (0, 0, left, right, top, bottom))
+
+
+def pixel_unshuffle(x, downscale_factor, data_format="NCHW"):
+    r = downscale_factor
+    n, c, h, w = x.shape
+    x = x.reshape(n, c, h // r, r, w // r, r).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(n, c * r * r, h // r, w // r)
+
+
+def channel_shuffle(x, groups, data_format="NCHW"):
+    n, c, h, w = x.shape
+    return x.reshape(n, groups, c // groups, h, w).transpose(1, 2).reshape(
+        n, c, h, w)
+
+
+def pairwise_distance(x, y, p=2.0, epsilon=1e-6, keepdim=False):
+    d = x - y + epsilon
+    return (_abs(d) ** p).sum(-1, keepdim=keepdim) ** (1.0 / p)
+
+
+def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True):
+    """NCHW bilinear / nearest sampling at ``grid [N, Ho, Wo, 2]`` in
+    [-1, 1] (x then y), padding ``"zeros"``, ``"border"`` or
+    ``"reflection"``; differentiable in x and in the grid."""
+    if padding_mode not in ("zeros", "border", "reflection"):
+        raise ValueError(f"unsupported padding_mode {padding_mode!r}")
+    n, c, h, w = x.shape
+    gx, gy = grid[..., 0], grid[..., 1]
+    if align_corners:
+        fx = (gx + 1.0) * 0.5 * (w - 1)
+        fy = (gy + 1.0) * 0.5 * (h - 1)
+    else:
+        fx = ((gx + 1.0) * w - 1.0) * 0.5
+        fy = ((gy + 1.0) * h - 1.0) * 0.5
+
+    if padding_mode == "reflection":
+        def reflect(f, size):
+            if align_corners:
+                span = size - 1
+                if span == 0:
+                    return torch.zeros_like(f)
+                f = _abs(f) % (2 * span)
+                return torch.where(f > span, 2 * span - f, f)
+            span = size
+            f = _abs(f + 0.5) % (2 * span)
+            f = torch.where(f > span, 2 * span - f, f)
+            return (f - 0.5).clamp(0, size - 1)
+
+        fx = reflect(fx, w)
+        fy = reflect(fy, h)
+    batch = torch.arange(n, device=x.device)[:, None, None]
+
+    def sample(ix, iy):
+        inb = (ix >= 0) & (ix <= w - 1) & (iy >= 0) & (iy <= h - 1)
+        ixc = ix.clamp(0, w - 1).long()
+        iyc = iy.clamp(0, h - 1).long()
+        v = x[batch, :, iyc, ixc].movedim(-1, 1)       # [N, C, Ho, Wo]
+        if padding_mode == "zeros":
+            v = v * inb[:, None].to(v.dtype)
+        return v
+
+    if mode == "nearest":
+        return sample(torch.round(fx), torch.round(fy))
+    x0, y0 = torch.floor(fx), torch.floor(fy)
+    x1, y1 = x0 + 1, y0 + 1
+    wa = (x1 - fx) * (y1 - fy)
+    wb = (x1 - fx) * (fy - y0)
+    wc = (fx - x0) * (y1 - fy)
+    wd = (fx - x0) * (fy - y0)
+    return (sample(x0, y0) * wa[:, None] + sample(x0, y1) * wb[:, None]
+            + sample(x1, y0) * wc[:, None] + sample(x1, y1) * wd[:, None])
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1):
+    """im2col: ``[N, C, H, W]`` -> ``[N, C * kh * kw, L]``."""
+    kh, kw = _pair(kernel_sizes)
+    sh, sw = _pair(strides)
+    ph, pw = _pair(paddings)[:2]
+    dh, dw = _pair(dilations)
+    n, c = x.shape[0], x.shape[1]
+    xp = tf.pad(x, (pw, pw, ph, ph))
+    oh = (xp.shape[2] - (dh * (kh - 1) + 1)) // sh + 1
+    ow = (xp.shape[3] - (dw * (kw - 1) + 1)) // sw + 1
+    patches = [xp[:, :, i * dh:i * dh + oh * sh:sh,
+                  j * dw:j * dw + ow * sw:sw]
+               for i in range(kh) for j in range(kw)]
+    return torch.stack(patches, dim=2).reshape(n, c * kh * kw, oh * ow)
+
+
+def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0,
+         dilations=1):
+    """col2im: ``[N, C * kh * kw, L]`` -> ``[N, C, H, W]``, overlapping
+    patches summed."""
+    kh, kw = _pair(kernel_sizes)
+    sh, sw = _pair(strides)
+    ph, pw = _pair(paddings)
+    dh, dw = _pair(dilations)
+    H, W = _pair(output_sizes)
+    n, ckk, _ = x.shape
+    c = ckk // (kh * kw)
+    oh = (H + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    ow = (W + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    cols = x.reshape(n, c, kh, kw, oh, ow)
+    out = torch.zeros((n, c, H + 2 * ph, W + 2 * pw), dtype=x.dtype,
+                      device=x.device)
+    for i in range(kh):
+        for j in range(kw):
+            hs, ws = i * dh, j * dw
+            out[:, :, hs:hs + sh * oh:sh, ws:ws + sw * ow:sw] += \
+                cols[:, :, i, j]
+    return out[:, :, ph:ph + H, pw:pw + W]
+
+
+def _max_unpool_nd(x, indices, spatial_out):
+    n, c = x.shape[0], x.shape[1]
+    numel = 1
+    for s in spatial_out:
+        numel *= int(s)
+    flat = torch.zeros((n, c, numel), dtype=x.dtype, device=x.device)
+    flat = flat.scatter(2, indices.reshape(n, c, -1).long(),
+                        x.reshape(n, c, -1))
+    return flat.reshape((n, c) + tuple(int(s) for s in spatial_out))
+
+
+def max_unpool1d(x, indices, kernel_size, stride=None, padding=0,
+                 output_size=None):
+    ks = kernel_size if isinstance(kernel_size, int) else kernel_size[0]
+    st = stride or ks
+    st = st if isinstance(st, int) else st[0]
+    L = (x.shape[-1] - 1) * st + ks - 2 * padding if output_size is None \
+        else output_size[-1]
+    return _max_unpool_nd(x, indices, (L,))
+
+
+def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
+                 output_size=None):
+    """Scatter pooled values back to their argmax positions."""
+    h, w = x.shape[2], x.shape[3]
+    ks = _pair(kernel_size)
+    st = _pair(stride or ks)
+    if output_size is None:
+        spatial = ((h - 1) * st[0] + ks[0] - 2 * padding,
+                   (w - 1) * st[1] + ks[1] - 2 * padding)
+    else:
+        spatial = tuple(output_size[-2:])
+    return _max_unpool_nd(x, indices, spatial)
+
+
+def max_unpool3d(x, indices, kernel_size, stride=None, padding=0,
+                 output_size=None):
+    def _triple(v):
+        return (v, v, v) if isinstance(v, int) else tuple(v)
+    ks = _triple(kernel_size)
+    st = _triple(stride) if stride is not None else ks
+    pd = _triple(padding)
+    if output_size is None:
+        spatial = tuple((x.shape[2 + i] - 1) * st[i] + ks[i] - 2 * pd[i]
+                        for i in range(3))
+    else:
+        spatial = tuple(output_size[-3:])
+    return _max_unpool_nd(x, indices, spatial)
+
+
+def adaptive_max_pool3d(x, output_size, return_mask=False):
+    return _adaptive_pool(x, output_size, 3, "NCDHW", False)
+
+
+def square_error_cost(input, label):  # noqa: A002
+    return torch.square(input - label)
+
+
+def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
+                       reduction="sum"):
+    p = torch.sigmoid(logit)
+    ce = binary_cross_entropy_with_logits(logit, label, reduction="none")
+    p_t = p * label + (1 - p) * (1 - label)
+    loss = ce * torch.pow(1 - p_t, gamma)
+    if alpha >= 0:
+        loss = (alpha * label + (1 - alpha) * (1 - label)) * loss
+    if normalizer is not None:
+        loss = loss / normalizer
+    return _reduce(loss, reduction)
+
+
+def huber_loss(input, label, delta=1.0, reduction="mean"):  # noqa: A002
+    """``0.5 * d^2`` inside ``delta``, ``delta * (|d| - delta / 2)``
+    outside."""
+    diff = _abs(input - label)
+    loss = torch.where(diff <= delta, 0.5 * diff * diff,
+                       delta * (diff - 0.5 * delta))
+    return _reduce(loss, reduction)
+
+
+def soft_margin_loss(input, label, reduction="mean"):  # noqa: A002
+    return _reduce(torch.log1p(torch.exp(-label * input)), reduction)
+
+
+def multi_label_soft_margin_loss(input, label, weight=None,  # noqa: A002
+                                 reduction="mean"):
+    loss = -(label * tf.logsigmoid(input)
+             + (1 - label) * tf.logsigmoid(-input))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss.mean(-1), reduction)
+
+
+def poisson_nll_loss(input, label, log_input=True, full=False,  # noqa: A002
+                     epsilon=1e-8, reduction="mean"):
+    if log_input:
+        loss = torch.exp(input) - label * input
+    else:
+        loss = input - label * torch.log(input + epsilon)
+    if full:
+        stirling = (label * torch.log(label + epsilon) - label
+                    + 0.5 * torch.log(2 * math.pi * (label + epsilon)))
+        loss = loss + torch.where(label > 1, stirling,
+                                  torch.zeros_like(stirling))
+    return _reduce(loss, reduction)
+
+
+def gaussian_nll_loss(input, label, variance, full=False,  # noqa: A002
+                      epsilon=1e-6, reduction="mean"):
+    var = _jmax(variance, epsilon)
+    loss = 0.5 * (torch.log(var) + torch.square(input - label) / var)
+    if full:
+        loss = loss + 0.5 * math.log(2 * math.pi)
+    return _reduce(loss, reduction)
+
+
+def log_loss(input, label, epsilon=1e-4):  # noqa: A002
+    return (-label * torch.log(input + epsilon)
+            - (1 - label) * torch.log(1 - input + epsilon))
+
+
+def dice_loss(input, label, epsilon=1e-5):  # noqa: A002
+    lab = tf.one_hot(label.squeeze(-1).long(), input.shape[-1]).to(
+        input.dtype)
+    dims = tuple(range(1, input.dim()))
+    inter = (input * lab).sum(dims)
+    union = input.sum(dims) + lab.sum(dims)
+    return torch.mean(1.0 - (2 * inter + epsilon) / (union + epsilon))
+
+
+def npair_loss(anchor, positive, labels, l2_reg=0.002):
+    reg = l2_reg * (torch.square(anchor).sum(-1).mean()
+                    + torch.square(positive).sum(-1).mean()) * 0.25
+    sim = anchor @ positive.T
+    lab = (labels[:, None] == labels[None, :]).to(sim.dtype)
+    lab = lab / lab.sum(-1, keepdim=True)
+    logp = torch.log_softmax(sim, -1)
+    return -torch.mean((lab * logp).sum(-1)) + reg
+
+
+def triplet_margin_with_distance_loss(input, positive,  # noqa: A002
+                                      negative, distance_function=None,
+                                      margin=1.0, swap=False,
+                                      reduction="mean"):
+    dist = distance_function or (
+        lambda a, b: torch.sqrt(torch.square(a - b).sum(-1) + 1e-12))
+    dp = dist(input, positive)
+    dn = dist(input, negative)
+    if swap:
+        dn = torch.minimum(dn, dist(positive, negative))
+    return _reduce(_jmax(dp - dn + margin, 0.0), reduction)
+
+
+def feature_alpha_dropout(x, p=0.5, training=True):
+    """Alpha dropout of whole channels (the mask ``[N, C, 1, ...]``):
+    keep where ``uniform(next_key()) >= p`` (R2's uniform fill on the
+    card, the reference's key and bits), dropped channels at the SELU
+    saturation ``alpha_p``, then ``a * v + b`` with ``a = 1 / sqrt((
+    alpha_p^2 * p + 1) * (1 - p))`` rounded to f32 as jnp's is, each
+    constant in x's type."""
+    if not training or p == 0.0:
+        return x
+    alpha_p = -1.7580993408473766
+    shape = (x.shape[0], x.shape[1]) + (1,) * (x.dim() - 2)
+    u = _tf.uniform(_next_key(), shape, x.device)
+    keep = (u >= _scalar(p, u)).to(x.dtype)
+    a = np.float32(1.0) / np.sqrt(np.float32((alpha_p ** 2 * p + 1)
+                                             * (1 - p)))
+    a = _scalar(float(a), x)
+    b = -a * _scalar(alpha_p, x) * _scalar(p, x)
+    return a * (x * keep + _scalar(alpha_p, x) * (1 - keep)) + b
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False):
+    """CTC's alpha recursion in log space (``functional.py:1321-1388``):
+    ``log_probs [T, N, C]`` (logits or log-probabilities: a log-softmax
+    is taken), ``labels [N, S]`` padded past ``label_lengths``. Each
+    step's log-sum-exp as the reference's (max shift, ``+ 1e-38``, -1e30
+    for an impossible state); ``"mean"`` is the batch mean of the
+    per-sequence losses, as the reference's (torch's built-in divides by
+    the label lengths first, so it is not used)."""
+    lp = torch.log_softmax(log_probs.float(), -1)
+    T, N, _ = lp.shape
+    S = labels.shape[1]
+    dev = lp.device
+    ext = torch.full((N, 2 * S + 1), blank, dtype=torch.long, device=dev)
+    ext[:, 1::2] = labels.long()
+    ext_len = 2 * label_lengths.long() + 1
+    neg_inf = torch.tensor(-1e30, dtype=torch.float32, device=dev)
+    skip_ok = torch.cat(
+        [torch.zeros((N, 2), dtype=torch.bool, device=dev),
+         (ext[:, 2:] != ext[:, :-2]) & (ext[:, 2:] != blank)], dim=1)
+    states = torch.arange(2 * S + 1, device=dev)[None, :]
+    alpha = torch.where(states < 2, lp[0].gather(1, ext), neg_inf)
+    hist = [alpha]
+    pad1 = neg_inf.expand(N, 1)
+    pad2 = neg_inf.expand(N, 2)
+    for t in range(1, T):
+        a1 = torch.cat([pad1, alpha[:, :-1]], dim=1)
+        a2 = torch.where(skip_ok, torch.cat([pad2, alpha[:, :-2]], dim=1),
+                         neg_inf)
+        m = torch.maximum(torch.maximum(alpha, a1), a2)
+        tot = m + torch.log(torch.exp(alpha - m) + torch.exp(a1 - m)
+                            + torch.exp(a2 - m) + 1e-38)
+        alpha = tot + lp[t].gather(1, ext)
+        hist.append(alpha)
+    hist = torch.stack(hist)                             # [T, N, 2S+1]
+    rows = torch.arange(N, device=dev)
+    at_t = hist[(input_lengths.long() - 1).clamp(0, T - 1), rows]
+    aN = at_t[rows, (ext_len - 1).clamp(0, 2 * S)]
+    aN1 = at_t[rows, (ext_len - 2).clamp(0, 2 * S)]
+    aN1 = torch.where(ext_len >= 2, aN1, neg_inf)
+    m = torch.maximum(aN, aN1)
+    loss = -(m + torch.log(torch.exp(aN - m) + torch.exp(aN1 - m) + 1e-38))
+    if norm_by_times:
+        loss = loss / _jmax(input_lengths.float(), 1.0)
+    return _reduce(loss, reduction)
+
+
+def rnnt_loss(logits, labels, logit_lengths, label_lengths, blank=0,
+              fastemit_lambda=0.0, reduction="mean"):
+    """RNN-Transducer loss (``functional.py:1581-1665``): the log-space
+    alpha recursion over the ``(T, U + 1)`` lattice of ``logits [B, T,
+    U + 1, C]`` (raw; a log-softmax is taken), ``labels [B, U]``.
+    ``fastemit_lambda`` scales the label emissions' gradient by ``1 +
+    lambda`` and leaves the value (FastEmit)."""
+    lp = torch.log_softmax(logits.float(), -1)
+    B, T, U1, _ = lp.shape
+    U = U1 - 1
+    blank_lp = lp[..., blank]                             # [B, T, U+1]
+    lab_lp = lp[:, :, :U, :].gather(
+        -1, labels.long()[:, None, :, None].expand(B, T, U, 1))[..., 0]
+    rows_b = torch.arange(B, device=lp.device)
+    ti = (logit_lengths.long() - 1).clamp(0, T - 1)
+    ui = label_lengths.long().clamp(0, U)
+
+    def nll(blank_lp, lab_lp):
+        cur = torch.zeros(B, dtype=torch.float32, device=lp.device)
+        row = [cur]
+        for u in range(1, U1):
+            cur = cur + lab_lp[:, 0, u - 1]
+            row.append(cur)
+        rows = [torch.stack(row, dim=1)]
+        for t in range(1, T):
+            from_blank = rows[-1] + blank_lp[:, t - 1, :]
+            cur = from_blank[:, 0]
+            row = [cur]
+            for u in range(1, U1):
+                cur = torch.logaddexp(from_blank[:, u],
+                                      cur + lab_lp[:, t, u - 1])
+                row.append(cur)
+            rows.append(torch.stack(row, dim=1))
+        all_rows = torch.stack(rows)                      # [T, B, U+1]
+        return -(all_rows[ti, rows_b, ui] + blank_lp[rows_b, ti, ui])
+
+    loss = nll(blank_lp, lab_lp)
+    if fastemit_lambda:
+        emit = nll(blank_lp.detach(), lab_lp)
+        loss = loss + fastemit_lambda * (emit - emit.detach())
+    return _reduce(loss, reduction)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, axis=-1,
+                               return_softmax=False):
+    """Log-softmax in f32 and the NLL, the class axis kept (size 1)."""
+    logp = torch.log_softmax(logits.float(), axis)
+    if soft_label:
+        loss = -(label * logp).sum(axis, keepdim=True)
+    else:
+        idx = label.long()
+        if idx.dim() != logits.dim():
+            idx = idx.unsqueeze(-1)
+        loss = -logp.gather(axis, idx.clamp_min(0))
+        loss = torch.where(idx != ignore_index, loss,
+                           torch.zeros_like(loss))
+    if return_softmax:
+        return loss, torch.exp(logp)
+    return loss
+
+
+def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5,
+                         margin3=0.0, scale=64.0, group=None,
+                         return_softmax=False, reduction="mean"):
+    """ArcFace-family margin softmax cross-entropy (one shard): the
+    target logit ``cos(theta)`` becomes ``cos(m1 * theta + m2) - m3``,
+    everything times ``scale``."""
+    lb = label.long().reshape(-1)
+    cos = logits.float().clamp(-1.0, 1.0)
+    tgt = cos.gather(-1, lb[:, None])[:, 0]
+    theta = torch.arccos(tgt.clamp(-1 + 1e-7, 1 - 1e-7))
+    tgt_m = torch.cos(margin1 * theta + margin2) - margin3
+    onehot = tf.one_hot(lb, logits.shape[-1]).to(cos.dtype)
+    out = scale * (cos * (1 - onehot) + tgt_m[:, None] * onehot)
+    logp = torch.log_softmax(out, -1)
+    loss = _reduce(-logp.gather(-1, lb[:, None])[:, 0], reduction)
+    if return_softmax:
+        return loss, torch.exp(logp)
+    return loss
+
+
+def multi_margin_loss(input, label, p=1, margin=1.0, weight=None,  # noqa: A002
+                      reduction="mean"):
+    lb = label.long()
+    tgt = input.gather(-1, lb[:, None])
+    m = _jmax(margin - tgt + input, 0.0)
+    if p == 2:
+        m = m * m
+    if weight is not None:
+        m = m * weight[lb][:, None]
+    onehot = tf.one_hot(lb, input.shape[-1]).to(input.dtype)
+    return _reduce((m * (1 - onehot)).sum(-1) / input.shape[-1], reduction)
+
+
+def hsigmoid_loss(input, label, num_classes, weight, bias=None,  # noqa: A002
+                  path_table=None, path_code=None, is_sparse=False):
+    """Hierarchical sigmoid loss over the default complete binary tree:
+    the internal nodes of ``(label + num_classes) >> level``, their
+    rows of ``weight [num_classes - 1, H]`` (and ``bias``); ``[B, 1]``."""
+    node = label.long().reshape(-1) + num_classes
+    depth = max(1, int(math.ceil(math.log2(max(num_classes, 2)))))
+    codes, ids = [], []
+    for _ in range(depth):
+        codes.append(node % 2)
+        node = node // 2
+        ids.append(node - 1)
+    ids = torch.stack(ids, -1)                            # [B, D]
+    codes = torch.stack(codes, -1)
+    ids_c = ids.clamp(0, weight.shape[0] - 1)
+    z = torch.einsum("bdh,bh->bd", weight[ids_c].float(), input.float())
+    if bias is not None:
+        z = z + bias.reshape(-1)[ids_c]
+    logp = tf.logsigmoid(torch.where(codes > 0, z, -z))
+    return -torch.where(ids >= 0, logp, torch.zeros_like(logp)).sum(
+        -1, keepdim=True)
+
+
+def gather_tree(ids, parents):
+    """Beam-search backtrace: ``ids`` / ``parents [T, B, beam]`` -> the
+    full sequences re-threaded by parent, from the last step back."""
+    beam_idx = torch.arange(ids.shape[2], device=ids.device).expand(
+        ids.shape[1:])
+    outs = []
+    for t in range(ids.shape[0] - 1, -1, -1):
+        outs.append(ids[t].gather(-1, beam_idx))
+        beam_idx = parents[t].long().gather(-1, beam_idx)
+    return torch.stack(outs[::-1])
+
+
+def class_center_sample(label, num_classes, num_samples, group=None):
+    """PartialFC's class sampling on the host: the positive classes and
+    ``num_samples - positives`` others drawn without replacement from
+    numpy's global RNG (the reference's draw); returns (the labels
+    remapped to the sampled index, the sampled classes), int32 as the
+    reference's."""
+    dev = label.device
+    lb = label.detach().cpu().numpy()
+    pos = np.unique(lb)
+    rest = np.setdiff1d(np.arange(num_classes), pos)
+    n_extra = max(0, num_samples - pos.size)
+    extra = np.random.choice(rest, size=min(n_extra, rest.size),
+                             replace=False) if n_extra else np.array([], int)
+    sampled = np.concatenate([pos, np.sort(extra)]).astype(np.int64)
+    remap = -np.ones(num_classes, np.int64)
+    remap[sampled] = np.arange(sampled.size)
+    return (torch.from_numpy(remap[lb].astype(np.int32)).to(dev),
+            torch.from_numpy(sampled.astype(np.int32)).to(dev))
+
+
+def sparse_attention(query, key, value, sparse_csr_offset,
+                     sparse_csr_columns, key_padding_mask=None,
+                     attn_mask=None, name=None):
+    """Attention over a CSR pattern a (batch, head): the pattern becomes
+    a dense boolean mask and the scores a masked softmax in f32, as the
+    reference computes it. ``[B, H, S, D]`` inputs, ``offset [B, H,
+    S + 1]``, ``columns [B, H, nnz]``."""
+    s, d = query.shape[2], query.shape[3]
+    ent = torch.arange(sparse_csr_columns.shape[-1], device=query.device)
+    off = sparse_csr_offset.long()
+    rows = (ent >= off[..., :-1, None]) & (ent < off[..., 1:, None])
+    cols = tf.one_hot(sparse_csr_columns.long(), s).float()
+    mask = torch.einsum("bhsn,bhnc->bhsc", rows.float(), cols) > 0
+    scores = torch.einsum("bhsd,bhtd->bhst", query.float(),
+                          key.float()) / math.sqrt(float(d))
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e9))
+    probs = torch.softmax(scores, -1)
+    probs = torch.where(mask, probs, torch.zeros_like(probs))
+    return torch.einsum("bhst,bhtd->bhsd", probs,
+                        value.float()).to(query.dtype)
+
+
 # -- the paddle API's entry: a Tensor anywhere among the arguments sends
 #    the call through dispatch; plain torch tensors call straight through
 
@@ -1147,7 +1724,21 @@ _AS_OPS = {"relu": (), "relu6": (), "gelu": (), "silu": (), "swish": (),
            "smooth_l1_loss": (), "nll_loss": (1,),
            "cosine_embedding_loss": (), "margin_ranking_loss": (),
            "hinge_embedding_loss": (), "triplet_margin_loss": (),
-           "pixel_shuffle": ()}
+           "pixel_shuffle": (), "affine_grid": (), "temporal_shift": (),
+           "zeropad2d": (), "pixel_unshuffle": (), "channel_shuffle": (),
+           "pairwise_distance": (), "grid_sample": (), "unfold": (),
+           "fold": (), "max_unpool1d": (1,), "max_unpool2d": (1,),
+           "max_unpool3d": (1,), "adaptive_max_pool3d": (),
+           "square_error_cost": (), "sigmoid_focal_loss": (),
+           "huber_loss": (), "soft_margin_loss": (),
+           "multi_label_soft_margin_loss": (), "poisson_nll_loss": (),
+           "gaussian_nll_loss": (), "log_loss": (), "dice_loss": (),
+           "npair_loss": (), "triplet_margin_with_distance_loss": (),
+           "feature_alpha_dropout": (), "ctc_loss": (1, 2, 3),
+           "rnnt_loss": (1, 2, 3), "softmax_with_cross_entropy": (),
+           "margin_cross_entropy": (), "multi_margin_loss": (),
+           "hsigmoid_loss": (), "gather_tree": (0, 1),
+           "class_center_sample": (0,), "sparse_attention": ()}
 
 
 def _takes_tensor(name, fn, nondiff_args=()):
@@ -1176,3 +1767,29 @@ for _name in __all__:
 for _name, _fn in (("batch_norm_func", batch_norm_func),
                    ("interpolate_nearest", interpolate_nearest)):
     OPS[_name] = _takes_tensor(_name, _fn)
+
+# the activations and array ops of the flat namespace that are part of
+# F's surface, as in the reference
+tanh = OPS["tanh"]
+sigmoid = OPS["sigmoid"]
+log_sigmoid = OPS["logsigmoid"]
+pad = OPS["pad"]
+one_hot = OPS["one_hot"]
+diag_embed = OPS["diag_embed"]
+
+
+def _inplace_variant(fn_name):
+    """``F.relu_(x)`` and the like: a ``Tensor``'s in-place method, or
+    the op's value for a torch tensor (the reference's rule)."""
+    def f(x, *args, **kwargs):
+        if isinstance(x, Tensor):
+            return getattr(x, fn_name + "_")(*args, **kwargs)
+        return OPS[fn_name](x, *args, **kwargs)
+    f.__name__ = fn_name + "_"
+    return f
+
+
+relu_ = _inplace_variant("relu")
+tanh_ = _inplace_variant("tanh")
+softmax_ = _inplace_variant("softmax")
+elu_ = _inplace_variant("elu")

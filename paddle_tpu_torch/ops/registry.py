@@ -138,8 +138,18 @@ def install_method_tail():
 
     if not hasattr(Tensor, "broadcast_shape"):
         Tensor.broadcast_shape = broadcast_shape
+
     if not hasattr(Tensor, "broadcast_tensors"):
         Tensor.broadcast_tensors = broadcast_tensors_m
+
+    def create_parameter(self, shape, dtype=None, **kw):
+        """``paddle.create_parameter`` on the default place, as a method
+        (the reference attaches it to ``Tensor`` too)."""
+        from ..nn.layer import create_parameter as cp
+        return cp(shape, dtype or "float32", **kw)
+
+    if not hasattr(Tensor, "create_parameter"):
+        Tensor.create_parameter = create_parameter
 
     for name in ("multiplex", "add_n", "concat", "stack"):
         # these ops take the tensor (or a list) as their first argument

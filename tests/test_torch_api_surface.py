@@ -30,41 +30,22 @@ import paddle_tpu as jt
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import device as tdevice
 
-_NN = "item 15.3 (nn's layers_tail, its functional ops and nn.quant)"
 NOT_YET = {
     "DataParallel": "item 13 (multi-card training)",
     "disable_static": "item 15.5 (static and jit)",
     "enable_static": "item 15.5 (static and jit)",
     "get_flags": "item 15.6 (runtime)", "set_flags": "item 15.6 (runtime)",
 }
-NOT_YET.update({n: _NN for n in (
-    "adaptive_max_pool3d", "affine_grid", "channel_shuffle",
-    "class_center_sample", "ctc_loss", "dice_loss", "feature_alpha_dropout",
-    "fold", "gather_tree", "gaussian_nll_loss", "grid_sample",
-    "hsigmoid_loss", "huber_loss", "log_loss", "margin_cross_entropy",
-    "max_unpool1d", "max_unpool2d", "max_unpool3d",
-    "multi_label_soft_margin_loss", "multi_margin_loss", "npair_loss",
-    "pairwise_distance", "pixel_unshuffle", "poisson_nll_loss", "rnnt_loss",
-    "sigmoid_focal_loss", "soft_margin_loss", "softmax_with_cross_entropy",
-    "sparse_attention", "square_error_cost", "temporal_shift",
-    "triplet_margin_with_distance_loss", "unfold", "zeropad2d")})
-# nn's names of layers_tail (its layers and the module itself)
-NN_NOT_YET = {n: _NN for n in (
-    "AdaptiveMaxPool3D", "BeamSearchDecoder", "CTCLoss", "ChannelShuffle",
-    "Fold", "HSigmoidLoss", "MaxUnPool1D", "MaxUnPool2D", "MaxUnPool3D",
-    "MultiLabelSoftMarginLoss", "MultiMarginLoss", "PairwiseDistance",
-    "PixelUnshuffle", "RNNTLoss", "Silu", "SoftMarginLoss", "Softmax2D",
-    "TripletMarginWithDistanceLoss", "Unfold", "ZeroPad2D", "dynamic_decode",
-    "layers_tail")}
+# nn's names not ported yet (none: layers_tail came with item 15.3)
+NN_NOT_YET = {}
 # names the port's nn adds: its Layer's hook handle, ParamAttr (the
 # reference has it at the top level only), set_state_dict for any torch
 # module, and the clip's tree form
 NN_PORT_ONLY = {"HookRemoveHelper", "ParamAttr", "param_attr",
                 "set_state_dict", "clip_by_global_norm_tree"}
-NOT_YET_METHODS = {"create_parameter": _NN,
-                   # the reference adds these when paddle_tpu.sparse is
-                   # imported (by another test in the same process)
-                   "to_sparse_coo": "item 15.7 (sparse)",
+# the reference adds these methods when paddle_tpu.sparse is imported (by
+# another test in the same process)
+NOT_YET_METHODS = {"to_sparse_coo": "item 15.7 (sparse)",
                    "to_sparse_csr": "item 15.7 (sparse)"}
 # names the port adds: its device resolution and the NaN/Inf switch at the
 # top level (the reference reaches it through runtime.set_flags)
@@ -112,8 +93,8 @@ def test_top_level_is_the_references_less_the_named_set():
 
 
 def test_nn_is_the_references_less_the_named_set():
-    """``dir(paddle_tpu.nn)`` less ``NN_NOT_YET`` (``layers_tail``'s
-    names, item 15.3) is the port's ``nn`` less its own additions."""
+    """``dir(paddle_tpu.nn)`` less ``NN_NOT_YET`` is the port's ``nn``
+    less its own additions."""
     import paddle_tpu.nn as jnn
     from paddle_tpu_torch import nn as tnn
     ref = {n for n in dir(jnn) if not n.startswith("_")}

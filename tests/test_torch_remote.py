@@ -411,8 +411,21 @@ def test_sigkill_less_crash_failover_bit_exact(port_fleet):
             for i in range(8)]
     assert router.stats["routed"] == [4, 4]
     srv0.step()                             # admit two, stream their first
-    _until(lambda: rep0._mirror_counts() == (2, 2),
-           msg="the victim's first tokens reached the mirror")
+    # the tick streams each slot's prefill token and then its first
+    # decode token, as two frames: wait until the mirror holds every
+    # token the victim emitted, not just the first frame of each
+    with srv0._lock:
+        emitted = {int(st.rid): len(st.emitted) for st in srv0._slots
+                   if st is not None}
+
+    def mirrored():
+        with rep0._state_lock:
+            return {rid: len(m.tokens) for rid, m in rep0._mirror.items()
+                    if m.tokens}
+
+    _until(lambda: rep0._mirror_counts() == (2, 2)
+           and mirrored() == emitted,
+           msg="the victim's streamed tokens reached the mirror")
     with rep0._state_lock:
         streamed = {m.rid: len(m.tokens) for m in rep0._mirror.values()
                     if m.tokens}
