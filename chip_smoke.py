@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only build,opt,train,train_amp
     python3 chip_smoke.py --only build,rng,parity
     python3 chip_smoke.py --only build,rng --parent build/parent
+    python3 chip_smoke.py --only build,tensor_api --parent build/parent
     python3 chip_smoke.py --only build,train,fit
     python3 chip_smoke.py --only build,dense_parity,dense
     python3 chip_smoke.py --only build,preempt_parity,serve,preempt
@@ -23,6 +24,7 @@
     python3 chip_smoke.py --only build,tensor_api
     python3 chip_smoke.py --only build,nn_layers
     python3 chip_smoke.py --only build,zoo_parity,zoo
+    python3 chip_smoke.py --only build,tensor_api,static_jit
 
 Phases, in order; any failure exits non-zero:
 
@@ -485,8 +487,14 @@ Phases, in order; any failure exits non-zero:
    gradient bitwise equal; the API block's launches, counters zeroed
    just before and read just after, K5a 2, K4a 1, K4b 1 (dq and dk + dv)
    and K5b 2 and no other kernel; both blocks' ms a step, and the API's
-   cost a dispatched op (10,000 ``pt.add`` on a one-element tensor
-   against ``torch.add``);
+   cost a dispatched op (``api_cost_us``: ``pt.add`` on a one-element
+   tensor less ``torch.add``, the least of five medians of 40
+   alternating batches of 250), held within the parent tree's spread of
+   the same statistic (``API_US_SPREAD``; the parent has no static
+   recorder's hook in ``dispatch``); 10,000 calls of each in a row
+   printed beside it (the earlier statistic). Given ``--parent``,
+   the parent's ``pt.add`` (imported as ``ptt_parent``) is measured in the
+   same process by both statistics, change and parent alternating;
 32. nn_layers: the random ops and ``nn``'s layers on the card. (a) every
    random op, ``uniform_``, ``exponential_`` and every initializer under
    ``pt.seed(0)``, f32 and bf16, on the card (R2's bits, uniform, normal
@@ -610,6 +618,31 @@ Phases, in order; any failure exits non-zero:
    skipped, every parameter and optimizer state unchanged bit for bit
    across it while the step count advances, the fused step launched 2
    times. All losses but the injected one finite; the loss falls.
+40. static_jit: ``paddle.static`` and ``paddle.jit`` on the card, seed
+   0, bf16. (a) ``static_stack``: ``static_block`` (``api_block``'s Llama
+   block with keyword reshapes) 24 times at llama_350m's widths from
+   ``static.data("x", [8, 1024, 1024], "bfloat16")``, each block's
+   weights from ``static.create_parameter`` (drawn on the card before
+   the build), ``AdamW(1e-4).minimize``; building launches nothing
+   (shapes on the meta device); three ``Executor.run`` calls, each
+   loss bitwise the same stack's eager step through the flat API
+   (``eager_stack``) and falling, each run K5a 48, K4a 24, K4b 24 + 24,
+   K5b 48 and the fused AdamW step once; then the ``for_test`` clone
+   (K4a 24, K5a 48), ``save_inference_model`` / ``load_inference_model``
+   and the archive's loss bitwise the Executor's fetch, its K4a 24 and
+   K5a 48 through the custom ops. Build time, ms per run, peak memory,
+   export, load and archive run times, the archive's MiB. (b)
+   ``LlamaForCausalLM(llama_350m())`` at 8 x 1024: ``to_static``'s logits
+   bitwise the eager forward's (K4a 24, K5a 49, K6 24 q + k);
+   ``grad_and_loss``'s loss and 219 gradients bitwise eager autograd's
+   (adding K4b 24 + 24, K5b 49, K6's backward 24); ``jit.save`` with
+   ``InputSpec([-1, 1024], "int64")``, ``jit.load``, the archive at batch
+   8 and 4 bitwise eager. ms a forward and a step, save and load
+   seconds, the archive's MiB. (c) dy2static: ``to_static`` with a
+   tensor-dependent ``if`` and a converted ``for`` loop (run and
+   exported, ``while_loop``) on card tensors equal to the CPU; a layer
+   calling the ``to_static`` function saved by ``jit.save`` holds a
+   ``torch.cond`` and takes both branches as the eager layer does.
 
 Each phase ends with a ``phase <name> <seconds>`` line. The last two
 lines of standard output are the per-kernel JSON record
@@ -633,7 +666,7 @@ PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "opt",
           "fleet_parity", "fleet", "wire_parity", "wire", "family_parity",
           "families", "decode_parity", "decoding", "deploy", "tensor_api",
           "nn_layers", "zoo_parity", "zoo", "int8_infer",
-          "train", "train_compose", "train_amp", "fit")
+          "train", "train_compose", "train_amp", "fit", "static_jit")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
 # outside the tensor cores, int8 tensor-core operations/s). The SXM part
@@ -2632,13 +2665,13 @@ RNG_KERNELS = {"threefry_fill": ("dropout_full_kernel", "dropout_kernel",
                "sample_rows": ("sample_rows_kernel",)}
 
 
-def import_parent(path):
+def import_parent_package(path):
     """The ``paddle_tpu_torch`` of a parent tree unpacked at ``path`` (a
-    ``git archive``), imported as the package ``ptt_parent`` beside this
-    one, its build limited to R1's and R2's sources: (its sample_rows,
-    its threefry_fill, its _build)."""
-    import importlib
+    ``git archive``), imported (once) as the package ``ptt_parent`` beside
+    this one; nothing built."""
     import importlib.util
+    if "ptt_parent" in sys.modules:
+        return sys.modules["ptt_parent"]
     pkg = os.path.join(os.path.abspath(path), "paddle_tpu_torch")
     spec = importlib.util.spec_from_file_location(
         "ptt_parent", os.path.join(pkg, "__init__.py"),
@@ -2646,6 +2679,15 @@ def import_parent(path):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["ptt_parent"] = mod
     spec.loader.exec_module(mod)
+    return mod
+
+
+def import_parent(path):
+    """``import_parent_package(path)``, its build limited to R1's and R2's
+    sources: (its sample_rows, its threefry_fill, its _build)."""
+    import importlib
+    pkg = os.path.join(os.path.abspath(path), "paddle_tpu_torch")
+    import_parent_package(path)
     pb = importlib.import_module("ptt_parent.ops.kernels._build")
     pb._sources = lambda: [pb.CSRC / "sample_rows.cu",
                            pb.CSRC / "threefry_fill.cu"]
@@ -6937,6 +6979,47 @@ def phase_deploy(torch, np, card, record):
 
 # ------------------------------------------------------------ tensor_api
 
+# the API's cost a dispatched op (api_cost_us, us) of the tree before the
+# static recorder's hook was added in dispatch: the least and the most of
+# its 36 readings beside this tree's (--parent) in two calls on an H100
+# 80GB HBM3 at 700 W
+API_US_SPREAD = (2.048, 4.497)
+
+
+def api_cost_us(torch, add, a, b, ta, tb):
+    """The API's cost a dispatched op, us: ``add(a, b)`` less
+    ``torch.add(ta, tb)`` in 40 alternating batches of 250, the median
+    difference (a load that comes and goes lands on both sides alike),
+    the least of five such medians (the host's noise only ever adds)."""
+    def median():
+        diffs = []
+        for _ in range(40):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(250):
+                add(a, b)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(250):
+                torch.add(ta, tb)
+            torch.cuda.synchronize()
+            diffs.append(((t1 - t0) - (time.perf_counter() - t1)) / 250)
+        return sorted(diffs)[len(diffs) // 2] * 1e6
+    return min(median() for _ in range(5))
+
+
+def per_op_us(torch, fn, a, b, n_ops=10000):
+    """us a call of ``fn(a, b)`` over ``n_ops`` calls in a row (after 100
+    to warm up)."""
+    for _ in range(100):
+        fn(a, b)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n_ops):
+        fn(a, b)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n_ops * 1e6
+
 # the block's widths: llama_350m's (models.llama.llama_350m)
 BLOCK_WIDTHS = {"hidden": 1024, "heads": 16, "inter": 2816, "B": 8,
                 "S": 1024}
@@ -6978,6 +7061,109 @@ def api_block(m, w, x, heads):
     u = m.matmul(h, w["wu"])
     x = x + m.matmul(F.silu(g) * u, w["wd"])
     return m.mean(x)
+
+
+# the static stack's parameters, in the block's order, and their shapes
+STACK_PARAMS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "wg", "wu", "wd")
+
+
+def stack_shapes(hidden, inter):
+    return {"ln1": [hidden], "wq": [hidden, hidden], "wk": [hidden, hidden],
+            "wv": [hidden, hidden], "wo": [hidden, hidden],
+            "ln2": [hidden], "wg": [hidden, inter], "wu": [hidden, inter],
+            "wd": [inter, hidden]}
+
+
+def stack_init(np, hidden, inter, layers, seed=0):
+    """The static stack's weights as f32 arrays: block i is
+    ``block_weights`` of seed + i."""
+    return [block_weights(np, hidden, inter, seed=seed + i)
+            for i in range(layers)]
+
+
+def static_block(m, w, x, heads):
+    """``api_block``'s Llama block, its output (not its mean), written so
+    that the reference's static API records it too: every reshape takes
+    ``shape=`` by keyword (its Executor traces a positional shape and
+    fails)."""
+    F = m.nn.functional
+    B, S, H = x.shape
+    d = H // heads
+    h = F.rms_norm(x, w["ln1"])
+    q = m.reshape(m.matmul(h, w["wq"]), shape=[B, S, heads, d])
+    k = m.reshape(m.matmul(h, w["wk"]), shape=[B, S, heads, d])
+    v = m.reshape(m.matmul(h, w["wv"]), shape=[B, S, heads, d])
+    a = F.flash_attention(q, k, v, causal=True)
+    if isinstance(a, tuple):            # the JAX package's (out, None)
+        a = a[0]
+    x = x + m.matmul(m.reshape(a, shape=[B, S, H]), w["wo"])
+    h = F.rms_norm(x, w["ln2"])
+    g = m.matmul(h, w["wg"])
+    u = m.matmul(h, w["wu"])
+    return x + m.matmul(F.silu(g) * u, w["wd"])
+
+
+def static_stack(m, B, S, H, heads, inter, layers, dtype, init, train=True):
+    """``layers`` static blocks under ``m.static.program_guard`` from
+    ``static.data("x", [B, S, H], dtype)``, the loss the mean of the last
+    block's output. Each block's weights come from
+    ``static.create_parameter`` (named ``stack{i}_{name}``): ``init``'s
+    arrays (``stack_init``) through ``Assign``, or, with ``init`` None,
+    N(0, 0.02^2) projections and ones for the norms. ``train``:
+    ``AdamW(1e-4).minimize(loss)``; else ``append_backward(loss)``.
+    Returns (main, startup, x, loss, [(param, grad)] or None)."""
+    st, I = m.static, m.nn.initializer
+    main, startup = st.Program(), st.Program()
+    shapes = stack_shapes(H, inter)
+    with st.program_guard(main, startup):
+        x = st.data("x", [B, S, H], dtype)
+        h = x
+        for i in range(layers):
+            w = {}
+            for k in STACK_PARAMS:
+                if init is not None:
+                    ini = I.Assign(init[i][k])
+                elif k.startswith("ln"):
+                    ini = I.Constant(1.0)
+                else:
+                    ini = I.Normal(0.0, 0.02)
+                w[k] = st.create_parameter(shapes[k], dtype,
+                                           name=f"stack{i}_{k}",
+                                           default_initializer=ini)
+            h = static_block(m, w, h, heads)
+        loss = m.mean(h)
+        grads = None
+        if train:
+            m.optimizer.AdamW(1e-4).minimize(loss)
+        else:
+            grads = st.append_backward(loss)
+    return main, startup, x, loss, grads
+
+
+def eager_stack(pt, torch, weights, x, heads, steps, device="cuda"):
+    """The static stack run eagerly through the port's flat API:
+    ``steps`` steps of ``AdamW(1e-4)`` over the blocks' weights
+    (``weights``: a dict of arrays or tensors a block). Returns each
+    step's loss (a 0-d torch tensor), taken before its update."""
+    from paddle_tpu_torch.core.tensor import wrap
+    leaves = [{k: torch.nn.Parameter(torch.as_tensor(v).to(device).clone())
+               for k, v in w.items()} for w in weights]
+    opt = pt.optimizer.AdamW(1e-4, parameters=[
+        p for w in leaves for p in w.values()])
+    px = pt.to_tensor(x, place=device) if not torch.is_tensor(x) \
+        else pt.Tensor(x)
+    losses = []
+    for _ in range(steps):
+        h = px
+        for w in leaves:
+            h = static_block(pt, {k: wrap(v) for k, v in w.items()}, h,
+                             heads)
+        loss = pt.mean(h)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.value.detach())
+    return losses
 
 
 def direct_block(torch, w, x, heads):
@@ -7108,7 +7294,7 @@ def tensor_api_table(torch, np, pt):
     return len(TABLE), n_grad, worst, fails
 
 
-def phase_tensor_api(torch, np, card, record):
+def phase_tensor_api(torch, np, card, record, parent=None):
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import device as tdevice
     t0 = time.perf_counter()
@@ -7182,20 +7368,27 @@ def phase_tensor_api(torch, np, card, record):
     a1 = pt.to_tensor([1.0], place="gpu")
     b1 = pt.to_tensor([2.0], place="gpu")
     ta1, tb1 = a1.value, b1.value
-    n_ops = 10000
-
-    def per_op(fn, a, b):
-        for _ in range(100):
-            fn(a, b)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(n_ops):
-            fn(a, b)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) / n_ops * 1e6
-
-    us_api = per_op(pt.add, a1, b1)
-    us_torch = per_op(torch.add, ta1, tb1)
+    us_api = per_op_us(torch, pt.add, a1, b1)
+    us_torch = per_op_us(torch, torch.add, ta1, tb1)
+    cost = api_cost_us(torch, pt.add, a1, b1, ta1, tb1)
+    if parent is not None:
+        # change, parent, parent, change, three times over; both statistics
+        pp = import_parent_package(parent)
+        pa1 = pp.to_tensor([1.0], place="gpu")
+        pb1 = pp.to_tensor([2.0], place="gpu")
+        reads = {"change": [], "parent": []}
+        for tag in ("change", "parent", "parent", "change") * 3:
+            add, a, b = ((pt.add, a1, b1) if tag == "change"
+                         else (pp.add, pa1, pb1))
+            reads[tag].append((
+                api_cost_us(torch, add, a, b, ta1, tb1),
+                per_op_us(torch, add, a, b)
+                - per_op_us(torch, torch.add, ta1, tb1)))
+        for tag, r in reads.items():
+            log(f"tensor_api api cost {tag} [{card}]: api_cost_us "
+                + " ".join(f"{c:.3f}" for c, _ in r)
+                + "; pt.add less torch.add, 10,000 calls in a row "
+                + " ".join(f"{d:.3f}" for _, d in r))
     log(f"tensor_api block [{card}]: llama_350m widths ({H} hidden, {heads} "
         f"heads of {H // heads}, {bw['inter']} intermediate), bf16, "
         f"{B} x {S} tokens, loss {la.item():.6f}; bitwise API = direct: "
@@ -7203,8 +7396,9 @@ def phase_tensor_api(torch, np, card, record):
     log(f"tensor_api metrics [{card}]: API block {api_ms:.3f} / "
         f"{api_ms2:.3f} ms a step (forward + backward), direct block "
         f"{direct_ms:.3f} ms; pt.add {us_api:.2f} us a call, torch.add "
-        f"{us_torch:.2f} us, the API's cost {us_api - us_torch:.2f} us a "
-        f"dispatched op")
+        f"{us_torch:.2f} us (10,000 calls in a row: a difference of "
+        f"{us_api - us_torch:.2f} us), the API's cost {cost:.3f} us a "
+        f"dispatched op (api_cost_us)")
     want = {"k5_fwd": 2, "k4_fwd": 1, "k4_dq": 1, "k4_dkv": 1, "k5_bwd": 2}
     checks = {"every optable row on the card = numpy = CPU": not fails,
               "loss and every gradient bitwise the direct block's":
@@ -7213,7 +7407,10 @@ def phase_tensor_api(torch, np, card, record):
               "launches K5a 2, K4a 1, K4b 1 (dq, dk + dv), K5b 2":
                   {k: counts[k] for k in want} == want,
               "no other kernel": not any(
-                  v for k, v in counts.items() if k not in want)}
+                  v for k, v in counts.items() if k not in want),
+              f"the API's cost a dispatched op within the parent's spread "
+              f"of the same statistic (<= {API_US_SPREAD[1]} us)":
+                  cost <= API_US_SPREAD[1]}
     for name, good in checks.items():
         if not good:
             raise SystemExit(f"tensor_api: check failed: {name}")
@@ -9299,6 +9496,328 @@ def phase_fit(torch, np, card, record, train):
             raise SystemExit(f"fit: check failed: {name}")
 
 
+
+# ------------------------------------------------------------ static_jit
+
+# (a)'s static stack: llama_350m's widths and depth (models.llama.
+# llama_350m: hidden 1024, 16 heads of 64, intermediate 2816, 24 layers)
+STATIC_STACK = {"B": 8, "S": 1024, "hidden": 1024, "heads": 16,
+                "inter": 2816, "layers": 24, "runs": 3}
+
+
+def custom_op_counts(prog):
+    """{custom op: calls} in a loaded archive's graph."""
+    counts = {}
+    for node in prog.program.graph.nodes:
+        name = str(node.target)
+        if name.startswith("paddle_tpu_torch."):
+            op = name.split(".")[1]
+            counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
+def sync_ms(torch, fn):
+    """(fn's result, its ms on the host's clock ended by a sync)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def static_jit_stack(torch, np, pt, card, root, checks):
+    """(a): the static stack at llama_350m's width and depth, trained by
+    three Executor runs against the same stack run eagerly, then its
+    inference archive against the Executor's ``for_test`` fetch."""
+    import paddle_tpu_torch.static as st
+    c = STATIC_STACK
+    B, S, H, heads, inter, L = (c["B"], c["S"], c["hidden"], c["heads"],
+                                c["inter"], c["layers"])
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = stack_shapes(H, inter)
+    init = [{k: torch.ones(shapes[k], dtype=bf16, device="cuda")
+             if k.startswith("ln") else
+             (torch.randn(shapes[k], generator=gen, device="cuda")
+              * 0.02).to(bf16) for k in STACK_PARAMS} for _ in range(L)]
+    x = (torch.randn((B, S, H), generator=gen, device="cuda")).to(bf16)
+    pt.seed(0)
+    zero_counts()
+    (main, startup, xv, loss, _), build_ms = sync_ms(
+        torch, lambda: static_stack(pt, B, S, H, heads, inter, L,
+                                    "bfloat16", init))
+    built = read_counts()
+    # a second build of the same program: the first one's time is mostly
+    # torch's imports on first use (dynamo, sympy), paid once a process
+    zero_counts()
+    _, warm_build_ms = sync_ms(torch, lambda: static_stack(
+        pt, B, S, H, heads, inter, L, "bfloat16", init))
+    built2 = read_counts()
+    exe = st.Executor()
+    exe.run(startup)
+    start = {n: st.global_scope()._vars[n].clone()
+             for n in main._param_names}
+    torch.cuda.reset_peak_memory_stats()
+    losses, run_ms, run_counts = [], [], []
+    for _ in range(c["runs"]):
+        zero_counts()
+        (lv,), ms = sync_ms(torch, lambda: exe.run(
+            main, feed={"x": x}, fetch_list=[loss], return_numpy=False))
+        run_counts.append(read_counts())
+        losses.append(lv)
+        run_ms.append(ms)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    weights = [{k: start[f"stack{i}_{k}"] for k in STACK_PARAMS}
+               for i in range(L)]
+    del start
+    eager, eager_ms = sync_ms(torch, lambda: eager_stack(
+        pt, torch, weights, x, heads, c["runs"]))
+    del weights
+    want = {"k5_fwd": 2 * L, "k4_fwd": L, "k4_dq": L, "k4_dkv": L,
+            "k5_bwd": 2 * L, "opt": 1, "opt_kernels": 1}
+    checks["(a) building the program launched nothing"] = \
+        not any(built.values()) and not any(built2.values())
+    checks["(a) each run's loss = the eager stack's, bitwise"] = all(
+        torch.equal(a, b) for a, b in zip(losses, eager))
+    checks["(a) the loss falls"] = float(losses[-1]) < float(losses[0])
+    checks[f"(a) launches a run K5a {2 * L}, K4a {L}, K4b {L} + {L}, "
+           f"K5b {2 * L}, the fused AdamW 1, no other kernel"] = all(
+        {k: v for k, v in rc.items() if v} == want for rc in run_counts)
+    log(f"static_jit (a) [{card}]: {L} blocks at llama_350m's widths ({H} "
+        f"hidden, {heads} heads of {H // heads}, {inter} intermediate), "
+        f"bf16, {B} x {S}; {main.num_ops} ops, {len(main._param_names)} "
+        f"parameters; built in {build_ms:.1f} ms (again "
+        f"{warm_build_ms:.1f} ms), launches while building "
+        f"{ {k: v for k, v in built.items() if v} }; losses "
+        f"{[float(v) for v in losses]} (eager "
+        f"{[float(v) for v in eager]}, {eager_ms / c['runs']:.2f} ms a "
+        f"step); ms per Executor.run {[round(v, 2) for v in run_ms]}; peak "
+        f"{peak:.2f} GiB; launches "
+        f"a run {[{k: v for k, v in rc.items() if v} for rc in run_counts]}")
+    # the inference archive of the for_test program
+    test = main.clone(for_test=True)
+    zero_counts()
+    (fetched,), test_ms = sync_ms(torch, lambda: exe.run(
+        test, feed={"x": x}, fetch_list=[loss], return_numpy=False))
+    test_counts = read_counts()
+    prefix = os.path.join(root, "stack", "infer")
+    _, export_ms = sync_ms(torch, lambda: st.save_inference_model(
+        prefix, [xv], [loss], exe, program=test))
+    (prog, _f, _o), load_ms = sync_ms(
+        torch, lambda: st.load_inference_model(prefix, exe))
+    zero_counts()
+    (out,), arch_ms = sync_ms(torch, lambda: prog(x))
+    arch_counts = read_counts()
+    ops = custom_op_counts(prog)
+    mb = os.path.getsize(prefix + ".pdmodel") / 2 ** 20
+    fwd = {"k5_fwd": 2 * L, "k4_fwd": L}
+    checks["(a) the archive = the Executor's for_test fetch, bitwise"] = \
+        torch.equal(out, fetched)
+    checks[f"(a) the archive's launches K4a {L}, K5a {2 * L} through the "
+           "custom ops, no other kernel"] = (
+        {k: v for k, v in arch_counts.items() if v} == fwd
+        and ops.get("flash_fwd") == L and ops.get("rms_norm_fwd") == 2 * L)
+    checks["(a) the for_test run's launches K4a, K5a only"] = \
+        {k: v for k, v in test_counts.items() if v} == fwd
+    log(f"static_jit (a) archive [{card}]: for_test run {test_ms:.2f} ms, "
+        f"loss {float(fetched):.6f}; export {export_ms / 1e3:.2f} s, load "
+        f"{load_ms / 1e3:.2f} s, archive {mb:.1f} MiB, run "
+        f"{arch_ms:.2f} ms; custom ops {ops}; launches "
+        f"{ {k: v for k, v in arch_counts.items() if v} }")
+    return {"run_counts": run_counts[-1], "arch_counts": arch_counts}
+
+
+def static_jit_llama(torch, np, pt, card, root, checks):
+    """(b): ``to_static``, ``grad_and_loss`` and ``jit.save`` /
+    ``jit.load`` on ``LlamaForCausalLM(llama_350m())`` at 8 x 1024."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_350m
+    from paddle_tpu_torch.static import InputSpec
+    cfg = llama_350m()
+    L = cfg.num_layers
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=0)
+    B, S = 8, 1024
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)), device="cuda")
+    with torch.no_grad():
+        eager = model(ids)
+    ts = pt.jit.to_static(model)
+    ts(ids)                                        # warm-up
+    zero_counts()
+    got, fwd_ms = sync_ms(torch, lambda: ts(ids))
+    fwd_counts = read_counts()
+    fwd_ms2 = sync_ms(torch, lambda: ts(ids))[1]
+    checks["(b) to_static's logits = eager, bitwise"] = \
+        torch.equal(got.value, eager)
+    want = {"k5_fwd": 2 * L + 1, "k4_fwd": L, "k6_qk": L}
+    checks[f"(b) to_static launches K4a {L}, K5a {2 * L + 1}, K6 {L} "
+           "(q + k), no other kernel"] = \
+        {k: v for k, v in fwd_counts.items() if v} == want
+    del got
+
+    def loss_fn(logits):
+        return model.loss(logits, ids)
+
+    params = {n: p for n, p in model.named_parameters()}
+    vg = pt.jit.grad_and_loss(model, loss_fn)
+    zero_counts()
+    (loss, grads), step_ms = sync_ms(torch, lambda: vg(params, (ids,)))
+    step_counts = read_counts()
+    model.zero_grad(set_to_none=True)
+    el = loss_fn(model(ids))
+    el.backward()
+    same = all(torch.equal(p.grad, grads[n]) for n, p in
+               model.named_parameters())
+    checks["(b) grad_and_loss's loss and gradients = eager autograd's, "
+           "bitwise"] = torch.equal(el.detach(), loss) and same
+    train = per_step_counts(L, opt_kernels=0)
+    train = {k: v for k, v in train.items() if v and k != "opt"}
+    checks[f"(b) grad_and_loss launches K4a {L}, K4b {L} + {L}, K5a/K5b "
+           f"{2 * L + 1}, K6 {2 * L} (q + k forward and backward), no other "
+           "kernel"] = {k: v for k, v in step_counts.items() if v} == train
+    model.zero_grad(set_to_none=True)
+    del grads, el
+    step_ms2 = sync_ms(torch, lambda: vg(params, (ids,)))[1]
+    del params
+    prefix = os.path.join(root, "llama", "model")
+    _, save_ms = sync_ms(torch, lambda: pt.jit.save(
+        model, prefix, input_spec=[InputSpec([-1, S], "int64")]))
+    loaded, load_ms = sync_ms(torch, lambda: pt.jit.load(prefix))
+    mb = os.path.getsize(prefix + ".pdmodel") / 2 ** 20
+    arch = {}
+    for b in (8, 4):
+        zero_counts()
+        out, ms = sync_ms(torch, lambda: loaded(ids[:b]))
+        counts = read_counts()
+        with torch.no_grad():
+            ref = model(ids[:b])
+        arch[b] = (torch.equal(out, ref), ms, counts)
+        del out, ref
+    checks["(b) the jit.save archive = eager at batch 8 and 4, bitwise"] = \
+        all(v[0] for v in arch.values())
+    checks["(b) the archive's launches K4a, K5a and K6 (custom ops) a "
+           "layer"] = all({k: v for k, v in c.items() if v} == want
+                          for _s, _m, c in arch.values())
+    log(f"static_jit (b) [{card}]: LlamaForCausalLM(llama_350m()) bf16, "
+        f"{B} x {S}; to_static {fwd_ms:.2f} / {fwd_ms2:.2f} ms a forward, "
+        f"launches {fwd_counts and {k: v for k, v in fwd_counts.items() if v}}; "
+        f"grad_and_loss {step_ms:.2f} / {step_ms2:.2f} ms a step, loss "
+        f"{float(loss):.6f}, "
+        f"launches {({k: v for k, v in step_counts.items() if v})}; "
+        f"jit.save {save_ms / 1e3:.2f} s (archive {mb:.1f} MiB), jit.load "
+        f"{load_ms / 1e3:.2f} s; the archive at batch 8 {arch[8][1]:.2f} ms,"
+        f" 4 {arch[4][1]:.2f} ms; launches "
+        f"{ {b: {k: v for k, v in c.items() if v} for b, (_e, _m, c) in arch.items()} }")
+    return {"fwd_counts": fwd_counts, "step_counts": step_counts}
+
+
+def static_jit_dy2static(torch, np, pt, card, root, checks):
+    """(c): the reference's ``test_to_static_with_control_flow`` and
+    ``test_layer_with_loop_under_jit`` with card tensors against the CPU,
+    and a saved layer whose forward calls a ``to_static`` function with a
+    tensor-dependent ``if``: its archive takes both branches."""
+    from paddle_tpu_torch.jit.dy2static import convert_to_static
+    from paddle_tpu_torch.static import InputSpec
+
+    @pt.jit.to_static
+    def relu_like(x):
+        y = x
+        if x.sum() > 0:
+            y = y * 2
+        else:
+            y = y * 0
+        return y
+
+    def body(x, steps):
+        acc = x * 0
+        for i in range(steps):
+            acc = acc + torch.sin(x + i)
+        return acc
+
+    same = []
+    for v in ([1.0, 2.0], [-1.0, -2.0]):
+        card_out = relu_like(pt.to_tensor(v, place="gpu")).value
+        cpu_out = relu_like(pt.to_tensor(v, place="cpu")).value
+        same.append(torch.equal(card_out.cpu(), cpu_out))
+    static = convert_to_static(body)
+    xs = torch.tensor([0.5])
+    loop = {"card": static(xs.cuda(), torch.tensor(3, device="cuda")),
+            "cpu": static(xs, torch.tensor(3))}
+    same.append(torch.equal(loop["card"].cpu(), loop["cpu"]))
+
+    class Loop(torch.nn.Module):
+        def forward(self, x, n):
+            return static(x, n)
+
+    ep = torch.export.export(Loop(), (xs.cuda(), torch.tensor(3,
+                                                           device="cuda")))
+    got = ep.module()(xs.cuda(), torch.tensor(3, device="cuda"))
+    same.append(torch.equal(got.cpu(), loop["cpu"]))
+    checks["(c) dy2static on the card = the CPU (if, for; exported loop)"] = \
+        all(same)
+
+    class Gate(pt.nn.Layer):
+        def forward(self, x):
+            return relu_like(x)
+
+    layer = Gate()
+    prefix = os.path.join(root, "gate", "gate")
+    pt.jit.save(layer, prefix, input_spec=[InputSpec([-1, 1024],
+                                                     "float32")])
+    loaded = pt.jit.load(prefix)
+    conds = sum("cond" in str(n.target) for n in
+                loaded.program.graph.nodes)
+    branches = []
+    for sign in (1.0, -1.0):
+        x = sign * torch.rand((8, 1024), device="cuda")
+        branches.append(torch.equal(loaded(x), layer(x)))
+    checks["(c) the exported to_static layer takes both branches"] = \
+        all(branches) and conds >= 1
+    log(f"static_jit (c) [{card}]: card = CPU {same}; the archive's "
+        f"torch.cond nodes {conds}, branches {branches}; torch "
+        f"{torch.__version__}")
+
+
+def phase_static_jit(torch, np, card, record):
+    """Phase static_jit: (a) the static stack, (b) jit on llama_350m, (c)
+    dy2static on the card; every gate checked after all three ran."""
+    import shutil
+    import tempfile
+    import paddle_tpu_torch as pt
+    root = tempfile.mkdtemp(prefix="chip_smoke_static_")
+    checks = {}
+    try:
+        a = static_jit_stack(torch, np, pt, card, root, checks)
+        torch.cuda.empty_cache()
+        b = static_jit_llama(torch, np, pt, card, root, checks)
+        torch.cuda.empty_cache()
+        static_jit_dy2static(torch, np, pt, card, root, checks)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name, good in checks.items():
+        log(f"  static_jit {'ok' if good else 'FAIL'}: {name}")
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"static_jit: check failed: {name}")
+    rc, ac = a["run_counts"], a["arch_counts"]
+    record["flash_attention_fwd"]["static_jit_launches"] = {
+        "static_run": rc["k4_fwd"], "archive": ac["k4_fwd"],
+        "to_static": b["fwd_counts"]["k4_fwd"],
+        "grad_and_loss": b["step_counts"]["k4_fwd"]}
+    record["flash_attention_bwd"]["static_jit_launches"] = {
+        "static_run": rc["k4_dq"], "grad_and_loss": b["step_counts"]["k4_dq"]}
+    record["rms_norm_fwd"]["static_jit_launches"] = {
+        "static_run": rc["k5_fwd"], "archive": ac["k5_fwd"],
+        "to_static": b["fwd_counts"]["k5_fwd"],
+        "grad_and_loss": b["step_counts"]["k5_fwd"]}
+    record["rms_norm_bwd"]["static_jit_launches"] = {
+        "static_run": rc["k5_bwd"],
+        "grad_and_loss": b["step_counts"]["k5_bwd"]}
+    record["rope"]["static_jit_launches"] = {
+        "to_static": b["fwd_counts"]["k6_qk"],
+        "grad_and_loss": b["step_counts"]["k6_qk"]}
+
+
 def profile_once(torch, fn, card, what="train", unit="step"):
     """Where one call's time goes (a train step, an int8 forward): ``fn``
     once under torch.profiler, device time by kernel and the device's
@@ -9353,7 +9872,8 @@ def main():
                     help=f"comma-separated subset of {','.join(PHASES)}")
     ap.add_argument("--parent", default=None,
                     help="a parent tree's root (git archive unpacked): the "
-                         "rng phase times its R1 and R2 beside this tree's")
+                         "rng phase times its R1 and R2 beside this tree's, "
+                         "tensor_api its API cost a dispatched op")
     args = ap.parse_args()
     phases = [p for p in args.only.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -9551,7 +10071,8 @@ def main():
         timed("deploy", phase_deploy, torch, np, card, record)
     if "tensor_api" in phases:
         torch.cuda.empty_cache()
-        timed("tensor_api", phase_tensor_api, torch, np, card, record)
+        timed("tensor_api", phase_tensor_api, torch, np, card, record,
+              args.parent)
     if "nn_layers" in phases:
         torch.cuda.empty_cache()
         timed("nn_layers", phase_nn_layers, torch, np, card, peak, record)
@@ -9573,6 +10094,9 @@ def main():
     if "fit" in phases:
         timed("fit", phase_fit, torch, np, card, record,
               train if "train" in phases else None)
+    if "static_jit" in phases:
+        torch.cuda.empty_cache()
+        timed("static_jit", phase_static_jit, torch, np, card, record)
     log(json.dumps({"kernels": list(record.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -156,9 +156,24 @@ def set_default_dtype(d):
     _default_dtype[0] = _dtype_mod.convert_dtype(d)
 
 
+def disable_static(place=None):
+    """``paddle.disable_static``: leave the global static-graph mode."""
+    from .static import graph as _g
+    _g.disable_static_mode()
+
+
+def enable_static():
+    """``paddle.enable_static``: ops on ``static.data`` Variables record
+    into ``static.default_main_program()`` without a ``program_guard``.
+    Eager Tensors keep running: only ops on Variables record."""
+    from .static import graph as _g
+    _g.enable_static_mode()
+
+
 def in_dynamic_mode():
-    """Always True: the port has no static-graph mode (item 15.5)."""
-    return True
+    """False while ``enable_static`` is in force."""
+    from .static import graph as _g
+    return not _g.in_static_mode()
 
 
 def grad(*args, **kwargs):

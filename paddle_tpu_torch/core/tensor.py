@@ -25,9 +25,14 @@ closures (``tensor.py:172-251``) and its reverse walk (``:254``).
   each new value, so they fire on the gradient of the tensor as it is
   after the rebind.
 
-Left out on purpose: the reference's static-graph recorder
-(``tensor.py:182``) and ``param_substitution`` (``:43``) come with
-ROADMAP item 15.5.
+The reference's static recorder (``tensor.py:182``):
+``set_static_recorder`` installs ``static.graph``'s recorder, which
+takes an op that touches a symbolic ``static.Variable`` into the
+program being built instead of running it. While none is installed,
+``dispatch`` pays one test of a module global for it. The reference's
+``param_substitution`` (``:43``) has no counterpart: the port's
+``jit.functional_call`` runs a layer, a ``torch.nn.Module``, through
+``torch.func.functional_call``.
 """
 from __future__ import annotations
 
@@ -43,10 +48,21 @@ from .tape import no_grad
 
 __all__ = [
     "Tensor", "Parameter", "to_tensor", "dispatch", "unwrap", "wrap",
-    "backward", "no_grad", "set_nan_inf_check",
+    "backward", "no_grad", "set_nan_inf_check", "set_static_recorder",
 ]
 
 _NARROW = dtypes._NARROW
+
+
+_static_recorder = None     # static.graph's recorder while one is installed
+
+
+def set_static_recorder(recorder):
+    """Install ``recorder`` (``active(args, kwargs)``, ``record(fn,
+    args, kwargs, name=, nondiff_args=)``) at the top of ``dispatch``;
+    None removes it."""
+    global _static_recorder
+    _static_recorder = recorder
 
 
 def unwrap(x):
@@ -209,7 +225,12 @@ def dispatch(fn, *args, name=None, nondiff_args=(), **kwargs):
     arrays among the arguments become torch tensors on the first
     tensor's device. Returns Tensors (a tuple or list of them for a
     tuple or list) when any argument was a Tensor, torch values
-    otherwise; either way in the canonical dtypes."""
+    otherwise; either way in the canonical dtypes. An installed static
+    recorder takes the op when it is ``active`` for ``args``."""
+    if _static_recorder is not None and _static_recorder.active(
+            args, kwargs):
+        return _static_recorder.record(fn, args, kwargs, name=name,
+                                       nondiff_args=nondiff_args)
     any_tensor = False
     device = None
     has_np = False

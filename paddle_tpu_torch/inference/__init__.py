@@ -11,8 +11,8 @@ page allocator, its radix prefix cache and host KV tier, the fleet
 (``ReplicaRouter`` over server replicas in process or behind the wire —
 ``ReplicaHost``, ``RemoteReplica``, ``spawn_replica_host`` — and
 disaggregated placement), the ``BatchScheduler`` and ``serve_metrics``,
-the HTTP exposition of their telemetry. ``export_program`` needs
-``static.Program`` (ROADMAP Queue 1 item 15) and raises.
+the HTTP exposition of their telemetry. ``export_program`` exports a
+``static.Program`` (``static.save_inference_model``).
 """
 import copy
 import time

@@ -18,7 +18,8 @@ the port's hand-written forward kernels through their custom ops
 (``ops.kernels.custom_ops``: K4a, K5a, K6, K7, K8), never a plain
 version; loading imports ``paddle_tpu_torch.ops.kernels``, which
 registers them, where the reference's loader needs only jax.
-``export_program`` needs ``static.Program`` (ROADMAP Queue 1 item 15).
+``export_program`` exports a ``static.Program`` (``save_inference_
+model``), ``export_layer`` an eager layer (``jit.save``).
 """
 import json
 import os
@@ -41,13 +42,14 @@ def _dtype_name(dt):
 
 
 def _device_of(module):
-    """The device of a module's first parameter or buffer (the CPU if it
-    holds none)."""
+    """The device of a module's first parameter or buffer (the default
+    place if it holds none)."""
     for t in module.parameters():
         return t.device
     for t in module.buffers():
         return t.device
-    return torch.device("cpu")
+    from ..device import default_device
+    return default_device()
 
 
 def _feeds(input_spec, device):
@@ -104,13 +106,51 @@ def _export(module, examples, dynamic_shapes=None):
                                    dynamic_shapes=dynamic_shapes)
 
 
+class _ProgramModule(torch.nn.Module):
+    """A static program's inference function as a module: the scope's
+    values it reads are its buffers, ``forward(*feeds)`` replays the
+    pruned ops (``static._program_infer_fn``)."""
+
+    def __init__(self, fn, values):
+        super().__init__()
+        self._fn = fn
+        self._names = list(values)
+        for i, v in enumerate(values.values()):
+            self.register_buffer(f"var{i}", v)
+
+    def forward(self, *feeds):
+        values = {n: getattr(self, f"var{i}")
+                  for i, n in enumerate(self._names)}
+        return tuple(self._fn(values, *feeds))
+
+
 def export_program(path_prefix, program, feed_names, fetch_names, scope):
-    """Export a static ``Program``: not ported, ``static.Program`` is
-    not."""
-    raise NotImplementedError(
-        "export_program needs static.Program, which is not ported "
-        "(ROADMAP, Queue 1 item 15: the rest of the API surface); export "
-        "an eager layer with export_layer")
+    """Export a static ``Program``'s ``feeds -> fetches`` function (the
+    ``save_inference_model`` path): the ops the fetches need, replayed
+    under ``torch.export`` with the scope's values inside, on their
+    device. A feed declared by ``static.data`` with ``-1`` dims exports
+    them as ``torch.export.Dim``s."""
+    from ..static import _program_infer_fn
+    fn, values = _program_infer_fn(program, feed_names, fetch_names, scope)
+    values = {n: v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+              for n, v in values.items()}
+    device = next((v.device for v in values.values()), None)
+    if device is None:
+        from ..device import default_device
+        device = default_device()
+    values = {n: v.detach().to(device) for n, v in values.items()}
+    block = program.global_block
+    specs = []
+    for n in feed_names:
+        var = block.vars[n]
+        spec = getattr(var, "_input_spec", None)
+        shape = spec.shape if spec is not None else list(var._value.shape)
+        specs.append(InputSpec(shape, _dtype_name(var._value.dtype), n))
+    examples, names, dyn, feed_specs = _feeds(specs, device)
+    # forward(*feeds): the dims of the feeds nest in one tuple
+    ep = _export(_ProgramModule(fn, values), examples,
+                 (tuple(dyn),) if any(d is not None for d in dyn) else None)
+    _write(path_prefix, ep, names, list(fetch_names), feed_specs)
 
 
 def export_layer(path_prefix, layer, input_spec):

@@ -23,7 +23,9 @@ unchanged: the optimizer zoo, the clips, ``hapi.Model``,
   inputs, runs ``forward`` on torch tensors and wraps the outputs back,
   so a ``Tensor`` in gives a ``Tensor`` out whose gradient reaches the
   layer's parameters; torch tensors in give torch tensors out and cost
-  one type check an argument.
+  one type check an argument. A layer called on a ``static.Variable``
+  while a program is being built is recorded as one op over its
+  parameters (``static.graph``).
 - ``register_forward_pre_hook`` / ``register_forward_post_hook`` keep the
   reference's hooks (they see the inputs as given) and return a
   ``HookRemoveHelper``; ``register_buffer(persistable=)``; the traversals
@@ -43,6 +45,7 @@ import itertools
 import numpy as np
 import torch
 
+from ..core import tensor as _core
 from ..core.dtype import _STR2DTYPE, canonical, convert_dtype
 from ..core.tensor import Parameter as _TensorParameter
 from ..core.tensor import Tensor, _wrap_out
@@ -400,7 +403,10 @@ class Layer(torch.nn.Module):
             if out is not None:
                 inputs = out if isinstance(out, tuple) else (out,)
         paddle = _has_tensor(inputs) or _has_tensor(kwargs.values())
-        if paddle:
+        rec = _core._static_recorder
+        if paddle and rec is not None and rec.active(inputs, kwargs):
+            outputs = rec.record_layer(self, inputs, kwargs)
+        elif paddle:
             outputs = _wrap_tree(super().__call__(
                 *_unwrap_tree(inputs),
                 **{k: _unwrap_tree(v) for k, v in kwargs.items()}))

@@ -52,20 +52,28 @@ def empty(shape, dtype="float32"):
     return zeros(shape, dtype)
 
 
-def zeros_like(x, dtype=None):
+def _like(x, dtype):
+    """(shape, dtype, device) of a ``*_like`` op's output: ``x``'s, or the
+    default place for a static Variable's meta value (the constant is
+    then a literal of the program, as in the reference)."""
     v = unwrap(x)
-    return wrap(torch.zeros_like(v, dtype=_dt(dtype) or v.dtype))
+    dev = default_device() if v.device.type == "meta" else v.device
+    return v.shape, _dt(dtype) or v.dtype, dev
+
+
+def zeros_like(x, dtype=None):
+    shape, dt, dev = _like(x, dtype)
+    return wrap(torch.zeros(shape, dtype=dt, device=dev))
 
 
 def ones_like(x, dtype=None):
-    v = unwrap(x)
-    return wrap(torch.ones_like(v, dtype=_dt(dtype) or v.dtype))
+    shape, dt, dev = _like(x, dtype)
+    return wrap(torch.ones(shape, dtype=dt, device=dev))
 
 
 def full_like(x, fill_value, dtype=None):
-    v = unwrap(x)
-    return wrap(torch.full_like(v, _scalar(fill_value),
-                                dtype=_dt(dtype) or v.dtype))
+    shape, dt, dev = _like(x, dtype)
+    return wrap(torch.full(shape, _scalar(fill_value), dtype=dt, device=dev))
 
 
 def empty_like(x, dtype=None):

@@ -197,27 +197,31 @@ class Optimizer:
         0 elsewhere. Neither ``grad_clip`` nor the optimizer's own decay
         exemptions (``apply_decay_param_fun``, ``no_weight_decay``) take
         part, and ``lr`` meets a low-precision tensor in its type
-        (``_lr_mul``), as in the reference's functional update."""
+        (``_lr_mul``), as in the reference's functional update; with
+        ``weak_lr=False`` it is an f32 scalar, as the reference's static
+        Executor passes it (``jnp.asarray(lr, float32)``)."""
         def init_fn(params):
             return self.init_state(params)
 
         @torch.no_grad()
-        def update_fn(grads, params, state, lr=None, step=1, wd_mask=None):
+        def update_fn(grads, params, state, lr=None, step=1, wd_mask=None,
+                      weak_lr=True):
             lr_ = self.get_lr() if lr is None else lr
             keys = sorted(params)
             wd = float(self._weight_decay or 0.0)
             wds = [wd if wd_mask is None or wd_mask[k] else 0.0
                    for k in keys]
             self._functional_update(keys, grads, params, state, float(lr_),
-                                    int(step), wds)
+                                    int(step), wds, weak_lr)
             return params, state
 
         return init_fn, update_fn
 
-    def _functional_update(self, keys, grads, params, state, lr, step, wds):
+    def _functional_update(self, keys, grads, params, state, lr, step, wds,
+                           weak_lr=True):
         """The per-leaf update of ``params[k]`` for every key, in place,
-        the rate weakly typed (``_lr_mul``)."""
-        self._weak_lr = True
+        the rate weakly typed (``_lr_mul``) unless ``weak_lr`` is False."""
+        self._weak_lr = weak_lr
         try:
             for k, wd in zip(keys, wds):
                 leaf = {n: st[k] for n, st in state.items()}
@@ -231,7 +235,22 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
-        """``loss.backward()`` then ``step()``."""
+        """``loss.backward()`` then ``step()``. On a ``static.Variable``
+        it records the training spec on the loss's program instead (its
+        own program: ``minimize`` may follow the ``program_guard``
+        block), and ``Executor.run`` trains the parameters of
+        ``append_backward`` (those of ``parameter_list`` when given),
+        as the reference's does (``optimizer.py:129-144``)."""
+        from ..static.graph import Variable
+        if isinstance(loss, Variable):
+            from .. import static as st
+            prog = loss.block.program if loss.block is not None \
+                else st.default_main_program()
+            pg = st.append_backward(loss, parameter_list=parameter_list,
+                                    no_grad_set=no_grad_set)
+            prog._train_spec = (self, loss.name, [p.name for p, _ in pg])
+            prog._version += 1
+            return [], pg
         loss.backward()
         self.step()
         return [], []
@@ -358,9 +377,11 @@ class Adam(Optimizer):
             step=self._step_count, decoupled=self._decoupled_wd,
             clip_norm=clip_norm, cache=self._fused_cache)
 
-    def _functional_update(self, keys, grads, params, state, lr, step, wds):
+    def _functional_update(self, keys, grads, params, state, lr, step, wds,
+                           weak_lr=True):
         """Every parameter in one ``multi_tensor_adam`` call, the clip
-        off: on the card one kernel launch."""
+        off: on the card one kernel launch (the rate meets the f32
+        update, so ``weak_lr`` changes nothing)."""
         masters = [state["master"][k] for k in keys] if "master" in state \
             else [None] * len(keys)
         multi_tensor_adam(

@@ -1,56 +1,33 @@
-"""paddle.static's ``InputSpec``: the shape, dtype and name of an
-exported program's feed.
+"""``paddle.static``: the define-and-run API over the port.
 
-Port of ``InputSpec`` from ``paddle_tpu/static/program.py:17-36``. A
-``-1`` or ``None`` dim is dynamic: ``inference.export_layer`` exports it
-as a ``torch.export.Dim``. The rest of ``static`` (``Program``,
-``Executor``, ``data``, the static ``nn``) is ROADMAP Queue 1 item 15.
+Port of ``paddle_tpu/static`` (item 15.5). A ``Program`` records the
+ops that touch symbolic ``Variable``s (``graph.py``); ``Executor``
+replays it eagerly on the card, its gradients by torch autograd and its
+training by the optimizer's functional update (``executor.py``); the
+passes shrink it (``passes.py``); ``save_inference_model`` exports it
+as a ``torch.export`` archive (``io.py``, ``inference.export``). The
+layout mirrors the reference: ``program.py`` (the builders), ``io.py``,
+``device.py``, ``metrics.py``, ``nn``, ``passes``. ``collective`` is not
+ported (ROADMAP, Queue 1 item 13).
 """
-import torch
+from . import collective  # noqa: F401
+from . import nn  # noqa: F401
+from . import passes  # noqa: F401
+from .device import *  # noqa: F401,F403
+from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
+from .graph import (Program, Variable, VarRef, default_main_program,  # noqa: F401
+                    default_startup_program, in_static_build, program_guard)
+from .io import *  # noqa: F401,F403
+from .metrics import *  # noqa: F401,F403
+from .passes import apply_build_strategy, apply_pass  # noqa: F401
+from .program import *  # noqa: F401,F403
+from .program import _dtype, _program_infer_fn, _prune_ops  # noqa: F401
 
-__all__ = ["InputSpec"]
-
-# an example size for a dynamic dim: torch.export specialises a dim whose
-# example size is 0 or 1 (the reference's placeholder size is 1)
-DYNAMIC_EXAMPLE_SIZE = 2
-
-
-def _dtype(dtype):
-    """A dtype name (``"float32"``, ``"bfloat16"``, ``"int64"``, ...) or a
-    ``torch.dtype`` as a ``torch.dtype``."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    name = str(dtype).replace("torch.", "")
-    dt = getattr(torch, name, None)
-    if not isinstance(dt, torch.dtype):
-        raise ValueError(f"unknown dtype {dtype!r}")
-    return dt
-
-
-class InputSpec:
-    """Shape/dtype/name spec (python/paddle/static/input.py InputSpec)."""
-
-    def __init__(self, shape, dtype="float32", name=None):
-        self.shape = list(shape)
-        self.dtype = dtype
-        self.name = name
-
-    @classmethod
-    def from_tensor(cls, tensor, name=None):
-        return cls(list(tensor.shape),
-                   str(tensor.dtype).replace("torch.", ""), name)
-
-    def dynamic_dims(self):
-        """Indices of the dims that are ``-1`` or ``None``."""
-        return [i for i, d in enumerate(self.shape) if d is None or d == -1]
-
-    def example(self, device=None):
-        """A zero tensor of this spec on ``device``, each dynamic dim at
-        ``DYNAMIC_EXAMPLE_SIZE``: what ``export_layer`` traces with."""
-        shape = [DYNAMIC_EXAMPLE_SIZE if (d is None or d == -1) else int(d)
-                 for d in self.shape]
-        return torch.zeros(shape, dtype=_dtype(self.dtype), device=device)
-
-    def __repr__(self):
-        return (f"InputSpec(shape={self.shape}, dtype={self.dtype}, "
-                f"name={self.name})")
+__all__ = [
+    "Program", "Variable", "Executor", "Scope", "global_scope",
+    "scope_guard", "program_guard", "default_main_program",
+    "default_startup_program", "data", "InputSpec", "create_parameter",
+    "create_global_var", "append_backward", "gradients",
+    "save_inference_model", "load_inference_model", "save", "load",
+    "CompiledProgram", "cpu_places", "device_guard", "name_scope", "nn",
+]

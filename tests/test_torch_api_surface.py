@@ -1,12 +1,16 @@
 """The port's paddle API surface against the JAX package's.
 
-- The top level, ``Tensor``'s methods and ``nn`` are the reference's
-  (``dir(paddle_tpu)``, ``dir(paddle_tpu.Tensor)``, ``dir(paddle_tpu.nn)``)
-  less ``NOT_YET`` (``NOT_YET_METHODS``, ``NN_NOT_YET``), a
-  set in which every name says the ROADMAP Queue 1 item that brings it;
-  the set only shrinks (a name ported in a later slice leaves it, and
-  the test fails while it is still listed). ``PORT_ONLY`` lists the
-  port's own additions.
+- The top level, ``Tensor``'s methods, ``nn``, ``static`` and ``jit``
+  are the reference's (``dir(paddle_tpu)``, ``dir(paddle_tpu.Tensor)``,
+  ``dir(paddle_tpu.nn)``, ...: the names that are not modules) less
+  ``NOT_YET`` (``NOT_YET_METHODS``, ``NN_NOT_YET``), a set in which every
+  name says the ROADMAP Queue 1 item that brings it; the set only
+  shrinks (a name ported in a later slice leaves it, and the test fails
+  while it is still listed). ``PORT_ONLY`` lists the port's own
+  additions, ``REF_IMPORT_LEAKS`` names the reference has by an import.
+  Each package's own submodules, every one imported first, are the
+  reference's up to two named lists; so neither comparison depends on
+  which modules other tests imported in the same process.
 - The default place is the card: ``to_tensor`` without a card and
   without ``set_device("cpu")`` raises; it never falls back.
 - A ``Tensor`` passed to ``nn.functional`` and to the port's
@@ -19,6 +23,8 @@
   ``chip_smoke.direct_block`` (the same block in torch over the kernel
   wrappers).
 """
+import importlib
+import pkgutil
 import types
 
 import numpy as np
@@ -32,8 +38,6 @@ from paddle_tpu_torch import device as tdevice
 
 NOT_YET = {
     "DataParallel": "item 13 (multi-card training)",
-    "disable_static": "item 15.5 (static and jit)",
-    "enable_static": "item 15.5 (static and jit)",
     "get_flags": "item 15.6 (runtime)", "set_flags": "item 15.6 (runtime)",
 }
 # nn's names not ported yet (none: layers_tail came with item 15.3)
@@ -41,8 +45,8 @@ NN_NOT_YET = {}
 # names the port's nn adds: its Layer's hook handle, ParamAttr (the
 # reference has it at the top level only), set_state_dict for any torch
 # module, and the clip's tree form
-NN_PORT_ONLY = {"HookRemoveHelper", "ParamAttr", "param_attr",
-                "set_state_dict", "clip_by_global_norm_tree"}
+NN_PORT_ONLY = {"HookRemoveHelper", "ParamAttr", "set_state_dict",
+                "clip_by_global_norm_tree"}
 # the reference adds these methods when paddle_tpu.sparse is imported (by
 # another test in the same process)
 NOT_YET_METHODS = {"to_sparse_coo": "item 15.7 (sparse)",
@@ -50,6 +54,20 @@ NOT_YET_METHODS = {"to_sparse_coo": "item 15.7 (sparse)",
 # names the port adds: its device resolution and the NaN/Inf switch at the
 # top level (the reference reaches it through runtime.set_flags)
 PORT_ONLY = {"resolve_device", "set_nan_inf_check"}
+# static's and jit's names the reference has only by an import of its own
+# modules' (neither is API): the ``from __future__ import annotations``
+# feature object and static's JAX dtype converter
+REF_IMPORT_LEAKS = {
+    "static": {"annotations", "to_jax_dtype"},
+    "jit": {"annotations", "Tensor", "param_substitution"},
+}
+# each package's own submodules (every one imported first) that the other
+# lacks: the reference's nn.quant (item 15.6), the port's copy of the
+# reference's utils.unique_name, which static imports
+SUBMODULES_NOT_YET = {"nn": {"quant": "item 15.6 (quantization)"},
+                      "static": {}, "jit": {}}
+SUBMODULES_PORT_ONLY = {"nn": set(), "static": {"unique_name"},
+                        "jit": set()}
 # the port's subpackages among the reference's top-level modules
 SUBPACKAGES = ("amp", "autograd", "core", "jit", "nn", "ops", "optimizer",
                "hapi", "io", "metric", "reliability", "parallel", "models",
@@ -78,8 +96,24 @@ def on_cpu():
     tdevice._default[0] = place
 
 
+def _own_submodules(pkg):
+    """The names of ``pkg``'s own submodules, every one imported first
+    (so the set does not depend on what other tests imported)."""
+    for info in pkgutil.iter_modules(pkg.__path__):
+        importlib.import_module(f"{pkg.__name__}.{info.name}")
+    return {n for n in dir(pkg) if not n.startswith("_")
+            and isinstance(getattr(pkg, n), types.ModuleType)
+            and getattr(pkg, n).__name__.startswith(pkg.__name__ + ".")}
+
+
+def _pair(sub):
+    return (importlib.import_module(f"paddle_tpu.{sub}"),
+            importlib.import_module(f"paddle_tpu_torch.{sub}"))
+
+
 def test_every_not_yet_name_names_its_item():
-    for table in (NOT_YET, NOT_YET_METHODS, NN_NOT_YET):
+    for table in (NOT_YET, NOT_YET_METHODS, NN_NOT_YET,
+                  *SUBMODULES_NOT_YET.values()):
         for name, item in table.items():
             assert item.startswith("item 1"), (name, item)
 
@@ -93,15 +127,46 @@ def test_top_level_is_the_references_less_the_named_set():
 
 
 def test_nn_is_the_references_less_the_named_set():
-    """``dir(paddle_tpu.nn)`` less ``NN_NOT_YET`` is the port's ``nn``
-    less its own additions."""
-    import paddle_tpu.nn as jnn
-    from paddle_tpu_torch import nn as tnn
-    ref = {n for n in dir(jnn) if not n.startswith("_")}
-    port = {n for n in dir(tnn) if not n.startswith("_")}
+    """``dir(paddle_tpu.nn)``'s names that are not modules, less
+    ``NN_NOT_YET``, are the port's ``nn``'s less its own additions (the
+    submodules: ``test_own_submodules_are_the_named_lists``)."""
+    jnn, tnn = _pair("nn")
+    ref = _public(jnn, set())
+    port = _public(tnn, set())
     assert ref - port == set(NN_NOT_YET), sorted((ref - port)
                                                  ^ set(NN_NOT_YET))
     assert port - ref == NN_PORT_ONLY, sorted(port - ref)
+
+
+@pytest.mark.parametrize("sub", ["static", "jit"])
+def test_static_and_jit_are_the_references(sub):
+    """``dir(paddle_tpu.static)`` and ``dir(paddle_tpu.jit)``'s names that
+    are not modules are the port's, but the reference's import leaks."""
+    ref_mod, port_mod = _pair(sub)
+    ref = _public(ref_mod, set())
+    port = _public(port_mod, set())
+    assert ref - port == REF_IMPORT_LEAKS[sub], sorted(ref - port)
+    assert port <= ref, sorted(port - ref)
+
+
+@pytest.mark.parametrize("sub", ["nn", "static", "jit"])
+def test_own_submodules_are_the_named_lists(sub):
+    ref_mod, port_mod = _pair(sub)
+    ref, port = _own_submodules(ref_mod), _own_submodules(port_mod)
+    assert ref - port == set(SUBMODULES_NOT_YET[sub]), sorted(ref - port)
+    assert port - ref == SUBMODULES_PORT_ONLY[sub], sorted(port - ref)
+
+
+def test_enable_static_switches_in_dynamic_mode():
+    assert pt.in_dynamic_mode()
+    pt.enable_static()
+    try:
+        assert not pt.in_dynamic_mode()
+    finally:
+        pt.disable_static()
+    assert pt.in_dynamic_mode()
+    pt.disable_static()             # off already: nothing happens
+    assert pt.in_dynamic_mode()
 
 
 def test_tensor_methods_are_the_references_less_the_named_set():

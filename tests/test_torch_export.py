@@ -2,9 +2,10 @@
 
 Counterparts of ``tests/test_deploy_decode.py`` and of the ``Predictor``
 and export tests of ``tests/test_static_inference.py`` that need no
-``static.Program`` (``jit.save`` stays ROADMAP item 15, so the port's
-side calls ``export_layer``). Weights are made on the JAX side and
-copied into the port.
+``static.Program`` (those that do are in ``test_torch_static.py``, and
+``jit.save`` in ``test_torch_jit.py``; here the port's side calls
+``export_layer``). Weights are made on the JAX side and copied into the
+port.
 
 - ``export_layer``, fixed and dynamic batch (traced at 2, run at 1, 3
   and 5): the archive's output EQUALS the eager port's and is within
@@ -24,8 +25,8 @@ copied into the port.
 - ``export_decode`` / ``load_decode``: tokens EQUAL to the port's and the
   JAX package's ``generate()`` and to the JAX archive's, with and without
   eos, on Llama and GPT; the shape contract (``archive serves shape``);
-- neither package loads the other's archive (ROADMAP Queue 3), and
-  ``export_program`` raises naming item 15.
+- neither package loads the other's archive (ROADMAP Queue 3), a static
+  program's (``export_program``) included.
 """
 import functools
 from concurrent.futures import ThreadPoolExecutor
@@ -443,8 +444,21 @@ def test_neither_package_loads_the_others_archive(tmp_path):
         inference.load_exported(str(tmp_path / "j"), device="cpu")
     with pytest.raises(Exception):
         jinf.load_exported(str(tmp_path / "t"))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        inference.export_program(str(tmp_path / "p"), None, [], [], None)
+    # a static program's archive (export_program) is the port's format too
+    import paddle_tpu_torch.static as tst
+    main = tst.Program()
+    with tst.program_guard(main):
+        x = tst.data("x", [2, 8], "float32")
+        y = x * 2.0
+    from paddle_tpu_torch.device import default_place
+    with default_place("cpu"):      # a program without weights: traced there
+        inference.export_program(str(tmp_path / "p"), main, ["x"],
+                                 [y.name], tst.global_scope())
+    prog, _, _ = inference.load_exported(str(tmp_path / "p"), device="cpu")
+    from paddle_tpu_torch.inference.export import FORMAT
+    assert prog.meta["format"] == FORMAT
+    with pytest.raises(Exception):
+        jinf.load_exported(str(tmp_path / "p"))
     spec = InputSpec.from_tensor(torch.zeros(3, 4, dtype=torch.bfloat16),
                                  name="h")
     assert (spec.shape, spec.dtype, spec.name) == ([3, 4], "bfloat16", "h")

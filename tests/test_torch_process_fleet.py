@@ -7,7 +7,11 @@ and the crash is ``SIGKILL`` — no atexit, no drain, no goodbye frame.
   storm: the supervisor reads the dead wire, the evacuated queue
   replays on the sibling process, requests caught mid-decode flush
   their streamed partials, the survivor leaks no page, and the
-  failed-over request's journey is one flow across pids. The greedy
+  failed-over request's journey is one flow across pids. The storm is
+  armed before the wave's submits, as the reference's is; the wave goes
+  out from a thread each and the fleet is watched for a backlog while it
+  lands, since a submit whose frame the storm drops waits out
+  ``call_timeout_s``, by when the stub replicas have drained. The greedy
   drill is held to ``stub_tokens``' closed form (the JAX package's
   drill is flaky and is not re-run here); the sampled one, to a port
   oracle server on the same resolved seeds, is marked ``slow`` as in the
@@ -25,6 +29,7 @@ import os
 import signal
 import socket
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -138,27 +143,33 @@ def test_sigkill_drill_under_net_storm(procs, tmp_path, do_sample):
         K, budget = 8, 20
         prompts = [np.asarray([5, 3, i + 1], np.int32) for i in range(K)]
         fi.arm()
+        # a thread a submit, and the fleet watched while the wave lands: a
+        # submit whose frame the storm drops waits out call_timeout_s, so
+        # waiting for the last submit before looking let each replica
+        # drain its backlog first
         deadline = time.monotonic() + 60
-        rids = [submit_retrying(p, budget, deadline) for p in prompts]
+        with ThreadPoolExecutor(max_workers=K) as pool:
+            futs = [pool.submit(submit_retrying, p, budget, deadline)
+                    for p in prompts]
+            victim = None
+            while victim is None:
+                for idx, rep in enumerate(reps):
+                    queued, decoding = rep._mirror_counts()
+                    if queued >= 1 and decoding >= 1:
+                        victim = idx
+                        break
+                if victim is None:
+                    assert time.monotonic() < deadline, \
+                        "fleet never reached mid-decode with a backlog"
+                    time.sleep(0.005)
+            with router._lock:
+                victim_rids = {rid for rid, rt in router._routes.items()
+                               if rt.idx == victim}
+            os.kill(procs[victim].pid, signal.SIGKILL)
+            procs[victim].join(10)
+        rids = [f.result() for f in futs]
         with router._lock:
             seeds = {rid: router._routes[rid].item.seed for rid in rids}
-        deadline = time.monotonic() + 60
-        victim = None
-        while victim is None:
-            for idx, rep in enumerate(reps):
-                queued, decoding = rep._mirror_counts()
-                if queued >= 1 and decoding >= 1:
-                    victim = idx
-                    break
-            if victim is None:
-                assert time.monotonic() < deadline, \
-                    "fleet never reached mid-decode with a backlog"
-                time.sleep(0.005)
-        with router._lock:
-            victim_rids = {rid for rid, rt in router._routes.items()
-                           if rt.idx == victim}
-        os.kill(procs[victim].pid, signal.SIGKILL)
-        procs[victim].join(10)
         deadline = time.monotonic() + 60
         while router.stats["evacuations"] < 1 \
                 or router.stats["requeued"] < 1:
