@@ -25,6 +25,7 @@
     python3 chip_smoke.py --only build,nn_layers
     python3 chip_smoke.py --only build,zoo_parity,zoo
     python3 chip_smoke.py --only build,tensor_api,static_jit
+    python3 chip_smoke.py --only build,quant_parity,quant
 
 Phases, in order; any failure exits non-zero:
 
@@ -275,8 +276,9 @@ Phases, in order; any failure exits non-zero:
 20. preempt: optimistic admission on the serve phase's Llama-2-7B in
    bf16 (full width and depth): 8 slots x 2048 tokens, 16-token pages,
    512 prompt tokens a tick, ``headroom_pages=1``; 12 requests (seeded
-   prompts of 128-512 tokens, 96 new tokens each (cut from 128 to keep
-   the whole script within its time), each streaming
+   prompts of 128-512 tokens, 64 new tokens each (cut from 128, then 96,
+   to keep the whole script within its time; 2 preemptions a wave remain),
+   each streaming
    through ``on_token``) over a pool sized so that reserve admission
    holds at most 4 requests at once (the 5 smallest full extents do not
    fit together; the size is printed). Four waves, each through the
@@ -459,9 +461,10 @@ Phases, in order; any failure exits non-zero:
    output equal to the eager card output and a run's launches those of
    the custom ops (K4a, K5a, K6 q + k; K8; K7); ``export_decode`` of
    llama_tiny equal to the card's ``generate()``; GPT-2 345M in bf16
-   (full width and depth, seed 0): ``export_decode`` at 4 x 256 prompt
-   tokens, 32 new (the near-tie rule against ``generate()``),
-   ``export_layer`` of its forward at a dynamic batch through
+   (full width, seed 0): ``export_decode`` of its first ``DECODE_LAYERS``
+   (8) layers at 4 x 256 prompt tokens, 32 new (the near-tie rule against
+   ``generate()``), at full depth ``export_layer`` of its forward at a
+   dynamic batch through
    ``create_predictor`` (K4a 24 times a run, logits within TOL of the
    eager forward's) and a ``BatchScheduler`` over that predictor (16
    one-row requests from 4 threads, batches of at most 8 rows, each
@@ -642,7 +645,43 @@ Phases, in order; any failure exits non-zero:
    tensor-dependent ``if`` and a converted ``for`` loop (run and
    exported, ``while_loop``) on card tensors equal to the CPU; a layer
    calling the ``to_static`` function saved by ``jit.save`` holds a
-   ``torch.cond`` and takes both branches as the eager layer does.
+   ``torch.cond`` and takes both branches as the eager layer does;
+41. quant_parity: the quant phase's paths at llama_tiny / tiny widths in
+   f32, on the card and on the CPU from the same weights and batches:
+   ``QAT(QuantConfig(FakeQuanterWithAbsMaxObserver(0.9),
+   FakeQuanterChannelWiseAbsMax()))`` and 3 ``train_step_fn`` + AdamW
+   steps (losses and the 15 moving scales within ``QUANT_PARITY_TOL``,
+   launches = 3 train steps'), ``convert`` and ``to_int8_inference`` of the
+   CPU-trained weights on both (int8 codes and scales equal, K8 15 a
+   forward, logits within 1e-3 of the largest); ``fused_multi_transformer``
+   (2 layers, d 64) without a cache (K4a 2), with a static and a growing
+   cache; ``fused_linear_cross_entropy`` of the hidden states;
+42. quant: llama_350m in bf16 from seed 0 at the train phase's 8 x 1024.
+   (b) ``model.loss`` against ``fused_linear_cross_entropy(model(ids,
+   return_hidden=True)[:, :-1], lm_head.weight, ids[:, 1:],
+   chunk_size=1024)``, forward and backward: the loss and ``lm_head``'s
+   gradient within ``FUSED_CE_TOL``, the fused step's peak memory below
+   the plain one's, ms of each. PTQ with ``AbsmaxObserver`` on the
+   activations: 4 calibration batches of 2 x 512 timed, all 169 observers
+   calibrated and frozen by ``convert``. (a) ``QAT`` of the same config
+   swaps 169 Linears (24 x 7 and ``lm_head``); the logits are f32 (the
+   reference's promotion); 2 warm-up and 10 timed AdamW(1e-4) steps, the
+   counters zeroed just before and read just after: the train step's
+   launches x 10, losses finite and falling; ms a step beside the train
+   phase's, tokens/s, peak memory, a profile of one step. ``convert``,
+   then ``to_int8_inference`` in place and a forward at 8 x 512: K8 169,
+   logits within 5% of the largest of the converted QAT model's eval
+   logits (the rule of tests/test_generation.py), ms a forward and a
+   profile. (c) ``fused_multi_transformer`` at GPT-2 345M's widths (24
+   layers, d 1024, 16 heads, FFN 4096, gelu, pre-LN), bf16 weights from a
+   seed, 8 x 512: without a cache (K4a 24); a static-cache (``time_step``)
+   prefill into ``[2, 8, 16, 544, 64]`` caches and 32 decode steps, and
+   the growing cache's: static = growing within ``STATIC_CACHE_RTOL`` in
+   f32 and in bf16 (each bf16 path also against the f32 run); ms a
+   prefill and a decode step. (d) ``FusedTransformerEncoderLayer`` at the
+   same widths, dropout 0.1, one bf16 training step: R2's dropout 8 times
+   (4 forwards, 4 backwards), no K4 (attention dropout takes the
+   composition).
 
 Each phase ends with a ``phase <name> <seconds>`` line. The last two
 lines of standard output are the per-kernel JSON record
@@ -652,6 +691,7 @@ prints no result.
 """
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -666,7 +706,8 @@ PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "opt",
           "fleet_parity", "fleet", "wire_parity", "wire", "family_parity",
           "families", "decode_parity", "decoding", "deploy", "tensor_api",
           "nn_layers", "zoo_parity", "zoo", "int8_infer",
-          "train", "train_compose", "train_amp", "fit", "static_jit")
+          "train", "train_compose", "train_amp", "fit", "static_jit",
+          "quant_parity", "quant")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
 # outside the tensor cores, int8 tensor-core operations/s). The SXM part
@@ -4087,7 +4128,7 @@ def phase_preempt(torch, np, card, record, model):
     lens = rng.integers(128, 513, size=12)
     prompts = [rng.integers(0, V, (int(n),)).astype(np.int32) for n in lens]
     warm = rng.integers(0, V, (40,)).astype(np.int32)
-    n_new, pg = 96, 16
+    n_new, pg = 64, 16
     extents = sorted(-(-(int(n) + n_new) // pg) for n in lens)
     # reserve admission holds at most 4 at once: no 5 full extents fit
     num_pages = sum(extents[:5])          # usable = that sum - 1
@@ -6775,6 +6816,12 @@ def archive_io_times():
             mod._save_program, mod._load_program = save, load
 
 
+# the GPT-2 345M layers deploy's export_decode traces (of 24: the
+# export's time follows the depth, and the whole script keeps within its
+# budget; the predictor exports all 24)
+DECODE_LAYERS = 8
+
+
 def phase_deploy(torch, np, card, record):
     """The deployment archives on the card, written under a temporary
     directory the phase removes.
@@ -6787,9 +6834,10 @@ def phase_deploy(torch, np, card, record):
     once a projection and the head, K7 once. ``export_decode`` of
     llama_tiny (2 x 9, 8 new): tokens equal the card's ``generate()``.
 
-    GPT-2 345M (full width and depth, bf16, seed 0): ``export_decode`` at
-    4 x 256 prompt tokens, 32 new (tokens against ``generate()`` under
-    the near-tie rule); ``export_layer`` of the forward at a dynamic batch
+    GPT-2 345M (full width, bf16, seed 0): ``export_decode`` of its first
+    ``DECODE_LAYERS`` layers at 4 x 256 prompt tokens, 32 new (tokens
+    against ``generate()`` under the near-tie rule); at full depth
+    ``export_layer`` of the forward at a dynamic batch
     of 64-token rows, run through ``create_predictor`` (K4a 24 times a
     run, logits within TOL of the eager forward's), and a
     ``BatchScheduler`` over that ``Predictor``: 16 one-row requests from 4
@@ -6871,17 +6919,20 @@ def phase_deploy(torch, np, card, record):
         log(f"deploy llama_tiny export_decode: tokens equal the card's "
             f"generate() {np.array_equal(got, want)}")
         del tiny, fused
-        # --- GPT-2 345M
+        # --- GPT-2 345M: its widths at DECODE_LAYERS layers for
+        # export_decode (the trace's time follows the depth), full depth
+        # for the predictor
         cfg = gpt2_345m()
-        gpt = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
-                             seed=0)
+        dec = GPTForCausalLM(
+            dataclasses.replace(cfg, num_layers=DECODE_LAYERS),
+            device="cuda", dtype=torch.bfloat16, seed=0)
         B, T, new = 4, 256, 32
         prompts = np.random.default_rng(0).integers(
             0, cfg.vocab_size, (B, T)).astype(np.int32)
         prefix = os.path.join(root, "gpt2_gen")
         with archive_io_times() as io_s:
             paths, export_s = timed(lambda: inference.export_decode(
-                prefix, gpt, prompt_len=T, max_new_tokens=new, batch=B))
+                prefix, dec, prompt_len=T, max_new_tokens=new, batch=B))
             gen, load_s = timed(lambda: inference.load_decode(prefix))
         runs = []
         for _ in range(2):
@@ -6889,9 +6940,10 @@ def phase_deploy(torch, np, card, record):
             got, run_s = timed(lambda: gen.generate(prompts))
             runs.append(run_s * 1e3)
         n = {k: v for k, v in read_counts().items() if v}
-        want, gen_s = timed(lambda: gpt.generate(
+        want, gen_s = timed(lambda: dec.generate(
             prompts, max_new_tokens=new).cpu().numpy())
-        log(f"deploy gpt2 export_decode [{card}]: {B} x {T} prompts, {new} "
+        log(f"deploy gpt2 export_decode [{card}]: {DECODE_LAYERS} of "
+            f"{cfg.num_layers} layers, {B} x {T} prompts, {new} "
             f"new: export {export_s:.2f} s ({sum(io_s['save']):.2f} of it "
             f"torch.export.save, {io_s['save']}), archives "
             f"{mb(*paths):.1f} MB (prefill {mb(paths[0]):.1f}, decode "
@@ -6901,11 +6953,13 @@ def phase_deploy(torch, np, card, record):
             f"({runs[1] / new:.2f} ms a token; generate() {gen_s * 1e3:.1f} "
             f"ms); a run's launches {n} (the dense bundle: plain torch)")
         checks["gpt2 export_decode = generate(), near-ties apart"] = \
-            near_ties(torch, np, gpt, "deploy gpt2 export_decode", got,
+            near_ties(torch, np, dec, "deploy gpt2 export_decode", got,
                       want, T)
-        del gen
+        del gen, dec
         for p in paths:
             os.remove(p)
+        gpt = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=0)
         prefix = os.path.join(root, "gpt2_fwd")
         S = 64
         with archive_io_times() as io_s:
@@ -9818,6 +9872,480 @@ def phase_static_jit(torch, np, card, record):
         "grad_and_loss": b["step_counts"]["k6_qk"]}
 
 
+# ------------------------------------------------------ quantization, incubate
+
+# the sizes of the quant phases (a CPU rehearsal shrinks them)
+QUANT = {"B": 8, "S": 1024, "steps": 10, "infer_B": 8, "infer_S": 512,
+         "calib_B": 2, "calib_S": 512, "calib_batches": 4, "chunk": 1024,
+         "mt_layers": 24, "mt_d": 1024, "mt_heads": 16, "mt_ffn": 4096,
+         "mt_B": 8, "mt_S": 512, "mt_T": 544, "mt_decode": 32}
+# the 5% logit rule of tests/test_generation.py: max |int8 - ref| under
+# 5% of max |ref logit|
+INT8_LOGIT_RULE = 0.05
+# card against CPU at llama_tiny widths in f32 (TF32 off): QAT losses and
+# moving scales (a rounding flip of one activation code moves a loss by
+# far less), fused_multi_transformer and fused CE values
+QUANT_PARITY_TOL = {"loss": 1e-4, "scale": 1e-4, "mt": 1e-4, "ce": 1e-5}
+# bf16 at full width: fused CE's loss against model.loss's (the same bf16
+# logits, summed in another order) and lm_head's gradient (chunk partials
+# summed in bf16), relative to the plain step's largest
+FUSED_CE_TOL = {"loss": 1e-4, "grad": 2e-2}
+# the static cache's decode against the growing cache's, relative to the
+# largest |output|: in f32 (TF32 off) the two differ by the masked
+# composition against K4's f32 route, summation order only; in bf16 each
+# of 24 layers rounds q, k, v, P (K4) or p (the composition) and the
+# attention output to 8 bits (2^-8 = 3.9e-3 an op): over about a hundred
+# roundings of random sign that is ~4e-2, so bf16 is held to 5e-2 and to
+# the f32 run's outputs likewise
+STATIC_CACHE_RTOL = {"f32": 1e-4, "bf16": 5e-2}
+
+
+def quant_config(Q):
+    """The issue's QAT config: moving abs-max activations (rate 0.9),
+    channel-wise abs-max weights."""
+    return Q.QuantConfig(
+        activation=Q.FakeQuanterWithAbsMaxObserver(moving_rate=0.9),
+        weight=Q.FakeQuanterChannelWiseAbsMax())
+
+
+def mt_weights(torch, L, d, ffn, dtype, device, seed=0):
+    """``fused_multi_transformer``'s weight lists, pre-LN, from a seeded
+    generator on the CPU (the same values on any device): LN scales
+    1 + N(0, 0.02), biases N(0, 0.02), projections N(0, 0.02); the qkv
+    weight ``[3 d, d]`` (``trans_qkvw=True``)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def mk(*s, one=False):
+        t = torch.randn(*s, generator=g) * 0.02 + (1.0 if one else 0.0)
+        return t.to(device=device, dtype=dtype)
+
+    return dict(
+        ln_scales=[mk(d, one=True) for _ in range(L)],
+        ln_biases=[mk(d) for _ in range(L)],
+        qkv_weights=[mk(3 * d, d) for _ in range(L)],
+        qkv_biases=[mk(3 * d) for _ in range(L)],
+        linear_weights=[mk(d, d) for _ in range(L)],
+        linear_biases=[mk(d) for _ in range(L)],
+        ffn_ln_scales=[mk(d, one=True) for _ in range(L)],
+        ffn_ln_biases=[mk(d) for _ in range(L)],
+        ffn1_weights=[mk(d, ffn) for _ in range(L)],
+        ffn1_biases=[mk(ffn) for _ in range(L)],
+        ffn2_weights=[mk(ffn, d) for _ in range(L)],
+        ffn2_biases=[mk(d) for _ in range(L)])
+
+
+def mt_decode_run(torch, f, w, heads, x, steps, T, static):
+    """A prefill of ``x`` then one decode step per entry of ``steps``,
+    through a static ``[2, B, H, T, hd]`` cache (``time_step``) or a
+    growing one: (prefill output, decode outputs, ms a prefill, ms a
+    decode step)."""
+    B, S, d = x.shape
+    shape = (2, B, heads, T if static else 0, d // heads)
+    caches = [torch.zeros(shape, dtype=x.dtype, device=x.device)
+              for _ in w["qkv_weights"]]
+    kw = {"time_step": 0} if static else {}
+    sync = torch.cuda.synchronize if x.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out, caches = f(x, cache_kvs=caches, num_heads=heads, **kw, **w)
+    sync()
+    t1 = time.perf_counter()
+    outs = []
+    for i, s in enumerate(steps):
+        kw = {"time_step": S + i} if static else {}
+        o, caches = f(s, cache_kvs=caches, num_heads=heads, **kw, **w)
+        outs.append(o)
+    sync()
+    t2 = time.perf_counter()
+    if static:
+        assert all(c.shape[3] == T for c in caches)
+    return out, outs, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / max(len(steps), 1)
+
+
+def rel_err(torch, got, want):
+    """max |got - want| over max |want|, in f32."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def phase_quant_parity(torch, np):
+    """The quant phase's three paths at llama_tiny / tiny widths in f32,
+    on the card and on the CPU from the same weights and batches."""
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.incubate.nn.functional import \
+        fused_multi_transformer
+    from paddle_tpu_torch.jit import train_step_fn
+    from paddle_tpu_torch.models import (LlamaForCausalLM, export_params,
+                                         llama_tiny, load_jax_params)
+    from paddle_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = llama_tiny()
+    L = cfg.num_layers
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=9)
+    gpu = LlamaForCausalLM(cfg, device="cuda")
+    load_jax_params(gpu, export_params(cpu))
+    ids = np.random.default_rng(9).integers(0, cfg.vocab_size, (4, 64))
+    tol = QUANT_PARITY_TOL
+    res = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        t = torch.as_tensor(ids, device=model.device)
+        qat = Q.QAT(quant_config(Q))
+        qm = qat.quantize(model)
+        opt = AdamW(learning_rate=1e-3, parameters=qm.named_parameters())
+        step = train_step_fn(qm, qm.loss, opt)
+        zero_counts()
+        losses = [step({"inputs": (t,), "labels": (t,)}).item()
+                  for _ in range(3)]
+        counts = read_counts()
+        scales = {n: m._scale.item() for n, m in qm.named_modules()
+                  if isinstance(m, Q.FakeQuanterWithAbsMaxObserverLayer)}
+        res[name] = (losses, scales, qat.convert(qm), counts, t)
+    (l_c, s_c, conv_c, _, t_c), (l_g, s_g, conv_g, c_g, t_g) = \
+        res["cpu"], res["cuda"]
+    loss_err = max(abs(a - b) for a, b in zip(l_c, l_g))
+    scale_err = max(abs(s_g[n] - s_c[n]) / max(abs(s_c[n]), 1.0)
+                    for n in s_c)
+    want = per_step_counts(L, 3)
+    # the int8 codes of the same weights: the CPU's trained ones in both
+    load_jax_params(conv_g, export_params(conv_c))
+    i8c = Q.to_int8_inference(conv_c, inplace=True)
+    i8g = Q.to_int8_inference(conv_g, inplace=True)
+    cb = dict(i8c.named_buffers())
+    held = {n: b for n, b in i8g.named_buffers()
+            if n.endswith(("qweight_t", "w_scale"))}
+    codes = len(held) == 2 * (7 * L + 1) and all(
+        torch.equal(b.cpu(), cb[n]) for n, b in held.items())
+    zero_counts()
+    with torch.no_grad():
+        lg = i8g(t_g)
+        k8 = read_counts()["k8"]
+        lc = i8c(t_c)
+    i8_err = (lg.cpu() - lc).abs().max().item()
+    i8_scale = lc.abs().max().item()
+    # fused_multi_transformer: prefill without a cache, then static and
+    # growing caches, card against CPU
+    heads, d = 4, 64
+    w_c = mt_weights(torch, 2, d, 4 * d, torch.float32, "cpu", seed=3)
+    w_g = {k: [a.cuda() for a in v] for k, v in w_c.items()}
+    gx = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 16, d, generator=gx)
+    steps = [torch.randn(2, 1, d, generator=gx) for _ in range(4)]
+    zero_counts()
+    p_g = fused_multi_transformer(x.cuda(), num_heads=heads, **w_g)
+    torch.cuda.synchronize()
+    k4_prefill = read_counts()["k4_fwd"]
+    p_c = fused_multi_transformer(x, num_heads=heads, **w_c)
+    mt_err = (p_g.cpu() - p_c).abs().max().item()
+    for static in (True, False):
+        og, dg, _, _ = mt_decode_run(torch, fused_multi_transformer, w_g,
+                                     heads, x.cuda(),
+                                     [s.cuda() for s in steps], 24, static)
+        oc, dc, _, _ = mt_decode_run(torch, fused_multi_transformer, w_c,
+                                     heads, x, steps, 24, static)
+        mt_err = max([mt_err, (og.cpu() - oc).abs().max().item()]
+                     + [(a.cpu() - b).abs().max().item()
+                        for a, b in zip(dg, dc)])
+    # fused CE on the tiny model's hidden states
+    ce = []
+    for model, t in ((cpu, t_c), (gpu, t_g)):
+        with torch.no_grad():
+            h = model(t, return_hidden=True)
+        ce.append(fused_linear_cross_entropy(
+            h[:, :-1], model.lm_head.weight, t[:, 1:], chunk_size=100).item())
+    ce_err = abs(ce[0] - ce[1])
+    log(f"quant_parity llama_tiny f32: QAT losses cpu "
+        f"{[round(x, 6) for x in l_c]} card {[round(x, 6) for x in l_g]} "
+        f"(max diff {loss_err:.2e}, tol {tol['loss']}), {len(s_c)} moving "
+        f"scales max rel diff {scale_err:.2e} (tol {tol['scale']}); launches "
+        f"over 3 QAT steps {c_g}; int8 codes and scales of the CPU-trained "
+        f"weights equal card/CPU {codes}, K8 {k8} a forward, logits max diff "
+        f"{i8_err:.3e} (tol 1e-3 of max |logit| {i8_scale:.3e}); "
+        f"fused_multi_transformer (2 layers, d 64, 4 heads) prefill, static "
+        f"and growing caches max diff {mt_err:.2e} (tol {tol['mt']}), K4a "
+        f"{k4_prefill} a prefill; fused CE {ce[1]:.6f} card, {ce[0]:.6f} "
+        f"CPU (tol {tol['ce']})")
+    checks = {
+        "QAT losses card = CPU": loss_err <= tol["loss"],
+        "QAT losses fall": l_g[-1] < l_g[0],
+        "moving scales card = CPU": scale_err <= tol["scale"]
+        and s_c.keys() == s_g.keys() and len(s_c) == 7 * L + 1,
+        "QAT launches == 3 train steps":
+            {k: c_g[k] for k in want} == want,
+        "int8 codes and scales equal": codes,
+        "K8 7 x layers + 1": k8 == 7 * L + 1,
+        "int8 logits card = CPU": i8_err <= 1e-3 * i8_scale,
+        "fused_multi_transformer card = CPU": mt_err <= tol["mt"],
+        "K4a once a layer without a cache": k4_prefill == 2,
+        "fused CE card = CPU": ce_err <= tol["ce"]}
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"quant_parity: check failed: {name}")
+
+
+def qat_steps(torch, np, model, ids, n):
+    """QAT of ``model`` in place with the issue's config, then 2 warm-up
+    steps and ``n`` timed ``train_step_fn`` + ``AdamW(1e-4)`` steps on
+    ``ids``, the counters zeroed just before the timed steps and read
+    just after."""
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.jit import train_step_fn
+    from paddle_tpu_torch.optimizer import AdamW
+    qat = Q.QAT(quant_config(Q))
+    qm = qat.quantize(model, inplace=True)
+    swapped = sum(isinstance(m, Q.QuantedLinear) for m in qm.modules())
+    opt = AdamW(learning_rate=1e-4, parameters=qm.named_parameters())
+    step = train_step_fn(qm, qm.loss, opt)
+    batch = {"inputs": (ids,), "labels": (ids,)}
+    losses = [step(batch) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        losses.append(step(batch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"qat": qat, "model": qm, "swapped": swapped, "step": step,
+            "losses": [x.item() for x in losses], "counts": read_counts(),
+            "step_ms": wall / n * 1e3,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "logits_dtype": qm(ids[:1, :8]).dtype}
+
+
+def fused_ce_check(torch, np, model, ids, chunk):
+    """``model.loss`` against ``fused_linear_cross_entropy`` of the
+    hidden states and ``lm_head.weight``, forward and backward from zero
+    gradients, each step's peak memory and ms."""
+    from paddle_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
+
+    def plain():
+        return model.loss(model(ids), ids)
+
+    def fused():
+        h = model(ids, return_hidden=True)
+        return fused_linear_cross_entropy(h[:, :-1], model.lm_head.weight,
+                                          ids[:, 1:], chunk_size=chunk)
+
+    out = {}
+    for name, fn in (("plain", plain), ("fused", fused), ("plain", plain),
+                     ("fused", fused)):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = fn()
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out[name] = (loss.item(), model.lm_head.weight.grad.clone(),
+                     torch.cuda.max_memory_allocated() / 2 ** 30, ms)
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def phase_quant(torch, np, card, record, train):
+    """llama_350m in bf16 from seed 0: fused CE against the plain loss
+    step, PTQ calibration, QAT steps, convert and the int8 deployment;
+    then ``fused_multi_transformer`` at GPT-2 345M's widths, and the
+    fused encoder layer's dropouts."""
+    import gc
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+    from paddle_tpu_torch.incubate.nn.functional import \
+        fused_multi_transformer
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_350m
+    gc.collect()
+    torch.cuda.empty_cache()
+    q = QUANT
+    cfg = llama_350m()
+    L = cfg.num_layers
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             seed=0)
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (q["B"], q["S"])),
+                          device="cuda")
+    # (b) fused CE against the plain loss step
+    ce = fused_ce_check(torch, np, model, ids, q["chunk"])
+    (lp, gp, peak_p, ms_p), (lf, gf, peak_f, ms_f) = ce["plain"], ce["fused"]
+    loss_rel = abs(lf - lp) / abs(lp)
+    grad_rel = rel_err(torch, gf, gp)
+    log(f"quant fused CE [{card}]: llama_350m bf16 {q['B']} x {q['S']}, "
+        f"chunk {q['chunk']}: loss fused {lf:.6f} plain {lp:.6f} (rel diff "
+        f"{loss_rel:.2e}, tol {FUSED_CE_TOL['loss']}), lm_head gradient max "
+        f"diff {grad_rel:.2e} of its largest (tol {FUSED_CE_TOL['grad']}); "
+        f"peak memory fused {peak_f:.2f} GiB, plain {peak_p:.2f} GiB; a "
+        f"forward + backward fused {ms_f:.1f} ms, plain {ms_p:.1f} ms")
+    # PTQ calibration with AbsmaxObserver on the activations
+    ptq = Q.PTQ(Q.QuantConfig(activation=Q.AbsmaxObserver()))
+    pm = ptq.quantize(model)
+    calib = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                         (q["calib_B"], q["calib_S"])),
+                            device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(q["calib_batches"]):
+            pm(calib)
+    calib_s = time.perf_counter() - t0
+    observers = [m for m in ptq.convert(pm, inplace=True).modules()
+                 if isinstance(m, Q.AbsmaxObserverLayer)]
+    calibrated = len(observers) == 7 * L + 1 and all(
+        m._frozen and m._max > 0 for m in observers)
+    log(f"quant PTQ [{card}]: {len(observers)} AbsmaxObservers, "
+        f"{q['calib_batches']} batches of {q['calib_B']} x {q['calib_S']} in "
+        f"{calib_s:.2f} s (one host read an observer a batch), scales "
+        f"{min(m._max for m in observers):.3f}.."
+        f"{max(m._max for m in observers):.3f}")
+    del pm, observers
+    # (a) QAT steps, then convert and the int8 deployment
+    r = qat_steps(torch, np, model, ids, q["steps"])
+    losses, counts = r["losses"], r["counts"]
+    want = per_step_counts(L, q["steps"])
+    train_ms = train["step_ms"] if train else None
+    log(f"quant QAT losses: {[round(x, 4) for x in losses]}")
+    log(f"quant QAT [{card}]: {r['swapped']} QuantedLinear, logits "
+        f"{str(r['logits_dtype']).replace('torch.', '')}; "
+        f"{r['step_ms']:.1f} ms per step (the train phase's bf16 step "
+        f"{'%.1f ms' % train_ms if train_ms else 'not run'}), "
+        f"{q['B'] * q['S'] / r['step_ms'] * 1e3:.0f} tokens/s, peak memory "
+        f"{r['peak_gb']:.2f} GiB; launches over {q['steps']} steps {counts}")
+    qm, qat, swapped = r["model"], r["qat"], r["swapped"]
+    logits_f32 = r["logits_dtype"] == torch.float32
+    profile_once(torch, lambda: r["step"]({"inputs": (ids,),
+                                           "labels": (ids,)}),
+                 card, "qat_step")
+    conv = qat.convert(qm)
+    del r, qm, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    infer = ids[:q["infer_B"], :q["infer_S"]].contiguous()
+    with torch.no_grad():
+        ref = conv(infer)
+        i8 = Q.to_int8_inference(conv, inplace=True)
+        i8(infer)                                   # warm
+        zero_counts()
+        out = i8(infer)
+        torch.cuda.synchronize()
+        c_i8 = read_counts()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            i8(infer)
+        torch.cuda.synchronize()
+        ms_i8 = (time.perf_counter() - t0) / 3 * 1e3
+        profile_once(torch, lambda: i8(infer), card, "qat_int8_infer",
+                     "forward")
+    i8_rel = rel_err(torch, out, ref)
+    log(f"quant int8 [{card}]: to_int8_inference of the converted QAT model, "
+        f"{q['infer_B']} x {q['infer_S']}: K8 {c_i8['k8']} a forward, "
+        f"{ms_i8:.1f} ms a forward; logits max |int8 - QAT eval| "
+        f"{i8_rel:.4f} of max |QAT eval logit| (rule {INT8_LOGIT_RULE})")
+    del i8, conv, ref, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) fused_multi_transformer at GPT-2 345M's widths
+    Lm, d, heads = q["mt_layers"], q["mt_d"], q["mt_heads"]
+    w = mt_weights(torch, Lm, d, q["mt_ffn"], torch.bfloat16, "cuda")
+    gx = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(q["mt_B"], q["mt_S"], d, generator=gx, device="cuda",
+                    dtype=torch.bfloat16)
+    steps = [torch.randn(q["mt_B"], 1, d, generator=gx, device="cuda",
+                         dtype=torch.bfloat16)
+             for _ in range(q["mt_decode"])]
+    w32 = {k: [a.float() for a in v] for k, v in w.items()}
+    with torch.no_grad():
+        fused_multi_transformer(x, num_heads=heads, **w)       # warm
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nocache = fused_multi_transformer(x, num_heads=heads, **w)
+        torch.cuda.synchronize()
+        ms_nocache = (time.perf_counter() - t0) * 1e3
+        c_mt = read_counts()
+        runs = {}
+        for static in (True, False, True, False):
+            runs[static] = mt_decode_run(torch, fused_multi_transformer, w,
+                                         heads, x, steps, q["mt_T"], static)
+        runs32 = {static: mt_decode_run(
+            torch, fused_multi_transformer, w32, heads, x.float(),
+            [s.float() for s in steps], q["mt_T"], static)
+            for static in (True, False)}
+    (ps, ds, ms_ps, ms_ds), (pg, dg, ms_pg, ms_dg) = runs[True], runs[False]
+    (ps32, ds32, _, _), (pg32, dg32, _, _) = runs32[True], runs32[False]
+
+    def worst(a, b):
+        return max(rel_err(torch, u, v) for u, v in zip(a, b))
+
+    dec_rel = worst(ds, dg)
+    pre_rel = rel_err(torch, ps, pg)
+    dec32_rel = max(worst(ds32, dg32), rel_err(torch, ps32, pg32))
+    to32 = max(worst(ds, dg32), worst(dg, dg32))
+    finite = all(torch.isfinite(t).all().item()
+                 for t in [nocache, ps, pg] + ds + dg)
+    log(f"quant fused_multi_transformer [{card}]: GPT-2 345M widths "
+        f"({Lm} layers, d {d}, {heads} heads, FFN {q['mt_ffn']}, gelu, "
+        f"pre-LN) bf16, {q['mt_B']} x {q['mt_S']}: without a cache "
+        f"{ms_nocache:.1f} ms, K4a {c_mt['k4_fwd']}; static cache [2, "
+        f"{q['mt_B']}, {heads}, {q['mt_T']}, {d // heads}] prefill "
+        f"{ms_ps:.1f} ms, {ms_ds:.2f} ms a decode step; growing cache "
+        f"prefill {ms_pg:.1f} ms, {ms_dg:.2f} ms a decode step; "
+        f"{q['mt_decode']} decode steps static vs growing max diff "
+        f"{dec_rel:.2e} of the largest |output|, prefill {pre_rel:.2e}, "
+        f"each bf16 path against the f32 growing run {to32:.2e} (tol "
+        f"{STATIC_CACHE_RTOL['bf16']}); in f32 static vs growing "
+        f"{dec32_rel:.2e} (tol {STATIC_CACHE_RTOL['f32']})")
+    # the fused encoder layer's dropouts on R2
+    layer = FusedTransformerEncoderLayer(d, heads, q["mt_ffn"],
+                                         dropout_rate=0.1).to(torch.bfloat16)
+    layer.train()
+    xe = x.detach().clone().requires_grad_()
+    zero_counts()
+    layer(xe).float().square().mean().backward()
+    torch.cuda.synchronize()
+    c_enc = read_counts()
+    log(f"quant FusedTransformerEncoderLayer [{card}]: bf16 {q['mt_B']} x "
+        f"{q['mt_S']}, dropout 0.1, one training forward + backward: R2 "
+        f"dropout {c_enc['r2_dropout']} (4 forwards, 4 backwards), K4 "
+        f"{c_enc['k4_fwd']} (attention dropout takes the composition)")
+    checks = {
+        "fused CE loss": loss_rel <= FUSED_CE_TOL["loss"],
+        "fused CE lm_head gradient": grad_rel <= FUSED_CE_TOL["grad"],
+        "fused CE peak below the plain loss step's": peak_f < peak_p,
+        "PTQ: every observer calibrated and frozen": calibrated,
+        "QAT swaps 7 x layers + 1 Linears": swapped == 7 * L + 1,
+        "QAT logits f32 (the reference's promotion)": logits_f32,
+        "QAT losses finite and falling": all(np.isfinite(losses))
+        and losses[-1] < losses[0],
+        "QAT launches == steps x the train step's kernels":
+            {k: counts[k] for k in want} == want,
+        "int8 forward: K8 7 x layers + 1": c_i8["k8"] == 7 * L + 1,
+        "int8 logits within the 5% rule": i8_rel < INT8_LOGIT_RULE,
+        "fused_multi_transformer: K4a once a layer without a cache":
+            c_mt["k4_fwd"] == Lm,
+        "static cache = growing cache in f32":
+            dec32_rel <= STATIC_CACHE_RTOL["f32"],
+        "static cache = growing cache in bf16, both near f32":
+            max(dec_rel, pre_rel, to32) <= STATIC_CACHE_RTOL["bf16"],
+        "fused_multi_transformer outputs finite": finite,
+        "the encoder layer's dropouts on R2": c_enc["r2_dropout"] == 8}
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"quant: check failed: {name}")
+    record["quant_matmul"]["quant_launches"] = {
+        "qat_int8_forward": c_i8["k8"]}
+    record["flash_attention_fwd"]["quant_launches"] = {
+        "qat_steps": counts["k4_fwd"],
+        "fused_multi_transformer_prefill": c_mt["k4_fwd"]}
+    record["flash_attention_bwd"]["quant_launches"] = {
+        "qat_steps": counts["k4_dq"]}
+    record["rms_norm_fwd"]["quant_launches"] = {"qat_steps": counts["k5_fwd"]}
+    record["rms_norm_bwd"]["quant_launches"] = {"qat_steps": counts["k5_bwd"]}
+    record["rope"]["quant_launches"] = {"qat_steps": counts["k6_qk"]}
+    record["multi_tensor_adam"]["quant_launches"] = {
+        "qat_steps": counts["opt"]}
+    record["threefry_fill"]["quant_launches"] = {
+        "fused_encoder_layer_step": c_enc["r2_dropout"]}
+
+
 def profile_once(torch, fn, card, what="train", unit="step"):
     """Where one call's time goes (a train step, an int8 forward): ``fn``
     once under torch.profiler, device time by kernel and the device's
@@ -10097,6 +10625,12 @@ def main():
     if "static_jit" in phases:
         torch.cuda.empty_cache()
         timed("static_jit", phase_static_jit, torch, np, card, record)
+    if "quant_parity" in phases:
+        timed("quant_parity", phase_quant_parity, torch, np)
+    if "quant" in phases:
+        torch.cuda.empty_cache()
+        timed("quant", phase_quant, torch, np, card, record,
+              train if "train" in phases else None)
     log(json.dumps({"kernels": list(record.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

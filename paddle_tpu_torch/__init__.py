@@ -118,7 +118,7 @@ del _g
 # subpackages loaded on first use (the reference's lazy list, where the
 # port has the package)
 _LAZY = ("parallel", "models", "incubate", "static", "inference",
-         "quantization", "telemetry")
+         "quantization", "telemetry", "regularizer", "callbacks")
 
 
 def __getattr__(name):

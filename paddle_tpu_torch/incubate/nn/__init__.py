@@ -1,6 +1,5 @@
-"""paddle.incubate.nn parity: ``functional`` (the fused ops; K7 and K6
-behind four of them) and the fused transformer layers, which are not
-ported yet and raise on construction."""
+"""paddle.incubate.nn parity: ``functional`` (the fused ops) and the
+fused transformer layers."""
 from . import functional
 from .fused_transformer import (FusedBiasDropoutResidualLayerNorm,
                                 FusedEcMoe, FusedFeedForward, FusedLinear,

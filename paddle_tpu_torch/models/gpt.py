@@ -48,6 +48,9 @@ class _Linear(Linear):
     """A projection with a bias whose weight ``GPTForCausalLM.
     reset_parameters`` draws (no extra random pass at construction)."""
 
+    # the reference builds it as a plain nn.Linear: QAT swaps it as one
+    _reference_type = Linear
+
     def reset_parameters(self):
         pass
 

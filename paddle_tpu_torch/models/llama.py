@@ -73,6 +73,9 @@ class _Proj(Linear):
     ``LlamaForCausalLM.reset_parameters`` draws, so building a model
     makes no extra random pass and leaves the global RNG alone."""
 
+    # the reference builds it as a plain nn.Linear: QAT swaps it as one
+    _reference_type = Linear
+
     def __init__(self, in_features, out_features, dtype, device):
         super().__init__(in_features, out_features, bias_attr=False,
                          dtype=dtype, device=device)

@@ -90,8 +90,14 @@ __all__ = ["rms_norm", "layer_norm", "scaled_dot_product_attention",
 
 
 def rms_norm(x, weight, epsilon=1e-6):
-    """RMSNorm over the last dim (K5 forward and backward)."""
+    """RMSNorm over the last dim (K5 forward and backward). An f32 x
+    takes a narrower weight in f32, as the reference reads it (K5 takes
+    the weight in x's type; the cast's backward rounds dw once, as the
+    reference's ``astype`` does): a bf16 model under QAT's f32
+    activations."""
     x, weight = _cast("rms_norm", [x, weight])
+    if x.dtype == torch.float32 and weight.dtype != x.dtype:
+        weight = weight.float()
     return _rn.rms_norm(x, weight, epsilon)
 
 

@@ -1,33 +1,155 @@
-"""True-int8 inference layers: ``Int8InferLinear`` and
-``to_int8_inference``.
+"""QAT and PTQ, the quantized layers and the true-int8 inference path.
 
-Port of ``paddle_tpu/quantization/qat.py:138-200``. ``to_int8_inference``
-swaps every ``nn.Linear`` of a model for an ``Int8InferLinear``, whose
-weight is quantized once to int8 per output channel and whose forward
-quantizes its input per tensor and runs the int8 matmul with the fused
-dequantize (K8, ``ops.kernels.quant_matmul``). The codes are kept once,
-K-major (``[out, in]``), the layout K8's ``wgmma`` route reads; the
-reference's ``[in, out]`` layout is a view, and it is the layout of
-the state dict: ``state_dict()`` writes ``qweight [in, out]`` (keys and
-shapes the reference's) and ``load_state_dict`` reads it back into the
-K-major buffer. Deploy only: the forward builds no graph, as the
-reference cuts the tangent.
+Port of ``paddle_tpu/quantization/qat.py``:
 
-The QAT/PTQ engines, ``QuantedLinear``, ``QuantConfig`` and the
-observers run no kernel and are not ported yet (ROADMAP, Queue 1 item
-15); a model holding a ``QuantedLinear`` has nothing of it here to
-convert.
+- ``QuantedLinear`` / ``QuantedConv2D``: the layer's own weight (and
+  bias) through its weight quanter and its input through its activation
+  quanter, then ``F.linear`` / ``F.conv2d``; a bf16 layer under an f32
+  activation scale computes in f32, as the reference's promotion does;
+- ``Quantization`` (``QAT``, ``PTQ``): ``quantize`` swaps every sublayer
+  whose type the config's QAT mapping names (``Linear``, ``Conv2D``; the
+  port's models build their projections from private subclasses of
+  ``nn.Linear`` that stand for the reference's plain ``nn.Linear``, and
+  say so in ``_reference_type``) and that a config covers, in a deep copy
+  unless ``inplace``; ``convert`` puts the model in eval mode and freezes
+  its observers;
+- ``Int8InferLinear`` / ``to_int8_inference``: every ``Linear`` or
+  ``QuantedLinear`` of a model becomes an int8 layer whose weight is
+  quantized once to int8 per output channel and whose forward quantizes
+  its input per tensor and runs the int8 matmul with the fused
+  dequantize (K8, ``ops.kernels.quant_matmul``). The codes are kept
+  once, K-major (``[out, in]``), the layout K8's ``wgmma`` route reads;
+  the reference's ``[in, out]`` layout is a view, and it is the layout of
+  the state dict: ``state_dict()`` writes ``qweight [in, out]`` (keys and
+  shapes the reference's) and ``load_state_dict`` reads it back into the
+  K-major buffer. Deploy only: the forward builds no graph, as the
+  reference cuts the tangent.
+
+The sublayers are walked as ``named_modules()`` less the root, which is
+the reference's ``named_sublayers()`` on a ``Layer`` and works on any
+``torch.nn.Module`` (``LlamaForCausalLM`` is one).
 """
 import copy
 
 import torch
 from torch import nn
 
-from ..nn.layers_basic import Linear
+from ..nn import functional as F
+from ..nn.layer import Layer
+from ..nn.layers_basic import Conv2D, Linear
 from ..ops.kernels.quant_matmul import (quantize_tensor,
                                         quantized_matmul_kmajor)
+from .config import QuantConfig, SingleLayerConfig
+from .observers import BaseObserver
 
-__all__ = ["Int8InferLinear", "to_int8_inference"]
+__all__ = ["QuantedLinear", "QuantedConv2D", "Quantization", "QAT", "PTQ",
+           "Int8InferLinear", "to_int8_inference"]
+
+
+class _Quanted(Layer):
+    """The layer's weight and bias, shared, and a quanter of each kind
+    the config gives (None otherwise)."""
+
+    def __init__(self, layer, q_config: SingleLayerConfig):
+        super().__init__()
+        self.weight = layer.weight
+        self.bias = layer.bias
+        self.activation_quanter = (
+            q_config.activation._instance(layer)
+            if q_config.activation else None)
+        self.weight_quanter = (
+            q_config.weight._instance(layer) if q_config.weight else None)
+
+    def _quantized(self, x):
+        w = self.weight
+        if self.weight_quanter is not None:
+            w = self.weight_quanter(w)
+        if self.activation_quanter is not None:
+            x = self.activation_quanter(x)
+        return x, w
+
+
+class QuantedLinear(_Quanted):
+    """Linear with weight and activation fake quant."""
+
+    def forward(self, x):
+        x, w = self._quantized(x)
+        return F.linear(x, w, self.bias)
+
+
+class QuantedConv2D(_Quanted):
+    """Conv2D with weight and activation fake quant. The convolution's
+    settings are copied as plain attributes: keeping the Conv2D as a
+    sublayer would let a second ``quantize`` wrap it again."""
+
+    def __init__(self, layer, q_config: SingleLayerConfig):
+        super().__init__(layer, q_config)
+        self._stride = layer.stride
+        self._padding = layer.padding
+        self._dilation = layer.dilation
+        self._groups = layer.groups
+        self._data_format = layer.data_format
+
+    def forward(self, x):
+        x, w = self._quantized(x)
+        return F.conv2d(x, w, self.bias, stride=self._stride,
+                        padding=self._padding, dilation=self._dilation,
+                        groups=self._groups, data_format=self._data_format)
+
+
+_DEFAULT_QAT_MAPPING = {Linear: QuantedLinear, Conv2D: QuantedConv2D}
+
+
+def _reference_type(layer):
+    """The type the reference's mapping would look ``layer`` up by."""
+    return getattr(type(layer), "_reference_type", type(layer))
+
+
+def _sublayers(model):
+    """``(name, module)`` of every module under ``model``, the root
+    excepted, in ``named_modules`` order."""
+    return list(model.named_modules())[1:]
+
+
+class Quantization:
+    def __init__(self, config: QuantConfig):
+        self._config = config
+
+    def quantize(self, model, inplace=False):
+        """Every sublayer the mapping and the config both cover, swapped
+        for its quantized layer (``QuantedLinear`` ...), in a deep copy
+        unless ``inplace``: the float original stays intact."""
+        if not inplace:
+            model = copy.deepcopy(model)
+        for name, sub in _sublayers(model):
+            cfg = self._config._config_for(sub, name)
+            target = self._config._qat_mapping.get(_reference_type(sub))
+            if cfg is not None and target is not None:
+                _set_sublayer(model, name, target(sub, cfg))
+        return model
+
+    def convert(self, model, inplace=False):
+        """The model in eval mode (quanters use their stored scales) with
+        every observer frozen; ``inplace=False`` returns a frozen copy and
+        leaves the QAT or calibration model live."""
+        if not inplace:
+            model = copy.deepcopy(model)
+        model.eval()
+        for sub in model.modules():
+            if isinstance(sub, BaseObserver):
+                sub._frozen = True
+        return model
+
+
+class QAT(Quantization):
+    """Quantization-aware training: ``quantize`` swaps layers for their
+    fake-quantized forms, trained through the straight-through
+    gradient."""
+
+
+class PTQ(Quantization):
+    """Post-training quantization: ``quantize`` with observers, run
+    calibration batches, then ``convert``."""
 
 
 def _set_sublayer(root, dotted, new):
@@ -105,15 +227,16 @@ class Int8InferLinear(nn.Module):
 
 
 def to_int8_inference(model, inplace=False):
-    """Replace every ``Linear`` of ``model`` (the root excepted) with an
-    ``Int8InferLinear``; ``inplace=False`` converts a deep copy and
-    leaves ``model`` untouched. Layers are looked up by name one at a
+    """Replace every ``Linear`` and ``QuantedLinear`` of ``model`` (the
+    root excepted) with an ``Int8InferLinear`` of its float weight;
+    ``inplace=False`` converts a deep copy and leaves ``model``
+    untouched. Layers are looked up by name one at a
     time, so in place each float weight is freed as its layer is
     replaced."""
     if not inplace:
         model = copy.deepcopy(model)
-    names = [name for name, sub in list(model.named_modules())[1:]
-             if isinstance(sub, Linear)]
+    names = [name for name, sub in _sublayers(model)
+             if isinstance(sub, (Linear, QuantedLinear))]
     for name in names:
         _set_sublayer(model, name,
                       Int8InferLinear(model.get_submodule(name)))

@@ -10,7 +10,11 @@
   additions, ``REF_IMPORT_LEAKS`` names the reference has by an import.
   Each package's own submodules, every one imported first, are the
   reference's up to two named lists; so neither comparison depends on
-  which modules other tests imported in the same process.
+  which modules other tests imported in the same process. The
+  quantization and incubate modules (``SLICE_IMPORT_LEAKS``) are the
+  reference's less its import leaks, and none of their names is a stub
+  but incubate's aliases over ``geometric`` (``INCUBATE_NOT_YET``), which
+  raise naming item 15.7.
 - The default place is the card: ``to_tensor`` without a card and
   without ``set_device("cpu")`` raises; it never falls back.
 - A ``Tensor`` passed to ``nn.functional`` and to the port's
@@ -38,7 +42,7 @@ from paddle_tpu_torch import device as tdevice
 
 NOT_YET = {
     "DataParallel": "item 13 (multi-card training)",
-    "get_flags": "item 15.6 (runtime)", "set_flags": "item 15.6 (runtime)",
+    "get_flags": "item 15.6b (runtime)", "set_flags": "item 15.6b (runtime)",
 }
 # nn's names not ported yet (none: layers_tail came with item 15.3)
 NN_NOT_YET = {}
@@ -62,17 +66,38 @@ REF_IMPORT_LEAKS = {
     "jit": {"annotations", "Tensor", "param_substitution"},
 }
 # each package's own submodules (every one imported first) that the other
-# lacks: the reference's nn.quant (item 15.6), the port's copy of the
-# reference's utils.unique_name, which static imports
-SUBMODULES_NOT_YET = {"nn": {"quant": "item 15.6 (quantization)"},
-                      "static": {}, "jit": {}}
+# lacks: the port's copy of the reference's utils.unique_name, which
+# static imports
+SUBMODULES_NOT_YET = {"nn": {}, "static": {}, "jit": {}, "incubate": {},
+                      "quantization": {}}
 SUBMODULES_PORT_ONLY = {"nn": set(), "static": {"unique_name"},
-                        "jit": set()}
+                        "jit": set(), "incubate": set(),
+                        "quantization": set()}
+# the quantization and incubate slice (item 15.6a): each module's names
+# are the reference's less its import leaks (``from __future__ import
+# annotations`` and the reference's own Tensor helpers)
+SLICE_IMPORT_LEAKS = {
+    "quantization": set(), "nn.quant": set(), "incubate": set(),
+    "incubate.nn": set(),
+    "incubate.nn.functional": {"annotations", "Tensor", "dispatch",
+                               "unwrap"},
+    "incubate.autograd": set(),
+    "incubate.optimizer": {"annotations", "unwrap"},
+    "incubate.checkpoint": {"annotations"},
+    "regularizer": {"annotations"}, "callbacks": set(),
+    "ops.fused_ce": {"annotations"},
+}
+# incubate's aliases over paddle.geometric: in both, the port's raising
+INCUBATE_NOT_YET = {
+    name: "item 15.7 (geometric)"
+    for name in ("segment_max", "segment_mean", "segment_min",
+                 "segment_sum", "graph_send_recv", "graph_reindex",
+                 "graph_sample_neighbors", "graph_khop_sampler")}
 # the port's subpackages among the reference's top-level modules
 SUBPACKAGES = ("amp", "autograd", "core", "jit", "nn", "ops", "optimizer",
                "hapi", "io", "metric", "reliability", "parallel", "models",
                "incubate", "static", "inference", "quantization",
-               "telemetry", "device")
+               "telemetry", "device", "regularizer", "callbacks")
 
 
 def _public(mod_or_cls, modules):
@@ -112,7 +137,7 @@ def _pair(sub):
 
 
 def test_every_not_yet_name_names_its_item():
-    for table in (NOT_YET, NOT_YET_METHODS, NN_NOT_YET,
+    for table in (NOT_YET, NOT_YET_METHODS, NN_NOT_YET, INCUBATE_NOT_YET,
                   *SUBMODULES_NOT_YET.values()):
         for name, item in table.items():
             assert item.startswith("item 1"), (name, item)
@@ -149,12 +174,62 @@ def test_static_and_jit_are_the_references(sub):
     assert port <= ref, sorted(port - ref)
 
 
-@pytest.mark.parametrize("sub", ["nn", "static", "jit"])
+@pytest.mark.parametrize("sub", ["nn", "static", "jit", "incubate",
+                                 "quantization"])
 def test_own_submodules_are_the_named_lists(sub):
     ref_mod, port_mod = _pair(sub)
     ref, port = _own_submodules(ref_mod), _own_submodules(port_mod)
     assert ref - port == set(SUBMODULES_NOT_YET[sub]), sorted(ref - port)
     assert port - ref == SUBMODULES_PORT_ONLY[sub], sorted(port - ref)
+
+
+@pytest.mark.parametrize("sub", sorted(SLICE_IMPORT_LEAKS))
+def test_quantization_and_incubate_are_the_references(sub):
+    """Every name of the reference's ``quantization``, ``nn.quant``,
+    ``incubate`` (and its ``nn``, ``nn.functional``, ``autograd``,
+    ``optimizer``, ``checkpoint``), ``regularizer``, ``callbacks`` and
+    ``ops.fused_ce`` is the port's, less the reference's import leaks;
+    the port adds none."""
+    ref_mod, port_mod = _pair(sub)
+    ref = _public(ref_mod, set())
+    port = _public(port_mod, set())
+    assert ref - port == SLICE_IMPORT_LEAKS[sub], sorted(ref - port)
+    assert port <= ref, sorted(port - ref)
+
+
+@pytest.mark.parametrize("name", sorted(INCUBATE_NOT_YET))
+def test_incubate_geometric_aliases_raise_naming_their_item(name):
+    fn = getattr(importlib.import_module("paddle_tpu_torch.incubate"), name)
+    with pytest.raises(NotImplementedError, match="item 15.7"):
+        fn(None, None, None)
+
+
+def test_slice_names_do_not_raise_not_implemented():
+    """No name of the slice is a stub: constructing the fused layers,
+    the quantizers and the observers raises nothing (the geometric
+    aliases excepted, above)."""
+    from paddle_tpu_torch import incubate, quantization
+    from paddle_tpu_torch.incubate import nn as inn
+    from paddle_tpu_torch.nn import quant
+    place = tdevice._default[0]
+    pt.set_device("cpu")
+    try:
+        made = [inn.FusedMultiHeadAttention(8, 2), inn.FusedFeedForward(8, 16),
+                inn.FusedTransformerEncoderLayer(8, 2, 16),
+                inn.FusedMultiTransformer(8, 2, 16), inn.FusedLinear(8, 8),
+                inn.FusedBiasDropoutResidualLayerNorm(8),
+                inn.FusedEcMoe(8, 16, 2), quant.Stub()]
+        lin = pt.nn.Linear(4, 4)
+        for name in ("AbsmaxObserver", "EMAObserver", "AVGObserver",
+                     "HistObserver", "KLObserver", "MSEObserver",
+                     "FakeQuanterWithAbsMaxObserver",
+                     "FakeQuanterChannelWiseAbsMax"):
+            made.append(getattr(quantization, name)()._instance(lin))
+        assert all(isinstance(m, pt.nn.Layer) for m in made)
+        assert incubate.LookAhead(pt.optimizer.SGD(
+            parameters=lin.parameters())).k == 5
+    finally:
+        tdevice._default[0] = place
 
 
 def test_enable_static_switches_in_dynamic_mode():

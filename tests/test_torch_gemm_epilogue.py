@@ -18,8 +18,9 @@ port's plain version, which the CUDA kernel is held to on the card
 - ``incubate.nn.functional.fused_linear_activation`` (batched x,
   ``trans_x``/``trans_y``), ``fused_matmul_bias`` (both of its routes)
   and ``fused_linear`` vs the JAX incubate functions, f32 within 1e-5;
-- the contract refuses an unknown activation, and unported incubate
-  functions raise with a ROADMAP pointer;
+- the contract refuses an unknown activation; the incubate functions
+  once unported run (since item 15.6a), ``fused_multi_transformer``
+  refusing a missing ``num_heads`` as the reference does;
 - the kernel's route (wgmma, mma.sync or simt) is a pure function of the
   shape, the dtype and the operands' alignment, every branch; on the CPU
   no route counts a launch.
@@ -201,12 +202,10 @@ def test_unknown_activation_and_unported_functions_raise():
     x = torch.zeros(2, 3)
     with pytest.raises(ValueError, match="activation"):
         tge.gemm_epilogue(x, torch.zeros(3, 4), None, "swish")
-    for name in ("fused_multi_transformer", "fused_feedforward",
-                 "fused_ec_moe", "fused_multi_head_attention", "swiglu"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(tif, name)(x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        incubate.nn.FusedMultiTransformer(64, 4, 128)
+    with pytest.raises(ValueError, match="num_heads"):
+        tif.fused_multi_transformer(x, *([[]] * 12))
+    assert tif.swiglu(torch.ones(2, 4)).shape == (2, 2)
+    assert callable(incubate.nn.FusedMultiTransformer)
 
 
 # (m, n, k, dtype, aligned, route): every branch of ``route``
