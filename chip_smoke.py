@@ -26,6 +26,7 @@
     python3 chip_smoke.py --only build,zoo_parity,zoo
     python3 chip_smoke.py --only build,tensor_api,static_jit
     python3 chip_smoke.py --only build,quant_parity,quant
+    python3 chip_smoke.py --only build,moe_parity,moe,host
 
 Phases, in order; any failure exits non-zero:
 
@@ -243,9 +244,9 @@ Phases, in order; any failure exits non-zero:
 18. serve: Llama-2-7B in bf16 (random weights from a seed, full width
    and depth) serves 8 requests through ``ContinuousBatchingServer``,
    on split and on fused ticks, greedy and sampled, in the order split,
-   fused, sampled split, sampled fused, sampled fused, sampled split,
-   fused, split (a new server over the same model each time, the last
-   one freed first); the launch counters are zeroed just before each
+   fused, sampled split, sampled fused, each once (the reversed second
+   pass was cut to make room for the moe phases; a new server over the
+   same model each time, the last one freed first); the launch counters are zeroed just before each
    wave and read just after, and must equal decode ticks x layers (K1)
    and prefill launches x layers (K2) on a split wave, fused passes x
    layers (K3) on a fused wave (a tick with prefill chunks and decode
@@ -268,7 +269,9 @@ Phases, in order; any failure exits non-zero:
    "dense"`` (8 slots, max_cache_len 2048, the serve phase's 8 prompts
    behind a 256-token prefix, 32 new tokens), greedy at ``tick_block`` 1
    and 4 and one sampled wave of each, the paged ones with the prefix
-   registered (16 pinned pages, every prompt hitting it): wall,
+   registered (16 pinned pages, every prompt hitting it), each
+   configuration once (its second, reversed pass was cut to make room
+   for the moe phases): wall,
    tokens/s, the median decode-only tick and TPOT, TTFT median and max,
    peak memory, beside the serve phase's paged ragged numbers; the
    dense_parity gates, finite live logits and a drained pool; then one
@@ -682,6 +685,38 @@ Phases, in order; any failure exits non-zero:
    same widths, dropout 0.1, one bf16 training step: R2's dropout 8 times
    (4 forwards, 4 backwards), no K4 (attention dropout takes the
    composition).
+43. moe_parity: ``mixtral_tiny`` in f32 on the card and on the CPU from
+   the same weights and ids (``moe_parity_run``): the logits, the aux
+   loss and every parameter's gradient within ``MOE_PARITY_TOL``, each
+   block's routing (the gate's top-2 experts of every token) equal but at
+   near-ties of the CPU's gate probabilities (``MOE_TIE``), the dispatch
+   masks equal where the routing is; 3 ``train_step_fn`` + AdamW steps'
+   losses within ``MOE_PARITY_TOL["loss"]`` (``moe_parity_compare``);
+44. moe: Mixtral's training path at full width and depth,
+   ``moe_350m_8e(moe_group_size=1024)`` (the JAX repo's MoE bench
+   configuration: 12 layers, hidden 768, 8 SwiGLU experts of 2048, top 2,
+   GShard grouped dispatch, the aux loss in the step) in bf16 from seed 0,
+   batch 8 x 1024, AdamW(1e-4) with ``ClipGradForMOEByGlobalNorm(1.0)``:
+   the batches from ``io.DataLoader(num_workers=2, use_native_ring=True)``
+   over a token dataset repeating the 8 rows of seed 0 (the train phase's
+   fixed batch), each equal to the queue transport's; 2
+   warm-up steps by hand, then 10 ``train_step_fn`` steps, the counters
+   zeroed just before and read just after: the launches equal 10 x the
+   per-step counts (K4 12 + 12 + 12, K5 25 + 25, K6 q + k 24, one fused
+   step of ``kernels_per_step`` kernels), no K1-K3, K7, K8; losses finite
+   and falling; ms a step, tokens/s, peak memory; one more step traced by
+   the port's ``profiler.Profiler`` inside a ``RecordEvent``: its Chrome
+   trace names K4, K5, K6 and the fused step's kernels and the range, and
+   gives the device's busy share; the dispatch and gather products of a
+   step timed apart (``cuda_ms``) for their share;
+45. host: the host-side framework on the card: two ``device.cuda.Stream``s
+   and timing ``Event``s, a K5a launch on a side stream under
+   ``stream_guard`` bitwise the default stream's; ``device.memory_stats()``
+   ``peak_bytes_in_use`` = ``torch.cuda.max_memory_allocated()``;
+   ``device.synchronize``; ``set_flags({"FLAGS_check_nan_inf": 1})`` makes
+   a NaN on the card raise; a ``runtime.TCPStore`` set / get / add on
+   localhost; a ``utils.cpp_extension`` elementwise op on a card tensor,
+   values and gradient; ``utils.run_check()`` on the card.
 
 Each phase ends with a ``phase <name> <seconds>`` line. The last two
 lines of standard output are the per-kernel JSON record
@@ -707,7 +742,7 @@ PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "opt",
           "families", "decode_parity", "decoding", "deploy", "tensor_api",
           "nn_layers", "zoo_parity", "zoo", "int8_infer",
           "train", "train_compose", "train_amp", "fit", "static_jit",
-          "quant_parity", "quant")
+          "quant_parity", "quant", "moe_parity", "moe", "host")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
 # outside the tensor cores, int8 tensor-core operations/s). The SXM part
@@ -3783,10 +3818,11 @@ def phase_serve(torch, np, card, record):
     # The profiled ticks come after every timed wave and cannot disturb it.
     res = {"split": [], "fused": [], "sampled split": [],
            "sampled fused": []}
-    # the tick is host-bound and drifts from wave to wave, so the greedy
-    # waves bracket the sampled ones, and each pair brackets its twin
-    for wave in ("split", "fused", "sampled split", "sampled fused",
-                 "sampled fused", "sampled split", "fused", "split"):
+    # each wave once: the second, reversed pass that bracketed each wave
+    # by its twin (for the host-bound tick's drift) was cut to make room
+    # for the moe, moe_parity and host phases; every gate still runs on
+    # every wave
+    for wave in ("split", "fused", "sampled split", "sampled fused"):
         mode = wave.split()[-1]
         sample = wave.startswith("sampled")
         r = serve_timed(torch, np, server(mode, sample), prompts, n_new,
@@ -3970,13 +4006,15 @@ def phase_dense(torch, np, card, record, model, serve_res):
                "sampled dense": (dict(cache_backend="dense", **sample),
                                  False),
                "sampled paged-dense": (dict(paged, **sample), True)}
-    # the waves drift from one to the next (the serve phase's too), so
-    # the order runs forward and back: each pair brackets its twin
+    # each configuration once: the second, reversed pass that bracketed
+    # each wave by its twin (for the times' drift) was cut to make room
+    # for the moe, moe_parity and host phases; every gate still runs on
+    # every configuration
     log(f"dense: prompts {[len(p) for p in prompts]} (a 256-token prefix, "
         f"registered on the paged pool, and the serve phase's prompts), "
         f"{n_tok} new tokens each, 8 slots, max_cache_len 2048")
     res = {name: [] for name in configs}
-    for name in list(configs) + list(configs)[::-1]:
+    for name in configs:
         kw, register = configs[name]
         release()
         torch.cuda.reset_peak_memory_stats()
@@ -10346,6 +10384,471 @@ def phase_quant(torch, np, card, record, train):
         "fused_encoder_layer_step": c_enc["r2_dropout"]}
 
 
+# ------------------------------------------------------------------ moe
+
+# mixtral_tiny f32, card against CPU: the logits and every gradient
+# within 1e-5 and 1e-4 of their largest |value| (another summation order
+# in cuBLAS and the kernels), the aux loss within 1e-6, the train steps'
+# losses within 1e-5. A routing decision may differ only where the CPU's
+# top-2 (or 2nd and 3rd) gate probabilities lie within MOE_TIE.
+MOE_PARITY_TOL = {"logits": 1e-5, "aux": 1e-6, "grad": 1e-4, "loss": 1e-5}
+MOE_TIE = 1e-5
+# the moe phase: moe_350m_8e(moe_group_size=1024) at batch 8 x 1024
+MOE = {"B": 8, "S": 1024, "steps": 10, "warmup": 2, "group": 1024,
+       "workers": 2, "lr": 1e-4, "clip": 1.0}
+
+
+class TokenRows:
+    """A map-style dataset of seeded token rows (int64 ``[S]`` each); a
+    module-level class, so forked loader workers share it."""
+
+    def __init__(self, ids):
+        self.ids = ids
+
+    def __len__(self):
+        return len(self.ids)
+
+    def __getitem__(self, i):
+        return self.ids[i]
+
+
+def moe_gate_probe(model):
+    """Forward post-hooks on every block's gate; each call appends the
+    layer's gate probabilities (f32 ``[..., T, E]``) and dispatch mask, as
+    numpy arrays, to the returned list. Returns (records, handles)."""
+    import torch
+    seen = []
+
+    def hook(layer, inputs, out):
+        with torch.no_grad():
+            probs = torch.softmax((inputs[0] @ layer.gate.weight).float(),
+                                  dim=-1)
+        seen.append((probs.cpu().numpy(),
+                     out.dispatch_mask.cpu().numpy()))
+
+    return seen, [blk.moe.gate.register_forward_post_hook(hook)
+                  for blk in model.model.layers]
+
+
+def moe_routes(np, probs, k=2):
+    """Each token's top-k experts (the first maximum first, as argmax)."""
+    return np.argsort(-probs, axis=-1, kind="stable")[..., :k]
+
+
+def moe_parity_run(torch, np, model, ids, steps=3, lr=1e-3):
+    """One Mixtral model's side of moe_parity: the forward's logits, aux
+    loss, loss and each block's gate probabilities and dispatch mask, the
+    gradients of ``loss.backward()``, then ``steps`` AdamW steps through
+    ``jit.train_step_fn`` (their losses). Numpy out, f32."""
+    from paddle_tpu_torch.jit import train_step_fn
+    from paddle_tpu_torch.optimizer import AdamW
+    t = torch.as_tensor(ids, device=model.device)
+    seen, hooks = moe_gate_probe(model)
+    try:
+        logits = model(t)
+        loss = model.loss(logits, t)
+    finally:
+        for h in hooks:
+            h.remove()
+    loss.backward()
+    out = {"logits": logits.detach().float().cpu().numpy(),
+           "aux": model.collect_aux_loss().item(), "loss": loss.item(),
+           "probs": [p for p, _ in seen], "masks": [m for _, m in seen],
+           "grads": {n: p.grad.float().cpu().numpy()
+                     for n, p in model.named_parameters()}}
+    for p in model.parameters():
+        p.grad = None
+    opt = AdamW(learning_rate=lr, parameters=model.named_parameters())
+    step = train_step_fn(model, model.loss, opt)
+    batch = {"inputs": (t,), "labels": (t,)}
+    out["losses"] = [step(batch).item() for _ in range(steps)]
+    return out
+
+
+def moe_parity_compare(np, got, want, tol=MOE_PARITY_TOL, tie=MOE_TIE):
+    """``got`` against the yardstick ``want`` (two ``moe_parity_run``
+    results): (checks, numbers). Every block's top-2 routing equal but at
+    near-ties of ``want``'s probabilities; where a block's routing is
+    equal its dispatch masks are too; the values within ``tol``."""
+    flips = near = 0
+    masks_equal = True
+    for pg, pw, mg, mw in zip(got["probs"], want["probs"], got["masks"],
+                              want["masks"]):
+        differ = (moe_routes(np, pg) != moe_routes(np, pw)).any(-1)
+        srt = -np.sort(-pw, axis=-1)
+        gaps = np.minimum(srt[..., 0] - srt[..., 1], srt[..., 1] - srt[..., 2])
+        flips += int(differ.sum())
+        near += int((differ & (gaps <= tie)).sum())
+        if not differ.any():
+            masks_equal &= bool(np.array_equal(mg, mw))
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+    nums = {"routing flips": flips, "near-tie flips": near,
+            "logits": rel(got["logits"], want["logits"]),
+            "aux": abs(got["aux"] - want["aux"]),
+            "grad": max(rel(got["grads"][n], want["grads"][n])
+                        for n in want["grads"]),
+            "loss": max(abs(a - b) for a, b in
+                        zip(got["losses"], want["losses"]))}
+    checks = {
+        "routing equal but at near-ties": flips == near,
+        "dispatch masks equal where the routing is": masks_equal,
+        "same parameters": set(got["grads"]) == set(want["grads"])}
+    if flips == 0:
+        checks.update({
+            f"logits within {tol['logits']} of the largest":
+                nums["logits"] <= tol["logits"],
+            f"aux loss within {tol['aux']}": nums["aux"] <= tol["aux"],
+            f"gradients within {tol['grad']} of their largest":
+                nums["grad"] <= tol["grad"],
+            f"3 AdamW steps' losses within {tol['loss']}":
+                nums["loss"] <= tol["loss"]})
+    return checks, nums
+
+
+def phase_moe_parity(torch, np):
+    from paddle_tpu_torch.models import (MixtralForCausalLM, export_params,
+                                         load_jax_params, mixtral_tiny)
+    cfg = mixtral_tiny()
+    cpu = MixtralForCausalLM(cfg, device="cpu", seed=5)
+    gpu = MixtralForCausalLM(cfg, device="cuda")
+    load_jax_params(gpu, export_params(cpu))
+    # 2 x 128 tokens: two dispatch groups of max_seq_len (128)
+    ids = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 128))
+    want = moe_parity_run(torch, np, cpu, ids)
+    zero_counts()
+    got = moe_parity_run(torch, np, gpu, ids)
+    counts = read_counts()
+    checks, nums = moe_parity_compare(np, got, want)
+    L = cfg.num_layers
+    # the forward and backward by hand, then 3 train steps
+    fused = per_step_counts(L, 4)
+    fused.update(opt=3, opt_kernels=3)
+    checks["launches: 4 forwards and backwards, 3 fused steps"] = \
+        {k: counts[k] for k in fused} == fused and \
+        not any(counts[k] for k in ("k1", "k2", "k3", "k7", "k8"))
+    log(f"moe_parity mixtral_tiny f32, card against the CPU: {nums}; "
+        f"losses cpu {[round(x, 6) for x in want['losses']]} card "
+        f"{[round(x, 6) for x in got['losses']]}; launches {counts}")
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"moe_parity: check failed: {name}")
+
+
+def moe_einsum_ms(torch, cfg, B, S, group, flush):
+    """One step's dense dispatch and gather products (forward and
+    backward, every layer) timed apart at the moe phase's shapes, bf16:
+    (ms, TFLOP) of ``gtec,gtd->gecd`` and ``gtec,gecd->gtd`` with their
+    gradients, from random routing weights."""
+    E, D, L = cfg.num_experts, cfg.hidden_size, cfg.num_layers
+    G, C = B * S // group, max(4, math.ceil(group * cfg.top_k
+                                            * cfg.capacity_factor / E))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    comb = torch.rand((G, group, E, C), device="cuda", generator=gen) \
+        .lt_(cfg.top_k / (E * C)).to(torch.bfloat16)
+    x = torch.randn((G, group, D), device="cuda", dtype=torch.bfloat16,
+                    generator=gen, requires_grad=True)
+    ob = torch.randn((G, E, C, D), device="cuda", dtype=torch.bfloat16,
+                     generator=gen, requires_grad=True)
+
+    def run():
+        b = torch.einsum("gtec,gtd->gecd", comb, x)
+        o = torch.einsum("gtec,gecd->gtd", comb, ob)
+        torch.autograd.backward((b, o), (torch.ones_like(b),
+                                         torch.ones_like(o)))
+
+    ms = cuda_ms(run, torch, flush=flush) * L
+    flops = L * 3 * 2 * (2 * G * group * E * C * D)
+    return ms, flops / 1e12
+
+
+def phase_moe(torch, np, card, peak, record):
+    """This slice's training path (docstring item 44)."""
+    import gc
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.jit import train_step_fn
+    from paddle_tpu_torch.models import MixtralForCausalLM, moe_350m_8e
+    from paddle_tpu_torch.ops.kernels import multi_tensor_adam as mta
+    from paddle_tpu_torch.ops.kernels import rope as rk
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.moe import ClipGradForMOEByGlobalNorm
+    from paddle_tpu_torch.profiler import Profiler, RecordEvent
+    gc.collect()
+    torch.cuda.empty_cache()
+    B, S, n, warm = MOE["B"], MOE["S"], MOE["steps"], MOE["warmup"]
+    cfg = moe_350m_8e(moe_group_size=MOE["group"])
+    L, E = cfg.num_layers, cfg.num_experts
+    C = max(4, math.ceil(MOE["group"] * cfg.top_k * cfg.capacity_factor / E))
+    model = MixtralForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                               seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    expert = sum(p.numel() for name, p in model.named_parameters()
+                 if ".experts." in name)
+    active = n_params - expert + expert * cfg.top_k // E
+    log(f"moe: moe_350m_8e(moe_group_size={MOE['group']}) bf16 from seed 0, "
+        f"{L} layers, {n_params} parameters ({expert} in the experts; "
+        f"{active} active a token), "
+        f"batch {B} x {S}, AdamW({MOE['lr']}) + ClipGradForMOEByGlobalNorm("
+        f"{MOE['clip']}); reckoned: parameters {2 * n_params / 1e9:.2f} GB "
+        f"bf16, moments {8 * n_params / 1e9:.2f} GB f32, combine f32 "
+        f"[{B * S // MOE['group']}, {MOE['group']}, {E}, {C}] "
+        f"{4 * B * S * E * C / 1e6:.0f} MB a layer")
+    opt = AdamW(learning_rate=MOE["lr"], parameters=model.named_parameters(),
+                grad_clip=ClipGradForMOEByGlobalNorm(MOE["clip"]))
+    step = train_step_fn(model, model.loss, opt)
+    # the train phase's regime (bench.py's): one fixed batch of 8 rows
+    # from seed 0, which the dataset repeats for every step
+    rows = np.tile(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)), (n + warm + 1, 1))
+    queue = [b.copy() for b in DataLoader(TokenRows(rows), batch_size=B,
+                                          num_workers=MOE["workers"])]
+    ring = DataLoader(TokenRows(rows), batch_size=B,
+                      num_workers=MOE["workers"], use_native_ring=True)
+    it = iter(ring)
+    same = []
+
+    def next_batch(i):
+        b = next(it)
+        same.append(np.array_equal(b, queue[i]))
+        t = torch.as_tensor(b, device="cuda")
+        return {"inputs": (t,), "labels": (t,)}
+
+    losses, grads_finite = [], True
+    try:
+        for i in range(warm):
+            batch = next_batch(i)
+            ids = batch["inputs"][0]
+            loss = model.loss(model(ids), ids)
+            loss.backward()
+            grads_finite &= all(torch.isfinite(p.grad).all().item()
+                                for p in model.parameters())
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.detach())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        batches = [next_batch(warm + i) for i in range(n)]
+        zero_counts()
+        vector = rk.rope_qk_fwd.route_launches["vector"]
+        t0 = time.perf_counter()
+        for batch in batches:
+            losses.append(step(batch))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        counts["k6_qk_vector"] = rk.rope_qk_fwd.route_launches["vector"] \
+            - vector
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        # one more step under the port's profiler, inside a RecordEvent
+        batch = next_batch(warm + n)
+        prof = Profiler()
+        with prof:
+            t1 = time.perf_counter()
+            with RecordEvent("moe_train_step"):
+                step(batch)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        ring._shutdown_workers()
+    losses = [x.item() for x in losses]
+    step_ms = wall / n * 1e3
+    n_tensors = len(list(model.parameters()))
+    want = per_step_counts(L, n, opt_kernels=mta.kernels_per_step(n_tensors,
+                                                                   True))
+    trace, kernels = moe_trace_names(prof.export())
+    busy = sum(ms for _, ms in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    ein_ms, ein_tflop = moe_einsum_ms(torch, cfg, B, S, MOE["group"],
+                                      torch.empty(64 << 20,
+                                                  dtype=torch.int32,
+                                                  device="cuda"))
+    log(f"moe losses: {[round(x, 4) for x in losses]}")
+    # the train phase's model FLOPs: 6 x the active parameters a token,
+    # and the causal attention's products
+    flops = 6 * active * B * S + 3 * 2 * B * cfg.num_heads * S * S \
+        * cfg.head_dim * L
+    log(f"moe metrics [{card}]: {step_ms:.1f} ms per step, "
+        f"{B * S * n / wall:.0f} tokens/s, {flops / wall * n / 1e12:.1f} "
+        f"model TFLOP/s ({100 * flops / wall * n / peak[1]:.1f}% of the "
+        f"bf16 peak), peak memory {peak_gb:.2f} GiB; "
+        f"the traced step {traced_ms:.1f} ms wall, device busy "
+        f"{busy:.1f} ms ({100 * busy / traced_ms:.1f}%); the dispatch and "
+        f"gather products {ein_ms:.2f} ms a step ({ein_tflop:.2f} TFLOP, "
+        f"timed apart; {100 * ein_ms / step_ms:.1f}% of the step)")
+    log(f"moe launches over {n} steps: {counts}; want {want}")
+    log(f"moe trace: {trace}; {sum(n for n, _ in kernels.values())} "
+        f"kernel launches in the traced step, the most time in: " + ", ".join(
+            f"{name[:60]} {ms:.3f} ms ({n}x)" for name, (n, ms) in top))
+    checks = {
+        "the ring's batches equal the queue transport's": all(same)
+        and len(same) == n + warm + 1,
+        "loss falls": losses[-1] < losses[0],
+        "losses, weights and warm-up gradients finite":
+            all(np.isfinite(losses)) and grads_finite and all(
+                torch.isfinite(p).all().item() for p in model.parameters()),
+        "launches == steps x per-step counts (K6: q + k, 2 x layers)":
+            {k: counts[k] for k in want} == want,
+        "K6 on the vector route": counts["k6_qk_vector"] == counts["k6_qk"],
+        "no serving, epilogue or int8 kernel":
+            not any(counts[k] for k in ("k1", "k2", "k3", "k7", "k8")),
+        "the profiler's trace names K4, K5, K6, Opt and the RecordEvent":
+            all(trace.values())}
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"moe: check failed: {name}")
+    record["flash_attention_fwd"]["moe_launches"] = counts["k4_fwd"]
+    record["flash_attention_bwd"]["moe_launches"] = counts["k4_dq"]
+    record["rms_norm_fwd"]["moe_launches"] = counts["k5_fwd"]
+    record["rms_norm_bwd"]["moe_launches"] = counts["k5_bwd"]
+    record["rope"]["moe_launches"] = counts["k6"] + counts["k6_qk"]
+    record["multi_tensor_adam"]["moe_launches"] = counts["opt"]
+    record["multi_tensor_adam"]["moe_kernel_launches"] = counts["opt_kernels"]
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+MOE_TRACE = {"K4a": ("fwd_mma_kernel",), "K4b": ("dq_mma_kernel",
+                                                 "dkv_mma_kernel"),
+             "K5a": ("rms_fwd_kernel",), "K5b": ("rms_bwd_kernel",),
+             "K6": ("rope_kernel",), "Opt": ("update_kernel",
+                                              "sumsq_kernel")}
+
+
+def moe_trace_names(trace_dir):
+    """Which of the port's kernels (``MOE_TRACE``) and whether the
+    ``moe_train_step`` range appear in the Chrome traces of
+    ``trace_dir``; and the card's kernels: {name: [launches, ms]}
+    (durations summed)."""
+    kernels, ranges = {}, set()
+    for f in sorted(os.listdir(trace_dir)):
+        with open(os.path.join(trace_dir, f)) as fh:
+            for ev in json.load(fh).get("traceEvents", []):
+                cat = ev.get("cat", "")
+                if cat == "kernel":
+                    k = kernels.setdefault(ev.get("name", ""), [0, 0.0])
+                    k[0] += 1
+                    k[1] += float(ev.get("dur", 0.0)) / 1e3
+                elif cat == "user_annotation":
+                    ranges.add(ev.get("name", ""))
+    out = {k: all(any(w in name for name in kernels) for w in want)
+           for k, want in MOE_TRACE.items()}
+    out["RecordEvent moe_train_step"] = "moe_train_step" in ranges
+    return out, kernels
+
+
+HOST_EXT = """
+extern "C" void cube_fwd(const float* x, long long n, float* y) {
+    for (long long i = 0; i < n; ++i) y[i] = x[i] * x[i] * x[i];
+}
+extern "C" void cube_bwd(const float* x, const float* gy, long long n,
+                         float* gx) {
+    for (long long i = 0; i < n; ++i) gx[i] = 3.0f * x[i] * x[i] * gy[i];
+}
+"""
+
+
+def phase_host(torch, np, card):
+    """The host-side framework on the card (docstring item 45)."""
+    import io
+    import tempfile
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import device as pdev
+    from paddle_tpu_torch import runtime
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.kernels import rms_norm as rn
+    from paddle_tpu_torch.utils import cpp_extension, run_check
+    checks = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((8192, 1024), device="cuda", dtype=torch.bfloat16,
+                    generator=gen)
+    w = torch.rand((1024,), device="cuda", dtype=torch.bfloat16,
+                   generator=gen) + 0.5
+    ref = F.rms_norm(x, w)
+    s1, s2 = pdev.cuda.Stream(), pdev.cuda.Stream()
+    e0, e1, e2 = (pdev.cuda.Event(enable_timing=True) for _ in range(3))
+    s1.wait_stream(pdev.current_stream())
+    before = rn.rms_norm_fwd.launches
+    with pdev.stream_guard(s1):
+        on_s1 = torch.cuda.current_stream().cuda_stream == s1.cuda_stream
+        e0.record(s1)
+        side = F.rms_norm(x, w)
+        e1.record(s1)
+    s2.wait_event(e1)
+    with pdev.stream_guard(s2):
+        again = side.float().sum()
+        e2.record(s2)
+    pdev.current_stream().wait_stream(s2)
+    e2.synchronize()
+    k5_ms = e0.elapsed_time(e1)
+    checks["K5a on a side stream under stream_guard == the default "
+           "stream's, bitwise"] = on_s1 and torch.equal(side, ref) and \
+        rn.rms_norm_fwd.launches == before + 1 and \
+        again.item() == ref.float().sum().item()
+    torch.cuda.reset_peak_memory_stats()
+    big = torch.empty((1 << 28,), dtype=torch.uint8, device="cuda")
+    del big
+    pdev.synchronize()
+    stats = pdev.memory_stats()
+    checks["memory_stats peak_bytes_in_use == max_memory_allocated"] = \
+        stats["peak_bytes_in_use"] == torch.cuda.max_memory_allocated() \
+        and stats["bytes_in_use"] == torch.cuda.memory_allocated() and \
+        stats["bytes_limit"] == torch.cuda.mem_get_info()[1]
+    pt.set_flags({"FLAGS_check_nan_inf": 1})
+    try:
+        bad = pt.to_tensor(np.array([1.0, 0.0], np.float32), place="gpu")
+        raised = False
+        try:
+            pt.log(bad - 1.0)
+        except FloatingPointError:
+            raised = True
+    finally:
+        pt.set_flags({"FLAGS_check_nan_inf": 0})
+    checks["FLAGS_check_nan_inf makes a NaN on the card raise"] = \
+        raised and pt.get_flags(["FLAGS_check_nan_inf"]) == \
+        {"FLAGS_check_nan_inf": "0"}
+    t0 = time.perf_counter()
+    master = runtime.TCPStore(is_master=True, port=0)
+    client = runtime.TCPStore(host="127.0.0.1", port=master.port)
+    try:
+        master.set("unique_id", b"\x01\x02card")
+        checks["TCPStore set / get / add on localhost"] = \
+            client.get("unique_id") == b"\x01\x02card" and \
+            client.add("n", 5) == 5 and master.add("n", 2) == 7
+    finally:
+        client.close()
+        master.close()
+    store_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ext_") as d:
+        src = os.path.join(d, "cube.cc")
+        with open(src, "w") as f:
+            f.write(HOST_EXT)
+        t0 = time.perf_counter()
+        ext = cpp_extension.load("cube_ext", [src], build_directory=d)
+        build_s = time.perf_counter() - t0
+        cube = ext.elementwise_op("cube_fwd", grad_symbol="cube_bwd")
+        v = torch.linspace(-2, 2, 1000, device="cuda").requires_grad_()
+        y = cube(v)
+        y.sum().backward()
+        checks["cpp_extension op on a card tensor: values and gradient"] = \
+            y.device.type == "cuda" and torch.equal(y, v.detach() ** 3) \
+            and torch.allclose(v.grad, 3 * v.detach() ** 2, rtol=1e-6,
+                               atol=0)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        run_check()
+    checks["run_check on the card"] = "gpu" in out.getvalue()
+    log(f"host [{card}]: K5a on a side stream {k5_ms:.4f} ms (events); "
+        f"memory_stats {stats}; TCPStore round trip {store_ms:.1f} ms; the "
+        f"extension built in {build_s:.2f} s; run_check: "
+        f"{out.getvalue().strip()}")
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"host: check failed: {name}")
+
+
 def profile_once(torch, fn, card, what="train", unit="step"):
     """Where one call's time goes (a train step, an int8 forward): ``fn``
     once under torch.profiler, device time by kernel and the device's
@@ -10631,6 +11134,13 @@ def main():
         torch.cuda.empty_cache()
         timed("quant", phase_quant, torch, np, card, record,
               train if "train" in phases else None)
+    if "moe_parity" in phases:
+        timed("moe_parity", phase_moe_parity, torch, np)
+    if "moe" in phases:
+        torch.cuda.empty_cache()
+        timed("moe", phase_moe, torch, np, card, peak, record)
+    if "host" in phases:
+        timed("host", phase_host, torch, np, card)
     log(json.dumps({"kernels": list(record.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

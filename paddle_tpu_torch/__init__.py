@@ -44,12 +44,19 @@ What runs on the card:
   norms, dropouts, activations, losses; the RNNs and the Transformer
   stack; the tail: CTC, RNN-T, fold / unfold, unpooling, beam search;
   the initializers; ``nn.utils``; the gradient clips), the model zoo
-  (``models``: BERT, DiT, Qwen-VL with its ``generate``), the
+  (``models``: BERT, DiT, Qwen-VL with its ``generate``; Mixtral's
+  ``forward`` / ``loss`` over ``parallel.moe``'s GShard dispatch), the
   optimizer zoo and
   its schedulers, ``amp`` (``auto_cast``, ``decorate``, ``GradScaler``),
   recompute, ``jit.train_step_fn``, and the high-level loop ``Model``
   (``hapi``) with ``io.DataLoader``, checkpoints, ``metric`` and the
   fault-tolerant ``reliability.TrainSupervisor``;
+- the host-side framework: ``reader``, ``device`` (streams, events,
+  ``memory_stats``), ``utils`` (``cpp_extension``: g++-built host ops),
+  ``runtime`` (the FLAGS_ registry behind ``get_flags`` / ``set_flags``,
+  ``TCPStore``, ``ShmRing``, which carries ``io.DataLoader``'s native
+  ring), ``profiler`` (over ``torch.profiler``), ``cost_model``,
+  ``sysconfig``;
 - randomness: ``jax.random``'s threefry stream (``core.prng``,
   ``seed`` / ``get_rng_state`` / ``set_rng_state``): the uniform family
   bit for bit, the normal family within 3 ulps.
@@ -90,8 +97,8 @@ from .core.tensor import (  # noqa: F401
     Parameter, Tensor, set_nan_inf_check, to_tensor,
 )
 from .device import (  # noqa: F401
-    CPUPlace, CUDAPinnedPlace, CUDAPlace, get_device, resolve_device,
-    set_device,
+    CPUPlace, CUDAPinnedPlace, CUDAPlace, device_count, get_device,
+    is_compiled_with_cuda, resolve_device, set_device,
 )
 from .hapi import Model, flops, summary  # noqa: F401
 from .io import load, save  # noqa: F401
@@ -118,7 +125,8 @@ del _g
 # subpackages loaded on first use (the reference's lazy list, where the
 # port has the package)
 _LAZY = ("parallel", "models", "incubate", "static", "inference",
-         "quantization", "telemetry", "regularizer", "callbacks")
+         "quantization", "telemetry", "regularizer", "callbacks", "utils",
+         "runtime", "profiler", "reader", "cost_model", "sysconfig")
 
 
 def __getattr__(name):
@@ -130,11 +138,6 @@ def __getattr__(name):
         return mod
     raise AttributeError(
         f"module 'paddle_tpu_torch' has no attribute {name!r}")
-
-
-def is_compiled_with_cuda():
-    """True when a CUDA card is there to run on."""
-    return _torch.cuda.is_available()
 
 
 def is_compiled_with_xpu():
@@ -178,10 +181,6 @@ def in_dynamic_mode():
 
 def grad(*args, **kwargs):
     return autograd.grad(*args, **kwargs)
-
-
-def device_count():
-    return _torch.cuda.device_count()
 
 
 def synchronize():
@@ -331,6 +330,18 @@ def squeeze_(x, axis=None):
 
 def unsqueeze_(x, axis):
     return x.unsqueeze_(axis)
+
+
+def set_flags(flags):
+    """paddle.set_flags: the native registry (``runtime.set_flags``)."""
+    from .runtime import set_flags as _sf
+    return _sf(flags)
+
+
+def get_flags(names):
+    """paddle.get_flags: the native registry (``runtime.get_flags``)."""
+    from .runtime import get_flags as _gf
+    return _gf(names)
 
 
 def check_shape(x, shape):

@@ -12,9 +12,13 @@ Workers are forked processes, as in the reference. They run the dataset
 and the collate function only and never touch CUDA, so a loader may
 start them after the card is in use; torch CPU tensors (bf16 too) cross
 to the parent through shared memory like numpy arrays.
-``use_native_ring=True`` (the reference's C++
-``runtime.ShmRing`` transport) raises ``NotImplementedError`` (ROADMAP
-Queue 1 item 15); ``DistributedBatchSampler(num_replicas=None)`` means
+``use_native_ring=True`` is the reference's native transport: one
+lock-free SPSC shared-memory ring a worker (``runtime.ShmRing``,
+``runtime/csrc/shm_ring.cc``), each batch pickled into a slot of
+``ring_slot_mb``; a batch larger than a slot parks its arrays in their
+own shared-memory segments and sends references, and one that cannot
+shrink below a slot raises in the parent naming the ring slot while the
+worker lives on. ``DistributedBatchSampler(num_replicas=None)`` means
 one replica, as the reference resolves it without a mesh (the port has
 no mesh: ROADMAP Queue 1 item 13).
 """
@@ -332,8 +336,56 @@ def _tree_from_shm(obj):
     return obj
 
 
+class _RingResultQueue:
+    """Queue-interface adapter over per-worker native SPSC rings
+    (runtime.ShmRing, runtime/csrc/shm_ring.cc — the reference's C++
+    buffered_reader transport). The parent pops round-robin; each
+    worker attaches its own ring by name and pushes pickled results
+    (large batches go inline through the ring's slot — one memcpy into
+    shared memory, no pipe, no feeder thread)."""
+
+    def __init__(self, names, slot_size, n_slots=8):
+        from ..runtime import ShmRing
+        self._rings = [ShmRing(n, slot_size=slot_size, n_slots=n_slots,
+                               create=True) for n in names]
+        self._slot = slot_size
+
+    def _sweep(self):
+        import pickle
+        for r in self._rings:
+            data = r.pop(timeout_ms=0)
+            if data is not None:
+                return pickle.loads(data)
+        return None
+
+    def get(self, timeout=5.0):
+        import queue as queue_mod
+        import time as time_mod
+        deadline = time_mod.monotonic() + timeout
+        while True:
+            msg = self._sweep()
+            if msg is not None:
+                return msg
+            if time_mod.monotonic() > deadline:
+                raise queue_mod.Empty
+            time_mod.sleep(0.001)
+
+    def get_nowait(self):
+        import queue as queue_mod
+        msg = self._sweep()
+        if msg is None:
+            raise queue_mod.Empty
+        return msg
+
+    def close(self):
+        for r in self._rings:
+            r.close()
+        self._rings = []
+
+
 def _worker_loop(dataset, index_queue, result_queue, collate_fn, wid,
-                 num_workers, worker_init_fn, use_shared_memory, seed):
+                 num_workers, worker_init_fn, use_shared_memory, seed,
+                 ring_name=None, ring_slot=0):
     """Worker process body (reference _worker_loop, dataloader/worker.py)."""
     global _worker_info
     _worker_info = _WorkerInfo(wid, num_workers, dataset)
@@ -344,6 +396,34 @@ def _worker_loop(dataset, index_queue, result_queue, collate_fn, wid,
     np.random.seed((seed + wid) % (2 ** 31))
     if worker_init_fn is not None:
         worker_init_fn(wid)
+    if ring_name is not None:
+        import pickle
+        from ..runtime import ShmRing
+        ring = ShmRing(ring_name, create=False)
+
+        def _send(msg):
+            ep_, bi_, ok_, payload_ = msg
+            data = pickle.dumps(msg)
+            if len(data) + 8 > ring_slot and ok_:
+                # batch bigger than a slot: park arrays in their own
+                # shm segments and send the light refs through the ring
+                data = pickle.dumps((ep_, bi_, ok_,
+                                     _tree_to_shm(payload_)))
+            if len(data) + 8 > ring_slot:
+                # still oversized (object-heavy batch or a huge error
+                # traceback): report the failure instead of dying on
+                # the push — the worker must stay alive
+                note = (f"batch {bi_} payload exceeds the native ring "
+                        f"slot ({len(data)} > {ring_slot - 8} bytes); "
+                        "raise ring_slot_mb or disable use_native_ring"
+                        if ok_ else
+                        "worker error traceback exceeded the ring "
+                        "slot:\n" + str(payload_)[:4096])
+                data = pickle.dumps((ep_, bi_, False, note))
+            ring.push(data)
+    else:
+        def _send(msg):
+            result_queue.put(msg)
     while True:
         item = index_queue.get()
         if item is None:
@@ -351,12 +431,12 @@ def _worker_loop(dataset, index_queue, result_queue, collate_fn, wid,
         epoch, bidx, indices = item
         try:
             batch = collate_fn([dataset[i] for i in indices])
-            if use_shared_memory:
+            if use_shared_memory and ring_name is None:
                 batch = _tree_to_shm(batch)
-            result_queue.put((epoch, bidx, True, batch))
+            _send((epoch, bidx, True, batch))
         except Exception:
             import traceback
-            result_queue.put((epoch, bidx, False, traceback.format_exc()))
+            _send((epoch, bidx, False, traceback.format_exc()))
 
 
 class DataLoader:
@@ -375,13 +455,10 @@ class DataLoader:
                  ring_slot_mb=8):
         self.dataset = dataset
         self.collate_fn = collate_fn or default_collate_fn
-        if use_native_ring:
-            raise NotImplementedError(
-                "DataLoader(use_native_ring=True): the native shared-memory "
-                "ring (runtime.ShmRing) is not ported yet (ROADMAP Queue 1 "
-                "item 15)")
         self.num_workers = num_workers
         self.use_shared_memory = use_shared_memory
+        self.use_native_ring = use_native_ring
+        self.ring_slot = int(ring_slot_mb) << 20
         self.timeout = timeout
         self.worker_init_fn = worker_init_fn
         self.persistent_workers = persistent_workers
@@ -428,16 +505,31 @@ class DataLoader:
 
     # ---------------------------------------------------- worker control
     def _start_workers(self):
+        import os as os_mod
         ctx = multiprocessing.get_context("fork")
-        self._result_queue = ctx.Queue()
+        ring_names = None
+        if self.use_native_ring:
+            ring_names = [f"/pt_dl_{os_mod.getpid()}_{id(self)}_{w}"
+                          for w in range(self.num_workers)]
+            # slots must cover this worker's share of the dispatch
+            # window or producers block at epoch boundaries
+            n_slots = max(8, 2 * max(2, self.prefetch_factor) + 2)
+            self._result_queue = _RingResultQueue(ring_names,
+                                                  self.ring_slot,
+                                                  n_slots=n_slots)
+        else:
+            self._result_queue = ctx.Queue()
         for wid in range(self.num_workers):
             iq = ctx.Queue()
             p = ctx.Process(
                 target=_worker_loop,
-                args=(self.dataset, iq, self._result_queue,
+                args=(self.dataset, iq,
+                      None if ring_names else self._result_queue,
                       self.collate_fn, wid, self.num_workers,
                       self.worker_init_fn, self.use_shared_memory,
-                      np.random.randint(0, 2 ** 31)),
+                      np.random.randint(0, 2 ** 31),
+                      ring_names[wid] if ring_names else None,
+                      self.ring_slot),
                 daemon=True)
             p.start()
             self._workers.append(p)
@@ -473,6 +565,8 @@ class DataLoader:
             if p.is_alive():
                 p.terminate()
         self._drain_result_queue()
+        if isinstance(self._result_queue, _RingResultQueue):
+            self._result_queue.close()
         self._workers, self._index_queues = [], []
         self._result_queue = None
 
@@ -544,7 +638,10 @@ class DataLoader:
                         self._shutdown_workers()
                         raise RuntimeError(
                             f"DataLoader worker failed:\n{payload}")
-                    if self.use_shared_memory:
+                    if self.use_shared_memory or self.use_native_ring:
+                        # ring payloads are inline unless a batch
+                        # overflowed its slot into shm refs; the
+                        # converter passes plain arrays through
                         payload = _tree_from_shm(payload)
                     if ep != epoch:
                         continue  # stale result from an abandoned epoch

@@ -11,9 +11,12 @@ stacked experts ``moe.experts.w_gate`` / ``w_up`` ``[E, H, F]`` and
 name for name. Serving runs through the decode bundles of
 ``models.generation`` (``_moe_topk_ffn``: every expert runs and each
 token combines its top-k normalised gates, as the reference's decode
-does). The eager ``forward``/``loss`` of the reference go through the
-GShard capacity dispatch and the aux loss of its ``parallel/moe``, the
-training path: they raise here (ROADMAP Queue 1 item 13).
+does). Training runs the reference's eager ``forward`` / ``loss``: the
+Llama attention (K6 rope, K4 flash attention), RMSNorm on K5, and each
+block's ``parallel.moe.MoELayer`` (the GShard gate's capacity dispatch
+over ``moe_group_size`` tokens a group, the stacked SwiGLU experts, the
+load-balance aux loss); ``loss`` is the next-token cross-entropy plus
+``aux_loss_coef`` times the layers' aux losses.
 """
 import math
 from dataclasses import dataclass
@@ -22,10 +25,13 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..nn.layer import set_state_dict
+from ..nn import functional as F
+from ..nn.layer import Layer, set_state_dict
 from ..ops.rope import precompute_freqs
+from ..parallel.moe import ExpertSwiGLU, GShardGate, MoELayer
 from .generation import GenerationMixin
-from .llama import LlamaConfig, _Attention, _Proj, _Weight
+from .llama import LlamaConfig, _Attention, _Embedding, _Proj, _RMSNorm, \
+    _Weight
 
 __all__ = ["MixtralConfig", "MixtralBlock", "MixtralModel",
            "MixtralForCausalLM", "mixtral_8x7b", "moe_350m_8e",
@@ -36,49 +42,64 @@ __all__ = ["MixtralConfig", "MixtralBlock", "MixtralModel",
 class MixtralConfig(LlamaConfig):
     num_experts: int = 8
     top_k: int = 2
+    capacity_factor: float = 1.25
+    aux_loss_coef: float = 0.01
+    moe_group_size: int = None   # tokens per dispatch group; None = seq len
+
+    @property
+    def active_params_ratio(self):
+        """Fraction of expert params active per token (for MFU accounting)."""
+        return self.top_k / self.num_experts
 
 
-class _Router(nn.Module):
-    """The gate's linear map ``gate.weight`` ``[H, E]``."""
+class _Router(GShardGate):
+    """The block's GShard gate (top-k, capacity, aux loss) over an
+    undrawn ``gate.weight`` ``[H, E]`` (the model draws every weight)."""
 
     def __init__(self, cfg, dtype, device):
-        super().__init__()
+        Layer.__init__(self)
+        self.d_model = cfg.hidden_size
+        self.num_experts = cfg.num_experts
+        self.top_k = cfg.top_k
+        self.capacity_factor = cfg.capacity_factor
         self.gate = _Proj(cfg.hidden_size, cfg.num_experts, dtype, device)
 
 
-class _Experts(nn.Module):
-    """``ExpertSwiGLU``'s stacked weights: ``w_gate``, ``w_up`` ``[E, H,
-    F]`` and ``w_down`` ``[E, F, H]``."""
+class _Experts(ExpertSwiGLU):
+    """``ExpertSwiGLU``'s stacked weights, undrawn: ``w_gate``, ``w_up``
+    ``[E, H, F]`` and ``w_down`` ``[E, F, H]``."""
 
     def __init__(self, cfg, dtype, device):
-        super().__init__()
-        E, h, f = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
-        for name, shape in (("w_gate", (E, h, f)), ("w_up", (E, h, f)),
-                            ("w_down", (E, f, h))):
-            setattr(self, name, nn.Parameter(
-                torch.empty(shape, dtype=dtype, device=device)))
+        super().__init__(cfg.num_experts, cfg.hidden_size,
+                         cfg.intermediate_size, dtype=dtype, device=device)
 
-
-class _MoE(nn.Module):
-    """``MoELayer``'s parameters: the experts, then the router (the
-    reference's registration order)."""
-
-    def __init__(self, cfg, dtype, device):
-        super().__init__()
-        self.experts = _Experts(cfg, dtype, device)
-        self.gate = _Router(cfg, dtype, device)
+    def reset_parameters(self):
+        pass
 
 
 class MixtralBlock(nn.Module):
-    """Pre-RMSNorm Llama attention and the routed expert FFN."""
+    """Pre-RMSNorm Llama attention and the routed expert FFN
+    (``MoELayer``: the experts, then the router, the reference's
+    registration order), each with a residual."""
 
     def __init__(self, cfg, dtype, device, rope):
         super().__init__()
+        self.eps = cfg.rms_eps
         self.input_layernorm = _Weight((cfg.hidden_size,), dtype, device)
         self.self_attn = _Attention(cfg, dtype, device, rope)
         self.post_attention_layernorm = _Weight((cfg.hidden_size,), dtype,
                                                 device)
-        self.moe = _MoE(cfg, dtype, device)
+        self.moe = MoELayer(cfg.hidden_size,
+                            experts=_Experts(cfg, dtype, device),
+                            gate=_Router(cfg, dtype, device),
+                            group_size=cfg.moe_group_size or cfg.max_seq_len)
+
+    def forward(self, x, position_ids=None):
+        x = x + self.self_attn(
+            F.rms_norm(x, self.input_layernorm.weight, self.eps),
+            position_ids)
+        return x + self.moe(
+            F.rms_norm(x, self.post_attention_layernorm.weight, self.eps))
 
 
 class MixtralModel(nn.Module):
@@ -88,17 +109,22 @@ class MixtralModel(nn.Module):
         super().__init__()
         rope = precompute_freqs(cfg.head_dim, cfg.max_seq_len,
                                 cfg.rope_theta, device=device)
-        self.embed_tokens = _Weight((cfg.vocab_size, cfg.hidden_size),
-                                    dtype, device)
+        self.embed_tokens = _Embedding((cfg.vocab_size, cfg.hidden_size),
+                                       dtype, device)
         self.layers = nn.ModuleList([MixtralBlock(cfg, dtype, device, rope)
                                      for _ in range(cfg.num_layers)])
-        self.norm = _Weight((cfg.hidden_size,), dtype, device)
+        self.norm = _RMSNorm((cfg.hidden_size,), cfg.rms_eps, dtype, device)
+
+    def forward(self, input_ids, position_ids=None):
+        x = self.embed_tokens(input_ids)
+        for blk in self.layers:
+            x = blk(x, position_ids)
+        return self.norm(x)
 
 
 class MixtralForCausalLM(nn.Module, GenerationMixin):
-    """Mixtral causal LM: the decode bundles for serving and
-    ``generate()``; ``forward`` and ``loss`` raise (ROADMAP Queue 1
-    item 13: the capacity dispatch of ``parallel/moe``).
+    """Mixtral causal LM: ``forward`` / ``loss`` for training, the decode
+    bundles for serving and ``generate()``.
 
     ``device=None`` means the CUDA card (pass ``device="cpu"`` for the
     plain PyTorch versions); ``dtype`` defaults to ``cfg.dtype``. Weights
@@ -137,17 +163,34 @@ class MixtralForCausalLM(nn.Module, GenerationMixin):
                           generator=gen)
 
     def forward(self, input_ids, position_ids=None):
-        raise NotImplementedError(
-            "MixtralForCausalLM.forward (the GShard capacity dispatch and "
-            "aux loss of parallel/moe) is not ported (ROADMAP, Queue 1 "
-            "item 13: multi-card training, moe); serve it through "
-            "generate() or ContinuousBatchingServer")
+        """Logits ``[B, S, vocab]`` in the model's dtype for ``input_ids``
+        ``[B, S]`` (moved to the model's device); each block's MoE layer
+        keeps its aux loss for ``loss``."""
+        ids = torch.as_tensor(input_ids, device=self.device)
+        if position_ids is not None:
+            position_ids = torch.as_tensor(position_ids, device=self.device)
+        return self.lm_head(self.model(ids, position_ids))
+
+    def collect_aux_loss(self):
+        """Sum of the per-layer load-balance losses of the last forward
+        (None before one)."""
+        total = None
+        for blk in self.model.layers:
+            a = blk.moe.aux_loss
+            if a is None:
+                continue
+            total = a if total is None else total + a
+        return total
 
     def loss(self, logits, labels):
-        raise NotImplementedError(
-            "MixtralForCausalLM.loss (cross-entropy plus the moe aux loss) "
-            "is not ported (ROADMAP, Queue 1 item 13: multi-card "
-            "training, moe)")
+        """Mean next-token cross-entropy in f32 plus ``aux_loss_coef``
+        times the last forward's aux losses."""
+        labels = torch.as_tensor(labels, device=logits.device)
+        ce = F.cross_entropy(logits[:, :-1, :], labels[:, 1:])
+        aux = self.collect_aux_loss()
+        if aux is not None:
+            ce = ce + self.cfg.aux_loss_coef * aux
+        return ce
 
     set_state_dict = set_state_dict
 

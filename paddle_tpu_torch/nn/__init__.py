@@ -13,10 +13,9 @@
 - ``functional``, ``initializer`` (with ``ParamAttr`` of ``param_attr``),
   ``utils`` (weight and spectral norm, the parameter vectors), the
   gradient clips of ``clip``, and ``set_state_dict`` for any torch
-  module.
-
-Not ported yet: ``nn.quant`` (its ``QuantedConv2D`` and the quantized
-layers), ROADMAP Queue 1 item 15.6.
+  module;
+- ``quant``: the quantized layers (``QuantedConv2D``, ``QuantedLinear``,
+  ``Stub``) the ``quantization`` package swaps in.
 """
 from . import functional, initializer, utils  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401

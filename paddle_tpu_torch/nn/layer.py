@@ -50,21 +50,12 @@ from ..core.dtype import _STR2DTYPE, canonical, convert_dtype
 from ..core.tensor import Parameter as _TensorParameter
 from ..core.tensor import Tensor, _wrap_out
 from ..device import default_device, place_to_device
+from ..utils import unique_name
 from . import initializer as I
 
 __all__ = ["Layer", "LayerList", "Sequential", "ParameterList", "LayerDict",
            "HookRemoveHelper", "ParamBase", "set_state_dict",
            "create_parameter"]
-
-_name_counts = collections.Counter()
-
-
-def _unique_name(key):
-    """``key_0``, ``key_1``, ... (the reference's ``unique_name``)."""
-    n = _name_counts[key]
-    _name_counts[key] += 1
-    return f"{key}_{n}"
-
 
 class ParamBase(torch.nn.Parameter):
     """A layer's parameter: a ``torch.nn.Parameter`` with the reference
@@ -219,7 +210,9 @@ class Layer(torch.nn.Module):
         self._dtype = canonical(convert_dtype(dtype)) or torch.float32
         self._place = None
         self._name_scope = name_scope or type(self).__name__.lower()
-        self._full_name = _unique_name(self._name_scope)
+        # ``key_0``, ``key_1``, ... from utils.unique_name's one counter,
+        # which static's names share (the reference's)
+        self._full_name = unique_name.generate(self._name_scope)
         self._pre_hooks = collections.OrderedDict()
         self._post_hooks = collections.OrderedDict()
 

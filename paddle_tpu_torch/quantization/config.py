@@ -7,7 +7,7 @@ the deep copy inside ``Quantization.quantize``; a plain
 time a config looks at it, stored on the module so that a deep copy
 keeps it too.
 """
-from ..nn.layer import _unique_name
+from ..utils.unique_name import generate as _unique_name
 
 __all__ = ["SingleLayerConfig", "QuantConfig"]
 

@@ -6,7 +6,7 @@ import contextlib
 
 import torch
 
-from . import unique_name
+from ..utils import unique_name
 
 __all__ = ["cpu_places", "xpu_places", "cuda_places", "npu_places",
            "mlu_places", "device_guard", "name_scope", "ipu_shard_guard",

@@ -42,7 +42,6 @@ from paddle_tpu_torch import device as tdevice
 
 NOT_YET = {
     "DataParallel": "item 13 (multi-card training)",
-    "get_flags": "item 15.6b (runtime)", "set_flags": "item 15.6b (runtime)",
 }
 # nn's names not ported yet (none: layers_tail came with item 15.3)
 NN_NOT_YET = {}

@@ -20,10 +20,14 @@ the same numpy inputs go through both packages.
   and an optimistic wave on an undersized pool (preemptions and
   replays): tokens, stats and pool balance equal to the JAX server's;
 - ``forward`` and ``loss`` (the capacity dispatch of the training path)
-  raise, naming ROADMAP Queue 1 item 13.
+  run and give the JAX model's logits and loss; the expert-parallel
+  groups (the four-card part of ROADMAP Queue 1 item 13) raise, naming
+  it. ``tests/test_torch_mixtral_training.py`` holds the training path
+  to the reference in full.
 """
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -218,8 +222,23 @@ def test_optimistic_wave_on_an_undersized_pool_equals_jax():
 
 
 def test_forward_and_loss_raise_naming_item_13():
-    _, tm = _models()
+    """Item 13's single-card part is ported: ``forward`` and ``loss`` give
+    the JAX model's values (f32, within 1e-5); only the expert-parallel
+    groups, its four-card part, still raise naming item 13."""
+    from paddle_tpu.core.tensor import unwrap
+    from paddle_tpu.jit import functional_call
+    from paddle_tpu_torch.parallel.moe import MoELayer
+    jm, tm = _models()
+    ids = _ids(1, 32)
+    logits = functional_call(jm, jm.raw_params(), jnp.asarray(ids))
+    aux = float(unwrap(jm.collect_aux_loss()))
+    with torch.no_grad():
+        got = tm(ids)
+        loss = tm.loss(got, ids)
+    np.testing.assert_allclose(got.numpy(), np.asarray(logits), rtol=0,
+                               atol=1e-5)
+    lp = np.asarray(jax.nn.log_softmax(logits[:, :-1], -1))
+    ce = -np.take_along_axis(lp, ids[:, 1:, None], -1).mean()
+    assert abs(loss.item() - (ce + 0.01 * aux)) <= 1e-5
     with pytest.raises(NotImplementedError, match="item 13"):
-        tm(_ids(1))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tm.loss(torch.zeros(1, 2, V), _ids(1, 2))
+        MoELayer(64, num_experts=4, d_hidden=128, moe_group=object())
