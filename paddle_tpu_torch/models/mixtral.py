@@ -26,7 +26,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..nn import functional as F
-from ..nn.layer import Layer, set_state_dict
+from ..nn.layer import set_state_dict
 from ..ops.rope import precompute_freqs
 from ..parallel.moe import ExpertSwiGLU, GShardGate, MoELayer
 from .generation import GenerationMixin
@@ -52,31 +52,6 @@ class MixtralConfig(LlamaConfig):
         return self.top_k / self.num_experts
 
 
-class _Router(GShardGate):
-    """The block's GShard gate (top-k, capacity, aux loss) over an
-    undrawn ``gate.weight`` ``[H, E]`` (the model draws every weight)."""
-
-    def __init__(self, cfg, dtype, device):
-        Layer.__init__(self)
-        self.d_model = cfg.hidden_size
-        self.num_experts = cfg.num_experts
-        self.top_k = cfg.top_k
-        self.capacity_factor = cfg.capacity_factor
-        self.gate = _Proj(cfg.hidden_size, cfg.num_experts, dtype, device)
-
-
-class _Experts(ExpertSwiGLU):
-    """``ExpertSwiGLU``'s stacked weights, undrawn: ``w_gate``, ``w_up``
-    ``[E, H, F]`` and ``w_down`` ``[E, F, H]``."""
-
-    def __init__(self, cfg, dtype, device):
-        super().__init__(cfg.num_experts, cfg.hidden_size,
-                         cfg.intermediate_size, dtype=dtype, device=device)
-
-    def reset_parameters(self):
-        pass
-
-
 class MixtralBlock(nn.Module):
     """Pre-RMSNorm Llama attention and the routed expert FFN
     (``MoELayer``: the experts, then the router, the reference's
@@ -89,10 +64,16 @@ class MixtralBlock(nn.Module):
         self.self_attn = _Attention(cfg, dtype, device, rope)
         self.post_attention_layernorm = _Weight((cfg.hidden_size,), dtype,
                                                 device)
-        self.moe = MoELayer(cfg.hidden_size,
-                            experts=_Experts(cfg, dtype, device),
-                            gate=_Router(cfg, dtype, device),
-                            group_size=cfg.moe_group_size or cfg.max_seq_len)
+        # undrawn: the model draws every weight
+        self.moe = MoELayer(
+            cfg.hidden_size,
+            experts=ExpertSwiGLU(cfg.num_experts, cfg.hidden_size,
+                                 cfg.intermediate_size, dtype=dtype,
+                                 device=device, draw=False),
+            gate=GShardGate(cfg.hidden_size, cfg.num_experts, cfg.top_k,
+                            cfg.capacity_factor, dtype=dtype, device=device,
+                            draw=False),
+            group_size=cfg.moe_group_size or cfg.max_seq_len)
 
     def forward(self, x, position_ids=None):
         x = x + self.self_attn(

@@ -67,10 +67,12 @@ class _Placed(Layer):
 class Linear(_Placed):
     """paddle.nn.Linear: ``weight [in_features, out_features]``
     (Xavier-normal), ``bias [out_features]`` (zeros) unless ``bias_attr``
-    is False; ``x @ W + b``."""
+    is False; ``x @ W + b``. ``draw=False`` leaves the weights undrawn
+    (empty) for an owner that draws them itself."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
-                 bias_attr=None, name=None, *, dtype=None, device=None):
+                 bias_attr=None, name=None, *, dtype=None, device=None,
+                 draw=True):
         super().__init__(dtype, device)
         self.in_features = in_features
         self.out_features = out_features
@@ -82,7 +84,8 @@ class Linear(_Placed):
         else:
             self.bias = self.create_parameter(
                 (out_features,), attr=bias_attr, is_bias=True, draw=False)
-        self.reset_parameters()
+        if draw:
+            self.reset_parameters()
 
     def reset_parameters(self):
         for p in (self.weight, self.bias):

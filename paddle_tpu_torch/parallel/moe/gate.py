@@ -110,15 +110,18 @@ def _top1_dense_dispatch(logits, capacity, jitter_eps=0.0, training=True):
 
 
 class _GateBase(Layer):
+    """The router ``gate.weight`` ``[d_model, E]``; ``draw=False`` leaves
+    it undrawn for a model that draws every weight itself."""
+
     def __init__(self, d_model, num_experts, top_k=2, capacity_factor=1.25,
-                 *, dtype=None, device=None):
+                 *, dtype=None, device=None, draw=True):
         super().__init__()
         self.d_model = d_model
         self.num_experts = num_experts
         self.top_k = top_k
         self.capacity_factor = capacity_factor
         self.gate = Linear(d_model, num_experts, bias_attr=False,
-                           dtype=dtype, device=device)
+                           dtype=dtype, device=device, draw=draw)
 
     def capacity(self, num_tokens):
         return max(4, int(math.ceil(
@@ -150,10 +153,10 @@ class SwitchGate(_GateBase):
     """Reference switch_gate.py: top-1 + jitter."""
 
     def __init__(self, d_model, num_experts, capacity_factor=1.25,
-                 jitter=0.01, *, dtype=None, device=None):
+                 jitter=0.01, *, dtype=None, device=None, draw=True):
         super().__init__(d_model, num_experts, top_k=1,
                          capacity_factor=capacity_factor, dtype=dtype,
-                         device=device)
+                         device=device, draw=draw)
         self.jitter = jitter
 
     def forward(self, x):

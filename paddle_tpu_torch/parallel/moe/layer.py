@@ -31,10 +31,10 @@ __all__ = ["MoELayer", "ExpertMLP", "ExpertSwiGLU"]
 
 class ExpertMLP(_Placed):
     """Stacked experts: weights carry a leading expert dim so one batched
-    product computes all experts."""
+    product computes all experts; ``draw=False`` leaves them undrawn."""
 
     def __init__(self, num_experts, d_model, d_hidden, activation="gelu",
-                 *, dtype=None, device=None):
+                 *, dtype=None, device=None, draw=True):
         super().__init__(dtype, device)
         self.num_experts = num_experts
         init = I.XavierNormal()
@@ -47,7 +47,8 @@ class ExpertMLP(_Placed):
         self.b2 = self.create_parameter((num_experts, 1, d_model),
                                         is_bias=True, draw=False)
         self.activation = activation
-        self.reset_parameters()
+        if draw:
+            self.reset_parameters()
 
     def reset_parameters(self):
         for p in (self.w1, self.b1, self.w2, self.b2):
@@ -64,10 +65,11 @@ class ExpertMLP(_Placed):
 class ExpertSwiGLU(_Placed):
     """Stacked SwiGLU experts (Mixtral/DeepSeek-MoE FFN shape): each expert
     is gate/up/down with silu, weights stacked on a leading expert dim so
-    one batched product serves all experts."""
+    one batched product serves all experts; ``draw=False`` leaves them
+    undrawn for a model that draws every weight itself."""
 
     def __init__(self, num_experts, d_model, d_hidden, *, dtype=None,
-                 device=None):
+                 device=None, draw=True):
         super().__init__(dtype, device)
         self.num_experts = num_experts
         init = I.XavierNormal()
@@ -80,7 +82,8 @@ class ExpertSwiGLU(_Placed):
         self.w_down = self.create_parameter(
             (num_experts, d_hidden, d_model), default_initializer=init,
             draw=False)
-        self.reset_parameters()
+        if draw:
+            self.reset_parameters()
 
     def reset_parameters(self):
         for p in (self.w_gate, self.w_up, self.w_down):

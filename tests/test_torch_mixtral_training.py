@@ -124,24 +124,95 @@ def test_mixtral_training_matches_jax(batch):
     assert abs(got["loss"] - want["loss"]) <= 1e-5
 
 
+def _compare_inputs(probs, B, S, C=4):
+    """A yardstick ``moe_parity_run`` result around one block's gate
+    ``probs`` ``[G, g, E]`` for ``B`` x ``S`` tokens: seeded logits, zero
+    masks ``[G, g, E, C]``, one gradient, three losses."""
+    rng = np.random.default_rng(0)
+    return {"logits": rng.standard_normal((B, S, 5)), "aux": 0.5,
+            "loss": 1.0, "probs": [probs],
+            "masks": [np.zeros(probs.shape + (C,), bool)],
+            "grads": {"w": rng.standard_normal(3)}, "losses": [1.0, 0.9, 0.8]}
+
+
+def _swap(probs, token, a=0, b=1):
+    """``probs`` with experts ``a`` and ``b`` swapped at the flat
+    ``token``."""
+    out = probs.copy()
+    flat = out.reshape(-1, out.shape[-1])
+    flat[token, [a, b]] = flat[token, [b, a]]
+    return out
+
+
 def test_moe_parity_compare_allows_only_near_ties():
     """A flipped routing decision passes only where the yardstick's
     probabilities tie within ``MOE_TIE``."""
     probs = np.array([[[0.5, 0.3, 0.2], [0.4, 0.4 - 1e-6, 0.2]]],
                      np.float32)
-    base = {"logits": np.zeros(2), "aux": 0.0, "loss": 0.0,
-            "masks": [np.zeros(1)], "grads": {"w": np.ones(2)},
-            "losses": [0.0]}
-    want = dict(base, probs=[probs])
-    tie = probs.copy()
-    tie[0, 1, [0, 1]] = tie[0, 1, [1, 0]]
-    far = probs.copy()
-    far[0, 0, [0, 1]] = far[0, 0, [1, 0]]
-    for got, ok in ((dict(base, probs=[tie]), True),
-                    (dict(base, probs=[far]), False)):
+    want = _compare_inputs(probs, 1, 2)
+    for token, ok in ((1, True), (0, False)):
+        got = dict(want, probs=[_swap(probs, token)])
         checks, nums = chip_smoke.moe_parity_compare(np, got, want)
         assert nums["routing flips"] == 1
         assert checks["routing equal but at near-ties"] is ok
+
+
+def test_moe_reach_follows_rows_and_groups():
+    """A change reaches its row's later tokens and its group's."""
+    hit = np.zeros(8, bool)
+    hit[1] = True
+    # rows of 2, groups of 4: token 1's row ends at 1, its group at 3
+    assert chip_smoke.moe_reach(np, hit, 2, 4).tolist() == \
+        [False, True, True, True, False, False, False, False]
+    # rows of 4, groups of 2 (one group a half row)
+    assert chip_smoke.moe_reach(np, hit, 4, 2).tolist() == \
+        [False, True, True, True, False, False, False, False]
+    hit[:] = False
+    hit[6] = True
+    assert chip_smoke.moe_reach(np, hit, 8, 8).tolist() == \
+        [False] * 6 + [True, True]
+
+
+def test_moe_parity_compare_keeps_the_value_checks_under_a_flip():
+    """A near-tie flip leaves every value check in place: the logits and
+    dispatch masks are held at the tokens the flip cannot reach, and the
+    aux loss, gradients and losses, which every token reaches, fail."""
+    B, S = 2, 4
+    probs = np.tile(np.array([0.5, 0.3, 0.2], np.float32), (B, S, 1))
+    probs[0, 2] = [0.4, 0.4 - 1e-6, 0.2]          # a near-tie at row 0, 2
+    want = _compare_inputs(probs, B, S)
+    got = dict(want, probs=[_swap(probs, 2)])
+    # the flip's reach (row 0 from position 2) may differ as it likes
+    got["logits"] = want["logits"].copy()
+    got["logits"][0, 2:] += 1.0
+    got["masks"] = [want["masks"][0].copy()]
+    got["masks"][0][0, 3] = True
+    checks, nums = chip_smoke.moe_parity_compare(np, got, want)
+    assert len(checks) == 7
+    assert nums["routing flips"] == nums["near-tie flips"] == 1
+    assert nums["tokens no flip reaches"] == 6
+    needs_equal = {k for k in checks if "needs equal routing" in k}
+    assert len(needs_equal) == 3
+    assert all(v for k, v in checks.items() if k not in needs_equal), checks
+    assert not any(checks[k] for k in needs_equal)
+    # what the flip cannot reach is still held
+    bad = dict(got, logits=got["logits"].copy())
+    bad["logits"][1, 0] += 1.0
+    checks, _ = chip_smoke.moe_parity_compare(np, bad, want)
+    assert not checks["logits within 1e-05 of the largest where no flip "
+                      "reaches"]
+    bad = dict(got, masks=[got["masks"][0].copy()])
+    bad["masks"][0][1, 0, 0, 0] = True
+    checks, _ = chip_smoke.moe_parity_compare(np, bad, want)
+    assert not checks["dispatch masks equal where no flip reaches"]
+    # a flip at every row's first token leaves no logits to compare
+    probs[:, 0] = [0.4, 0.4 - 1e-6, 0.2]
+    want = _compare_inputs(probs, B, S)
+    got = dict(want, probs=[_swap(_swap(probs, 0), S)])
+    checks, nums = chip_smoke.moe_parity_compare(np, got, want)
+    assert nums["tokens no flip reaches"] == 0
+    assert not checks["logits within 1e-05 of the largest where no flip "
+                      "reaches"]
 
 
 def test_mixtral_forward_and_loss_run_on_the_cpu_place():
