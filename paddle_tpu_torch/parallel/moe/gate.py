@@ -153,10 +153,10 @@ class SwitchGate(_GateBase):
     """Reference switch_gate.py: top-1 + jitter."""
 
     def __init__(self, d_model, num_experts, capacity_factor=1.25,
-                 jitter=0.01, *, dtype=None, device=None, draw=True):
+                 jitter=0.01, *, dtype=None, device=None):
         super().__init__(d_model, num_experts, top_k=1,
                          capacity_factor=capacity_factor, dtype=dtype,
-                         device=device, draw=draw)
+                         device=device)
         self.jitter = jitter
 
     def forward(self, x):

@@ -31,10 +31,10 @@ __all__ = ["MoELayer", "ExpertMLP", "ExpertSwiGLU"]
 
 class ExpertMLP(_Placed):
     """Stacked experts: weights carry a leading expert dim so one batched
-    product computes all experts; ``draw=False`` leaves them undrawn."""
+    product computes all experts."""
 
     def __init__(self, num_experts, d_model, d_hidden, activation="gelu",
-                 *, dtype=None, device=None, draw=True):
+                 *, dtype=None, device=None):
         super().__init__(dtype, device)
         self.num_experts = num_experts
         init = I.XavierNormal()
@@ -47,8 +47,7 @@ class ExpertMLP(_Placed):
         self.b2 = self.create_parameter((num_experts, 1, d_model),
                                         is_bias=True, draw=False)
         self.activation = activation
-        if draw:
-            self.reset_parameters()
+        self.reset_parameters()
 
     def reset_parameters(self):
         for p in (self.w1, self.b1, self.w2, self.b2):
