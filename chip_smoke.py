@@ -27,6 +27,7 @@
     python3 chip_smoke.py --only build,tensor_api,static_jit
     python3 chip_smoke.py --only build,quant_parity,quant
     python3 chip_smoke.py --only build,moe_parity,moe,host
+    python3 chip_smoke.py --only build,vision_parity,vision
 
 Phases, in order; any failure exits non-zero:
 
@@ -467,7 +468,7 @@ Phases, in order; any failure exits non-zero:
    the custom ops (K4a, K5a, K6 q + k; K8; K7); ``export_decode`` of
    llama_tiny equal to the card's ``generate()``; GPT-2 345M in bf16
    (full width, seed 0): ``export_decode`` of its first ``DECODE_LAYERS``
-   (8) layers at 4 x 256 prompt tokens, 32 new (the near-tie rule against
+   (4) layers at 4 x 256 prompt tokens, 32 new (the near-tie rule against
    ``generate()``), at full depth ``export_layer`` of its forward at a
    dynamic batch through
    ``create_predictor`` (K4a 24 times a run, logits within TOL of the
@@ -602,7 +603,8 @@ Phases, in order; any failure exits non-zero:
    (parameters unchanged bit for bit, the optimizer not stepped) and the
    scale halves;
 39. fit: the high-level loop, ``Model.fit`` under ``TrainSupervisor``.
-   llama_350m in bf16 at full width and depth from seed 0,
+   llama_350m in bf16 at full width and ``FIT_LAYERS`` (12) of its 24
+   layers from seed 0 (each checkpoint save's time follows the depth),
    ``AdamW(1e-4, weight_decay=0.01)``, ``nn.CrossEntropyLoss()``, a
    ``TensorDataset`` of 96 rows of 1025 seeded ids (inputs the first
    1024, labels the last 1024), batch 8 (12 batches an epoch), 2 fork
@@ -721,7 +723,48 @@ Phases, in order; any failure exits non-zero:
    ``device.synchronize``; ``set_flags({"FLAGS_check_nan_inf": 1})`` makes
    a NaN on the card raise; a ``runtime.TCPStore`` set / get / add on
    localhost; a ``utils.cpp_extension`` elementwise op on a card tensor,
-   values and gradient; ``utils.run_check()`` on the card.
+   values and gradient; ``utils.run_check()`` on the card;
+46. vision_parity: ``vision.models.resnet18(num_classes=10)`` and
+   ``mobilenet_v2(scale=0.25, num_classes=10)`` from seed 0, built on the
+   CPU and copied to the card, f32 with TF32 off (the flags printed): one
+   eval-mode forward, cross-entropy loss and backward on [2, 3, 64, 64],
+   logits, loss and every gradient within ``VISION_TOL`` (the CPU's run
+   takes the card's side of each ReLU kink: at most ``VISION_MAX_FLIPS``
+   inputs a model, each within ``VISION_KINK_TOL`` of its layer's largest
+   |input| from the kink), no port kernel;
+   MobileNetV2's ``Dropout(0.2)`` on [64, 1280] under one seed: output
+   and input gradient bit for bit the CPU's (R2's dropout forward 1,
+   backward 1); ``nms`` of 500 boxes with tied scores, the CPU's indices;
+   ``roi_align`` (adaptive grid and 2 x 2), ``roi_pool``, ``psroi_pool``,
+   ``deform_conv2d`` (two deformable groups, a mask) and ``yolo_loss``,
+   values and input gradients within ``VISION_TOL``; ``decode_jpeg`` of a
+   JPEG written here, read to the card, the CPU's bytes; ``fft.rfftn`` /
+   ``ihfftn`` and ``signal.stft`` / ``istft`` within ``VISION_TOL``;
+47. vision: at full width in f32 (TF32 off) on one fixed 64 x 3 x 224 x
+   224 batch from seed 0, 1000 classes. ``resnet50()`` (25.6M parameters)
+   under ``Momentum(0.025, 0.9)``, weight decay 1e-4 (PaddleClas's
+   ImageNet ResNet50 configuration, its rate 0.1 for 256 images scaled to
+   one card's 64), and ``mobilenet_v2()`` under
+   ``AdamW(1e-3)``: 2 warm-up steps, 10 timed with the counters zeroed just
+   before and read just after, 1 traced by the port's profiler inside a
+   ``RecordEvent``; ms a step, images/s, peak memory, the traced step's
+   kernels over an untraced step's time (the busy share), its launches and
+   top kernels; gates: losses finite and falling, ResNet-50 no port kernel,
+   MobileNetV2 the fused AdamW step once a step and R2's dropout twice a
+   step (forward and backward of its one ``Dropout``), nothing else.
+   ResNet-50 at PaddleClas's own rate 0.1 (``vision_rate_witness``): 6
+   steps of the port, each beside one ``torch.optim.SGD`` step over
+   torch's ``batch_norm`` from the same weights and velocity, within
+   ``WITNESS_TOL``; the port and SGD run free both rise there. Then
+   the data path: 128 seeded 256 x 256 JPEGs in 4 class folders,
+   ``DatasetFolder`` with ``RandomResizedCrop(224)``,
+   ``RandomHorizontalFlip()``, ``ToTensor()``, ``Normalize`` through
+   ``DataLoader(num_workers=4)``: one epoch alone (the loader's images/s)
+   and ``hapi.Model(mobilenet_v2(num_classes=4)).fit`` over it (2 steps,
+   finite losses, Opt 2 and R2's dropout 4). Then the detection ops at a
+   detector's widths: ``roi_align`` of 2 x 512 boxes on [2, 256, 50, 84]
+   at 7 x 7 (stride 16) forward and backward, and ``nms`` of 2000 boxes:
+   ms and the card's kernel count of each (no port kernel).
 
 Each phase ends with a ``phase <name> <seconds>`` line. The last two
 lines of standard output are the per-kernel JSON record
@@ -747,7 +790,8 @@ PHASES = ("build", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "opt",
           "families", "decode_parity", "decoding", "deploy", "tensor_api",
           "nn_layers", "zoo_parity", "zoo", "int8_infer",
           "train", "train_compose", "train_amp", "fit", "static_jit",
-          "quant_parity", "quant", "moe_parity", "moe", "host")
+          "quant_parity", "quant", "moe_parity", "moe", "host",
+          "vision_parity", "vision")
 
 # NVIDIA data sheets, dense rates: (bytes/s, bf16 FLOP/s, fp32 FLOP/s
 # outside the tensor cores, int8 tensor-core operations/s). The SXM part
@@ -6868,7 +6912,7 @@ def archive_io_times():
 # the GPT-2 345M layers deploy's export_decode traces (of 24: the
 # export's time follows the depth, and the whole script keeps within its
 # budget; the predictor exports all 24)
-DECODE_LAYERS = 8
+DECODE_LAYERS = 4
 
 
 def phase_deploy(torch, np, card, record):
@@ -9336,12 +9380,13 @@ def fit_breakdown(torch, np, model, data, card):
 # runs A and C of the fit phase save only at their end (their 12 and 7
 # steps stay under it); B saves at its preemption
 FIT_INTERVAL = 100
+FIT_LAYERS = 12          # of llama_350m's 24: the saves' time follows it
 
 
 def phase_fit(torch, np, card, record, train):
     """This slice's path: ``Model.fit`` under ``TrainSupervisor`` on
-    llama_350m at full width and depth in bf16, seed 0,
-    AdamW(1e-4, weight_decay=0.01), ``nn.CrossEntropyLoss()``, a
+    llama_350m at full width and ``FIT_LAYERS`` of its layers in bf16,
+    seed 0, AdamW(1e-4, weight_decay=0.01), ``nn.CrossEntropyLoss()``, a
     ``TensorDataset`` of 96 seeded rows of 1025 ids (inputs the first
     1024, labels the last 1024), batch 8 (12 batches), 2 fork workers,
     a checkpoint at each run's end (and B's preemption), keeping 1, in a
@@ -9362,7 +9407,7 @@ def phase_fit(torch, np, card, record, train):
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.reliability import TrainSupervisor
     from paddle_tpu_torch.telemetry import MetricRegistry, TelemetryCallback
-    cfg = llama_350m()
+    cfg = dataclasses.replace(llama_350m(), num_layers=FIT_LAYERS)
     L, B, S, N = cfg.num_layers, 8, 1024, 96
     steps = N // B
     rows = np.random.default_rng(0).integers(0, cfg.vocab_size, (N, S + 1))
@@ -9444,8 +9489,9 @@ def phase_fit(torch, np, card, record, train):
         record["rope"]["launches"] = counts["k6"] + counts["k6_qk"]
         record["multi_tensor_adam"]["launches"] = counts["opt"]
         final_a = [p.detach().clone() for p in model.network.parameters()]
-        checks["the guard flags a NaN, an Inf and a -Inf in one of 219 "
-               "bf16 tensors, and nothing in finite ones"] = \
+        checks[f"the guard flags a NaN, an Inf and a -Inf in one of "
+               f"{len(final_a)} bf16 tensors, and nothing in finite "
+               f"ones"] = \
             guard_flags(torch, final_a)
         fit_breakdown(torch, np, model, data, card)
         del model
@@ -9458,7 +9504,8 @@ def phase_fit(torch, np, card, record, train):
         waits = [rec_a.begins[i] - rec_a.ends[i - 1]
                  for i in range(1, len(rec_a.begins))]
         log(f"fit A losses: {rec_a.losses}")
-        train_ms = (f"{train['step_ms']:.1f} ms" if train is not None
+        train_ms = (f"{train['step_ms']:.1f} ms at 24 layers"
+                    if train is not None
                     else "not measured (run the train phase)")
         log(f"fit metrics [{card}]: llama_350m bf16, {L} layers, batch {B} "
             f"x {S}: {step_ms:.1f} ms per step (median of {len(steady)} "
@@ -10024,8 +10071,9 @@ def phase_quant_parity(torch, np):
     from paddle_tpu_torch.incubate.nn.functional import \
         fused_multi_transformer
     from paddle_tpu_torch.jit import train_step_fn
-    from paddle_tpu_torch.models import (LlamaForCausalLM, export_params,
-                                         llama_tiny, load_jax_params)
+    from paddle_tpu_torch.models import (LlamaForCausalLM, export_buffers,
+                                         export_params, llama_tiny,
+                                         load_jax_params)
     from paddle_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
     from paddle_tpu_torch.optimizer import AdamW
     cfg = llama_tiny()
@@ -10055,8 +10103,10 @@ def phase_quant_parity(torch, np):
     scale_err = max(abs(s_g[n] - s_c[n]) / max(abs(s_c[n]), 1.0)
                     for n in s_c)
     want = per_step_counts(L, 3)
-    # the int8 codes of the same weights: the CPU's trained ones in both
-    load_jax_params(conv_g, export_params(conv_c))
+    # the int8 codes of the same weights: the CPU's trained ones and
+    # observer scales in both
+    load_jax_params(conv_g, export_params(conv_c),
+                    buffers=export_buffers(conv_c))
     i8c = Q.to_int8_inference(conv_c, inplace=True)
     i8g = Q.to_int8_inference(conv_g, inplace=True)
     cb = dict(i8c.named_buffers())
@@ -10762,11 +10812,10 @@ MOE_TRACE = {"K4a": ("fwd_mma_kernel",), "K4b": ("dq_mma_kernel",
                                               "sumsq_kernel")}
 
 
-def moe_trace_names(trace_dir):
-    """Which of the port's kernels (``MOE_TRACE``) and whether the
-    ``moe_train_step`` range appear in the Chrome traces of
-    ``trace_dir``; and the card's kernels: {name: [launches, ms]}
-    (durations summed)."""
+def trace_events(trace_dir):
+    """The card's kernels in the Chrome traces of ``trace_dir``: {name:
+    [launches, ms]} (durations summed); and the ``RecordEvent`` range
+    names."""
     kernels, ranges = {}, set()
     for f in sorted(os.listdir(trace_dir)):
         with open(os.path.join(trace_dir, f)) as fh:
@@ -10778,6 +10827,15 @@ def moe_trace_names(trace_dir):
                     k[1] += float(ev.get("dur", 0.0)) / 1e3
                 elif cat == "user_annotation":
                     ranges.add(ev.get("name", ""))
+    return kernels, ranges
+
+
+def moe_trace_names(trace_dir):
+    """Which of the port's kernels (``MOE_TRACE``) and whether the
+    ``moe_train_step`` range appear in the Chrome traces of
+    ``trace_dir``; and the card's kernels: {name: [launches, ms]}
+    (durations summed)."""
+    kernels, ranges = trace_events(trace_dir)
     out = {k: all(any(w in name for name in kernels) for w in want)
            for k, want in MOE_TRACE.items()}
     out["RecordEvent moe_train_step"] = "moe_train_step" in ranges
@@ -10892,6 +10950,663 @@ def phase_host(torch, np, card):
     for name, good in checks.items():
         if not good:
             raise SystemExit(f"host: check failed: {name}")
+
+
+# The tolerances of vision_parity, the card against the CPU in f32 with
+# TF32 off: the models' logits of their largest |value|, the loss of
+# max(1, |loss|), each gradient element of its tensor's largest |value|
+# (floored at 1e-3 of the model's largest gradient: a tensor whose
+# gradient is ~0 in exact arithmetic is rounding noise on both sides).
+# That needs every ReLU / ReLU6 input on the same side of its kinks on
+# both devices: one within rounding of a kink can fall on the other side
+# and move a term of a gradient whole (0.8% of a batch-norm weight's
+# largest at MobileNetV2's 2 x 2 last maps, where a channel sums 8 terms:
+# 1 of 338,304 inputs did so on the card). So the CPU's run takes the
+# card's side at each kink (``vision_model_run``'s ``sides``); each input
+# it moves must lie within ``VISION_KINK_TOL`` of its layer's largest
+# |input| from the kink on the CPU, and at most ``VISION_MAX_FLIPS`` a
+# model. The detection ops' values and input gradients of their largest
+# |value|; the spectra of their largest |value| (cuFFT against
+# pocketfft).
+VISION_TOL = {"logits": 1e-4, "loss": 1e-4, "grad": 1e-3, "op": 1e-5,
+              "op_grad": 1e-4, "spectral": 1e-5}
+VISION_GRAD_FLOOR = 1e-3
+VISION_KINK_TOL = 1e-5
+VISION_MAX_FLIPS = 8
+# the vision phase: PaddleClas's ImageNet ResNet50 recipe
+# (ppcls/configs/ImageNet/ResNet/ResNet50.yaml: 64 images a card,
+# Momentum 0.9, L2 1e-4, 224 x 224; its rate 0.1 is for 256 images, four
+# cards' batches, so one card's 64 takes 0.025 by the linear rule: at 0.1
+# the loss on one fixed batch rose over the 13 steps on an H100, 7.41 ->
+# 8.36; ``vision_rate_witness`` shows that torch's own SGD and batch norm
+# rise the same way there) and MobileNetV2 under AdamW as
+# tests/test_vision_zoo.py trains it; the data path over JPEGs it writes
+VISION = {"B": 64, "size": 224, "steps": 10, "warmup": 2, "lr": 0.025,
+          "witness_lr": 0.1, "witness_steps": 6, "jpegs": 128,
+          "jpeg_size": 256, "workers": 4, "classes": 4, "roi_boxes": 512,
+          "roi_map": (2, 256, 50, 84), "roi_stride": 16, "nms_boxes": 2000}
+# the witness: a step of the port's Momentum over its batch norm against
+# one of torch.optim.SGD over torch's batch_norm from the same state, the
+# loss of max(1, |loss|), the parameters after the step by the norm of
+# their difference over the norm of the step. At seed 0's weights the f32
+# gradients themselves are that far apart: on the CPU at 16 x 224 x 224
+# the port's and torch's batch norms give gradients 2.1% and 1.9% off an
+# f64 evaluation by that norm (1.6% apart; conv1 and layer1 lead, their
+# sums over every pixel cancelling under batch norm), and layer4's
+# convolutions 10-13% tensor by tensor. A wrong momentum, sign or batch
+# norm moves the step by tens of percent.
+WITNESS_TOL = {"loss": 1e-4, "update": 5e-2}
+VISION_MEAN = [0.485, 0.456, 0.406]
+VISION_STD = [0.229, 0.224, 0.225]
+
+
+def vision_model_run(torch, pt, model, x, y, sides=None):
+    """One eval-mode forward, cross-entropy loss and backward: (logits,
+    loss, {name: gradient}, the side of its kinks each ReLU / ReLU6 input
+    element fell on (0: at or below 0; 1: between; 2: at or above
+    ReLU6's 6), in call order, and for each element whose side differs
+    from ``sides`` its distance from that kink, of its layer's largest
+    |input|). Given ``sides`` (another run's), each activation takes
+    that run's side: its value where the sides agree (bit for bit what
+    the activation gives), its input, 0 or 6 where they differ, and the
+    gradient of that side."""
+    model.eval()
+    for p in model.parameters():
+        p.grad = None
+    seen, flips = [], []
+
+    def side(layer, inputs, outputs):
+        v = inputs[0]
+        hi = 6.0 if isinstance(layer, pt.nn.ReLU6) else math.inf
+        own = ((v > 0).to(torch.int8) + (v >= hi).to(torch.int8)).detach()
+        seen.append(own.cpu())
+        if sides is None:
+            return None
+        want = sides[len(seen) - 1].to(v.device)
+        moved = want != own
+        if moved.any():
+            kink = torch.where(want + own >= 3, hi, 0.0)[moved]
+            scale = max(v.detach().abs().max().item(), 1e-30)
+            flips.extend(((v.detach()[moved] - kink).abs() / scale)
+                         .tolist())
+        return torch.where(want == 1, v, torch.where(
+            want == 0, torch.zeros_like(v), torch.full_like(v, hi)))
+
+    hooks = [m.register_forward_post_hook(side)
+             for m in model.sublayers()
+             if isinstance(m, (pt.nn.ReLU, pt.nn.ReLU6))]
+    try:
+        logits = model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    loss = pt.nn.functional.cross_entropy(logits, y)
+    loss.backward()
+    return logits.detach(), loss.detach(), {
+        n: p.grad.detach().clone() for n, p in model.named_parameters()}, \
+        seen, flips
+
+
+def vision_op_rows(torch, np):
+    """(name, function of tensors, numpy inputs, positions whose
+    gradients are compared) for the detection ops at small sizes."""
+    from paddle_tpu_torch.vision import ops as vo
+    rng = np.random.default_rng(0)
+
+    def boxes(n, size):
+        xy = rng.uniform(0, size * 0.7, (n, 2))
+        wh = rng.uniform(0.5, size * 0.5, (n, 2))
+        return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+    feat = rng.standard_normal((2, 8, 16, 20)).astype(np.float32)
+    bx = boxes(10, 16.0)
+    num = np.array([5, 5], np.int32)
+    x = rng.standard_normal((2, 4, 9, 8)).astype(np.float32)
+    w = (0.3 * rng.standard_normal((6, 4, 3, 3))).astype(np.float32)
+    off = (0.7 * rng.standard_normal((2, 36, 9, 8))).astype(np.float32)
+    mask = rng.uniform(0, 1, (2, 18, 9, 8)).astype(np.float32)
+    yolo_x = (0.5 * rng.standard_normal((2, 21, 6, 6))).astype(np.float32)
+    gt = np.array([[[0.5, 0.5, 0.2, 0.3], [0.1, 0.8, 0.1, 0.1]],
+                   [[0.9, 0.2, 0.3, 0.2], [0.0, 0.0, 0.0, 0.0]]],
+                  np.float32)
+    label = np.array([[1, 0], [1, 0]], np.int64)
+    return [
+        ("roi_align adaptive aligned", lambda f, b: vo.roi_align(
+            f, b, num, 3, spatial_scale=1.0), [feat, bx], (0, 1)),
+        ("roi_align 2x2 unaligned 1/2", lambda f, b: vo.roi_align(
+            f, b, num, (2, 3), spatial_scale=0.5, sampling_ratio=2,
+            aligned=False), [feat, bx], (0, 1)),
+        ("roi_pool", lambda f, b: vo.roi_pool(f, b, num, 2), [feat, bx],
+         (0,)),
+        ("psroi_pool", lambda f, b: vo.psroi_pool(f, b, num, 2), [feat, bx],
+         (0,)),
+        ("deform_conv2d groups 2, v2", lambda a, o, k, m: vo.deform_conv2d(
+            a, o, k, padding=1, deformable_groups=2, mask=m),
+         [x, off, w, mask], (0, 1, 2, 3)),
+        ("yolo_loss", lambda a: vo.yolo_loss(
+            a, gt, label, anchors=[10, 13, 16, 30, 33, 23],
+            anchor_mask=[0, 1, 2], class_num=2, ignore_thresh=0.5,
+            downsample_ratio=32), [yolo_x], (0,)),
+    ]
+
+
+def vision_op_run(torch, np, fn, inputs, diff, device):
+    ts = [torch.tensor(a, device=device, requires_grad=i in diff)
+          for i, a in enumerate(inputs)]
+    out = fn(*ts)
+    w = torch.tensor(np.random.default_rng(1).standard_normal(
+        tuple(out.shape)).astype(np.float32), device=device)
+    (out * w).sum().backward()
+    return out.detach(), [ts[i].grad for i in diff]
+
+
+def vision_spectra(torch, np, pt, device):
+    """rfftn / ihfftn of [4, 32, 48] and stft / istft (hann, 512 / 128)
+    of [4, 4096], on ``device``."""
+    x = np.random.default_rng(2).standard_normal((4, 32, 48)).astype(
+        np.float32)
+    sig = np.random.default_rng(3).standard_normal((4, 4096)).astype(
+        np.float32)
+    win = torch.tensor(np.hanning(513)[:-1].astype(np.float32),
+                       device=device)
+    xt, st = torch.tensor(x, device=device), torch.tensor(sig, device=device)
+    spec = pt.signal.stft(st, 512, 128, window=win)
+    return {"rfftn": pt.fft.rfftn(xt), "ihfftn": pt.fft.ihfftn(xt),
+            "stft": spec, "istft": pt.signal.istft(spec, 512, 128,
+                                                    window=win,
+                                                    length=4096)}
+
+
+def phase_vision_parity(torch, np, card):
+    """Phase vision_parity (docstring item 46)."""
+    import copy
+    import tempfile
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import device as tdevice
+    from paddle_tpu_torch.vision import models as vm
+    from paddle_tpu_torch.vision import ops as vo
+    checks = {}
+    t_phase = time.perf_counter()
+    log(f"vision_parity: f32 with cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32} matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    try:
+        pt.set_device("cpu")
+        pt.seed(0)
+        models = {"resnet18": vm.resnet18(num_classes=10),
+                  "mobilenet_v2": vm.mobilenet_v2(scale=0.25,
+                                                  num_classes=10)}
+        rng = np.random.default_rng(4)
+        x = rng.standard_normal((2, 3, 64, 64)).astype(np.float32)
+        y = rng.integers(0, 10, 2)
+        for name, cpu_m in models.items():
+            card_m = copy.deepcopy(cpu_m).to("cuda")
+            zero_counts()
+            c = vision_model_run(torch, pt, card_m,
+                                 torch.tensor(x, device="cuda"),
+                                 torch.tensor(y, device="cuda"))
+            torch.cuda.synchronize()
+            counts = read_counts()
+            h = vision_model_run(torch, pt, cpu_m, torch.tensor(x),
+                                 torch.tensor(y), sides=c[3])
+            lerr = nn_scaled_err(torch, c[0], h[0])
+            loss_err = abs(c[1].item() - h[1].item()) / max(
+                1.0, abs(h[1].item()))
+            gmax = max(g.abs().max().item() for g in h[2].values())
+            gerr = {k: nn_scaled_err(torch, c[2][k], g,
+                                     VISION_GRAD_FLOOR * gmax)
+                    for k, g in h[2].items()}
+            worst = max(gerr, key=gerr.get)
+            log(f"vision_parity {name} [{card}]: "
+                f"{sum(p.numel() for p in cpu_m.parameters())} parameters, "
+                f"eval on [2, 3, 64, 64]: logits {lerr:.3g} of their "
+                f"largest, loss {loss_err:.3g} ({h[1].item():.6f}), "
+                f"largest gradient error {gerr[worst]:.3g} ({worst}) over "
+                f"{len(gerr)} tensors; {len(h[4])} of "
+                f"{sum(r.numel() for r in c[3])} ReLU inputs fell on the "
+                f"other side of a kink on the CPU and took the card's, "
+                f"the farthest {max(h[4], default=0.0):.3g} of its layer's "
+                f"largest from the kink; launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+            checks[f"{name}: logits within {VISION_TOL['logits']}, loss "
+                   f"within {VISION_TOL['loss']}, gradients within "
+                   f"{VISION_TOL['grad']}"] = (
+                lerr <= VISION_TOL["logits"]
+                and loss_err <= VISION_TOL["loss"]
+                and gerr[worst] <= VISION_TOL["grad"])
+            checks[f"{name}: no port kernel in eval"] = not any(
+                counts.values())
+            checks[f"{name}: at most {VISION_MAX_FLIPS} ReLU inputs moved "
+                   f"to the card's side, each within {VISION_KINK_TOL} of "
+                   f"its kink"] = len(h[4]) <= VISION_MAX_FLIPS and max(
+                       h[4], default=0.0) <= VISION_KINK_TOL
+            del card_m
+        # MobileNetV2's Dropout(0.2): R2's mask on the card = the CPU's
+        drop = models["mobilenet_v2"].classifier[0]
+        drop.train()
+        outs, fills = [], None
+        a = np.random.default_rng(5).standard_normal((64, 1280)).astype(
+            np.float32)
+        g = np.random.default_rng(6).standard_normal((64, 1280)).astype(
+            np.float32)
+        for dev in ("cuda", "cpu"):
+            pt.seed(11)
+            t = torch.tensor(a, device=dev, requires_grad=True)
+            if dev == "cuda":
+                zero_counts()
+            out = drop(t)
+            out.backward(torch.tensor(g, device=dev))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                fills = read_counts()["r2_dropout"]
+            outs.append((out.detach().cpu(), t.grad.cpu()))
+        same = torch.equal(outs[0][0], outs[1][0]) and torch.equal(
+            outs[0][1], outs[1][1])
+        kept = (outs[1][0] != 0).float().mean().item()
+        log(f"vision_parity dropout p 0.2 on [64, 1280]: kept {kept:.4f}; "
+            f"output and input gradient bit for bit the CPU's {same}; R2 "
+            f"dropout launches {fills}")
+        checks["MobileNetV2's dropout: mask and gradient bit for bit the "
+               "CPU's, R2 forward 1 + backward 1"] = same and fills == 2
+        # the detection ops
+        pt.set_device("gpu")
+        boxes = np.random.default_rng(7).uniform(0, 60, (500, 2))
+        boxes = np.concatenate([boxes, boxes + np.random.default_rng(8)
+                                .uniform(2, 30, (500, 2))], 1).astype(
+            np.float32)
+        scores = np.random.default_rng(9).choice(
+            np.linspace(0.05, 0.95, 19), 500).astype(np.float32)
+        keep = [vo.nms(torch.tensor(boxes, device=dev), 0.5,
+                       torch.tensor(scores, device=dev)).cpu()
+                for dev in ("cuda", "cpu")]
+        log(f"vision_parity nms: 500 boxes, scores with ties, kept "
+            f"{keep[0].numel()}, equal to the CPU's "
+            f"{torch.equal(*keep)}")
+        checks["nms: indices equal to the CPU's"] = torch.equal(*keep)
+        fails = []
+        for name, fn, inputs, diff in vision_op_rows(torch, np):
+            co, cg = vision_op_run(torch, np, fn, inputs, diff, "cuda")
+            ho, hg = vision_op_run(torch, np, fn, inputs, diff, "cpu")
+            fin = torch.isfinite(ho)
+            err = nn_scaled_err(torch, torch.where(fin, co.cpu(), 0.0),
+                                torch.where(fin, ho, 0.0), 1e-30)
+            same_inf = torch.equal(torch.isfinite(co.cpu()), fin)
+            gerr = max(nn_scaled_err(torch, a, b, 1e-30)
+                       for a, b in zip(cg, hg))
+            log(f"vision_parity {name}: value {err:.3g}, input gradients "
+                f"{gerr:.3g} of their largest")
+            if not (err <= VISION_TOL["op"] and same_inf
+                    and gerr <= VISION_TOL["op_grad"]):
+                fails.append(name)
+        checks[f"detection ops within {VISION_TOL['op']} (values) and "
+               f"{VISION_TOL['op_grad']} (gradients)"] = not fails
+        # a JPEG written here, read to the card and decoded
+        with tempfile.TemporaryDirectory() as tmp:
+            from PIL import Image
+            path = os.path.join(tmp, "img.jpg")
+            Image.fromarray(np.random.default_rng(10).integers(
+                0, 256, (37, 53, 3)).astype(np.uint8)).save(path,
+                                                             quality=90)
+            raw = vo.read_file(path)
+            img = vo.decode_jpeg(raw)
+            pt.set_device("cpu")
+            ref = vo.decode_jpeg(vo.read_file(path))
+        same = img.numpy().tobytes() == ref.numpy().tobytes()
+        log(f"vision_parity decode_jpeg: {list(img.shape)} on "
+            f"{img.value.device}, bytes equal to the CPU's {same}")
+        checks["decode_jpeg: the card's bytes the CPU's"] = same and \
+            img.value.device.type == "cuda"
+        spec = [vision_spectra(torch, np, pt, dev) for dev in ("cuda", "cpu")]
+        serr = {k: nn_scaled_err(torch, torch.view_as_real(v).cpu()
+                                 if v.is_complex() else v.cpu(),
+                                 torch.view_as_real(spec[1][k])
+                                 if v.is_complex() else spec[1][k])
+                for k, v in spec[0].items()}
+        log(f"vision_parity fft and signal: card against CPU "
+            f"{ {k: float(f'{v:.3g}') for k, v in serr.items()} }")
+        checks[f"fft and signal within {VISION_TOL['spectral']}"] = \
+            max(serr.values()) <= VISION_TOL["spectral"]
+    finally:
+        tdevice._default[0] = None
+    log(f"vision_parity phase {time.perf_counter() - t_phase:.1f} s; "
+        f"checks {checks}")
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"vision_parity: check failed: {name}")
+
+
+def vision_steps(torch, pt, model, opt, x, y, tag):
+    """``VISION["warmup"]`` steps, then ``VISION["steps"]`` timed with the
+    counters zeroed just before and read just after, then one traced by
+    the port's profiler inside a ``RecordEvent``: (losses, ms a step,
+    counts, peak GiB, trace kernels {name: [n, ms]}, the range seen,
+    traced ms)."""
+    from paddle_tpu_torch.profiler import Profiler, RecordEvent
+    F = pt.nn.functional
+    model.train()
+
+    def step():
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    losses = [step() for _ in range(VISION["warmup"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(VISION["steps"]):
+        losses.append(step())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = Profiler()
+    with prof:
+        t1 = time.perf_counter()
+        with RecordEvent(f"{tag}_train_step"):
+            losses.append(step())
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t1) * 1e3
+    kernels, ranges = trace_events(prof.export())
+    return ([v.item() for v in losses], wall / VISION["steps"] * 1e3,
+            counts, peak, kernels, f"{tag}_train_step" in ranges, traced_ms)
+
+
+def vision_rate_witness(torch, pt, x, y):
+    """ResNet-50 at PaddleClas's own rate, ``Momentum(0.1, 0.9)`` with L2
+    1e-4, from seed 0's weights on the fixed batch, beside plain torch:
+    ``VISION["witness_steps"]`` steps of the port; before each, a twin
+    with torch's ``F.batch_norm`` (cuDNN) in place of the port's batch
+    norm takes the port's weights and velocity and one
+    ``torch.optim.SGD(momentum=0.9, weight_decay=1e-4)`` step. Then the
+    twin runs free from the same weights with SGD. Returns (the port's
+    losses, the twin's free losses, the largest loss difference of a
+    step and the largest parameter difference after a step, in
+    ``WITNESS_TOL``'s measures)."""
+    import copy
+    import functools
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import models as vm
+    F = pt.nn.functional
+    lr, mu, wd = VISION["witness_lr"], 0.9, 1e-4
+    pt.seed(0)
+    model = vm.resnet50()
+    model.train()
+    twin = copy.deepcopy(model)
+
+    def plain_bn(m, v):
+        return torch.nn.functional.batch_norm(
+            v, None, None, m.weight, m.bias, training=True, eps=m.epsilon)
+
+    for m in twin.sublayers():
+        if isinstance(m, pt.nn.BatchNorm2D):
+            m.forward = functools.partial(plain_bn, m)
+    params, tparams = list(model.parameters()), list(twin.parameters())
+    init = [p.detach().clone() for p in params]
+    opt = Momentum(learning_rate=lr, momentum=mu, parameters=params,
+                   weight_decay=wd)
+    losses, loss_err, upd_err = [], 0.0, 0.0
+    for _ in range(VISION["witness_steps"]):
+        vel = opt.state_dict().get("state", {}).get("velocity")
+        sgd = torch.optim.SGD(tparams, lr=lr, momentum=mu, weight_decay=wd)
+        with torch.no_grad():
+            for i, (p, q) in enumerate(zip(params, tparams)):
+                q.copy_(p)
+                if vel is not None:
+                    sgd.state[q]["momentum_buffer"] = vel[str(i)].clone()
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        tloss = torch.nn.functional.cross_entropy(twin(x), y)
+        tloss.backward()
+        sgd.step()
+        sgd.zero_grad(set_to_none=True)
+        losses.append(loss.item())
+        loss_err = max(loss_err, abs(tloss.item() - loss.item())
+                       / max(1.0, abs(loss.item())))
+        vel = opt.state_dict()["state"]["velocity"]
+        with torch.no_grad():
+            diff = sum((q - p).double().square().sum()
+                       for p, q in zip(params, tparams))
+            step = sum(v.double().square().sum() for v in vel.values())
+            upd_err = max(upd_err, (diff / step).sqrt().item() / lr)
+    del model, opt
+    with torch.no_grad():
+        for q, a in zip(tparams, init):
+            q.copy_(a)
+    sgd = torch.optim.SGD(tparams, lr=lr, momentum=mu, weight_decay=wd)
+    free = []
+    for _ in range(VISION["witness_steps"]):
+        tloss = torch.nn.functional.cross_entropy(twin(x), y)
+        tloss.backward()
+        sgd.step()
+        sgd.zero_grad(set_to_none=True)
+        free.append(tloss.item())
+    return losses, free, loss_err, upd_err
+
+
+def write_jpeg_classes(np, root, n, size, classes):
+    """``n`` seeded ``size`` x ``size`` RGB JPEGs in ``classes`` class
+    folders under ``root`` (smooth gradients plus noise, as photos
+    compress)."""
+    from PIL import Image
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    for i in range(n):
+        d = os.path.join(root, f"class{i % classes}")
+        os.makedirs(d, exist_ok=True)
+        base = rng.uniform(0, 255, 3)[None, None, :] * (
+            0.5 + 0.5 * np.stack([yy, xx, 1 - yy], -1))
+        img = np.clip(base + rng.normal(0, 12, (size, size, 3)), 0, 255)
+        Image.fromarray(img.astype(np.uint8)).save(
+            os.path.join(d, f"{i:04d}.jpg"), quality=90)
+
+
+def phase_vision(torch, np, card, record):
+    """Phase vision (docstring item 47)."""
+    import gc
+    import tempfile
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.ops.kernels import multi_tensor_adam as mta
+    from paddle_tpu_torch.optimizer import AdamW, Momentum
+    from paddle_tpu_torch.vision import datasets, transforms as T
+    from paddle_tpu_torch.vision import models as vm
+    from paddle_tpu_torch.vision import ops as vo
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = {}
+    B, S, n = VISION["B"], VISION["size"], VISION["steps"]
+    log(f"vision: f32, cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+        f"batch {B} x 3 x {S} x {S}, {VISION['warmup']} warm-up, {n} timed "
+        f"and 1 traced step on one fixed batch from seed 0")
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.standard_normal((B, 3, S, S)).astype(np.float32),
+                     device="cuda")
+    y = torch.tensor(rng.integers(0, 1000, B), device="cuda")
+    results = {}
+    for name in ("resnet50", "mobilenet_v2"):
+        pt.seed(0)
+        model = getattr(vm, name)()
+        n_params = sum(p.numel() for p in model.parameters())
+        if name == "resnet50":
+            opt = Momentum(learning_rate=VISION["lr"], momentum=0.9,
+                           parameters=model.parameters(), weight_decay=1e-4)
+            desc = f"Momentum({VISION['lr']}, 0.9), weight decay 1e-4"
+        else:
+            opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+            desc = "AdamW(1e-3)"
+        losses, step_ms, counts, peak_gb, kernels, ranged, traced_ms = \
+            vision_steps(torch, pt, model, opt, x, y, name)
+        busy = sum(ms for _, ms in kernels.values())
+        launches = sum(k for k, _ in kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
+        n_tensors = len(list(model.parameters()))
+        drops = sum(1 for m in model.sublayers()
+                    if isinstance(m, pt.nn.Dropout) and m.p > 0)
+        # what the code launches: one fused AdamW step a step, R2's
+        # dropout once a Dropout forward and once its backward
+        want = {"opt": n if name == "mobilenet_v2" else 0,
+                "opt_kernels": n * mta.kernels_per_step(n_tensors, False)
+                if name == "mobilenet_v2" else 0,
+                "r2_dropout": 2 * drops * n, "r2_fill": 0}
+        got = {k: counts[k] for k in want}
+        others = {k: v for k, v in counts.items() if v and k not in want}
+        log(f"vision {name} ({n_params} parameters, 1000 classes, {desc}) "
+            f"[{card}]: {step_ms:.1f} ms a step, {B / step_ms * 1e3:.0f} "
+            f"images/s, peak {peak_gb:.2f} GiB; the traced step's kernels "
+            f"{busy:.1f} ms in {launches} launches: device busy "
+            f"{100 * busy / step_ms:.1f}% of an untraced step "
+            f"({100 * busy / traced_ms:.1f}% of the traced step's "
+            f"{traced_ms:.1f} ms wall); losses "
+            f"{[round(v, 4) for v in losses]}")
+        log(f"vision {name} launches over {n} steps: {got}, want {want} "
+            f"({drops} Dropout layers, {n_tensors} tensors); other kernels "
+            f"{others}; the most time in: " + ", ".join(
+                f"{k[:70]} {ms:.3f} ms ({c}x)" for k, (c, ms) in top))
+        checks[f"{name}: losses finite and falling"] = \
+            all(np.isfinite(losses)) and losses[-1] < losses[0]
+        checks[f"{name}: launches {want}, no other port kernel"] = \
+            got == want and not others
+        checks[f"{name}: the trace holds the RecordEvent"] = ranged
+        results[name] = (step_ms, counts)
+        del model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name == "resnet50":
+            wl, free, loss_err, upd_err = vision_rate_witness(torch, pt, x, y)
+            log(f"vision resnet50 at Momentum({VISION['witness_lr']}, 0.9), "
+                f"weight decay 1e-4 [{card}]: the port's losses "
+                f"{[round(v, 4) for v in wl]}; a step of torch.optim.SGD "
+                f"over torch's batch_norm from the port's state: loss "
+                f"within {loss_err:.3g}, parameters within {upd_err:.3g}; "
+                f"run free {[round(v, 4) for v in free]}")
+            checks[f"resnet50 at {VISION['witness_lr']}: each step torch's "
+                   f"SGD and batch norm's within {WITNESS_TOL}, and both "
+                   f"rise"] = (
+                loss_err <= WITNESS_TOL["loss"]
+                and upd_err <= WITNESS_TOL["update"]
+                and wl[-1] > wl[0] and free[-1] > free[0])
+            gc.collect()
+            torch.cuda.empty_cache()
+    record["multi_tensor_adam"]["vision_launches"] = \
+        results["mobilenet_v2"][1]["opt"]
+    record["threefry_fill"]["vision_launches"] = \
+        results["mobilenet_v2"][1]["r2_dropout"]
+    # the data path: JPEGs -> DatasetFolder -> transforms -> DataLoader
+    # workers -> hapi.Model.fit, MobileNetV2 under AdamW
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_jpeg_classes(np, tmp, VISION["jpegs"], VISION["jpeg_size"],
+                           VISION["classes"])
+        write_s = time.perf_counter() - t0
+        tf = T.Compose([T.RandomResizedCrop(S), T.RandomHorizontalFlip(),
+                        T.ToTensor(), T.Normalize(VISION_MEAN, VISION_STD)])
+        ds = datasets.DatasetFolder(tmp, transform=tf)
+        loader = DataLoader(ds, batch_size=B, shuffle=True, drop_last=True,
+                            num_workers=VISION["workers"])
+        t0 = time.perf_counter()
+        shapes = [tuple(b[0].shape) for b in loader]
+        load_s = time.perf_counter() - t0
+        pt.seed(0)
+        net = vm.mobilenet_v2(num_classes=VISION["classes"])
+        model = Model(net)
+        model.prepare(optimizer=AdamW(learning_rate=1e-3,
+                                      parameters=net.parameters()),
+                      loss=pt.nn.CrossEntropyLoss())
+        rec = FitRecorder()
+        zero_counts()
+        t0 = time.perf_counter()
+        model.fit(loader, epochs=1, verbose=0, callbacks=[rec])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = read_counts()
+    steps = len(rec.losses)
+    waits = [b - e for b, e in zip(rec.begins[1:], rec.ends[:-1])]
+    fit_want = {"opt": steps, "r2_dropout": 2 * steps, "r2_fill": 0}
+    log(f"vision data path [{card}]: {VISION['jpegs']} JPEGs "
+        f"{VISION['jpeg_size']} x {VISION['jpeg_size']} written in "
+        f"{write_s:.2f} s; DatasetFolder + RandomResizedCrop({S}), "
+        f"RandomHorizontalFlip, ToTensor, Normalize through DataLoader("
+        f"num_workers={VISION['workers']}): one epoch alone {shapes} in "
+        f"{load_s:.2f} s, {VISION['jpegs'] / load_s:.0f} images/s (the "
+        f"workers' start included); Model.fit: {steps} steps in "
+        f"{fit_s:.2f} s, {B * steps / fit_s:.0f} images/s, losses "
+        f"{[round(v, 4) for v in rec.losses]}, the loader's wait before "
+        f"step 2 {1e3 * max(waits, default=0.0):.1f} ms; launches "
+        f"{ {k: counts[k] for k in fit_want} }, want {fit_want}; the timed "
+        f"MobileNetV2 step {results['mobilenet_v2'][0]:.1f} ms, "
+        f"{B / results['mobilenet_v2'][0] * 1e3:.0f} images/s")
+    checks["fit: 2 steps, finite losses, launches as counted"] = (
+        steps == VISION["jpegs"] // B and all(np.isfinite(rec.losses))
+        and {k: counts[k] for k in fit_want} == fit_want
+        and all(s == (B, 3, S, S) for s in shapes))
+    del model, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the detection ops at a detector's widths
+    rng = np.random.default_rng(1)
+    nb, (N, C, H, W) = VISION["roi_boxes"], VISION["roi_map"]
+    scale = 1.0 / VISION["roi_stride"]
+    feat = torch.tensor(rng.standard_normal((N, C, H, W)).astype(np.float32),
+                        device="cuda", requires_grad=True)
+    xy = rng.uniform(0, [W / scale * 0.8, H / scale * 0.8], (N * nb, 2))
+    wh = rng.uniform(16, 256, (N * nb, 2))
+    boxes = torch.tensor(np.concatenate([xy, xy + wh], 1).astype(
+        np.float32), device="cuda")
+    num = torch.tensor([nb] * N, dtype=torch.int32)
+    nxy = rng.uniform(0, 1000, (VISION["nms_boxes"], 2))
+    nms_boxes = torch.tensor(np.concatenate(
+        [nxy, nxy + rng.uniform(16, 256, (VISION["nms_boxes"], 2))], 1
+    ).astype(np.float32), device="cuda")
+    nms_scores = torch.tensor(rng.uniform(0, 1, VISION["nms_boxes"]).astype(
+        np.float32), device="cuda")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    timings = {}
+
+    def detect(what):
+        if what == "roi_align":
+            out = vo.roi_align(feat, boxes, num, 7, spatial_scale=scale)
+            torch.cuda.synchronize()
+            fwd = time.perf_counter()
+            out.sum().backward()
+            return out, fwd
+        return vo.nms(nms_boxes, 0.5, nms_scores), None
+
+    for what in ("roi_align", "nms"):
+        # the card's kernels counted under the profiler, then timed alone
+        zero_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            detect(what)
+            torch.cuda.synchronize()
+        kernels = sum(e.count for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, fwd = detect(what)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        timings[what] = (ms, kernels, read_counts(),
+                         (fwd - t0) * 1e3 if fwd else None, out)
+    ra, nm = timings["roi_align"], timings["nms"]
+    log(f"vision detection widths [{card}]: roi_align of {N} x {nb} boxes "
+        f"on [{N}, {C}, {H}, {W}] at 7 x 7 (1/{VISION['roi_stride']}, "
+        f"adaptive grid) -> {list(ra[4].shape)}: forward {ra[3]:.1f} ms, "
+        f"with backward {ra[0]:.1f} ms, {ra[1]} card kernels; nms of "
+        f"{VISION['nms_boxes']} boxes (host numpy) {nm[0]:.1f} ms, "
+        f"{nm[1]} card kernels, kept {nm[4].numel()}")
+    checks["detection widths: no port kernel launched"] = not any(
+        ra[2].values()) and not any(nm[2].values())
+    log(f"vision checks {checks}")
+    for name, good in checks.items():
+        if not good:
+            raise SystemExit(f"vision: check failed: {name}")
 
 
 def profile_once(torch, fn, card, what="train", unit="step"):
@@ -11186,6 +11901,11 @@ def main():
         timed("moe", phase_moe, torch, np, card, peak, record)
     if "host" in phases:
         timed("host", phase_host, torch, np, card)
+    if "vision_parity" in phases:
+        timed("vision_parity", phase_vision_parity, torch, np, card)
+    if "vision" in phases:
+        torch.cuda.empty_cache()
+        timed("vision", phase_vision, torch, np, card, record)
     log(json.dumps({"kernels": list(record.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -57,6 +57,11 @@ What runs on the card:
   ``TCPStore``, ``ShmRing``, which carries ``io.DataLoader``'s native
   ring), ``profiler`` (over ``torch.profiler``), ``cost_model``,
   ``sysconfig``;
+- vision (``vision``: ``transforms``, ``datasets``, the model zoo of
+  ``models`` — LeNet, VGG, ResNet / ResNeXt / wide, AlexNet, MobileNet
+  v1 / v2 / v3, SqueezeNet, DenseNet, GoogLeNet, InceptionV3,
+  ShuffleNetV2 — and the detection ``ops``), ``fft``, ``signal`` and
+  ``linalg``;
 - randomness: ``jax.random``'s threefry stream (``core.prng``,
   ``seed`` / ``get_rng_state`` / ``set_rng_state``): the uniform family
   bit for bit, the normal family within 3 ulps.
@@ -126,7 +131,8 @@ del _g
 # port has the package)
 _LAZY = ("parallel", "models", "incubate", "static", "inference",
          "quantization", "telemetry", "regularizer", "callbacks", "utils",
-         "runtime", "profiler", "reader", "cost_model", "sysconfig")
+         "runtime", "profiler", "reader", "cost_model", "sysconfig",
+         "vision", "fft", "signal", "linalg")
 
 
 def __getattr__(name):

@@ -104,7 +104,7 @@ class Model:
 
     # ------------------------------------------------------------- build
     def _device(self):
-        p = next(self.network.parameters(), None)
+        p = next(iter(self.network.parameters()), None)
         return p.device if p is not None else torch.device("cpu")
 
     def _loss_of(self, inputs, labels, rng):

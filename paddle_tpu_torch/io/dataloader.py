@@ -28,6 +28,8 @@ import multiprocessing
 import numpy as np
 import torch
 
+from ..core.tensor import Tensor
+
 __all__ = ["Dataset", "IterableDataset", "TensorDataset", "Subset",
            "random_split", "ComposeDataset", "ChainDataset", "DataLoader",
            "BatchSampler", "Sampler", "SequenceSampler", "RandomSampler",
@@ -258,10 +260,14 @@ def get_worker_info():
 
 
 def default_collate_fn(batch):
-    """Stack samples into batched numpy arrays / CPU tensors."""
+    """Stack samples into batched numpy arrays / CPU tensors (paddle
+    ``Tensor`` samples, as ``vision.transforms.ToTensor`` makes them,
+    into one torch tensor)."""
     sample = batch[0]
     if isinstance(sample, torch.Tensor):
         return torch.stack(batch)
+    if isinstance(sample, Tensor):
+        return torch.stack([s._value for s in batch])
     if isinstance(sample, np.ndarray):
         return np.stack(batch)
     if isinstance(sample, (int, float)):

@@ -7,8 +7,8 @@ from . import bert, dit, qwen_vl  # noqa: F401
 from .bert import (BertConfig, BertForPretraining,  # noqa: F401
                    BertForSequenceClassification, BertModel, bert_base,
                    bert_tiny)
-from .bridge import (export_optimizer_state, export_params,
-                     load_jax_params, load_optimizer_state)
+from .bridge import (export_buffers, export_optimizer_state,
+                     export_params, load_jax_params, load_optimizer_state)
 from .dit import (DiT, DiTConfig, DiTForDiffusion, dit_s_4,  # noqa: F401
                   dit_tiny)
 from .gpt import GPTConfig, GPTForCausalLM, gpt2_345m, gpt2_tiny
@@ -28,4 +28,4 @@ __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama2_7b",
            "DiTConfig", "DiT", "DiTForDiffusion", "dit_s_4", "dit_tiny",
            "ViTConfig", "VisionTransformer", "QwenVLConfig", "QwenVL",
            "qwen_vl_tiny", "load_jax_params", "export_params",
-           "export_optimizer_state", "load_optimizer_state"]
+           "export_buffers", "export_optimizer_state", "load_optimizer_state"]
